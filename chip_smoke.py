@@ -1,0 +1,339 @@
+"""Chip smoke test of the PyTorch/CUDA port (``windflow_tpu_torch``) on one
+NVIDIA card.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Phases, each printing one line of its own:
+
+1. device: the card's name and power limit (``nvidia-smi``) and
+   ``torch.cuda.get_device_name``;
+2. build: compiles the hand-written kernels from the sources in this
+   checkout (``windflow_tpu_torch/kernels/*.cu``, ``nvcc`` for sm_90a);
+3. kernels: each kernel against its plain PyTorch version on CUDA tensors
+   at the main path's shapes and a few edge shapes; results must be
+   bit-identical; median time with CUDA events (L2 flushed before each
+   launch), the plain version's time and the memory bound;
+4. main path, high cardinality (``bench.py``'s HC config: 10,240 keys,
+   TB window 100 ms / slide 25 ms, 65,536-tuple int32 batches, watermark
+   advancing every batch, ``fieldwise(value="sum")``) through
+   ``PipeGraph`` on ``cuda``; the same stream through the port on the CPU
+   must give identical window rows; the rebuild kernel must have run;
+5. main path, 64 keys (``bench.py``'s base config, 128 windows per batch);
+
+then the ``{"kernels": [...]}`` line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed phase raises: the script
+exits non-zero and prints no result. It needs ``torch.cuda.is_available()``
+and the ``windflow_tpu_torch`` package beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+
+TS_STEP, AGG_RATE_KEYS = 50, 64  # bench.py: event time per tuple
+WIN_US, SLIDE_US = 100_000, 25_000
+BATCH = 65_536
+N_BATCHES = 24
+WARMUP = 4
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def phase(name: str, **fields) -> None:
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+def device_phase(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail("nvidia-smi: " + smi.stderr.strip())
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    name = torch.cuda.get_device_name(0)
+    phase("device", nvidia_smi=card, torch_name=name,
+          count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda)
+    return card, name
+
+
+def build_phase():
+    from windflow_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    build.load_library("forest_rebuild")
+    info = build.BUILD_INFO["forest_rebuild"]
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if "registers" in ln or "smem" in ln or "spill" in ln]
+    phase("build", kernel="forest_rebuild",
+          nvcc_s=round(info["seconds"], 3),
+          total_s=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+
+
+# ---------------------------------------------------------------------------
+def _forest(torch, K, F, spec, gen):
+    """Random (trees, tvalid) on the card: leaves random, stale internals
+    random too, validity random."""
+    trees = {}
+    for i, (dt, _op) in enumerate(spec):
+        if dt == "int32":
+            t = torch.randint(-2**20, 2**20, (K, 2 * F), generator=gen,
+                              dtype=torch.int32)
+        else:
+            t = torch.randn((K, 2 * F), generator=gen, dtype=torch.float32)
+        trees[f"f{i}"] = t.cuda()
+    tvalid = (torch.rand((K, 2 * F), generator=gen) < 0.6).cuda()
+    return trees, tvalid
+
+
+def _clone(trees, tvalid):
+    return {k: v.clone() for k, v in trees.items()}, tvalid.clone()
+
+
+def _time_ms(torch, fn, reps, flush):
+    """Median ms of ``fn`` with CUDA events, the L2 flushed before each."""
+    out = []
+    for _ in range(reps):
+        flush.zero_()
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    out.sort()
+    return out[len(out) // 2]
+
+
+def kernel_phase(torch):
+    from windflow_tpu_torch.combines import fieldwise
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    from windflow_tpu_torch.kernels.reference import forest_rebuild_ref
+    gen = torch.Generator().manual_seed(1234)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    specs = {
+        "int32_sum": [("int32", "sum")],
+        "float32_sum": [("float32", "sum")],
+        "minmax_pairs": [("float32", "min"), ("float32", "max"),
+                         ("int32", "min"), ("int32", "max")],
+    }
+    # main-path shapes first: 10,240 keys -> K_cap 16,384 and 64 keys, F=32
+    shapes = [(16384, 32), (64, 32), (4, 8), (256, 1024), (8, 65536)]
+    timing = None
+    max_err = 0.0
+    for K, F in shapes:
+        for sname, spec in specs.items():
+            comb = fieldwise(**{f"f{i}": op for i, (_, op) in
+                                enumerate(spec)})
+            trees, tvalid = _forest(torch, K, F, spec, gen)
+            kt, kv = _clone(trees, tvalid)
+            rt, rv = _clone(trees, tvalid)
+            fr.forest_rebuild(kt, kv, comb)
+            forest_rebuild_ref(rt, rv, comb)
+            torch.cuda.synchronize()
+            same = torch.equal(kv, rv) and all(
+                torch.equal(kt[k].view(torch.int32), rt[k].view(torch.int32))
+                for k in kt)
+            max_err = max([max_err] + [
+                (kt[k].double() - rt[k].double()).abs().max().item()
+                for k in kt])
+            if not same:
+                fail(f"forest_rebuild differs from its plain version at "
+                     f"K_cap={K} F={F} {sname}")
+            row = {"K_cap": K, "F": F, "fields": sname, "bit_identical": True}
+            if sname == "int32_sum" and F <= 1024:
+                # leaves [F, 2F) read and internals [1, F) written, each
+                # node one value per field plus one validity byte
+                field_bytes = sum(4 for _ in spec)
+                bound_ms = (K * (2 * F - 1) * (field_bytes + 1)
+                            / PEAK_BYTES_PER_S * 1e3)
+                ms = _time_ms(torch, lambda: fr.forest_rebuild(kt, kv, comb),
+                              30, flush)
+                plain = _time_ms(torch, lambda: forest_rebuild_ref(
+                    rt, rv, comb), 10, flush)
+                row.update(ms=ms, plain_ms=plain, bound_ms=bound_ms)
+                if timing is None:
+                    timing = row
+            phase("kernel_check", **row)
+    del flush
+    timing["max_abs_err"] = max_err
+    return timing
+
+
+# ---------------------------------------------------------------------------
+def _blocks(n_keys, seed):
+    """``bench.py``'s staged stream: int32 (key, value) batches, event time
+    TS_STEP/AGG_RATE_KEYS us per tuple, watermark advancing every batch."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out, ts0 = [], 0
+    for _ in range(N_BATCHES):
+        keys = rng.integers(0, n_keys, BATCH).astype(np.int32)
+        vals = rng.integers(0, 100, BATCH).astype(np.int32)
+        ts = ts0 + np.arange(BATCH, dtype=np.int64) * TS_STEP // AGG_RATE_KEYS
+        ts0 = int(ts[-1]) + TS_STEP
+        out.append(({"key": keys, "value": vals}, ts,
+                    max(0, int(ts[0]) - 1)))
+    return out
+
+
+def _run_graph(wt, device, blocks, n_keys, win_per_batch):
+    """Columnar source -> Ffat_Windows_GPU -> columnar sink; returns the
+    window columns (sorted by key, wid), timing marks and the replica."""
+    import numpy as np
+    t_yield, t_in, t_recv = {}, {}, {}
+    parts, lock = [], threading.Lock()
+
+    def source():
+        for cols, ts, wm in blocks:
+            t_yield[wm] = time.perf_counter()
+            yield cols, ts, wm
+
+    def sink(cols, ts):
+        if cols is None:
+            return
+        now = time.perf_counter()
+        with lock:
+            parts.append({"ts": ts.copy(),
+                          **{k: v.copy() for k, v in cols.items()}})
+            t_recv[int(ts[0])] = now
+
+    graph = wt.PipeGraph("chip_smoke", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    b = (wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
+                                     wt.fieldwise(value="sum"))
+         .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
+         .with_key_capacity(n_keys))
+    if win_per_batch:
+        b = b.with_num_win_per_batch(win_per_batch)
+    op = b.build()
+    graph.add_source(wt.Columnar_Source_Builder(source)
+                     .with_output_batch_size(BATCH).build()) \
+        .add(op).add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.get_num_threads()  # builds the replicas
+    rep = op.replicas[0]
+    prep = rep.prep_device_batch
+
+    def timed_prep(batch):  # the operator starts a batch (fire latency)
+        t_in[batch.wm] = time.perf_counter()
+        return prep(batch)
+
+    rep.prep_device_batch = timed_prep
+    t0 = time.perf_counter()
+    graph.run()
+    wall = time.perf_counter() - t0
+    cols = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    order = np.lexsort((cols["wid"], cols["key"]))
+    cols = {k: v[order] for k, v in cols.items()}
+    return cols, t_yield, t_in, t_recv, wall, rep
+
+
+def main_path_phase(torch, wt, name, n_keys, win_per_batch):
+    import numpy as np
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(n_keys, seed=7)
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    gcols, t_yield, t_in, t_recv, wall, rep = _run_graph(
+        wt, "cuda", blocks, n_keys, win_per_batch)
+    launches = fr.LAUNCHES
+    if launches == 0 or rep.stats.rebuild_kernel_launches != launches:
+        fail(f"{name}: the rebuild kernel did not run on the main path "
+             f"(wrapper {launches}, replica "
+             f"{rep.stats.rebuild_kernel_launches})")
+    ccols, *_ = _run_graph(wt, "cpu", blocks, n_keys, win_per_batch)
+    if gcols.keys() != ccols.keys() or len(gcols["key"]) != len(
+            ccols["key"]):
+        fail(f"{name}: window rows differ in shape from the CPU run")
+    for k in ("key", "wid", "valid", "ts"):
+        if not np.array_equal(gcols[k], ccols[k]):
+            fail(f"{name}: column {k!r} differs from the CPU run")
+    valid = gcols["valid"]
+    if not np.array_equal(gcols["value"][valid], ccols["value"][valid]):
+        fail(f"{name}: window values differ from the CPU run")
+    if not valid.any() or (gcols["value"][valid] < 0).any():
+        fail(f"{name}: no valid windows, or negative sums of values >= 0")
+    # throughput over the batches after the warm-up: from the yield of
+    # batch WARMUP to the delivery of the last batch's windows; each window
+    # row carries ts == the watermark of the batch that fired it. Fire
+    # latency: the operator starts a firing batch -> its last window row
+    # reaches the sink (the dispatch and D2H pipelines' lag included)
+    wms = [wm for _, _, wm in blocks]
+    lat = sorted(t_recv[wm] - t_in[wm] for wm in wms[WARMUP:]
+                 if wm in t_recv)
+    t_end = max(t_recv[wm] for wm in wms if wm in t_recv)
+    span = t_end - t_yield[wms[WARMUP]]
+    n_win = int(np.isin(gcols["ts"], wms[WARMUP:]).sum())
+    firing = sum(wm in t_recv for wm in wms)
+    row = dict(config=name, keys=n_keys, batches=N_BATCHES, batch=BATCH,
+               windows_total=int(len(gcols["key"])),
+               valid_windows=int(valid.sum()),
+               rebuild_launches=launches, firing_batches=firing,
+               device_programs=rep.stats.device_programs_run,
+               tuples_per_s=(N_BATCHES - WARMUP) * BATCH / span,
+               windows_per_s=n_win / span,
+               fire_latency_p50_ms=1e3 * lat[len(lat) // 2],
+               fire_latency_p99_ms=1e3 * lat[min(len(lat) - 1,
+                                                 int(0.99 * len(lat)))],
+               firing_batches_timed=len(lat), wall_s=wall,
+               rows_equal_cpu=True)
+    return row, launches
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a "
+             "CUDA card")
+    if not os.path.isdir(os.path.join(HERE, "windflow_tpu_torch")):
+        fail("the windflow_tpu_torch package is not beside chip_smoke.py")
+    sys.path.insert(0, HERE)
+    import windflow_tpu_torch as wt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card, name = device_phase(torch)
+    build_phase()
+    timing = kernel_phase(torch)
+    hc, hc_launches = main_path_phase(torch, wt, "high_cardinality",
+                                      10_240, None)
+    phase("main_path", **hc)
+    base, base_launches = main_path_phase(torch, wt, "64_keys", 64, 128)
+    phase("main_path", **base)
+    print(json.dumps({"kernels": [{
+        "name": "forest_rebuild",
+        "route": "cuda",
+        "source": "windflow_tpu_torch/kernels/forest_rebuild.cu",
+        "replaces": "windflow_tpu/tpu/pallas_kernels.py:29",
+        "launches": hc_launches + base_launches,
+        "max_abs_err": timing["max_abs_err"],
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,108 @@
+"""Core enums, constants and small helpers of the PyTorch port.
+
+A trimmed copy of ``windflow_tpu/basic.py`` (the port imports nothing of
+the JAX package): the enums mirror ``wf/basic.hpp:78-93``, the watermark
+cadence mirrors ``wf/basic.hpp:199-216`` and the channel capacity
+FastFlow's ``DEFAULT_BUFFER_CAPACITY``. Composite (multi-field) key
+extractors are not part of the port yet and raise.
+"""
+
+from __future__ import annotations
+
+import enum
+import os
+import time
+
+
+class ExecutionMode(enum.Enum):
+    """How out-of-order input is handled (``wf/basic.hpp:78-82``)."""
+
+    DEFAULT = "default"
+    DETERMINISTIC = "deterministic"
+    PROBABILISTIC = "probabilistic"
+
+
+class TimePolicy(enum.Enum):
+    """Where timestamps come from (``wf/basic.hpp:85-88``)."""
+
+    INGRESS_TIME = "ingress_time"
+    EVENT_TIME = "event_time"
+
+
+class WinType(enum.Enum):
+    """Window semantics (``wf/basic.hpp:91-93``)."""
+
+    CB = "count_based"
+    TB = "time_based"
+
+
+class RoutingMode(enum.Enum):
+    NONE = "none"
+    FORWARD = "forward"
+    KEYBY = "keyby"
+    BROADCAST = "broadcast"
+    REBALANCING = "rebalancing"
+
+
+class OpType(enum.Enum):
+    SOURCE = "source"
+    BASIC = "basic"
+    SINK = "sink"
+    GPU = "gpu"
+    WIN_GPU = "win_gpu"
+
+
+# --- watermark / punctuation cadence (wf/basic.hpp:199-216) -----------------
+DEFAULT_WM_INTERVAL_USEC = 100_000  # punctuation cadence: 100 ms
+DEFAULT_WM_AMOUNT = 64  # check elapsed time once every N emitted tuples
+
+# --- queue capacity (FastFlow DEFAULT_BUFFER_CAPACITY) ----------------------
+DEFAULT_BUFFER_CAPACITY = 2048
+
+
+def current_time_usecs() -> int:
+    """Microseconds from an arbitrary monotonic origin."""
+    return time.monotonic_ns() // 1_000
+
+
+def env_flag(name: str) -> bool:
+    """Consistent boolean env semantics: '1'/'true'/'yes'/'on' enable."""
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes",
+                                                        "on")
+
+
+class WindFlowError(RuntimeError):
+    """Topology / runtime error, raised so callers can assert on misuse."""
+
+
+class WorkerFailuresError(WindFlowError):
+    """Aggregate of several workers' errors (``PipeGraph.wait_end``)."""
+
+    def __init__(self, worker_errors) -> None:
+        self.worker_errors = dict(worker_errors)
+        parts = [f"{name} ({type(e).__name__}: {e})"
+                 for name, e in self.worker_errors.items()]
+        super().__init__(
+            f"{len(self.worker_errors)} workers died: " + "; ".join(parts))
+
+
+def as_key_fn(key):
+    """Normalize a key extractor: callables pass through; a string names a
+    tuple field (dataclass attribute or dict key)."""
+    if key is None or callable(key):
+        return key
+    if isinstance(key, str):
+        def field_key(payload, _name=key):
+            if isinstance(payload, dict):
+                return payload[_name]
+            return getattr(payload, _name)
+        return field_key
+    if isinstance(key, (tuple, list)):
+        raise WindFlowError("composite (multi-field) keys are not yet "
+                            "ported to windflow_tpu_torch")
+    raise WindFlowError(f"invalid key extractor: {key!r}")
+
+
+def key_field_name(key):
+    """The device column name of a key extractor, or None for callables."""
+    return key if isinstance(key, str) else None

@@ -1,0 +1,119 @@
+"""Fluent builders of the host-plane operators of the ported slice.
+
+Trimmed copy of ``windflow_tpu/builders.py`` (parity: ``wf/builders.hpp``):
+``Source_Builder``, ``Columnar_Source_Builder`` and ``Sink_Builder``. The
+device operator's builder is ``gpu.builders_gpu.Ffat_Windows_GPU_Builder``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+from .basic import RoutingMode, WindFlowError
+from .operators.basic_ops import Sink
+from .operators.source import Columnar_Source, Source
+
+
+class BasicBuilder:
+    """withName / withParallelism / withOutputBatchSize /
+    withClosingFunction (``wf/builders.hpp:79-124``)."""
+
+    _default_name = "op"
+
+    def __init__(self, func: Callable) -> None:
+        self._func = func
+        self._name = self._default_name
+        self._parallelism = 1
+        self._output_batch_size = 0
+        self._closing: Optional[Callable] = None
+
+    def with_name(self, name: str) -> "BasicBuilder":
+        self._name = name
+        return self
+
+    def with_parallelism(self, parallelism: int) -> "BasicBuilder":
+        if parallelism < 1:
+            raise WindFlowError("parallelism must be >= 1")
+        self._parallelism = parallelism
+        return self
+
+    def with_output_batch_size(self, size: int) -> "BasicBuilder":
+        if size < 0:
+            raise WindFlowError("output batch size must be >= 0")
+        self._output_batch_size = size
+        return self
+
+    def with_closing_function(self, fn: Callable) -> "BasicBuilder":
+        self._closing = fn
+        return self
+
+    def _finish(self, op):
+        op.closing_func = self._closing
+        return op
+
+
+class _RoutableBuilder(BasicBuilder):
+    """Adds withKeyBy / withRebalancing (``wf/builders.hpp:217-245``)."""
+
+    def __init__(self, func: Callable) -> None:
+        super().__init__(func)
+        self._routing = RoutingMode.FORWARD
+        self._key_extractor: Optional[Callable] = None
+
+    def with_key_by(self, key_extractor: Callable[[Any], Any]
+                    ) -> "_RoutableBuilder":
+        self._routing = RoutingMode.KEYBY
+        self._key_extractor = key_extractor
+        return self
+
+    def with_rebalancing(self) -> "_RoutableBuilder":
+        if self._routing is RoutingMode.KEYBY:
+            raise WindFlowError("withRebalancing is incompatible with "
+                                "withKeyBy")
+        self._routing = RoutingMode.REBALANCING
+        return self
+
+
+class Source_Builder(BasicBuilder):
+    _default_name = "source"
+
+    def build(self) -> Source:
+        return self._finish(Source(self._func, self._name, self._parallelism,
+                                   self._output_batch_size))
+
+
+class Columnar_Source_Builder(BasicBuilder):
+    """Builder for BLOCK sources: the functor yields ``cols`` /
+    ``(cols, ts)`` / ``(cols, ts, wm)`` column blocks (see
+    ``Columnar_Source``)."""
+
+    _default_name = "columnar_source"
+
+    def build(self) -> Columnar_Source:
+        return self._finish(Columnar_Source(
+            self._func, self._name, self._parallelism,
+            self._output_batch_size))
+
+
+class Sink_Builder(_RoutableBuilder):
+    _default_name = "sink"
+
+    def __init__(self, func: Callable) -> None:
+        super().__init__(func)
+        self._columns = False
+
+    def with_columns(self) -> "Sink_Builder":
+        """Columnar consumer: the functor becomes ``sink(cols, ts)`` with
+        host numpy columns; EOS delivers ``sink(None, None)``. Requires a
+        device-plane producer."""
+        self._columns = True
+        return self
+
+    def with_exactly_once(self, staging_dir: Optional[str] = None):
+        raise WindFlowError("exactly-once sinks are not yet ported to "
+                            "windflow_tpu_torch")
+
+    def build(self) -> Sink:
+        return self._finish(Sink(self._func, self._name, self._parallelism,
+                                 self._routing, self._key_extractor,
+                                 accepts_columns=self._columns))

@@ -1,0 +1,54 @@
+"""Field-wise combines for the FFAT window operator.
+
+The JAX package's Pallas kernel inlines any ``jnp`` combine; a CUDA C++
+kernel cannot take a Python callable. ``fieldwise(pq="sum", q="sum")``
+returns a ``Fieldwise`` combine: called on two dicts of tensors it is the
+torch combine the segmented scan, the leaf scatter and the window query
+use, and its ``ops`` carry the per-field op codes the forest-rebuild
+kernel folds with. An arbitrary torch callable still works on
+``device="cpu"``; on CUDA the builder refuses it (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .basic import WindFlowError
+
+#: op name -> (kernel op code, torch function)
+OPS = {
+    "sum": (0, torch.add),
+    "min": (1, torch.minimum),
+    "max": (2, torch.maximum),
+}
+
+
+class Fieldwise:
+    """Ordered per-field combine: ``{f: op(a[f], b[f])}`` (``a`` is the
+    earlier side; sum/min/max are commutative, the order is kept anyway)."""
+
+    def __init__(self, ops: Dict[str, str]) -> None:
+        if not ops:
+            raise WindFlowError("fieldwise: name at least one field")
+        bad = {f: op for f, op in ops.items() if op not in OPS}
+        if bad:
+            raise WindFlowError(f"fieldwise: unknown ops {bad}; expected "
+                                f"one of {sorted(OPS)}")
+        self.ops = dict(ops)
+
+    def __call__(self, a, b):
+        return {f: OPS[op][1](a[f], b[f]) for f, op in self.ops.items()}
+
+    def op_code(self, field: str) -> int:
+        return OPS[self.ops[field]][0]
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return "fieldwise(" + ", ".join(
+            f"{f}={op!r}" for f, op in self.ops.items()) + ")"
+
+
+def fieldwise(**ops: str) -> Fieldwise:
+    """``fieldwise(value="sum")``: the combine of a sliding-window sum."""
+    return Fieldwise(ops)

@@ -1,0 +1,56 @@
+"""State carried across from the JAX package — the counterpart of weights
+for this system.
+
+``ffat_state_from_jax(snap, device)`` takes the ``"ffat"`` dict of a JAX
+``FfatTPUReplica.snapshot_state()`` (numpy arrays plus Python values, the
+forest ``trees`` and ``tvalid`` included) and returns the dict
+``FfatGPUReplica.load_state`` installs, with the forest as tensors on
+``device``; both replicas then continue identically. This module takes the
+dict only: it imports neither ``jax`` nor ``windflow_tpu``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .basic import WindFlowError
+from .gpu.schema import canonical
+
+_HOST_ARRAYS = ("next_fire", "fired", "max_leaf", "count", "keys_np")
+_SCALARS = ("K_cap", "F", "keys_all_int", "saw_new_key", "leaf_frontier",
+            "fire_ewma", "rebuild_dirty", "ignored")
+
+
+def ffat_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
+    device = torch.device(device)
+    missing = [k for k in _HOST_ARRAYS + _SCALARS
+               + ("slot_of_key", "out_keys_by_slot", "key_dtype", "trees",
+                  "tvalid") if k not in snap]
+    if missing:
+        raise WindFlowError(f"ffat_state_from_jax: not a full FFAT snapshot "
+                            f"(missing {missing}); delta snapshots are not "
+                            "supported")
+    out: Dict[str, Any] = {k: snap[k] for k in _SCALARS}
+    out["slot_of_key"] = dict(snap["slot_of_key"])
+    out["out_keys_by_slot"] = list(snap["out_keys_by_slot"])
+    out["key_dtype"] = np.dtype(snap["key_dtype"])
+    for k in _HOST_ARRAYS:
+        out[k] = np.array(snap[k], dtype=np.int64)
+    shape = (int(snap["K_cap"]), 2 * int(snap["F"]))
+    if snap["trees"] is None:
+        out["trees"] = out["tvalid"] = None
+        return out
+    trees = {}
+    for name, plane in snap["trees"].items():
+        arr = np.asarray(plane)
+        if arr.shape != shape:
+            raise WindFlowError(f"ffat_state_from_jax: plane {name!r} has "
+                                f"shape {arr.shape}, expected {shape}")
+        trees[name] = canonical(torch.from_numpy(arr.copy())).to(device)
+    out["trees"] = trees
+    out["tvalid"] = torch.from_numpy(
+        np.asarray(snap["tvalid"], dtype=bool).copy()).to(device)
+    return out

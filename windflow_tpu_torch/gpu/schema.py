@@ -1,0 +1,124 @@
+"""Tuple schemas: the bridge between row-Python payloads and columnar
+device batches.
+
+Copy of ``windflow_tpu/tpu/schema.py`` (without the native encoders) plus
+the torch twin of ``broadcast_scalar_fields``. Numeric Python types map to
+int32 / float32 / bool, as the JAX package's do with x64 off: the port
+never lets torch's int64 / float64 defaults into a device column.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..basic import WindFlowError
+
+_DTYPE_MAP = {
+    int: np.int32,
+    float: np.float32,
+    bool: np.bool_,
+}
+
+# x64-off canonicalization of device columns (the JAX package's dtypes)
+_CANON = {torch.int64: torch.int32, torch.float64: torch.float32,
+          torch.int16: torch.int32, torch.int8: torch.int32,
+          torch.uint8: torch.int32, torch.float16: torch.float32,
+          torch.bfloat16: torch.float32}
+
+
+class TupleSchema:
+    """Ordered field name -> numpy dtype, plus a row constructor."""
+
+    def __init__(self, fields: Dict[str, Any],
+                 constructor: Optional[Callable] = None) -> None:
+        self.fields: Dict[str, np.dtype] = {
+            name: np.dtype(dt) for name, dt in fields.items()}
+        self.constructor = constructor  # None => rows come back as dicts
+        self._names = list(self.fields)
+
+    @staticmethod
+    def infer(payload: Any) -> "TupleSchema":
+        """Infer from a sample tuple: dataclass instances or dicts with
+        numeric scalar fields."""
+        if dataclasses.is_dataclass(payload):
+            items = [(f.name, getattr(payload, f.name))
+                     for f in dataclasses.fields(payload)]
+            ctor = type(payload)
+        elif isinstance(payload, dict):
+            items = list(payload.items())
+            ctor = None
+        else:
+            raise WindFlowError(
+                f"cannot infer a device schema from {type(payload).__name__}; "
+                "use dataclass/dict tuples or pass an explicit TupleSchema")
+        flds = {}
+        for k, v in items:
+            dt = _DTYPE_MAP.get(type(v))
+            flds[k] = dt if dt is not None else np.asarray(v).dtype
+        return TupleSchema(flds, ctor)
+
+    def to_columns(self, rows: Sequence[Tuple[Any, int]], capacity: int
+                   ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+        """Rows [(payload, ts)] -> padded columnar arrays + int64 ts."""
+        cols = {name: np.zeros(capacity, dtype=dt)
+                for name, dt in self.fields.items()}
+        ts = np.zeros(capacity, dtype=np.int64)
+        by_item = bool(rows) and isinstance(rows[0][0], dict)
+        for i, (p, t) in enumerate(rows):
+            ts[i] = t
+            for name in self._names:
+                cols[name][i] = p[name] if by_item else getattr(p, name)
+        return cols, ts
+
+    def from_columns(self, cols: Dict[str, np.ndarray], ts: np.ndarray,
+                     n: int) -> List[Tuple[Any, int]]:
+        """Columnar host arrays -> rows [(payload, ts)] for the CPU plane
+        (one ``tolist()`` C pass per column)."""
+        names = self._names
+        ctor = self.constructor
+        ts_list = np.asarray(ts[:n], dtype=np.int64).tolist()
+        if not names:
+            return [({}, t) for t in ts_list]
+        lists = [np.asarray(cols[name])[:n].tolist() for name in names]
+        if ctor is not None:
+            return [(ctor(**dict(zip(names, vals))), t)
+                    for vals, t in zip(zip(*lists), ts_list)]
+        return [(dict(zip(names, vals)), t)
+                for vals, t in zip(zip(*lists), ts_list)]
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"TupleSchema({self.fields})"
+
+
+def torch_dtype(dt) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, dtype=dt)).dtype
+
+
+def numpy_dtype(dt: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dt).numpy().dtype
+
+
+def canonical(t: torch.Tensor) -> torch.Tensor:
+    """A device column in the JAX package's x64-off dtypes."""
+    dt = _CANON.get(t.dtype)
+    return t if dt is None else t.to(dt)
+
+
+def broadcast_scalar_fields(vals: Dict[str, Any], n_rows: int,
+                            device: torch.device) -> Dict[str, torch.Tensor]:
+    """Broadcast per-tuple CONSTANT lift fields (e.g. a count seed
+    ``{"n": 1.0}``) to the batch column shape, and canonicalize every lift
+    column to int32 / float32 / bool."""
+    out = {}
+    for name, a in vals.items():
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.asarray(
+                a, dtype=_DTYPE_MAP.get(type(a)))).to(device)
+        if a.dim() == 0:
+            a = a.expand(n_rows)
+        out[name] = canonical(a)
+    return out

@@ -1,0 +1,79 @@
+"""Builds the port's CUDA kernels on first use.
+
+Each ``kernels/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes``; the
+wrappers pass tensor pointers (``data_ptr()``) and PyTorch's current
+stream as integers. No source includes PyTorch's headers, so a build takes
+seconds rather than the minutes a ``torch/extension.h`` build takes.
+
+The library lands in ``build/kernels/`` at the root of the checkout (listed
+in ``.gitignore``), named by a digest of the source and the flags, so an
+edited source is never served by a stale build. Nothing is compiled when
+the module is imported: ``load_library`` builds on the first call that
+needs the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+from ..basic import WindFlowError
+
+KERNEL_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: per kernel: {"seconds": build time (0.0 when reused), "log": nvcc output}
+BUILD_INFO: Dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise WindFlowError("nvcc not found (set CUDA_HOME): the CUDA "
+                            "kernels are built from source on first use")
+    return found
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The compiled ``kernels/<name>.cu``, built if no current build
+    exists. Thread-safe; later calls return the loaded library."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = KERNEL_DIR / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        out = BUILD_DIR / f"{name}-{digest[:16]}.so"
+        info = {"seconds": 0.0, "log": ""}
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                  str(src)], capture_output=True, text=True)
+            info["seconds"] = time.perf_counter() - t0
+            info["log"] = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise WindFlowError(f"nvcc failed on {src.name}:\n"
+                                    + info["log"])
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        BUILD_INFO[name] = info
+        _libs[name] = lib
+        return lib

@@ -1,0 +1,170 @@
+"""Per-replica statistics (reference ``wf/stats_record.hpp:49-160``).
+
+Trimmed copy of ``windflow_tpu/monitoring/stats.py``: the counters the
+replicas of the ported slice write (tuples in/out, ignored tuples, the
+device-plane traffic and program counts, the dispatch-pipeline split, the
+watermark gauges and the unified late-record accounting). On top of those,
+``rebuild_kernel_launches`` counts the launches of the hand-written
+FlatFAT forest-rebuild kernel on this replica's forest, so a run can show
+that the main path went through it.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict
+
+_EWMA_ALPHA = 0.1
+
+
+class StatsRecord:
+    __slots__ = (
+        "op_name", "replica_idx", "start_time",
+        "inputs_received", "outputs_sent", "inputs_ignored",
+        "punct_received", "punct_sent", "service_time_us",
+        "device_batches_in", "device_batches_out",
+        "device_bytes_h2d", "device_bytes_d2h", "device_programs_run",
+        "rebuild_kernel_launches",
+        "dispatch_host_prep_us", "dispatch_commit_us",
+        "dispatch_host_prep_total_us", "dispatch_commit_total_us",
+        "dispatch_batches", "dispatch_stalls", "dispatch_depth_max",
+        "ingest_blocks", "ingest_rows",
+        "wm_current", "wm_advances", "wm_max_source_ts",
+        "late_records", "late_dropped",
+        "input_channel", "pipe_depth_max", "worker_idle_ticks",
+        "worker_last_error", "is_terminated",
+        "_last_svc_start", "_svc_seeded", "_prep_seeded", "_commit_seeded",
+    )
+
+    def __init__(self, op_name: str = "", replica_idx: int = 0) -> None:
+        self.op_name = op_name
+        self.replica_idx = replica_idx
+        self.start_time = time.monotonic()
+        self.inputs_received = 0
+        self.outputs_sent = 0
+        self.inputs_ignored = 0
+        self.punct_received = 0
+        self.punct_sent = 0
+        self.service_time_us = 0.0  # EWMA over svc() durations
+        self.device_batches_in = 0
+        self.device_batches_out = 0
+        self.device_bytes_h2d = 0
+        self.device_bytes_d2h = 0
+        self.device_programs_run = 0
+        self.rebuild_kernel_launches = 0
+        self.dispatch_host_prep_us = 0.0  # EWMA
+        self.dispatch_commit_us = 0.0  # EWMA
+        self.dispatch_host_prep_total_us = 0.0
+        self.dispatch_commit_total_us = 0.0
+        self.dispatch_batches = 0
+        self.dispatch_stalls = 0  # forced ordering-point drains
+        self.dispatch_depth_max = 0
+        self.ingest_blocks = 0
+        self.ingest_rows = 0
+        self.wm_current = 0
+        self.wm_advances = 0
+        self.wm_max_source_ts = 0
+        self.late_records = 0
+        self.late_dropped = 0
+        self.input_channel = None  # wired by PipeGraph._make_workers
+        self.pipe_depth_max = 0  # emitter-side FIFO high-water mark
+        self.worker_idle_ticks = 0
+        self.worker_last_error = ""
+        self.is_terminated = False
+        self._last_svc_start = 0.0
+        self._svc_seeded = False
+        self._prep_seeded = False
+        self._commit_seeded = False
+
+    # -- service-time recording (wf/basic_operator.hpp:134-158) -------------
+    def start_svc(self) -> None:
+        self._last_svc_start = time.perf_counter()
+
+    def end_svc(self, n_tuples: int = 1) -> None:
+        dt_us = (time.perf_counter() - self._last_svc_start) * 1e6
+        per_tuple = dt_us / max(1, n_tuples)
+        if not self._svc_seeded:
+            self._svc_seeded = True
+            self.service_time_us = per_tuple
+        else:
+            self.service_time_us += _EWMA_ALPHA * (per_tuple
+                                                   - self.service_time_us)
+
+    # -- dispatch-pipeline stages (runtime/dispatch.py) ----------------------
+    def note_host_prep(self, us: float) -> None:
+        self.dispatch_batches += 1
+        self.dispatch_host_prep_total_us += us
+        if not self._prep_seeded:
+            self._prep_seeded = True
+            self.dispatch_host_prep_us = us
+        else:
+            self.dispatch_host_prep_us += _EWMA_ALPHA * (
+                us - self.dispatch_host_prep_us)
+
+    def note_dispatch_commit(self, us: float) -> None:
+        self.dispatch_commit_total_us += us
+        if not self._commit_seeded:
+            self._commit_seeded = True
+            self.dispatch_commit_us = us
+        else:
+            self.dispatch_commit_us += _EWMA_ALPHA * (
+                us - self.dispatch_commit_us)
+
+    def note_dispatch_depth(self, depth: int) -> None:
+        if depth > self.dispatch_depth_max:
+            self.dispatch_depth_max = depth
+
+    def note_dispatch_stall(self) -> None:
+        self.dispatch_stalls += 1
+
+    def note_ingest_block(self, n_rows: int) -> None:
+        self.ingest_blocks += 1
+        self.ingest_rows += n_rows
+
+    def note_late(self, n_records: int, n_dropped: int = 0) -> None:
+        """Late-record accounting: ``n_records`` tuples observed behind the
+        watermark / a fired boundary, ``n_dropped`` of them discarded."""
+        self.late_records += n_records
+        self.late_dropped += n_dropped
+
+    def note_pipe_depth(self, depth: int) -> None:
+        if depth > self.pipe_depth_max:
+            self.pipe_depth_max = depth
+
+    def to_dict(self) -> Dict[str, Any]:
+        elapsed = max(time.monotonic() - self.start_time, 1e-9)
+        ch = self.input_channel
+        return {
+            "Operator_name": self.op_name,
+            "Replica_id": self.replica_idx,
+            "Inputs_received": self.inputs_received,
+            "Outputs_sent": self.outputs_sent,
+            "Inputs_ignored": self.inputs_ignored,
+            "Punctuations_received": self.punct_received,
+            "Punctuations_sent": self.punct_sent,
+            "Service_time_usec": round(self.service_time_us, 3),
+            "Throughput_tuples_sec": round(self.inputs_received / elapsed, 1),
+            "Device_batches_in": self.device_batches_in,
+            "Device_batches_out": self.device_batches_out,
+            "Device_bytes_H2D": self.device_bytes_h2d,
+            "Device_bytes_D2H": self.device_bytes_d2h,
+            "Device_programs_run": self.device_programs_run,
+            "Rebuild_kernel_launches": self.rebuild_kernel_launches,
+            "Dispatch_host_prep_usec": round(self.dispatch_host_prep_us, 3),
+            "Dispatch_commit_usec": round(self.dispatch_commit_us, 3),
+            "Dispatch_batches": self.dispatch_batches,
+            "Dispatch_readback_stalls": self.dispatch_stalls,
+            "Dispatch_queue_depth_max": self.dispatch_depth_max,
+            "Ingest_blocks": self.ingest_blocks,
+            "Ingest_rows": self.ingest_rows,
+            "Watermark_current_ts": self.wm_current,
+            "Watermark_advances": self.wm_advances,
+            "Late_records": self.late_records,
+            "Late_dropped": self.late_dropped,
+            "Late_admitted": max(0, self.late_records - self.late_dropped),
+            "Queue_depth_max": getattr(ch, "depth_max", 0),
+            "Queue_emit_fifo_depth_max": self.pipe_depth_max,
+            "Worker_idle_ticks": self.worker_idle_ticks,
+            "Worker_last_error": self.worker_last_error,
+            "isTerminated": self.is_terminated,
+        }

@@ -1,0 +1,187 @@
+"""Emitters: the routing plane on the producer side.
+
+Trimmed copy of ``windflow_tpu/runtime/emitters.py``: the host-plane
+FORWARD and KEYBY emitters (``wf/forward_emitter.hpp``,
+``wf/keyby_emitter.hpp:210-259``), the terminal ``NullEmitter`` and the
+watermark-punctuation cadence (``wf/basic.hpp:199-216``). The device-plane
+edges live in ``windflow_tpu_torch.gpu.emitters_gpu``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional, Sequence
+
+from ..basic import (DEFAULT_WM_AMOUNT, DEFAULT_WM_INTERVAL_USEC,
+                     ExecutionMode, current_time_usecs)
+from ..message import Batch, Single, make_punctuation
+from .channel import Port
+
+
+class BasicEmitter:
+    """Base: owns destination ports, optional micro-batching, per-destination
+    id counters, punctuation cadence."""
+
+    def __init__(self, num_dests: int, output_batch_size: int = 0,
+                 execution_mode: ExecutionMode = ExecutionMode.DEFAULT,
+                 punct_generation: bool = True) -> None:
+        self.num_dests = num_dests
+        self.output_batch_size = output_batch_size
+        self.execution_mode = execution_mode
+        self.punct_generation = punct_generation  # off for inline chain edges
+        self.ports: List[Port] = []  # wired by the topology layer
+        self._next_ids = [0] * num_dests
+        self._emit_count = 0
+        self._last_punct_usec = current_time_usecs()
+        self.stats = None  # optional StatsRecord of the owning replica
+
+    def set_stats(self, stats) -> None:
+        self.stats = stats
+
+    def set_ports(self, ports: Sequence[Port]) -> None:
+        assert len(ports) == self.num_dests, (len(ports), self.num_dests)
+        self.ports = list(ports)
+
+    # -- core send helpers -------------------------------------------------
+    def _send_single(self, dest: int, payload: Any, ts: int, wm: int) -> None:
+        msg = Single(payload, self._next_ids[dest], ts, wm)
+        self._next_ids[dest] += 1
+        if self.stats is not None:
+            self.stats.outputs_sent += 1
+        self.ports[dest].send(msg)
+
+    def _send_batch(self, dest: int, batch: Any) -> None:
+        batch.id = self._next_ids[dest]
+        self._next_ids[dest] += 1
+        if self.stats is not None:
+            self.stats.outputs_sent += batch.size
+        self.ports[dest].send(batch)
+
+    def _send_punct(self, dest: int, wm: int) -> None:
+        p = make_punctuation(wm)
+        p.id = self._next_ids[dest]
+        self._next_ids[dest] += 1
+        if self.stats is not None:
+            self.stats.punct_sent += 1
+        self.ports[dest].send(p)
+
+    def _maybe_generate_punctuation(self, wm: int) -> None:
+        if not self.punct_generation \
+                or self.execution_mode is not ExecutionMode.DEFAULT:
+            return
+        self._emit_count += 1
+        if self._emit_count % DEFAULT_WM_AMOUNT != 0:
+            return
+        now = current_time_usecs()
+        if now - self._last_punct_usec < DEFAULT_WM_INTERVAL_USEC:
+            return
+        self._last_punct_usec = now
+        self.propagate_punctuation(wm)
+
+    # -- public API --------------------------------------------------------
+    def emit(self, payload: Any, ts: int, wm: int) -> None:
+        raise NotImplementedError
+
+    def emit_columns(self, cols, ts_arr, wm: int) -> None:
+        """Columnar push: generic emitters materialize dict rows; the
+        device staging emitter overrides this with a vectorized path."""
+        names = list(cols)
+        pulled = [cols[n] for n in names]
+        for i in range(len(ts_arr)):
+            self.emit({n: p[i].item() for n, p in zip(names, pulled)},
+                      int(ts_arr[i]), wm)
+
+    def propagate_punctuation(self, wm: int) -> None:
+        """Flush partial batches then punctuate every destination."""
+        self.flush()
+        for d in range(self.num_dests):
+            self._send_punct(d, wm)
+
+    def flush(self) -> None:
+        """Send any partially-filled output batches (EOS / punctuation)."""
+
+    def send_eos_all(self) -> None:
+        self.flush()
+        for port in self.ports:
+            port.send_eos()
+
+    def eos_ports(self) -> Sequence[Port]:
+        return self.ports
+
+
+class ForwardEmitter(BasicEmitter):
+    """FORWARD / REBALANCING: round-robin across destinations."""
+
+    def __init__(self, num_dests: int, output_batch_size: int = 0,
+                 execution_mode: ExecutionMode = ExecutionMode.DEFAULT
+                 ) -> None:
+        super().__init__(num_dests, output_batch_size, execution_mode)
+        self._rr = 0
+        self._batch: Optional[Batch] = None
+
+    def emit(self, payload: Any, ts: int, wm: int) -> None:
+        if self.output_batch_size <= 0:
+            self._send_single(self._rr, payload, ts, wm)
+            self._rr = (self._rr + 1) % self.num_dests
+        else:
+            if self._batch is None:
+                self._batch = Batch()
+            self._batch.add_tuple(payload, ts, wm)
+            if self._batch.size >= self.output_batch_size:
+                self._send_batch(self._rr, self._batch)
+                self._rr = (self._rr + 1) % self.num_dests
+                self._batch = None
+        self._maybe_generate_punctuation(wm)
+
+    def flush(self) -> None:
+        if self._batch is not None and self._batch.size > 0:
+            self._send_batch(self._rr, self._batch)
+            self._rr = (self._rr + 1) % self.num_dests
+            self._batch = None
+
+
+class KeyByEmitter(BasicEmitter):
+    """KEYBY: ``dest = hash(key(payload)) % num_dests``."""
+
+    def __init__(self, key_extractor: Callable[[Any], Any], num_dests: int,
+                 output_batch_size: int = 0,
+                 execution_mode: ExecutionMode = ExecutionMode.DEFAULT
+                 ) -> None:
+        super().__init__(num_dests, output_batch_size, execution_mode)
+        self.key_extractor = key_extractor
+        self._batches: List[Optional[Batch]] = [None] * num_dests
+
+    def emit(self, payload: Any, ts: int, wm: int) -> None:
+        dest = hash(self.key_extractor(payload)) % self.num_dests
+        if self.output_batch_size <= 0:
+            self._send_single(dest, payload, ts, wm)
+        else:
+            b = self._batches[dest]
+            if b is None:
+                b = self._batches[dest] = Batch()
+            b.add_tuple(payload, ts, wm)
+            if b.size >= self.output_batch_size:
+                self._send_batch(dest, b)
+                self._batches[dest] = None
+        self._maybe_generate_punctuation(wm)
+
+    def flush(self) -> None:
+        for d, b in enumerate(self._batches):
+            if b is not None and b.size > 0:
+                self._send_batch(d, b)
+                self._batches[d] = None
+
+
+class NullEmitter(BasicEmitter):
+    """Terminal operators (Sink) have no output."""
+
+    def __init__(self) -> None:
+        super().__init__(0, 0)
+
+    def emit(self, payload: Any, ts: int, wm: int) -> None:  # pragma: no cover
+        raise RuntimeError("Sink cannot emit")
+
+    def propagate_punctuation(self, wm: int) -> None:
+        pass
+
+    def send_eos_all(self) -> None:
+        pass
