@@ -8,17 +8,28 @@ Phases, each printing one line of its own:
 1. device: the card's name and power limit (``nvidia-smi``) and
    ``torch.cuda.get_device_name``;
 2. build: compiles the hand-written kernels from the sources in this
-   checkout (``windflow_tpu_torch/kernels/*.cu``, ``nvcc`` for sm_90a);
-3. kernels: each kernel against its plain PyTorch version on CUDA tensors
-   at the main path's shapes and a few edge shapes; results must be
-   bit-identical; median time with CUDA events (L2 flushed before each
-   launch), the plain version's time and the memory bound;
+   checkout (``windflow_tpu_torch/kernels/*.cu``, ``nvcc`` for sm_90a) and
+   lists each kernel's registers, stack frame and spills (``-Xptxas -v``);
+   a stack frame or a spill fails the phase;
+3. kernel checks: each kernel against its plain PyTorch version on CUDA
+   tensors at the main path's shapes, two shapes that move tens of MB and
+   a few edge shapes (1% of float values NaN); results must be
+   bit-identical (``kernel_check`` lines, with the launch plan);
 4. main path, high cardinality (``bench.py``'s HC config: 10,240 keys,
    TB window 100 ms / slide 25 ms, 65,536-tuple int32 batches, watermark
    advancing every batch, ``fieldwise(value="sum")``) through
    ``PipeGraph`` on ``cuda``; the same stream through the port on the CPU
    must give identical window rows; the rebuild kernel must have run;
 5. main path, 64 keys (``bench.py``'s base config, 128 windows per batch);
+6. kernel times (``kernel_time`` lines), after the main path so that the
+   profiler's tracing cannot touch it: the timed forests checked again,
+   then the kernel's device duration (``device_ms``: its CUDA time by
+   name from ``torch.profiler`` over 30 calls, divided by 30), the event
+   bracket around the whole wrapper (``wrapper_ms``: wrapper + kernel,
+   median of 30), both with the L2 flushed before each call (and warm at
+   the two shapes larger than the L2), the plain version's time, the
+   memory bound (``bound_ms``) and ``bound_share`` = bound_ms /
+   device_ms;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -72,22 +83,46 @@ def device_phase(torch):
     return card, name
 
 
+def ptxas_report(log):
+    """[kernel, registers, stack frame bytes, spill store bytes, spill
+    load bytes] for every kernel in an ``nvcc -Xptxas -v`` log."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            cur = [ln.split("Function properties for")[1].strip(), 0, 0, 0, 0]
+            out.append(cur)
+        elif cur is not None and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            cur[2:5] = nums[:3]
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur[1] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
 def build_phase():
     from windflow_tpu_torch.kernels import build
     t0 = time.perf_counter()
     build.load_library("forest_rebuild")
     info = build.BUILD_INFO["forest_rebuild"]
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "smem" in ln or "spill" in ln]
+    report = ptxas_report(info["log"])
     phase("build", kernel="forest_rebuild",
           nvcc_s=round(info["seconds"], 3),
-          total_s=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+          total_s=round(time.perf_counter() - t0, 3),
+          kernels=len(report),
+          max_registers=max((r[1] for r in report), default=None),
+          ptxas=report)
+    if info["log"] and not report:
+        fail("no kernel in the nvcc -Xptxas -v log")
+    bad = [r for r in report if any(r[2:5])]
+    if bad:
+        fail(f"kernels with a stack frame or spills: {bad}")
 
 
 # ---------------------------------------------------------------------------
 def _forest(torch, K, F, spec, gen):
     """Random (trees, tvalid) on the card: leaves random, stale internals
-    random too, validity random."""
+    random too, validity random, 1% of the float values NaN."""
     trees = {}
     for i, (dt, _op) in enumerate(spec):
         if dt == "int32":
@@ -95,6 +130,8 @@ def _forest(torch, K, F, spec, gen):
                               dtype=torch.int32)
         else:
             t = torch.randn((K, 2 * F), generator=gen, dtype=torch.float32)
+            # a few NaNs: min/max must propagate them as torch does
+            t[torch.rand((K, 2 * F), generator=gen) < 0.01] = float("nan")
         trees[f"f{i}"] = t.cuda()
     tvalid = (torch.rand((K, 2 * F), generator=gen) < 0.6).cuda()
     return trees, tvalid
@@ -105,7 +142,9 @@ def _clone(trees, tvalid):
 
 
 def _time_ms(torch, fn, reps, flush):
-    """Median ms of ``fn`` with CUDA events, the L2 flushed before each."""
+    """Median ms of ``fn`` between two CUDA events, the L2 flushed before
+    each call: the wrapper (validation, ctypes marshalling) and the
+    kernel together."""
     out = []
     for _ in range(reps):
         flush.zero_()
@@ -119,24 +158,96 @@ def _time_ms(torch, fn, reps, flush):
     return out[len(out) // 2]
 
 
-def kernel_phase(torch):
+def _device_ms(torch, fn, reps, flush, match, per_call):
+    """The kernel's device duration per call of ``fn``: the CUDA time of
+    every kernel whose name contains ``match``, summed by
+    ``torch.profiler`` over ``reps`` calls and divided by ``reps``.
+    ``flush`` is zeroed before each call (None: the L2 stays warm). Each
+    call launches ``per_call`` such kernels; a trace that lost some of
+    them is taken again (up to three times), then the phase fails."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and match in e.name]
+        seen = len(ev)
+        if seen == reps * per_call:
+            return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps
+    fail(f"torch.profiler saw {seen} of {reps * per_call} CUDA kernels "
+         f"named like {match!r}")
+
+
+def bound_ms(K, F, spec):
+    """Least time on the card: leaves [F, 2F) read and internals [1, F)
+    written once, each node one 4-byte value per field plus one validity
+    byte, over the HBM rate."""
+    return K * (2 * F - 1) * (4 * len(spec) + 1) / PEAK_BYTES_PER_S * 1e3
+
+
+SPECS = {
+    "int32_sum": [("int32", "sum")],
+    "float32_sum": [("float32", "sum")],
+    "minmax_pairs": [("float32", "min"), ("float32", "max"),
+                     ("int32", "min"), ("int32", "max")],
+}
+# (K_cap, F): the main path's two forests first (10,240 keys -> K_cap
+# 16,384, and 64 keys, F 32), then forests that move tens of MB (10^5-key
+# streams; a long window with a fine slide), then edge and wide-row shapes
+# (8 x 65,536 needs several passes)
+SHAPES = [(16384, 32), (64, 32), (262144, 32), (16384, 1024), (4, 8),
+          (256, 1024), (8, 65536)]
+# timed: int32 sum at every shape, four fields at the main path's shape
+TIMED = {(K, F, "int32_sum") for K, F in SHAPES} | {(16384, 32,
+                                                     "minmax_pairs")}
+WARM = {(262144, 32), (16384, 1024)}  # larger than the 50 MB L2
+KERNEL_MATCH = "wf_rebuild"  # every kernel of forest_rebuild.cu
+
+
+def time_rebuild(torch, rebuild, trees, tvalid, comb, spec, flush,
+                 per_call, match=KERNEL_MATCH, warm=False):
+    """Device and wrapper + kernel times of ``rebuild`` on one forest
+    (``per_call`` kernel launches per call), with its bound and bound
+    share."""
+    K, NN = tvalid.shape
+    row = {"bound_ms": bound_ms(K, NN // 2, spec),
+           "kernels_per_call": per_call}
+    run = lambda: rebuild(trees, tvalid, comb)  # noqa: E731
+    row["device_ms"] = _device_ms(torch, run, 30, flush, match, per_call)
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    row["wrapper_ms"] = _time_ms(torch, run, 30, flush)
+    if warm:
+        row["device_ms_warm"] = _device_ms(torch, run, 30, None, match,
+                                           per_call)
+        row["bound_share_warm"] = row["bound_ms"] / row["device_ms_warm"]
+    return row
+
+
+def kernel_phase(torch, timed):
+    """Each forest of SHAPES x SPECS through the kernel and its plain
+    version: bit-identical or fail. ``timed``: only the TIMED forests,
+    each also timed (``torch.profiler`` stays out of the process until the
+    main path has run, so its tracing cannot slow the main path's
+    launches)."""
     from windflow_tpu_torch.combines import fieldwise
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     from windflow_tpu_torch.kernels.reference import forest_rebuild_ref
-    gen = torch.Generator().manual_seed(1234)
+    gen = torch.Generator().manual_seed(1234 + timed)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    specs = {
-        "int32_sum": [("int32", "sum")],
-        "float32_sum": [("float32", "sum")],
-        "minmax_pairs": [("float32", "min"), ("float32", "max"),
-                         ("int32", "min"), ("int32", "max")],
-    }
-    # main-path shapes first: 10,240 keys -> K_cap 16,384 and 64 keys, F=32
-    shapes = [(16384, 32), (64, 32), (4, 8), (256, 1024), (8, 65536)]
     timing = None
     max_err = 0.0
-    for K, F in shapes:
-        for sname, spec in specs.items():
+    for K, F in SHAPES:
+        for sname, spec in SPECS.items():
+            if timed and (K, F, sname) not in TIMED:
+                continue
             comb = fieldwise(**{f"f{i}": op for i, (_, op) in
                                 enumerate(spec)})
             trees, tvalid = _forest(torch, K, F, spec, gen)
@@ -149,29 +260,26 @@ def kernel_phase(torch):
                 torch.equal(kt[k].view(torch.int32), rt[k].view(torch.int32))
                 for k in kt)
             max_err = max([max_err] + [
-                (kt[k].double() - rt[k].double()).abs().max().item()
-                for k in kt])
+                (kt[k].double() - rt[k].double()).abs().nan_to_num(0.0)
+                .max().item() for k in kt])  # NaN bits: checked above
             if not same:
                 fail(f"forest_rebuild differs from its plain version at "
                      f"K_cap={K} F={F} {sname}")
-            row = {"K_cap": K, "F": F, "fields": sname, "bit_identical": True}
-            if sname == "int32_sum" and F <= 1024:
-                # leaves [F, 2F) read and internals [1, F) written, each
-                # node one value per field plus one validity byte
-                field_bytes = sum(4 for _ in spec)
-                bound_ms = (K * (2 * F - 1) * (field_bytes + 1)
-                            / PEAK_BYTES_PER_S * 1e3)
-                ms = _time_ms(torch, lambda: fr.forest_rebuild(kt, kv, comb),
-                              30, flush)
-                plain = _time_ms(torch, lambda: forest_rebuild_ref(
+            plan = fr.launch_plan(K, F, len(spec))
+            row = {"K_cap": K, "F": F, "fields": sname, "bit_identical": True,
+                   "plan": [[p.regime, p.W, p.S, p.E, p.rows] for p in plan]}
+            if timed:
+                row.update(time_rebuild(torch, fr.forest_rebuild, kt, kv,
+                                        comb, spec, flush, len(plan),
+                                        warm=(K, F) in WARM))
+                row["plain_ms"] = _time_ms(torch, lambda: forest_rebuild_ref(
                     rt, rv, comb), 10, flush)
-                row.update(ms=ms, plain_ms=plain, bound_ms=bound_ms)
                 if timing is None:
                     timing = row
-            phase("kernel_check", **row)
+            phase("kernel_time" if timed else "kernel_check", **row)
+            del trees, tvalid, kt, kv, rt, rv
     del flush
-    timing["max_abs_err"] = max_err
-    return timing
+    return timing, max_err
 
 
 # ---------------------------------------------------------------------------
@@ -311,23 +419,26 @@ def main() -> None:
 
     card, name = device_phase(torch)
     build_phase()
-    timing = kernel_phase(torch)
+    _, err_checks = kernel_phase(torch, timed=False)
     hc, hc_launches = main_path_phase(torch, wt, "high_cardinality",
                                       10_240, None)
     phase("main_path", **hc)
     base, base_launches = main_path_phase(torch, wt, "64_keys", 64, 128)
     phase("main_path", **base)
+    timing, err_timed = kernel_phase(torch, timed=True)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",
         "source": "windflow_tpu_torch/kernels/forest_rebuild.cu",
         "replaces": "windflow_tpu/tpu/pallas_kernels.py:29",
         "launches": hc_launches + base_launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
+        "max_abs_err": max(err_checks, err_timed),
+        "ms": timing["wrapper_ms"],
+        "device_ms": timing["device_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": "bytes",
+        "bound_share": timing["bound_share"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
