@@ -21,7 +21,20 @@ Phases, each printing one line of its own:
    ``PipeGraph`` on ``cuda``; the same stream through the port on the CPU
    must give identical window rows; the rebuild kernel must have run;
 5. main path, 64 keys (``bench.py``'s base config, 128 windows per batch);
-6. kernel times (``kernel_time`` lines), after the main path so that the
+6. the graph_tests_gpu path (``graph_gpu``): Columnar source -> Map_GPU
+   (value*3 + key) -> Filter_GPU (value % 2 == 0) -> Reduce_GPU keyed by
+   "key" at parallelism 2 (a keyed device -> device edge) -> columnar sink,
+   and the same stream folded by a global Reduce_GPU, at ``bench.py``'s
+   keyed-reduce size (256 keys, 65,536-tuple int32 batches; 2 warm-up and
+   12 timed batches). Each graph's rows on ``cuda`` must equal the port's
+   CPU run of the same stream (as a multiset for the keyed graph, as a
+   sequence for the global one) and a numpy fold of the stream; a small
+   broadcast graph must too. The line gives tuples/s, and from a run under
+   ``torch.profiler`` the device's idle share and launches per batch; the
+   ``programs`` lines give the device time per batch and launches of the
+   compaction, tree-reduce and keyed-scan programs at 65,536 rows with
+   their bytes bound;
+7. kernel times (``kernel_time`` lines), after the main path so that the
    profiler's tracing cannot touch it: the timed forests checked again,
    then the kernel's device duration (``device_ms``: its CUDA time by
    name from ``torch.profiler`` over 30 calls, divided by 30), the event
@@ -55,6 +68,10 @@ WIN_US, SLIDE_US = 100_000, 25_000
 BATCH = 65_536
 N_BATCHES = 24
 WARMUP = 4
+# graph_gpu: bench.py's keyed reduce (256 keys, 12 batches, bench.py:1586)
+GRAPH_KEYS = 256
+GRAPH_BATCHES, GRAPH_WARMUP = 14, 2
+GRAPH_PAR = 2
 
 
 def fail(msg: str) -> None:
@@ -283,16 +300,16 @@ def kernel_phase(torch, timed):
 
 
 # ---------------------------------------------------------------------------
-def _blocks(n_keys, seed):
+def _blocks(n_keys, seed, n_batches=N_BATCHES, batch=BATCH):
     """``bench.py``'s staged stream: int32 (key, value) batches, event time
     TS_STEP/AGG_RATE_KEYS us per tuple, watermark advancing every batch."""
     import numpy as np
     rng = np.random.default_rng(seed)
     out, ts0 = [], 0
-    for _ in range(N_BATCHES):
-        keys = rng.integers(0, n_keys, BATCH).astype(np.int32)
-        vals = rng.integers(0, 100, BATCH).astype(np.int32)
-        ts = ts0 + np.arange(BATCH, dtype=np.int64) * TS_STEP // AGG_RATE_KEYS
+    for _ in range(n_batches):
+        keys = rng.integers(0, n_keys, batch).astype(np.int32)
+        vals = rng.integers(0, 100, batch).astype(np.int32)
+        ts = ts0 + np.arange(batch, dtype=np.int64) * TS_STEP // AGG_RATE_KEYS
         ts0 = int(ts[-1]) + TS_STEP
         out.append(({"key": keys, "value": vals}, ts,
                     max(0, int(ts[0]) - 1)))
@@ -402,6 +419,295 @@ def main_path_phase(torch, wt, name, n_keys, win_per_batch):
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+def _map_value(f):
+    return {**f, "value": f["value"] * 3 + f["key"]}
+
+
+def _even_value(f):
+    return f["value"] % 2 == 0
+
+
+def _sum_value(a, b):
+    return {"key": b["key"], "value": a["value"] + b["value"]}
+
+
+def _run_ops_graph(wt, device, blocks, keyed, batch=BATCH):
+    """Columnar source -> Map_GPU -> Filter_GPU -> Reduce_GPU (keyed by
+    "key" at GRAPH_PAR replicas, or global) -> columnar sink. Returns the
+    sink's batches in arrival order as (arrival time, columns with ts),
+    the source's yield times and the graph."""
+    t_yield, parts, lock = [], [], threading.Lock()
+
+    def source():
+        for cols, ts, wm in blocks:
+            t_yield.append(time.perf_counter())
+            yield cols, ts, wm
+
+    def sink(cols, ts):
+        if cols is None:
+            return
+        now = time.perf_counter()
+        with lock:
+            parts.append((now, {"ts": ts.copy(),
+                                **{k: v.copy() for k, v in cols.items()}}))
+
+    red = wt.Reduce_GPU_Builder(_sum_value)
+    if keyed:
+        red = red.with_key_by("key").with_parallelism(GRAPH_PAR)
+    graph = wt.PipeGraph("graph_gpu", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    graph.add_source(wt.Columnar_Source_Builder(source)
+                     .with_output_batch_size(batch).build()) \
+        .add(wt.Map_GPU_Builder(_map_value).build()) \
+        .add(wt.Filter_GPU_Builder(_even_value).build()) \
+        .add(red.build()) \
+        .add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.run()
+    return parts, t_yield, graph
+
+
+def _concat(parts):
+    import numpy as np
+    return {k: np.concatenate([p[k] for _, p in parts]) for k in
+            parts[0][1]}
+
+
+def _sorted_rows(parts):
+    import numpy as np
+    c = _concat(parts)
+    order = np.lexsort((c["value"], c["key"], c["ts"]))
+    return {k: v[order] for k, v in c.items()}
+
+
+def _fold(blocks):
+    """numpy fold of the stream through map and filter: per-key totals and
+    the per-batch total."""
+    import numpy as np
+    tot = np.zeros(GRAPH_KEYS, dtype=np.int64)
+    per_batch = []
+    for cols, _, _ in blocks:
+        v = cols["value"].astype(np.int64) * 3 + cols["key"]
+        keep = v % 2 == 0
+        np.add.at(tot, cols["key"][keep], v[keep])
+        per_batch.append(int(v[keep].sum()))
+    return tot, per_batch
+
+
+def _events(torch, prof):
+    """(kernels, copies) recorded on the card by ``prof``."""
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy",
+                                                        "Memset"))]
+    return kernels, copies
+
+
+def _program_ms(torch, fn, reps=30):
+    """Device time per call of a multi-kernel program (the CUDA time of
+    every kernel it launched, from ``torch.profiler``, over ``reps``
+    calls), kernels per call, and the CUDA-event bracket around one call
+    (median: host launch time and device time together). A trace whose
+    kernel count is no multiple of ``reps`` lost records and is taken
+    again (up to three times)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels, _ = _events(torch, prof)
+        if kernels and len(kernels) % reps == 0:
+            break
+    else:
+        fail(f"torch.profiler lost kernel records ({len(kernels)} for "
+             f"{reps} calls)")
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    out.sort()
+    return device_ms, len(kernels) // reps, out[len(out) // 2]
+
+
+def programs_phase(torch, wt, blocks, card):
+    """K5-K7 (the XLA programs of the JAX package's Filter_TPU, global and
+    keyed Reduce_TPU, which have no Pallas kernel) as the port runs them,
+    on one batch of the graph_gpu stream, with their bytes bound: each
+    input read once, each output written once."""
+    import numpy as np
+    from types import SimpleNamespace
+    from windflow_tpu_torch.gpu import ops_gpu as og
+    from windflow_tpu_torch.gpu.batch import BatchGPU, bucket_capacity
+    from windflow_tpu_torch.gpu.schema import TupleSchema
+    cols, ts, _ = blocks[GRAPH_WARMUP]
+    n = len(ts)
+    dev = torch.device("cuda")
+    fields = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    mapped = _map_value(fields)
+    # K5: the filter program on the mapped batch
+    out, order, count = og.filter_program(_even_value, mapped, n)
+    v = cols["value"].astype(np.int64) * 3 + cols["key"]
+    kept = np.flatnonzero(v % 2 == 0)
+    if int(count) != len(kept) or not np.array_equal(
+            out["key"][:len(kept)].cpu().numpy(), cols["key"][kept]):
+        fail("filter program: compaction differs from numpy")
+    # K6 and K7 on the compacted batch, as the reduce replicas get it
+    m = len(kept)
+    kb = dict(out)
+    mask = og.row_mask(n, m, dev)
+    red = og.masked_tree_reduce(_sum_value, kb, mask)
+    if int(red["value"][0]) != int(v[kept].sum()):
+        fail("tree reduce differs from numpy")
+    batch = BatchGPU(kb, ts, m, TupleSchema({"key": np.int32,
+                                            "value": np.int32}),
+                     0, cols["key"][kept])
+    o_np, ssorted, sok = og.reduce_order_and_slots(
+        SimpleNamespace(name="programs", key_field="key"), batch)
+    n_out = len(sok)
+    out_cap = bucket_capacity(n_out)
+    order_d = torch.from_numpy(o_np).to(dev)
+    same_d = torch.from_numpy(np.r_[False, ssorted[1:] == ssorted[:-1]]
+                              ).to(dev)
+    tails_d = torch.from_numpy(og.segment_tails(ssorted, n_out, out_cap)
+                               ).to(dev)
+    kr = og.keyed_reduce_program(_sum_value, kb, order_d, same_d, tails_d)
+    ref = np.zeros(GRAPH_KEYS, dtype=np.int64)
+    np.add.at(ref, cols["key"][kept], v[kept])
+    got_keys = kr["key"][:n_out].cpu().numpy()
+    if not np.array_equal(kr["value"][:n_out].cpu().numpy(),
+                          ref[got_keys]) or len(set(got_keys)) != n_out:
+        fail("keyed reduce program differs from numpy")
+    progs = {
+        # inputs 2 int32 columns; outputs 2 compacted columns + order +
+        # count
+        "K5_compaction": (lambda: og.filter_program(_even_value, mapped, n),
+                          8 * n + 12 * n + 8,
+                          "windflow_tpu/tpu/ops_tpu.py:58"),
+        # inputs: the m kept rows of 2 int32 columns; output one row
+        "K6_tree_reduce": (lambda: og.masked_tree_reduce(_sum_value, kb,
+                                                         mask),
+                           8 * m + 8, "windflow_tpu/tpu/ops_tpu.py:280"),
+        # inputs: the m kept rows of 2 columns with their order and
+        # segment flags, the tails; outputs one row per key
+        "K7_keyed_scan": (lambda: og.keyed_reduce_program(
+            _sum_value, kb, order_d, same_d, tails_d),
+            8 * m + 4 * m + m + 4 * out_cap + 8 * out_cap,
+            "windflow_tpu/tpu/ops_tpu.py:1240"),
+    }
+    rows = []
+    for name, (fn, nbytes, replaces) in progs.items():
+        device_ms, launches, bracket_ms = _program_ms(torch, fn)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append(dict(program=name, replaces=replaces, rows=n,
+                         kept=m, keys=n_out, device_ms=device_ms,
+                         launches=launches, wrapper_ms=bracket_ms,
+                         bytes=nbytes, bound_ms=bound, bound_by="bytes",
+                         bound_share=bound / device_ms, card=card))
+        phase("programs", **rows[-1])
+    return rows
+
+
+def graph_gpu_phase(torch, wt, card):
+    """The graph_tests_gpu path on the card: rows equal to the CPU run and
+    to a numpy fold, tuples/s, then one profiled run for the device's
+    idle share and launches per batch."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    blocks = _blocks(GRAPH_KEYS, seed=9, n_batches=GRAPH_BATCHES)
+    tot, per_batch = _fold(blocks)
+    row = dict(config="graph_gpu", keys=GRAPH_KEYS, batches=GRAPH_BATCHES,
+               warmup=GRAPH_WARMUP, batch=BATCH, reduce_parallelism=GRAPH_PAR,
+               card=card)
+    for keyed in (True, False):
+        name = "keyed" if keyed else "global"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gparts, t_yield, graph = _run_ops_graph(wt, "cuda", blocks, keyed)
+        wall = time.perf_counter() - t0
+        cparts, *_ = _run_ops_graph(wt, "cpu", blocks, keyed)
+        if keyed:
+            g, c = _sorted_rows(gparts), _sorted_rows(cparts)
+            got = np.zeros(GRAPH_KEYS, dtype=np.int64)
+            np.add.at(got, g["key"], g["value"])
+            ok = (g.keys() == c.keys()
+                  and all(np.array_equal(g[k], c[k]) for k in g)
+                  and np.array_equal(got, tot))
+        else:
+            g, c = _concat(gparts), _concat(cparts)
+            ok = (g.keys() == c.keys()
+                  and all(np.array_equal(g[k], c[k]) for k in g)
+                  and g["value"].tolist() == per_batch)
+        if not ok:
+            fail(f"graph_gpu {name}: rows on cuda differ from the CPU run "
+                 "or from the numpy fold")
+        t_end = max(t for t, _ in gparts)
+        span = t_end - t_yield[GRAPH_WARMUP]
+        ops = graph.get_stats()["Operators"]
+        row[name] = dict(rows=int(len(g["key"])), rows_equal_cpu=True,
+                         tuples_per_s=(GRAPH_BATCHES - GRAPH_WARMUP) * BATCH
+                         / span, wall_s=wall,
+                         device_programs=[sum(r["Device_programs_run"]
+                                              for r in op["replicas"])
+                                          for op in ops[1:4]],
+                         filter_ignored=sum(r["Inputs_ignored"] for r in
+                                            ops[2]["replicas"]))
+    # one more keyed run under the profiler: idle share and launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _run_ops_graph(wt, "cuda", blocks, True)
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    kernels, copies = _events(torch, prof)
+    busy = sum(e.time_range.elapsed_us() for e in kernels + copies) / 1e3
+    row["profiled_keyed"] = dict(
+        wall_ms=span * 1e3, device_busy_ms=busy,
+        device_idle_share=1.0 - busy / (span * 1e3),
+        kernels_per_batch=len(kernels) / GRAPH_BATCHES,
+        copies_per_batch=len(copies) / GRAPH_BATCHES)
+    phase("graph_gpu", **row)
+    # broadcast: keyed staging into two maps, broadcast into two more
+    small = _blocks(GRAPH_KEYS, seed=10, n_batches=4, batch=4096)
+    res = {}
+    for device in ("cuda", "cpu"):
+        parts, lock = [], threading.Lock()
+
+        def sink(cols, ts, parts=parts):
+            if cols is not None:
+                with lock:
+                    parts.append((0.0, {"ts": ts.copy(), **{
+                        k: v.copy() for k, v in cols.items()}}))
+
+        graph = wt.PipeGraph("broadcast", wt.ExecutionMode.DEFAULT,
+                             wt.TimePolicy.EVENT_TIME, device=device)
+        graph.add_source(wt.Columnar_Source_Builder(lambda: iter(small))
+                         .with_output_batch_size(4096).build()) \
+            .add(wt.Map_GPU_Builder(lambda f: {**f, "value": f["value"] + 1})
+                 .with_key_by("key").with_parallelism(2).build()) \
+            .add(wt.Map_GPU_Builder(lambda f: {**f,
+                                               "value": f["value"] * 10})
+                 .with_broadcast().with_parallelism(2).build()) \
+            .add_sink(wt.Sink_Builder(sink).with_columns().build())
+        graph.run()
+        res[device] = _sorted_rows(parts)
+    g, c = res["cuda"], res["cpu"]
+    if not (all(np.array_equal(g[k], c[k]) for k in c)
+            and len(g["key"]) == 2 * 4 * 4096):
+        fail("broadcast graph: rows on cuda differ from the CPU run")
+    phase("graph_gpu_broadcast", rows=int(len(g["key"])),
+          rows_equal_cpu=True)
+    return row, blocks
+
+
 def main() -> None:
     try:
         import torch
@@ -425,6 +731,8 @@ def main() -> None:
     phase("main_path", **hc)
     base, base_launches = main_path_phase(torch, wt, "64_keys", 64, 128)
     phase("main_path", **base)
+    _, graph_blocks = graph_gpu_phase(torch, wt, card)
+    programs_phase(torch, wt, graph_blocks, card)
     timing, err_timed = kernel_phase(torch, timed=True)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",

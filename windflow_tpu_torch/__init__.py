@@ -1,11 +1,13 @@
 """windflow_tpu_torch: the PyTorch/CUDA port of windflow_tpu.
 
 The JAX package ``windflow_tpu`` is the reference this port is held
-against; the port imports nothing of it (and never imports ``jax``). This
-slice runs the FFAT sliding-window main path: a (columnar) source, the
-CPU -> device staging edge, ``Ffat_Windows_GPU`` with its FlatFAT forest
-rebuilt by a hand-written CUDA kernel for Hopper (``kernels/``), and the
-device -> host exit to a row or columnar sink.
+against; the port imports nothing of it (and never imports ``jax``). It
+runs linear graphs of host operators (``Map``, ``Filter``, ``FlatMap``,
+``Reduce``, ``Sink``) and device operators (``Map_GPU``, ``Filter_GPU``,
+``Reduce_GPU``, and ``Ffat_Windows_GPU`` with its FlatFAT forest rebuilt
+by a hand-written CUDA kernel for Hopper, ``kernels/``), joined by
+CPU -> device staging, forward / keyed / broadcast device -> device edges
+and the device -> host exit to a row or columnar sink.
 
 ``PipeGraph(..., device=None)`` runs on ``cuda`` and raises without a card;
 pass ``device="cpu"`` for the plain PyTorch path.
@@ -13,18 +15,24 @@ pass ``device="cpu"`` for the plain PyTorch path.
 
 from .basic import (ExecutionMode, OpType, RoutingMode, TimePolicy,
                     WinType, WindFlowError)
-from .builders import Columnar_Source_Builder, Sink_Builder, Source_Builder
+from .builders import (Columnar_Source_Builder, Filter_Builder,
+                       FlatMap_Builder, Map_Builder, Reduce_Builder,
+                       Sink_Builder, Source_Builder)
 from .combines import fieldwise
 from .context import LocalStorage, RuntimeContext
-from .gpu.builders_gpu import Ffat_Windows_GPU_Builder
+from .gpu.builders_gpu import (Ffat_Windows_GPU_Builder, Filter_GPU_Builder,
+                               Map_GPU_Builder, Reduce_GPU_Builder)
 from .gpu.ffat_gpu import Ffat_Windows_GPU
+from .gpu.ops_gpu import Filter_GPU, Map_GPU, Reduce_GPU
 from .topology.multipipe import MultiPipe
 from .topology.pipegraph import PipeGraph
 
 __all__ = [
     "Columnar_Source_Builder", "ExecutionMode",
-    "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder", "LocalStorage",
-    "MultiPipe", "OpType", "PipeGraph", "RoutingMode", "RuntimeContext",
-    "Sink_Builder", "Source_Builder", "TimePolicy", "WinType",
-    "WindFlowError", "fieldwise",
+    "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder", "Filter_Builder",
+    "Filter_GPU", "Filter_GPU_Builder", "FlatMap_Builder", "LocalStorage",
+    "Map_Builder", "Map_GPU", "Map_GPU_Builder", "MultiPipe", "OpType",
+    "PipeGraph", "Reduce_Builder", "Reduce_GPU", "Reduce_GPU_Builder",
+    "RoutingMode", "RuntimeContext", "Sink_Builder", "Source_Builder",
+    "TimePolicy", "WinType", "WindFlowError", "fieldwise",
 ]

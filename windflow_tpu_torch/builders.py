@@ -1,8 +1,10 @@
 """Fluent builders of the host-plane operators of the ported slice.
 
 Trimmed copy of ``windflow_tpu/builders.py`` (parity: ``wf/builders.hpp``):
-``Source_Builder``, ``Columnar_Source_Builder`` and ``Sink_Builder``. The
-device operator's builder is ``gpu.builders_gpu.Ffat_Windows_GPU_Builder``.
+``Source_Builder``, ``Columnar_Source_Builder``, ``Map_Builder``,
+``Filter_Builder``, ``FlatMap_Builder``, ``Reduce_Builder`` and
+``Sink_Builder``. The device operators' builders are in
+``gpu.builders_gpu``.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 from .basic import RoutingMode, WindFlowError
-from .operators.basic_ops import Sink
+from .operators.basic_ops import FlatMap, Filter, Map, Reduce, Sink
 from .operators.source import Columnar_Source, Source
 
 
@@ -73,6 +75,13 @@ class _RoutableBuilder(BasicBuilder):
         self._routing = RoutingMode.REBALANCING
         return self
 
+    def with_broadcast(self) -> "_RoutableBuilder":
+        if self._routing is RoutingMode.KEYBY:
+            raise WindFlowError("withBroadcast is incompatible with "
+                                "withKeyBy")
+        self._routing = RoutingMode.BROADCAST
+        return self
+
 
 class Source_Builder(BasicBuilder):
     _default_name = "source"
@@ -93,6 +102,57 @@ class Columnar_Source_Builder(BasicBuilder):
         return self._finish(Columnar_Source(
             self._func, self._name, self._parallelism,
             self._output_batch_size))
+
+
+class Map_Builder(_RoutableBuilder):
+    _default_name = "map"
+
+    def build(self) -> Map:
+        return self._finish(Map(self._func, self._name, self._parallelism,
+                                self._routing, self._key_extractor,
+                                self._output_batch_size))
+
+
+class Filter_Builder(_RoutableBuilder):
+    _default_name = "filter"
+
+    def build(self) -> Filter:
+        return self._finish(Filter(self._func, self._name, self._parallelism,
+                                   self._routing, self._key_extractor,
+                                   self._output_batch_size))
+
+
+class FlatMap_Builder(_RoutableBuilder):
+    _default_name = "flatmap"
+
+    def build(self) -> FlatMap:
+        return self._finish(FlatMap(self._func, self._name,
+                                    self._parallelism, self._routing,
+                                    self._key_extractor,
+                                    self._output_batch_size))
+
+
+class Reduce_Builder(_RoutableBuilder):
+    """``withKeyBy`` is mandatory; ``withInitialState`` mirrors
+    ``wf/builders.hpp:627``."""
+
+    _default_name = "reduce"
+
+    def __init__(self, func: Callable) -> None:
+        super().__init__(func)
+        self._initial_state: Any = None
+
+    def with_initial_state(self, state: Any) -> "Reduce_Builder":
+        self._initial_state = state
+        return self
+
+    def build(self) -> Reduce:
+        if self._key_extractor is None:
+            raise WindFlowError("Reduce_Builder: withKeyBy(...) is mandatory")
+        return self._finish(Reduce(self._func, self._key_extractor,
+                                   self._initial_state, self._name,
+                                   self._parallelism,
+                                   self._output_batch_size))
 
 
 class Sink_Builder(_RoutableBuilder):

@@ -16,20 +16,65 @@ Transfers (in place of ``jax.device_put`` / ``copy_to_host_async``):
   (``torch.from_numpy`` aliases it); the staging emitter hands ownership
   over and allocates fresh buffers for the next batch, so nothing writes
   to a buffer a batch still reads.
-- D2H: ``prefetch_host`` starts ``non_blocking`` copies of every column
-  into pinned host tensors and records one CUDA event; ``host_columns``
-  waits on that event only.
+- D2H: ``prefetch_host`` starts ``non_blocking`` copies of the columns
+  (all, or the ones named: a keyed edge needs only the key) into pinned
+  host tensors and records one CUDA event (``host_copies``);
+  ``host_columns`` waits on that event only.
+
+A device batch never changes after it is sent: operators build new
+columns, and a broadcast shares the same tensors between destinations.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..message import StreamMsg
 from .schema import TupleSchema, torch_dtype
+
+
+def key_column_to_list(batch: "BatchGPU", field: str) -> list:
+    """D2H of the key column as a host list (one C call, no per-item
+    boxing loops)."""
+    return key_column_np(batch, field).tolist()
+
+
+def key_column_np(batch: "BatchGPU", field: str) -> np.ndarray:
+    """D2H of the key column as the raw numpy array (waits only for the
+    key column's copy, started early by a keyed edge's prefetch)."""
+    return batch.host_columns((field,))[field][:batch.size]
+
+
+def host_copies(tensors: Dict[str, torch.Tensor]
+                ) -> Tuple[Dict[str, torch.Tensor], Optional[Any]]:
+    """Start the asynchronous D2H of device tensors: each into a fresh
+    pinned host tensor (``non_blocking``), then one CUDA event after the
+    copies. CPU tensors come back as they are, with no event. The caller
+    waits on the event before it reads the host tensors."""
+    if all(v.device.type == "cpu" for v in tensors.values()):
+        return dict(tensors), None
+    host = {}
+    for name, v in tensors.items():
+        h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        h.copy_(v, non_blocking=True)
+        host[name] = h
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A fresh host array as a device tensor. On a card the copy goes
+    through page-locked memory with ``non_blocking``, so it never waits
+    for the kernels already queued; on the CPU the tensor aliases the
+    array (each caller hands over a freshly built one)."""
+    t = torch.from_numpy(arr)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def bucket_capacity(n: int, minimum: int = 8) -> int:
@@ -65,7 +110,7 @@ class BatchGPU(StreamMsg):
         self.id = 0
         self.schema = schema
         self.host_keys = host_keys  # host key metadata, len == size
-        self._host: Optional[Dict[str, torch.Tensor]] = None
+        self._host: Dict[str, torch.Tensor] = {}  # host copies by column
         self._d2h_event = None
 
     def min_watermark(self) -> int:
@@ -73,6 +118,10 @@ class BatchGPU(StreamMsg):
 
     def __len__(self) -> int:
         return self.size
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.fields.values())).device
 
     def nbytes(self) -> int:
         return sum(v.element_size() * self.capacity
@@ -109,34 +158,50 @@ class BatchGPU(StreamMsg):
         return BatchGPU.stage_prefilled(host, ts, len(rows), schema, wm,
                                         device, keys)
 
-    # -- exit to host ------------------------------------------------------
-    def prefetch_host(self) -> None:
-        """Start the asynchronous D2H of every column (the reference's
-        ``prefetch2CPU``, ``batch_gpu_t_u.hpp:203``): one pinned host
-        tensor per column, one event after the copies."""
-        if self._host is not None:
-            return
-        if all(v.device.type == "cpu" for v in self.fields.values()):
-            self._host = self.fields
-            return
-        host = {}
-        for name, v in self.fields.items():
-            h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            h.copy_(v, non_blocking=True)
-            host[name] = h
-        ev = torch.cuda.Event()
-        ev.record()
-        self._host = host
-        self._d2h_event = ev
+    def with_fields(self, new_fields: Dict[str, torch.Tensor]
+                    ) -> "BatchGPU":
+        """Same metadata, new device columns (an operator's output)."""
+        b = BatchGPU(new_fields, self.ts_host, self.size, self.schema,
+                     self.wm, self.host_keys)
+        b.stream_tag = self.stream_tag
+        b.id = self.id
+        return b
 
-    def host_columns(self) -> Dict[str, np.ndarray]:
-        """Host numpy view of every column (waits for the prefetch)."""
-        if self._host is None:
-            self.prefetch_host()
+    def copy_for_dest(self) -> "BatchGPU":
+        """Broadcast copy: the device columns and the host copies already
+        started are shared (nothing writes either after the batch is
+        sent); each copy starts its own further host copies."""
+        b = self.with_fields(dict(self.fields))
+        b._host = dict(self._host)
+        b._d2h_event = self._d2h_event
+        return b
+
+    # -- exit to host ------------------------------------------------------
+    def prefetch_host(self, names: Optional[Sequence[str]] = None) -> None:
+        """Start the asynchronous D2H of the named columns (default: every
+        column) that are not on the host yet (the reference's
+        ``prefetch2CPU``, ``batch_gpu_t_u.hpp:203``)."""
+        want = {n: self.fields[n] for n in (self.fields if names is None
+                                            else names)
+                if n not in self._host}
+        if not want:
+            return
+        host, ev = host_copies(want)
+        self._host.update(host)
+        if ev is not None:
+            # the newest event follows every earlier copy on the stream
+            self._d2h_event = ev
+
+    def host_columns(self, names: Optional[Sequence[str]] = None
+                     ) -> Dict[str, np.ndarray]:
+        """Host numpy view of the named columns (default: every column);
+        waits for their copies."""
+        self.prefetch_host(names)
         if self._d2h_event is not None:
             self._d2h_event.synchronize()
             self._d2h_event = None
-        return {name: t.numpy() for name, t in self._host.items()}
+        return {name: self._host[name].numpy()
+                for name in (self.fields if names is None else names)}
 
     def to_rows(self):
         """Device->CPU rows (the reference's ``transfer2CPU``)."""

@@ -1,22 +1,104 @@
 """Device-operator builders (reference ``wf/builders_gpu.hpp``).
 
-``Ffat_Windows_GPU_Builder`` is the port of
-``windflow_tpu/tpu/builders_tpu.py:Ffat_Windows_TPU_Builder`` (the
-reference's ``Ffat_WindowsGPU_Builder``, ``builders_gpu.hpp:576``). The
-mesh plane is not part of the port yet.
+The port of ``windflow_tpu/tpu/builders_tpu.py``: ``Map_GPU_Builder``,
+``Filter_GPU_Builder``, ``Reduce_GPU_Builder`` and
+``Ffat_Windows_GPU_Builder`` (the reference's ``Ffat_WindowsGPU_Builder``,
+``builders_gpu.hpp:576``), with ``with_schema`` in place of C++ type
+deduction (or inferred from the first tuple at the staging boundary).
+Keyed device state (``with_state``, ``with_tiering``) and the mesh plane
+(``with_mesh``) are not part of the port yet and raise.
+
+User functions take a dict of torch columns on the graph's device and
+return new tensors: they must not write an input column in place (a
+broadcast edge shares one batch's columns between replicas).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
-from ..basic import WinType, WindFlowError
+from ..basic import RoutingMode, WinType, WindFlowError
 from ..builders import _RoutableBuilder
 from .ffat_gpu import Ffat_Windows_GPU
+from .ops_gpu import Filter_GPU, Map_GPU, Reduce_GPU
 from .schema import TupleSchema
 
 
-class Ffat_Windows_GPU_Builder(_RoutableBuilder):
+class _GPUBuilder(_RoutableBuilder):
+    """``with_schema`` and the refusals of what is not ported."""
+
+    def __init__(self, func: Callable) -> None:
+        super().__init__(func)
+        self._schema: Optional[TupleSchema] = None
+
+    def with_schema(self, schema) -> "_GPUBuilder":
+        self._schema = (TupleSchema(schema) if isinstance(schema, dict)
+                        else schema)
+        return self
+
+    def with_mesh(self, *args, **kwargs):
+        raise WindFlowError("with_mesh: the mesh plane is not yet ported to "
+                            "windflow_tpu_torch")
+
+
+class _StatelessGPUBuilder(_GPUBuilder):
+    def with_state(self, initial_state: Any):
+        raise WindFlowError(f"{type(self).__name__}.with_state: keyed "
+                            "device state is not yet ported to "
+                            "windflow_tpu_torch")
+
+    def with_tiering(self, *args, **kwargs):
+        raise WindFlowError(f"{type(self).__name__}.with_tiering: tiered "
+                            "keyed state is not yet ported to "
+                            "windflow_tpu_torch")
+
+
+class Map_GPU_Builder(_StatelessGPUBuilder):
+    """``Map_GPU_Builder(func)``: ``func(fields) -> fields`` over a dict of
+    torch columns, returning new tensors (never writing its input)."""
+
+    _default_name = "map_gpu"
+
+    def build(self) -> Map_GPU:
+        return self._finish(Map_GPU(self._func, self._name, self._parallelism,
+                                    self._routing, self._key_extractor,
+                                    self._output_batch_size, self._schema))
+
+
+class Filter_GPU_Builder(_StatelessGPUBuilder):
+    """``Filter_GPU_Builder(pred)``: ``pred(fields)`` gives a bool (or int
+    0/1) column; it must not write its input."""
+
+    _default_name = "filter_gpu"
+
+    def build(self) -> Filter_GPU:
+        return self._finish(Filter_GPU(self._func, self._name,
+                                       self._parallelism, self._routing,
+                                       self._key_extractor,
+                                       self._output_batch_size, self._schema))
+
+
+class Reduce_GPU_Builder(_GPUBuilder):
+    """``Reduce_GPU_Builder(combine)``: ``combine(a, b) -> fields`` over two
+    dicts of torch columns, associative and commutative, returning new
+    tensors; a field it does not return passes through from ``b``.
+    ``with_key_by`` gives one output per key per batch; without it each
+    batch folds to one tuple."""
+
+    _default_name = "reduce_gpu"
+
+    def build(self) -> Reduce_GPU:
+        if self._routing is RoutingMode.BROADCAST:
+            # the op derives its routing from the key extractor (keyed
+            # shuffle or forward); the reference reduce has no broadcast
+            raise WindFlowError("Reduce_GPU_Builder: withBroadcast is not "
+                                "supported (use withKeyBy or forward)")
+        return self._finish(Reduce_GPU(self._func, self._key_extractor,
+                                       self._name, self._parallelism,
+                                       self._output_batch_size, self._schema))
+
+
+class Ffat_Windows_GPU_Builder(_GPUBuilder):
     """``Ffat_Windows_GPU_Builder(lift, combine)``: ``lift`` maps a dict of
     batch columns (torch tensors) to a dict of lifted columns; ``combine``
     is ``combines.fieldwise(...)`` (any torch callable on ``cpu``)."""
@@ -26,18 +108,12 @@ class Ffat_Windows_GPU_Builder(_RoutableBuilder):
     def __init__(self, lift: Callable, combine: Callable) -> None:
         super().__init__(lift)
         self._combine = combine
-        self._schema: Optional[TupleSchema] = None
         self._win_len = 0
         self._slide_len = 0
         self._win_type = None
         self._lateness = 0
         self._nwpb = None  # default: auto-sized from key capacity
         self._key_capacity = 16
-
-    def with_schema(self, schema) -> "Ffat_Windows_GPU_Builder":
-        self._schema = (TupleSchema(schema) if isinstance(schema, dict)
-                        else schema)
-        return self
 
     def with_key_capacity(self, n: int) -> "Ffat_Windows_GPU_Builder":
         """Expected distinct-key count per replica (pre-sizes the forest)."""
@@ -61,10 +137,6 @@ class Ffat_Windows_GPU_Builder(_RoutableBuilder):
     def with_num_win_per_batch(self, n: int):
         self._nwpb = n
         return self
-
-    def with_mesh(self, *args, **kwargs):
-        raise WindFlowError("with_mesh: the mesh plane is not yet ported to "
-                            "windflow_tpu_torch")
 
     def build(self) -> Ffat_Windows_GPU:
         if self._win_type is None:

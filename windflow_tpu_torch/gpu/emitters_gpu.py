@@ -1,16 +1,26 @@
 """Device-plane edge emitters (reference ``wf/forward_emitter_gpu.hpp`` /
-``wf/keyby_emitter_gpu.hpp``, template cases <inputGPU, outputGPU>).
+``wf/keyby_emitter_gpu.hpp`` / ``wf/broadcast_emitter_gpu.hpp``, template
+cases <inputGPU, outputGPU>).
 
-The port of ``windflow_tpu/tpu/emitters_tpu.py``'s main-path edges:
+The port of ``windflow_tpu/tpu/emitters_tpu.py`` (without the splitting
+emitter):
 
 - ``GPUStageEmitter`` (CPU -> device): rows or column blocks accumulate in
   page-locked staging tensors (plain host tensors for ``device="cpu"``)
   filled in place, and ship as one ``BatchGPU`` per ``output_batch_size``
   tuples with a ``non_blocking`` H2D copy. KEYBY routing keeps one staging
-  buffer per destination (vectorized modulo routing for non-negative int
-  key columns). A partial batch older than ``MAX_STAGING_MS``
-  (25 ms) ships on the next append or idle tick.
-- ``GPUForwardEmitter`` (device -> device): whole batches round-robin.
+  buffer per destination (``routing.key_dests``); BROADCAST ships the
+  batch to every destination, sharing its device columns. A partial batch
+  older than ``MAX_STAGING_MS`` (25 ms) ships on the next append or idle
+  tick.
+- ``GPUForwardEmitter`` / ``GPUBroadcastEmitter`` (device -> device):
+  whole batches round-robin, or one to every destination (sharing the
+  columns). A keyed consumer's key column starts its copy to the host
+  here, so the consumer's read does not wait for a fresh D2H.
+- ``GPUKeyByEmitter`` (device -> device, KEYBY): per-destination
+  sub-batches gathered on the device by host-built index vectors
+  (``gather_sub_batch``). A batch without host keys reads its key column
+  back through the D2H FIFO below first.
 - ``GPUExitEmitter`` / ``GPUColumnarExitEmitter`` (device -> CPU): the
   D2H is pipelined (``_D2HPipeline``): an arriving batch starts its
   asynchronous copies into pinned memory and enters a FIFO; it is
@@ -29,32 +39,24 @@ import torch
 
 from ..basic import ExecutionMode, WindFlowError
 from ..runtime.emitters import BasicEmitter
-from .batch import BatchGPU, bucket_capacity, host_buffer
+from .batch import (BatchGPU, bucket_capacity, host_buffer, key_column_np,
+                    to_device)
+from .routing import _dest_of_key, key_dests
 from .schema import TupleSchema
 
 # a partial staging batch older than this ships on the next append or tick
 MAX_STAGING_MS = 25.0
-# exit D2H pipeline: batches in flight, and the age that forces delivery
+# D2H pipelines: batches in flight at an exit and at a keyed re-shard, and
+# the age that forces delivery
 EXIT_PIPELINE_DEPTH = 4
+KEYBY_PIPELINE_DEPTH = 2
 PIPELINE_MAX_AGE_MS = 100.0
-
-
-def _dest_of_key(key, num_dests: int) -> int:
-    return hash(key) % num_dests
-
-
-def _block_dests(kcol: np.ndarray, num_dests: int) -> np.ndarray:
-    """KEYBY destinations of a key column: ``key % n`` where that equals
-    the per-row ``hash(key) % n`` (non-negative ints), else per row."""
-    if kcol.dtype.kind in "iub" and (len(kcol) == 0 or kcol.min() >= 0):
-        return kcol.astype(np.int64) % num_dests
-    return np.fromiter((_dest_of_key(k, num_dests) for k in kcol.tolist()),
-                       dtype=np.int64, count=len(kcol))
 
 
 class GPUStageEmitter(BasicEmitter):
     """CPU -> device staging. Routing: ``forward`` round-robins full
-    batches, ``keyby`` partitions rows by key."""
+    batches, ``keyby`` partitions rows by key, ``broadcast`` ships every
+    batch to every destination."""
 
     def __init__(self, num_dests: int, output_batch_size: int,
                  schema: Optional[TupleSchema],
@@ -62,9 +64,6 @@ class GPUStageEmitter(BasicEmitter):
                  routing: str, execution_mode: ExecutionMode,
                  key_field: Optional[str], device: torch.device) -> None:
         super().__init__(num_dests, output_batch_size, execution_mode)
-        if routing not in ("forward", "keyby"):
-            raise WindFlowError(f"{routing} routing onto a device operator "
-                                "is not yet ported")
         self.schema = schema
         self.key_extractor = key_extractor
         self.key_field = key_field
@@ -157,6 +156,9 @@ class GPUStageEmitter(BasicEmitter):
             self.stats.outputs_sent += n
             self.stats.device_bytes_h2d += batch.nbytes()
         self._first_append[buf] = None
+        if self.routing == "broadcast":
+            _send_to_all(self, batch)
+            return
         dest = buf if self.routing == "keyby" else self._rr
         batch.id = self._next_ids[dest]
         self._next_ids[dest] += 1
@@ -184,7 +186,7 @@ class GPUStageEmitter(BasicEmitter):
             if self.num_dests == 1:
                 self._append_part(0, cols, ts_arr, np.array(kcol), wm)
             else:
-                dests = _block_dests(kcol, self.num_dests)
+                dests = key_dests(kcol, n, self.num_dests)
                 order = np.argsort(dests, kind="stable")
                 counts = np.bincount(dests, minlength=self.num_dests)
                 scols = {k: np.asarray(v)[order] for k, v in cols.items()}
@@ -247,10 +249,23 @@ class GPUStageEmitter(BasicEmitter):
                 self._ship_cbuf(buf)
 
 
+def _prefetch_key(batch: BatchGPU, field: Optional[str]) -> None:
+    """Start the D2H of the key column a keyed device consumer will read
+    (the batch has no host keys: its key was computed on the device)."""
+    if field is not None and batch.host_keys is None \
+            and field in batch.fields:
+        batch.prefetch_host((field,))
+
+
 class GPUForwardEmitter(BasicEmitter):
-    """Device -> device forward: whole batches round-robin."""
+    """Device -> device forward: whole batches round-robin.
+    ``prefetch_field`` (set by the graph wiring) names the consumer's key
+    column."""
+
+    prefetch_field: Optional[str] = None
 
     def emit_device_batch(self, batch: BatchGPU) -> None:
+        _prefetch_key(batch, self.prefetch_field)
         d = getattr(self, "_rr", 0)
         batch.id = self._next_ids[d]
         self._next_ids[d] += 1
@@ -258,6 +273,28 @@ class GPUForwardEmitter(BasicEmitter):
             self.stats.outputs_sent += batch.size
         self.ports[d].send(batch)
         self._rr = (d + 1) % self.num_dests
+
+
+def _send_to_all(em: BasicEmitter, batch: BatchGPU) -> None:
+    """Broadcast: every destination gets the batch, its device columns
+    shared (no operator writes an input column)."""
+    for d in range(em.num_dests):
+        out = batch.copy_for_dest() if d > 0 else batch
+        out.id = em._next_ids[d]
+        em._next_ids[d] += 1
+        em.ports[d].send(out)
+
+
+class GPUBroadcastEmitter(BasicEmitter):
+    """Device -> device broadcast (see ``_send_to_all``)."""
+
+    prefetch_field: Optional[str] = None
+
+    def emit_device_batch(self, batch: BatchGPU) -> None:
+        _prefetch_key(batch, self.prefetch_field)
+        if self.stats is not None:
+            self.stats.outputs_sent += batch.size * self.num_dests
+        _send_to_all(self, batch)
 
 
 class _D2HPipeline:
@@ -275,7 +312,7 @@ class _D2HPipeline:
         raise NotImplementedError
 
     def _pipe_add(self, batch: BatchGPU) -> None:
-        batch.prefetch_host()
+        """Queue ``batch``; its host copies are already in flight."""
         self._pending.append((time.monotonic(), batch))
         stats = getattr(self, "stats", None)
         if stats is not None:
@@ -308,6 +345,7 @@ class GPUColumnarExitEmitter(BasicEmitter, _D2HPipeline):
         self._rr = 0
 
     def emit_device_batch(self, batch: BatchGPU) -> None:
+        batch.prefetch_host()
         self._pipe_add(batch)
 
     def _pipe_process(self, batch: BatchGPU) -> None:
@@ -347,6 +385,7 @@ class GPUExitEmitter(BasicEmitter, _D2HPipeline):
             self.inner.emit(payload, ts, batch.wm)
 
     def emit_device_batch(self, batch: BatchGPU) -> None:
+        batch.prefetch_host()
         self._pipe_add(batch)
 
     def emit(self, payload: Any, ts: int, wm: int) -> None:
@@ -367,3 +406,85 @@ class GPUExitEmitter(BasicEmitter, _D2HPipeline):
 
     def eos_ports(self):
         return self.inner.eos_ports()
+
+
+def gather_sub_batch(batch: BatchGPU, idx: np.ndarray,
+                     host_keys=None) -> BatchGPU:
+    """The ``idx`` rows of a device batch as a new device batch, gathered
+    on the device: one gather per column from a host-built index vector
+    (shipped from its own fresh pinned buffer, so a later batch never
+    overwrites an index still in flight)."""
+    cap = bucket_capacity(idx.size)
+    gather = np.zeros(cap, dtype=np.int32)
+    gather[:idx.size] = idx
+    gidx = to_device(gather, batch.device)
+    sub = BatchGPU({k: v[gidx] for k, v in batch.fields.items()},
+                   batch.ts_host[gather], idx.size, batch.schema, batch.wm,
+                   host_keys)
+    sub.stream_tag = batch.stream_tag
+    return sub
+
+
+class GPUKeyByEmitter(BasicEmitter, _D2HPipeline):
+    """Device -> device keyed re-shard: per-destination sub-batches
+    gathered on the device with host-computed index vectors.
+
+    Batches WITHOUT host keys (the key was computed on the device) need
+    their key column on the host before routing: they enter the D2H FIFO
+    with that column's copy in flight. Batches WITH host keys route at
+    once, after the FIFO drains (stream order)."""
+
+    def __init__(self, num_dests: int,
+                 execution_mode: ExecutionMode = ExecutionMode.DEFAULT,
+                 key_field: Optional[str] = None) -> None:
+        super().__init__(num_dests, 0, execution_mode)
+        self.key_field = key_field
+        self._pipe_init(depth=KEYBY_PIPELINE_DEPTH)
+
+    def _keys_of(self, batch: BatchGPU):
+        if batch.host_keys is not None:
+            return batch.host_keys
+        if self.key_field is not None:
+            return key_column_np(batch, self.key_field)
+        raise WindFlowError(
+            "a keyed device -> device edge needs host key metadata or a "
+            "field-name key extractor (with_key_by('field'))")
+
+    def emit_device_batch(self, batch: BatchGPU) -> None:
+        if self.num_dests == 1:
+            self._drain()
+            _prefetch_key(batch, self.key_field)
+            batch.id = self._next_ids[0]
+            self._next_ids[0] += 1
+            if self.stats is not None:
+                self.stats.outputs_sent += batch.size
+            self.ports[0].send(batch)
+            return
+        if batch.host_keys is None and self.key_field is not None:
+            _prefetch_key(batch, self.key_field)
+            self._pipe_add(batch)
+            return
+        self._drain()  # keep stream order ahead of an immediate route
+        self._pipe_process(batch)
+
+    def flush(self) -> None:
+        # propagate_punctuation / send_eos_all call flush() first, so
+        # draining here covers every ordering point
+        self._drain()
+        super().flush()
+
+    def _pipe_process(self, batch: BatchGPU) -> None:
+        keys = self._keys_of(batch)
+        dests = key_dests(keys, batch.size, self.num_dests)
+        for d in range(self.num_dests):
+            idx = np.flatnonzero(dests == d)
+            if idx.size == 0:
+                continue
+            sub = gather_sub_batch(
+                batch, idx, keys[idx] if isinstance(keys, np.ndarray)
+                else [keys[j] for j in idx])
+            sub.id = self._next_ids[d]
+            self._next_ids[d] += 1
+            if self.stats is not None:
+                self.stats.outputs_sent += sub.size
+            self.ports[d].send(sub)

@@ -15,8 +15,8 @@ The port of ``windflow_tpu/tpu/ffat_tpu.py`` (reference: WindFlow's
   range queries -> leaf eviction. The rebuild is the hand-written kernel
   ``kernels/forest_rebuild.cu`` on a CUDA card (every rebuild, no gate)
   and its plain version on the CPU; the other stages are torch ops
-  (a Hillis-Steele scan calling the user combine, ``index_put_``
-  scatters, a vectorized ``LOGQ``-step tree walk).
+  (the Hillis-Steele scan of ``gpu/scan.py`` calling the user combine,
+  ``index_put_`` scatters, a vectorized ``LOGQ``-step tree walk).
 - The forest is updated IN PLACE (the JAX package donates it instead).
   Every plane is a view of a flat buffer with one trailing scratch
   element: masked scatter lanes write there, which is how the port does
@@ -47,9 +47,10 @@ import torch
 
 from ..basic import OpType, RoutingMode, WinType, WindFlowError
 from ..kernels.forest_rebuild import forest_rebuild
-from .batch import BatchGPU
+from .batch import BatchGPU, to_device
 from .keymap import KeySlotMap, group_positions
 from .ops_gpu import GPUOperatorBase, GPUReplicaBase, op_batch_keys_np
+from .scan import segmented_scan
 from .schema import TupleSchema, broadcast_scalar_fields, numpy_dtype
 
 
@@ -96,17 +97,6 @@ class Ffat_Windows_GPU(GPUOperatorBase):
     def build_replicas(self) -> None:
         self.replicas = [FfatGPUReplica(self, i)
                          for i in range(self.parallelism)]
-
-
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A fresh host array as a device tensor. On a card the copy goes
-    through page-locked memory with ``non_blocking``, so it never waits
-    for the kernels already queued; on the CPU the tensor aliases the
-    array (each caller hands over a freshly built one)."""
-    t = torch.from_numpy(arr)
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 class FfatGPUReplica(GPUReplicaBase):
@@ -275,27 +265,6 @@ class FfatGPUReplica(GPUReplicaBase):
         if self.device.type == "cuda":
             self.stats.rebuild_kernel_launches += 1
 
-    def _segmented_scan(self, vals: Dict[str, torch.Tensor],
-                        same_prev: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Inclusive segmented scan with the user combine, Hillis-Steele
-        log-step form of the JAX package's ``associative_scan`` over
-        ``(value, same_prev)`` pairs (same operator, another grouping of
-        the combines: float sums may round differently)."""
-        combine = self.op.combine
-        n = same_prev.shape[0]
-        s = same_prev
-        d = 1
-        while d < n:
-            a = {k: v[:-d] for k, v in vals.items()}
-            b = {k: v[d:] for k, v in vals.items()}
-            sb = s[d:]
-            merged = combine(a, b)
-            vals = {k: torch.cat([v[:d], torch.where(sb, merged[k], b[k])])
-                    for k, v in vals.items()}
-            s = torch.cat([s[:d], s[:-d] & sb])
-            d *= 2
-        return vals
-
     def _ingest(self, fields, seg) -> None:
         """Lift + sort + segmented scan + leaf scatter-combine (in place)."""
         F = self.F
@@ -319,7 +288,7 @@ class FfatGPUReplica(GPUReplicaBase):
                                            device=self.device)]) & (sc < big)
             flat_idx = (sc // F) * nn + (F + sc % F)
         svals = {k: v[order] for k, v in vals.items()}
-        scanned = self._segmented_scan(svals, same_prev)
+        scanned = segmented_scan(self.op.combine, svals, same_prev)
         # scatter-combine segment tails into forest leaves; other lanes
         # land on the scratch element m
         safe = torch.where(is_end, flat_idx, m)
@@ -534,11 +503,11 @@ class FfatGPUReplica(GPUReplicaBase):
             same_p = np.r_[False, sc[1:] == sc[:-1]]
             end_p = np.r_[sc[1:] != sc[:-1], True] & (sc < big)
             flat_p = (sc // self.F) * (2 * self.F) + self.F + sc % self.F
-            seg = (None,) + tuple(_to_device(np.ascontiguousarray(a),
+            seg = (None,) + tuple(to_device(np.ascontiguousarray(a),
                                              self.device)
                                   for a in (order_p, same_p, end_p, flat_p))
         else:
-            seg = (_to_device(comp_p, self.device), None, None, None, None)
+            seg = (to_device(comp_p, self.device), None, None, None, None)
 
         frontier = (max(0, batch.wm - op.lateness) // op.pane_len
                     if op.win_type is WinType.TB else None)
@@ -631,7 +600,7 @@ class FfatGPUReplica(GPUReplicaBase):
         kd = self._key_dtype
         if (self._ktable_dev is None or self._ktable_dirty
                 or self._ktable_kd != kd):
-            self._ktable_dev = _to_device(self._keys_np.astype(kd),
+            self._ktable_dev = to_device(self._keys_np.astype(kd),
                                           self.device)
             self._ktable_kd = kd
             self._ktable_dirty = False
@@ -667,8 +636,8 @@ class FfatGPUReplica(GPUReplicaBase):
                 break
             f_pack, e_pack = self._pack_fire_arrays(chunks, n_out, budget)
             plan.append((first, chunks, n_out,
-                         _to_device(f_pack, self.device),
-                         _to_device(e_pack, self.device), budget))
+                         to_device(f_pack, self.device),
+                         to_device(e_pack, self.device), budget))
             total_fired += n_out
             first = False
             if n_out < budget:
@@ -720,7 +689,7 @@ class FfatGPUReplica(GPUReplicaBase):
             else:
                 key_col = np.zeros(W, dtype=self._key_dtype)
                 key_col[:n_out] = out_keys
-                fields[op.key_field] = _to_device(key_col, self.device)
+                fields[op.key_field] = to_device(key_col, self.device)
         out_schema = TupleSchema(
             {name: numpy_dtype(v.dtype) for name, v in fields.items()})
         ts = np.full(W, wm, dtype=np.int64)
@@ -743,8 +712,8 @@ class FfatGPUReplica(GPUReplicaBase):
             self._ensure_rebuilt()
             f_pack, e_pack = self._pack_fire_arrays(chunks, n_out,
                                                     self.W_cap)
-            out = self._fire_and_evict(_to_device(f_pack, self.device),
-                                       _to_device(e_pack, self.device))
+            out = self._fire_and_evict(to_device(f_pack, self.device),
+                                       to_device(e_pack, self.device))
             self.stats.device_programs_run += 1
             self._emit_windows(self.cur_wm, chunks, n_out, *out, self.W_cap)
             if n_out < self.W_cap:

@@ -79,6 +79,10 @@ class Batch(StreamMsg):
     def min_watermark(self) -> int:
         return self.wm
 
+    def copy_for_dest(self) -> "Batch":
+        """Broadcast copy: its own row list, shared payload objects."""
+        return Batch(list(self.rows), self.wm, self.is_punct, self.stream_tag)
+
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return f"<Batch n={len(self.rows)} wm={self.wm}>"
 

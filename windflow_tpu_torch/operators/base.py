@@ -92,6 +92,7 @@ class BasicReplica:
         self.emitter: Optional[BasicEmitter] = None
         self.terminated = False
         self.cur_wm = 0
+        self.copy_on_write = False  # set when fed by a broadcast emitter
 
     def set_emitter(self, emitter: BasicEmitter) -> None:
         self.emitter = emitter

@@ -1,10 +1,11 @@
 """Emitters: the routing plane on the producer side.
 
 Trimmed copy of ``windflow_tpu/runtime/emitters.py``: the host-plane
-FORWARD and KEYBY emitters (``wf/forward_emitter.hpp``,
-``wf/keyby_emitter.hpp:210-259``), the terminal ``NullEmitter`` and the
-watermark-punctuation cadence (``wf/basic.hpp:199-216``). The device-plane
-edges live in ``windflow_tpu_torch.gpu.emitters_gpu``.
+FORWARD, KEYBY and BROADCAST emitters (``wf/forward_emitter.hpp``,
+``wf/keyby_emitter.hpp:210-259``, ``wf/broadcast_emitter.hpp``), the
+terminal ``NullEmitter`` and the watermark-punctuation cadence
+(``wf/basic.hpp:199-216``). The device-plane edges live in
+``windflow_tpu_torch.gpu.emitters_gpu``.
 """
 
 from __future__ import annotations
@@ -169,6 +170,42 @@ class KeyByEmitter(BasicEmitter):
             if b is not None and b.size > 0:
                 self._send_batch(d, b)
                 self._batches[d] = None
+
+
+class BroadcastEmitter(BasicEmitter):
+    """BROADCAST: every destination receives a copy
+    (``wf/broadcast_emitter.hpp``; the reference shares one refcounted
+    message, this copies the batch per destination — payload objects are
+    shared, so broadcast-fed in-place operators must copy-on-write,
+    ``wf/map.hpp:348``)."""
+
+    def __init__(self, num_dests: int, output_batch_size: int = 0,
+                 execution_mode: ExecutionMode = ExecutionMode.DEFAULT
+                 ) -> None:
+        super().__init__(num_dests, output_batch_size, execution_mode)
+        self._batch: Optional[Batch] = None
+
+    def emit(self, payload: Any, ts: int, wm: int) -> None:
+        if self.output_batch_size <= 0:
+            for d in range(self.num_dests):
+                self._send_single(d, payload, ts, wm)
+        else:
+            if self._batch is None:
+                self._batch = Batch()
+            self._batch.add_tuple(payload, ts, wm)
+            if self._batch.size >= self.output_batch_size:
+                self._broadcast_batch(self._batch)
+                self._batch = None
+        self._maybe_generate_punctuation(wm)
+
+    def _broadcast_batch(self, batch: Batch) -> None:
+        for d in range(self.num_dests):
+            self._send_batch(d, batch.copy_for_dest() if d > 0 else batch)
+
+    def flush(self) -> None:
+        if self._batch is not None and self._batch.size > 0:
+            self._broadcast_batch(self._batch)
+            self._batch = None
 
 
 class NullEmitter(BasicEmitter):

@@ -2,7 +2,7 @@
 
 Trimmed copy of ``windflow_tpu/topology/pipegraph.py`` (parity with
 ``wf/pipegraph.hpp``: ``add_source``, ``run`` = ``start`` + ``wait_end``,
-per-operator stats), for linear source -> device operator -> sink graphs.
+per-operator stats), for linear graphs of host and device operators.
 
 The graph carries the torch ``device`` its device operators run on:
 ``device=None`` means ``cuda``, and a graph refuses to exist when no CUDA
@@ -25,8 +25,8 @@ from ..basic import (DEFAULT_BUFFER_CAPACITY, ExecutionMode, OpType,
 from ..operators.base import BasicOperator
 from ..runtime.channel import Channel, InlinePort, QueuePort
 from ..runtime.collectors import AtomicCounter, WatermarkCollector
-from ..runtime.emitters import (BasicEmitter, ForwardEmitter, KeyByEmitter,
-                                NullEmitter)
+from ..runtime.emitters import (BasicEmitter, BroadcastEmitter,
+                                ForwardEmitter, KeyByEmitter, NullEmitter)
 from ..runtime.worker import Worker
 from .multipipe import MultiPipe
 from .stage import Stage
@@ -168,6 +168,10 @@ class PipeGraph:
         one_to_one = (routing is RoutingMode.FORWARD
                       and not (c_gpu and not p_gpu)
                       and producer.parallelism == n_dests)
+        if routing is RoutingMode.BROADCAST:
+            for op in consumer.ops:
+                for r in op.replicas:
+                    r.copy_on_write = True
         for pi, pr in enumerate(producer.last_op.replicas):
             em = self._create_edge_emitter(first, routing, obs, n_dests,
                                            p_gpu, c_gpu, one_to_one)
@@ -184,30 +188,37 @@ class PipeGraph:
         """Emitter kind per (device plane, routing): the reference's
         ``create_emitter`` (``wf/multipipe.hpp:248-362``) plus the GPU
         emitter cases."""
-        from ..gpu.emitters_gpu import (GPUColumnarExitEmitter,
+        from ..gpu.emitters_gpu import (GPUBroadcastEmitter,
+                                        GPUColumnarExitEmitter,
                                         GPUExitEmitter, GPUForwardEmitter,
-                                        GPUStageEmitter)
-        if routing is RoutingMode.BROADCAST:
-            raise WindFlowError("broadcast routing is not yet ported to "
-                                "windflow_tpu_torch")
+                                        GPUKeyByEmitter, GPUStageEmitter)
         if c_gpu and not p_gpu:  # CPU -> device staging boundary
             return GPUStageEmitter(
                 n_dests, obs, getattr(first, "schema", None),
                 first.key_extractor,
-                "keyby" if routing is RoutingMode.KEYBY else "forward",
+                "keyby" if routing is RoutingMode.KEYBY else
+                "broadcast" if routing is RoutingMode.BROADCAST
+                else "forward",
                 self.execution_mode, first.key_field, self.device)
         if p_gpu and c_gpu:  # device -> device
             if routing is RoutingMode.KEYBY:
-                raise WindFlowError("keyed device -> device edges are not "
-                                    "yet ported to windflow_tpu_torch")
-            return GPUForwardEmitter(1 if one_to_one else n_dests, 0,
-                                     self.execution_mode)
+                return GPUKeyByEmitter(n_dests, self.execution_mode,
+                                       key_field=first.key_field)
+            if routing is RoutingMode.BROADCAST:
+                em = GPUBroadcastEmitter(n_dests, 0, self.execution_mode)
+            else:
+                em = GPUForwardEmitter(1 if one_to_one else n_dests, 0,
+                                       self.execution_mode)
+            # a keyed consumer fed by forward/broadcast: its key column's
+            # copy to the host starts here
+            em.prefetch_field = first.key_field
+            return em
         if getattr(first, "accepts_columns", False):
             if not p_gpu:
                 raise WindFlowError(
                     f"{first.name}: with_columns sink needs a device-plane "
                     "producer (CPU-plane edges deliver rows)")
-            if routing is RoutingMode.KEYBY:
+            if routing in (RoutingMode.KEYBY, RoutingMode.BROADCAST):
                 raise WindFlowError(
                     f"{first.name}: with_columns sink supports forward/"
                     "rebalancing routing only")
@@ -216,6 +227,8 @@ class PipeGraph:
         if routing is RoutingMode.KEYBY:
             em: BasicEmitter = KeyByEmitter(first.key_extractor, n_dests,
                                             obs, self.execution_mode)
+        elif routing is RoutingMode.BROADCAST:
+            em = BroadcastEmitter(n_dests, obs, self.execution_mode)
         else:
             em = ForwardEmitter(1 if one_to_one else n_dests, obs,
                                 self.execution_mode)
