@@ -21,6 +21,13 @@ Phases, each printing one line of its own:
    ``PipeGraph`` on ``cuda``; the same stream through the port on the CPU
    must give identical window rows; the rebuild kernel must have run;
 5. main path, 64 keys (``bench.py``'s base config, 128 windows per batch);
+   then phase ``fusion``, part ``ffat``: the high-cardinality stream
+   through ``map -> Ffat_Windows_GPU`` and ``map -> filter ->
+   Ffat_Windows_GPU`` built with ``chain``, fused (one
+   ``FusedFfatReplica``) and unfused (``fusion=False``) on the card in
+   turns and fused on the CPU: equal window rows, K1 launched once per
+   firing batch, tuples/s and device programs per batch fused and
+   unfused;
 6. the graph_tests_gpu path (``graph_gpu``): Columnar source -> Map_GPU
    (value*3 + key) -> Filter_GPU (value % 2 == 0) -> Reduce_GPU keyed by
    "key" at parallelism 2 (a keyed device -> device edge) -> columnar sink,
@@ -33,7 +40,14 @@ Phases, each printing one line of its own:
    ``torch.profiler`` the device's idle share and launches per batch; the
    ``programs`` lines give the device time per batch and launches of the
    compaction, tree-reduce and keyed-scan programs at 65,536 rows with
-   their bytes bound;
+   their bytes bound. Before them, phase ``fusion``, part ``ops``: the
+   same stream (24 timed batches) through ``map -> filter -> global /
+   keyed Reduce_GPU`` built with ``chain`` at parallelism 1, fused (one
+   replica) at megabatch 1, 4 and 8 and unfused, in turns; rows must
+   equal the unfused CPU run and the numpy fold; one line per megabatch
+   width gives tuples/s fused and unfused, host prep and commit ms per
+   batch of each stage, Megabatch_*, Programs_per_batch and a profiled
+   run's idle share and launches per batch;
 7. kernel times (``kernel_time`` lines), after the main path so that the
    profiler's tracing cannot touch it: the timed forests checked again,
    then the kernel's device duration (``device_ms``: its CUDA time by
@@ -66,12 +80,15 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 TS_STEP, AGG_RATE_KEYS = 50, 64  # bench.py: event time per tuple
 WIN_US, SLIDE_US = 100_000, 25_000
 BATCH = 65_536
+HC_KEYS = 10_240  # bench.py:83
 N_BATCHES = 24
 WARMUP = 4
 # graph_gpu: bench.py's keyed reduce (256 keys, 12 batches, bench.py:1586)
 GRAPH_KEYS = 256
 GRAPH_BATCHES, GRAPH_WARMUP = 14, 2
 GRAPH_PAR = 2
+# fusion (b): 2 warm-up + 24 timed batches, so that K=8 forms groups
+FUSION_BATCHES = 26
 
 
 def fail(msg: str) -> None:
@@ -316,9 +333,12 @@ def _blocks(n_keys, seed, n_batches=N_BATCHES, batch=BATCH):
     return out
 
 
-def _run_graph(wt, device, blocks, n_keys, win_per_batch):
-    """Columnar source -> Ffat_Windows_GPU -> columnar sink; returns the
-    window columns (sorted by key, wid), timing marks and the replica."""
+def _run_graph(wt, device, blocks, n_keys, win_per_batch, prefix=(),
+               fusion=True):
+    """Columnar source -> [prefix ops, chained ->] Ffat_Windows_GPU ->
+    columnar sink; returns the window columns (sorted by key, wid), timing
+    marks, the window's replica (a fused chain's replica when the prefix
+    fused into it) and the graph."""
     import numpy as np
     t_yield, t_in, t_recv = {}, {}, {}
     parts, lock = [], threading.Lock()
@@ -338,7 +358,8 @@ def _run_graph(wt, device, blocks, n_keys, win_per_batch):
             t_recv[int(ts[0])] = now
 
     graph = wt.PipeGraph("chip_smoke", wt.ExecutionMode.DEFAULT,
-                         wt.TimePolicy.EVENT_TIME, device=device)
+                         wt.TimePolicy.EVENT_TIME, device=device,
+                         fusion=fusion)
     b = (wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
                                      wt.fieldwise(value="sum"))
          .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
@@ -346,9 +367,12 @@ def _run_graph(wt, device, blocks, n_keys, win_per_batch):
     if win_per_batch:
         b = b.with_num_win_per_batch(win_per_batch)
     op = b.build()
-    graph.add_source(wt.Columnar_Source_Builder(source)
-                     .with_output_batch_size(BATCH).build()) \
-        .add(op).add_sink(wt.Sink_Builder(sink).with_columns().build())
+    mp = graph.add_source(wt.Columnar_Source_Builder(source)
+                          .with_output_batch_size(BATCH).build())
+    for i, pre in enumerate(prefix):
+        mp = mp.add(pre) if i == 0 else mp.chain(pre)
+    mp = mp.chain(op) if prefix else mp.add(op)
+    mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
     graph.get_num_threads()  # builds the replicas
     rep = op.replicas[0]
     prep = rep.prep_device_batch
@@ -364,59 +388,135 @@ def _run_graph(wt, device, blocks, n_keys, win_per_batch):
     cols = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     order = np.lexsort((cols["wid"], cols["key"]))
     cols = {k: v[order] for k, v in cols.items()}
-    return cols, t_yield, t_in, t_recv, wall, rep
+    return cols, t_yield, t_in, t_recv, wall, rep, graph
 
 
-def main_path_phase(torch, wt, name, n_keys, win_per_batch):
+def _check_windows(name, what, got, ref):
+    """Window rows equal row for row: every column, values where valid."""
     import numpy as np
-    from windflow_tpu_torch.kernels import forest_rebuild as fr
-    blocks = _blocks(n_keys, seed=7)
-    fr.LAUNCHES = 0
-    torch.cuda.synchronize()
-    gcols, t_yield, t_in, t_recv, wall, rep = _run_graph(
-        wt, "cuda", blocks, n_keys, win_per_batch)
-    launches = fr.LAUNCHES
-    if launches == 0 or rep.stats.rebuild_kernel_launches != launches:
-        fail(f"{name}: the rebuild kernel did not run on the main path "
-             f"(wrapper {launches}, replica "
-             f"{rep.stats.rebuild_kernel_launches})")
-    ccols, *_ = _run_graph(wt, "cpu", blocks, n_keys, win_per_batch)
-    if gcols.keys() != ccols.keys() or len(gcols["key"]) != len(
-            ccols["key"]):
-        fail(f"{name}: window rows differ in shape from the CPU run")
-    for k in ("key", "wid", "valid", "ts"):
-        if not np.array_equal(gcols[k], ccols[k]):
-            fail(f"{name}: column {k!r} differs from the CPU run")
-    valid = gcols["valid"]
-    if not np.array_equal(gcols["value"][valid], ccols["value"][valid]):
-        fail(f"{name}: window values differ from the CPU run")
-    if not valid.any() or (gcols["value"][valid] < 0).any():
-        fail(f"{name}: no valid windows, or negative sums of values >= 0")
-    # throughput over the batches after the warm-up: from the yield of
-    # batch WARMUP to the delivery of the last batch's windows; each window
-    # row carries ts == the watermark of the batch that fired it. Fire
-    # latency: the operator starts a firing batch -> its last window row
-    # reaches the sink (the dispatch and D2H pipelines' lag included)
+    if got.keys() != ref.keys() or len(got["key"]) != len(ref["key"]):
+        fail(f"{name}: window rows differ in shape from {what}")
+    for k in got:
+        if k != "value" and not np.array_equal(got[k], ref[k]):
+            fail(f"{name}: column {k!r} differs from {what}")
+    valid = got["valid"]
+    if not np.array_equal(got["value"][valid], ref["value"][valid]):
+        fail(f"{name}: window values differ from {what}")
+
+
+def _ffat_rates(blocks, run):
+    """Rates of one FFAT run after the warm-up: tuples/s and windows/s
+    from the yield of batch WARMUP to the delivery of the last batch's
+    windows (each window row carries ts == the watermark of the batch that
+    fired it), and the fire latency: the operator starts a firing batch ->
+    its last window row reaches the sink (the dispatch and D2H pipelines'
+    lag included)."""
+    import numpy as np
+    cols, t_yield, t_in, t_recv = run[:4]
     wms = [wm for _, _, wm in blocks]
     lat = sorted(t_recv[wm] - t_in[wm] for wm in wms[WARMUP:]
                  if wm in t_recv)
     t_end = max(t_recv[wm] for wm in wms if wm in t_recv)
     span = t_end - t_yield[wms[WARMUP]]
-    n_win = int(np.isin(gcols["ts"], wms[WARMUP:]).sum())
-    firing = sum(wm in t_recv for wm in wms)
+    return dict(
+        tuples_per_s=(len(blocks) - WARMUP) * BATCH / span,
+        windows_per_s=int(np.isin(cols["ts"], wms[WARMUP:]).sum()) / span,
+        fire_latency_p50_ms=1e3 * lat[len(lat) // 2],
+        fire_latency_p99_ms=1e3 * lat[min(len(lat) - 1,
+                                          int(0.99 * len(lat)))],
+        firing_batches=sum(wm in t_recv for wm in wms),
+        firing_batches_timed=len(lat))
+
+
+def _launched(name, fr, rep):
+    """K1's launch count since the last reset, which the window replica
+    must have counted too."""
+    launches = fr.LAUNCHES
+    if launches == 0 or rep.stats.rebuild_kernel_launches != launches:
+        fail(f"{name}: the rebuild kernel did not run on the path "
+             f"(wrapper {launches}, replica "
+             f"{rep.stats.rebuild_kernel_launches})")
+    return launches
+
+
+def main_path_phase(torch, wt, name, n_keys, win_per_batch):
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(n_keys, seed=7)
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    run = _run_graph(wt, "cuda", blocks, n_keys, win_per_batch)
+    launches = _launched(name, fr, run[5])
+    gcols, wall, rep = run[0], run[4], run[5]
+    ccols = _run_graph(wt, "cpu", blocks, n_keys, win_per_batch)[0]
+    _check_windows(name, "the CPU run", gcols, ccols)
+    valid = gcols["valid"]
+    if not valid.any() or (gcols["value"][valid] < 0).any():
+        fail(f"{name}: no valid windows, or negative sums of values >= 0")
     row = dict(config=name, keys=n_keys, batches=N_BATCHES, batch=BATCH,
                windows_total=int(len(gcols["key"])),
                valid_windows=int(valid.sum()),
-               rebuild_launches=launches, firing_batches=firing,
+               rebuild_launches=launches,
                device_programs=rep.stats.device_programs_run,
-               tuples_per_s=(N_BATCHES - WARMUP) * BATCH / span,
-               windows_per_s=n_win / span,
-               fire_latency_p50_ms=1e3 * lat[len(lat) // 2],
-               fire_latency_p99_ms=1e3 * lat[min(len(lat) - 1,
-                                                 int(0.99 * len(lat)))],
-               firing_batches_timed=len(lat), wall_s=wall,
+               **_ffat_rates(blocks, run), wall_s=wall,
                rows_equal_cpu=True)
     return row, launches
+
+
+def _prefix(wt, with_filter):
+    """The chain in front of the window: the graph_gpu map [and filter]."""
+    ops = [wt.Map_GPU_Builder(_map_value).build()]
+    if with_filter:
+        ops.append(wt.Filter_GPU_Builder(_even_value).build())
+    return ops
+
+
+def fusion_ffat_phase(torch, wt, card):
+    """Phase ``fusion`` (a): the high-cardinality stream through ``map ->
+    Ffat_Windows_GPU`` and ``map -> filter -> Ffat_Windows_GPU`` built with
+    ``chain``, fused (one ``FusedFfatReplica``) and unfused
+    (``fusion=False``) on the card in turns (fused, unfused, unfused,
+    fused) and fused on the CPU: every run's window rows must be equal row
+    for row, and K1 must launch once per firing batch, as often fused as
+    unfused. K1's count is reset just before each run and read just after.
+    Returns K1's launches in the first fused run of each chain."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(HC_KEYS, seed=7)
+    fused_launches = 0
+    for with_filter in (False, True):
+        name = "map_filter_ffat" if with_filter else "map_ffat"
+        ccols = _run_graph(wt, "cpu", blocks, HC_KEYS, None,
+                           _prefix(wt, with_filter))[0]
+        if not ccols["valid"].any():
+            fail(f"fusion {name}: no valid windows")
+        row = dict(part="ffat", chain=name, keys=HC_KEYS, batches=N_BATCHES,
+                   warmup=WARMUP, batch=BATCH, card=card,
+                   windows_total=int(len(ccols["key"])))
+        for fusion in (True, False, False, True):
+            fr.LAUNCHES = 0
+            torch.cuda.synchronize()
+            run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
+                             _prefix(wt, with_filter), fusion)
+            launches = _launched(f"fusion {name}", fr, run[5])
+            _check_windows(f"fusion {name} (fusion={fusion})",
+                           "the fused CPU run", run[0], ccols)
+            ops = run[6].get_stats()["Operators"]
+            if fusion != any(o["kind"] == "Fused_GPU_Chain" for o in ops):
+                fail(f"fusion {name}: the chain did not fuse as asked")
+            rates = _ffat_rates(blocks, run)
+            if launches != rates["firing_batches"]:
+                fail(f"fusion {name}: K1 launched {launches} times for "
+                     f"{rates['firing_batches']} firing batches")
+            programs = sum(r["Device_programs_run"] for o in ops
+                           for r in o["replicas"])
+            runs = row.setdefault("fused" if fusion else "unfused", [])
+            runs.append(dict(**rates, rebuild_launches=launches,
+                             programs_per_batch=programs / N_BATCHES,
+                             wall_s=run[4]))
+            if fusion and len(runs) == 1:
+                fused_launches += launches
+        row["rows_equal_unfused_and_cpu"] = True
+        phase("fusion", **row)
+    return fused_launches
 
 
 # ---------------------------------------------------------------------------
@@ -432,11 +532,14 @@ def _sum_value(a, b):
     return {"key": b["key"], "value": a["value"] + b["value"]}
 
 
-def _run_ops_graph(wt, device, blocks, keyed, batch=BATCH):
+def _run_ops_graph(wt, device, blocks, keyed, batch=BATCH, par=GRAPH_PAR,
+                   chain=False, fusion=True, megabatch=1):
     """Columnar source -> Map_GPU -> Filter_GPU -> Reduce_GPU (keyed by
-    "key" at GRAPH_PAR replicas, or global) -> columnar sink. Returns the
-    sink's batches in arrival order as (arrival time, columns with ts),
-    the source's yield times and the graph."""
+    "key" at ``par`` replicas, or global) -> columnar sink, the operators
+    joined by ``add`` or, with ``chain``, by ``chain`` (one fused replica
+    when ``fusion`` is on). Returns the sink's batches in arrival order as
+    (arrival time, columns with ts), the source's yield times and the
+    graph."""
     t_yield, parts, lock = [], [], threading.Lock()
 
     def source():
@@ -454,15 +557,17 @@ def _run_ops_graph(wt, device, blocks, keyed, batch=BATCH):
 
     red = wt.Reduce_GPU_Builder(_sum_value)
     if keyed:
-        red = red.with_key_by("key").with_parallelism(GRAPH_PAR)
+        red = red.with_key_by("key").with_parallelism(par)
     graph = wt.PipeGraph("graph_gpu", wt.ExecutionMode.DEFAULT,
-                         wt.TimePolicy.EVENT_TIME, device=device)
-    graph.add_source(wt.Columnar_Source_Builder(source)
-                     .with_output_batch_size(batch).build()) \
-        .add(wt.Map_GPU_Builder(_map_value).build()) \
-        .add(wt.Filter_GPU_Builder(_even_value).build()) \
-        .add(red.build()) \
-        .add_sink(wt.Sink_Builder(sink).with_columns().build())
+                         wt.TimePolicy.EVENT_TIME, device=device,
+                         fusion=fusion, megabatch=megabatch)
+    mp = graph.add_source(wt.Columnar_Source_Builder(source)
+                          .with_output_batch_size(batch).build()) \
+        .add(wt.Map_GPU_Builder(_map_value).build())
+    join = mp.chain if chain else mp.add
+    join(wt.Filter_GPU_Builder(_even_value).build())
+    join(red.build())
+    mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
     graph.run()
     return parts, t_yield, graph
 
@@ -474,8 +579,12 @@ def _concat(parts):
 
 
 def _sorted_rows(parts):
+    return _sort_cols(_concat(parts))
+
+
+def _sort_cols(c):
+    """Columns in (ts, key, value) order: a multiset of rows."""
     import numpy as np
-    c = _concat(parts)
     order = np.lexsort((c["value"], c["key"], c["ts"]))
     return {k: v[order] for k, v in c.items()}
 
@@ -616,12 +725,30 @@ def programs_phase(torch, wt, blocks, card):
     return rows
 
 
+def _profiled(torch, run, n_batches):
+    """One run of ``run`` under ``torch.profiler``: the wall time, the
+    card's busy time (kernels and copies) and idle share, and kernels and
+    copies per batch."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    kernels, copies = _events(torch, prof)
+    busy = sum(e.time_range.elapsed_us() for e in kernels + copies) / 1e3
+    return dict(wall_ms=span * 1e3, device_busy_ms=busy,
+                device_idle_share=1.0 - busy / (span * 1e3),
+                kernels_per_batch=len(kernels) / n_batches,
+                copies_per_batch=len(copies) / n_batches)
+
+
 def graph_gpu_phase(torch, wt, card):
     """The graph_tests_gpu path on the card: rows equal to the CPU run and
     to a numpy fold, tuples/s, then one profiled run for the device's
     idle share and launches per batch."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     blocks = _blocks(GRAPH_KEYS, seed=9, n_batches=GRAPH_BATCHES)
     tot, per_batch = _fold(blocks)
     row = dict(config="graph_gpu", keys=GRAPH_KEYS, batches=GRAPH_BATCHES,
@@ -661,19 +788,9 @@ def graph_gpu_phase(torch, wt, card):
                          filter_ignored=sum(r["Inputs_ignored"] for r in
                                             ops[2]["replicas"]))
     # one more keyed run under the profiler: idle share and launches
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _run_ops_graph(wt, "cuda", blocks, True)
-        torch.cuda.synchronize()
-        span = time.perf_counter() - t0
-    kernels, copies = _events(torch, prof)
-    busy = sum(e.time_range.elapsed_us() for e in kernels + copies) / 1e3
-    row["profiled_keyed"] = dict(
-        wall_ms=span * 1e3, device_busy_ms=busy,
-        device_idle_share=1.0 - busy / (span * 1e3),
-        kernels_per_batch=len(kernels) / GRAPH_BATCHES,
-        copies_per_batch=len(copies) / GRAPH_BATCHES)
+    row["profiled_keyed"] = _profiled(
+        torch, lambda: _run_ops_graph(wt, "cuda", blocks, True),
+        GRAPH_BATCHES)
     phase("graph_gpu", **row)
     # broadcast: keyed staging into two maps, broadcast into two more
     small = _blocks(GRAPH_KEYS, seed=10, n_batches=4, batch=4096)
@@ -708,6 +825,85 @@ def graph_gpu_phase(torch, wt, card):
     return row, blocks
 
 
+def fusion_ops_phase(torch, wt, card):
+    """Phase ``fusion`` (b): the graph_gpu stream through ``map -> filter
+    -> global Reduce_GPU`` and ``map -> filter -> keyed Reduce_GPU``, built
+    with ``chain`` at parallelism 1 and fused, with megabatch 1, 4 and 8,
+    and unfused (``fusion=False``), the runs in turns (unfused, 1, 4, 8,
+    8, 4, 1, unfused). Every run's rows must equal the unfused CPU run (in
+    order for the global reduce: value and ts, the key being the
+    non-commutative combine's pick, which follows the fold's pairing; all
+    columns against the fused CPU run; as a multiset for the keyed
+    reduce) and the numpy fold. One line per megabatch width: tuples/s of
+    its two runs and of the unfused runs, host prep and commit ms per
+    batch of each stage, the fused replica's Megabatch_* and
+    Programs_per_batch, and a profiled run's idle share and launches."""
+    import numpy as np
+    blocks = _blocks(GRAPH_KEYS, seed=9, n_batches=FUSION_BATCHES)
+    tot, per_batch = _fold(blocks)
+    timed = (FUSION_BATCHES - GRAPH_WARMUP) * BATCH
+    for keyed in (False, True):
+        kind = "keyed" if keyed else "global"
+        common = dict(blocks=blocks, keyed=keyed, par=1, chain=True)
+        ref = _concat(_run_ops_graph(wt, "cpu", fusion=False, **common)[0])
+        fcpu = _concat(_run_ops_graph(wt, "cpu", **common)[0])
+        rates, stages, fused = {}, {}, {}
+        for k in (0, 1, 4, 8, 8, 4, 1, 0):  # 0: unfused
+            parts, t_yield, graph = _run_ops_graph(
+                wt, "cuda", fusion=k > 0, megabatch=max(1, k), **common)
+            g = _concat(parts)
+            if keyed:
+                gs, cs = _sort_cols(g), _sort_cols(ref)
+                got = np.zeros(GRAPH_KEYS, dtype=np.int64)
+                np.add.at(got, g["key"], g["value"])
+                ok = (gs.keys() == cs.keys()
+                      and all(np.array_equal(gs[x], cs[x]) for x in gs)
+                      and np.array_equal(got, tot))
+            else:
+                same = fcpu if k else ref
+                ok = (g.keys() == ref.keys()
+                      and all(np.array_equal(g[x], ref[x])
+                              for x in ("ts", "value"))
+                      and all(np.array_equal(g[x], same[x]) for x in g)
+                      and g["value"].tolist() == per_batch)
+            if not ok:
+                fail(f"fusion {kind} megabatch {k}: rows on cuda differ "
+                     "from the unfused CPU run or the numpy fold")
+            rates.setdefault(k, []).append(
+                timed / (max(t for t, _ in parts) - t_yield[GRAPH_WARMUP]))
+            ops = graph.get_stats()["Operators"][1:-1]
+            stages[k] = {o["name"]: [
+                round(r[f"Dispatch_{c}_total_usec"] / 1e3
+                      / max(1, r["Dispatch_batches"]), 4)
+                for c in ("host_prep", "commit")]
+                for o in ops for r in o["replicas"]}
+            if k:
+                st = ops[0]["replicas"][0]
+                if ops[0]["kind"] != "Fused_GPU_Chain" \
+                        or st["Fused_ops"] != 3:
+                    fail(f"fusion {kind}: the chain did not fuse")
+                if k > 1 and st["Megabatch_loops"] == 0:
+                    fail(f"fusion {kind} megabatch {k}: no group formed")
+                fused[k] = st
+        for k in (1, 4, 8):
+            st = fused[k]
+            phase("fusion", part="ops", reduce=kind, megabatch=k,
+                  keys=GRAPH_KEYS, batches=FUSION_BATCHES,
+                  warmup=GRAPH_WARMUP, batch=BATCH, card=card,
+                  rows=int(len(fcpu["key"])), rows_equal_cpu=True,
+                  tuples_per_s=rates[k], unfused_tuples_per_s=rates[0],
+                  prep_commit_ms_per_batch=stages[k],
+                  unfused_prep_commit_ms_per_batch=stages[0],
+                  **{x: st[x] for x in (
+                      "Device_programs_run", "Programs_per_batch",
+                      "Megabatch_loops", "Megabatch_batches_per_loop_avg",
+                      "Megabatch_max", "Inputs_ignored")},
+                  profiled=_profiled(
+                      torch, lambda: _run_ops_graph(
+                          wt, "cuda", megabatch=k, **common),
+                      FUSION_BATCHES))
+
+
 def main() -> None:
     try:
         import torch
@@ -727,11 +923,14 @@ def main() -> None:
     build_phase()
     _, err_checks = kernel_phase(torch, timed=False)
     hc, hc_launches = main_path_phase(torch, wt, "high_cardinality",
-                                      10_240, None)
+                                      HC_KEYS, None)
     phase("main_path", **hc)
     base, base_launches = main_path_phase(torch, wt, "64_keys", 64, 128)
     phase("main_path", **base)
+    # before any torch.profiler use: its tracing slows later FFAT runs
+    fusion_launches = fusion_ffat_phase(torch, wt, card)
     _, graph_blocks = graph_gpu_phase(torch, wt, card)
+    fusion_ops_phase(torch, wt, card)
     programs_phase(torch, wt, graph_blocks, card)
     timing, err_timed = kernel_phase(torch, timed=True)
     print(json.dumps({"kernels": [{
@@ -739,7 +938,7 @@ def main() -> None:
         "route": "cuda",
         "source": "windflow_tpu_torch/kernels/forest_rebuild.cu",
         "replaces": "windflow_tpu/tpu/pallas_kernels.py:29",
-        "launches": hc_launches + base_launches,
+        "launches": hc_launches + base_launches + fusion_launches,
         "max_abs_err": max(err_checks, err_timed),
         "ms": timing["wrapper_ms"],
         "device_ms": timing["device_ms"],

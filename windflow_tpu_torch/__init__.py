@@ -7,7 +7,10 @@ runs linear graphs of host operators (``Map``, ``Filter``, ``FlatMap``,
 ``Reduce_GPU``, and ``Ffat_Windows_GPU`` with its FlatFAT forest rebuilt
 by a hand-written CUDA kernel for Hopper, ``kernels/``), joined by
 CPU -> device staging, forward / keyed / broadcast device -> device edges
-and the device -> host exit to a row or columnar sink.
+and the device -> host exit to a row or columnar sink. Device operators
+joined by ``MultiPipe.chain`` fuse into one replica per slot
+(``gpu/fused_ops.py``); ``PipeGraph(fusion=..., megabatch=...)`` sets
+fusion (default on) and the megabatch width (default 1, off).
 
 ``PipeGraph(..., device=None)`` runs on ``cuda`` and raises without a card;
 pass ``device="cpu"`` for the plain PyTorch path.

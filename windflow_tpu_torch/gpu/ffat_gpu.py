@@ -94,6 +94,14 @@ class Ffat_Windows_GPU(GPUOperatorBase):
                 "combines in the kernel are not yet ported")
         super().configure(execution_mode, time_policy, device)
 
+    @property
+    def fusion_role(self) -> Optional[str]:
+        """``"window_terminator"``: the window op may END a fused device
+        chain (its step absorbs a stateless map/filter prefix,
+        ``fused_ops.FusedFfatReplica``) but never sits mid-chain: it
+        changes the row domain (tuples -> fired windows)."""
+        return "window_terminator"
+
     def build_replicas(self) -> None:
         self.replicas = [FfatGPUReplica(self, i)
                          for i in range(self.parallelism)]
@@ -179,6 +187,31 @@ class FfatGPUReplica(GPUReplicaBase):
     def _on_accelerator(self) -> bool:
         """Policy test for the two-tier fire budget."""
         return self.device.type != "cpu"
+
+    # ==================================================================
+    # fused-chain seams (overridden by fused_ops.FusedFfatReplica)
+    # ==================================================================
+    def _lift_fn(self) -> Callable:
+        """The lift every device step calls. The fused-chain replica puts
+        the chain's stateless map prefix in front of the user lift."""
+        return self.op.lift
+
+    def _prefix_mask(self, batch: BatchGPU) -> Optional[np.ndarray]:
+        """Host keep mask of a fused prefix filter over ``batch`` (None
+        when there is none, as in the base replica). It is taken at PREP
+        time: the host control plane's liveness quantities (max_leaf,
+        next_fire, the CB count) are exact, so a row the prefix drops may
+        never register a key, advance a leaf or count toward a CB
+        window."""
+        return None
+
+    def _chain_tag(self):
+        """What tells a fused prefix's steps apart from the bare window's
+        (None here, the prefix's names in the fused replica): the JAX
+        package keys its compiled steps by it. Nothing in the port caches
+        steps yet; a captured CUDA graph of the step would be keyed by
+        it."""
+        return None
 
     # ==================================================================
     # the device plane
@@ -271,7 +304,7 @@ class FfatGPUReplica(GPUReplicaBase):
         nn = 2 * F
         m = self.K_cap * nn
         n_rows = next(iter(fields.values())).shape[0]
-        vals = broadcast_scalar_fields(self.op.lift(fields), n_rows,
+        vals = broadcast_scalar_fields(self._lift_fn()(fields), n_rows,
                                        self.device)
         comp, order, same_prev, is_end, flat_idx = seg
         if comp is not None:
@@ -395,7 +428,7 @@ class FfatGPUReplica(GPUReplicaBase):
         if self.trees is not None:
             return
         one = {k: v[:1] for k, v in sample_fields.items()}
-        out = self.op.lift(one)
+        out = self._lift_fn()(one)
         if not isinstance(out, dict):
             raise WindFlowError(f"{self.op.name}: lift must return a dict "
                                 "of columns")
@@ -421,9 +454,29 @@ class FfatGPUReplica(GPUReplicaBase):
         self._ensure_forest(batch.fields)
         if op.key_field is not None and op.key_field in batch.fields:
             self._key_dtype = numpy_dtype(batch.fields[op.key_field].dtype)
+        # fused prefix filter (FusedFfatReplica): the rows it drops must
+        # not exist for the control plane at all, exactly like the rows an
+        # unfused filter stage compacts away before the window sees them
+        keep = self._prefix_mask(batch)
+        rowsel = None
+        if keep is not None:
+            n_kept = int(keep.sum())
+            if n_kept < n:
+                self.stats.inputs_ignored += n - n_kept
+                if n_kept == 0:
+                    return None
+                rowsel = np.nonzero(keep)[0]
         keys, keys_arr = op_batch_keys_np(op, batch)
-        n_rows = n
-        ts_rows = batch.ts_host[:n]
+        if rowsel is not None:
+            sub_arr = np.asarray(keys_arr)[rowsel]
+            keys = (sub_arr if isinstance(keys, np.ndarray)
+                    else [keys[i] for i in rowsel])
+            keys_arr = sub_arr
+            n_rows = len(rowsel)
+            ts_rows = batch.ts_host[:n][rowsel]
+        else:
+            n_rows = n
+            ts_rows = batch.ts_host[:n]
         slots = self._keymap.slots_of(keys, keys_arr, n_rows)
         if op.win_type is WinType.TB:
             leaves = ts_rows // op.pane_len
@@ -495,7 +548,12 @@ class FfatGPUReplica(GPUReplicaBase):
         packed = slots * self.F + (leaves & (self.F - 1))  # F is pow-2
         if n_late:
             packed = np.where(live, packed, M)
-        comp_p[:n] = packed
+        if rowsel is None:
+            comp_p[:n] = packed
+        else:
+            # prefix-dropped rows keep the sentinel: the device step treats
+            # them like late and padding lanes
+            comp_p[rowsel] = packed
         if self._host_seg:
             big = cdt(M)
             order_p = np.argsort(comp_p, kind="stable").astype(np.int32)

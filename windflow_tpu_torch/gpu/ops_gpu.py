@@ -34,6 +34,11 @@ between replicas.
 - ``Reduce_GPU`` global (no key): the whole batch folds to ONE tuple by a
   validity-masked pairwise tree (``masked_tree_reduce``; reference
   ``thrust::reduce``, ``reduce_gpu.hpp:269-272``).
+
+Each operator names its ``fusion_role`` (``topology/stage.py`` legality):
+Map and Filter are transforms whose ``device_kernel`` composes mid-chain
+(a Filter narrows the chain's ``valid`` mask instead of compacting), and
+the Reduce variants may only end a fused chain (``gpu/fused_ops.py``).
 """
 
 from __future__ import annotations
@@ -116,8 +121,14 @@ def reduce_order_and_slots(op, batch: BatchGPU):
     cap = batch.capacity
     _, keys_arr = op_batch_keys_np(op, batch)
     if n and keys_arr.ndim == 1 and keys_arr.dtype.kind in "iu":
-        order_n = np.argsort(keys_arr[:n], kind="stable")
-        sk = keys_arr[:n][order_n]
+        k = keys_arr[:n]
+        # numpy's stable sort is a radix sort for <= 16-bit ints only:
+        # keys that fit int16 take it through a cast, in the same order
+        if -2**15 <= int(k.min()) and int(k.max()) < 2**15:
+            order_n = np.argsort(k.astype(np.int16), kind="stable")
+        else:
+            order_n = np.argsort(k, kind="stable")
+        sk = k[order_n]
         new_grp = np.r_[True, sk[1:] != sk[:-1]]
         uniq = sk[new_grp]
         slot_of_key = {int(k): i for i, k in enumerate(uniq)}
@@ -233,7 +244,8 @@ class GPUReplicaBase(BasicReplica):
     def __init__(self, op: BasicOperator, idx: int) -> None:
         super().__init__(op, idx)
         self.device = op.device
-        self.dispatch = DeviceDispatchQueue(stats=self.stats)
+        self.dispatch = DeviceDispatchQueue(stats=self.stats,
+                                            megabatch=op.megabatch)
 
     def handle_msg(self, ch: int, msg: Any) -> None:
         if msg.is_punct:
@@ -313,10 +325,26 @@ class GPUOperatorBase(BasicOperator):
         super().__init__(name, parallelism, input_routing, key_extractor,
                          output_batch_size)
         self.schema = schema  # None => inferred at the staging boundary
+        # megabatch width of the replicas' dispatch queues: the graph's
+        # PipeGraph(megabatch=K), set before the replicas are built
+        self.megabatch = 1
 
     @property
     def is_chainable(self) -> bool:
         return False
+
+    @property
+    def fusion_role(self) -> Optional[str]:
+        """Device-chain fusion classification (``topology/stage.py``):
+        ``"transform"`` composes mid-chain through its ``device_kernel``;
+        ``"terminator"`` / ``"keyed_terminator"`` / ``"window_terminator"``
+        may only end a fused chain; None never fuses."""
+        return None
+
+    def device_kernel(self) -> Callable:
+        """The operator's composable ``(fields, valid, carry) -> (fields,
+        valid, carry)`` kernel (stateless transforms only)."""
+        raise WindFlowError(f"{self.name}: no composable device kernel")
 
     def configure(self, execution_mode, time_policy, device) -> None:
         if execution_mode is not ExecutionMode.DEFAULT:
@@ -342,6 +370,27 @@ class Map_GPU(GPUOperatorBase):
                          output_batch_size, schema)
         self.func = func
 
+    @property
+    def fusion_role(self) -> Optional[str]:
+        return "transform"
+
+    def apply(self, fields: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """``func`` over the columns, its output in canonical dtypes."""
+        out = self.func(dict(fields))
+        if not isinstance(out, dict):
+            raise WindFlowError(f"{self.name}: Map_GPU function must "
+                                "return a dict of columns")
+        return {k: canonical(v) for k, v in out.items()}
+
+    def device_kernel(self) -> Callable:
+        apply = self.apply
+
+        def kernel(fields, valid, carry):
+            return apply(fields), valid, carry
+
+        return kernel
+
     def build_replicas(self) -> None:
         self.replicas = [MapGPUReplica(self, i)
                          for i in range(self.parallelism)]
@@ -349,13 +398,9 @@ class Map_GPU(GPUOperatorBase):
 
 class MapGPUReplica(GPUReplicaBase):
     def process_device_batch(self, batch: BatchGPU) -> None:
-        out = self.op.func(dict(batch.fields))
+        out = self.op.apply(batch.fields)
         self.stats.device_programs_run += 1
-        if not isinstance(out, dict):
-            raise WindFlowError(f"{self.op.name}: Map_GPU function must "
-                                "return a dict of columns")
-        self._emit_batch(batch.with_fields(
-            {k: canonical(v) for k, v in out.items()}))
+        self._emit_batch(batch.with_fields(out))
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +418,20 @@ class Filter_GPU(GPUOperatorBase):
         super().__init__(name, parallelism, input_routing, key_extractor,
                          output_batch_size, schema)
         self.pred = pred
+
+    @property
+    def fusion_role(self) -> Optional[str]:
+        return "transform"
+
+    def device_kernel(self) -> Callable:
+        pred = self.pred
+
+        def kernel(fields, valid, carry):
+            # narrow the keep mask instead of compacting: the chain exit
+            # compacts once. An int 0/1 mask must not reach ``&`` raw
+            return fields, valid & pred(dict(fields)).to(torch.bool), carry
+
+        return kernel
 
     def build_replicas(self) -> None:
         self.replicas = [FilterGPUReplica(self, i)
@@ -416,6 +475,14 @@ class Reduce_GPU(GPUOperatorBase):
         super().__init__(name, parallelism, routing, key_extractor,
                          output_batch_size, schema)
         self.combine = combine
+
+    @property
+    def fusion_role(self) -> Optional[str]:
+        # both variants change cardinality, so both may only END a fused
+        # chain; the keyed one only where its KEYBY shuffle is the
+        # identity (topology/stage.py)
+        return ("terminator" if self.key_extractor is None
+                else "keyed_terminator")
 
     def build_replicas(self) -> None:
         cls = (ReduceGPUReplica if self.key_extractor is not None

@@ -1,12 +1,14 @@
 """The inclusive segmented scan with a user combine, shared by the device
 operators that group rows by key: ``Ffat_Windows_GPU`` (pane partials
-before the leaf scatter, the JAX package's ``ffat_tpu.py`` step) and the
-keyed ``Reduce_GPU`` (per-key partials, ``ops_tpu.py`` ``ReduceTPUReplica``).
+before the leaf scatter, the JAX package's ``ffat_tpu.py`` step), the
+keyed ``Reduce_GPU`` (per-key partials, ``ops_tpu.py``
+``ReduceTPUReplica``) and the keyed terminator of a fused chain, which
+scans with a validity plane (``fused_ops.py`` ``_chain_body``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +22,22 @@ def segmented_scan(combine: Callable, vals: Dict[str, torch.Tensor],
     combines, so float sums may round differently. The combine always sees
     (earlier, later) partials; a field it does not return passes through
     from the later one. The inputs are not written."""
+    return masked_segmented_scan(combine, vals, same_prev)[0]
+
+
+def masked_segmented_scan(combine: Callable, vals: Dict[str, torch.Tensor],
+                          same_prev: torch.Tensor,
+                          valid: Optional[torch.Tensor] = None
+                          ) -> Tuple[Dict[str, torch.Tensor],
+                                     Optional[torch.Tensor]]:
+    """``segmented_scan`` with validity as an Option (the JAX package's
+    fused keyed terminator, ``fused_ops.py`` ``seg_op``): an invalid side
+    passes the other through, and the scanned validity says whether any
+    valid row of the segment lies at or before each row, so an invalid
+    segment tail means the segment had no valid row. The value of a row
+    whose scanned validity is False is unspecified. Returns ``(vals,
+    valid)``; with ``valid`` None it is ``segmented_scan``, combine for
+    combine."""
     n = same_prev.shape[0]
     s = same_prev
     d = 1
@@ -28,9 +46,16 @@ def segmented_scan(combine: Callable, vals: Dict[str, torch.Tensor],
         b = {k: v[d:] for k, v in vals.items()}
         sb = s[d:]
         merged = combine(a, b)
-        vals = {k: torch.cat([v[:d], torch.where(sb, merged.get(k, b[k]),
-                                                 b[k])])
+        if valid is None:
+            vals = {k: torch.cat([v[:d], torch.where(
+                sb, merged.get(k, b[k]), b[k])]) for k, v in vals.items()}
+        else:
+            vb = valid[d:]
+            vsb = valid[:-d] & sb  # a is valid and in b's segment
+            vals = {k: torch.cat([v[:d], torch.where(
+                vsb, torch.where(vb, merged.get(k, b[k]), a[k]), b[k])])
                 for k, v in vals.items()}
+            valid = torch.cat([valid[:d], vb | vsb])
         s = torch.cat([s[:d], s[:-d] & sb])
         d *= 2
-    return vals
+    return vals, valid

@@ -3,7 +3,8 @@
 Trimmed copy of ``windflow_tpu/monitoring/stats.py``: the counters the
 replicas of the ported slice write (tuples in/out, ignored tuples, the
 device-plane traffic and program counts, the dispatch-pipeline split, the
-watermark gauges and the unified late-record accounting). On top of those,
+watermark gauges, the unified late-record accounting, and the fused-chain
+and megabatch counters). On top of those,
 ``rebuild_kernel_launches`` counts the launches of the hand-written
 FlatFAT forest-rebuild kernel on this replica's forest, so a run can show
 that the main path went through it.
@@ -24,7 +25,8 @@ class StatsRecord:
         "punct_received", "punct_sent", "service_time_us",
         "device_batches_in", "device_batches_out",
         "device_bytes_h2d", "device_bytes_d2h", "device_programs_run",
-        "rebuild_kernel_launches",
+        "rebuild_kernel_launches", "fused_ops",
+        "megabatch_loops", "megabatch_batches", "megabatch_max",
         "dispatch_host_prep_us", "dispatch_commit_us",
         "dispatch_host_prep_total_us", "dispatch_commit_total_us",
         "dispatch_batches", "dispatch_stalls", "dispatch_depth_max",
@@ -52,6 +54,12 @@ class StatsRecord:
         self.device_bytes_d2h = 0
         self.device_programs_run = 0
         self.rebuild_kernel_launches = 0
+        self.fused_ops = 0  # sub-ops fused into this replica (gpu/fused_ops)
+        # megabatch groups (runtime/dispatch.py + gpu/fused_ops.py): groups
+        # run, batches they committed and the widest group
+        self.megabatch_loops = 0
+        self.megabatch_batches = 0
+        self.megabatch_max = 0
         self.dispatch_host_prep_us = 0.0  # EWMA
         self.dispatch_commit_us = 0.0  # EWMA
         self.dispatch_host_prep_total_us = 0.0
@@ -117,6 +125,15 @@ class StatsRecord:
     def note_dispatch_stall(self) -> None:
         self.dispatch_stalls += 1
 
+    def note_megabatch(self, k: int) -> None:
+        """One megabatch group: ``k`` same-signature batches committed as
+        one device program (``FusedGPUReplica._run_megabatch``; its time
+        lands in the dispatch commit clock)."""
+        self.megabatch_loops += 1
+        self.megabatch_batches += k
+        if k > self.megabatch_max:
+            self.megabatch_max = k
+
     def note_ingest_block(self, n_rows: int) -> None:
         self.ingest_blocks += 1
         self.ingest_rows += n_rows
@@ -150,11 +167,27 @@ class StatsRecord:
             "Device_bytes_D2H": self.device_bytes_d2h,
             "Device_programs_run": self.device_programs_run,
             "Rebuild_kernel_launches": self.rebuild_kernel_launches,
+            "Fused_ops": self.fused_ops,
             "Dispatch_host_prep_usec": round(self.dispatch_host_prep_us, 3),
             "Dispatch_commit_usec": round(self.dispatch_commit_us, 3),
+            "Dispatch_host_prep_total_usec": round(
+                self.dispatch_host_prep_total_us, 1),
+            "Dispatch_commit_total_usec": round(
+                self.dispatch_commit_total_us, 1),
             "Dispatch_batches": self.dispatch_batches,
             "Dispatch_readback_stalls": self.dispatch_stalls,
             "Dispatch_queue_depth_max": self.dispatch_depth_max,
+            # megabatch groups (0s with megabatch off or on unfused
+            # replicas); Programs_per_batch < 1.0 means groups retire
+            # several batches per device program
+            "Megabatch_loops": self.megabatch_loops,
+            "Megabatch_batches_per_loop_avg": round(
+                self.megabatch_batches / self.megabatch_loops, 2)
+                if self.megabatch_loops else 0.0,
+            "Megabatch_max": self.megabatch_max,
+            "Programs_per_batch": round(
+                self.device_programs_run / self.dispatch_batches, 3)
+                if self.dispatch_batches else 0.0,
             "Ingest_blocks": self.ingest_blocks,
             "Ingest_rows": self.ingest_rows,
             "Watermark_current_ts": self.wm_current,

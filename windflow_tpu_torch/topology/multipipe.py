@@ -48,10 +48,13 @@ class MultiPipe:
         return self
 
     def chain(self, op: BasicOperator) -> "MultiPipe":
-        """Chain into the tail stage's thread when legal, else ``add``
-        (reference behavior, ``wf/multipipe.hpp:1050-1100``)."""
+        """Chain into the tail stage's thread (for consecutive device
+        operators: fuse into its replica, ``topology/stage.py`` rules)
+        when legal, else ``add`` (reference behavior,
+        ``wf/multipipe.hpp:1050-1100``). A refused chain records WHY on the
+        fallback stage (``Stage.chain_refused``)."""
         self._check_open("chain")
-        reason = self.tail.chain_refusal(op)
+        reason = self.tail.chain_refusal(op, self.graph.fusion)
         if reason is None:
             self._claim(op)
             self.tail.ops.append(op)

@@ -2,7 +2,12 @@
 
 Trimmed copy of ``windflow_tpu/topology/pipegraph.py`` (parity with
 ``wf/pipegraph.hpp``: ``add_source``, ``run`` = ``start`` + ``wait_end``,
-per-operator stats), for linear graphs of host and device operators.
+per-operator stats), for linear graphs of host and device operators. A
+chained device stage runs as one fused replica per slot
+(``gpu/fused_ops.py``): ``fusion`` (default on, the JAX package's
+``WF_TPU_FUSION``) lets ``MultiPipe.chain`` fuse device operators, and
+``megabatch`` (default 1 = off, its ``WF_MEGABATCH``) is the width of
+the megabatch groups of every device replica's dispatch queue.
 
 The graph carries the torch ``device`` its device operators run on:
 ``device=None`` means ``cuda``, and a graph refuses to exist when no CUDA
@@ -49,7 +54,8 @@ class PipeGraph:
                  execution_mode: ExecutionMode = ExecutionMode.DEFAULT,
                  time_policy: TimePolicy = TimePolicy.INGRESS_TIME,
                  channel_capacity: int = DEFAULT_BUFFER_CAPACITY,
-                 device=None) -> None:
+                 device=None, fusion: bool = True,
+                 megabatch: int = 1) -> None:
         if execution_mode is not ExecutionMode.DEFAULT:
             raise WindFlowError(f"{execution_mode.name} execution mode is "
                                 "not yet ported to windflow_tpu_torch")
@@ -58,6 +64,8 @@ class PipeGraph:
         self.time_policy = time_policy
         self.channel_capacity = channel_capacity
         self.device = resolve_device(device)
+        self.fusion = fusion
+        self.megabatch = max(1, megabatch)  # 0 and 1 both mean off
         self._stages: List[Stage] = []
         self._ops: List[BasicOperator] = []
         self._workers: List[Worker] = []
@@ -126,13 +134,31 @@ class PipeGraph:
             for op in s.ops:
                 op.configure(self.execution_mode, self.time_policy,
                              self.device)
-                op.build_replicas()
+                if getattr(op, "is_gpu", False):
+                    op.megabatch = self.megabatch
+            if s.is_fused_gpu:
+                # ONE fused replica per slot runs the whole chain; every
+                # sub-op aliases the list so edge wiring (first_op /
+                # last_op replicas) stays uniform
+                from ..gpu.fused_ops import make_fused_replica
+                fused = [make_fused_replica(s.ops, i)
+                         for i in range(s.parallelism)]
+                for op in s.ops:
+                    op.replicas = fused
+                    op._fused_hidden = op is not s.first_op
+                s.first_op._fused_stage_label = s.describe()
+            else:
+                for op in s.ops:
+                    op.build_replicas()
         for s in self._stages:
             if not s.is_source:
                 s.channels = [Channel(self.channel_capacity)
                               for _ in range(s.parallelism)]
-        # intra-stage chain wiring (InlinePort edges)
+        # intra-stage chain wiring (InlinePort edges); a fused device stage
+        # has none: the chain runs inside one replica
         for s in self._stages:
+            if s.is_fused_gpu:
+                continue
             for a, b in zip(s.ops[:-1], s.ops[1:]):
                 for i in range(s.parallelism):
                     em = ForwardEmitter(1, 0, self.execution_mode)
@@ -172,9 +198,17 @@ class PipeGraph:
             for op in consumer.ops:
                 for r in op.replicas:
                     r.copy_on_write = True
+        # the op whose key the consumer stage reads on the host: its
+        # entry's, or for a fused stage with an unkeyed entry its
+        # terminator's (a fused prefix never rewrites the key field), so
+        # that staging attaches host keys and a device edge starts the key
+        # column's copy early
+        key_op = first
+        if consumer.is_fused_gpu and first.key_extractor is None:
+            key_op = consumer.last_op
         for pi, pr in enumerate(producer.last_op.replicas):
-            em = self._create_edge_emitter(first, routing, obs, n_dests,
-                                           p_gpu, c_gpu, one_to_one)
+            em = self._create_edge_emitter(first, key_op, routing, obs,
+                                           n_dests, p_gpu, c_gpu, one_to_one)
             if one_to_one:
                 ports = [QueuePort(consumer.channels[pi])]
             else:
@@ -182,7 +216,8 @@ class PipeGraph:
             em.set_ports(ports)
             pr.set_emitter(em)
 
-    def _create_edge_emitter(self, first: BasicOperator, routing: RoutingMode,
+    def _create_edge_emitter(self, first: BasicOperator,
+                             key_op: BasicOperator, routing: RoutingMode,
                              obs: int, n_dests: int, p_gpu: bool,
                              c_gpu: bool, one_to_one: bool) -> BasicEmitter:
         """Emitter kind per (device plane, routing): the reference's
@@ -195,11 +230,11 @@ class PipeGraph:
         if c_gpu and not p_gpu:  # CPU -> device staging boundary
             return GPUStageEmitter(
                 n_dests, obs, getattr(first, "schema", None),
-                first.key_extractor,
+                key_op.key_extractor,
                 "keyby" if routing is RoutingMode.KEYBY else
                 "broadcast" if routing is RoutingMode.BROADCAST
                 else "forward",
-                self.execution_mode, first.key_field, self.device)
+                self.execution_mode, key_op.key_field, self.device)
         if p_gpu and c_gpu:  # device -> device
             if routing is RoutingMode.KEYBY:
                 return GPUKeyByEmitter(n_dests, self.execution_mode,
@@ -211,7 +246,7 @@ class PipeGraph:
                                        self.execution_mode)
             # a keyed consumer fed by forward/broadcast: its key column's
             # copy to the host starts here
-            em.prefetch_field = first.key_field
+            em.prefetch_field = key_op.key_field
             return em
         if getattr(first, "accepts_columns", False):
             if not p_gpu:
@@ -246,7 +281,11 @@ class PipeGraph:
                 if channel.n_inputs > 1:
                     chain.append(WatermarkCollector(
                         channel.n_inputs, stage.first_op.replicas[i]))
-            chain.extend(op.replicas[i] for op in stage.ops)
+            if stage.is_fused_gpu:
+                # every sub-op aliases the one fused replica
+                chain.append(stage.first_op.replicas[i])
+            else:
+                chain.extend(op.replicas[i] for op in stage.ops)
             w = Worker(f"{self.name}/{stage.describe()}[{i}]", chain, channel)
             stage.workers.append(w)
             self._workers.append(w)
@@ -309,10 +348,14 @@ class PipeGraph:
             "Time_policy": self.time_policy.name,
             "Threads": len(self._workers),
             "Dropped_tuples": self.dropped.value,
+            # a fused stage reports once, under its fused name m∘f∘r
             "Operators": [{
-                "name": op.name,
-                "kind": type(op).__name__,
+                "name": getattr(op, "_fused_stage_label", op.name),
+                "kind": ("Fused_GPU_Chain"
+                         if hasattr(op, "_fused_stage_label")
+                         else type(op).__name__),
                 "parallelism": op.parallelism,
                 "replicas": [r.stats.to_dict() for r in op.replicas],
-            } for op in self._ops],
+            } for op in self._ops if not getattr(op, "_fused_hidden",
+                                                  False)],
         }
