@@ -56,7 +56,24 @@ Phases, each printing one line of its own:
    median of 30), both with the L2 flushed before each call (and warm at
    the two shapes larger than the L2), the plain version's time, the
    memory bound (``bound_ms``) and ``bound_share`` = bound_ms /
-   device_ms;
+   device_ms (``device_ms`` and ``bound_share`` are null when
+   ``torch.profiler`` lost the kernel's records in every trace: the
+   card's profiler has been seen to drop whole traces);
+8. keyed device state (``state`` lines): stateful Map_GPU / Filter_GPU
+   through ``PipeGraph`` on the card and on the CPU, rows equal between
+   them and to a numpy fold. Parts ``smap`` (``bench.py``'s stateful map:
+   ``value + n``, ``n + 1`` per key, 64 keys, 65,536-tuple batches),
+   ``smap_hc`` (the same at 10,240 keys, then at 1,048,576 keys, which
+   grows the device table to 2^20 rows), ``sfilter`` (a per-key running
+   max at 10,240 keys), ``fused`` (map -> smap -> filter -> keyed reduce
+   at parallelism 1, fused at megabatch 1 and 4 and unfused, in turns)
+   and ``tiered`` (``bench.py``'s run_tiered: Zipf 1.1 over 10^7 keys,
+   a 1,024-slot hot tier, 512-tuple batches, against the dense CPU run;
+   ``Tier_promotes`` / ``Tier_demotes`` / ``Tier_miss_rate``). Each part
+   gives tuples/s, host prep / commit ms per batch and a profiled run's
+   idle share and launches per batch; then the ``programs`` line of the
+   grid scan (K8) on one smap batch: device time, launches and the bytes
+   bound;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -72,6 +89,8 @@ import subprocess
 import sys
 import threading
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -89,6 +108,14 @@ GRAPH_BATCHES, GRAPH_WARMUP = 14, 2
 GRAPH_PAR = 2
 # fusion (b): 2 warm-up + 24 timed batches, so that K=8 forms groups
 FUSION_BATCHES = 26
+# state: bench.py's stateful map (64 keys, bench.py:1581) and the other
+# parts, 2 warm-up + 12 timed batches; 1,048,576 keys grow the table to
+# 2^20 rows within them
+STATE_KEYS, STATE_BATCHES, STATE_WARMUP = 64, 14, 2
+HUGE_KEYS = 1 << 20
+# state, part tiered: bench.py's run_tiered (bench.py:1264-1316)
+TIER_KEY_SPACE, TIER_HOT, TIER_TUPLES, TIER_BATCH = 10_000_000, 1024, \
+    80_000, 512
 
 
 def fail(msg: str) -> None:
@@ -192,18 +219,31 @@ def _time_ms(torch, fn, reps, flush):
     return out[len(out) // 2]
 
 
+TRACE_TRIES = 5
+
+
+def _lost_trace(what: str) -> None:
+    """``torch.profiler`` has been seen to drop CUDA records on this card,
+    whole traces at a time. A time from a partial trace would be wrong, so
+    the time is reported as not measured (null); the kernels' results
+    are checked by other means (bit-identity, launch counters)."""
+    print(f"chip_smoke: {what}: device time not measured", file=sys.stderr,
+          flush=True)
+
+
 def _device_ms(torch, fn, reps, flush, match, per_call):
     """The kernel's device duration per call of ``fn``: the CUDA time of
     every kernel whose name contains ``match``, summed by
     ``torch.profiler`` over ``reps`` calls and divided by ``reps``.
     ``flush`` is zeroed before each call (None: the L2 stays warm). Each
     call launches ``per_call`` such kernels; a trace that lost some of
-    them is taken again (up to three times), then the phase fails."""
+    them is taken again (up to TRACE_TRIES times), then the time is None
+    (not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen = 0
-    for _ in range(3):
+    for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if flush is not None:
@@ -216,8 +256,14 @@ def _device_ms(torch, fn, reps, flush, match, per_call):
         seen = len(ev)
         if seen == reps * per_call:
             return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps
-    fail(f"torch.profiler saw {seen} of {reps * per_call} CUDA kernels "
-         f"named like {match!r}")
+        time.sleep(0.5)
+    _lost_trace(f"torch.profiler saw {seen} of {reps * per_call} CUDA "
+                f"kernels named like {match!r}")
+    return None
+
+
+def _share(bound, device_ms):
+    return None if device_ms is None else bound / device_ms
 
 
 def bound_ms(K, F, spec):
@@ -256,12 +302,13 @@ def time_rebuild(torch, rebuild, trees, tvalid, comb, spec, flush,
            "kernels_per_call": per_call}
     run = lambda: rebuild(trees, tvalid, comb)  # noqa: E731
     row["device_ms"] = _device_ms(torch, run, 30, flush, match, per_call)
-    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    row["bound_share"] = _share(row["bound_ms"], row["device_ms"])
     row["wrapper_ms"] = _time_ms(torch, run, 30, flush)
     if warm:
         row["device_ms_warm"] = _device_ms(torch, run, 30, None, match,
                                            per_call)
-        row["bound_share_warm"] = row["bound_ms"] / row["device_ms_warm"]
+        row["bound_share_warm"] = _share(row["bound_ms"],
+                                         row["device_ms_warm"])
     return row
 
 
@@ -619,22 +666,27 @@ def _program_ms(torch, fn, reps=30):
     calls), kernels per call, and the CUDA-event bracket around one call
     (median: host launch time and device time together). A trace whose
     kernel count is no multiple of ``reps`` lost records and is taken
-    again (up to three times)."""
+    again (up to TRACE_TRIES times); then device time and kernels per
+    call are None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         kernels, _ = _events(torch, prof)
         if kernels and len(kernels) % reps == 0:
+            device_ms = (sum(e.time_range.elapsed_us() for e in kernels)
+                         / 1e3 / reps)
+            launches = len(kernels) // reps
             break
+        time.sleep(0.5)
     else:
-        fail(f"torch.profiler lost kernel records ({len(kernels)} for "
-             f"{reps} calls)")
-    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+        _lost_trace(f"torch.profiler lost kernel records ({len(kernels)} "
+                    f"for {reps} calls)")
+        device_ms = launches = None
     out = []
     for _ in range(reps):
         a, b = torch.cuda.Event(True), torch.cuda.Event(True)
@@ -644,7 +696,7 @@ def _program_ms(torch, fn, reps=30):
         b.synchronize()
         out.append(a.elapsed_time(b))
     out.sort()
-    return device_ms, len(kernels) // reps, out[len(out) // 2]
+    return device_ms, launches, out[len(out) // 2]
 
 
 def programs_phase(torch, wt, blocks, card):
@@ -720,7 +772,7 @@ def programs_phase(torch, wt, blocks, card):
                          kept=m, keys=n_out, device_ms=device_ms,
                          launches=launches, wrapper_ms=bracket_ms,
                          bytes=nbytes, bound_ms=bound, bound_by="bytes",
-                         bound_share=bound / device_ms, card=card))
+                         bound_share=_share(bound, device_ms), card=card))
         phase("programs", **rows[-1])
     return rows
 
@@ -904,6 +956,392 @@ def fusion_ops_phase(torch, wt, card):
                       FUSION_BATCHES))
 
 
+# ---------------------------------------------------------------------------
+# phase state: keyed device state (stateful Map_GPU / Filter_GPU, the fused
+# kinds smap / sfilter, the hot/cold tier plane)
+# ---------------------------------------------------------------------------
+def _smap_fn(row, st):
+    """bench.py's stateful map (bench.py:1581-1584)."""
+    return {**row, "value": row["value"] + st["n"]}, {"n": st["n"] + 1}
+
+
+def _run_max_fn(row, st):
+    """tests/test_tpu_ops.py:205-208: keep values above the key's running
+    max."""
+    import torch
+    keep = row["value"] > st["mx"]
+    return keep, {"mx": torch.maximum(st["mx"], row["value"])}
+
+
+def _tier_fn(row, st):
+    """bench.py's run_tiered scan: a float32 running sum per key."""
+    return {"k": row["k"], "v": st + row["v"]}, st + row["v"]
+
+
+def _run_state_graph(wt, device, blocks, make_ops, batch=None, chain=False,
+                     fusion=True, megabatch=1):
+    """Columnar source -> ``make_ops(wt)`` (joined by ``add``, or with
+    ``chain`` by ``chain``) -> columnar sink. Returns the sink's batches in
+    arrival order, the source's yield times, the end of ``run()`` and the
+    graph."""
+    t_yield, parts, lock = [], [], threading.Lock()
+
+    def source():
+        for cols, ts, wm in blocks:
+            t_yield.append(time.perf_counter())
+            yield cols, ts, wm
+
+    def sink(cols, ts):
+        if cols is not None:
+            with lock:
+                parts.append((0.0, {"ts": ts.copy(),
+                                    **{k: v.copy() for k, v in cols.items()}}))
+
+    graph = wt.PipeGraph("state", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device,
+                         fusion=fusion, megabatch=megabatch)
+    mp = graph.add_source(wt.Columnar_Source_Builder(source)
+                          .with_output_batch_size(batch or BATCH).build())
+    for i, op in enumerate(make_ops(wt)):
+        mp = mp.chain(op) if (chain and i) else mp.add(op)
+    mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.run()
+    return parts, t_yield, time.perf_counter(), graph
+
+
+def _arrival_ranks(keys):
+    """Each row's rank among the earlier rows of its key (numpy)."""
+    import numpy as np
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    start = np.r_[True, sk[1:] != sk[:-1]]
+    first = np.flatnonzero(start)[np.cumsum(start) - 1]
+    rank = np.empty(len(keys), dtype=np.int64)
+    rank[order] = np.arange(len(keys)) - first
+    return rank
+
+
+def _stream(blocks):
+    import numpy as np
+    return {k: np.concatenate([c[k] for c, _, _ in blocks])
+            for k in blocks[0][0]}
+
+
+def _smap_fold(blocks):
+    """numpy fold of the stateful map: value + the key's earlier rows."""
+    s = _stream(blocks)
+    return (s["value"].astype("int64") + _arrival_ranks(s["key"])).astype(
+        s["value"].dtype)
+
+
+def _run_max_keep(blocks):
+    """numpy fold of the running-max predicate: a row passes iff its value
+    exceeds every earlier value of its key (and 0)."""
+    import numpy as np
+    s = _stream(blocks)
+    keys, vals = s["key"], s["value"].astype(np.int64)
+    order = np.argsort(keys, kind="stable")
+    sk, sv = keys[order], vals[order]
+    grp = np.cumsum(np.r_[True, sk[1:] != sk[:-1]]) - 1
+    off = grp * 1_000  # values < 1,000: the cummax restarts per key
+    cm = np.maximum.accumulate(sv + off)
+    prev = np.r_[off[0], cm[:-1]]
+    prev = np.where(np.r_[True, grp[1:] != grp[:-1]], off, prev)
+    keep = np.empty(len(keys), dtype=bool)
+    keep[order] = sv + off > prev
+    return keep
+
+
+def _state_rates(run, n_batches, batch):
+    """Tuples/s from the yield of the first batch after the warm-up to the
+    end of ``run()``."""
+    _, t_yield, t_end, _ = run
+    return ((n_batches - STATE_WARMUP) * batch
+            / (t_end - t_yield[STATE_WARMUP]))
+
+
+def _state_part(torch, wt, card, name, blocks, make_ops, check, extra=None,
+                **kw):
+    """One part: the graph on the card and on the CPU (rows equal, and
+    ``check`` holds them against the numpy fold), tuples/s after the
+    warm-up, then one profiled run on the card."""
+    torch.cuda.synchronize()
+    grun = _run_state_graph(wt, "cuda", blocks, make_ops, **kw)
+    crun = _run_state_graph(wt, "cpu", blocks, make_ops, **kw)
+    g, c = _concat(grun[0]), _concat(crun[0])
+    if g.keys() != c.keys() or not all(np.array_equal(g[k], c[k])
+                                       for k in g):
+        fail(f"state {name}: rows on cuda differ from the CPU run")
+    if not check(g):
+        fail(f"state {name}: rows differ from the numpy fold")
+    batch = kw.get("batch", BATCH)
+    row = dict(part=name, batches=len(blocks), warmup=STATE_WARMUP,
+               batch=batch, card=card, rows=int(len(g["ts"])),
+               rows_equal_cpu=True, rows_equal_numpy=True,
+               tuples_per_s=_state_rates(grun, len(blocks), batch),
+               wall_s=grun[2] - grun[1][0])
+    ops = grun[3].get_stats()["Operators"][1:-1]
+    row["stages"] = {o["name"]: [round(
+        r[f"Dispatch_{c}_total_usec"] / 1e3 / max(1, r["Dispatch_batches"]),
+        4) for c in ("host_prep", "commit")]
+        for o in ops for r in o["replicas"]}
+    if extra is not None:
+        row.update(extra(grun[3]))
+    row["profiled"] = _profiled(
+        torch, lambda: _run_state_graph(wt, "cuda", blocks, make_ops, **kw),
+        len(blocks))
+    phase("state", **row)
+    return grun
+
+
+def _smap_ops(wt):
+    import numpy as np
+    return [wt.Map_GPU_Builder(_smap_fn).with_key_by("key")
+            .with_state({"n": np.int32(0)}).with_name("smap").build()]
+
+
+def state_phase(torch, wt, card):
+    """Phase ``state``: keyed device state through ``PipeGraph`` on the card
+    and on the CPU, each part's rows equal between them and to a numpy
+    fold; tuples/s, host prep / commit ms per batch and a profiled run's
+    idle share and launches per batch. Parts: ``smap`` (bench.py's
+    stateful map, 64 keys), ``smap_hc`` (the same at 10,240 keys, and at
+    1,048,576 keys: the table grows to 2^20 rows, the grid's host assembly
+    takes its np.unique path), ``sfilter`` (the running-max predicate at
+    10,240 keys), ``fused`` (map -> smap -> filter -> keyed reduce at
+    parallelism 1, fused at megabatch 1 and 4 and unfused, in turns) and
+    ``tiered`` (bench.py's run_tiered: Zipf 1.1 over 10,000,000 keys, a
+    1,024-slot hot tier). Returns the smap part's first batch for the K8
+    programs row."""
+    def smap_check(n_keys_blocks):
+        return lambda g: np.array_equal(g["value"], _smap_fold(n_keys_blocks))
+
+    # smap: bench.py's config
+    blocks = _blocks(STATE_KEYS, seed=21, n_batches=STATE_BATCHES,
+                     batch=BATCH)
+    _state_part(torch, wt, card, "smap", blocks, _smap_ops,
+                smap_check(blocks), extra=lambda gr: dict(keys=STATE_KEYS))
+    # smap_hc: 10,240 keys, then keys uniform over 1,048,576
+    for n_keys in (HC_KEYS, HUGE_KEYS):
+        hb = _blocks(n_keys, seed=22, n_batches=STATE_BATCHES, batch=BATCH)
+
+        def grown(gr, n_keys=n_keys):
+            eng = gr._stages[1].first_op.replicas[0].engine
+            if n_keys == HUGE_KEYS and eng.table_capacity != HUGE_KEYS:
+                fail(f"state smap_hc: the table holds {eng.table_capacity} "
+                     "rows, not 2^20")
+            return dict(keys=n_keys, distinct_keys=len(eng.slot_of_key),
+                        table_rows=eng.table_capacity)
+
+        _state_part(torch, wt, card, "smap_hc", hb, _smap_ops,
+                    smap_check(hb), extra=grown)
+    # sfilter: the running max at 10,240 keys
+    fb = _blocks(HC_KEYS, seed=23, n_batches=STATE_BATCHES, batch=BATCH)
+    keep = _run_max_keep(fb)
+    kept = {k: v[keep] for k, v in _stream(fb).items()}
+    _state_part(
+        torch, wt, card, "sfilter", fb,
+        lambda wt: [wt.Filter_GPU_Builder(_run_max_fn).with_key_by("key")
+                    .with_state({"mx": np.int32(0)}).with_name("sfilter")
+                    .build()],
+        lambda g: all(np.array_equal(g[k], kept[k]) for k in kept),
+        extra=lambda gr: dict(keys=HC_KEYS, kept=int(keep.sum())))
+    state_fused_part(torch, wt, card)
+    state_tiered_part(torch, wt, card)
+    return blocks
+
+
+def _fused_state_ops(wt):
+    """graph_gpu's map (keyed, so the smap behind it fuses) -> the
+    stateful map -> graph_gpu's filter -> keyed reduce."""
+    return [wt.Map_GPU_Builder(_map_value).with_key_by("key")
+            .with_name("m").build(),
+            _smap_ops(wt)[0],
+            wt.Filter_GPU_Builder(_even_value).with_name("f").build(),
+            wt.Reduce_GPU_Builder(_sum_value).with_key_by("key")
+            .with_name("kr").build()]
+
+
+def state_fused_part(torch, wt, card):
+    """Part ``fused``: the graph_gpu stream through map -> smap -> filter
+    -> keyed Reduce_GPU at parallelism 1, fused at megabatch 1 and 4 and
+    unfused, in turns (1, 4, unfused, unfused, 4, 1); every run's rows
+    (a multiset) equal the fused CPU run's and the per-key totals of the
+    numpy fold."""
+    blocks = _blocks(GRAPH_KEYS, seed=24, n_batches=STATE_BATCHES,
+                     batch=BATCH)
+    s = _stream(blocks)
+    v = s["value"].astype(np.int64) * 3 + s["key"] + _arrival_ranks(s["key"])
+    keep = v % 2 == 0
+    tot = np.zeros(GRAPH_KEYS, dtype=np.int64)
+    np.add.at(tot, s["key"][keep], v[keep])
+    common = dict(chain=True)
+    ref = _sort_cols(_concat(_run_state_graph(wt, "cpu", blocks,
+                                              _fused_state_ops,
+                                              **common)[0]))
+    row = dict(part="fused", keys=GRAPH_KEYS, batches=STATE_BATCHES,
+               warmup=STATE_WARMUP, batch=BATCH, card=card,
+               rows=int(len(ref["ts"])), rows_equal_cpu=True,
+               rows_equal_numpy=True)
+    rates, stages, fused = {}, {}, {}
+    for k in (1, 4, 0, 0, 4, 1):  # 0: unfused
+        run = _run_state_graph(wt, "cuda", blocks, _fused_state_ops,
+                               fusion=k > 0, megabatch=max(1, k), **common)
+        g = _sort_cols(_concat(run[0]))
+        got = np.zeros(GRAPH_KEYS, dtype=np.int64)
+        np.add.at(got, g["key"], g["value"])
+        if g.keys() != ref.keys() or not all(
+                np.array_equal(g[x], ref[x]) for x in g) \
+                or not np.array_equal(got, tot):
+            fail(f"state fused megabatch {k}: rows on cuda differ from the "
+                 "CPU run or the numpy fold")
+        rates.setdefault(k, []).append(_state_rates(run, STATE_BATCHES,
+                                                    BATCH))
+        ops = run[3].get_stats()["Operators"][1:-1]
+        stages[k] = {o["name"]: [
+            round(r[f"Dispatch_{c}_total_usec"] / 1e3
+                  / max(1, r["Dispatch_batches"]), 4)
+            for c in ("host_prep", "commit")]
+            for o in ops for r in o["replicas"]}
+        if k:
+            st = ops[0]["replicas"][0]
+            if ops[0]["kind"] != "Fused_GPU_Chain" or st["Fused_ops"] != 4:
+                fail("state fused: the chain did not fuse")
+            fused[k] = {x: st[x] for x in (
+                "Device_programs_run", "Programs_per_batch",
+                "Megabatch_loops", "Megabatch_max", "Inputs_ignored")}
+    row.update(tuples_per_s={("unfused" if k == 0 else f"megabatch_{k}"): r
+                             for k, r in rates.items()},
+               prep_commit_ms_per_batch={
+                   ("unfused" if k == 0 else f"megabatch_{k}"): v
+                   for k, v in stages.items()},
+               fused_stats=fused,
+               profiled=_profiled(torch, lambda: _run_state_graph(
+                   wt, "cuda", blocks, _fused_state_ops, **common),
+                   STATE_BATCHES))
+    phase("state", **row)
+
+
+def _tier_blocks():
+    """bench.py's run_tiered stream: Zipf 1.1 keys over the key space
+    (draws beyond it folded back), values 0..n-1, in 512-row blocks."""
+    rng = np.random.default_rng(11)
+    keys = ((rng.zipf(1.1, size=TIER_TUPLES) - 1) % TIER_KEY_SPACE).astype(
+        np.int32)
+    vals = np.arange(TIER_TUPLES, dtype=np.float32)
+    return [({"k": keys[i:i + TIER_BATCH], "v": vals[i:i + TIER_BATCH]},
+             np.arange(i, min(i + TIER_BATCH, TIER_TUPLES), dtype=np.int64),
+             i) for i in range(0, TIER_TUPLES, TIER_BATCH)]
+
+
+def _tier_ops(tiered, db_dir):
+    def make(wt):
+        b = (wt.Map_GPU_Builder(_tier_fn).with_state(np.float32(0))
+             .with_key_by("k").with_name("scan"))
+        if tiered:
+            b = b.with_tiering(policy="lru", hot_capacity=TIER_HOT,
+                               db_dir=db_dir)
+        return [b.build()]
+    return make
+
+
+def state_tiered_part(torch, wt, card):
+    """Part ``tiered``: bench.py's run_tiered on the card (hot tier of
+    1,024 slots, LRU, the cold tail in sqlite under ``build/``) against the
+    port's DENSE run on the CPU: the rows equal in order, and equal to a
+    numpy float32 fold per key."""
+    blocks = _tier_blocks()
+    db_dir = os.path.join(HERE, "build", "tier_db")
+    dense = _concat(_run_state_graph(wt, "cpu", blocks,
+                                     _tier_ops(False, None),
+                                     batch=TIER_BATCH)[0])
+    s = _stream(blocks)
+    fold = np.empty(TIER_TUPLES, dtype=np.float32)
+    order = np.argsort(s["k"], kind="stable")
+    bounds = np.flatnonzero(np.r_[True, s["k"][order][1:]
+                                  != s["k"][order][:-1], True])
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        idx = order[a:b]
+        fold[idx] = np.add.accumulate(s["v"][idx], dtype=np.float32)
+    if not np.array_equal(dense["v"], fold):
+        fail("state tiered: the dense CPU run differs from the numpy fold")
+    row = dict(part="tiered", key_space=TIER_KEY_SPACE, hot_capacity=TIER_HOT,
+               policy="lru", tuples=TIER_TUPLES, batch=TIER_BATCH, card=card)
+    for prof in (False, True):
+        run = (lambda: _run_state_graph(wt, "cuda", blocks,
+                                        _tier_ops(True, db_dir),
+                                        batch=TIER_BATCH))
+        if prof:
+            row["profiled"] = _profiled(torch, run, len(blocks))
+            continue
+        torch.cuda.synchronize()
+        got = run()
+        g = _concat(got[0])
+        if g.keys() != dense.keys() or not all(
+                np.array_equal(g[k], dense[k]) for k in g):
+            fail("state tiered: rows on cuda differ from the dense CPU run")
+        rep = got[3].get_stats()["Operators"][1]["replicas"][0]
+        row.update(rows=int(len(g["ts"])), rows_equal_dense_cpu=True,
+                   rows_equal_numpy=True,
+                   tuples_per_s=TIER_TUPLES / (got[2] - got[1][0]),
+                   distinct_keys=rep["Tier_hot_keys"] + rep["Tier_cold_keys"],
+                   **{x: rep[x] for x in (
+                       "Tier_promotes", "Tier_demotes", "Tier_miss_rate",
+                       "Tier_hot_keys", "Tier_cold_keys",
+                       "Tier_promote_usec_total")},
+                   prep_commit_ms_per_batch=[round(
+                       rep[f"Dispatch_{c}_total_usec"] / 1e3
+                       / max(1, rep["Dispatch_batches"]), 4)
+                       for c in ("host_prep", "commit")])
+        if rep["Tier_demotes"] == 0:
+            fail("state tiered: no key was demoted")
+    phase("state", **row)
+
+
+def state_programs_phase(torch, wt, blocks, card):
+    """K8 (the JAX package's ``_grid_scan_core``, XLA there, plain torch
+    ops here) on one batch of the smap part: device time per call, launches
+    per call and the bytes bound (each field read once, the output columns
+    written once, the grid arrays read once, the touched table rows read
+    and written and their dirty bits written)."""
+    from types import SimpleNamespace
+    from windflow_tpu_torch.gpu import ops_gpu as og
+    cols, ts, _ = blocks[STATE_WARMUP]
+    n = len(ts)
+    dev = torch.device("cuda")
+    op = wt.Map_GPU(_smap_fn, name="k8", key_extractor="key",
+                    state_init={"n": np.int32(0)})
+    op.configure(wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT_TIME, dev)
+    op.build_replicas()
+    eng = op.replicas[0].engine
+    batch = SimpleNamespace(size=n, capacity=n,
+                            host_keys=cols["key"].astype(np.int64))
+    prog, (M, KB), hargs = eng.prep(batch)
+    fields = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    valid = og.row_mask(n, n, dev)
+    out = eng.run(prog, fields, valid, hargs)
+    want = cols["value"].astype(np.int64) + _arrival_ranks(cols["key"])
+    if not np.array_equal(out["value"].cpu().numpy(), want):
+        fail("K8 grid scan: outputs differ from the numpy fold")
+    touched = int(np.count_nonzero(np.bincount(cols["key"])))
+    leaves = 1
+    nbytes = (8 * n + 8 * n + 4 * n + 5 * KB
+              + 2 * 4 * leaves * touched + touched)
+    device_ms, launches, bracket_ms = _program_ms(
+        torch, lambda: eng.run(prog, fields, valid, hargs))
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    row = dict(program="K8_grid_scan",
+               replaces="windflow_tpu/tpu/ops_tpu.py:212", rows=n,
+               keys=touched, M=M, KB=KB, device_ms=device_ms,
+               launches=launches,
+               launches_per_step=None if launches is None else launches / M,
+               wrapper_ms=bracket_ms, bytes=nbytes, bound_ms=bound,
+               bound_by="bytes", bound_share=_share(bound, device_ms),
+               card=card)
+    phase("programs", **row)
+    return row
+
+
 def main() -> None:
     try:
         import torch
@@ -933,6 +1371,10 @@ def main() -> None:
     fusion_ops_phase(torch, wt, card)
     programs_phase(torch, wt, graph_blocks, card)
     timing, err_timed = kernel_phase(torch, timed=True)
+    # last: its profiled runs trace hundreds of thousands of launches,
+    # after which torch.profiler has been seen to lose K1's records
+    smap_blocks = state_phase(torch, wt, card)
+    state_programs_phase(torch, wt, smap_blocks, card)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",

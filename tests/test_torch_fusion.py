@@ -388,16 +388,12 @@ def _ffat(pkg, name="w", p=1):
 
 
 def _stateful_map(pkg, name):
-    """A keyed map with device state: the JAX package's own; in the port
-    (which cannot build one yet) a keyed stateless map marked with the
-    attribute the legality rules read."""
+    """A keyed map with device state, built by each package's builder."""
     if pkg is wj:
         return (Map_TPU_Builder(lambda r, s: (r, s)).with_key_by("key")
                 .with_state({"x": jnp.int32(0)}).with_name(name).build())
-    op = wt.Map_GPU_Builder(lambda f: f).with_key_by("key") \
-        .with_name(name).build()
-    op.state_init = {"x": 0}
-    return op
+    return (wt.Map_GPU_Builder(lambda r, s: (r, s)).with_key_by("key")
+            .with_state({"x": 0}).with_name(name).build())
 
 
 def _case(pkg, monkeypatch, case):
@@ -500,15 +496,20 @@ def test_legal_chains_fuse_like_jax(monkeypatch, chain, label):
 
 def test_stateful_sub_op_in_a_fused_chain_is_not_yet_ported(monkeypatch):
     """A map with device state may join a chain by the legality rules
-    (both packages allow a stateful map before a filter), but the port's
-    fused replica refuses to build it."""
+    (both packages allow a stateful map before a filter), and the port's
+    fused replica builds it with one keyed-state engine for the stateful
+    sub-op; what is not yet ported is that engine's incremental (delta)
+    snapshot, which waits for the checkpoint plane."""
     g, mp = _legal_graph(wt, monkeypatch)
     mp.add(_stateful_map(wt, "sm")).chain(
         wt.Filter_GPU_Builder(lambda f: f["value"] >= 0).with_key_by("key")
         .with_name("sf").build())
     assert g._stages[-1].describe() == "sm∘sf"
+    g.get_num_threads()  # builds the fused replica
+    specs = g._stages[-1].first_op.replicas[0].specs
+    assert [s.kind for s in specs] == ["smap", "filter"]
     with pytest.raises(wt.WindFlowError, match="not yet ported"):
-        g.get_num_threads()
+        specs[0].engine.snapshot_state(delta_ctx=object())
 
 
 def test_fused_snapshot_names_the_chain(monkeypatch):
@@ -519,7 +520,8 @@ def test_fused_snapshot_names_the_chain(monkeypatch):
     g = _three_op_chain(wt, monkeypatch, True, 1, 16, col)
     g.run()
     rep = g._stages[1].first_op.replicas[0]
-    assert rep.snapshot_state() == {"__fused__": ["m1", "f1", "m2"],
+    assert rep.snapshot_state() == {"cur_wm": rep.cur_wm,
+                                    "__fused__": ["m1", "f1", "m2"],
                                     "fused_sub_states": [None] * 3}
     g2, mp = _legal_graph(wt, monkeypatch)
     mp.add(wt.Map_GPU_Builder(lambda f: f).with_name("m").build()) \

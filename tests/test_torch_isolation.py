@@ -38,7 +38,35 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, verdict, *_ = out.stdout.split()
-    assert int(n) >= 20 and verdict == "OK", out.stdout
+    assert int(n) >= 26 and verdict == "OK", out.stdout
+
+
+_ALONE = r"""
+import importlib, sys
+sys.path.insert(0, {root!r})
+importlib.import_module({mod!r})
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "windflow_tpu" or m.startswith("windflow_tpu."))
+print("BAD" if bad else "OK", bad)
+"""
+
+
+@pytest.mark.parametrize("mod", [
+    "windflow_tpu_torch.state.tiered", "windflow_tpu_torch.persistent.cache",
+    "windflow_tpu_torch.persistent.db_handle", "windflow_tpu_torch.pytree",
+    "windflow_tpu_torch.convert"])
+def test_keyed_state_modules_import_alone_without_jax(mod):
+    """The keyed-state plane's host modules (JAX-free copies of the JAX
+    package's ``state/`` and ``persistent/``) import on their own, in a
+    fresh interpreter, without pulling in jax or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c",
+                          _ALONE.format(root=ROOT, mod=mod)],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "OK", out.stdout
 
 
 def _imports(path):

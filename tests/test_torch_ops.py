@@ -502,10 +502,21 @@ def test_refusals_match_jax(case, match):
             case(pkg)
 
 
+def _delta_snapshot(builder):
+    """The incremental (delta) snapshot of a keyed-state engine: the part
+    of keyed device state that waits for the checkpoint plane."""
+    op = builder.with_key_by("key").build()
+    op.build_replicas()
+    return op.replicas[0].engine.snapshot_state(delta_ctx=object())
+
+
 @pytest.mark.parametrize("call", [
-    lambda: wt.Map_GPU_Builder(lambda r, s: (r, s)).with_state({"n": 0}),
-    lambda: wt.Filter_GPU_Builder(lambda r, s: (r, s)).with_state({"n": 0}),
-    lambda: wt.Map_GPU_Builder(lambda f: f).with_tiering(),
+    lambda: _delta_snapshot(wt.Map_GPU_Builder(lambda r, s: (r, s))
+                            .with_state({"n": 0})),
+    lambda: _delta_snapshot(wt.Filter_GPU_Builder(lambda r, s: (r, s))
+                            .with_state({"n": 0})),
+    lambda: _delta_snapshot(wt.Map_GPU_Builder(lambda r, s: (r, s))
+                            .with_state({"n": 0}).with_tiering()),
     lambda: wt.Reduce_GPU_Builder(lambda a, b: a).with_mesh(),
     lambda: wt.Reduce_GPU_Builder(lambda a, b: a).with_key_by(("a", "b"))
     .build(),

@@ -10,14 +10,17 @@ CPU -> device staging, forward / keyed / broadcast device -> device edges
 and the device -> host exit to a row or columnar sink. Device operators
 joined by ``MultiPipe.chain`` fuse into one replica per slot
 (``gpu/fused_ops.py``); ``PipeGraph(fusion=..., megabatch=...)`` sets
-fusion (default on) and the megabatch width (default 1, off).
+fusion (default on) and the megabatch width (default 1, off). A keyed
+``Map_GPU`` / ``Filter_GPU`` built ``with_state`` keeps per-key state in a
+device table (``gpu/ops_gpu.py``), and ``with_tiering`` puts a host cold
+tier behind it (``state/``, ``TierConfig``).
 
 ``PipeGraph(..., device=None)`` runs on ``cuda`` and raises without a card;
 pass ``device="cpu"`` for the plain PyTorch path.
 """
 
-from .basic import (ExecutionMode, OpType, RoutingMode, TimePolicy,
-                    WinType, WindFlowError)
+from .basic import (ExecutionMode, KeyCapacityError, OpType, RoutingMode,
+                    TimePolicy, WinType, WindFlowError)
 from .builders import (Columnar_Source_Builder, Filter_Builder,
                        FlatMap_Builder, Map_Builder, Reduce_Builder,
                        Sink_Builder, Source_Builder)
@@ -27,15 +30,17 @@ from .gpu.builders_gpu import (Ffat_Windows_GPU_Builder, Filter_GPU_Builder,
                                Map_GPU_Builder, Reduce_GPU_Builder)
 from .gpu.ffat_gpu import Ffat_Windows_GPU
 from .gpu.ops_gpu import Filter_GPU, Map_GPU, Reduce_GPU
+from .state import TierConfig
 from .topology.multipipe import MultiPipe
 from .topology.pipegraph import PipeGraph
 
 __all__ = [
     "Columnar_Source_Builder", "ExecutionMode",
     "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder", "Filter_Builder",
-    "Filter_GPU", "Filter_GPU_Builder", "FlatMap_Builder", "LocalStorage",
-    "Map_Builder", "Map_GPU", "Map_GPU_Builder", "MultiPipe", "OpType",
-    "PipeGraph", "Reduce_Builder", "Reduce_GPU", "Reduce_GPU_Builder",
-    "RoutingMode", "RuntimeContext", "Sink_Builder", "Source_Builder",
-    "TimePolicy", "WinType", "WindFlowError", "fieldwise",
+    "Filter_GPU", "Filter_GPU_Builder", "FlatMap_Builder",
+    "KeyCapacityError", "LocalStorage", "Map_Builder", "Map_GPU",
+    "Map_GPU_Builder", "MultiPipe", "OpType", "PipeGraph", "Reduce_Builder",
+    "Reduce_GPU", "Reduce_GPU_Builder", "RoutingMode", "RuntimeContext",
+    "Sink_Builder", "Source_Builder", "TierConfig", "TimePolicy", "WinType",
+    "WindFlowError", "fieldwise",
 ]

@@ -10,7 +10,6 @@ extractors are not part of the port yet and raise.
 from __future__ import annotations
 
 import enum
-import os
 import time
 
 
@@ -65,14 +64,35 @@ def current_time_usecs() -> int:
     return time.monotonic_ns() // 1_000
 
 
-def env_flag(name: str) -> bool:
-    """Consistent boolean env semantics: '1'/'true'/'yes'/'on' enable."""
-    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes",
-                                                        "on")
-
-
 class WindFlowError(RuntimeError):
     """Topology / runtime error, raised so callers can assert on misuse."""
+
+
+class KeyCapacityError(WindFlowError):
+    """A keyed device structure refused new keys: the distinct-key count
+    exceeded the declared dense capacity (``K_pad`` — the padded slot
+    count of the device table). Typed so callers can tell "grow the
+    capacity / enable tiering" apart from generic topology errors, and
+    carries the operator, the padded capacity, and how many keys were
+    refused. This stays the loud failure mode when tiering is NOT
+    enabled; ``with_tiering(...)`` makes the capacity elastic instead."""
+
+    def __init__(self, op_name: str, k_pad: int, refused: int,
+                 hint: str = "") -> None:
+        self.op_name = op_name
+        self.k_pad = int(k_pad)
+        self.refused = int(refused)
+        msg = (f"{op_name}: {self.refused} new key(s) refused — distinct "
+               f"key count exceeds the device key capacity K_pad="
+               f"{self.k_pad}")
+        if hint:
+            msg += f"; {hint}"
+        super().__init__(msg)
+
+
+class CorruptCheckpointError(WindFlowError):
+    """Saved state failed content verification: a digest recorded with it
+    does not match its bytes (a tier blob's cold image or hot table)."""
 
 
 class WorkerFailuresError(WindFlowError):

@@ -1,12 +1,21 @@
 """State carried across from the JAX package — the counterpart of weights
 for this system.
 
-``ffat_state_from_jax(snap, device)`` takes the ``"ffat"`` dict of a JAX
-``FfatTPUReplica.snapshot_state()`` (numpy arrays plus Python values, the
-forest ``trees`` and ``tvalid`` included) and returns the dict
-``FfatGPUReplica.load_state`` installs, with the forest as tensors on
-``device``; both replicas then continue identically. This module takes the
-dict only: it imports neither ``jax`` nor ``windflow_tpu``.
+- ``ffat_state_from_jax(snap, device)`` takes the ``"ffat"`` dict of a JAX
+  ``FfatTPUReplica.snapshot_state()`` (numpy arrays plus Python values,
+  the forest ``trees`` and ``tvalid`` included) and returns the dict
+  ``FfatGPUReplica.load_state`` installs, with the forest as tensors on
+  ``device``.
+- ``scan_state_from_jax(snap, device)`` takes a JAX keyed-state engine's
+  ``snapshot_state()`` (the ``"scan"`` entry of a stateful Map/Filter
+  replica's: ``slot_of_key``, ``table_capacity``, the numpy table pytree
+  and, when tiered, the tier blob) and returns the dict
+  ``_KeyedStateScan.restore_state`` installs, the table as tensors on
+  ``device``. ``fused_state_from_jax`` does it per sub-op for a fused
+  chain's replica state.
+
+Both replicas then continue identically. This module takes the dicts
+only: it imports neither ``jax`` nor ``windflow_tpu``.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import torch
 
 from .basic import WindFlowError
 from .gpu.schema import canonical
+from .pytree import tree_map
 
 _HOST_ARRAYS = ("next_fire", "fired", "max_leaf", "count", "keys_np")
 _SCALARS = ("K_cap", "F", "keys_all_int", "saw_new_key", "leaf_frontier",
@@ -53,4 +63,39 @@ def ffat_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
     out["trees"] = trees
     out["tvalid"] = torch.from_numpy(
         np.asarray(snap["tvalid"], dtype=bool).copy()).to(device)
+    return out
+
+
+def scan_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
+    """A JAX ``_KeyedStateScan.snapshot_state()`` (a FULL one: a delta
+    snapshot carries only dirty rows and is refused) for the port's
+    engine. A tier blob passes through unchanged: its hot-table digest is
+    over the table's values, which the conversion keeps."""
+    device = torch.device(device)
+    if "slot_of_key" not in snap or "table_capacity" not in snap:
+        raise WindFlowError("scan_state_from_jax: not a full keyed-state "
+                            "snapshot (delta snapshots are not supported)")
+    out: Dict[str, Any] = {"slot_of_key": dict(snap["slot_of_key"]),
+                           "table_capacity": int(snap["table_capacity"])}
+    table = snap.get("table")
+    out["table"] = (None if table is None else tree_map(
+        lambda a: canonical(torch.from_numpy(np.array(a))).to(device),
+        table))
+    if snap.get("tier") is not None:
+        out["tier"] = snap["tier"]
+    return out
+
+
+def fused_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
+    """A JAX ``FusedTPUReplica.snapshot_state()`` for the port's
+    ``FusedGPUReplica.restore_state``: the chain signature and the
+    watermark as they are, each stateful sub-op's engine state through
+    ``scan_state_from_jax``."""
+    if "__fused__" not in snap:
+        raise WindFlowError("fused_state_from_jax: not a fused chain's "
+                            "snapshot")
+    out = dict(snap)
+    out["fused_sub_states"] = [
+        None if sub is None else scan_state_from_jax(sub, device)
+        for sub in snap.get("fused_sub_states") or []]
     return out

@@ -5,8 +5,9 @@ The port of ``windflow_tpu/tpu/builders_tpu.py``: ``Map_GPU_Builder``,
 ``Ffat_Windows_GPU_Builder`` (the reference's ``Ffat_WindowsGPU_Builder``,
 ``builders_gpu.hpp:576``), with ``with_schema`` in place of C++ type
 deduction (or inferred from the first tuple at the staging boundary).
-Keyed device state (``with_state``, ``with_tiering``) and the mesh plane
-(``with_mesh``) are not part of the port yet and raise.
+``with_state`` makes a Map_GPU or Filter_GPU keyed and stateful and
+``with_tiering`` puts a host cold tier behind its device table; the mesh
+plane (``with_mesh``) is not part of the port yet and raises.
 
 User functions take a dict of torch columns on the graph's device and
 return new tensors: they must not write an input column in place (a
@@ -19,6 +20,7 @@ from typing import Any, Callable, Optional
 
 from ..basic import RoutingMode, WinType, WindFlowError
 from ..builders import _RoutableBuilder
+from ..state.tiered import TierConfig
 from .ffat_gpu import Ffat_Windows_GPU
 from .ops_gpu import Filter_GPU, Map_GPU, Reduce_GPU
 from .schema import TupleSchema
@@ -41,33 +43,63 @@ class _GPUBuilder(_RoutableBuilder):
                             "windflow_tpu_torch")
 
 
-class _StatelessGPUBuilder(_GPUBuilder):
+class _KeyedStateBuilder(_GPUBuilder):
+    """``with_state`` and ``with_tiering`` of the Map/Filter builders, with
+    the JAX package's build-time refusals."""
+
+    def __init__(self, func: Callable) -> None:
+        super().__init__(func)
+        self._state_init: Any = None
+        self._tiering: Optional[TierConfig] = None
+
     def with_state(self, initial_state: Any):
-        raise WindFlowError(f"{type(self).__name__}.with_state: keyed "
-                            "device state is not yet ported to "
-                            "windflow_tpu_torch")
+        """Per-key device state (needs ``with_key_by``): the function
+        becomes ``func(row, state) -> (row | keep, state)`` over 0-d
+        tensors, under ``torch.func.vmap``, scanned in arrival order.
+        ``initial_state`` is a scalar or a dict of scalars; int64 / float64
+        become int32 / float32, as in the JAX package."""
+        self._state_init = initial_state
+        return self
 
-    def with_tiering(self, *args, **kwargs):
-        raise WindFlowError(f"{type(self).__name__}.with_tiering: tiered "
-                            "keyed state is not yet ported to "
-                            "windflow_tpu_torch")
+    def with_tiering(self, policy: Optional[str] = None,
+                     hot_capacity: int = 1024,
+                     db_dir: Optional[str] = None):
+        """Hot/cold key tiers: the device table holds ``hot_capacity``
+        keys, the rest live in a host sqlite store (``policy`` "lru" or
+        "lfu" picks which stay hot). ``hot_capacity`` must exceed every
+        batch's distinct keys (``KeyCapacityError`` otherwise)."""
+        self._tiering = TierConfig(policy=policy, hot_capacity=hot_capacity,
+                                   db_dir=db_dir)
+        return self
+
+    def _state_args(self) -> dict:
+        what = type(self).__name__
+        if self._state_init is not None and self._key_extractor is None:
+            raise WindFlowError(f"{what}: with_state requires with_key_by")
+        if self._tiering is not None and self._state_init is None:
+            raise WindFlowError(f"{what}: with_tiering requires with_state "
+                                "(tiers hold the keyed device state)")
+        return dict(state_init=self._state_init, tiering=self._tiering)
 
 
-class Map_GPU_Builder(_StatelessGPUBuilder):
+class Map_GPU_Builder(_KeyedStateBuilder):
     """``Map_GPU_Builder(func)``: ``func(fields) -> fields`` over a dict of
-    torch columns, returning new tensors (never writing its input)."""
+    torch columns, returning new tensors (never writing its input); with
+    ``with_state``, ``func(row, state) -> (row, state)``."""
 
     _default_name = "map_gpu"
 
     def build(self) -> Map_GPU:
         return self._finish(Map_GPU(self._func, self._name, self._parallelism,
                                     self._routing, self._key_extractor,
-                                    self._output_batch_size, self._schema))
+                                    self._output_batch_size, self._schema,
+                                    **self._state_args()))
 
 
-class Filter_GPU_Builder(_StatelessGPUBuilder):
+class Filter_GPU_Builder(_KeyedStateBuilder):
     """``Filter_GPU_Builder(pred)``: ``pred(fields)`` gives a bool (or int
-    0/1) column; it must not write its input."""
+    0/1) column; it must not write its input. With ``with_state``,
+    ``pred(row, state) -> (keep, state)``."""
 
     _default_name = "filter_gpu"
 
@@ -75,7 +107,8 @@ class Filter_GPU_Builder(_StatelessGPUBuilder):
         return self._finish(Filter_GPU(self._func, self._name,
                                        self._parallelism, self._routing,
                                        self._key_extractor,
-                                       self._output_batch_size, self._schema))
+                                       self._output_batch_size, self._schema,
+                                       **self._state_args()))
 
 
 class Reduce_GPU_Builder(_GPUBuilder):

@@ -27,17 +27,28 @@ Readbacks (kept counts, compaction orders, surviving key slots) go through
 fresh pinned buffers and one CUDA event (``batch.host_copies``); the
 commit waits on that event only.
 
+Stateful sub-ops (kinds ``smap`` / ``sfilter``) each own one
+``_KeyedStateScan`` (``gpu/ops_gpu.py``): host prep runs each engine's
+``grid_meta`` in chain order, and the chain body runs its grid-scan step
+where the sub-op sits, on the table as it is at launch time (an
+``sfilter`` narrows ``valid``; rows an earlier filter dropped skip the
+grid). A key-compatible keyed entry makes their KEYBY shuffle the
+identity (``topology/stage.py``).
+
 MEGABATCH: with ``PipeGraph(megabatch=K)``, the dispatch queue hands up
 to K queued same-signature commits to ``_run_megabatch``, the counterpart
 of the JAX package's ``lax.scan``: a Python loop of ``_chain_body`` over
 the K batches in submission order, their readbacks all started before the
-first wait, then the K emits. Its batches are those of K single commits.
+first wait, then the K emits. Each body reads and updates the state
+tables in place, so the tables thread from batch to batch as the scan's
+carry does, and the batches are those of K single commits.
 
-Stateful sub-ops (``smap``/``sfilter``, keyed device state) are not yet
-ported and raise. ``FusedFfatReplica`` (bottom of this module) is the
-window-terminated variant: the stateless map/filter prefix composes INTO
-the ``Ffat_Windows_GPU`` step through the ``_lift_fn`` / ``_prefix_mask``
-seams of ``FfatGPUReplica``.
+``snapshot_state`` records the chain's signature and one entry per
+sub-op (the engine's state, or None), and ``restore_state`` refuses a
+blob from a differently fused topology. ``FusedFfatReplica`` (bottom of
+this module) is the window-terminated variant: the STATELESS map/filter
+prefix composes INTO the ``Ffat_Windows_GPU`` step through the
+``_lift_fn`` / ``_prefix_mask`` seams of ``FfatGPUReplica``.
 """
 
 from __future__ import annotations
@@ -51,17 +62,9 @@ from ..basic import WindFlowError
 from .batch import BatchGPU, host_copies, to_device
 from .ffat_gpu import Ffat_Windows_GPU, FfatGPUReplica
 from .ops_gpu import (Filter_GPU, GPUReplicaBase, Map_GPU, Reduce_GPU,
-                      compact_order, masked_tree_reduce,
+                      _KeyedStateScan, compact_order, masked_tree_reduce,
                       reduce_order_and_slots, row_mask)
 from .scan import masked_segmented_scan
-
-
-def _refuse_state(fused_name: str, op) -> None:
-    if getattr(op, "state_init", None) is not None:
-        raise WindFlowError(
-            f"{fused_name}: {op.name} carries keyed device state — stateful "
-            "sub-ops of a fused chain (smap/sfilter) are not yet ported to "
-            "windflow_tpu_torch")
 
 
 def _adopt_chain(replica, ops) -> None:
@@ -75,26 +78,34 @@ def _adopt_chain(replica, ops) -> None:
 
 class _SubSpec:
     """One sub-operator's contribution to the fused chain: a stateless
-    kernel or a terminal reduce."""
+    kernel, a stateful grid-scan engine, or a terminal reduce."""
 
-    __slots__ = ("kind", "kernel")
+    __slots__ = ("kind", "kernel", "engine")
 
-    def __init__(self, kind: str, kernel: Optional[Callable]) -> None:
-        self.kind = kind  # map | filter | reduce | kreduce
+    def __init__(self, kind: str, kernel: Optional[Callable] = None,
+                 engine: Optional[_KeyedStateScan] = None) -> None:
+        self.kind = kind  # map | filter | smap | sfilter | reduce | kreduce
         self.kernel = kernel  # stateless composable kernel
+        self.engine = engine  # the stateful sub-op's own engine
 
 
-def _build_specs(fused_name: str, ops) -> List[_SubSpec]:
+def _build_specs(replica, ops) -> List[_SubSpec]:
     specs: List[_SubSpec] = []
     for op in ops:
-        _refuse_state(fused_name, op)
         if isinstance(op, Reduce_GPU):
             specs.append(_SubSpec(
-                "reduce" if op.key_extractor is None else "kreduce", None))
+                "reduce" if op.key_extractor is None else "kreduce"))
         elif isinstance(op, (Map_GPU, Filter_GPU)):
-            specs.append(_SubSpec(
-                "map" if isinstance(op, Map_GPU) else "filter",
-                op.device_kernel()))
+            is_map = isinstance(op, Map_GPU)
+            if op.state_init is not None:
+                specs.append(_SubSpec(
+                    "smap" if is_map else "sfilter",
+                    engine=_KeyedStateScan(
+                        replica, op.func if is_map else op.pred,
+                        op.state_init, not is_map, op=op)))
+            else:
+                specs.append(_SubSpec("map" if is_map else "filter",
+                                      op.device_kernel()))
         else:
             raise WindFlowError(
                 f"{op.name}: operator kind {type(op).__name__} has no "
@@ -112,7 +123,7 @@ class FusedGPUReplica(GPUReplicaBase):
         ops = list(ops)
         super().__init__(ops[0], idx)
         _adopt_chain(self, ops)
-        self.specs = _build_specs(self.fused_name, ops)
+        self.specs = _build_specs(self, ops)
         if any(s.kind in ("reduce", "kreduce") for s in self.specs[:-1]):
             raise WindFlowError(
                 f"{self.fused_name}: Reduce_GPU must terminate the fused "
@@ -121,7 +132,7 @@ class FusedGPUReplica(GPUReplicaBase):
         # the chain exit: a reduce terminator, else one compaction when a
         # filter narrowed the mask, else the columns as they are
         self._exit = (last.kind if last.kind in ("reduce", "kreduce")
-                      else "filter" if any(s.kind == "filter"
+                      else "filter" if any(s.kind in ("filter", "sfilter")
                                            for s in self.specs)
                       else "map")
         self._combine = getattr(ops[-1], "combine", None)
@@ -132,19 +143,29 @@ class FusedGPUReplica(GPUReplicaBase):
 
     # -- the chain body ------------------------------------------------------
     def _chain_body(self, fields: Dict[str, torch.Tensor], size: int,
-                    kargs) -> tuple:
+                    hargs) -> tuple:
         """One batch through the chain: ``(out, readback)``, the device
         columns to emit and the device tensors the host reads back (none
-        for a map-only chain). Shared by the single and the megabatch
+        for a map-only chain). ``hargs[i]`` is sub-op i's prep output: a
+        stateful one's ``(program, grid arrays)``, the keyed terminator's
+        ``(order, sorted slots)``. Shared by the single and the megabatch
         commit, so both launch the same kernels. Where the JAX package
         reads back a reduce exit's ``compact_order(valid)`` and count only
         to take the kept rows' largest ts, the port reads back the mask
         itself: one byte a row and no compaction launches."""
         first = next(iter(fields.values()))
         valid = row_mask(first.shape[0], size, first.device)
-        for spec in self.specs:
+        for spec, h in zip(self.specs, hargs):
             if spec.kernel is not None:
                 fields, valid, _ = spec.kernel(fields, valid, None)
+            elif spec.engine is not None:
+                # the grid scan on the sub-op's table as it is now (commit
+                # order); rows ``valid`` excludes skip the grid
+                out = spec.engine.run(h[0], fields, valid, h[1])
+                if spec.kind == "sfilter":
+                    valid = out
+                else:
+                    fields = out
         if self._exit == "reduce":
             return (masked_tree_reduce(self._combine, fields, valid),
                     {"keep": valid})
@@ -153,7 +174,7 @@ class FusedGPUReplica(GPUReplicaBase):
             # the mask); the scan folds each key's VALID rows, and a key
             # whose tail stays invalid had no surviving row: it is dropped,
             # as the unfused filter stage would have dropped its rows
-            order, ssorted = kargs
+            order, ssorted = hargs[-1]
             new_seg = ssorted[1:] != ssorted[:-1]
             one = torch.ones(1, dtype=torch.bool, device=ssorted.device)
             scanned, vscan = masked_segmented_scan(
@@ -170,15 +191,16 @@ class FusedGPUReplica(GPUReplicaBase):
                     {"order": order, "count": count})
         return fields, {}
 
-    def _launch(self, batch: BatchGPU, kargs) -> tuple:
+    def _launch(self, batch: BatchGPU, hargs) -> tuple:
         """Run the chain body on ``batch`` and start its readback: ``(out,
         host tensors, event)``."""
-        out, readback = self._chain_body(batch.fields, batch.size, kargs)
+        out, readback = self._chain_body(batch.fields, batch.size, hargs)
         return (out,) + host_copies(readback)
 
     # -- batch path ----------------------------------------------------------
     def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
-        kargs = kextra = None
+        kextra = None
+        kred = None
         if self._exit == "kreduce":
             # key order over ALL rows, independent of the mask; order and
             # slots ship from fresh pinned buffers
@@ -186,22 +208,35 @@ class FusedGPUReplica(GPUReplicaBase):
                 self.ops[-1], batch)
             if not slot_of_key:
                 return None
-            kargs = (to_device(order_np, self.device),
-                     to_device(ssorted_np, self.device))
+            kred = (to_device(order_np, self.device),
+                    to_device(ssorted_np, self.device))
             kextra = list(slot_of_key)  # slot order == insertion order
+        # per stateful sub-op, in chain order: slot mapping and grid
+        # assembly (grid_meta drains the pipeline itself iff a table must
+        # grow, and queues the tier moves ahead of this batch)
+        statics: List[Any] = []
+        hargs: List[Any] = []
+        for spec in self.specs:
+            if spec.engine is not None:
+                prog, grid, gargs = spec.engine.prep(batch)
+                statics.append(grid)
+                hargs.append((prog, gargs))
+            else:
+                statics.append(None)
+                hargs.append(kred if spec.kind == "kreduce" else None)
 
         def commit() -> None:
-            launched = self._launch(batch, kargs)
+            launched = self._launch(batch, hargs)
             self.stats.device_programs_run += 1  # ONE program per batch
             self._commit_emit(batch, *launched, kextra)
 
         # megabatch: the queue groups consecutive commits with equal
-        # scan_sig (same chain, same capacity bucket; the JAX package adds
-        # the stateful sub-ops' grid shapes, which stateless chains lack)
-        # and hands the group to scan_runner. Unfused replicas' commits
-        # carry no scan_sig
-        commit.scan_sig = (id(self), batch.capacity)
-        commit.scan_payload = (batch, kargs, kextra)
+        # scan_sig (same chain, same stateful grid shapes (M, KB), same
+        # capacity bucket, as the JAX package keys its compiled scans) and
+        # hands the group to scan_runner. Unfused replicas' commits carry
+        # no scan_sig
+        commit.scan_sig = (id(self), tuple(statics), batch.capacity)
+        commit.scan_payload = (batch, hargs, kextra)
         commit.scan_runner = self._run_megabatch
         return commit
 
@@ -211,8 +246,8 @@ class FusedGPUReplica(GPUReplicaBase):
         started before the first wait, then the K emits (ordering points
         never get here: ``drain`` runs singles)."""
         payloads = [c.scan_payload for c in commits]
-        launched = [self._launch(batch, kargs)
-                    for batch, kargs, _ in payloads]
+        launched = [self._launch(batch, hargs)
+                    for batch, hargs, _ in payloads]
         self.stats.device_programs_run += 1  # ONE program for K batches
         for (batch, _, kextra), parts in zip(payloads, launched):
             self._commit_emit(batch, *parts, kextra)
@@ -252,11 +287,41 @@ class FusedGPUReplica(GPUReplicaBase):
 
     # -- checkpointing -------------------------------------------------------
     def snapshot_state(self) -> dict:
-        """The chain's identity and one entry per sub-op (None: stateless),
-        the JAX package's layout; restoring one is not yet ported."""
-        self.dispatch.drain(forced=True)
-        return {"__fused__": self.fused_signature,
-                "fused_sub_states": [None for _ in self.specs]}
+        """The chain's identity and one entry per sub-op (its engine's
+        state, None when stateless), the JAX package's layout."""
+        st = super().snapshot_state()  # drains the dispatch queue
+        st["__fused__"] = self.fused_signature
+        st["fused_sub_states"] = [
+            (s.engine.snapshot_state() if s.engine is not None else None)
+            for s in self.specs]
+        return st
+
+    def restore_state(self, state: dict) -> None:
+        sig = state.get("__fused__")
+        if sig is None:
+            raise WindFlowError(
+                f"restore: this graph fuses {self.fused_name!r} into one "
+                f"device chain, but the checkpoint blob for "
+                f"{self.op.name!r} holds standalone state — the "
+                "checkpointed topology was fused differently (match "
+                "PipeGraph(fusion=...) / the chain() calls of the original "
+                "graph)")
+        if list(sig) != self.fused_signature:
+            raise WindFlowError(
+                "restore: fused-chain mismatch — the checkpoint holds "
+                f"{'∘'.join(sig)!r}, this graph builds "
+                f"{self.fused_name!r}")
+        super().restore_state(state)
+        subs = state.get("fused_sub_states")
+        if subs is None or len(subs) != len(self.specs):
+            raise WindFlowError(
+                f"restore: fused chain {self.fused_name!r} expects "
+                f"{len(self.specs)} per-sub-op states, checkpoint holds "
+                f"{0 if subs is None else len(subs)}")
+        # positional restore: entry i belongs to sub-op i
+        for spec, sub in zip(self.specs, subs):
+            if spec.engine is not None:
+                spec.engine.restore_state(sub or {})
 
 
 class FusedFfatReplica(FfatGPUReplica):
@@ -289,8 +354,10 @@ class FusedFfatReplica(FfatGPUReplica):
         _adopt_chain(self, ops)
         prefix = ops[:-1]
         for o in prefix:
-            _refuse_state(self.fused_name, o)
-            if not isinstance(o, (Map_GPU, Filter_GPU)):
+            # the prefix runs twice per batch (prep-time mask and in-step
+            # compose): a stateful one would advance its state twice
+            if not isinstance(o, (Map_GPU, Filter_GPU)) \
+                    or o.state_init is not None:
                 raise WindFlowError(
                     f"{self.fused_name}: only stateless map/filter sub-ops "
                     f"may precede a window terminator ({o.name} — fusion "

@@ -3,8 +3,9 @@
 Trimmed copy of ``windflow_tpu/monitoring/stats.py``: the counters the
 replicas of the ported slice write (tuples in/out, ignored tuples, the
 device-plane traffic and program counts, the dispatch-pipeline split, the
-watermark gauges, the unified late-record accounting, and the fused-chain
-and megabatch counters). On top of those,
+watermark gauges, the unified late-record accounting, the fused-chain
+and megabatch counters, and the tier plane's ``Tier_*`` counters and
+gauges). On top of those,
 ``rebuild_kernel_launches`` counts the launches of the hand-written
 FlatFAT forest-rebuild kernel on this replica's forest, so a run can show
 that the main path went through it.
@@ -33,6 +34,14 @@ class StatsRecord:
         "ingest_blocks", "ingest_rows",
         "wm_current", "wm_advances", "wm_max_source_ts",
         "late_records", "late_dropped",
+        # tiered keyed state (state/tiered.py): hot/cold key gauges, the
+        # batched promote/demote counters with promote time, and the
+        # lookup/miss counters behind Tier_miss_rate. tier_enabled marks
+        # a replica whose engine runs with_tiering: to_dict omits the
+        # Tier_* keys elsewhere
+        "tier_enabled", "tier_hot_keys", "tier_cold_keys",
+        "tier_promotes", "tier_demotes", "tier_promote_usec_total",
+        "tier_lookups", "tier_misses",
         "input_channel", "pipe_depth_max", "worker_idle_ticks",
         "worker_last_error", "is_terminated",
         "_last_svc_start", "_svc_seeded", "_prep_seeded", "_commit_seeded",
@@ -74,6 +83,14 @@ class StatsRecord:
         self.wm_max_source_ts = 0
         self.late_records = 0
         self.late_dropped = 0
+        self.tier_enabled = False
+        self.tier_hot_keys = 0
+        self.tier_cold_keys = 0
+        self.tier_promotes = 0
+        self.tier_demotes = 0
+        self.tier_promote_usec_total = 0.0
+        self.tier_lookups = 0
+        self.tier_misses = 0
         self.input_channel = None  # wired by PipeGraph._make_workers
         self.pipe_depth_max = 0  # emitter-side FIFO high-water mark
         self.worker_idle_ticks = 0
@@ -144,6 +161,25 @@ class StatsRecord:
         self.late_records += n_records
         self.late_dropped += n_dropped
 
+    # -- tiered keyed state (state/tiered.py) ---------------------------------
+    def note_tier_promote(self, n_keys: int, usec: float) -> None:
+        """One BATCHED promote (cold rows -> one slot-row scatter):
+        ``n_keys`` keys moved hot in ``usec`` host-observed time."""
+        self.tier_promotes += n_keys
+        self.tier_promote_usec_total += usec
+
+    def note_tier_demote(self, n_keys: int) -> None:
+        """One BATCHED demote (slot-row gather -> cold writes)."""
+        self.tier_demotes += n_keys
+
+    def note_tier_gauges(self, hot: int, cold: int, lookups: int,
+                         misses: int) -> None:
+        self.tier_enabled = True
+        self.tier_hot_keys = hot
+        self.tier_cold_keys = cold
+        self.tier_lookups = lookups
+        self.tier_misses = misses
+
     def note_pipe_depth(self, depth: int) -> None:
         if depth > self.pipe_depth_max:
             self.pipe_depth_max = depth
@@ -151,7 +187,7 @@ class StatsRecord:
     def to_dict(self) -> Dict[str, Any]:
         elapsed = max(time.monotonic() - self.start_time, 1e-9)
         ch = self.input_channel
-        return {
+        d = {
             "Operator_name": self.op_name,
             "Replica_id": self.replica_idx,
             "Inputs_received": self.inputs_received,
@@ -201,3 +237,14 @@ class StatsRecord:
             "Worker_last_error": self.worker_last_error,
             "isTerminated": self.is_terminated,
         }
+        if self.tier_enabled:  # with_tiering replicas only
+            d["Tier_hot_keys"] = self.tier_hot_keys
+            d["Tier_cold_keys"] = self.tier_cold_keys
+            d["Tier_promotes"] = self.tier_promotes
+            d["Tier_demotes"] = self.tier_demotes
+            d["Tier_promote_usec_total"] = round(
+                self.tier_promote_usec_total, 1)
+            d["Tier_miss_rate"] = round(
+                self.tier_misses / self.tier_lookups, 4) \
+                if self.tier_lookups else 0.0
+        return d
