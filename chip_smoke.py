@@ -74,6 +74,29 @@ Phases, each printing one line of its own:
    idle share and launches per batch; then the ``programs`` line of the
    grid scan (K8) on one smap batch: device time, launches and the bytes
    bound;
+9. branching graphs (``dag`` lines), BASELINE's ``split_tests_gpu +
+   merge_tests_gpu`` config at ``bench.py``'s sizes (10,240 keys,
+   65,536-tuple int32 batches, 2 warm-up and 12 timed batches): part
+   ``diamond`` (Map_GPU computing branch = value % 2 -> a device split on
+   that column -> {Map_GPU value*3, Filter_GPU value % 3 != 0} -> merge ->
+   Reduce_GPU keyed by the composite key ("key", "branch") at
+   parallelism 2; rows equal the CPU run as a multiset and a numpy fold)
+   and part ``merge_ffat`` (two sources of half the keys each merged into
+   the high-cardinality window; window rows equal the CPU run, K1 once
+   per firing batch); each gives tuples/s, host prep / commit ms per
+   batch of each stage (``diamond``) and a profiled run's idle share and
+   launches per batch;
+10. kill and restore (``recovery`` lines), parts ``smap`` (the stateful
+   map at 10,240 keys), ``ffat`` (the high-cardinality main path) and
+   ``fused`` (map -> smap -> filter, fused): a source that requests a
+   checkpoint after batch 8 of 24 and raises before batch 16, then
+   ``run(restore_from=...)`` of the same graph; the merged output must
+   equal the uninterrupted run on the card and on the CPU. Each line
+   gives, per committed epoch of a run checkpointing every 4 batches,
+   the slowest worker's cut (barrier at the worker -> ack) split into
+   drain, capture and write, the bytes, the alignment stall and the
+   commit ms; the restore time (``start`` -> first delivery); and
+   tuples/s with a checkpoint every 4 batches and with none, in turns;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -1342,6 +1365,541 @@ def state_programs_phase(torch, wt, blocks, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase dag: BASELINE's split_tests_gpu + merge_tests_gpu config
+# ---------------------------------------------------------------------------
+DAG_BATCHES, DAG_WARMUP = 14, 2
+
+
+def _route(f):
+    """The device-computed branch of a row: its value's parity."""
+    return {**f, "branch": f["value"] % 2}
+
+
+def _triple(f):
+    return {**f, "value": f["value"] * 3}
+
+
+def _not_div3(f):
+    return f["value"] % 3 != 0
+
+
+def _sum_key_branch(a, b):
+    return {"key": b["key"], "branch": b["branch"],
+            "value": a["value"] + b["value"]}
+
+
+def _sink_parts():
+    """A columnar sink that keeps each batch with its arrival time."""
+    parts, lock = [], threading.Lock()
+
+    def sink(cols, ts):
+        if cols is not None:
+            now = time.perf_counter()
+            with lock:
+                parts.append((now, {"ts": ts.copy(), **{
+                    k: v.copy() for k, v in cols.items()}}))
+    return parts, sink
+
+
+def _timed_source(blocks, t_yield):
+    def source():
+        for cols, ts, wm in blocks:
+            t_yield.append(time.perf_counter())
+            yield cols, ts, wm
+    return source
+
+
+def _run_diamond(wt, device, blocks):
+    """Columnar source -> Map_GPU (branch = value % 2) -> split on the
+    "branch" column -> {Map_GPU value*3, Filter_GPU value % 3 != 0} ->
+    merge -> Reduce_GPU keyed by ("key", "branch") at parallelism
+    GRAPH_PAR -> columnar sink."""
+    t_yield = []
+    parts, sink = _sink_parts()
+    graph = wt.PipeGraph("dag", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    mp = graph.add_source(wt.Columnar_Source_Builder(
+        _timed_source(blocks, t_yield)).with_output_batch_size(BATCH)
+        .build())
+    mp.add(wt.Map_GPU_Builder(_route).with_name("route").build())
+    mp.split("branch", 2)
+    b0 = mp.select(0).add(wt.Map_GPU_Builder(_triple).with_name("triple")
+                          .build())
+    b1 = mp.select(1).add(wt.Filter_GPU_Builder(_not_div3)
+                          .with_name("not_div3").build())
+    b0.merge(b1).add(wt.Reduce_GPU_Builder(_sum_key_branch)
+                     .with_key_by(("key", "branch"))
+                     .with_parallelism(GRAPH_PAR).with_name("kb_reduce")
+                     .build()) \
+        .add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.run()
+    return parts, t_yield, graph
+
+
+def _diamond_fold(blocks):
+    """numpy fold of the diamond: per (key, branch) totals."""
+    tot = np.zeros((HC_KEYS, 2), dtype=np.int64)
+    for cols, _, _ in blocks:
+        v = cols["value"].astype(np.int64)
+        even = v % 2 == 0
+        np.add.at(tot, (cols["key"][even], 0), 3 * v[even])
+        odd = ~even & (v % 3 != 0)
+        np.add.at(tot, (cols["key"][odd], 1), v[odd])
+    return tot
+
+
+def _sorted_kb(c):
+    order = np.lexsort((c["value"], c["branch"], c["key"], c["ts"]))
+    return {k: v[order] for k, v in c.items()}
+
+
+def _key_halves(blocks):
+    """The stream split by key into two sources of half the keys each,
+    every block keeping its watermark."""
+    halves = ([], [])
+    for cols, ts, wm in blocks:
+        lo = cols["key"] < HC_KEYS // 2
+        for h, m in zip(halves, (lo, ~lo)):
+            h.append(({k: v[m] for k, v in cols.items()}, ts[m], wm))
+    return halves
+
+
+def _run_merge_ffat(wt, device, halves):
+    """Two columnar sources merged into Ffat_Windows_GPU (the HC config)
+    -> columnar sink. Returns the window columns sorted by (key, wid), the
+    window replica's K1 accounting (data batches that fired, K1 launches in
+    them, and launches of the data-less firings: punctuations and the
+    end-of-stream flush), the sink's batches, the sources' yield times,
+    the replica and the graph."""
+    t_yield = []
+    k1 = dict(firing_batches=0, batch_launches=0, dataless_launches=0)
+    parts, sink = _sink_parts()
+    graph = wt.PipeGraph("dag_merge", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    srcs = [graph.add_source(wt.Columnar_Source_Builder(
+        _timed_source(h, t_yield)).with_output_batch_size(BATCH)
+        .with_name(f"src_{i}").build()) for i, h in enumerate(halves)]
+    op = (wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
+                                      wt.fieldwise(value="sum"))
+          .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
+          .with_key_capacity(HC_KEYS).with_name("ffat").build())
+    srcs[0].merge(srcs[1]).add(op) \
+        .add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.get_num_threads()  # builds the replicas
+    rep = op.replicas[0]
+    commit_step, fire_dataless = rep._commit_step, rep._fire_dataless
+
+    def noted_commit(fields, wm, seg, plan):
+        n0 = rep.stats.rebuild_kernel_launches
+        commit_step(fields, wm, seg, plan)
+        if any(entry is not None for entry in plan):  # this batch fired
+            k1["firing_batches"] += 1
+            k1["batch_launches"] += rep.stats.rebuild_kernel_launches - n0
+
+    def noted_dataless(frontier, partial):
+        n0 = rep.stats.rebuild_kernel_launches
+        fire_dataless(frontier, partial)
+        k1["dataless_launches"] += rep.stats.rebuild_kernel_launches - n0
+
+    rep._commit_step, rep._fire_dataless = noted_commit, noted_dataless
+    graph.run()
+    cols = _concat(parts)
+    order = np.lexsort((cols["wid"], cols["key"]))
+    cols = {k: v[order] for k, v in cols.items()}
+    return cols, k1, parts, t_yield, rep, graph
+
+
+def _dag_rate(n_tuples, t_yield, parts):
+    """Tuples/s from the yield of the first block after the warm-up to the
+    last delivery."""
+    span = max(t for t, _ in parts) - sorted(t_yield)[DAG_WARMUP * len(
+        t_yield) // DAG_BATCHES]
+    return n_tuples * (DAG_BATCHES - DAG_WARMUP) / DAG_BATCHES / span
+
+
+def dag_phase(torch, wt, card):
+    """Phase ``dag``: BASELINE's ``split_tests_gpu + merge_tests_gpu``
+    config at bench.py's sizes (65,536-tuple int32 batches, 10,240 keys,
+    2 warm-up and 12 timed batches). Part ``diamond``: a device split on a
+    device-computed column, two device branches, their merge into a
+    Reduce_GPU keyed by the composite key ("key", "branch") at parallelism
+    2; rows on the card equal the CPU run (as a multiset) and a numpy
+    fold. Part ``merge_ffat``: two sources of half the keys each merged
+    into the HC window; window rows equal the CPU run's, and K1 launches
+    once per firing batch. Each part gives tuples/s and a profiled run's
+    idle share and launches per batch. Returns K1's launches in the
+    merge_ffat run on the card."""
+    from windflow_tpu_torch.gpu.emitters_gpu import GPUSplittingEmitter
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(HC_KEYS, seed=31, n_batches=DAG_BATCHES, batch=BATCH)
+    n_tuples = DAG_BATCHES * BATCH
+    # diamond
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gparts, t_yield, graph = _run_diamond(wt, "cuda", blocks)
+    wall = time.perf_counter() - t0
+    cparts, *_ = _run_diamond(wt, "cpu", blocks)
+    g, c = _sorted_kb(_concat(gparts)), _sorted_kb(_concat(cparts))
+    if g.keys() != c.keys() or not all(np.array_equal(g[k], c[k])
+                                       for k in g):
+        fail("dag diamond: rows on cuda differ from the CPU run")
+    got = np.zeros((HC_KEYS, 2), dtype=np.int64)
+    np.add.at(got, (g["key"], g["branch"]), g["value"])
+    if not np.array_equal(got, _diamond_fold(blocks)):
+        fail("dag diamond: per (key, branch) totals differ from the numpy "
+             "fold")
+    route = graph._stages[1].last_op.replicas[0]
+    if not isinstance(route.emitter, GPUSplittingEmitter):
+        fail("dag diamond: the split after the device map is not the "
+             "device splitting emitter")
+    ops = {o["name"]: o for o in graph.get_stats()["Operators"]}
+    phase("dag", part="diamond", keys=HC_KEYS, batches=DAG_BATCHES,
+          warmup=DAG_WARMUP, batch=BATCH, reduce_parallelism=GRAPH_PAR,
+          card=card, rows=int(len(g["ts"])), rows_equal_cpu=True,
+          rows_equal_numpy=True,
+          branch_rows_in={n: sum(r["Inputs_received"]
+                                 for r in ops[n]["replicas"])
+                          for n in ("triple", "not_div3", "kb_reduce")},
+          split_d2h_bytes=sum(r["Device_bytes_D2H"]
+                              for r in ops["route"]["replicas"]),
+          # host prep and commit ms a batch of each device stage's replicas
+          stages={n: [[round(r[f"Dispatch_{c}_total_usec"] / 1e3
+                             / max(1, r["Dispatch_batches"]), 4)
+                       for c in ("host_prep", "commit")]
+                      for r in ops[n]["replicas"]]
+                  for n in ("route", "triple", "not_div3", "kb_reduce")},
+          tuples_per_s=_dag_rate(n_tuples, t_yield, gparts), wall_s=wall,
+          profiled=_profiled(torch, lambda: _run_diamond(wt, "cuda",
+                                                          blocks),
+                             DAG_BATCHES))
+    # merge_ffat
+    halves = _key_halves(blocks)
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gcols, k1, gparts, t_yield, rep, _ = _run_merge_ffat(wt, "cuda",
+                                                        halves)
+    wall = time.perf_counter() - t0
+    launches = _launched("dag merge_ffat", fr, rep)
+    ccols = _run_merge_ffat(wt, "cpu", halves)[0]
+    # the firing batches' watermarks (a window row's ts) follow the merge's
+    # interleaving: compare the windows, not when they fired
+    _check_windows("dag merge_ffat", "the CPU run",
+                   {k: v for k, v in gcols.items() if k != "ts"},
+                   {k: v for k, v in ccols.items() if k != "ts"})
+    if not gcols["valid"].any():
+        fail("dag merge_ffat: no valid windows")
+    # every data batch that fires rebuilds once; a data-less firing
+    # (punctuation, end-of-stream flush) rebuilds only a forest that
+    # ingest dirtied after the last firing
+    if k1["batch_launches"] != k1["firing_batches"] \
+            or not k1["firing_batches"] \
+            or launches != k1["batch_launches"] + k1["dataless_launches"]:
+        fail(f"dag merge_ffat: K1 launched {launches} times for "
+             f"{k1['firing_batches']} firing batches ({k1})")
+    phase("dag", part="merge_ffat", keys=HC_KEYS, sources=2,
+          batches=DAG_BATCHES, warmup=DAG_WARMUP, batch=BATCH, card=card,
+          windows_total=int(len(gcols["key"])),
+          valid_windows=int(gcols["valid"].sum()), rows_equal_cpu=True,
+          **k1, rebuild_launches=launches,
+          tuples_per_s=_dag_rate(n_tuples, t_yield, gparts), wall_s=wall,
+          profiled=_profiled(torch, lambda: _run_merge_ffat(wt, "cuda",
+                                                             halves),
+                             DAG_BATCHES))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase recovery: kill and restore on the card
+# ---------------------------------------------------------------------------
+REC_BATCHES, REC_CKPT_AT, REC_CRASH_AT, REC_EVERY = 24, 8, 16, 4
+
+
+class _InjectedCrash(Exception):
+    """The fault a recovery part injects into its own source."""
+
+
+class _ReplayBlocks:
+    """Replayable block source: pushes one block per step (EVENT_TIME),
+    requests a checkpoint after block ``ckpt_at`` or every ``every``
+    blocks, and raises before block ``crash_at``. Its position counts the
+    blocks pushed, so a restore replays from the snapshot's block;
+    ``first`` is the block it pushed first."""
+
+    def __init__(self, blocks, ckpt_at=None, crash_at=None, every=0):
+        self.blocks, self.ckpt_at, self.crash_at = blocks, ckpt_at, crash_at
+        self.every = every
+        self.pos = 0
+        self.first = None
+        self.t_yield = []
+
+    def __call__(self, shipper):
+        while self.pos < len(self.blocks):
+            if self.pos == self.crash_at:
+                raise _InjectedCrash(f"killed before block {self.pos}")
+            cols, ts, wm = self.blocks[self.pos]
+            if self.first is None:
+                self.first = self.pos
+            self.t_yield.append(time.perf_counter())
+            shipper.set_next_watermark(wm)
+            shipper.push_columns(cols, ts)
+            self.pos += 1
+            if self.pos == self.ckpt_at or (
+                    self.every and self.pos % self.every == 0):
+                shipper.request_checkpoint()
+
+    def snapshot_position(self):
+        return self.pos
+
+    def restore(self, pos):
+        self.pos = pos
+
+
+def _rec_ops(wt, part):
+    if part == "smap":
+        return _smap_ops(wt)
+    if part == "ffat":
+        return [wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
+                                            wt.fieldwise(value="sum"))
+                .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
+                .with_key_capacity(HC_KEYS).with_name("ffat").build()]
+    return [wt.Map_GPU_Builder(_map_value).with_key_by("key")
+            .with_name("m").build(), _smap_ops(wt)[0],
+            wt.Filter_GPU_Builder(_even_value).with_name("f").build()]
+
+
+def _run_rec_graph(wt, device, part, src, store, restore_from=None,
+                   crash=False):
+    """Replayable source -> the part's operators (chained for ``fused``)
+    -> columnar sink, checkpointing into ``store``. Returns the sink's
+    batches, the graph, ``start()``'s duration and the time from
+    ``start()`` to the first delivery. With ``crash``, the run must end in
+    the source's injected crash (and only in that)."""
+    parts, sink = _sink_parts()
+    graph = wt.PipeGraph(f"rec_{part}", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    graph.with_checkpointing(store_dir=store)
+    mp = graph.add_source(wt.Source_Builder(src).with_name("src")
+                          .with_output_batch_size(BATCH).build())
+    for i, op in enumerate(_rec_ops(wt, part)):
+        mp = mp.chain(op) if (part == "fused" and i) else mp.add(op)
+    mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
+    t0 = time.perf_counter()
+    graph.start(restore_from)
+    t_start = time.perf_counter() - t0
+    try:
+        graph.wait_end()
+    except _InjectedCrash:
+        if not crash:
+            raise
+    else:
+        if crash:
+            fail(f"recovery {part}: the injected crash did not end the run")
+    first = min((t for t, _ in parts), default=None)
+    return parts, graph, t_start, (None if first is None else first - t0)
+
+
+def _rec_results(part, parts):
+    """An idempotent store of a run's output: window rows by (key, wid)
+    for ``ffat``; every other part's output batches by their first ts (a
+    batch is emitted whole, so a replayed batch overwrites its twin)."""
+    out = {}
+    for _, c in parts:
+        if part == "ffat":
+            for k, w, ok, v in zip(c["key"].tolist(), c["wid"].tolist(),
+                                   c["valid"].tolist(),
+                                   c["value"].tolist()):
+                out[(k, w)] = (ok, v if ok else 0)
+        else:
+            out[int(c["ts"][0])] = tuple(
+                (k, c[k].tobytes()) for k in sorted(c))
+    return out
+
+
+def _ckpt_dir(name):
+    import shutil
+    d = os.path.join(HERE, "build", "ckpt", name)
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def _epochs(graph, cuts):
+    """Per committed epoch: the cut (barrier at the worker -> ack) of its
+    slowest worker, split into the drain of the work in flight and the
+    barrier's send, the state capture and the blob write (pickle, sha256,
+    fsync), the sum of the cuts over workers, the largest alignment stall,
+    the bytes of the epoch's blobs and its commit (manifest + rename)."""
+    rows = []
+    for h in graph._coordinator.history:
+        mine = [c for c in cuts if c[0] == h["ckpt_id"]]
+        slow = max(mine, key=lambda c: c[1], default=(0, 0.0, 0.0, 0.0, 0.0))
+        rows.append(dict(ckpt_id=h["ckpt_id"], workers_cut=len(mine),
+                         cut_ms_max=slow[1],
+                         drain_ms=slow[1] - slow[3] - slow[4],
+                         capture_ms=slow[3], write_ms=slow[4],
+                         cut_ms_sum=sum(c[1] for c in mine),
+                         align_stall_us_max=max((c[2] for c in mine),
+                                                default=0.0),
+                         bytes=h["bytes"], commit_ms=h["commit_s"] * 1e3,
+                         trigger_to_commit_ms=h["duration_s"] * 1e3))
+    return rows
+
+
+def recovery_part(torch, wt, card, part, cuts):
+    """One part of phase ``recovery``: golden runs on the card and on the
+    CPU, a run that checkpoints after block REC_CKPT_AT and dies before
+    block REC_CRASH_AT, and its restore; the merged crash + restore output
+    must equal both golden runs, and the restore must be one, never a
+    fresh start: its source resumes at block REC_CKPT_AT, it emits nothing
+    from before that block (``ffat``: no window the checkpoint had fired,
+    and fewer K1 launches than the uninterrupted run). Then tuples/s with a checkpoint every
+    REC_EVERY blocks and with none, in turns. Returns K1's launches in the
+    restored run (``ffat``), else 0."""
+    from windflow_tpu_torch.checkpoint import CheckpointStore
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    keys = HC_KEYS
+    blocks = _blocks(keys, seed=41, n_batches=REC_BATCHES, batch=BATCH)
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    gold = _rec_results(part, _run_rec_graph(
+        wt, "cuda", part, _ReplayBlocks(blocks), _ckpt_dir(f"{part}_g"))[0])
+    gold_launches = fr.LAUNCHES
+    gold_cpu = _rec_results(part, _run_rec_graph(
+        wt, "cpu", part, _ReplayBlocks(blocks), _ckpt_dir(f"{part}_c"))[0])
+    if gold != gold_cpu:
+        fail(f"recovery {part}: the card's uninterrupted run differs from "
+             "the CPU run")
+    store = _ckpt_dir(part)
+    crash_parts = _run_rec_graph(
+        wt, "cuda", part, _ReplayBlocks(blocks, ckpt_at=REC_CKPT_AT,
+                                        crash_at=REC_CRASH_AT),
+        store, crash=True)[0]
+    st = CheckpointStore(store)
+    cid = st.latest()
+    if cid is None:
+        fail(f"recovery {part}: no checkpoint committed before the crash")
+    d = st.checkpoint_dir(cid)
+    states = st.load_states(d, st.load_manifest(d))
+    if states[("src", 0)]["position"] != REC_CKPT_AT:
+        fail(f"recovery {part}: the checkpoint's source position is "
+             f"{states[('src', 0)]['position']}, not {REC_CKPT_AT}")
+    if part == "fused":
+        head = states[("m", 0)]
+        subs = head.get("fused_sub_states") or []
+        if head.get("__fused__") != ["m", "smap", "f"] or len(subs) != 3 \
+                or subs[1] is None or subs[0] is not None:
+            fail("recovery fused: the blob does not carry the fused "
+                 "signature and one positional sub-state per sub-op")
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    rsrc = _ReplayBlocks(blocks)
+    rparts, rgraph, start_s, first_s = _run_rec_graph(
+        wt, "cuda", part, rsrc, store, restore_from=store)
+    if rsrc.first != REC_CKPT_AT:
+        fail(f"recovery {part}: the restored source began at block "
+             f"{rsrc.first}, not at the checkpoint's {REC_CKPT_AT}")
+    restored = _rec_results(part, rparts)
+    if not restored:
+        fail(f"recovery {part}: the restored run emitted nothing")
+    launches = 0
+    if part == "ffat":
+        launches = _launched("recovery ffat", fr,
+                             rgraph._stages[1].first_op.replicas[0])
+        if launches >= gold_launches:
+            fail(f"recovery ffat: the restored run launched K1 {launches} "
+                 f"times, the uninterrupted run {gold_launches}")
+        ff = states[("ffat", 0)]["ffat"]
+        fired = {int(k): int(ff["fired"][s])
+                 for k, s in ff["slot_of_key"].items()}
+        again = sum(w < fired.get(k, 0) for k, w in restored)
+        if not any(fired.values()) or again:
+            fail(f"recovery ffat: the checkpoint fired "
+                 f"{sum(fired.values())} windows, and the restored run "
+                 f"fired {again} of them again")
+    elif min(restored) < int(blocks[REC_CKPT_AT][1][0]):
+        fail(f"recovery {part}: the restored run emitted a batch from "
+             f"before block {REC_CKPT_AT}")
+    merged = {**_rec_results(part, crash_parts), **restored}
+    if merged != gold:
+        fail(f"recovery {part}: the crash + restore output differs from "
+             "the uninterrupted run")
+    # tuples/s with a checkpoint every REC_EVERY blocks and without, in
+    # turns; each epoch's cut, bytes, stall and commit from the first
+    # checkpointing run
+    runs, epochs = {"every": [], "none": []}, None
+    for every in (0, REC_EVERY, REC_EVERY, 0):
+        src = _ReplayBlocks(blocks, every=every)
+        cuts.clear()
+        torch.cuda.synchronize()
+        p, g, _, _ = _run_rec_graph(wt, "cuda", part, src,
+                                    _ckpt_dir(f"{part}_r"))
+        span = max(t for t, _ in p) - src.t_yield[STATE_WARMUP]
+        runs["every" if every else "none"].append(
+            (REC_BATCHES - STATE_WARMUP) * BATCH / span)
+        if every and epochs is None:
+            epochs = _epochs(g, list(cuts))
+            if len(epochs) != REC_BATCHES // REC_EVERY:
+                fail(f"recovery {part}: {len(epochs)} epochs committed, "
+                     f"not {REC_BATCHES // REC_EVERY}")
+    phase("recovery", part=part, keys=keys, batches=REC_BATCHES,
+          batch=BATCH, checkpoint_at=REC_CKPT_AT, crash_at=REC_CRASH_AT,
+          card=card, merged_equal_card=True, merged_equal_cpu=True,
+          restored_checkpoint=cid,
+          blob_bytes=sum(os.path.getsize(os.path.join(d, f))
+                         for f in st.load_manifest(d)["blobs"]),
+          restore_start_ms=start_s * 1e3,
+          restore_ms=None if first_s is None else first_s * 1e3,
+          rebuild_launches_restored=launches,
+          rebuild_launches_uninterrupted=(gold_launches if part == "ffat"
+                                          else 0),
+          tuples_per_s_every_4=runs["every"], tuples_per_s_none=runs["none"],
+          epochs=epochs)
+    return launches
+
+
+def recovery_phase(torch, wt, card):
+    """Phase ``recovery``: kill and restore on the card, parts ``smap``
+    (bench.py's stateful map at 10,240 keys), ``ffat`` (the HC main path)
+    and ``fused`` (map -> smap -> filter chained, fusion on). The cut of
+    each worker is timed around ``Worker.checkpoint_now`` (barrier at the
+    worker -> ack), its capture around ``Worker._capture_blobs`` and its
+    blob write around ``CheckpointCoordinator.ack``, on the worker's own
+    thread. Returns K1's launches in the ``ffat`` restored run."""
+    from windflow_tpu_torch.checkpoint import CheckpointCoordinator as Coord
+    from windflow_tpu_torch.runtime import worker as wmod
+    cuts, tl = [], threading.local()
+    orig = (wmod.Worker.checkpoint_now, wmod.Worker._capture_blobs,
+            Coord.ack)
+
+    def timer(fn, slot):
+        def timed_fn(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                setattr(tl, slot, getattr(tl, slot, 0.0)
+                        + (time.perf_counter() - t0) * 1e3)
+        return timed_fn
+
+    def timed_cut(self, barrier, stall_us=0.0):
+        tl.capture = tl.write = 0.0
+        t0 = time.perf_counter()
+        orig[0](self, barrier, stall_us)
+        cuts.append((barrier.ckpt_id, (time.perf_counter() - t0) * 1e3,
+                     stall_us, tl.capture, tl.write))
+
+    wmod.Worker.checkpoint_now = timed_cut
+    wmod.Worker._capture_blobs = timer(orig[1], "capture")
+    Coord.ack = timer(orig[2], "write")
+    try:
+        return sum(recovery_part(torch, wt, card, part, cuts)
+                   for part in ("smap", "ffat", "fused"))
+    finally:
+        (wmod.Worker.checkpoint_now, wmod.Worker._capture_blobs,
+         Coord.ack) = orig
+
+
 def main() -> None:
     try:
         import torch
@@ -1375,12 +1933,15 @@ def main() -> None:
     # after which torch.profiler has been seen to lose K1's records
     smap_blocks = state_phase(torch, wt, card)
     state_programs_phase(torch, wt, smap_blocks, card)
+    dag_launches = dag_phase(torch, wt, card)
+    recovery_launches = recovery_phase(torch, wt, card)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",
         "source": "windflow_tpu_torch/kernels/forest_rebuild.cu",
         "replaces": "windflow_tpu/tpu/pallas_kernels.py:29",
-        "launches": hc_launches + base_launches + fusion_launches,
+        "launches": (hc_launches + base_launches + fusion_launches
+                     + dag_launches + recovery_launches),
         "max_abs_err": max(err_checks, err_timed),
         "ms": timing["wrapper_ms"],
         "device_ms": timing["device_ms"],

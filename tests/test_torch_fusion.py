@@ -499,7 +499,8 @@ def test_stateful_sub_op_in_a_fused_chain_is_not_yet_ported(monkeypatch):
     (both packages allow a stateful map before a filter), and the port's
     fused replica builds it with one keyed-state engine for the stateful
     sub-op; what is not yet ported is that engine's incremental (delta)
-    snapshot, which waits for the checkpoint plane."""
+    snapshot: it snapshots FULL, and only an explicit delta request
+    raises."""
     g, mp = _legal_graph(wt, monkeypatch)
     mp.add(_stateful_map(wt, "sm")).chain(
         wt.Filter_GPU_Builder(lambda f: f["value"] >= 0).with_key_by("key")
@@ -508,8 +509,11 @@ def test_stateful_sub_op_in_a_fused_chain_is_not_yet_ported(monkeypatch):
     g.get_num_threads()  # builds the fused replica
     specs = g._stages[-1].first_op.replicas[0].specs
     assert [s.kind for s in specs] == ["smap", "filter"]
+    # the engine takes a FULL snapshot (delta snapshots are off); only an
+    # explicit delta request raises
+    assert specs[0].engine.snapshot_state()["slot_of_key"] == {}
     with pytest.raises(wt.WindFlowError, match="not yet ported"):
-        specs[0].engine.snapshot_state(delta_ctx=object())
+        specs[0].engine.snapshot_state(delta=True)
 
 
 def test_fused_snapshot_names_the_chain(monkeypatch):
@@ -529,9 +533,9 @@ def test_fused_snapshot_names_the_chain(monkeypatch):
     g2.run()
     frep = g2._stages[1].first_op.replicas[0]
     st = frep.snapshot_state()
-    assert st["__fused__"] == ["m", "w"] and st["K_cap"] >= 1
+    assert st["__fused__"] == ["m", "w"] and st["ffat"]["K_cap"] >= 1
     assert frep._chain_tag() == ("chain", "m")
-    assert st["slot_of_key"] == {0: 0, 1: 1}
+    assert st["ffat"]["slot_of_key"] == {0: 0, 1: 1}
 
 
 @pytest.mark.parametrize("fusion", [True, False])

@@ -38,7 +38,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, verdict, *_ = out.stdout.split()
-    assert int(n) >= 26 and verdict == "OK", out.stdout
+    assert int(n) >= 30 and verdict == "OK", out.stdout
 
 
 _ALONE = r"""
@@ -60,6 +60,22 @@ def test_keyed_state_modules_import_alone_without_jax(mod):
     """The keyed-state plane's host modules (JAX-free copies of the JAX
     package's ``state/`` and ``persistent/``) import on their own, in a
     fresh interpreter, without pulling in jax or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c",
+                          _ALONE.format(root=ROOT, mod=mod)],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "OK", out.stdout
+
+
+@pytest.mark.parametrize("mod", [
+    "windflow_tpu_torch.checkpoint", "windflow_tpu_torch.checkpoint.store",
+    "windflow_tpu_torch.checkpoint.coordinator"])
+def test_checkpoint_modules_import_alone_without_jax(mod):
+    """The checkpoint plane (the port's own copies of the JAX package's
+    JAX-free ``checkpoint/`` modules) imports on its own, in a fresh
+    interpreter, without pulling in jax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c",
                           _ALONE.format(root=ROOT, mod=mod)],

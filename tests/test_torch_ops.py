@@ -503,11 +503,13 @@ def test_refusals_match_jax(case, match):
 
 
 def _delta_snapshot(builder):
-    """The incremental (delta) snapshot of a keyed-state engine: the part
-    of keyed device state that waits for the checkpoint plane."""
+    """The incremental (delta) snapshot of a keyed-state engine, asked for
+    explicitly: the part of keyed device state that waits for the delta
+    plane (under a checkpoint coordinator the engine takes a FULL
+    snapshot, ``test_torch_recovery.py``)."""
     op = builder.with_key_by("key").build()
     op.build_replicas()
-    return op.replicas[0].engine.snapshot_state(delta_ctx=object())
+    return op.replicas[0].engine.snapshot_state(delta=True)
 
 
 @pytest.mark.parametrize("call", [
@@ -518,12 +520,10 @@ def _delta_snapshot(builder):
     lambda: _delta_snapshot(wt.Map_GPU_Builder(lambda r, s: (r, s))
                             .with_state({"n": 0}).with_tiering()),
     lambda: wt.Reduce_GPU_Builder(lambda a, b: a).with_mesh(),
-    lambda: wt.Reduce_GPU_Builder(lambda a, b: a).with_key_by(("a", "b"))
-    .build(),
-    lambda: wt.PipeGraph(device="cpu").add_source(
-        wt.Source_Builder(lambda s: None).build()).split(lambda t: 0, 2),
-], ids=["map_state", "filter_state", "tiering", "mesh", "composite_key",
-        "split"])
+    lambda: wt.PipeGraph(device="cpu").with_supervision(),
+    lambda: wt.PipeGraph(device="cpu").rescale("op", 2),
+], ids=["map_state", "filter_state", "tiering", "mesh", "supervision",
+        "rescale"])
 def test_unported_surfaces_raise(call):
     with pytest.raises(wt.WindFlowError, match="not yet ported"):
         call()

@@ -13,14 +13,18 @@ joined by ``MultiPipe.chain`` fuse into one replica per slot
 fusion (default on) and the megabatch width (default 1, off). A keyed
 ``Map_GPU`` / ``Filter_GPU`` built ``with_state`` keeps per-key state in a
 device table (``gpu/ops_gpu.py``), and ``with_tiering`` puts a host cold
-tier behind it (``state/``, ``TierConfig``).
+tier behind it (``state/``, ``TierConfig``). ``MultiPipe.split`` /
+``select`` / ``merge`` build branching graphs (a device split routes whole
+device batches), ``with_key_by`` takes a tuple of fields for a composite
+key, and ``PipeGraph.with_checkpointing`` / ``run(restore_from=...)`` take
+aligned-barrier checkpoints and restore from them (``checkpoint/``).
 
 ``PipeGraph(..., device=None)`` runs on ``cuda`` and raises without a card;
 pass ``device="cpu"`` for the plain PyTorch path.
 """
 
-from .basic import (ExecutionMode, KeyCapacityError, OpType, RoutingMode,
-                    TimePolicy, WinType, WindFlowError)
+from .basic import (CorruptCheckpointError, ExecutionMode, KeyCapacityError,
+                    OpType, RoutingMode, TimePolicy, WinType, WindFlowError)
 from .builders import (Columnar_Source_Builder, Filter_Builder,
                        FlatMap_Builder, Map_Builder, Reduce_Builder,
                        Sink_Builder, Source_Builder)
@@ -35,7 +39,7 @@ from .topology.multipipe import MultiPipe
 from .topology.pipegraph import PipeGraph
 
 __all__ = [
-    "Columnar_Source_Builder", "ExecutionMode",
+    "Columnar_Source_Builder", "CorruptCheckpointError", "ExecutionMode",
     "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder", "Filter_Builder",
     "Filter_GPU", "Filter_GPU_Builder", "FlatMap_Builder",
     "KeyCapacityError", "LocalStorage", "Map_Builder", "Map_GPU",

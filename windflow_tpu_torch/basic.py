@@ -3,8 +3,9 @@
 A trimmed copy of ``windflow_tpu/basic.py`` (the port imports nothing of
 the JAX package): the enums mirror ``wf/basic.hpp:78-93``, the watermark
 cadence mirrors ``wf/basic.hpp:199-216`` and the channel capacity
-FastFlow's ``DEFAULT_BUFFER_CAPACITY``. Composite (multi-field) key
-extractors are not part of the port yet and raise.
+FastFlow's ``DEFAULT_BUFFER_CAPACITY``. A key extractor is a callable, a
+field name, or a tuple of field names (a composite key, extracted as a
+tuple on the row path and routed as stacked columns on the device plane).
 """
 
 from __future__ import annotations
@@ -92,7 +93,9 @@ class KeyCapacityError(WindFlowError):
 
 class CorruptCheckpointError(WindFlowError):
     """Saved state failed content verification: a digest recorded with it
-    does not match its bytes (a tier blob's cold image or hot table)."""
+    does not match its bytes (a checkpoint blob against its manifest, a
+    tier blob's cold image or hot table), a manifested blob is missing, or
+    a manifest or blob cannot be decoded. The message names the bad file."""
 
 
 class WorkerFailuresError(WindFlowError):
@@ -108,7 +111,8 @@ class WorkerFailuresError(WindFlowError):
 
 def as_key_fn(key):
     """Normalize a key extractor: callables pass through; a string names a
-    tuple field (dataclass attribute or dict key)."""
+    tuple field (dataclass attribute or dict key); a tuple of strings
+    names the fields of a composite key, extracted as a tuple."""
     if key is None or callable(key):
         return key
     if isinstance(key, str):
@@ -117,12 +121,34 @@ def as_key_fn(key):
                 return payload[_name]
             return getattr(payload, _name)
         return field_key
-    if isinstance(key, (tuple, list)):
-        raise WindFlowError("composite (multi-field) keys are not yet "
-                            "ported to windflow_tpu_torch")
+    names = key_fields_names(key)
+    if names is not None:
+        def fields_key(payload, _names=names):
+            if isinstance(payload, dict):
+                return tuple(payload[f] for f in _names)
+            return tuple(getattr(payload, f) for f in _names)
+        return fields_key
     raise WindFlowError(f"invalid key extractor: {key!r}")
 
 
 def key_field_name(key):
     """The device column name of a key extractor, or None for callables."""
     return key if isinstance(key, str) else None
+
+
+def key_fields_names(key):
+    """The device column names of a COMPOSITE key extractor (a tuple or
+    list of field names, e.g. ``("campaign", "ad")``), or None. On the
+    row path the key is a tuple; the device plane routes it as stacked
+    columns (a structured numpy column) with no per-row Python. A name
+    given twice is refused here, at ``with_key_by()``/build time: the
+    columnar path would otherwise fail mid-stream building the structured
+    dtype."""
+    if isinstance(key, (tuple, list)) and key \
+            and all(isinstance(f, str) for f in key):
+        names = tuple(key)
+        if len(set(names)) != len(names):
+            raise WindFlowError(
+                f"composite key repeats a field name: {names}")
+        return names
+    return None

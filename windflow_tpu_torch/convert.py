@@ -13,6 +13,11 @@ for this system.
   ``_KeyedStateScan.restore_state`` installs, the table as tensors on
   ``device``. ``fused_state_from_jax`` does it per sub-op for a fused
   chain's replica state.
+- ``checkpoint_states_from_jax(states, device)`` takes what the JAX
+  package's ``CheckpointStore.load_states`` returns for one committed
+  checkpoint (``{(op name, replica): state}``) and returns the port's
+  replica states, which ``PipeGraph.run(restore_from=states)`` installs in
+  a graph of the same topology.
 
 Both replicas then continue identically. This module takes the dicts
 only: it imports neither ``jax`` nor ``windflow_tpu``.
@@ -98,4 +103,29 @@ def fused_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
     out["fused_sub_states"] = [
         None if sub is None else scan_state_from_jax(sub, device)
         for sub in snap.get("fused_sub_states") or []]
+    return out
+
+
+def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
+                               device) -> Dict[Any, Dict[str, Any]]:
+    """The replica states of one JAX checkpoint for the port: a fused
+    chain's through ``fused_state_from_jax``, an FFAT window's ``"ffat"``
+    through ``ffat_state_from_jax``, a stateful Map/Filter's ``"scan"``
+    through ``scan_state_from_jax``; source positions, watermarks, host
+    operator state and the emitter and collector entries pass through (the
+    two packages share their layout). A delta state is refused."""
+    out = {}
+    for key, state in states.items():
+        if "__state_delta__" in state:
+            raise WindFlowError(f"checkpoint_states_from_jax: {key} holds "
+                                "a delta state; delta checkpoints are not "
+                                "supported")
+        st = dict(state)
+        if "fused_sub_states" in st:
+            st = fused_state_from_jax(st, device)
+        if st.get("ffat") is not None:
+            st["ffat"] = ffat_state_from_jax(st["ffat"], device)
+        if st.get("scan") is not None:
+            st["scan"] = scan_state_from_jax(st["scan"], device)
+        out[key] = st
     return out

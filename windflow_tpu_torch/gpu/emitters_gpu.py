@@ -2,8 +2,7 @@
 ``wf/keyby_emitter_gpu.hpp`` / ``wf/broadcast_emitter_gpu.hpp``, template
 cases <inputGPU, outputGPU>).
 
-The port of ``windflow_tpu/tpu/emitters_tpu.py`` (without the splitting
-emitter):
+The port of ``windflow_tpu/tpu/emitters_tpu.py``:
 
 - ``GPUStageEmitter`` (CPU -> device): rows or column blocks accumulate in
   page-locked staging tensors (plain host tensors for ``device="cpu"``)
@@ -26,6 +25,20 @@ emitter):
   asynchronous copies into pinned memory and enters a FIFO; it is
   delivered when later batches push it out, at punctuation/flush/EOS, or
   on the worker's idle tick.
+- ``GPUSplittingEmitter`` (``MultiPipe.split`` after a device operator):
+  the branch of each row is decided on the host — from ONE column read
+  back when the split logic names a field, else from the rows — and each
+  branch gets a device gather of its rows through its own edge emitter.
+
+A composite key (``with_key_by(("a", "b"))``) travels as a structured
+host column: the staging edge stacks the key fields of each block
+(``routing._stack_key_fields``), and a keyed re-shard of a batch without
+host keys reads the key field columns back
+(``composite_keys_from_device``).
+
+Barriers: every emitter that holds batches in a D2H pipeline delivers
+them before a checkpoint barrier goes out (``send_barrier_all``), so no
+pre-barrier row lands behind the barrier.
 """
 
 from __future__ import annotations
@@ -38,10 +51,11 @@ import numpy as np
 import torch
 
 from ..basic import ExecutionMode, WindFlowError
-from ..runtime.emitters import BasicEmitter
+from ..runtime.emitters import (BasicEmitter, SplittingEmitter,
+                                check_branch_index)
 from .batch import (BatchGPU, bucket_capacity, host_buffer, key_column_np,
                     to_device)
-from .routing import _dest_of_key, key_dests
+from .routing import _dest_of_key, _stack_key_fields, key_dests
 from .schema import TupleSchema
 
 # a partial staging batch older than this ships on the next append or tick
@@ -50,6 +64,7 @@ MAX_STAGING_MS = 25.0
 # the age that forces delivery
 EXIT_PIPELINE_DEPTH = 4
 KEYBY_PIPELINE_DEPTH = 2
+SPLIT_PIPELINE_DEPTH = 2
 PIPELINE_MAX_AGE_MS = 100.0
 
 
@@ -62,11 +77,13 @@ class GPUStageEmitter(BasicEmitter):
                  schema: Optional[TupleSchema],
                  key_extractor: Optional[Callable],
                  routing: str, execution_mode: ExecutionMode,
-                 key_field: Optional[str], device: torch.device) -> None:
+                 key_field: Optional[str], device: torch.device,
+                 key_fields: Optional[Tuple[str, ...]] = None) -> None:
         super().__init__(num_dests, output_batch_size, execution_mode)
         self.schema = schema
         self.key_extractor = key_extractor
-        self.key_field = key_field
+        self.key_field = key_field  # string extractor: the key column
+        self.key_fields = key_fields  # composite: stacked key columns
         self.routing = routing
         self.device = device
         n_bufs = num_dests if routing == "keyby" else 1
@@ -171,8 +188,19 @@ class GPUStageEmitter(BasicEmitter):
             self._ship(buf)
 
     # -- columnar path -------------------------------------------------------
+    def _key_column(self, cols, n: int) -> Optional[np.ndarray]:
+        """The block's key column: the key field (copied: the caller may
+        reuse its arrays), the stacked fields of a composite key, or None
+        without a field-name extractor."""
+        if self.key_field is not None:
+            return np.array(cols[self.key_field])
+        if self.key_fields is not None:
+            return _stack_key_fields(cols, self.key_fields, n)
+        return None
+
     def emit_columns(self, cols, ts_arr, wm: int) -> None:
-        if self.routing == "keyby" and self.key_field is None:
+        if self.routing == "keyby" and self.key_field is None \
+                and self.key_fields is None:
             # a callable key extractor has no column to route by
             return super().emit_columns(cols, ts_arr, wm)
         n = len(ts_arr)
@@ -182,9 +210,9 @@ class GPUStageEmitter(BasicEmitter):
             self.schema = TupleSchema(
                 {k: np.asarray(v).dtype for k, v in cols.items()})
         if self.routing == "keyby":
-            kcol = np.asarray(cols[self.key_field])
+            kcol = self._key_column(cols, n)
             if self.num_dests == 1:
-                self._append_part(0, cols, ts_arr, np.array(kcol), wm)
+                self._append_part(0, cols, ts_arr, kcol, wm)
             else:
                 dests = key_dests(kcol, n, self.num_dests)
                 order = np.argsort(dests, kind="stable")
@@ -201,9 +229,8 @@ class GPUStageEmitter(BasicEmitter):
                             sts[sl], skeys[sl], wm)
                     off += c
         else:
-            keys = (np.array(cols[self.key_field])
-                    if self.key_field is not None else None)
-            self._append_part(0, cols, ts_arr, keys, wm)
+            self._append_part(0, cols, ts_arr, self._key_column(cols, n),
+                              wm)
         self._ship_aged()
         self._emit_count += max(0, n - 1)  # punctuation cadence is per tuple
         self._maybe_generate_punctuation(wm)
@@ -404,8 +431,18 @@ class GPUExitEmitter(BasicEmitter, _D2HPipeline):
         self._drain()
         self.inner.send_eos_all()
 
+    def send_barrier_all(self, barrier) -> None:
+        self._drain()  # pre-barrier rows go out ahead of the barrier
+        self.inner.send_barrier_all(barrier)
+
     def eos_ports(self):
         return self.inner.eos_ports()
+
+    def emitter_state(self) -> dict:
+        return self.inner.emitter_state()
+
+    def restore_emitter_state(self, state: dict) -> None:
+        self.inner.restore_emitter_state(state)
 
 
 def gather_sub_batch(batch: BatchGPU, idx: np.ndarray,
@@ -413,11 +450,16 @@ def gather_sub_batch(batch: BatchGPU, idx: np.ndarray,
     """The ``idx`` rows of a device batch as a new device batch, gathered
     on the device: one gather per column from a host-built index vector
     (shipped from its own fresh pinned buffer, so a later batch never
-    overwrites an index still in flight)."""
+    overwrites an index still in flight). Shared by the keyed re-shard
+    and the splitting emitter; host keys follow the rows."""
     cap = bucket_capacity(idx.size)
     gather = np.zeros(cap, dtype=np.int32)
     gather[:idx.size] = idx
     gidx = to_device(gather, batch.device)
+    if host_keys is None and batch.host_keys is not None:
+        hk = batch.host_keys
+        host_keys = (hk[idx] if isinstance(hk, np.ndarray)
+                     else [hk[j] for j in idx])
     sub = BatchGPU({k: v[gidx] for k, v in batch.fields.items()},
                    batch.ts_host[gather], idx.size, batch.schema, batch.wm,
                    host_keys)
@@ -436,9 +478,11 @@ class GPUKeyByEmitter(BasicEmitter, _D2HPipeline):
 
     def __init__(self, num_dests: int,
                  execution_mode: ExecutionMode = ExecutionMode.DEFAULT,
-                 key_field: Optional[str] = None) -> None:
+                 key_field: Optional[str] = None,
+                 key_fields: Optional[Tuple[str, ...]] = None) -> None:
         super().__init__(num_dests, 0, execution_mode)
         self.key_field = key_field
+        self.key_fields = key_fields
         self._pipe_init(depth=KEYBY_PIPELINE_DEPTH)
 
     def _keys_of(self, batch: BatchGPU):
@@ -446,9 +490,12 @@ class GPUKeyByEmitter(BasicEmitter, _D2HPipeline):
             return batch.host_keys
         if self.key_field is not None:
             return key_column_np(batch, self.key_field)
+        if self.key_fields:
+            return composite_keys_from_device(batch, self.key_fields)
         raise WindFlowError(
             "a keyed device -> device edge needs host key metadata or a "
-            "field-name key extractor (with_key_by('field'))")
+            "field-name key extractor (with_key_by('field') or a tuple of "
+            "fields)")
 
     def emit_device_batch(self, batch: BatchGPU) -> None:
         if self.num_dests == 1:
@@ -460,8 +507,11 @@ class GPUKeyByEmitter(BasicEmitter, _D2HPipeline):
                 self.stats.outputs_sent += batch.size
             self.ports[0].send(batch)
             return
-        if batch.host_keys is None and self.key_field is not None:
-            _prefetch_key(batch, self.key_field)
+        if batch.host_keys is None and (self.key_field is not None
+                                        or self.key_fields):
+            for f in ((self.key_field,) if self.key_field is not None
+                      else self.key_fields):
+                _prefetch_key(batch, f)
             self._pipe_add(batch)
             return
         self._drain()  # keep stream order ahead of an immediate route
@@ -488,3 +538,119 @@ class GPUKeyByEmitter(BasicEmitter, _D2HPipeline):
             if self.stats is not None:
                 self.stats.outputs_sent += sub.size
             self.ports[d].send(sub)
+
+
+def composite_keys_from_device(batch: BatchGPU, key_fields) -> np.ndarray:
+    """Structured key column for a composite-keyed consumer fed WITHOUT
+    host key metadata (an unkeyed device edge upstream): read the key
+    field columns back and stack them. The fields must be device columns —
+    non-numeric composite members only travel as host metadata from a
+    keyed staging edge."""
+    for f in key_fields:
+        if f not in batch.fields:
+            raise WindFlowError(
+                f"composite key field {f!r} is not a device column of "
+                "this batch; non-numeric composite keys must be keyed at "
+                "the staging edge (with_key_by on the operator fed by the "
+                "CPU plane), which carries them as host metadata")
+    cols = batch.host_columns(tuple(key_fields))
+    return _stack_key_fields(cols, key_fields, batch.size)
+
+
+class GPUSplittingEmitter(SplittingEmitter, _D2HPipeline):
+    """Device-plane split (reference ``wf/splitting_emitter_gpu.hpp:48-341``,
+    wired at ``wf/multipipe.hpp:698-708``): per-branch sub-batches after a
+    device operator. Only the routing decision touches the host; each
+    branch receives a device gather of its rows (the keyed re-shard's
+    ``gather_sub_batch``) through its own edge emitter.
+
+    ``splitting_logic`` forms:
+
+    - a string field name: that int column holds each row's branch index
+      (one column read back, no per-tuple Python); an index outside
+      ``[0, n_branches)`` raises;
+    - a callable ``payload -> int | iterable[int] | None``: the rows are
+      materialized once per batch to evaluate it.
+
+    The read-back is pipelined (``_D2HPipeline``, depth
+    ``SPLIT_PIPELINE_DEPTH``); every ordering point — punctuation, flush,
+    EOS, a checkpoint barrier — routes what is in flight first, then fans
+    out to the branches as the host ``SplittingEmitter`` does."""
+
+    def __init__(self, splitting_logic, inner_emitters: List[BasicEmitter],
+                 execution_mode: ExecutionMode = ExecutionMode.DEFAULT
+                 ) -> None:
+        super().__init__(splitting_logic, inner_emitters, execution_mode)
+        self._pipe_init(depth=SPLIT_PIPELINE_DEPTH)
+
+    def _branch_rows(self, batch: BatchGPU) -> List[np.ndarray]:
+        """Row indices per branch (the host-side routing decision)."""
+        n_branches = len(self.inner)
+        logic = self.splitting_logic
+        if isinstance(logic, str):
+            col = batch.host_columns((logic,))[logic][:batch.size]
+            if self.stats is not None:
+                self.stats.device_bytes_d2h += int(col.nbytes)
+            if col.size and (col.min() < 0 or col.max() >= n_branches):
+                raise WindFlowError(
+                    f"split field {logic!r} holds branch index "
+                    f"{int(col.min())}..{int(col.max())} outside "
+                    f"[0, {n_branches})")
+            return [np.flatnonzero(col == b) for b in range(n_branches)]
+        sel: List[list] = [[] for _ in range(n_branches)]
+        if self.stats is not None:
+            self.stats.device_bytes_d2h += batch.nbytes()
+        for i, (payload, _ts) in enumerate(batch.to_rows()):
+            s = logic(payload)
+            if s is None:
+                continue
+            if isinstance(s, int):
+                sel[check_branch_index(s, n_branches)].append(i)
+            else:
+                for b in s:
+                    sel[check_branch_index(b, n_branches)].append(i)
+        return [np.asarray(ix, dtype=np.int64) for ix in sel]
+
+    def _pipe_process(self, batch: BatchGPU) -> None:
+        for b, idx in enumerate(self._branch_rows(batch)):
+            if idx.size == 0:
+                continue
+            if idx.size == batch.size:
+                # every row selected this branch: no gather (nothing
+                # writes a sent batch's columns; copy the wrapper only)
+                sub = batch.copy_for_dest()
+            else:
+                sub = gather_sub_batch(batch, idx)
+            self.inner[b].emit_device_batch(sub)
+
+    def emit_device_batch(self, batch: BatchGPU) -> None:
+        logic = self.splitting_logic
+        batch.prefetch_host((logic,) if isinstance(logic, str) else None)
+        self._pipe_add(batch)
+
+    def on_idle(self) -> bool:
+        # our routing FIFO first, then the branch emitters' own FIFOs (a
+        # device -> host branch nests an exit emitter the worker can't see)
+        did = bool(self._pending)
+        self._drain()
+        for e in self.inner:
+            f = getattr(e, "on_idle", None)
+            if f is not None:
+                did = bool(f()) or did
+        return did
+
+    def propagate_punctuation(self, wm: int) -> None:
+        self._drain()
+        super().propagate_punctuation(wm)
+
+    def flush(self) -> None:
+        self._drain()
+        super().flush()
+
+    def send_eos_all(self) -> None:
+        self._drain()
+        super().send_eos_all()
+
+    def send_barrier_all(self, barrier) -> None:
+        self._drain()
+        super().send_barrier_all(barrier)

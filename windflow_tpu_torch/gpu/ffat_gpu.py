@@ -789,11 +789,24 @@ class FfatGPUReplica(GPUReplicaBase):
 
     # ------------------------------------------------------------------
     # state: the key map, the per-slot host bookkeeping and the forest.
-    # ``snapshot_state`` has the layout of the JAX replica's
-    # ``snapshot_state()["ffat"]``; ``load_state`` installs such a dict
-    # (``convert.ffat_state_from_jax`` prepares one from the JAX package)
+    # ``snapshot_state`` has the JAX replica's layout, ``{"cur_wm", ...,
+    # "ffat": {...}}`` with the forest as host numpy; ``restore_state``
+    # installs it. ``load_state`` installs the inner ``"ffat"`` dict
+    # (``convert.ffat_state_from_jax`` prepares one from the JAX package).
+    # The rebuild flag (``rebuild_dirty``) travels in the blob, so a
+    # restored forest is rebuilt before its first query.
     def snapshot_state(self) -> dict:
-        self.dispatch.drain(forced=True)
+        st = super().snapshot_state()  # drains the dispatch queue
+        st["ffat"] = self._ffat_state()
+        return st
+
+    def restore_state(self, state: dict) -> None:
+        super().restore_state(state)
+        d = state.get("ffat")
+        if d is not None:
+            self.load_state(d)
+
+    def _ffat_state(self) -> dict:
         return {
             "slot_of_key": dict(self.slot_of_key),
             "out_keys_by_slot": list(self._out_keys_by_slot),

@@ -76,6 +76,25 @@ def _adopt_chain(replica, ops) -> None:
     replica.stats.fused_ops = len(ops)
 
 
+def _check_fused_blob(replica, state: dict) -> None:
+    """Refuse a blob taken from a differently fused topology: standalone
+    state, or another chain's signature."""
+    sig = state.get("__fused__")
+    if sig is None:
+        raise WindFlowError(
+            f"restore: this graph fuses {replica.fused_name!r} into one "
+            f"device chain, but the checkpoint blob for "
+            f"{replica.op.name!r} holds standalone state — the "
+            "checkpointed topology was fused differently (match "
+            "PipeGraph(fusion=...) / the chain() calls of the original "
+            "graph)")
+    if list(sig) != replica.fused_signature:
+        raise WindFlowError(
+            "restore: fused-chain mismatch — the checkpoint holds "
+            f"{'∘'.join(sig)!r}, this graph builds "
+            f"{replica.fused_name!r}")
+
+
 class _SubSpec:
     """One sub-operator's contribution to the fused chain: a stateless
     kernel, a stateful grid-scan engine, or a terminal reduce."""
@@ -297,20 +316,7 @@ class FusedGPUReplica(GPUReplicaBase):
         return st
 
     def restore_state(self, state: dict) -> None:
-        sig = state.get("__fused__")
-        if sig is None:
-            raise WindFlowError(
-                f"restore: this graph fuses {self.fused_name!r} into one "
-                f"device chain, but the checkpoint blob for "
-                f"{self.op.name!r} holds standalone state — the "
-                "checkpointed topology was fused differently (match "
-                "PipeGraph(fusion=...) / the chain() calls of the original "
-                "graph)")
-        if list(sig) != self.fused_signature:
-            raise WindFlowError(
-                "restore: fused-chain mismatch — the checkpoint holds "
-                f"{'∘'.join(sig)!r}, this graph builds "
-                f"{self.fused_name!r}")
+        _check_fused_blob(self, state)
         super().restore_state(state)
         subs = state.get("fused_sub_states")
         if subs is None or len(subs) != len(self.specs):
@@ -413,6 +419,12 @@ class FusedFfatReplica(FfatGPUReplica):
         st = super().snapshot_state()  # drains the dispatch queue
         st["__fused__"] = self.fused_signature
         return st
+
+    def restore_state(self, state: dict) -> None:
+        _check_fused_blob(self, state)
+        st = dict(state)
+        st.pop("__fused__", None)
+        super().restore_state(st)
 
 
 def make_fused_replica(ops, idx: int):

@@ -67,7 +67,7 @@ from ..state.tiered import TieredKeyStore, hot_table_digest
 from .batch import (BatchGPU, bucket_capacity, host_copies,
                     key_column_np, key_column_to_list, to_device)
 from .keymap import (KeySlotMap, distinct_batch_keys, group_positions,
-                     stable_group_argsort)
+                     stable_group_argsort, structured_unique)
 from .scan import segmented_scan
 from .schema import TupleSchema, canonical, numpy_dtype
 
@@ -78,9 +78,13 @@ from .schema import TupleSchema, canonical, numpy_dtype
 def op_batch_keys(op, batch: BatchGPU):
     """Per-batch keys for ``op``: the host metadata when the staging edge
     attached it, else the device key column named by a string key
-    extractor, read back to the host."""
+    extractor (or the stacked columns of a composite key), read back to
+    the host."""
     keys = batch.host_keys
     if keys is None:
+        if op.key_fields:
+            from .emitters_gpu import composite_keys_from_device
+            return composite_keys_from_device(batch, op.key_fields)
         if op.key_field is None or op.key_field not in batch.fields:
             raise WindFlowError(
                 f"{op.name}: keyed device operator needs keyed staging "
@@ -117,6 +121,19 @@ def op_batch_slots_np(op, batch: BatchGPU):
         slots = np.full(batch.capacity, len(uniq), dtype=np.int32)
         slots[:n] = inv
         return slots, {int(k): i for i, k in enumerate(uniq)}
+    if n and keys_arr.ndim == 1 and keys_arr.dtype.kind == "V" \
+            and keys_arr.dtype.names:
+        # structured composite keys: one unique per batch, the slot map
+        # keyed by plain tuples (the shared dedup of keymap.py; None: an
+        # object field, the row loop below)
+        uu = structured_unique(keys_arr, n)
+        if uu is None:
+            keys = keys_arr[:n].tolist()
+        else:
+            uniq, inv = uu
+            slots = np.full(batch.capacity, len(uniq), dtype=np.int32)
+            slots[:n] = inv
+            return slots, {k.item(): i for i, k in enumerate(uniq)}
     slot_of_key: Dict[Any, int] = {}
     slots = np.zeros(batch.capacity, dtype=np.int32)
     for i, k in enumerate(keys):
@@ -826,11 +843,12 @@ class _KeyedStateScan:
         return (None if self.table is None else
                 tree_map(lambda t: t[:cap].cpu().numpy().copy(), self.table))
 
-    def snapshot_state(self, delta_ctx=None) -> dict:
-        """A FULL snapshot (the only kind without a checkpoint plane). The
-        JAX package takes a DELTA of the dirty rows when its checkpoint
-        coordinator asks for one; that branch is not ported yet."""
-        if delta_ctx is not None:
+    def snapshot_state(self, delta: bool = False) -> dict:
+        """A FULL snapshot, under a checkpoint coordinator too. The JAX
+        package ships a DELTA of the dirty rows when its coordinator
+        allows one; asking for that (``delta=True``) raises, as it is not
+        ported yet."""
+        if delta:
             raise WindFlowError(f"{self.op.name}: incremental (delta) "
                                 "snapshots are not yet ported to "
                                 "windflow_tpu_torch")

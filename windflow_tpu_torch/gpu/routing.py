@@ -1,11 +1,14 @@
 """Keyby routing of the device plane: the destination of a key, per row
 and vectorized over a key column, with one answer for both forms.
 
-Copy of the key-routing helpers of ``windflow_tpu/tpu/emitters_tpu.py``
-(composite multi-field keys are not ported). Every keyed edge into or
-between device operators routes with these: the CPU -> device staging
-emitter (rows and column blocks) and the device -> device re-shard, so a
-key reaches the same replica whichever way its tuples travel.
+Copy of the key-routing helpers of ``windflow_tpu/tpu/emitters_tpu.py``,
+composite (multi-field) keys included: a composite key is a tuple on the
+row path and a structured numpy column (``_stack_key_fields``) on the
+column path, and both hash by the same ordered FNV fold over the fields.
+Every keyed edge into or between device operators routes with these: the
+CPU -> device staging emitter (rows and column blocks) and the device ->
+device re-shard, so a key reaches the same replica whichever way its
+tuples travel.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from itertools import islice
 from typing import Optional, Sequence, Union
 
 import numpy as np
+
+from ..basic import WindFlowError
 
 _HASH_MODULUS = (1 << 61) - 1  # CPython hash(n) == n iff 0 <= n < 2^61-1
 _FNV_OFFSET = 0xcbf29ce484222325
@@ -148,6 +153,27 @@ def _vector_key_dests(kcol: np.ndarray, n: int,
     return (h % np.uint64(num_dests)).astype(np.int64)
 
 
+def _stack_key_fields(cols, key_fields, n: int,
+                      where: str = "push_columns (keyby staging edge)"):
+    """Structured key column for a composite key: its rows (``.item()``)
+    are the same tuples the per-row path extracts, so downstream slot maps
+    unify both forms of one key. A key field missing from the columns
+    raises a ``WindFlowError`` naming it."""
+    missing = [f for f in key_fields if f not in cols]
+    if missing:
+        raise WindFlowError(
+            f"{where}: composite key field(s) "
+            f"{', '.join(repr(f) for f in missing)} missing from the "
+            f"pushed columns (have: {sorted(map(str, cols))}); every "
+            "field of a composite key must be present as a column")
+    fcols = [np.asarray(cols[f])[:n] for f in key_fields]
+    kcol = np.empty(n, np.dtype(
+        [(f, c.dtype) for f, c in zip(key_fields, fcols)]))
+    for f, c in zip(key_fields, fcols):
+        kcol[f] = c
+    return kcol
+
+
 def _scalar_fnv(lanes) -> int:
     """Scalar twin of the 'S'/'U' branch of ``_column_hashes`` (zero
     lanes skipped): per-row str/bytes keys must route identically to
@@ -237,8 +263,9 @@ def _int_keys_hashable_as_identity(kcol: np.ndarray, n: int) -> bool:
 def key_dests(keys: Union[np.ndarray, Sequence], n: int,
               num_dests: int) -> np.ndarray:
     """Destinations of the first ``n`` keys: ``key % num_dests`` for
-    non-negative int columns, the FNV fold for str/bytes columns, per row
-    (``_dest_of_key``) for everything else."""
+    non-negative int columns, the FNV fold for str/bytes and structured
+    (composite-key) columns, per row (``_dest_of_key``) for everything
+    else."""
     if isinstance(keys, np.ndarray):
         if _int_keys_hashable_as_identity(keys[:n], n):
             return keys[:n].astype(np.int64) % num_dests

@@ -1,7 +1,6 @@
 """Stream messages: Single (one tuple) and Batch (micro-batch of tuples).
 
-Copy of ``windflow_tpu/message.py`` without the checkpoint barrier and the
-latency-tracing stamps. ``Single`` mirrors ``wf/single_t.hpp:50-197``;
+Copy of ``windflow_tpu/message.py`` without the latency-tracing stamps. ``Single`` mirrors ``wf/single_t.hpp:50-197``;
 ``Batch`` mirrors ``wf/batch_cpu_t.hpp:51-221`` (watermark = min over its
 constituents). Device batches live in ``windflow_tpu_torch.gpu.batch``
 and share the same metadata protocol.
@@ -85,6 +84,33 @@ class Batch(StreamMsg):
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return f"<Batch n={len(self.rows)} wm={self.wm}>"
+
+
+class Barrier(StreamMsg):
+    """Aligned-checkpoint barrier (a Chandy-Lamport marker, Flink-style).
+
+    Injected by a source replica when the ``CheckpointCoordinator`` opens
+    an epoch, and forwarded one per producer -> consumer edge (like EOS,
+    unlike punctuations it is never merged or reordered): every tuple sent
+    before the barrier on a channel belongs to checkpoint ``ckpt_id``,
+    every tuple after it does not. A worker with several input channels
+    aligns the barriers (``runtime/collectors.py:BarrierAligner``) before
+    it snapshots; barriers never reach collectors or replicas."""
+
+    __slots__ = ("ckpt_id", "stream_tag")
+
+    def __init__(self, ckpt_id: int, stream_tag: int = 0) -> None:
+        self.ckpt_id = ckpt_id
+        self.stream_tag = stream_tag
+
+    def min_watermark(self) -> int:
+        return 0
+
+    def copy_for_dest(self) -> "Barrier":
+        return Barrier(self.ckpt_id, self.stream_tag)
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"<Barrier ckpt={self.ckpt_id}>"
 
 
 class EOS:

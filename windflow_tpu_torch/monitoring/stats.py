@@ -4,8 +4,8 @@ Trimmed copy of ``windflow_tpu/monitoring/stats.py``: the counters the
 replicas of the ported slice write (tuples in/out, ignored tuples, the
 device-plane traffic and program counts, the dispatch-pipeline split, the
 watermark gauges, the unified late-record accounting, the fused-chain
-and megabatch counters, and the tier plane's ``Tier_*`` counters and
-gauges). On top of those,
+and megabatch counters, the tier plane's ``Tier_*`` counters and gauges,
+and the aligned checkpoints' ``Checkpoint_*`` counters). On top of those,
 ``rebuild_kernel_launches`` counts the launches of the hand-written
 FlatFAT forest-rebuild kernel on this replica's forest, so a run can show
 that the main path went through it.
@@ -14,7 +14,7 @@ that the main path went through it.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 _EWMA_ALPHA = 0.1
 
@@ -34,6 +34,13 @@ class StatsRecord:
         "ingest_blocks", "ingest_rows",
         "wm_current", "wm_advances", "wm_max_source_ts",
         "late_records", "late_dropped",
+        # aligned checkpoints (runtime/worker.py:checkpoint_now): snapshots
+        # taken by this worker chain, capture time, blob bytes, barrier
+        # alignment stall and the barrier cut pause (capture + ack)
+        "checkpoints_taken", "checkpoint_snapshot_total_us",
+        "checkpoint_last_snapshot_us", "checkpoint_bytes_total",
+        "checkpoint_align_total_us", "checkpoint_cut_total_us",
+        "checkpoint_last_cut_us",
         # tiered keyed state (state/tiered.py): hot/cold key gauges, the
         # batched promote/demote counters with promote time, and the
         # lookup/miss counters behind Tier_miss_rate. tier_enabled marks
@@ -83,6 +90,13 @@ class StatsRecord:
         self.wm_max_source_ts = 0
         self.late_records = 0
         self.late_dropped = 0
+        self.checkpoints_taken = 0
+        self.checkpoint_snapshot_total_us = 0.0
+        self.checkpoint_last_snapshot_us = 0.0
+        self.checkpoint_bytes_total = 0
+        self.checkpoint_align_total_us = 0.0
+        self.checkpoint_cut_total_us = 0.0
+        self.checkpoint_last_cut_us = 0.0
         self.tier_enabled = False
         self.tier_hot_keys = 0
         self.tier_cold_keys = 0
@@ -154,6 +168,23 @@ class StatsRecord:
     def note_ingest_block(self, n_rows: int) -> None:
         self.ingest_blocks += 1
         self.ingest_rows += n_rows
+
+    def note_checkpoint(self, snapshot_us: float, nbytes: int,
+                        align_us: float,
+                        cut_us: Optional[float] = None) -> None:
+        """One aligned snapshot of this replica's worker chain: capture
+        time, blob bytes written, how long barrier alignment stalled the
+        chain (0 for single-input workers), and the barrier cut pause
+        (barrier at the worker -> ack; the capture time when not given)."""
+        if cut_us is None:
+            cut_us = snapshot_us
+        self.checkpoints_taken += 1
+        self.checkpoint_snapshot_total_us += snapshot_us
+        self.checkpoint_last_snapshot_us = snapshot_us
+        self.checkpoint_bytes_total += nbytes
+        self.checkpoint_align_total_us += align_us
+        self.checkpoint_cut_total_us += cut_us
+        self.checkpoint_last_cut_us = cut_us
 
     def note_late(self, n_records: int, n_dropped: int = 0) -> None:
         """Late-record accounting: ``n_records`` tuples observed behind the
@@ -231,6 +262,18 @@ class StatsRecord:
             "Late_records": self.late_records,
             "Late_dropped": self.late_dropped,
             "Late_admitted": max(0, self.late_records - self.late_dropped),
+            "Checkpoint_snapshots": self.checkpoints_taken,
+            "Checkpoint_snapshot_usec_total": round(
+                self.checkpoint_snapshot_total_us, 1),
+            "Checkpoint_last_snapshot_usec": round(
+                self.checkpoint_last_snapshot_us, 1),
+            "Checkpoint_bytes_total": self.checkpoint_bytes_total,
+            "Checkpoint_align_stall_usec_total": round(
+                self.checkpoint_align_total_us, 1),
+            "Checkpoint_cut_pause_usec_total": round(
+                self.checkpoint_cut_total_us, 1),
+            "Checkpoint_cut_pause_usec": round(
+                self.checkpoint_last_cut_us, 1),
             "Queue_depth_max": getattr(ch, "depth_max", 0),
             "Queue_emit_fifo_depth_max": self.pipe_depth_max,
             "Worker_idle_ticks": self.worker_idle_ticks,

@@ -1,7 +1,7 @@
 """Operator and replica base classes.
 
 Trimmed copy of ``windflow_tpu/operators/base.py`` (no error policies, no
-latency tracing, no checkpoint hooks). Parity: ``wf/basic_operator.hpp`` —
+latency tracing). Parity: ``wf/basic_operator.hpp`` —
 an operator is metadata plus a vector of replicas; each replica is one
 chain node with the ``svc()`` hot loop, emitter wiring, punctuation
 handling and stats. Riched vs non-riched functors are told apart by arity.
@@ -16,7 +16,8 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from ..basic import (ExecutionMode, OpType, RoutingMode, TimePolicy,
-                     WindFlowError, as_key_fn, key_field_name)
+                     WindFlowError, as_key_fn, key_field_name,
+                     key_fields_names)
 from ..context import RuntimeContext
 from ..message import Batch
 from ..monitoring.stats import StatsRecord
@@ -57,6 +58,7 @@ class BasicOperator:
         self.parallelism = parallelism
         self.input_routing = input_routing
         self.key_field = key_field_name(key_extractor)
+        self.key_fields = key_fields_names(key_extractor)
         self.key_extractor = as_key_fn(key_extractor)
         self.output_batch_size = output_batch_size
         self.closing_func: Optional[Callable] = None
@@ -137,6 +139,21 @@ class BasicReplica:
 
     def flush_on_termination(self) -> None:
         """Emit pending state at EOS (window operators override)."""
+
+    # -- checkpointing (aligned snapshots, windflow_tpu_torch.checkpoint) ----
+    def snapshot_state(self) -> dict:
+        """This replica's processing state as a picklable dict of Python
+        values and numpy arrays (never tensors: a checkpoint taken on a
+        card restores on the CPU and the other way round). Called on the
+        replica's own worker thread at an aligned barrier; stateful
+        subclasses extend the base dict via ``super()``."""
+        return {"cur_wm": self.cur_wm}
+
+    def restore_state(self, state: dict) -> None:
+        """Inverse of ``snapshot_state``; called after the graph is wired
+        and before any worker starts."""
+        self.cur_wm = state.get("cur_wm", 0)
+        self.stats.wm_current = self.cur_wm
 
     def terminate(self) -> None:
         if self.terminated:

@@ -1,7 +1,7 @@
 """Map / Filter / FlatMap / Reduce / Sink: the host-plane operators.
 
-Copy of ``windflow_tpu/operators/basic_ops.py`` without checkpoint hooks
-and exactly-once sinks (parity: per-tuple semantics, functor variants by
+Copy of ``windflow_tpu/operators/basic_ops.py`` without exactly-once
+sinks (parity: per-tuple semantics, functor variants by
 arity):
 
 - Map: ``wf/map.hpp:57-385``. A functor returning ``None`` is treated as
@@ -163,6 +163,16 @@ class ReduceReplica(BasicReplica):
             state = out
         self.key_state[key] = state
         self.emitter.emit(copy.copy(state), ts, wm)
+
+    # -- checkpointing -------------------------------------------------------
+    def snapshot_state(self) -> dict:
+        st = super().snapshot_state()
+        st["key_state"] = self.key_state
+        return st
+
+    def restore_state(self, state: dict) -> None:
+        super().restore_state(state)
+        self.key_state = dict(state.get("key_state", {}))
 
 
 class Sink(BasicOperator):

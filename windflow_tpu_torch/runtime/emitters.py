@@ -3,8 +3,10 @@
 Trimmed copy of ``windflow_tpu/runtime/emitters.py``: the host-plane
 FORWARD, KEYBY and BROADCAST emitters (``wf/forward_emitter.hpp``,
 ``wf/keyby_emitter.hpp:210-259``, ``wf/broadcast_emitter.hpp``), the
-terminal ``NullEmitter`` and the watermark-punctuation cadence
-(``wf/basic.hpp:199-216``). The device-plane edges live in
+``SplittingEmitter`` of ``MultiPipe.split`` (``wf/splitting_emitter.hpp``),
+the terminal ``NullEmitter``, the watermark-punctuation cadence
+(``wf/basic.hpp:199-216``) and the checkpoint hooks (barrier propagation,
+routing counters in the snapshot). The device-plane edges live in
 ``windflow_tpu_torch.gpu.emitters_gpu``.
 """
 
@@ -13,7 +15,7 @@ from __future__ import annotations
 from typing import Any, Callable, List, Optional, Sequence
 
 from ..basic import (DEFAULT_WM_AMOUNT, DEFAULT_WM_INTERVAL_USEC,
-                     ExecutionMode, current_time_usecs)
+                     ExecutionMode, WindFlowError, current_time_usecs)
 from ..message import Batch, Single, make_punctuation
 from .channel import Port
 
@@ -105,8 +107,35 @@ class BasicEmitter:
         for port in self.ports:
             port.send_eos()
 
+    def send_barrier_all(self, barrier) -> None:
+        """Checkpoint-barrier propagation: flush partial batches FIRST so
+        every already-emitted tuple stays pre-barrier on its channel, then
+        send the barrier on every edge (one per port, like EOS — never
+        batched, never reordered)."""
+        self.flush()
+        for port in self.ports:
+            port.send(barrier.copy_for_dest())
+
     def eos_ports(self) -> Sequence[Port]:
         return self.ports
+
+    # -- checkpointing: the routing counters travel with the replica's blob
+    # (the round-robin cursor keeps FORWARD placement deterministic)
+    def emitter_state(self) -> dict:
+        st = {"next_ids": list(self._next_ids),
+              "emit_count": self._emit_count}
+        rr = getattr(self, "_rr", None)
+        if rr is not None:
+            st["rr"] = rr
+        return st
+
+    def restore_emitter_state(self, state: dict) -> None:
+        ids = state.get("next_ids")
+        if ids is not None and len(ids) == len(self._next_ids):
+            self._next_ids = list(ids)
+        self._emit_count = state.get("emit_count", 0)
+        if "rr" in state and hasattr(self, "_rr"):
+            self._rr = state["rr"]
 
 
 class ForwardEmitter(BasicEmitter):
@@ -206,6 +235,81 @@ class BroadcastEmitter(BasicEmitter):
         if self._batch is not None and self._batch.size > 0:
             self._broadcast_batch(self._batch)
             self._batch = None
+
+
+def check_branch_index(s: int, n_branches: int) -> int:
+    """Shared split-branch validation (host and device planes)."""
+    if not 0 <= s < n_branches:
+        raise WindFlowError(
+            f"splitting logic returned branch index {s} outside "
+            f"[0, {n_branches})")
+    return s
+
+
+class SplittingEmitter(BasicEmitter):
+    """Tree emitter of ``MultiPipe.split``: the user logic maps a tuple to
+    a branch index, an iterable of indices (a copy to each) or None (the
+    tuple is dropped); one inner emitter per branch
+    (``wf/splitting_emitter.hpp:48-341``)."""
+
+    def __init__(self, splitting_logic: Callable[[Any], Any],
+                 inner_emitters: List[BasicEmitter],
+                 execution_mode: ExecutionMode = ExecutionMode.DEFAULT
+                 ) -> None:
+        super().__init__(sum(e.num_dests for e in inner_emitters), 0,
+                         execution_mode)
+        self.splitting_logic = splitting_logic
+        self.inner = inner_emitters
+
+    def set_stats(self, stats) -> None:
+        super().set_stats(stats)
+        for e in self.inner:
+            e.set_stats(stats)
+
+    def set_ports(self, ports: Sequence[Port]) -> None:
+        # ports are laid out branch by branch, in order
+        self.ports = list(ports)
+        off = 0
+        for e in self.inner:
+            e.set_ports(ports[off:off + e.num_dests])
+            off += e.num_dests
+
+    def emit(self, payload: Any, ts: int, wm: int) -> None:
+        sel = self.splitting_logic(payload)
+        if sel is None:
+            return
+        n = len(self.inner)
+        if isinstance(sel, int):
+            self.inner[check_branch_index(sel, n)].emit(payload, ts, wm)
+        else:
+            for s in sel:
+                self.inner[check_branch_index(s, n)].emit(payload, ts, wm)
+
+    def propagate_punctuation(self, wm: int) -> None:
+        for e in self.inner:
+            e.propagate_punctuation(wm)
+
+    def flush(self) -> None:
+        for e in self.inner:
+            e.flush()
+
+    def send_eos_all(self) -> None:
+        for e in self.inner:
+            e.send_eos_all()
+
+    def send_barrier_all(self, barrier) -> None:
+        for e in self.inner:
+            e.send_barrier_all(barrier)
+
+    def eos_ports(self):
+        return [p for e in self.inner for p in e.eos_ports()]
+
+    def emitter_state(self) -> dict:
+        return {"inner": [e.emitter_state() for e in self.inner]}
+
+    def restore_emitter_state(self, state: dict) -> None:
+        for e, st in zip(self.inner, state.get("inner", [])):
+            e.restore_emitter_state(st)
 
 
 class NullEmitter(BasicEmitter):

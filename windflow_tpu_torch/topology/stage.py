@@ -9,34 +9,40 @@ into their predecessor's thread (``wf/multipipe.hpp:537-590``). Device
 operators chain by FUSION: a chained device stage runs as one fused
 replica per slot (``gpu/fused_ops.py``), under the legality rules of
 ``_gpu_fusion_refusal``. Device and host operators never share a stage.
+A stage may end in a split (``split_logic`` and one consumer stage per
+branch, in place of ``downstream``); an edge into a split branch records
+its branch index on the consumer's ``UpstreamEdge``.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional, Union
 
 from ..basic import OpType, RoutingMode
 from ..operators.base import BasicOperator
 
 
 def _keys_compatible(a: BasicOperator, b: BasicOperator) -> bool:
-    """Two keyed device ops partition identically: same key field, or the
-    very same extractor callable. Under equal parallelism the KEYBY
+    """Two keyed device ops partition identically: same key field(s), or
+    the very same extractor callable. Under equal parallelism the KEYBY
     re-shard between them is then the identity, so fusing drops the
     shuffle without changing which replica owns a key. Names only: a
     fused prefix must not rewrite the key field."""
     if a.key_field is not None or b.key_field is not None:
         return a.key_field == b.key_field
+    if a.key_fields or b.key_fields:
+        return a.key_fields == b.key_fields
     return a.key_extractor is b.key_extractor
 
 
 class UpstreamEdge:
     """Producer side of an edge into a stage."""
 
-    __slots__ = ("stage",)
+    __slots__ = ("stage", "branch")
 
-    def __init__(self, stage: "Stage") -> None:
-        self.stage = stage
+    def __init__(self, stage: "Stage", branch: Optional[int] = None) -> None:
+        self.stage = stage  # producer stage
+        self.branch = branch  # split branch index on the producer, or None
 
 
 class Stage:
@@ -47,7 +53,11 @@ class Stage:
         Stage._next_id += 1
         self.ops: List[BasicOperator] = [op]  # chained operators, in order
         self.upstreams: List[UpstreamEdge] = []
-        self.downstream: Optional["Stage"] = None
+        self.downstream: Optional["Stage"] = None  # exclusive with split
+        # MultiPipe.split: a callable payload -> branch index(es) or a
+        # field name, and the first stage of each branch
+        self.split_logic: Optional[Union[Callable, str]] = None
+        self.split_branches: List[Optional["Stage"]] = []
         self.chain_refused: Optional[str] = None
         self.channels: List[Any] = []  # one Channel per replica
         self.workers: List[Any] = []
@@ -73,6 +83,16 @@ class Stage:
         return self.last_op.op_type == OpType.SINK
 
     @property
+    def is_split(self) -> bool:
+        return self.split_logic is not None
+
+    @property
+    def split_gpu(self) -> bool:
+        """A split after a device operator: the device splitting emitter
+        routes whole device batches (``gpu/emitters_gpu.py``)."""
+        return self.is_split and getattr(self.last_op, "is_gpu", False)
+
+    @property
     def is_fused_gpu(self) -> bool:
         """A chained stage of device ops runs as ONE fused replica per
         slot (``gpu/fused_ops.py``), not as a thread chain."""
@@ -86,6 +106,8 @@ class Stage:
         same parallelism, chain-compatible kind); device chaining follows
         the fusion rules (``_gpu_fusion_refusal``; ``fusion`` is the
         graph's ``PipeGraph(fusion=...)``)."""
+        if self.is_split:
+            return "tail stage was split"
         if self.is_sink:
             return "tail stage already ends in a sink"
         if op.parallelism != self.parallelism:
