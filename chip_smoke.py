@@ -97,6 +97,29 @@ Phases, each printing one line of its own:
    drain, capture and write, the bytes, the alignment stall and the
    commit ms; the restore time (``start`` -> first delivery); and
    tuples/s with a checkpoint every 4 batches and with none, in turns;
+11. incremental and asynchronous checkpoints (``delta`` lines), parts
+   ``smap_hc`` (the stateful map at 1,048,576 keys, 24 batches: the
+   table grows to 2^20 rows), ``ffat`` (the HC main path),
+   ``ffat_tumbling`` (the HC stream into a 320 ms tumbling window, longer
+   than the checkpoint interval: epochs without a firing take the FFAT
+   delta path), ``fused`` (map -> smap -> filter chained at megabatch 4)
+   and ``tiered``
+   (bench.py's run_tiered stream, 512-tuple batches): a checkpoint every
+   4 batches with ``full_every=8``, in three modes in turns (FULL sync,
+   delta sync, delta + async), whose outputs must be equal and equal the
+   CPU run's; every epoch of a delta mode, materialized, holds the
+   engine state of the FULL run's epoch (smap_hc and both ffat parts).
+   Per mode: tuples/s, the FULL and delta epoch counts, the
+   ``Checkpoint_delta_*`` / ``_async_uploads`` / ``_upload_usec_total``
+   stats and, per epoch, its kind, its bytes (pickled, and on disk), the
+   slowest worker's cut split into drain, capture and write (sync) or
+   register (async), the upload and the commit ms. Then a delta + async
+   run killed two batches after its first delta epoch and restored from
+   it (chain depth 1): the merged output must equal the uninterrupted
+   runs on the card and the CPU, the source must resume at the
+   checkpoint's batch and emit nothing from before it, and (both ffat
+   parts) K1 must launch fewer times than uninterrupted. The main-path
+   lines give the staging pool's hits and misses;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -522,13 +545,17 @@ def main_path_phase(torch, wt, name, n_keys, win_per_batch):
     valid = gcols["valid"]
     if not valid.any() or (gcols["value"][valid] < 0).any():
         fail(f"{name}: no valid windows, or negative sums of values >= 0")
+    src = run[6].get_stats()["Operators"][0]["replicas"][0]
     row = dict(config=name, keys=n_keys, batches=N_BATCHES, batch=BATCH,
                windows_total=int(len(gcols["key"])),
                valid_windows=int(valid.sum()),
                rebuild_launches=launches,
                device_programs=rep.stats.device_programs_run,
                **_ffat_rates(blocks, run), wall_s=wall,
-               rows_equal_cpu=True)
+               rows_equal_cpu=True,
+               # the staging edge's pinned-buffer pool (recycling.py)
+               staging_pool_hits=src["Staging_pool_hits"],
+               staging_pool_misses=src["Staging_pool_misses"])
     return row, launches
 
 
@@ -1900,6 +1927,403 @@ def recovery_phase(torch, wt, card):
          Coord.ack) = orig
 
 
+# ---------------------------------------------------------------------------
+# phase delta: incremental and asynchronous checkpoints on the card
+# ---------------------------------------------------------------------------
+DELTA_EVERY, DELTA_FULL_EVERY = 4, 8
+DELTA_MODES = (
+    ("full", {}),
+    ("delta", {"delta": True, "full_every": DELTA_FULL_EVERY}),
+    ("delta_async", {"delta": True, "async_upload": True,
+                     "full_every": DELTA_FULL_EVERY}))
+# epochs listed one by one on a part's line (the rest are summarized)
+DELTA_LISTED = 8
+# ffat_tumbling's window: 6.24 batches of event time (a batch spans
+# 51,249 us), so it fires in batches 7, 13 and 19, and the epochs of
+# batches 8-11 and 20-23 see no firing
+TUMBLE_US = 320_000
+
+
+def _tumbling_ops(wt):
+    return [wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
+                                        wt.fieldwise(value="sum"))
+            .with_key_by("key").with_tb_windows(TUMBLE_US, TUMBLE_US)
+            .with_key_capacity(HC_KEYS).with_name("ffat").build()]
+
+
+def _delta_parts(wt):
+    """(part, blocks, operators (a function of wt), chained, megabatch,
+    batch, the engine's op name). smap_hc: the stateful map at 1,048,576
+    keys over 24 batches (the table grows to 2^20 rows); ffat: the HC main
+    path; ffat_tumbling: the HC stream into a tumbling window longer than
+    the checkpoint interval, 24 batches (``TUMBLE_US``: its epochs without
+    a firing are deltas); fused: map -> smap -> filter chained at
+    megabatch 4; tiered:
+    bench.py's run_tiered stream (Zipf 1.1 over 10^7 keys, 1,024 hot
+    slots, 512-row float32 batches)."""
+    db_dir = os.path.join(HERE, "build", "tier_db")
+    return (
+        ("smap_hc", _blocks(HUGE_KEYS, seed=51, n_batches=24, batch=BATCH),
+         _smap_ops, False, 1, BATCH, "smap"),
+        ("ffat", _blocks(HC_KEYS, seed=52, n_batches=16, batch=BATCH),
+         lambda wt: _rec_ops(wt, "ffat"), False, 1, BATCH, "ffat"),
+        ("ffat_tumbling", _blocks(HC_KEYS, seed=54, n_batches=24,
+                                  batch=BATCH),
+         _tumbling_ops, False, 1, BATCH, "ffat"),
+        ("fused", _blocks(HC_KEYS, seed=53, n_batches=16, batch=BATCH),
+         lambda wt: _rec_ops(wt, "fused"), True, 4, BATCH, "m"),
+        ("tiered", _tier_blocks(), _tier_ops(True, db_dir), False, 1,
+         TIER_BATCH, "scan"))
+
+
+def _run_delta_graph(wt, device, part, src, store, ckpt, restore_from=None,
+                     crash=False):
+    """Replayable source -> the part's operators -> columnar sink,
+    checkpointing into ``store`` with ``with_checkpointing(**ckpt)`` (every
+    epoch kept on disk). Returns the sink's batches and the graph; with
+    ``crash`` the run must end in the source's injected crash."""
+    name, _, make_ops, chained, megabatch, batch, _ = part
+    parts, sink = _sink_parts()
+    graph = wt.PipeGraph(f"delta_{name}", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device,
+                         megabatch=megabatch)
+    graph.with_checkpointing(store_dir=store, retain=1 << 10, **ckpt)
+    mp = graph.add_source(wt.Source_Builder(src).with_name("src")
+                          .with_output_batch_size(batch).build())
+    for i, op in enumerate(make_ops(wt)):
+        mp = mp.chain(op) if (chained and i) else mp.add(op)
+    mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
+    try:
+        graph.run(restore_from)
+    except _InjectedCrash:
+        if not crash:
+            raise
+    else:
+        if crash:
+            fail(f"delta {name}: the injected crash did not end the run")
+    return parts, graph
+
+
+def _delta_epochs(graph, cuts, store, async_upload, writes):
+    """Per committed epoch: FULL or delta (a blob of it has ``deps``), its
+    blobs' bytes (logical: what was pickled, refs included; on disk: the
+    files its directory holds), the slowest worker's cut split into the
+    drain, the capture and the write (sync) or the register (async), the
+    upload time (async), the commit ms, and its blob writes (all workers,
+    wherever they ran) split into pickle, sha256 and the fsync'd write
+    (``writes``, by epoch)."""
+    from windflow_tpu_torch.checkpoint import CheckpointStore
+    rows = []
+    for h in graph._coordinator.history:
+        cid = h["ckpt_id"]
+        d = CheckpointStore(store)._dirname(cid)
+        man = CheckpointStore.load_manifest(d)
+        mine = [c for c in cuts if c[0] == cid]
+        slow = max(mine, key=lambda c: c[1], default=(0, 0.0, 0.0, 0.0, 0.0))
+        row = dict(ckpt_id=cid, kind="delta" if man.get("deps") else "FULL",
+                   refs=len(man.get("refs") or {}), bytes=h["bytes"],
+                   bytes_on_disk=sum(os.path.getsize(os.path.join(d, f))
+                                     for f in os.listdir(d)
+                                     if f.endswith(".blob")),
+                   cut_ms=slow[1], drain_ms=slow[1] - slow[3] - slow[4],
+                   capture_ms=slow[3],
+                   **{"register_ms" if async_upload else "write_ms":
+                      slow[4]},
+                   upload_ms=h["upload_s"] * 1e3,
+                   commit_ms=h["commit_s"] * 1e3,
+                   **{f"{k}_ms": v for k, v in writes.get(cid, {}).items()})
+        rows.append(row)
+    return rows
+
+
+def _epoch_summary(rows):
+    """Per kind: epochs and the means of the bytes and the cut split."""
+    out = {}
+    for kind in ("FULL", "delta"):
+        sel = [r for r in rows if r["kind"] == kind]
+        if sel:
+            out[kind] = {k: (len(sel) if k == "epochs" else
+                             sum(r[k] for r in sel) / len(sel))
+                         for k in ("epochs", "bytes", "bytes_on_disk",
+                                   "cut_ms", "drain_ms", "capture_ms",
+                                   "write_ms", "register_ms", "upload_ms",
+                                   "commit_ms", "pickle_ms", "sha256_ms",
+                                   "fsync_write_ms")
+                         if k == "epochs" or k in sel[0]}
+    return out
+
+
+# the engine state held across modes, by part: the other parts' blobs
+# carry emitter fields that depend on the run, and the tiered one an
+# sqlite image
+DELTA_HELD = {"smap_hc": "scan", "ffat": "ffat", "ffat_tumbling": "ffat"}
+
+
+def _same_tree(a, b):
+    """Exact equality of two snapshot trees (dicts, lists, arrays)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(map(_same_tree, a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and bool(np.array_equal(a, b)))
+    return a == b
+
+
+def _hold_epochs(name, op, store, full_store):
+    """Every epoch of a delta-mode run, materialized (a delta patched onto
+    its base), must hold the engine state that the FULL-mode run's epoch
+    at the same batch holds."""
+    key = DELTA_HELD.get(name)
+    if key is None:
+        return
+    from windflow_tpu_torch.checkpoint import CheckpointStore
+    got, want = CheckpointStore(store), CheckpointStore(full_store)
+    for cid in want.completed_ids():
+        a, b = (st.load_states(st._dirname(cid),
+                               st.load_manifest(st._dirname(cid)))[(op, 0)]
+                for st in (got, want))
+        if not _same_tree(a[key], b[key]):
+            fail(f"delta {name}: epoch {cid} restores another {key} state "
+                 "than the FULL run's epoch")
+
+
+def delta_part(torch, wt, card, part, cuts, writes):
+    """One part of phase ``delta``: the part's stream on the card with a
+    checkpoint every DELTA_EVERY blocks, once in each mode (FULL sync,
+    delta sync, delta + async, in turns; their outputs must be equal),
+    and on the CPU; then a delta + async run killed two blocks after its
+    first delta epoch (after its second epoch where none is a delta, as
+    for the HC window, whose every firing batch rebuilds the forest and
+    so forces a FULL snapshot), restored with ``run(restore_from=...)``:
+    the merged output must equal the card's and the CPU's uninterrupted
+    runs, the restored source must resume at the checkpoint's block and
+    emit nothing from before it, and (both ffat parts) K1 must launch
+    fewer times than in the uninterrupted run. Returns K1's launches in
+    the FULL-mode run and in the restored run (ffat parts), else 0."""
+    from windflow_tpu_torch.checkpoint import CheckpointStore
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    name, blocks = part[0], part[1]
+    n_batches, batch = len(blocks), part[5]
+    t_part = time.perf_counter()
+    is_ffat = name.startswith("ffat")
+    rkey = "ffat" if is_ffat else "batches"
+    modes, gold, gold_launches = {}, None, 0
+    for mode, ckpt in DELTA_MODES:
+        src = _ReplayBlocks(blocks, every=DELTA_EVERY)
+        store = _ckpt_dir(f"delta_{name}_{mode}")
+        cuts.clear()
+        writes.clear()
+        fr.LAUNCHES = 0
+        torch.cuda.synchronize()
+        parts, g = _run_delta_graph(wt, "cuda", part, src, store, ckpt)
+        if is_ffat:
+            _launched(f"delta {name} {mode}", fr,
+                      g._stages[1].first_op.replicas[0])
+        out = _rec_results(rkey, parts)
+        if gold is None:
+            gold, gold_launches = out, fr.LAUNCHES
+        elif out != gold:
+            fail(f"delta {name}: the {mode} run's output differs from the "
+                 "FULL run's")
+        span = max(t for t, _ in parts) - src.t_yield[STATE_WARMUP]
+        epochs = _delta_epochs(g, list(cuts), store,
+                               ckpt.get("async_upload", False),
+                               dict(writes))
+        if len(epochs) != n_batches // DELTA_EVERY:
+            fail(f"delta {name}: {mode}: {len(epochs)} epochs committed, "
+                 f"not {n_batches // DELTA_EVERY}")
+        ck = g.get_stats()["Checkpoints"]
+        if ck["Checkpoint_async_pending"]:
+            fail(f"delta {name}: {mode}: uploads still pending at the end")
+        modes[mode] = dict(
+            tuples_per_s=(n_batches - STATE_WARMUP) * batch / span,
+            epochs_full=sum(e["kind"] == "FULL" for e in epochs),
+            epochs_delta=sum(e["kind"] == "delta" for e in epochs),
+            **{k: ck[k] for k in ("Checkpoint_delta_blobs",
+                                  "Checkpoint_delta_bytes",
+                                  "Checkpoint_full_bytes",
+                                  "Checkpoint_async_uploads",
+                                  "Checkpoint_upload_usec_total")},
+            summary=_epoch_summary(epochs), epochs=epochs[:DELTA_LISTED])
+        if mode == "full":
+            full_store = store
+        else:
+            _hold_epochs(name, part[6], store, full_store)
+    gold_cpu = _rec_results(rkey, _run_delta_graph(
+        wt, "cpu", part, _ReplayBlocks(blocks), _ckpt_dir(f"delta_{name}_c"),
+        {})[0])
+    if gold != gold_cpu:
+        fail(f"delta {name}: the card's uninterrupted run differs from the "
+             "CPU run")
+    # kill two blocks after the first delta epoch and restore
+    kinds = [e["kind"] for e in modes["delta_async"]["epochs"]]
+    first_delta = kinds.index("delta") + 1 if "delta" in kinds else 2
+    ckpt_block = first_delta * DELTA_EVERY
+    crash_at = ckpt_block + 2
+    if crash_at >= n_batches:
+        fail(f"delta {name}: no block left to crash at after epoch "
+             f"{first_delta}")
+    async_ckpt = dict(DELTA_MODES)["delta_async"]
+    store = _ckpt_dir(f"delta_{name}_crash")
+    crash_parts = _run_delta_graph(
+        wt, "cuda", part, _ReplayBlocks(blocks, every=DELTA_EVERY,
+                                        crash_at=crash_at),
+        store, async_ckpt, crash=True)[0]
+    st = CheckpointStore(store)
+    cid = st.latest()
+    if cid != first_delta:
+        fail(f"delta {name}: the crash run's latest epoch is {cid}, not "
+             f"{first_delta}")
+    d = st.checkpoint_dir(cid)
+    man = st.load_manifest(d)
+    restored_kind = "delta" if man.get("deps") else "FULL"
+    if name == "ffat_tumbling" and restored_kind != "delta":
+        fail(f"delta {name}: epoch {cid}, taken without a firing since the "
+             "last, is not a delta")
+    states = st.load_states(d, man)
+    if states[("src", 0)]["position"] != ckpt_block:
+        fail(f"delta {name}: the checkpoint's source position is "
+             f"{states[('src', 0)]['position']}, not {ckpt_block}")
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    rsrc = _ReplayBlocks(blocks, every=DELTA_EVERY)
+    t0 = time.perf_counter()
+    rparts, rgraph = _run_delta_graph(wt, "cuda", part, rsrc, store,
+                                      async_ckpt, restore_from=store)
+    restored_run_s = time.perf_counter() - t0
+    if rsrc.first != ckpt_block:
+        fail(f"delta {name}: the restored source began at block "
+             f"{rsrc.first}, not at the checkpoint's {ckpt_block}")
+    restored = _rec_results(rkey, rparts)
+    if not restored:
+        fail(f"delta {name}: the restored run emitted nothing")
+    launches = 0
+    if is_ffat:
+        launches = _launched(f"delta {name}", fr,
+                             rgraph._stages[1].first_op.replicas[0])
+        if launches >= gold_launches:
+            fail(f"delta {name}: the restored run launched K1 {launches} "
+                 f"times, the uninterrupted run {gold_launches}")
+        ff = states[("ffat", 0)]["ffat"]
+        fired = {int(k): int(ff["fired"][s])
+                 for k, s in ff["slot_of_key"].items()}
+        again = sum(w < fired.get(k, 0) for k, w in restored)
+        if not any(fired.values()) or again:
+            fail(f"delta {name}: the checkpoint fired "
+                 f"{sum(fired.values())} "
+                 f"windows, and the restored run fired {again} of them "
+                 "again")
+    elif min(restored) < int(blocks[ckpt_block][1][0]):
+        fail(f"delta {name}: the restored run emitted a batch from before "
+             f"block {ckpt_block}")
+    merged = {**_rec_results(rkey, crash_parts), **restored}
+    if merged != gold:
+        fail(f"delta {name}: the crash + restore output differs from the "
+             "uninterrupted run")
+    phase("delta", part=name, batches=n_batches, batch=batch,
+          checkpoint_every=DELTA_EVERY, full_every=DELTA_FULL_EVERY,
+          card=card, outputs_equal_across_modes=True,
+          states_equal_full=name in DELTA_HELD,
+          outputs_equal_cpu=True, merged_equal_card=True,
+          merged_equal_cpu=True, crashed_at=crash_at,
+          restored_epoch=cid, restored_epoch_kind=restored_kind,
+          restored_chain_deps=man.get("deps") or {},
+          restored_run_s=restored_run_s,
+          rebuild_launches_uninterrupted=(gold_launches if is_ffat
+                                          else 0),
+          rebuild_launches_restored=launches, modes=modes,
+          part_s=time.perf_counter() - t_part)
+    import shutil
+    for d in os.listdir(os.path.join(HERE, "build", "ckpt")):
+        if d.startswith(f"delta_{name}_"):
+            shutil.rmtree(os.path.join(HERE, "build", "ckpt", d),
+                          ignore_errors=True)
+    return (gold_launches + launches) if is_ffat else 0
+
+
+def delta_phase(torch, wt, card):
+    """Phase ``delta``: incremental and asynchronous checkpoints on the
+    card, parts smap_hc, ffat, fused and tiered (``_delta_parts``). The
+    cut of each worker is timed around ``Worker.checkpoint_now`` (barrier
+    at the worker -> ack), its capture around ``Worker._capture_blobs``
+    and its ack around ``CheckpointCoordinator.ack`` (the blob write when
+    synchronous, the registration with the uploader when asynchronous),
+    on the worker's own thread; each blob write's pickle, sha256 and
+    fsync'd write around the store's own calls, on whichever thread writes
+    (the worker, or the uploader). Returns K1's launches in the ffat
+    part's FULL-mode and restored runs."""
+    import pickle
+    from types import SimpleNamespace
+    from windflow_tpu_torch.checkpoint import CheckpointCoordinator as Coord
+    from windflow_tpu_torch.checkpoint import store as smod
+    from windflow_tpu_torch.runtime import worker as wmod
+    cuts, tl, writes = [], threading.local(), {}
+    orig = (wmod.Worker.checkpoint_now, wmod.Worker._capture_blobs,
+            Coord.ack)
+    orig_store = (smod.CheckpointStore.write_blob, smod.pickle,
+                  smod._hash_bytes, smod._atomic_write)
+
+    def split(fn, key):
+        def timed_fn(*a, **kw):
+            cid = getattr(tl, "cid", None)
+            if cid is None:  # not a blob write (the commit's manifest)
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ep = writes.setdefault(cid, {})
+                ep[key] = ep.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return timed_fn
+
+    def noted_write(self, ckpt_id, *a, **kw):
+        tl.cid = ckpt_id
+        try:
+            return orig_store[0](self, ckpt_id, *a, **kw)
+        finally:
+            tl.cid = None
+
+    def timer(fn, slot):
+        def timed_fn(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                setattr(tl, slot, getattr(tl, slot, 0.0)
+                        + (time.perf_counter() - t0) * 1e3)
+        return timed_fn
+
+    def timed_cut(self, barrier, stall_us=0.0):
+        tl.capture = tl.write = 0.0
+        t0 = time.perf_counter()
+        orig[0](self, barrier, stall_us)
+        cuts.append((barrier.ckpt_id, (time.perf_counter() - t0) * 1e3,
+                     stall_us, tl.capture, tl.write))
+
+    wmod.Worker.checkpoint_now = timed_cut
+    wmod.Worker._capture_blobs = timer(orig[1], "capture")
+    Coord.ack = timer(orig[2], "write")
+    smod.CheckpointStore.write_blob = noted_write
+    smod.pickle = SimpleNamespace(
+        dumps=split(pickle.dumps, "pickle"), load=pickle.load,
+        HIGHEST_PROTOCOL=pickle.HIGHEST_PROTOCOL)
+    smod._hash_bytes = split(orig_store[2], "sha256")
+    smod._atomic_write = split(orig_store[3], "fsync_write")
+    try:
+        return sum(delta_part(torch, wt, card, part, cuts, writes)
+                   for part in _delta_parts(wt))
+    finally:
+        (wmod.Worker.checkpoint_now, wmod.Worker._capture_blobs,
+         Coord.ack) = orig
+        (smod.CheckpointStore.write_blob, smod.pickle, smod._hash_bytes,
+         smod._atomic_write) = orig_store
+
+
 def main() -> None:
     try:
         import torch
@@ -1935,13 +2359,15 @@ def main() -> None:
     state_programs_phase(torch, wt, smap_blocks, card)
     dag_launches = dag_phase(torch, wt, card)
     recovery_launches = recovery_phase(torch, wt, card)
+    delta_launches = delta_phase(torch, wt, card)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",
         "source": "windflow_tpu_torch/kernels/forest_rebuild.cu",
         "replaces": "windflow_tpu/tpu/pallas_kernels.py:29",
         "launches": (hc_launches + base_launches + fusion_launches
-                     + dag_launches + recovery_launches),
+                     + dag_launches + recovery_launches
+                     + delta_launches),
         "max_abs_err": max(err_checks, err_timed),
         "ms": timing["wrapper_ms"],
         "device_ms": timing["device_ms"],

@@ -23,6 +23,7 @@ import pytest
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded, wait_end_bounded
 from windflow_tpu.checkpoint import CheckpointStore as StoreJ
 from windflow_tpu.tpu import Map_TPU_Builder
 from windflow_tpu_torch.checkpoint import CheckpointStore as StoreT
@@ -187,12 +188,12 @@ def test_restore_rejects_topology_mismatch(tmp_path, pkg):
     p = _pkg(pkg)
     store = str(tmp_path / "store")
     g = _reduce_graph(p, store, ReplaySource(500, ckpt_at=200))
-    g.run()
+    run_bounded(g)
     assert g._coordinator.completed == 1
     g2 = _reduce_graph(p, str(tmp_path / "s2"), ReplaySource(500),
                        name="other_name")
     with pytest.raises(pkg.WindFlowError, match="does not contain"):
-        g2.run(restore_from=store)
+        run_bounded(g2, restore_from=store)
     g3 = _graph(p, "ck_red")
     g3.add_source(p.pkg.Source_Builder(ReplaySource(500)).with_name("src")
                   .build()) \
@@ -201,7 +202,7 @@ def test_restore_rejects_topology_mismatch(tmp_path, pkg):
         .add_sink(p.pkg.Sink_Builder(lambda t: None).with_name("snk")
                   .build())
     with pytest.raises(pkg.WindFlowError, match="parallelism"):
-        g3.run(restore_from=store)
+        run_bounded(g3, restore_from=store)
 
 
 @PKGS
@@ -210,14 +211,14 @@ def test_restore_needs_a_replayable_source(tmp_path, pkg):
     functor that has no ``restore()``: the restored run fails loudly."""
     p = _pkg(pkg)
     store = str(tmp_path / "store")
-    _reduce_graph(p, store, ReplaySource(300, ckpt_at=100)).run()
+    run_bounded(_reduce_graph(p, store, ReplaySource(300, ckpt_at=100)))
 
     def plain(shipper):
         shipper.push({"k": 0, "v": 0})
 
     with pytest.raises(pkg.WindFlowError, match="replayable"):
-        _reduce_graph(p, str(tmp_path / "s2"), plain).run(
-            restore_from=store)
+        run_bounded(_reduce_graph(p, str(tmp_path / "s2"), plain),
+                    restore_from=store)
 
 
 @PKGS
@@ -242,7 +243,7 @@ def test_checkpoint_stats_and_trigger(tmp_path, pkg):
     cid = g._coordinator.trigger(force=True)
     gate.set()
     g._coordinator.wait_committed(cid, 30)
-    g.wait_end()
+    wait_end_bounded(g)
     st = g.get_stats()
     ck = st["Checkpoints"]
     assert ck["Checkpoints_completed"] == 1 and ck["Checkpoint_last_id"] == 1
@@ -277,7 +278,7 @@ def test_interval_checkpoints(tmp_path, pkg):
              .with_key_by(lambda t: t["k"]).with_name("red").build()) \
         .add_sink(p.pkg.Sink_Builder(lambda t: None).with_name("snk")
                   .build())
-    g.run()
+    run_bounded(g)
     done = g._coordinator.completed
     assert done >= 2
     ids = p.Store(store).completed_ids()
@@ -314,7 +315,7 @@ def test_epoch_timeout_names_the_unacked_workers(tmp_path, monkeypatch):
                 g.trigger_checkpoint(wait=True)
         finally:
             gate.set()
-            g.wait_end()
+            wait_end_bounded(g)
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +369,7 @@ def _alignment_case(p, seed, root):
     pipes[0].merge(*pipes[1:]).add(red) \
         .add_sink(p.pkg.Sink_Builder(lambda t: None).with_name("snk")
                   .build())
-    g.run()
+    run_bounded(g)
     assert g._coordinator.completed == 1
     st = p.Store(root)
     d = st.checkpoint_dir(st.latest())
@@ -432,7 +433,7 @@ def _device_alignment_case(p, seed, root):
     b0.merge(b1).add(red) \
         .add_sink(p.pkg.Sink_Builder(lambda t: None).with_name("snk")
                   .build())
-    g.run()
+    run_bounded(g)
     assert g._coordinator.completed == 1
     st = p.Store(root)
     d = st.checkpoint_dir(st.latest())
@@ -474,7 +475,7 @@ def test_two_stage_alignment_stall_recorded(tmp_path):
         p0.merge(p1).add(red) \
             .add_sink(p.pkg.Sink_Builder(lambda t: None).with_name("snk")
                       .build())
-        g.run()
+        run_bounded(g)
         assert g._coordinator.completed == 1
         reps = [op for op in g.get_stats()["Operators"]
                 if op["name"] == "red"][0]["replicas"]

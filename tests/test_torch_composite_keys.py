@@ -21,6 +21,7 @@ import torch
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.basic import as_key_fn as as_key_fn_j
 from windflow_tpu.basic import key_fields_names as key_fields_names_j
 from windflow_tpu.tpu import emitters_tpu as ej
@@ -328,7 +329,7 @@ def _composite_reduce(pkg, blocks, staged_keyed, par):
                     out[(k, b)] += v
 
     mp.add_sink(pkg.Sink_Builder(sink).with_columns().build())
-    g.run()
+    run_bounded(g)
     return dict(out)
 
 

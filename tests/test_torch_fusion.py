@@ -22,6 +22,7 @@ import torch
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.tpu import (Ffat_Windows_TPU_Builder, Filter_TPU_Builder,
                               Map_TPU_Builder, Reduce_TPU_Builder)
 from windflow_tpu_torch.gpu.scan import (masked_segmented_scan,
@@ -106,7 +107,7 @@ def _fused_stage(g, kind="Fused_GPU_Chain"):
 def test_fused_chain_one_program_one_commit_per_batch(monkeypatch):
     col = RowCollector()
     g = _three_op_chain(wt, monkeypatch, True, 2, 16, col)
-    g.run()
+    run_bounded(g)
     # one stage for the whole device trio: threads = src + fused + sink
     assert g.get_num_threads() == 2 + 2 + 1
     op = _fused_stage(g)
@@ -127,14 +128,14 @@ def test_fused_chain_one_program_one_commit_per_batch(monkeypatch):
         for v in range(1, STREAM_LEN + 1) if (3 * v) % 2 == 0)
     assert col.multiset == expected
     ref = RowCollector()
-    _three_op_chain(wj, monkeypatch, True, 2, 16, ref).run()
+    run_bounded(_three_op_chain(wj, monkeypatch, True, 2, 16, ref))
     assert ref.multiset == expected
 
 
 def test_fusion_off_restores_per_stage_wiring(monkeypatch):
     col = RowCollector()
     g = _three_op_chain(wt, monkeypatch, False, 2, 16, col)
-    g.run()
+    run_bounded(g)
     assert g.get_num_threads() == 2 + 3 * 2 + 1
     assert not any(o["kind"] == "Fused_GPU_Chain"
                    for o in g.get_stats()["Operators"])
@@ -144,7 +145,7 @@ def test_fusion_off_restores_per_stage_wiring(monkeypatch):
         "(PipeGraph(fusion=False))" for s in refused)
     assert "unchained" in refused[0].describe(diagnostics=True)
     fused = RowCollector()
-    _three_op_chain(wt, monkeypatch, True, 2, 16, fused).run()
+    run_bounded(_three_op_chain(wt, monkeypatch, True, 2, 16, fused))
     assert col.multiset == fused.multiset and col.multiset
 
 
@@ -159,7 +160,7 @@ def test_fused_vs_unfused_differential(seed, monkeypatch):
     results = {}
     for pkg, fusion in ((wt, True), (wt, False), (wj, True)):
         col = RowCollector()
-        _three_op_chain(pkg, monkeypatch, fusion, p, batch, col).run()
+        run_bounded(_three_op_chain(pkg, monkeypatch, fusion, p, batch, col))
         results[(pkg.__name__, fusion)] = col.multiset
     ref = results[("windflow_tpu", True)]
     assert ref, "differential is vacuous on an empty stream"
@@ -176,7 +177,7 @@ def test_differential_empty_batches_and_punctuation(monkeypatch):
         col = RowCollector()
         g = _three_op_chain(wt, monkeypatch, fusion, 2, 8, col,
                             drop_all_pred=True, event_time=True)
-        g.run()
+        run_bounded(g)
         results[fusion] = col.multiset
         if fusion:
             op = _fused_stage(g)
@@ -195,7 +196,7 @@ def test_differential_eos_with_inflight_commits(monkeypatch):
         monkeypatch.setattr(port_dispatch, "DISPATCH_DEPTH", depth)
         col = RowCollector()
         g = _three_op_chain(wt, monkeypatch, fusion, 1, 16, col)
-        g.run()
+        run_bounded(g)
         results[(fusion, depth)] = col.multiset
         if fusion and depth:
             r = _fused_stage(g)["replicas"][0]
@@ -250,7 +251,7 @@ def _reduce_chain(pkg, monkeypatch, fusion, keyed, with_filter=True,
 
     mp.chain(red.with_name("r").build()) \
         .add_sink(pkg.Sink_Builder(sink).build())
-    g.run()
+    run_bounded(g)
     return out, g
 
 
@@ -494,26 +495,37 @@ def test_legal_chains_fuse_like_jax(monkeypatch, chain, label):
     assert stages[wt].is_fused_gpu
 
 
-def test_stateful_sub_op_in_a_fused_chain_is_not_yet_ported(monkeypatch):
+def test_stateful_sub_op_in_a_fused_chain_takes_delta_snapshots(
+        monkeypatch, tmp_path):
     """A map with device state may join a chain by the legality rules
     (both packages allow a stateful map before a filter), and the port's
     fused replica builds it with one keyed-state engine for the stateful
-    sub-op; what is not yet ported is that engine's incremental (delta)
-    snapshot: it snapshots FULL, and only an explicit delta request
-    raises."""
+    sub-op. That engine snapshots FULL outside a capture and under its
+    first delta capture (its lineage base); once that epoch is committed,
+    the next delta capture returns a delta node patching the base."""
+    from windflow_tpu_torch.checkpoint import CheckpointStore
+    from windflow_tpu_torch.checkpoint import delta as ckpt_delta
     g, mp = _legal_graph(wt, monkeypatch)
     mp.add(_stateful_map(wt, "sm")).chain(
         wt.Filter_GPU_Builder(lambda f: f["value"] >= 0).with_key_by("key")
         .with_name("sf").build())
-    assert g._stages[-1].describe() == "sm∘sf"
-    g.get_num_threads()  # builds the fused replica
-    specs = g._stages[-1].first_op.replicas[0].specs
+    mp.add_sink(wt.Sink_Builder(lambda t: None).build())
+    assert g._stages[-2].describe() == "sm∘sf"
+    run_bounded(g)
+    specs = g._stages[-2].first_op.replicas[0].specs
     assert [s.kind for s in specs] == ["smap", "filter"]
-    # the engine takes a FULL snapshot (delta snapshots are off); only an
-    # explicit delta request raises
-    assert specs[0].engine.snapshot_state()["slot_of_key"] == {}
-    with pytest.raises(wt.WindFlowError, match="not yet ported"):
-        specs[0].engine.snapshot_state(delta=True)
+    eng = specs[0].engine
+    full = eng.snapshot_state()
+    assert set(full["slot_of_key"]) == {0, 1}
+    store = CheckpointStore(str(tmp_path))
+    with ckpt_delta.capturing(1, store, delta=True):
+        assert not ckpt_delta.is_delta(eng.snapshot_state())
+    store.begin(1)
+    store.commit(1, {})
+    with ckpt_delta.capturing(2, store, delta=True):
+        node = eng.snapshot_state()
+    assert ckpt_delta.is_delta(node) and node["base"] == 1
+    assert node["carry"] == ["slot_of_key", "table_capacity"]
 
 
 def test_fused_snapshot_names_the_chain(monkeypatch):
@@ -522,7 +534,7 @@ def test_fused_snapshot_names_the_chain(monkeypatch):
     generic chain, the window's own state for a window-terminated one."""
     col = RowCollector()
     g = _three_op_chain(wt, monkeypatch, True, 1, 16, col)
-    g.run()
+    run_bounded(g)
     rep = g._stages[1].first_op.replicas[0]
     assert rep.snapshot_state() == {"cur_wm": rep.cur_wm,
                                     "__fused__": ["m1", "f1", "m2"],
@@ -530,7 +542,7 @@ def test_fused_snapshot_names_the_chain(monkeypatch):
     g2, mp = _legal_graph(wt, monkeypatch)
     mp.add(wt.Map_GPU_Builder(lambda f: f).with_name("m").build()) \
         .chain(_ffat(wt)).add_sink(wt.Sink_Builder(lambda r: None).build())
-    g2.run()
+    run_bounded(g2)
     frep = g2._stages[1].first_op.replicas[0]
     st = frep.snapshot_state()
     assert st["__fused__"] == ["m", "w"] and st["ffat"]["K_cap"] >= 1

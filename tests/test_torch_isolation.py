@@ -38,7 +38,9 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, verdict, *_ = out.stdout.split()
-    assert int(n) >= 30 and verdict == "OK", out.stdout
+    # 48 modules since the delta plane (checkpoint/delta.py) and staging
+    # recycling (recycling.py)
+    assert int(n) >= 48 and verdict == "OK", out.stdout
 
 
 _ALONE = r"""
@@ -71,11 +73,13 @@ def test_keyed_state_modules_import_alone_without_jax(mod):
 
 @pytest.mark.parametrize("mod", [
     "windflow_tpu_torch.checkpoint", "windflow_tpu_torch.checkpoint.store",
-    "windflow_tpu_torch.checkpoint.coordinator"])
+    "windflow_tpu_torch.checkpoint.coordinator",
+    "windflow_tpu_torch.checkpoint.delta", "windflow_tpu_torch.recycling"])
 def test_checkpoint_modules_import_alone_without_jax(mod):
-    """The checkpoint plane (the port's own copies of the JAX package's
-    JAX-free ``checkpoint/`` modules) imports on its own, in a fresh
-    interpreter, without pulling in jax or the JAX package."""
+    """The checkpoint plane and staging recycling (the port's own copies
+    of the JAX package's JAX-free ``checkpoint/`` modules and
+    ``recycling.py``) import on their own, in a fresh interpreter, without
+    pulling in jax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c",
                           _ALONE.format(root=ROOT, mod=mod)],

@@ -17,6 +17,7 @@ import pytest
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.tpu import (Ffat_Windows_TPU_Builder, Filter_TPU_Builder,
                               Map_TPU_Builder, Reduce_TPU_Builder)
 from windflow_tpu_torch.runtime.dispatch import DeviceDispatchQueue
@@ -200,7 +201,7 @@ def _run_ffat_chain(pkg, monkeypatch, fusion, with_filter, stream_len=90,
     w = (w.with_key_by("key").with_num_win_per_batch(8)
          .with_tb_windows(WIN_US, SLIDE_US).with_name("ffat").build())
     mp.chain(w).add_sink(pkg.Sink_Builder(sink).build())
-    g.run()
+    run_bounded(g)
     return res, {o["name"]: o["replicas"][0]
                  for o in g.get_stats()["Operators"]}
 
@@ -289,7 +290,7 @@ def _run_kreduce(pkg, monkeypatch, fusion, with_filter, drop_all=False,
                                 "value": a["value"] + b["value"]})
            .with_key_by("key").with_name("kr").build())
     mp.chain(red).add_sink(pkg.Sink_Builder(sink).build())
-    g.run()
+    run_bounded(g)
     kind = "Fused_TPU_Chain" if pkg is wj else "Fused_GPU_Chain"
     ops = g.get_stats()["Operators"]
     return rows, [o["replicas"][0] for o in ops if o["kind"] == kind], ops
@@ -364,7 +365,7 @@ def _run_chain_batches(monkeypatch, kind, megabatch, n_blocks=64):
 
     mp.chain(last.build()).add_sink(
         wt.Sink_Builder(sink).with_columns().build())
-    g.run()
+    run_bounded(g)
     fused = next(o for o in g.get_stats()["Operators"]
                  if o["kind"] == "Fused_GPU_Chain")
     return out, fused["replicas"][0]

@@ -24,6 +24,7 @@ import torch
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.tpu import (Filter_TPU_Builder, Map_TPU_Builder,
                               Reduce_TPU_Builder)
 from windflow_tpu.tpu.batch import BatchTPU
@@ -91,7 +92,7 @@ def _run(pkg, stages, blocks, schema=None):
                             np.array(ts)))
 
     mp.add_sink(pkg.Sink_Builder(sink).with_columns().build())
-    graph.run()
+    run_bounded(graph)
     return out, graph
 
 
@@ -284,7 +285,7 @@ def test_graph_tests_gpu_chain_parallel_matches_jax(pars):
         for op in ops:
             mp.add(op)
         mp.add_sink(pkg.Sink_Builder(sink).build())
-        graph.run()
+        run_bounded(graph)
         assert graph.get_num_threads() == 2 + sum(pars) + 1
         return acc
 
@@ -407,7 +408,7 @@ def test_mixed_cpu_device_graph_matches_jax():
                  .with_parallelism(2).build())
         graph.add_source(src).add(cpu_m).add(dev_m).add(cpu_f).add_sink(
             pkg.Sink_Builder(make_sum_sink(acc)).build())
-        graph.run()
+        run_bounded(graph)
         return acc.value, acc.count
 
     ref = run(wj)
@@ -444,7 +445,7 @@ def test_host_plane_ops_match_jax():
                  .with_initial_state({"key": -1, "total": 0})
                  .with_parallelism(3).build()) \
             .add_sink(pkg.Sink_Builder(sink).build())
-        graph.run()
+        run_bounded(graph)
 
         acc = GlobalSum()
 
@@ -456,7 +457,7 @@ def test_host_plane_ops_match_jax():
             .add(pkg.Map_Builder(inplace_double).with_broadcast()
                  .with_parallelism(2).build()) \
             .add_sink(pkg.Sink_Builder(make_sum_sink(acc)).build())
-        g2.run()
+        run_bounded(g2)
         return out, acc.value
 
     ref = run(wj)
@@ -474,7 +475,7 @@ def _no_batch_size(pkg):
     g.add_source(pkg.Source_Builder(make_ingress_source(1, 4)).build()) \
         .add(o.Map(lambda f: f).build()) \
         .add_sink(pkg.Sink_Builder(lambda t: None).build())
-    g.run()
+    run_bounded(g)
 
 
 def _deterministic(pkg):
@@ -484,7 +485,7 @@ def _deterministic(pkg):
                  .with_output_batch_size(4).build()) \
         .add(o.Map(lambda f: f).build()) \
         .add_sink(pkg.Sink_Builder(lambda t: None).build())
-    g.run()
+    run_bounded(g)
 
 
 def _reduce_broadcast(pkg):
@@ -502,28 +503,25 @@ def test_refusals_match_jax(case, match):
             case(pkg)
 
 
-def _delta_snapshot(builder):
-    """The incremental (delta) snapshot of a keyed-state engine, asked for
-    explicitly: the part of keyed device state that waits for the delta
-    plane (under a checkpoint coordinator the engine takes a FULL
-    snapshot, ``test_torch_recovery.py``)."""
-    op = builder.with_key_by("key").build()
-    op.build_replicas()
-    return op.replicas[0].engine.snapshot_state(delta=True)
+def _park_if_held():
+    """The rescale hold point of the checkpoint coordinator."""
+    import tempfile
+
+    from windflow_tpu_torch.checkpoint import (CheckpointCoordinator,
+                                               CheckpointStore)
+    with tempfile.TemporaryDirectory() as d:
+        CheckpointCoordinator(CheckpointStore(d)).park_if_held(1, "w")
 
 
 @pytest.mark.parametrize("call", [
-    lambda: _delta_snapshot(wt.Map_GPU_Builder(lambda r, s: (r, s))
-                            .with_state({"n": 0})),
-    lambda: _delta_snapshot(wt.Filter_GPU_Builder(lambda r, s: (r, s))
-                            .with_state({"n": 0})),
-    lambda: _delta_snapshot(wt.Map_GPU_Builder(lambda r, s: (r, s))
-                            .with_state({"n": 0}).with_tiering()),
+    _park_if_held,
+    lambda: wt.PipeGraph(device="cpu").with_autoscaler(),
+    lambda: wt.Sink_Builder(lambda t: None).with_exactly_once(),
     lambda: wt.Reduce_GPU_Builder(lambda a, b: a).with_mesh(),
     lambda: wt.PipeGraph(device="cpu").with_supervision(),
     lambda: wt.PipeGraph(device="cpu").rescale("op", 2),
-], ids=["map_state", "filter_state", "tiering", "mesh", "supervision",
-        "rescale"])
+], ids=["rescale_hold", "autoscaler", "exactly_once", "mesh",
+        "supervision", "rescale"])
 def test_unported_surfaces_raise(call):
     with pytest.raises(wt.WindFlowError, match="not yet ported"):
         call()

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.tpu import Ffat_Windows_TPU_Builder
 
 N_SYMBOLS = 6
@@ -88,7 +89,7 @@ def _run(pkg, make_op, columns, seed=11, n_blocks=12, par=1):
     sink = (pkg.Sink_Builder(col_sink).with_columns() if columns
             else pkg.Sink_Builder(row_sink))
     graph.add_source(src).add(op).add_sink(sink.build())
-    graph.run()
+    run_bounded(graph)
     return res
 
 
@@ -135,7 +136,7 @@ def test_port_stats_count_programs_not_kernel_launches_on_cpu():
         .add(_int_sum(wt).with_key_by("symbol")
              .with_tb_windows(WIN_US, SLIDE_US).build()) \
         .add_sink(wt.Sink_Builder(lambda w: None).build())
-    graph.run()
+    run_bounded(graph)
     st = graph.get_stats()["Operators"][1]["replicas"][0]
     assert st["Device_programs_run"] > 0
     assert st["Rebuild_kernel_launches"] == 0

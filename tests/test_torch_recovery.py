@@ -25,6 +25,7 @@ import pytest
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.checkpoint import CheckpointStore as StoreJ
 from windflow_tpu.tpu.builders_tpu import (Ffat_Windows_TPU_Builder,
                                            Filter_TPU_Builder,
@@ -164,8 +165,9 @@ def _run_crash_restart(pkg, builder, tmp, n=2000, ckpt_at=600,
     resumes at the checkpoint's position, and (windows) no window that
     the checkpoint had fired fires again."""
     golden = {}
-    builder(pkg, str(tmp / "gold_store"), ReplaySource(n, nk, fvals=fvals),
-            golden, str(tmp / "gold")).run()
+    run_bounded(builder(pkg, str(tmp / "gold_store"),
+                        ReplaySource(n, nk, fvals=fvals), golden,
+                        str(tmp / "gold")))
     store = str(tmp / "store")
     crash_res = {}
     g = builder(pkg, store,
@@ -173,12 +175,12 @@ def _run_crash_restart(pkg, builder, tmp, n=2000, ckpt_at=600,
                              fvals=fvals),
                 crash_res, str(tmp / "crash"))
     with pytest.raises(InjectedCrash):
-        g.run()
+        run_bounded(g)
     assert g._coordinator.completed == 1, "checkpoint must commit pre-crash"
     restore_res = {}
     src = ReplaySource(n, nk, fvals=fvals)
     g2 = builder(pkg, store, src, restore_res, str(tmp / "restore"))
-    g2.run(restore_from=store)
+    run_bounded(g2, restore_from=store)
     assert src.first == ckpt_at, "the restored source did not resume at " \
         "the checkpoint's position"
     if builder is _ffat_graph:
@@ -282,19 +284,19 @@ def test_restore_into_differently_fused_topology_fails(tmp_path,
 
         fused_attr = "is_fused_tpu" if pkg is wj else "is_fused_gpu"
         g = build("s1", True, ckpt_at=300)
-        g.run()
+        run_bounded(g)
         assert g._coordinator.completed == 1
         g_unfused = build("s2", False)
         assert not any(getattr(s, fused_attr) for s in g_unfused._stages)
         with pytest.raises(pkg.WindFlowError, match="fused"):
-            g_unfused.run(restore_from=str(tmp_path / name / "s1"))
+            run_bounded(g_unfused, restore_from=str(tmp_path / name / "s1"))
         g3 = build("s3", False, ckpt_at=300)
-        g3.run()
+        run_bounded(g3)
         assert g3._coordinator.completed == 1
         g4 = build("s4", True)
         assert any(getattr(s, fused_attr) for s in g4._stages)
         with pytest.raises(pkg.WindFlowError, match="fused"):
-            g4.run(restore_from=str(tmp_path / name / "s3"))
+            run_bounded(g4, restore_from=str(tmp_path / name / "s3"))
 
 
 def test_tiered_kill_and_restore_both_tiers(tmp_path):
@@ -363,14 +365,14 @@ def test_merged_sources_kill_and_restore(tmp_path):
     got = {}
     for pkg, name in ((wj, "j"), (wt, "t")):
         golden = {}
-        _merged_ffat_graph(pkg, str(tmp_path / name / "g"), srcs(),
-                           golden).run()
+        run_bounded(_merged_ffat_graph(pkg, str(tmp_path / name / "g"),
+                                       srcs(), golden))
         store = str(tmp_path / name / "s")
         crash = {}
         g = _merged_ffat_graph(pkg, store,
                                srcs(ckpt_at=500, crash_at=1000), crash)
         with pytest.raises(InjectedCrash):
-            g.run()
+            run_bounded(g)
         assert g._coordinator.completed == 1
         Store = StoreJ if pkg is wj else StoreT
         _, d, manifest = Store.resolve(store)
@@ -378,8 +380,8 @@ def test_merged_sources_kill_and_restore(tmp_path):
         assert states[("src0", 0)]["position"] == 500
         assert len(states[("ffat", 0)]["__collector__"]["ch_wm"]) == 2
         restored = {}
-        _merged_ffat_graph(pkg, store, srcs(), restored).run(
-            restore_from=store)
+        run_bounded(_merged_ffat_graph(pkg, store, srcs(), restored),
+                    restore_from=store)
         assert {**crash, **restored} == golden and len(golden) > 0
         got[name] = golden
     assert got["j"] == got["t"]
@@ -395,15 +397,15 @@ def test_port_restores_a_jax_checkpoint(builder, tmp_path, monkeypatch):
     snapshot position: the merged results equal the golden run."""
     monkeypatch.setenv("WF_TPU_FUSION", "1")
     golden = {}
-    builder(wt, str(tmp_path / "gold_store"), ReplaySource(2000), golden,
-            str(tmp_path / "gold")).run()
+    run_bounded(builder(wt, str(tmp_path / "gold_store"), ReplaySource(2000),
+                        golden, str(tmp_path / "gold")))
     jstore = str(tmp_path / "jax_store")
     crash_res = {}
     gj = builder(wj, jstore, ReplaySource(2000, ckpt_at=600,
                                           crash_at=1200),
                  crash_res, str(tmp_path / "crash"))
     with pytest.raises(InjectedCrash):
-        gj.run()
+        run_bounded(gj)
     assert gj._coordinator.completed == 1
     _, ckpt_dir, manifest = StoreJ.resolve(jstore)
     states = checkpoint_states_from_jax(
@@ -412,7 +414,7 @@ def test_port_restores_a_jax_checkpoint(builder, tmp_path, monkeypatch):
     restore_res = {}
     gt = builder(wt, str(tmp_path / "port_store"), ReplaySource(2000),
                  restore_res, str(tmp_path / "restore"))
-    gt.run(restore_from=states)
+    run_bounded(gt, restore_from=states)
     if builder is _ffat_graph:
         merged = {**crash_res, **restore_res}
     else:

@@ -17,6 +17,7 @@ import pytest
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.tpu import (Filter_TPU_Builder, Map_TPU_Builder,
                               Reduce_TPU_Builder)
 
@@ -78,7 +79,7 @@ def _split_two_branches(p, seed):
                .with_output_batch_size(rand_batch(rng)).build())
         b1.add_sink(p.pkg.Sink_Builder(make_sum_sink(acc1))
                     .with_parallelism(rand_degree(rng)).build())
-        graph.run()
+        run_bounded(graph)
         runs.append((acc0.value, acc1.value, acc0.count, acc1.count))
     assert len(set(runs)) == 1, f"runs diverged: {runs}"
     return runs[0]
@@ -102,7 +103,7 @@ def _split_broadcast_indices(p):
     mp.split(lambda t: [0, 1] if t.value % 5 == 0 else [0], 2)
     mp.select(0).add_sink(p.pkg.Sink_Builder(make_sum_sink(accA)).build())
     mp.select(1).add_sink(p.pkg.Sink_Builder(make_sum_sink(accB)).build())
-    graph.run()
+    run_bounded(graph)
     return accA.count, accB.count, accB.value
 
 
@@ -132,7 +133,7 @@ def _merge_two_pipes(p, seed):
                 .with_parallelism(rand_degree(rng)).build())
         mp1.merge(mp2).add_sink(p.pkg.Sink_Builder(make_sum_sink(acc))
                                 .with_parallelism(rand_degree(rng)).build())
-        graph.run()
+        run_bounded(graph)
         runs.append((acc.value, acc.count))
     assert len(set(runs)) == 1, f"runs diverged: {runs}"
     return runs[0]
@@ -156,7 +157,7 @@ def _diamond(p):
     b1 = mp.select(1).add(p.pkg.Map_Builder(
         lambda t: TupleT(t.key, 1000 * t.value)).build())
     b0.merge(b1).add_sink(p.pkg.Sink_Builder(make_sum_sink(acc)).build())
-    graph.run()
+    run_bounded(graph)
     return acc.value, acc.count
 
 
@@ -184,11 +185,11 @@ def test_topology_misuse_raises(pkg):
     with pytest.raises(pkg.WindFlowError, match="already added"):
         graph.add_source(src)
     with pytest.raises(pkg.WindFlowError, match="empty PipeGraph"):
-        _graph(p, "empty").run()
+        run_bounded(_graph(p, "empty"))
     g3 = _graph(p, "nosink")
     g3.add_source(p.pkg.Source_Builder(make_ingress_source(1, 1)).build())
     with pytest.raises(pkg.WindFlowError, match="no sink downstream"):
-        g3.run()
+        run_bounded(g3)
     g4 = _graph(p, "split_misuse")
     mp4 = g4.add_source(p.pkg.Source_Builder(make_ingress_source(1, 4))
                         .build())
@@ -203,7 +204,7 @@ def test_topology_misuse_raises(pkg):
         mp4.select(2)
     mp4.select(0).add_sink(p.pkg.Sink_Builder(lambda t: None).build())
     with pytest.raises(pkg.WindFlowError, match="empty branches"):
-        g4.run()
+        run_bounded(g4)
     g5 = _graph(p, "merge_split")
     a = g5.add_source(p.pkg.Source_Builder(make_ingress_source(1, 1))
                       .build())
@@ -236,7 +237,7 @@ def _split_into_device_branches(p, seed):
         b1.add(p.Filter(lambda f: f["value"] % 3 != 0)
                .with_parallelism(rand_degree(rng)).build())
         b1.add_sink(p.pkg.Sink_Builder(make_sum_sink(accB)).build())
-        graph.run()
+        run_bounded(graph)
         runs.append((accA.value, accA.count, accB.value, accB.count))
     assert len(set(runs)) == 1, f"runs diverged: {runs}"
     return runs[0]
@@ -280,7 +281,7 @@ def _merge_device_pipelines_kb(p):
         lambda a, b: {"key": b["key"], "value": a["value"] + b["value"]})
         .with_key_by("key").with_parallelism(3).build())
     merged.add_sink(p.pkg.Sink_Builder(sink).build())
-    graph.run()
+    run_bounded(graph)
     return acc
 
 
@@ -305,7 +306,7 @@ def _device_exit_then_diamond(p):
     b1 = mp.select(1).add(p.pkg.Map_Builder(
         lambda t: TupleT(t.key, 100 * t.value)).build())
     b0.merge(b1).add_sink(p.pkg.Sink_Builder(make_sum_sink(acc)).build())
-    graph.run()
+    run_bounded(graph)
     return acc.value, acc.count
 
 
@@ -337,7 +338,7 @@ def _split_after_device_callable(p, seed):
         b0.add_sink(p.pkg.Sink_Builder(make_sum_sink(accA)).build())
         mp.select(1).add_sink(p.pkg.Sink_Builder(make_sum_sink(accB))
                               .build())
-        graph.run()
+        run_bounded(graph)
         runs.append((accA.value, accA.count, accB.value, accB.count))
     assert len(set(runs)) == 1, f"runs diverged: {runs}"
     return runs[0]
@@ -366,7 +367,7 @@ def _split_field_routing(p):
     b1 = mp.select(1)
     b1.add(p.Map(lambda f: {**f, "value": f["value"] * 7}).build())
     b1.add_sink(p.pkg.Sink_Builder(make_sum_sink(accB)).build())
-    graph.run()
+    run_bounded(graph)
     if p.pkg is wt:  # the device plane's splitting emitter routed it
         from windflow_tpu_torch.gpu.emitters_gpu import GPUSplittingEmitter
         em = graph._stages[1].last_op.replicas[0].emitter
@@ -399,7 +400,7 @@ def _split_multi_select_keyed(p):
         .with_key_by("key").with_parallelism(2).build())
     b0.add_sink(p.pkg.Sink_Builder(red_sink).build())
     mp.select(1).add_sink(p.pkg.Sink_Builder(make_sum_sink(accB)).build())
-    graph.run()
+    run_bounded(graph)
     return red_acc, accB.value, accB.count
 
 
@@ -426,4 +427,4 @@ def test_split_field_routing_out_of_range(pkg):
     mp.select(0).add_sink(p.pkg.Sink_Builder(lambda t: None).build())
     mp.select(1).add_sink(p.pkg.Sink_Builder(lambda t: None).build())
     with pytest.raises(pkg.WindFlowError, match="branch index"):
-        graph.run()
+        run_bounded(graph)

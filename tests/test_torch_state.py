@@ -23,6 +23,7 @@ import torch
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.tpu import Filter_TPU_Builder, Map_TPU_Builder
 from windflow_tpu.tpu import keymap as keymap_j
 from windflow_tpu.tpu.batch import BatchTPU
@@ -99,7 +100,7 @@ def _run_cols(pkg, make_op, blocks, batch=BATCH):
                  .with_output_batch_size(batch).build()) \
         .add(make_op(o).build()) \
         .add_sink(pkg.Sink_Builder(sink).with_columns().build())
-    g.run()
+    run_bounded(g)
     names = sorted(out[0][0])
     rows = {k: np.concatenate([c[k] for c, _ in out]) for k in names}
     rows["ts"] = np.concatenate([t for _, t in out])
@@ -131,7 +132,7 @@ def _run_rows(pkg, make_op, src_fn, src_par, batch, sink_key="key"):
                  .with_output_batch_size(batch).build()) \
         .add(make_op(o).build()) \
         .add_sink(pkg.Sink_Builder(sink).build())
-    g.run()
+    run_bounded(g)
     return {k: sorted(v) for k, v in seen.items()}
 
 
@@ -193,7 +194,7 @@ def test_dedup_filter_matches_jax_both_streams():
             .add(mk1(o).build()) \
             .add_sink(pkg.Sink_Builder(
                 lambda t: seen.append(t.value) if t else None).build())
-        g.run()
+        run_bounded(g)
         outs[pkg.__name__] = seen
     assert outs["windflow_tpu_torch"] == outs["windflow_tpu"] == [1, 5, 7, 9]
 

@@ -19,6 +19,7 @@ import torch
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.tpu import (Ffat_Windows_TPU_Builder, Filter_TPU_Builder,
                               Map_TPU_Builder, Reduce_TPU_Builder)
 from windflow_tpu.tpu.batch import BatchTPU
@@ -89,7 +90,7 @@ def _three_op(pkg, monkeypatch, fusion, p):
           .with_parallelism(p).build())
     g.add_source(src).add(m1).chain(flt).chain(m2) \
         .add_sink(pkg.Sink_Builder(sink).build())
-    g.run()
+    run_bounded(g)
     fused = [o for o in g.get_stats()["Operators"]
              if o["kind"] == _fused_kind(pkg)]
     return sorted(rows), fused
@@ -174,7 +175,7 @@ def _run_chain(pkg, monkeypatch, chain, fusion=True, megabatch=1,
                             np.array(ts)))
 
     mp.add_sink(pkg.Sink_Builder(sink).with_columns().build())
-    g.run()
+    run_bounded(g)
     fused = [o["replicas"][0] for o in g.get_stats()["Operators"]
              if o["kind"] == _fused_kind(pkg)]
     if fusion:
@@ -291,7 +292,7 @@ def test_megabatch_stateful_eos_inflight(monkeypatch):
             .chain(Filter(lambda f: f["value"] % 2 == 0).with_name("sf")
                    .build()) \
             .add_sink(pkg.Sink_Builder(sink).build())
-        g.run()
+        run_bounded(g)
         fused = next(o for o in g.get_stats()["Operators"]
                      if o["kind"] == _fused_kind(pkg))
         return sorted(rows), fused["replicas"][0]

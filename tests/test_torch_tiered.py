@@ -20,6 +20,7 @@ import torch
 
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
+from torch_waits import run_bounded
 from windflow_tpu.state import tiered as tiered_j
 from windflow_tpu.tpu import Map_TPU_Builder
 from windflow_tpu.tpu.batch import BatchTPU
@@ -76,7 +77,7 @@ def _run_graph(pkg, src, tiering=None, batch=8):
                  .with_output_batch_size(batch).build()) \
         .add(b.build()) \
         .add_sink(pkg.Sink_Builder(sink).with_name("snk").build())
-    g.run()
+    run_bounded(g)
     return sorted(rows), g
 
 

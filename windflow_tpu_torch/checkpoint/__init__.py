@@ -1,8 +1,7 @@
-"""Aligned-barrier checkpointing and crash recovery, FULL and synchronous.
+"""Aligned-barrier checkpointing and crash recovery.
 
-The port of ``windflow_tpu/checkpoint`` without its opt-in parts (delta
-snapshots, the async uploader): Flink-style aligned snapshots over the
-dataflow graph.
+The port of ``windflow_tpu/checkpoint`` (without the rescale hold point):
+Flink-style aligned snapshots over the dataflow graph.
 
 - a ``CheckpointCoordinator`` (owned by the ``PipeGraph``) opens a
   checkpoint epoch on a timer or on request; source replicas notice at
@@ -16,6 +15,11 @@ dataflow graph.
   to host numpy) into the ``CheckpointStore``;
 - when every worker has acknowledged, the coordinator commits the
   checkpoint atomically (manifest + directory rename);
+- opt-in (``with_checkpointing(delta=True, async_upload=True,
+  full_every=N)``): delta snapshots of the keyed device engines and blob
+  refs (``delta.py``, the store's ``refs``/``deps`` manifests), and an
+  uploader thread that writes the blobs off the workers (the
+  coordinator);
 - ``PipeGraph.run(restore_from=...)`` rebuilds the topology, restores
   every replica from the manifest's blobs and resumes the sources from
   their recorded positions.

@@ -1,14 +1,25 @@
 """CheckpointCoordinator: epoch generation, ack collection, atomic commit.
 
-Copy of ``windflow_tpu/checkpoint/coordinator.py`` without the async
-uploader and the rescale hold point. One coordinator per running
-PipeGraph. Triggering is a single integer bump of ``requested_id``;
-source replicas poll it on their own threads at tuple boundaries and
-inject the ``Barrier`` themselves, so the coordinator never touches a
-channel. Each worker acknowledges a checkpoint once, writing all of its
-replicas' blobs synchronously; the checkpoint commits (manifest + atomic
-rename, ``store.py``) when every worker of the graph has acked. Finalize
-listeners run on the acking worker's thread and must be cheap.
+Copy of ``windflow_tpu/checkpoint/coordinator.py`` without the rescale
+hold point. One coordinator per running PipeGraph. Triggering is a single
+integer bump of ``requested_id``; source replicas poll it on their own
+threads at tuple boundaries and inject the ``Barrier`` themselves, so the
+coordinator never touches a channel. Each worker acknowledges a
+checkpoint once with all of its replicas' blobs; the checkpoint commits
+(manifest + atomic rename, ``store.py``) when every worker of the graph
+has acked and every blob is written. Finalize listeners run on the
+thread that completes the epoch and must be cheap.
+
+Synchronous acks (the default) write the blobs on the worker's thread.
+With ``async_upload`` (the graph's ``with_checkpointing(async_upload=
+True)``, the JAX package's ``WF_CKPT_ASYNC``) an ack only queues the
+captured blobs for one background uploader thread and returns: the
+barrier then fences only the state CUT, and pickling, hashing and the
+fsync'd writes run off the worker. The captured blobs must own their data
+by then (every snapshot copies device and host state). A failed upload
+fails its epoch like a failed synchronous write, and is also kept in
+``upload_error``, which the graph raises when the run ends: the worker
+that took the snapshot has long moved on, so the run itself reports it.
 
 A checkpoint that can never complete (a worker crashed before its
 barrier) stays uncommitted: restore only ever sees fully-acked
@@ -18,19 +29,25 @@ naming the workers that never acked.
 
 from __future__ import annotations
 
+import queue
 import shutil
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Set
 
 from ..basic import WindFlowError
+from .delta import DEFAULT_FULL_EVERY
 from .store import CheckpointStore
+
+# seconds ``stop`` waits for the uploader to write what is queued
+UPLOAD_DRAIN_S = 120.0
 
 
 class CheckpointCoordinator:
     def __init__(self, store: CheckpointStore, graph_name: str = "pipegraph",
                  interval_s: Optional[float] = None,
-                 epoch_timeout_s: float = 0.0) -> None:
+                 epoch_timeout_s: float = 0.0, async_upload: bool = False,
+                 full_every: int = DEFAULT_FULL_EVERY) -> None:
         self.store = store
         self.graph_name = graph_name
         self.interval_s = interval_s
@@ -79,6 +96,20 @@ class CheckpointCoordinator:
         # worker roster, wired by PipeGraph: names make the timeout error
         # actionable
         self.worker_names: List[str] = []
+        # incremental captures: at least one FULL snapshot every
+        # ``full_every`` captures of an engine (the store's ``delta`` says
+        # whether deltas are on)
+        self.full_every = max(1, int(full_every))
+        # the async uploader: acks queue (epoch, worker, blobs, entry); an
+        # epoch finalizes once every worker acked AND every upload landed
+        # (ent["uploads"] == 0)
+        self.async_enabled = bool(async_upload)
+        self._upload_q: Optional[queue.Queue] = None
+        self._upload_thread: Optional[threading.Thread] = None
+        self.async_uploads = 0  # uploads completed (any outcome)
+        self.async_pending = 0  # uploads in flight
+        self.upload_usec_total = 0.0
+        self.upload_error: Optional[BaseException] = None
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -91,11 +122,24 @@ class CheckpointCoordinator:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop the interval timer, and let the uploader write what is
+        queued before it exits. An uploader still busy after
+        ``UPLOAD_DRAIN_S`` is recorded in ``upload_error``."""
         self._stop.set()
         t = self._thread
         if t is not None:
             t.join(timeout=3)
             self._thread = None
+        with self._lock:
+            q, ut = self._upload_q, self._upload_thread
+            self._upload_q = self._upload_thread = None
+        if ut is not None:
+            q.put(None)  # sentinel: drain the queued uploads, then exit
+            ut.join(timeout=UPLOAD_DRAIN_S)
+            if ut.is_alive() and self.upload_error is None:
+                self.upload_error = WindFlowError(
+                    f"checkpoint uploader of {self.graph_name!r} still "
+                    f"busy {UPLOAD_DRAIN_S:.0f}s after the run ended")
 
     def _run(self) -> None:
         while not self._stop.wait(self.interval_s):
@@ -138,7 +182,10 @@ class CheckpointCoordinator:
         """One worker's snapshot for one checkpoint: ``blobs`` maps
         ``(op_name, replica_idx)`` to the replica's state dict. Returns the
         bytes written (0 when the checkpoint is unknown or already
-        committed)."""
+        committed; also 0 with ``async_upload``, where the bytes count when
+        the upload lands)."""
+        if self.async_enabled:
+            return self._ack_async(ckpt_id, worker_name, blobs)
         nbytes = 0
         with self._store_lock:
             with self._lock:
@@ -164,10 +211,87 @@ class CheckpointCoordinator:
             ent["acked"].add(worker_name)
             ent["bytes"] += nbytes
             done = (self.expected_acks > 0
-                    and len(ent["acked"]) >= self.expected_acks)
+                    and len(ent["acked"]) >= self.expected_acks
+                    and ent.get("uploads", 0) == 0)
         if done:
             self._finalize(ckpt_id)
         return nbytes
+
+    # -- the async uploader ------------------------------------------------
+    def _ack_async(self, ckpt_id: int, worker_name: str,
+                   blobs: Dict[Any, Any]) -> int:
+        """Queue the captured blobs as one pending upload and return: the
+        barrier fenced only the state cut. The epoch cannot finalize until
+        this upload lands."""
+        with self._lock:
+            ent = self._pending.get(ckpt_id)
+            if ent is None:
+                return 0
+            ent["acked"].add(worker_name)
+            ent["uploads"] = ent.get("uploads", 0) + 1
+            self.async_pending += 1
+            if self._upload_thread is None:
+                self._upload_q = queue.Queue()
+                self._upload_thread = threading.Thread(
+                    target=self._upload_loop, args=(self._upload_q,),
+                    name=f"{self.graph_name}/ckpt-upload", daemon=True)
+                self._upload_thread.start()
+            # the entry rides along as an incarnation token: a re-begun
+            # epoch of the same id gets a fresh entry, and a stale upload
+            # must neither write into it nor fail it
+            self._upload_q.put((ckpt_id, worker_name, blobs, ent))
+        return 0
+
+    def _upload_loop(self, q: queue.Queue) -> None:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            self._upload_one(*item)
+
+    def _upload_one(self, ckpt_id: int, worker_name: str,
+                    blobs: Dict[Any, Any], ent: dict) -> None:
+        t0 = time.perf_counter()
+        nbytes = 0
+        failed: Optional[BaseException] = None
+        try:
+            with self._store_lock:
+                with self._lock:
+                    alive = self._pending.get(ckpt_id) is ent
+                if alive:
+                    for (op_name, idx), state in blobs.items():
+                        nbytes += self.store.write_blob(
+                            ckpt_id, op_name, idx, state)
+        except Exception as e:  # the uploader must outlive one bad upload
+            failed = e
+        dur_s = time.perf_counter() - t0
+        done = False
+        with self._lock:
+            self.async_pending -= 1
+            self.async_uploads += 1
+            self.upload_usec_total += dur_s * 1e6
+            stale = self._pending.get(ckpt_id) is not ent
+            if failed is not None:
+                if self.upload_error is None:
+                    self.upload_error = failed
+                if not stale:
+                    self._fail_epoch_storage_locked(ckpt_id, worker_name,
+                                                    failed)
+            elif not stale:
+                ent["uploads"] -= 1
+                ent["bytes"] += nbytes
+                ent["upload_s"] = ent.get("upload_s", 0.0) + dur_s
+                done = (self.expected_acks > 0
+                        and len(ent["acked"]) >= self.expected_acks
+                        and ent["uploads"] == 0)
+        if failed is not None:
+            if not stale:  # a re-begun epoch keeps its staging
+                shutil.rmtree(self.store._dirname(ckpt_id, staging=True),
+                              ignore_errors=True)
+                self._notify_aborted(ckpt_id)
+            return
+        if done:
+            self._finalize(ckpt_id)
 
     def retire(self, worker_name: str, blobs: Dict[Any, Any]) -> None:
         """A worker finished cleanly: remember its final blobs and ack them
@@ -210,6 +334,7 @@ class CheckpointCoordinator:
             self.history.append({"ckpt_id": ckpt_id,
                                  "duration_s": duration,
                                  "commit_s": commit_s,
+                                 "upload_s": ent.get("upload_s", 0.0),
                                  "bytes": ent["bytes"]})
             self._commit_cond.notify_all()
         for fn in listeners:
@@ -238,16 +363,19 @@ class CheckpointCoordinator:
         return msg
 
     def _fail_epoch_storage_locked(self, cid: int, worker_name: str,
-                                   err: OSError) -> str:
-        """Drop a pending epoch whose blob staging hit an OSError (lock
-        held): the epoch never finalizes, restore only ever sees fully
-        committed checkpoints."""
+                                   err: BaseException) -> str:
+        """Drop a pending epoch whose blob staging failed (lock held): the
+        epoch never finalizes, restore only ever sees fully committed
+        checkpoints."""
         self._pending.pop(cid, None)
-        msg = (f"checkpoint epoch {cid} aborted: storage write failure "
-               f"while worker {worker_name!r} staged its snapshot "
+        what = ("storage write failure" if isinstance(err, OSError)
+                else "snapshot write failure")
+        msg = (f"checkpoint epoch {cid} aborted: {what} while worker "
+               f"{worker_name!r} staged its snapshot "
                f"({type(err).__name__}: {err}) — staging debris pruned, "
                "the next interval retries")
-        self.storage_failures += 1
+        if isinstance(err, OSError):
+            self.storage_failures += 1
         self._record_failure_locked(cid, msg)
         return msg
 
@@ -359,4 +487,11 @@ class CheckpointCoordinator:
                 "Checkpoint_storage_failures": self.storage_failures,
                 "Checkpoint_verify_failures": self.store.verify_failures,
                 "Checkpoint_last_failure": self.last_failure,
+                "Checkpoint_delta_blobs": self.store.delta_blobs,
+                "Checkpoint_delta_bytes": self.store.delta_bytes,
+                "Checkpoint_full_bytes": self.store.full_bytes,
+                "Checkpoint_async_pending": self.async_pending,
+                "Checkpoint_async_uploads": self.async_uploads,
+                "Checkpoint_upload_usec_total": round(
+                    self.upload_usec_total, 1),
             }

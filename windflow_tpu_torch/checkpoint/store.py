@@ -1,7 +1,7 @@
 """CheckpointStore: the versioned on-disk layout of aligned snapshots.
 
-Copy of ``windflow_tpu/checkpoint/store.py`` without the incremental
-(delta) manifests. Layout under one root directory::
+Copy of ``windflow_tpu/checkpoint/store.py``. Layout under one root
+directory::
 
     <root>/
       ckpt_0000000003.inprogress/     # staging: blobs land here first
@@ -28,6 +28,23 @@ Content integrity: every blob's sha256 digest is recorded in the manifest
 at snapshot time, and restore re-hashes each blob before unpickling it —
 a torn, truncated or bit-flipped blob raises ``CorruptCheckpointError``
 naming the bad file instead of feeding garbage state into the graph.
+
+Incremental checkpoints (``CheckpointStore(..., delta=True)``, the
+graph's ``with_checkpointing(delta=True)``; the JAX package's
+``WF_CKPT_DELTA``) add two manifest maps. Manifests without them restore
+as before, and the store reads both kinds whatever its own switch:
+
+- ``refs: {fname: ancestor_ckpt_id}``: this epoch's blob is byte-identical
+  to the named committed ancestor's (same payload digest), so the file is
+  referenced, not rewritten. A ref always names the directory that
+  physically holds the bytes (one hop, never a ref of a ref).
+- ``deps: {fname: [base_ckpt_ids]}``: this epoch's blob is a state delta
+  (``delta.py``) patching the named base epochs' same-name blob;
+  ``load_states`` materializes the full state before returning it.
+
+``verify()`` hashes the transitive closure (refs and deps), so a corrupt
+ancestor flags every dependent epoch; ``prune`` keeps the closure of the
+retained epochs alive.
 """
 
 from __future__ import annotations
@@ -38,11 +55,13 @@ import os
 import pickle
 import re
 import shutil
+import sqlite3
 import threading
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..basic import CorruptCheckpointError, WindFlowError
+from . import delta as _delta
 
 MANIFEST = "manifest.json"
 FORMAT_VERSION = 1
@@ -95,9 +114,13 @@ class CheckpointStore:
                 lock = cls._root_locks[key] = threading.RLock()
             return lock
 
-    def __init__(self, root: str, retain: int = 3) -> None:
+    def __init__(self, root: str, retain: int = 3,
+                 delta: bool = False) -> None:
         self.root = root
         self.retain = max(1, int(retain))
+        # record an unchanged blob as a ref to its ancestor (incremental
+        # checkpoints); reading refs and deps needs no switch
+        self.delta = bool(delta)
         os.makedirs(root, exist_ok=True)
         # digests of staged blobs, ckpt_id -> {fname: "sha256:..."}, hashed
         # from the in-memory payload at write time; commit() folds them
@@ -107,6 +130,19 @@ class CheckpointStore:
         # digest-verification failures observed by this instance
         # (Checkpoint_verify_failures)
         self.verify_failures = 0
+        # incremental staging state: per-epoch blob refs (fname -> the
+        # ancestor cid physically holding identical bytes) and state-delta
+        # deps (fname -> the base cids the state patches), folded into the
+        # manifest at commit
+        self._refs: Dict[int, Dict[str, int]] = {}
+        self._deps: Dict[int, Dict[str, List[int]]] = {}
+        self._ref_base: Dict[int, Optional[int]] = {}
+        self._manifest_cache: Dict[int, Dict[str, Any]] = {}
+        # blobs not written in full form (ref'd or delta-form), the bytes
+        # those cost, and the bytes of full blobs (this instance)
+        self.delta_blobs = 0
+        self.delta_bytes = 0
+        self.full_bytes = 0
 
     # -- paths -------------------------------------------------------------
     def _dirname(self, ckpt_id: int, staging: bool = False) -> str:
@@ -121,21 +157,71 @@ class CheckpointStore:
         os.makedirs(staging, exist_ok=True)
         with self._digest_lock:
             self._digests.pop(ckpt_id, None)
+            self._refs.pop(ckpt_id, None)
+            self._deps.pop(ckpt_id, None)
+            # the dedup base of this epoch's blobs: the latest epoch
+            # COMMITTED when staging opened
+            self._ref_base[ckpt_id] = self.latest() if self.delta else None
+
+    def _committed_manifest(self, cid: int) -> Optional[Dict[str, Any]]:
+        """Manifest of a committed epoch, cached (committed manifests never
+        change; ``prune`` evicts what it deletes)."""
+        with self._digest_lock:
+            m = self._manifest_cache.get(cid)
+        if m is not None:
+            return m
+        try:
+            m = self.load_manifest(self._dirname(cid))
+        except (FileNotFoundError, CorruptCheckpointError):
+            return None
+        with self._digest_lock:
+            self._manifest_cache[cid] = m
+        return m
 
     # -- writes ------------------------------------------------------------
     def write_blob(self, ckpt_id: int, op_name: str, replica_idx: int,
                    state: Any) -> int:
         """Pickle one replica's snapshot into the staging dir (atomic
-        tmp+rename). Returns the byte size of the blob."""
+        tmp+rename). Returns the logical byte size of the snapshot.
+
+        With ``delta`` on, a payload whose digest equals the previous
+        committed epoch's same-name blob is recorded as a manifest ref
+        instead of rewritten: zero bytes for an unchanged replica."""
         staging = self._dirname(ckpt_id, staging=True)
         os.makedirs(staging, exist_ok=True)
         payload = pickle.dumps(
             {"op": op_name, "replica": replica_idx, "state": state},
             protocol=pickle.HIGHEST_PROTOCOL)
         fname = blob_name(op_name, replica_idx)
+        digest = _hash_bytes(payload)
+        bases = _delta.delta_bases(state)
         with self._digest_lock:
-            self._digests.setdefault(ckpt_id, {})[fname] = \
-                _hash_bytes(payload)
+            self._digests.setdefault(ckpt_id, {})[fname] = digest
+            if bases:
+                self._deps.setdefault(ckpt_id, {})[fname] = sorted(
+                    int(b) for b in bases)
+            else:
+                self._deps.get(ckpt_id, {}).pop(fname, None)
+            base_cid = self._ref_base.get(ckpt_id)
+        if base_cid is not None:
+            bman = self._committed_manifest(base_cid)
+            if bman is not None and \
+                    (bman.get("digests") or {}).get(fname) == digest:
+                # identical bytes already on disk: resolve through the
+                # base's own refs so the ref points one hop at the
+                # directory physically holding the blob
+                phys = int((bman.get("refs") or {}).get(fname, base_cid))
+                with self._digest_lock:
+                    self._refs.setdefault(ckpt_id, {})[fname] = phys
+                    self.delta_blobs += 1
+                return len(payload)
+        with self._digest_lock:
+            self._refs.get(ckpt_id, {}).pop(fname, None)
+            if bases:
+                self.delta_blobs += 1
+                self.delta_bytes += len(payload)
+            else:
+                self.full_bytes += len(payload)
         _atomic_write(os.path.join(staging, fname), payload)
         return len(payload)
 
@@ -157,9 +243,21 @@ class CheckpointStore:
         manifest["ckpt_id"] = ckpt_id
         with self._digest_lock:
             cached = self._digests.pop(ckpt_id, {})
-        manifest["blobs"] = self.staged_blobs(ckpt_id)
+            refs = dict(self._refs.pop(ckpt_id, {}))
+            deps = dict(self._deps.pop(ckpt_id, {}))
+            self._ref_base.pop(ckpt_id, None)
+        staged = self.staged_blobs(ckpt_id)
+        # a blob both staged and ref'd (re-written within one epoch) has
+        # identical bytes either way: prefer the local file
+        refs = {f: c for f, c in refs.items() if f not in staged}
+        manifest["blobs"] = sorted(set(staged) | set(refs))
+        if refs:
+            manifest["refs"] = {f: int(c) for f, c in sorted(refs.items())}
+        if deps:
+            manifest["deps"] = {f: [int(x) for x in b]
+                                for f, b in sorted(deps.items())}
         # blobs written through another store instance are not in the
-        # cache: hash the file
+        # cache: hash the file (a ref'd blob always is: a ref needs it)
         manifest["digests"] = {
             fname: cached.get(fname)
             or _hash_file(os.path.join(staging, fname))
@@ -168,6 +266,8 @@ class CheckpointStore:
                       json.dumps(manifest, indent=1).encode())
         shutil.rmtree(final, ignore_errors=True)  # same-id re-commit
         os.replace(staging, final)
+        with self._digest_lock:
+            self._manifest_cache[ckpt_id] = manifest
         self.prune()
         return final
 
@@ -177,8 +277,26 @@ class CheckpointStore:
         # blob read, so retention never deletes a checkpoint mid-read
         with self._lock_of(self.root):
             done = self.completed_ids()
-            for cid in done[:-self.retain]:
-                shutil.rmtree(self._dirname(cid), ignore_errors=True)
+            # keep the last `retain` epochs PLUS the closure of every epoch
+            # they reference or depend on: a delta chain's ancestor is
+            # never dropped while a retained manifest resolves into it
+            keep = set(done[-self.retain:])
+            frontier = list(keep)
+            while frontier:
+                m = self._committed_manifest(frontier.pop())
+                if m is None:
+                    continue
+                targets = {int(c) for c in (m.get("refs") or {}).values()}
+                for bases in (m.get("deps") or {}).values():
+                    targets.update(int(b) for b in bases)
+                for t in targets - keep:
+                    keep.add(t)
+                    frontier.append(t)
+            for cid in done:
+                if cid not in keep:
+                    shutil.rmtree(self._dirname(cid), ignore_errors=True)
+                    with self._digest_lock:
+                        self._manifest_cache.pop(cid, None)
             # staging debris older than the newest committed checkpoint can
             # never complete (its coordinator is gone)
             if done:
@@ -260,23 +378,62 @@ class CheckpointStore:
         ``prune`` cannot remove the blobs halfway through. Each blob is
         re-hashed against the manifest's digest BEFORE it is unpickled; a
         mismatch, a missing blob or an undecodable pickle raises
-        ``CorruptCheckpointError`` naming the bad file. A manifest of an
-        incremental checkpoint (the JAX package's ``refs``/``deps``) is
-        refused: delta checkpoints are not ported."""
-        if manifest.get("refs") or manifest.get("deps"):
-            raise WindFlowError(
-                f"checkpoint {ckpt_dir} is incremental (delta blobs); "
-                "delta checkpoints are not yet ported to "
-                "windflow_tpu_torch")
-        digests = manifest.get("digests") or {}
+        ``CorruptCheckpointError`` naming the bad file.
+
+        Incremental epochs restore transparently: a ref'd blob is read
+        from the ancestor directory holding it, and a delta-form state is
+        materialized against its base epoch's blob, so the caller always
+        receives FULL states. A missing or corrupt ancestor anywhere in
+        the chain raises ``CorruptCheckpointError``."""
         root = os.path.dirname(os.path.abspath(ckpt_dir)) or self.root
         out: Dict[Tuple[str, int], Any] = {}
         with self._lock_of(root):
             for fname in manifest.get("blobs", []):
-                blob = self._read_blob_checked(ckpt_dir, fname,
-                                               digests.get(fname))
-                out[(blob["op"], int(blob["replica"]))] = blob["state"]
+                state, op, rep = self._load_state_chain(root, ckpt_dir,
+                                                        manifest, fname)
+                out[(op, rep)] = state
         return out
+
+    def _load_state_chain(self, root: str, ckpt_dir: str,
+                          manifest: Dict[str, Any], fname: str
+                          ) -> Tuple[Any, str, int]:
+        """One blob's FULL state: read from where it physically lies (its
+        own directory or the ref'd ancestor's), then materialize a delta
+        form against the base epochs' same-name blob (recursive; engine
+        chains are one hop deep and a base is always a FULL snapshot)."""
+        refs = manifest.get("refs") or {}
+        blob_dir = ckpt_dir
+        if fname in refs:
+            blob_dir = os.path.join(root, f"ckpt_{int(refs[fname]):010d}")
+        blob = self._read_blob_checked(
+            blob_dir, fname, (manifest.get("digests") or {}).get(fname))
+        state = blob["state"]
+        bases = _delta.delta_bases(state)
+        if bases:
+            where = os.path.join(ckpt_dir, fname)
+            base_states: Dict[int, Any] = {}
+            for bcid in sorted(bases):
+                bdir = os.path.join(root, f"ckpt_{int(bcid):010d}")
+                try:
+                    bman = self.load_manifest(bdir)
+                except FileNotFoundError as e:
+                    self.verify_failures += 1
+                    raise CorruptCheckpointError(
+                        f"checkpoint blob {where}: state delta references "
+                        f"epoch {bcid}, whose manifest is missing "
+                        "(ancestor pruned or lost) — the delta chain "
+                        "cannot be materialized") from e
+                base_states[bcid] = self._load_state_chain(
+                    root, bdir, bman, fname)[0]
+            try:
+                state = _delta.materialize(state, base_states)
+            except (ValueError, KeyError, IndexError, TypeError,
+                    sqlite3.DatabaseError) as e:
+                self.verify_failures += 1
+                raise CorruptCheckpointError(
+                    f"checkpoint blob {where}: delta materialization "
+                    f"failed ({type(e).__name__}: {e})") from e
+        return state, blob["op"], int(blob["replica"])
 
     def _read_blob_checked(self, blob_dir: str, fname: str,
                            want: Optional[str]) -> Dict[str, Any]:
@@ -316,38 +473,79 @@ class CheckpointStore:
         committed checkpoint against its manifest, WITHOUT unpickling
         anything. Returns ``{ckpt_id: {"ok", "problems", "blobs", "bytes",
         "digested"}}``; never raises on corruption, so a damaged store can
-        be surveyed in one call."""
+        be surveyed in one call. Incremental epochs are checked over their
+        transitive closure: a ref'd blob is hashed where it lies, and a
+        delta blob's base epoch is verified for the same blob name, so one
+        corrupt ancestor flags every epoch whose chain passes through it."""
         ids = [ckpt_id] if ckpt_id is not None else self.completed_ids()
         report: Dict[int, Dict[str, Any]] = {}
+        memo: Dict[Tuple[int, str], List[str]] = {}
+        manifests: Dict[int, Any] = {}
         with self._lock_of(self.root):
             for cid in ids:
-                try:
-                    manifest = self.load_manifest(self._dirname(cid))
-                except (FileNotFoundError, CorruptCheckpointError) as e:
-                    report[cid] = {"ok": False, "problems": [str(e)],
+                manifest = self._verify_manifest_of(cid, manifests)
+                if isinstance(manifest, str):  # the load error
+                    report[cid] = {"ok": False, "problems": [manifest],
                                    "blobs": 0, "bytes": 0,
                                    "digested": False}
                     continue
-                digests = manifest.get("digests") or {}
                 problems: List[str] = []
                 nbytes = 0
                 for fname in manifest.get("blobs", []):
-                    path = os.path.join(self._dirname(cid), fname)
-                    try:
-                        nbytes += os.path.getsize(path)
-                        got = _hash_file(path)
-                    except OSError as e:
-                        problems.append(f"{fname}: unreadable "
-                                        f"({type(e).__name__}: {e})")
-                        continue
-                    want = digests.get(fname)
-                    if want is not None and got != want:
-                        problems.append(f"{fname}: digest mismatch "
-                                        f"(manifest {want}, file {got})")
+                    probs, size = self._verify_blob_closure(
+                        cid, fname, memo, manifests)
+                    problems.extend(probs)
+                    nbytes += size
                 report[cid] = {"ok": not problems, "problems": problems,
                                "blobs": len(manifest.get("blobs", [])),
-                               "bytes": nbytes, "digested": bool(digests)}
+                               "bytes": nbytes,
+                               "digested": bool(manifest.get("digests"))}
         return report
+
+    def _verify_manifest_of(self, cid: int, manifests: Dict[int, Any]):
+        """A manifest, or its load error as a string (once per sweep)."""
+        if cid not in manifests:
+            try:
+                manifests[cid] = self.load_manifest(self._dirname(cid))
+            except (FileNotFoundError, CorruptCheckpointError) as e:
+                manifests[cid] = str(e)
+        return manifests[cid]
+
+    def _verify_blob_closure(self, cid: int, fname: str,
+                             memo: Dict[Tuple[int, str], List[str]],
+                             manifests: Dict[int, Any]
+                             ) -> Tuple[List[str], int]:
+        """Problems of one blob AND of everything it refs or depends on,
+        with shared ancestors hashed once per sweep (``memo``). Returns
+        (problems, the blob's physical bytes)."""
+        key = (cid, fname)
+        if key in memo:
+            return memo[key], 0
+        memo[key] = probs = []
+        manifest = self._verify_manifest_of(cid, manifests)
+        if isinstance(manifest, str):
+            probs.append(f"{fname}: epoch {cid}: {manifest}")
+            return probs, 0
+        phys_cid = int((manifest.get("refs") or {}).get(fname, cid))
+        path = os.path.join(self._dirname(phys_cid), fname)
+        nbytes = 0
+        got = None
+        try:
+            nbytes = os.path.getsize(path)
+            got = _hash_file(path)
+        except OSError as e:
+            probs.append(f"{fname}: unreadable ({type(e).__name__}: {e})")
+        want = (manifest.get("digests") or {}).get(fname)
+        if want is not None and got is not None and got != want:
+            probs.append(f"{fname}: digest mismatch "
+                         f"(manifest {want}, file {got})")
+        for bcid in (manifest.get("deps") or {}).get(fname, []):
+            sub, _ = self._verify_blob_closure(int(bcid), fname, memo,
+                                               manifests)
+            for p in sub:
+                tail = p[len(fname) + 2:] if p.startswith(fname) else p
+                probs.append(f"{fname}: delta base epoch {bcid}: {tail}")
+        return probs, nbytes
 
     def quarantine(self, ckpt_id: int) -> Optional[str]:
         """Move a corrupt committed checkpoint out of the restore set by

@@ -17,7 +17,10 @@ for this system.
   package's ``CheckpointStore.load_states`` returns for one committed
   checkpoint (``{(op name, replica): state}``) and returns the port's
   replica states, which ``PipeGraph.run(restore_from=states)`` installs in
-  a graph of the same topology.
+  a graph of the same topology. An incremental JAX checkpoint (manifests
+  with ``refs``/``deps``) is read with the port's own
+  ``CheckpointStore(root).load_states``, which materializes its delta
+  chains into full states the same way the JAX store does.
 
 Both replicas then continue identically. This module takes the dicts
 only: it imports neither ``jax`` nor ``windflow_tpu``.
@@ -46,8 +49,8 @@ def ffat_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
                   "tvalid") if k not in snap]
     if missing:
         raise WindFlowError(f"ffat_state_from_jax: not a full FFAT snapshot "
-                            f"(missing {missing}); delta snapshots are not "
-                            "supported")
+                            f"(missing {missing}); materialize a delta "
+                            "with CheckpointStore.load_states first")
     out: Dict[str, Any] = {k: snap[k] for k in _SCALARS}
     out["slot_of_key"] = dict(snap["slot_of_key"])
     out["out_keys_by_slot"] = list(snap["out_keys_by_slot"])
@@ -73,13 +76,14 @@ def ffat_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
 
 def scan_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
     """A JAX ``_KeyedStateScan.snapshot_state()`` (a FULL one: a delta
-    snapshot carries only dirty rows and is refused) for the port's
-    engine. A tier blob passes through unchanged: its hot-table digest is
+    node carries only dirty rows and is refused; the store materializes
+    it) for the port's engine. A tier blob passes through unchanged: its hot-table digest is
     over the table's values, which the conversion keeps."""
     device = torch.device(device)
     if "slot_of_key" not in snap or "table_capacity" not in snap:
         raise WindFlowError("scan_state_from_jax: not a full keyed-state "
-                            "snapshot (delta snapshots are not supported)")
+                            "snapshot (materialize a delta with "
+                            "CheckpointStore.load_states first)")
     out: Dict[str, Any] = {"slot_of_key": dict(snap["slot_of_key"]),
                            "table_capacity": int(snap["table_capacity"])}
     table = snap.get("table")
@@ -113,13 +117,14 @@ def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
     through ``ffat_state_from_jax``, a stateful Map/Filter's ``"scan"``
     through ``scan_state_from_jax``; source positions, watermarks, host
     operator state and the emitter and collector entries pass through (the
-    two packages share their layout). A delta state is refused."""
+    two packages share their layout). A delta node is refused: the store's
+    ``load_states`` returns materialized states."""
     out = {}
     for key, state in states.items():
         if "__state_delta__" in state:
             raise WindFlowError(f"checkpoint_states_from_jax: {key} holds "
-                                "a delta state; delta checkpoints are not "
-                                "supported")
+                                "a delta node; materialize it with "
+                                "CheckpointStore.load_states first")
         st = dict(state)
         if "fused_sub_states" in st:
             st = fused_state_from_jax(st, device)

@@ -10,12 +10,14 @@ Transfers (in place of ``jax.device_put`` / ``copy_to_host_async``):
 
 - H2D: the staging emitter fills page-locked host tensors in place and
   ``stage_prefilled`` issues ``non_blocking`` copies on the current
-  stream. PyTorch's pinned-memory allocator records the copy's event, so a
-  staging buffer is never handed out again before its copy has landed. On
-  ``device="cpu"`` the batch's column IS the staging buffer
-  (``torch.from_numpy`` aliases it); the staging emitter hands ownership
-  over and allocates fresh buffers for the next batch, so nothing writes
-  to a buffer a batch still reads.
+  stream. The tensors come from the emitter's staging pool
+  (``recycling.py``): a CUDA event recorded right after the copies is
+  their release signal, and the ``InFlightRecycler`` hands them out again
+  only once it has fired. On ``device="cpu"`` the batch's column IS the
+  staging buffer (``torch.from_numpy`` aliases it), so the pool is off:
+  the staging emitter hands ownership over and allocates fresh buffers
+  for the next batch, and nothing writes to a buffer a batch still
+  reads.
 - D2H: ``prefetch_host`` starts ``non_blocking`` copies of the columns
   (all, or the ones named: a keyed edge needs only the key) into pinned
   host tensors and records one CUDA event (``host_copies``);
@@ -131,32 +133,47 @@ class BatchGPU(StreamMsg):
     @staticmethod
     def stage_prefilled(cols: Dict[str, torch.Tensor], ts: np.ndarray,
                         n: int, schema: TupleSchema, wm: int,
-                        device: torch.device,
-                        keys: Optional[Any] = None) -> "BatchGPU":
+                        device: torch.device, keys: Optional[Any] = None,
+                        recycler=None) -> "BatchGPU":
         """CPU->device from host staging tensors ALREADY padded to the
         capacity bucket and filled in place. Ownership of ``cols`` and
-        ``ts`` moves to the batch: the caller must not touch them again."""
+        ``ts`` moves to the batch: the caller must not touch them again.
+        With an enabled ``recycler`` the column tensors go back to its
+        pool once the event recorded after their copies has fired."""
         if device.type == "cpu":
             dev = {name: cols[name] for name in schema.fields}
         else:
             dev = {name: cols[name].to(device, non_blocking=True)
                    for name in schema.fields}
+        if recycler is not None and recycler.enabled:
+            event = None
+            if device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+            recycler.track(event, [cols[name] for name in schema.fields])
         return BatchGPU(dev, ts, n, schema, wm, keys)
 
     @staticmethod
     def stage_rows(rows, schema: TupleSchema, wm: int, device: torch.device,
                    keys: Optional[List[Any]] = None,
-                   capacity: Optional[int] = None) -> "BatchGPU":
-        """CPU->device from row tuples: columnarize, then stage."""
+                   capacity: Optional[int] = None,
+                   recycler=None) -> "BatchGPU":
+        """CPU->device from row tuples: columnarize (into pooled staging
+        tensors with an enabled ``recycler``), then stage."""
         cap = capacity or bucket_capacity(len(rows))
-        cols, ts = schema.to_columns(rows, cap)
-        host = {}
-        for name, col in cols.items():
-            buf = host_buffer(col.dtype, cap, device)
-            buf.numpy()[:] = col
-            host[name] = buf
+        pooled = recycler is not None and recycler.enabled
+        cols, ts = schema.to_columns(rows, cap,
+                                     recycler.pool if pooled else None)
+        if pooled:
+            host = cols
+        else:
+            host = {}
+            for name, col in cols.items():
+                buf = host_buffer(col.dtype, cap, device)
+                buf.numpy()[:] = col
+                host[name] = buf
         return BatchGPU.stage_prefilled(host, ts, len(rows), schema, wm,
-                                        device, keys)
+                                        device, keys, recycler)
 
     def with_fields(self, new_fields: Dict[str, torch.Tensor]
                     ) -> "BatchGPU":

@@ -11,7 +11,9 @@ The port of ``windflow_tpu/tpu/emitters_tpu.py``:
   buffer per destination (``routing.key_dests``); BROADCAST ships the
   batch to every destination, sharing its device columns. A partial batch
   older than ``MAX_STAGING_MS`` (25 ms) ships on the next append or idle
-  tick.
+  tick. On a card the staging tensors come from the emitter's pool and
+  return to it once the event after their copies has fired
+  (``recycling.py``; ``Staging_pool_hits`` / ``_misses``).
 - ``GPUForwardEmitter`` / ``GPUBroadcastEmitter`` (device -> device):
   whole batches round-robin, or one to every destination (sharing the
   columns). A keyed consumer's key column starts its copy to the host
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from ..basic import ExecutionMode, WindFlowError
+from ..recycling import ArrayPool, InFlightRecycler
 from ..runtime.emitters import (BasicEmitter, SplittingEmitter,
                                 check_branch_index)
 from .batch import (BatchGPU, bucket_capacity, host_buffer, key_column_np,
@@ -99,6 +102,22 @@ class GPUStageEmitter(BasicEmitter):
         self._rr = 0
         self._stage_age_s = MAX_STAGING_MS / 1e3
         self._first_append: List[Optional[float]] = [None] * n_bufs
+        # staging-buffer recycling over the asynchronous H2D copies (the
+        # reference's per-emitter pools and in-transit counters,
+        # recycling_gpu.hpp); off on the CPU
+        self.recycler = InFlightRecycler(
+            ArrayPool(alloc=lambda dt, cap: host_buffer(dt, cap, device)),
+            device=device)
+        self._pool_seen = (0, 0)  # (hits, misses) already in the stats
+
+    def _update_pool_stats(self) -> None:
+        """Add the pool's counter DELTAS: emitters of several split
+        branches may share one stats record."""
+        p = self.recycler.pool
+        h0, m0 = self._pool_seen
+        self.stats.staging_pool_hits += p.hits - h0
+        self.stats.staging_pool_misses += p.misses - m0
+        self._pool_seen = (p.hits, p.misses)
 
     # -- row path ----------------------------------------------------------
     def emit(self, payload: Any, ts: int, wm: int) -> None:
@@ -146,7 +165,7 @@ class GPUStageEmitter(BasicEmitter):
         keys = self._keys[buf] if self.key_extractor is not None else None
         cap = bucket_capacity(max(self.output_batch_size, len(rows)))
         batch = BatchGPU.stage_rows(rows, self.schema, self._wms[buf],
-                                    self.device, keys, cap)
+                                    self.device, keys, cap, self.recycler)
         self._rows[buf] = []
         self._keys[buf] = []
         self._dispatch_batch(buf, batch, len(rows))
@@ -162,7 +181,7 @@ class GPUStageEmitter(BasicEmitter):
             keys = kparts[0] if len(kparts) == 1 else np.concatenate(kparts)
         batch = BatchGPU.stage_prefilled(
             self._cbuf[buf], self._cts[buf], n, self.schema,
-            self._wms[buf], self.device, keys)
+            self._wms[buf], self.device, keys, self.recycler)
         self._cbuf[buf] = self._cnp[buf] = self._cts[buf] = None
         self._ckparts[buf] = []
         self._ccount[buf] = 0
@@ -172,6 +191,7 @@ class GPUStageEmitter(BasicEmitter):
         if self.stats is not None:
             self.stats.outputs_sent += n
             self.stats.device_bytes_h2d += batch.nbytes()
+            self._update_pool_stats()
         self._first_append[buf] = None
         if self.routing == "broadcast":
             _send_to_all(self, batch)
@@ -186,6 +206,14 @@ class GPUStageEmitter(BasicEmitter):
     def flush(self) -> None:
         for buf in range(len(self._rows)):
             self._ship(buf)
+
+    def send_eos_all(self) -> None:
+        super().send_eos_all()
+        # every tracked staging buffer back to the pool. Only here: the
+        # JAX package drains at every flush (punctuation too), but the
+        # release events sit on the card's shared stream, so a drain
+        # waits for all the work queued before them
+        self.recycler.drain()
 
     # -- columnar path -------------------------------------------------------
     def _key_column(self, cols, n: int) -> Optional[np.ndarray]:
@@ -250,8 +278,10 @@ class GPUStageEmitter(BasicEmitter):
         off = 0
         while off < n:
             if self._cbuf[buf] is None:
+                pool = self.recycler.pool if self.recycler.enabled else None
                 self._cbuf[buf] = {
-                    nm: host_buffer(dt, cap, self.device)
+                    nm: (pool.acquire(dt, cap) if pool is not None
+                         else host_buffer(dt, cap, self.device))
                     for nm, dt in self.schema.fields.items()}
                 self._cnp[buf] = {nm: t.numpy()
                                   for nm, t in self._cbuf[buf].items()}

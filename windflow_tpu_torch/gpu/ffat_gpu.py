@@ -46,7 +46,9 @@ import numpy as np
 import torch
 
 from ..basic import OpType, RoutingMode, WinType, WindFlowError
+from ..checkpoint import delta as ckpt_delta
 from ..kernels.forest_rebuild import forest_rebuild
+from ..pytree import tree_leaves
 from .batch import BatchGPU, to_device
 from .keymap import KeySlotMap, group_positions
 from .ops_gpu import GPUOperatorBase, GPUReplicaBase, op_batch_keys_np
@@ -144,6 +146,19 @@ class FfatGPUReplica(GPUReplicaBase):
         self._ktable_kd = None
         self._ktable_dirty = True
         self.ignored = 0
+        # incremental checkpoints: the host-side set of dirty slots since
+        # the last FULL snapshot taken under deltas (the delta base).
+        # Ingest and fire mark the slots they touch, and a delta ships
+        # only those rows of the per-slot arrays and the forest. A level
+        # rebuild rewrites internal tree rows forest-wide, and growth
+        # changes the geometry: both force the next snapshot FULL
+        # (_dirty_all), as in the JAX package
+        self._ckpt_dirty: set = set()
+        self._dirty_all = False
+        self._delta_base: Optional[int] = None
+        self._snaps_since_full = 0
+        self._base_nkeys: Optional[int] = None
+        self._base_geom = None  # (K_cap, F, forest allocated) at the base
         # device forest (shaped once the lift output is known): per field
         # a flat buffer of K_cap*2F + 1 elements (the last one is the
         # scratch target of masked scatter lanes) and its (K_cap, 2F) view
@@ -344,6 +359,7 @@ class FfatGPUReplica(GPUReplicaBase):
         self._rebuild()
         self.stats.device_programs_run += 1
         self._rebuild_dirty = False
+        self._dirty_all = True  # the rebuild rewrote internal rows
 
     # ==================================================================
     # host control plane
@@ -389,6 +405,7 @@ class FfatGPUReplica(GPUReplicaBase):
         if planes is not None:
             self._install_forest(planes)
         self._ktable_dirty = True
+        self._dirty_all = True  # geometry changed under the delta base
 
     def _grow_ring(self, needed_span: int) -> None:
         """BUILD-THEN-COMMIT, like ``_grow_keys`` (F and the migrated
@@ -421,6 +438,7 @@ class FfatGPUReplica(GPUReplicaBase):
         # only leaves were carried over: internal levels need a rebuild
         # before any fire-only program may query them
         self._rebuild_dirty = True
+        self._dirty_all = True  # geometry changed under the delta base
 
     def _ensure_forest(self, sample_fields) -> None:
         """Shape the forest from the lift's output dtypes on a one-row
@@ -478,6 +496,9 @@ class FfatGPUReplica(GPUReplicaBase):
             n_rows = n
             ts_rows = batch.ts_host[:n]
         slots = self._keymap.slots_of(keys, keys_arr, n_rows)
+        if self._delta_base is not None and n_rows:
+            # every slot this batch touches is dirty against the base
+            self._ckpt_dirty.update(np.unique(slots).tolist())
         if op.win_type is WinType.TB:
             leaves = ts_rows // op.pane_len
         else:
@@ -609,6 +630,9 @@ class FfatGPUReplica(GPUReplicaBase):
         wid0 = self.fired[slots].copy()
         self.next_fire[slots] += k * self.slide_units
         self.fired[slots] += k
+        if self._delta_base is not None:
+            # firing advances the bookkeeping and evicts ring panes
+            self._ckpt_dirty.update(slots.tolist())
         return slots, start0, k, wid0, self.max_leaf[slots].copy()
 
     @staticmethod
@@ -725,6 +749,7 @@ class FfatGPUReplica(GPUReplicaBase):
                 self._ingest(fields, seg)
                 self._rebuild()
                 self._rebuild_dirty = False
+                self._dirty_all = True  # ... and rewrote internal rows
             out = self._fire_and_evict(f_pack, e_pack)
             self.stats.device_programs_run += 1
             self._emit_windows(wm, chunks, n_out, *out, budget)
@@ -794,14 +819,76 @@ class FfatGPUReplica(GPUReplicaBase):
     # installs it. ``load_state`` installs the inner ``"ffat"`` dict
     # (``convert.ffat_state_from_jax`` prepares one from the JAX package).
     # The rebuild flag (``rebuild_dirty``) travels in the blob, so a
-    # restored forest is rebuilt before its first query.
+    # restored forest is rebuilt before its first query. Under a
+    # checkpoint's capture with deltas on, ``"ffat"`` may be a delta node
+    # (``_snapshot_ffat_delta``).
     def snapshot_state(self) -> dict:
         st = super().snapshot_state()  # drains the dispatch queue
+        ctx = ckpt_delta.snapshot_ctx()
+        if (self.trees is not None and not self._dirty_all
+                and self._base_geom == (self.K_cap, self.F, True)
+                and ckpt_delta.delta_eligible(
+                    self._delta_base, self._snaps_since_full, ctx)):
+            self._snaps_since_full += 1
+            st["ffat"] = self._snapshot_ffat_delta()
+            return st
         st["ffat"] = self._ffat_state()
+        if ckpt_delta.starts_lineage(ctx):
+            # this FULL capture is the new delta base (the capture runs
+            # after the drain: no commit in flight races the reset)
+            self._delta_base = ctx.ckpt_id
+            self._base_geom = (self.K_cap, self.F, self.trees is not None)
+            self._base_nkeys = len(self.slot_of_key)
+            self._snaps_since_full = 0
+            self._ckpt_dirty = set()
+            self._dirty_all = False
         return st
+
+    def _snapshot_ffat_delta(self) -> dict:
+        """A delta against the last FULL snapshot: only the dirty slot rows
+        of every per-slot array and forest plane, plus the small replaced
+        fields. Every row is a copy the blob owns."""
+        sl = np.asarray(sorted(self._ckpt_dirty), dtype=np.int64)
+        rows = {name: {"slots": sl, "leaves": [getattr(self, attr)[sl]]}
+                for name, attr in (("next_fire", "next_fire"),
+                                   ("fired", "fired"),
+                                   ("max_leaf", "max_leaf"),
+                                   ("count", "count"),
+                                   ("keys_np", "_keys_np"))}
+        idx = torch.from_numpy(sl).to(self.device)
+        rows["trees"] = {"slots": sl, "leaves": [
+            t[idx].cpu().numpy() for t in tree_leaves(self.trees)]}
+        rows["tvalid"] = {"slots": sl,
+                          "leaves": [self.tvalid[idx].cpu().numpy()]}
+        repl = {"K_cap": self.K_cap, "F": self.F,
+                "keys_all_int": self._keys_all_int,
+                "key_dtype": self._key_dtype,
+                "saw_new_key": self._saw_new_key,
+                "leaf_frontier": self._leaf_frontier,
+                "fire_ewma": self._fire_ewma,
+                "rebuild_dirty": self._rebuild_dirty,
+                "ignored": self.ignored}
+        carry = []
+        if len(self.slot_of_key) == self._base_nkeys:
+            # slots are append-only between rebuilds (a rebuild forces a
+            # FULL snapshot), so an unchanged key count is an unchanged
+            # directory: zero-byte carry
+            carry += ["slot_of_key", "out_keys_by_slot"]
+        else:
+            repl["slot_of_key"] = dict(self.slot_of_key)
+            repl["out_keys_by_slot"] = list(self._out_keys_by_slot)
+        return ckpt_delta.make_delta(self._delta_base, rows=rows,
+                                     replace=repl, carry=carry or None)
 
     def restore_state(self, state: dict) -> None:
         super().restore_state(state)
+        # a restored replica starts a fresh delta lineage
+        self._ckpt_dirty = set()
+        self._dirty_all = False
+        self._delta_base = None
+        self._snaps_since_full = 0
+        self._base_geom = None
+        self._base_nkeys = None
         d = state.get("ffat")
         if d is not None:
             self.load_state(d)

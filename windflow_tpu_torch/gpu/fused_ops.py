@@ -40,11 +40,14 @@ to K queued same-signature commits to ``_run_megabatch``, the counterpart
 of the JAX package's ``lax.scan``: a Python loop of ``_chain_body`` over
 the K batches in submission order, their readbacks all started before the
 first wait, then the K emits. Each body reads and updates the state
-tables in place, so the tables thread from batch to batch as the scan's
-carry does, and the batches are those of K single commits.
+tables and their dirty bitmaps in place, so both thread from batch to
+batch as the scan's carry does (a delta snapshot after the group ships
+the rows of all K batches), and the batches are those of K single
+commits.
 
 ``snapshot_state`` records the chain's signature and one entry per
-sub-op (the engine's state, or None), and ``restore_state`` refuses a
+sub-op (the engine's state, FULL or under a delta capture a delta node,
+or None), and ``restore_state`` refuses a
 blob from a differently fused topology. ``FusedFfatReplica`` (bottom of
 this module) is the window-terminated variant: the STATELESS map/filter
 prefix composes INTO the ``Ffat_Windows_GPU`` step through the

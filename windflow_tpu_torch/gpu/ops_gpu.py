@@ -60,6 +60,7 @@ import torch
 
 from ..basic import (ExecutionMode, KeyCapacityError, OpType, RoutingMode,
                      WindFlowError)
+from ..checkpoint import delta as ckpt_delta
 from ..operators.base import BasicOperator, BasicReplica
 from ..pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..runtime.dispatch import DeviceDispatchQueue
@@ -631,6 +632,12 @@ class _KeyedStateScan:
     rows into a fresh table only after draining the commits in flight.
     With ``with_tiering`` the table is the hot tier of a
     ``TieredKeyStore``, fixed at ``hot_capacity``.
+
+    Under ``with_checkpointing(delta=True)`` a FULL snapshot taken for a
+    checkpoint becomes the engine's delta base: the bitmap (and a tiered
+    store's cold WAL) restart from it, and later captures ship only the
+    dirty rows (``snapshot_state``) until the FULL cadence is due, the
+    table grows, or a restore starts a fresh lineage.
     """
 
     def __init__(self, replica, func: Callable, state_init: Any,
@@ -657,6 +664,13 @@ class _KeyedStateScan:
         self.table = None  # pytree of (table_capacity + 1,) tensors
         self.dirty = None  # (table_capacity + 1,) bool
         self._progs: Dict[tuple, Callable] = {}
+        # delta lineage: the epoch of the last FULL snapshot taken for a
+        # checkpoint with deltas on, captures since, and the capacity and
+        # key count at that base
+        self._delta_base: Optional[int] = None
+        self._snaps_since_full = 0
+        self._base_capacity: Optional[int] = None
+        self._base_nkeys: Optional[int] = None
         self.tier = None
         cfg = getattr(self.op, "tiering", None)
         if cfg is not None:
@@ -843,22 +857,59 @@ class _KeyedStateScan:
         return (None if self.table is None else
                 tree_map(lambda t: t[:cap].cpu().numpy().copy(), self.table))
 
-    def snapshot_state(self, delta: bool = False) -> dict:
-        """A FULL snapshot, under a checkpoint coordinator too. The JAX
-        package ships a DELTA of the dirty rows when its coordinator
-        allows one; asking for that (``delta=True``) raises, as it is not
-        ported yet."""
-        if delta:
-            raise WindFlowError(f"{self.op.name}: incremental (delta) "
-                                "snapshots are not yet ported to "
-                                "windflow_tpu_torch")
+    def snapshot_state(self) -> dict:
+        """The engine's state: FULL, or, under a checkpoint's capture with
+        deltas on (``checkpoint/delta.py``), a DELTA of the rows dirtied
+        since the engine's last FULL snapshot when ``delta_eligible``
+        allows one (the JAX package's rule). A base needs a table of the
+        current capacity: growth and restores start a new lineage."""
+        ctx = ckpt_delta.snapshot_ctx()
+        has_base = (self.table is not None and self.dirty is not None
+                    and self._delta_base is not None
+                    and self._base_capacity == self.table_capacity)
+        if has_base and ckpt_delta.delta_eligible(
+                self._delta_base, self._snaps_since_full, ctx):
+            return self._snapshot_delta()
         table = self._host_table()
         d = {"slot_of_key": dict(self.slot_of_key),
              "table_capacity": self.table_capacity,
              "table": table}
         if self.tier is not None:
             d["tier"] = self.tier.snapshot(hot_digest=hot_table_digest(table))
+        if ckpt_delta.starts_lineage(ctx):
+            # this capture is the new delta base: the bitmap and the cold
+            # WAL restart here (the capture runs after the drain, so no
+            # commit in flight can race the reset). A base without a table
+            # cannot be patched: the next capture is FULL again
+            self._delta_base = ctx.ckpt_id
+            self._base_capacity = (None if self.table is None
+                                   else self.table_capacity)
+            self._base_nkeys = len(self.slot_of_key)
+            self._snaps_since_full = 0
+            if self.dirty is not None:
+                self.dirty.zero_()
+            if self.tier is not None:
+                self.tier.wal_reset()
         return d
+
+    def _snapshot_delta(self) -> dict:
+        """The dirty rows since the base, as a delta node (the JAX
+        package's DELTA branch): the key directory rides as a zero-byte
+        carry when no key registered since the base (dense slots are
+        append-only, so an unchanged count is an unchanged mapping; tier
+        swaps remap at constant size, so a tiered engine never carries)."""
+        self._snaps_since_full += 1
+        repl, carry = {}, []
+        if self.tier is None and len(self.slot_of_key) == self._base_nkeys:
+            carry += ["slot_of_key", "table_capacity"]
+        else:
+            repl["slot_of_key"] = dict(self.slot_of_key)
+            repl["table_capacity"] = self.table_capacity
+        if self.tier is not None:
+            repl["tier"] = self.tier.snapshot_delta(self._delta_base)
+        return ckpt_delta.make_delta(
+            self._delta_base, rows={"table": self._dirty_rows()},
+            replace=repl or None, carry=carry or None)
 
     def _dirty_rows(self) -> dict:
         """Host copies of just the dirty slot rows, one gathered column per
@@ -888,7 +939,13 @@ class _KeyedStateScan:
         return tree_unflatten(self._spec, out)
 
     def restore_state(self, state: dict) -> None:
-        self.dirty = None  # a restored table starts a fresh bitmap
+        # a restored table starts a fresh bitmap and a fresh delta lineage:
+        # the next checkpoint's capture is FULL
+        self.dirty = None
+        self._delta_base = None
+        self._snaps_since_full = 0
+        self._base_capacity = None
+        self._base_nkeys = None
         tier_blob = state.get("tier")
         if tier_blob is not None and self.tier is None:
             raise WindFlowError(

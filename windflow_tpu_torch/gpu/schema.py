@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..basic import WindFlowError
+from ..recycling import host_view
 
 _DTYPE_MAP = {
     int: np.int32,
@@ -61,18 +62,28 @@ class TupleSchema:
             flds[k] = dt if dt is not None else np.asarray(v).dtype
         return TupleSchema(flds, ctor)
 
-    def to_columns(self, rows: Sequence[Tuple[Any, int]], capacity: int
-                   ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
-        """Rows [(payload, ts)] -> padded columnar arrays + int64 ts."""
-        cols = {name: np.zeros(capacity, dtype=dt)
-                for name, dt in self.fields.items()}
+    def to_columns(self, rows: Sequence[Tuple[Any, int]], capacity: int,
+                   pool=None) -> Tuple[Dict[str, Any], np.ndarray]:
+        """Rows [(payload, ts)] -> padded columnar arrays + int64 ts. With
+        ``pool`` (a ``recycling.ArrayPool``) the column buffers come from
+        its free lists and are returned as it hands them out (pinned
+        tensors on the staging edge); the caller returns them to it once
+        the H2D copies have read them. ``ts`` is never pooled: it becomes
+        the batch's host metadata and lives as long as the batch."""
+        if pool is not None:
+            bufs = {name: pool.acquire(dt, capacity)
+                    for name, dt in self.fields.items()}
+            cols = {name: host_view(b) for name, b in bufs.items()}
+        else:
+            cols = bufs = {name: np.zeros(capacity, dtype=dt)
+                           for name, dt in self.fields.items()}
         ts = np.zeros(capacity, dtype=np.int64)
         by_item = bool(rows) and isinstance(rows[0][0], dict)
         for i, (p, t) in enumerate(rows):
             ts[i] = t
             for name in self._names:
                 cols[name][i] = p[name] if by_item else getattr(p, name)
-        return cols, ts
+        return bufs, ts
 
     def from_columns(self, cols: Dict[str, np.ndarray], ts: np.ndarray,
                      n: int) -> List[Tuple[Any, int]]:

@@ -41,6 +41,9 @@ class StatsRecord:
         "checkpoint_last_snapshot_us", "checkpoint_bytes_total",
         "checkpoint_align_total_us", "checkpoint_cut_total_us",
         "checkpoint_last_cut_us",
+        # staging-buffer recycling (recycling.py): pool hits and misses of
+        # the CPU -> device staging edge
+        "staging_pool_hits", "staging_pool_misses",
         # tiered keyed state (state/tiered.py): hot/cold key gauges, the
         # batched promote/demote counters with promote time, and the
         # lookup/miss counters behind Tier_miss_rate. tier_enabled marks
@@ -97,6 +100,8 @@ class StatsRecord:
         self.checkpoint_align_total_us = 0.0
         self.checkpoint_cut_total_us = 0.0
         self.checkpoint_last_cut_us = 0.0
+        self.staging_pool_hits = 0
+        self.staging_pool_misses = 0
         self.tier_enabled = False
         self.tier_hot_keys = 0
         self.tier_cold_keys = 0
@@ -173,9 +178,10 @@ class StatsRecord:
                         align_us: float,
                         cut_us: Optional[float] = None) -> None:
         """One aligned snapshot of this replica's worker chain: capture
-        time, blob bytes written, how long barrier alignment stalled the
-        chain (0 for single-input workers), and the barrier cut pause
-        (barrier at the worker -> ack; the capture time when not given)."""
+        time, blob bytes written (0 when the coordinator uploads them
+        asynchronously), how long barrier alignment stalled the chain (0
+        for single-input workers) and the barrier cut pause (barrier at
+        the worker -> ack; the capture time when not given)."""
         if cut_us is None:
             cut_us = snapshot_us
         self.checkpoints_taken += 1
@@ -274,6 +280,8 @@ class StatsRecord:
                 self.checkpoint_cut_total_us, 1),
             "Checkpoint_cut_pause_usec": round(
                 self.checkpoint_last_cut_us, 1),
+            "Staging_pool_hits": self.staging_pool_hits,
+            "Staging_pool_misses": self.staging_pool_misses,
             "Queue_depth_max": getattr(ch, "depth_max", 0),
             "Queue_emit_fifo_depth_max": self.pipe_depth_max,
             "Worker_idle_ticks": self.worker_idle_ticks,

@@ -167,7 +167,9 @@ class ReduceReplica(BasicReplica):
     # -- checkpointing -------------------------------------------------------
     def snapshot_state(self) -> dict:
         st = super().snapshot_state()
-        st["key_state"] = self.key_state
+        # a copy the blob owns: an asynchronous upload pickles it while
+        # this replica goes on updating its states
+        st["key_state"] = copy.deepcopy(self.key_state)
         return st
 
     def restore_state(self, state: dict) -> None:

@@ -26,6 +26,7 @@ import time
 import traceback
 from typing import Any, List, Optional
 
+from ..checkpoint.delta import capturing
 from ..message import EOS, Barrier
 from .channel import Channel
 from .collectors import BarrierAligner
@@ -183,8 +184,12 @@ class Worker(threading.Thread):
         emitter feeding the next node, so every pre-barrier tuple reaches
         downstream channels BEFORE the barrier; (2) the barrier goes
         downstream through the last emitter, which drains its D2H
-        pipeline first; (3) state capture (device state copied to host
-        numpy; the copies are synchronous); (4) ack with the blobs — the
+        pipeline first; (3) state capture under the snapshot context
+        (``checkpoint/delta.py``: engines that track their touched slots
+        may emit a delta against their last FULL snapshot), device state
+        copied to host numpy with synchronous copies, so the blobs own
+        their data when (4) the ack hands them over — written here, or
+        queued for the coordinator's uploader with ``async_upload``. The
         coordinator commits once every worker has acked."""
         coord = self.coordinator
         if coord is None:
@@ -202,7 +207,9 @@ class Worker(threading.Thread):
         if last is not None and last.emitter is not None:
             last.emitter.send_barrier_all(barrier)
         t_cap = time.perf_counter()
-        blobs = self._capture_blobs()
+        with capturing(barrier.ckpt_id, coord.store, coord.store.delta,
+                       coord.full_every):
+            blobs = self._capture_blobs()
         snapshot_us = (time.perf_counter() - t_cap) * 1e6
         nbytes = coord.ack(barrier.ckpt_id, self.name, blobs)
         cut_us = (time.perf_counter() - t0) * 1e6

@@ -26,9 +26,15 @@ transfers.
 The JAX package reads its default policy, cold-store directory and the
 shrink floor from ``WF_TIER_*``; the port reads no environment variable:
 they are ``TierConfig`` arguments with the same defaults ("lru", a
-directory under the system's temp directory, 64). The incremental
-checkpoint path (``snapshot_delta``, the cold store's write-ahead log)
-belongs to the checkpoint plane and is not ported yet.
+directory under the system's temp directory, 64).
+
+Incremental checkpoints (``with_checkpointing(delta=True)``): the cold
+store keeps a write-ahead log of its puts and deletes since the tier's
+last FULL snapshot, so a delta ships that churn (``snapshot_delta``)
+instead of the whole sqlite image, and ``apply_tier_delta`` replays it on
+the base image at restore. The log starts at the first FULL snapshot
+taken under deltas (``wal_reset``), which is where the JAX package's
+log, on from the start under ``WF_CKPT_DELTA``, is reset too.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..basic import CorruptCheckpointError, KeyCapacityError, WindFlowError
+from ..checkpoint.delta import make_tier_delta
 from ..persistent.cache import _CACHE_POLICIES, make_cache
 from ..persistent.db_handle import DBHandle
 from ..pytree import tree_leaves
@@ -130,15 +137,26 @@ class ColdStore:
         # cached row count (the gauges read len() every batch); exact
         # because a demoted key is never already cold. None = recount
         self._count: Optional[int] = 0 if fresh else None
+        # write-ahead log of the puts and deletes since the last FULL
+        # image, collapsed per key (a re-put cancels its delete and the
+        # other way round); on once a delta lineage starts (wal_reset)
+        self.wal_enabled = False
+        self._wal_puts: Dict[Any, Any] = {}
+        self._wal_dels: set = set()
 
     def put_rows(self, keys: List[Any], leaf_cols: List[np.ndarray]) -> None:
         """Batched demote write: ``leaf_cols[l][i]`` is leaf ``l`` of
         ``keys[i]``'s state row; committed per batch."""
         if not keys:
             return
-        self.db.put_many((k, tuple(col[i] for col in leaf_cols))
-                         for i, k in enumerate(keys))
+        rows = [(k, tuple(col[i] for col in leaf_cols))
+                for i, k in enumerate(keys)]
+        self.db.put_many(iter(rows))
         self.db._conn.commit()
+        if self.wal_enabled:
+            for k, row in rows:
+                self._wal_puts[k] = row
+                self._wal_dels.discard(k)
         if self._count is not None:
             self._count += len(keys)
 
@@ -161,9 +179,23 @@ class ColdStore:
                 cols[li][i] = v
         if taken:
             self.db.delete_many(taken)
+            if self.wal_enabled:
+                for k in taken:
+                    self._wal_dels.add(k)
+                    self._wal_puts.pop(k, None)
             if self._count is not None:
                 self._count -= len(taken)
         return cols, len(taken)
+
+    # -- the write-ahead log of incremental checkpoints ----------------------
+    def wal_snapshot(self) -> Tuple[List[Tuple[Any, Any]], List[Any]]:
+        """(puts, deletes) since the last ``wal_reset``: the cold tier's
+        churn against its last FULL image."""
+        return list(self._wal_puts.items()), list(self._wal_dels)
+
+    def wal_reset(self) -> None:
+        self._wal_puts.clear()
+        self._wal_dels.clear()
 
     def __len__(self) -> int:
         if self._count is None:
@@ -173,6 +205,7 @@ class ColdStore:
     def clear(self) -> None:
         self.db.clear()
         self._count = 0
+        self.wal_reset()
 
     def items(self):
         return self.db.items()
@@ -183,6 +216,7 @@ class ColdStore:
     def restore_bytes(self, data: bytes) -> None:
         self.db.restore_bytes(data)
         self._count = None
+        self.wal_reset()  # the restored image is the new FULL baseline
 
     def close(self) -> None:
         self.db.close()
@@ -242,6 +276,27 @@ def build_tier_blob(policy: str, hot_capacity: int, free_slots, order,
     if hot_digest is not None:
         d["digests"]["hot"] = hot_digest
     return d
+
+
+def apply_tier_delta(base_blob: dict, node: dict) -> dict:
+    """A FULL tier sub-blob from a base epoch's FULL blob and a WAL delta
+    node (``checkpoint.delta.make_tier_delta``): decode the base cold
+    image, replay the collapsed puts and deletes, rebuild the image and
+    stamp its fresh cold digest (the manifest's whole-blob digest pins the
+    delta itself)."""
+    items = dict(cold_items_from_image(base_blob.get("cold_image")
+                                       or cold_image_from_items([])))
+    for k in node.get("wal_dels", []):
+        items.pop(k, None)
+    for k, row in node.get("wal_puts", []):
+        items[k] = row
+    image = cold_image_from_items(list(items.items()))
+    out = dict(node.get("replace") or {})
+    out["cold_image"] = image
+    digests = dict(out.get("digests") or {})
+    digests["cold"] = _digest(image)
+    out["digests"] = digests
+    return out
 
 
 # distinguishes the cold-store files of same-named engines (graphs rebuilt
@@ -394,6 +449,26 @@ class TieredKeyStore:
         if hot_digest is not None:
             d["digests"]["hot"] = hot_digest
         return d
+
+    def snapshot_delta(self, base_ckpt: int) -> dict:
+        """The tier's incremental sub-blob: the cold tier as its WAL since
+        the last FULL image plus the small bookkeeping fields, patching the
+        ``base_ckpt`` epoch's FULL sub-blob at restore
+        (``apply_tier_delta``). No hot digest: a delta never holds the
+        whole hot table, and the manifest's blob digest pins the delta."""
+        puts, dels = self.cold.wal_snapshot()
+        return make_tier_delta(base_ckpt, puts, dels, {
+            "policy": self.policy,
+            "hot_capacity": self.hot_capacity,
+            "free_slots": list(self.free_slots),
+            "order": list(self.tracker.eviction_order()),
+        })
+
+    def wal_reset(self) -> None:
+        """A FULL snapshot was just taken under deltas: it is the new
+        baseline, and the cold store logs its churn from here on."""
+        self.cold.wal_enabled = True
+        self.cold.wal_reset()
 
     def restore(self, d: dict, hot_digest: Optional[str] = None) -> None:
         if int(d.get("hot_capacity", self.hot_capacity)) \

@@ -10,8 +10,9 @@ device operators, and ``megabatch`` (default 1 = off, its
 ``WF_MEGABATCH``) is the width of the megabatch groups of every device
 replica's dispatch queue.
 
-``with_checkpointing`` turns on aligned-barrier checkpoints (FULL and
-synchronous, ``windflow_tpu_torch.checkpoint``), and ``run(restore_from=
+``with_checkpointing`` turns on aligned-barrier checkpoints
+(``windflow_tpu_torch.checkpoint``): FULL and synchronous by default, with
+opt-in delta snapshots and an asynchronous uploader. ``run(restore_from=
 ...)`` restores a graph of the same topology from a committed one: a
 missing operator, a parallelism or fusion mismatch, or a corrupt blob
 raises; a restore never degrades to a fresh start.
@@ -89,6 +90,9 @@ class PipeGraph:
         self._ckpt_dir: Optional[str] = None
         self._ckpt_retain = 3
         self._ckpt_timeout = 0.0
+        self._ckpt_delta = False
+        self._ckpt_async = False
+        self._ckpt_full_every = 8
 
     # -- surfaces of the JAX package that are not ported yet ---------------
     def _not_ported(self, what: str):
@@ -118,9 +122,11 @@ class PipeGraph:
     def with_checkpointing(self, interval: Optional[float] = None,
                            store_dir: Optional[str] = None,
                            retain: int = 3,
-                           epoch_timeout_s: float = 0.0) -> "PipeGraph":
-        """Enable aligned-barrier checkpointing (FULL snapshots, written
-        synchronously by each worker).
+                           epoch_timeout_s: float = 0.0,
+                           delta: bool = False, async_upload: bool = False,
+                           full_every: int = 8) -> "PipeGraph":
+        """Enable aligned-barrier checkpointing (by default FULL snapshots,
+        written synchronously by each worker).
 
         ``interval`` (seconds) drives periodic checkpoints; None disables
         the timer — checkpoints then happen only on explicit triggers
@@ -129,7 +135,17 @@ class PipeGraph:
         (default ``wf_checkpoints/<graph name>``); the last ``retain``
         committed checkpoints are kept. An epoch pending longer than
         ``epoch_timeout_s`` fails naming the workers that never acked
-        (0 = never; the JAX package's ``WF_CKPT_TIMEOUT``)."""
+        (0 = never; the JAX package's ``WF_CKPT_TIMEOUT``).
+
+        ``delta`` (the JAX package's ``WF_CKPT_DELTA``): incremental
+        checkpoints. An unchanged blob becomes a manifest ref to its
+        ancestor, and the keyed device engines (stateful Map/Filter_GPU,
+        their tiered stores, Ffat_Windows_GPU) snapshot only the slot rows
+        touched since their last FULL snapshot, at least one FULL every
+        ``full_every`` captures (``WF_CKPT_FULL_EVERY``; 1 = always FULL).
+        ``async_upload`` (``WF_CKPT_ASYNC``): a worker's ack only queues
+        its captured blobs; one uploader thread writes them and the epoch
+        commits when the last one lands."""
         if self._started:
             raise WindFlowError("with_checkpointing after start()")
         self._ckpt_enabled = True
@@ -139,6 +155,9 @@ class PipeGraph:
             self._ckpt_dir = store_dir
         self._ckpt_retain = retain
         self._ckpt_timeout = float(epoch_timeout_s)
+        self._ckpt_delta = bool(delta)
+        self._ckpt_async = bool(async_upload)
+        self._ckpt_full_every = max(1, int(full_every))
         return self
 
     def trigger_checkpoint(self, wait: bool = False,
@@ -181,10 +200,13 @@ class PipeGraph:
         if not self._ckpt_enabled:
             return None, None
         store = CheckpointStore(self._ckpt_store_dir(),
-                                retain=self._ckpt_retain)
+                                retain=self._ckpt_retain,
+                                delta=self._ckpt_delta)
         self._coordinator = CheckpointCoordinator(
             store, self.name, interval_s=self._ckpt_interval,
-            epoch_timeout_s=self._ckpt_timeout)
+            epoch_timeout_s=self._ckpt_timeout,
+            async_upload=self._ckpt_async,
+            full_every=self._ckpt_full_every)
         if resolved is not None:
             cid, ckpt_dir, manifest = resolved
             # new epochs continue after the restored one; sources bind
@@ -507,6 +529,9 @@ class PipeGraph:
             w.start()
 
     def wait_end(self) -> None:
+        """Join every worker, then raise the first worker error (several:
+        ``WorkerFailuresError``), or else a failed checkpoint upload's
+        (``CheckpointCoordinator.upload_error``)."""
         if not self._started:
             raise WindFlowError("PipeGraph not started")
         if self._ended:
@@ -523,6 +548,9 @@ class PipeGraph:
             raise next(iter(errors.values()))
         if errors:
             raise WorkerFailuresError(errors) from next(iter(errors.values()))
+        if self._coordinator is not None \
+                and self._coordinator.upload_error is not None:
+            raise self._coordinator.upload_error
 
     def run(self, restore_from=None) -> None:
         """Blocking run (reference ``PipeGraph::run``). ``restore_from``: a
