@@ -120,6 +120,25 @@ Phases, each printing one line of its own:
    checkpoint's batch and emit nothing from before it, and (both ffat
    parts) K1 must launch fewer times than uninterrupted. The main-path
    lines give the staging pool's hits and misses;
+12. live rescale (``rescale`` lines), part ``ffat`` (the HC main path, the
+   window at parallelism 1, rescaled live to 2 before block 8 and back to
+   1 before block 16) and part ``smap_hc`` (the stateful map at 1,048,576
+   keys, 16 blocks, 2 -> 4 before block 8): the uninterrupted and the
+   rescaled runs on the card in turns, and the uninterrupted run on the
+   CPU; the rescaled output must equal both (window rows by (key, wid),
+   none twice; the map's rows as a multiset, and the numpy fold), and
+   K1 must launch on each new replica that holds keys. Per rescale: the
+   report's ``checkpoint_s`` / ``pause_s`` / ``total_s`` and the pause's
+   split (checkpoint load, host repartition, teardown, rebuild, restore:
+   the H2D copies into the new replicas); tuples/s with and without it;
+13. supervision (``supervise`` lines): parts ``ffat`` (HC) and ``smap``
+   (10,240 keys) under ``with_supervision``, a checkpoint every 4 blocks,
+   the source raising once before block 16: one restart, the distinct
+   output equal to the uninterrupted run on the card and the CPU, and the
+   detection -> resume time; part ``poison``: one 65,536-row batch
+   through a DEAD_LETTER-guarded Map_GPU whose function raises on one
+   row: exactly one dead letter, every other row mapped exactly, and the
+   bisection's commits and host time against a clean batch's;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -2324,6 +2343,379 @@ def delta_phase(torch, wt, card):
          smod._atomic_write) = orig_store
 
 
+# ---------------------------------------------------------------------------
+# phase rescale: live repartition of the HC window and the stateful map
+# ---------------------------------------------------------------------------
+RS_FFAT_STEPS = ((8, 2), (16, 1))  # (before block, new parallelism)
+RS_SMAP_BATCHES, RS_SMAP_STEPS = 16, ((8, 4),)
+RS_HOLD_WAIT_S = 120.0
+
+
+class _GatedBlocks:
+    """Replayable block source (EVENT_TIME): one block per step, parked
+    before each block of ``gates`` until its event is set; ``every`` > 0
+    requests a checkpoint after every ``every`` blocks and, with
+    ``store``, waits (bounded) for it to commit; raises once before block
+    ``crash_at``. Its position counts the blocks pushed."""
+
+    def __init__(self, blocks, gates=(), every=0, store=None,
+                 crash_at=None):
+        self.blocks, self.every, self.store = blocks, every, store
+        self.gates = {at: threading.Event() for at in gates}
+        self.crash_at = crash_at
+        self.pos = 0
+        self.t_yield = []
+
+    def __call__(self, shipper):
+        from windflow_tpu_torch.checkpoint import CheckpointStore
+        while self.pos < len(self.blocks):
+            ev = self.gates.get(self.pos)
+            if ev is not None and not ev.wait(RS_HOLD_WAIT_S):
+                raise RuntimeError(f"gate before block {self.pos} was "
+                                   "never released")
+            if self.pos == self.crash_at:
+                self.crash_at = None  # once
+                raise _InjectedCrash(f"killed before block {self.pos}")
+            cols, ts, wm = self.blocks[self.pos]
+            self.t_yield.append(time.perf_counter())
+            shipper.set_next_watermark(wm)
+            shipper.push_columns(cols, ts)
+            self.pos += 1
+            if self.every and self.pos % self.every == 0:
+                before = CheckpointStore(self.store).latest() or 0
+                shipper.request_checkpoint()
+                deadline = time.monotonic() + RS_HOLD_WAIT_S
+                while (CheckpointStore(self.store).latest() or 0) <= before \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.002)
+
+    def snapshot_position(self):
+        return self.pos
+
+    def restore(self, pos):
+        self.pos = pos
+
+
+def _release_when_held(graph, ev):
+    """Release a parked source once the rescale's held epoch is
+    published: its next push injects that epoch's barrier."""
+    def body():
+        deadline = time.monotonic() + RS_HOLD_WAIT_S
+        coord = graph._coordinator
+        while (coord._hold_epoch is None
+               or coord.requested_id < coord._hold_epoch) \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+        ev.set()
+    threading.Thread(target=body, daemon=True).start()
+
+
+def _rs_ops(wt, part, par):
+    if part == "ffat":
+        return [wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
+                                            wt.fieldwise(value="sum"))
+                .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
+                .with_key_capacity(HC_KEYS).with_name("ffat")
+                .with_parallelism(par).build()]
+    return [wt.Map_GPU_Builder(_smap_fn).with_key_by("key")
+            .with_state({"n": np.int32(0)}).with_name("smap")
+            .with_parallelism(par).build()]
+
+
+def _run_rescaled(wt, device, part, blocks, steps, store, par0):
+    """Replayable gated source -> the part's operator at ``par0`` ->
+    columnar sink, rescaled live before each ``(block, parallelism)`` of
+    ``steps``. Returns the sink's batches, the source, the rescale
+    reports, every plane's replicas of the operator and the graph."""
+    parts, sink = _sink_parts()
+    src = _GatedBlocks(blocks, gates=[at for at, _ in steps])
+    graph = wt.PipeGraph(f"rs_{part}", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    graph.with_checkpointing(store_dir=store)
+    (op,) = _rs_ops(wt, part, par0)
+    graph.add_source(wt.Source_Builder(src).with_name("src")
+                     .with_output_batch_size(BATCH).build()) \
+        .add(op).add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.start()
+    planes, reports = [list(op.replicas)], []
+    try:
+        for at, par in steps:
+            # the source parks before block ``at``; the rescale's barrier
+            # goes out with that block
+            deadline = time.monotonic() + RS_HOLD_WAIT_S
+            while src.pos < at and time.monotonic() < deadline:
+                time.sleep(0.001)
+            _release_when_held(graph, src.gates[at])
+            reports.append(graph.rescale(op.name, par,
+                                         timeout_s=RS_HOLD_WAIT_S))
+            planes.append(list(op.replicas))
+    finally:
+        for ev in src.gates.values():
+            ev.set()
+    graph.wait_end()
+    return parts, src, reports, planes, graph
+
+
+def _window_rows(parts):
+    """Window rows by (key, wid), and how many arrived more than once."""
+    out, dups = {}, 0
+    for _, c in parts:
+        for k, w, ok, v in zip(c["key"].tolist(), c["wid"].tolist(),
+                               c["valid"].tolist(), c["value"].tolist()):
+            dups += (k, w) in out
+            out[(k, w)] = (ok, v if ok else 0)
+    return out, dups
+
+
+def _row_order(c):
+    """Every row of the columns ``c`` in (ts, key, value) order: the
+    order of a multiset, whichever replica emitted a row."""
+    order = np.lexsort((c["value"], c["key"], c["ts"]))
+    return {k: v[order] for k, v in c.items()}
+
+
+def rescale_part(torch, wt, card, part):
+    """One part of phase ``rescale``: the uninterrupted run and the live
+    rescaled run on the card in turns (none, rescaled, rescaled, none),
+    and the uninterrupted run on the CPU; the rescaled output must equal
+    both (``ffat``: window rows by (key, wid), none twice; ``smap``: every
+    row in ts order, and the numpy fold). ``ffat``: K1 must launch on each
+    new replica that holds keys (its first firing batch rebuilds the
+    moved forest). Returns K1's launches in the first rescaled run."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    ffat = part == "ffat"
+    n = N_BATCHES if ffat else RS_SMAP_BATCHES
+    keys = HC_KEYS if ffat else HUGE_KEYS
+    steps = RS_FFAT_STEPS if ffat else RS_SMAP_STEPS
+    par0 = 1 if ffat else 2
+    blocks = _blocks(keys, seed=53, n_batches=n, batch=BATCH)
+    runs = {"none": [], "rescaled": []}
+    ref = launches = reports = None
+    for mode in ("none", "rescaled", "rescaled", "none"):
+        fr.LAUNCHES = 0
+        torch.cuda.synchronize()
+        p, src, reps, planes, g = _run_rescaled(
+            wt, "cuda", part, blocks, steps if mode == "rescaled" else (),
+            _ckpt_dir(f"rs_{part}"), par0)
+        span = max(t for t, _ in p) - src.t_yield[STATE_WARMUP]
+        runs[mode].append((n - STATE_WARMUP) * BATCH / span)
+        out = _window_rows(p) if ffat else (_row_order(_concat(p)), 0)
+        if out[1]:
+            fail(f"rescale {part}: {out[1]} window rows arrived twice")
+        if ref is None:
+            ref = out[0]
+        elif not _same_rows(out[0], ref):
+            fail(f"rescale {part} ({mode}): the output differs from the "
+                 "uninterrupted run on the card")
+        if mode == "rescaled" and reports is None:
+            reports, launches = reps, fr.LAUNCHES
+            per_plane = [[r.stats.rebuild_kernel_launches for r in pl]
+                         for pl in planes]
+            keyed = [[len(r.slot_of_key) for r in pl] for pl in planes[1:]] \
+                if ffat else None
+    cpu = _run_rescaled(wt, "cpu", part, blocks, (),
+                        _ckpt_dir(f"rs_{part}_c"), par0)[0]
+    if not _same_rows(_window_rows(cpu)[0] if ffat
+                      else _row_order(_concat(cpu)),
+                      ref):
+        fail(f"rescale {part}: the output differs from the CPU run")
+    row = dict(part=part, keys=keys, batches=n, batch=BATCH, card=card,
+               steps=[list(s) for s in steps],
+               rows_equal_uninterrupted_card=True, rows_equal_cpu=True,
+               tuples_per_s_rescaled=runs["rescaled"],
+               tuples_per_s_none=runs["none"])
+    if ffat:
+        valid = sum(ok for ok, _ in ref.values())
+        if not valid:
+            fail("rescale ffat: no valid window")
+        if launches != sum(map(sum, per_plane)):
+            fail(f"rescale ffat: K1 wrapper launches {launches}, replicas "
+                 f"{per_plane}")
+        for pl, ks in zip(per_plane[1:], keyed):
+            if any(k and not c for c, k in zip(pl, ks)):
+                fail(f"rescale ffat: a new replica holding keys never "
+                     f"launched K1 (launches {pl}, keys {ks})")
+        row.update(windows=len(ref), valid_windows=int(valid),
+                   duplicate_windows=0, rebuild_launches=launches,
+                   rebuild_launches_per_plane=per_plane,
+                   keys_per_new_replica=keyed)
+    else:
+        s = _stream(blocks)
+        fold = _row_order({"ts": np.concatenate([t for _, t, _ in blocks]),
+                           "key": s["key"], "value": _smap_fold(blocks)})
+        if not all(np.array_equal(ref[k], fold[k]) for k in fold):
+            fail("rescale smap_hc: rows differ from the numpy fold")
+        row.update(rows=int(len(ref["ts"])), rows_equal_numpy=True)
+    row["rescales"] = [{k: r[k] for k in (
+        "old_parallelism", "new_parallelism", "ckpt_id", "checkpoint_s",
+        "pause_s", "total_s", "load_s", "repartition_s", "teardown_s",
+        "rebuild_s", "restore_s")} for r in reports]
+    phase("rescale", **row)
+    return launches
+
+
+def _same_rows(a, b):
+    if isinstance(a, dict) and a and isinstance(next(iter(a.values())),
+                                                np.ndarray):
+        return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                            for k in a)
+    return a == b
+
+
+def rescale_phase(torch, wt, card):
+    """Phase ``rescale``: part ``ffat`` (the HC main path, the window at
+    parallelism 1, rescaled to 2 before block 8 and back to 1 before
+    block 16) and part ``smap_hc`` (the stateful map at 1,048,576 keys,
+    2 -> 4 before block 8). Each line gives, per rescale, the report's
+    ``checkpoint_s`` / ``pause_s`` / ``total_s`` and the pause's split
+    (checkpoint load, host repartition, teardown, rebuild, restore: the
+    H2D copies of the moved tables and forests), and tuples/s with and
+    without the rescale. Returns K1's launches in the ffat part."""
+    return sum(rescale_part(torch, wt, card, part)
+               for part in ("ffat", "smap_hc"))
+
+
+# ---------------------------------------------------------------------------
+# phase supervise: self-healing recovery and poison-record isolation
+# ---------------------------------------------------------------------------
+SUP_EVERY, SUP_CRASH_AT = 4, 16
+POISON_VALUE = 1_000_000  # the poison row sits 5/8 into the batch
+
+
+def _run_supervised(wt, device, part, blocks, store, crash_at=None):
+    parts, sink = _sink_parts()
+    src = _GatedBlocks(blocks, every=SUP_EVERY, store=store,
+                       crash_at=crash_at)
+    graph = wt.PipeGraph(f"sup_{part}", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    graph.with_checkpointing(store_dir=store)
+    graph.with_supervision(wt.RestartPolicy(max_restarts=2, backoff_s=0.05,
+                                            backoff_max_s=0.1, seed=0))
+    (op,) = _rs_ops(wt, "ffat" if part == "ffat" else "smap", 1)
+    graph.add_source(wt.Source_Builder(src).with_name("src")
+                     .with_output_batch_size(BATCH).build()) \
+        .add(op).add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.run()
+    return parts, graph, op
+
+
+def supervise_part(torch, wt, card, part):
+    """Parts ``ffat`` (HC) and ``smap`` (10,240 keys) under
+    ``with_supervision``, a checkpoint every SUP_EVERY blocks, the source
+    raising once before block SUP_CRASH_AT: one restart, and the distinct
+    output (window rows by (key, wid); output batches by their first ts)
+    equal to the uninterrupted run on the card and on the CPU. Returns
+    K1's launches in the supervised run (``ffat``)."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    ffat = part == "ffat"
+    blocks = _blocks(HC_KEYS, seed=61, n_batches=N_BATCHES, batch=BATCH)
+    res = "ffat" if ffat else "smap"
+    torch.cuda.synchronize()
+    gold = _rec_results(res, _run_supervised(
+        wt, "cuda", part, blocks, _ckpt_dir(f"sup_{part}_g"))[0])
+    if gold != _rec_results(res, _run_supervised(
+            wt, "cpu", part, blocks, _ckpt_dir(f"sup_{part}_c"))[0]):
+        fail(f"supervise {part}: the card's run differs from the CPU run")
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts, g, op = _run_supervised(wt, "cuda", part, blocks,
+                                   _ckpt_dir(f"sup_{part}"),
+                                   crash_at=SUP_CRASH_AT)
+    wall = time.perf_counter() - t0
+    sup = g.get_stats()["Supervision"]
+    if sup["Supervision_restarts"] != 1 or sup["Supervision_escalated"]:
+        fail(f"supervise {part}: {sup['Supervision_restarts']} restarts, "
+             f"escalated {sup['Supervision_escalated']}")
+    if _rec_results(res, parts) != gold:
+        fail(f"supervise {part}: the distinct output differs from the "
+             "uninterrupted run")
+    launches = fr.LAUNCHES
+    if ffat and op.replicas[0].stats.rebuild_kernel_launches < 1:
+        fail("supervise ffat: the restored replica never launched K1")
+    (h,) = sup["Supervision_history"]
+    phase("supervise", part=part, keys=HC_KEYS, batches=N_BATCHES,
+          batch=BATCH, card=card, checkpoint_every=SUP_EVERY,
+          crash_before=SUP_CRASH_AT, restarts=1, restored_checkpoint=h[
+              "ckpt_id"], distinct_equal_card=True, distinct_equal_cpu=True,
+          detect_to_resume_s=sup["Supervision_last_restart_s"],
+          backoff_s=h["backoff_s"], wall_s=wall,
+          rebuild_launches=launches if ffat else 0,
+          rebuild_launches_restored=(
+              op.replicas[0].stats.rebuild_kernel_launches if ffat else 0))
+    return launches if ffat else 0
+
+
+def _poison_map(f):
+    if bool((f["value"] == POISON_VALUE).any()):  # a host-side check
+        raise ValueError("poison record")
+    return {**f, "value": f["value"] * 3 + 1}
+
+
+def _run_poison(wt, device, block):
+    parts, sink = _sink_parts()
+    graph = wt.PipeGraph("poison", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    graph.add_source(wt.Columnar_Source_Builder(lambda: iter([block]))
+                     .with_output_batch_size(BATCH).build()) \
+        .add(wt.Map_GPU_Builder(_poison_map).with_name("guarded")
+             .with_error_policy(wt.ErrorPolicy.DEAD_LETTER).build()) \
+        .add_sink(wt.Sink_Builder(sink).with_columns().build())
+    torch_sync = __import__("torch").cuda.synchronize
+    if device == "cuda":
+        torch_sync()
+    t0 = time.perf_counter()
+    graph.run()
+    wall = time.perf_counter() - t0
+    rep = graph.get_stats()["Operators"][1]["replicas"][0]
+    return parts, graph, wall, rep
+
+
+def supervise_poison_part(wt, card):
+    """Part ``poison``: one 65,536-row batch through a DEAD_LETTER-guarded
+    Map_GPU whose function raises on the one row holding POISON_VALUE.
+    The guarded path commits synchronously and halves the failing batch
+    until the row is alone: exactly one dead letter, the other rows mapped
+    exactly (in order). The line gives the guarded replica's commits
+    and host time (prep + commit) against a clean batch's."""
+    at = BATCH * 5 // 8
+    cols, ts, wm = _blocks(HC_KEYS, seed=71, n_batches=1, batch=BATCH)[0]
+    clean = _run_poison(wt, "cuda", (cols, ts, wm))
+    bad_cols = {k: v.copy() for k, v in cols.items()}
+    bad_cols["value"][at] = POISON_VALUE
+    parts, g, wall, rep = _run_poison(wt, "cuda", (bad_cols, ts, wm))
+    letters = g.dead_letters()
+    if len(letters) != 1 or letters[0]["payload_obj"] != {
+            "key": int(cols["key"][at]), "value": POISON_VALUE}:
+        fail(f"supervise poison: dead letters {[r['payload'] for r in letters]}")
+    out = _concat(parts)
+    keep = np.arange(BATCH) != at
+    if not (np.array_equal(out["key"], cols["key"][keep])
+            and np.array_equal(out["value"], cols["value"][keep] * 3 + 1)
+            and np.array_equal(out["ts"], ts[keep])):
+        fail("supervise poison: the other rows are not mapped exactly")
+
+    def host_ms(r):
+        return (r["Dispatch_host_prep_total_usec"]
+                + r["Dispatch_commit_total_usec"]) / 1e3
+
+    phase("supervise", part="poison", batch=BATCH, card=card,
+          dead_letters=1, rows_exact=int(keep.sum()),
+          commits=rep["Dispatch_batches"], dlq_records=rep["Dlq_records"],
+          bisect_ms=host_ms(rep), clean_ms=host_ms(clean[3]),
+          wall_s=wall, clean_wall_s=clean[2])
+
+
+def supervise_phase(torch, wt, card):
+    """Phase ``supervise``: parts ``ffat`` and ``smap`` (recovery by the
+    supervisor, the detection -> resume time) and ``poison`` (batch
+    bisection). Returns K1's launches in the supervised ffat run."""
+    launches = sum(supervise_part(torch, wt, card, part)
+                   for part in ("ffat", "smap"))
+    supervise_poison_part(wt, card)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2360,6 +2752,8 @@ def main() -> None:
     dag_launches = dag_phase(torch, wt, card)
     recovery_launches = recovery_phase(torch, wt, card)
     delta_launches = delta_phase(torch, wt, card)
+    rescale_launches = rescale_phase(torch, wt, card)
+    supervise_launches = supervise_phase(torch, wt, card)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",
@@ -2367,7 +2761,8 @@ def main() -> None:
         "replaces": "windflow_tpu/tpu/pallas_kernels.py:29",
         "launches": (hc_launches + base_launches + fusion_launches
                      + dag_launches + recovery_launches
-                     + delta_launches),
+                     + delta_launches + rescale_launches
+                     + supervise_launches),
         "max_abs_err": max(err_checks, err_timed),
         "ms": timing["wrapper_ms"],
         "device_ms": timing["device_ms"],

@@ -38,9 +38,9 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, verdict, *_ = out.stdout.split()
-    # 48 modules since the delta plane (checkpoint/delta.py) and staging
-    # recycling (recycling.py)
-    assert int(n) >= 48 and verdict == "OK", out.stdout
+    # 57 modules since the rescale plane (scaling/) and supervision
+    # (supervision/)
+    assert int(n) >= 57 and verdict == "OK", out.stdout
 
 
 _ALONE = r"""
@@ -80,6 +80,29 @@ def test_checkpoint_modules_import_alone_without_jax(mod):
     of the JAX package's JAX-free ``checkpoint/`` modules and
     ``recycling.py``) import on their own, in a fresh interpreter, without
     pulling in jax or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c",
+                          _ALONE.format(root=ROOT, mod=mod)],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "OK", out.stdout
+
+
+@pytest.mark.parametrize("mod", [
+    "windflow_tpu_torch.scaling", "windflow_tpu_torch.scaling.repartition",
+    "windflow_tpu_torch.scaling.controller",
+    "windflow_tpu_torch.scaling.autoscaler",
+    "windflow_tpu_torch.supervision",
+    "windflow_tpu_torch.supervision.errors",
+    "windflow_tpu_torch.supervision.policy",
+    "windflow_tpu_torch.supervision.health",
+    "windflow_tpu_torch.supervision.supervisor"])
+def test_rescale_and_supervision_modules_import_alone_without_jax(mod):
+    """The rescale and supervision planes (the port's own copies of the
+    JAX package's JAX-free ``scaling/`` and ``supervision/`` modules)
+    import on their own, in a fresh interpreter, without pulling in jax
+    or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c",
                           _ALONE.format(root=ROOT, mod=mod)],

@@ -503,25 +503,12 @@ def test_refusals_match_jax(case, match):
             case(pkg)
 
 
-def _park_if_held():
-    """The rescale hold point of the checkpoint coordinator."""
-    import tempfile
-
-    from windflow_tpu_torch.checkpoint import (CheckpointCoordinator,
-                                               CheckpointStore)
-    with tempfile.TemporaryDirectory() as d:
-        CheckpointCoordinator(CheckpointStore(d)).park_if_held(1, "w")
-
-
 @pytest.mark.parametrize("call", [
-    _park_if_held,
-    lambda: wt.PipeGraph(device="cpu").with_autoscaler(),
     lambda: wt.Sink_Builder(lambda t: None).with_exactly_once(),
     lambda: wt.Reduce_GPU_Builder(lambda a, b: a).with_mesh(),
-    lambda: wt.PipeGraph(device="cpu").with_supervision(),
-    lambda: wt.PipeGraph(device="cpu").rescale("op", 2),
-], ids=["rescale_hold", "autoscaler", "exactly_once", "mesh",
-        "supervision", "rescale"])
+    lambda: wt.PipeGraph(device="cpu").with_slo(50),
+    lambda: wt.PipeGraph(device="cpu").with_prewarm(),
+], ids=["exactly_once", "mesh", "slo", "prewarm"])
 def test_unported_surfaces_raise(call):
     with pytest.raises(wt.WindFlowError, match="not yet ported"):
         call()

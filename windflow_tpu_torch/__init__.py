@@ -18,6 +18,10 @@ tier behind it (``state/``, ``TierConfig``). ``MultiPipe.split`` /
 device batches), ``with_key_by`` takes a tuple of fields for a composite
 key, and ``PipeGraph.with_checkpointing`` / ``run(restore_from=...)`` take
 aligned-barrier checkpoints and restore from them (``checkpoint/``).
+``PipeGraph.rescale`` / ``with_autoscaler`` repartition a running keyed
+operator (``scaling/``); ``with_supervision`` restarts a failed graph from
+its checkpoints and ``with_error_policy`` contains poison records
+(``supervision/``).
 
 ``PipeGraph(..., device=None)`` runs on ``cuda`` and raises without a card;
 pass ``device="cpu"`` for the plain PyTorch path.
@@ -34,17 +38,23 @@ from .gpu.builders_gpu import (Ffat_Windows_GPU_Builder, Filter_GPU_Builder,
                                Map_GPU_Builder, Reduce_GPU_Builder)
 from .gpu.ffat_gpu import Ffat_Windows_GPU
 from .gpu.ops_gpu import Filter_GPU, Map_GPU, Reduce_GPU
+from .scaling import AutoscalePolicy, RescaleReport
 from .state import TierConfig
+from .supervision import (DeadLetterQueue, ErrorPolicy, RestartPolicy,
+                          StaticDeviceProbe, SupervisionEscalated,
+                          TorchDeviceProbe)
 from .topology.multipipe import MultiPipe
 from .topology.pipegraph import PipeGraph
 
 __all__ = [
-    "Columnar_Source_Builder", "CorruptCheckpointError", "ExecutionMode",
+    "AutoscalePolicy", "Columnar_Source_Builder", "CorruptCheckpointError",
+    "DeadLetterQueue", "ErrorPolicy", "ExecutionMode",
     "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder", "Filter_Builder",
     "Filter_GPU", "Filter_GPU_Builder", "FlatMap_Builder",
     "KeyCapacityError", "LocalStorage", "Map_Builder", "Map_GPU",
     "Map_GPU_Builder", "MultiPipe", "OpType", "PipeGraph", "Reduce_Builder",
-    "Reduce_GPU", "Reduce_GPU_Builder", "RoutingMode", "RuntimeContext",
-    "Sink_Builder", "Source_Builder", "TierConfig", "TimePolicy", "WinType",
-    "WindFlowError", "fieldwise",
+    "Reduce_GPU", "Reduce_GPU_Builder", "RescaleReport", "RestartPolicy",
+    "RoutingMode", "RuntimeContext", "Sink_Builder", "Source_Builder",
+    "StaticDeviceProbe", "SupervisionEscalated", "TierConfig", "TimePolicy",
+    "TorchDeviceProbe", "WinType", "WindFlowError", "fieldwise",
 ]

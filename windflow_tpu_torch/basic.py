@@ -98,6 +98,22 @@ class CorruptCheckpointError(WindFlowError):
     a manifest or blob cannot be decoded. The message names the bad file."""
 
 
+class RescaleTeardown(BaseException):
+    """Control-flow signal of the live rescale (``scaling/``): a worker
+    parked at a rescale barrier unwinds WITHOUT the EOS cascade, since its
+    channels and emitters are about to be rebuilt at the new parallelism.
+    A BaseException, so a functor's ``except Exception`` cannot swallow it;
+    ``Worker.run`` catches it and exits silently."""
+
+
+class SupervisorTeardown(RescaleTeardown):
+    """Supervised-recovery twin of ``RescaleTeardown``
+    (``supervision/``): raised out of a CLOSED channel's put/get, so every
+    worker of a dying runtime plane (sources blocked mid-push included)
+    unwinds without an EOS cascade while the supervisor rebuilds and
+    restores. A subclass, so the worker's silent exit handles both."""
+
+
 class WorkerFailuresError(WindFlowError):
     """Aggregate of several workers' errors (``PipeGraph.wait_end``)."""
 

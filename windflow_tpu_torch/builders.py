@@ -28,6 +28,7 @@ class BasicBuilder:
         self._parallelism = 1
         self._output_batch_size = 0
         self._closing: Optional[Callable] = None
+        self._error_policy = None
 
     def with_name(self, name: str) -> "BasicBuilder":
         self._name = name
@@ -49,8 +50,30 @@ class BasicBuilder:
         self._closing = fn
         return self
 
+    def with_error_policy(self, policy) -> "BasicBuilder":
+        """Per-record failure containment (``supervision/errors.py``):
+        ``policy`` is an ``ErrorPolicy``: ``FAIL`` (default: a functor
+        exception kills the worker), ``SKIP`` (drop and count),
+        ``RETRY(n, backoff_s=...)`` (re-invoke with exponential backoff,
+        then the ``on_exhausted`` fallback) or ``DEAD_LETTER``
+        (quarantine the record and its exception in the graph's
+        dead-letter queue, ``Dlq_*`` stats). On device operators a failing
+        batch is bisected until the poison record is alone. A string is
+        parsed (``"skip"`` / ``"dead_letter"`` / ``"retry:3"``)."""
+        from .supervision.errors import ErrorPolicy
+        if isinstance(policy, str):
+            policy = ErrorPolicy.parse(policy)
+        if not isinstance(policy, ErrorPolicy):
+            raise WindFlowError(
+                f"with_error_policy: expected an ErrorPolicy (or a spec "
+                f"string), got {type(policy).__name__}")
+        self._error_policy = policy
+        return self
+
     def _finish(self, op):
         op.closing_func = self._closing
+        if self._error_policy is not None:
+            op.error_policy = self._error_policy
         return op
 
 

@@ -1,7 +1,7 @@
 """CheckpointCoordinator: epoch generation, ack collection, atomic commit.
 
-Copy of ``windflow_tpu/checkpoint/coordinator.py`` without the rescale
-hold point. One coordinator per running PipeGraph. Triggering is a single
+Copy of ``windflow_tpu/checkpoint/coordinator.py``. One coordinator per
+running PipeGraph. Triggering is a single
 integer bump of ``requested_id``; source replicas poll it on their own
 threads at tuple boundaries and inject the ``Barrier`` themselves, so the
 coordinator never touches a channel. Each worker acknowledges a
@@ -25,6 +25,13 @@ A checkpoint that can never complete (a worker crashed before its
 barrier) stays uncommitted: restore only ever sees fully-acked
 checkpoints. With ``epoch_timeout_s`` > 0 such an epoch fails loudly,
 naming the workers that never acked.
+
+The rescale hold point: an epoch triggered with ``hold=True`` parks every
+worker right after its ack (``park_if_held``), so the whole graph
+quiesces exactly at the aligned barrier; the rescale controller waits for
+that (``wait_all_parked``), then releases them with a directive
+(``release_hold``): ``"resume"`` (the rescale was aborted) or
+``"abandon"`` (unwind; the runtime plane is rebuilt).
 """
 
 from __future__ import annotations
@@ -110,6 +117,17 @@ class CheckpointCoordinator:
         self.async_pending = 0  # uploads in flight
         self.upload_usec_total = 0.0
         self.upload_error: Optional[BaseException] = None
+        # the rescale hold point (see the module docstring); who acked each
+        # committed epoch, so that parked + retired can be checked to
+        # cover them before a teardown
+        self._hold_epoch: Optional[int] = None
+        self._hold_evt = threading.Event()
+        self._hold_directive = "resume"
+        self.parked: Set[str] = set()
+        self._commit_acked: Dict[int, Set[str]] = {}
+        # epochs whose last ack landed and whose store commit (manifest,
+        # fsync, rename) is running: no longer pending, not yet committed
+        self._committing: Set[int] = set()
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -147,11 +165,14 @@ class CheckpointCoordinator:
             self.trigger()
 
     # -- triggering --------------------------------------------------------
-    def trigger(self, force: bool = False) -> Optional[int]:
+    def trigger(self, force: bool = False, hold: bool = False
+                ) -> Optional[int]:
         """Open a new checkpoint epoch and return its id. Without
         ``force``, declines while an earlier checkpoint is still in flight
         (aligned barriers serialize naturally; overlapping epochs would
-        only race each other at the aligners)."""
+        only race each other at the aligners). ``hold=True`` makes the
+        epoch a rescale quiesce point: every worker parks in
+        ``park_if_held`` right after acking it."""
         timeout = max(2.0 * (self.interval_s or 0.0), 10.0)
         with self._lock:
             if not force:
@@ -163,6 +184,13 @@ class CheckpointCoordinator:
             cid = self._alloc_id
             self._pending[cid] = {"acked": set(), "bytes": 0,
                                   "t0": time.monotonic()}
+            if hold:
+                # armed BEFORE the epoch publishes: a source may poll the
+                # new requested_id and park before trigger() returns
+                self._hold_epoch = cid
+                self._hold_directive = "resume"
+                self._hold_evt.clear()
+                self.parked = set()
         # stage BEFORE publishing the epoch: sources poll requested_id and
         # may ack at once — clearing crashed-run debris after that would
         # race their blob writes
@@ -314,18 +342,26 @@ class CheckpointCoordinator:
             for old in [c for c in self._pending if c < ckpt_id]:
                 self._pending.pop(old, None)
             listeners = list(self._listeners)
+            self._committing.add(ckpt_id)
         duration = time.monotonic() - ent["t0"]
         t_commit = time.perf_counter()
-        with self._store_lock:
-            self.store.commit(ckpt_id, {
-                "graph": self.graph_name,
-                "created_unix": time.time(),
-                "duration_sec": round(duration, 6),
-                "n_workers": self.expected_acks,
-                "bytes": ent["bytes"],
-            })
+        try:
+            with self._store_lock:
+                self.store.commit(ckpt_id, {
+                    "graph": self.graph_name,
+                    "created_unix": time.time(),
+                    "duration_sec": round(duration, 6),
+                    "n_workers": self.expected_acks,
+                    "bytes": ent["bytes"],
+                })
+        except BaseException:
+            with self._lock:
+                self._committing.discard(ckpt_id)
+                self._commit_cond.notify_all()
+            raise
         commit_s = time.perf_counter() - t_commit
         with self._lock:
+            self._committing.discard(ckpt_id)
             self.completed += 1
             self.last_completed_id = ckpt_id
             self.last_duration_s = duration
@@ -336,6 +372,9 @@ class CheckpointCoordinator:
                                  "commit_s": commit_s,
                                  "upload_s": ent.get("upload_s", 0.0),
                                  "bytes": ent["bytes"]})
+            self._commit_acked[ckpt_id] = set(ent["acked"])
+            for old in [c for c in self._commit_acked if c < ckpt_id]:
+                self._commit_acked.pop(old, None)
             self._commit_cond.notify_all()
         for fn in listeners:
             try:
@@ -418,7 +457,7 @@ class CheckpointCoordinator:
                     return
                 if cid in self._failed:
                     raise WindFlowError(self._failed[cid])
-                if cid not in self._pending:
+                if cid not in self._pending and cid not in self._committing:
                     raise WindFlowError(
                         f"checkpoint epoch {cid} was dropped without "
                         "committing (superseded by a newer checkpoint)")
@@ -430,22 +469,51 @@ class CheckpointCoordinator:
                 self._notify_aborted(cid)
                 raise WindFlowError(timed_out_msg)
 
-    # -- rescale hold point: part of elastic rescaling, not ported ---------
-    def park_if_held(self, ckpt_id: int, worker_name: str):
-        raise WindFlowError("the rescale hold point is not yet ported to "
-                            "windflow_tpu_torch")
+    # -- the rescale hold point ---------------------------------------------
+    def park_if_held(self, ckpt_id: int, worker_name: str) -> Optional[str]:
+        """Called by every worker right after acking ``ckpt_id``. For a
+        held epoch the worker blocks here until the controller releases it
+        and gets the directive (``"resume"`` / ``"abandon"``); None when
+        the epoch is not held."""
+        with self._lock:
+            if self._hold_epoch != ckpt_id:
+                return None
+            self.parked.add(worker_name)
+            self._commit_cond.notify_all()
+            evt = self._hold_evt
+        evt.wait()
+        with self._lock:
+            return self._hold_directive
 
     def wait_all_parked(self, cid: int, timeout_s: float) -> bool:
-        raise WindFlowError("the rescale hold point is not yet ported to "
-                            "windflow_tpu_torch")
+        """True once every worker that acked the committed held epoch
+        ``cid`` live (not by retirement) is parked: the moment a teardown
+        is safe. False after ``timeout_s``."""
+        deadline = time.monotonic() + timeout_s
+        with self._lock:
+            while True:
+                acked = self._commit_acked.get(cid)
+                if acked is not None \
+                        and acked <= (self.parked | set(self._retired)):
+                    return True
+                if time.monotonic() >= deadline:
+                    return False
+                self._commit_cond.wait(0.05)
 
     def release_hold(self, directive: str = "resume") -> None:
-        raise WindFlowError("the rescale hold point is not yet ported to "
-                            "windflow_tpu_torch")
+        """Release every parked worker with ``directive``: ``"resume"``
+        goes on as after a normal checkpoint, ``"abandon"`` unwinds the
+        worker silently (the runtime plane is being rebuilt)."""
+        with self._lock:
+            self._hold_directive = directive
+            self._hold_epoch = None
+            evt = self._hold_evt
+        evt.set()
 
     def abort_pending(self) -> None:
-        """Drop every still-pending epoch (epochs opened against a runtime
-        plane whose workers are gone can never complete)."""
+        """Drop every still-pending epoch, and the retired workers' final
+        blobs: epochs opened against a runtime plane whose workers are
+        gone can never complete (a rescale's or a supervisor's teardown)."""
         with self._lock:
             dropped = list(self._pending)
             self._pending.clear()

@@ -346,13 +346,21 @@ def grid_scan_core(func: Callable, filter_mode: bool, M: int, KB: int
 # ---------------------------------------------------------------------------
 class GPUReplicaBase(BasicReplica):
     """Processes whole device batches through the dispatch pipeline; the
-    queue drains at every ordering point (punctuation, EOS, idle tick)."""
+    queue drains at every ordering point (punctuation, EOS, idle tick).
+
+    Under a non-FAIL error policy (``supervision/errors.py``) a batch's
+    commit runs synchronously, so that an error belongs to this exact
+    batch, and a failing batch is halved until the poison record is alone
+    and the policy applies to it (``_process_batch_guarded``)."""
 
     def __init__(self, op: BasicOperator, idx: int) -> None:
         super().__init__(op, idx)
         self.device = op.device
         self.dispatch = DeviceDispatchQueue(stats=self.stats,
                                             megabatch=op.megabatch)
+        pol = op.error_policy
+        self._err_policy = pol if pol is not None and not pol.is_fail \
+            else None
 
     def handle_msg(self, ch: int, msg: Any) -> None:
         if msg.is_punct:
@@ -372,6 +380,10 @@ class GPUReplicaBase(BasicReplica):
         self.stats.device_batches_in += 1
         self._advance_wm(msg.wm)
         msg.wm = self.cur_wm
+        if self._err_policy is not None:
+            self._process_batch_guarded(msg)
+            self.stats.end_svc(msg.size)
+            return
         t0 = time.perf_counter()
         commit = self.prep_device_batch(msg)
         prep_us = (time.perf_counter() - t0) * 1e6
@@ -380,6 +392,40 @@ class GPUReplicaBase(BasicReplica):
         else:
             self.stats.note_host_prep(prep_us)
         self.stats.end_svc(msg.size)
+
+    def _process_batch_guarded(self, msg: BatchGPU) -> None:
+        """The policy-guarded batch path: prep, then the commit at once
+        (submit and a forced drain), so that an error attributes to this
+        batch; a failing batch is bisected until the offender is alone.
+        A stateless transform bisects safely; a stateful one whose failed
+        commit already updated its table keeps that update (the FAIL
+        policy is the strict choice for stateful device operators). A
+        sticky CUDA error is not bisected: the context is poisoned and
+        every half would fail the same way."""
+        from ..supervision.errors import (apply_record_policy,
+                                          batch_row_payload,
+                                          is_sticky_device_error,
+                                          split_batch)
+        try:
+            t0 = time.perf_counter()
+            commit = self.prep_device_batch(msg)
+            prep_us = (time.perf_counter() - t0) * 1e6
+            if commit is not None:
+                self.dispatch.submit(commit, prep_us)
+                self.dispatch.drain(forced=True)
+            else:
+                self.stats.note_host_prep(prep_us)
+        except Exception as exc:  # noqa: BLE001 — the policy boundary
+            if is_sticky_device_error(exc):
+                raise
+            if msg.size <= 1:
+                payload = batch_row_payload(msg, 0) if msg.size else {}
+                ts = int(msg.ts_host[0]) if msg.size else 0
+                apply_record_policy(self, self._err_policy, payload, ts,
+                                    exc)
+                return
+            for half in split_batch(msg):
+                self._process_batch_guarded(half)
 
     def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
         """Host-prep stage: return this batch's device-commit thunk (or

@@ -5,7 +5,8 @@ replicas of the ported slice write (tuples in/out, ignored tuples, the
 device-plane traffic and program counts, the dispatch-pipeline split, the
 watermark gauges, the unified late-record accounting, the fused-chain
 and megabatch counters, the tier plane's ``Tier_*`` counters and gauges,
-and the aligned checkpoints' ``Checkpoint_*`` counters). On top of those,
+the aligned checkpoints' ``Checkpoint_*`` counters, the input queue's
+blocked-put/get time and the error policies' ``Dlq_*`` counters). On top of those,
 ``rebuild_kernel_launches`` counts the launches of the hand-written
 FlatFAT forest-rebuild kernel on this replica's forest, so a run can show
 that the main path went through it.
@@ -52,8 +53,11 @@ class StatsRecord:
         "tier_enabled", "tier_hot_keys", "tier_cold_keys",
         "tier_promotes", "tier_demotes", "tier_promote_usec_total",
         "tier_lookups", "tier_misses",
+        # per-record error policies (supervision/errors.py): records
+        # quarantined, skipped and re-invoked
+        "dlq_records", "dlq_skipped", "dlq_retries",
         "input_channel", "pipe_depth_max", "worker_idle_ticks",
-        "worker_last_error", "is_terminated",
+        "worker_crashes", "worker_last_error", "is_terminated",
         "_last_svc_start", "_svc_seeded", "_prep_seeded", "_commit_seeded",
     )
 
@@ -110,9 +114,13 @@ class StatsRecord:
         self.tier_promote_usec_total = 0.0
         self.tier_lookups = 0
         self.tier_misses = 0
+        self.dlq_records = 0
+        self.dlq_skipped = 0
+        self.dlq_retries = 0
         self.input_channel = None  # wired by PipeGraph._make_workers
         self.pipe_depth_max = 0  # emitter-side FIFO high-water mark
         self.worker_idle_ticks = 0
+        self.worker_crashes = 0
         self.worker_last_error = ""
         self.is_terminated = False
         self._last_svc_start = 0.0
@@ -283,8 +291,19 @@ class StatsRecord:
             "Staging_pool_hits": self.staging_pool_hits,
             "Staging_pool_misses": self.staging_pool_misses,
             "Queue_depth_max": getattr(ch, "depth_max", 0),
+            # backpressure (producers blocked on this replica's full input
+            # queue) and starvation (this replica blocked on it empty): the
+            # autoscaler's signals
+            "Queue_blocked_put_usec": round(
+                getattr(ch, "blocked_put_ns", 0) / 1e3, 1),
+            "Queue_blocked_get_usec": round(
+                getattr(ch, "blocked_get_ns", 0) / 1e3, 1),
+            "Dlq_records": self.dlq_records,
+            "Dlq_skipped": self.dlq_skipped,
+            "Dlq_retries": self.dlq_retries,
             "Queue_emit_fifo_depth_max": self.pipe_depth_max,
             "Worker_idle_ticks": self.worker_idle_ticks,
+            "Worker_crashes": self.worker_crashes,
             "Worker_last_error": self.worker_last_error,
             "isTerminated": self.is_terminated,
         }

@@ -1,7 +1,6 @@
 """Operator and replica base classes.
 
-Trimmed copy of ``windflow_tpu/operators/base.py`` (no error policies, no
-latency tracing). Parity: ``wf/basic_operator.hpp`` —
+Trimmed copy of ``windflow_tpu/operators/base.py`` (no latency tracing). Parity: ``wf/basic_operator.hpp`` —
 an operator is metadata plus a vector of replicas; each replica is one
 chain node with the ``svc()`` hot loop, emitter wiring, punctuation
 handling and stats. Riched vs non-riched functors are told apart by arity.
@@ -62,6 +61,8 @@ class BasicOperator:
         self.key_extractor = as_key_fn(key_extractor)
         self.output_batch_size = output_batch_size
         self.closing_func: Optional[Callable] = None
+        # per-record error policy (supervision/errors.py; None = FAIL)
+        self.error_policy = None
         self.replicas: List["BasicReplica"] = []
         self.execution_mode = ExecutionMode.DEFAULT
         self.time_policy = TimePolicy.INGRESS_TIME
@@ -95,6 +96,13 @@ class BasicReplica:
         self.terminated = False
         self.cur_wm = 0
         self.copy_on_write = False  # set when fed by a broadcast emitter
+        # a non-FAIL error policy shadows ``process`` with a guarded
+        # wrapper (an instance attribute); the FAIL default leaves the
+        # class method untouched
+        pol = op.error_policy
+        if pol is not None and not pol.is_fail:
+            from ..supervision.errors import make_guarded_process
+            self.process = make_guarded_process(self, pol)
 
     def set_emitter(self, emitter: BasicEmitter) -> None:
         self.emitter = emitter

@@ -1,12 +1,15 @@
 """Worker threads: one OS thread per replica-chain.
 
-Trimmed copy of ``windflow_tpu/runtime/worker.py`` (no supervision, no
-flight recorder, no rescale hold, no exactly-once pre-commit). Chained
-operators share a thread and the stage collector is fused in front of the
-first replica. Termination mirrors the reference's EOS cascade
+Trimmed copy of ``windflow_tpu/runtime/worker.py`` (no flight recorder,
+no stall watchdog, no exactly-once pre-commit). Chained operators share a
+thread and the stage collector is fused in front of the first replica.
+Termination mirrors the reference's EOS cascade
 (``wf/basic_operator.hpp:180-189``). A replica that throws records the
 error, drains its inputs and force-propagates EOS downstream, so
-``PipeGraph.wait_end`` can re-raise it in the caller's thread.
+``PipeGraph.wait_end`` can re-raise it in the caller's thread; under
+supervision (``on_failure`` wired) it only notifies the supervisor, which
+owns the teardown. ``RescaleTeardown`` (a rescale's ``abandon``, or a
+closed channel's ``SupervisorTeardown``) ends the thread silently.
 
 Checkpointing (``windflow_tpu_torch.checkpoint``): the worker is the
 alignment point of checkpoint barriers. ``Barrier`` messages ride the
@@ -16,7 +19,8 @@ post-barrier input from already-barriered channels until every live
 channel delivered the barrier, then ``checkpoint_now`` drains the chain's
 device dispatch queues, flushes its emitters, forwards the barrier
 downstream, snapshots every node (collector included) and acks the
-coordinator with the blobs.
+coordinator with the blobs. A held epoch (a live rescale) then parks the
+worker right after its ack until the rescale controller releases it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import time
 import traceback
 from typing import Any, List, Optional
 
+from ..basic import RescaleTeardown
 from ..checkpoint.delta import capturing
 from ..message import EOS, Barrier
 from .channel import Channel
@@ -47,6 +52,10 @@ class Worker(threading.Thread):
         self.channel = channel
         self.coordinator = None  # CheckpointCoordinator (bind_coordinator)
         self.error: Optional[BaseException] = None
+        # supervised recovery (supervision/): when wired, a dying worker
+        # notifies the supervisor and exits WITHOUT the drain and
+        # emergency EOS (sinks must not see an end of stream mid-recovery)
+        self.on_failure = None
         self._eos_seen = 0
         self._has_coll = hasattr(chain[0], "on_channel_eos")
         # the chain nodes that carry operator state (the collector, when
@@ -75,12 +84,24 @@ class Worker(threading.Thread):
             self._process()
             self._retire()
             self._shutdown()
+        except RescaleTeardown:
+            # a rescale rebuilds the plane from the checkpoint we just
+            # acked, or the supervisor closed our channels: exit silently,
+            # no EOS cascade and no retirement
+            return
         except BaseException as e:
             self.error = e
             stats = self._stats()
             if stats is not None:
+                stats.worker_crashes += 1
                 stats.worker_last_error = "".join(
                     traceback.format_exception(type(e), e, e.__traceback__))
+            if self.on_failure is not None:
+                try:
+                    self.on_failure(self)
+                except BaseException:
+                    pass
+                return
             # unwind so sibling workers never block on us: swallow the rest
             # of our input, then force EOS downstream
             try:
@@ -217,6 +238,11 @@ class Worker(threading.Thread):
         if stats is not None:
             stats.note_checkpoint(snapshot_us, nbytes, stall_us,
                                   cut_us=cut_us)
+        # the rescale quiesce point: a held epoch parks every worker here,
+        # after its ack, with every pre-barrier tuple flushed and the
+        # barrier forwarded, before any post-barrier tuple is produced
+        if coord.park_if_held(barrier.ckpt_id, self.name) == "abandon":
+            raise RescaleTeardown()
 
     def _capture_blobs(self) -> dict:
         blobs = {}

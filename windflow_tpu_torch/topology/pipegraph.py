@@ -21,8 +21,14 @@ The graph carries the torch ``device`` its device operators run on:
 ``device=None`` means ``cuda``, and a graph refuses to exist when no CUDA
 card is present unless the caller asked for ``device="cpu"`` — it never
 falls back silently. ``start()`` initialises CUDA on the main thread.
-Supervision, rescaling, overload protection, prewarm and the mesh plane
-are not ported yet and raise.
+
+``rescale(op, n)`` repartitions a running keyed operator live
+(``scaling/``), ``with_autoscaler`` closes that loop over the queues'
+backpressure, ``with_supervision`` restarts a graph whose worker died from
+its newest committed checkpoint (``supervision/``), and an operator's
+``with_error_policy`` contains failing records (a device batch is bisected
+to its poison record). Overload protection, prewarm, exactly-once sinks
+and the mesh plane are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -93,16 +99,28 @@ class PipeGraph:
         self._ckpt_delta = False
         self._ckpt_async = False
         self._ckpt_full_every = 8
+        # live rescale (scaling/): the controller is made on first use;
+        # _rescaling keeps wait_end waiting while a rescale swaps the plane
+        self._rescale_ctrl = None
+        self._rescaling = False
+        self._autoscale_enabled = False
+        self._autoscale_policy = None
+        self._autoscaler = None
+        # replicas a scale-down removed: reported once more, marked Final
+        self._final_series: List[Dict[str, Any]] = []
+        # supervision (supervision/): _supervising keeps wait_end waiting
+        # while the supervisor rebuilds the plane
+        self._supervise_enabled = False
+        self._supervise_policy = None
+        self._supervisor = None
+        self._supervising = False
+        self._device_probe = None
+        self._initial_positions: Dict[Any, Any] = {}
+        self._dlq = None  # the graph's dead-letter queue, on first use
 
     # -- surfaces of the JAX package that are not ported yet ---------------
     def _not_ported(self, what: str):
         raise WindFlowError(f"{what} is not yet ported to windflow_tpu_torch")
-
-    def with_supervision(self, *args, **kwargs):
-        self._not_ported("with_supervision")
-
-    def with_autoscaler(self, *args, **kwargs):
-        self._not_ported("with_autoscaler")
 
     def with_slo(self, *args, **kwargs):
         self._not_ported("with_slo")
@@ -113,8 +131,189 @@ class PipeGraph:
     def with_exactly_once(self, *args, **kwargs):
         self._not_ported("with_exactly_once")
 
-    def rescale(self, *args, **kwargs):
-        self._not_ported("rescale")
+    # ------------------------------------------------------------------
+    # supervision (windflow_tpu_torch.supervision)
+    # ------------------------------------------------------------------
+    def with_supervision(self, policy: Optional[Any] = None) -> "PipeGraph":
+        """Recover the whole graph from worker deaths by itself: a
+        supervisor tears the runtime plane down, restores the newest
+        committed checkpoint that verifies, resumes the sources from their
+        recorded positions and restarts, under ``policy`` (a
+        ``RestartPolicy``: jittered exponential backoff, a bounded restart
+        budget; None = its defaults). An exhausted budget raises
+        ``SupervisionEscalated`` from ``wait_end``. Turns checkpointing on
+        when it is not configured (set an interval, or request
+        checkpoints, to bound the replay)."""
+        if self._started:
+            raise WindFlowError("with_supervision after start()")
+        self._supervise_enabled = True
+        self._supervise_policy = policy
+        if not self._ckpt_enabled:
+            self.with_checkpointing()
+        return self
+
+    def with_device_probe(self, probe: Any) -> "PipeGraph":
+        """Install a device-health probe (``supervision/health.py``),
+        read by the supervisor before every rebuild. Its dead devices are
+        reported (``Recovery_degraded_devices``); excluding them acts on
+        mesh operators only, which the port does not have yet."""
+        if self._started:
+            raise WindFlowError("with_device_probe after start()")
+        self._device_probe = probe
+        return self
+
+    def failure_domains(self) -> Dict[int, List[str]]:
+        """Device id -> the mesh operators whose sharded state lives on it
+        (empty in the port until the mesh plane)."""
+        from ..supervision.health import failure_domain_map
+        return failure_domain_map(self)
+
+    def _capture_initial_positions(self) -> None:
+        """Each replayable source replica's STARTING cursor, taken before
+        the first tuple ships. A failure before any checkpoint committed
+        leaves nothing to restore: the supervisor then resets the sources
+        to these positions (a full replay) instead of resuming from their
+        in-memory cursors and losing what sat in the discarded channels."""
+        from ..operators.base import arity
+        from ..operators.source import Source
+        self._initial_positions = {}
+        for s in self._stages:
+            if not s.is_source or not isinstance(s.first_op, Source):
+                continue
+            op = s.first_op
+            snap = getattr(op.func, "snapshot_position", None)
+            if snap is None:
+                continue
+            for r in op.replicas:
+                pos = r._restore_position  # a restore_from= start
+                if pos is None:
+                    pos = snap(r.context) if arity(snap) >= 1 else snap()
+                self._initial_positions[(op.name, r.idx)] = pos
+
+    def dead_letter_queue(self):
+        """The graph's quarantine side channel (made on first use; see
+        ``supervision/errors.py:DeadLetterQueue``)."""
+        if self._dlq is None:
+            from ..supervision.errors import DeadLetterQueue
+            self._dlq = DeadLetterQueue(self.name)
+        return self._dlq
+
+    def dead_letters(self) -> List[Dict[str, Any]]:
+        """Records quarantined by DEAD_LETTER error policies (payload,
+        exception, traceback), newest last."""
+        return [] if self._dlq is None else self._dlq.records()
+
+    def _negotiate_error_policies(self) -> None:
+        """At build: refuse a policy where it means nothing (a source), and
+        give every operator whose policy can quarantine, and that names no
+        queue of its own, the graph's dead-letter queue. The queue is set
+        on the OPERATOR: ``ErrorPolicy.DEAD_LETTER`` is shared by every
+        graph."""
+        for op in self._ops:
+            pol = getattr(op, "error_policy", None)
+            if pol is None or pol.is_fail:
+                continue
+            if op.op_type == OpType.SOURCE:
+                raise WindFlowError(
+                    f"with_error_policy: source {op.name!r} drives its own "
+                    "generation loop — there is no per-record invocation "
+                    "to contain; use with_supervision() for source "
+                    "failures")
+            if pol.may_dead_letter:
+                op._dlq = pol.dlq if pol.dlq is not None \
+                    else self.dead_letter_queue()
+
+    # ------------------------------------------------------------------
+    # live rescale (windflow_tpu_torch.scaling)
+    # ------------------------------------------------------------------
+    def with_autoscaler(self, policy: Optional[Any] = None) -> "PipeGraph":
+        """Attach the autoscaler loop: a thread reads every operator's
+        queue backpressure and starvation and rescales the bottleneck up
+        (starved operators down) with hysteresis and a cooldown.
+        ``policy`` is an ``AutoscalePolicy`` (None = its defaults). Turns
+        checkpointing on when it is not configured."""
+        if self._started:
+            raise WindFlowError("with_autoscaler after start()")
+        self._autoscale_enabled = True
+        self._autoscale_policy = policy
+        if not self._ckpt_enabled:
+            self.with_checkpointing()
+        return self
+
+    def _rescale_controller(self):
+        if self._rescale_ctrl is None:
+            from ..scaling.controller import RescaleController
+            self._rescale_ctrl = RescaleController(self)
+        return self._rescale_ctrl
+
+    def rescale(self, op_name: str, parallelism: int,
+                timeout_s: Optional[float] = None) -> Any:
+        """LIVE rescale of one operator (its whole chained stage) to a new
+        parallelism: trigger an aligned checkpoint, quiesce at the
+        barrier, rebuild the stage's replicas and every affected routing
+        table, restore the repartitioned keyed state, resume, without a
+        replay from the start. Returns a ``RescaleReport`` with the
+        measured ``checkpoint_s`` / ``pause_s`` / ``total_s`` and the
+        pause's split. Raises ``WindFlowError`` for an operator whose
+        state cannot be repartitioned (a global reduce, a non-keyed
+        window, a source), a source that is not replayable, a graph
+        without checkpointing, and a quiesce that outlives ``timeout_s``
+        (default: the graph's ``epoch_timeout_s``, else 60 s); after a
+        refusal or a timeout the graph goes on as it was."""
+        self._rescaling = True
+        try:
+            return self._rescale_controller().rescale(op_name, parallelism,
+                                                      timeout_s)
+        finally:
+            self._rescaling = False
+
+    def _note_retired_replicas(self, stage, new_n: int) -> None:
+        """The final stats of the replicas a scale-down removes (shown in
+        the next ``get_stats`` marked ``Final``, then dropped)."""
+        for op in stage.ops:
+            if getattr(op, "_fused_hidden", False):
+                continue
+            label = getattr(op, "_fused_stage_label", None) or op.name
+            finals = []
+            for r in op.replicas[new_n:]:
+                d = r.stats.to_dict()
+                d["Final"] = True
+                finals.append(d)
+            if finals:
+                self._final_series.append({
+                    "name": label, "kind": type(op).__name__,
+                    "parallelism": 0, "retired": True,
+                    "replicas": finals})
+
+    def _rebuild_runtime(self) -> None:
+        """Discard the runtime plane (replicas, channels, collectors,
+        workers) and rebuild it from the (possibly re-parallelized) stage
+        IR, its workers bound to the coordinator and the supervisor. The
+        caller (the rescale controller, the supervisor) owns quiescing:
+        every old worker must already be parked or joined."""
+        for s in self._stages:
+            s.channels = []
+            s.workers = []
+            for op in s.ops:
+                op.replicas = []
+        self._workers = []
+        self._built = False
+        self._build()
+        self._bind_workers()
+
+    def _bind_workers(self) -> None:
+        coord = self._coordinator
+        if coord is not None:
+            for w in self._workers:
+                w.bind_coordinator(coord)
+            coord.expected_acks = len(self._workers)
+            coord.worker_names = [w.name for w in self._workers]
+
+    def _sync_device(self) -> None:
+        """Wait for the card's queued work (nothing to wait for on the
+        CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # checkpointing (windflow_tpu_torch.checkpoint)
@@ -288,6 +487,7 @@ class PipeGraph:
         if self._built:
             return
         self._built = True
+        self._negotiate_error_policies()
         if self.device.type == "cuda":
             # initialise CUDA on the MAIN thread, before any worker touches
             # the card, and pin the device index the operators will use
@@ -496,6 +696,10 @@ class PipeGraph:
             else:
                 chain.extend(op.replicas[i] for op in stage.ops)
             w = Worker(f"{self.name}/{stage.describe()}[{i}]", chain, channel)
+            if self._supervisor is not None:
+                # supervised: a dying worker wakes the supervisor instead
+                # of draining and forcing EOS
+                w.on_failure = self._supervisor.note_failure
             stage.workers.append(w)
             self._workers.append(w)
 
@@ -506,6 +710,11 @@ class PipeGraph:
         if self._started:
             raise WindFlowError("PipeGraph already started")
         self._validate()
+        if self._supervise_enabled:
+            # the supervisor exists BEFORE the build, so every worker gets
+            # its failure hook
+            from ..supervision.supervisor import Supervisor
+            self._supervisor = Supervisor(self, self._supervise_policy)
         states = restore_from if isinstance(restore_from, dict) else None
         ckpt_dir, manifest = self._setup_checkpointing(
             None if states is not None else restore_from)
@@ -514,34 +723,68 @@ class PipeGraph:
             self._restore_states(states)
         elif ckpt_dir is not None:
             self._restore_replicas(ckpt_dir, manifest)
-        coord = self._coordinator
-        if coord is not None:
-            # bound here, not at build: get_num_threads() may have built
-            # the workers before the coordinator existed
-            for w in self._workers:
-                w.bind_coordinator(coord)
-            coord.expected_acks = len(self._workers)
-            coord.worker_names = [w.name for w in self._workers]
-            coord.start()
+        # bound here, not at build: get_num_threads() may have built the
+        # workers before the coordinator existed
+        self._bind_workers()
+        if self._coordinator is not None:
+            self._coordinator.start()
+        if self._supervisor is not None:
+            self._capture_initial_positions()
         self._started = True
         self._t0 = time.monotonic()
         for w in self._workers:
             w.start()
+        if self._supervisor is not None:
+            self._supervisor.start()
+        if self._autoscale_enabled:
+            from ..scaling.autoscaler import Autoscaler
+            self._autoscaler = Autoscaler(self, self._autoscale_policy)
+            self._autoscaler.start()
 
     def wait_end(self) -> None:
-        """Join every worker, then raise the first worker error (several:
-        ``WorkerFailuresError``), or else a failed checkpoint upload's
-        (``CheckpointCoordinator.upload_error``)."""
+        """Join every worker, then raise: a supervisor's
+        ``SupervisionEscalated``, else the first worker error (several:
+        ``WorkerFailuresError``), else a failed checkpoint upload's
+        (``CheckpointCoordinator.upload_error``). A live rescale or a
+        supervised restart REPLACES the workers mid-run, so the join
+        sweep runs again over the current plane until it stays put."""
         if not self._started:
             raise WindFlowError("PipeGraph not started")
         if self._ended:
             return
-        for w in self._workers:
-            w.join()
+        while True:
+            workers = self._workers
+            try:
+                for w in workers:
+                    w.join()
+            except RuntimeError:
+                # mid-rebuild: the new plane is published but its threads
+                # are not started yet
+                time.sleep(0.02)
+                continue
+            if self._workers is not workers:
+                continue
+            if self._rescaling or self._supervising:
+                time.sleep(0.05)  # the new plane is coming
+                continue
+            sup = self._supervisor
+            if sup is not None and sup.active \
+                    and any(w.error is not None for w in workers):
+                # a worker died but the supervisor has not reacted yet
+                time.sleep(0.02)
+                continue
+            break
         self._ended = True
+        if self._supervisor is not None:
+            self._supervisor.stop()
+        if self._autoscaler is not None:
+            self._autoscaler.stop()
         self.elapsed_sec = time.monotonic() - self._t0
         if self._coordinator is not None:
             self._coordinator.stop()
+        if self._supervisor is not None \
+                and self._supervisor.escalated is not None:
+            raise self._supervisor.escalated
         errors = {w.name: w.error for w in self._workers
                   if w.error is not None}
         if len(errors) == 1:
@@ -587,6 +830,9 @@ class PipeGraph:
         return self.dropped.value
 
     def get_stats(self) -> Dict[str, Any]:
+        # replicas a scale-down removed appear in exactly ONE report,
+        # marked Final, then their series end
+        finals, self._final_series = self._final_series, []
         st = {
             "PipeGraph_name": self.name,
             "Device": str(self.device),
@@ -603,8 +849,16 @@ class PipeGraph:
                 "parallelism": op.parallelism,
                 "replicas": [r.stats.to_dict() for r in op.replicas],
             } for op in self._ops if not getattr(op, "_fused_hidden",
-                                                  False)],
+                                                  False)] + finals,
         }
         if self._coordinator is not None:
             st["Checkpoints"] = self._coordinator.stats()
+        if self._rescale_ctrl is not None:
+            st["Rescales"] = self._rescale_ctrl.stats()
+        if self._autoscaler is not None:
+            st["Autoscaler"] = self._autoscaler.stats()
+        if self._supervisor is not None:
+            st["Supervision"] = self._supervisor.stats()
+        if self._dlq is not None:
+            st["Dead_letters"] = self._dlq.total
         return st

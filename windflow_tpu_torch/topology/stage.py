@@ -135,10 +135,19 @@ class Stage:
         window) may END the chain. The keyed and window terminators also
         need their KEYBY shuffle to be the identity (one replica, or a
         key-compatible keyed entry), and the window terminator a
-        STATELESS prefix. The JAX package also refuses sub-ops with an
-        error policy; the port has no error policies yet."""
+        STATELESS prefix. An operator with an error policy keeps its own
+        stage."""
         if not fusion:
             return "device-chain fusion disabled (PipeGraph(fusion=False))"
+
+        def _guarded(o):
+            pol = getattr(o, "error_policy", None)
+            return pol is not None and not pol.is_fail
+        if _guarded(op) or any(_guarded(o) for o in self.ops):
+            # poison isolation bisects a failing batch per OPERATOR; one
+            # fused program cannot attribute the error to a sub-op
+            return ("error policy set — poison-record bisection needs "
+                    "the operator's own program boundary")
         last_role = getattr(self.last_op, "fusion_role", None)
         if last_role == "terminator":
             return (f"{self.last_op.name} (global Reduce_GPU) already "
