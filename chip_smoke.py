@@ -139,6 +139,27 @@ Phases, each printing one line of its own:
    through a DEAD_LETTER-guarded Map_GPU whose function raises on one
    row: exactly one dead letter, every other row mapped exactly, and the
    bisection's commits and host time against a clean batch's;
+14. the mesh plane (``mesh`` lines) on the one card with 8 virtual shards
+   (``ensure_virtual_devices(8)``, every shard stacked on ``cuda:0``):
+   part ``ffat``, the HC stream (2 warm-up + 12 timed batches) through
+   ``Ffat_Windows_Mesh`` at mesh shapes (1, 1), (8, 1), (4, 2) and
+   (2, 4), and ``scripts/bench_mesh.py``'s config (64 keys,
+   16,384-tuple batches) at (4, 2): rows equal the CPU run at the same
+   shape (int32 sums: exact) and equal across shapes, K1 once per step;
+   part ``ops``, Map_Mesh (the stateful smap at 10,240 keys) and
+   Reduce_Mesh (graph_gpu's map -> filter -> keyed reduce at 256 keys)
+   at (4, 2) and (1, 1), rows equal the CPU run and the single-card
+   Map_GPU / Reduce_GPU; part ``restore``, the HC mesh window
+   checkpointed at (4, 2) after block 8, killed before block 16 and
+   restored onto (2, 4) (output equal to the uninterrupted run, no fired
+   window fires again); part ``degrade``, the same graph supervised with
+   a device probe that reports 4 of the 8 virtual devices dead: it
+   recovers on 4 shards, re-expands to 8 in one planned restart when the
+   probe clears them, and its distinct output equals the uninterrupted
+   run. Each line gives tuples/s (and windows/s), ``Mesh_steps``,
+   ``Mesh_shuffle_bytes``, ``Mesh_shard_skew``, K1's launches, a
+   profiled run's idle share and, for restore / degrade, the restore
+   time or the MTTR of each restart;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -188,8 +209,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase line; ``elapsed_s`` is the script's time so far."""
+    print(json.dumps({"phase": name, **fields, "elapsed_s": round(
+        time.perf_counter() - _T0, 1)}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2356,11 +2382,13 @@ class _GatedBlocks:
     before each block of ``gates`` until its event is set; ``every`` > 0
     requests a checkpoint after every ``every`` blocks and, with
     ``store``, waits (bounded) for it to commit; raises once before block
-    ``crash_at``. Its position counts the blocks pushed."""
+    ``crash_at``; sleeps ``pace_s`` after each block. Its position counts
+    the blocks pushed."""
 
     def __init__(self, blocks, gates=(), every=0, store=None,
-                 crash_at=None):
+                 crash_at=None, pace_s=0.0):
         self.blocks, self.every, self.store = blocks, every, store
+        self.pace_s = pace_s
         self.gates = {at: threading.Event() for at in gates}
         self.crash_at = crash_at
         self.pos = 0
@@ -2381,6 +2409,8 @@ class _GatedBlocks:
             shipper.set_next_watermark(wm)
             shipper.push_columns(cols, ts)
             self.pos += 1
+            if self.pace_s:
+                time.sleep(self.pace_s)
             if self.every and self.pos % self.every == 0:
                 before = CheckpointStore(self.store).latest() or 0
                 shipper.request_checkpoint()
@@ -2716,6 +2746,416 @@ def supervise_phase(torch, wt, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase mesh: the mesh plane on one card (virtual shards)
+# ---------------------------------------------------------------------------
+MESH_VDEV = 8
+MESH_SHAPES = ((1, 1), (8, 1), (4, 2), (2, 4))
+MESH_BATCHES, MESH_WARMUP = 14, 2
+# scripts/bench_mesh.py's config: 64 keys, 16,384-tuple batches
+MESH_BENCH_KEYS, MESH_BENCH_BATCH = 64, 16_384
+MESH_DEAD = (4, 5, 6, 7)   # the degrade part's dead virtual devices
+MESH_PACE_S = 0.12         # the degrade part's pause between blocks
+MESH_CRASH_AT = 8          # the degrade part's crash (before this block)
+MESH_WAIT_S = 60.0
+
+
+def _mesh_ffat_op(wt, n_keys, shape, name="fwm"):
+    return (wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
+                                        wt.fieldwise(value="sum"))
+            .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
+            .with_key_capacity(n_keys).with_mesh(mesh_shape=shape)
+            .with_name(name).build())
+
+
+def _run_mesh_ffat(wt, device, blocks, n_keys, shape, batch=BATCH):
+    """Columnar source -> Ffat_Windows_Mesh at ``shape`` -> columnar sink:
+    the sink's batches (with arrival times), the source's yield times,
+    the end of ``run()`` and the graph."""
+    t_yield = []
+    parts, sink = _sink_parts()
+    graph = wt.PipeGraph("mesh_ffat", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    graph.add_source(wt.Columnar_Source_Builder(_timed_source(blocks,
+                                                              t_yield))
+                     .with_output_batch_size(batch).build()) \
+        .add(_mesh_ffat_op(wt, n_keys, shape)) \
+        .add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.run()
+    return parts, t_yield, time.perf_counter(), graph
+
+
+def _window_cols(parts):
+    """Window rows sorted by (key, wid)."""
+    import numpy as np
+    c = _concat(parts)
+    order = np.lexsort((c["wid"], c["key"]))
+    return {k: v[order] for k, v in c.items()}
+
+
+def _mesh_stats(graph, name):
+    (r,) = next(o for o in graph.get_stats()["Operators"]
+                if o["name"] == name)["replicas"]
+    return r
+
+
+def _mesh_rates(run, batch, n_rows):
+    """Tuples/s and windows/s from the yield of batch MESH_WARMUP to the
+    end of ``run()`` (windows: the rows that reached the sink after that
+    yield)."""
+    parts, t_yield, t_end = run[0], run[1], run[2]
+    t0 = t_yield[MESH_WARMUP]
+    span = t_end - t0
+    windows = sum(len(c["ts"]) for t, c in parts if t >= t0)
+    return dict(tuples_per_s=(len(t_yield) - MESH_WARMUP) * batch / span,
+                windows_per_s=windows / span, windows_total=n_rows)
+
+
+def _same_cols(a, b):
+    import numpy as np
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+
+def mesh_ffat_part(torch, wt, card):
+    """Part ``ffat``: the HC stream through Ffat_Windows_Mesh at every
+    shape of MESH_SHAPES, then bench_mesh's config at (4, 2). At each:
+    the card's rows equal the port's CPU rows (int32 sums: exact) and
+    every shape's rows equal the others'; K1 launched once per step (so
+    on every firing step); the late counters conserve the inputs. Returns
+    K1's launches."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    configs = [("hc", HC_KEYS, BATCH, s) for s in MESH_SHAPES] \
+        + [("bench_mesh", MESH_BENCH_KEYS, MESH_BENCH_BATCH, (4, 2))]
+    streams = {"hc": _blocks(HC_KEYS, seed=71, n_batches=MESH_BATCHES,
+                             batch=BATCH),
+               "bench_mesh": _blocks(MESH_BENCH_KEYS, seed=72,
+                                     n_batches=MESH_BATCHES,
+                                     batch=MESH_BENCH_BATCH)}
+    launches, first = 0, {}
+    for cfg, n_keys, batch, shape in configs:
+        blocks = streams[cfg]
+        fr.LAUNCHES = 0
+        torch.cuda.synchronize()
+        run = _run_mesh_ffat(wt, "cuda", blocks, n_keys, shape, batch)
+        k1 = fr.LAUNCHES
+        rep = _mesh_stats(run[3], "fwm")
+        name = f"mesh ffat {cfg} {shape}"
+        if k1 == 0 or rep["Rebuild_kernel_launches"] != k1 \
+                or k1 != rep["Mesh_steps"]:
+            fail(f"{name}: K1 launches {k1}, replica "
+                 f"{rep['Rebuild_kernel_launches']}, steps "
+                 f"{rep['Mesh_steps']}: not one launch per step")
+        launches += k1
+        g = _window_cols(run[0])
+        c = _window_cols(_run_mesh_ffat(wt, "cpu", blocks, n_keys, shape,
+                                        batch)[0])
+        if not _same_cols(g, c):
+            fail(f"{name}: window rows differ from the CPU run")
+        if cfg in first and not _same_cols(g, first[cfg]):
+            fail(f"{name}: window rows differ from shape {MESH_SHAPES[0]}")
+        first.setdefault(cfg, g)
+        valid = g["valid"]
+        if not valid.any() or (g["value"][valid] < 0).any():
+            fail(f"{name}: no valid windows, or negative sums")
+        if rep["Late_admitted"] != rep["Late_records"] - rep["Late_dropped"] \
+                or rep["Inputs_received"] != len(blocks) * batch:
+            fail(f"{name}: the late counters do not conserve the inputs")
+        row = dict(part="ffat", config=cfg, shape=list(shape), keys=n_keys,
+                   batches=len(blocks), warmup=MESH_WARMUP, batch=batch,
+                   card=card, rows_equal_cpu=True, rows_equal_shapes=True,
+                   valid_windows=int(valid.sum()), rebuild_launches=k1,
+                   **_mesh_rates(run, batch, len(g["key"])),
+                   **{k: rep[k] for k in (
+                       "Mesh_devices", "Mesh_steps", "Mesh_shuffle_bytes",
+                       "Mesh_shard_skew", "Mesh_shard_occupancy",
+                       "Mesh_step_usec_total", "Late_records",
+                       "Late_dropped", "Inputs_ignored")})
+        if shape == (4, 2):
+            row["profiled"] = _profiled(
+                torch, lambda: _run_mesh_ffat(wt, "cuda", blocks, n_keys,
+                                              shape, batch), len(blocks))
+        phase("mesh", **row)
+    return launches
+
+
+def _mesh_ops(wt, part, shape, mesh=True):
+    if part == "map":
+        b = (wt.Map_GPU_Builder(_smap_fn).with_key_by("key")
+             .with_state({"n": np.int32(0)}).with_name("smap"))
+        if mesh:
+            b = b.with_mesh(mesh_shape=shape, key_capacity=HC_KEYS)
+        return [b.build()]
+    red = wt.Reduce_GPU_Builder(_sum_value).with_key_by("key") \
+        .with_name("red")
+    if mesh:
+        red = red.with_mesh(mesh_shape=shape, key_capacity=GRAPH_KEYS)
+    return [wt.Map_GPU_Builder(_map_value).build(),
+            wt.Filter_GPU_Builder(_even_value).build(), red.build()]
+
+
+def mesh_ops_part(torch, wt, card):
+    """Part ``ops``: Map_Mesh (the stateful smap at 10,240 keys) and
+    Reduce_Mesh (graph_gpu's map -> filter -> keyed reduce at 256 keys)
+    at (4, 2) and (1, 1): rows equal the CPU run's and the single-card
+    Map_GPU / Reduce_GPU's on the same stream (the map's row for row, the
+    reduce's as a multiset) and the numpy fold."""
+    streams = {"map": _blocks(HC_KEYS, seed=73, n_batches=STATE_BATCHES,
+                              batch=BATCH),
+               "reduce": _blocks(GRAPH_KEYS, seed=74,
+                                 n_batches=GRAPH_BATCHES, batch=BATCH)}
+    for part, blocks in streams.items():
+        op_name = "smap" if part == "map" else "red"
+        canon = _concat if part == "map" else _sorted_rows
+        single = canon(_run_state_graph(
+            wt, "cuda", blocks, lambda w: _mesh_ops(w, part, None,
+                                                    mesh=False))[0])
+        if part == "map":
+            ok = np.array_equal(single["value"], _smap_fold(blocks))
+        else:
+            tot, _ = _fold(blocks)
+            got = np.zeros(GRAPH_KEYS, np.int64)
+            np.add.at(got, single["key"], single["value"])
+            ok = np.array_equal(got, tot)
+        if not ok:
+            fail(f"mesh ops {part}: the single-card run differs from the "
+                 "numpy fold")
+        for shape in ((4, 2), (1, 1)):
+            make = lambda w, s=shape: _mesh_ops(w, part, s)
+            torch.cuda.synchronize()
+            grun = _run_state_graph(wt, "cuda", blocks, make)
+            g = canon(grun[0])
+            if not _same_cols(g, canon(_run_state_graph(
+                    wt, "cpu", blocks, make)[0])):
+                fail(f"mesh ops {part} {shape}: rows differ from the CPU "
+                     "run")
+            if not _same_cols(g, single):
+                fail(f"mesh ops {part} {shape}: rows differ from the "
+                     f"single-card {'Map_GPU' if part == 'map' else 'Reduce_GPU'}")
+            rep = _mesh_stats(grun[3], op_name)
+            phase("mesh", part="ops", op=part, shape=list(shape),
+                  keys=HC_KEYS if part == "map" else GRAPH_KEYS,
+                  batches=len(blocks), warmup=STATE_WARMUP, batch=BATCH,
+                  card=card, rows=int(len(g["ts"])), rows_equal_cpu=True,
+                  rows_equal_single_card=True, rows_equal_numpy=True,
+                  tuples_per_s=_state_rates(grun, len(blocks), BATCH),
+                  **{k: rep[k] for k in (
+                      "Mesh_devices", "Mesh_steps", "Mesh_shuffle_bytes",
+                      "Mesh_shard_skew", "Mesh_step_usec_total")},
+                  profiled=_profiled(torch, lambda: _run_state_graph(
+                      wt, "cuda", blocks, make), len(blocks)))
+
+
+def _run_mesh_rec(wt, src, store, shape, restore_from=None, crash=False,
+                  probe=None):
+    """Replayable source -> Ffat_Windows_Mesh at ``shape`` -> columnar
+    sink, checkpointing into ``store`` (supervised with ``probe``)."""
+    parts, sink = _sink_parts()
+    graph = wt.PipeGraph("mesh_rec", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device="cuda")
+    graph.with_checkpointing(store_dir=store)
+    if probe is not None:
+        graph.with_supervision(wt.RestartPolicy(max_restarts=2,
+                                                backoff_s=0.05,
+                                                backoff_max_s=0.1, seed=0))
+        graph.with_device_probe(probe)
+    graph.add_source(wt.Source_Builder(src).with_name("src")
+                     .with_output_batch_size(BATCH).build()) \
+        .add(_mesh_ffat_op(wt, HC_KEYS, shape)) \
+        .add_sink(wt.Sink_Builder(sink).with_columns().build())
+    t0 = time.perf_counter()
+    graph.start(restore_from)
+    if probe is not None:
+        return parts, graph, t0
+    try:
+        graph.wait_end()
+    except _InjectedCrash:
+        if not crash:
+            raise
+    else:
+        if crash:
+            fail("mesh restore: the injected crash did not end the run")
+    first = min((t for t, _ in parts), default=None)
+    return parts, graph, None if first is None else first - t0
+
+
+def mesh_restore_part(torch, wt, card):
+    """Part ``restore``: the HC ffat graph at (4, 2) checkpoints after
+    block REC_CKPT_AT, dies before block REC_CRASH_AT and is restored
+    with ``run(restore_from=...)`` onto (2, 4): the merged output equals
+    the uninterrupted run, the source resumes at the checkpoint's block,
+    and no window the checkpoint had fired fires again. Returns K1's
+    launches."""
+    from windflow_tpu_torch.checkpoint import CheckpointStore
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(HC_KEYS, seed=75, n_batches=REC_BATCHES,
+                     batch=BATCH)
+    torch.cuda.synchronize()
+    gold = _rec_results("ffat", _run_mesh_rec(
+        wt, _ReplayBlocks(blocks), _ckpt_dir("mesh_g"), (4, 2))[0])
+    store = _ckpt_dir("mesh_rec")
+    fr.LAUNCHES = 0
+    crash = _run_mesh_rec(wt, _ReplayBlocks(blocks, ckpt_at=REC_CKPT_AT,
+                                            crash_at=REC_CRASH_AT),
+                          store, (4, 2), crash=True)
+    if crash[1]._coordinator.completed != 1:
+        fail("mesh restore: the checkpoint did not commit before the crash")
+    _, ckpt_dir, manifest = CheckpointStore.resolve(store)
+    mf = CheckpointStore(store).load_states(ckpt_dir, manifest)[
+        ("fwm", 0)]["mesh_ffat"]
+    slide = SLIDE_US // np.gcd(WIN_US, SLIDE_US)
+    next_wid = np.concatenate(mf["fired"]).astype(np.int64) \
+        + (mf["pane_base"] or 0) // slide
+    src = _ReplayBlocks(blocks)
+    box = []
+
+    def restored():
+        t0 = time.perf_counter()
+        box.append(_run_mesh_rec(wt, src, store, (2, 4),
+                                 restore_from=store))
+        box.append(time.perf_counter() - t0)
+
+    prof = _profiled(torch, restored, REC_BATCHES - REC_CKPT_AT)
+    rest, wall = box
+    launches = fr.LAUNCHES
+    if src.first != REC_CKPT_AT:
+        fail(f"mesh restore: the source resumed at block {src.first}")
+    slot = mf["slot_of_key"]
+    again = sum(int(w < next_wid[slot[k]])
+                for _, c in rest[0] for k, w in zip(c["key"].tolist(),
+                                                    c["wid"].tolist()))
+    if again:
+        fail(f"mesh restore: {again} windows the checkpoint had fired "
+             "fired again")
+    merged = {**_rec_results("ffat", crash[0]),
+              **_rec_results("ffat", rest[0])}
+    if merged != gold:
+        fail("mesh restore: crash + restore differ from the uninterrupted "
+             "run")
+    rep = _mesh_stats(rest[1], "fwm")
+    if rep["Mesh_devices"] != MESH_VDEV:
+        fail("mesh restore: the restored mesh is not (2, 4)")
+    phase("mesh", part="restore", keys=HC_KEYS, batches=REC_BATCHES,
+          batch=BATCH, card=card, shape_checkpoint=[4, 2],
+          shape_restore=[2, 4], ckpt_after=REC_CKPT_AT,
+          crash_before=REC_CRASH_AT, rows_equal_uninterrupted=True,
+          refired_windows=0, restore_to_first_delivery_s=rest[2],
+          restored_tuples_per_s=(REC_BATCHES - REC_CKPT_AT) * BATCH / wall,
+          restored_windows_per_s=sum(len(c["ts"]) for _, c in rest[0])
+          / wall, rebuild_launches=launches, profiled=prof,
+          **{k: rep[k] for k in ("Mesh_steps", "Mesh_shuffle_bytes",
+                                 "Mesh_shard_skew")})
+    return launches
+
+
+def mesh_degrade_part(torch, wt, card):
+    """Part ``degrade``: the HC ffat graph at (4, 2) under supervision
+    with a device probe that reports virtual devices MESH_DEAD dead; the
+    source raises once before block MESH_CRASH_AT (checkpoints every
+    SUP_EVERY blocks). The graph recovers on 4 shards, and re-expands to
+    8 in one planned restart once the probe clears them; the distinct
+    output equals the uninterrupted run. Returns K1's launches."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(HC_KEYS, seed=76, n_batches=REC_BATCHES,
+                     batch=BATCH)
+    gold = _rec_results("ffat", _run_mesh_rec(
+        wt, _ReplayBlocks(blocks), _ckpt_dir("mesh_dg_g"), (4, 2))[0])
+    probe = wt.StaticDeviceProbe(dead=MESH_DEAD, interval_s=0.02)
+    store = _ckpt_dir("mesh_dg")
+    src = _GatedBlocks(blocks, every=SUP_EVERY, store=store,
+                       crash_at=MESH_CRASH_AT, pace_s=MESH_PACE_S)
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    box = {}
+    prof = _profiled(torch, lambda: box.update(_mesh_degrade_run(
+        wt, src, store, probe)), REC_BATCHES)
+    parts, g, seen, domains, wall = (box[k] for k in (
+        "parts", "graph", "seen", "domains", "wall"))
+    launches = fr.LAUNCHES
+    sup = g.get_stats()["Supervision"]
+    rep = _mesh_stats(g, "fwm")
+    hist = sup["Supervision_history"]
+    if sup["Supervision_restarts"] != 1 \
+            or [h.get("planned", False) for h in hist] != [False, True]:
+        fail(f"mesh degrade: history {hist}")
+    if rep.get("Mesh_devices") != MESH_VDEV:
+        fail("mesh degrade: the mesh did not re-expand to 8 shards")
+    if _rec_results("ffat", parts) != gold:
+        fail("mesh degrade: the distinct output differs from the "
+             "uninterrupted run")
+    if domains != {d: ["fwm"] for d in range(MESH_VDEV)
+                   if d not in MESH_DEAD}:
+        fail(f"mesh degrade: failure domains {domains}")
+    phase("mesh", part="degrade", keys=HC_KEYS, batches=REC_BATCHES,
+          batch=BATCH, card=card, shape=[4, 2], dead=list(MESH_DEAD),
+          checkpoint_every=SUP_EVERY, crash_before=MESH_CRASH_AT,
+          pace_s=MESH_PACE_S, degraded_mesh_devices=seen["Mesh_devices"],
+          final_mesh_devices=rep["Mesh_devices"], restarts=1,
+          planned_restarts=sup["Supervision_planned_restarts"],
+          history=[{k: h[k] for k in ("ckpt_id", "mttr_s")}
+                   | {"planned": h.get("planned", False)} for h in hist],
+          distinct_equal_uninterrupted=True, wall_s=wall,
+          paced_tuples_per_s=REC_BATCHES * BATCH / wall,
+          windows_per_s=sum(len(c["ts"]) for _, c in parts) / wall,
+          rebuild_launches=launches, profiled=prof,
+          **{k: rep[k] for k in ("Mesh_steps", "Mesh_shuffle_bytes",
+                                 "Mesh_shard_skew")})
+    return launches
+
+
+def _mesh_degrade_run(wt, src, store, probe):
+    """The degrade part's supervised run: wait for the 4-shard recovery,
+    clear the probe, wait for the re-expansion, then for the end."""
+    from windflow_tpu_torch.mesh import core as mcore
+    parts, g, t0 = _run_mesh_rec(wt, src, store, (4, 2), probe=probe)
+    try:
+        deadline = time.monotonic() + MESH_WAIT_S
+        seen = None
+        while time.monotonic() < deadline:
+            sup = g.get_stats()["Supervision"]
+            rep = _mesh_stats(g, "fwm")
+            if sup["Recovery_degraded_devices"] == len(MESH_DEAD) \
+                    and rep.get("Mesh_devices") \
+                    == MESH_VDEV - len(MESH_DEAD):
+                seen = dict(rep)
+                break
+            time.sleep(0.01)
+        if seen is None:
+            fail("mesh degrade: the 4-shard recovery never showed")
+        domains = g.failure_domains()
+        probe.dead.clear()  # the devices return
+        while time.monotonic() < deadline:
+            sup = g.get_stats()["Supervision"]
+            if sup["Supervision_planned_restarts"] >= 1 \
+                    and sup["Recovery_degraded_devices"] == 0:
+                break
+            time.sleep(0.01)
+        else:
+            fail("mesh degrade: the planned re-expansion never happened")
+        g.wait_end()
+    finally:
+        mcore.set_excluded_devices(())
+    return dict(parts=parts, graph=g, seen=seen, domains=domains,
+                wall=time.perf_counter() - t0)
+
+
+def mesh_phase(torch, wt, card):
+    """Phase ``mesh``: the mesh plane on the card with MESH_VDEV virtual
+    shards (parts ``ffat``, ``ops``, ``restore``, ``degrade``). Returns
+    K1's launches on the mesh paths."""
+    from windflow_tpu_torch.mesh import core as mcore
+    prev = mcore.virtual_device_count()
+    mcore.ensure_virtual_devices(MESH_VDEV)
+    try:
+        launches = mesh_ffat_part(torch, wt, card)
+        mesh_ops_part(torch, wt, card)
+        launches += mesh_restore_part(torch, wt, card)
+        launches += mesh_degrade_part(torch, wt, card)
+    finally:
+        mcore.ensure_virtual_devices(prev)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2754,6 +3194,7 @@ def main() -> None:
     delta_launches = delta_phase(torch, wt, card)
     rescale_launches = rescale_phase(torch, wt, card)
     supervise_launches = supervise_phase(torch, wt, card)
+    mesh_launches = mesh_phase(torch, wt, card)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",
@@ -2762,7 +3203,7 @@ def main() -> None:
         "launches": (hc_launches + base_launches + fusion_launches
                      + dag_launches + recovery_launches
                      + delta_launches + rescale_launches
-                     + supervise_launches),
+                     + supervise_launches + mesh_launches),
         "max_abs_err": max(err_checks, err_timed),
         "ms": timing["wrapper_ms"],
         "device_ms": timing["device_ms"],

@@ -38,9 +38,8 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, verdict, *_ = out.stdout.split()
-    # 57 modules since the rescale plane (scaling/) and supervision
-    # (supervision/)
-    assert int(n) >= 57 and verdict == "OK", out.stdout
+    # 61 modules since the mesh plane (mesh/)
+    assert int(n) >= 61 and verdict == "OK", out.stdout
 
 
 _ALONE = r"""
@@ -103,6 +102,22 @@ def test_rescale_and_supervision_modules_import_alone_without_jax(mod):
     JAX package's JAX-free ``scaling/`` and ``supervision/`` modules)
     import on their own, in a fresh interpreter, without pulling in jax
     or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c",
+                          _ALONE.format(root=ROOT, mod=mod)],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "OK", out.stdout
+
+
+@pytest.mark.parametrize("mod", [
+    "windflow_tpu_torch.mesh", "windflow_tpu_torch.mesh.core",
+    "windflow_tpu_torch.mesh.ffat_mesh", "windflow_tpu_torch.mesh.ops_mesh"])
+def test_mesh_modules_import_alone_without_jax(mod):
+    """The mesh plane (the port's own ``mesh/``: no JAX collectives, the
+    shards stacked on one device) imports on its own, in a fresh
+    interpreter, without pulling in jax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c",
                           _ALONE.format(root=ROOT, mod=mod)],

@@ -505,7 +505,10 @@ def test_refusals_match_jax(case, match):
 
 @pytest.mark.parametrize("call", [
     lambda: wt.Sink_Builder(lambda t: None).with_exactly_once(),
-    lambda: wt.Reduce_GPU_Builder(lambda a, b: a).with_mesh(),
+    # the mesh plane is ported on one card; a mesh over two physical
+    # devices is not
+    lambda: wt.mesh.KeyMesh((2, 1), [(0, torch.device("cpu")),
+                                     (1, torch.device("meta"))]),
     lambda: wt.PipeGraph(device="cpu").with_slo(50),
     lambda: wt.PipeGraph(device="cpu").with_prewarm(),
 ], ids=["exactly_once", "mesh", "slo", "prewarm"])

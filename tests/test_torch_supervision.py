@@ -588,8 +588,14 @@ def test_health_probes(tmp_path):
     g = _reduce_graph(wt, str(tmp_path / "probe"),
                       CrashingSource(600, ckpt_at=[200], crash_at=400), res,
                       probe=probe)
-    run_bounded(g)
+    try:
+        run_bounded(g)
+        # the recovery published the dead device into the process-wide
+        # mesh exclusion registry
+        assert wt.mesh.excluded_device_ids() == frozenset({3})
+    finally:
+        wt.mesh.set_excluded_devices(())
     sup = g.get_stats()["Supervision"]
     assert sup["Supervision_restarts"] == 1
     assert sup["Recovery_degraded_devices"] == 1
-    assert g.failure_domains() == {}  # no mesh operator in the port yet
+    assert g.failure_domains() == {}  # no mesh operator in this graph

@@ -21,7 +21,12 @@ aligned-barrier checkpoints and restore from them (``checkpoint/``).
 ``PipeGraph.rescale`` / ``with_autoscaler`` repartition a running keyed
 operator (``scaling/``); ``with_supervision`` restarts a failed graph from
 its checkpoints and ``with_error_policy`` contains poison records
-(``supervision/``).
+(``supervision/``). ``with_mesh`` on the device builders shards a keyed
+operator over a ``('key', 'data')`` mesh of shards held on the graph's
+card (``mesh/``: ``Ffat_Windows_Mesh``, ``Map_Mesh``, ``Filter_Mesh``,
+``Reduce_Mesh``; ``ensure_virtual_devices(n)`` makes n virtual devices
+visible), and the supervisor rebuilds them on the healthy devices a
+``with_device_probe`` reports.
 
 ``PipeGraph(..., device=None)`` runs on ``cuda`` and raises without a card;
 pass ``device="cpu"`` for the plain PyTorch path.
@@ -38,6 +43,8 @@ from .gpu.builders_gpu import (Ffat_Windows_GPU_Builder, Filter_GPU_Builder,
                                Map_GPU_Builder, Reduce_GPU_Builder)
 from .gpu.ffat_gpu import Ffat_Windows_GPU
 from .gpu.ops_gpu import Filter_GPU, Map_GPU, Reduce_GPU
+from .mesh import (Ffat_Windows_Mesh, Filter_Mesh, Map_Mesh, Reduce_Mesh,
+                   ensure_virtual_devices)
 from .scaling import AutoscalePolicy, RescaleReport
 from .state import TierConfig
 from .supervision import (DeadLetterQueue, ErrorPolicy, RestartPolicy,
@@ -49,12 +56,14 @@ from .topology.pipegraph import PipeGraph
 __all__ = [
     "AutoscalePolicy", "Columnar_Source_Builder", "CorruptCheckpointError",
     "DeadLetterQueue", "ErrorPolicy", "ExecutionMode",
-    "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder", "Filter_Builder",
-    "Filter_GPU", "Filter_GPU_Builder", "FlatMap_Builder",
-    "KeyCapacityError", "LocalStorage", "Map_Builder", "Map_GPU",
-    "Map_GPU_Builder", "MultiPipe", "OpType", "PipeGraph", "Reduce_Builder",
-    "Reduce_GPU", "Reduce_GPU_Builder", "RescaleReport", "RestartPolicy",
+    "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder", "Ffat_Windows_Mesh",
+    "Filter_Builder", "Filter_GPU", "Filter_GPU_Builder", "Filter_Mesh",
+    "FlatMap_Builder", "KeyCapacityError", "LocalStorage", "Map_Builder",
+    "Map_GPU", "Map_GPU_Builder", "Map_Mesh", "MultiPipe", "OpType",
+    "PipeGraph", "Reduce_Builder", "Reduce_GPU", "Reduce_GPU_Builder",
+    "Reduce_Mesh", "RescaleReport", "RestartPolicy",
     "RoutingMode", "RuntimeContext", "Sink_Builder", "Source_Builder",
     "StaticDeviceProbe", "SupervisionEscalated", "TierConfig", "TimePolicy",
-    "TorchDeviceProbe", "WinType", "WindFlowError", "fieldwise",
+    "TorchDeviceProbe", "WinType", "WindFlowError",
+    "ensure_virtual_devices", "fieldwise",
 ]

@@ -13,6 +13,13 @@ for this system.
   ``_KeyedStateScan.restore_state`` installs, the table as tensors on
   ``device``. ``fused_state_from_jax`` does it per sub-op for a fused
   chain's replica state.
+- ``mesh_state_from_jax(entry)`` takes the ``"mesh_ffat"`` /
+  ``"mesh_scan"`` / ``"mesh_reduce"`` entry of a JAX mesh replica's
+  snapshot (per-shard numpy row blocks, the key directory and the layout
+  metadata) and returns the port's: the two packages share the layout, so
+  it copies the blocks into owned numpy arrays in the port's dtypes.
+  The mesh replica relayouts the blocks onto its own mesh shape when the
+  graph starts, so a checkpoint taken at one shape restores at another.
 - ``checkpoint_states_from_jax(states, device)`` takes what the JAX
   package's ``CheckpointStore.load_states`` returns for one committed
   checkpoint (``{(op name, replica): state}``) and returns the port's
@@ -110,12 +117,53 @@ def fused_state_from_jax(snap: Dict[str, Any], device) -> Dict[str, Any]:
     return out
 
 
+_MESH_KEYS = ("mesh_ffat", "mesh_scan", "mesh_reduce")
+
+
+def _np_owned(a):
+    """An owned numpy copy of a JAX-written leaf in the port's dtypes
+    (int64 / float64 become int32 / float32, as on the device)."""
+    arr = np.array(a)
+    if arr.dtype == np.int64:
+        return arr.astype(np.int32)
+    if arr.dtype == np.float64:
+        return arr.astype(np.float32)
+    return arr
+
+
+def mesh_state_from_jax(entry: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX mesh replica's ``mesh_ffat`` / ``mesh_scan`` / ``mesh_reduce``
+    entry (a FULL one: a delta node is refused) for the port's mesh
+    replica. Per-shard blocks are copied leaf by leaf; the key directory,
+    ``key_by_slot`` (int64 original keys) and the layout metadata pass
+    through; a tier blob passes through unchanged."""
+    if "__state_delta__" in entry or "slot_of_key" not in entry:
+        raise WindFlowError("mesh_state_from_jax: not a full mesh "
+                            "snapshot (materialize a delta with "
+                            "CheckpointStore.load_states first)")
+    out = dict(entry)
+    out["slot_of_key"] = dict(entry["slot_of_key"])
+    out["key_by_slot"] = np.array(entry["key_by_slot"], dtype=np.int64)
+    if "trees" in entry:  # mesh_ffat: the forest and the control state
+        out["trees"] = {f: [np.array(b) for b in bl]
+                        for f, bl in entry["trees"].items()}
+        out["tvalid"] = [np.array(b, dtype=bool) for b in entry["tvalid"]]
+        for k in ("next_fire", "max_leaf", "fired"):
+            out[k] = [np.array(b, dtype=np.int32) for b in entry[k]]
+        out["val_dtypes"] = dict(entry["val_dtypes"])
+    if entry.get("table_shards") is not None:  # mesh_scan
+        out["table_shards"] = [tree_map(_np_owned, sh)
+                               for sh in entry["table_shards"]]
+    return out
+
+
 def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
                                device) -> Dict[Any, Dict[str, Any]]:
     """The replica states of one JAX checkpoint for the port: a fused
     chain's through ``fused_state_from_jax``, an FFAT window's ``"ffat"``
     through ``ffat_state_from_jax``, a stateful Map/Filter's ``"scan"``
-    through ``scan_state_from_jax``; source positions, watermarks, host
+    through ``scan_state_from_jax``, a mesh replica's entry through
+    ``mesh_state_from_jax``; source positions, watermarks, host
     operator state and the emitter and collector entries pass through (the
     two packages share their layout). A delta node is refused: the store's
     ``load_states`` returns materialized states."""
@@ -132,5 +180,8 @@ def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
             st["ffat"] = ffat_state_from_jax(st["ffat"], device)
         if st.get("scan") is not None:
             st["scan"] = scan_state_from_jax(st["scan"], device)
+        for k in _MESH_KEYS:
+            if st.get(k) is not None:
+                st[k] = mesh_state_from_jax(st[k])
         out[key] = st
     return out

@@ -6,8 +6,10 @@ The port of ``windflow_tpu/tpu/builders_tpu.py``: ``Map_GPU_Builder``,
 ``builders_gpu.hpp:576``), with ``with_schema`` in place of C++ type
 deduction (or inferred from the first tuple at the staging boundary).
 ``with_state`` makes a Map_GPU or Filter_GPU keyed and stateful and
-``with_tiering`` puts a host cold tier behind its device table; the mesh
-plane (``with_mesh``) is not part of the port yet and raises.
+``with_tiering`` puts a host cold tier behind its device table;
+``with_mesh`` shards a keyed operator's state over a ``('key', 'data')``
+mesh of shards on the graph's card (``windflow_tpu_torch/mesh``), with
+the JAX package's signatures and refusals.
 
 User functions take a dict of torch columns on the graph's device and
 return new tensors: they must not write an input column in place (a
@@ -27,7 +29,7 @@ from .schema import TupleSchema
 
 
 class _GPUBuilder(_RoutableBuilder):
-    """``with_schema`` and the refusals of what is not ported."""
+    """``with_schema``, shared by the device builders."""
 
     def __init__(self, func: Callable) -> None:
         super().__init__(func)
@@ -38,12 +40,54 @@ class _GPUBuilder(_RoutableBuilder):
                         else schema)
         return self
 
-    def with_mesh(self, *args, **kwargs):
-        raise WindFlowError("with_mesh: the mesh plane is not yet ported to "
-                            "windflow_tpu_torch")
+
+class _MeshBuilderMixin:
+    """``with_mesh`` for the keyed device operators: shard the operator's
+    keyed-state plane over a ``('key', 'data')`` mesh (``mesh/``) instead
+    of one replica's table."""
+
+    _mesh_cfg: Optional[dict] = None
+
+    def with_mesh(self, n_devices: Optional[int] = None,
+                  mesh_shape: Optional[tuple] = None,
+                  local_batch: Optional[int] = None,
+                  key_capacity: int = 1024):
+        """``build()`` returns the mesh-sharded operator (``Map_Mesh`` /
+        ``Filter_Mesh`` / ``Reduce_Mesh``): ONE host replica drives every
+        shard, the KEYBY shuffle runs as a bucket-by-owner +
+        ``all_to_all`` inside the step, and per-key state is
+        block-sharded over the shards. ``mesh_shape=(ka, da)`` forces the
+        factorization (results are invariant under reshape); the default
+        uses every visible device (``mesh.ensure_virtual_devices(n)``
+        places n shards on the graph's card). ARBITRARY int64 keys
+        densify to ``key_capacity`` slots (more distinct keys raise).
+        Mesh operators refuse ``rescale()``: to change capacity,
+        checkpoint and restore with another ``mesh_shape``."""
+        self._mesh_cfg = {"n_devices": n_devices, "mesh_shape": mesh_shape,
+                          "local_batch": local_batch,
+                          "key_capacity": key_capacity}
+        return self
+
+    def _mesh_guard(self, what: str) -> None:
+        if self._parallelism != 1:
+            raise WindFlowError(
+                f"{what}: with_mesh and with_parallelism are exclusive — "
+                "the mesh IS the parallelism (one host replica drives "
+                "every shard)")
+        if self._output_batch_size:
+            raise WindFlowError(
+                f"{what}: with_output_batch_size does not apply to the "
+                "mesh plane (batches pad to the mesh's global batch)")
+        if self._key_extractor is None:
+            raise WindFlowError(f"{what}: with_mesh requires with_key_by "
+                                "(the mesh shards the KEYED plane)")
+
+    def _mesh_name(self, mesh_default: str) -> str:
+        return (self._name if self._name != self._default_name
+                else mesh_default)
 
 
-class _KeyedStateBuilder(_GPUBuilder):
+class _KeyedStateBuilder(_GPUBuilder, _MeshBuilderMixin):
     """``with_state`` and ``with_tiering`` of the Map/Filter builders, with
     the JAX package's build-time refusals."""
 
@@ -90,6 +134,14 @@ class Map_GPU_Builder(_KeyedStateBuilder):
     _default_name = "map_gpu"
 
     def build(self) -> Map_GPU:
+        if self._mesh_cfg is not None:
+            from ..mesh.ops_mesh import Map_Mesh
+            self._state_args()
+            self._mesh_guard("Map_GPU_Builder")
+            return self._finish(Map_Mesh(
+                self._func, self._state_init, self._key_extractor,
+                self._mesh_name("map_mesh"), schema=self._schema,
+                tiering=self._tiering, **self._mesh_cfg))
         return self._finish(Map_GPU(self._func, self._name, self._parallelism,
                                     self._routing, self._key_extractor,
                                     self._output_batch_size, self._schema,
@@ -104,6 +156,14 @@ class Filter_GPU_Builder(_KeyedStateBuilder):
     _default_name = "filter_gpu"
 
     def build(self) -> Filter_GPU:
+        if self._mesh_cfg is not None:
+            from ..mesh.ops_mesh import Filter_Mesh
+            self._state_args()
+            self._mesh_guard("Filter_GPU_Builder")
+            return self._finish(Filter_Mesh(
+                self._func, self._state_init, self._key_extractor,
+                self._mesh_name("filter_mesh"), schema=self._schema,
+                tiering=self._tiering, **self._mesh_cfg))
         return self._finish(Filter_GPU(self._func, self._name,
                                        self._parallelism, self._routing,
                                        self._key_extractor,
@@ -111,7 +171,7 @@ class Filter_GPU_Builder(_KeyedStateBuilder):
                                        **self._state_args()))
 
 
-class Reduce_GPU_Builder(_GPUBuilder):
+class Reduce_GPU_Builder(_GPUBuilder, _MeshBuilderMixin):
     """``Reduce_GPU_Builder(combine)``: ``combine(a, b) -> fields`` over two
     dicts of torch columns, associative and commutative, returning new
     tensors; a field it does not return passes through from ``b``.
@@ -126,6 +186,13 @@ class Reduce_GPU_Builder(_GPUBuilder):
             # shuffle or forward); the reference reduce has no broadcast
             raise WindFlowError("Reduce_GPU_Builder: withBroadcast is not "
                                 "supported (use withKeyBy or forward)")
+        if self._mesh_cfg is not None:
+            from ..mesh.ops_mesh import Reduce_Mesh
+            self._mesh_guard("Reduce_GPU_Builder")
+            return self._finish(Reduce_Mesh(
+                self._func, self._key_extractor,
+                self._mesh_name("reduce_mesh"), schema=self._schema,
+                **self._mesh_cfg))
         return self._finish(Reduce_GPU(self._func, self._key_extractor,
                                        self._name, self._parallelism,
                                        self._output_batch_size, self._schema))
@@ -147,6 +214,7 @@ class Ffat_Windows_GPU_Builder(_GPUBuilder):
         self._lateness = 0
         self._nwpb = None  # default: auto-sized from key capacity
         self._key_capacity = 16
+        self._mesh_cfg: Optional[dict] = None
 
     def with_key_capacity(self, n: int) -> "Ffat_Windows_GPU_Builder":
         """Expected distinct-key count per replica (pre-sizes the forest)."""
@@ -171,6 +239,30 @@ class Ffat_Windows_GPU_Builder(_GPUBuilder):
         self._nwpb = n
         return self
 
+    def with_mesh(self, n_devices: Optional[int] = None,
+                  mesh_shape: Optional[tuple] = None,
+                  local_batch: Optional[int] = None,
+                  fire_rounds: int = 4, ring_panes: int = 0,
+                  late_policy: str = "keep_open"):
+        """Shard the FlatFAT forest over a ('key', 'data') mesh:
+        ``build()`` returns ``Ffat_Windows_Mesh`` (keyby as an
+        ``all_to_all`` inside the step, on-device fire control, K1
+        rebuilding every shard's rows in one launch) instead of the
+        single-card plane. ``mesh_shape=(ka, da)`` forces the
+        factorization; the default uses every visible device. TB windows
+        only; ARBITRARY int64 keys, densified to ``with_key_capacity``
+        slots (more distinct keys raise). ``late_policy``: "keep_open"
+        (default) drops a tuple only when every window containing it
+        already fired; "ref_fired" reproduces the reference's
+        fired-window bound. Windows are origin-anchored (PARITY.md
+        §2.3), unlike the single-card plane's."""
+        self._mesh_cfg = {"n_devices": n_devices, "mesh_shape": mesh_shape,
+                          "local_batch": local_batch,
+                          "fire_rounds": fire_rounds,
+                          "ring_panes": ring_panes,
+                          "late_policy": late_policy}
+        return self
+
     def build(self) -> Ffat_Windows_GPU:
         if self._win_type is None:
             raise WindFlowError("Ffat_Windows_GPU_Builder: call "
@@ -178,6 +270,29 @@ class Ffat_Windows_GPU_Builder(_GPUBuilder):
         if self._key_extractor is None:
             raise WindFlowError("Ffat_Windows_GPU_Builder: withKeyBy "
                                 "is mandatory")
+        if self._mesh_cfg is not None:
+            from ..mesh.ffat_mesh import Ffat_Windows_Mesh
+            if self._parallelism != 1:
+                raise WindFlowError(
+                    "Ffat_Windows_GPU_Builder: with_mesh and "
+                    "with_parallelism are exclusive — the mesh IS the "
+                    "parallelism (one host replica drives every shard)")
+            if self._nwpb is not None:
+                raise WindFlowError(
+                    "Ffat_Windows_GPU_Builder: with_num_win_per_batch does "
+                    "not apply to the mesh plane; the per-step fire budget "
+                    "is with_mesh(fire_rounds=...)")
+            if self._output_batch_size:
+                raise WindFlowError(
+                    "Ffat_Windows_GPU_Builder: with_output_batch_size does "
+                    "not apply to the mesh plane (windows emit as rows "
+                    "through the exit edge)")
+            return self._finish(Ffat_Windows_Mesh(
+                self._func, self._combine, self._key_extractor,
+                self._win_len, self._slide_len, self._win_type,
+                self._lateness, self._name,
+                key_capacity=self._key_capacity,
+                schema=self._schema, **self._mesh_cfg))
         return self._finish(Ffat_Windows_GPU(
             self._func, self._combine, self._key_extractor, self._win_len,
             self._slide_len, self._win_type, self._lateness, self._nwpb,

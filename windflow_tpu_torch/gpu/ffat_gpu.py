@@ -56,6 +56,57 @@ from .scan import segmented_scan
 from .schema import TupleSchema, broadcast_scalar_fields, numpy_dtype
 
 
+def comb_valid(combine: Callable, va, a, vb, b):
+    """Ordered combine with validity: an invalid side passes the other
+    through (None-as-identity, like the CPU FlatFAT); ``a`` is the earlier
+    side."""
+    both = va & vb
+    merged = combine(a, b)
+    return va | vb, {k: torch.where(both, merged[k],
+                                    torch.where(va, a[k], b[k]))
+                     for k in a}
+
+
+def _range_query(combine: Callable, flat, vflat, base, lo, length, F: int):
+    """Ordered combine of physical leaf range [lo, lo+length) of the tree
+    rows at flat offsets ``base``: iterative segment-tree walk, left/right
+    accumulators keep combine order."""
+    nn = 2 * F
+    W = base.shape[0]
+    zero = {k: torch.zeros(W, dtype=b.dtype, device=base.device)
+            for k, b in flat.items()}
+    off = torch.zeros(W, dtype=torch.bool, device=base.device)
+    lv, la, rv, ra = off, zero, off, zero
+    l, r = lo + F, lo + length + F
+    for _ in range(nn.bit_length()):
+        take_l = ((l & 1) == 1) & (l < r)
+        il = base + l.clamp(0, nn - 1)
+        lv, la = comb_valid(combine, lv, la, vflat[il] & take_l,
+                            {k: b[il] for k, b in flat.items()})
+        l = torch.where(take_l, l + 1, l)
+        take_r = ((r & 1) == 1) & (l < r)
+        ir = base + (r - 1).clamp(0, nn - 1)
+        rv, ra = comb_valid(combine, vflat[ir] & take_r,
+                            {k: b[ir] for k, b in flat.items()}, rv, ra)
+        r = torch.where(take_r, r - 1, r)
+        l, r = l >> 1, r >> 1
+    return comb_valid(combine, lv, la, rv, ra)
+
+
+def window_query(combine: Callable, flat: Dict[str, torch.Tensor],
+                 vflat: torch.Tensor, base, start, length, F: int):
+    """``(valid, values)``: the ordered combine of ring range ``[start,
+    start + length)`` (physical leaves, wrapping past F: at most two
+    ranges) of each tree row at flat offset ``base`` of the flat forest
+    planes ``flat`` / ``vflat``. Shared by ``Ffat_Windows_GPU`` and the
+    mesh forest (``mesh/core.py``)."""
+    len1 = torch.minimum(length, F - start)
+    v1, r1 = _range_query(combine, flat, vflat, base, start, len1, F)
+    v2, r2 = _range_query(combine, flat, vflat, base,
+                          torch.zeros_like(start), length - len1, F)
+    return comb_valid(combine, v1, r1, v2, r2)
+
+
 class Ffat_Windows_GPU(GPUOperatorBase):
     op_type = OpType.WIN_GPU
 
@@ -243,43 +294,6 @@ class FfatGPUReplica(GPUReplicaBase):
     def _install_forest(self, planes) -> None:
         self._flat, self.trees, self._vflat, self.tvalid = planes
 
-    def _comb_valid(self, va, a, vb, b):
-        """Ordered combine with validity: an invalid side passes the other
-        through (None-as-identity, like the CPU FlatFAT)."""
-        both = va & vb
-        merged = self.op.combine(a, b)
-        out = {k: torch.where(both, merged[k], torch.where(va, a[k], b[k]))
-               for k in a}
-        return va | vb, out
-
-    def _range_query(self, base, lo, length):
-        """Ordered combine of physical leaf range [lo, lo+length) of the
-        tree rows at ``base`` (flat row offsets): iterative segment-tree
-        walk, left/right accumulators keep combine order."""
-        F = self.F
-        nn = 2 * F
-        W = base.shape[0]
-        zero = {k: torch.zeros(W, dtype=b.dtype, device=self.device)
-                for k, b in self._flat.items()}
-        off = torch.zeros(W, dtype=torch.bool, device=self.device)
-        lv, la, rv, ra = off, zero, off, zero
-        l, r = lo + F, lo + length + F
-        for _ in range(nn.bit_length()):
-            take_l = ((l & 1) == 1) & (l < r)
-            il = base + l.clamp(0, nn - 1)
-            lv, la = self._comb_valid(
-                lv, la, self._vflat[il] & take_l,
-                {k: b[il] for k, b in self._flat.items()})
-            l = torch.where(take_l, l + 1, l)
-            take_r = ((r & 1) == 1) & (l < r)
-            ir = base + (r - 1).clamp(0, nn - 1)
-            rv, ra = self._comb_valid(
-                self._vflat[ir] & take_r,
-                {k: b[ir] for k, b in self._flat.items()}, rv, ra)
-            r = torch.where(take_r, r - 1, r)
-            l, r = l >> 1, r >> 1
-        return self._comb_valid(lv, la, rv, ra)
-
     def _fire_and_evict(self, f_pack: torch.Tensor, e_pack: torch.Tensor):
         """Vectorized window queries for every fire lane, then leaf
         eviction (in place) and the wid/key output columns."""
@@ -288,12 +302,8 @@ class FfatGPUReplica(GPUReplicaBase):
         m = self.K_cap * nn
         fire_slots, starts, lens, wids, mask_i = f_pack
         fire_mask = mask_i != 0
-        base = fire_slots * nn
-        len1 = torch.minimum(lens, F - starts)
-        v1, r1 = self._range_query(base, starts, len1)
-        v2, r2 = self._range_query(base, torch.zeros_like(starts),
-                                   lens - len1)
-        qv, qr = self._comb_valid(v1, r1, v2, r2)
+        qv, qr = window_query(self.op.combine, self._flat, self._vflat,
+                              fire_slots * nn, starts, lens, F)
         qv = qv & fire_mask
         e_slots, e_leaves, e_mask_i = e_pack
         eflat = torch.where(e_mask_i != 0, e_slots * nn + (F + e_leaves), m)

@@ -6,7 +6,8 @@ device-plane traffic and program counts, the dispatch-pipeline split, the
 watermark gauges, the unified late-record accounting, the fused-chain
 and megabatch counters, the tier plane's ``Tier_*`` counters and gauges,
 the aligned checkpoints' ``Checkpoint_*`` counters, the input queue's
-blocked-put/get time and the error policies' ``Dlq_*`` counters). On top of those,
+blocked-put/get time, the error policies' ``Dlq_*`` counters and the mesh
+replicas' ``Mesh_*`` series). On top of those,
 ``rebuild_kernel_launches`` counts the launches of the hand-written
 FlatFAT forest-rebuild kernel on this replica's forest, so a run can show
 that the main path went through it.
@@ -56,6 +57,14 @@ class StatsRecord:
         # per-record error policies (supervision/errors.py): records
         # quarantined, skipped and re-invoked
         "dlq_records", "dlq_skipped", "dlq_retries",
+        # mesh execution plane (mesh/): shards, steps run, the bytes the
+        # shuffle moved, step time, the fullest shard's slots and the
+        # max/mean skew, and devices the mesh runs without because the
+        # supervisor excluded them. mesh_devices == 0 marks a non-mesh
+        # replica: to_dict then omits the Mesh_* keys
+        "mesh_devices", "mesh_steps", "mesh_shuffle_bytes",
+        "mesh_step_total_us", "mesh_shard_occupancy", "mesh_shard_skew",
+        "mesh_degraded",
         "input_channel", "pipe_depth_max", "worker_idle_ticks",
         "worker_crashes", "worker_last_error", "is_terminated",
         "_last_svc_start", "_svc_seeded", "_prep_seeded", "_commit_seeded",
@@ -117,6 +126,13 @@ class StatsRecord:
         self.dlq_records = 0
         self.dlq_skipped = 0
         self.dlq_retries = 0
+        self.mesh_devices = 0
+        self.mesh_steps = 0
+        self.mesh_shuffle_bytes = 0
+        self.mesh_step_total_us = 0.0
+        self.mesh_shard_occupancy = 0
+        self.mesh_shard_skew = 0.0
+        self.mesh_degraded = 0
         self.input_channel = None  # wired by PipeGraph._make_workers
         self.pipe_depth_max = 0  # emitter-side FIFO high-water mark
         self.worker_idle_ticks = 0
@@ -225,6 +241,14 @@ class StatsRecord:
         self.tier_lookups = lookups
         self.tier_misses = misses
 
+    # -- mesh execution plane (mesh/) -----------------------------------------
+    def note_mesh_step(self, us: float, shuffle_bytes: int) -> None:
+        """One sharded step: host-observed time (the step's launches and
+        its read-back) and the bytes its all_to_all moved."""
+        self.mesh_steps += 1
+        self.mesh_step_total_us += us
+        self.mesh_shuffle_bytes += shuffle_bytes
+
     def note_pipe_depth(self, depth: int) -> None:
         if depth > self.pipe_depth_max:
             self.pipe_depth_max = depth
@@ -307,6 +331,14 @@ class StatsRecord:
             "Worker_last_error": self.worker_last_error,
             "isTerminated": self.is_terminated,
         }
+        if self.mesh_devices > 0:  # mesh replicas only
+            d["Mesh_devices"] = self.mesh_devices
+            d["Mesh_steps"] = self.mesh_steps
+            d["Mesh_shuffle_bytes"] = self.mesh_shuffle_bytes
+            d["Mesh_step_usec_total"] = round(self.mesh_step_total_us, 1)
+            d["Mesh_shard_occupancy"] = self.mesh_shard_occupancy
+            d["Mesh_shard_skew"] = self.mesh_shard_skew
+            d["Mesh_degraded_devices"] = self.mesh_degraded
         if self.tier_enabled:  # with_tiering replicas only
             d["Tier_hot_keys"] = self.tier_hot_keys
             d["Tier_cold_keys"] = self.tier_cold_keys

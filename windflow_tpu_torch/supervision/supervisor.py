@@ -34,10 +34,17 @@ The supervisor closes that loop:
    counters carry over. The detect -> resume time is the event's MTTR
    (``Supervision_last_restart_s``).
 
-Not ported yet: restarts on a stall (the port has no stall watchdog),
-and the mesh plane's device exclusions and re-expansion (a wired
-``DeviceHealthProbe`` is read before each rebuild and its dead count
-reported; see ``health.py``).
+Device loss (``health.py``): before every rebuild a wired
+``DeviceHealthProbe`` is read and its dead devices are published into the
+mesh exclusion registry (``mesh/core.py:set_excluded_devices``), so the
+rebuilt mesh operators come up on the surviving devices and their
+sharded state relayouts onto the smaller mesh. While degraded the
+supervisor polls the probe at its ``interval_s``; when an excluded device
+reports healthy again it makes ONE planned restart (no backoff, no
+restart budget spent; ``planned: true`` in the history) that re-expands
+the meshes.
+
+Not ported yet: restarts on a stall (the port has no stall watchdog).
 """
 
 from __future__ import annotations
@@ -83,7 +90,10 @@ class Supervisor(threading.Thread):
         self.history: List[Dict[str, Any]] = []  # bounded, newest last
         self.last_ladder_depth = 0   # rungs skipped by the last restore
         self.verify_failures = 0     # cumulative corrupt rungs walked past
-        self.degraded_devices = 0    # dead devices the probe last reported
+        self.degraded_devices = 0    # devices currently excluded
+        self.planned_restarts = 0    # re-expansion restarts (not failures)
+        self._excluded: frozenset = frozenset()
+        self._next_probe_t = 0.0
         self._wake = threading.Event()
         self._stop_evt = threading.Event()
 
@@ -116,6 +126,15 @@ class Supervisor(threading.Thread):
                                           f"{type(e).__name__}: {e}",
                                    cause=e)
                 if not self.active:
+                    return
+            elif self.active:
+                try:
+                    self._maybe_reexpand()
+                except Exception as e:
+                    self._escalate([], [],
+                                   reason=f"mesh re-expansion failed: "
+                                          f"{type(e).__name__}: {e}",
+                                   cause=e)
                     return
 
     def _new_stalls(self) -> List[str]:
@@ -212,16 +231,75 @@ class Supervisor(threading.Thread):
             # plane starts (raises on a poisoned context)
             g._sync_device()
 
-    def _probe_devices(self) -> None:
-        """Read the graph's device-health probe, when one is wired. A
-        probe exception keeps the previous reading."""
+    # -- device-loss failover (health.py) ------------------------------------
+    def _apply_device_exclusions(self) -> None:
+        """Read the graph's device-health probe (when wired) and publish
+        its dead devices into the mesh exclusion registry, so the rebuild
+        lands mesh state on surviving devices only. Runs BEFORE the
+        rebuild. A probe exception keeps the previous exclusion set: no
+        new information must never block a recovery."""
         probe = getattr(self.graph, "_device_probe", None)
         if probe is None:
             return
         try:
-            self.degraded_devices = len(probe.dead_devices())
+            dead = frozenset(int(d) for d in probe.dead_devices())
         except Exception:
-            pass
+            dead = self._excluded
+        if dead != self._excluded:
+            from ..mesh.core import set_excluded_devices
+            set_excluded_devices(dead)
+            self._excluded = dead
+        self.degraded_devices = len(dead)
+
+    def _maybe_reexpand(self) -> None:
+        """While degraded, poll the probe at its own pace; when an excluded
+        device reports healthy again, make ONE planned restart so the
+        meshes re-expand (the rebuild reads the shrunken exclusion set
+        and the relayout restore does the rest)."""
+        g = self.graph
+        probe = getattr(g, "_device_probe", None)
+        if probe is None or not self._excluded or g._ended:
+            return
+        if all(not w.is_alive() for w in g._workers):
+            return  # the stream is finishing; nothing to re-expand for
+        now = time.monotonic()
+        if now < self._next_probe_t:
+            return
+        self._next_probe_t = now + max(
+            0.01, float(getattr(probe, "interval_s", 1.0) or 1.0))
+        try:
+            dead = frozenset(int(d) for d in probe.dead_devices())
+        except Exception:
+            return
+        recovered = sorted(self._excluded - dead)
+        if not recovered:
+            return
+        self._planned_restart(
+            f"mesh re-expansion: device(s) {recovered} recovered")
+
+    def _planned_restart(self, cause: str) -> None:
+        """A deliberate restart (re-expansion): the teardown / rebuild /
+        restore of ``_recover`` without backoff and without spending the
+        restart budget (recovering capacity must never eat it)."""
+        g = self.graph
+        t0 = time.monotonic()
+        g._supervising = True
+        try:
+            self.last_cause = cause
+            self._teardown()
+            cid = self._rebuild_and_restore()
+            for w in g._workers:
+                w.start()
+            mttr = time.monotonic() - t0
+            self.planned_restarts += 1
+            self.last_restart_s = mttr
+            self.restart_total_s += mttr
+            self.history.append({
+                "t_unix": time.time(), "cause": cause, "ckpt_id": cid,
+                "mttr_s": round(mttr, 6), "planned": True})
+            del self.history[:-64]
+        finally:
+            g._supervising = False
 
     def _rebuild_and_restore(self) -> Optional[int]:
         """Rebuild the runtime plane and install a committed checkpoint,
@@ -229,7 +307,8 @@ class Supervisor(threading.Thread):
         checkpoint id (None for the full-replay rung)."""
         g = self.graph
         carry = self._collect_carryover()
-        self._probe_devices()
+        # device health first: the rebuilt meshes must avoid dead devices
+        self._apply_device_exclusions()
         g._rebuild_runtime()
         cid = None
         if g._coordinator is not None:
@@ -329,6 +408,7 @@ class Supervisor(threading.Thread):
             "Supervision_abandoned_threads": list(self.abandoned),
             "Supervision_budget_remaining": max(
                 0, self.policy.max_restarts - self.policy.consecutive),
+            "Supervision_planned_restarts": self.planned_restarts,
             "Recovery_ladder_depth": self.last_ladder_depth,
             "Recovery_verify_failures": self.verify_failures,
             "Recovery_degraded_devices": self.degraded_devices,

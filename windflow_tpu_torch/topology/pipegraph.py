@@ -27,8 +27,11 @@ falls back silently. ``start()`` initialises CUDA on the main thread.
 backpressure, ``with_supervision`` restarts a graph whose worker died from
 its newest committed checkpoint (``supervision/``), and an operator's
 ``with_error_policy`` contains failing records (a device batch is bisected
-to its poison record). Overload protection, prewarm, exactly-once sinks
-and the mesh plane are not ported yet and raise.
+to its poison record). Mesh operators (``with_mesh`` on the device
+builders, ``mesh/``) shard keyed state over a mesh of shards on the
+graph's card; ``with_device_probe`` lets the supervisor rebuild them on
+the healthy devices. Overload protection, prewarm and exactly-once sinks
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -153,10 +156,14 @@ class PipeGraph:
         return self
 
     def with_device_probe(self, probe: Any) -> "PipeGraph":
-        """Install a device-health probe (``supervision/health.py``),
-        read by the supervisor before every rebuild. Its dead devices are
-        reported (``Recovery_degraded_devices``); excluding them acts on
-        mesh operators only, which the port does not have yet."""
+        """Install a device-health probe (``supervision/health.py``):
+        during every supervised recovery the probe's dead devices are
+        excluded from the rebuilt meshes (``mesh.set_excluded_devices``),
+        so mesh operators come back on the surviving devices with their
+        sharded state relayouted; the graph runs degraded
+        (``Recovery_degraded_devices`` > 0) until the probe sees the
+        devices return and one planned restart re-expands the meshes.
+        Without a supervisor the probe is never read."""
         if self._started:
             raise WindFlowError("with_device_probe after start()")
         self._device_probe = probe
@@ -164,7 +171,7 @@ class PipeGraph:
 
     def failure_domains(self) -> Dict[int, List[str]]:
         """Device id -> the mesh operators whose sharded state lives on it
-        (empty in the port until the mesh plane)."""
+        (built replicas only): the unit of loss for device failover."""
         from ..supervision.health import failure_domain_map
         return failure_domain_map(self)
 
@@ -222,6 +229,25 @@ class PipeGraph:
             if pol.may_dead_letter:
                 op._dlq = pol.dlq if pol.dlq is not None \
                     else self.dead_letter_queue()
+
+    def _negotiate_mesh_checkpoint(self) -> None:
+        """At build, under checkpointing: a mesh operator without a
+        sharded snapshot/restore path would produce checkpoints that
+        silently omit its mesh state, and could never restore it. Refuse
+        loudly instead (every in-tree mesh operator is snapshot-capable;
+        this is the standing guard for one that is not)."""
+        if not self._ckpt_enabled:
+            return
+        for op in self._ops:
+            if getattr(op, "is_mesh", False) \
+                    and not getattr(op, "mesh_snapshot_capable", False):
+                raise WindFlowError(
+                    f"with_checkpointing: mesh operator {op.name!r} "
+                    f"({type(op).__name__}) has no sharded "
+                    "snapshot/restore path — a checkpoint would silently "
+                    "omit its mesh state and a restore could not "
+                    "rebuild it; run this graph without checkpointing/"
+                    "supervision or use a snapshot-capable mesh operator")
 
     # ------------------------------------------------------------------
     # live rescale (windflow_tpu_torch.scaling)
@@ -488,6 +514,7 @@ class PipeGraph:
             return
         self._built = True
         self._negotiate_error_policies()
+        self._negotiate_mesh_checkpoint()
         if self.device.type == "cuda":
             # initialise CUDA on the MAIN thread, before any worker touches
             # the card, and pin the device index the operators will use
