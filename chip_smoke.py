@@ -160,6 +160,34 @@ Phases, each printing one line of its own:
    ``Mesh_shuffle_bytes``, ``Mesh_shard_skew``, K1's launches, a
    profiled run's idle share and, for restore / degrade, the restore
    time or the MTTR of each restart;
+15. BASELINE's Yahoo Streaming Benchmark (``ysb`` lines) as
+   ``examples/ysb.py`` builds it: 100 campaigns x 10 ads, events typed
+   i % 3, 100 us of event time apart, in an in-process Kafka broker
+   (``memory://``, 8 partitions, filled once; each part reads it under a
+   consumer group of its own) read by a Kafka_Source at parallelism 2
+   with 4,096-row output batches, 10 s tumbling windows per campaign.
+   Part ``device``: Kafka rows -> Filter_GPU (views) -> Map_GPU (ad ->
+   campaign) -> Ffat_Windows_GPU (``with_key_capacity(100)``,
+   ``with_num_win_per_batch(32)``, ``fieldwise(count="sum",
+   last_ing="max")``) -> columnar sink over 1,000,000 events; every
+   (campaign, window) count equals the example's closed-form model and
+   the port's CPU run; events/s, p50 / p99 latency (source ingest ->
+   window emit, from the window's latest ingest stamp), K1's launches
+   and a profiled run's idle share. Part ``paced``: the same chain at
+   half the device part's rate over 300,000 events (latency at a rate).
+   Part ``blocks``: the chain fed by ``with_columnar_blocks(4096)``
+   (counts equal the row-fed run's). Part ``host``: the example's CPU
+   variant (host Filter / Map -> host Ffat_Windows with its own
+   latest-ingest combine) over the first 100,000 events (per-tuple
+   Python: one window a campaign); counts equal the model and the paced
+   run's. Part ``win``: BASELINE's win_tests shape on the host plane at
+   1,000 keys x 60 tuples: Keyed_Windows CB and TB, Paned_Windows and
+   MapReduce_Windows
+   TB, Interval_Join KP and DP (100 keys x 200 tuples a stream), each in
+   DEFAULT and DETERMINISTIC, rows equal to a numpy model (and one
+   Keyed_Windows replica's rows in the model's order in DETERMINISTIC);
+   Keyed_Windows TB in PROBABILISTIC over a disordered stream, every
+   tuple admitted or dropped; tuples/s for each;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -169,6 +197,7 @@ and the ``windflow_tpu_torch`` package beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -3156,6 +3185,523 @@ def mesh_phase(torch, wt, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase ysb: BASELINE's Yahoo Streaming Benchmark on Kafka (memory://), and
+# part win: BASELINE's win_tests shape on the host plane
+# ---------------------------------------------------------------------------
+YSB_CAMPAIGNS, YSB_ADS = 100, 10        # examples/ysb.py
+YSB_TS_STEP_US = 100                    # event-time spacing
+YSB_WIN_US = 10_000_000                 # 10 s tumbling windows
+YSB_PARTITIONS, YSB_SRC_PAR = 8, 2
+YSB_BATCH = 4096                        # output batches, columnar blocks
+YSB_EVENTS = 1_000_000                  # 100 s of event time
+YSB_PACED_EVENTS = 300_000
+YSB_HOST_EVENTS = 100_000   # per-tuple Python: one 10 s window a campaign
+YSB_BROKER = "chip_smoke_ysb"
+# win_tests shape at a user's size: WIN_KEYS keys x WIN_LEN tuples each
+WIN_KEYS, WIN_LEN, WIN_TS_STEP = 1_000, 60, 137
+WIN_TB, WIN_CB = (1_000, 400), (13, 5)
+WIN_JOIN_KEYS, WIN_JOIN_LEN, WIN_JOIN_BOUNDS = 100, 200, (120, 200)
+
+
+@dataclasses.dataclass
+class _AdEvent:
+    """YSB's ad event (examples/ysb.py ``AdEvent``): the device staging
+    infers its columns from the fields."""
+
+    ad_id: int
+    event_type: int  # 0 view, 1 click, 2 purchase
+    ts: int
+    ing: int  # ingest wall clock, us since the run started
+
+
+def _ysb_fill(kafka, n_events):
+    """The broker, filled once: event i is ad i % 1,000, type i % 3, at
+    event time i * 100 us, on partition i % 8 (examples/ysb.py)."""
+    b = kafka.MemoryBroker.get(YSB_BROKER, YSB_PARTITIONS)
+    n_ads = YSB_CAMPAIGNS * YSB_ADS
+    for i in range(n_events):
+        b.produce("ad_events", {"ad_id": i % n_ads, "event_type": i % 3,
+                                "ts": i * YSB_TS_STEP_US}, key=i % 8)
+
+
+def _ysb_model(n_events):
+    """The closed form of examples/ysb.py: views (i % 3 == 0) counted per
+    (campaign, 10 s window)."""
+    i = np.arange(0, n_events, 3, dtype=np.int64)
+    camp = (i % (YSB_CAMPAIGNS * YSB_ADS)) // YSB_ADS
+    wid = i * YSB_TS_STEP_US // YSB_WIN_US
+    keys, counts = np.unique(camp * 1_000_000 + wid, return_counts=True)
+    return {(int(k // 1_000_000), int(k % 1_000_000)): int(c)
+            for k, c in zip(keys, counts)}
+
+
+def _ysb_source(kafka, group, clock, n_events, blocks=False, rate=0.0):
+    """Kafka_Source over the filled broker under its own consumer group,
+    stopping at event ``n_events``; ``rate`` (events/s) paces the ingest
+    by each event's index (examples/ysb.py ``YSB_RATE``); ``blocks``
+    decodes whole batch polls into columns (``with_columnar_blocks``),
+    the watermark the lowest of the replica's partitions' last ts."""
+    stop_ts = n_events * YSB_TS_STEP_US
+
+    def pace(ts):
+        if rate > 0:
+            lag = (ts / YSB_TS_STEP_US) / rate * 1e6 - clock()
+            while lag > 500:
+                time.sleep(min(0.005, lag / 1e6))
+                lag = (ts / YSB_TS_STEP_US) / rate * 1e6 - clock()
+
+    def deser(msg, shipper):
+        if msg is None:
+            return False
+        p = msg.payload
+        if p["ts"] >= stop_ts:
+            return False
+        pace(p["ts"])
+        shipper.push_with_timestamp(
+            _AdEvent(p["ad_id"], p["event_type"], p["ts"], clock()),
+            p["ts"])
+        shipper.set_next_watermark(p["ts"])
+        return True
+
+    last = {}  # replica -> {partition: its last ts}
+
+    def deser_blocks(msgs, shipper, ctx):
+        if msgs is None:
+            return False
+        ts = np.fromiter((m.payload["ts"] for m in msgs), np.int64,
+                         len(msgs))
+        keep = ts < stop_ts
+        if not keep.any():
+            return False
+        n = int(keep.sum())
+        now = clock()
+        shipper.push_columns({
+            "ad_id": np.fromiter((m.payload["ad_id"] for m in msgs),
+                                 np.int32, len(msgs))[keep],
+            "event_type": np.fromiter((m.payload["event_type"]
+                                       for m in msgs), np.int32,
+                                      len(msgs))[keep],
+            "ing": np.full(n, now, np.int32)}, ts[keep])
+        # per-partition watermark: a batch poll is one partition's run
+        mine = last.setdefault(ctx.get_replica_index(), {})
+        mine[msgs[-1].partition] = int(ts[keep][-1])
+        if len(mine) == YSB_PARTITIONS // YSB_SRC_PAR:
+            shipper.set_next_watermark(min(mine.values()))
+        return bool(keep.all())
+
+    b = (kafka.Kafka_Source_Builder(deser_blocks if blocks else deser)
+         .with_brokers(f"memory://{YSB_BROKER}").with_topics("ad_events")
+         .with_group_id(group).with_idleness(100)
+         .with_parallelism(YSB_SRC_PAR).with_output_batch_size(YSB_BATCH)
+         .with_name("kafka_src"))
+    if blocks:
+        b = b.with_columnar_blocks(YSB_BATCH)
+    return b.build()
+
+
+def _ysb_device_ops(wt):
+    """Filter_GPU (views) -> Map_GPU (ad -> campaign) -> Ffat_Windows_GPU
+    keyed by campaign (examples/ysb.py's device chain, ``YSB_DEVICE_CHAIN``),
+    with ``fieldwise(count="sum", last_ing="max")``: the port's combine for
+    the example's ``last_ing: b["last_ing"]`` (the window's latest ingest)."""
+    views = wt.Filter_GPU_Builder(lambda f: f["event_type"] == 0) \
+        .with_name("views").build()
+    project = wt.Map_GPU_Builder(
+        lambda f: {"campaign": f["ad_id"] // YSB_ADS,
+                   "one": f["event_type"] * 0 + 1, "ing": f["ing"]}) \
+        .with_name("project").build()
+    win = (wt.Ffat_Windows_GPU_Builder(
+               lambda f: {"count": f["one"], "last_ing": f["ing"]},
+               wt.fieldwise(count="sum", last_ing="max"))
+           .with_key_by("campaign").with_tb_windows(YSB_WIN_US, YSB_WIN_US)
+           .with_num_win_per_batch(32).with_key_capacity(YSB_CAMPAIGNS)
+           .with_name("ysb_win").build())
+    return [views, project, win]
+
+
+def _ysb_run(wt, kafka, device, group, n_events, blocks=False, rate=0.0):
+    """One YSB run on the device chain: the (campaign, wid) -> count map,
+    the number of valid rows the sink took, the latencies (ms, source
+    ingest -> window emit), events/s (run start -> the last window's
+    delivery), the window operator and the graph."""
+    counts, n_rows, lat, t_last = {}, [0], [], [0.0]
+    t0 = time.perf_counter()
+
+    def clock():
+        return int((time.perf_counter() - t0) * 1e6)
+
+    def sink(cols, ts):
+        if cols is None:
+            return
+        now = clock()
+        v = cols["valid"].astype(bool)
+        n_rows[0] += int(v.sum())
+        for c, w, n in zip(cols["campaign"][v].tolist(),
+                           cols["wid"][v].tolist(),
+                           cols["count"][v].tolist()):
+            counts[(c, w)] = n
+        lat.extend(((now - cols["last_ing"][v]) / 1e3).tolist())
+        t_last[0] = time.perf_counter()
+
+    graph = wt.PipeGraph("ysb", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    ops = _ysb_device_ops(wt)
+    mp = graph.add_source(_ysb_source(kafka, group, clock, n_events,
+                                      blocks, rate))
+    for op in ops:
+        mp = mp.add(op)
+    mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
+    t0 = time.perf_counter()
+    graph.run()
+    return (counts, n_rows[0], lat, n_events / (t_last[0] - t0), ops[-1],
+            graph)
+
+
+def _pcts(lat):
+    s = sorted(lat)
+    if not s:
+        return None, None
+    return s[len(s) // 2], s[min(len(s) - 1, max(0, -(-len(s) * 99 // 100)
+                                                  - 1))]
+
+
+def _ysb_check(name, counts, n_rows, model, *others):
+    """Counts equal the model (and each other run's), and the sink took
+    one row per (campaign, window): a window fired twice fails even when
+    its last row is right."""
+    if n_rows != len(counts):
+        fail(f"ysb {name}: the sink took {n_rows} rows for {len(counts)} "
+             "campaign-windows")
+    if counts != model:
+        bad = sum(counts.get(k) != v for k, v in model.items())
+        fail(f"ysb {name}: {bad} of {len(model)} campaign-window counts "
+             f"differ from the model ({len(counts)} rows)")
+    for what, other in others:
+        if counts != other:
+            fail(f"ysb {name}: counts differ from {what}")
+
+
+def ysb_phase(torch, wt, card):
+    """Phase ``ysb`` (parts ``device``, ``paced``, ``blocks``, ``host``)
+    and its part ``win``. Returns K1's launches on the YSB device runs."""
+    from windflow_tpu_torch import kafka
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    kafka.MemoryBroker.reset()
+    t_fill = time.perf_counter()
+    _ysb_fill(kafka, YSB_EVENTS)
+    fill_s = time.perf_counter() - t_fill
+    model = _ysb_model(YSB_EVENTS)
+    cpu, cpu_rows = _ysb_run(wt, kafka, "cpu", "cpu", YSB_EVENTS)[:2]
+    _ysb_check("cpu", cpu, cpu_rows, model)
+    launches = 0
+    # part device: Kafka rows -> device chain
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    counts, n_rows, lat, eps, win, g = _ysb_run(wt, kafka, "cuda",
+                                                "device", YSB_EVENTS)
+    k1 = _launched("ysb device", fr, win.replicas[0])
+    launches += k1
+    _ysb_check("device", counts, n_rows, model, ("the CPU run", cpu))
+    p50, p99 = _pcts(lat)
+    prof = _profiled(torch, lambda: _ysb_run(wt, kafka, "cuda", "prof",
+                                             YSB_EVENTS),
+                     YSB_EVENTS // YSB_BATCH)
+    launches += fr.LAUNCHES - k1
+    phase("ysb", part="device", card=card, events=YSB_EVENTS,
+          campaigns=YSB_CAMPAIGNS, ads_per_campaign=YSB_ADS,
+          partitions=YSB_PARTITIONS, source_parallelism=YSB_SRC_PAR,
+          batch=YSB_BATCH, window_us=YSB_WIN_US,
+          campaign_windows=len(counts), sink_rows=n_rows,
+          counts_equal_model=True, counts_equal_cpu=True, events_per_s=eps, latency_p50_ms=p50,
+          latency_p99_ms=p99, rebuild_launches=k1, broker_fill_s=fill_s,
+          profiled=prof)
+    # part paced: half the device part's rate, YSB's latency protocol
+    model_p = _ysb_model(YSB_PACED_EVENTS)
+    counts_p, rows_p, lat_p, eps_p, win_p, _ = _ysb_run(
+        wt, kafka, "cuda", "paced", YSB_PACED_EVENTS, rate=eps / 2)
+    _ysb_check("paced", counts_p, rows_p, model_p)
+    p50p, p99p = _pcts(lat_p)
+    launches += win_p.replicas[0].stats.rebuild_kernel_launches
+    phase("ysb", part="paced", card=card, events=YSB_PACED_EVENTS,
+          target_events_per_s=eps / 2, events_per_s=eps_p,
+          campaign_windows=len(counts_p), sink_rows=rows_p,
+          counts_equal_model=True,
+          latency_p50_ms=p50p, latency_p99_ms=p99p,
+          rebuild_launches=win_p.replicas[0].stats.rebuild_kernel_launches)
+    # part blocks: the same chain fed by columnar blocks
+    counts_b, rows_b, lat_b, eps_b, win_b, _ = _ysb_run(
+        wt, kafka, "cuda", "blocks", YSB_EVENTS, blocks=True)
+    _ysb_check("blocks", counts_b, rows_b, model,
+               ("the row-fed run", counts))
+    p50b, p99b = _pcts(lat_b)
+    launches += win_b.replicas[0].stats.rebuild_kernel_launches
+    phase("ysb", part="blocks", card=card, events=YSB_EVENTS,
+          block=YSB_BATCH, events_per_s=eps_b,
+          campaign_windows=len(counts_b), sink_rows=rows_b,
+          counts_equal_model=True,
+          counts_equal_rows=True, latency_p50_ms=p50b,
+          latency_p99_ms=p99b,
+          rebuild_launches=win_b.replicas[0].stats.rebuild_kernel_launches)
+    ysb_host_part(wt, kafka, card, counts_p)
+    kafka.MemoryBroker.reset()
+    win_part(wt, card)
+    return launches
+
+
+def ysb_host_part(wt, kafka, card, paced_counts):
+    """Part ``host``: examples/ysb.py's CPU variant, host Filter / Map at
+    parallelism 2 -> host Ffat_Windows over (count, latest ingest) with
+    the example's own combine, over the first YSB_HOST_EVENTS events
+    (per-tuple Python); counts equal the model and the paced device run's
+    windows over the same events."""
+    counts, n_rows, lat, t_last = {}, [0], [], [0.0]
+    t0 = time.perf_counter()
+
+    def clock():
+        return int((time.perf_counter() - t0) * 1e6)
+
+    def sink(r):
+        if r is not None and r.value is not None:
+            n_rows[0] += 1
+            counts[(r.key, r.wid)] = r.value[0]
+            lat.append((clock() - r.value[1]) / 1e3)
+            t_last[0] = time.perf_counter()
+
+    g = wt.PipeGraph("ysb_host", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT_TIME, device="cpu")
+    src = _ysb_source(kafka, "host", clock, YSB_HOST_EVENTS)
+    src.output_batch_size = 0
+    views = (wt.Filter_Builder(lambda e: e.event_type == 0)
+             .with_parallelism(YSB_SRC_PAR).build())
+    project = (wt.Map_Builder(lambda e: (e.ad_id // YSB_ADS, e.ing))
+               .with_parallelism(YSB_SRC_PAR).build())
+    win = (wt.Ffat_Windows_Builder(lambda e: (1, e[1]),
+                                   lambda a, b: (a[0] + b[0], b[1]))
+           .with_key_by(lambda e: e[0])
+           .with_tb_windows(YSB_WIN_US, YSB_WIN_US).build())
+    g.add_source(src).add(views).add(project).add(win) \
+        .add_sink(wt.Sink_Builder(sink).build())
+    t0 = time.perf_counter()
+    g.run()
+    eps = YSB_HOST_EVENTS / (t_last[0] - t0)
+    n_win = YSB_HOST_EVENTS * YSB_TS_STEP_US // YSB_WIN_US
+    _ysb_check("host", counts, n_rows[0], _ysb_model(YSB_HOST_EVENTS),
+               ("the paced device run", {k: v for k, v in
+                                         paced_counts.items()
+                                         if k[1] < n_win}))
+    p50, p99 = _pcts(lat)
+    phase("ysb", part="host", card=card, events=YSB_HOST_EVENTS,
+          events_per_s=eps, campaign_windows=len(counts),
+          sink_rows=n_rows[0], counts_equal_model=True,
+          counts_equal_device=True,
+          latency_p50_ms=p50, latency_p99_ms=p99)
+
+
+# -- part win ----------------------------------------------------------------
+def _win_source(n_keys, length):
+    """win_tests' keyed event-time stream at WIN_KEYS keys: key k's i-th
+    tuple carries value (i + k) % 97 + 1 at ts i * WIN_TS_STEP + k % 2;
+    two replicas, disjoint keys (k % 2), so the merged order has no tie
+    between them; the watermark at each step."""
+    def src(shipper, ctx):
+        r, p = ctx.get_replica_index(), ctx.get_parallelism()
+        for i in range(length):
+            ts = i * WIN_TS_STEP + r
+            for k in range(r, n_keys, p):
+                shipper.push_with_timestamp({"k": k, "v": (i + k) % 97 + 1},
+                                            ts)
+            shipper.set_next_watermark(ts)
+    return src
+
+
+def _disordered_source(n_keys, length):
+    """One replica, every key at each step, each tuple up to 2 steps
+    early or late (seeded): PROBABILISTIC mode's input."""
+    jitter = np.random.default_rng(81).integers(
+        -2 * WIN_TS_STEP, 2 * WIN_TS_STEP + 1, (length, n_keys))
+
+    def src(shipper):
+        for i in range(length):
+            for k in range(n_keys):
+                ts = max(0, i * WIN_TS_STEP + int(jitter[i, k]))
+                shipper.push_with_timestamp({"k": k, "v": 1}, ts)
+    return src
+
+
+def _win_model(kind):
+    """Independent model of the rows: per key, CB windows over the arrival
+    order, TB windows [w*slide, w*slide+win) over the timestamps (every
+    window the key's stream reaches, partial ones flushed at EOS); and, for
+    DETERMINISTIC mode, the firing order of one replica: the two replicas'
+    streams merged by timestamp, a window firing on its key's first tuple
+    past its end, the rest at EOS in the order the keys first came. Returns
+    (rows as a dict, rows in firing order)."""
+    n_keys, length = WIN_KEYS, WIN_LEN
+    win, slide = WIN_CB if kind == "cb" else WIN_TB
+    rows, ends, idx = {}, {}, {}
+    for k in range(n_keys):
+        vals = (np.arange(length) + k) % 97 + 1
+        ix = np.arange(length) if kind == "cb" \
+            else np.arange(length) * WIN_TS_STEP + k % 2
+        last = int(ix[-1])
+        n_win = -(-(last + 1) // slide) if win >= slide \
+            else last // slide + 1
+        starts = np.arange(n_win) * slide
+        csum = np.concatenate([[0], np.cumsum(vals)])
+        sums = csum[np.searchsorted(ix, starts + win)] \
+            - csum[np.searchsorted(ix, starts)]
+        for w in range(n_win):
+            rows[(k, w)] = int(sums[w])
+        ends[k], idx[k] = starts + win, ix
+    order, fired = [], [0] * n_keys
+    stream = [k for i in range(length) for r in (0, 1)
+              for k in range(r, n_keys, 2)]
+    pos = [0] * n_keys
+    for k in stream:
+        at = idx[k][pos[k]]
+        pos[k] += 1
+        while fired[k] < len(ends[k]) and ends[k][fired[k]] <= at:
+            order.append((k, fired[k], rows[(k, fired[k])]))
+            fired[k] += 1
+    first_seen = list(dict.fromkeys(stream))
+    for k in first_seen:
+        order.extend((k, w, rows[(k, w)])
+                     for w in range(fired[k], len(ends[k])))
+    return rows, order
+
+
+def _join_model():
+    """Every (key, i_a, i_b) with ts_b in [ts_a - lower, ts_a + upper]."""
+    lo, hi = WIN_JOIN_BOUNDS
+    ta = np.arange(WIN_JOIN_LEN) * 100
+    tb = np.arange(WIN_JOIN_LEN) * 83
+    ii, jj = np.nonzero((tb[None, :] >= ta[:, None] - lo)
+                        & (tb[None, :] <= ta[:, None] + hi))
+    return {(k, int(i), int(j)) for k in range(WIN_JOIN_KEYS)
+            for i, j in zip(ii, jj)}
+
+
+def _join_source(step):
+    def src(shipper, ctx):
+        r, p = ctx.get_replica_index(), ctx.get_parallelism()
+        for i in range(WIN_JOIN_LEN):
+            ts = i * step
+            for k in range(r, WIN_JOIN_KEYS, p):
+                shipper.push_with_timestamp({"k": k, "i": i}, ts)
+            shipper.set_next_watermark(ts)
+    return src
+
+
+def _win_op(wt, kind, par):
+    """The operator of one win_tests graph, at parallelism ``par``."""
+    sum_ws = lambda ws: sum(w["v"] for w in ws)  # noqa: E731
+    key = lambda t: t["k"]  # noqa: E731
+    if kind in ("keyed_cb", "keyed_tb"):
+        b = wt.Keyed_Windows_Builder(sum_ws).with_key_by(key)
+        b = b.with_cb_windows(*WIN_CB) if kind == "keyed_cb" \
+            else b.with_tb_windows(*WIN_TB)
+        return b.with_parallelism(par).build()
+    if kind == "paned_tb":
+        return (wt.Paned_Windows_Builder(sum_ws, lambda vs: sum(vs))
+                .with_key_by(key).with_tb_windows(*WIN_TB)
+                .with_parallelism(par, par).build())
+    if kind == "mapreduce_tb":
+        return (wt.MapReduce_Windows_Builder(sum_ws, lambda vs: sum(vs))
+                .with_key_by(key).with_tb_windows(*WIN_TB)
+                .with_parallelism(par, par).build())
+    b = (wt.Interval_Join_Builder(lambda a, b_: (a["k"], a["i"], b_["i"]))
+         .with_key_by(key).with_boundaries(*WIN_JOIN_BOUNDS)
+         .with_parallelism(par))
+    return (b.with_kp_mode() if kind == "join_kp" else b.with_dp_mode()) \
+        .build()
+
+
+def _win_run(wt, kind, mode, win_par=2, src=None):
+    rows, lock = [], threading.Lock()
+
+    def sink(r):
+        if r is not None:
+            with lock:
+                rows.append(r if kind.startswith("join")
+                            else (r.key, r.wid, r.value))
+
+    g = wt.PipeGraph(f"win_{kind}", getattr(wt.ExecutionMode, mode),
+                     wt.TimePolicy.EVENT_TIME, device="cpu")
+    if kind.startswith("join"):
+        a = g.add_source(wt.Source_Builder(_join_source(100))
+                         .with_parallelism(2).build())
+        mp = a.merge(g.add_source(wt.Source_Builder(_join_source(83))
+                                  .with_parallelism(2).build()))
+        n_in = 2 * WIN_JOIN_KEYS * WIN_JOIN_LEN
+    else:
+        b = wt.Source_Builder(src) if src is not None else \
+            wt.Source_Builder(_win_source(WIN_KEYS, WIN_LEN)) \
+            .with_parallelism(2)
+        mp = g.add_source(b.build())
+        n_in = WIN_KEYS * WIN_LEN
+    mp.add(_win_op(wt, kind, win_par)).add_sink(wt.Sink_Builder(sink).build())
+    t0 = time.perf_counter()
+    g.run()
+    return rows, n_in / (time.perf_counter() - t0), g
+
+
+def win_part(wt, card):
+    """Part ``win``: Keyed_Windows CB and TB, Paned_Windows and
+    MapReduce_Windows TB, Interval_Join KP and DP, each in DEFAULT and
+    DETERMINISTIC (operators at parallelism 2 behind two source replicas);
+    rows equal the model. In DETERMINISTIC mode one Keyed_Windows replica
+    also emits in the model's order. PROBABILISTIC: Keyed_Windows TB with
+    its K-slack drops, delivered + dropped == produced."""
+    models = {k: _win_model(k) for k in ("cb", "tb")}
+    join = _join_model()
+    for kind in ("keyed_cb", "keyed_tb", "paned_tb", "mapreduce_tb",
+                 "join_kp", "join_dp"):
+        for mode in ("DEFAULT", "DETERMINISTIC"):
+            rows, tps, _ = _win_run(wt, kind, mode)
+            if kind.startswith("join"):
+                ok = len(rows) == len(set(rows)) and set(rows) == join
+            else:
+                want = models["cb" if kind == "keyed_cb" else "tb"][0]
+                got = {(k, w): v for k, w, v in rows}
+                ok = len(got) == len(rows) and got == want
+            if not ok:
+                fail(f"win {kind} {mode}: rows differ from the model")
+            row = dict(part="win", op=kind, mode=mode, card=card,
+                       keys=WIN_JOIN_KEYS if kind.startswith("join")
+                       else WIN_KEYS, rows=len(rows), tuples_per_s=tps,
+                       rows_equal_model=True)
+            if mode == "DETERMINISTIC" and kind.startswith("keyed"):
+                seq, tps1, _ = _win_run(wt, kind, mode, win_par=1)
+                if seq != models["cb" if kind == "keyed_cb" else "tb"][1]:
+                    fail(f"win {kind} {mode}: the single replica's rows "
+                         "are not in the model's order")
+                row.update(order_equal_model=True,
+                           tuples_per_s_one_replica=tps1)
+            phase("ysb", **row)
+    # PROBABILISTIC, over one disordered replica: K-slack collectors in
+    # front of the window stage and the sink drop what arrives behind
+    # their frontier; every produced
+    # tuple is admitted by a window replica or dropped, and every window
+    # result reaches the sink or is dropped there
+    rows, tps, g = _win_run(wt, "keyed_tb", "PROBABILISTIC",
+                            src=_disordered_source(WIN_KEYS, WIN_LEN))
+    ops = {o["name"]: o["replicas"] for o in g.get_stats()["Operators"]}
+    win_in = sum(r["Inputs_received"] for r in ops["keyed_windows"])
+    win_out = sum(r["Outputs_sent"] for r in ops["keyed_windows"])
+    sink_in = sum(r["Inputs_received"] for r in ops["sink"])
+    dropped = g.get_num_dropped_tuples()
+    dropped_tuples = dropped - (win_out - sink_in)
+    if win_in + dropped_tuples != WIN_KEYS * WIN_LEN \
+            or len(rows) != sink_in or dropped_tuples < 0:
+        fail(f"win keyed_tb PROBABILISTIC: {win_in} admitted + "
+             f"{dropped_tuples} dropped != {WIN_KEYS * WIN_LEN} produced")
+    phase("ysb", part="win", op="keyed_tb", mode="PROBABILISTIC",
+          card=card, keys=WIN_KEYS, tuples_per_s=tps, admitted=win_in,
+          dropped_tuples=dropped_tuples, results=win_out,
+          dropped_results=win_out - sink_in, conserved=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -3195,6 +3741,7 @@ def main() -> None:
     rescale_launches = rescale_phase(torch, wt, card)
     supervise_launches = supervise_phase(torch, wt, card)
     mesh_launches = mesh_phase(torch, wt, card)
+    ysb_launches = ysb_phase(torch, wt, card)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",
@@ -3203,7 +3750,8 @@ def main() -> None:
         "launches": (hc_launches + base_launches + fusion_launches
                      + dag_launches + recovery_launches
                      + delta_launches + rescale_launches
-                     + supervise_launches + mesh_launches),
+                     + supervise_launches + mesh_launches
+                     + ysb_launches),
         "max_abs_err": max(err_checks, err_timed),
         "ms": timing["wrapper_ms"],
         "device_ms": timing["device_ms"],

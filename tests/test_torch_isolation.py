@@ -38,8 +38,8 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, verdict, *_ = out.stdout.split()
-    # 61 modules since the mesh plane (mesh/)
-    assert int(n) >= 61 and verdict == "OK", out.stdout
+    # 69 modules since the host windows, the join and kafka/
+    assert int(n) >= 69 and verdict == "OK", out.stdout
 
 
 _ALONE = r"""
@@ -118,6 +118,28 @@ def test_mesh_modules_import_alone_without_jax(mod):
     """The mesh plane (the port's own ``mesh/``: no JAX collectives, the
     shards stacked on one device) imports on its own, in a fresh
     interpreter, without pulling in jax or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c",
+                          _ALONE.format(root=ROOT, mod=mod)],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "OK", out.stdout
+
+
+@pytest.mark.parametrize("mod", [
+    "windflow_tpu_torch.operators.windows",
+    "windflow_tpu_torch.operators.window_engine",
+    "windflow_tpu_torch.operators.ffat", "windflow_tpu_torch.operators.flatfat",
+    "windflow_tpu_torch.operators.join", "windflow_tpu_torch.kafka",
+    "windflow_tpu_torch.kafka.connectors",
+    "windflow_tpu_torch.kafka.builders_kafka",
+    "windflow_tpu_torch.runtime.collectors"])
+def test_host_window_join_and_kafka_modules_import_alone_without_jax(mod):
+    """The host window engines, the interval join, the collectors and the
+    Kafka connectors (the port's own copies of the JAX package's JAX-free
+    modules) import on their own, in a fresh interpreter, without pulling
+    in jax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c",
                           _ALONE.format(root=ROOT, mod=mod)],

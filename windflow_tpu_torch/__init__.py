@@ -26,17 +26,27 @@ operator over a ``('key', 'data')`` mesh of shards held on the graph's
 card (``mesh/``: ``Ffat_Windows_Mesh``, ``Map_Mesh``, ``Filter_Mesh``,
 ``Reduce_Mesh``; ``ensure_virtual_devices(n)`` makes n virtual devices
 visible), and the supervisor rebuilds them on the healthy devices a
-``with_device_probe`` reports.
+``with_device_probe`` reports. The host plane has the window operators
+(``Keyed_Windows``, ``Parallel_Windows``, ``Paned_Windows``,
+``MapReduce_Windows``, ``Ffat_Windows`` over a host ``FlatFAT``) and the
+``Interval_Join``, and ``PipeGraph(execution_mode=...)`` takes the
+DETERMINISTIC and PROBABILISTIC modes (ordering and K-slack collectors).
+``windflow_tpu_torch.kafka`` has the Kafka source and sink over the
+in-process ``memory://`` broker.
 
 ``PipeGraph(..., device=None)`` runs on ``cuda`` and raises without a card;
 pass ``device="cpu"`` for the plain PyTorch path.
 """
 
-from .basic import (CorruptCheckpointError, ExecutionMode, KeyCapacityError,
-                    OpType, RoutingMode, TimePolicy, WinType, WindFlowError)
-from .builders import (Columnar_Source_Builder, Filter_Builder,
-                       FlatMap_Builder, Map_Builder, Reduce_Builder,
-                       Sink_Builder, Source_Builder)
+from .basic import (CorruptCheckpointError, ExecutionMode, JoinMode,
+                    KeyCapacityError, OpType, RoutingMode, TimePolicy,
+                    WinType, WindFlowError)
+from .builders import (Columnar_Source_Builder, Ffat_Windows_Builder,
+                       Filter_Builder, FlatMap_Builder,
+                       Interval_Join_Builder, Keyed_Windows_Builder,
+                       Map_Builder, MapReduce_Windows_Builder,
+                       Paned_Windows_Builder, Parallel_Windows_Builder,
+                       Reduce_Builder, Sink_Builder, Source_Builder)
 from .combines import fieldwise
 from .context import LocalStorage, RuntimeContext
 from .gpu.builders_gpu import (Ffat_Windows_GPU_Builder, Filter_GPU_Builder,
@@ -45,6 +55,12 @@ from .gpu.ffat_gpu import Ffat_Windows_GPU
 from .gpu.ops_gpu import Filter_GPU, Map_GPU, Reduce_GPU
 from .mesh import (Ffat_Windows_Mesh, Filter_Mesh, Map_Mesh, Reduce_Mesh,
                    ensure_virtual_devices)
+from .operators.ffat import Ffat_Windows
+from .operators.flatfat import FlatFAT
+from .operators.join import Interval_Join
+from .operators.window_engine import WinResult
+from .operators.windows import (Keyed_Windows, MapReduce_Windows,
+                                Paned_Windows, Parallel_Windows)
 from .scaling import AutoscalePolicy, RescaleReport
 from .state import TierConfig
 from .supervision import (DeadLetterQueue, ErrorPolicy, RestartPolicy,
@@ -55,15 +71,19 @@ from .topology.pipegraph import PipeGraph
 
 __all__ = [
     "AutoscalePolicy", "Columnar_Source_Builder", "CorruptCheckpointError",
-    "DeadLetterQueue", "ErrorPolicy", "ExecutionMode",
-    "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder", "Ffat_Windows_Mesh",
-    "Filter_Builder", "Filter_GPU", "Filter_GPU_Builder", "Filter_Mesh",
-    "FlatMap_Builder", "KeyCapacityError", "LocalStorage", "Map_Builder",
-    "Map_GPU", "Map_GPU_Builder", "Map_Mesh", "MultiPipe", "OpType",
-    "PipeGraph", "Reduce_Builder", "Reduce_GPU", "Reduce_GPU_Builder",
-    "Reduce_Mesh", "RescaleReport", "RestartPolicy",
+    "DeadLetterQueue", "ErrorPolicy", "ExecutionMode", "Ffat_Windows",
+    "Ffat_Windows_Builder", "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder",
+    "Ffat_Windows_Mesh", "Filter_Builder", "Filter_GPU",
+    "Filter_GPU_Builder", "Filter_Mesh", "FlatFAT", "FlatMap_Builder",
+    "Interval_Join", "Interval_Join_Builder", "JoinMode",
+    "KeyCapacityError", "Keyed_Windows", "Keyed_Windows_Builder",
+    "LocalStorage", "MapReduce_Windows", "MapReduce_Windows_Builder",
+    "Map_Builder", "Map_GPU", "Map_GPU_Builder", "Map_Mesh", "MultiPipe",
+    "OpType", "Paned_Windows", "Paned_Windows_Builder", "Parallel_Windows",
+    "Parallel_Windows_Builder", "PipeGraph", "Reduce_Builder", "Reduce_GPU",
+    "Reduce_GPU_Builder", "Reduce_Mesh", "RescaleReport", "RestartPolicy",
     "RoutingMode", "RuntimeContext", "Sink_Builder", "Source_Builder",
     "StaticDeviceProbe", "SupervisionEscalated", "TierConfig", "TimePolicy",
-    "TorchDeviceProbe", "WinType", "WindFlowError",
+    "TorchDeviceProbe", "WinResult", "WinType", "WindFlowError",
     "ensure_virtual_devices", "fieldwise",
 ]

@@ -47,9 +47,31 @@ class RoutingMode(enum.Enum):
 class OpType(enum.Enum):
     SOURCE = "source"
     BASIC = "basic"
+    WIN = "win"
+    JOIN = "join"
     SINK = "sink"
     GPU = "gpu"
     WIN_GPU = "win_gpu"
+
+
+class JoinMode(enum.Enum):
+    """Interval join parallelism (``wf/interval_join.hpp``): KP = key
+    partitioning, DP = data parallelism inside each key."""
+
+    NONE = "none"
+    KP = "key_parallel"
+    DP = "data_parallel"
+
+
+class WinRole(enum.Enum):
+    """Role of a window replica inside composed window operators
+    (``wf/parallel_windows.hpp:120,267``)."""
+
+    SEQ = "seq"
+    PLQ = "plq"
+    WLQ = "wlq"
+    MAP = "map"
+    REDUCE = "reduce"
 
 
 # --- watermark / punctuation cadence (wf/basic.hpp:199-216) -----------------

@@ -2,18 +2,26 @@
 
 Trimmed copy of ``windflow_tpu/builders.py`` (parity: ``wf/builders.hpp``):
 ``Source_Builder``, ``Columnar_Source_Builder``, ``Map_Builder``,
-``Filter_Builder``, ``FlatMap_Builder``, ``Reduce_Builder`` and
-``Sink_Builder``. The device operators' builders are in
-``gpu.builders_gpu``.
+``Filter_Builder``, ``FlatMap_Builder``, ``Reduce_Builder``,
+``Sink_Builder``, the host window builders (``Keyed_Windows_Builder``,
+``Parallel_Windows_Builder``, ``Paned_Windows_Builder``,
+``MapReduce_Windows_Builder``, ``Ffat_Windows_Builder``) and
+``Interval_Join_Builder``, with the JAX package's signatures, refusals and
+messages. The device operators' builders are in ``gpu.builders_gpu``, the
+Kafka ones in ``kafka.builders_kafka``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-from .basic import RoutingMode, WindFlowError
+from .basic import JoinMode, RoutingMode, WinType, WindFlowError
 from .operators.basic_ops import FlatMap, Filter, Map, Reduce, Sink
+from .operators.ffat import Ffat_Windows
+from .operators.join import Interval_Join
 from .operators.source import Columnar_Source, Source
+from .operators.windows import (Keyed_Windows, MapReduce_Windows,
+                                Paned_Windows, Parallel_Windows)
 
 
 class BasicBuilder:
@@ -200,3 +208,221 @@ class Sink_Builder(_RoutableBuilder):
         return self._finish(Sink(self._func, self._name, self._parallelism,
                                  self._routing, self._key_extractor,
                                  accepts_columns=self._columns))
+
+
+# ---------------------------------------------------------------------------
+# Window builders (reference wf/builders.hpp:743-782 add withCBWindows /
+# withTBWindows / withLateness on top of the basic surface)
+# ---------------------------------------------------------------------------
+
+
+class _WindowedBuilder(BasicBuilder):
+    def __init__(self, func):
+        super().__init__(func)
+        self._key_extractor = None
+        self._win_len = 0
+        self._slide_len = 0
+        self._win_type = None
+        self._lateness = 0
+        self._incremental = False
+        self._initial = None
+        self._tb_origin = None
+
+    def with_key_by(self, key_extractor):
+        self._key_extractor = key_extractor
+        return self
+
+    def with_cb_windows(self, win_len: int, slide_len: int):
+        self._win_type = WinType.CB
+        self._win_len, self._slide_len = win_len, slide_len
+        return self
+
+    def with_tb_windows(self, win_usec: int, slide_usec: int):
+        self._win_type = WinType.TB
+        self._win_len, self._slide_len = win_usec, slide_usec
+        return self
+
+    def with_lateness(self, lateness_usec: int):
+        self._lateness = lateness_usec
+        return self
+
+    def with_tb_origin(self, origin_usec: int = 0):
+        """Reference-compat TB window numbering
+        (``wf/window_replica.hpp:253-283``): anchor every key's windows at
+        this time origin and fire identity-valued EMPTY windows between
+        the origin and the key's first tuple as the watermark passes them.
+        Default (not called): a key's first window aligns to its first
+        tuple (PARITY.md §2.3) — epoch-scale timestamps would otherwise
+        create ~ts/slide empty windows, which this origin bounds."""
+        self._tb_origin = origin_usec
+        return self
+
+    def incremental(self, initial_value=None):
+        """Switch the window function to incremental form
+        ``func(tuple, acc) -> acc``; ``initial_value`` may be a value
+        (deep-copied per window) or a factory ``(key, gwid) -> acc``."""
+        self._incremental = True
+        self._initial = initial_value
+        return self
+
+    def _check_windows(self, what: str) -> None:
+        if self._win_type is None:
+            raise WindFlowError(f"{what}: call with_cb_windows() or "
+                                "with_tb_windows() first")
+        if self._tb_origin is not None and self._win_type is not WinType.TB:
+            raise WindFlowError(f"{what}: with_tb_origin applies to "
+                                "time-based windows only (the origin is a "
+                                "timestamp; CB windows count arrivals)")
+
+
+class Keyed_Windows_Builder(_WindowedBuilder):
+    _default_name = "keyed_windows"
+
+    def build(self) -> Keyed_Windows:
+        self._check_windows("Keyed_Windows_Builder")
+        if self._key_extractor is None:
+            raise WindFlowError("Keyed_Windows_Builder: withKeyBy mandatory")
+        return self._finish(Keyed_Windows(
+            self._func, self._key_extractor, self._win_len, self._slide_len,
+            self._win_type, self._lateness, self._incremental, self._initial,
+            self._name, self._parallelism, self._output_batch_size,
+            tb_origin=self._tb_origin))
+
+
+class Parallel_Windows_Builder(_WindowedBuilder):
+    _default_name = "parallel_windows"
+
+    def build(self) -> Parallel_Windows:
+        self._check_windows("Parallel_Windows_Builder")
+        if self._key_extractor is None:
+            raise WindFlowError("Parallel_Windows_Builder: withKeyBy mandatory")
+        return self._finish(Parallel_Windows(
+            self._func, self._key_extractor, self._win_len, self._slide_len,
+            self._win_type, self._lateness, self._incremental, self._initial,
+            self._name, self._parallelism, self._output_batch_size,
+            tb_origin=self._tb_origin))
+
+
+class _TwoStageWindowedBuilder(_WindowedBuilder):
+    def __init__(self, func1, func2):
+        super().__init__(func1)
+        self._func2 = func2
+        self._incremental2 = False
+        self._initial2 = None
+        self._parallelism2 = 1
+
+    def incremental_stage2(self, initial_value=None):
+        self._incremental2 = True
+        self._initial2 = initial_value
+        return self
+
+    def with_parallelism(self, p1: int, p2: int = None):  # type: ignore[override]
+        super().with_parallelism(p1)
+        self._parallelism2 = p2 if p2 is not None else p1
+        return self
+
+
+class Paned_Windows_Builder(_TwoStageWindowedBuilder):
+    _default_name = "paned_windows"
+
+    def build(self) -> Paned_Windows:
+        self._check_windows("Paned_Windows_Builder")
+        if self._key_extractor is None:
+            raise WindFlowError("Paned_Windows_Builder: withKeyBy mandatory")
+        return self._finish(Paned_Windows(
+            self._func, self._func2, self._key_extractor, self._win_len,
+            self._slide_len, self._win_type, self._lateness,
+            self._incremental, self._initial, self._incremental2,
+            self._initial2, self._name, self._parallelism,
+            self._parallelism2, self._output_batch_size,
+            tb_origin=self._tb_origin))
+
+
+class MapReduce_Windows_Builder(_TwoStageWindowedBuilder):
+    _default_name = "mapreduce_windows"
+
+    def build(self) -> MapReduce_Windows:
+        self._check_windows("MapReduce_Windows_Builder")
+        if self._key_extractor is None:
+            raise WindFlowError("MapReduce_Windows_Builder: withKeyBy mandatory")
+        return self._finish(MapReduce_Windows(
+            self._func, self._func2, self._key_extractor, self._win_len,
+            self._slide_len, self._win_type, self._lateness,
+            self._incremental, self._initial, self._incremental2,
+            self._initial2, self._name, self._parallelism,
+            self._parallelism2, self._output_batch_size,
+            tb_origin=self._tb_origin))
+
+
+class Ffat_Windows_Builder(_WindowedBuilder):
+    """lift+combine FlatFAT aggregator (``wf/builders.hpp`` FFAT_Builder)."""
+
+    _default_name = "ffat_windows"
+
+    def __init__(self, lift_func, combine_func):
+        super().__init__(lift_func)
+        self._combine = combine_func
+
+    def incremental(self, initial_value=None):
+        raise WindFlowError(
+            "Ffat_Windows is inherently incremental via lift+combine; "
+            "incremental() does not apply (use Keyed_Windows_Builder for "
+            "seeded accumulators)")
+
+    def build(self) -> Ffat_Windows:
+        self._check_windows("Ffat_Windows_Builder")
+        if self._key_extractor is None:
+            raise WindFlowError("Ffat_Windows_Builder: withKeyBy mandatory")
+        if self._tb_origin is not None:
+            raise WindFlowError(
+                "Ffat_Windows_Builder: with_tb_origin applies to the "
+                "window-engine operators (Keyed/Parallel/Paned/MapReduce "
+                "windows); the FFAT planes keep first-tuple anchoring")
+        return self._finish(Ffat_Windows(
+            self._func, self._combine, self._key_extractor, self._win_len,
+            self._slide_len, self._win_type, self._lateness, self._name,
+            self._parallelism, self._output_batch_size))
+
+
+# ---------------------------------------------------------------------------
+# Interval_Join builder (wf/builders.hpp:1480-1538: withBoundaries,
+# withKPMode, withDPMode)
+# ---------------------------------------------------------------------------
+
+
+class Interval_Join_Builder(BasicBuilder):
+    _default_name = "interval_join"
+
+    def __init__(self, join_func):
+        super().__init__(join_func)
+        self._key_extractor = None
+        self._lower = None
+        self._upper = None
+        self._mode = JoinMode.KP
+
+    def with_key_by(self, key_extractor):
+        self._key_extractor = key_extractor
+        return self
+
+    def with_boundaries(self, lower_usec: int, upper_usec: int):
+        self._lower, self._upper = lower_usec, upper_usec
+        return self
+
+    def with_kp_mode(self):
+        self._mode = JoinMode.KP
+        return self
+
+    def with_dp_mode(self):
+        self._mode = JoinMode.DP
+        return self
+
+    def build(self) -> Interval_Join:
+        if self._key_extractor is None:
+            raise WindFlowError("Interval_Join_Builder: withKeyBy mandatory")
+        if self._lower is None:
+            raise WindFlowError("Interval_Join_Builder: withBoundaries "
+                                "mandatory")
+        return self._finish(Interval_Join(
+            self._func, self._key_extractor, self._lower, self._upper,
+            self._mode, self._name, self._parallelism,
+            self._output_batch_size))

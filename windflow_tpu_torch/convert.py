@@ -20,6 +20,17 @@ for this system.
   it copies the blocks into owned numpy arrays in the port's dtypes.
   The mesh replica relayouts the blocks onto its own mesh shape when the
   graph starts, so a checkpoint taken at one shape restores at another.
+- ``engine_state_from_jax(engine)`` takes the ``"engine"`` entry of a
+  JAX window replica's snapshot (``Keyed_Windows``, ``Parallel_Windows``
+  and the stages of the composite windows). Its key map holds the JAX
+  package's ``_KeyDesc`` / ``_OpenWindow`` objects, plain Python data
+  that unpickles only where ``windflow_tpu`` is importable (the tests);
+  they become the port's classes, field for field.
+  ``collector_state_from_jax(state)`` does the same for a collector
+  entry, whose buffers hold the JAX package's ``Single`` / ``Batch``
+  messages (their ``WinResult`` payloads included). The host FFAT's and
+  the interval join's per-key states and a Kafka source's offsets are
+  dicts, lists and tuples already, and pass through.
 - ``checkpoint_states_from_jax(states, device)`` takes what the JAX
   package's ``CheckpointStore.load_states`` returns for one committed
   checkpoint (``{(op name, replica): state}``) and returns the port's
@@ -157,15 +168,69 @@ def mesh_state_from_jax(entry: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def engine_state_from_jax(engine: Dict[str, Any]) -> Dict[str, Any]:
+    from .operators.window_engine import _KeyDesc, _OpenWindow
+    key_map = {}
+    for key, kd in engine.get("key_map", {}).items():
+        wins = [_OpenWindow(w.lwid, w.gwid, w.start, w.end,
+                            _port_value(w.acc), w.n_tuples)
+                for w in kd.wins]
+        key_map[key] = _KeyDesc(
+            next_input_id=kd.next_input_id, next_lwid=kd.next_lwid,
+            last_fired_lwid=kd.last_fired_lwid, next_res_id=kd.next_res_id,
+            wins=wins, arch_idx=list(kd.arch_idx),
+            arch_payload=[_port_value(p) for p in kd.arch_payload])
+    return {"key_map": key_map,
+            "ignored_tuples": engine.get("ignored_tuples", 0),
+            "cur_wm": engine.get("cur_wm", 0)}
+
+
+def _port_value(v):
+    """A JAX ``WinResult`` (a stage-1 result riding into a stage-2
+    window) as the port's; anything else unchanged."""
+    if type(v).__name__ == "WinResult":
+        from .operators.window_engine import WinResult
+        return WinResult(v.key, v.wid, _port_value(v.value), v.ts)
+    return v
+
+
+def _port_msg(m):
+    from .message import Batch, Single
+    kind = type(m).__name__
+    if kind == "Single":
+        return Single(_port_value(m.payload), m.id, m.ts, m.wm, m.is_punct,
+                      m.stream_tag)
+    if kind == "Batch":
+        b = Batch([(_port_value(p), ts) for p, ts in m.rows], m.wm,
+                  m.is_punct, m.stream_tag)
+        b.id = m.id
+        return b
+    raise WindFlowError(f"collector_state_from_jax: unknown message {kind}")
+
+
+def collector_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    out = dict(state)
+    if "bufs" in state:  # OrderingCollector
+        out["bufs"] = [[_port_msg(m) for m in buf] for buf in state["bufs"]]
+    if "pending" in state:  # IDSequencerCollector
+        out["pending"] = {k: {i: _port_msg(m) for i, m in pend.items()}
+                          for k, pend in state["pending"].items()}
+    if "heap" in state:  # KSlackCollector / DPJoinCollector
+        out["heap"] = [(*e[:-1], _port_msg(e[-1])) for e in state["heap"]]
+    return out
+
+
 def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
                                device) -> Dict[Any, Dict[str, Any]]:
     """The replica states of one JAX checkpoint for the port: a fused
     chain's through ``fused_state_from_jax``, an FFAT window's ``"ffat"``
     through ``ffat_state_from_jax``, a stateful Map/Filter's ``"scan"``
     through ``scan_state_from_jax``, a mesh replica's entry through
-    ``mesh_state_from_jax``; source positions, watermarks, host
-    operator state and the emitter and collector entries pass through (the
-    two packages share their layout). A delta node is refused: the store's
+    ``mesh_state_from_jax``, a window replica's ``"engine"`` through
+    ``engine_state_from_jax`` and a collector entry through
+    ``collector_state_from_jax``; source positions and Kafka offsets,
+    watermarks, the other host operators' state and the emitter entries
+    pass through (the two packages share their layout). A delta node is refused: the store's
     ``load_states`` returns materialized states."""
     out = {}
     for key, state in states.items():
@@ -183,5 +248,10 @@ def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
         for k in _MESH_KEYS:
             if st.get(k) is not None:
                 st[k] = mesh_state_from_jax(st[k])
+        if st.get("engine") is not None:
+            st["engine"] = engine_state_from_jax(st["engine"])
+        if st.get("__collector__") is not None:
+            st["__collector__"] = collector_state_from_jax(
+                st["__collector__"])
         out[key] = st
     return out

@@ -120,7 +120,8 @@ class GPUStageEmitter(BasicEmitter):
         self._pool_seen = (p.hits, p.misses)
 
     # -- row path ----------------------------------------------------------
-    def emit(self, payload: Any, ts: int, wm: int) -> None:
+    def emit(self, payload: Any, ts: int, wm: int,
+             msg_id: Optional[int] = None) -> None:
         if self.schema is None:
             self.schema = TupleSchema.infer(payload)
         key = (self.key_extractor(payload)
@@ -445,9 +446,10 @@ class GPUExitEmitter(BasicEmitter, _D2HPipeline):
         batch.prefetch_host()
         self._pipe_add(batch)
 
-    def emit(self, payload: Any, ts: int, wm: int) -> None:
+    def emit(self, payload: Any, ts: int, wm: int,
+             msg_id: Optional[int] = None) -> None:
         self._drain()  # single-row emits must not overtake queued batches
-        self.inner.emit(payload, ts, wm)
+        self.inner.emit(payload, ts, wm, msg_id)
 
     def propagate_punctuation(self, wm: int) -> None:
         self._drain()  # rows behind the punctuation carry older watermarks

@@ -1,0 +1,107 @@
+"""Kafka builders (reference ``wf/kafka/builders_kafka.hpp``: withBrokers,
+withTopics, withGroupID, withOffsets, withIdleness).
+
+The port's copy of ``windflow_tpu/kafka/builders_kafka.py``. The JAX
+package's overload knobs (``with_slo``, ``with_priority``) and exactly-once
+Kafka sinks are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+from ..basic import WindFlowError
+from ..builders import BasicBuilder
+from .connectors import Kafka_Sink, Kafka_Source
+
+
+class Kafka_Source_Builder(BasicBuilder):
+    _default_name = "kafka_source"
+
+    def __init__(self, deser_func: Callable) -> None:
+        super().__init__(deser_func)
+        self._brokers: Optional[str] = None
+        self._topics: List[str] = []
+        self._group_id = "windflow"
+        self._offsets: Dict[Tuple[str, int], int] = {}
+        self._idleness_ms = 100
+        self._block_size: Optional[int] = None  # with_columnar_blocks
+
+    def with_brokers(self, brokers: str):
+        self._brokers = brokers
+        return self
+
+    def with_topics(self, *topics: str):
+        self._topics = list(topics)
+        return self
+
+    def with_group_id(self, group_id: str):
+        self._group_id = group_id
+        return self
+
+    def with_offsets(self, offsets: Dict[Tuple[str, int], int]):
+        """Explicit start offsets per (topic, partition): the replayable
+        source positions the checkpoint and resume story builds on."""
+        self._offsets = dict(offsets)
+        return self
+
+    def with_idleness(self, ms: int):
+        self._idleness_ms = ms
+        return self
+
+    def with_columnar_blocks(self, block_size: int = 512):
+        """Columnar block mode: the deserialization functor gets a
+        non-empty LIST of KafkaMessages (one batch poll, up to
+        ``block_size``) instead of single messages, decodes it vectorized
+        and calls ``shipper.push_columns``. ``None`` (idle timeout) and
+        the ``False`` stop flag keep their meaning; offsets and barrier
+        placement are unchanged."""
+        if block_size <= 0:
+            raise WindFlowError(
+                "with_columnar_blocks: block_size must be positive")
+        self._block_size = block_size
+        return self
+
+    def with_slo(self, *args, **kwargs):
+        raise WindFlowError("with_slo (the overload plane) is not yet "
+                            "ported to windflow_tpu_torch")
+
+    def with_priority(self, *args, **kwargs):
+        raise WindFlowError("with_priority (the overload plane) is not yet "
+                            "ported to windflow_tpu_torch")
+
+    def build(self) -> Kafka_Source:
+        if not self._brokers:
+            raise WindFlowError("Kafka_Source_Builder: withBrokers mandatory")
+        if not self._topics:
+            raise WindFlowError("Kafka_Source_Builder: withTopics mandatory")
+        op = self._finish(Kafka_Source(
+            self._func, self._brokers, self._topics, self._group_id,
+            self._offsets, self._idleness_ms, self._name, self._parallelism,
+            self._output_batch_size))
+        if self._block_size is not None:
+            op.block_mode = True
+            op.block_size = self._block_size
+        return op
+
+
+class Kafka_Sink_Builder(BasicBuilder):
+    _default_name = "kafka_sink"
+
+    def __init__(self, ser_func: Callable) -> None:
+        super().__init__(ser_func)
+        self._brokers: Optional[str] = None
+
+    def with_brokers(self, brokers: str):
+        self._brokers = brokers
+        return self
+
+    def with_exactly_once(self, staging_dir: Optional[str] = None):
+        raise WindFlowError("exactly-once Kafka sinks are not yet ported to "
+                            "windflow_tpu_torch")
+
+    def build(self) -> Kafka_Sink:
+        if not self._brokers:
+            raise WindFlowError("Kafka_Sink_Builder: withBrokers mandatory")
+        return self._finish(Kafka_Sink(self._func, self._brokers, self._name,
+                                       self._parallelism))

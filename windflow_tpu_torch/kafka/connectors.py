@@ -1,0 +1,551 @@
+"""Kafka connectors: external ingestion and egress with replayable offsets.
+
+The port's copy of the ``memory://`` half of
+``windflow_tpu/kafka/connectors.py``. Parity:
+``wf/kafka/kafka_source.hpp:127-519`` (consumer-group replicas, a poll
+loop with an idle timeout, a user deserialization functor returning a
+continue flag, explicit start offsets) and
+``wf/kafka/kafka_sink.hpp:71-379`` (a user serializer returning
+``(topic, partition, payload)``).
+
+The transport sits behind one small interface (subscribe / consume /
+consume_batch / produce / flush / close, and the offset cursors). A broker
+string ``"memory://<name>"`` uses the in-process ``MemoryBroker``
+(partitioned topics, offsets, consumer groups, committed group offsets).
+Any other broker string names a real Kafka cluster, whose clients
+(confluent_kafka, kafka-python) are not ported: ``make_transport`` and the
+operators' constructors raise ``WindFlowError`` saying so. The retry
+helper takes its attempts and backoff as arguments (the port reads no
+``WF_*`` variable).
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from ..basic import OpType, RoutingMode, WindFlowError, current_time_usecs
+from ..operators.base import BasicOperator, BasicReplica, arity
+from ..operators.source import SourceShipper
+
+DEFAULT_RETRIES = 5
+DEFAULT_RETRY_BASE_S = 0.1
+
+
+# ---------------------------------------------------------------------------
+# transient-error retry (jittered exponential backoff): a broker hiccup
+# must not surface as a worker crash; bounded attempts with backoff, one
+# Kafka_reconnects per retry, THEN the error propagates like any failure
+# ---------------------------------------------------------------------------
+def _retrying(transport, fn: Callable, what: str,
+              attempts: int = DEFAULT_RETRIES,
+              base_s: float = DEFAULT_RETRY_BASE_S):
+    """Run ``fn`` with bounded retry on the transport's transient error
+    classes: the k-th retry sleeps ``base_s * 2**k`` seconds times a
+    uniform jitter in [0.5, 1.0] (a replica fleet must not retry a
+    flapping broker in lockstep). Every retry calls
+    ``transport.on_retry``; exhausted attempts raise ``WindFlowError``."""
+    transients = transport._transient_excs()
+    if not transients:
+        return fn()
+    attempts = max(0, int(attempts))
+    base_s = max(0.0, float(base_s))
+    for attempt in range(attempts + 1):
+        try:
+            return fn()
+        except transients as e:
+            # a client error carrying .fatal() (authentication, config)
+            # never heals by retry
+            inner = e.args[0] if getattr(e, "args", None) else None
+            fatal = getattr(inner, "fatal", None)
+            if callable(fatal) and fatal():
+                raise
+            if attempt >= attempts:
+                raise WindFlowError(
+                    f"Kafka {what}: still failing after {attempts} "
+                    f"retr{'y' if attempts == 1 else 'ies'}: "
+                    f"{type(e).__name__}: {e}") from e
+            cb = getattr(transport, "on_retry", None)
+            if cb is not None:
+                cb()
+            delay = base_s * (2 ** attempt)
+            time.sleep(delay * (0.5 + 0.5 * random.random()))
+
+
+class KafkaMessage:
+    __slots__ = ("topic", "partition", "offset", "payload", "timestamp")
+
+    def __init__(self, topic, partition, offset, payload, timestamp) -> None:
+        self.topic = topic
+        self.partition = partition
+        self.offset = offset
+        self.payload = payload
+        self.timestamp = timestamp
+
+
+# ---------------------------------------------------------------------------
+# In-process broker
+# ---------------------------------------------------------------------------
+class MemoryBroker:
+    """Partitioned topics in process memory, found by name in a
+    process-wide registry (``get``; ``reset`` empties it)."""
+
+    _registry: Dict[str, "MemoryBroker"] = {}
+    _reg_lock = threading.Lock()
+
+    def __init__(self, name: str, n_partitions: int = 4) -> None:
+        self.name = name
+        self.n_partitions = n_partitions
+        self._topics: Dict[str, List[List[KafkaMessage]]] = {}
+        self._lock = threading.Lock()
+        # consumer-group committed offsets ((group, topic, partition) ->
+        # next offset), written by MemoryTransport.commit_offsets when a
+        # checkpoint finalizes, as a real broker's offset store
+        self.committed: Dict[Tuple[str, str, int], int] = {}
+
+    @classmethod
+    def get(cls, name: str, n_partitions: int = 4) -> "MemoryBroker":
+        with cls._reg_lock:
+            b = cls._registry.get(name)
+            if b is None:
+                b = cls._registry[name] = MemoryBroker(name, n_partitions)
+            return b
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._reg_lock:
+            cls._registry.clear()
+
+    def _topic(self, topic: str) -> List[List[KafkaMessage]]:
+        with self._lock:
+            t = self._topics.get(topic)
+            if t is None:
+                t = self._topics[topic] = [[] for _ in
+                                           range(self.n_partitions)]
+            return t
+
+    def produce(self, topic: str, payload: Any,
+                partition: Optional[int] = None, key: Any = None) -> None:
+        t = self._topic(topic)
+        with self._lock:
+            if partition is None:
+                partition = (hash(key) % self.n_partitions if key is not None
+                             else sum(len(p) for p in t) % self.n_partitions)
+            part = t[partition % self.n_partitions]
+            part.append(KafkaMessage(topic, partition % self.n_partitions,
+                                     len(part), payload,
+                                     current_time_usecs()))
+
+    def assign_partitions(self, topic: str, group: str, member: int,
+                          n_members: int) -> List[int]:
+        """Cooperative assignment: partition p -> member p % n_members
+        (the reference relies on Kafka's group rebalance,
+        ``kafka_source.hpp:77-115``)."""
+        return [p for p in range(self.n_partitions) if p % n_members == member]
+
+    def poll(self, topic: str, partition: int, offset: int
+             ) -> Optional[KafkaMessage]:
+        t = self._topic(topic)
+        with self._lock:
+            part = t[partition]
+            if offset < len(part):
+                return part[offset]
+        return None
+
+    def poll_run(self, topic: str, partition: int, offset: int,
+                 max_n: int) -> List[KafkaMessage]:
+        """A contiguous run of one partition: the batch poll of the
+        columnar block mode (one lock round per partition)."""
+        t = self._topic(topic)
+        with self._lock:
+            return t[partition][offset:offset + max_n]
+
+    def end_offset(self, topic: str, partition: int) -> int:
+        t = self._topic(topic)
+        with self._lock:
+            return len(t[partition])
+
+
+def _parse_brokers(brokers: str):
+    if brokers.startswith("memory://"):
+        return ("memory", brokers[len("memory://"):])
+    return ("kafka", brokers)
+
+
+def _refuse_real_broker(brokers: str) -> None:
+    raise WindFlowError(
+        f"Kafka connector: broker {brokers!r} needs a Kafka client "
+        "library (confluent_kafka / kafka-python); real-broker transports "
+        "are not yet ported to windflow_tpu_torch — use a memory:// "
+        "broker")
+
+
+# ---------------------------------------------------------------------------
+# Transport
+# ---------------------------------------------------------------------------
+class MemoryTransport:
+    def __init__(self, name: str) -> None:
+        self.broker = MemoryBroker.get(name)
+        self._parts: List[Tuple[str, int]] = []
+        self._pos: Dict[Tuple[str, int], int] = {}
+        self._rr = 0
+        self._group = "windflow"
+        self.on_retry = None  # in-process broker: no transient failures
+
+    def _transient_excs(self) -> tuple:
+        return ()
+
+    def subscribe(self, topics, group, member, n_members, offsets) -> bool:
+        self._group = group
+        if offsets:
+            # explicit offsets = an explicit assignment of ONLY the listed
+            # partitions
+            for (t, p), o in _member_share(offsets, member,
+                                           n_members).items():
+                self._parts.append((t, p))
+                self._pos[(t, p)] = o
+        else:
+            for t in topics:
+                for p in self.broker.assign_partitions(t, group, member,
+                                                       n_members):
+                    self._parts.append((t, p))
+                    self._pos[(t, p)] = 0
+        return bool(self._parts)
+
+    def consume(self) -> Optional[KafkaMessage]:
+        for _ in range(len(self._parts)):
+            tp = self._parts[self._rr]
+            self._rr = (self._rr + 1) % len(self._parts)
+            msg = self.broker.poll(tp[0], tp[1], self._pos[tp])
+            if msg is not None:
+                self._pos[tp] += 1
+                return msg
+        return None
+
+    def consume_batch(self, max_n: int) -> List[KafkaMessage]:
+        """Up to ``max_n`` messages as contiguous per-partition runs
+        (round-robin over the assigned partitions), advancing the same
+        cursors ``snapshot_positions`` records as ``consume`` does."""
+        out: List[KafkaMessage] = []
+        for _ in range(len(self._parts)):
+            if len(out) >= max_n:
+                break
+            tp = self._parts[self._rr]
+            self._rr = (self._rr + 1) % len(self._parts)
+            run = self.broker.poll_run(tp[0], tp[1], self._pos[tp],
+                                       max_n - len(out))
+            if run:
+                self._pos[tp] += len(run)
+                out.extend(run)
+        return out
+
+    def produce(self, topic, payload, partition=None, key=None) -> None:
+        self.broker.produce(topic, payload, partition, key)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    # -- checkpointing -----------------------------------------------------
+    def snapshot_positions(self) -> Dict[Tuple[str, int], int]:
+        """The next offset to consume per assigned partition (the
+        replayable cursor a checkpoint records)."""
+        return dict(self._pos)
+
+    def commit_offsets(self, offsets: Dict[Tuple[str, int], int]) -> None:
+        """Group-offset commit when a checkpoint finalizes."""
+        with self.broker._lock:
+            for (t, p), o in offsets.items():
+                self.broker.committed[(self._group, t, p)] = o
+
+
+def _member_share(offsets, member: int, n_members: int):
+    """The explicitly assigned partitions of one replica of the group
+    (partition p -> member p % n_members, the rule of
+    ``MemoryBroker.assign_partitions``): a non-empty offsets map is an
+    explicit assignment, only its partitions are consumed, from the
+    given positions."""
+    return {(t, p): o for (t, p), o in offsets.items()
+            if p % n_members == member}
+
+
+def make_transport(brokers: str):
+    """memory:// -> ``MemoryTransport``; a real broker raises."""
+    kind, target = _parse_brokers(brokers)
+    if kind == "memory":
+        return MemoryTransport(target)
+    _refuse_real_broker(brokers)
+
+
+# ---------------------------------------------------------------------------
+# Kafka_Source
+# ---------------------------------------------------------------------------
+class Kafka_Source(BasicOperator):
+    """Replicas share a consumer group, the partitions split across them;
+    the user deserialization functor gets ``(Optional[KafkaMessage],
+    shipper[, ctx])`` and returns False to stop (None message = the idle
+    timeout).
+
+    Columnar block mode (``with_columnar_blocks`` on the builder): the
+    same functor gets a non-empty LIST of messages per call (one batch
+    poll, up to ``block_size``), decodes it vectorized and calls
+    ``shipper.push_columns``. Offsets snapshot per partition as in the
+    per-message mode, and barriers inject only between polls, so a
+    checkpoint covers exactly the shipped blocks."""
+
+    op_type = OpType.SOURCE
+
+    def __init__(self, deser_func: Callable, brokers: str,
+                 topics: List[str], group_id: str = "windflow",
+                 offsets: Optional[Dict[Tuple[str, int], int]] = None,
+                 idleness_ms: int = 100, name: str = "kafka_source",
+                 parallelism: int = 1, output_batch_size: int = 0) -> None:
+        super().__init__(name, parallelism, RoutingMode.NONE,
+                         output_batch_size=output_batch_size)
+        self.deser_func = deser_func
+        self.brokers = brokers
+        self.topics = list(topics)
+        self.group_id = group_id
+        self.offsets = dict(offsets or {})
+        self.idleness_ms = idleness_ms
+        self._riched = arity(deser_func) >= 3
+        self.block_mode = False  # set by with_columnar_blocks
+        self.block_size = 512
+        if _parse_brokers(brokers)[0] != "memory":
+            _refuse_real_broker(brokers)
+
+    def build_replicas(self) -> None:
+        self.replicas = [KafkaSourceReplica(self, i)
+                         for i in range(self.parallelism)]
+
+
+class KafkaSourceReplica(BasicReplica):
+    def __init__(self, op, idx):
+        super().__init__(op, idx)
+        # aligned checkpointing: barriers inject BETWEEN Kafka messages
+        # (never between the pushes of one deser call), so the snapshot
+        # offsets cover exactly the shipped prefix
+        self._coord = None
+        self._inject_cb = None
+        self._last_ckpt = 0
+        self._restore_offsets: Optional[Dict[Tuple[str, int], int]] = None
+        self._transport = None
+        # the offsets of each injected barrier, committed to the broker
+        # only when the coordinator finalizes that checkpoint, from THIS
+        # thread (a consumer is not thread-safe): the finalize listener
+        # only raises _commit_ready
+        self._pending_commits: Dict[int, Dict[Tuple[str, int], int]] = {}
+        self._commit_ready = 0
+        self._committed = 0
+
+    def process(self, payload, ts, wm, tag):  # pragma: no cover
+        raise WindFlowError("Kafka_Source has no input")
+
+    def _note_reconnect(self) -> None:
+        """Transport retry hook: one transient-error retry
+        (``Kafka_reconnects``)."""
+        self.stats.kafka_reconnects += 1
+
+    def _retry(self, fn: Callable, what: str):
+        return _retrying(self._transport, fn, what)
+
+    # -- checkpointing -----------------------------------------------------
+    def bind_checkpoint(self, coordinator, inject_cb) -> None:
+        self._coord = coordinator
+        self._inject_cb = inject_cb
+        self._last_ckpt = coordinator.requested_id
+        coordinator.add_finalize_listener(self._on_finalized)
+
+    def request_checkpoint(self):
+        # the barrier injects at the consume loop's next message boundary
+        return None if self._coord is None \
+            else self._coord.trigger(force=True)
+
+    def _on_finalized(self, ckpt_id: int) -> None:
+        # runs on another worker's thread: only publish the epoch
+        if ckpt_id > self._commit_ready:
+            self._commit_ready = ckpt_id
+
+    def _maybe_inject(self) -> None:
+        from ..message import Barrier
+        cid = self._coord.requested_id
+        if cid > self._last_ckpt:
+            self._last_ckpt = cid
+            if self._transport is not None:
+                self._pending_commits[cid] = \
+                    self._transport.snapshot_positions()
+            self._inject_cb(Barrier(cid))
+
+    def final_checkpoint(self) -> None:
+        """At consume-loop exit: inject a pending epoch's barrier with the
+        final offsets before EOS, and commit what has finalized."""
+        if self._coord is not None and self._transport is not None:
+            if self._coord.requested_id != self._last_ckpt:
+                self._maybe_inject()
+            self._maybe_commit()
+
+    def _maybe_commit(self) -> None:
+        ready = self._commit_ready
+        if ready <= self._committed or self._transport is None:
+            return
+        best = max((c for c in self._pending_commits if c <= ready),
+                   default=None)
+        if best is not None:
+            self._transport.commit_offsets(self._pending_commits[best])
+            for c in [c for c in self._pending_commits if c <= best]:
+                del self._pending_commits[c]
+        self._committed = ready
+
+    def snapshot_state(self) -> dict:
+        st = super().snapshot_state()
+        if self._transport is not None:
+            # keys are (topic, partition) tuples; a fresh dict per call
+            st["offsets"] = self._transport.snapshot_positions()
+        return st
+
+    def restore_state(self, state: dict) -> None:
+        super().restore_state(state)
+        offs = state.get("offsets")
+        if offs is not None:
+            self._restore_offsets = dict(offs)
+
+    def run_source(self) -> None:
+        op = self.op
+        transport = make_transport(op.brokers)
+        transport.on_retry = self._note_reconnect
+        self._transport = transport
+        offsets = op.offsets
+        if self._restore_offsets is not None:
+            # resume from the checkpoint's positions: the snapshot was
+            # taken per replica AFTER the group split, so it is already
+            # this member's share and subscribe must not split it again
+            offsets = self._restore_offsets
+            member, n_members = 0, 1
+        else:
+            member, n_members = self.idx, op.parallelism
+        try:
+            if not transport.subscribe(op.topics, op.group_id, member,
+                                       n_members, offsets):
+                return
+            self._consume_loop(transport)
+        finally:
+            # the worker's final_checkpoint hook runs after run_source, too
+            # late for the transport: inject any pending epoch here, with
+            # the consumer still open
+            self.final_checkpoint()
+            transport.close()
+            self._transport = None
+
+    def _call(self, arg, shipper) -> Any:
+        op = self.op
+        return (op.deser_func(arg, shipper, self.context) if op._riched
+                else op.deser_func(arg, shipper))
+
+    def _consume_loop(self, transport) -> None:
+        op = self.op
+        shipper = SourceShipper(self)
+        idle_budget_us = op.idleness_ms * 1000
+        last_progress = current_time_usecs()
+        block_n = op.block_size if op.block_mode else 0
+        while True:
+            if self._coord is not None:
+                if self._coord.requested_id != self._last_ckpt:
+                    self._maybe_inject()
+                self._maybe_commit()
+            if block_n:
+                # one batch poll, decoded whole by the functor; barriers
+                # land only between polls
+                msgs = self._retry(lambda: transport.consume_batch(block_n),
+                                   "consume")
+                if msgs:
+                    last_progress = current_time_usecs()
+                    if self._call(msgs, shipper) is False:
+                        return
+                    continue
+            else:
+                msg = self._retry(transport.consume, "consume")
+                if msg is not None:
+                    last_progress = current_time_usecs()
+                    if self._call(msg, shipper) is False:
+                        return
+                    continue
+            if current_time_usecs() - last_progress > idle_budget_us:
+                # idle timeout: the functor may stop
+                if self._call(None, shipper) is False:
+                    return
+                last_progress = current_time_usecs()
+            time.sleep(0.001)
+
+    def ship(self, payload: Any, ts: int, wm: int) -> None:
+        self._advance_wm(wm)
+        self.stats.inputs_received += 1
+        self.emitter.emit(payload, ts, self.cur_wm)
+
+    def ship_columns(self, cols, ts_arr, wm: int) -> None:
+        """The columnar twin of ``ship`` (``shipper.push_columns``), without
+        barrier injection: in the Kafka loop barriers land between polls,
+        never inside a block."""
+        self._advance_wm(wm)
+        n = len(ts_arr)
+        self.stats.inputs_received += n
+        self.emitter.emit_columns(cols, ts_arr, self.cur_wm)
+        self.stats.note_ingest_block(n)
+
+
+# ---------------------------------------------------------------------------
+# Kafka_Sink
+# ---------------------------------------------------------------------------
+class Kafka_Sink(BasicOperator):
+    """The user serializer returns ``(topic, partition_or_None, payload)``,
+    or None to drop (``kafka_sink.hpp``: wf_kafka_sink_msg). At least
+    once: the producer is flushed before every checkpoint ack."""
+
+    op_type = OpType.SINK
+
+    def __init__(self, ser_func: Callable, brokers: str,
+                 name: str = "kafka_sink", parallelism: int = 1) -> None:
+        super().__init__(name, parallelism, RoutingMode.FORWARD)
+        self.ser_func = ser_func
+        self.brokers = brokers
+        self._riched = arity(ser_func) >= 2
+        if _parse_brokers(brokers)[0] != "memory":
+            _refuse_real_broker(brokers)
+
+    def build_replicas(self) -> None:
+        self.replicas = [KafkaSinkReplica(self, i)
+                         for i in range(self.parallelism)]
+
+
+class KafkaSinkReplica(BasicReplica):
+    def __init__(self, op, idx):
+        super().__init__(op, idx)
+        self._transport = make_transport(op.brokers)
+        self._transport.on_retry = self._note_reconnect
+
+    def _note_reconnect(self) -> None:
+        self.stats.kafka_reconnects += 1
+
+    def process(self, payload, ts, wm, tag):
+        out = (self.op.ser_func(payload, self.context) if self.op._riched
+               else self.op.ser_func(payload))
+        if out is None:
+            return
+        topic, partition, data = out
+        self._transport.produce(topic, data, partition)
+
+    # -- checkpointing -----------------------------------------------------
+    def snapshot_state(self) -> dict:
+        # flush the producer (and fail loudly on delivery errors) before
+        # this worker's ack can let the epoch finalize: a checkpoint must
+        # never record source offsets past data that never reached the
+        # broker
+        self._transport.flush()
+        return super().snapshot_state()
+
+    def flush_on_termination(self) -> None:
+        self._transport.flush()
+        self._transport.close()

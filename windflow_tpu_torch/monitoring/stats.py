@@ -55,8 +55,9 @@ class StatsRecord:
         "tier_promotes", "tier_demotes", "tier_promote_usec_total",
         "tier_lookups", "tier_misses",
         # per-record error policies (supervision/errors.py): records
-        # quarantined, skipped and re-invoked
-        "dlq_records", "dlq_skipped", "dlq_retries",
+        # quarantined, skipped and re-invoked; Kafka transient-error
+        # retries (kafka/connectors.py)
+        "dlq_records", "dlq_skipped", "dlq_retries", "kafka_reconnects",
         # mesh execution plane (mesh/): shards, steps run, the bytes the
         # shuffle moved, step time, the fullest shard's slots and the
         # max/mean skew, and devices the mesh runs without because the
@@ -126,6 +127,7 @@ class StatsRecord:
         self.dlq_records = 0
         self.dlq_skipped = 0
         self.dlq_retries = 0
+        self.kafka_reconnects = 0
         self.mesh_devices = 0
         self.mesh_steps = 0
         self.mesh_shuffle_bytes = 0
@@ -325,6 +327,7 @@ class StatsRecord:
             "Dlq_records": self.dlq_records,
             "Dlq_skipped": self.dlq_skipped,
             "Dlq_retries": self.dlq_retries,
+            "Kafka_reconnects": self.kafka_reconnects,
             "Queue_emit_fifo_depth_max": self.pipe_depth_max,
             "Worker_idle_ticks": self.worker_idle_ticks,
             "Worker_crashes": self.worker_crashes,

@@ -45,8 +45,14 @@ class BasicEmitter:
         self.ports = list(ports)
 
     # -- core send helpers -------------------------------------------------
-    def _send_single(self, dest: int, payload: Any, ts: int, wm: int) -> None:
-        msg = Single(payload, self._next_ids[dest], ts, wm)
+    def _send_single(self, dest: int, payload: Any, ts: int, wm: int,
+                     msg_id: Optional[int] = None) -> None:
+        """``msg_id`` overrides the per-destination counter: window replicas
+        stamp result and pane ids for a downstream id-sequencing collector
+        (the reference ``doEmit``'s identifier argument)."""
+        msg = Single(payload,
+                     self._next_ids[dest] if msg_id is None else msg_id,
+                     ts, wm)
         self._next_ids[dest] += 1
         if self.stats is not None:
             self.stats.outputs_sent += 1
@@ -81,7 +87,8 @@ class BasicEmitter:
         self.propagate_punctuation(wm)
 
     # -- public API --------------------------------------------------------
-    def emit(self, payload: Any, ts: int, wm: int) -> None:
+    def emit(self, payload: Any, ts: int, wm: int,
+             msg_id: Optional[int] = None) -> None:
         raise NotImplementedError
 
     def emit_columns(self, cols, ts_arr, wm: int) -> None:
@@ -148,9 +155,10 @@ class ForwardEmitter(BasicEmitter):
         self._rr = 0
         self._batch: Optional[Batch] = None
 
-    def emit(self, payload: Any, ts: int, wm: int) -> None:
+    def emit(self, payload: Any, ts: int, wm: int,
+             msg_id: Optional[int] = None) -> None:
         if self.output_batch_size <= 0:
-            self._send_single(self._rr, payload, ts, wm)
+            self._send_single(self._rr, payload, ts, wm, msg_id)
             self._rr = (self._rr + 1) % self.num_dests
         else:
             if self._batch is None:
@@ -180,10 +188,11 @@ class KeyByEmitter(BasicEmitter):
         self.key_extractor = key_extractor
         self._batches: List[Optional[Batch]] = [None] * num_dests
 
-    def emit(self, payload: Any, ts: int, wm: int) -> None:
+    def emit(self, payload: Any, ts: int, wm: int,
+             msg_id: Optional[int] = None) -> None:
         dest = hash(self.key_extractor(payload)) % self.num_dests
         if self.output_batch_size <= 0:
-            self._send_single(dest, payload, ts, wm)
+            self._send_single(dest, payload, ts, wm, msg_id)
         else:
             b = self._batches[dest]
             if b is None:
@@ -214,10 +223,11 @@ class BroadcastEmitter(BasicEmitter):
         super().__init__(num_dests, output_batch_size, execution_mode)
         self._batch: Optional[Batch] = None
 
-    def emit(self, payload: Any, ts: int, wm: int) -> None:
+    def emit(self, payload: Any, ts: int, wm: int,
+             msg_id: Optional[int] = None) -> None:
         if self.output_batch_size <= 0:
             for d in range(self.num_dests):
-                self._send_single(d, payload, ts, wm)
+                self._send_single(d, payload, ts, wm, msg_id)
         else:
             if self._batch is None:
                 self._batch = Batch()
@@ -274,16 +284,19 @@ class SplittingEmitter(BasicEmitter):
             e.set_ports(ports[off:off + e.num_dests])
             off += e.num_dests
 
-    def emit(self, payload: Any, ts: int, wm: int) -> None:
+    def emit(self, payload: Any, ts: int, wm: int,
+             msg_id: Optional[int] = None) -> None:
         sel = self.splitting_logic(payload)
         if sel is None:
             return
         n = len(self.inner)
         if isinstance(sel, int):
-            self.inner[check_branch_index(sel, n)].emit(payload, ts, wm)
+            self.inner[check_branch_index(sel, n)].emit(payload, ts, wm,
+                                                        msg_id)
         else:
             for s in sel:
-                self.inner[check_branch_index(s, n)].emit(payload, ts, wm)
+                self.inner[check_branch_index(s, n)].emit(payload, ts, wm,
+                                                          msg_id)
 
     def propagate_punctuation(self, wm: int) -> None:
         for e in self.inner:
@@ -318,7 +331,8 @@ class NullEmitter(BasicEmitter):
     def __init__(self) -> None:
         super().__init__(0, 0)
 
-    def emit(self, payload: Any, ts: int, wm: int) -> None:  # pragma: no cover
+    def emit(self, payload: Any, ts: int, wm: int,
+             msg_id: Optional[int] = None) -> None:  # pragma: no cover
         raise RuntimeError("Sink cannot emit")
 
     def propagate_punctuation(self, wm: int) -> None:

@@ -37,9 +37,10 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..basic import RoutingMode, WindFlowError
-from .repartition import (merge_emitter_states, remap_neighbor_collector,
-                          repartition_refusal, split_collector_states,
-                          split_operator_states, stretch_emitter_state)
+from .repartition import (dest_fn_for, merge_emitter_states,
+                          remap_neighbor_collector, repartition_refusal,
+                          split_collector_states, split_operator_states,
+                          stretch_emitter_state)
 
 _O2O = -1  # channel-layout sentinel: a one-to-one edge (own replica idx)
 
@@ -109,7 +110,15 @@ def repartition_checkpoint_states(graph, states: Dict[Tuple[str, int], dict],
         colls = [st.pop("__collector__", None) for st in olds]
         news = split_operator_states(op, olds, new_n)
         if op.name == first_name and any(colls):
-            split_cs = split_collector_states(colls, new_n, op.name)
+            key_fn = stage.first_op.key_extractor
+            if key_fn is None:
+                # a FORWARD-routed consumer: any replica may take any
+                # tuple, so the whole backlog parks on replica 0
+                split_cs = split_collector_states(
+                    colls, new_n, lambda p: 0, lambda k: 0, op.name)
+            else:
+                split_cs = split_collector_states(
+                    colls, new_n, key_fn, dest_fn_for(op, new_n), op.name)
             # the rescaled stage's own channel layout can shift too (a
             # FORWARD edge into it flips one-to-one <-> shuffle)
             old_in = _input_layout(stage, par_old)

@@ -5,8 +5,10 @@ checkpoint already holds every replica's keyed state in one blob per
 replica. Rescaling an operator from N to M replicas re-buckets every
 key's state by the SAME routing function its KEYBY emitters use, so that
 after the restore each new replica owns exactly the keys the emitters
-send it. Host dicts (the host ``Reduce``'s ``key_state``) re-bucket per
-key; the device plane's array states (the grid-scan tables of a stateful
+send it. Host dicts (the host ``Reduce``'s ``key_state``, the window
+engine's ``key_map``, the host FFAT's per-key trees and the KP join's
+archives) re-bucket per key, and so do the messages an ordering, K-slack
+or id-sequencing collector holds; the device plane's array states (the grid-scan tables of a stateful
 ``Map_GPU``/``Filter_GPU``, the FFAT forests of ``Ffat_Windows_GPU``)
 re-bucket by a slot-row gather along the key axis, in numpy on the host
 (blobs hold host arrays only).
@@ -21,8 +23,8 @@ which a live rescale always is.
 
 State that cannot be repartitioned fails LOUDLY (``WindFlowError``),
 never silently dropped: global (unkeyed) reduce accumulators, BROADCAST-
-or FORWARD-routed windows, sources, and any state key this module does
-not know.
+or FORWARD-routed windows, DP-mode joins and their collectors, sources
+(Kafka ones too), and any state key this module does not know.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..basic import OpType, RoutingMode, WindFlowError
+from ..basic import JoinMode, OpType, RoutingMode, WindFlowError
 from ..gpu.routing import _dest_of_key, _int_keys_hashable_as_identity
+from ..message import Batch
 from ..pytree import tree_flatten, tree_unflatten
 
 # blob keys that need no repartitioning (merged, not split)
@@ -96,17 +99,23 @@ def repartition_refusal(op) -> Optional[str]:
                 "(staged epoch segments / transactional producer ids); "
                 "changing the replica count would orphan staged epochs "
                 "and break the commit fencing")
+    if ".kafka" in type(op).__module__:
+        return ("Kafka connectors own partition assignments managed by "
+                "the group protocol, not by WindFlow routing")
     if op.input_routing is RoutingMode.BROADCAST:
         return ("BROADCAST-distributed operators assign work by replica "
                 "arithmetic (global window ids mod parallelism); their "
                 "state is bound to the replica count, not to keys")
+    if getattr(op, "join_mode", None) is JoinMode.DP:
+        return ("DP-mode interval join stores a round-robin share of "
+                "a replica-count-dependent shared sequence")
     # keyed state without KEYBY routing = a global accumulator (the global
     # Reduce_GPU): one stream-wide value has no keyed partition
     if getattr(op, "fusion_role", None) == "terminator" \
             and op.key_extractor is None:
         return ("global (unkeyed) reduce folds one stream-wide "
                 "accumulator; there is no keyed partition to split")
-    if op.op_type is OpType.WIN_GPU \
+    if op.op_type in (OpType.WIN, OpType.WIN_GPU) \
             and op.input_routing is not RoutingMode.KEYBY:
         return (f"{op.input_routing.name}-routed window operators "
                 "distribute windows, not keys, across replicas")
@@ -326,35 +335,115 @@ def _split_ffat_gpu(ffats: List[dict], new_n: int, dest: _Dest,
 # ---------------------------------------------------------------------------
 # collector state
 # ---------------------------------------------------------------------------
+def _msg_sort_key(msg) -> Tuple[int, int]:
+    if isinstance(msg, Batch):
+        ts = msg.rows[0][1] if msg.rows else 0
+    else:
+        ts = msg.ts
+    return (ts, msg.id)
+
+
+def _filter_msg(msg, keep: Callable[[Any], bool]):
+    """The sub-message of ``msg`` whose payloads satisfy ``keep`` (None
+    when nothing survives). Batches split by row; id, watermark and tag
+    stay, so the (ts, id) merge order is kept."""
+    if isinstance(msg, Batch):
+        rows = [(p, ts) for p, ts in msg.rows if keep(p)]
+        if not rows:
+            return None
+        if len(rows) == len(msg.rows):
+            return msg
+        nb = Batch(rows, msg.wm, msg.is_punct, msg.stream_tag)
+        nb.id = msg.id
+        return nb
+    return msg if keep(msg.payload) else None
+
+
 def split_collector_states(colls: List[Optional[dict]], new_n: int,
+                           key_fn: Callable[[Any], Any],
+                           dest: Callable[[Any], int],
                            op_name: str) -> List[Optional[dict]]:
-    """Split the RESCALED operator's own collector states. The port's
-    collector is the ``WatermarkCollector``: its per-channel watermarks
-    (``ch_wm``) keep their channel identity (the upstream producers are
-    unchanged), each channel at the lowest of the old replicas' marks —
-    late, never wrong. The JAX package's ordering, id-sequencer, K-slack
-    and DP-join buffers are not ported; a blob holding one is refused."""
+    """Split the RESCALED operator's own collector states. The ordering
+    and K-slack buffers and the id sequencer hold PRE-BARRIER input the
+    replica has not consumed yet (dropping it would lose data): their
+    messages re-bucket by key (``key_fn`` of the payload, ``dest`` of the
+    key), and per-channel buffers and watermarks keep their channel
+    identity (the upstream producers are unchanged; each channel's
+    watermark is the lowest of the old replicas', late, never wrong). A
+    DP-join collector is refused: DP joins do not repartition."""
     olds = [c for c in colls if c]
     if not olds:
         return [None] * new_n
-    unknown = {k for c in olds for k in c} - {"ch_wm"}
+    if any("heap" in c and "ch_wm" in c and "K" not in c for c in olds):
+        raise WindFlowError(
+            f"rescale: {op_name!r} sits behind a DP-join collector; "
+            "DP interval joins are not repartitionable")
+    known = {"ch_wm", "bufs", "next", "pending", "heap", "K", "max_ts",
+             "frontier", "seq"}
+    unknown = {k for c in olds for k in c} - known
     if unknown:
         raise WindFlowError(
             f"rescale: {op_name!r} checkpointed collector state this "
             f"version cannot repartition: {sorted(unknown)}")
-    n_ch = max(len(c["ch_wm"]) for c in olds)
-    wm = [min((c["ch_wm"][ch] for c in olds if ch < len(c["ch_wm"])),
-              default=0) for ch in range(n_ch)]
-    return [{"ch_wm": list(wm)} for _ in range(new_n)]
+    outs: List[Optional[dict]] = []
+    n_ch = max(len(c.get("bufs", c.get("ch_wm", []))) for c in olds)
+    for j in range(new_n):
+        def keep(p, _j=j):
+            return dest(key_fn(p)) == _j
+        st: dict = {}
+        if any("ch_wm" in c for c in olds):
+            st["ch_wm"] = [
+                min((c["ch_wm"][ch] for c in olds if "ch_wm" in c
+                     and ch < len(c["ch_wm"])), default=0)
+                for ch in range(n_ch)]
+        if any("bufs" in c for c in olds):  # OrderingCollector
+            bufs: List[list] = [[] for _ in range(n_ch)]
+            for c in olds:
+                for ch, buf in enumerate(c.get("bufs", [])):
+                    for m in buf:
+                        sub = _filter_msg(m, keep)
+                        if sub is not None:
+                            bufs[ch].append(sub)
+            st["bufs"] = [sorted(b, key=_msg_sort_key) for b in bufs]
+        if any("next" in c for c in olds):  # IDSequencerCollector
+            st["next"] = {}
+            st["pending"] = {}
+            for c in olds:
+                for k, v in c.get("next", {}).items():
+                    if dest(k) == j:
+                        st["next"][k] = max(v, st["next"].get(k, 0))
+                for k, pend in c.get("pending", {}).items():
+                    if dest(k) == j:
+                        st["pending"].setdefault(k, {}).update(pend)
+        if any("heap" in c and "K" in c for c in olds):  # KSlackCollector
+            heap = []
+            for c in olds:
+                for ts, seq, m in c.get("heap", []):
+                    sub = _filter_msg(m, keep)
+                    if sub is not None:
+                        heap.append((ts, seq, sub))
+            st["heap"] = sorted(heap, key=lambda e: e[:2])
+            st["K"] = max(c.get("K", 0) for c in olds)
+            st["max_ts"] = max(c.get("max_ts", 0) for c in olds)
+            st["frontier"] = min(c.get("frontier", -1) for c in olds)
+            st["seq"] = max(c.get("seq", 0) for c in olds)
+        outs.append(st or None)
+    return outs
 
 
 def remap_neighbor_collector(st: dict, old_inputs: List[Tuple[int, int]],
                              new_inputs: List[Tuple[int, int]],
                              changed_edges: set) -> dict:
-    """Re-index a collector's per-channel watermarks when the rescaled
-    stage changed the channel layout (its parallelism is part of the
-    channel numbering). Matched ``(edge, producer)`` channels keep their
-    mark; fresh channels seed with their edge's lowest old mark."""
+    """Re-index a collector's per-channel state when the rescaled stage
+    changed the channel layout (its parallelism is part of the channel
+    numbering). Matched ``(edge, producer)`` channels keep their data;
+    buffered messages of the rescaled edge's vanished channels merge
+    (sorted) into that edge's first new channel; fresh channels seed with
+    their edge's lowest old watermark."""
+    pos_new = {key: i for i, key in enumerate(new_inputs)}
+    first_of_edge: Dict[int, int] = {}
+    for i, (e, _) in enumerate(new_inputs):
+        first_of_edge.setdefault(e, i)
     out = dict(st)
     if "ch_wm" in st:
         per_edge_min: Dict[int, int] = {}
@@ -370,6 +459,34 @@ def remap_neighbor_collector(st: dict, old_inputs: List[Tuple[int, int]],
             wm.append(st["ch_wm"][oi] if keep and oi < len(st["ch_wm"])
                       else per_edge_min.get(e, 0))
         out["ch_wm"] = wm
+    if "bufs" in st:
+        bufs: List[list] = [[] for _ in range(len(new_inputs))]
+        spill: Dict[int, list] = {}
+        for (e, pi), buf in zip(old_inputs, st["bufs"]):
+            tgt = pos_new.get((e, pi)) if e not in changed_edges else None
+            if tgt is not None:
+                bufs[tgt].extend(buf)
+            else:
+                spill.setdefault(e, []).extend(buf)
+        for e, msgs in spill.items():
+            tgt = first_of_edge.get(e)
+            if tgt is None:
+                if msgs:
+                    raise WindFlowError(
+                        "rescale: buffered collector messages from a "
+                        "removed edge have no destination channel")
+                continue
+            bufs[tgt] = sorted(bufs[tgt] + msgs, key=_msg_sort_key)
+        out["bufs"] = bufs
+    if "heap" in st and "ch_wm" in st and "K" not in st:  # DP-join heap
+        heap = []
+        for ts, ch, mid, m in st["heap"]:
+            e, pi = old_inputs[ch] if ch < len(old_inputs) else (0, 0)
+            tgt = pos_new.get((e, pi))
+            if tgt is None or e in changed_edges:
+                tgt = first_of_edge.get(e, 0)
+            heap.append((ts, tgt, mid, m))
+        out["heap"] = sorted(heap, key=lambda e: e[:3])
     return out
 
 
@@ -424,6 +541,28 @@ def split_operator_states(op, olds: List[dict], new_n: int) -> List[dict]:
                 [st.get("key_state", {}) for st in olds], new_n, dest)):
             news[j]["key_state"] = d
         handled.add("key_state")
+    if any("engine" in st for st in olds):  # WindowEngine (SEQ role)
+        engines = [st.get("engine", {}) for st in olds]
+        kms = _split_keyed_dict([e.get("key_map", {}) for e in engines],
+                                new_n, dest)
+        for j in range(new_n):
+            news[j]["engine"] = {
+                "key_map": kms[j],
+                "ignored_tuples": (sum(e.get("ignored_tuples", 0)
+                                       for e in engines) if j == 0 else 0),
+                "cur_wm": max((e.get("cur_wm", 0) for e in engines),
+                              default=0)}
+        handled.add("engine")
+    if any("keys" in st for st in olds):  # host FFAT / KP interval join
+        for j, d in enumerate(_split_keyed_dict(
+                [st.get("keys", {}) for st in olds], new_n, dest)):
+            news[j]["keys"] = d
+        if any("ignored" in st for st in olds):
+            news[0]["ignored"] = sum(st.get("ignored", 0) for st in olds)
+            for j in range(1, new_n):
+                news[j]["ignored"] = 0
+            handled.add("ignored")
+        handled.add("keys")
     if any("scan" in st for st in olds):  # stateful Map/Filter_GPU
         for j, d in enumerate(_split_scan([st.get("scan") for st in olds],
                                           new_n, dest, op.name)):

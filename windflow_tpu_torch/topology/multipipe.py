@@ -1,7 +1,7 @@
 """MultiPipe: the pipeline builder, with splits and merges.
 
-Trimmed copy of ``windflow_tpu/topology/multipipe.py`` (no join, no
-composite operators). Parity with ``wf/multipipe.hpp``:
+The port's copy of ``windflow_tpu/topology/multipipe.py``. Parity with
+``wf/multipipe.hpp``:
 
 - ``add`` / ``chain`` / ``add_sink`` / ``chain_sink`` (L952/1050);
 - ``split(logic, n)`` + ``select(i)`` (L1178-1256);
@@ -9,7 +9,11 @@ composite operators). Parity with ``wf/multipipe.hpp``:
 
 A MultiPipe is a cursor over the PipeGraph's stage DAG: it tracks the open
 tail stages that the next operator will consume from — one stage, or
-several right after a merge.
+several right after a merge. The tail groups of a merge keep their order,
+so an Interval_Join added right after a merge of two MultiPipes tells
+stream A from stream B by input-channel ranges (the reference's channel
+``separator_id``, ``wf/watermark_collector.hpp:121-134``). A composite
+window operator (Paned/MapReduce windows) expands into its two stages.
 """
 
 from __future__ import annotations
@@ -58,7 +62,19 @@ class MultiPipe:
         or, as the first operator of a split branch, from the split
         stage."""
         self._check_open("add")
+        subs = getattr(op, "sub_operators", None)
+        if subs is not None:
+            # a composite window operator: consecutive stages (the
+            # reference nests two Parallel_Windows in one operator; the
+            # runtime shape is the same)
+            op._used = True
+            for sub in subs:
+                self.add(sub)
+            return self
         self._claim(op)
+        if op.op_type == OpType.JOIN and len(self.tail_groups) != 2:
+            raise WindFlowError("Interval_Join must be added right after "
+                                "merging exactly two MultiPipes")
         stage = Stage(op)
         if self._parent_split is not None and not self.tail_groups:
             ptail, branch = self._parent_split
@@ -72,6 +88,8 @@ class MultiPipe:
                     raise WindFlowError("tail stage already connected")
                 t.downstream = stage
                 stage.upstreams.append(UpstreamEdge(t))
+        if op.op_type == OpType.JOIN:
+            stage.join_a_stages = list(self.tail_groups[0])
         self.graph._stages.append(stage)
         self.tail_groups = [[stage]]
         self.was_merged = False

@@ -32,6 +32,13 @@ builders, ``mesh/``) shard keyed state over a mesh of shards on the
 graph's card; ``with_device_probe`` lets the supervisor rebuild them on
 the healthy devices. Overload protection, prewarm and exactly-once sinks
 are not ported yet and raise.
+
+``execution_mode`` picks the collector in front of each stage
+(``_make_collector``): DEFAULT merges watermarks, DETERMINISTIC merges the
+input channels into one timestamp order, PROBABILISTIC reorders with
+K-slack and counts what it drops (``get_num_dropped_tuples``). The device
+operators run in DEFAULT mode only and refuse the others when the graph
+configures them.
 """
 
 from __future__ import annotations
@@ -42,12 +49,14 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..basic import (DEFAULT_BUFFER_CAPACITY, ExecutionMode, OpType,
-                     RoutingMode, TimePolicy, WindFlowError,
+from ..basic import (DEFAULT_BUFFER_CAPACITY, ExecutionMode, JoinMode,
+                     OpType, RoutingMode, TimePolicy, WindFlowError,
                      WorkerFailuresError)
 from ..operators.base import BasicOperator
 from ..runtime.channel import Channel, InlinePort, QueuePort
-from ..runtime.collectors import AtomicCounter, WatermarkCollector
+from ..runtime.collectors import (AtomicCounter, DPJoinCollector,
+                                  IDSequencerCollector, KSlackCollector,
+                                  OrderingCollector, WatermarkCollector)
 from ..runtime.emitters import (BasicEmitter, BroadcastEmitter,
                                 ForwardEmitter, KeyByEmitter, NullEmitter,
                                 SplittingEmitter)
@@ -75,9 +84,6 @@ class PipeGraph:
                  channel_capacity: int = DEFAULT_BUFFER_CAPACITY,
                  device=None, fusion: bool = True,
                  megabatch: int = 1) -> None:
-        if execution_mode is not ExecutionMode.DEFAULT:
-            raise WindFlowError(f"{execution_mode.name} execution mode is "
-                                "not yet ported to windflow_tpu_torch")
         self.name = name
         self.execution_mode = execution_mode
         self.time_policy = time_policy
@@ -704,6 +710,37 @@ class PipeGraph:
             return GPUExitEmitter(em)
         return em
 
+    def _make_collector(self, stage: Stage, replica_idx: int):
+        """The collector in front of one replica (``wf/multipipe.hpp:
+        200-244``): the WLQ/REDUCE stages of composite windows sequence
+        per-key result ids in every mode; a join tags its two streams;
+        DEFAULT merges watermarks (a DP join needs one total order),
+        DETERMINISTIC merges by timestamp, PROBABILISTIC always reorders
+        with K-slack, its drops counted in ``dropped``."""
+        first_replica = stage.first_op.replicas[replica_idx]
+        n_in = stage.channels[replica_idx].n_inputs
+        if getattr(stage.first_op, "collector_override", None) == "id":
+            return IDSequencerCollector(n_in, first_replica,
+                                        stage.first_op.key_extractor)
+        separator = None
+        if stage.first_op.op_type == OpType.JOIN:
+            separator = sum(s.parallelism for s in stage.join_a_stages)
+        mode = self.execution_mode
+        if mode is ExecutionMode.DEFAULT:
+            if separator is not None \
+                    and getattr(stage.first_op, "join_mode", None) \
+                    is JoinMode.DP:
+                return DPJoinCollector(n_in, first_replica, separator)
+            if n_in > 1 or separator is not None:
+                return WatermarkCollector(n_in, first_replica, separator)
+            return None
+        if mode is ExecutionMode.DETERMINISTIC:
+            if n_in > 1 or separator is not None:
+                return OrderingCollector(n_in, first_replica, separator)
+            return None
+        # PROBABILISTIC: disorder exists within one channel too
+        return KSlackCollector(n_in, first_replica, self.dropped, separator)
+
     def _make_workers(self, stage: Stage) -> None:
         for i in range(stage.parallelism):
             chain: List[Any] = []
@@ -711,9 +748,8 @@ class PipeGraph:
             if not stage.is_source:
                 channel = stage.channels[i]
                 stage.first_op.replicas[i].stats.input_channel = channel
-                if channel.n_inputs > 1:
-                    coll = WatermarkCollector(channel.n_inputs,
-                                              stage.first_op.replicas[i])
+                coll = self._make_collector(stage, i)
+                if coll is not None:
                     chain.append(coll)
                     # restore reaches the collector through its replica
                     stage.first_op.replicas[i]._collector = coll

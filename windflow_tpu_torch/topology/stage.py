@@ -11,7 +11,8 @@ replica per slot (``gpu/fused_ops.py``), under the legality rules of
 ``_gpu_fusion_refusal``. Device and host operators never share a stage.
 A stage may end in a split (``split_logic`` and one consumer stage per
 branch, in place of ``downstream``); an edge into a split branch records
-its branch index on the consumer's ``UpstreamEdge``.
+its branch index on the consumer's ``UpstreamEdge``. Window and join
+operators end a host chain.
 """
 
 from __future__ import annotations
@@ -59,6 +60,9 @@ class Stage:
         self.split_logic: Optional[Union[Callable, str]] = None
         self.split_branches: List[Optional["Stage"]] = []
         self.chain_refused: Optional[str] = None
+        # an Interval_Join stage: the producer stages of its stream A,
+        # whose channels come first (the collector's stream separator)
+        self.join_a_stages: List["Stage"] = []
         self.channels: List[Any] = []  # one Channel per replica
         self.workers: List[Any] = []
 
@@ -120,6 +124,9 @@ class Stage:
             if not (tail_gpu and cand_gpu):
                 return "device and host operators never share a stage"
             return self._gpu_fusion_refusal(op, fusion)
+        if self.last_op.op_type in (OpType.WIN, OpType.JOIN):
+            return (f"{self.last_op.name} ({self.last_op.op_type.value}) "
+                    "terminates a chain")
         if op.input_routing is not RoutingMode.FORWARD:
             return (f"{op.input_routing.name} input routing needs its own "
                     "shuffle stage")
