@@ -188,6 +188,33 @@ Phases, each printing one line of its own:
    Keyed_Windows replica's rows in the model's order in DETERMINISTIC);
    Keyed_Windows TB in PROBABILISTIC over a disordered stream, every
    tuple admitted or dropped; tuples/s for each;
+16. exactly-once delivery (``exactly_once`` lines). Part ``columnar``: the
+   high-cardinality main path from a replayable block source
+   (``ArrayBlockSource`` yielding each batch's watermark,
+   ``with_block_size(65536)``, an int32 ``with_schema``) through
+   Ffat_Windows_GPU into a columnar sink, checkpointing every 4 batches:
+   the plain sink and ``with_exactly_once`` in turns, then an
+   exactly-once run killed before batch 14 (after the checkpoint at batch
+   12) and ``run(restore_from=...)``; the committed segments of the
+   restored run equal the uninterrupted exactly-once run's, the plain
+   run's rows and the CPU run, no (key, wid) committed twice, K1 on every
+   leg; tuples/s of both sinks, ``Sink_txn_*``, mean pre-commit / commit
+   ms and staged bytes per epoch. Part ``kafka``: YSB's device chain fed
+   by ``with_columnar_blocks(4096)`` into a Kafka sink on an output topic,
+   a checkpoint every 2 s, plain and ``with_exactly_once`` in turns, then
+   an exactly-once run killed after its first committed epoch and
+   restored: the topic holds each of the 1,000 campaign-windows once with
+   the model's count, and the crashed run's prepared epochs never become
+   visible. Part ``replay``: ``bench.py``'s replay mode (Zipf 1.1 over
+   512 keys, a diurnal rate curve, 5% late tuples, 512-row blocks, TB
+   Keyed_Windows, a checkpoint every 2 s) at-least-once and exactly-once;
+   the exactly-once run's committed windows equal the CPU run of the
+   blocks its source recorded (host operators only: no device work).
+   Part ``persistent``: P_Map (a running per-key sum) and P_Keyed_Windows
+   (CB 13/5) at 10,240 keys over 200,000 tuples with a 1,024-entry LRU
+   cache, rows equal to the in-memory Map / Keyed_Windows and a numpy
+   fold; an exactly-once P_Sink killed and restored ends with the
+   uninterrupted run's database;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -1422,6 +1449,9 @@ def state_tiered_part(torch, wt, card):
     phase("state", **row)
 
 
+K8_REPS = 10
+
+
 def state_programs_phase(torch, wt, blocks, card):
     """K8 (the JAX package's ``_grid_scan_core``, XLA there, plain torch
     ops here) on one batch of the smap part: device time per call, launches
@@ -1451,11 +1481,14 @@ def state_programs_phase(torch, wt, blocks, card):
     leaves = 1
     nbytes = (8 * n + 8 * n + 4 * n + 5 * KB
               + 2 * 4 * leaves * touched + touched)
+    # 10 calls, not 30: K8's time stayed within 0.3% across PRs 9-10, and
+    # the whole script needs the ~37 s for the exactly_once phase
     device_ms, launches, bracket_ms = _program_ms(
-        torch, lambda: eng.run(prog, fields, valid, hargs))
+        torch, lambda: eng.run(prog, fields, valid, hargs), reps=K8_REPS)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
     row = dict(program="K8_grid_scan",
-               replaces="windflow_tpu/tpu/ops_tpu.py:212", rows=n,
+               replaces="windflow_tpu/tpu/ops_tpu.py:212", calls=K8_REPS,
+               rows=n,
                keys=touched, M=M, KB=KB, device_ms=device_ms,
                launches=launches,
                launches_per_step=None if launches is None else launches / M,
@@ -1715,6 +1748,7 @@ def dag_phase(torch, wt, card):
 # phase recovery: kill and restore on the card
 # ---------------------------------------------------------------------------
 REC_BATCHES, REC_CKPT_AT, REC_CRASH_AT, REC_EVERY = 24, 8, 16, 4
+SETTLE_WAIT_S = 60.0  # _ReplayBlocks(settle=): the longest commit wait
 
 
 class _InjectedCrash(Exception):
@@ -1726,18 +1760,36 @@ class _ReplayBlocks:
     requests a checkpoint after block ``ckpt_at`` or every ``every``
     blocks, and raises before block ``crash_at``. Its position counts the
     blocks pushed, so a restore replays from the snapshot's block;
-    ``first`` is the block it pushed first."""
+    ``first`` is the block it pushed first. With ``settle`` (a checkpoint
+    store's directory) it requests an epoch, and raises, only once every
+    epoch it requested before is committed there."""
 
-    def __init__(self, blocks, ckpt_at=None, crash_at=None, every=0):
+    def __init__(self, blocks, ckpt_at=None, crash_at=None, every=0,
+                 settle=None):
         self.blocks, self.ckpt_at, self.crash_at = blocks, ckpt_at, crash_at
         self.every = every
+        self.settle = settle
+        self.requested = 0
         self.pos = 0
         self.first = None
         self.t_yield = []
 
+    def _settle(self):
+        if self.settle is None or not self.requested:
+            return
+        from windflow_tpu_torch.checkpoint import CheckpointStore
+        st = CheckpointStore(self.settle)
+        deadline = time.monotonic() + SETTLE_WAIT_S
+        while (st.latest() or 0) < self.requested:
+            if time.monotonic() > deadline:  # a worker thread: raise
+                raise RuntimeError(f"epoch {self.requested} was not "
+                                   f"committed within {SETTLE_WAIT_S} s")
+            time.sleep(0.002)
+
     def __call__(self, shipper):
         while self.pos < len(self.blocks):
             if self.pos == self.crash_at:
+                self._settle()
                 raise _InjectedCrash(f"killed before block {self.pos}")
             cols, ts, wm = self.blocks[self.pos]
             if self.first is None:
@@ -1748,7 +1800,9 @@ class _ReplayBlocks:
             self.pos += 1
             if self.pos == self.ckpt_at or (
                     self.every and self.pos % self.every == 0):
+                self._settle()
                 shipper.request_checkpoint()
+                self.requested += 1
 
     def snapshot_position(self):
         return self.pos
@@ -2170,7 +2224,8 @@ def delta_part(torch, wt, card, part, cuts, writes):
     """One part of phase ``delta``: the part's stream on the card with a
     checkpoint every DELTA_EVERY blocks, once in each mode (FULL sync,
     delta sync, delta + async, in turns; their outputs must be equal),
-    and on the CPU; then a delta + async run killed two blocks after its
+    and on the CPU; then a delta + async run, each epoch requested once
+    the one before is committed, killed two blocks after the delta run's
     first delta epoch (after its second epoch where none is a delta, as
     for the HC window, whose every firing batch rebuilds the forest and
     so forces a FULL snapshot), restored with ``run(restore_from=...)``:
@@ -2234,8 +2289,12 @@ def delta_part(torch, wt, card, part, cuts, writes):
     if gold != gold_cpu:
         fail(f"delta {name}: the card's uninterrupted run differs from the "
              "CPU run")
-    # kill two blocks after the first delta epoch and restore
-    kinds = [e["kind"] for e in modes["delta_async"]["epochs"]]
+    # kill two blocks after the first delta epoch and restore. The crash
+    # run requests each epoch only once the one before is committed: an
+    # async epoch is a delta only if its base's upload has landed before
+    # its capture, so unpaced its kinds vary from run to run; paced they
+    # are the synchronous delta run's
+    kinds = [e["kind"] for e in modes["delta"]["epochs"]]
     first_delta = kinds.index("delta") + 1 if "delta" in kinds else 2
     ckpt_block = first_delta * DELTA_EVERY
     crash_at = ckpt_block + 2
@@ -2246,7 +2305,7 @@ def delta_part(torch, wt, card, part, cuts, writes):
     store = _ckpt_dir(f"delta_{name}_crash")
     crash_parts = _run_delta_graph(
         wt, "cuda", part, _ReplayBlocks(blocks, every=DELTA_EVERY,
-                                        crash_at=crash_at),
+                                        crash_at=crash_at, settle=store),
         store, async_ckpt, crash=True)[0]
     st = CheckpointStore(store)
     cid = st.latest()
@@ -2258,7 +2317,7 @@ def delta_part(torch, wt, card, part, cuts, writes):
     restored_kind = "delta" if man.get("deps") else "FULL"
     if name == "ffat_tumbling" and restored_kind != "delta":
         fail(f"delta {name}: epoch {cid}, taken without a firing since the "
-             "last, is not a delta")
+             f"last, is not a delta (the delta run's epochs: {kinds})")
     states = st.load_states(d, man)
     if states[("src", 0)]["position"] != ckpt_block:
         fail(f"delta {name}: the checkpoint's source position is "
@@ -2828,6 +2887,15 @@ def _mesh_stats(graph, name):
     return r
 
 
+def _mesh_stats_live(graph, name):
+    """``_mesh_stats`` of a graph that a supervisor may be rebuilding:
+    while the rebuild has discarded the operator's replicas and not yet
+    made the new one, there is nothing to read and this returns None."""
+    reps = next(o for o in graph.get_stats()["Operators"]
+                if o["name"] == name)["replicas"]
+    return reps[0] if len(reps) == 1 else None
+
+
 def _mesh_rates(run, batch, n_rows):
     """Tuples/s and windows/s from the yield of batch MESH_WARMUP to the
     end of ``run()`` (windows: the rows that reached the sink after that
@@ -3142,8 +3210,9 @@ def _mesh_degrade_run(wt, src, store, probe):
         seen = None
         while time.monotonic() < deadline:
             sup = g.get_stats()["Supervision"]
-            rep = _mesh_stats(g, "fwm")
-            if sup["Recovery_degraded_devices"] == len(MESH_DEAD) \
+            rep = _mesh_stats_live(g, "fwm")
+            if rep is not None \
+                    and sup["Recovery_degraded_devices"] == len(MESH_DEAD) \
                     and rep.get("Mesh_devices") \
                     == MESH_VDEV - len(MESH_DEAD):
                 seen = dict(rep)
@@ -3236,12 +3305,14 @@ def _ysb_model(n_events):
             for k, c in zip(keys, counts)}
 
 
-def _ysb_source(kafka, group, clock, n_events, blocks=False, rate=0.0):
+def _ysb_source(kafka, group, clock, n_events, blocks=False, rate=0.0,
+                hook=None):
     """Kafka_Source over the filled broker under its own consumer group,
     stopping at event ``n_events``; ``rate`` (events/s) paces the ingest
     by each event's index (examples/ysb.py ``YSB_RATE``); ``blocks``
     decodes whole batch polls into columns (``with_columnar_blocks``),
-    the watermark the lowest of the replica's partitions' last ts."""
+    the watermark the lowest of the replica's partitions' last ts;
+    ``hook()`` runs before each batch poll is decoded (blocks only)."""
     stop_ts = n_events * YSB_TS_STEP_US
 
     def pace(ts):
@@ -3269,6 +3340,8 @@ def _ysb_source(kafka, group, clock, n_events, blocks=False, rate=0.0):
     def deser_blocks(msgs, shipper, ctx):
         if msgs is None:
             return False
+        if hook is not None:
+            hook()
         ts = np.fromiter((m.payload["ts"] for m in msgs), np.int64,
                          len(msgs))
         keep = ts < stop_ts
@@ -3702,6 +3775,733 @@ def win_part(wt, card):
           dropped_results=win_out - sink_in, conserved=True)
 
 
+# ---------------------------------------------------------------------------
+# exactly_once: the transactional sinks, the replayable columnar ingest and
+# the persistent operators (parts columnar, kafka, replay, persistent)
+# ---------------------------------------------------------------------------
+EO_CKPT_EVERY = 4      # columnar: a checkpoint every 4 batches
+EO_CRASH_AT = 14       # columnar: killed before this batch
+EO_WAIT_S = 120.0
+EO_KAFKA_CKPT_S = 2.0  # kafka: a checkpoint every 2 s
+EO_KAFKA_CRASH_FRAC = 0.6  # kafka: slow down past this share, then die
+# replay: bench.py's _replay_mode (bench.py:1097-1262) at its own settings
+REPLAY_KEYS, REPLAY_RATE, REPLAY_BLOCK = 512, 12_000, 512
+REPLAY_PHASE_S, REPLAY_LATE, REPLAY_LATENESS_US = 2.0, 0.05, 200_000
+REPLAY_CURVE = (0.5, 1.0, 2.0, 1.5, 0.7)
+REPLAY_WIN_US, REPLAY_PAR = 500_000, 2
+# persistent: 10,240 keys, 200,000 tuples, an LRU cache of 1,024 entries
+P_KEYS, P_TUPLES, P_CACHE, P_BLOCK = 10_240, 200_000, 1_024, 4_096
+P_CB = (13, 5)
+
+
+def _build_dir(*names):
+    import shutil
+    d = os.path.join(HERE, "build", *names)
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def _wait_until(what, cond):
+    deadline = time.monotonic() + EO_WAIT_S
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"exactly_once: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+class _TripleBlocks:
+    """Replayable block functor of a Columnar_Source over the main path's
+    stream: an ``ArrayBlockSource`` over its columns and timestamps whose
+    yields carry each batch's watermark, ``(cols, ts, wm)``, so that the
+    windows fire as in the stream itself. Every ``every`` batches it asks
+    ``graph`` for a checkpoint (the barrier lands before that batch), and
+    before batch ``crash_at`` it waits for the checkpoints so far to
+    commit, then raises."""
+
+    def __init__(self, wt, blocks, every=0, crash_at=None):
+        names = list(blocks[0][0])
+        self.bs = len(blocks[0][1])
+        self.src = wt.ArrayBlockSource(
+            {k: np.concatenate([b[0][k] for b in blocks]) for k in names},
+            np.concatenate([b[1] for b in blocks]), block_size=self.bs)
+        self.wms = [b[2] for b in blocks]
+        self.every, self.crash_at = every, crash_at
+        self.graph = None
+
+    def __call__(self):
+        for cols, ts in self.src():
+            i = self.src.snapshot_position() // self.bs
+            if i == self.crash_at:
+                coord = self.graph._coordinator
+                _wait_until("the checkpoints before the crash",
+                            lambda: coord.completed >= (i - 1) // self.every)
+                raise _InjectedCrash(f"killed before batch {i}")
+            if self.every and i and i % self.every == 0:
+                self.graph.trigger_checkpoint()
+            yield cols, ts, self.wms[i]
+
+    def snapshot_position(self):
+        return self.src.snapshot_position()
+
+    def restore(self, pos):
+        self.src.restore(pos)
+
+
+def _eo_columnar_run(wt, device, src, store, txn=None, restore_from=None,
+                     crash=False):
+    """Columnar source (block size 65,536, an int32 schema) ->
+    Ffat_Windows_GPU (the HC window) -> a columnar sink, at-least-once or
+    (``txn``) exactly-once, checkpointing into ``store``. Returns the
+    functor's batches, the graph, the window operator and the run's wall
+    time."""
+    parts, sink = _sink_parts()
+    graph = wt.PipeGraph("eo_columnar", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device)
+    graph.with_checkpointing(store_dir=store)
+    src.graph = graph
+    win = (wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
+                                       wt.fieldwise(value="sum"))
+           .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
+           .with_key_capacity(HC_KEYS).with_name("ffat").build())
+    snk = wt.Sink_Builder(sink).with_columns().with_name("eo_sink")
+    if txn is not None:
+        snk = snk.with_exactly_once(staging_dir=txn)
+    graph.add_source(wt.Columnar_Source_Builder(src).with_name("src")
+                     .with_block_size(BATCH)
+                     .with_schema({"key": np.int32, "value": np.int32})
+                     .with_output_batch_size(BATCH).build()) \
+        .add(win).add_sink(snk.build())
+    t0 = time.perf_counter()
+    try:
+        graph.run(restore_from)
+    except _InjectedCrash:
+        if not crash:
+            raise
+    else:
+        if crash:
+            fail("exactly_once columnar: the injected crash did not end "
+                 "the run")
+    return parts, graph, win, time.perf_counter() - t0
+
+
+def _sorted_windows(parts):
+    cols = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    order = np.lexsort((cols["wid"], cols["key"]))
+    return {k: v[order] for k, v in cols.items()}
+
+
+def _committed_windows(root):
+    """The committed window rows of a columnar exactly-once sink, as the
+    main path's sink keeps them; fails on a (key, wid) committed twice."""
+    from windflow_tpu_torch.sinks.transactional import read_committed_records
+    recs = read_committed_records(root)
+    cols = _sorted_windows([{"ts": ts, **c} for c, ts in recs])
+    pairs = cols["key"].astype(np.int64) * (1 << 32) + cols["wid"]
+    if len(np.unique(pairs)) != len(pairs):
+        fail(f"exactly_once: a (key, wid) window is committed twice in "
+             f"{root}")
+    return cols
+
+
+def _txn_numbers(graph, name):
+    """The sink replica's Sink_txn_* counters and the driver's mean
+    pre-commit, commit and precommit -> commit times."""
+    rep = next(op for op in graph._ops if op.name == name).replicas[0]
+    drv, st = rep._txn, rep.stats
+    return dict(precommits=st.txn_precommits, commits=st.txn_commits,
+                aborts=st.txn_aborts, fenced_writes=st.txn_fenced_writes,
+                precommit_ms_mean=drv.precommit_total_us / 1e3
+                / max(1, st.txn_precommits),
+                commit_ms_mean=drv.commit_total_us / 1e3
+                / max(1, drv.commits),
+                commit_latency_ms_mean=drv.commit_latency_total_us / 1e3
+                / max(1, drv.commits))
+
+
+def _staged_bytes_per_epoch(root):
+    segs = [f for f in os.listdir(root) if f.endswith(".seg")]
+    return (sum(os.path.getsize(os.path.join(root, f)) for f in segs)
+            / max(1, len(segs)), len(segs))
+
+
+def eo_columnar_part(torch, wt, card):
+    """Part ``columnar``: the HC main path into an exactly-once columnar
+    sink. Returns K1's launches."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(HC_KEYS, seed=29)
+    tuples = len(blocks) * BATCH
+    ref = _run_graph(wt, "cpu", blocks, HC_KEYS, None)[0]
+    rates = {"plain": [], "exactly_once": []}
+    launches, txn_root, eo_graph = 0, None, None
+    for turn in range(2):
+        for mode in ("plain", "exactly_once"):
+            txn = (_build_dir("txn", f"eo_columnar_{turn}")
+                   if mode == "exactly_once" else None)
+            fr.LAUNCHES = 0
+            torch.cuda.synchronize()
+            parts, graph, win, wall = _eo_columnar_run(
+                wt, "cuda", _TripleBlocks(wt, blocks, EO_CKPT_EVERY),
+                _build_dir("ckpt", f"eo_columnar_{mode}_{turn}"), txn)
+            launches += _launched(f"exactly_once columnar {mode}", fr,
+                                  win.replicas[0])
+            rates[mode].append(tuples / wall)
+            if mode == "plain":
+                _check_windows("exactly_once columnar plain", "the CPU run",
+                               _sorted_windows([p for _, p in parts]), ref)
+            else:
+                txn_root = os.path.join(txn, "eo_sink_r0")
+                eo_graph = graph
+                _check_windows("exactly_once columnar", "the CPU run",
+                               _committed_windows(txn_root), ref)
+                _check_windows("exactly_once columnar functor",
+                               "the CPU run",
+                               _sorted_windows([p for _, p in parts]), ref)
+    uninterrupted = _txn_numbers(eo_graph, "eo_sink")
+    staged, epochs = _staged_bytes_per_epoch(txn_root)
+    # killed after the checkpoint at batch 12, before batch 14; restored
+    store = _build_dir("ckpt", "eo_columnar_crash")
+    txn = _build_dir("txn", "eo_columnar_crash")
+    fr.LAUNCHES = 0
+    _, crashed, win_c, _ = _eo_columnar_run(
+        wt, "cuda", _TripleBlocks(wt, blocks, EO_CKPT_EVERY, EO_CRASH_AT),
+        store, txn, crash=True)
+    k1_crash = _launched("exactly_once columnar crash", fr,
+                         win_c.replicas[0])
+    fr.LAUNCHES = 0
+    t0 = time.perf_counter()
+    _, restored, win_r, _ = _eo_columnar_run(
+        wt, "cuda", _TripleBlocks(wt, blocks, EO_CKPT_EVERY), store, txn,
+        restore_from=store)
+    restore_wall = time.perf_counter() - t0
+    k1_restored = _launched("exactly_once columnar restored", fr,
+                            win_r.replicas[0])
+    launches += k1_crash + k1_restored
+    root = os.path.join(txn, "eo_sink_r0")
+    got = _committed_windows(root)
+    _check_windows("exactly_once columnar restored",
+                   "the uninterrupted exactly-once run",
+                   got, _committed_windows(txn_root))
+    _check_windows("exactly_once columnar restored", "the CPU run", got, ref)
+    rest = _txn_numbers(restored, "eo_sink")
+    if rest["aborts"] < 1:
+        fail("exactly_once columnar: the crashed run's pending tail was "
+             "not aborted on restore")
+    phase("exactly_once", part="columnar", card=card, keys=HC_KEYS,
+          batches=N_BATCHES, batch=BATCH, checkpoint_every=EO_CKPT_EVERY,
+          crash_before_batch=EO_CRASH_AT,
+          windows=int(len(ref["key"])), valid_windows=int(ref["valid"].sum()),
+          committed_equal_uninterrupted=True, committed_equal_plain=True,
+          committed_equal_cpu=True, no_window_twice=True,
+          tuples_per_s_plain=rates["plain"],
+          tuples_per_s_exactly_once=rates["exactly_once"],
+          txn=uninterrupted, staged_bytes_per_epoch=staged,
+          committed_epochs=epochs, restored_txn=rest,
+          restored_run_s=restore_wall,
+          checkpoints_crashed_run=crashed._coordinator.completed,
+          rebuild_launches_crashed=k1_crash,
+          rebuild_launches_restored=k1_restored, rebuild_launches=launches)
+    return launches
+
+
+def _ysb_eo_run(wt, kafka, group, store, out, exactly_once, crash=False,
+                restore_from=None):
+    """YSB's device chain fed by columnar blocks into a Kafka sink (the
+    output topic of broker ``out``), checkpointing every 2 s. With
+    ``crash``, a source replica raises once an epoch has committed: past
+    60% of the stream it requests one (should the stream be shorter than
+    the interval) and slows down until one has. Returns the wall time,
+    the window operator and the graph."""
+    t0 = time.perf_counter()
+
+    def clock():
+        return int((time.perf_counter() - t0) * 1e6)
+
+    graph = wt.PipeGraph("ysb_eo", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device="cuda")
+    graph.with_checkpointing(interval=EO_KAFKA_CKPT_S, store_dir=store)
+    polls = [0, False]
+    lock = threading.Lock()
+
+    def hook():
+        with lock:
+            polls[0] += 1
+            late = polls[0] * YSB_BATCH >= EO_KAFKA_CRASH_FRAC * YSB_EVENTS
+            request = late and not polls[1]
+            polls[1] = polls[1] or late
+        if graph._coordinator.completed >= 1:
+            raise _InjectedCrash("killed after the first committed epoch")
+        if request:
+            graph.trigger_checkpoint()
+        if late:
+            time.sleep(0.05)  # the barrier injects between polls
+
+    def ser(r):
+        if not r["valid"]:
+            return None
+        return ("ysb_out", None, (int(r["campaign"]), int(r["wid"]),
+                                  int(r["count"])))
+
+    ops = _ysb_device_ops(wt)
+    mp = graph.add_source(_ysb_source(kafka, group, clock, YSB_EVENTS,
+                                      blocks=True,
+                                      hook=hook if crash else None))
+    for op in ops:
+        mp = mp.add(op)
+    snk = kafka.Kafka_Sink_Builder(ser).with_brokers(f"memory://{out}") \
+        .with_name("ysb_out")
+    if exactly_once:
+        snk = snk.with_exactly_once()
+    mp.add_sink(snk.build())
+    t0 = time.perf_counter()
+    try:
+        graph.run(restore_from)
+    except (_InjectedCrash, wt.basic.WorkerFailuresError):
+        if not crash:
+            raise
+    else:
+        if crash:
+            fail("exactly_once kafka: the injected crash did not end the "
+                 "run")
+    return time.perf_counter() - t0, ops[-1], graph
+
+
+def _topic_counts(kafka, out):
+    """What a read-committed consumer of the output topic sees: the rows
+    committed transactions appended (prepared epochs stay in the broker's
+    transaction log)."""
+    b = kafka.MemoryBroker.get(out)
+    rows = [m.payload for part in b._topic("ysb_out") for m in part]
+    return {(c, w): n for c, w, n in rows}, len(rows)
+
+
+def eo_kafka_part(torch, wt, card):
+    """Part ``kafka``: YSB into a transactional Kafka sink. Returns K1's
+    launches."""
+    from windflow_tpu_torch import kafka
+    from windflow_tpu_torch.checkpoint import CheckpointStore
+    kafka.MemoryBroker.reset()
+    _ysb_fill(kafka, YSB_EVENTS)
+    model = _ysb_model(YSB_EVENTS)
+    rates = {"plain": [], "exactly_once": []}
+    launches = 0
+    for turn in range(2):
+        for mode in ("plain", "exactly_once"):
+            out = f"eo_out_{mode}_{turn}"
+            wall, win, _ = _ysb_eo_run(
+                wt, kafka, f"eo_{mode}_{turn}",
+                _build_dir("ckpt", f"eo_kafka_{mode}_{turn}"), out,
+                mode == "exactly_once")
+            counts, n_rows = _topic_counts(kafka, out)
+            _ysb_check(f"exactly_once kafka {mode}", counts, n_rows, model)
+            k1 = win.replicas[0].stats.rebuild_kernel_launches
+            if k1 == 0:
+                fail(f"exactly_once kafka {mode}: K1 did not run")
+            launches += k1
+            rates[mode].append(YSB_EVENTS / wall)
+    store = _build_dir("ckpt", "eo_kafka_crash")
+    _, win_c, crashed = _ysb_eo_run(wt, kafka, "eo_crash", store,
+                                    "eo_out_crash", True, crash=True)
+    at_crash, rows_crash = _topic_counts(kafka, "eo_out_crash")
+    if rows_crash != len(at_crash) or any(model[k] != v
+                                          for k, v in at_crash.items()):
+        fail("exactly_once kafka: at the crash the topic holds a window "
+             "twice or a count the model does not")
+    b = kafka.MemoryBroker.get("eo_out_crash")
+    txn_id = "wf-txn-ysb_out-r0"
+    prepared = b.txn_prepared_epochs(txn_id)
+    if not prepared or rows_crash >= len(model):
+        fail("exactly_once kafka: the crashed run left no unfinalized "
+             "prepared epoch, or its whole output is already visible")
+    cid = CheckpointStore(store).latest()
+    _, win_r, restored = _ysb_eo_run(wt, kafka, "eo_crash", store,
+                                     "eo_out_crash", True,
+                                     restore_from=store)
+    counts, n_rows = _topic_counts(kafka, "eo_out_crash")
+    _ysb_check("exactly_once kafka restored", counts, n_rows, model)
+    if b.txn_prepared_epochs(txn_id):
+        fail("exactly_once kafka: prepared epochs survive the restore")
+    k1_c = win_c.replicas[0].stats.rebuild_kernel_launches
+    k1_r = win_r.replicas[0].stats.rebuild_kernel_launches
+    if k1_r == 0:
+        fail("exactly_once kafka: K1 did not run in the restored run")
+    launches += k1_c + k1_r
+    phase("exactly_once", part="kafka", card=card, events=YSB_EVENTS,
+          partitions=YSB_PARTITIONS, source_parallelism=YSB_SRC_PAR,
+          block=YSB_BATCH, checkpoint_interval_s=EO_KAFKA_CKPT_S,
+          campaign_windows=len(model), counts_equal_model=True,
+          each_window_once=True,
+          events_per_s_plain=rates["plain"],
+          events_per_s_exactly_once=rates["exactly_once"],
+          visible_at_crash=rows_crash, prepared_at_crash=prepared,
+          restored_from_checkpoint=cid,
+          checkpoints_crashed_run=crashed._coordinator.completed,
+          restored_txn=_txn_numbers(restored, "ysb_out"),
+          rebuild_launches_crashed=k1_c, rebuild_launches_restored=k1_r,
+          rebuild_launches=launches)
+    kafka.MemoryBroker.reset()
+    return launches
+
+
+class _ReplayTraffic:
+    """bench.py's replay source (``_replay_mode.ReplaySource``): Zipf-1.1
+    keys at a compressed diurnal rate, ragged bursts, 5% of the tuples
+    late by up to 200 ms, shipped as 512-row column blocks with the
+    watermark 200 ms behind the wall clock. Records every block it ships
+    with its watermark."""
+
+    def __init__(self):
+        rng = np.random.default_rng(11)
+        ranks = np.arange(1, REPLAY_KEYS + 1, dtype=np.float64)
+        probs = 1.0 / ranks ** 1.1
+        probs /= probs.sum()
+        self.keys = rng.choice(REPLAY_KEYS, size=1 << 16, p=probs)
+        self.jitter = rng.integers(0, REPLAY_LATENESS_US, size=1 << 16)
+        self.late = rng.random(1 << 16) < REPLAY_LATE
+        self.bursts = rng.integers(1, 32, size=4096)
+        self.pos = 0
+        self.record = []  # (cols, ts, wm) as shipped
+
+    def __call__(self, shipper):
+        t0 = time.monotonic()
+        i, pend, pend_n = 0, [], 0
+        total_s = len(REPLAY_CURVE) * REPLAY_PHASE_S
+
+        def flush():
+            nonlocal pend, pend_n
+            if not pend:
+                return
+            cols = {"key": np.concatenate([c[0] for c in pend]),
+                    "v": np.concatenate([c[1] for c in pend])}
+            ts = np.concatenate([c[2] for c in pend])
+            self.record.append((cols, ts, shipper.current_watermark))
+            shipper.push_columns(cols, ts=ts)
+            pend, pend_n = [], 0
+
+        while True:
+            t_rel = time.monotonic() - t0
+            if t_rel >= total_s:
+                flush()
+                return
+            rate = REPLAY_RATE * REPLAY_CURVE[
+                min(int(t_rel / REPLAY_PHASE_S), len(REPLAY_CURVE) - 1)]
+            burst = int(self.bursts[i & 0xFFF])
+            now_us = int(time.time() * 1e6)
+            idx = (i + np.arange(burst)) & 0xFFFF
+            ts = now_us - np.where(self.late[idx], self.jitter[idx], 0)
+            pend.append((self.keys[idx].astype(np.int64),
+                         np.arange(i, i + burst, dtype=np.int64),
+                         ts.astype(np.int64)))
+            pend_n += burst
+            i += burst
+            if pend_n >= REPLAY_BLOCK:
+                flush()
+            shipper.set_next_watermark(
+                max(shipper.current_watermark, now_us - REPLAY_LATENESS_US))
+            self.pos = i
+            time.sleep(max(0.0, burst / rate
+                           - (time.monotonic() - t0 - t_rel)))
+
+    def snapshot_position(self):
+        return self.pos
+
+    def restore(self, pos):
+        self.pos = pos
+
+
+def _replay_run(wt, device, src, store, txn=None):
+    """bench.py's replay graph: the source -> TB Keyed_Windows (500 ms,
+    lateness 200 ms, parallelism 2) -> a sink, checkpointing every 2 s,
+    at-least-once or (``txn``) exactly-once. Returns the window results,
+    the wall time and the graph."""
+    results = {}
+    graph = wt.PipeGraph("replay_eo" if txn else "replay_alo",
+                         wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT_TIME,
+                         channel_capacity=256, device=device)
+    graph.with_checkpointing(interval=2.0, store_dir=store)
+    win = wt.Keyed_Windows(lambda rows: sum(r["v"] for r in rows),
+                           key_extractor=lambda t: t["key"],
+                           win_len=REPLAY_WIN_US, slide_len=REPLAY_WIN_US,
+                           win_type=wt.WinType.TB,
+                           lateness=REPLAY_LATENESS_US, name="sessions",
+                           parallelism=REPLAY_PAR)
+
+    def sink(t):
+        if t is not None:
+            results[(t.key, t.wid)] = t.value
+
+    snk = wt.Sink_Builder(sink).with_name("snk")
+    if txn is not None:
+        snk = snk.with_exactly_once(staging_dir=txn)
+    graph.add_source(wt.Source_Builder(src).with_name("src").build()) \
+        .add(win).add_sink(snk.build())
+    t0 = time.perf_counter()
+    graph.run()
+    return results, time.perf_counter() - t0, graph
+
+
+def eo_replay_part(wt, card):
+    """Part ``replay``: bench.py's replay mode, at-least-once and
+    exactly-once in turns; the exactly-once run's committed results
+    equal the CPU run of the blocks its source recorded. Host operators
+    only: no device work."""
+    from windflow_tpu_torch.sinks.transactional import read_committed_records
+    runs = {}
+    for mode in ("at_least_once", "exactly_once"):
+        src = _ReplayTraffic()
+        txn = _build_dir("txn", "eo_replay") \
+            if mode == "exactly_once" else None
+        results, wall, graph = _replay_run(
+            wt, "cuda", src, _build_dir("ckpt", f"eo_replay_{mode}"), txn)
+        runs[mode] = (src, results, wall, graph, txn)
+    src, results, wall, graph, txn = runs["exactly_once"]
+    recorded = list(src.record)
+
+    def replay(shipper):
+        for cols, ts, wm in recorded:
+            shipper.set_next_watermark(wm)
+            shipper.push_columns(cols, ts=ts)
+
+    ref, _, _ = _replay_run(wt, "cpu", replay,
+                            _build_dir("ckpt", "eo_replay_cpu"))
+    committed = [r for r, _ in read_committed_records(
+        os.path.join(txn, "snk_r0"))]
+    got = {(r.key, r.wid): r.value for r in committed}
+    if len(got) != len(committed):
+        fail("exactly_once replay: a (key, wid) window committed twice")
+    if got != ref or results != ref:
+        fail(f"exactly_once replay: {len(got)} committed windows differ "
+             f"from the CPU run of the recorded blocks ({len(ref)})")
+    alo = runs["at_least_once"]
+    tx = _txn_numbers(graph, "snk")
+    phase("exactly_once", part="replay", card=card, device_work=False,
+          note="host operators only (TB Keyed_Windows): no device work",
+          keys=REPLAY_KEYS, base_rate=REPLAY_RATE, block=REPLAY_BLOCK,
+          curve=list(REPLAY_CURVE), phase_s=REPLAY_PHASE_S,
+          late_frac=REPLAY_LATE, window_us=REPLAY_WIN_US,
+          blocks_recorded=len(recorded),
+          committed_equal_recorded_cpu_run=True, no_window_twice=True,
+          tuples_at_least_once=alo[0].pos,
+          tuples_per_s_at_least_once=alo[0].pos / alo[2],
+          tuples_exactly_once=src.pos,
+          tuples_per_s_exactly_once=src.pos / wall,
+          window_results_at_least_once=len(alo[1]),
+          window_results_exactly_once=len(got),
+          checkpoints_at_least_once=alo[3]._coordinator.completed,
+          checkpoints_exactly_once=graph._coordinator.completed,
+          precommits=tx["precommits"], commits=tx["commits"],
+          commit_latency_ms_mean=tx["commit_latency_ms_mean"])
+
+
+class _PStream:
+    """The persistent part's stream: 200,000 (key, value) int64 tuples
+    over 10,240 keys (numpy, seeded; the first ``n`` of them) as a
+    replayable columnar functor of 4,096-row blocks; it asks ``graph`` for
+    a checkpoint every ``every`` blocks and raises before block
+    ``crash_at`` once they committed."""
+
+    def __init__(self, wt, every=0, crash_at=None, n=None):
+        rng = np.random.default_rng(31)
+        n = P_TUPLES if n is None else n
+        self.keys = rng.integers(0, P_KEYS, P_TUPLES).astype(np.int64)[:n]
+        self.vals = rng.integers(0, 1000, P_TUPLES).astype(np.int64)[:n]
+        self.src = wt.ArrayBlockSource({"key": self.keys, "value": self.vals},
+                                       block_size=P_BLOCK)
+        self.every, self.crash_at = every, crash_at
+        self.graph = None
+
+    def __call__(self):
+        for cols in self.src():
+            i = self.src.snapshot_position() // P_BLOCK
+            if i == self.crash_at:
+                coord = self.graph._coordinator
+                _wait_until("the persistent checkpoints",
+                            lambda: coord.completed >= (i - 1) // self.every)
+                raise _InjectedCrash(f"killed before block {i}")
+            if self.every and i and i % self.every == 0:
+                self.graph.trigger_checkpoint()
+            yield cols
+
+    def snapshot_position(self):
+        return self.src.snapshot_position()
+
+    def restore(self, pos):
+        self.src.restore(pos)
+
+
+def _p_run(wt, src, op, store=None, restore_from=None, crash=False,
+           sink=True):
+    """The stream -> ``op`` [-> a row sink]; returns the rows, the wall
+    time and the graph."""
+    rows, lock = [], threading.Lock()
+
+    def collect(t):
+        if t is not None:
+            with lock:
+                rows.append(t)
+
+    graph = wt.PipeGraph("eo_persistent", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.INGRESS_TIME, device="cuda")
+    if store is not None:
+        graph.with_checkpointing(store_dir=store)
+    src.graph = graph
+    mp = graph.add_source(wt.Columnar_Source_Builder(src).with_name("src")
+                          .build())
+    if sink:
+        mp.add(op).add_sink(wt.Sink_Builder(collect).with_name("rows")
+                            .build())
+    else:
+        mp.add_sink(op)
+    t0 = time.perf_counter()
+    try:
+        graph.run(restore_from)
+    except _InjectedCrash:
+        if not crash:
+            raise
+    else:
+        if crash:
+            fail("exactly_once persistent: the injected crash did not end "
+                 "the run")
+    return rows, time.perf_counter() - t0, graph
+
+
+def _p_sum(t, state):
+    state += t["value"]
+    return {"key": t["key"], "sum": state}, state
+
+
+def _p_sink_fold(t, state):
+    return (state or 0) + (t["value"] if t is not None else 0)
+
+
+def eo_persistent_part(wt, card):
+    """Part ``persistent``: P_Map and P_Keyed_Windows against the
+    in-memory Map / Keyed_Windows and a numpy fold, then an exactly-once
+    P_Sink killed and restored."""
+    from windflow_tpu_torch import persistent as P
+    base = _PStream(wt)
+    keys, vals = base.keys, base.vals
+    # numpy fold: per key, the running sums and the CB 13/5 windows
+    order = np.argsort(keys, kind="stable")
+    ks, vs = keys[order], vals[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    ends = np.r_[starts[1:], len(ks)]
+    run_model, win_model = {}, {}
+    for a, e in zip(starts, ends):
+        k, seq = int(ks[a]), vs[a:e]
+        run_model[k] = np.cumsum(seq).tolist()
+        win, slide = P_CB
+        for w in range(-(-len(seq) // slide)):
+            win_model[(k, w)] = int(seq[w * slide:w * slide + win].sum())
+    rates = {}
+
+    def running(rows):
+        out = {}
+        for r in rows:
+            out.setdefault(r["key"], []).append(r["sum"])
+        return out
+
+    mem = {}
+
+    def mem_sum(t):
+        s = mem.get(t["key"], 0) + t["value"]
+        mem[t["key"]] = s
+        return {"key": t["key"], "sum": s}
+
+    for name, make in (
+            ("p_map", lambda: P.P_Map_Builder(_p_sum)
+             .with_key_by(lambda t: t["key"]).with_initial_state(0)
+             .with_db_path(_build_dir("p_db", "p_map"))
+             .with_cache_capacity(P_CACHE).with_name("pmap").build()),
+            ("map", lambda: wt.Map_Builder(mem_sum)
+             .with_key_by(lambda t: t["key"]).with_name("map").build())):
+        rows, wall, _ = _p_run(wt, _PStream(wt), make())
+        rates[name] = P_TUPLES / wall
+        if running(rows) != run_model:
+            fail(f"exactly_once persistent: {name} rows differ from the "
+                 "numpy fold")
+    for name, make in (
+            ("p_keyed_windows", lambda: P.P_Keyed_Windows_Builder(
+                lambda ws: sum(w["value"] for w in ws))
+             .with_key_by(lambda t: t["key"]).with_cb_windows(*P_CB)
+             .with_db_path(_build_dir("p_db", "p_kw"))
+             .with_cache_capacity(P_CACHE).with_name("pkw").build()),
+            ("keyed_windows", lambda: wt.Keyed_Windows_Builder(
+                lambda ws: sum(w["value"] for w in ws))
+             .with_key_by(lambda t: t["key"]).with_cb_windows(*P_CB)
+             .with_name("kw").build())):
+        rows, wall, _ = _p_run(wt, _PStream(wt), make())
+        rates[name] = P_TUPLES / wall
+        got = {(r.key, r.wid): r.value for r in rows}
+        if len(got) != len(rows) or got != win_model:
+            fail(f"exactly_once persistent: {name} windows differ from "
+                 "the numpy fold")
+
+    def p_sink(db):
+        return (P.P_Sink_Builder(_p_sink_fold)
+                .with_key_by(lambda t: t["key"]).with_db_path(db)
+                .with_cache_capacity(P_CACHE).with_name("psink")
+                .with_exactly_once().build())
+
+    def db_state(db):
+        h = P.DBHandle("psink_r0", db_dir=db)
+        try:
+            return dict(h.items()), {k: h.meta_get(k)
+                                     for k in ("epoch", "finalized")}
+        finally:
+            h.close()
+
+    # the P_Sink runs take the first quarter of the stream (three runs of
+    # it; sqlite per tuple is the part's cost): a checkpoint every quarter
+    # of that, killed at 5/8 of it
+    n_sink = P_TUPLES // 4
+    n_blocks = -(-n_sink // P_BLOCK)
+    every = max(1, n_blocks // 4)
+    crash_at = max(every + 1, n_blocks * 5 // 8)
+    gold_db = _build_dir("p_db", "psink_gold")
+    _, wall, _ = _p_run(wt, _PStream(wt, every=every, n=n_sink),
+                        p_sink(gold_db),
+                        store=_build_dir("ckpt", "eo_psink_gold"),
+                        sink=False)
+    rates["p_sink_exactly_once"] = n_sink / wall
+    golden, gmeta = db_state(gold_db)
+    ks, vs = keys[:n_sink], vals[:n_sink]
+    fold = {int(k): int(vs[ks == k].sum()) for k in np.unique(ks)}
+    if golden != fold or gmeta["finalized"] != gmeta["epoch"]:
+        fail("exactly_once persistent: the P_Sink database differs from "
+             "the numpy fold, or its last epoch is not finalized")
+    db = _build_dir("p_db", "psink_crash")
+    store = _build_dir("ckpt", "eo_psink_crash")
+    _, _, crashed = _p_run(wt, _PStream(wt, every, crash_at, n_sink),
+                           p_sink(db), store=store, crash=True, sink=False)
+    _, mid = db_state(db)
+    _, _, restored = _p_run(wt, _PStream(wt, every=every, n=n_sink),
+                            p_sink(db),
+                            store=store, restore_from=store, sink=False)
+    final, fmeta = db_state(db)
+    if final != golden or fmeta["finalized"] != fmeta["epoch"]:
+        fail("exactly_once persistent: the restored P_Sink database "
+             "differs from the uninterrupted run's")
+    phase("exactly_once", part="persistent", card=card, device_work=False,
+          keys=P_KEYS, tuples=P_TUPLES, cache=P_CACHE, cb_window=list(P_CB),
+          rows_equal_in_memory_and_fold=True,
+          p_sink_db_equal_uninterrupted=True,
+          p_sink_tuples=n_sink, checkpoint_every_blocks=every,
+          crash_before_block=crash_at,
+          tuples_per_s=rates, db_markers_at_crash=mid,
+          checkpoints_crashed_run=crashed._coordinator.completed,
+          restored_txn=_txn_numbers(restored, "psink"))
+
+
+def exactly_once_phase(torch, wt, card):
+    """Phase ``exactly_once``: parts ``columnar``, ``kafka``, ``replay`` and
+    ``persistent``. Returns K1's launches (columnar and kafka)."""
+    launches = eo_columnar_part(torch, wt, card)
+    launches += eo_kafka_part(torch, wt, card)
+    eo_replay_part(wt, card)
+    eo_persistent_part(wt, card)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3742,6 +4542,7 @@ def main() -> None:
     supervise_launches = supervise_phase(torch, wt, card)
     mesh_launches = mesh_phase(torch, wt, card)
     ysb_launches = ysb_phase(torch, wt, card)
+    eo_launches = exactly_once_phase(torch, wt, card)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",
@@ -3751,7 +4552,7 @@ def main() -> None:
                      + dag_launches + recovery_launches
                      + delta_launches + rescale_launches
                      + supervise_launches + mesh_launches
-                     + ysb_launches),
+                     + ysb_launches + eo_launches),
         "max_abs_err": max(err_checks, err_timed),
         "ms": timing["wrapper_ms"],
         "device_ms": timing["device_ms"],

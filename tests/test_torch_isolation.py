@@ -38,8 +38,8 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, verdict, *_ = out.stdout.split()
-    # 69 modules since the host windows, the join and kafka/
-    assert int(n) >= 69 and verdict == "OK", out.stdout
+    # 74 modules since sinks/ and the persistent operators
+    assert int(n) >= 74 and verdict == "OK", out.stdout
 
 
 _ALONE = r"""
@@ -140,6 +140,30 @@ def test_host_window_join_and_kafka_modules_import_alone_without_jax(mod):
     Kafka connectors (the port's own copies of the JAX package's JAX-free
     modules) import on their own, in a fresh interpreter, without pulling
     in jax or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c",
+                          _ALONE.format(root=ROOT, mod=mod)],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "OK", out.stdout
+
+
+@pytest.mark.parametrize("mod", [
+    "windflow_tpu_torch.sinks", "windflow_tpu_torch.sinks.transactional",
+    "windflow_tpu_torch.persistent",
+    "windflow_tpu_torch.persistent.p_basic_ops",
+    "windflow_tpu_torch.persistent.p_keyed_windows",
+    "windflow_tpu_torch.persistent.builders_persistent",
+    "windflow_tpu_torch.operators.source",
+    "windflow_tpu_torch.operators.basic_ops"])
+def test_exactly_once_and_persistent_modules_import_alone_without_jax(mod):
+    """The exactly-once sink plane, the persistent operators and the
+    replayable columnar ingest (the port's own copies of the JAX
+    package's JAX-free ``sinks/``, ``persistent/`` and source modules)
+    import on their own, in a fresh interpreter, without pulling in jax
+    or the JAX package; ``sinks.transactional`` reads segments the JAX
+    package staged without importing it."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c",
                           _ALONE.format(root=ROOT, mod=mod)],

@@ -137,16 +137,17 @@ def test_kafka_real_brokers_are_refused():
                   .with_brokers("localhost:9092").with_topics("t").build(),
                   lambda: kt.Kafka_Sink_Builder(lambda t: None)
                   .with_brokers("localhost:9092").build(),
+                  # exactly-once is ported on memory:// only: a real
+                  # broker's staged backend goes with its transports
+                  lambda: kt.Kafka_Sink_Builder(lambda t: None)
+                  .with_brokers("localhost:9092").with_exactly_once()
+                  .build(),
                   lambda: conn_t.make_transport("localhost:9092")):
         with pytest.raises(wt.WindFlowError,
                            match="client.*not yet ported"):
             build()
-    for build in (lambda: kt.Kafka_Source_Builder(lambda m, s: False)
-                  .with_slo(5.0),
-                  lambda: kt.Kafka_Sink_Builder(lambda t: None)
-                  .with_exactly_once()):
-        with pytest.raises(wt.WindFlowError, match="not yet ported"):
-            build()
+    with pytest.raises(wt.WindFlowError, match="not yet ported"):
+        kt.Kafka_Source_Builder(lambda m, s: False).with_slo(5.0)
 
 
 def test_kafka_retry_heals_then_delivers(monkeypatch):
@@ -445,28 +446,44 @@ N_CAMPAIGNS, ADS_PER_CAMPAIGN, TS_STEP_US = 100, 10, 100
 YSB_EVENTS, YSB_WIN_US = 24_000, 1_000_000
 
 
-def _ysb(pkg, ing_rows):
+def _ysb_fill(pkg):
     b = KAFKA[pkg].MemoryBroker.get("tysb", 8)
     for i in range(YSB_EVENTS):
         b.produce("ad_events", {"ad_id": i % (N_CAMPAIGNS * ADS_PER_CAMPAIGN),
                                 "event_type": i % 3, "ts": i * TS_STEP_US},
                   key=i % 8)
 
-    def deser(msg, shipper):
+
+def _ysb_graph(pkg, ing_rows, sink_op, store=None, hook=None):
+    """Kafka rows -> views -> ad->campaign -> 1 s windows -> ``sink_op``;
+    with ``store``, checkpointed there; ``hook(shipper)`` runs after each
+    event's push (checkpoint requests, an injected crash). A replica's
+    watermark is the lowest last ts of its partitions (a restored replica
+    resumes its partitions at offsets a message apart)."""
+    last = {}  # replica -> {partition: its last ts}
+
+    def deser(msg, shipper, ctx):
         if msg is None:
             return False
         p = msg.payload
         shipper.push_with_timestamp(
             {"ad_id": p["ad_id"], "event_type": p["event_type"],
              "ing": ing_rows[p["ts"] // TS_STEP_US]}, p["ts"])
-        shipper.set_next_watermark(p["ts"])
+        mine = last.setdefault(ctx.get_replica_index(), {})
+        mine[msg.partition] = p["ts"]
+        if len(mine) == 4:  # 8 partitions over 2 replicas
+            shipper.set_next_watermark(
+                max(shipper.current_watermark, min(mine.values())))
+        if hook is not None:
+            hook(shipper)
         return True
 
-    res = {}
     g = _pg(pkg, "ysb", time_policy="EVENT_TIME")
+    if store is not None:
+        g.with_checkpointing(store_dir=store)
     src = (KAFKA[pkg].Kafka_Source_Builder(deser).with_brokers("memory://tysb")
            .with_topics("ad_events").with_idleness(100).with_parallelism(2)
-           .with_output_batch_size(4096).build())
+           .with_output_batch_size(4096).with_name("ksrc").build())
     if pkg is wt:
         F, M, W = wt.Filter_GPU_Builder, wt.Map_GPU_Builder, \
             wt.Ffat_Windows_GPU_Builder
@@ -481,14 +498,21 @@ def _ysb(pkg, ing_rows):
         def combine(a, b_):
             return {"count": a["count"] + b_["count"],
                     "last_ing": jnp.maximum(a["last_ing"], b_["last_ing"])}
-    views = F(lambda f: f["event_type"] == 0).build()
+    views = F(lambda f: f["event_type"] == 0).with_name("views").build()
     project = M(lambda f: {"campaign": f["ad_id"] // ADS_PER_CAMPAIGN,
                            "one": f["event_type"] * 0 + 1,
-                           "ing": f["ing"]}).build()
+                           "ing": f["ing"]}).with_name("project").build()
     win = (W(lambda f: {"count": f["one"], "last_ing": f["ing"]}, combine)
            .with_key_by("campaign").with_tb_windows(YSB_WIN_US, YSB_WIN_US)
            .with_num_win_per_batch(32).with_key_capacity(N_CAMPAIGNS)
-           .build())
+           .with_name("win").build())
+    g.add_source(src).add(views).add(project).add(win).add_sink(sink_op)
+    return g
+
+
+def _ysb(pkg, ing_rows):
+    _ysb_fill(pkg)
+    res = {}
 
     def sink(cols, ts):
         if cols is None:
@@ -500,10 +524,19 @@ def _ysb(pkg, ing_rows):
                                cols["last_ing"][v].tolist()):
             res[(c, w)] = (n, li)
 
-    g.add_source(src).add(views).add(project).add(win).add_sink(
-        pkg.Sink_Builder(sink).with_columns().build())
-    run_bounded(g)
+    run_bounded(_ysb_graph(pkg, ing_rows, pkg.Sink_Builder(sink)
+                           .with_columns().build()))
     return res
+
+
+def _ysb_model(ing):
+    model = {}
+    for i in range(0, YSB_EVENTS, 3):
+        c = (i % (N_CAMPAIGNS * ADS_PER_CAMPAIGN)) // ADS_PER_CAMPAIGN
+        w = (i * TS_STEP_US) // YSB_WIN_US
+        n, li = model.get((c, w), (0, 0))
+        model[(c, w)] = (n + 1, max(li, int(ing[i])))
+    return model
 
 
 def test_ysb_counts_match_jax_and_model():
@@ -514,10 +547,93 @@ def test_ysb_counts_match_jax_and_model():
     ing = np.random.default_rng(5).integers(0, 1 << 30, YSB_EVENTS)
     got = _ysb(wt, ing)
     ref = _ysb(wj, ing)
-    model = {}
-    for i in range(0, YSB_EVENTS, 3):
-        c = (i % (N_CAMPAIGNS * ADS_PER_CAMPAIGN)) // ADS_PER_CAMPAIGN
-        w = (i * TS_STEP_US) // YSB_WIN_US
-        n, li = model.get((c, w), (0, 0))
-        model[(c, w)] = (n + 1, max(li, int(ing[i])))
-    assert got == ref == model
+    assert got == ref == _ysb_model(ing)
+
+
+# ---------------------------------------------------------------------------
+# YSB into an exactly-once Kafka sink: per-epoch broker transactions
+# ---------------------------------------------------------------------------
+def _eo_kafka_sink(pkg, broker="tysb_out"):
+    def ser(r):
+        if not r["valid"]:
+            return None
+        return ("ysb_out", None, (int(r["campaign"]), int(r["wid"]),
+                                  int(r["count"]), int(r["last_ing"])))
+    return (KAFKA[pkg].Kafka_Sink_Builder(ser)
+            .with_brokers(f"memory://{broker}").with_name("ksnk")
+            .with_exactly_once().build())
+
+
+def _topic_rows(pkg, broker="tysb_out"):
+    """The output topic as a read-committed consumer sees it: what the
+    committed transactions appended (prepared epochs are invisible)."""
+    b = KAFKA[pkg].MemoryBroker.get(broker)
+    return [m.payload for part in b._topic("ysb_out") for m in part]
+
+
+def _requests_every(n_events):
+    """A hook requesting a checkpoint every ``n_events`` pushes of a
+    source replica."""
+    local = threading.local()
+
+    def hook(shipper):
+        local.n = getattr(local, "n", 0) + 1
+        if local.n % n_events == 0:
+            shipper.request_checkpoint()
+    return hook
+
+
+def test_ysb_exactly_once_kafka_sink_matches_jax_and_model(tmp_path):
+    """Each (campaign, window) reaches the output topic exactly once, with
+    the model's count and latest ingest stamp, in both packages."""
+    ing = np.random.default_rng(6).integers(0, 1 << 30, YSB_EVENTS)
+    model = _ysb_model(ing)
+    got = {}
+    for pkg in (wt, wj):
+        _ysb_fill(pkg)
+        g = _ysb_graph(pkg, ing, _eo_kafka_sink(pkg),
+                       store=str(tmp_path / pkg.__name__),
+                       hook=_requests_every(3000))
+        run_bounded(g)
+        rows = _topic_rows(pkg)
+        assert len(rows) == len(set((c, w) for c, w, _, _ in rows))
+        got[pkg] = {(c, w): (n, li) for c, w, n, li in rows}
+        assert g._coordinator.completed >= 1
+    assert got[wt] == got[wj] == model
+
+
+def test_ysb_exactly_once_kill_after_first_epoch_and_restore(tmp_path):
+    """The port's YSB graph dies after its first committed epoch (a source
+    replica raises) and restores from it: at the crash the topic holds
+    only finalized epochs' windows, none twice; after the restore it holds
+    every (campaign, window) once, equal to the model."""
+    ing = np.random.default_rng(7).integers(0, 1 << 30, YSB_EVENTS)
+    model = _ysb_model(ing)
+    _ysb_fill(wt)
+    store = str(tmp_path / "store")
+    request = _requests_every(2000)
+    seen = {"n": 0}
+    lock = threading.Lock()
+
+    class Killed(Exception):
+        pass
+
+    def hook(shipper):
+        request(shipper)
+        with lock:
+            seen["n"] += 1
+            n = seen["n"]
+        if n >= 16000 and StoreT(store).latest() is not None:
+            raise Killed("after the first committed epoch")
+
+    with pytest.raises((Killed, wt.basic.WorkerFailuresError)):
+        run_bounded(_ysb_graph(wt, ing, _eo_kafka_sink(wt), store=store,
+                               hook=hook))
+    at_crash = _topic_rows(wt)
+    assert len(at_crash) == len(set((c, w) for c, w, _, _ in at_crash))
+    assert all(model[(c, w)] == (n, li) for c, w, n, li in at_crash)
+    g2 = _ysb_graph(wt, ing, _eo_kafka_sink(wt), store=store)
+    run_bounded(g2, restore_from=store)
+    rows = _topic_rows(wt)
+    assert len(rows) == len(model)
+    assert {(c, w): (n, li) for c, w, n, li in rows} == model

@@ -503,15 +503,57 @@ def test_refusals_match_jax(case, match):
             case(pkg)
 
 
-@pytest.mark.parametrize("call", [
-    lambda: wt.Sink_Builder(lambda t: None).with_exactly_once(),
+def _graph():
+    return wt.PipeGraph(device="cpu")
+
+
+_UNPORTED = {
     # the mesh plane is ported on one card; a mesh over two physical
     # devices is not
-    lambda: wt.mesh.KeyMesh((2, 1), [(0, torch.device("cpu")),
-                                     (1, torch.device("meta"))]),
-    lambda: wt.PipeGraph(device="cpu").with_slo(50),
-    lambda: wt.PipeGraph(device="cpu").with_prewarm(),
-], ids=["exactly_once", "mesh", "slo", "prewarm"])
-def test_unported_surfaces_raise(call):
+    "mesh": lambda: wt.mesh.KeyMesh((2, 1), [(0, torch.device("cpu")),
+                                             (1, torch.device("meta"))]),
+    "slo": lambda: _graph().with_slo(50),
+    "prewarm": lambda: _graph().with_prewarm(),
+    # the monitoring plane (ROADMAP item 10e)
+    "builder_latency_tracing":
+        lambda: wt.Map_Builder(lambda t: t).with_latency_tracing(1),
+    "builder_flight_recorder":
+        lambda: wt.Sink_Builder(lambda t: None).with_flight_recorder(64),
+    "graph_flight_recorder": lambda: _graph().with_flight_recorder(64),
+    "dump_stats": lambda: _graph().dump_stats("log"),
+    "dump_trace": lambda: _graph().dump_trace("trace.json"),
+    "trace_document": lambda: _graph().trace_document(),
+    "to_dot": lambda: _graph().to_dot(),
+    "to_svg": lambda: _graph().to_svg(),
+    # the overload plane (item 10f)
+    "source_slo": lambda: wt.Source_Builder(lambda s: None).with_slo(50),
+    "source_priority":
+        lambda: wt.Columnar_Source_Builder(lambda: iter(()))
+        .with_priority(lambda t: 0),
+    # prewarm and the compile cache (item 10g)
+    "prewarm_report": lambda: _graph().prewarm_report(),
+    "compile_cache": lambda: _graph().with_compile_cache("cache"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_UNPORTED))
+def test_unported_surfaces_raise(case):
+    """Each surface of the JAX package the port does not have yet raises
+    ``WindFlowError("... not yet ported")``, never ``AttributeError``."""
     with pytest.raises(wt.WindFlowError, match="not yet ported"):
-        call()
+        _UNPORTED[case]()
+
+
+@pytest.mark.parametrize("name", sorted(wj.__all__))
+def test_every_jax_top_level_name_is_ported_or_refused(name):
+    """Every name the JAX package exports is in the port, or raises
+    ``WindFlowError`` saying it is not ported yet (``from ... import``
+    included), never ``AttributeError`` / ``ImportError``."""
+    try:
+        getattr(wt, name)
+    except wt.WindFlowError as e:
+        assert "not yet ported" in str(e)
+        with pytest.raises(wt.WindFlowError, match="not yet ported"):
+            exec(f"from windflow_tpu_torch import {name}", {})
+    else:
+        assert name in wt.__all__

@@ -3,12 +3,13 @@
 (``windflow_tpu/supervision/``, ``tests/test_supervision.py`` and
 ``tests/test_recovery_ladder.py``).
 
-The JAX tests' oracle is an exactly-once sink, which the port does not
-have yet; these graphs use plain sinks instead, so a recovery replays
-the segment after the restored checkpoint and re-emits IDENTICAL rows.
-The oracle is therefore the set of distinct output rows, which must
-equal the uninterrupted run's, plus the restored checkpoint id, in both
-packages:
+Most graphs here use plain sinks, so a recovery replays the segment
+after the restored checkpoint and re-emits IDENTICAL rows; their oracle
+is the set of distinct output rows, which must equal the uninterrupted
+run's, plus the restored checkpoint id, in both packages. The
+exactly-once twins of the JAX tests (an exactly-once sink, a keyed
+window at parallelism 2) hold the supervised run's committed output to
+the uninterrupted run's as a multiset, duplicates included:
 
 - auto-recovery from one and from two crashes, recovery before the
   first checkpoint (a full replay from the captured initial positions),
@@ -599,3 +600,110 @@ def test_health_probes(tmp_path):
     assert sup["Supervision_restarts"] == 1
     assert sup["Recovery_degraded_devices"] == 1
     assert g.failure_domains() == {}  # no mesh operator in this graph
+
+
+# ---------------------------------------------------------------------------
+# exactly-once sinks under supervision (tests/test_supervision.py:96, :182)
+# ---------------------------------------------------------------------------
+def _eo_windows_graph(tmp, src, results, supervised=True):
+    g = _pg(wt, "t_sup_eo")
+    g.with_checkpointing(store_dir=str(tmp / "store"))
+    if supervised:
+        g.with_supervision(wt.RestartPolicy(max_restarts=4, backoff_s=0.02,
+                                            backoff_max_s=0.1))
+    win = wt.Keyed_Windows(lambda rows: sum(r["v"] for r in rows),
+                           key_extractor=lambda t: t["k"], win_len=4,
+                           slide_len=4, win_type=wt.WinType.CB, name="kw",
+                           parallelism=2)
+
+    def sink(t):
+        if t is not None:
+            results.append((t.key, t.wid, t.value))
+
+    g.add_source(wt.Source_Builder(src).with_name("src").build()) \
+        .add(win) \
+        .add_sink(wt.Sink_Builder(sink).with_name("snk")
+                  .with_exactly_once(staging_dir=str(tmp / "txn")).build())
+    return g
+
+
+def _eo_committed(tmp):
+    from windflow_tpu_torch.sinks.transactional import read_committed_records
+    return sorted((r.key, r.wid, r.value) for r, _ in
+                  read_committed_records(str(tmp / "txn" / "snk_r0")))
+
+
+def _cb_model(n, nk=7):
+    out = []
+    for k in range(nk):
+        vs = list(range(k, n, nk))
+        out += [(k, w, sum(vs[i:i + 4]))
+                for w, i in enumerate(range(0, len(vs), 4))]
+    return sorted(out)
+
+
+def test_supervised_auto_recovery_exactly_once(tmp_path):
+    """An injected source crash heals in-process (no manual restore) and
+    the exactly-once sink's output, functor and committed segments alike,
+    equals the uninterrupted run's with nothing twice."""
+    golden = []
+    run_bounded(_eo_windows_graph(tmp_path / "gold", CrashingSource(1500),
+                                  golden, supervised=False))
+    assert sorted(golden) == _cb_model(1500)
+    results = []
+    g = _eo_windows_graph(
+        tmp_path / "run",
+        CrashingSource(1500, ckpt_at=[400], crash_at=900,
+                       store=(StoreT, str(tmp_path / "run" / "store"))),
+        results)
+    run_bounded(g)
+    assert sorted(results) == sorted(golden)
+    assert _eo_committed(tmp_path / "run") == sorted(golden)
+    st = g.get_stats()
+    sup = st["Supervision"]
+    assert sup["Supervision_restarts"] == 1
+    assert sup["Supervision_last_restart_s"] > 0
+    assert not sup["Supervision_escalated"]
+    src_op = next(o for o in st["Operators"] if o["name"] == "src")
+    assert src_op["replicas"][0]["Worker_crashes"] >= 1
+    assert "ValueError" in src_op["replicas"][0]["Worker_last_error"]
+
+
+def test_supervised_recovery_aborts_stale_precommitted_epoch(tmp_path,
+                                                            monkeypatch):
+    """The sink PRE-COMMITTED an epoch but the store commit dies, so the
+    crash leaves a staged segment with NO committed checkpoint. The
+    full-replay recovery aborts it; rolling it forward at a later
+    checkpointed restore would duplicate its records. The torn-down sink
+    replica is fenced."""
+    from windflow_tpu_torch.sinks.transactional import FencedWriteError
+
+    golden = []
+    run_bounded(_eo_windows_graph(tmp_path / "gold", CrashingSource(1200),
+                                  golden, supervised=False))
+    orig = StoreT.commit
+    armed = [True]
+
+    def dying_commit(self, ckpt_id, manifest):
+        if armed[0]:
+            armed[0] = False
+            raise RuntimeError("store commit dies after sink precommit")
+        return orig(self, ckpt_id, manifest)
+
+    monkeypatch.setattr(StoreT, "commit", dying_commit)
+    results = []
+    g = _eo_windows_graph(
+        tmp_path / "run",
+        # a second checkpoint and a later crash exercise the checkpointed
+        # restore AFTER the full replay (the roll-forward the stale epoch
+        # would poison)
+        CrashingSource(1200, ckpt_at=[300, 600], crash_at=800), results)
+    g.start()
+    first_sink = next(o for o in g._ops if o.name == "snk").replicas[0]
+    from torch_waits import wait_end_bounded
+    wait_end_bounded(g)
+    assert sorted(results) == sorted(golden)
+    assert _eo_committed(tmp_path / "run") == sorted(golden)
+    assert g.get_stats()["Supervision"]["Supervision_restarts"] >= 1
+    with pytest.raises(FencedWriteError):
+        first_sink._txn.backend.do_precommit(10_000, [])

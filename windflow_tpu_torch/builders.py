@@ -8,7 +8,10 @@ Trimmed copy of ``windflow_tpu/builders.py`` (parity: ``wf/builders.hpp``):
 ``MapReduce_Windows_Builder``, ``Ffat_Windows_Builder``) and
 ``Interval_Join_Builder``, with the JAX package's signatures, refusals and
 messages. The device operators' builders are in ``gpu.builders_gpu``, the
-Kafka ones in ``kafka.builders_kafka``.
+Kafka ones in ``kafka.builders_kafka``, the persistent operators' in
+``persistent.builders_persistent``. Builder methods of the JAX package's
+planes that are not ported yet (latency tracing and the flight recorder,
+the overload knobs) raise ``WindFlowError("... not yet ported")``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ from .operators.join import Interval_Join
 from .operators.source import Columnar_Source, Source
 from .operators.windows import (Keyed_Windows, MapReduce_Windows,
                                 Paned_Windows, Parallel_Windows)
+
+
+def _not_ported(what: str):
+    raise WindFlowError(f"{what} is not yet ported to windflow_tpu_torch")
 
 
 class BasicBuilder:
@@ -78,6 +85,12 @@ class BasicBuilder:
         self._error_policy = policy
         return self
 
+    def with_latency_tracing(self, *args, **kwargs):
+        _not_ported("with_latency_tracing (the monitoring plane)")
+
+    def with_flight_recorder(self, *args, **kwargs):
+        _not_ported("with_flight_recorder (the monitoring plane)")
+
     def _finish(self, op):
         op.closing_func = self._closing
         if self._error_policy is not None:
@@ -114,7 +127,19 @@ class _RoutableBuilder(BasicBuilder):
         return self
 
 
-class Source_Builder(BasicBuilder):
+class _SourceOverloadStubs:
+    """The JAX package's overload knobs of the source builders
+    (``with_slo`` / ``with_priority``): the overload plane is not ported
+    yet."""
+
+    def with_slo(self, *args, **kwargs):
+        _not_ported("with_slo (the overload plane)")
+
+    def with_priority(self, *args, **kwargs):
+        _not_ported("with_priority (the overload plane)")
+
+
+class Source_Builder(_SourceOverloadStubs, BasicBuilder):
     _default_name = "source"
 
     def build(self) -> Source:
@@ -122,17 +147,36 @@ class Source_Builder(BasicBuilder):
                                    self._output_batch_size))
 
 
-class Columnar_Source_Builder(BasicBuilder):
+class Columnar_Source_Builder(_SourceOverloadStubs, BasicBuilder):
     """Builder for BLOCK sources: the functor yields ``cols`` /
     ``(cols, ts)`` / ``(cols, ts, wm)`` column blocks (see
-    ``Columnar_Source``)."""
+    ``Columnar_Source``). ``with_block_size`` re-chunks oversized yields;
+    ``with_schema`` declares column dtypes cast at the edge."""
 
     _default_name = "columnar_source"
+
+    def __init__(self, func: Callable) -> None:
+        super().__init__(func)
+        self._block_size = 0
+        self._block_schema: Optional[dict] = None
+
+    def with_block_size(self, n: int) -> "Columnar_Source_Builder":
+        if n <= 0:
+            raise WindFlowError("with_block_size: block size must be >= 1")
+        self._block_size = int(n)
+        return self
+
+    def with_schema(self, schema: dict) -> "Columnar_Source_Builder":
+        if not isinstance(schema, dict) or not schema:
+            raise WindFlowError(
+                "with_schema: expected a non-empty {field: dtype} dict")
+        self._block_schema = dict(schema)
+        return self
 
     def build(self) -> Columnar_Source:
         return self._finish(Columnar_Source(
             self._func, self._name, self._parallelism,
-            self._output_batch_size))
+            self._output_batch_size, self._block_size, self._block_schema))
 
 
 class Map_Builder(_RoutableBuilder):
@@ -192,6 +236,8 @@ class Sink_Builder(_RoutableBuilder):
     def __init__(self, func: Callable) -> None:
         super().__init__(func)
         self._columns = False
+        self._exactly_once = False
+        self._txn_dir: Optional[str] = None
 
     def with_columns(self) -> "Sink_Builder":
         """Columnar consumer: the functor becomes ``sink(cols, ts)`` with
@@ -200,14 +246,27 @@ class Sink_Builder(_RoutableBuilder):
         self._columns = True
         return self
 
-    def with_exactly_once(self, staging_dir: Optional[str] = None):
-        raise WindFlowError("exactly-once sinks are not yet ported to "
-                            "windflow_tpu_torch")
+    def with_exactly_once(self, staging_dir: Optional[str] = None
+                          ) -> "Sink_Builder":
+        """Exactly-once delivery (``sinks/transactional.py``): the output
+        buffers per checkpoint epoch, pre-commits at the aligned barrier as
+        a staged segment file under ``staging_dir`` (default the graph's,
+        else ``wf_txn_sinks``) and becomes visible (one atomic rename, then
+        the functor call) only when the coordinator finalizes the epoch.
+        Requires ``PipeGraph.with_checkpointing``; the graph refuses
+        otherwise."""
+        self._exactly_once = True
+        if staging_dir is not None:
+            self._txn_dir = staging_dir
+        return self
 
     def build(self) -> Sink:
-        return self._finish(Sink(self._func, self._name, self._parallelism,
-                                 self._routing, self._key_extractor,
-                                 accepts_columns=self._columns))
+        op = self._finish(Sink(self._func, self._name, self._parallelism,
+                               self._routing, self._key_extractor,
+                               accepts_columns=self._columns))
+        op.exactly_once = self._exactly_once
+        op.txn_dir = self._txn_dir
+        return op
 
 
 # ---------------------------------------------------------------------------

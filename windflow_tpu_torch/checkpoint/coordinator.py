@@ -71,6 +71,9 @@ class CheckpointCoordinator:
         # pending-check + write must be atomic w.r.t. _finalize renaming
         # the staging dir away. Ordering: _store_lock outside _lock.
         self._store_lock = threading.Lock()
+        # the newest epoch committed to the store (written under
+        # _store_lock): an older epoch finalizing after it is superseded
+        self._stored_id = 0
         self._pending: Dict[int, Dict[str, Any]] = {}
         # workers that exited cleanly, with their final blobs: a finished
         # worker's state is frozen, so its final snapshot is valid for
@@ -203,6 +206,16 @@ class CheckpointCoordinator:
         for wname, blobs in retired:
             self.ack(cid, wname, blobs)
         return cid
+
+    def rewind_to(self, cid: int) -> None:
+        """Epoch ids continue after ``cid``, the checkpoint a restore
+        installs (0: none, a full replay); ids the abandoned run used past
+        it are handed out again."""
+        with self._lock:
+            self._alloc_id = cid
+            self.requested_id = cid
+            self.last_completed_id = cid
+            self._stored_id = cid
 
     # -- acks --------------------------------------------------------------
     def ack(self, ckpt_id: int, worker_name: str,
@@ -347,19 +360,33 @@ class CheckpointCoordinator:
         t_commit = time.perf_counter()
         try:
             with self._store_lock:
-                self.store.commit(ckpt_id, {
-                    "graph": self.graph_name,
-                    "created_unix": time.time(),
-                    "duration_sec": round(duration, 6),
-                    "n_workers": self.expected_acks,
-                    "bytes": ent["bytes"],
-                })
+                if ckpt_id < self._stored_id:
+                    # a NEWER epoch's finalize took the store first: its
+                    # commit pruned this epoch's staging, and it covers
+                    # everything this one would (overlapping forced epochs
+                    # finalizing out of order)
+                    superseded = True
+                else:
+                    superseded = False
+                    self.store.commit(ckpt_id, {
+                        "graph": self.graph_name,
+                        "created_unix": time.time(),
+                        "duration_sec": round(duration, 6),
+                        "n_workers": self.expected_acks,
+                        "bytes": ent["bytes"],
+                    })
+                    self._stored_id = ckpt_id
         except BaseException:
             with self._lock:
                 self._committing.discard(ckpt_id)
                 self._commit_cond.notify_all()
             raise
         commit_s = time.perf_counter() - t_commit
+        if superseded:
+            with self._lock:
+                self._committing.discard(ckpt_id)
+                self._commit_cond.notify_all()
+            return
         with self._lock:
             self._committing.discard(ckpt_id)
             self.completed += 1

@@ -31,6 +31,15 @@ for this system.
   messages (their ``WinResult`` payloads included). The host FFAT's and
   the interval join's per-key states and a Kafka source's offsets are
   dicts, lists and tuples already, and pass through.
+- ``db_image_from_jax(image)`` takes the ``"db"`` entry of a JAX
+  persistent replica's snapshot (``P_Map`` ... ``P_Sink``,
+  ``P_Keyed_Windows``: the whole sqlite image) and returns it with every
+  pickled row that names a JAX package class (a window's ``_KeyDesc``)
+  pickled again as the port's class of the same module path; an image
+  without one comes back as it is. The exactly-once sinks' state
+  (``txn_last_epoch``) passes through, and the segments a JAX sink staged
+  read back in the port's restore (``sinks/transactional.py:port_loads``):
+  pending epochs up to the restored one roll forward, later ones abort.
 - ``checkpoint_states_from_jax(states, device)`` takes what the JAX
   package's ``CheckpointStore.load_states`` returns for one committed
   checkpoint (``{(op name, replica): state}``) and returns the port's
@@ -46,6 +55,9 @@ only: it imports neither ``jax`` nor ``windflow_tpu``.
 
 from __future__ import annotations
 
+import os
+import pickle
+import tempfile
 from typing import Any, Dict
 
 import numpy as np
@@ -220,6 +232,32 @@ def collector_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def db_image_from_jax(image: bytes) -> bytes:
+    if b"windflow_tpu" not in image:
+        return image
+    from .persistent.db_handle import DBHandle
+    from .sinks.transactional import port_loads
+
+    def fix(blob: bytes) -> bytes:
+        if b"windflow_tpu" not in blob:
+            return blob
+        return pickle.dumps(port_loads(blob))
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "image.db"), "wb") as f:
+            f.write(image)
+        db = DBHandle("image", db_dir=d)
+        try:
+            conn = db._conn
+            rows = [(fix(k), fix(v))
+                    for k, v in conn.execute("SELECT k, v FROM kv")]
+            conn.execute("DELETE FROM kv")
+            conn.executemany("INSERT INTO kv (k, v) VALUES (?, ?)", rows)
+            return db.snapshot_bytes()
+        finally:
+            db.close()
+
+
 def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
                                device) -> Dict[Any, Dict[str, Any]]:
     """The replica states of one JAX checkpoint for the port: a fused
@@ -228,7 +266,8 @@ def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
     through ``scan_state_from_jax``, a mesh replica's entry through
     ``mesh_state_from_jax``, a window replica's ``"engine"`` through
     ``engine_state_from_jax`` and a collector entry through
-    ``collector_state_from_jax``; source positions and Kafka offsets,
+    ``collector_state_from_jax``, a persistent replica's sqlite image
+    through ``db_image_from_jax``; source positions and Kafka offsets,
     watermarks, the other host operators' state and the emitter entries
     pass through (the two packages share their layout). A delta node is refused: the store's
     ``load_states`` returns materialized states."""
@@ -253,5 +292,7 @@ def checkpoint_states_from_jax(states: Dict[Any, Dict[str, Any]],
         if st.get("__collector__") is not None:
             st["__collector__"] = collector_state_from_jax(
                 st["__collector__"])
+        if isinstance(st.get("db"), bytes):
+            st["db"] = db_image_from_jax(st["db"])
         out[key] = st
     return out

@@ -2,8 +2,9 @@
 withTopics, withGroupID, withOffsets, withIdleness).
 
 The port's copy of ``windflow_tpu/kafka/builders_kafka.py``. The JAX
-package's overload knobs (``with_slo``, ``with_priority``) and exactly-once
-Kafka sinks are not ported yet and raise.
+package's overload knobs (``with_slo``, ``with_priority``) are not ported
+yet and raise. ``Kafka_Sink_Builder.with_exactly_once`` runs per-epoch
+transactions on a ``memory://`` broker.
 """
 
 from __future__ import annotations
@@ -11,11 +12,11 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..basic import WindFlowError
-from ..builders import BasicBuilder
+from ..builders import BasicBuilder, _SourceOverloadStubs
 from .connectors import Kafka_Sink, Kafka_Source
 
 
-class Kafka_Source_Builder(BasicBuilder):
+class Kafka_Source_Builder(_SourceOverloadStubs, BasicBuilder):
     _default_name = "kafka_source"
 
     def __init__(self, deser_func: Callable) -> None:
@@ -62,14 +63,6 @@ class Kafka_Source_Builder(BasicBuilder):
         self._block_size = block_size
         return self
 
-    def with_slo(self, *args, **kwargs):
-        raise WindFlowError("with_slo (the overload plane) is not yet "
-                            "ported to windflow_tpu_torch")
-
-    def with_priority(self, *args, **kwargs):
-        raise WindFlowError("with_priority (the overload plane) is not yet "
-                            "ported to windflow_tpu_torch")
-
     def build(self) -> Kafka_Source:
         if not self._brokers:
             raise WindFlowError("Kafka_Source_Builder: withBrokers mandatory")
@@ -91,17 +84,28 @@ class Kafka_Sink_Builder(BasicBuilder):
     def __init__(self, ser_func: Callable) -> None:
         super().__init__(ser_func)
         self._brokers: Optional[str] = None
+        self._exactly_once = False
 
     def with_brokers(self, brokers: str):
         self._brokers = brokers
         return self
 
     def with_exactly_once(self, staging_dir: Optional[str] = None):
-        raise WindFlowError("exactly-once Kafka sinks are not yet ported to "
-                            "windflow_tpu_torch")
+        """Exactly-once through per-epoch broker transactions driven by the
+        checkpoint's finalize (a transactional producer with the stable id
+        ``wf-txn-<op>-r<idx>``; zombie replicas are fenced). A
+        ``memory://`` broker models the whole prepare / commit / abort /
+        fence surface and stages the epochs itself. ``staging_dir`` (the
+        JAX package's local staging root of a real broker's epochs) is
+        accepted for the JAX signature and unused: real brokers are not
+        ported."""
+        self._exactly_once = True
+        return self
 
     def build(self) -> Kafka_Sink:
         if not self._brokers:
             raise WindFlowError("Kafka_Sink_Builder: withBrokers mandatory")
-        return self._finish(Kafka_Sink(self._func, self._brokers, self._name,
-                                       self._parallelism))
+        op = self._finish(Kafka_Sink(self._func, self._brokers, self._name,
+                                     self._parallelism))
+        op.exactly_once = self._exactly_once
+        return op

@@ -17,6 +17,15 @@ Any other broker string names a real Kafka cluster, whose clients
 operators' constructors raise ``WindFlowError`` saying so. The retry
 helper takes its attempts and backoff as arguments (the port reads no
 ``WF_*`` variable).
+
+Exactly-once (``Kafka_Sink_Builder.with_exactly_once``): the broker's
+transaction half (``txn_init`` / ``txn_prepare`` / ``txn_commit`` /
+``txn_abort`` with a fence generation per transactional id) and
+``TxnKafkaSinkReplica`` over ``_MemoryTxnBackend``, whose prepared epochs
+live in the broker. The JAX package's ``_StagedKafkaBackend`` (a real
+broker's epochs staged in a local segment store, produced in one Kafka
+transaction at commit) is not ported: it is reached only through the
+real-broker transports, which stay refused.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from ..basic import OpType, RoutingMode, WindFlowError, current_time_usecs
 from ..operators.base import BasicOperator, BasicReplica, arity
 from ..operators.source import SourceShipper
+from ..sinks.transactional import FencedWriteError
 
 DEFAULT_RETRIES = 5
 DEFAULT_RETRY_BASE_S = 0.1
@@ -104,6 +114,15 @@ class MemoryBroker:
         # next offset), written by MemoryTransport.commit_offsets when a
         # checkpoint finalizes, as a real broker's offset store
         self.committed: Dict[Tuple[str, str, int], int] = {}
+        # transactional producers (exactly-once sinks): per transactional
+        # id a fence generation (zombie producers are refused, Kafka's
+        # producer-epoch fencing), the prepared epochs' records (they
+        # outlive the producer, as the broker's transaction log) and the
+        # committed epochs (an epoch replayed after a restore is discarded)
+        self.txn_fences: Dict[str, int] = {}
+        self.txn_prepared: Dict[str, Dict[int, List[Tuple]]] = {}
+        self.txn_committed: Dict[str, set] = {}
+        self.fenced_attempts = 0
 
     @classmethod
     def get(cls, name: str, n_partitions: int = 4) -> "MemoryBroker":
@@ -166,6 +185,67 @@ class MemoryBroker:
         t = self._topic(topic)
         with self._lock:
             return len(t[partition])
+
+    # -- transactions (exactly-once sinks) ---------------------------------
+    def txn_init(self, txn_id: str) -> int:
+        """(Re)initialize a transactional producer: bump the fence
+        generation, so every older producer of the id is a zombie whose
+        writes are refused (Kafka's ``initTransactions`` epoch bump)."""
+        with self._lock:
+            gen = self.txn_fences.get(txn_id, 0) + 1
+            self.txn_fences[txn_id] = gen
+            self.txn_prepared.setdefault(txn_id, {})
+            self.txn_committed.setdefault(txn_id, set())
+            return gen
+
+    def _txn_check(self, txn_id: str, gen: int) -> None:
+        if self.txn_fences.get(txn_id) != gen:
+            self.fenced_attempts += 1
+            raise FencedWriteError(
+                f"Kafka transactional producer {txn_id!r} generation "
+                f"{gen} is fenced (current generation "
+                f"{self.txn_fences.get(txn_id)}): a newer replica owns "
+                "this transaction log")
+
+    def txn_check(self, txn_id: str, gen: int) -> None:
+        with self._lock:
+            self._txn_check(txn_id, gen)
+
+    def txn_prepare(self, txn_id: str, gen: int, epoch: int,
+                    records: List[Tuple]) -> None:
+        """Phase 1: the epoch's records become durable in the broker's
+        transaction log, invisible to consumers until the commit."""
+        with self._lock:
+            self._txn_check(txn_id, gen)
+            self.txn_prepared[txn_id][epoch] = list(records)
+
+    def txn_is_committed(self, txn_id: str, epoch: int) -> bool:
+        with self._lock:
+            return epoch in self.txn_committed.get(txn_id, ())
+
+    def txn_commit(self, txn_id: str, gen: int, epoch: int) -> bool:
+        """Phase 2: append the prepared records to their topics. False
+        when the epoch was already committed (the replayed duplicate is
+        discarded)."""
+        with self._lock:
+            self._txn_check(txn_id, gen)
+            if epoch in self.txn_committed[txn_id]:
+                self.txn_prepared[txn_id].pop(epoch, None)
+                return False
+            records = self.txn_prepared[txn_id].pop(epoch, [])
+            self.txn_committed[txn_id].add(epoch)
+        for topic, partition, key, payload in records:
+            self.produce(topic, payload, partition, key)
+        return True
+
+    def txn_abort(self, txn_id: str, gen: int, epoch: int) -> bool:
+        with self._lock:
+            self._txn_check(txn_id, gen)
+            return self.txn_prepared[txn_id].pop(epoch, None) is not None
+
+    def txn_prepared_epochs(self, txn_id: str) -> List[int]:
+        with self._lock:
+            return sorted(self.txn_prepared.get(txn_id, {}))
 
 
 def _parse_brokers(brokers: str):
@@ -371,14 +451,16 @@ class KafkaSourceReplica(BasicReplica):
             self._commit_ready = ckpt_id
 
     def _maybe_inject(self) -> None:
+        # every epoch opened since the last one, in order (see
+        # SourceReplica._maybe_inject)
         from ..message import Barrier
         cid = self._coord.requested_id
-        if cid > self._last_ckpt:
-            self._last_ckpt = cid
+        while self._last_ckpt < cid:
+            self._last_ckpt += 1
             if self._transport is not None:
-                self._pending_commits[cid] = \
+                self._pending_commits[self._last_ckpt] = \
                     self._transport.snapshot_positions()
-            self._inject_cb(Barrier(cid))
+            self._inject_cb(Barrier(self._last_ckpt))
 
     def final_checkpoint(self) -> None:
         """At consume-loop exit: inject a pending epoch's barrier with the
@@ -502,9 +584,13 @@ class KafkaSourceReplica(BasicReplica):
 class Kafka_Sink(BasicOperator):
     """The user serializer returns ``(topic, partition_or_None, payload)``,
     or None to drop (``kafka_sink.hpp``: wf_kafka_sink_msg). At least
-    once: the producer is flushed before every checkpoint ack."""
+    once: the producer is flushed before every checkpoint ack; exactly
+    once with ``exactly_once`` (``TxnKafkaSinkReplica``)."""
 
     op_type = OpType.SINK
+    # exactly-once mode (sinks/transactional.py): epoch transactions on
+    # the broker, prepared at the barrier, committed on finalize
+    supports_exactly_once = True
 
     def __init__(self, ser_func: Callable, brokers: str,
                  name: str = "kafka_sink", parallelism: int = 1) -> None:
@@ -514,10 +600,11 @@ class Kafka_Sink(BasicOperator):
         self._riched = arity(ser_func) >= 2
         if _parse_brokers(brokers)[0] != "memory":
             _refuse_real_broker(brokers)
+        self.exactly_once = False
 
     def build_replicas(self) -> None:
-        self.replicas = [KafkaSinkReplica(self, i)
-                         for i in range(self.parallelism)]
+        cls = TxnKafkaSinkReplica if self.exactly_once else KafkaSinkReplica
+        self.replicas = [cls(self, i) for i in range(self.parallelism)]
 
 
 class KafkaSinkReplica(BasicReplica):
@@ -547,5 +634,109 @@ class KafkaSinkReplica(BasicReplica):
         return super().snapshot_state()
 
     def flush_on_termination(self) -> None:
+        self._transport.flush()
+        self._transport.close()
+
+
+# ---------------------------------------------------------------------------
+# Exactly-once Kafka sink: epoch transactions driven by the checkpoint
+# coordinator (sinks/transactional.py)
+# ---------------------------------------------------------------------------
+class _MemoryTxnBackend:
+    """2PC backend over ``MemoryBroker``'s transaction log: prepared epochs
+    live in the broker (they outlive the producer, like a real broker's
+    transaction markers) and zombie generations are fenced there."""
+
+    def __init__(self, broker: MemoryBroker, txn_id: str) -> None:
+        self.broker = broker
+        self.txn_id = txn_id
+        self.gen = broker.txn_init(txn_id)
+
+    def check_fence(self) -> None:
+        self.broker.txn_check(self.txn_id, self.gen)
+
+    def is_committed(self, epoch: int) -> bool:
+        return self.broker.txn_is_committed(self.txn_id, epoch)
+
+    def do_precommit(self, epoch: int, records) -> None:
+        self.broker.txn_prepare(self.txn_id, self.gen, epoch, records)
+
+    def do_commit(self, epoch: int):
+        self.broker.txn_commit(self.txn_id, self.gen, epoch)
+        return None  # no functor delivery: the topic IS the output
+
+    def do_abort(self, epoch: int) -> None:
+        self.broker.txn_abort(self.txn_id, self.gen, epoch)
+
+    def do_recover(self, last_epoch: int):
+        rolled, aborted = [], []
+        for epoch in self.broker.txn_prepared_epochs(self.txn_id):
+            if epoch <= last_epoch:
+                if self.broker.txn_commit(self.txn_id, self.gen, epoch):
+                    rolled.append((epoch, None))
+            else:
+                self.broker.txn_abort(self.txn_id, self.gen, epoch)
+                aborted.append(epoch)
+        return rolled, aborted
+
+
+class TxnKafkaSinkReplica(KafkaSinkReplica):
+    """Kafka sink in exactly-once mode: serialized records buffer per
+    epoch, are prepared on the broker at the barrier and reach the topic
+    only when the coordinator finalizes the epoch. The transactional id
+    ``wf-txn-<op>-r<idx>`` is stable across restarts and rebuilds, so a
+    replica left unwinding by a rescale or a supervised restart is
+    fenced."""
+
+    def __init__(self, op, idx):
+        super().__init__(op, idx)
+        from ..sinks.transactional import EpochTxnDriver
+        backend = _MemoryTxnBackend(self._transport.broker,
+                                    f"wf-txn-{op.name}-r{idx}")
+        self._txn = EpochTxnDriver(backend, self.stats)
+        self.on_idle = self._txn.poll
+
+    def process(self, payload, ts, wm, tag):
+        out = (self.op.ser_func(payload, self.context) if self.op._riched
+               else self.op.ser_func(payload))
+        if out is None:
+            return
+        try:
+            self._txn.backend.check_fence()
+        except FencedWriteError:
+            self.stats.txn_fenced_writes += 1
+            raise
+        topic, partition, data = out
+        self._txn.buffer.append((topic, partition, None, data))
+
+    def handle_msg(self, ch, msg):
+        if self._txn.commit_due():
+            self._txn.poll()
+        super().handle_msg(ch, msg)
+
+    # -- worker and coordinator hooks --------------------------------------
+    def bind_txn_coordinator(self, coordinator) -> None:
+        self._txn.bind(coordinator)
+
+    def precommit_epoch(self, ckpt_id: int) -> None:
+        self._txn.precommit_epoch(ckpt_id)
+
+    def snapshot_state(self) -> dict:
+        st = BasicReplica.snapshot_state(self)  # the records ride the txn
+        st.update(self._txn.snapshot())
+        return st
+
+    def restore_state(self, state: dict) -> None:
+        BasicReplica.restore_state(self, state)
+        self._txn.restore(state)
+
+    def flush_on_termination(self) -> None:
+        # EOS: stage the post-barrier tail as one final epoch; it (and any
+        # epoch not yet finalized) commits in txn_complete once the run
+        # is known to have finished cleanly
+        self._txn.seal_tail()
+
+    def txn_complete(self) -> None:
+        self._txn.complete_all()
         self._transport.flush()
         self._transport.close()

@@ -5,7 +5,8 @@ replicas of the ported slice write (tuples in/out, ignored tuples, the
 device-plane traffic and program counts, the dispatch-pipeline split, the
 watermark gauges, the unified late-record accounting, the fused-chain
 and megabatch counters, the tier plane's ``Tier_*`` counters and gauges,
-the aligned checkpoints' ``Checkpoint_*`` counters, the input queue's
+the aligned checkpoints' ``Checkpoint_*`` counters, the exactly-once
+sinks' ``Sink_txn_*`` counters, the input queue's
 blocked-put/get time, the error policies' ``Dlq_*`` counters and the mesh
 replicas' ``Mesh_*`` series). On top of those,
 ``rebuild_kernel_launches`` counts the launches of the hand-written
@@ -43,6 +44,9 @@ class StatsRecord:
         "checkpoint_last_snapshot_us", "checkpoint_bytes_total",
         "checkpoint_align_total_us", "checkpoint_cut_total_us",
         "checkpoint_last_cut_us",
+        # exactly-once sinks (sinks/transactional.py): epochs pre-committed,
+        # committed, aborted, and writes refused to a fenced replica
+        "txn_precommits", "txn_commits", "txn_aborts", "txn_fenced_writes",
         # staging-buffer recycling (recycling.py): pool hits and misses of
         # the CPU -> device staging edge
         "staging_pool_hits", "staging_pool_misses",
@@ -114,6 +118,10 @@ class StatsRecord:
         self.checkpoint_align_total_us = 0.0
         self.checkpoint_cut_total_us = 0.0
         self.checkpoint_last_cut_us = 0.0
+        self.txn_precommits = 0
+        self.txn_commits = 0
+        self.txn_aborts = 0
+        self.txn_fenced_writes = 0
         self.staging_pool_hits = 0
         self.staging_pool_misses = 0
         self.tier_enabled = False
@@ -314,6 +322,11 @@ class StatsRecord:
                 self.checkpoint_cut_total_us, 1),
             "Checkpoint_cut_pause_usec": round(
                 self.checkpoint_last_cut_us, 1),
+            # exactly-once sink 2PC (0s unless with_exactly_once)
+            "Sink_txn_precommits": self.txn_precommits,
+            "Sink_txn_commits": self.txn_commits,
+            "Sink_txn_aborts": self.txn_aborts,
+            "Sink_txn_fenced_writes": self.txn_fenced_writes,
             "Staging_pool_hits": self.staging_pool_hits,
             "Staging_pool_misses": self.staging_pool_misses,
             "Queue_depth_max": getattr(ch, "depth_max", 0),

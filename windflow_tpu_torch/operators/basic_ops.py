@@ -1,8 +1,7 @@
 """Map / Filter / FlatMap / Reduce / Sink: the host-plane operators.
 
-Copy of ``windflow_tpu/operators/basic_ops.py`` without exactly-once
-sinks (parity: per-tuple semantics, functor variants by
-arity):
+Copy of ``windflow_tpu/operators/basic_ops.py`` (parity: per-tuple
+semantics, functor variants by arity):
 
 - Map: ``wf/map.hpp:57-385``. A functor returning ``None`` is treated as
   in-place (the mutated payload is re-emitted); returning a value emits
@@ -16,13 +15,19 @@ arity):
 - Sink: ``wf/sink.hpp``. A row sink's functor takes one tuple (``None`` at
   EOS); a ``with_columns()`` sink's functor takes whole host column
   batches, ``func(cols, ts)`` (``(None, None)`` at EOS), so a
-  device-plane exit never boxes rows.
+  device-plane exit never boxes rows. ``with_exactly_once`` selects the
+  transactional replicas (``TxnSinkReplica``, ``TxnColumnarSinkReplica``):
+  the output buffers per checkpoint epoch and reaches the functor, and
+  the committed segment files, only when the epoch is finalized
+  (``sinks/transactional.py``).
 """
 
 from __future__ import annotations
 
 import copy
 from typing import Any, Callable, Optional
+
+import numpy as np
 
 from ..basic import OpType, RoutingMode, WindFlowError
 from .base import BasicOperator, BasicReplica, arity
@@ -179,6 +184,10 @@ class ReduceReplica(BasicReplica):
 
 class Sink(BasicOperator):
     op_type = OpType.SINK
+    # exactly-once mode (sinks/transactional.py): the output buffers per
+    # checkpoint epoch, pre-commits at the barrier as a staged segment file
+    # and becomes visible (atomic rename) when the epoch is finalized
+    supports_exactly_once = True
 
     def __init__(self, func: Callable, name: str = "sink",
                  parallelism: int = 1,
@@ -189,9 +198,15 @@ class Sink(BasicOperator):
         self.func = func
         self.accepts_columns = accepts_columns
         self._riched = arity(func) >= (3 if accepts_columns else 2)
+        self.exactly_once = False
+        self.txn_dir: Optional[str] = None
 
     def build_replicas(self) -> None:
-        cls = ColumnarSinkReplica if self.accepts_columns else SinkReplica
+        if self.exactly_once:
+            cls = (TxnColumnarSinkReplica if self.accepts_columns
+                   else TxnSinkReplica)
+        else:
+            cls = ColumnarSinkReplica if self.accepts_columns else SinkReplica
         self.replicas = [cls(self, i) for i in range(self.parallelism)]
 
 
@@ -233,14 +248,127 @@ class ColumnarSinkReplica(BasicReplica):
             cols = {name: col[:n] for name, col in msg.host_columns().items()}
             ts = msg.ts_host[:n]
             self.context._set_meta(int(ts[-1]) if n else 0, self.cur_wm)
-            if self.op._riched:
-                self.op.func(cols, ts, self.context)
-            else:
-                self.op.func(cols, ts)
+            self._consume(cols, ts)
         self.stats.end_svc(n)
+
+    def _consume(self, cols, ts) -> None:
+        """One host column batch -> the functor (the exactly-once
+        subclass buffers it into the current epoch instead)."""
+        if self.op._riched:
+            self.op.func(cols, ts, self.context)
+        else:
+            self.op.func(cols, ts)
 
     def flush_on_termination(self) -> None:
         if self.op._riched:
             self.op.func(None, None, self.context)
         else:
             self.op.func(None, None)
+
+
+# --------------------------------------------------------------------------
+# Exactly-once sinks (sinks/transactional.py): two-phase commit driven by the
+# checkpoint coordinator. Subclasses, so the at-least-once path is untouched.
+# --------------------------------------------------------------------------
+class _TxnSinkMixin:
+    """Chain-node hooks shared by the row and columnar transactional
+    sinks; the 2PC state machine is ``EpochTxnDriver``."""
+
+    def _init_txn(self) -> None:
+        from ..sinks.transactional import (EpochTxnDriver, SegmentBackend,
+                                           txn_dir_for)
+        self.txn_root = txn_dir_for(self.op.name, self.idx, self.op.txn_dir)
+        self._txn = EpochTxnDriver(SegmentBackend(self.txn_root), self.stats,
+                                   deliver=self._deliver)
+        # an instance attribute, so the worker's idle tick drives commits
+        # (plain sinks stay off the idle-tick path)
+        self.on_idle = self._txn.poll
+
+    # -- worker and coordinator hooks (runtime/worker.py) ------------------
+    def bind_txn_coordinator(self, coordinator) -> None:
+        self._txn.bind(coordinator)
+
+    def precommit_epoch(self, ckpt_id: int) -> None:
+        self._txn.precommit_epoch(ckpt_id)
+
+    def handle_msg(self, ch: int, msg: Any) -> None:
+        # commit finalized epochs on our OWN thread before the next message
+        # (the finalize listener only raises a watermark)
+        if self._txn.commit_due():
+            self._txn.poll()
+        super().handle_msg(ch, msg)
+
+    def flush_on_termination(self) -> None:
+        # EOS: commit what is finalized and stage the post-barrier tail as
+        # one last pending epoch; delivery of the pending epochs (and the
+        # functor's EOS marker) waits for txn_complete, once the whole
+        # graph finished cleanly
+        self._txn.seal_tail()
+
+    def txn_complete(self) -> None:
+        """``PipeGraph.wait_end`` on a clean finish (workers joined, no
+        error): commit every remaining epoch in order, then hand the
+        functor its EOS marker."""
+        self._txn.complete_all()
+        self._eos_marker()
+
+    # -- checkpoint snapshot and restore -----------------------------------
+    def snapshot_state(self) -> dict:
+        st = super().snapshot_state()
+        st.update(self._txn.snapshot())
+        return st
+
+    def restore_state(self, state: dict) -> None:
+        super().restore_state(state)
+        self._txn.restore(state)
+
+
+class TxnSinkReplica(_TxnSinkMixin, SinkReplica):
+    """Row sink in exactly-once mode: tuples buffer per epoch; the
+    committed ``epoch_*.seg`` files under ``txn_root`` are the durable
+    output stream, and the functor sees each record exactly once, at
+    commit time, in epoch order."""
+
+    def __init__(self, op, idx):
+        super().__init__(op, idx)
+        self._init_txn()
+
+    def process(self, payload, ts, wm, tag):
+        self._txn.buffer.append((payload, ts))
+
+    def _deliver(self, records) -> None:
+        for payload, ts in records:
+            self.context._set_meta(ts, self.cur_wm)
+            if self.op._riched:
+                self.op.func(payload, self.context)
+            else:
+                self.op.func(payload)
+
+    def _eos_marker(self) -> None:
+        SinkReplica.flush_on_termination(self)
+
+
+class TxnColumnarSinkReplica(_TxnSinkMixin, ColumnarSinkReplica):
+    """Columnar sink in exactly-once mode: whole host column batches
+    buffer per epoch, one functor call per batch at commit time. The
+    buffered columns are copies: on a card the exit fetches into a fresh
+    pinned buffer, but on the CPU a column is a view of the batch's own
+    tensor, which its producer may reuse before the epoch pre-commits."""
+
+    def __init__(self, op, idx):
+        super().__init__(op, idx)
+        self._init_txn()
+
+    def _consume(self, cols, ts) -> None:
+        self._txn.buffer.append(
+            ({k: np.array(v) for k, v in cols.items()}, np.array(ts)))
+
+    def _deliver(self, records) -> None:
+        for cols, ts in records:
+            if self.op._riched:
+                self.op.func(cols, ts, self.context)
+            else:
+                self.op.func(cols, ts)
+
+    def _eos_marker(self) -> None:
+        ColumnarSinkReplica.flush_on_termination(self)

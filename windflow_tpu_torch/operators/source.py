@@ -5,17 +5,20 @@ no latency stamps). Parity:
 ``wf/source.hpp:55-163`` and ``wf/source_shipper.hpp``: ``push`` for
 INGRESS_TIME, ``push_with_timestamp``/``set_next_watermark`` for
 EVENT_TIME, plus the columnar ``push_columns`` fast path and the block
-source ``Columnar_Source`` whose functor yields column blocks (without the
-JAX package's block re-chunking and dtype declaration). With
-checkpointing on, a source replica injects the checkpoint barrier at its
-next push boundary (before the tuple, or before the block: a columnar
-source's barriers land only between blocks), and its snapshot records the
+source ``Columnar_Source`` whose functor yields column blocks, re-chunked
+to its ``block_size`` and cast to its ``schema``. With checkpointing on, a
+source replica injects the checkpoint barrier at its next push boundary
+(before the tuple, or before the block: a columnar source's barriers land
+only between the functor's yields), and its snapshot records the
 functor's replay position (``snapshot_position()`` / ``restore(pos)``).
+``ArrayBlockSource`` is a replayable block functor over numpy columns,
+``arrow_block_source`` one over a pyarrow table (when pyarrow is
+installed).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
@@ -128,6 +131,9 @@ class SourceReplica(BasicReplica):
         self._inject_cb = None  # Worker.checkpoint_now (chain-wide)
         self._last_ckpt = 0
         self._restore_position = None
+        # set between the chunks of one re-chunked yield: a barrier lands
+        # only at a functor-yield boundary (Columnar_Source.block_size)
+        self._inject_suppressed = False
 
     def process(self, payload, ts, wm, tag):  # pragma: no cover
         raise WindFlowError("Source has no input")
@@ -147,11 +153,17 @@ class SourceReplica(BasicReplica):
         return cid
 
     def _maybe_inject(self) -> None:
+        """Inject the barrier of EVERY epoch opened since the last one,
+        in order, all at this boundary: the aligners downstream count a
+        barrier per channel without reading its id, so a source that
+        skipped an epoch another source injected would close that epoch's
+        alignment with the wrong barrier, and the cut would mix epochs
+        (overlapping forced epochs from several sources)."""
         from ..message import Barrier
         cid = self._coord.requested_id
-        if cid > self._last_ckpt:
-            self._last_ckpt = cid
-            self._inject_cb(Barrier(cid))
+        while self._last_ckpt < cid:
+            self._last_ckpt += 1
+            self._inject_cb(Barrier(self._last_ckpt))
 
     def final_checkpoint(self) -> None:
         """Called by the worker when the generation loop ends, before the
@@ -218,7 +230,7 @@ class SourceReplica(BasicReplica):
     def ship_columns(self, cols, ts_arr, wm: int) -> None:
         # before the block, like ship(): a block is never split by a
         # barrier, so a block-granular cursor stays exact
-        if self._coord is not None \
+        if self._coord is not None and not self._inject_suppressed \
                 and self._coord.requested_id != self._last_ckpt:
             self._maybe_inject()
         self._advance_wm(wm)
@@ -231,11 +243,22 @@ class SourceReplica(BasicReplica):
 class Columnar_Source(Source):
     """BLOCK source: the functor, called as ``func([ctx])``, is a generator
     of column blocks: ``cols`` (INGRESS_TIME), ``(cols, ts)`` (EVENT_TIME)
-    or ``(cols, ts, wm)`` (also advances the watermark before the push)."""
+    or ``(cols, ts, wm)`` (also advances the watermark before the push).
+
+    ``block_size`` (builder: ``with_block_size``; the JAX package's
+    ``WF_INGEST_BLOCK_ROWS``; 0 = off) re-chunks oversized yields;
+    barriers still land only at functor-yield boundaries, so a replayable
+    functor's block-granular cursor stays exact. ``schema`` (name -> numpy
+    dtype) casts each declared column at the edge."""
 
     def __init__(self, func: Callable, name: str = "columnar_source",
-                 parallelism: int = 1, output_batch_size: int = 0) -> None:
+                 parallelism: int = 1, output_batch_size: int = 0,
+                 block_size: int = 0,
+                 schema: Optional[Dict[str, Any]] = None) -> None:
         super().__init__(func, name, parallelism, output_batch_size)
+        self.block_size = max(0, int(block_size))
+        self.block_schema = ({k: np.dtype(v) for k, v in schema.items()}
+                             if schema else None)
         self._riched = arity(func) >= 1
 
     def build_replicas(self) -> None:
@@ -249,11 +272,34 @@ class ColumnarSourceReplica(SourceReplica):
         it = op.func(self.context) if op._riched else op.func()
         if it is None:
             return
+        bs = op.block_size
+        schema = op.block_schema
         for block in it:
             cols, ts, wm = _normalize_block(block)
+            if schema is not None:
+                # asarray copies nothing when the dtype already matches
+                cols = {k: (np.asarray(v, dtype=schema[k])
+                            if k in schema else v)
+                        for k, v in cols.items()}
             if wm is not None:
                 shipper.set_next_watermark(int(wm))
-            shipper.push_columns(cols, ts)
+            n = len(next(iter(cols.values()))) if cols else 0
+            if not bs or n <= bs:
+                shipper.push_columns(cols, ts)
+                continue
+            # re-chunk to the declared block size with barrier injection
+            # suppressed between the chunks: the functor's cursor covers
+            # whole yields, so a barrier between chunks would emit the
+            # leading chunks twice after a restore
+            try:
+                for off in range(0, n, bs):
+                    end = min(off + bs, n)
+                    shipper.push_columns(
+                        {k: v[off:end] for k, v in cols.items()},
+                        ts[off:end] if ts is not None else None)
+                    self._inject_suppressed = True
+            finally:
+                self._inject_suppressed = False
 
 
 def _normalize_block(block):
@@ -268,3 +314,70 @@ def _normalize_block(block):
     raise WindFlowError(
         "Columnar_Source functor must yield cols dicts or "
         "(cols, ts[, wm]) tuples, got " + type(block).__name__)
+
+
+class ArrayBlockSource:
+    """Replayable block functor over in-memory numpy columns: yields
+    ``block_size``-row slices (with their timestamps when ``ts`` is
+    given). The cursor advances AFTER each yield, so a barrier injected
+    at the push snapshots a position covering exactly the blocks already
+    shipped; the block in flight replays after a restore."""
+
+    def __init__(self, cols: Dict[str, Any], ts: Optional[Any] = None,
+                 block_size: int = 8192) -> None:
+        if block_size <= 0:
+            raise WindFlowError("ArrayBlockSource: block_size must be > 0")
+        self._cols = {k: np.asarray(v) for k, v in cols.items()}
+        n = -1
+        for v in self._cols.values():
+            if n < 0:
+                n = len(v)
+            elif len(v) != n:
+                raise WindFlowError("ArrayBlockSource: ragged columns")
+        self._ts = None if ts is None else np.asarray(ts, dtype=np.int64)
+        if self._ts is not None and len(self._ts) != max(n, 0):
+            raise WindFlowError("ArrayBlockSource: ts length mismatch")
+        self._n = max(n, 0)
+        self._bs = block_size
+        self._pos = 0
+
+    def __call__(self):
+        while self._pos < self._n:
+            lo = self._pos
+            hi = min(lo + self._bs, self._n)
+            cols = {k: v[lo:hi] for k, v in self._cols.items()}
+            if self._ts is None:
+                yield cols
+            else:
+                yield cols, self._ts[lo:hi]
+            self._pos = hi
+
+    # the replayable-source protocol (a block-granular cursor)
+    def snapshot_position(self) -> int:
+        return self._pos
+
+    def restore(self, position: int) -> None:
+        self._pos = int(position)
+
+
+def arrow_block_source(table, ts_column: Optional[str] = None,
+                       block_size: int = 8192) -> ArrayBlockSource:
+    """Block functor over a pyarrow Table / RecordBatch: the columns
+    convert to numpy once (zero-copy where the Arrow layout allows) and
+    stream as ``ArrayBlockSource`` blocks. Needs pyarrow."""
+    try:
+        import pyarrow  # noqa: F401
+    except Exception as exc:
+        raise WindFlowError(
+            "arrow_block_source requires pyarrow, which is not "
+            "available in this environment") from exc
+    tbl = table.combine_chunks() if hasattr(table, "combine_chunks") else table
+    cols = {}
+    for name in tbl.schema.names:
+        col = tbl.column(name) if hasattr(tbl, "column") else tbl[name]
+        try:
+            cols[name] = col.to_numpy(zero_copy_only=True)
+        except Exception:
+            cols[name] = col.to_numpy(zero_copy_only=False)
+    ts = cols.pop(ts_column) if ts_column else None
+    return ArrayBlockSource(cols, ts, block_size)

@@ -1,8 +1,8 @@
 """Worker threads: one OS thread per replica-chain.
 
 Trimmed copy of ``windflow_tpu/runtime/worker.py`` (no flight recorder,
-no stall watchdog, no exactly-once pre-commit). Chained operators share a
-thread and the stage collector is fused in front of the first replica.
+no stall watchdog). Chained operators share a thread and the stage
+collector is fused in front of the first replica.
 Termination mirrors the reference's EOS cascade
 (``wf/basic_operator.hpp:180-189``). A replica that throws records the
 error, drains its inputs and force-propagates EOS downstream, so
@@ -18,9 +18,11 @@ delivered to collectors or replicas); a ``BarrierAligner`` buffers
 post-barrier input from already-barriered channels until every live
 channel delivered the barrier, then ``checkpoint_now`` drains the chain's
 device dispatch queues, flushes its emitters, forwards the barrier
-downstream, snapshots every node (collector included) and acks the
-coordinator with the blobs. A held epoch (a live rescale) then parks the
-worker right after its ack until the rescale controller releases it.
+downstream, has every exactly-once sink pre-commit its epoch
+(``precommit_epoch``), snapshots every node (collector included) and
+acks the coordinator with the blobs. A held epoch (a live rescale) then
+parks the worker right after its ack until the rescale controller
+releases it.
 """
 
 from __future__ import annotations
@@ -78,6 +80,12 @@ class Worker(threading.Thread):
             # source chain: the source replica injects barriers at push
             # boundaries and hands the chain snapshot back to us
             self.chain[0].bind_checkpoint(coordinator, self.checkpoint_now)
+        # exactly-once sinks (sinks/transactional.py): their commit rides
+        # the coordinator's finalize listener
+        for n in self._replicas:
+            bind = getattr(n, "bind_txn_coordinator", None)
+            if bind is not None:
+                bind(coordinator)
 
     def run(self) -> None:
         try:
@@ -205,11 +213,12 @@ class Worker(threading.Thread):
         emitter feeding the next node, so every pre-barrier tuple reaches
         downstream channels BEFORE the barrier; (2) the barrier goes
         downstream through the last emitter, which drains its D2H
-        pipeline first; (3) state capture under the snapshot context
+        pipeline first; (3) exactly-once sinks pre-commit the epoch;
+        (4) state capture under the snapshot context
         (``checkpoint/delta.py``: engines that track their touched slots
         may emit a delta against their last FULL snapshot), device state
         copied to host numpy with synchronous copies, so the blobs own
-        their data when (4) the ack hands them over — written here, or
+        their data when (5) the ack hands them over — written here, or
         queued for the coordinator's uploader with ``async_upload``. The
         coordinator commits once every worker has acked."""
         coord = self.coordinator
@@ -227,6 +236,14 @@ class Worker(threading.Thread):
                 em.flush()  # inline edge: feeds the next chained node now
         if last is not None and last.emitter is not None:
             last.emitter.send_barrier_all(barrier)
+        # exactly-once sinks pre-commit the epoch BEFORE the capture (and
+        # before our ack can let the coordinator finalize it): what they
+        # staged since the previous barrier becomes this epoch's durable,
+        # not yet visible segment or transaction
+        for node in replicas:
+            hook = getattr(node, "precommit_epoch", None)
+            if hook is not None:
+                hook(barrier.ckpt_id)
         t_cap = time.perf_counter()
         with capturing(barrier.ckpt_id, coord.store, coord.store.delta,
                        coord.full_every):

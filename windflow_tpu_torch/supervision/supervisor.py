@@ -29,7 +29,11 @@ The supervisor closes that loop:
    FALLBACK LADDER from the newest: a checkpoint that fails verification
    (``CorruptCheckpointError``) or raises mid-apply is quarantined
    (``ckpt_N`` -> ``ckpt_N.corrupt``) and the next older one is tried,
-   down to a full replay from the sources' captured initial positions;
+   down to a full replay from the sources' captured initial positions
+   (which also aborts every exactly-once sink's pre-committed epochs: the
+   replay from zero produces them again). The rebuilt sink replicas bump
+   their transaction log's fence, so a torn-down replica's late write
+   raises ``FencedWriteError``;
 5. **resume**: fresh workers start; cumulative crash and dead-letter
    counters carry over. The detect -> resume time is the event's MTTR
    (``Supervision_last_restart_s``).
@@ -333,10 +337,7 @@ class Supervisor(threading.Thread):
                 # epoch ids roll back to the restored rung BEFORE the
                 # rebuild, as with restore_from=: re-created sources anchor
                 # their injection cursor here
-                with coord._lock:
-                    coord._alloc_id = cid
-                    coord.requested_id = cid
-                    coord.last_completed_id = cid
+                coord.rewind_to(cid)
                 g._rebuild_runtime()
                 g._restore_states(states)
             except Exception:
@@ -353,10 +354,7 @@ class Supervisor(threading.Thread):
         # cursors would drop every record that sat in the discarded
         # channels, so replayable sources restart from their initial
         # positions instead
-        with coord._lock:
-            coord._alloc_id = 0
-            coord.requested_id = 0
-            coord.last_completed_id = 0
+        coord.rewind_to(0)
         g._rebuild_runtime()
         self._reset_sources_to_initial()
         self.last_ladder_depth = depth
@@ -370,6 +368,14 @@ class Supervisor(threading.Thread):
                 if pos is not None:
                     r._restore_position = pos
                     r.stats.inputs_received = 0  # the stream restarts
+                # exactly-once sinks: the dead generation may have left
+                # pre-committed epochs that no checkpoint finalized. The
+                # stream restarts from ZERO, so the replay produces their
+                # records again: they abort now, or a later restore would
+                # roll them forward and duplicate them
+                drv = getattr(r, "_txn", None)
+                if drv is not None:
+                    drv.restore({"txn_last_epoch": 0})
 
     # -- cumulative counters carried across a rebuild -----------------------
     _CARRY_FIELDS = ("worker_crashes", "dlq_records", "dlq_skipped",

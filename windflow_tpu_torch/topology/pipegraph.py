@@ -30,8 +30,12 @@ its newest committed checkpoint (``supervision/``), and an operator's
 to its poison record). Mesh operators (``with_mesh`` on the device
 builders, ``mesh/``) shard keyed state over a mesh of shards on the
 graph's card; ``with_device_probe`` lets the supervisor rebuild them on
-the healthy devices. Overload protection, prewarm and exactly-once sinks
-are not ported yet and raise.
+the healthy devices. ``with_exactly_once`` (or a sink builder's) makes
+sinks deliver each result once across kills and restores: an
+epoch-fenced two-phase commit on the checkpoint coordinator's finalize
+(``sinks/transactional.py``). Overload protection, prewarm, the
+monitoring plane's tracing and exports, and ``with_compile_cache`` are
+not ported yet and raise.
 
 ``execution_mode`` picks the collector in front of each stage
 (``_make_collector``): DEFAULT merges watermarks, DETERMINISTIC merges the
@@ -126,6 +130,11 @@ class PipeGraph:
         self._device_probe = None
         self._initial_positions: Dict[Any, Any] = {}
         self._dlq = None  # the graph's dead-letter queue, on first use
+        # exactly-once sinks: graph-wide switch and staging root (the JAX
+        # package's WF_EXACTLY_ONCE / WF_TXN_DIR); per-sink builders opt in
+        # on their own
+        self._exactly_once = False
+        self._txn_dir: Optional[str] = None
 
     # -- surfaces of the JAX package that are not ported yet ---------------
     def _not_ported(self, what: str):
@@ -137,8 +146,50 @@ class PipeGraph:
     def with_prewarm(self, *args, **kwargs):
         self._not_ported("with_prewarm")
 
-    def with_exactly_once(self, *args, **kwargs):
-        self._not_ported("with_exactly_once")
+    def with_compile_cache(self, *args, **kwargs):
+        self._not_ported("with_compile_cache")
+
+    def with_flight_recorder(self, *args, **kwargs):
+        self._not_ported("with_flight_recorder")
+
+    def prewarm_report(self, *args, **kwargs):
+        self._not_ported("prewarm_report")
+
+    def dump_stats(self, *args, **kwargs):
+        self._not_ported("dump_stats")
+
+    def dump_trace(self, *args, **kwargs):
+        self._not_ported("dump_trace")
+
+    def trace_document(self, *args, **kwargs):
+        self._not_ported("trace_document")
+
+    def to_dot(self, *args, **kwargs):
+        self._not_ported("to_dot")
+
+    def to_svg(self, *args, **kwargs):
+        self._not_ported("to_svg")
+
+    # ------------------------------------------------------------------
+    # exactly-once sinks (windflow_tpu_torch.sinks.transactional)
+    # ------------------------------------------------------------------
+    def with_exactly_once(self, staging_dir: Optional[str] = None
+                          ) -> "PipeGraph":
+        """Graph-wide exactly-once delivery: every sink runs the
+        epoch-fenced two-phase commit (stage per checkpoint epoch,
+        pre-commit at the aligned barrier, commit atomically when the
+        coordinator finalizes the epoch). Requires ``with_checkpointing``;
+        a sink family that cannot honour the protocol makes ``start()``
+        refuse rather than silently downgrade the guarantee.
+        ``staging_dir`` is the segment root of every sink that names none
+        of its own (default ``wf_txn_sinks``; the JAX package's
+        ``WF_TXN_DIR``)."""
+        if self._started:
+            raise WindFlowError("with_exactly_once after start()")
+        self._exactly_once = True
+        if staging_dir is not None:
+            self._txn_dir = staging_dir
+        return self
 
     # ------------------------------------------------------------------
     # supervision (windflow_tpu_torch.supervision)
@@ -235,6 +286,42 @@ class PipeGraph:
             if pol.may_dead_letter:
                 op._dlq = pol.dlq if pol.dlq is not None \
                     else self.dead_letter_queue()
+
+    def _negotiate_exactly_once(self) -> None:
+        """At build, before the replicas are made (their classes follow
+        ``op.exactly_once``): turn graph-wide exactly-once on in every sink,
+        then check that every exactly-once sink can deliver it, and that
+        the checkpoint plane that drives its commits is on. Refuses loudly:
+        a guarantee that silently downgrades is worse than a refusal."""
+        sinks = [op for op in self._ops if op.op_type == OpType.SINK]
+        if self._exactly_once:
+            for op in sinks:
+                if not getattr(op, "supports_exactly_once", False):
+                    raise WindFlowError(
+                        f"with_exactly_once: sink {op.name!r} "
+                        f"({type(op).__name__}) does not implement the "
+                        "transactional sink protocol (precommit_epoch / "
+                        "commit-on-finalize); it would deliver "
+                        "at-least-once and break the graph guarantee")
+                op.exactly_once = True
+        eo_sinks = [op for op in sinks
+                    if getattr(op, "exactly_once", False)]
+        for op in eo_sinks:
+            if not getattr(op, "supports_exactly_once", False):
+                raise WindFlowError(
+                    f"sink {op.name!r} ({type(op).__name__}) has "
+                    "exactly_once set but does not implement the "
+                    "transactional sink protocol")
+            if self._txn_dir is not None and hasattr(op, "txn_dir") \
+                    and op.txn_dir is None:
+                op.txn_dir = self._txn_dir
+        if eo_sinks and not self._ckpt_enabled:
+            raise WindFlowError(
+                "exactly-once sinks need the checkpoint plane that "
+                f"drives their commits: sink(s) "
+                f"{[op.name for op in eo_sinks]} request exactly-once "
+                "but checkpointing is off — call with_checkpointing(...) "
+                "before start()")
 
     def _negotiate_mesh_checkpoint(self) -> None:
         """At build, under checkpointing: a mesh operator without a
@@ -442,8 +529,7 @@ class PipeGraph:
             cid, ckpt_dir, manifest = resolved
             # new epochs continue after the restored one; sources bind
             # their injection cursor to this before any trigger fires
-            self._coordinator.requested_id = cid
-            self._coordinator.last_completed_id = cid
+            self._coordinator.rewind_to(cid)
             return ckpt_dir, manifest
         return None, None
 
@@ -486,6 +572,14 @@ class PipeGraph:
                     "checkpointed topology was fused differently (match "
                     "PipeGraph(fusion=...) / the chain() calls of the "
                     "original graph)")
+            if "txn_last_epoch" in state \
+                    and not hasattr(replica, "precommit_epoch"):
+                raise WindFlowError(
+                    f"restore: checkpoint blob for {op_name!r} was taken "
+                    "by an exactly-once sink, but this graph runs the "
+                    "sink at-least-once — staged epochs would neither "
+                    "commit nor abort; enable with_exactly_once() to "
+                    "match the checkpointed guarantee")
             state = dict(state)
             em_state = state.pop("__emitter__", None)
             coll_state = state.pop("__collector__", None)
@@ -519,6 +613,7 @@ class PipeGraph:
         if self._built:
             return
         self._built = True
+        self._negotiate_exactly_once()
         self._negotiate_error_policies()
         self._negotiate_mesh_checkpoint()
         if self.device.type == "cuda":
@@ -781,6 +876,13 @@ class PipeGraph:
         states = restore_from if isinstance(restore_from, dict) else None
         ckpt_dir, manifest = self._setup_checkpointing(
             None if states is not None else restore_from)
+        if states is not None and self._coordinator is not None:
+            # a states dict names no checkpoint id, but an exactly-once
+            # sink's blob records its epoch: new epochs continue after it
+            # (an id at or below it would be discarded as committed)
+            self._coordinator.rewind_to(max(
+                (int(st.get("txn_last_epoch", 0)) for st in states.values()),
+                default=0))
         self._build()
         if states is not None:
             self._restore_states(states)
@@ -857,6 +959,16 @@ class PipeGraph:
         if self._coordinator is not None \
                 and self._coordinator.upload_error is not None:
             raise self._coordinator.upload_error
+        # exactly-once sinks: the run finished cleanly, so every pending
+        # epoch (the tail after the last barrier, and any epoch finalized
+        # after its sink's worker exited) commits now, in epoch order, on
+        # this thread. After an error they stay pending: a restore rolls
+        # them forward or aborts them.
+        for op in self._ops:
+            for r in {id(r): r for r in op.replicas}.values():
+                fin = getattr(r, "txn_complete", None)
+                if fin is not None:
+                    fin()
 
     def run(self, restore_from=None) -> None:
         """Blocking run (reference ``PipeGraph::run``). ``restore_from``: a
