@@ -141,7 +141,7 @@ Phases, each printing one line of its own:
    bisection's commits and host time against a clean batch's;
 14. the mesh plane (``mesh`` lines) on the one card with 8 virtual shards
    (``ensure_virtual_devices(8)``, every shard stacked on ``cuda:0``):
-   part ``ffat``, the HC stream (2 warm-up + 12 timed batches) through
+   part ``ffat``, the HC stream (2 warm-up + 6 timed batches) through
    ``Ffat_Windows_Mesh`` at mesh shapes (1, 1), (8, 1), (4, 2) and
    (2, 4), and ``scripts/bench_mesh.py``'s config (64 keys,
    16,384-tuple batches) at (4, 2): rows equal the CPU run at the same
@@ -211,10 +211,39 @@ Phases, each printing one line of its own:
    the exactly-once run's committed windows equal the CPU run of the
    blocks its source recorded (host operators only: no device work).
    Part ``persistent``: P_Map (a running per-key sum) and P_Keyed_Windows
-   (CB 13/5) at 10,240 keys over 200,000 tuples with a 1,024-entry LRU
-   cache, rows equal to the in-memory Map / Keyed_Windows and a numpy
-   fold; an exactly-once P_Sink killed and restored ends with the
-   uninterrupted run's database;
+   (CB 13/5) at 10,240 keys over 100,000 tuples with a 1,024-entry LRU
+   cache, rows equal to a numpy fold; an exactly-once P_Sink killed and
+   restored ends with the uninterrupted run's database;
+17. the native runtime, the monitoring plane, the overload governor and
+   prewarm (``observe`` lines). Part ``native``: YSB's rows into the
+   device chain (1,000,000 events) with the staging encoders on, off,
+   off, on (counts equal the model every run; the encoders filled every
+   staged batch, or none), events/s each; then the HC main path on the
+   C++ channel ring against the Python channels (equal rows, tuples/s).
+   Part ``tracing``: the HC main path traced at 1/64 (source, window,
+   sink) against untraced, in turns (equal rows; tuples/s; a device
+   window's rows carry no trace stamps, as in the JAX package), the HC
+   stream through a traced Map_GPU (the sink's e2e p50 / p99 / max), and
+   one traced run under ``torch.profiler``
+   recording every thread: the ``wf:prep:`` and ``wf:commit:`` spans are
+   there and every K1 launch lies in a commit span. Part ``flightrec``:
+   the HC run's ``dump_trace`` is a valid Chrome trace (span counts,
+   dropped events); a supervised HC graph whose map blocks 3 s once,
+   with a 1 s stall watchdog, is restarted, its distinct rows equal to
+   the uninterrupted run's (block -> resumed time). Part ``monitor``: a
+   MonitoringServer on 127.0.0.1 takes the HC run's reports; ``/json``
+   names the graph, ``/metrics`` parses as Prometheus text, ``/doctor``
+   gives a verdict. Part ``overload``: YSB's rows paced at twice the
+   native part's rate under ``with_slo(max(1 s, 2 x the ysb paced
+   p99))``, then 20,000 of them at an eighth of the native part's rate
+   under a 0.5 us SLO, which the governor's queue-delay reading
+   exceeds, so that run must shed: in each, offered == admitted + shed,
+   one shed-log line per shed record, counts equal the model over the
+   events not shed; the rungs, ``Shed_records``, the governor's readings
+   and the last 5 s's p99 against the SLO. Part
+   ``prewarm``: the HC run with and without ``with_prewarm()``: equal
+   rows, the report, K1 loaded before batch 0, the first batch's
+   latency;
 
 then the ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -528,19 +557,30 @@ def _blocks(n_keys, seed, n_batches=N_BATCHES, batch=BATCH):
 
 
 def _run_graph(wt, device, blocks, n_keys, win_per_batch, prefix=(),
-               fusion=True):
+               fusion=True, graph_kw=None, trace_rate=None, setup=None,
+               schema=None, first_hook=None, pace_s=0.0):
     """Columnar source -> [prefix ops, chained ->] Ffat_Windows_GPU ->
     columnar sink; returns the window columns (sorted by key, wid), timing
     marks, the window's replica (a fused chain's replica when the prefix
-    fused into it) and the graph."""
+    fused into it) and the graph. ``graph_kw`` goes to the PipeGraph,
+    ``trace_rate`` to the source's, window's and sink's
+    ``with_latency_tracing``, ``setup(graph)`` runs before the build,
+    ``schema`` is the window's declared schema, ``first_hook(graph)`` runs
+    before the first block is yielded and ``pace_s`` sleeps after each
+    block (the observe phase's knobs)."""
     import numpy as np
     t_yield, t_in, t_recv = {}, {}, {}
     parts, lock = [], threading.Lock()
+    holder = {}
 
     def source():
         for cols, ts, wm in blocks:
+            if first_hook is not None and not t_yield:
+                first_hook(holder["graph"])
             t_yield[wm] = time.perf_counter()
             yield cols, ts, wm
+            if pace_s:
+                time.sleep(pace_s)
 
     def sink(cols, ts):
         if cols is None:
@@ -553,20 +593,30 @@ def _run_graph(wt, device, blocks, n_keys, win_per_batch, prefix=(),
 
     graph = wt.PipeGraph("chip_smoke", wt.ExecutionMode.DEFAULT,
                          wt.TimePolicy.EVENT_TIME, device=device,
-                         fusion=fusion)
+                         fusion=fusion, **(graph_kw or {}))
+    holder["graph"] = graph
     b = (wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
                                      wt.fieldwise(value="sum"))
          .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
          .with_key_capacity(n_keys))
     if win_per_batch:
         b = b.with_num_win_per_batch(win_per_batch)
+    if schema is not None:
+        b = b.with_schema(schema)
+    src_b = wt.Columnar_Source_Builder(source).with_output_batch_size(BATCH)
+    sink_b = wt.Sink_Builder(sink).with_columns()
+    if trace_rate is not None:
+        b = b.with_latency_tracing(trace_rate)
+        src_b = src_b.with_latency_tracing(trace_rate)
+        sink_b = sink_b.with_latency_tracing(trace_rate)
     op = b.build()
-    mp = graph.add_source(wt.Columnar_Source_Builder(source)
-                          .with_output_batch_size(BATCH).build())
+    mp = graph.add_source(src_b.build())
     for i, pre in enumerate(prefix):
         mp = mp.add(pre) if i == 0 else mp.chain(pre)
     mp = mp.chain(op) if prefix else mp.add(op)
-    mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
+    mp.add_sink(sink_b.build())
+    if setup is not None:
+        setup(graph)
     graph.get_num_threads()  # builds the replicas
     rep = op.replicas[0]
     prep = rep.prep_device_batch
@@ -2839,7 +2889,9 @@ def supervise_phase(torch, wt, card):
 # ---------------------------------------------------------------------------
 MESH_VDEV = 8
 MESH_SHAPES = ((1, 1), (8, 1), (4, 2), (2, 4))
-MESH_BATCHES, MESH_WARMUP = 14, 2
+# 2 warm-up + 6 timed batches (12 timed until PR 12 cut the depth to keep
+# the script inside its time with the observe phase)
+MESH_BATCHES, MESH_WARMUP = 8, 2
 # scripts/bench_mesh.py's config: 64 keys, 16,384-tuple batches
 MESH_BENCH_KEYS, MESH_BENCH_BATCH = 64, 16_384
 MESH_DEAD = (4, 5, 6, 7)   # the degrade part's dead virtual devices
@@ -3267,6 +3319,7 @@ YSB_EVENTS = 1_000_000                  # 100 s of event time
 YSB_PACED_EVENTS = 300_000
 YSB_HOST_EVENTS = 100_000   # per-tuple Python: one 10 s window a campaign
 YSB_BROKER = "chip_smoke_ysb"
+YSB_MEASURED = {}  # ysb_phase's device events/s and paced p99 (ms)
 # win_tests shape at a user's size: WIN_KEYS keys x WIN_LEN tuples each
 WIN_KEYS, WIN_LEN, WIN_TS_STEP = 1_000, 60, 137
 WIN_TB, WIN_CB = (1_000, 400), (13, 5)
@@ -3393,11 +3446,14 @@ def _ysb_device_ops(wt):
     return [views, project, win]
 
 
-def _ysb_run(wt, kafka, device, group, n_events, blocks=False, rate=0.0):
+def _ysb_run(wt, kafka, device, group, n_events, blocks=False, rate=0.0,
+             graph_kw=None, setup=None, lat_at=None):
     """One YSB run on the device chain: the (campaign, wid) -> count map,
     the number of valid rows the sink took, the latencies (ms, source
     ingest -> window emit), events/s (run start -> the last window's
-    delivery), the window operator and the graph."""
+    delivery), the window operator and the graph. ``graph_kw`` goes to
+    the PipeGraph, ``setup(graph)`` runs before the run, and ``lat_at``
+    (a list) receives ``(receipt time, latency ms)`` pairs."""
     counts, n_rows, lat, t_last = {}, [0], [], [0.0]
     t0 = time.perf_counter()
 
@@ -3414,17 +3470,23 @@ def _ysb_run(wt, kafka, device, group, n_events, blocks=False, rate=0.0):
                            cols["wid"][v].tolist(),
                            cols["count"][v].tolist()):
             counts[(c, w)] = n
-        lat.extend(((now - cols["last_ing"][v]) / 1e3).tolist())
+        ms = ((now - cols["last_ing"][v]) / 1e3).tolist()
+        lat.extend(ms)
         t_last[0] = time.perf_counter()
+        if lat_at is not None:
+            lat_at.extend((t_last[0], x) for x in ms)
 
     graph = wt.PipeGraph("ysb", wt.ExecutionMode.DEFAULT,
-                         wt.TimePolicy.EVENT_TIME, device=device)
+                         wt.TimePolicy.EVENT_TIME, device=device,
+                         **(graph_kw or {}))
     ops = _ysb_device_ops(wt)
     mp = graph.add_source(_ysb_source(kafka, group, clock, n_events,
                                       blocks, rate))
     for op in ops:
         mp = mp.add(op)
     mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
+    if setup is not None:
+        setup(graph)
     t0 = time.perf_counter()
     graph.run()
     return (counts, n_rows[0], lat, n_events / (t_last[0] - t0), ops[-1],
@@ -3495,6 +3557,8 @@ def ysb_phase(torch, wt, card):
         wt, kafka, "cuda", "paced", YSB_PACED_EVENTS, rate=eps / 2)
     _ysb_check("paced", counts_p, rows_p, model_p)
     p50p, p99p = _pcts(lat_p)
+    # the observe phase's overload part sizes its SLO from these
+    YSB_MEASURED.update(device_events_per_s=eps, paced_p99_ms=p99p)
     launches += win_p.replicas[0].stats.rebuild_kernel_launches
     phase("ysb", part="paced", card=card, events=YSB_PACED_EVENTS,
           target_events_per_s=eps / 2, events_per_s=eps_p,
@@ -3789,8 +3853,9 @@ REPLAY_KEYS, REPLAY_RATE, REPLAY_BLOCK = 512, 12_000, 512
 REPLAY_PHASE_S, REPLAY_LATE, REPLAY_LATENESS_US = 2.0, 0.05, 200_000
 REPLAY_CURVE = (0.5, 1.0, 2.0, 1.5, 0.7)
 REPLAY_WIN_US, REPLAY_PAR = 500_000, 2
-# persistent: 10,240 keys, 200,000 tuples, an LRU cache of 1,024 entries
-P_KEYS, P_TUPLES, P_CACHE, P_BLOCK = 10_240, 200_000, 1_024, 4_096
+# persistent: 10,240 keys, 100,000 tuples (200,000 until PR 12 halved the
+# stream to keep the script inside its time), an LRU cache of 1,024 entries
+P_KEYS, P_TUPLES, P_CACHE, P_BLOCK = 10_240, 100_000, 1_024, 4_096
 P_CB = (13, 5)
 
 
@@ -4293,7 +4358,7 @@ def eo_replay_part(wt, card):
 
 
 class _PStream:
-    """The persistent part's stream: 200,000 (key, value) int64 tuples
+    """The persistent part's stream: P_TUPLES (key, value) int64 tuples
     over 10,240 keys (numpy, seeded; the first ``n`` of them) as a
     replayable columnar functor of 4,096-row blocks; it asks ``graph`` for
     a checkpoint every ``every`` blocks and raises before block
@@ -4374,9 +4439,11 @@ def _p_sink_fold(t, state):
 
 
 def eo_persistent_part(wt, card):
-    """Part ``persistent``: P_Map and P_Keyed_Windows against the
-    in-memory Map / Keyed_Windows and a numpy fold, then an exactly-once
-    P_Sink killed and restored."""
+    """Part ``persistent``: P_Map and P_Keyed_Windows against a numpy
+    fold, then an exactly-once P_Sink killed and restored. (The in-memory
+    Map / Keyed_Windows twins ran here until PR 11; PR 12 cut them to keep
+    the script inside its time with the ``observe`` phase: their rows
+    were held to the same fold, and their rates are in PERF.md.)"""
     from windflow_tpu_torch import persistent as P
     base = _PStream(wt)
     keys, vals = base.keys, base.vals
@@ -4400,20 +4467,11 @@ def eo_persistent_part(wt, card):
             out.setdefault(r["key"], []).append(r["sum"])
         return out
 
-    mem = {}
-
-    def mem_sum(t):
-        s = mem.get(t["key"], 0) + t["value"]
-        mem[t["key"]] = s
-        return {"key": t["key"], "sum": s}
-
     for name, make in (
             ("p_map", lambda: P.P_Map_Builder(_p_sum)
              .with_key_by(lambda t: t["key"]).with_initial_state(0)
              .with_db_path(_build_dir("p_db", "p_map"))
-             .with_cache_capacity(P_CACHE).with_name("pmap").build()),
-            ("map", lambda: wt.Map_Builder(mem_sum)
-             .with_key_by(lambda t: t["key"]).with_name("map").build())):
+             .with_cache_capacity(P_CACHE).with_name("pmap").build()),):
         rows, wall, _ = _p_run(wt, _PStream(wt), make())
         rates[name] = P_TUPLES / wall
         if running(rows) != run_model:
@@ -4424,11 +4482,7 @@ def eo_persistent_part(wt, card):
                 lambda ws: sum(w["value"] for w in ws))
              .with_key_by(lambda t: t["key"]).with_cb_windows(*P_CB)
              .with_db_path(_build_dir("p_db", "p_kw"))
-             .with_cache_capacity(P_CACHE).with_name("pkw").build()),
-            ("keyed_windows", lambda: wt.Keyed_Windows_Builder(
-                lambda ws: sum(w["value"] for w in ws))
-             .with_key_by(lambda t: t["key"]).with_cb_windows(*P_CB)
-             .with_name("kw").build())):
+             .with_cache_capacity(P_CACHE).with_name("pkw").build()),):
         rows, wall, _ = _p_run(wt, _PStream(wt), make())
         rates[name] = P_TUPLES / wall
         got = {(r.key, r.wid): r.value for r in rows}
@@ -4483,7 +4537,7 @@ def eo_persistent_part(wt, card):
              "differs from the uninterrupted run's")
     phase("exactly_once", part="persistent", card=card, device_work=False,
           keys=P_KEYS, tuples=P_TUPLES, cache=P_CACHE, cb_window=list(P_CB),
-          rows_equal_in_memory_and_fold=True,
+          rows_equal_fold=True,
           p_sink_db_equal_uninterrupted=True,
           p_sink_tuples=n_sink, checkpoint_every_blocks=every,
           crash_before_block=crash_at,
@@ -4499,6 +4553,587 @@ def exactly_once_phase(torch, wt, card):
     launches += eo_kafka_part(torch, wt, card)
     eo_replay_part(wt, card)
     eo_persistent_part(wt, card)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase observe: the native runtime, the monitoring plane, the overload
+# governor and prewarm
+# ---------------------------------------------------------------------------
+OBS_TRACE_RATE = "1/64"
+OBS_STALL_AT = 16          # the stall part's map blocks once, on batch 16
+OBS_STALL_BLOCK_S = 3.0
+OBS_STALL_SEC = 1.0        # the watchdog's threshold
+OBS_PACE_S = 0.02          # the stall part's pause between blocks
+OBS_SLO_MIN_MS = 1000.0
+OBS_LAST_S = 5.0           # the overload part's tail window
+OBS_SHED_EVENTS = 20_000   # the overload part's shedding run, paced at
+OBS_SHED_RATE_DIV = 8      # 1/8 of the sustained rate: every shed row
+                           # costs its source thread a shed-log append
+OBS_SHED_SLO_MS = 0.0005   # below the queue-delay estimate's 1 us floor
+OBS_SHED_TICK_S = 0.05     # its governor's tick (cooldown: two ticks;
+                           # one breaching tick escalates)
+OBS_RING = 16384           # flight-recorder ring per worker
+OBS_SCHEMA = {"key": np.int32, "value": np.int32}
+
+
+def _op_reps(graph, name):
+    """The replica stats dicts of the operator named ``name``."""
+    return [r for o in graph.get_stats()["Operators"] if o["name"] == name
+            for r in o["replicas"]]
+
+
+def observe_native_part(torch, wt, kafka, card):
+    """Part ``native``: YSB rows into the device chain with the staging
+    encoders on and off in turns (on, off, off, on), counts equal to the
+    model every run and the encoders' batch count equal to the staged
+    batches (0 when off); then the HC main path on the C++ channel ring
+    against the Python channels. Returns K1's launches and the mean
+    events/s with the encoders on."""
+    from windflow_tpu_torch import native
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    if not native.native_available():
+        fail(f"observe native: the native runtime did not build: "
+             f"{native.native_build_error()}")
+    model = _ysb_model(YSB_EVENTS)
+    eps = {True: [], False: []}
+    launches = 0
+    for i, on in enumerate((True, False, False, True)):
+        e0 = native.ENCODE_BATCHES
+        fr.LAUNCHES = 0
+        torch.cuda.synchronize()
+        counts, n_rows, _, rate, win, g = _ysb_run(
+            wt, kafka, "cuda", f"obs_native{i}", YSB_EVENTS,
+            setup=lambda gr, on=on: setattr(gr, "_native_encoders", on))
+        launches += _launched("observe native", fr, win.replicas[0])
+        _ysb_check(f"observe native {'on' if on else 'off'}", counts,
+                   n_rows, model)
+        staged = sum(r["Device_batches_in"] for r in _op_reps(g, "views"))
+        encoded = sum(r["Staging_native_batches"]
+                      for r in _op_reps(g, "kafka_src"))
+        want = staged if on else 0
+        if staged == 0 or encoded != want \
+                or native.ENCODE_BATCHES - e0 != want:
+            fail(f"observe native: encoders {'on' if on else 'off'} filled "
+                 f"{encoded} of {staged} staged batches")
+        eps[on].append(rate)
+    blocks = _blocks(HC_KEYS, seed=7)
+    runs, tps = {}, {}
+    for kind in ("python", "native", "native", "python"):
+        fr.LAUNCHES = 0
+        torch.cuda.synchronize()
+        run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
+                         graph_kw={"native_channels": kind == "native"})
+        launches += _launched(f"observe native channels {kind}", fr,
+                              run[5])
+        chans = [ch for s in run[6]._stages for ch in s.channels]
+        if kind == "native" and not all(
+                isinstance(ch, native.NativeChannel) for ch in chans):
+            fail("observe native: a channel is not the native ring")
+        if kind in runs:
+            _check_windows("observe native channels", f"its {kind} twin",
+                           run[0], runs[kind])
+        runs[kind] = run[0]
+        tps.setdefault(kind, []).append(
+            _ffat_rates(blocks, run)["tuples_per_s"])
+    _check_windows("observe native channels", "the Python channels",
+                   runs["native"], runs["python"])
+    phase("observe", part="native", card=card, events=YSB_EVENTS,
+          counts_equal_model=True, encoder_ran=True,
+          encoder_on_events_per_s=eps[True],
+          encoder_off_events_per_s=eps[False],
+          native_state=native.native_state(), hc_keys=HC_KEYS,
+          hc_batches=N_BATCHES, rows_equal_python_channel=True,
+          native_channel_tuples_per_s=tps["native"],
+          python_channel_tuples_per_s=tps["python"])
+    return launches, sum(eps[True]) / len(eps[True])
+
+
+def _profile_all_threads(torch):
+    """``torch.profiler`` arguments that record CPU ranges of every
+    thread (the graph's workers run the spans), or None when this torch
+    build cannot."""
+    from torch.profiler import ProfilerActivity
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        cfg = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+    return dict(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                experimental_config=cfg)
+
+
+def _k1_in_commit(torch, prof):
+    """The ``wf:prep:`` / ``wf:commit:`` spans of a profiled run, K1's
+    device launches, and how many of them a host thread launched inside a
+    ``wf:commit:`` span (the launch's runtime call, matched to the kernel
+    by its correlation id, lies in the span's time range on its
+    thread)."""
+    evs = list(prof.profiler.kineto_results.events())
+    spans = {"prep": 0, "commit": 0}
+    commits = []
+    for e in evs:
+        n = e.name()
+        if n.startswith("wf:prep:"):
+            spans["prep"] += 1
+        elif n.startswith("wf:commit:"):
+            spans["commit"] += 1
+            commits.append((e.start_thread_id(), e.start_ns(),
+                            e.start_ns() + e.duration_ns()))
+    cuda = torch.autograd.DeviceType.CUDA
+    k1 = {e.correlation_id() for e in evs
+          if e.device_type() == cuda and KERNEL_MATCH in e.name()}
+    inside = set()
+    for e in evs:
+        if e.device_type() == cuda or e.correlation_id() not in k1:
+            continue
+        tid, t = e.start_thread_id(), e.start_ns()
+        if any(tid == ct and a <= t <= b for ct, a, b in commits):
+            inside.add(e.correlation_id())
+    return spans, len(k1), len(inside)
+
+
+def _stateless_e2e(wt, blocks):
+    """The HC stream through columnar source -> Map_GPU -> columnar sink,
+    traced at OBS_TRACE_RATE on all three: the mapped values are the
+    input's plus one, and the sink's e2e histogram (p50 / p99 / max) has
+    samples."""
+    got = [0, 0]
+
+    def source():
+        yield from blocks
+
+    def sink(cols, ts):
+        if cols is not None:
+            got[0] += len(cols["value"])
+            got[1] += int(cols["value"].astype(np.int64).sum())
+
+    g = wt.PipeGraph("chip_smoke_traced_map", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT_TIME, device="cuda")
+    (g.add_source(wt.Columnar_Source_Builder(source)
+                  .with_output_batch_size(BATCH)
+                  .with_latency_tracing(OBS_TRACE_RATE).build())
+     .add(wt.Map_GPU_Builder(lambda f: {**f, "value": f["value"] + 1})
+          .with_latency_tracing(OBS_TRACE_RATE).build())
+     .add_sink(wt.Sink_Builder(sink).with_columns()
+               .with_latency_tracing(OBS_TRACE_RATE).build()))
+    t0 = time.perf_counter()
+    g.run()
+    wall = time.perf_counter() - t0
+    n = sum(len(c["value"]) for c, _, _ in blocks)
+    want = sum(int(c["value"].astype(np.int64).sum()) for c, _, _ in blocks)
+    if got != [n, want + n]:
+        fail(f"observe tracing: the traced Map_GPU run gave {got}, "
+             f"want {[n, want + n]}")
+    (rep,) = _op_reps(g, "sink")
+    if rep["Latency_e2e_samples"] == 0:
+        fail("observe tracing: the sink behind Map_GPU recorded no e2e "
+             "sample")
+    return dict(tuples_per_s=n / wall,
+                **{k: rep[f"Latency_e2e_{k}"] for k in (
+                    "samples", "p50_usec", "p99_usec", "max_usec")})
+
+
+def observe_tracing_part(torch, wt, card):
+    """Part ``tracing``: the HC main path with ``with_latency_tracing(
+    "1/64")`` on source, window and sink, against the untraced path in
+    turns: equal rows and tuples/s (a device window's output carries no
+    trace stamps, as in the JAX package, so its sink samples no e2e);
+    the same stream through a traced stateless device op (Map_GPU), whose
+    output batches carry their input's stamps: the sink's e2e histogram;
+    then one traced run under ``torch.profiler``: the ``wf:prep:`` and
+    ``wf:commit:`` spans are there and every K1 launch lies inside a
+    commit span. Returns K1's launches."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(HC_KEYS, seed=7)
+    ref, tps, win_e2e = None, {"off": [], "on": []}, []
+    launches = 0
+    for traced in (False, True, False, True):
+        fr.LAUNCHES = 0
+        torch.cuda.synchronize()
+        run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
+                         trace_rate=OBS_TRACE_RATE if traced else None)
+        launches += _launched("observe tracing", fr, run[5])
+        if ref is None:
+            ref = run[0]
+        else:
+            _check_windows("observe tracing", "the untraced run", run[0],
+                           ref)
+        tps["on" if traced else "off"].append(
+            _ffat_rates(blocks, run)["tuples_per_s"])
+        (sink,) = _op_reps(run[6], "sink")
+        if traced:
+            win_e2e.append(sink["Latency_e2e_samples"])
+        elif sink["Latency_e2e_samples"]:
+            fail("observe tracing: the untraced sink recorded samples")
+    e2e = _stateless_e2e(wt, blocks)
+    kw = _profile_all_threads(torch)
+    if kw is None:
+        fail("observe tracing: this torch cannot profile worker threads "
+             f"({torch.__version__})")
+    from torch.profiler import profile
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    with profile(**kw) as prof:
+        run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
+                         trace_rate=OBS_TRACE_RATE)
+        torch.cuda.synchronize()
+    launches += _launched("observe tracing profiled", fr, run[5])
+    _check_windows("observe tracing profiled", "the untraced run", run[0],
+                   ref)
+    spans, k1, inside = _k1_in_commit(torch, prof)
+    if not spans["prep"] or not spans["commit"]:
+        fail(f"observe tracing: profiler spans missing: {spans}")
+    if k1 == 0 or inside != k1:
+        fail(f"observe tracing: {inside} of {k1} K1 launches lie inside "
+             "a wf:commit: span")
+    phase("observe", part="tracing", card=card, rate=OBS_TRACE_RATE,
+          rows_equal_untraced=True, traced_tuples_per_s=tps["on"],
+          untraced_tuples_per_s=tps["off"],
+          window_sink_e2e_samples=win_e2e, stateless_sink_e2e=e2e,
+          profiled_spans=spans, k1_launches_profiled=k1,
+          k1_inside_commit_span=inside, torch=torch.__version__)
+    return launches
+
+
+def _valid_chrome(doc):
+    """The Chrome trace-event document shape the flight recorder
+    promises: complete spans and metadata events, JSON all the way."""
+    json.loads(json.dumps(doc))
+    for e in doc["traceEvents"]:
+        if e["ph"] == "X":
+            if not (e["ts"] >= 0 and e["dur"] >= 0 and isinstance(
+                    e["pid"], int) and isinstance(e["tid"], int)
+                    and isinstance(e["name"], str)):
+                return False
+        elif e["ph"] != "M":
+            return False
+    return True
+
+
+class _StallMap:
+    """A Map_GPU function that blocks OBS_STALL_BLOCK_S on its
+    OBS_STALL_AT-th batch, once per run object."""
+
+    def __init__(self):
+        self.calls = 0
+        self.t_block = None
+
+    def __call__(self, f):
+        self.calls += 1
+        if self.calls == OBS_STALL_AT and self.t_block is None:
+            self.t_block = time.time()
+            time.sleep(OBS_STALL_BLOCK_S)
+        return {**f, "value": f["value"] + 0}
+
+
+class _PacedBlocks:
+    """Replayable block source (EVENT_TIME): one block per step, a
+    checkpoint requested after every SUP_EVERY blocks without waiting for
+    it (a source parked on a commit the stalled map holds back would be
+    flagged too), OBS_PACE_S between blocks."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+        self.pos = 0
+
+    def __call__(self, shipper):
+        while self.pos < len(self.blocks):
+            cols, ts, wm = self.blocks[self.pos]
+            shipper.set_next_watermark(wm)
+            shipper.push_columns(cols, ts)
+            self.pos += 1
+            if self.pos % SUP_EVERY == 0:
+                shipper.request_checkpoint()
+            time.sleep(OBS_PACE_S)
+
+    def snapshot_position(self):
+        return self.pos
+
+    def restore(self, pos):
+        self.pos = pos
+
+
+def _run_stall(wt, device, blocks, store, stall):
+    parts, sink = _sink_parts()
+    src = _PacedBlocks(blocks)
+    graph = wt.PipeGraph("obs_stall", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device=device,
+                         stall_sec=OBS_STALL_SEC if stall else 0.0,
+                         log_dir=_build_dir("observe_log"))
+    graph.with_checkpointing(store_dir=store)
+    graph.with_supervision(wt.RestartPolicy(max_restarts=2, backoff_s=0.05,
+                                            backoff_max_s=0.1, seed=0))
+    fn = _StallMap() if stall else (lambda f: {**f, "value": f["value"]})
+    (win,) = _rs_ops(wt, "ffat", 1)
+    graph.add_source(wt.Source_Builder(src).with_name("src")
+                     .with_output_batch_size(BATCH).build()) \
+        .add(wt.Map_GPU_Builder(fn).with_name("stallmap").build()) \
+        .add(win).add_sink(wt.Sink_Builder(sink).with_columns().build())
+    graph.run()
+    return parts, graph, win, fn
+
+
+def observe_flightrec_part(torch, wt, card):
+    """Part ``flightrec``: ``dump_trace`` of the HC run is valid Chrome
+    JSON (span counts per kind, dropped events); then a supervised FFAT
+    graph whose map blocks OBS_STALL_BLOCK_S once, with the watchdog at
+    OBS_STALL_SEC: the stall is detected and the graph restarted, and its
+    distinct window rows equal the uninterrupted run's. Returns K1's
+    launches."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(HC_KEYS, seed=7)
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
+                     setup=lambda g: g.with_flight_recorder(OBS_RING))
+    launches = _launched("observe flightrec", fr, run[5])
+    path = run[6].dump_trace(os.path.join(_build_dir("observe_log"),
+                                          "hc_trace.json"))
+    with open(path) as f:
+        doc = json.load(f)
+    if not doc["traceEvents"] or not _valid_chrome(doc):
+        fail("observe flightrec: dump_trace is no valid Chrome trace")
+    kinds = {}
+    for e in doc["traceEvents"]:
+        if e["ph"] == "X":
+            kinds[e["name"]] = kinds.get(e["name"], 0) + 1
+    if not {"host_prep", "commit", "emit"} <= set(kinds):
+        fail(f"observe flightrec: device spans missing: {sorted(kinds)}")
+    sblocks = _blocks(HC_KEYS, seed=61)
+    gold = _rec_results("ffat", _run_stall(
+        wt, "cuda", sblocks, _ckpt_dir("obs_stall_g"), False)[0])
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    parts, g, win, fn = _run_stall(wt, "cuda", sblocks,
+                                   _ckpt_dir("obs_stall"), True)
+    launches += fr.LAUNCHES
+    sup = g.get_stats()["Supervision"]
+    fired = list(g._watchdog.fired) if g._watchdog is not None else []
+    if sup["Supervision_restarts"] < 1 or not any(
+            "stallmap" in w for w in fired):
+        fail(f"observe flightrec: the stall was not restarted (restarts "
+             f"{sup['Supervision_restarts']}, watchdog {fired})")
+    if _rec_results("ffat", parts) != gold:
+        fail("observe flightrec: the restarted run's distinct rows differ "
+             "from the uninterrupted run")
+    h = sup["Supervision_history"][0]
+    phase("observe", part="flightrec", card=card, trace_events=len(
+        doc["traceEvents"]), span_counts=kinds,
+          dropped_events=doc.get("droppedEvents", 0), ring=OBS_RING,
+          stall_block_s=OBS_STALL_BLOCK_S, stall_sec=OBS_STALL_SEC,
+          watchdog_fired=fired, restarts=sup["Supervision_restarts"],
+          restored_checkpoint=h["ckpt_id"],
+          block_to_resume_s=h["t_unix"] - fn.t_block,
+          detect_to_resume_s=h["mttr_s"], distinct_equal_card=True,
+          postmortem=g.last_postmortem is not None)
+    return launches
+
+
+def observe_monitor_part(torch, wt, card):
+    """Part ``monitor``: a MonitoringServer on 127.0.0.1 (port 0, with its
+    HTTP view) receives the HC run's MonitoringThread; ``/json`` names the
+    graph, ``/metrics`` parses as Prometheus text and ``/doctor`` gives a
+    verdict. Returns K1's launches."""
+    import re
+    import urllib.request
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    from windflow_tpu_torch.monitoring.monitor import MonitoringServer
+    srv = MonitoringServer("127.0.0.1", 0)
+    try:
+        http_port = srv.serve_http(0)
+        blocks = _blocks(HC_KEYS, seed=7)
+        fr.LAUNCHES = 0
+        torch.cuda.synchronize()
+        run = _run_graph(wt, "cuda", blocks, HC_KEYS, None, pace_s=0.1,
+                         graph_kw={"dashboard": (srv.host, srv.port),
+                                   "log_dir": _build_dir("observe_log")})
+        launches = _launched("observe monitor", fr, run[5])
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline \
+                and "chip_smoke" not in srv.snapshot()["doctor"]:
+            time.sleep(0.05)
+
+        def get(path):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{http_port}{path}", timeout=10) as r:
+                return r.status, r.read().decode()
+
+        code, body = get("/json")
+        snap = json.loads(body)
+        if code != 200 or "chip_smoke" not in snap["reports"]:
+            fail("observe monitor: /json does not name the graph")
+        code, metrics = get("/metrics")
+        pat = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})?\s+\S+$')
+        samples = [ln for ln in metrics.splitlines()
+                   if ln and not ln.startswith("#")]
+        if code != 200 or not samples or not all(pat.match(ln)
+                                                 for ln in samples):
+            fail("observe monitor: /metrics is no Prometheus text")
+        code, body = get("/doctor")
+        doctor = json.loads(body).get("chip_smoke") or {}
+        if code != 200 or not doctor.get("summary"):
+            fail("observe monitor: /doctor gave no verdict")
+    finally:
+        srv.close()
+    phase("observe", part="monitor", card=card,
+          reports=snap["n_reports"], metric_samples=len(samples),
+          doctor_summary=doctor["summary"],
+          doctor_healthy=doctor["healthy"])
+    return launches
+
+
+def _overload_run(torch, wt, kafka, name, n_events, rate, slo_ms,
+                  interval_s, breach_hysteresis=2):
+    """One paced YSB device-chain run under ``with_slo(slo_ms)``: offered
+    == admitted + shed exactly, one ShedLog line per shed record, and the
+    sink's campaign-window counts equal the model over the events the
+    shed log does not name. Returns the run's numbers and K1's launches."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    shed_dir = _build_dir(f"observe_{name}")
+    policy = wt.GovernorPolicy(slo_p99_ms=slo_ms, interval_s=interval_s,
+                               cooldown_s=2 * interval_s,
+                               breach_hysteresis=breach_hysteresis,
+                               shed_dir=shed_dir)
+    lat_at = []
+    fr.LAUNCHES = 0
+    torch.cuda.synchronize()
+    counts, n_rows, _, eps, win, g = _ysb_run(
+        wt, kafka, "cuda", f"obs_{name}", n_events, rate=rate,
+        setup=lambda gr: gr.with_slo(slo_ms, policy), lat_at=lat_at)
+    launches = _launched(f"observe {name}", fr, win.replicas[0])
+    reps = _op_reps(g, "kafka_src")
+    admitted = sum(r["Inputs_received"] for r in reps)
+    shed = sum(r["Shed_records"] for r in reps)
+    if admitted + shed != n_events:
+        fail(f"observe {name}: offered {n_events} != admitted "
+             f"{admitted} + shed {shed}")
+    shed_ts = set()
+    log = os.path.join(shed_dir, "ysb.shed.jsonl")
+    if shed:
+        with open(log) as f:
+            shed_ts = {json.loads(ln)["ts"] for ln in f}
+    if len(shed_ts) != shed:
+        fail(f"observe {name}: the shed log names {len(shed_ts)} "
+             f"records, Shed_records {shed}")
+    i = np.arange(0, n_events, 3, dtype=np.int64)
+    i = i[~np.isin(i * YSB_TS_STEP_US,
+                   np.fromiter(shed_ts, np.int64, len(shed_ts)))]
+    camp = (i % (YSB_CAMPAIGNS * YSB_ADS)) // YSB_ADS
+    wid = i * YSB_TS_STEP_US // YSB_WIN_US
+    keys, cnt = np.unique(camp * 1_000_000 + wid, return_counts=True)
+    model = {(int(k // 1_000_000), int(k % 1_000_000)): int(c)
+             for k, c in zip(keys, cnt)}
+    _ysb_check(f"observe {name}", counts, n_rows, model)
+    ov = g.get_stats()["Overload"]
+    hist = ov["Overload_history"]
+    (sink,) = _op_reps(g, "sink")
+    t_end = max(t for t, _ in lat_at)
+    _, tail_p99 = _pcts([x for t, x in lat_at if t >= t_end - OBS_LAST_S])
+    return dict(
+        events=n_events, offered_events_per_s=rate, events_per_s=eps,
+        slo_ms=slo_ms,
+        rungs=[h["detail"] for h in hist if h["event"] == "escalate"],
+        state=ov["Overload_state_name"], offered=n_events,
+        admitted=admitted, shed_records=shed,
+        offered_equals_admitted_plus_shed=True,
+        counts_equal_model_over_admitted=True,
+        last_5s_p99_ms=tail_p99,
+        sink_e2e_samples=sink["Latency_e2e_samples"],
+        governor_window_p99_ms=ov["Overload_window_p99_usec"] / 1e3,
+        governor_readings_ms=[h["window_p99_us"] / 1e3 for h in hist],
+        admit_rate_tps=ov["Overload_admit_rate_tps"]), launches
+
+
+def observe_overload_part(torch, wt, kafka, card, sustained_eps):
+    """Part ``overload``: YSB's device chain under an SLO, twice. First
+    paced at twice the events/s the native part's row runs sustained,
+    under ``with_slo(p99_ms=S)`` (S = twice the ysb paced part's p99, at
+    least OBS_SLO_MIN_MS). Then OBS_SHED_EVENTS paced at
+    1/OBS_SHED_RATE_DIV of the sustained rate under OBS_SHED_SLO_MS,
+    which the governor's reading behind the device window exceeds: it
+    samples no end-to-end latency there, as in the JAX package, and
+    reads the queue-delay estimate, at least 1 us a queued message. So
+    the SHED rung, the gate and the shed log run, and that run must shed.
+    Each run holds offered == admitted + shed and the model over the
+    admitted events. Returns K1's launches."""
+    slo_ms = max(OBS_SLO_MIN_MS,
+                 2.0 * float(YSB_MEASURED.get("paced_p99_ms") or 0.0))
+    rate = 2.0 * sustained_eps
+    out, launches = _overload_run(torch, wt, kafka, "overload", YSB_EVENTS,
+                                  rate, slo_ms, 0.25)
+    shed, k1 = _overload_run(torch, wt, kafka, "overload_shed",
+                             OBS_SHED_EVENTS,
+                             sustained_eps / OBS_SHED_RATE_DIV,
+                             OBS_SHED_SLO_MS, OBS_SHED_TICK_S,
+                             breach_hysteresis=1)
+    launches += k1
+    if shed["shed_records"] == 0 or "shed" not in shed["rungs"]:
+        fail(f"observe overload_shed: the governor shed nothing under a "
+             f"{OBS_SHED_SLO_MS} ms SLO (rungs {shed['rungs']})")
+    phase("observe", part="overload", card=card,
+          sustained_events_per_s=sustained_eps, slo_run=out, shed_run=shed)
+    return launches
+
+
+def observe_prewarm_part(torch, wt, card):
+    """Part ``prewarm``: the HC main path (window schema declared) with
+    and without ``with_prewarm()``: equal rows, the report, whether the
+    window replica had loaded K1 before batch 0, and the first batch's
+    latency (yield -> its first window row at the sink). Returns K1's
+    launches."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    blocks = _blocks(HC_KEYS, seed=7)
+    out, ref = {}, None
+    launches = 0
+    for warm in (False, True):
+        seen = {}
+
+        def hook(graph):
+            (op,) = [o for o in graph._ops if o.name == "ffat_windows_gpu"]
+            seen["k1"] = bool(getattr(op.replicas[0], "_k1_loaded", False))
+
+        fr.LAUNCHES = 0
+        torch.cuda.synchronize()
+        run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
+                         schema=OBS_SCHEMA, first_hook=hook,
+                         setup=(lambda g: g.with_prewarm()) if warm
+                         else None)
+        launches += _launched("observe prewarm", fr, run[5])
+        if ref is None:
+            ref = run[0]
+        else:
+            _check_windows("observe prewarm", "the run without prewarm",
+                           run[0], ref)
+        t_yield, t_recv = run[1], run[3]
+        first = min(t_recv.values()) - min(t_yield.values())
+        if seen.get("k1") != warm:
+            fail(f"observe prewarm: K1 loaded before batch 0 = "
+                 f"{seen.get('k1')} with prewarm {warm}")
+        out[warm] = dict(first_batch_latency_ms=first * 1e3,
+                         k1_loaded_before_batch0=seen["k1"],
+                         report=run[6].prewarm_report)
+    phase("observe", part="prewarm", card=card, rows_equal=True,
+          with_prewarm=out[True], without_prewarm=out[False])
+    return launches
+
+
+def observe_phase(torch, wt, card):
+    """Phase ``observe``: parts ``native``, ``tracing``, ``flightrec``,
+    ``monitor``, ``overload`` and ``prewarm``. Returns K1's launches."""
+    from windflow_tpu_torch import kafka
+    t0 = time.perf_counter()
+    kafka.MemoryBroker.reset()
+    _ysb_fill(kafka, YSB_EVENTS)
+    launches, sustained = observe_native_part(torch, wt, kafka, card)
+    launches += observe_tracing_part(torch, wt, card)
+    launches += observe_flightrec_part(torch, wt, card)
+    launches += observe_monitor_part(torch, wt, card)
+    launches += observe_overload_part(torch, wt, kafka, card, sustained)
+    launches += observe_prewarm_part(torch, wt, card)
+    kafka.MemoryBroker.reset()
+    phase("observe", part="total", card=card,
+          wall_s=time.perf_counter() - t0, rebuild_launches=launches)
     return launches
 
 
@@ -4543,6 +5178,7 @@ def main() -> None:
     mesh_launches = mesh_phase(torch, wt, card)
     ysb_launches = ysb_phase(torch, wt, card)
     eo_launches = exactly_once_phase(torch, wt, card)
+    obs_launches = observe_phase(torch, wt, card)
     print(json.dumps({"kernels": [{
         "name": "forest_rebuild",
         "route": "cuda",
@@ -4552,7 +5188,7 @@ def main() -> None:
                      + dag_launches + recovery_launches
                      + delta_launches + rescale_launches
                      + supervise_launches + mesh_launches
-                     + ysb_launches + eo_launches),
+                     + ysb_launches + eo_launches + obs_launches),
         "max_abs_err": max(err_checks, err_timed),
         "ms": timing["wrapper_ms"],
         "device_ms": timing["device_ms"],

@@ -173,6 +173,45 @@ def test_exactly_once_and_persistent_modules_import_alone_without_jax(mod):
     assert out.stdout.split()[0] == "OK", out.stdout
 
 
+@pytest.mark.parametrize("mod", [
+    "windflow_tpu_torch.native", "windflow_tpu_torch.monitoring.histogram",
+    "windflow_tpu_torch.monitoring.tracing",
+    "windflow_tpu_torch.monitoring.flightrec",
+    "windflow_tpu_torch.monitoring.diagram",
+    "windflow_tpu_torch.monitoring.doctor",
+    "windflow_tpu_torch.monitoring.monitor",
+    "windflow_tpu_torch.monitoring.webclient",
+    "windflow_tpu_torch.overload", "windflow_tpu_torch.overload.admission",
+    "windflow_tpu_torch.overload.governor",
+    "windflow_tpu_torch.parallel.mesh"])
+def test_monitoring_overload_and_native_modules_import_alone_without_jax(
+        mod):
+    """The native runtime, the monitoring plane, the overload plane and
+    the parallel shim (the port's own copies of the JAX package's
+    JAX-free ``native/``, ``monitoring/``, ``overload/`` and
+    ``parallel/`` modules) import on their own, in a fresh interpreter,
+    without pulling in jax or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c",
+                          _ALONE.format(root=ROOT, mod=mod)],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "OK", out.stdout
+
+
+def test_native_runtime_source_is_the_ports_own():
+    """The port builds its own ``native/wfruntime.cpp`` (not the JAX
+    package's file) and never builds next to it."""
+    import windflow_tpu_torch.native as nat
+    own = os.path.join(ROOT, "windflow_tpu_torch", "native",
+                       "wfruntime.cpp")
+    jax_src = os.path.join(ROOT, "windflow_tpu", "native", "wfruntime.cpp")
+    assert str(nat.SRC) == own and os.path.exists(own)
+    assert open(own).read() != open(jax_src).read()
+    assert str(nat.BUILD_DIR).startswith(os.path.join(ROOT, "build"))
+
+
 def _imports(path):
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):

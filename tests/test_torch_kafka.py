@@ -146,8 +146,13 @@ def test_kafka_real_brokers_are_refused():
         with pytest.raises(wt.WindFlowError,
                            match="client.*not yet ported"):
             build()
-    with pytest.raises(wt.WindFlowError, match="not yet ported"):
-        kt.Kafka_Source_Builder(lambda m, s: False).with_slo(5.0)
+    # the overload knobs of the Kafka source builder are ported (PR 12):
+    # a budget and a priority ride the operator, as in the JAX package
+    for kpkg in (kt, kj):
+        op = (kpkg.Kafka_Source_Builder(lambda m, s: False)
+              .with_brokers("memory://slo_knobs").with_topics("t")
+              .with_slo(5.0).with_priority(lambda p: 1).build())
+        assert op.slo_p99_ms == 5.0 and op.priority_fn(None) == 1
 
 
 def test_kafka_retry_heals_then_delivers(monkeypatch):

@@ -299,6 +299,41 @@ def test_rescale_refuses_mesh_op():
     assert len(coll.rows) == 200
 
 
+def test_governor_scale_rung_skips_mesh_ops():
+    """Twin of ``test_mesh_ops.py::test_governor_scale_rung_skips_mesh_ops``:
+    the overload governor's SCALE rung never picks a mesh op (its
+    candidates go through ``repartition_refusal``), in both packages, so
+    an escalation falls through toward SHED."""
+    for pkg in (wj, wt):
+        gate = threading.Event()
+
+        def src(shipper):
+            for i in range(120):
+                if i == 60:
+                    gate.wait(10)
+                shipper.push({"key": i % NK, "v": float(i + 1)})
+
+        coll = _Rows(("key", "v", "run"))
+        kw = {} if pkg is wj else {"device": "cpu"}
+        g = pkg.PipeGraph(f"mm_gov_{pkg.__name__}", pkg.ExecutionMode.DEFAULT,
+                          pkg.TimePolicy.INGRESS_TIME, **kw)
+        g.with_slo(60_000.0)  # idle SLO: attached, never engages
+        op = _map_builder(pkg, (8, 1)).with_name("mscan").build()
+        g.add_source(pkg.Source_Builder(src).with_output_batch_size(32)
+                     .build()) \
+            .add(op).add_sink(pkg.Sink_Builder(coll.sink).build())
+        g.start()
+        try:
+            gov = g._overload_governor
+            assert gov is not None
+            assert "mscan" not in gov._eligible_totals()
+            assert gov._try_scale() is False
+        finally:
+            gate.set()
+            wait_end_bounded(g)
+        assert len(coll.sorted) == 120
+
+
 def test_checkpointing_refuses_non_snapshottable_mesh_op(tmp_path):
     class LegacyMesh(Map_Mesh):
         mesh_snapshot_capable = False

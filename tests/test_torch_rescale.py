@@ -214,7 +214,8 @@ def _cold(tier):
 def _assert_equal(a, b, path="", forest_leaves_only=False, skip=()):
     """Exact structural equality of split states. Tier cold images
     compare by their decoded items (sqlite bytes may differ) and, with
-    ``forest_leaves_only``, FFAT forests by their leaf half: the internal
+    ``forest_leaves_only``, FFAT forests and their validity bits by their
+    leaf half: the internal
     levels are a cache that the first batch after the move rebuilds
     (``rebuild_dirty``). Keys in ``skip`` are not compared."""
     if isinstance(a, dict):
@@ -239,6 +240,12 @@ def _assert_equal(a, b, path="", forest_leaves_only=False, skip=()):
                         np.asarray(a[k][name])[:, F:],
                         np.asarray(b[k][name])[:, F:],
                         err_msg=f"{path}.trees.{name}")
+                continue
+            if forest_leaves_only and k == "tvalid" and a[k] is not None:
+                F = a["F"] if "F" in a else None
+                np.testing.assert_array_equal(
+                    np.asarray(a[k])[:, F:], np.asarray(b[k])[:, F:],
+                    err_msg=f"{path}.tvalid")
                 continue
             _assert_equal(a[k], b[k], f"{path}.{k}", forest_leaves_only,
                           skip)
@@ -265,16 +272,23 @@ def test_split_operator_states_matches_jax(written, kind, n_old, n_new):
     # the port's split of the JAX-written blobs: the JAX split exactly
     _assert_equal(rep_t.split_operator_states(op_t, olds_j, n_new), want)
     # the port's split of its own blobs: row for row (the ingress-time
-    # watermark is the wall clock's, so it differs between runs). Which
-    # keys a tier keeps hot follows batch boundaries, which the staging
-    # edge's age flush makes timing-dependent: a tiered split compares
-    # each new replica's key -> value map over both tiers
+    # watermark is the wall clock's, so it differs between runs). Under
+    # load the staging edge's age flush moves both runs' batch
+    # boundaries, so ``fire_ewma`` (a firing-batch rate) and which forest
+    # levels the last rebuild left valid differ between runs: the first is
+    # not compared, and forests and their validity bits compare by their
+    # leaf half. Which keys a tier keeps hot follows batch
+    # boundaries too: a tiered split compares each new replica's key ->
+    # value map over both tiers
     got = rep_t.split_operator_states(op_t, olds_t, n_new)
     if kind == "tiered":
         assert [_tier_view(st) for st in got] \
             == [_tier_view(st) for st in want]
     else:
-        _assert_equal(got, want, forest_leaves_only=True, skip=("cur_wm",))
+        _assert_equal(got, want, forest_leaves_only=True,
+                      skip=("cur_wm", "fire_ewma"))
+        # and exactly the JAX split of the same blobs
+        _assert_equal(got, rep_j.split_operator_states(op_j, olds_t, n_new))
     # every key of the stream is owned by exactly one new replica
     sub = {"scan": "scan", "tiered": "scan", "ffat": "ffat"}.get(kind)
     if sub is not None:

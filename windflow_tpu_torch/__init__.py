@@ -39,9 +39,13 @@ checkpoint epoch and commit it on the coordinator's finalize;
 ``windflow_tpu_torch.persistent`` has the operators whose keyed state
 lives in sqlite (``P_Map`` ... ``P_Keyed_Windows``).
 
-Names of the JAX package's top level that are not ported yet
-(``GovernorPolicy``, ``TokenBucket``, ``ShedLog``: the overload plane)
-raise ``WindFlowError("... not yet ported ...")`` on access.
+The monitoring plane (``monitoring/``: sampled latency tracing, flight
+recorder and stall watchdog, ``MonitoringServer`` and the pipeline
+doctor, the dataflow diagram), the overload governor behind
+``PipeGraph.with_slo`` (``overload/``: ``GovernorPolicy``,
+``TokenBucket``, ``ShedLog``), ``with_prewarm`` and the native host
+runtime (``native/``: the C++ channel ring and the staging encoders)
+complete the JAX package's surface; every name of its top level is here.
 
 ``PipeGraph(..., device=None)`` runs on ``cuda`` and raises without a card;
 pass ``device="cpu"`` for the plain PyTorch path.
@@ -75,6 +79,7 @@ from .operators.source import (ArrayBlockSource, Columnar_Source, Source,
                                SourceShipper, arrow_block_source)
 from .operators.windows import (Keyed_Windows, MapReduce_Windows,
                                 Paned_Windows, Parallel_Windows)
+from .overload import GovernorPolicy, ShedLog, TokenBucket
 from .scaling import AutoscalePolicy, RescaleReport
 from .sinks.transactional import FencedWriteError
 from .state import TierConfig
@@ -93,25 +98,25 @@ __all__ = [
     "Ffat_Windows_Builder", "Ffat_Windows_GPU", "Ffat_Windows_GPU_Builder",
     "Ffat_Windows_Mesh", "Filter", "Filter_Builder", "Filter_GPU",
     "Filter_GPU_Builder", "Filter_Mesh", "FlatFAT", "FlatMap",
-    "FlatMap_Builder", "Interval_Join", "Interval_Join_Builder", "JoinMode",
+    "FlatMap_Builder", "GovernorPolicy", "Interval_Join",
+    "Interval_Join_Builder", "JoinMode",
     "KeyCapacityError", "Keyed_Windows", "Keyed_Windows_Builder",
     "LocalStorage", "Map", "MapReduce_Windows", "MapReduce_Windows_Builder",
     "Map_Builder", "Map_GPU", "Map_GPU_Builder", "Map_Mesh", "MultiPipe",
     "OpType", "Paned_Windows", "Paned_Windows_Builder", "Parallel_Windows",
     "Parallel_Windows_Builder", "PipeGraph", "Reduce", "Reduce_Builder",
     "Reduce_GPU", "Reduce_GPU_Builder", "Reduce_Mesh", "RescaleReport",
-    "RestartPolicy", "RoutingMode", "RuntimeContext", "Shipper", "Single",
+    "RestartPolicy", "RoutingMode", "RuntimeContext", "ShedLog", "Shipper",
+    "Single",
     "Sink", "Sink_Builder", "Source", "SourceShipper", "Source_Builder",
     "StaticDeviceProbe", "SupervisionEscalated", "TierConfig", "TimePolicy",
-    "TorchDeviceProbe", "WinResult", "WinType", "WindFlowError",
+    "TokenBucket", "TorchDeviceProbe", "WinResult", "WinType", "WindFlowError",
     "__version__", "arrow_block_source", "ensure_virtual_devices",
     "fieldwise",
 ]
 
 # top-level names of the JAX package whose plane is not ported yet
-_NOT_PORTED = {"GovernorPolicy": "the overload plane",
-               "TokenBucket": "the overload plane",
-               "ShedLog": "the overload plane"}
+_NOT_PORTED: dict = {}
 
 
 def __getattr__(name: str):

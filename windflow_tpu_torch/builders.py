@@ -1,6 +1,6 @@
 """Fluent builders of the host-plane operators of the ported slice.
 
-Trimmed copy of ``windflow_tpu/builders.py`` (parity: ``wf/builders.hpp``):
+Copy of ``windflow_tpu/builders.py`` (parity: ``wf/builders.hpp``):
 ``Source_Builder``, ``Columnar_Source_Builder``, ``Map_Builder``,
 ``Filter_Builder``, ``FlatMap_Builder``, ``Reduce_Builder``,
 ``Sink_Builder``, the host window builders (``Keyed_Windows_Builder``,
@@ -9,9 +9,10 @@ Trimmed copy of ``windflow_tpu/builders.py`` (parity: ``wf/builders.hpp``):
 ``Interval_Join_Builder``, with the JAX package's signatures, refusals and
 messages. The device operators' builders are in ``gpu.builders_gpu``, the
 Kafka ones in ``kafka.builders_kafka``, the persistent operators' in
-``persistent.builders_persistent``. Builder methods of the JAX package's
-planes that are not ported yet (latency tracing and the flight recorder,
-the overload knobs) raise ``WindFlowError("... not yet ported")``.
+``persistent.builders_persistent``. Every builder takes the monitoring
+plane's ``with_latency_tracing(rate)`` / ``with_flight_recorder(events)``,
+and the source builders the overload plane's ``with_slo(p99_ms)`` /
+``with_priority(fn)``.
 """
 
 from __future__ import annotations
@@ -27,10 +28,6 @@ from .operators.windows import (Keyed_Windows, MapReduce_Windows,
                                 Paned_Windows, Parallel_Windows)
 
 
-def _not_ported(what: str):
-    raise WindFlowError(f"{what} is not yet ported to windflow_tpu_torch")
-
-
 class BasicBuilder:
     """withName / withParallelism / withOutputBatchSize /
     withClosingFunction (``wf/builders.hpp:79-124``)."""
@@ -43,6 +40,8 @@ class BasicBuilder:
         self._parallelism = 1
         self._output_batch_size = 0
         self._closing: Optional[Callable] = None
+        self._latency_sample: Optional[int] = None
+        self._flightrec_events: Optional[int] = None
         self._error_policy = None
 
     def with_name(self, name: str) -> "BasicBuilder":
@@ -85,14 +84,36 @@ class BasicBuilder:
         self._error_policy = policy
         return self
 
-    def with_latency_tracing(self, *args, **kwargs):
-        _not_ported("with_latency_tracing (the monitoring plane)")
+    def with_latency_tracing(self, rate=1) -> "BasicBuilder":
+        """This operator's latency-tracing sample rate, over the graph's
+        ``latency_sample``: ``1`` samples every tuple, ``"1/64"`` (or
+        ``0.015625``) every 64th, ``0`` turns it off. Sources stamp the
+        sampled tuples, sinks record end-to-end latency, every replica
+        records sampled service and dispatch latencies into its
+        histograms (``monitoring/tracing.py``)."""
+        from .monitoring.tracing import parse_sample_rate
+        self._latency_sample = parse_sample_rate(rate)
+        return self
 
-    def with_flight_recorder(self, *args, **kwargs):
-        _not_ported("with_flight_recorder (the monitoring plane)")
+    def with_flight_recorder(self, events: int = 0) -> "BasicBuilder":
+        """A flight-recorder ring of ``events`` span events for this
+        operator's workers (0: the 4096 default). A chained stage takes
+        the largest override among its operators; see
+        ``PipeGraph.with_flight_recorder`` for the graph-wide switch and
+        ``PipeGraph.dump_trace`` / ``GET /trace`` for the exports."""
+        from .monitoring.flightrec import DEFAULT_EVENTS
+        if events < 0:
+            raise WindFlowError("with_flight_recorder: events must be >= 0")
+        self._flightrec_events = int(events) if events > 0 \
+            else DEFAULT_EVENTS
+        return self
 
     def _finish(self, op):
         op.closing_func = self._closing
+        if self._latency_sample is not None:
+            op.latency_sample = self._latency_sample
+        if self._flightrec_events is not None:
+            op.flightrec_events = self._flightrec_events
         if self._error_policy is not None:
             op.error_policy = self._error_policy
         return op
@@ -127,27 +148,50 @@ class _RoutableBuilder(BasicBuilder):
         return self
 
 
-class _SourceOverloadStubs:
-    """The JAX package's overload knobs of the source builders
-    (``with_slo`` / ``with_priority``): the overload plane is not ported
-    yet."""
+class _SourceOverloadMixin:
+    """``with_slo`` / ``with_priority`` of the source builders, the
+    overload plane's surface (``overload/``); shared with the Kafka source
+    builder."""
 
-    def with_slo(self, *args, **kwargs):
-        _not_ported("with_slo (the overload plane)")
+    _slo_p99_ms: Optional[float] = None
+    _priority_fn: Optional[Callable] = None
 
-    def with_priority(self, *args, **kwargs):
-        _not_ported("with_priority (the overload plane)")
+    def with_slo(self, p99_ms: float):
+        """This source's end-to-end p99 latency budget (milliseconds): the
+        graph attaches the overload governor at ``start()``; of several
+        declared budgets (the graph's ``with_slo`` and other sources') the
+        TIGHTEST governs."""
+        if p99_ms <= 0:
+            raise WindFlowError("with_slo: p99_ms must be > 0")
+        self._slo_p99_ms = float(p99_ms)
+        return self
+
+    def with_priority(self, fn: Callable[[Any], Any]):
+        """Record priority (higher = more important) for the
+        ``key_priority`` shed policy: when the admission gate must evict,
+        the LOWEST-priority buffered record sheds. The other shed policies
+        ignore it."""
+        if not callable(fn):
+            raise WindFlowError("with_priority: fn must be callable")
+        self._priority_fn = fn
+        return self
+
+    def _finish_overload(self, op):
+        op.slo_p99_ms = self._slo_p99_ms
+        op.priority_fn = self._priority_fn
+        return op
 
 
-class Source_Builder(_SourceOverloadStubs, BasicBuilder):
+class Source_Builder(_SourceOverloadMixin, BasicBuilder):
     _default_name = "source"
 
     def build(self) -> Source:
-        return self._finish(Source(self._func, self._name, self._parallelism,
-                                   self._output_batch_size))
+        return self._finish_overload(self._finish(
+            Source(self._func, self._name, self._parallelism,
+                   self._output_batch_size)))
 
 
-class Columnar_Source_Builder(_SourceOverloadStubs, BasicBuilder):
+class Columnar_Source_Builder(_SourceOverloadMixin, BasicBuilder):
     """Builder for BLOCK sources: the functor yields ``cols`` /
     ``(cols, ts)`` / ``(cols, ts, wm)`` column blocks (see
     ``Columnar_Source``). ``with_block_size`` re-chunks oversized yields;
@@ -174,9 +218,9 @@ class Columnar_Source_Builder(_SourceOverloadStubs, BasicBuilder):
         return self
 
     def build(self) -> Columnar_Source:
-        return self._finish(Columnar_Source(
+        return self._finish_overload(self._finish(Columnar_Source(
             self._func, self._name, self._parallelism,
-            self._output_batch_size, self._block_size, self._block_schema))
+            self._output_batch_size, self._block_size, self._block_schema)))
 
 
 class Map_Builder(_RoutableBuilder):

@@ -280,7 +280,9 @@ class CheckpointCoordinator:
             # the entry rides along as an incarnation token: a re-begun
             # epoch of the same id gets a fresh entry, and a stale upload
             # must neither write into it nor fail it
-            self._upload_q.put((ckpt_id, worker_name, blobs, ent))
+            from ..monitoring.flightrec import thread_recorder
+            self._upload_q.put((ckpt_id, worker_name, blobs, ent,
+                                thread_recorder()))
         return 0
 
     def _upload_loop(self, q: queue.Queue) -> None:
@@ -291,7 +293,8 @@ class CheckpointCoordinator:
             self._upload_one(*item)
 
     def _upload_one(self, ckpt_id: int, worker_name: str,
-                    blobs: Dict[Any, Any], ent: dict) -> None:
+                    blobs: Dict[Any, Any], ent: dict, rec: Any = None
+                    ) -> None:
         t0 = time.perf_counter()
         nbytes = 0
         failed: Optional[BaseException] = None
@@ -331,6 +334,13 @@ class CheckpointCoordinator:
                               ignore_errors=True)
                 self._notify_aborted(ckpt_id)
             return
+        if rec is not None:
+            # the acking worker's ring, written cross-thread: one racy
+            # slot write, tolerated as the stall watchdog's is
+            from ..monitoring.flightrec import rec_evt_safe
+            rec_evt_safe(rec, "ckpt:upload", dur_s * 1e6,
+                         {"ckpt_id": ckpt_id, "worker": worker_name,
+                          "bytes": nbytes})
         if done:
             self._finalize(ckpt_id)
 
@@ -403,6 +413,13 @@ class CheckpointCoordinator:
             for old in [c for c in self._commit_acked if c < ckpt_id]:
                 self._commit_acked.pop(old, None)
             self._commit_cond.notify_all()
+        # _finalize runs on the LAST acking worker's thread: its ring gets
+        # the commit marker, closing barrier_open -> snapshot -> commit
+        from ..monitoring.flightrec import thread_recorder
+        rec = thread_recorder()
+        if rec is not None:
+            rec.event("ckpt_commit", duration * 1e6,
+                      {"ckpt_id": ckpt_id, "bytes": ent["bytes"]})
         for fn in listeners:
             try:
                 fn(ckpt_id)

@@ -25,6 +25,10 @@ Transfers (in place of ``jax.device_put`` / ``copy_to_host_async``):
 
 A device batch never changes after it is sent: operators build new
 columns, and a broadcast shares the same tensors between destinations.
+``trace_min`` / ``trace_max`` carry the latency-tracing origin stamps of
+its traced rows (0 = none; ``monitoring/tracing.py``): set at staging,
+copied by ``with_fields``, and given by the dispatch queue to every batch
+a traced batch's commit emits.
 """
 
 from __future__ import annotations
@@ -94,10 +98,20 @@ def host_buffer(dtype: np.dtype, capacity: int, device: torch.device
                        pin_memory=device.type == "cuda")
 
 
+def zero_fields(schema: TupleSchema, capacity: int, device: torch.device
+                ) -> Dict[str, torch.Tensor]:
+    """Zero device columns of ``schema`` at one capacity bucket (what a
+    replica's ``prewarm`` runs its device program on: no state, no
+    emit)."""
+    return {name: torch.zeros(capacity, dtype=torch_dtype(dt),
+                              device=device)
+            for name, dt in schema.fields.items()}
+
+
 class BatchGPU(StreamMsg):
     __slots__ = ("fields", "ts_host", "size", "capacity", "wm", "is_punct",
                  "stream_tag", "id", "schema", "host_keys", "_host",
-                 "_d2h_event")
+                 "_d2h_event", "trace_min", "trace_max")
 
     def __init__(self, fields: Dict[str, torch.Tensor], ts_host: np.ndarray,
                  size: int, schema: TupleSchema, wm: int = 0,
@@ -114,6 +128,8 @@ class BatchGPU(StreamMsg):
         self.host_keys = host_keys  # host key metadata, len == size
         self._host: Dict[str, torch.Tensor] = {}  # host copies by column
         self._d2h_event = None
+        self.trace_min = 0
+        self.trace_max = 0
 
     def min_watermark(self) -> int:
         return self.wm
@@ -157,13 +173,20 @@ class BatchGPU(StreamMsg):
     def stage_rows(rows, schema: TupleSchema, wm: int, device: torch.device,
                    keys: Optional[List[Any]] = None,
                    capacity: Optional[int] = None,
-                   recycler=None) -> "BatchGPU":
+                   recycler=None, native: bool = False,
+                   stats=None) -> "BatchGPU":
         """CPU->device from row tuples: columnarize (into pooled staging
-        tensors with an enabled ``recycler``), then stage."""
+        tensors with an enabled ``recycler``; with the native encoders
+        when ``native``, counted in ``stats``), then stage."""
         cap = capacity or bucket_capacity(len(rows))
         pooled = recycler is not None and recycler.enabled
-        cols, ts = schema.to_columns(rows, cap,
-                                     recycler.pool if pooled else None)
+        cols, ts, encoded = schema.to_columns(
+            rows, cap, recycler.pool if pooled else None, native)
+        if encoded:
+            from ..native import note_encoded_batch
+            note_encoded_batch()
+            if stats is not None:
+                stats.native_encode_batches += 1
         if pooled:
             host = cols
         else:
@@ -182,7 +205,14 @@ class BatchGPU(StreamMsg):
                      self.wm, self.host_keys)
         b.stream_tag = self.stream_tag
         b.id = self.id
-        return b
+        return b.copy_trace_from(self)
+
+    def copy_trace_from(self, src: "BatchGPU") -> "BatchGPU":
+        """Carry ``src``'s latency-tracing stamps (an operator's output
+        batch keeps its input's cohort)."""
+        self.trace_min = src.trace_min
+        self.trace_max = src.trace_max
+        return self
 
     def copy_for_dest(self) -> "BatchGPU":
         """Broadcast copy: the device columns and the host copies already

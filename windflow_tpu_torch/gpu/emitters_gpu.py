@@ -102,6 +102,12 @@ class GPUStageEmitter(BasicEmitter):
         self._rr = 0
         self._stage_age_s = MAX_STAGING_MS / 1e3
         self._first_append: List[Optional[float]] = [None] * n_bufs
+        # per-buffer min/max origin stamps of traced rows (latency tracing)
+        self._trace_lo: List[int] = [0] * n_bufs
+        self._trace_hi: List[int] = [0] * n_bufs
+        # the native staging encoders (on unless a comparison run sets
+        # PipeGraph._native_encoders to False)
+        self.native = False
         # staging-buffer recycling over the asynchronous H2D copies (the
         # reference's per-emitter pools and in-transit counters,
         # recycling_gpu.hpp); off on the CPU
@@ -137,12 +143,21 @@ class GPUStageEmitter(BasicEmitter):
         elif wm < self._wms[buf]:
             self._wms[buf] = wm
         rows.append((payload, ts))
+        if self.trace_ts:  # traced row: fold its stamp into the buffer
+            self._fold_trace(buf, self.trace_ts)
+            self.trace_ts = 0
         if self.key_extractor is not None:
             self._keys[buf].append(key)
         if len(rows) >= self.output_batch_size:
             self._ship(buf)
         self._ship_aged()
         self._maybe_generate_punctuation(wm)
+
+    def _fold_trace(self, buf: int, t0: int) -> None:
+        if self._trace_lo[buf] == 0 or t0 < self._trace_lo[buf]:
+            self._trace_lo[buf] = t0
+        if t0 > self._trace_hi[buf]:
+            self._trace_hi[buf] = t0
 
     def _ship_aged(self) -> bool:
         """Ship partial batches older than the staging bound."""
@@ -157,6 +172,22 @@ class GPUStageEmitter(BasicEmitter):
     def on_idle(self) -> bool:
         return self._ship_aged()
 
+    def prewarm(self, caps) -> None:
+        """``PipeGraph.with_prewarm``: fill the staging pool with the
+        buffers batch 0 will take (one per field at the emitter's bucket,
+        for every in-flight slot), so the first batches pay no pinned
+        allocation. Needs the schema (declared) and the pool (a card)."""
+        if self.schema is None or not self.recycler.enabled:
+            return
+        cap = bucket_capacity(max(1, self.output_batch_size))
+        pool = self.recycler.pool
+        depth = min(pool.max_per_bucket, self.recycler.max_in_flight + 2)
+        for dt in self.schema.fields.values():
+            bufs = [pool.acquire(dt, cap) for _ in range(depth)]
+            for b in bufs:
+                pool.release(b)
+        self._update_pool_stats()
+
     def _ship(self, buf: int) -> None:
         if self._ccount[buf]:
             self._ship_cbuf(buf)
@@ -166,7 +197,8 @@ class GPUStageEmitter(BasicEmitter):
         keys = self._keys[buf] if self.key_extractor is not None else None
         cap = bucket_capacity(max(self.output_batch_size, len(rows)))
         batch = BatchGPU.stage_rows(rows, self.schema, self._wms[buf],
-                                    self.device, keys, cap, self.recycler)
+                                    self.device, keys, cap, self.recycler,
+                                    self.native, self.stats)
         self._rows[buf] = []
         self._keys[buf] = []
         self._dispatch_batch(buf, batch, len(rows))
@@ -194,6 +226,9 @@ class GPUStageEmitter(BasicEmitter):
             self.stats.device_bytes_h2d += batch.nbytes()
             self._update_pool_stats()
         self._first_append[buf] = None
+        batch.trace_min = self._trace_lo[buf]
+        batch.trace_max = self._trace_hi[buf]
+        self._trace_lo[buf] = self._trace_hi[buf] = 0
         if self.routing == "broadcast":
             _send_to_all(self, batch)
             return
@@ -227,27 +262,38 @@ class GPUStageEmitter(BasicEmitter):
             return _stack_key_fields(cols, self.key_fields, n)
         return None
 
-    def emit_columns(self, cols, ts_arr, wm: int) -> None:
+    def emit_columns(self, cols, ts_arr, wm: int, trace_rows=None) -> None:
         if self.routing == "keyby" and self.key_field is None \
                 and self.key_fields is None:
             # a callable key extractor has no column to route by
-            return super().emit_columns(cols, ts_arr, wm)
+            return super().emit_columns(cols, ts_arr, wm, trace_rows)
         n = len(ts_arr)
         if n == 0:
             return
+        # the traced rows of the block: a destination's buffer folds the
+        # block's stamp iff one of ITS rows is traced
+        t_trace = self.trace_ts
+        self.trace_ts = 0
+        tmask = None
+        if t_trace and trace_rows is not None and len(trace_rows):
+            tmask = np.zeros(n, dtype=bool)
+            tmask[trace_rows] = True
+        elif t_trace:
+            t_trace = 0
         if self.schema is None:
             self.schema = TupleSchema(
                 {k: np.asarray(v).dtype for k, v in cols.items()})
         if self.routing == "keyby":
             kcol = self._key_column(cols, n)
             if self.num_dests == 1:
-                self._append_part(0, cols, ts_arr, kcol, wm)
+                self._append_part(0, cols, ts_arr, kcol, wm, t_trace, tmask)
             else:
                 dests = key_dests(kcol, n, self.num_dests)
                 order = np.argsort(dests, kind="stable")
                 counts = np.bincount(dests, minlength=self.num_dests)
                 scols = {k: np.asarray(v)[order] for k, v in cols.items()}
                 sts, skeys = ts_arr[order], kcol[order]
+                smask = tmask[order] if tmask is not None else None
                 off = 0
                 for d in range(self.num_dests):
                     c = int(counts[d])
@@ -255,16 +301,18 @@ class GPUStageEmitter(BasicEmitter):
                         sl = slice(off, off + c)
                         self._append_part(
                             d, {k: v[sl] for k, v in scols.items()},
-                            sts[sl], skeys[sl], wm)
+                            sts[sl], skeys[sl], wm, t_trace,
+                            smask[sl] if smask is not None else None)
                     off += c
         else:
             self._append_part(0, cols, ts_arr, self._key_column(cols, n),
-                              wm)
+                              wm, t_trace, tmask)
         self._ship_aged()
         self._emit_count += max(0, n - 1)  # punctuation cadence is per tuple
         self._maybe_generate_punctuation(wm)
 
-    def _append_part(self, buf: int, pcols, pts, pkeys, wm: int) -> None:
+    def _append_part(self, buf: int, pcols, pts, pkeys, wm: int,
+                     t_trace: int = 0, tmask=None) -> None:
         """Copy one destination's slice of a column block into its staging
         buffer, shipping whenever the buffer reaches the output batch
         size (the single host copy per column happens here, so callers may
@@ -301,6 +349,8 @@ class GPUStageEmitter(BasicEmitter):
             self._cts[buf][cnt:cnt + take] = pts[off:end]
             if pkeys is not None:
                 self._ckparts[buf].append(pkeys[off:end])
+            if t_trace and (tmask is None or tmask[off:end].any()):
+                self._fold_trace(buf, t_trace)
             self._ccount[buf] = cnt + take
             off = end
             if cnt + take >= size:
@@ -439,8 +489,13 @@ class GPUExitEmitter(BasicEmitter, _D2HPipeline):
     def _pipe_process(self, batch: BatchGPU) -> None:
         if self.stats is not None:
             self.stats.device_bytes_d2h += batch.nbytes()
+        if batch.trace_min:
+            # one traced row re-materializes per traced batch: the inner
+            # emitter consumes the stamp on its first emit
+            self.inner.trace_ts = batch.trace_min
         for payload, ts in batch.to_rows():
             self.inner.emit(payload, ts, batch.wm)
+        self.inner.trace_ts = 0
 
     def emit_device_batch(self, batch: BatchGPU) -> None:
         batch.prefetch_host()
@@ -496,7 +551,7 @@ def gather_sub_batch(batch: BatchGPU, idx: np.ndarray,
                    batch.ts_host[gather], idx.size, batch.schema, batch.wm,
                    host_keys)
     sub.stream_tag = batch.stream_tag
-    return sub
+    return sub.copy_trace_from(batch)
 
 
 class GPUKeyByEmitter(BasicEmitter, _D2HPipeline):

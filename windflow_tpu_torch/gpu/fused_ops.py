@@ -163,6 +163,26 @@ class FusedGPUReplica(GPUReplicaBase):
     def fused_signature(self) -> List[str]:
         return [op.name for op in self.ops]
 
+    # -- prewarm (PipeGraph.with_prewarm) -------------------------------------
+    def _prewarm_schema(self):
+        # batches arrive with the CHAIN ENTRY's schema
+        return self.ops[0].schema
+
+    def prewarm(self, caps) -> Optional[int]:
+        """The whole chain body once per bucket; a chain with a stateful
+        sub-op sizes its grid by the stream's keys: skipped."""
+        if any(s.engine is not None for s in self.specs):
+            return None
+        return super().prewarm(caps)
+
+    def _warm_program(self, fields, cap: int) -> None:
+        hargs: List[Any] = [None] * len(self.specs)
+        if self._exit == "kreduce":
+            hargs[-1] = (torch.arange(cap, device=self.device),
+                         torch.zeros(cap, dtype=torch.int64,
+                                     device=self.device))
+        self._chain_body(fields, cap, hargs)
+
     # -- the chain body ------------------------------------------------------
     def _chain_body(self, fields: Dict[str, torch.Tensor], size: int,
                     hargs) -> tuple:
@@ -305,6 +325,7 @@ class FusedGPUReplica(GPUReplicaBase):
                      dtype=np.int64)
         nb = BatchGPU(out, ts, n_out, batch.schema, batch.wm, out_keys)
         nb.stream_tag = batch.stream_tag
+        nb.copy_trace_from(batch)
         self._emit_batch(nb)
 
     # -- checkpointing -------------------------------------------------------

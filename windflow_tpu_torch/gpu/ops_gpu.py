@@ -63,9 +63,10 @@ from ..basic import (ExecutionMode, KeyCapacityError, OpType, RoutingMode,
 from ..checkpoint import delta as ckpt_delta
 from ..operators.base import BasicOperator, BasicReplica
 from ..pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..monitoring.tracing import device_span
 from ..runtime.dispatch import DeviceDispatchQueue
 from ..state.tiered import TieredKeyStore, hot_table_digest
-from .batch import (BatchGPU, bucket_capacity, host_copies,
+from .batch import (BatchGPU, bucket_capacity, host_copies, zero_fields,
                     key_column_np, key_column_to_list, to_device)
 from .keymap import (KeySlotMap, distinct_batch_keys, group_positions,
                      stable_group_argsort, structured_unique)
@@ -358,6 +359,9 @@ class GPUReplicaBase(BasicReplica):
         self.device = op.device
         self.dispatch = DeviceDispatchQueue(stats=self.stats,
                                             megabatch=op.megabatch)
+        # the host-prep stage's profiler span (with tracing on; the commit
+        # span lives in the dispatch queue)
+        self._span_prep = f"wf:prep:{op.name}"
         pol = op.error_policy
         self._err_policy = pol if pol is not None and not pol.is_fail \
             else None
@@ -375,9 +379,12 @@ class GPUReplicaBase(BasicReplica):
                 f"{self.op.name}: device operator received a non-device "
                 f"message ({type(msg).__name__}); the upstream operator must "
                 "declare an output batch size > 0")
-        self.stats.start_svc()
-        self.stats.inputs_received += msg.size
-        self.stats.device_batches_in += 1
+        st = self.stats
+        st.start_svc()
+        st.inputs_received += msg.size
+        st.device_batches_in += 1
+        if st.sample_every:  # per batch, not per tuple
+            st._svc_rec = True
         self._advance_wm(msg.wm)
         msg.wm = self.cur_wm
         if self._err_policy is not None:
@@ -385,7 +392,8 @@ class GPUReplicaBase(BasicReplica):
             self.stats.end_svc(msg.size)
             return
         t0 = time.perf_counter()
-        commit = self.prep_device_batch(msg)
+        with device_span(self._span_prep, st.sample_every > 0):
+            commit = self.prep_device_batch(msg)
         prep_us = (time.perf_counter() - t0) * 1e6
         if commit is not None:
             self.dispatch.submit(commit, prep_us)
@@ -439,6 +447,31 @@ class GPUReplicaBase(BasicReplica):
     def on_idle(self) -> bool:
         return self.dispatch.on_idle()
 
+    # -- prewarm (PipeGraph.with_prewarm) -------------------------------------
+    def _prewarm_schema(self) -> Optional[TupleSchema]:
+        return self.op.schema
+
+    def _warm_program(self, fields: Dict[str, torch.Tensor],
+                      cap: int) -> None:
+        """The replica's device program on zero columns of one capacity
+        bucket, with no state and no emit; None (the default) marks a
+        replica whose program depends on the stream (stateful)."""
+        raise NotImplementedError
+
+    def prewarm(self, caps) -> Optional[int]:
+        """Run the device program once per capacity bucket before the
+        stream starts: the first allocations of every bucket (the caching
+        allocator's blocks, library handles) land here, not on batch 0.
+        None when the schema is inferred at the staging boundary or the
+        program depends on the stream (stateful replicas)."""
+        sch = self._prewarm_schema()
+        if sch is None or type(self)._warm_program \
+                is GPUReplicaBase._warm_program:
+            return None
+        for cap in caps:
+            self._warm_program(zero_fields(sch, cap, self.device), cap)
+        return len(caps)
+
     def terminate(self) -> None:
         if not self.terminated:
             self.dispatch.drain(forced=True)
@@ -458,7 +491,11 @@ class GPUReplicaBase(BasicReplica):
         self.stats.wm_current = self.cur_wm
 
     def _emit_batch(self, batch: BatchGPU) -> None:
-        self.stats.device_batches_out += 1
+        st = self.stats
+        st.device_batches_out += 1
+        rec = st.recorder
+        if rec is not None:  # per device batch, not per tuple
+            rec.event("emit", 0.0, batch.size)
         self.emitter.emit_device_batch(batch)
 
     def emit_compacted(self, batch: BatchGPU, out_fields, order: np.ndarray,
@@ -478,7 +515,8 @@ class GPUReplicaBase(BasicReplica):
         nb = BatchGPU(out_fields, batch.ts_host[order], new_size,
                       batch.schema, batch.wm, keys2)
         nb.stream_tag = batch.stream_tag
-        self._emit_batch(nb)
+        self._emit_batch(nb.copy_trace_from(batch))
+
 
 
 class GPUOperatorBase(BasicOperator):
@@ -586,6 +624,9 @@ class Map_GPU(GPUOperatorBase):
 
 
 class MapGPUReplica(GPUReplicaBase):
+    def _warm_program(self, fields, cap: int) -> None:
+        self.op.apply(fields)
+
     def process_device_batch(self, batch: BatchGPU) -> None:
         out = self.op.apply(batch.fields)
         self.stats.device_programs_run += 1
@@ -639,6 +680,9 @@ class Filter_GPU(GPUOperatorBase):
 
 
 class FilterGPUReplica(GPUReplicaBase):
+    def _warm_program(self, fields, cap: int) -> None:
+        filter_program(self.op.pred, fields, cap)
+
     def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
         # the program is queued on the card now; the commit stage waits
         # for its (order, count) readback, by when later batches' programs
@@ -649,10 +693,15 @@ class FilterGPUReplica(GPUReplicaBase):
         host, event = host_copies({"order": order, "count": count})
 
         def commit() -> None:
+            rec = self.stats.recorder
+            t0 = time.perf_counter() if rec is not None else 0.0
             if event is not None:
                 event.synchronize()
-            self.emit_compacted(batch, out, host["order"].numpy(),
-                                int(host["count"]))
+            count = int(host["count"])
+            if rec is not None:  # the compaction readback's wait
+                rec.event("readback", (time.perf_counter() - t0) * 1e6,
+                          {"kept": count, "of": batch.size})
+            self.emit_compacted(batch, out, host["order"].numpy(), count)
 
         return commit
 
@@ -1141,6 +1190,10 @@ class GlobalReduceGPUReplica(GPUReplicaBase):
     """Whole-batch fold to one tuple via ``masked_tree_reduce``; its ts is
     the batch's largest."""
 
+    def _warm_program(self, fields, cap: int) -> None:
+        masked_tree_reduce(self.op.combine, fields,
+                           row_mask(cap, cap, self.device))
+
     def process_device_batch(self, batch: BatchGPU) -> None:
         if batch.size == 0:
             return
@@ -1152,10 +1205,19 @@ class GlobalReduceGPUReplica(GPUReplicaBase):
                       dtype=np.int64)
         nb = BatchGPU(out, ts, 1, batch.schema, batch.wm)
         nb.stream_tag = batch.stream_tag
+        nb.copy_trace_from(batch)
         self._emit_batch(nb)
 
 
 class ReduceGPUReplica(GPUReplicaBase):
+    def _warm_program(self, fields, cap: int) -> None:
+        # the order / segment / tail VALUES are stream data; their shapes
+        # are the bucket's
+        idx = torch.arange(cap, dtype=torch.int32, device=self.device)
+        keyed_reduce_program(self.op.combine, fields, idx,
+                             torch.zeros(cap, dtype=torch.bool,
+                                         device=self.device), idx)
+
     def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
         # host prep: ONE key sort, the segment flags and tails; the
         # program and the output batch are the deferred commit stage
@@ -1180,6 +1242,7 @@ class ReduceGPUReplica(GPUReplicaBase):
             self.stats.device_programs_run += 1
             nb = BatchGPU(out, ts, n_out, batch.schema, batch.wm, out_keys)
             nb.stream_tag = batch.stream_tag
+            nb.copy_trace_from(batch)
             self._emit_batch(nb)
 
         return commit

@@ -1,8 +1,14 @@
 """Tuple schemas: the bridge between row-Python payloads and columnar
 device batches.
 
-Copy of ``windflow_tpu/tpu/schema.py`` (without the native encoders) plus
-the torch twin of ``broadcast_scalar_fields``. Numeric Python types map to
+Copy of ``windflow_tpu/tpu/schema.py`` plus the torch twin of
+``broadcast_scalar_fields``. ``to_columns(..., native=True)`` fills the
+columns with the native staging encoders (``native/``: one C pass per
+column instead of a Python loop per row and field); the Python loop stays
+for schemas with a column the encoders do not cover and after the first
+encoder failure on a schema (a payload type the C pass refuses), as in the
+JAX package. An int beyond the column's dtype raises ``OverflowError`` on
+both paths. Numeric Python types map to
 int32 / float32 / bool, as the JAX package's do with x64 off: the port
 never lets torch's int64 / float64 defaults into a device column.
 """
@@ -40,6 +46,8 @@ class TupleSchema:
             name: np.dtype(dt) for name, dt in fields.items()}
         self.constructor = constructor  # None => rows come back as dicts
         self._names = list(self.fields)
+        # native encoders: None = untried, False = off for this schema
+        self._native_ok: Optional[bool] = None
 
     @staticmethod
     def infer(payload: Any) -> "TupleSchema":
@@ -63,13 +71,15 @@ class TupleSchema:
         return TupleSchema(flds, ctor)
 
     def to_columns(self, rows: Sequence[Tuple[Any, int]], capacity: int,
-                   pool=None) -> Tuple[Dict[str, Any], np.ndarray]:
-        """Rows [(payload, ts)] -> padded columnar arrays + int64 ts. With
-        ``pool`` (a ``recycling.ArrayPool``) the column buffers come from
-        its free lists and are returned as it hands them out (pinned
-        tensors on the staging edge); the caller returns them to it once
-        the H2D copies have read them. ``ts`` is never pooled: it becomes
-        the batch's host metadata and lives as long as the batch."""
+                   pool=None, native: bool = False
+                   ) -> Tuple[Dict[str, Any], np.ndarray, bool]:
+        """Rows [(payload, ts)] -> padded columnar arrays, int64 ts, and
+        whether the native encoders filled them. With ``pool`` (a
+        ``recycling.ArrayPool``) the column buffers come from its free
+        lists and are returned as it hands them out (pinned tensors on the
+        staging edge); the caller returns them to it once the H2D copies
+        have read them. ``ts`` is never pooled: it becomes the batch's
+        host metadata and lives as long as the batch."""
         if pool is not None:
             bufs = {name: pool.acquire(dt, capacity)
                     for name, dt in self.fields.items()}
@@ -78,12 +88,43 @@ class TupleSchema:
             cols = bufs = {name: np.zeros(capacity, dtype=dt)
                            for name, dt in self.fields.items()}
         ts = np.zeros(capacity, dtype=np.int64)
+        n = len(rows)
+        if native and n and self._try_native(rows, cols, ts, n):
+            return bufs, ts, True
         by_item = bool(rows) and isinstance(rows[0][0], dict)
         for i, (p, t) in enumerate(rows):
             ts[i] = t
             for name in self._names:
                 cols[name][i] = p[name] if by_item else getattr(p, name)
-        return bufs, ts
+        return bufs, ts, False
+
+    def _try_native(self, rows, cols, ts, n: int) -> bool:
+        """One C pass per column. The first failure turns the encoders
+        off for this schema (retrying a C pass that fails would double the
+        staging cost of every batch), except an ``OverflowError``, which
+        raises: the Python path would refuse the same value."""
+        if self._native_ok is False:
+            return False
+        from ..native import ENCODABLE_DTYPES, encode_column, \
+            native_available
+        if self._native_ok is None:
+            if not native_available() or any(
+                    str(dt) not in ENCODABLE_DTYPES
+                    for dt in self.fields.values()):
+                self._native_ok = False
+                return False
+        payloads = [r[0] for r in rows]
+        try:
+            for name in self._names:
+                encode_column(payloads, name, cols[name])
+        except OverflowError:
+            raise
+        except Exception:
+            self._native_ok = False
+            return False
+        ts[:n] = [r[1] for r in rows]
+        self._native_ok = True
+        return True
 
     def from_columns(self, cols: Dict[str, np.ndarray], ts: np.ndarray,
                      n: int) -> List[Tuple[Any, int]]:

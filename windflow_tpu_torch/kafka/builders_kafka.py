@@ -1,9 +1,9 @@
 """Kafka builders (reference ``wf/kafka/builders_kafka.hpp``: withBrokers,
 withTopics, withGroupID, withOffsets, withIdleness).
 
-The port's copy of ``windflow_tpu/kafka/builders_kafka.py``. The JAX
-package's overload knobs (``with_slo``, ``with_priority``) are not ported
-yet and raise. ``Kafka_Sink_Builder.with_exactly_once`` runs per-epoch
+The port's copy of ``windflow_tpu/kafka/builders_kafka.py``, with the
+overload knobs (``with_slo``, ``with_priority``) of the source builders.
+``Kafka_Sink_Builder.with_exactly_once`` runs per-epoch
 transactions on a ``memory://`` broker.
 """
 
@@ -12,11 +12,11 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..basic import WindFlowError
-from ..builders import BasicBuilder, _SourceOverloadStubs
+from ..builders import BasicBuilder, _SourceOverloadMixin
 from .connectors import Kafka_Sink, Kafka_Source
 
 
-class Kafka_Source_Builder(_SourceOverloadStubs, BasicBuilder):
+class Kafka_Source_Builder(_SourceOverloadMixin, BasicBuilder):
     _default_name = "kafka_source"
 
     def __init__(self, deser_func: Callable) -> None:
@@ -75,7 +75,7 @@ class Kafka_Source_Builder(_SourceOverloadStubs, BasicBuilder):
         if self._block_size is not None:
             op.block_mode = True
             op.block_size = self._block_size
-        return op
+        return self._finish_overload(op)
 
 
 class Kafka_Sink_Builder(BasicBuilder):

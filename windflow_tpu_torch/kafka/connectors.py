@@ -35,6 +35,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from ..basic import OpType, RoutingMode, WindFlowError, current_time_usecs
 from ..operators.base import BasicOperator, BasicReplica, arity
 from ..operators.source import SourceShipper
@@ -406,6 +408,11 @@ class Kafka_Source(BasicOperator):
 class KafkaSourceReplica(BasicReplica):
     def __init__(self, op, idx):
         super().__init__(op, idx)
+        # overload admission control, the contract of SourceReplica._gate
+        # (a shed Kafka record is never emitted; its offset still
+        # advances, so a restore never replays it)
+        self._gate = None
+        self._restore_gate_pending = None
         # aligned checkpointing: barriers inject BETWEEN Kafka messages
         # (never between the pushes of one deser call), so the snapshot
         # offsets cover exactly the shipped prefix
@@ -487,6 +494,13 @@ class KafkaSourceReplica(BasicReplica):
         if self._transport is not None:
             # keys are (topic, partition) tuples; a fresh dict per call
             st["offsets"] = self._transport.snapshot_positions()
+        # shed accounting and gate-buffered records ride the snapshot, as
+        # a plain source's do
+        st["shed_records"] = self.stats.shed_records
+        st["shed_bytes"] = self.stats.shed_bytes
+        gate = self._gate
+        if gate is not None and gate.pending:
+            st["gate_pending"] = gate.snapshot_pending()
         return st
 
     def restore_state(self, state: dict) -> None:
@@ -494,9 +508,20 @@ class KafkaSourceReplica(BasicReplica):
         offs = state.get("offsets")
         if offs is not None:
             self._restore_offsets = dict(offs)
+        self._restore_gate_pending = state.get("gate_pending")
+        self.stats.shed_records = state.get("shed_records", 0)
+        self.stats.shed_bytes = state.get("shed_bytes", 0)
 
     def run_source(self) -> None:
         op = self.op
+        pend = self._restore_gate_pending
+        if pend:
+            # the snapshot's gate-buffered records re-emit before the
+            # consume loop resumes (their offsets never replay)
+            self._restore_gate_pending = None
+            for p, t, w in pend:
+                self._advance_wm(w)
+                self._emit_admitted(p, t)
         transport = make_transport(op.brokers)
         transport.on_retry = self._note_reconnect
         self._transport = transport
@@ -514,6 +539,13 @@ class KafkaSourceReplica(BasicReplica):
                                        n_members, offsets):
                 return
             self._consume_loop(transport)
+            gate = self._gate
+            if gate is not None and gate.pending:
+                # end of stream with ACCEPTED records still buffered: they
+                # emit before the final barrier injects
+                for p, t, w in gate.drain_pending():
+                    self._advance_wm(w)
+                    self._emit_admitted(p, t)
         finally:
             # the worker's final_checkpoint hook runs after run_source, too
             # late for the transport: inject any pending epoch here, with
@@ -563,19 +595,58 @@ class KafkaSourceReplica(BasicReplica):
             time.sleep(0.001)
 
     def ship(self, payload: Any, ts: int, wm: int) -> None:
+        gate = self._gate
+        if gate is not None:
+            # a buffered record emits under its accept-time watermark
+            for p, t, w in gate.offer(payload, ts, wm):
+                self._advance_wm(w)
+                self._emit_admitted(p, t)
+            if gate.released and not gate.pending:
+                self._gate = None
+            return
         self._advance_wm(wm)
-        self.stats.inputs_received += 1
+        self._emit_admitted(payload, ts)
+
+    def _emit_admitted(self, payload: Any, ts: int) -> None:
+        st = self.stats
+        st.inputs_received += 1
+        # sampled latency tracing, the mask gate of SourceReplica
+        if not (st.inputs_received & (st.sample_every - 1)):
+            self.emitter.trace_ts = current_time_usecs()
         self.emitter.emit(payload, ts, self.cur_wm)
 
     def ship_columns(self, cols, ts_arr, wm: int) -> None:
-        """The columnar twin of ``ship`` (``shipper.push_columns``), without
-        barrier injection: in the Kafka loop barriers land between polls,
-        never inside a block."""
+        """The columnar twin of ``ship`` (``shipper.push_columns``): the
+        gate / watermark / trace contract of ``SourceReplica.ship_columns``
+        without barrier injection (in the Kafka loop barriers land between
+        polls, never inside a block)."""
+        t0_ns = time.perf_counter_ns()
+        gate = self._gate
+        if gate is not None:
+            if gate.pending:
+                for p, t, w in gate.drain_pending():
+                    self._advance_wm(w)
+                    self._emit_admitted(p, t)
+            if gate.released:
+                self._gate = None
+            else:
+                cols, ts_arr, n = gate.offer_columns(cols, ts_arr)
+                if n == 0:
+                    return
         self._advance_wm(wm)
+        st = self.stats
         n = len(ts_arr)
-        self.stats.inputs_received += n
-        self.emitter.emit_columns(cols, ts_arr, self.cur_wm)
-        self.stats.note_ingest_block(n)
+        base = st.inputs_received
+        st.inputs_received = base + n
+        trace_rows = None
+        se = st.sample_every
+        if se:
+            first = (-(base + 1)) % se
+            if first < n:
+                trace_rows = np.arange(first, n, se)
+                self.emitter.trace_ts = current_time_usecs()
+        self.emitter.emit_columns(cols, ts_arr, self.cur_wm, trace_rows)
+        st.note_ingest_block(n, time.perf_counter_ns() - t0_ns)
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +681,8 @@ class Kafka_Sink(BasicOperator):
 class KafkaSinkReplica(BasicReplica):
     def __init__(self, op, idx):
         super().__init__(op, idx)
+        # terminal operator: records the e2e latency of traced tuples
+        self._e2e = self.stats.hist_e2e
         self._transport = make_transport(op.brokers)
         self._transport.on_retry = self._note_reconnect
 

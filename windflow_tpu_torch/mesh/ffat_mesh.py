@@ -221,6 +221,8 @@ class FfatMeshReplica(GPUReplicaBase):
 
     def _count_rebuild(self) -> None:
         if self.device.type == "cuda":
+            from ..gpu.ffat_gpu import note_k1_use
+            note_k1_use(self)
             self.stats.rebuild_kernel_launches += 1
 
     def _build_forest(self, ring_panes: int):
@@ -424,7 +426,10 @@ class FfatMeshReplica(GPUReplicaBase):
         late_mask = (ts_live < batch.wm) | (panes_live < self._frontier)
         n_late_seen = int(late_mask.sum())
         if n_late_seen or dropped:
-            st.note_late(n_late_seen + dropped, dropped)
+            st.note_late(n_late_seen + dropped, dropped,
+                         batch.wm - ts_live[late_mask]
+                         if st.hist_lateness is not None and n_late_seen
+                         else None)
         if dropped:
             st.inputs_ignored += dropped
             keys, panes = keys[live], panes[live]

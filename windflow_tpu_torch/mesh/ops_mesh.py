@@ -222,7 +222,16 @@ class _MeshReplicaBase(GPUReplicaBase):
             self.stats.mesh_degraded = 0
             return
         want = min(int(requested), len(core.visible_devices(self.device)))
-        self.stats.mesh_degraded = max(0, want - int(ns))
+        degraded = max(0, want - int(ns))
+        self.stats.mesh_degraded = degraded
+        if degraded:
+            from ..monitoring.flightrec import thread_recorder
+            rec = thread_recorder()
+            if rec is not None:
+                rec.event("mesh:degrade", 0.0, {
+                    "op": self.op.name, "devices": ns,
+                    "excluded": sorted(core.excluded_device_ids()),
+                    "requested": want})
 
     def _after_mesh_ensure(self) -> None:
         raise NotImplementedError
@@ -609,6 +618,7 @@ class MapMeshReplica(_MeshScanReplicaBase):
         nb = BatchGPU(dict(out), ts2, m, self._out_schema, batch.wm,
                       keys_raw[lo:hi].copy())
         nb.stream_tag = batch.stream_tag
+        nb.copy_trace_from(batch)
         self._emit_batch(nb)
 
 
@@ -638,6 +648,7 @@ class FilterMeshReplica(_MeshScanReplicaBase):
         nb = BatchGPU(out_fields, ts2, len(kept), batch.schema, batch.wm,
                       keys_raw[lo:hi][kept].copy())
         nb.stream_tag = batch.stream_tag
+        nb.copy_trace_from(batch)
         self._emit_batch(nb)
 
 
@@ -716,6 +727,7 @@ class ReduceMeshReplica(_MeshReplicaBase):
         keys2 = self._key_by_slot[np.asarray(out_slots, np.int64)].copy()
         nb = BatchGPU(out_fields, ts2, n_out, batch.schema, batch.wm, keys2)
         nb.stream_tag = batch.stream_tag
+        nb.copy_trace_from(batch)
         self._emit_batch(nb)
 
 

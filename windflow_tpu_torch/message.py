@@ -1,9 +1,12 @@
 """Stream messages: Single (one tuple) and Batch (micro-batch of tuples).
 
-Copy of ``windflow_tpu/message.py`` without the latency-tracing stamps. ``Single`` mirrors ``wf/single_t.hpp:50-197``;
-``Batch`` mirrors ``wf/batch_cpu_t.hpp:51-221`` (watermark = min over its
-constituents). Device batches live in ``windflow_tpu_torch.gpu.batch``
-and share the same metadata protocol.
+Copy of ``windflow_tpu/message.py``. ``Single`` mirrors
+``wf/single_t.hpp:50-197``; ``Batch`` mirrors ``wf/batch_cpu_t.hpp:51-221``
+(watermark = min over its constituents). A sampled tuple carries its
+latency-tracing origin stamp (``Single.trace_ts``; a batch the min and
+max over its traced rows, ``trace_min`` / ``trace_max``; 0 = untraced,
+``monitoring/tracing.py``). Device batches live in
+``windflow_tpu_torch.gpu.batch`` and share the same metadata protocol.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ class StreamMsg:
 
 
 class Single(StreamMsg):
-    __slots__ = ("payload", "id", "ts", "wm", "is_punct", "stream_tag")
+    __slots__ = ("payload", "id", "ts", "wm", "is_punct", "stream_tag",
+                 "trace_ts")
 
     def __init__(self, payload: Any, id: int = 0, ts: int = 0, wm: int = 0,
                  is_punct: bool = False, stream_tag: int = 0) -> None:
@@ -33,6 +37,7 @@ class Single(StreamMsg):
         self.wm = wm
         self.is_punct = is_punct
         self.stream_tag = stream_tag
+        self.trace_ts = 0  # sampled latency origin stamp (0 = untraced)
 
     def min_watermark(self) -> int:
         return self.wm
@@ -52,7 +57,8 @@ def make_punctuation(wm: int, stream_tag: int = 0) -> Single:
 class Batch(StreamMsg):
     """Row-major CPU micro-batch. ``rows`` is a list of ``(payload, ts)``."""
 
-    __slots__ = ("rows", "wm", "is_punct", "stream_tag", "id")
+    __slots__ = ("rows", "wm", "is_punct", "stream_tag", "id",
+                 "trace_min", "trace_max")
 
     def __init__(self, rows: Optional[List[Tuple[Any, int]]] = None,
                  wm: int = 0, is_punct: bool = False,
@@ -62,6 +68,16 @@ class Batch(StreamMsg):
         self.is_punct = is_punct
         self.stream_tag = stream_tag
         self.id = 0
+        # min/max origin stamps over traced rows (0 = none traced)
+        self.trace_min = 0
+        self.trace_max = 0
+
+    def note_trace(self, t0: int) -> None:
+        """Fold one traced row's origin stamp into the batch."""
+        if self.trace_min == 0 or t0 < self.trace_min:
+            self.trace_min = t0
+        if t0 > self.trace_max:
+            self.trace_max = t0
 
     def add_tuple(self, payload: Any, ts: int, wm: int) -> None:
         if not self.rows or wm < self.wm:
@@ -80,7 +96,9 @@ class Batch(StreamMsg):
 
     def copy_for_dest(self) -> "Batch":
         """Broadcast copy: its own row list, shared payload objects."""
-        return Batch(list(self.rows), self.wm, self.is_punct, self.stream_tag)
+        b = Batch(list(self.rows), self.wm, self.is_punct, self.stream_tag)
+        b.trace_min, b.trace_max = self.trace_min, self.trace_max
+        return b
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return f"<Batch n={len(self.rows)} wm={self.wm}>"

@@ -1,1 +1,5 @@
-"""Part of the windflow_tpu_torch port (see the package docstring)."""
+from .histogram import LatencyHistogram
+from .stats import StatsRecord
+from .tracing import parse_sample_rate
+
+__all__ = ["StatsRecord", "LatencyHistogram", "parse_sample_rate"]

@@ -1,0 +1,363 @@
+"""PipelineDoctor: bottleneck attribution over tick-over-tick stats deltas.
+
+The port's copy of ``windflow_tpu/monitoring/doctor.py``.
+
+The monitoring plane (57+ metric families) answers "what happened";
+answering "what is the bottleneck RIGHT NOW" today means manually
+correlating queue blocked-put/get rates, dispatch prep/commit splits,
+shed fractions, compile storms and watermark lag across operators. The
+doctor encodes that correlation once: a PURE analyzer over two
+consecutive graph stats snapshots (``PipeGraph.get_stats`` shape) that
+emits a ranked per-operator verdict with the evidence behind each claim.
+
+Verdicts (one vocabulary, shared by /doctor, scripts/doctor.py and the
+web client banner):
+
+- ``overloaded``        — source admission control is shedding (or the
+                          overload governor sits on its shed rung);
+- ``backpressured-by``  — the operator's producers spend their time
+                          blocked on a FULL downstream channel; ``by``
+                          names the operator that cannot drain;
+- ``compute-bound``     — the named operator is the drain bottleneck:
+                          its input channel is the most-downstream one
+                          producers block on, and its own host path
+                          dominates;
+- ``dispatch-bound``    — same position, but the device dispatch plane
+                          (commit share of prep+commit, or an XLA
+                          recompile storm) dominates the operator's time;
+- ``event-time-stalled``— inputs keep arriving while the watermark has
+                          been frozen past the graph's ``wm_stall_sec``;
+- ``ingest-bound``      — nobody is backpressured and every downstream
+                          operator starves on an empty input channel:
+                          the sources cannot produce fast enough.
+
+The analyzer never touches live objects: it consumes report dicts as
+they arrive over the monitoring port, so it runs equally against a live
+``MonitoringServer``, a dumped stats snapshot, or synthetic fixtures.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+# attribution thresholds (fractions of the observation interval)
+BP_MIN_FRAC = 0.15        # producer blocked-put time => backpressure
+STARVE_MIN_FRAC = 0.5     # consumer blocked-get time => starvation
+DISPATCH_MIN_FRAC = 0.5   # prep+commit share of the tick => device-bound
+COMMIT_SHARE = 0.6        # commit share of prep+commit => dispatch-bound
+COMPILE_STORM = 3         # recompiles per tick => dispatch-bound (storm)
+
+# score bands keep the ranking stable across mixed symptoms: an
+# overloaded graph is overloaded even when it is ALSO backpressured
+_SCORE_OVERLOAD = 1.2
+_SCORE_BOTTLENECK = 0.2
+_SCORE_STALL = 0.8
+
+
+def _num(v: Any) -> float:
+    return float(v) if isinstance(v, (int, float)) else 0.0
+
+
+def _op_rollup(op: Dict[str, Any]) -> Dict[str, float]:
+    """Aggregate one operator's replica records: counters sum, gauges max."""
+    reps = [r for r in (op.get("replicas") or []) if isinstance(r, dict)]
+    out: Dict[str, float] = {"replicas": float(len(reps)) or 1.0}
+    sums = ("Inputs_received", "Outputs_sent", "Shed_records",
+            "Queue_blocked_put_usec", "Queue_blocked_get_usec",
+            "Dispatch_host_prep_total_usec", "Dispatch_commit_total_usec",
+            "Compile_count", "Checkpoint_cut_pause_usec_total",
+            "Watermark_stalls", "Late_records", "Late_dropped",
+            "Late_admitted", "Queue_len", "Worker_idle_ticks")
+    maxes = ("Service_time_usec", "Watermark_lag_usec", "Queue_capacity",
+             "Watermark_event_lag_usec", "Tier_miss_rate")
+    for f in sums:
+        out[f] = sum(_num(r.get(f)) for r in reps)
+    for f in maxes:
+        out[f] = max((_num(r.get(f)) for r in reps), default=0.0)
+    # idle only when EVERY replica is idle (any traffic => not idle)
+    out["Watermark_idle"] = min((_num(r.get("Watermark_idle", 1))
+                                 for r in reps), default=1.0)
+    return out
+
+
+class PipelineDoctor:
+    """Stateful wrapper: feed ``observe`` each report as it arrives; it
+    keeps the previous tick per graph and returns the fresh diagnosis
+    (None on the first report, when no delta exists yet)."""
+
+    def __init__(self, stall_sec: Optional[float] = None) -> None:
+        from .stats import _wm_stall_sec
+        self.stall_sec = stall_sec if stall_sec is not None \
+            else _wm_stall_sec()
+        self._prev: Dict[str, tuple] = {}
+
+    def observe(self, graph: str, stats: Dict[str, Any],
+                now: Optional[float] = None) -> Optional[Dict[str, Any]]:
+        if now is None:
+            now = time.monotonic()
+        prev = self._prev.get(graph)
+        self._prev[graph] = (stats, now)
+        if prev is None:
+            return None
+        prev_stats, prev_t = prev
+        dt = max(now - prev_t, 1e-3)
+        diag = diagnose(prev_stats, stats, dt, self.stall_sec)
+        diag["graph"] = graph
+        return diag
+
+
+def diagnose(prev: Optional[Dict[str, Any]], cur: Dict[str, Any],
+             dt_sec: float, stall_sec: float = 5.0) -> Dict[str, Any]:
+    """Pure diagnosis of ``cur`` against ``prev`` over ``dt_sec``.
+    ``prev=None`` analyzes cumulative totals (whole-run mode for dumped
+    snapshots); pass the real elapsed run time as ``dt_sec`` then."""
+    dt_us = max(dt_sec, 1e-3) * 1e6
+    cur_ops = [o for o in (cur.get("Operators") or [])
+               if isinstance(o, dict) and not o.get("retired")]
+    prev_by_name: Dict[str, Dict[str, float]] = {}
+    if prev is not None:
+        for o in (prev.get("Operators") or []):
+            if isinstance(o, dict) and not o.get("retired"):
+                prev_by_name[str(o.get("name"))] = _op_rollup(o)
+
+    rows: List[Dict[str, Any]] = []
+    for o in cur_ops:
+        name = str(o.get("name"))
+        c = _op_rollup(o)
+        p = prev_by_name.get(name, {})
+        par = max(c["replicas"], 1.0)
+        d = lambda f: max(0.0, c.get(f, 0.0) - p.get(f, 0.0))  # noqa: E731
+        rows.append({
+            "name": name,
+            "kind": str(o.get("kind", "")),
+            "is_source": str(o.get("kind", "")).lower() == "source",
+            "is_sink": str(o.get("kind", "")).lower() == "sink",
+            "par": par,
+            "in_rate": d("Inputs_received") / dt_sec,
+            "in_delta": d("Inputs_received"),
+            "shed_delta": d("Shed_records"),
+            # producer time blocked putting INTO this op's full channel,
+            # as a fraction of the tick (can exceed 1 with >1 producer)
+            "bp_frac": d("Queue_blocked_put_usec") / dt_us,
+            # this op's own time blocked on an EMPTY channel, per replica
+            "starve_frac": d("Queue_blocked_get_usec") / (dt_us * par),
+            "dispatch_frac": (d("Dispatch_host_prep_total_usec")
+                              + d("Dispatch_commit_total_usec"))
+            / (dt_us * par),
+            "commit_share": (d("Dispatch_commit_total_usec")
+                             / max(1.0, d("Dispatch_host_prep_total_usec")
+                                   + d("Dispatch_commit_total_usec"))),
+            "compile_delta": d("Compile_count"),
+            "ckpt_cut_frac": d("Checkpoint_cut_pause_usec_total")
+            / (dt_us * par),
+            "wm_lag_us": c.get("Watermark_lag_usec", 0.0),
+            "wm_stall_delta": d("Watermark_stalls"),
+            "wm_idle": bool(c.get("Watermark_idle", 1.0)),
+            "late_drop_delta": d("Late_dropped"),
+            "late_records_delta": d("Late_records"),
+            "svc_us": c.get("Service_time_usec", 0.0),
+            "queue_len": c.get("Queue_len", 0.0),
+            "queue_cap": c.get("Queue_capacity", 0.0),
+            "tier_miss_rate": c.get("Tier_miss_rate", 0.0),
+        })
+
+    findings: List[Dict[str, Any]] = []
+    overload = cur.get("Overload") if isinstance(cur.get("Overload"), dict) \
+        else {}
+
+    # -- overloaded: admission control shed records this tick ---------------
+    total_shed = sum(r["shed_delta"] for r in rows)
+    total_in = sum(r["in_delta"] for r in rows if r["is_source"])
+    gov_shedding = _num(overload.get("Overload_state")) >= 3
+    if total_shed > 0 or gov_shedding:
+        shed_frac = total_shed / max(1.0, total_shed + total_in)
+        for r in rows:
+            if r["shed_delta"] > 0 or (gov_shedding and r["is_source"]):
+                findings.append({
+                    "operator": r["name"], "verdict": "overloaded",
+                    "score": round(_SCORE_OVERLOAD + min(0.5, shed_frac), 3),
+                    "evidence": {
+                        "shed_records_delta": r["shed_delta"],
+                        "shed_fraction": round(shed_frac, 4),
+                        "overload_state": _num(
+                            overload.get("Overload_state")),
+                        "window_p99_usec": _num(
+                            overload.get("Overload_window_p99_usec")),
+                    },
+                    "detail": (f"admission control shed "
+                               f"{int(r['shed_delta'])} records "
+                               f"({shed_frac:.1%} of offered load)"),
+                })
+
+    # -- backpressure chain: the most-downstream full channel is the drain
+    # bottleneck; everything upstream of it is backpressured-by it --------
+    bottleneck_idx = -1
+    for i, r in enumerate(rows):
+        if r["bp_frac"] >= BP_MIN_FRAC:
+            bottleneck_idx = i
+    if bottleneck_idx >= 0:
+        b = rows[bottleneck_idx]
+        dispatch_bound = (b["dispatch_frac"] >= DISPATCH_MIN_FRAC
+                          and b["commit_share"] >= COMMIT_SHARE) \
+            or b["compile_delta"] >= COMPILE_STORM
+        findings.append({
+            "operator": b["name"],
+            "verdict": "dispatch-bound" if dispatch_bound
+            else "compute-bound",
+            "score": round(_SCORE_BOTTLENECK + min(1.0, b["bp_frac"]), 3),
+            "evidence": {
+                "blocked_put_frac": round(b["bp_frac"], 4),
+                "queue_len": b["queue_len"],
+                "queue_capacity": b["queue_cap"],
+                "service_time_usec": round(b["svc_us"], 1),
+                "dispatch_frac": round(b["dispatch_frac"], 4),
+                "commit_share": round(b["commit_share"], 4),
+                "compile_delta": b["compile_delta"],
+                "ckpt_cut_frac": round(b["ckpt_cut_frac"], 4),
+                "tier_miss_rate": round(b["tier_miss_rate"], 4),
+            },
+            "detail": (f"producers spent {b['bp_frac']:.0%} of the tick "
+                       f"blocked on {b['name']}'s full input channel"
+                       + (f"; device dispatch dominates "
+                          f"({b['commit_share']:.0%} commit share, "
+                          f"{int(b['compile_delta'])} recompiles)"
+                          if dispatch_bound else
+                          f"; host path dominates "
+                          f"(svc {b['svc_us']:.0f} µs/tuple)")),
+        })
+        for r in rows[:bottleneck_idx]:
+            if r["is_source"] or r["bp_frac"] >= BP_MIN_FRAC \
+                    or r["in_delta"] > 0:
+                findings.append({
+                    "operator": r["name"], "verdict": "backpressured-by",
+                    "by": b["name"],
+                    "score": round(min(1.0, b["bp_frac"]) * 0.5, 3),
+                    "evidence": {
+                        "bottleneck": b["name"],
+                        "blocked_put_frac_downstream": round(
+                            b["bp_frac"], 4)},
+                    "detail": (f"{r['name']} is throttled by downstream "
+                               f"{b['name']} (backpressure)"),
+                })
+
+    # -- event-time stall: traffic flows, watermark frozen ------------------
+    stall_us = stall_sec * 1e6
+    for r in rows:
+        stalled = r["wm_stall_delta"] > 0 or (
+            not r["wm_idle"] and r["wm_lag_us"] > stall_us)
+        if stalled:
+            findings.append({
+                "operator": r["name"], "verdict": "event-time-stalled",
+                "score": round(_SCORE_STALL
+                               + min(0.3, r["wm_lag_us"] / (10 * stall_us)),
+                               3),
+                "evidence": {
+                    "watermark_lag_usec": round(r["wm_lag_us"], 1),
+                    "watermark_stalls_delta": r["wm_stall_delta"],
+                    "inputs_delta": r["in_delta"],
+                    "late_dropped_delta": r["late_drop_delta"],
+                },
+                "detail": (f"watermark frozen for "
+                           f"{r['wm_lag_us'] / 1e6:.1f}s while "
+                           f"{int(r['in_delta'])} inputs arrived"),
+            })
+
+    # -- dispatch-bound device ops even without a full input channel
+    # (sources / fused chains have no input queue to blame) -----------------
+    flagged = {f["operator"] for f in findings}
+    for r in rows:
+        if r["name"] in flagged:
+            continue
+        if (r["dispatch_frac"] >= DISPATCH_MIN_FRAC
+                and r["commit_share"] >= COMMIT_SHARE) \
+                or r["compile_delta"] >= COMPILE_STORM:
+            findings.append({
+                "operator": r["name"], "verdict": "dispatch-bound",
+                "score": round(min(1.0, r["dispatch_frac"]) * 0.6
+                               + (0.3 if r["compile_delta"]
+                                  >= COMPILE_STORM else 0.0), 3),
+                "evidence": {
+                    "dispatch_frac": round(r["dispatch_frac"], 4),
+                    "commit_share": round(r["commit_share"], 4),
+                    "compile_delta": r["compile_delta"],
+                },
+                "detail": (f"device dispatch consumed "
+                           f"{r['dispatch_frac']:.0%} of the tick"
+                           + (f" with {int(r['compile_delta'])} XLA "
+                              f"recompiles (compile storm)"
+                              if r["compile_delta"] >= COMPILE_STORM
+                              else "")),
+            })
+
+    # -- ingest-bound: nobody backpressured, downstream starves -------------
+    if bottleneck_idx < 0 and total_shed == 0:
+        downstream = [r for r in rows if not r["is_source"]]
+        starving = [r for r in downstream
+                    if r["starve_frac"] >= STARVE_MIN_FRAC
+                    and r["queue_len"] <= 1]
+        sources = [r for r in rows if r["is_source"] and r["in_delta"] > 0]
+        if downstream and sources and len(starving) == len(downstream):
+            starv = sum(r["starve_frac"] for r in downstream) \
+                / len(downstream)
+            for s in sources:
+                findings.append({
+                    "operator": s["name"], "verdict": "ingest-bound",
+                    "score": round(min(1.0, starv), 3),
+                    "evidence": {
+                        "mean_downstream_starve_frac": round(starv, 4),
+                        "source_rate_tuples_sec": round(s["in_rate"], 1),
+                        "starving_operators": [r["name"]
+                                               for r in starving],
+                    },
+                    "detail": (f"every downstream operator idles "
+                               f"{starv:.0%} of the tick waiting on "
+                               f"input: the source is the bottleneck"),
+                })
+
+    findings.sort(key=lambda f: f["score"], reverse=True)
+    total_late_drop = sum(r["late_drop_delta"] for r in rows)
+    diag: Dict[str, Any] = {
+        "dt_sec": round(dt_sec, 3),
+        "healthy": not findings,
+        "findings": findings,
+        "bottleneck": findings[0] if findings else None,
+        "late_dropped_delta": total_late_drop,
+        "summary": _summarize(findings, total_late_drop),
+    }
+    return diag
+
+
+def _summarize(findings: List[Dict[str, Any]], late_drop: float) -> str:
+    if not findings:
+        return "healthy: no bottleneck detected this tick" + (
+            f" ({int(late_drop)} late records dropped)" if late_drop else "")
+    top = findings[0]
+    verdict = top["verdict"]
+    if verdict == "backpressured-by":
+        head = f"{top['operator']} backpressured by {top.get('by', '?')}"
+    else:
+        head = f"{top['operator']} is {verdict}"
+    extra = f"; {int(late_drop)} late records dropped" if late_drop else ""
+    more = len(findings) - 1
+    return head + (f" (+{more} more finding{'s' * (more > 1)})"
+                   if more else "") + extra
+
+
+def render_text(diag: Dict[str, Any], graph: str = "") -> str:
+    """Human-readable doctor report (scripts/doctor.py and tests)."""
+    lines = []
+    name = diag.get("graph", graph) or "?"
+    lines.append(f"== doctor: {name} "
+                 f"(tick {diag.get('dt_sec', 0):.1f}s) ==")
+    lines.append("  " + diag.get("summary", ""))
+    for f in diag.get("findings") or []:
+        by = f" -> {f['by']}" if f.get("by") else ""
+        lines.append(f"  [{f['score']:.2f}] {f['operator']}: "
+                     f"{f['verdict']}{by}")
+        lines.append(f"         {f.get('detail', '')}")
+        ev = f.get("evidence") or {}
+        if ev:
+            kv = ", ".join(f"{k}={v}" for k, v in ev.items())
+            lines.append(f"         evidence: {kv}")
+    return "\n".join(lines)

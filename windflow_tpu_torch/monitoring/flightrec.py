@@ -1,0 +1,348 @@
+"""Flight recorder: per-worker ring buffers of span events, Chrome/
+Perfetto trace export, the stall watchdog and kernel-build attribution.
+
+The port's copy of ``windflow_tpu/monitoring/flightrec.py``. The stats
+plane answers "how fast is each operator on average"; this module answers
+"where did THIS slow batch spend its time" and "why did throughput just
+collapse". Each worker thread owns one ``FlightRecorder`` — a fixed-size,
+single-writer ring of structured events recorded where the dispatch
+pipeline and the latency-tracing plane already take timestamps (host
+prep, deferred device commit, channel blocked put/get, barrier alignment,
+checkpoint snapshots, rescale and supervision steps), so an enabled
+recorder costs one clock read and a couple of stores per batch. The rings
+export as Chrome trace-event JSON (loadable in Perfetto /
+``chrome://tracing``): ``tid`` = worker, ``pid`` = stage/operator,
+``args`` carry batch sizes, checkpoint ids and build labels.
+
+Three ways out of the ring:
+
+- ``PipeGraph.dump_trace(path)`` — explicit dump any time;
+- ``GET /trace?ms=N`` on ``MonitoringServer`` — an on-demand capture
+  window over every registered in-process graph;
+- automatic post-mortem — a worker that dies, or one the stall watchdog
+  flags (no progress-counter advance for the graph's ``stall_sec``),
+  dumps its graph's rings plus ``sys._current_frames()`` stacks for every
+  runtime thread into the graph's log directory.
+
+Compile attribution: the JAX package wraps every ``jax.jit`` entry point
+(``instrumented_jit``) and counts retraces. The port has no jit: its
+device programs are plain torch ops plus one hand-written CUDA kernel
+(the FlatFAT forest rebuild, K1), whose library is built by ``nvcc`` or
+loaded from ``build/kernels/`` on first use
+(``kernels/build.py:load_library``). ``note_kernel_load`` records that
+build or load as the compile event: ``Compile_count`` and
+``Compile_usec_total`` on the replica that triggered it, and a
+``compile`` span in the calling thread's ring; every later use of the
+loaded library is a cache hit.
+
+The JAX package's ``WF_FLIGHTREC_EVENTS`` / ``WF_STALL_SEC`` /
+``WF_LOG_DIR`` are arguments here: ``PipeGraph.with_flight_recorder(
+events, log_dir=...)`` and ``PipeGraph(stall_sec=...)``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import weakref
+from typing import Any, Dict, List, Optional
+
+__all__ = ["FlightRecorder", "set_thread_recorder", "thread_recorder",
+           "note_kernel_load", "to_chrome_trace", "thread_stacks",
+           "register_graph", "capture_trace", "StallWatchdog",
+           "DEFAULT_EVENTS"]
+
+DEFAULT_EVENTS = 4096
+
+# threads record into their own ring only (single-writer contract);
+# call sites that run on a foreign thread (a producer blocking on a
+# consumer's channel, a shared compiled program) resolve the CURRENT
+# thread's ring through this TLS slot instead of reaching for an
+# owner's ring across threads
+_tls = threading.local()
+
+
+def set_thread_recorder(rec: Optional["FlightRecorder"]) -> None:
+    _tls.rec = rec
+
+
+def thread_recorder() -> Optional["FlightRecorder"]:
+    return getattr(_tls, "rec", None)
+
+
+class FlightRecorder:
+    """Fixed-size single-writer ring of ``(end_ns, name, dur_us, arg)``
+    events. ``event()`` is the hot path: one clock read, one tuple, one
+    slot store, one index bump — no locks, no allocation growth. The
+    ring keeps the newest ``capacity`` events; wraparound drops
+    oldest-first. Readers (watchdog/dump threads) take a racy snapshot:
+    a torn read can at worst miss or double-see the event being written
+    this instant, which trace export tolerates (events are re-sorted by
+    timestamp)."""
+
+    __slots__ = ("capacity", "pid_label", "tid_label", "_buf", "_n")
+
+    def __init__(self, capacity: int = DEFAULT_EVENTS,
+                 pid_label: str = "", tid_label: str = "") -> None:
+        self.capacity = max(1, int(capacity))
+        self.pid_label = pid_label
+        self.tid_label = tid_label
+        self._buf: List[Any] = [None] * self.capacity
+        self._n = 0
+
+    def event(self, name: str, dur_us: float = 0.0, arg: Any = None) -> None:
+        """Record one span that ENDS now and lasted ``dur_us`` (0 for an
+        instant event). Call sites pass durations they already measured
+        for the stats plane, so no second clock base is needed."""
+        i = self._n
+        self._buf[i % self.capacity] = (time.perf_counter_ns(), name,
+                                        dur_us, arg)
+        self._n = i + 1
+
+    def __len__(self) -> int:
+        return min(self._n, self.capacity)
+
+    @property
+    def dropped(self) -> int:
+        """Events lost to wraparound (oldest-first)."""
+        return max(0, self._n - self.capacity)
+
+    def snapshot(self) -> List[Any]:
+        """Events oldest-first (racy vs the writer; see class doc)."""
+        n = self._n
+        buf = list(self._buf)  # one slice: consistent enough
+        if n <= self.capacity:
+            out = buf[:n]
+        else:
+            i = n % self.capacity
+            out = buf[i:] + buf[:i]
+        return [e for e in out if e is not None]
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace-event export
+# ---------------------------------------------------------------------------
+def to_chrome_trace(recorders, stacks: Optional[Dict[str, Any]] = None,
+                    extra: Optional[Dict[str, Any]] = None,
+                    since_ns: Optional[int] = None) -> Dict[str, Any]:
+    """Render rings as a Chrome trace-event JSON document (the object
+    form: ``traceEvents`` plus arbitrary metadata keys, which Perfetto
+    and ``chrome://tracing`` both load). Every span is a complete
+    ``ph:"X"`` event; ``pid`` groups by stage/operator label and ``tid``
+    by worker, with ``process_name``/``thread_name`` metadata events
+    carrying the human labels. ``since_ns`` keeps only events ending at
+    or after that ``perf_counter_ns`` instant (the /trace capture
+    window)."""
+    pids: Dict[str, int] = {}
+    tids: Dict[str, int] = {}
+    raw = []
+    for rec in recorders:
+        pid = pids.setdefault(rec.pid_label or "windflow", len(pids) + 1)
+        tid = tids.setdefault(rec.tid_label or f"ring{pid}", len(tids) + 1)
+        for ev in rec.snapshot():
+            end_ns, name, dur_us, arg = ev
+            if since_ns is not None and end_ns < since_ns:
+                continue
+            raw.append((end_ns, name, dur_us, arg, pid, tid))
+    raw.sort(key=lambda e: e[0] - e[2] * 1e3)
+    origin_ns = (raw[0][0] - raw[0][2] * 1e3) if raw else 0.0
+    events: List[Dict[str, Any]] = []
+    for label, pid in pids.items():
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "tid": 0, "args": {"name": label}})
+    for rec in recorders:
+        pid = pids[rec.pid_label or "windflow"]
+        tid = tids[rec.tid_label or f"ring{pid}"]
+        events.append({"name": "thread_name", "ph": "M", "pid": pid,
+                       "tid": tid, "args": {"name": rec.tid_label}})
+    for end_ns, name, dur_us, arg, pid, tid in raw:
+        args = arg if isinstance(arg, dict) else (
+            {} if arg is None else {"v": arg})
+        events.append({"name": name, "ph": "X", "cat": "windflow",
+                       "ts": round((end_ns - origin_ns) / 1e3 - dur_us, 3),
+                       "dur": round(dur_us, 3), "pid": pid, "tid": tid,
+                       "args": args})
+    doc: Dict[str, Any] = {"traceEvents": events,
+                           "displayTimeUnit": "ms"}
+    dropped = sum(getattr(r, "dropped", 0) for r in recorders)
+    if dropped:
+        doc["droppedEvents"] = dropped
+    if stacks is not None:
+        doc["stacks"] = stacks
+    if extra:
+        doc.update(extra)
+    return doc
+
+
+def thread_stacks() -> Dict[str, List[str]]:
+    """Formatted stacks for every runtime thread (the post-mortem's
+    "where is everyone RIGHT NOW" section), keyed by thread name."""
+    import sys
+    import traceback
+
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out: Dict[str, List[str]] = {}
+    for ident, frame in sys._current_frames().items():
+        out[names.get(ident, f"thread-{ident}")] = \
+            traceback.format_stack(frame)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# in-process graph registry (feeds MonitoringServer's /trace endpoint)
+# ---------------------------------------------------------------------------
+_graphs: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register_graph(graph) -> None:
+    """Called by ``PipeGraph.start``; weak so finished graphs vanish
+    with their last reference."""
+    _graphs.add(graph)
+
+
+def active_recorders() -> List[FlightRecorder]:
+    recs: List[FlightRecorder] = []
+    for g in list(_graphs):
+        recs.extend(getattr(g, "_recorders", []))
+    return recs
+
+
+def capture_trace(window_ms: float) -> Dict[str, Any]:
+    """The ``GET /trace?ms=N`` body: sleep one capture window, then
+    export every registered graph's events that ended inside it."""
+    window_ms = min(10_000.0, max(1.0, float(window_ms)))
+    t0 = time.perf_counter_ns()
+    time.sleep(window_ms / 1e3)
+    return to_chrome_trace(active_recorders(), since_ns=t0,
+                           extra={"captureWindowMs": window_ms})
+
+
+# ---------------------------------------------------------------------------
+# kernel build/load attribution (the port's compile events)
+# ---------------------------------------------------------------------------
+def note_kernel_load(stats, label: str, us: float, built: bool) -> None:
+    """One build (``nvcc``) or load (a cached ``build/kernels/`` library)
+    of a hand-written kernel, on the replica that triggered it: the
+    ``Compile_*`` stats and a ``compile`` span in the current thread's
+    ring. ``built`` says whether ``nvcc`` ran."""
+    sig = f"{label}:{'nvcc' if built else 'cached'}"
+    if stats is not None:
+        stats.note_compile(us, sig)
+    rec = thread_recorder()
+    if rec is not None:
+        rec.event("compile", us, {"op": label, "signature": sig})
+
+
+# ---------------------------------------------------------------------------
+# stall watchdog
+# ---------------------------------------------------------------------------
+class StallWatchdog(threading.Thread):
+    """Monitor-thread tick that flags live workers whose progress
+    counter (channel deliveries + idle ticks + tuples moved) has not
+    advanced for ``stall_sec``. Firing calls ``dump_fn(worker_name)``
+    once per stall episode (re-armed by any later progress) — the
+    PipeGraph wires that to a post-mortem trace dump with
+    ``sys._current_frames()`` stacks, and ``fired`` is what a
+    supervisor reads to restart the graph on a stall
+    (``Supervisor._new_stalls``). Default off (``PipeGraph(stall_sec=0)``):
+    a healthy-idle worker parked in a long ``channel.get`` would otherwise
+    look identical to a deadlocked one, which is why workers run their
+    idle tick whenever the watchdog is armed."""
+
+    def __init__(self, graph, stall_sec: float, dump_fn=None) -> None:
+        super().__init__(name=f"stallwatch:{graph.name}", daemon=True)
+        self.graph = graph
+        self.stall_sec = float(stall_sec)
+        self.dump_fn = dump_fn
+        self.fired: List[str] = []  # worker names, in firing order
+        self._stop_evt = threading.Event()
+        self._seen: Dict[str, Any] = {}  # wname -> [progress, t, flagged]
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+
+    def run(self) -> None:
+        tick = min(1.0, max(0.05, self.stall_sec / 4.0))
+        while not self._stop_evt.wait(tick):
+            self._check(time.monotonic())
+
+    def _check(self, now: float) -> None:
+        if getattr(self.graph, "_rescaling", False) \
+                or getattr(self.graph, "_supervising", False):
+            # a rescale parks every worker at the barrier on purpose (and
+            # a supervised recovery tears the plane down mid-flight);
+            # re-arm from scratch once the new plane is running
+            self._seen.clear()
+            return
+        gov = getattr(self.graph, "_overload_governor", None)
+        if gov is not None and gov.shedding:
+            # active load shedding: a fully gated source emits nothing
+            # BY DESIGN (and its downstream can legitimately go quiet) —
+            # flagging that as a stall would dump postmortems during
+            # every overload; re-arm once admission control releases
+            self._seen.clear()
+            return
+        for w in self.graph._workers:
+            if not w.is_alive():
+                self._seen.pop(w.name, None)
+                continue
+            cur = w.progress_value()
+            ent = self._seen.get(w.name)
+            if ent is None or ent[0] != cur:
+                self._seen[w.name] = [cur, now, False]
+                continue
+            if not ent[2] and now - ent[1] >= self.stall_sec:
+                ent[2] = True  # one dump per stall episode
+                self.fired.append(w.name)
+                rec = getattr(w, "flightrec", None)
+                if rec is not None:
+                    rec_evt_safe(rec, "stall_detected",
+                                 (now - ent[1]) * 1e6, w.name)
+                if self.dump_fn is not None:
+                    try:
+                        self.dump_fn(w.name)
+                    except Exception:
+                        pass  # a dump failure must not kill the watchdog
+
+
+def rec_evt_safe(rec: FlightRecorder, name: str, dur_us: float,
+                 arg: Any) -> None:
+    """Cross-thread event append (watchdog only): the stall marker is
+    worth the single racy slot write — at worst it overwrites the event
+    the stalled worker is NOT writing (it is stalled)."""
+    try:
+        rec.event(name, dur_us, arg)
+    except Exception:
+        pass
+
+
+
+class ControlRing:
+    """The lazy ring of one control-plane thread (the rescale controller,
+    the supervisor, the overload governor): made on the first span once
+    the graph records (sized like its largest stage ring) and registered
+    with the graph's rings, so its ``rescale:*`` / ``supervise:*`` /
+    ``overload:*`` spans share the workers' timeline. A failing span never
+    fails the control loop."""
+
+    __slots__ = ("graph", "pid_label", "tid_label", "_rec")
+
+    def __init__(self, graph, pid_label: str, tid_suffix: str) -> None:
+        self.graph = graph
+        self.pid_label = pid_label
+        self.tid_label = f"{graph.name}/{tid_suffix}"
+        self._rec = None
+
+    def span(self, name: str, dur_us: float = 0.0, arg: Any = None) -> None:
+        rec = self._rec
+        if rec is None:
+            events = self.graph._stage_flightrec_events_max()
+            if events <= 0:
+                return
+            rec = self._rec = FlightRecorder(events, self.pid_label,
+                                             self.tid_label)
+            self.graph._recorders.append(rec)
+        try:
+            rec.event(name, dur_us, arg)
+        except Exception:
+            pass

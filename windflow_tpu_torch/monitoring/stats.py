@@ -1,17 +1,22 @@
 """Per-replica statistics (reference ``wf/stats_record.hpp:49-160``).
 
-Trimmed copy of ``windflow_tpu/monitoring/stats.py``: the counters the
-replicas of the ported slice write (tuples in/out, ignored tuples, the
-device-plane traffic and program counts, the dispatch-pipeline split, the
-watermark gauges, the unified late-record accounting, the fused-chain
-and megabatch counters, the tier plane's ``Tier_*`` counters and gauges,
-the aligned checkpoints' ``Checkpoint_*`` counters, the exactly-once
-sinks' ``Sink_txn_*`` counters, the input queue's
-blocked-put/get time, the error policies' ``Dlq_*`` counters and the mesh
-replicas' ``Mesh_*`` series). On top of those,
+The port's copy of ``windflow_tpu/monitoring/stats.py``. Counters:
+inputs/outputs received/sent, ignored (dropped) tuples, service time EWMA
+(``wf/basic_operator.hpp:144-158``), and device-plane traffic (batches
+staged to and from the card, bytes moved — the analog of the reference's
+kernels launched / bytes H2D/D2H). On top of the JAX package's record,
 ``rebuild_kernel_launches`` counts the launches of the hand-written
-FlatFAT forest-rebuild kernel on this replica's forest, so a run can show
-that the main path went through it.
+FlatFAT forest-rebuild kernel on this replica's forest (so a run can show
+that the main path went through it), ``native_encode_batches`` the staged
+batches the native encoders filled, and ``Compile_*`` counts the builds or
+loads of that kernel's library (the port has no jit to attribute).
+
+On top of the reference's counters this record carries the latency-tracing
+plane (monitoring/tracing.py): per-replica log2 histograms of service time,
+dispatch prep/commit latency and (sinks) end-to-end latency — allocated only
+when sampling is enabled, so the default hot path never touches them — plus
+queue-occupancy/backpressure gauges read from the replica's input channel
+and the emitter-side FIFOs.
 """
 
 from __future__ import annotations
@@ -22,81 +27,165 @@ from typing import Any, Dict, Optional
 _EWMA_ALPHA = 0.1
 
 
+#: watermark stall threshold, seconds (the JAX package's WF_WM_STALL_SEC;
+#: a graph sets its own with ``PipeGraph(wm_stall_sec=...)``)
+DEFAULT_WM_STALL_SEC = 5.0
+
+
+def _wm_stall_sec(value: Optional[float] = None) -> float:
+    """Watermark stall threshold: a replica whose watermark has not
+    advanced for this long WHILE inputs keep arriving is
+    event-time-stalled (frozen source watermark, wedged punctuation path).
+    Quiet replicas (no new inputs either) are ``idle``, never stalled."""
+    return max(0.1, float(DEFAULT_WM_STALL_SEC if value is None else value))
+
+
 class StatsRecord:
     __slots__ = (
         "op_name", "replica_idx", "start_time",
-        "inputs_received", "outputs_sent", "inputs_ignored",
-        "punct_received", "punct_sent", "service_time_us",
+        "inputs_received", "bytes_received", "outputs_sent", "bytes_sent",
+        "inputs_ignored", "punct_received", "punct_sent",
+        "service_time_us", "eff_service_time_us",
         "device_batches_in", "device_batches_out",
         "device_bytes_h2d", "device_bytes_d2h", "device_programs_run",
-        "rebuild_kernel_launches", "fused_ops",
-        "megabatch_loops", "megabatch_batches", "megabatch_max",
+        "staging_pool_hits", "staging_pool_misses",
         "dispatch_host_prep_us", "dispatch_commit_us",
         "dispatch_host_prep_total_us", "dispatch_commit_total_us",
         "dispatch_batches", "dispatch_stalls", "dispatch_depth_max",
-        "ingest_blocks", "ingest_rows",
-        "wm_current", "wm_advances", "wm_max_source_ts",
-        "late_records", "late_dropped",
-        # aligned checkpoints (runtime/worker.py:checkpoint_now): snapshots
-        # taken by this worker chain, capture time, blob bytes, barrier
-        # alignment stall and the barrier cut pause (capture + ack)
+        # megabatch groups (runtime/dispatch.py + gpu/fused_ops.py):
+        # grouped dispatches (loops), batches committed through them,
+        # and the widest group observed — Programs_per_batch in to_dict
+        # derives the amortization from device_programs_run
+        "megabatch_loops", "megabatch_batches", "megabatch_max",
+        # columnar ingest plane (SourceReplica.ship_columns): blocks
+        # shipped, rows they carried, and host nanoseconds spent shipping
+        # them — Ingest_block_ns_per_row in to_dict is the per-row host
+        # cost of the block path (the row path has no analog: its cost
+        # IS the per-tuple Python this plane removes)
+        "ingest_blocks", "ingest_rows", "ingest_ns_total",
+        # aligned-barrier checkpointing (windflow_tpu_torch.checkpoint):
+        # per-replica snapshot count/duration/size + barrier-alignment
+        # stall time (multi-input workers buffering behind the barrier)
         "checkpoints_taken", "checkpoint_snapshot_total_us",
         "checkpoint_last_snapshot_us", "checkpoint_bytes_total",
-        "checkpoint_align_total_us", "checkpoint_cut_total_us",
-        "checkpoint_last_cut_us",
-        # exactly-once sinks (sinks/transactional.py): epochs pre-committed,
-        # committed, aborted, and writes refused to a fenced replica
+        "checkpoint_align_total_us",
+        # barrier CUT pause: how long the worker was actually fenced by
+        # the barrier (capture + ack). Equals snapshot time in sync
+        # mode; with async_upload it excludes serialization + writes,
+        # which run on the coordinator's background uploader
+        "checkpoint_cut_total_us", "checkpoint_last_cut_us",
+        # exactly-once sinks (sinks/transactional.py): per-epoch
+        # two-phase-commit accounting — pre-commits at the barrier,
+        # commits on coordinator finalize, aborts on restore/duplicate
+        # discard, and fenced (refused) writes from stale zombie replicas
         "txn_precommits", "txn_commits", "txn_aborts", "txn_fenced_writes",
-        # staging-buffer recycling (recycling.py): pool hits and misses of
-        # the CPU -> device staging edge
-        "staging_pool_hits", "staging_pool_misses",
-        # tiered keyed state (state/tiered.py): hot/cold key gauges, the
-        # batched promote/demote counters with promote time, and the
-        # lookup/miss counters behind Tier_miss_rate. tier_enabled marks
-        # a replica whose engine runs with_tiering: to_dict omits the
-        # Tier_* keys elsewhere
+        # per-record error policies + dead-letter queue
+        # (supervision/errors.py): quarantined records,
+        # policy-skipped records, retry attempts; and Kafka transient-
+        # error reconnect/retry events (kafka/connectors.py)
+        "dlq_records", "dlq_skipped", "dlq_retries", "kafka_reconnects",
+        # overload protection (overload/): records/bytes shed
+        # by admission control at the SOURCE boundary (before barriers
+        # and the exactly-once plane — accounted, never silently lost)
+        "shed_records", "shed_bytes",
+        # mesh execution plane (mesh/): per-shard visibility
+        # for operators whose parallelism is a device mesh — steps run,
+        # bytes through the in-program all_to_all shuffle, host-observed
+        # step time, and slot occupancy/skew of the block-owner mapping.
+        # mesh_devices == 0 marks a non-mesh replica; to_dict then omits
+        # the Mesh_* keys so /metrics carries mesh series only where a
+        # mesh exists
+        "mesh_devices", "mesh_steps", "mesh_shuffle_bytes",
+        "mesh_step_total_us", "mesh_shard_occupancy", "mesh_shard_skew",
+        # devices this mesh replica is running WITHOUT because the
+        # supervision plane excluded them (device-loss failover): > 0
+        # means degraded capacity until the probe sees them return
+        "mesh_degraded",
+        # tiered keyed state (state/tiered.py): hot/cold key
+        # gauges, batched promote/demote counters with promote time, and
+        # the lookup/miss counters behind Tier_miss_rate. tier_enabled
+        # marks a replica whose engine runs with_tiering — to_dict omits
+        # the Tier_* keys elsewhere, the Mesh_* discipline
         "tier_enabled", "tier_hot_keys", "tier_cold_keys",
         "tier_promotes", "tier_demotes", "tier_promote_usec_total",
         "tier_lookups", "tier_misses",
-        # per-record error policies (supervision/errors.py): records
-        # quarantined, skipped and re-invoked; Kafka transient-error
-        # retries (kafka/connectors.py)
-        "dlq_records", "dlq_skipped", "dlq_retries", "kafka_reconnects",
-        # mesh execution plane (mesh/): shards, steps run, the bytes the
-        # shuffle moved, step time, the fullest shard's slots and the
-        # max/mean skew, and devices the mesh runs without because the
-        # supervisor excluded them. mesh_devices == 0 marks a non-mesh
-        # replica: to_dict then omits the Mesh_* keys
-        "mesh_devices", "mesh_steps", "mesh_shuffle_bytes",
-        "mesh_step_total_us", "mesh_shard_occupancy", "mesh_shard_skew",
-        "mesh_degraded",
+        # event-time health plane: watermark progress gauges + unified
+        # late-record accounting. ``wm_current``/``wm_advances`` are the
+        # only hot-path writes (two stores on ADVANCE only, in
+        # BasicReplica._advance_wm); lag/idle/stall derive at poll time
+        # (to_dict / worker idle tick) so the per-tuple path stays flat.
+        # ``wm_max_source_ts`` is tracked only on explicit event-time
+        # source paths (push_with_timestamp / push_columns(ts=...)) —
+        # ingress time has wm == ts, so event lag is identically zero
+        "wm_current", "wm_advances", "wm_max_source_ts", "wm_stalls",
+        "_wm_seen_advances", "_wm_mark_mono", "_wm_inputs_at_mark",
+        "_wm_stalled", "_wm_idle", "_wm_stall_usec",
+        # unified late-record accounting (every window engine: CPU keyed /
+        # persistent / interval join / FFAT host / GPU / mesh / fused
+        # terminators). late_records counts tuples that arrived behind the
+        # watermark (or behind a fired window boundary); late_dropped the
+        # subset discarded. Late_admitted derives (records - dropped), so
+        # engines whose drop decision is deferred to a device program
+        # (mesh FFAT) can count arrivals and drops at different sites and
+        # the conservation invariant still holds at the totals
+        "late_records", "late_dropped", "hist_lateness",
+        "is_terminated", "_last_svc_start",
+        # EWMA seeding: value==0.0 is NOT a reliable "unseeded" sentinel
+        # (a genuine ~0 first sample would re-seed forever, biasing early
+        # readings); explicit flags instead
+        "_svc_seeded", "_prep_seeded", "_commit_seeded",
+        # latency-tracing plane (None / 0 when sampling is off)
+        "sample_every", "_svc_rec",
+        "hist_service", "hist_prep", "hist_commit", "hist_e2e",
+        # queue / backpressure plane
         "input_channel", "pipe_depth_max", "worker_idle_ticks",
-        "worker_crashes", "worker_last_error", "is_terminated",
-        "_last_svc_start", "_svc_seeded", "_prep_seeded", "_commit_seeded",
+        # device-chain fusion (gpu/fused_ops.py): number of sub-operators
+        # fused into this replica's single per-batch program (0 = not a
+        # fused replica)
+        "fused_ops",
+        # the port's own: FlatFAT forest-rebuild kernel launches on this
+        # replica's forest, and staged batches the native encoders filled
+        "rebuild_kernel_launches", "native_encode_batches",
+        # compile attribution (monitoring/flightrec.note_kernel_load):
+        # builds or loads of a hand-written kernel's library for this
+        # replica (the port's counterpart of an XLA retrace), with elapsed
+        # time and what was built; later uses count as cache hits
+        "compile_count", "compile_usec_total", "compile_last_us",
+        "compile_last_signature", "compile_cache_hits",
+        # worker crash visibility: a replica chain that died records the
+        # exception here instead of only dying as a silent daemon thread
+        "worker_crashes", "worker_last_error",
+        # flight recorder (monitoring/flightrec.py): the owning worker's
+        # event ring, or None — every note_* hook below appends a span
+        # when present
+        "recorder",
     )
 
-    def __init__(self, op_name: str = "", replica_idx: int = 0) -> None:
+    def __init__(self, op_name: str = "", replica_idx: int = 0,
+                 sample_every: int = 0,
+                 wm_stall_sec: Optional[float] = None) -> None:
         self.op_name = op_name
         self.replica_idx = replica_idx
         self.start_time = time.monotonic()
         self.inputs_received = 0
+        self.bytes_received = 0
         self.outputs_sent = 0
+        self.bytes_sent = 0
         self.inputs_ignored = 0
         self.punct_received = 0
         self.punct_sent = 0
         self.service_time_us = 0.0  # EWMA over svc() durations
+        self.eff_service_time_us = 0.0
         self.device_batches_in = 0
         self.device_batches_out = 0
         self.device_bytes_h2d = 0
         self.device_bytes_d2h = 0
         self.device_programs_run = 0
-        self.rebuild_kernel_launches = 0
-        self.fused_ops = 0  # sub-ops fused into this replica (gpu/fused_ops)
-        # megabatch groups (runtime/dispatch.py + gpu/fused_ops.py): groups
-        # run, batches they committed and the widest group
-        self.megabatch_loops = 0
-        self.megabatch_batches = 0
-        self.megabatch_max = 0
+        self.staging_pool_hits = 0  # recycled staging buffers (ArrayPool)
+        self.staging_pool_misses = 0
+        # device-ahead dispatch pipeline (runtime/dispatch.py): per-stage
+        # split of the device-operator batch path — host control plane
+        # (prep) vs program dispatch + emit readbacks (commit)
         self.dispatch_host_prep_us = 0.0  # EWMA
         self.dispatch_commit_us = 0.0  # EWMA
         self.dispatch_host_prep_total_us = 0.0
@@ -104,13 +193,12 @@ class StatsRecord:
         self.dispatch_batches = 0
         self.dispatch_stalls = 0  # forced ordering-point drains
         self.dispatch_depth_max = 0
+        self.megabatch_loops = 0
+        self.megabatch_batches = 0
+        self.megabatch_max = 0
         self.ingest_blocks = 0
         self.ingest_rows = 0
-        self.wm_current = 0
-        self.wm_advances = 0
-        self.wm_max_source_ts = 0
-        self.late_records = 0
-        self.late_dropped = 0
+        self.ingest_ns_total = 0
         self.checkpoints_taken = 0
         self.checkpoint_snapshot_total_us = 0.0
         self.checkpoint_last_snapshot_us = 0.0
@@ -122,8 +210,19 @@ class StatsRecord:
         self.txn_commits = 0
         self.txn_aborts = 0
         self.txn_fenced_writes = 0
-        self.staging_pool_hits = 0
-        self.staging_pool_misses = 0
+        self.dlq_records = 0
+        self.dlq_skipped = 0
+        self.dlq_retries = 0
+        self.kafka_reconnects = 0
+        self.shed_records = 0
+        self.shed_bytes = 0
+        self.mesh_devices = 0
+        self.mesh_steps = 0
+        self.mesh_shuffle_bytes = 0
+        self.mesh_step_total_us = 0.0
+        self.mesh_shard_occupancy = 0
+        self.mesh_shard_skew = 0.0
+        self.mesh_degraded = 0
         self.tier_enabled = False
         self.tier_hot_keys = 0
         self.tier_cold_keys = 0
@@ -132,27 +231,61 @@ class StatsRecord:
         self.tier_promote_usec_total = 0.0
         self.tier_lookups = 0
         self.tier_misses = 0
-        self.dlq_records = 0
-        self.dlq_skipped = 0
-        self.dlq_retries = 0
-        self.kafka_reconnects = 0
-        self.mesh_devices = 0
-        self.mesh_steps = 0
-        self.mesh_shuffle_bytes = 0
-        self.mesh_step_total_us = 0.0
-        self.mesh_shard_occupancy = 0
-        self.mesh_shard_skew = 0.0
-        self.mesh_degraded = 0
-        self.input_channel = None  # wired by PipeGraph._make_workers
-        self.pipe_depth_max = 0  # emitter-side FIFO high-water mark
-        self.worker_idle_ticks = 0
-        self.worker_crashes = 0
-        self.worker_last_error = ""
+        # -- event-time health plane ----------------------------------------
+        self.wm_current = 0
+        self.wm_advances = 0
+        self.wm_max_source_ts = 0
+        self.wm_stalls = 0
+        self._wm_seen_advances = 0
+        self._wm_mark_mono = self.start_time
+        self._wm_inputs_at_mark = 0
+        self._wm_stalled = False
+        self._wm_idle = True
+        self._wm_stall_usec = _wm_stall_sec(wm_stall_sec) * 1e6
+        self.late_records = 0
+        self.late_dropped = 0
         self.is_terminated = False
         self._last_svc_start = 0.0
         self._svc_seeded = False
         self._prep_seeded = False
         self._commit_seeded = False
+        # -- latency tracing (monitoring/histogram.py) ----------------------
+        self.sample_every = max(0, int(sample_every))
+        # service-histogram request flag: the replica's traced-message
+        # branch sets it; the next end_svc consumes it. Keying service
+        # sampling off TRACED messages keeps the end_svc hot path at one
+        # bool check regardless of sampling rate (and records a cohort
+        # consistent with the e2e samples).
+        self._svc_rec = False
+        if self.sample_every > 0:
+            from .histogram import LatencyHistogram
+            self.hist_service: Optional[Any] = LatencyHistogram()
+            self.hist_prep: Optional[Any] = LatencyHistogram()
+            self.hist_commit: Optional[Any] = LatencyHistogram()
+            self.hist_e2e: Optional[Any] = LatencyHistogram()
+            self.hist_lateness: Optional[Any] = LatencyHistogram()
+        else:
+            self.hist_service = None
+            self.hist_prep = None
+            self.hist_commit = None
+            self.hist_e2e = None
+            self.hist_lateness = None
+        # -- queue / backpressure gauges ------------------------------------
+        self.input_channel = None  # wired by PipeGraph._make_workers
+        self.pipe_depth_max = 0  # emitter-side FIFO high-water mark
+        self.worker_idle_ticks = 0
+        self.fused_ops = 0  # sub-ops fused into this replica's program
+        self.rebuild_kernel_launches = 0
+        self.native_encode_batches = 0
+        # -- compile attribution / crash visibility / flight recorder -------
+        self.compile_count = 0
+        self.compile_usec_total = 0.0
+        self.compile_last_us = 0.0
+        self.compile_last_signature = ""
+        self.compile_cache_hits = 0
+        self.worker_crashes = 0
+        self.worker_last_error = ""
+        self.recorder = None  # FlightRecorder, wired by the Worker
 
     # -- service-time recording (wf/basic_operator.hpp:134-158) -------------
     def start_svc(self) -> None:
@@ -165,8 +298,20 @@ class StatsRecord:
             self._svc_seeded = True
             self.service_time_us = per_tuple
         else:
-            self.service_time_us += _EWMA_ALPHA * (per_tuple
-                                                   - self.service_time_us)
+            self.service_time_us += _EWMA_ALPHA * (per_tuple - self.service_time_us)
+        self.eff_service_time_us = self.service_time_us
+        if self._svc_rec:
+            self._svc_rec = False
+            if self.hist_service is not None:
+                self.hist_service.record(per_tuple)
+            # flight-recorder svc span rides the SAME traced-cohort gate
+            # (one bool check already paid): no new per-tuple cost. The
+            # op name is part of the span name: chained operators share
+            # one ring, and an upstream op's svc interval CONTAINS its
+            # inline-chained successors' — per-op names keep each
+            # operator's own spans sequential and the nesting readable
+            if self.recorder is not None:
+                self.recorder.event("svc:" + self.op_name, dt_us, n_tuples)
 
     # -- dispatch-pipeline stages (runtime/dispatch.py) ----------------------
     def note_host_prep(self, us: float) -> None:
@@ -178,6 +323,10 @@ class StatsRecord:
         else:
             self.dispatch_host_prep_us += _EWMA_ALPHA * (
                 us - self.dispatch_host_prep_us)
+        if self.hist_prep is not None:
+            self.hist_prep.record(us)
+        if self.recorder is not None:
+            self.recorder.event("host_prep", us)
 
     def note_dispatch_commit(self, us: float) -> None:
         self.dispatch_commit_total_us += us
@@ -187,6 +336,30 @@ class StatsRecord:
         else:
             self.dispatch_commit_us += _EWMA_ALPHA * (
                 us - self.dispatch_commit_us)
+        if self.hist_commit is not None:
+            self.hist_commit.record(us)
+        if self.recorder is not None:
+            self.recorder.event("commit", us)
+
+    def note_megabatch(self, k: int, us: float = 0.0) -> None:
+        """One megabatch group: ``k`` same-signature batches committed as
+        one device program (``FusedGPUReplica._run_megabatch``)."""
+        self.megabatch_loops += 1
+        self.megabatch_batches += k
+        if k > self.megabatch_max:
+            self.megabatch_max = k
+        if self.recorder is not None:
+            self.recorder.event("megabatch:scan", us, k)
+
+    def note_ingest_block(self, n_rows: int, ns: int = 0) -> None:
+        """One column block through ``ship_columns``: ``n_rows`` admitted
+        rows shipped in ``ns`` host nanoseconds (gate + routing + staging
+        copy; the async H2D itself is excluded by dispatch)."""
+        self.ingest_blocks += 1
+        self.ingest_rows += n_rows
+        self.ingest_ns_total += ns
+        if self.recorder is not None:
+            self.recorder.event("ingest:block", ns / 1e3, n_rows)
 
     def note_dispatch_depth(self, depth: int) -> None:
         if depth > self.dispatch_depth_max:
@@ -195,27 +368,15 @@ class StatsRecord:
     def note_dispatch_stall(self) -> None:
         self.dispatch_stalls += 1
 
-    def note_megabatch(self, k: int) -> None:
-        """One megabatch group: ``k`` same-signature batches committed as
-        one device program (``FusedGPUReplica._run_megabatch``; its time
-        lands in the dispatch commit clock)."""
-        self.megabatch_loops += 1
-        self.megabatch_batches += k
-        if k > self.megabatch_max:
-            self.megabatch_max = k
-
-    def note_ingest_block(self, n_rows: int) -> None:
-        self.ingest_blocks += 1
-        self.ingest_rows += n_rows
-
+    # -- checkpointing (windflow_tpu_torch.checkpoint) -----------------------
     def note_checkpoint(self, snapshot_us: float, nbytes: int,
                         align_us: float,
                         cut_us: Optional[float] = None) -> None:
-        """One aligned snapshot of this replica's worker chain: capture
-        time, blob bytes written (0 when the coordinator uploads them
-        asynchronously), how long barrier alignment stalled the chain (0
-        for single-input workers) and the barrier cut pause (barrier at
-        the worker -> ack; the capture time when not given)."""
+        """One aligned snapshot of this replica's worker chain:
+        state-capture duration, blob bytes written, how long barrier
+        alignment stalled the chain (0 for single-input workers), and
+        the barrier CUT pause (capture + ack; defaults to the snapshot
+        duration for call sites that don't distinguish the two)."""
         if cut_us is None:
             cut_us = snapshot_us
         self.checkpoints_taken += 1
@@ -225,23 +386,48 @@ class StatsRecord:
         self.checkpoint_align_total_us += align_us
         self.checkpoint_cut_total_us += cut_us
         self.checkpoint_last_cut_us = cut_us
+        if self.recorder is not None:
+            if align_us > 0:
+                self.recorder.event("barrier_align", align_us)
+            self.recorder.event("ckpt_snapshot", snapshot_us,
+                                {"bytes": nbytes})
 
-    def note_late(self, n_records: int, n_dropped: int = 0) -> None:
-        """Late-record accounting: ``n_records`` tuples observed behind the
-        watermark / a fired boundary, ``n_dropped`` of them discarded."""
-        self.late_records += n_records
-        self.late_dropped += n_dropped
+    # -- compile attribution (monitoring/flightrec.note_kernel_load) ---------
+    def note_compile(self, us: float, signature: str = "") -> None:
+        """One build or load of a hand-written kernel's library for this
+        replica's device programs: elapsed time and what was built (the
+        port's counterpart of an XLA (re)trace and compile)."""
+        self.compile_count += 1
+        self.compile_usec_total += us
+        self.compile_last_us = us
+        self.compile_last_signature = signature
 
-    # -- tiered keyed state (state/tiered.py) ---------------------------------
+    # -- mesh execution plane (mesh/) ----------------------------------------
+    def note_mesh_step(self, us: float, shuffle_bytes: int) -> None:
+        """One sharded step: host-observed dispatch time + the bytes its
+        in-program all_to_all moved (every tuple column crosses the
+        shuffle exactly once per step)."""
+        self.mesh_steps += 1
+        self.mesh_step_total_us += us
+        self.mesh_shuffle_bytes += shuffle_bytes
+        if self.recorder is not None:
+            self.recorder.event("mesh:step", us,
+                                {"bytes": shuffle_bytes})
+
+    # -- tiered keyed state (state/tiered.py) --------------------------------
     def note_tier_promote(self, n_keys: int, usec: float) -> None:
         """One BATCHED promote (cold rows -> one slot-row scatter):
         ``n_keys`` keys moved hot in ``usec`` host-observed time."""
         self.tier_promotes += n_keys
         self.tier_promote_usec_total += usec
+        if self.recorder is not None:
+            self.recorder.event("tier:promote", usec, n_keys)
 
     def note_tier_demote(self, n_keys: int) -> None:
         """One BATCHED demote (slot-row gather -> cold writes)."""
         self.tier_demotes += n_keys
+        if self.recorder is not None:
+            self.recorder.event("tier:demote", 0.0, n_keys)
 
     def note_tier_gauges(self, hot: int, cold: int, lookups: int,
                          misses: int) -> None:
@@ -251,38 +437,100 @@ class StatsRecord:
         self.tier_lookups = lookups
         self.tier_misses = misses
 
-    # -- mesh execution plane (mesh/) -----------------------------------------
-    def note_mesh_step(self, us: float, shuffle_bytes: int) -> None:
-        """One sharded step: host-observed time (the step's launches and
-        its read-back) and the bytes its all_to_all moved."""
-        self.mesh_steps += 1
-        self.mesh_step_total_us += us
-        self.mesh_shuffle_bytes += shuffle_bytes
+    # -- overload protection (overload/) -------------------------------------
+    def note_shed(self, n: int, nbytes: int) -> None:
+        """Records shed by source admission control (never emitted, so
+        they appear in NO other counter — offered = admitted + shed)."""
+        self.shed_records += n
+        self.shed_bytes += nbytes
+
+    # -- event-time health plane ---------------------------------------------
+    def note_late(self, n_records: int, n_dropped: int = 0,
+                  lateness_us: Any = None) -> None:
+        """Late-record accounting for one engine decision (or one batched
+        block of decisions). ``n_records`` tuples observed behind the
+        watermark / a fired boundary; ``n_dropped`` of the replica's late
+        tuples discarded. The two may be counted at DIFFERENT call sites
+        (device engines learn the drop count from a later readback), so
+        pass ``n_records=0`` for drop-only updates of tuples already
+        counted late on arrival. ``lateness_us`` — observed (wm - ts),
+        scalar or array — feeds the lateness histogram when tracing is on."""
+        self.late_records += n_records
+        self.late_dropped += n_dropped
+        h = self.hist_lateness
+        if h is not None and lateness_us is not None:
+            if hasattr(lateness_us, "__len__"):
+                h.record_many(lateness_us)
+            else:
+                h.record(lateness_us)
+        if self.recorder is not None and n_dropped:
+            self.recorder.event("late:drop", 0.0, n_dropped)
+
+    def poll_watermark(self, now: Optional[float] = None) -> float:
+        """Derive watermark lag / idle / stall from the advance counter —
+        called at observation points (to_dict, worker idle ticks), never
+        per tuple. Returns the wall-clock lag in microseconds since the
+        watermark last advanced. Stall detection is edge-triggered: a
+        replica whose inputs keep arriving while the watermark has been
+        frozen past the stall threshold bumps ``wm_stalls`` once per
+        freeze (and logs a ``wm:stall`` flight-recorder span); a replica
+        with no new inputs either is ``idle``, not stalled."""
+        if now is None:
+            now = time.monotonic()
+        adv = self.wm_advances
+        if adv != self._wm_seen_advances:
+            self._wm_seen_advances = adv
+            self._wm_mark_mono = now
+            self._wm_inputs_at_mark = self.inputs_received
+            self._wm_stalled = False
+            self._wm_idle = False
+            return 0.0
+        lag_us = max(0.0, (now - self._wm_mark_mono) * 1e6)
+        self._wm_idle = self.inputs_received == self._wm_inputs_at_mark
+        if (not self._wm_idle and not self._wm_stalled
+                and lag_us > self._wm_stall_usec):
+            self._wm_stalled = True
+            self.wm_stalls += 1
+            if self.recorder is not None:
+                self.recorder.event("wm:stall", lag_us, self.wm_current)
+        return lag_us
+
+    # -- latency tracing -----------------------------------------------------
+    def note_e2e(self, us: float) -> None:
+        """End-to-end latency of one traced tuple (sink side)."""
+        if self.hist_e2e is not None:
+            self.hist_e2e.record(us)
 
     def note_pipe_depth(self, depth: int) -> None:
+        """Emitter-side FIFO occupancy high-water mark (_D2HPipeline)."""
         if depth > self.pipe_depth_max:
             self.pipe_depth_max = depth
 
     def to_dict(self) -> Dict[str, Any]:
         elapsed = max(time.monotonic() - self.start_time, 1e-9)
-        ch = self.input_channel
         d = {
             "Operator_name": self.op_name,
             "Replica_id": self.replica_idx,
             "Inputs_received": self.inputs_received,
+            "Bytes_received": self.bytes_received,
             "Outputs_sent": self.outputs_sent,
+            "Bytes_sent": self.bytes_sent,
             "Inputs_ignored": self.inputs_ignored,
             "Punctuations_received": self.punct_received,
             "Punctuations_sent": self.punct_sent,
             "Service_time_usec": round(self.service_time_us, 3),
+            "Eff_Service_time_usec": round(self.eff_service_time_us, 3),
             "Throughput_tuples_sec": round(self.inputs_received / elapsed, 1),
             "Device_batches_in": self.device_batches_in,
             "Device_batches_out": self.device_batches_out,
             "Device_bytes_H2D": self.device_bytes_h2d,
             "Device_bytes_D2H": self.device_bytes_d2h,
             "Device_programs_run": self.device_programs_run,
-            "Rebuild_kernel_launches": self.rebuild_kernel_launches,
             "Fused_ops": self.fused_ops,
+            "Rebuild_kernel_launches": self.rebuild_kernel_launches,
+            "Staging_native_batches": self.native_encode_batches,
+            "Staging_pool_hits": self.staging_pool_hits,
+            "Staging_pool_misses": self.staging_pool_misses,
             "Dispatch_host_prep_usec": round(self.dispatch_host_prep_us, 3),
             "Dispatch_commit_usec": round(self.dispatch_commit_us, 3),
             "Dispatch_host_prep_total_usec": round(
@@ -300,16 +548,18 @@ class StatsRecord:
                 self.megabatch_batches / self.megabatch_loops, 2)
                 if self.megabatch_loops else 0.0,
             "Megabatch_max": self.megabatch_max,
+            # columnar ingest plane (0s on row-path-only sources)
+            "Ingest_blocks": self.ingest_blocks,
+            "Ingest_rows": self.ingest_rows,
+            "Ingest_rows_per_block_avg": round(
+                self.ingest_rows / self.ingest_blocks, 2)
+                if self.ingest_blocks else 0.0,
+            "Ingest_block_ns_per_row": round(
+                self.ingest_ns_total / self.ingest_rows, 1)
+                if self.ingest_rows else 0.0,
             "Programs_per_batch": round(
                 self.device_programs_run / self.dispatch_batches, 3)
                 if self.dispatch_batches else 0.0,
-            "Ingest_blocks": self.ingest_blocks,
-            "Ingest_rows": self.ingest_rows,
-            "Watermark_current_ts": self.wm_current,
-            "Watermark_advances": self.wm_advances,
-            "Late_records": self.late_records,
-            "Late_dropped": self.late_dropped,
-            "Late_admitted": max(0, self.late_records - self.late_dropped),
             "Checkpoint_snapshots": self.checkpoints_taken,
             "Checkpoint_snapshot_usec_total": round(
                 self.checkpoint_snapshot_total_us, 1),
@@ -327,27 +577,45 @@ class StatsRecord:
             "Sink_txn_commits": self.txn_commits,
             "Sink_txn_aborts": self.txn_aborts,
             "Sink_txn_fenced_writes": self.txn_fenced_writes,
-            "Staging_pool_hits": self.staging_pool_hits,
-            "Staging_pool_misses": self.staging_pool_misses,
-            "Queue_depth_max": getattr(ch, "depth_max", 0),
-            # backpressure (producers blocked on this replica's full input
-            # queue) and starvation (this replica blocked on it empty): the
-            # autoscaler's signals
-            "Queue_blocked_put_usec": round(
-                getattr(ch, "blocked_put_ns", 0) / 1e3, 1),
-            "Queue_blocked_get_usec": round(
-                getattr(ch, "blocked_get_ns", 0) / 1e3, 1),
+            # kernel build/load attribution (0/"" on host replicas)
+            "Compile_count": self.compile_count,
+            "Compile_usec_total": round(self.compile_usec_total, 1),
+            "Compile_last_usec": round(self.compile_last_us, 1),
+            "Compile_last_signature": self.compile_last_signature,
+            "Compile_cache_hits": self.compile_cache_hits,
+            # per-record error policies / dead-letter quarantine
+            # (0s on the default FAIL policy)
             "Dlq_records": self.dlq_records,
             "Dlq_skipped": self.dlq_skipped,
             "Dlq_retries": self.dlq_retries,
+            # Kafka transient-error retry/backoff (kafka/connectors.py)
             "Kafka_reconnects": self.kafka_reconnects,
-            "Queue_emit_fifo_depth_max": self.pipe_depth_max,
-            "Worker_idle_ticks": self.worker_idle_ticks,
+            # overload admission control (0s unless the governor sheds)
+            "Shed_records": self.shed_records,
+            "Shed_bytes": self.shed_bytes,
+            # worker crash visibility (Worker records on its error path)
             "Worker_crashes": self.worker_crashes,
             "Worker_last_error": self.worker_last_error,
             "isTerminated": self.is_terminated,
         }
-        if self.mesh_devices > 0:  # mesh replicas only
+        # -- event-time health plane (always present: zero lag on a healthy
+        # replica is itself the signal the doctor reads) --------------------
+        wm_lag_us = self.poll_watermark()
+        d["Watermark_current_ts"] = self.wm_current
+        d["Watermark_advances"] = self.wm_advances
+        d["Watermark_lag_usec"] = round(wm_lag_us, 1)
+        d["Watermark_event_lag_usec"] = (
+            max(0, self.wm_max_source_ts - self.wm_current)
+            if self.wm_max_source_ts > 0 else 0)
+        d["Watermark_idle"] = 1 if self._wm_idle else 0
+        d["Watermark_stalls"] = self.wm_stalls
+        d["Late_records"] = self.late_records
+        d["Late_dropped"] = self.late_dropped
+        d["Late_admitted"] = max(0, self.late_records - self.late_dropped)
+        # -- mesh execution plane (mesh replicas only: a Mesh_* series on
+        # every CPU replica would be noise — /metrics renders these only
+        # where rep.get(field) exists) ---------------------------------------
+        if self.mesh_devices > 0:
             d["Mesh_devices"] = self.mesh_devices
             d["Mesh_steps"] = self.mesh_steps
             d["Mesh_shuffle_bytes"] = self.mesh_shuffle_bytes
@@ -355,7 +623,8 @@ class StatsRecord:
             d["Mesh_shard_occupancy"] = self.mesh_shard_occupancy
             d["Mesh_shard_skew"] = self.mesh_shard_skew
             d["Mesh_degraded_devices"] = self.mesh_degraded
-        if self.tier_enabled:  # with_tiering replicas only
+        # -- tiered keyed state (with_tiering replicas only) ----------------
+        if self.tier_enabled:
             d["Tier_hot_keys"] = self.tier_hot_keys
             d["Tier_cold_keys"] = self.tier_cold_keys
             d["Tier_promotes"] = self.tier_promotes
@@ -365,4 +634,38 @@ class StatsRecord:
             d["Tier_miss_rate"] = round(
                 self.tier_misses / self.tier_lookups, 4) \
                 if self.tier_lookups else 0.0
+        # -- queue / backpressure plane (0s for sources and fused chains) ---
+        ch = self.input_channel
+        d["Queue_len"] = len(ch) if ch is not None else 0
+        d["Queue_capacity"] = getattr(ch, "capacity", 0) if ch is not None \
+            else 0
+        d["Queue_depth_max"] = getattr(ch, "depth_max", 0) if ch is not None \
+            else 0
+        d["Queue_blocked_put_usec"] = round(
+            getattr(ch, "blocked_put_ns", 0) / 1e3, 1) if ch is not None \
+            else 0.0
+        d["Queue_blocked_get_usec"] = round(
+            getattr(ch, "blocked_get_ns", 0) / 1e3, 1) if ch is not None \
+            else 0.0
+        d["Queue_puts_blocked"] = getattr(ch, "puts_blocked", 0) \
+            if ch is not None else 0
+        d["Queue_emit_fifo_depth_max"] = self.pipe_depth_max
+        d["Worker_idle_ticks"] = self.worker_idle_ticks
+        # -- latency-tracing plane ------------------------------------------
+        d["Latency_sample_every"] = self.sample_every
+        for label, h in (("service", self.hist_service),
+                         ("prep", self.hist_prep),
+                         ("commit", self.hist_commit),
+                         ("e2e", self.hist_e2e),
+                         ("lateness", self.hist_lateness)):
+            on = h is not None
+            d[f"Latency_{label}_p50_usec"] = round(h.p50, 1) if on else 0.0
+            d[f"Latency_{label}_p90_usec"] = round(h.p90, 1) if on else 0.0
+            d[f"Latency_{label}_p99_usec"] = round(h.p99, 1) if on else 0.0
+            d[f"Latency_{label}_max_usec"] = round(h.max_us, 1) if on else 0.0
+            d[f"Latency_{label}_samples"] = h.count if on else 0
+            if on and h.count:
+                # sparse bucket transport: /metrics renders real histogram
+                # series and per-operator merges from these
+                d[f"Latency_{label}_hist"] = h.to_sparse()
         return d

@@ -1,10 +1,14 @@
 """Operator and replica base classes.
 
-Trimmed copy of ``windflow_tpu/operators/base.py`` (no latency tracing). Parity: ``wf/basic_operator.hpp`` —
-an operator is metadata plus a vector of replicas; each replica is one
-chain node with the ``svc()`` hot loop, emitter wiring, punctuation
-handling and stats. Riched vs non-riched functors are told apart by arity.
-The ``device`` an operator runs on is set by the graph at build time.
+Copy of ``windflow_tpu/operators/base.py``. Parity:
+``wf/basic_operator.hpp`` — an operator is metadata plus a vector of
+replicas; each replica is one chain node with the ``svc()`` hot loop,
+emitter wiring, punctuation handling and stats. Riched vs non-riched
+functors are told apart by arity. The ``device`` an operator runs on, the
+graph's latency sampling rate and watermark stall threshold are set by
+the graph at build time (``configure``). A replica forwards a traced
+message's origin stamp to its emitter and, on a sink, records the
+end-to-end latency (``monitoring/tracing.py``).
 """
 
 from __future__ import annotations
@@ -15,11 +19,12 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from ..basic import (ExecutionMode, OpType, RoutingMode, TimePolicy,
-                     WindFlowError, as_key_fn, key_field_name,
-                     key_fields_names)
+                     WindFlowError, as_key_fn, current_time_usecs,
+                     key_field_name, key_fields_names)
 from ..context import RuntimeContext
 from ..message import Batch
 from ..monitoring.stats import StatsRecord
+from ..monitoring.tracing import resolve_sample_every
 from ..runtime.emitters import BasicEmitter
 
 
@@ -63,6 +68,13 @@ class BasicOperator:
         self.closing_func: Optional[Callable] = None
         # per-record error policy (supervision/errors.py; None = FAIL)
         self.error_policy = None
+        # latency-tracing interval (with_latency_tracing; None = the
+        # graph's latency_sample, set at configure) and flight-recorder
+        # ring capacity (with_flight_recorder; None = the graph's)
+        self.latency_sample: Optional[int] = None
+        self.graph_latency_sample = 0
+        self.flightrec_events: Optional[int] = None
+        self.wm_stall_sec: Optional[float] = None
         self.replicas: List["BasicReplica"] = []
         self.execution_mode = ExecutionMode.DEFAULT
         self.time_policy = TimePolicy.INGRESS_TIME
@@ -91,8 +103,14 @@ class BasicReplica:
         self.op = op
         self.idx = idx
         self.context = RuntimeContext(op.parallelism, idx)
-        self.stats = StatsRecord(op.name, idx)
+        self.stats = StatsRecord(op.name, idx,
+                                 sample_every=resolve_sample_every(op),
+                                 wm_stall_sec=op.wm_stall_sec)
         self.emitter: Optional[BasicEmitter] = None
+        # end-to-end recording hook: a SINK replica binds it to its stats
+        # histogram when sampling is on; None keeps the per-message check
+        # to one attribute load
+        self._e2e = None
         self.terminated = False
         self.cur_wm = 0
         self.copy_on_write = False  # set when fed by a broadcast emitter
@@ -112,22 +130,53 @@ class BasicReplica:
         self.stats.start_svc()
         n = 1
         if msg.is_punct:
-            self.stats.punct_received += 1
+            st = self.stats
+            st.punct_received += 1
             self._advance_wm(msg.wm)
+            # wm:advance spans ride punctuations only (bounded rate)
+            if st.recorder is not None and msg.wm >= self.cur_wm:
+                st.recorder.event("wm:advance", 0.0, self.cur_wm)
             self.on_punctuation(msg.wm)
         elif isinstance(msg, Batch):
             n = msg.size
             self.stats.inputs_received += n
             self._advance_wm(msg.wm)
             tag = msg.stream_tag
+            t0 = msg.trace_min
+            if t0:  # traced batch: forward the stamp / record at sinks
+                self.stats._svc_rec = True
+                if self._e2e is not None:
+                    now = current_time_usecs()
+                    self._e2e.record(now - msg.trace_max)
+                    if msg.trace_max != t0:
+                        self._e2e.record(now - t0)
+                em = self.emitter
+                if em is not None:
+                    em.trace_ts = t0
             for payload, ts in msg.rows:
                 self.context._set_meta(ts, self.cur_wm)
                 self.process(payload, ts, self.cur_wm, tag)
+            if t0:
+                em = self.emitter
+                if em is not None:
+                    em.trace_ts = 0
         else:
             self.stats.inputs_received += 1
             self._advance_wm(msg.wm)
+            t0 = msg.trace_ts
+            if t0:  # traced tuple: forward the stamp / record at sinks
+                self.stats._svc_rec = True
+                if self._e2e is not None:
+                    self._e2e.record(current_time_usecs() - t0)
+                em = self.emitter
+                if em is not None:
+                    em.trace_ts = t0
             self.context._set_meta(msg.ts, self.cur_wm)
             self.process(msg.payload, msg.ts, self.cur_wm, msg.stream_tag)
+            if t0:
+                em = self.emitter
+                if em is not None:
+                    em.trace_ts = 0  # a dropped tuple stamps no later one
         self.stats.end_svc(n)
 
     def _advance_wm(self, wm: int) -> None:

@@ -29,7 +29,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
-from ..basic import OpType, RoutingMode, WindFlowError
+from ..basic import OpType, RoutingMode, WindFlowError, current_time_usecs
 from .base import BasicOperator, BasicReplica, arity
 
 
@@ -211,6 +211,12 @@ class Sink(BasicOperator):
 
 
 class SinkReplica(BasicReplica):
+    def __init__(self, op, idx):
+        super().__init__(op, idx)
+        # sinks record the end-to-end latency of traced tuples (None with
+        # sampling off: the generic handle_msg hook stays dormant)
+        self._e2e = self.stats.hist_e2e
+
     def process(self, payload, ts, wm, tag):
         if self.op._riched:
             self.op.func(payload, self.context)
@@ -227,6 +233,10 @@ class SinkReplica(BasicReplica):
 class ColumnarSinkReplica(BasicReplica):
     """Consumes whole device batches as host COLUMN dicts — one functor
     call per batch, no per-row Python objects on the exit path."""
+
+    def __init__(self, op, idx):
+        super().__init__(op, idx)
+        self._e2e = self.stats.hist_e2e
 
     def handle_msg(self, ch: int, msg: Any) -> None:
         from ..gpu.batch import BatchGPU
@@ -245,6 +255,13 @@ class ColumnarSinkReplica(BasicReplica):
             n = msg.size
             self.stats.inputs_received += n
             self._advance_wm(msg.wm)
+            if self.stats.sample_every:  # per batch, not per tuple
+                self.stats._svc_rec = True
+            if self._e2e is not None and msg.trace_min:
+                now = current_time_usecs()
+                self._e2e.record(now - msg.trace_max)
+                if msg.trace_max != msg.trace_min:
+                    self._e2e.record(now - msg.trace_min)
             cols = {name: col[:n] for name, col in msg.host_columns().items()}
             ts = msg.ts_host[:n]
             self.context._set_meta(int(ts[-1]) if n else 0, self.cur_wm)

@@ -127,12 +127,13 @@ class FfatReplica(BasicReplica):
             ks.count += 1
             if pane_id < ks.next_pane_to_push:
                 self.ignored += 1  # behind the consumed-pane frontier
-                self.stats.note_late(1, 1)
+                self.stats.note_late(1, 1,
+                                     float(wm - ts) if wm > ts else None)
                 return
             if ts < wm:
                 # admitted-late: behind the watermark but ahead of the
                 # consumed-pane frontier (within the allowed lateness)
-                self.stats.note_late(1, 0)
+                self.stats.note_late(1, 0, float(wm - ts))
             cur = ks.pending_panes.get(pane_id)
             ks.pending_panes[pane_id] = (value if cur is None
                                          else op.combine(cur, value))

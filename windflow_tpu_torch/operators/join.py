@@ -97,7 +97,7 @@ class IntervalJoinReplica(BasicReplica):
             # admitted-late: the join never drops, but a KP-mode tuple
             # behind the watermark probes archives the purge frontier may
             # already have trimmed — matches can be missed; account it
-            self.stats.note_late(1, 0)
+            self.stats.note_late(1, 0, float(wm - ts))
         key = op.key_extractor(payload)
         ka = self.keys.get(key)
         if ka is None:

@@ -1,7 +1,6 @@
 """Source operators and the Source_Shipper.
 
-Trimmed copy of ``windflow_tpu/operators/source.py`` (no admission gate,
-no latency stamps). Parity:
+Copy of ``windflow_tpu/operators/source.py``. Parity:
 ``wf/source.hpp:55-163`` and ``wf/source_shipper.hpp``: ``push`` for
 INGRESS_TIME, ``push_with_timestamp``/``set_next_watermark`` for
 EVENT_TIME, plus the columnar ``push_columns`` fast path and the block
@@ -14,10 +13,20 @@ functor's replay position (``snapshot_position()`` / ``restore(pos)``).
 ``ArrayBlockSource`` is a replayable block functor over numpy columns,
 ``arrow_block_source`` one over a pyarrow table (when pyarrow is
 installed).
+
+A source replica stamps every Nth shipped tuple with its latency-tracing
+origin (``monitoring/tracing.py``; a block stamps the same cohort as the
+row path would). While the overload governor sheds
+(``PipeGraph.with_slo``), an ``AdmissionGate`` sits in ``ship`` /
+``ship_columns`` BEFORE the emitter, the barriers and the exactly-once
+plane, so a shed record never enters a channel, a snapshot or a sink
+transaction; records the gate buffered ride the snapshot
+(``gate_pending``) and re-emit on restore.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -124,6 +133,17 @@ class Source(BasicOperator):
 class SourceReplica(BasicReplica):
     def __init__(self, op, idx):
         super().__init__(op, idx)
+        # sampled latency tracing: every Nth shipped tuple carries a
+        # wall-clock origin stamp. One integer AND against this mask
+        # (sample_every is a power of two; -1 = off never makes the AND
+        # zero), so the gate costs the same with tracing off or on
+        self._trace_mask = self.stats.sample_every - 1
+        # overload admission control (overload/): the governor installs
+        # an AdmissionGate here while shedding; one is-None check per push
+        self._gate = None
+        # records buffered in a gate at snapshot time: restore stashes
+        # them, run_source re-emits them before the functor resumes
+        self._restore_gate_pending = None
         # aligned checkpointing: the coordinator bumps an epoch; we notice
         # at the next push boundary, snapshot our replay position and
         # inject the barrier downstream
@@ -181,16 +201,29 @@ class SourceReplica(BasicReplica):
         gives an exact resume."""
         st = super().snapshot_state()
         st["shipped"] = self.stats.inputs_received
+        # shed accounting rides the snapshot: a restore must not zero the
+        # counters of records that are gone for good
+        st["shed_records"] = self.stats.shed_records
+        st["shed_bytes"] = self.stats.shed_bytes
         snap = getattr(self.op.func, "snapshot_position", None)
         if snap is not None:
             st["position"] = (snap(self.context) if arity(snap) >= 1
                               else snap())
+        gate = self._gate
+        if gate is not None and gate.pending:
+            # accepted into the gate, still awaiting tokens: the position
+            # already covers them, so they ride the snapshot (dropping
+            # them would lose records neither admitted nor shed)
+            st["gate_pending"] = gate.snapshot_pending()
         return st
 
     def restore_state(self, state: dict) -> None:
         super().restore_state(state)
         self._restore_position = state.get("position")
+        self._restore_gate_pending = state.get("gate_pending")
         self.stats.inputs_received = state.get("shipped", 0)
+        self.stats.shed_records = state.get("shed_records", 0)
+        self.stats.shed_bytes = state.get("shed_bytes", 0)
 
     def run_source(self) -> None:
         """Run the user generation loop to completion (the worker then
@@ -207,7 +240,23 @@ class SourceReplica(BasicReplica):
                 restore(self._restore_position, self.context)
             else:
                 restore(self._restore_position)
+        pend = self._restore_gate_pending
+        if pend:
+            # records a snapshot caught in a gate's buffer: the restored
+            # cursor is past them, so they re-emit (with their accept-time
+            # watermarks) ahead of everything the replay produces
+            self._restore_gate_pending = None
+            for p, t, w in pend:
+                self._advance_wm(w)
+                self._emit_admitted(p, t)
         self._drive(SourceShipper(self))
+        gate = self._gate
+        if gate is not None and gate.pending:
+            # end of stream with records still buffered: they were
+            # ACCEPTED (only awaiting tokens), so they emit
+            for p, t, w in gate.drain_pending():
+                self._advance_wm(w)
+                self._emit_admitted(p, t)
 
     def _drive(self, shipper: SourceShipper) -> None:
         if self.op._riched:
@@ -223,21 +272,63 @@ class SourceReplica(BasicReplica):
         if self._coord is not None \
                 and self._coord.requested_id != self._last_ckpt:
             self._maybe_inject()
+        gate = self._gate
+        if gate is not None:
+            # the watermark rides each record through the gate: while
+            # records wait in its buffer cur_wm must not pass them
+            for p, t, w in gate.offer(payload, ts, wm):
+                self._advance_wm(w)
+                self._emit_admitted(p, t)
+            if gate.released and not gate.pending:
+                self._gate = None  # recovery: back to the ungated path
+            return
         self._advance_wm(wm)
-        self.stats.inputs_received += 1
+        self._emit_admitted(payload, ts)
+
+    def _emit_admitted(self, payload: Any, ts: int) -> None:
+        st = self.stats
+        st.inputs_received += 1
+        if not (st.inputs_received & self._trace_mask):
+            self.emitter.trace_ts = current_time_usecs()
         self.emitter.emit(payload, ts, self.cur_wm)
 
     def ship_columns(self, cols, ts_arr, wm: int) -> None:
+        t0_ns = time.perf_counter_ns()
         # before the block, like ship(): a block is never split by a
         # barrier, so a block-granular cursor stays exact
         if self._coord is not None and not self._inject_suppressed \
                 and self._coord.requested_id != self._last_ckpt:
             self._maybe_inject()
+        gate = self._gate
+        if gate is not None:
+            if gate.pending:
+                # row-path records buffered in the gate precede this block
+                for p, t, w in gate.drain_pending():
+                    self._advance_wm(w)
+                    self._emit_admitted(p, t)
+            if gate.released:
+                self._gate = None  # recovery: back to the ungated path
+            else:
+                cols, ts_arr, n = gate.offer_columns(cols, ts_arr)
+                if n == 0:
+                    return
         self._advance_wm(wm)
+        st = self.stats
         n = len(ts_arr)
-        self.stats.inputs_received += n
-        self.emitter.emit_columns(cols, ts_arr, self.cur_wm)
-        self.stats.note_ingest_block(n)
+        base = st.inputs_received
+        st.inputs_received = base + n
+        trace_rows = None
+        se = st.sample_every
+        if se:
+            # the traced rows are exactly the ones the row path would
+            # stamp (global positions base+1+i that are multiples of
+            # sample_every), sharing one stamp
+            first = (-(base + 1)) % se
+            if first < n:
+                trace_rows = np.arange(first, n, se)
+                self.emitter.trace_ts = current_time_usecs()
+        self.emitter.emit_columns(cols, ts_arr, self.cur_wm, trace_rows)
+        st.note_ingest_block(n, time.perf_counter_ns() - t0_ns)
 
 
 class Columnar_Source(Source):

@@ -189,7 +189,9 @@ class WindowEngine:
                 self.ignored_tuples += 1
                 st = self.stats
                 if st is not None:
-                    st.note_late(1, 1)
+                    st.note_late(1, 1, float(wm - ts)
+                                 if self.win_type is WinType.TB and wm > ts
+                                 else None)
             return
         # admitted-late: a TB tuple behind the watermark that still lands
         # in an open window (within the allowed lateness). Dropped late
@@ -197,7 +199,7 @@ class WindowEngine:
         # inputs == on_time + late_admitted + late_dropped holds exactly
         st = self.stats
         if st is not None and self.win_type is WinType.TB and ts < wm:
-            st.note_late(1, 0)
+            st.note_late(1, 0, float(wm - ts))
         # open every window whose range has been reached
         if self.win_len >= self.slide_local:  # sliding / tumbling
             last_w = math.ceil((index + 1 - initial) / self.slide_local) - 1

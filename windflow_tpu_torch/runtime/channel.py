@@ -1,13 +1,15 @@
 """Bounded channels and ports connecting replicas.
 
-Copy of ``windflow_tpu/runtime/channel.py`` without the flight-recorder
-spans: every consumer worker owns one bounded MPSC ``Channel`` that
-merges its input edges (like FastFlow's ``ff_minode``); each producer
-edge is a ``QueuePort`` stamping the consumer-side channel index; chained
-stages talk through ``InlinePort``. A channel counts the time producers
-spend blocked on it when full and its consumer when empty (the
-autoscaler's backpressure and starvation signals), and ``close()``
-poisons it for a supervised teardown.
+Copy of ``windflow_tpu/runtime/channel.py``: every consumer worker owns
+one bounded MPSC ``Channel`` that merges its input edges (like FastFlow's
+``ff_minode``); each producer edge is a ``QueuePort`` stamping the
+consumer-side channel index; chained stages talk through ``InlinePort``.
+A channel counts the time producers spend blocked on it when full and its
+consumer when empty (the autoscaler's backpressure and starvation
+signals, and ``ch_put_blocked`` / ``ch_get_blocked`` spans in the calling
+thread's flight ring), and ``close()`` poisons it for a supervised
+teardown. ``native.NativeChannel`` is the same contract over the C++
+ring (``PipeGraph(native_channels=True)``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,10 @@ from typing import Any, Optional, Tuple
 
 from ..basic import DEFAULT_BUFFER_CAPACITY, SupervisorTeardown
 from ..message import EOS_SENTINEL
+# flight-recorder spans of blocked puts and gets go to the CALLING
+# thread's ring (a producer blocks on its consumer's channel); only the
+# blocked paths read it
+from ..monitoring.flightrec import thread_recorder
 
 
 def _teardown() -> SupervisorTeardown:
@@ -30,7 +36,7 @@ class Channel:
     """Bounded blocking MPSC queue of ``(channel_idx, msg)`` pairs."""
 
     __slots__ = ("_q", "_lock", "_not_empty", "_not_full", "capacity",
-                 "n_inputs", "depth_max", "blocked_put_ns",
+                 "n_inputs", "depth_max", "puts_blocked", "blocked_put_ns",
                  "blocked_get_ns", "closed")
 
     def __init__(self, capacity: int = DEFAULT_BUFFER_CAPACITY) -> None:
@@ -47,6 +53,7 @@ class Channel:
         # the bottleneck) and starvation (the consumer blocked on an empty
         # one); clocks are read on the blocked paths only
         self.depth_max = 0
+        self.puts_blocked = 0
         self.blocked_put_ns = 0
         self.blocked_get_ns = 0
 
@@ -60,12 +67,17 @@ class Channel:
             if self.closed:
                 raise _teardown()
             if len(self._q) >= self.capacity:
+                self.puts_blocked += 1
                 t0 = time.monotonic_ns()
                 while len(self._q) >= self.capacity:
                     self._not_full.wait()
                     if self.closed:
                         raise _teardown()
-                self.blocked_put_ns += time.monotonic_ns() - t0
+                dt = time.monotonic_ns() - t0
+                self.blocked_put_ns += dt
+                rec = thread_recorder()
+                if rec is not None:
+                    rec.event("ch_put_blocked", dt / 1e3)
             self._q.append((ch_idx, msg))
             if len(self._q) > self.depth_max:
                 self.depth_max = len(self._q)
@@ -95,7 +107,13 @@ class Channel:
                         self.blocked_get_ns += time.monotonic_ns() - t0
                         return None
                     self._not_empty.wait(remaining)
-                self.blocked_get_ns += time.monotonic_ns() - t0
+                dt = time.monotonic_ns() - t0
+                self.blocked_get_ns += dt
+                # data arrived after a real wait (a timeout returns above
+                # without a span: idle waits would flood the ring)
+                rec = thread_recorder()
+                if rec is not None:
+                    rec.event("ch_get_blocked", dt / 1e3)
             item = self._q.popleft()
             self._not_full.notify()
             return item

@@ -93,6 +93,15 @@ class BarrierAligner:
             self.waiting = barrier
             self.arrived = {ch}
             self.align_t0_ns = time.monotonic_ns()
+            # flight-recorder marker of the OPEN (the stall span itself is
+            # the worker's barrier_align at take()): which channel's
+            # barrier arrived first
+            from ..monitoring.flightrec import thread_recorder
+            rec = thread_recorder()
+            if rec is not None:
+                rec.event("barrier_open", 0.0,
+                          {"ckpt_id": getattr(barrier, "ckpt_id", None),
+                           "channel": ch})
         else:
             self.arrived.add(ch)
         return self.live.issubset(self.arrived)
@@ -206,20 +215,24 @@ class OrderingCollector(BasicCollector):
         self._drain()
 
     def _drain(self) -> None:
+        """Release heads in (ts, id) order while every open channel holds
+        something. Ties break by channel index whether or not the channel
+        is still open: a closed channel's leftovers tie-break exactly as
+        they did before its EOS arrived, so the merged order does not
+        depend on when the EOS landed (the JAX package visits open
+        channels first, which lets an early EOS reorder equal keys)."""
         while True:
             best_ch = -1
             best_key = None
-            for c in self.live:
-                if not self._bufs[c]:
-                    return  # an open channel is empty: cannot release yet
-                k = self._key(self._bufs[c][0])
+            for c in range(self.n_channels):
+                buf = self._bufs[c]
+                if not buf:
+                    if c in self.live:
+                        return  # an open channel is empty: cannot release
+                    continue
+                k = self._key(buf[0])
                 if best_key is None or k < best_key:
                     best_key, best_ch = k, c
-            for c in range(self.n_channels):  # closed channels may hold leftovers
-                if c not in self.live and self._bufs[c]:
-                    k = self._key(self._bufs[c][0])
-                    if best_key is None or k < best_key:
-                        best_key, best_ch = k, c
             if best_ch < 0:
                 return
             self.next_node.handle_msg(0, self._bufs[best_ch].popleft())

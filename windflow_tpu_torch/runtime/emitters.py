@@ -5,8 +5,11 @@ FORWARD, KEYBY and BROADCAST emitters (``wf/forward_emitter.hpp``,
 ``wf/keyby_emitter.hpp:210-259``, ``wf/broadcast_emitter.hpp``), the
 ``SplittingEmitter`` of ``MultiPipe.split`` (``wf/splitting_emitter.hpp``),
 the terminal ``NullEmitter``, the watermark-punctuation cadence
-(``wf/basic.hpp:199-216``) and the checkpoint hooks (barrier propagation,
-routing counters in the snapshot). The device-plane edges live in
+(``wf/basic.hpp:199-216``), the checkpoint hooks (barrier propagation,
+routing counters in the snapshot) and the latency-tracing stamp: the
+owning replica sets ``trace_ts`` just before an emit, and the first
+message made while it is set carries it (a batch folds it into its
+``trace_min`` / ``trace_max``). The device-plane edges live in
 ``windflow_tpu_torch.gpu.emitters_gpu``.
 """
 
@@ -36,6 +39,8 @@ class BasicEmitter:
         self._emit_count = 0
         self._last_punct_usec = current_time_usecs()
         self.stats = None  # optional StatsRecord of the owning replica
+        # transient latency-tracing origin stamp (0 = untraced tuple)
+        self.trace_ts = 0
 
     def set_stats(self, stats) -> None:
         self.stats = stats
@@ -53,6 +58,9 @@ class BasicEmitter:
         msg = Single(payload,
                      self._next_ids[dest] if msg_id is None else msg_id,
                      ts, wm)
+        if self.trace_ts:
+            msg.trace_ts = self.trace_ts
+            self.trace_ts = 0
         self._next_ids[dest] += 1
         if self.stats is not None:
             self.stats.outputs_sent += 1
@@ -91,12 +99,24 @@ class BasicEmitter:
              msg_id: Optional[int] = None) -> None:
         raise NotImplementedError
 
-    def emit_columns(self, cols, ts_arr, wm: int) -> None:
+    def emit_columns(self, cols, ts_arr, wm: int, trace_rows=None) -> None:
         """Columnar push: generic emitters materialize dict rows; the
-        device staging emitter overrides this with a vectorized path."""
+        device staging emitter overrides this with a vectorized path.
+        ``trace_rows`` (int indices into the block) marks the traced rows:
+        each re-arms ``trace_ts``, so sampling matches the row path."""
         names = list(cols)
         pulled = [cols[n] for n in names]
+        t0 = self.trace_ts
+        marks = None
+        nxt = -1
+        if t0 and trace_rows is not None and len(trace_rows):
+            self.trace_ts = 0
+            marks = iter(trace_rows)
+            nxt = int(next(marks, -1))
         for i in range(len(ts_arr)):
+            if i == nxt:
+                self.trace_ts = t0
+                nxt = int(next(marks, -1))
             self.emit({n: p[i].item() for n, p in zip(names, pulled)},
                       int(ts_arr[i]), wm)
 
@@ -164,6 +184,9 @@ class ForwardEmitter(BasicEmitter):
             if self._batch is None:
                 self._batch = Batch()
             self._batch.add_tuple(payload, ts, wm)
+            if self.trace_ts:
+                self._batch.note_trace(self.trace_ts)
+                self.trace_ts = 0
             if self._batch.size >= self.output_batch_size:
                 self._send_batch(self._rr, self._batch)
                 self._rr = (self._rr + 1) % self.num_dests
@@ -198,6 +221,9 @@ class KeyByEmitter(BasicEmitter):
             if b is None:
                 b = self._batches[dest] = Batch()
             b.add_tuple(payload, ts, wm)
+            if self.trace_ts:
+                b.note_trace(self.trace_ts)
+                self.trace_ts = 0
             if b.size >= self.output_batch_size:
                 self._send_batch(dest, b)
                 self._batches[dest] = None
@@ -232,6 +258,9 @@ class BroadcastEmitter(BasicEmitter):
             if self._batch is None:
                 self._batch = Batch()
             self._batch.add_tuple(payload, ts, wm)
+            if self.trace_ts:
+                self._batch.note_trace(self.trace_ts)
+                self.trace_ts = 0
             if self._batch.size >= self.output_batch_size:
                 self._broadcast_batch(self._batch)
                 self._batch = None
@@ -287,16 +316,21 @@ class SplittingEmitter(BasicEmitter):
     def emit(self, payload: Any, ts: int, wm: int,
              msg_id: Optional[int] = None) -> None:
         sel = self.splitting_logic(payload)
+        t0 = self.trace_ts
+        if t0:
+            self.trace_ts = 0
         if sel is None:
             return
         n = len(self.inner)
         if isinstance(sel, int):
-            self.inner[check_branch_index(sel, n)].emit(payload, ts, wm,
-                                                        msg_id)
+            inner = self.inner[check_branch_index(sel, n)]
+            inner.trace_ts = t0
+            inner.emit(payload, ts, wm, msg_id)
         else:
             for s in sel:
-                self.inner[check_branch_index(s, n)].emit(payload, ts, wm,
-                                                          msg_id)
+                inner = self.inner[check_branch_index(s, n)]
+                inner.trace_ts = t0
+                inner.emit(payload, ts, wm, msg_id)
 
     def propagate_punctuation(self, wm: int) -> None:
         for e in self.inner:

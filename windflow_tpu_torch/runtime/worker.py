@@ -1,8 +1,11 @@
 """Worker threads: one OS thread per replica-chain.
 
-Trimmed copy of ``windflow_tpu/runtime/worker.py`` (no flight recorder,
-no stall watchdog). Chained operators share a thread and the stage
-collector is fused in front of the first replica.
+Copy of ``windflow_tpu/runtime/worker.py``. Chained operators share a
+thread and the stage collector is fused in front of the first replica.
+A worker may own a flight-recorder ring (``monitoring/flightrec.py``),
+shared with every chain node's stats record; it advances a progress
+counter the stall watchdog reads, and with the watchdog armed it takes
+its idle tick even when nothing in the chain pipelines work.
 Termination mirrors the reference's EOS cascade
 (``wf/basic_operator.hpp:180-189``). A replica that throws records the
 error, drains its inputs and force-propagates EOS downstream, so
@@ -33,7 +36,7 @@ import traceback
 from typing import Any, List, Optional
 
 from ..basic import RescaleTeardown
-from ..checkpoint.delta import capturing
+from ..checkpoint.delta import capturing, delta_bases
 from ..message import EOS, Barrier
 from .channel import Channel
 from .collectors import BarrierAligner
@@ -48,16 +51,27 @@ class Worker(threading.Thread):
     SourceReplica that drives its own generation loop."""
 
     def __init__(self, wname: str, chain: List[Any],
-                 channel: Optional[Channel] = None) -> None:
+                 channel: Optional[Channel] = None,
+                 flightrec: Optional[Any] = None) -> None:
         super().__init__(name=wname, daemon=True)
         self.chain = chain
         self.channel = channel
         self.coordinator = None  # CheckpointCoordinator (bind_coordinator)
         self.error: Optional[BaseException] = None
+        # flight recorder (monitoring/flightrec.py): this worker's ring,
+        # shared with every chain node's stats record so the stats hooks
+        # (svc / prep / commit / snapshot) append spans to it
+        self.flightrec = flightrec
+        # crash hook (the graph wires a post-mortem trace dump)
+        self.on_crash = None
         # supervised recovery (supervision/): when wired, a dying worker
         # notifies the supervisor and exits WITHOUT the drain and
         # emergency EOS (sinks must not see an end of stream mid-recovery)
         self.on_failure = None
+        # the stall watchdog needs idle ticks even without idle sinks, so
+        # a worker parked on an empty channel still advances its counter
+        self.force_idle_tick = False
+        self._progress = 0  # channel deliveries + idle ticks (watchdog)
         self._eos_seen = 0
         self._has_coll = hasattr(chain[0], "on_channel_eos")
         # the chain nodes that carry operator state (the collector, when
@@ -70,6 +84,11 @@ class Worker(threading.Thread):
                     and not any(n is r for r in self._replicas):
                 self._replicas.append(n)
         self._aligner: Optional[BarrierAligner] = None
+        if flightrec is not None:
+            for n in chain:
+                st = getattr(n, "stats", None)
+                if st is not None:
+                    st.recorder = flightrec
 
     def bind_coordinator(self, coordinator) -> None:
         """Checkpointing on: ack ``coordinator``'s epochs. Called by
@@ -88,6 +107,11 @@ class Worker(threading.Thread):
                 bind(coordinator)
 
     def run(self) -> None:
+        if self.flightrec is not None:
+            # blocked channel puts/gets and kernel loads find this
+            # thread's ring through the TLS slot
+            from ..monitoring.flightrec import set_thread_recorder
+            set_thread_recorder(self.flightrec)
         try:
             self._process()
             self._retire()
@@ -99,11 +123,12 @@ class Worker(threading.Thread):
             return
         except BaseException as e:
             self.error = e
-            stats = self._stats()
-            if stats is not None:
-                stats.worker_crashes += 1
-                stats.worker_last_error = "".join(
-                    traceback.format_exception(type(e), e, e.__traceback__))
+            # crash visibility FIRST (while the ring still holds the
+            # run-up): the stats plane, the ring, the post-mortem hook
+            try:
+                self._record_crash(e)
+            except BaseException:
+                pass
             if self.on_failure is not None:
                 try:
                     self.on_failure(self)
@@ -124,6 +149,34 @@ class Worker(threading.Thread):
     def _stats(self):
         return next((n.stats for n in self.chain
                      if getattr(n, "stats", None) is not None), None)
+
+    def _record_crash(self, e: BaseException) -> None:
+        """The exception type and traceback land in ``Worker_last_error``
+        (and the graph's ``Worker_errors``), a ``crash`` event enters the
+        ring, and the graph's post-mortem hook dumps the trace."""
+        stats = self._stats()
+        if stats is not None:
+            stats.worker_crashes += 1
+            stats.worker_last_error = "".join(
+                traceback.format_exception(type(e), e, e.__traceback__))
+        if self.flightrec is not None:
+            self.flightrec.event("crash", 0.0, f"{type(e).__name__}: {e}")
+        if self.on_crash is not None:
+            self.on_crash(self, e)
+
+    def progress_value(self) -> int:
+        """Monotone liveness counter for the stall watchdog: channel
+        deliveries and idle ticks, plus the tuples the head replica moved
+        (a source's loop never returns to ``_process``, and a worker stuck
+        inside one long message would otherwise look live). Shed records
+        count: a source under admission control is refusing work, not
+        wedged."""
+        v = self._progress
+        stats = self._stats()
+        if stats is not None:
+            v += (stats.inputs_received + stats.outputs_sent
+                  + stats.shed_records)
+        return v
 
     # -- normal path -------------------------------------------------------
     def _process(self) -> None:
@@ -149,13 +202,15 @@ class Worker(threading.Thread):
             em = getattr(node, "emitter", None)
             if em is not None and hasattr(em, "on_idle"):
                 idle_sinks.append(em)
-        idle_s = IDLE_DRAIN_MS / 1e3 if idle_sinks else None
+        idle_s = IDLE_DRAIN_MS / 1e3 \
+            if idle_sinks or self.force_idle_tick else None
         idle_streak = 0  # back off (up to 16x) while ticks find nothing
         stats = self._stats()
         while self._eos_seen < n_inputs:
             backoff = idle_s if idle_s is None else idle_s * min(
                 16, 1 << min(idle_streak, 4))
             item = self.channel.get(backoff)
+            self._progress += 1  # liveness for the stall watchdog
             if item is None:  # idle tick
                 if stats is not None:
                     stats.worker_idle_ticks += 1
@@ -255,10 +310,25 @@ class Worker(threading.Thread):
         if stats is not None:
             stats.note_checkpoint(snapshot_us, nbytes, stall_us,
                                   cut_us=cut_us)
+        rec = self.flightrec
+        if rec is not None:
+            rec.event("ckpt:cut", cut_us, {"ckpt_id": barrier.ckpt_id,
+                                           "bytes": nbytes})
+            ndelta = sum(1 for st in blobs.values() if delta_bases(st))
+            if ndelta:
+                rec.event("ckpt:delta", 0.0, {"ckpt_id": barrier.ckpt_id,
+                                              "delta_blobs": ndelta})
+            rec.event("ckpt_ack", 0.0, {"ckpt_id": barrier.ckpt_id,
+                                        "bytes": nbytes})
         # the rescale quiesce point: a held epoch parks every worker here,
         # after its ack, with every pre-barrier tuple flushed and the
         # barrier forwarded, before any post-barrier tuple is produced
-        if coord.park_if_held(barrier.ckpt_id, self.name) == "abandon":
+        t_park = time.perf_counter()
+        directive = coord.park_if_held(barrier.ckpt_id, self.name)
+        if directive is not None and rec is not None:
+            rec.event("rescale:parked", (time.perf_counter() - t_park) * 1e6,
+                      {"ckpt_id": barrier.ckpt_id, "directive": directive})
+        if directive == "abandon":
             raise RescaleTeardown()
 
     def _capture_blobs(self) -> dict:

@@ -56,12 +56,16 @@ class AutoscalePolicy:
         self._up_streak.clear()
         self._down_streak.clear()
 
-    def observe(self, rates: Dict[str, Dict[str, float]], now: float
+    def observe(self, rates: Dict[str, Dict[str, float]], now: float,
+                shed_active: bool = False
                 ) -> Optional[Tuple[str, int, str]]:
         """One decision step. ``rates`` maps eligible operator name ->
         ``{"parallelism", "blocked_put_ms_per_s", "blocked_get_ms_per_s",
-        "tuples_per_s"}`` (per wall second). Returns ``(op,
-        new_parallelism, reason)`` or None."""
+        "tuples_per_s"}`` (per wall second). ``shed_active``: the overload
+        governor sheds (or cools down after shedding) — scale-DOWN is
+        vetoed, because a lull under admission control reads as
+        starvation while the shed load is what the capacity absorbs.
+        Returns ``(op, new_parallelism, reason)`` or None."""
         if now - self._last_action_t < self.cooldown_s:
             return None
         # scale UP the worst backpressured operator first: congestion
@@ -86,7 +90,11 @@ class AutoscalePolicy:
                         f">= {self.up_blocked_put_ms:.0f}ms/s "
                         f"for {self._up_streak[worst]} windows")
         # scale DOWN a starved operator, never while anything is
-        # backpressured (draining capacity under load oscillates)
+        # backpressured (draining capacity under load oscillates) and
+        # never while the overload governor sheds or cools down
+        if shed_active:
+            self._down_streak.clear()
+            return None
         if worst is None:
             for name, m in sorted(rates.items()):
                 par = int(m["parallelism"])
@@ -190,8 +198,10 @@ class Autoscaler(threading.Thread):
         if g._ended:
             return
         now = time.monotonic()
+        gov = getattr(g, "_overload_governor", None)
+        shed_active = gov is not None and gov.blocks_scale_down(now)
         decision = self.policy.observe(self._rates(self._totals(), now),
-                                       now)
+                                       now, shed_active=shed_active)
         if decision is None:
             return
         op, new_par, reason = decision

@@ -1,7 +1,6 @@
 """RescaleController: live repartitioning of a running PipeGraph.
 
-The port of ``windflow_tpu/scaling/controller.py`` (without its
-flight-recorder spans). ``rescale(op_name, parallelism)`` quiesces the
+The port of ``windflow_tpu/scaling/controller.py``. ``rescale(op_name, parallelism)`` quiesces the
 graph exactly at an aligned barrier, rebuilds the runtime plane (replica
 lists, channels, emitter routing tables, fused device chains, dispatch
 queues) with the target stage at the new parallelism, restores every
@@ -238,6 +237,9 @@ class RescaleController:
         self.failures = 0
         self.history: List[Dict[str, Any]] = []  # bounded, newest last
         self.last: Optional[RescaleReport] = None
+        # the "rescale" track of the flight recorder (rescale:* spans)
+        from ..monitoring.flightrec import ControlRing
+        self._ring = ControlRing(graph, "rescale", "rescale-controller")
 
     def rescale(self, op_name: str, parallelism: int,
                 timeout_s: Optional[float] = None) -> RescaleReport:
@@ -298,6 +300,9 @@ class RescaleController:
         timeout = timeout_s if timeout_s is not None else \
             (coord.epoch_timeout_s or 60.0)
         t0 = time.monotonic()
+        span = self._ring.span
+        span("rescale:trigger", 0.0, {"op": op_name, "from": old_n,
+                                      "to": new_n})
         cid = coord.trigger(force=True, hold=True)
         try:
             coord.wait_committed(cid, timeout)
@@ -308,6 +313,7 @@ class RescaleController:
                     f"did not all quiesce within {timeout:.0f}s "
                     f"(parked: {sorted(coord.parked)})")
             t_parked = time.monotonic()
+            span("rescale:quiesce", (t_parked - t0) * 1e6, {"ckpt_id": cid})
             # transform the checkpoint BEFORE the old plane is torn down:
             # a repartition error here aborts with the graph unharmed
             ckpt_dir = coord.store.checkpoint_dir(cid)
@@ -336,12 +342,17 @@ class RescaleController:
             op.parallelism = new_n
         g._rebuild_runtime()
         t_built = time.monotonic()
+        span("rescale:rebuild", (t_built - t_down) * 1e6,
+             {"threads": len(g._workers)})
         g._restore_states(states)
         g._sync_device()
         t_restored = time.monotonic()
+        span("rescale:restore", (t_restored - t_built) * 1e6,
+             {"ckpt_id": cid})
         for w in g._workers:
             w.start()
         t_resume = time.monotonic()
+        span("rescale:resume", 0.0, {"op": op_name, "parallelism": new_n})
         report.update(
             changed=True, ckpt_id=cid,
             checkpoint_s=round(t_commit - t0, 6),

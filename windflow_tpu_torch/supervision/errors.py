@@ -164,7 +164,10 @@ class DeadLetterQueue:
          "error": "Type: message", "traceback": str, "wall_time": float}
 
     The ring also keeps the payload object itself under
-    ``"payload_obj"``."""
+    ``"payload_obj"``. Subclasses (the overload plane's ``ShedLog``)
+    override ``_suffix`` and feed ``put_raw`` their own records."""
+
+    _suffix = ".dlq.jsonl"
 
     def __init__(self, graph_name: str = "pipegraph", capacity: int = 10_000,
                  dir: Optional[str] = None) -> None:
@@ -178,7 +181,18 @@ class DeadLetterQueue:
         if self._dir:
             safe = "".join(c if c.isalnum() or c in "-_." else "_"
                            for c in graph_name) or "pipegraph"
-            self._path = os.path.join(self._dir, f"{safe}.dlq.jsonl")
+            self._path = os.path.join(self._dir, f"{safe}{self._suffix}")
+
+    def put_raw(self, rec: Dict[str, Any],
+                ring_extra: Optional[Dict[str, Any]] = None) -> None:
+        """Append one composed record: to the ring (with ``ring_extra``
+        in-memory-only keys) and, with a directory, to the JSONL file."""
+        with self._lock:
+            self.total += 1
+            self._ring.append(rec if ring_extra is None
+                              else {**rec, **ring_extra})
+            if self._path is not None:
+                self._append_jsonl(rec)
 
     def put(self, operator: str, replica: int, payload: Any, ts: int,
             exc: BaseException) -> Dict[str, Any]:
@@ -192,11 +206,7 @@ class DeadLetterQueue:
                 type(exc), exc, exc.__traceback__)),
             "wall_time": time.time(),
         }
-        with self._lock:
-            self.total += 1
-            self._ring.append({**rec, "payload_obj": payload})
-            if self._path is not None:
-                self._append_jsonl(rec)
+        self.put_raw(rec, ring_extra={"payload_obj": payload})
         return rec
 
     def _append_jsonl(self, rec: Dict[str, Any]) -> None:

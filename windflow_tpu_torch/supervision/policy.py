@@ -26,14 +26,16 @@ class RestartPolicy:
     the window waits ``backoff_s * backoff_factor**k`` seconds, capped at
     ``backoff_max_s``, scaled by a uniform jitter in ``[1 - jitter, 1]``
     so that a fleet of supervised graphs never restarts in lockstep.
-    (The JAX package's ``restart_on_stall`` comes with the stall
-    watchdog, which the port does not have yet.)
+    ``restart_on_stall``: a worker the graph's stall watchdog flags
+    (``PipeGraph(stall_sec=...)``) counts as a failure and restarts the
+    graph like a dead one (its wedged thread is abandoned).
     """
 
     def __init__(self, max_restarts: int = 5, window_s: float = 300.0,
                  backoff_s: float = 0.5, backoff_max_s: float = 30.0,
                  backoff_factor: float = 2.0, jitter: float = 0.5,
-                 seed: Optional[int] = None) -> None:
+                 seed: Optional[int] = None,
+                 restart_on_stall: bool = True) -> None:
         if max_restarts < 0:
             raise ValueError("max_restarts must be >= 0")
         self.max_restarts = int(max_restarts)
@@ -42,6 +44,7 @@ class RestartPolicy:
         self.backoff_max_s = float(backoff_max_s)
         self.backoff_factor = float(backoff_factor)
         self.jitter = min(max(float(jitter), 0.0), 1.0)
+        self.restart_on_stall = bool(restart_on_stall)
         self._rng = random.Random(seed)
         self._restarts: List[float] = []  # monotonic stamps, in-window
 

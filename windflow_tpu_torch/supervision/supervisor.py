@@ -1,12 +1,14 @@
-"""Supervisor: graph-level auto-recovery from worker deaths.
+"""Supervisor: graph-level auto-recovery from worker deaths and stalls.
 
-The port of ``windflow_tpu/supervision/supervisor.py`` (without the
-flight-recorder spans). Without it, ``wait_end`` re-raises the first
+The port of ``windflow_tpu/supervision/supervisor.py``. Without it, ``wait_end`` re-raises the first
 worker error and recovery is a person calling ``run(restore_from=...)``.
 The supervisor closes that loop:
 
 1. **detect**: a dying worker's error path wakes the supervisor
-   (``Worker.on_failure``); a polling tick backs it up;
+   (``Worker.on_failure``); a polling tick backs it up, and reads the
+   workers the graph's stall watchdog flagged (``PipeGraph(stall_sec=
+   ...)``, ``monitoring/flightrec.py:StallWatchdog``) when the policy's
+   ``restart_on_stall`` is on;
 2. **back off**: a jittered exponential delay under the
    ``RestartPolicy`` budget; an exhausted budget ESCALATES: the
    supervisor stands down and ``wait_end`` raises the aggregated
@@ -48,7 +50,8 @@ reports healthy again it makes ONE planned restart (no backoff, no
 restart budget spent; ``planned: true`` in the history) that re-expands
 the meshes.
 
-Not ported yet: restarts on a stall (the port has no stall watchdog).
+Every step leaves a ``supervise:*`` span on the supervisor's own flight
+ring (``flightrec.ControlRing``) when the graph records.
 """
 
 from __future__ import annotations
@@ -100,6 +103,10 @@ class Supervisor(threading.Thread):
         self._next_probe_t = 0.0
         self._wake = threading.Event()
         self._stop_evt = threading.Event()
+        self._stall_seen = 0  # consumed prefix of the watchdog's fired
+        from ..monitoring.flightrec import ControlRing
+        self._ring = ControlRing(graph, "supervise", "supervisor")
+        self._span = self._ring.span
 
     # -- wiring ------------------------------------------------------------
     def note_failure(self, worker) -> None:
@@ -142,9 +149,19 @@ class Supervisor(threading.Thread):
                     return
 
     def _new_stalls(self) -> List[str]:
-        """Workers newly flagged by a stall watchdog. The port has none
-        yet (it comes with the flight recorder), so none are."""
-        return []
+        """Workers the graph's stall watchdog flagged since the last tick.
+        Only stalls of CURRENT workers count (an abandoned zombie flagged
+        again must not restart the healthy new plane)."""
+        if not self.policy.restart_on_stall:
+            return []
+        wd = getattr(self.graph, "_watchdog", None)
+        if wd is None:
+            return []
+        fired = list(wd.fired)
+        fresh = fired[self._stall_seen:]
+        self._stall_seen = len(fired)
+        live = {w.name for w in self.graph._workers}
+        return [n for n in fresh if n in live]
 
     # -- recovery ----------------------------------------------------------
     def _errors_of(self, failed) -> Dict[str, BaseException]:
@@ -165,6 +182,7 @@ class Supervisor(threading.Thread):
             exc.__cause__ = next(iter(errors.values()))
         self.escalated = exc
         self.active = False
+        self._span("supervise:escalate", 0.0, reason)
         # unwind what is left so wait_end's joins return
         self._teardown(join_timeout=5.0, sync=False)
         self.graph._supervising = False
@@ -177,6 +195,7 @@ class Supervisor(threading.Thread):
         self.last_cause = "; ".join(
             [f"{n}: {type(e).__name__}: {e}" for n, e in errors.items()]
             + [f"{n}: stalled" for n in stalled])
+        self._span("supervise:failure", 0.0, self.last_cause)
         if any(is_sticky_device_error(e) for e in errors.values()):
             self._escalate(
                 failed, stalled,
@@ -192,11 +211,18 @@ class Supervisor(threading.Thread):
             return
         delay = self.policy.next_backoff()
         self.policy.note_restart()
+        self._span("supervise:backoff", delay * 1e6,
+                   {"attempt": self.restarts + 1})
         if self._stop_evt.wait(delay):
             g._supervising = False
             return
+        t0 = time.monotonic()
         self._teardown()
+        self._span("supervise:teardown", (time.monotonic() - t0) * 1e6)
+        t0 = time.monotonic()
         cid = self._rebuild_and_restore()
+        self._span("supervise:restore", (time.monotonic() - t0) * 1e6,
+                   {"ckpt_id": cid})
         for w in g._workers:
             w.start()
         mttr = time.monotonic() - t_detect
@@ -206,9 +232,11 @@ class Supervisor(threading.Thread):
         self.history.append({
             "t_unix": time.time(), "cause": self.last_cause,
             "ckpt_id": cid, "mttr_s": round(mttr, 6),
-            "backoff_s": round(delay, 6)})
+            "backoff_s": round(delay, 6), "abandoned": list(stalled)})
         del self.history[:-64]
         g._supervising = False
+        self._span("supervise:resume", mttr * 1e6,
+                   {"restart": self.restarts, "ckpt_id": cid})
 
     def _teardown(self, join_timeout: float = 10.0,
                   sync: bool = True) -> None:
@@ -230,6 +258,7 @@ class Supervisor(threading.Thread):
             # a Python thread cannot be killed: abandon it; its next
             # channel touch raises SupervisorTeardown
             self.abandoned.extend(wedged)
+            self._span("supervise:abandon", 0.0, wedged)
         if sync:
             # the old plane's queued device work ends before the new
             # plane starts (raises on a poisoned context)
@@ -290,6 +319,7 @@ class Supervisor(threading.Thread):
         g._supervising = True
         try:
             self.last_cause = cause
+            self._span("supervise:planned", 0.0, cause)
             self._teardown()
             cid = self._rebuild_and_restore()
             for w in g._workers:

@@ -1,6 +1,6 @@
 """PipeGraph: the streaming environment — build, wire, run, wait.
 
-Trimmed copy of ``windflow_tpu/topology/pipegraph.py`` (parity with
+Copy of ``windflow_tpu/topology/pipegraph.py`` (parity with
 ``wf/pipegraph.hpp``: ``add_source``, ``run`` = ``start`` + ``wait_end``,
 per-operator stats), for graphs of host and device operators with splits
 (``MultiPipe.split``/``select``) and merges. A chained device stage runs
@@ -33,9 +33,23 @@ graph's card; ``with_device_probe`` lets the supervisor rebuild them on
 the healthy devices. ``with_exactly_once`` (or a sink builder's) makes
 sinks deliver each result once across kills and restores: an
 epoch-fenced two-phase commit on the checkpoint coordinator's finalize
-(``sinks/transactional.py``). Overload protection, prewarm, the
-monitoring plane's tracing and exports, and ``with_compile_cache`` are
-not ported yet and raise.
+(``sinks/transactional.py``).
+
+The monitoring plane: sampled latency tracing (``latency_sample`` and the
+builders' ``with_latency_tracing``), per-worker flight-recorder rings
+(``with_flight_recorder``, ``dump_trace`` / ``trace_document``, automatic
+post-mortems), the stall watchdog (``stall_sec``; a supervisor restarts on
+a stall), the dashboard reports (``dashboard=(machine, port)``, 1 Hz over
+TCP to a ``MonitoringServer``) and ``dump_stats`` / ``to_dot`` /
+``to_svg``. ``with_slo`` attaches the overload governor (``overload/``),
+``with_prewarm`` builds every capacity bucket's device state before the
+sources open, and ``native_channels`` puts the C++ channel ring of
+``native/`` on the host plane, whose staging encoders row staging uses
+whenever the runtime builds.
+The JAX package's ``WF_*`` knobs of these planes are the constructor's
+arguments. ``with_compile_cache`` refuses: the port has no jit programs to
+cache, and the forest-rebuild kernel's library is already cached by its
+source digest in ``build/kernels/``.
 
 ``execution_mode`` picks the collector in front of each stage
 (``_make_collector``): DEFAULT merges watermarks, DETERMINISTIC merges the
@@ -47,6 +61,7 @@ configures them.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Any, Dict, List, Optional
@@ -87,7 +102,25 @@ class PipeGraph:
                  time_policy: TimePolicy = TimePolicy.INGRESS_TIME,
                  channel_capacity: int = DEFAULT_BUFFER_CAPACITY,
                  device=None, fusion: bool = True,
-                 megabatch: int = 1) -> None:
+                 megabatch: int = 1, native_channels: bool = False,
+                 latency_sample=0,
+                 stall_sec: float = 0.0,
+                 wm_stall_sec: Optional[float] = None,
+                 dashboard: Optional[Any] = None,
+                 log_dir: str = "log") -> None:
+        """``native_channels`` (the JAX package's WF_NATIVE_CHANNELS):
+        every worker's input channel is the C++ ring of ``native/`` (row
+        staging fills its columns with the native encoders whenever the
+        runtime builds, as in the JAX package). ``latency_sample``
+        (WF_LATENCY_SAMPLE): the sampling rate of every operator without
+        its own ``with_latency_tracing``. ``stall_sec`` (WF_STALL_SEC): the
+        stall watchdog's threshold, 0 = off. ``wm_stall_sec``
+        (WF_WM_STALL_SEC): the watermark-stall threshold of the stats.
+        ``dashboard`` (WF_TRACING_ENABLED with WF_DASHBOARD_MACHINE /
+        WF_DASHBOARD_PORT): a ``(machine, port)`` the graph's
+        ``MonitoringThread`` reports to, and ``wait_end`` then writes
+        ``dump_stats`` into ``log_dir`` (WF_LOG_DIR, also where
+        post-mortem traces go)."""
         self.name = name
         self.execution_mode = execution_mode
         self.time_policy = time_policy
@@ -135,40 +168,342 @@ class PipeGraph:
         # on their own
         self._exactly_once = False
         self._txn_dir: Optional[str] = None
-
-    # -- surfaces of the JAX package that are not ported yet ---------------
-    def _not_ported(self, what: str):
-        raise WindFlowError(f"{what} is not yet ported to windflow_tpu_torch")
-
-    def with_slo(self, *args, **kwargs):
-        self._not_ported("with_slo")
-
-    def with_prewarm(self, *args, **kwargs):
-        self._not_ported("with_prewarm")
+        # native host runtime (native/)
+        self.native_channels = bool(native_channels)
+        # the staging encoders; only a comparison run switches them off
+        self._native_encoders = True
+        # monitoring plane (monitoring/)
+        from ..monitoring.tracing import parse_sample_rate
+        self.latency_sample = parse_sample_rate(latency_sample)
+        self.stall_sec = max(0.0, float(stall_sec))
+        self.wm_stall_sec = wm_stall_sec
+        self.dashboard = dashboard
+        self.log_dir = log_dir
+        self._monitor = None
+        self._flightrec_events = 0
+        self._recorders: List[Any] = []
+        self._watchdog = None
+        self.last_postmortem: Optional[str] = None  # newest dump path
+        # overload protection (overload/): with_slo attaches the governor
+        # at start()
+        self._slo_p99_ms: Optional[float] = None
+        self._overload_policy = None
+        self._overload_governor = None
+        # prewarm (with_prewarm): every capacity bucket's device state is
+        # made at start(), before the sources open
+        self._prewarm_enabled = False
+        self._prewarm_report: Optional[Dict[str, Any]] = None
 
     def with_compile_cache(self, *args, **kwargs):
-        self._not_ported("with_compile_cache")
+        raise WindFlowError(
+            "with_compile_cache is not yet ported to windflow_tpu_torch, "
+            "and has nothing to cache here: the port's device programs are "
+            "torch ops with no jit, and the forest-rebuild kernel's library "
+            "is already cached by its source digest in build/kernels/")
 
-    def with_flight_recorder(self, *args, **kwargs):
-        self._not_ported("with_flight_recorder")
+    # ------------------------------------------------------------------
+    # overload protection (windflow_tpu_torch.overload)
+    # ------------------------------------------------------------------
+    def with_slo(self, p99_ms: float, policy: Optional[Any] = None
+                 ) -> "PipeGraph":
+        """Declare the graph's end-to-end p99 latency budget (ms) and
+        attach the ``OverloadGovernor`` at ``start()``: when the sinks'
+        windowed p99 breaches the SLO the governor walks its ladder —
+        halve dispatch depths and host output batches, rescale the
+        bottleneck (bounded by MAX_PAR), then admission-control the
+        sources (token bucket plus the policy's shed policy) — and
+        recovers with hysteresis and cooldown. ``policy`` is a
+        ``GovernorPolicy`` (None = its defaults). Sources may declare
+        budgets of their own (``Source_Builder.with_slo``); the tightest
+        governs. Sink-side sampling turns on at 1/16 where nothing set a
+        rate: the governor is blind without end-to-end samples."""
+        if self._started:
+            raise WindFlowError("with_slo after start()")
+        if p99_ms <= 0:
+            raise WindFlowError("with_slo: p99_ms must be > 0")
+        self._slo_p99_ms = float(p99_ms)
+        self._overload_policy = policy
+        return self
 
-    def prewarm_report(self, *args, **kwargs):
-        self._not_ported("prewarm_report")
+    def _effective_slo_ms(self) -> Optional[float]:
+        budgets = [self._slo_p99_ms] if self._slo_p99_ms else []
+        budgets += [op.slo_p99_ms for op in self._ops
+                    if getattr(op, "slo_p99_ms", None)]
+        return min(budgets) if budgets else None
 
-    def dump_stats(self, *args, **kwargs):
-        self._not_ported("dump_stats")
+    def _setup_overload_governor(self) -> None:
+        """Make the governor (started with the other control threads).
+        A key_priority policy without priorities refuses here, not
+        mid-surge."""
+        slo_ms = self._effective_slo_ms()
+        if slo_ms is None and self._overload_policy is None:
+            return
+        from ..overload import GovernorPolicy, OverloadGovernor
+        policy = self._overload_policy
+        if policy is None:
+            policy = GovernorPolicy(slo_p99_ms=slo_ms)
+        elif slo_ms is not None and slo_ms * 1e3 < policy.slo_us:
+            policy.slo_us = slo_ms * 1e3  # a source declared tighter
+        if policy.shed_policy == "key_priority":
+            for op in self._ops:
+                if op.op_type == OpType.SOURCE \
+                        and getattr(op, "priority_fn", None) is None:
+                    raise WindFlowError(
+                        f"with_slo: shed policy 'key_priority' needs "
+                        f"with_priority(fn) on source {op.name!r} — "
+                        "records have no priority to shed by otherwise")
+        self._overload_governor = OverloadGovernor(self, policy)
 
-    def dump_trace(self, *args, **kwargs):
-        self._not_ported("dump_trace")
+    def _ensure_slo_sampling(self) -> None:
+        """Before the build (replica histograms are made with the
+        replicas): an SLO turns on 1/16 sampling at sources and sinks
+        where nothing configured a rate."""
+        if self._effective_slo_ms() is None or self.latency_sample > 0:
+            return
+        for op in self._ops:
+            if op.op_type in (OpType.SOURCE, OpType.SINK) \
+                    and op.latency_sample is None:
+                op.latency_sample = 16
 
-    def trace_document(self, *args, **kwargs):
-        self._not_ported("trace_document")
+    # ------------------------------------------------------------------
+    # prewarm (every capacity bucket before the first batch)
+    # ------------------------------------------------------------------
+    def with_prewarm(self) -> "PipeGraph":
+        """Prewarm the device plane at ``start()``, before the sources
+        open: the forest-rebuild kernel's library is built or loaded, and
+        every device replica makes the first allocations of every
+        power-of-two capacity bucket up to the graph's largest staging
+        batch (staging pools, per-bucket device buffers), so batch 0 pays
+        none of it. Operators whose state depends on the stream
+        (inferred schemas, key cardinality) are named in the report's
+        ``skipped``. Results in ``prewarm_report`` /
+        ``get_stats()["Prewarm"]``."""
+        if self._started:
+            raise WindFlowError("with_prewarm after start()")
+        self._prewarm_enabled = True
+        return self
 
-    def to_dot(self, *args, **kwargs):
-        self._not_ported("to_dot")
+    def _bucket_caps(self) -> List[int]:
+        """Powers of two from the smallest staging bucket up to the
+        largest declared output batch."""
+        from ..gpu.batch import bucket_capacity
+        max_obs = max((op.output_batch_size for op in self._ops),
+                      default=0)
+        top = bucket_capacity(max(1, max_obs))
+        caps, c = [], bucket_capacity(1)
+        while c <= top:
+            caps.append(c)
+            c <<= 1
+        return caps
 
-    def to_svg(self, *args, **kwargs):
-        self._not_ported("to_svg")
+    def _prewarm_device_programs(self) -> None:
+        if not any(getattr(op, "is_gpu", False) for op in self._ops):
+            self._prewarm_report = {"bucket_caps": [],
+                                    "signatures_compiled": 0,
+                                    "skipped": ["no device stages"],
+                                    "elapsed_s": 0.0}
+            return
+        t0 = time.monotonic()
+        caps = self._bucket_caps()
+        warmed = 0
+        skipped: List[str] = []
+        for s in self._stages:
+            first = s.first_op
+            if not getattr(first, "is_gpu", False):
+                continue
+            label = s.describe()
+            for r in {id(r): r for r in first.replicas}.values():
+                pw = getattr(r, "prewarm", None)
+                if pw is None:
+                    skipped.append(f"{label}: no prewarm hook "
+                                   f"({type(r).__name__})")
+                    continue
+                n = pw(caps)
+                if n is None:
+                    skipped.append(f"{label}: runtime-dependent "
+                                   "signature (stateful/inferred schema)")
+                else:
+                    warmed += n
+        # the staging edges' pinned pools, one buffer per field and bucket
+        for s in self._stages:
+            for r in s.last_op.replicas:
+                em = r.emitter
+                pw = getattr(em, "prewarm", None)
+                if pw is not None:
+                    pw(caps)
+        self._sync_device()
+        self._prewarm_report = {
+            "bucket_caps": caps,
+            "signatures_compiled": warmed,
+            "skipped": skipped,
+            "elapsed_s": round(time.monotonic() - t0, 4),
+        }
+
+    @property
+    def prewarm_report(self) -> Optional[Dict[str, Any]]:
+        return self._prewarm_report
+
+    # ------------------------------------------------------------------
+    # flight recorder (monitoring/flightrec.py)
+    # ------------------------------------------------------------------
+    def with_flight_recorder(self, events: int = 0,
+                             log_dir: Optional[str] = None) -> "PipeGraph":
+        """Give every worker a fixed-size single-writer ring of
+        ``events`` span events (0: the 4096 default; the JAX package's
+        WF_FLIGHTREC_EVENTS). Export with ``dump_trace(path)``, the
+        ``MonitoringServer``'s ``GET /trace`` window, or the automatic
+        post-mortem a worker crash or a stall-watchdog fire writes into
+        ``log_dir`` (default: the graph's ``log_dir``)."""
+        if self._started:
+            raise WindFlowError("with_flight_recorder after start()")
+        from ..monitoring.flightrec import DEFAULT_EVENTS
+        self._flightrec_events = int(events) if events and events > 0 \
+            else DEFAULT_EVENTS
+        if log_dir is not None:
+            self.log_dir = log_dir
+        return self
+
+    def _stage_flightrec_events(self, stage: Stage) -> int:
+        """Ring capacity of one stage's workers: the largest per-op
+        builder override, else the graph's (0 = off)."""
+        per_op = max((op.flightrec_events or 0 for op in stage.ops),
+                     default=0)
+        return per_op if per_op > 0 else self._flightrec_events
+
+    def _stage_flightrec_events_max(self) -> int:
+        """Largest ring any stage runs with (the control threads size
+        theirs to match; 0 = recording off)."""
+        return max((self._stage_flightrec_events(s) for s in self._stages),
+                   default=0)
+
+    def trace_document(self, stacks: bool = False,
+                       extra: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, Any]:
+        """The graph's flight rings as a Chrome trace-event document
+        (empty ``traceEvents`` when no recorder is on)."""
+        from ..monitoring.flightrec import thread_stacks, to_chrome_trace
+        return to_chrome_trace(
+            self._recorders,
+            stacks=thread_stacks() if stacks else None, extra=extra)
+
+    def dump_trace(self, path: str, stacks: bool = False) -> str:
+        """Write the flight-recorder timeline as Chrome / Perfetto trace
+        JSON; ``stacks=True`` adds every runtime thread's stack."""
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.trace_document(stacks=stacks), f)
+        return path
+
+    def _postmortem_path(self, kind: str, wname: str) -> str:
+        safe = "".join(c if c.isalnum() or c in "-_." else "_"
+                       for c in f"{self.name}_{kind}_{wname}")
+        return os.path.join(self.log_dir, f"{safe}.json")
+
+    def _write_postmortem(self, kind: str, wname: str,
+                          extra: Dict[str, Any]) -> None:
+        """The graph's rings, every thread's stack and ``extra``; a dump
+        failure never masks what it reports."""
+        try:
+            path = self._postmortem_path(kind, wname)
+            doc = self.trace_document(stacks=True, extra=extra)
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(doc, f)
+            self.last_postmortem = path
+        except Exception:
+            pass
+
+    def _crash_dump(self, worker, exc: BaseException) -> None:
+        import traceback
+        self._write_postmortem("crash", worker.name, {
+            "crashedWorker": worker.name,
+            "exception": "".join(traceback.format_exception(
+                type(exc), exc, exc.__traceback__))})
+
+    def _stall_dump(self, wname: str) -> None:
+        self._write_postmortem("stall", wname, {"stalledWorker": wname})
+
+    def _worker_diagnostics(self, names: List[str]) -> str:
+        """Evidence for a checkpoint-timeout error: the named workers'
+        crash tracebacks and stall-watchdog flags."""
+        parts = []
+        stalled = set(getattr(self._watchdog, "fired", []) or [])
+        for w in self._workers:
+            if w.name not in names:
+                continue
+            if w.error is not None:
+                parts.append(f"{w.name} died: {type(w.error).__name__}: "
+                             f"{w.error}")
+                continue
+            stats = w._stats()
+            last = getattr(stats, "worker_last_error", None) if stats \
+                else None
+            if last:
+                parts.append(f"{w.name} last error: "
+                             f"{last.strip().splitlines()[-1]}")
+            if w.name in stalled:
+                parts.append(f"{w.name} flagged by the stall watchdog")
+        return "; ".join(parts)
+
+    # ------------------------------------------------------------------
+    # stats export and the dataflow diagram (monitoring/diagram.py)
+    # ------------------------------------------------------------------
+    def dump_stats(self, log_dir: Optional[str] = None) -> str:
+        """JSON stats and the dataflow diagram into ``log_dir`` (default
+        the graph's): the dot source and an SVG always (the built-in
+        renderer when no ``dot`` binary exists), a PDF when Graphviz is
+        installed (``wf/pipegraph.hpp:525-534,732-734``)."""
+        from ..monitoring.diagram import render_graphviz
+        log_dir = self.log_dir if log_dir is None else log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        safe = "".join(c if c.isalnum() or c in "-_." else "_"
+                       for c in self.name) or "pipegraph"
+        path = os.path.join(log_dir, f"{safe}_stats.json")
+        with open(path, "w") as f:
+            json.dump(self.get_stats(), f, indent=2)
+        dot_src = self.to_dot()
+        with open(os.path.join(log_dir, f"{safe}_diagram.dot"), "w") as f:
+            f.write(dot_src + "\n")
+        svg = render_graphviz(dot_src, "svg")
+        with open(os.path.join(log_dir, f"{safe}_diagram.svg"), "wb") as f:
+            f.write(svg if svg is not None else self.to_svg().encode())
+        pdf = render_graphviz(dot_src, "pdf")
+        if pdf is not None:
+            with open(os.path.join(log_dir, f"{safe}_diagram.pdf"),
+                      "wb") as f:
+                f.write(pdf)
+        return path
+
+    def to_svg(self) -> str:
+        """Dependency-free layered SVG of the stage DAG (the dashboard's
+        diagram; ``dump_stats`` prefers Graphviz output when a binary
+        exists)."""
+        from ..monitoring.diagram import stages_to_svg
+        return stages_to_svg(self._stages, self.name)
+
+    def to_dot(self) -> str:
+        gname = self.name.replace('"', "'")
+        lines = [f'digraph "{gname}" {{', "  rankdir=LR;",
+                 "  node [shape=box, style=rounded];"]
+        for s in self._stages:
+            label = s.describe().replace('"', "'")
+            par = "|".join(str(o.parallelism) for o in s.ops)
+            extra = ""
+            if s.chain_refused:
+                # why this stage did not fuse into its predecessor
+                reason = s.chain_refused.replace('"', "'")
+                extra = f"\\n[unchained: {reason}]"
+            lines.append(f'  s{s.id} [label="{label}\\n({par}){extra}"];')
+        for s in self._stages:
+            for e in s.upstreams:
+                style = ""
+                if e.branch is not None:
+                    style = f' [label="b{e.branch}"]'
+                lines.append(f"  s{e.stage.id} -> s{s.id}{style};")
+        lines.append("}")
+        return "\n".join(lines)
 
     # ------------------------------------------------------------------
     # exactly-once sinks (windflow_tpu_torch.sinks.transactional)
@@ -627,6 +962,10 @@ class PipeGraph:
             for op in s.ops:
                 op.configure(self.execution_mode, self.time_policy,
                              self.device)
+                # read when the replicas are made: the stats histograms
+                # and the watermark stall threshold
+                op.graph_latency_sample = self.latency_sample
+                op.wm_stall_sec = self.wm_stall_sec
                 if getattr(op, "is_gpu", False):
                     op.megabatch = self.megabatch
             if s.is_fused_gpu:
@@ -643,9 +982,18 @@ class PipeGraph:
             else:
                 for op in s.ops:
                     op.build_replicas()
+        channel_cls = Channel
+        if self.native_channels:
+            from ..native import (NativeChannel, native_available,
+                                  native_build_error)
+            if not native_available():
+                raise WindFlowError(
+                    "PipeGraph(native_channels=True): the native runtime "
+                    f"did not build: {native_build_error()}")
+            channel_cls = NativeChannel
         for s in self._stages:
             if not s.is_source:
-                s.channels = [Channel(self.channel_capacity)
+                s.channels = [channel_cls(self.channel_capacity)
                               for _ in range(s.parallelism)]
         # intra-stage chain wiring (InlinePort edges); a fused device stage
         # has none: the chain runs inside one replica
@@ -760,7 +1108,7 @@ class PipeGraph:
                                         GPUExitEmitter, GPUForwardEmitter,
                                         GPUKeyByEmitter, GPUStageEmitter)
         if c_gpu and not p_gpu:  # CPU -> device staging boundary
-            return GPUStageEmitter(
+            em = GPUStageEmitter(
                 n_dests, obs, getattr(first, "schema", None),
                 key_op.key_extractor,
                 "keyby" if routing is RoutingMode.KEYBY else
@@ -768,6 +1116,13 @@ class PipeGraph:
                 else "forward",
                 self.execution_mode, key_op.key_field, self.device,
                 key_fields=key_op.key_fields)
+            em.native = self._native_encoders
+            if em.native:
+                # build (or load) the encoders now, on the building
+                # thread, not inside the first staged batch
+                from ..native import native_available
+                native_available()
+            return em
         if p_gpu and c_gpu:  # device -> device
             if routing is RoutingMode.KEYBY:
                 return GPUKeyByEmitter(n_dests, self.execution_mode,
@@ -837,6 +1192,7 @@ class PipeGraph:
         return KSlackCollector(n_in, first_replica, self.dropped, separator)
 
     def _make_workers(self, stage: Stage) -> None:
+        rec_events = self._stage_flightrec_events(stage)
         for i in range(stage.parallelism):
             chain: List[Any] = []
             channel = None
@@ -853,11 +1209,22 @@ class PipeGraph:
                 chain.append(stage.first_op.replicas[i])
             else:
                 chain.extend(op.replicas[i] for op in stage.ops)
-            w = Worker(f"{self.name}/{stage.describe()}[{i}]", chain, channel)
+            wname = f"{self.name}/{stage.describe()}[{i}]"
+            rec = None
+            if rec_events > 0:
+                from ..monitoring.flightrec import FlightRecorder
+                rec = FlightRecorder(rec_events, pid_label=stage.describe(),
+                                     tid_label=wname)
+                self._recorders.append(rec)
+            w = Worker(wname, chain, channel, flightrec=rec)
+            if rec is not None:
+                w.on_crash = self._crash_dump
             if self._supervisor is not None:
                 # supervised: a dying worker wakes the supervisor instead
                 # of draining and forcing EOS
                 w.on_failure = self._supervisor.note_failure
+            if self.stall_sec > 0:
+                w.force_idle_tick = True  # liveness ticks for the watchdog
             stage.workers.append(w)
             self._workers.append(w)
 
@@ -883,28 +1250,54 @@ class PipeGraph:
             self._coordinator.rewind_to(max(
                 (int(st.get("txn_last_epoch", 0)) for st in states.values()),
                 default=0))
+        # replica histograms are made with the replicas: SLO sampling
+        # first
+        self._ensure_slo_sampling()
         self._build()
         if states is not None:
             self._restore_states(states)
         elif ckpt_dir is not None:
             self._restore_replicas(ckpt_dir, manifest)
+        if self._prewarm_enabled:
+            # every capacity bucket before any source opens
+            self._prewarm_device_programs()
         # bound here, not at build: get_num_threads() may have built the
         # workers before the coordinator existed
         self._bind_workers()
         if self._coordinator is not None:
+            self._coordinator.diagnose = self._worker_diagnostics
             self._coordinator.start()
         if self._supervisor is not None:
             self._capture_initial_positions()
         self._started = True
         self._t0 = time.monotonic()
+        # the flight-recorder registry (MonitoringServer's /trace), the
+        # stall watchdog and the dashboard reports
+        from ..monitoring.flightrec import StallWatchdog, register_graph
+        register_graph(self)
+        if self.stall_sec > 0:
+            self._watchdog = StallWatchdog(self, self.stall_sec,
+                                           dump_fn=self._stall_dump)
+        if self.dashboard is not None:
+            from ..monitoring.monitor import MonitoringThread
+            machine, port = self.dashboard
+            self._monitor = MonitoringThread(self, machine, port)
+            self._monitor.start()
         for w in self._workers:
             w.start()
+        if self._watchdog is not None:
+            self._watchdog.start()
         if self._supervisor is not None:
             self._supervisor.start()
         if self._autoscale_enabled:
             from ..scaling.autoscaler import Autoscaler
             self._autoscaler = Autoscaler(self, self._autoscale_policy)
             self._autoscaler.start()
+        # the governor after the autoscaler: its SCALE rung reads the
+        # autoscaler's MAX_PAR
+        self._setup_overload_governor()
+        if self._overload_governor is not None:
+            self._overload_governor.start()
 
     def wait_end(self) -> None:
         """Join every worker, then raise: a supervisor's
@@ -944,9 +1337,16 @@ class PipeGraph:
             self._supervisor.stop()
         if self._autoscaler is not None:
             self._autoscaler.stop()
+        if self._overload_governor is not None:
+            self._overload_governor.stop()
         self.elapsed_sec = time.monotonic() - self._t0
+        if self._watchdog is not None:
+            self._watchdog.stop()
         if self._coordinator is not None:
             self._coordinator.stop()
+        if self._monitor is not None:
+            self._monitor.stop()
+            self._monitor.join(timeout=3)
         if self._supervisor is not None \
                 and self._supervisor.escalated is not None:
             raise self._supervisor.escalated
@@ -969,6 +1369,8 @@ class PipeGraph:
                 fin = getattr(r, "txn_complete", None)
                 if fin is not None:
                     fin()
+        if self.dashboard is not None:
+            self.dump_stats()
 
     def run(self, restore_from=None) -> None:
         """Blocking run (reference ``PipeGraph::run``). ``restore_from``: a
@@ -1034,6 +1436,18 @@ class PipeGraph:
             st["Autoscaler"] = self._autoscaler.stats()
         if self._supervisor is not None:
             st["Supervision"] = self._supervisor.stats()
+        if self._overload_governor is not None:
+            st["Overload"] = self._overload_governor.stats()
+        if self._prewarm_report is not None:
+            st["Prewarm"] = self._prewarm_report
         if self._dlq is not None:
             st["Dead_letters"] = self._dlq.total
+        if self.native_channels or self._native_encoders:
+            from ..native import native_state
+            st["Native"] = native_state()
+        # a worker that died shows its exception in the report
+        errs = {w.name: f"{type(w.error).__name__}: {w.error}"
+                for w in self._workers if w.error is not None}
+        if errs:
+            st["Worker_errors"] = errs
         return st
