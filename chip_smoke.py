@@ -8,18 +8,30 @@ Phases, each printing one line of its own:
 1. device: the card's name and power limit (``nvidia-smi``) and
    ``torch.cuda.get_device_name``;
 2. build: compiles the hand-written kernels from the sources in this
-   checkout (``windflow_tpu_torch/kernels/*.cu``, ``nvcc`` for sm_90a) and
-   lists each kernel's registers, stack frame and spills (``-Xptxas -v``);
-   a stack frame or a spill fails the phase;
+   checkout (``nvcc`` for sm_90a, one process per library, all started
+   together): K1's fieldwise library (``windflow_tpu_torch/kernels/
+   forest_rebuild.cu``) and one library per traced combine below (its
+   policy generated from the trace, built against ``forest_rebuild.cuh``),
+   and lists each kernel's registers, stack frame and spills
+   (``-Xptxas -v``); a stack frame or a spill fails the phase;
 3. kernel checks: each kernel against its plain PyTorch version on CUDA
-   tensors at the main path's shapes, two shapes that move tens of MB and
-   a few edge shapes (1% of float values NaN); results must be
-   bit-identical (``kernel_check`` lines, with the launch plan);
+   tensors at the main path's shapes (and YSB's 128 x 32), two shapes
+   that move tens of MB and a few edge shapes (1% of float values NaN):
+   the fieldwise combines and the traced ones (``ysb_last``, the example's
+   YSB combine; ``mean_last``, cross-field int and float; ``argmax_ts``, a
+   where on a comparison; ``flags``, a bool plane; ``wide``, 12 fields;
+   ``scaled``, a division by a constant); results must be bit-identical
+   (``kernel_check`` lines, with the variant and the launch plan);
 4. main path, high cardinality (``bench.py``'s HC config: 10,240 keys,
    TB window 100 ms / slide 25 ms, 65,536-tuple int32 batches, watermark
    advancing every batch, ``fieldwise(value="sum")``) through
    ``PipeGraph`` on ``cuda``; the same stream through the port on the CPU
-   must give identical window rows; the rebuild kernel must have run;
+   must give identical window rows; the rebuild kernel must have run.
+   Part ``combine``: the traced combines through ``Ffat_Windows_GPU``,
+   ``mean_last`` on the HC stream (4 warm-up + 8 timed batches) and the
+   others at 64 keys (6 batches), against the port's CPU run (ints and
+   bools exact, floats within 1e-6 relative, the largest difference
+   printed); each variant must launch once per firing batch; tuples/s;
 5. main path, 64 keys (``bench.py``'s base config, 128 windows per batch);
    then phase ``fusion``, part ``ffat``: the high-cardinality stream
    through ``map -> Ffat_Windows_GPU`` and ``map -> filter ->
@@ -49,13 +61,16 @@ Phases, each printing one line of its own:
    batch of each stage, Megabatch_*, Programs_per_batch and a profiled
    run's idle share and launches per batch;
 7. kernel times (``kernel_time`` lines), after the main path so that the
-   profiler's tracing cannot touch it: the timed forests checked again,
+   profiler's tracing cannot touch it: the timed forests (int32 sums at
+   every shape, four fields and every traced combine at 16,384 x 32,
+   ``ysb_last`` at YSB's 128 x 32) checked again,
    then the kernel's device duration (``device_ms``: its CUDA time by
    name from ``torch.profiler`` over 30 calls, divided by 30), the event
    bracket around the whole wrapper (``wrapper_ms``: wrapper + kernel,
    median of 30), both with the L2 flushed before each call (and warm at
    the two shapes larger than the L2), the plain version's time, the
-   memory bound (``bound_ms``) and ``bound_share`` = bound_ms /
+   memory bound (``bound_ms``: every plane's bytes, a bool plane one a
+   node, and the validity byte) and ``bound_share`` = bound_ms /
    device_ms (``device_ms`` and ``bound_share`` are null when
    ``torch.profiler`` lost the kernel's records in every trace: the
    card's profiler has been seen to drop whole traces);
@@ -168,12 +183,14 @@ Phases, each printing one line of its own:
    with 4,096-row output batches, 10 s tumbling windows per campaign.
    Part ``device``: Kafka rows -> Filter_GPU (views) -> Map_GPU (ad ->
    campaign) -> Ffat_Windows_GPU (``with_key_capacity(100)``,
-   ``with_num_win_per_batch(32)``, ``fieldwise(count="sum",
-   last_ing="max")``) -> columnar sink over 1,000,000 events; every
+   ``with_num_win_per_batch(32)``, the example's own combine ``count: a +
+   b, last_ing: b``) -> columnar sink over 1,000,000 events; every
    (campaign, window) count equals the example's closed-form model and
-   the port's CPU run; events/s, p50 / p99 latency (source ingest ->
-   window emit, from the window's latest ingest stamp), K1's launches
-   and a profiled run's idle share. Part ``paced``: the same chain at
+   the port's CPU run, and each window's ``last_ing`` is an ingest stamp
+   the source shipped for that (campaign, window); events/s, p50 / p99
+   latency (source ingest -> window emit, from the ``last_ing`` the
+   example's combine keeps: the later side's, a traced variant of K1),
+   K1's launches and a profiled run's idle share. Part ``paced``: the same chain at
    half the device part's rate over 300,000 events (latency at a rate).
    Part ``blocks``: the chain fed by ``with_columnar_blocks(4096)``
    (counts equal the row-fed run's). Part ``host``: the example's CPU
@@ -245,7 +262,9 @@ Phases, each printing one line of its own:
    rows, the report, K1 loaded before batch 0, the first batch's
    latency;
 
-then the ``{"kernels": [...]}`` line, and as the last line
+then the ``{"kernels": [...]}`` line (one entry per K1 variant a main
+path ran: the fieldwise library and each traced combine but ``scaled``,
+which no window runs: it is not associative), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs ``torch.cuda.is_available()``
 and the ``windflow_tpu_torch`` package beside it.
@@ -255,6 +274,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from collections import Counter
 import os
 import subprocess
 import sys
@@ -337,41 +357,142 @@ def ptxas_report(log):
     return out
 
 
-def build_phase():
+# ---------------------------------------------------------------------------
+# K1's traced variants: combines the port traces and compiles into a
+# library of their own (windflow_tpu_torch/kernels/combine_trace.py).
+# ``_ysb_last`` is examples/ysb.py's window combine; the others exercise a
+# cross-field int/float combine, a where on a comparison, a bool plane,
+# 12 fields, a division by a constant (which torch's CUDA kernel
+# computes as a product with the reciprocal), a float result on an int32
+# plane, and the fieldwise library's int32 sum, traced.
+def _ysb_last(a, b):
+    return {"count": a["count"] + b["count"], "last_ing": b["last_ing"]}
+
+
+def _mean_last(a, b):
+    return {"n": a["n"] + b["n"], "last": b["last"],
+            "mean": (a["mean"] * a["n"] + b["mean"] * b["n"])
+            / (a["n"] + b["n"])}
+
+
+def _argmax_ts(a, b):
+    import torch
+    w = b["v"] > a["v"]
+    return {"v": torch.where(w, b["v"], a["v"]),
+            "ts": torch.where(w, b["ts"], a["ts"])}
+
+
+def _flags(a, b):
+    return {"f": a["f"] | b["f"], "n": a["n"] + b["n"]}
+
+
+WIDE = 12
+
+
+def _wide(a, b):
+    import torch
+    return {f"w{i}": a[f"w{i}"] + b[f"w{i}"] if i % 2 == 0
+            else torch.maximum(a[f"w{i}"], b[f"w{i}"]) for i in range(WIDE)}
+
+
+def _scaled(a, b):
+    # not associative: a kernel check only, no window runs it
+    return {"x": a["x"] / 3.0 + b["x"] * 0.5, "k": a["k"] - b["k"] * 3}
+
+
+def _promote(a, b):
+    # not associative: a kernel check only. A float result on an int32
+    # plane whose ints span the int32 range: where one child is valid, the
+    # plain version's where promotes it to float32 before the store
+    # truncates it, so ints above 2^24 change, and the kernel must match
+    return {"big": a["big"] * 0.5 + b["big"]}
+
+
+def _traced_sum(a, b):
+    # the fieldwise library's int32 sum through the traced path: the two
+    # timed on the same work
+    from windflow_tpu_torch.combines import fieldwise
+    return fieldwise(f0="sum")(a, b)
+
+
+
+def traced_specs(torch):
+    """name -> (plane dtypes, combine) of each traced variant."""
+    I, F, B = torch.int32, torch.float32, torch.bool
+    return {"ysb_last": ({"count": I, "last_ing": I}, _ysb_last),
+            "mean_last": ({"n": I, "last": I, "mean": F}, _mean_last),
+            "argmax_ts": ({"v": F, "ts": I}, _argmax_ts),
+            "flags": ({"f": B, "n": I}, _flags),
+            "wide": ({f"w{i}": I for i in range(WIDE)}, _wide),
+            "scaled": ({"x": F, "k": I}, _scaled),
+            "promote": ({"big": I}, _promote),
+            "traced_sum": ({"f0": I}, _traced_sum)}
+
+
+def _variants(torch):
+    """name -> K1 variant of every traced spec."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    return {n: fr.variant(comb, dtypes)
+            for n, (dtypes, comb) in traced_specs(torch).items()}
+
+
+def build_phase(torch):
+    """Every K1 library from the sources in this checkout, the fieldwise
+    one and each traced variant's, one nvcc each, all started together;
+    a stack frame or a spill in any kernel fails the phase."""
+    from concurrent.futures import ThreadPoolExecutor
     from windflow_tpu_torch.kernels import build
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    libs = {"fieldwise": fr.Variant(fr.FIELDWISE), **_variants(torch)}
     t0 = time.perf_counter()
-    build.load_library("forest_rebuild")
-    info = build.BUILD_INFO["forest_rebuild"]
-    report = ptxas_report(info["log"])
-    phase("build", kernel="forest_rebuild",
-          nvcc_s=round(info["seconds"], 3),
-          total_s=round(time.perf_counter() - t0, 3),
-          kernels=len(report),
-          max_registers=max((r[1] for r in report), default=None),
-          ptxas=report)
-    if info["log"] and not report:
-        fail("no kernel in the nvcc -Xptxas -v log")
-    bad = [r for r in report if any(r[2:5])]
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(v.load) for v in libs.values()]:
+            fut.result()
+    total = time.perf_counter() - t0
+    bad = []
+    for name, v in libs.items():
+        info = build.BUILD_INFO[v.library]
+        report = ptxas_report(info["log"])
+        phase("build", kernel=v.library, variant=name,
+              nvcc_s=round(info["seconds"], 3), total_s=round(total, 3),
+              kernels=len(report),
+              max_registers=max((r[1] for r in report), default=None),
+              ptxas=report)
+        if info["log"] and not report:
+            fail(f"{v.library}: no kernel in the nvcc -Xptxas -v log")
+        bad += [r for r in report if any(r[2:5])]
     if bad:
         fail(f"kernels with a stack frame or spills: {bad}")
 
 
 # ---------------------------------------------------------------------------
-def _forest(torch, K, F, spec, gen):
+def _typed_forest(torch, K, F, dtypes, gen):
     """Random (trees, tvalid) on the card: leaves random, stale internals
-    random too, validity random, 1% of the float values NaN."""
+    random too, validity random, 1% of the float values NaN; a count
+    plane (``n``) positive, a ``big`` plane over the whole int32 range."""
     trees = {}
-    for i, (dt, _op) in enumerate(spec):
-        if dt == "int32":
-            t = torch.randint(-2**20, 2**20, (K, 2 * F), generator=gen,
-                              dtype=torch.int32)
-        else:
+    for name, dt in dtypes.items():
+        if dt is torch.int32:
+            lo, hi = {"n": (1, 100), "big": (-2**31, 2**31)}.get(
+                name, (-2**20, 2**20))
+            t = torch.randint(lo, hi, (K, 2 * F), generator=gen,
+                              dtype=torch.int64).to(torch.int32)
+        elif dt is torch.float32:
             t = torch.randn((K, 2 * F), generator=gen, dtype=torch.float32)
             # a few NaNs: min/max must propagate them as torch does
             t[torch.rand((K, 2 * F), generator=gen) < 0.01] = float("nan")
-        trees[f"f{i}"] = t.cuda()
+        else:
+            t = torch.rand((K, 2 * F), generator=gen) < 0.5
+        trees[name] = t.cuda()
     tvalid = (torch.rand((K, 2 * F), generator=gen) < 0.6).cuda()
     return trees, tvalid
+
+
+def _forest(torch, K, F, spec, gen):
+    """A fieldwise spec's forest: fields f0, f1, ... of its dtypes."""
+    return _typed_forest(torch, K, F, {
+        f"f{i}": getattr(torch, dt) for i, (dt, _op) in enumerate(spec)},
+        gen)
 
 
 def _clone(trees, tvalid):
@@ -442,11 +563,20 @@ def _share(bound, device_ms):
     return None if device_ms is None else bound / device_ms
 
 
+def _node_bytes(spec):
+    """Bytes of one node: a fieldwise spec's 4-byte planes, or a traced
+    spec's planes (a bool plane one byte), and the validity byte."""
+    if isinstance(spec, dict):
+        return sum(1 if str(dt) == "torch.bool" else 4
+                   for dt in spec.values()) + 1
+    return 4 * len(spec) + 1
+
+
 def bound_ms(K, F, spec):
     """Least time on the card: leaves [F, 2F) read and internals [1, F)
-    written once, each node one 4-byte value per field plus one validity
-    byte, over the HBM rate."""
-    return K * (2 * F - 1) * (4 * len(spec) + 1) / PEAK_BYTES_PER_S * 1e3
+    written once, each node its planes' values plus one validity byte,
+    over the HBM rate."""
+    return K * (2 * F - 1) * _node_bytes(spec) / PEAK_BYTES_PER_S * 1e3
 
 
 SPECS = {
@@ -456,16 +586,32 @@ SPECS = {
                      ("int32", "min"), ("int32", "max")],
 }
 # (K_cap, F): the main path's two forests first (10,240 keys -> K_cap
-# 16,384, and 64 keys, F 32), then forests that move tens of MB (10^5-key
-# streams; a long window with a fine slide), then edge and wide-row shapes
-# (8 x 65,536 needs several passes)
-SHAPES = [(16384, 32), (64, 32), (262144, 32), (16384, 1024), (4, 8),
-          (256, 1024), (8, 65536)]
-# timed: int32 sum at every shape, four fields at the main path's shape
-TIMED = {(K, F, "int32_sum") for K, F in SHAPES} | {(16384, 32,
-                                                     "minmax_pairs")}
+# 16,384, and 64 keys, F 32), YSB's (100 campaigns -> K_cap 128), then
+# forests that move tens of MB (10^5-key streams; a long window with a
+# fine slide), then edge and wide-row shapes (8 x 65,536 needs several
+# passes)
+SHAPES = [(16384, 32), (64, 32), (128, 32), (262144, 32), (16384, 1024),
+          (4, 8), (256, 1024), (8, 65536)]
+# timed: int32 sum at every shape but YSB's, four fields and every traced
+# variant at the high-cardinality path's shape, and each variant a main
+# path runs at the shape it runs there (PATH_SHAPE)
+TRACED = ("ysb_last", "mean_last", "argmax_ts", "flags", "wide", "scaled",
+          "promote", "traced_sum")
+# the forest each variant of the kernels line meets on its main path:
+# fieldwise on the high-cardinality path, YSB's combine on YSB's 100
+# campaigns, mean_last on the high-cardinality stream, the other traced
+# combines on 64 keys (phase main_path, part combine)
+PATH_SHAPE = {"fieldwise": (16384, 32, "int32_sum"),
+              "ysb_last": (128, 32, "ysb_last"),
+              "mean_last": (16384, 32, "mean_last"),
+              "argmax_ts": (64, 32, "argmax_ts"),
+              "flags": (64, 32, "flags"),
+              "wide": (64, 32, "wide")}
+TIMED = ({(K, F, "int32_sum") for K, F in SHAPES if K != 128}
+         | {(16384, 32, n) for n in ("minmax_pairs",) + TRACED}
+         | set(PATH_SHAPE.values()))
 WARM = {(262144, 32), (16384, 1024)}  # larger than the 50 MB L2
-KERNEL_MATCH = "wf_rebuild"  # every kernel of forest_rebuild.cu
+KERNEL_MATCH = "wf_rebuild"  # every kernel of forest_rebuild.cuh
 
 
 def time_rebuild(torch, rebuild, trees, tvalid, comb, spec, flush,
@@ -488,42 +634,53 @@ def time_rebuild(torch, rebuild, trees, tvalid, comb, spec, flush,
     return row
 
 
+def _bit_identical(torch, kt, kv, rt, rv):
+    """Validity and every plane equal bit for bit (NaN bits included)."""
+    return torch.equal(kv, rv) and all(
+        torch.equal(kt[k], rt[k]) if kt[k].dtype is torch.bool
+        else torch.equal(kt[k].view(torch.int32), rt[k].view(torch.int32))
+        for k in kt)
+
+
 def kernel_phase(torch, timed):
-    """Each forest of SHAPES x SPECS through the kernel and its plain
-    version: bit-identical or fail. ``timed``: only the TIMED forests,
-    each also timed (``torch.profiler`` stays out of the process until the
-    main path has run, so its tracing cannot slow the main path's
-    launches)."""
+    """Each forest of SHAPES x (SPECS and the traced variants) through the
+    kernel and its plain version: bit-identical or fail. ``timed``: only
+    the TIMED forests, each also timed (``torch.profiler`` stays out of
+    the process until the main path has run, so its tracing cannot slow
+    the main path's launches). Returns the timed rows by (K_cap, F, spec
+    name) and the largest absolute difference by spec name."""
     from windflow_tpu_torch.combines import fieldwise
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     from windflow_tpu_torch.kernels.reference import forest_rebuild_ref
     gen = torch.Generator().manual_seed(1234 + timed)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    timing = None
-    max_err = 0.0
+    specs = {n: ({f"f{i}": getattr(torch, dt)
+                  for i, (dt, _) in enumerate(spec)},
+                 fieldwise(**{f"f{i}": op for i, (_, op) in enumerate(spec)}),
+                 spec) for n, spec in SPECS.items()}
+    specs.update({n: (dtypes, comb, dtypes)
+                  for n, (dtypes, comb) in traced_specs(torch).items()})
+    timing, max_err = {}, {}
     for K, F in SHAPES:
-        for sname, spec in SPECS.items():
+        for sname, (dtypes, comb, spec) in specs.items():
             if timed and (K, F, sname) not in TIMED:
                 continue
-            comb = fieldwise(**{f"f{i}": op for i, (_, op) in
-                                enumerate(spec)})
-            trees, tvalid = _forest(torch, K, F, spec, gen)
+            trees, tvalid = _typed_forest(torch, K, F, dtypes, gen)
             kt, kv = _clone(trees, tvalid)
             rt, rv = _clone(trees, tvalid)
             fr.forest_rebuild(kt, kv, comb)
             forest_rebuild_ref(rt, rv, comb)
             torch.cuda.synchronize()
-            same = torch.equal(kv, rv) and all(
-                torch.equal(kt[k].view(torch.int32), rt[k].view(torch.int32))
-                for k in kt)
-            max_err = max([max_err] + [
+            max_err[sname] = max([max_err.get(sname, 0.0)] + [
                 (kt[k].double() - rt[k].double()).abs().nan_to_num(0.0)
-                .max().item() for k in kt])  # NaN bits: checked above
-            if not same:
+                .max().item() for k in kt])  # NaN bits: checked below
+            if not _bit_identical(torch, kt, kv, rt, rv):
                 fail(f"forest_rebuild differs from its plain version at "
                      f"K_cap={K} F={F} {sname}")
-            plan = fr.launch_plan(K, F, len(spec))
-            row = {"K_cap": K, "F": F, "fields": sname, "bit_identical": True,
+            plan = fr.forest_plan(kt, kv)
+            variant = fr.check_forest(kt, kv, comb)
+            row = {"K_cap": K, "F": F, "fields": sname,
+                   "variant": variant.library, "bit_identical": True,
                    "plan": [[p.regime, p.W, p.S, p.E, p.rows] for p in plan]}
             if timed:
                 row.update(time_rebuild(torch, fr.forest_rebuild, kt, kv,
@@ -531,8 +688,7 @@ def kernel_phase(torch, timed):
                                         warm=(K, F) in WARM))
                 row["plain_ms"] = _time_ms(torch, lambda: forest_rebuild_ref(
                     rt, rv, comb), 10, flush)
-                if timing is None:
-                    timing = row
+                timing[K, F, sname] = row
             phase("kernel_time" if timed else "kernel_check", **row)
             del trees, tvalid, kt, kv, rt, rv
     del flush
@@ -558,11 +714,13 @@ def _blocks(n_keys, seed, n_batches=N_BATCHES, batch=BATCH):
 
 def _run_graph(wt, device, blocks, n_keys, win_per_batch, prefix=(),
                fusion=True, graph_kw=None, trace_rate=None, setup=None,
-               schema=None, first_hook=None, pace_s=0.0):
+               schema=None, first_hook=None, pace_s=0.0, lift=None,
+               combine=None):
     """Columnar source -> [prefix ops, chained ->] Ffat_Windows_GPU ->
     columnar sink; returns the window columns (sorted by key, wid), timing
     marks, the window's replica (a fused chain's replica when the prefix
-    fused into it) and the graph. ``graph_kw`` goes to the PipeGraph,
+    fused into it) and the graph. The window sums ``value`` unless
+    ``lift`` and ``combine`` say otherwise. ``graph_kw`` goes to the PipeGraph,
     ``trace_rate`` to the source's, window's and sink's
     ``with_latency_tracing``, ``setup(graph)`` runs before the build,
     ``schema`` is the window's declared schema, ``first_hook(graph)`` runs
@@ -595,8 +753,9 @@ def _run_graph(wt, device, blocks, n_keys, win_per_batch, prefix=(),
                          wt.TimePolicy.EVENT_TIME, device=device,
                          fusion=fusion, **(graph_kw or {}))
     holder["graph"] = graph
-    b = (wt.Ffat_Windows_GPU_Builder(lambda f: {"value": f["value"]},
-                                     wt.fieldwise(value="sum"))
+    b = (wt.Ffat_Windows_GPU_Builder(
+        lift or (lambda f: {"value": f["value"]}),
+        combine or wt.fieldwise(value="sum"))
          .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
          .with_key_capacity(n_keys))
     if win_per_batch:
@@ -672,13 +831,30 @@ def _ffat_rates(blocks, run):
         firing_batches_timed=len(lat))
 
 
+def _reset_launches(fr):
+    """Set K1's launch counts, the total and each variant's, to 0: just
+    before each main-path run whose launches the script reads."""
+    fr.LAUNCHES = 0
+    fr.VARIANT_LAUNCHES.clear()
+
+
+def _launch_counts(fr):
+    """K1's launches since the last reset, by variant tag."""
+    counts = Counter(fr.VARIANT_LAUNCHES)
+    if counts.total() != fr.LAUNCHES:
+        fail(f"K1's variant counts {dict(counts)} do not add up to its "
+             f"{fr.LAUNCHES} launches")
+    return counts
+
+
 def _launched(name, fr, rep):
-    """K1's launch count since the last reset, which the window replica
-    must have counted too."""
-    launches = fr.LAUNCHES
-    if launches == 0 or rep.stats.rebuild_kernel_launches != launches:
+    """K1's launches since the last reset, by variant tag; the window
+    replica must have counted their total too."""
+    launches = _launch_counts(fr)
+    if not launches or rep.stats.rebuild_kernel_launches \
+            != launches.total():
         fail(f"{name}: the rebuild kernel did not run on the path "
-             f"(wrapper {launches}, replica "
+             f"(wrapper {launches.total()}, replica "
              f"{rep.stats.rebuild_kernel_launches})")
     return launches
 
@@ -686,7 +862,7 @@ def _launched(name, fr, rep):
 def main_path_phase(torch, wt, name, n_keys, win_per_batch):
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     blocks = _blocks(n_keys, seed=7)
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     run = _run_graph(wt, "cuda", blocks, n_keys, win_per_batch)
     launches = _launched(name, fr, run[5])
@@ -700,7 +876,7 @@ def main_path_phase(torch, wt, name, n_keys, win_per_batch):
     row = dict(config=name, keys=n_keys, batches=N_BATCHES, batch=BATCH,
                windows_total=int(len(gcols["key"])),
                valid_windows=int(valid.sum()),
-               rebuild_launches=launches,
+               rebuild_launches=launches.total(),
                device_programs=rep.stats.device_programs_run,
                **_ffat_rates(blocks, run), wall_s=wall,
                rows_equal_cpu=True,
@@ -708,6 +884,105 @@ def main_path_phase(torch, wt, name, n_keys, win_per_batch):
                staging_pool_hits=src["Staging_pool_hits"],
                staging_pool_misses=src["Staging_pool_misses"])
     return row, launches
+
+
+COMBINE_TIMED = 8      # part combine: timed HC batches after WARMUP
+COMBINE_64_BATCHES = 6  # the other traced combines, 64 keys
+
+
+def _combine_lifts(torch):
+    """name -> lift over the main path's (key, value) columns, for each
+    traced combine part ``combine`` drives through Ffat_Windows_GPU."""
+    f32 = torch.float32
+    return {
+        "mean_last": lambda f: {"n": f["value"] * 0 + 1, "last": f["value"],
+                                "mean": f["value"].to(f32)},
+        "argmax_ts": lambda f: {"v": f["value"].to(f32) * 0.25,
+                                "ts": f["value"] * 3 + f["key"]},
+        "flags": lambda f: {"f": f["value"] > 90, "n": f["value"]},
+        "wide": lambda f: {f"w{i}": f["value"] * (i + 1) - i
+                           for i in range(WIDE)},
+    }
+
+
+# float tolerance against the port's CPU run: mean_last and argmax_ts run
+# the same IEEE operations on both devices (1e-6 covers a regrouping)
+COMBINE_RTOL = {"mean_last": 1e-6, "argmax_ts": 1e-6}
+
+
+def _check_combine_rows(name, got, ref, rtol):
+    """Window rows equal the CPU run's: keys, windows and validity; ints
+    and bools exactly, floats within ``rtol``. Returns the largest
+    relative float difference."""
+    if got.keys() != ref.keys() or len(got["key"]) != len(ref["key"]):
+        fail(f"combine {name}: window rows differ in shape from the CPU run")
+    for k in ("key", "wid", "valid"):
+        if not np.array_equal(got[k], ref[k]):
+            fail(f"combine {name}: column {k!r} differs from the CPU run")
+    v = got["valid"].astype(bool)
+    worst = 0.0
+    for k in got:
+        if k in ("key", "wid", "valid", "ts"):
+            continue
+        g, r = got[k][v], ref[k][v]
+        if g.dtype.kind == "f":
+            d = np.abs(g.astype(np.float64) - r) / np.maximum(np.abs(r), 1e-30)
+            worst = max(worst, float(d.max(initial=0.0)))
+            if not np.allclose(g, r, rtol=rtol, atol=0.0):
+                fail(f"combine {name}: {k} differs from the CPU run beyond "
+                     f"rtol {rtol} (largest {worst})")
+        elif not np.array_equal(g, r):
+            fail(f"combine {name}: {k} differs from the CPU run")
+    return worst
+
+
+def combine_phase(torch, wt, card):
+    """Phase ``main_path``, part ``combine``: the traced combines through
+    ``Ffat_Windows_GPU`` on the card, against the port's CPU run of the
+    same stream. ``mean_last`` on the high-cardinality stream (10,240
+    keys, WARMUP + COMBINE_TIMED batches), the others at 64 keys. K1's
+    traced variant must launch once per firing batch, and only it.
+    Returns K1's launches by variant."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    specs = traced_specs(torch)
+    total = Counter()
+    for name, lift in _combine_lifts(torch).items():
+        dtypes, comb = specs[name]
+        hc = name == "mean_last"
+        n_keys = HC_KEYS if hc else 64
+        blocks = _blocks(n_keys, seed=11, n_batches=(
+            WARMUP + COMBINE_TIMED if hc else COMBINE_64_BATCHES))
+        tag = fr.variant(comb, dtypes).tag
+        ccols = _run_graph(wt, "cpu", blocks, n_keys, None if hc else 128,
+                           lift=lift, combine=comb)[0]
+        _reset_launches(fr)
+        torch.cuda.synchronize()
+        run = _run_graph(wt, "cuda", blocks, n_keys, None if hc else 128,
+                         lift=lift, combine=comb)
+        launches = _launched(f"combine {name}", fr, run[5])
+        total += launches
+        mine = launches[tag]
+        rates = _ffat_rates(blocks, run)
+        if not mine == launches.total() == rates["firing_batches"]:
+            fail(f"combine {name}: its variant launched {mine} times (K1 "
+                 f"{launches.total()}) for {rates['firing_batches']} "
+                 "firing batches")
+        gcols = run[0]
+        worst = _check_combine_rows(name, gcols, ccols,
+                                    COMBINE_RTOL.get(name, 0.0))
+        if not gcols["valid"].any():
+            fail(f"combine {name}: no valid windows")
+        phase("main_path", part="combine", combine=name, card=card,
+              keys=n_keys, batches=len(blocks), batch=BATCH,
+              planes={k: str(v).replace("torch.", "")
+                      for k, v in dtypes.items()},
+              variant=fr.variant(comb, dtypes).library,
+              windows_total=int(len(gcols["key"])),
+              valid_windows=int(gcols["valid"].sum()),
+              rebuild_launches=mine, **rates, wall_s=run[4],
+              rows_equal_cpu=True, float_rtol=COMBINE_RTOL.get(name),
+              float_max_rel_diff=worst)
+    return total
 
 
 def _prefix(wt, with_filter):
@@ -729,7 +1004,7 @@ def fusion_ffat_phase(torch, wt, card):
     Returns K1's launches in the first fused run of each chain."""
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     blocks = _blocks(HC_KEYS, seed=7)
-    fused_launches = 0
+    fused_launches = Counter()
     for with_filter in (False, True):
         name = "map_filter_ffat" if with_filter else "map_ffat"
         ccols = _run_graph(wt, "cpu", blocks, HC_KEYS, None,
@@ -740,7 +1015,7 @@ def fusion_ffat_phase(torch, wt, card):
                    warmup=WARMUP, batch=BATCH, card=card,
                    windows_total=int(len(ccols["key"])))
         for fusion in (True, False, False, True):
-            fr.LAUNCHES = 0
+            _reset_launches(fr)
             torch.cuda.synchronize()
             run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
                              _prefix(wt, with_filter), fusion)
@@ -751,13 +1026,13 @@ def fusion_ffat_phase(torch, wt, card):
             if fusion != any(o["kind"] == "Fused_GPU_Chain" for o in ops):
                 fail(f"fusion {name}: the chain did not fuse as asked")
             rates = _ffat_rates(blocks, run)
-            if launches != rates["firing_batches"]:
-                fail(f"fusion {name}: K1 launched {launches} times for "
-                     f"{rates['firing_batches']} firing batches")
+            if launches.total() != rates["firing_batches"]:
+                fail(f"fusion {name}: K1 launched {launches.total()} "
+                     f"times for {rates['firing_batches']} firing batches")
             programs = sum(r["Device_programs_run"] for o in ops
                            for r in o["replicas"])
             runs = row.setdefault("fused" if fusion else "unfused", [])
-            runs.append(dict(**rates, rebuild_launches=launches,
+            runs.append(dict(**rates, rebuild_launches=launches.total(),
                              programs_per_batch=programs / N_BATCHES,
                              wall_s=run[4]))
             if fusion and len(runs) == 1:
@@ -1759,7 +2034,7 @@ def dag_phase(torch, wt, card):
                              DAG_BATCHES))
     # merge_ffat
     halves = _key_halves(blocks)
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gcols, k1, gparts, t_yield, rep, _ = _run_merge_ffat(wt, "cuda",
@@ -1779,14 +2054,15 @@ def dag_phase(torch, wt, card):
     # ingest dirtied after the last firing
     if k1["batch_launches"] != k1["firing_batches"] \
             or not k1["firing_batches"] \
-            or launches != k1["batch_launches"] + k1["dataless_launches"]:
-        fail(f"dag merge_ffat: K1 launched {launches} times for "
+            or launches.total() != k1["batch_launches"] \
+            + k1["dataless_launches"]:
+        fail(f"dag merge_ffat: K1 launched {launches.total()} times for "
              f"{k1['firing_batches']} firing batches ({k1})")
     phase("dag", part="merge_ffat", keys=HC_KEYS, sources=2,
           batches=DAG_BATCHES, warmup=DAG_WARMUP, batch=BATCH, card=card,
           windows_total=int(len(gcols["key"])),
           valid_windows=int(gcols["valid"].sum()), rows_equal_cpu=True,
-          **k1, rebuild_launches=launches,
+          **k1, rebuild_launches=launches.total(),
           tuples_per_s=_dag_rate(n_tuples, t_yield, gparts), wall_s=wall,
           profiled=_profiled(torch, lambda: _run_merge_ffat(wt, "cuda",
                                                              halves),
@@ -1965,7 +2241,7 @@ def recovery_part(torch, wt, card, part, cuts):
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     keys = HC_KEYS
     blocks = _blocks(keys, seed=41, n_batches=REC_BATCHES, batch=BATCH)
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     gold = _rec_results(part, _run_rec_graph(
         wt, "cuda", part, _ReplayBlocks(blocks), _ckpt_dir(f"{part}_g"))[0])
@@ -1996,7 +2272,7 @@ def recovery_part(torch, wt, card, part, cuts):
                 or subs[1] is None or subs[0] is not None:
             fail("recovery fused: the blob does not carry the fused "
                  "signature and one positional sub-state per sub-op")
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     rsrc = _ReplayBlocks(blocks)
     rparts, rgraph, start_s, first_s = _run_rec_graph(
@@ -2007,12 +2283,13 @@ def recovery_part(torch, wt, card, part, cuts):
     restored = _rec_results(part, rparts)
     if not restored:
         fail(f"recovery {part}: the restored run emitted nothing")
-    launches = 0
+    launches = Counter()
     if part == "ffat":
         launches = _launched("recovery ffat", fr,
                              rgraph._stages[1].first_op.replicas[0])
-        if launches >= gold_launches:
-            fail(f"recovery ffat: the restored run launched K1 {launches} "
+        if launches.total() >= gold_launches:
+            fail(f"recovery ffat: the restored run launched K1 "
+                 f"{launches.total()} "
                  f"times, the uninterrupted run {gold_launches}")
         ff = states[("ffat", 0)]["ffat"]
         fired = {int(k): int(ff["fired"][s])
@@ -2055,7 +2332,7 @@ def recovery_part(torch, wt, card, part, cuts):
                          for f in st.load_manifest(d)["blobs"]),
           restore_start_ms=start_s * 1e3,
           restore_ms=None if first_s is None else first_s * 1e3,
-          rebuild_launches_restored=launches,
+          rebuild_launches_restored=launches.total(),
           rebuild_launches_uninterrupted=(gold_launches if part == "ffat"
                                           else 0),
           tuples_per_s_every_4=runs["every"], tuples_per_s_none=runs["none"],
@@ -2098,8 +2375,8 @@ def recovery_phase(torch, wt, card):
     wmod.Worker._capture_blobs = timer(orig[1], "capture")
     Coord.ack = timer(orig[2], "write")
     try:
-        return sum(recovery_part(torch, wt, card, part, cuts)
-                   for part in ("smap", "ffat", "fused"))
+        return sum((recovery_part(torch, wt, card, part, cuts)
+                    for part in ("smap", "ffat", "fused")), Counter())
     finally:
         (wmod.Worker.checkpoint_now, wmod.Worker._capture_blobs,
          Coord.ack) = orig
@@ -2291,13 +2568,13 @@ def delta_part(torch, wt, card, part, cuts, writes):
     t_part = time.perf_counter()
     is_ffat = name.startswith("ffat")
     rkey = "ffat" if is_ffat else "batches"
-    modes, gold, gold_launches = {}, None, 0
+    modes, gold, gold_launches = {}, None, Counter()
     for mode, ckpt in DELTA_MODES:
         src = _ReplayBlocks(blocks, every=DELTA_EVERY)
         store = _ckpt_dir(f"delta_{name}_{mode}")
         cuts.clear()
         writes.clear()
-        fr.LAUNCHES = 0
+        _reset_launches(fr)
         torch.cuda.synchronize()
         parts, g = _run_delta_graph(wt, "cuda", part, src, store, ckpt)
         if is_ffat:
@@ -2305,7 +2582,7 @@ def delta_part(torch, wt, card, part, cuts, writes):
                       g._stages[1].first_op.replicas[0])
         out = _rec_results(rkey, parts)
         if gold is None:
-            gold, gold_launches = out, fr.LAUNCHES
+            gold, gold_launches = out, _launch_counts(fr)
         elif out != gold:
             fail(f"delta {name}: the {mode} run's output differs from the "
                  "FULL run's")
@@ -2372,7 +2649,7 @@ def delta_part(torch, wt, card, part, cuts, writes):
     if states[("src", 0)]["position"] != ckpt_block:
         fail(f"delta {name}: the checkpoint's source position is "
              f"{states[('src', 0)]['position']}, not {ckpt_block}")
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     rsrc = _ReplayBlocks(blocks, every=DELTA_EVERY)
     t0 = time.perf_counter()
@@ -2385,13 +2662,14 @@ def delta_part(torch, wt, card, part, cuts, writes):
     restored = _rec_results(rkey, rparts)
     if not restored:
         fail(f"delta {name}: the restored run emitted nothing")
-    launches = 0
+    launches = Counter()
     if is_ffat:
         launches = _launched(f"delta {name}", fr,
                              rgraph._stages[1].first_op.replicas[0])
-        if launches >= gold_launches:
-            fail(f"delta {name}: the restored run launched K1 {launches} "
-                 f"times, the uninterrupted run {gold_launches}")
+        if launches.total() >= gold_launches.total():
+            fail(f"delta {name}: the restored run launched K1 "
+                 f"{launches.total()} times, the uninterrupted run "
+                 f"{gold_launches.total()}")
         ff = states[("ffat", 0)]["ffat"]
         fired = {int(k): int(ff["fired"][s])
                  for k, s in ff["slot_of_key"].items()}
@@ -2426,7 +2704,7 @@ def delta_part(torch, wt, card, part, cuts, writes):
         if d.startswith(f"delta_{name}_"):
             shutil.rmtree(os.path.join(HERE, "build", "ckpt", d),
                           ignore_errors=True)
-    return (gold_launches + launches) if is_ffat else 0
+    return (gold_launches + launches) if is_ffat else Counter()
 
 
 def delta_phase(torch, wt, card):
@@ -2498,8 +2776,8 @@ def delta_phase(torch, wt, card):
     smod._hash_bytes = split(orig_store[2], "sha256")
     smod._atomic_write = split(orig_store[3], "fsync_write")
     try:
-        return sum(delta_part(torch, wt, card, part, cuts, writes)
-                   for part in _delta_parts(wt))
+        return sum((delta_part(torch, wt, card, part, cuts, writes)
+                    for part in _delta_parts(wt)), Counter())
     finally:
         (wmod.Worker.checkpoint_now, wmod.Worker._capture_blobs,
          Coord.ack) = orig
@@ -2660,7 +2938,7 @@ def rescale_part(torch, wt, card, part):
     runs = {"none": [], "rescaled": []}
     ref = launches = reports = None
     for mode in ("none", "rescaled", "rescaled", "none"):
-        fr.LAUNCHES = 0
+        _reset_launches(fr)
         torch.cuda.synchronize()
         p, src, reps, planes, g = _run_rescaled(
             wt, "cuda", part, blocks, steps if mode == "rescaled" else (),
@@ -2676,7 +2954,7 @@ def rescale_part(torch, wt, card, part):
             fail(f"rescale {part} ({mode}): the output differs from the "
                  "uninterrupted run on the card")
         if mode == "rescaled" and reports is None:
-            reports, launches = reps, fr.LAUNCHES
+            reports, launches = reps, _launch_counts(fr)
             per_plane = [[r.stats.rebuild_kernel_launches for r in pl]
                          for pl in planes]
             keyed = [[len(r.slot_of_key) for r in pl] for pl in planes[1:]] \
@@ -2696,15 +2974,16 @@ def rescale_part(torch, wt, card, part):
         valid = sum(ok for ok, _ in ref.values())
         if not valid:
             fail("rescale ffat: no valid window")
-        if launches != sum(map(sum, per_plane)):
-            fail(f"rescale ffat: K1 wrapper launches {launches}, replicas "
+        if launches.total() != sum(map(sum, per_plane)):
+            fail(f"rescale ffat: K1 wrapper launches {launches.total()}, "
+                 f"replicas "
                  f"{per_plane}")
         for pl, ks in zip(per_plane[1:], keyed):
             if any(k and not c for c, k in zip(pl, ks)):
                 fail(f"rescale ffat: a new replica holding keys never "
                      f"launched K1 (launches {pl}, keys {ks})")
         row.update(windows=len(ref), valid_windows=int(valid),
-                   duplicate_windows=0, rebuild_launches=launches,
+                   duplicate_windows=0, rebuild_launches=launches.total(),
                    rebuild_launches_per_plane=per_plane,
                    keys_per_new_replica=keyed)
     else:
@@ -2739,8 +3018,8 @@ def rescale_phase(torch, wt, card):
     (checkpoint load, host repartition, teardown, rebuild, restore: the
     H2D copies of the moved tables and forests), and tuples/s with and
     without the rescale. Returns K1's launches in the ffat part."""
-    return sum(rescale_part(torch, wt, card, part)
-               for part in ("ffat", "smap_hc"))
+    return sum((rescale_part(torch, wt, card, part)
+                for part in ("ffat", "smap_hc")), Counter())
 
 
 # ---------------------------------------------------------------------------
@@ -2784,7 +3063,7 @@ def supervise_part(torch, wt, card, part):
     if gold != _rec_results(res, _run_supervised(
             wt, "cpu", part, blocks, _ckpt_dir(f"sup_{part}_c"))[0]):
         fail(f"supervise {part}: the card's run differs from the CPU run")
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     parts, g, op = _run_supervised(wt, "cuda", part, blocks,
@@ -2798,7 +3077,7 @@ def supervise_part(torch, wt, card, part):
     if _rec_results(res, parts) != gold:
         fail(f"supervise {part}: the distinct output differs from the "
              "uninterrupted run")
-    launches = fr.LAUNCHES
+    launches = _launch_counts(fr)
     if ffat and op.replicas[0].stats.rebuild_kernel_launches < 1:
         fail("supervise ffat: the restored replica never launched K1")
     (h,) = sup["Supervision_history"]
@@ -2808,10 +3087,10 @@ def supervise_part(torch, wt, card, part):
               "ckpt_id"], distinct_equal_card=True, distinct_equal_cpu=True,
           detect_to_resume_s=sup["Supervision_last_restart_s"],
           backoff_s=h["backoff_s"], wall_s=wall,
-          rebuild_launches=launches if ffat else 0,
+          rebuild_launches=launches.total() if ffat else 0,
           rebuild_launches_restored=(
               op.replicas[0].stats.rebuild_kernel_launches if ffat else 0))
-    return launches if ffat else 0
+    return launches if ffat else Counter()
 
 
 def _poison_map(f):
@@ -2878,8 +3157,8 @@ def supervise_phase(torch, wt, card):
     """Phase ``supervise``: parts ``ffat`` and ``smap`` (recovery by the
     supervisor, the detection -> resume time) and ``poison`` (batch
     bisection). Returns K1's launches in the supervised ffat run."""
-    launches = sum(supervise_part(torch, wt, card, part)
-                   for part in ("ffat", "smap"))
+    launches = sum((supervise_part(torch, wt, card, part)
+                    for part in ("ffat", "smap")), Counter())
     supervise_poison_part(wt, card)
     return launches
 
@@ -2981,13 +3260,14 @@ def mesh_ffat_part(torch, wt, card):
                "bench_mesh": _blocks(MESH_BENCH_KEYS, seed=72,
                                      n_batches=MESH_BATCHES,
                                      batch=MESH_BENCH_BATCH)}
-    launches, first = 0, {}
+    launches, first = Counter(), {}
     for cfg, n_keys, batch, shape in configs:
         blocks = streams[cfg]
-        fr.LAUNCHES = 0
+        _reset_launches(fr)
         torch.cuda.synchronize()
         run = _run_mesh_ffat(wt, "cuda", blocks, n_keys, shape, batch)
-        k1 = fr.LAUNCHES
+        counts = _launch_counts(fr)
+        k1 = counts.total()
         rep = _mesh_stats(run[3], "fwm")
         name = f"mesh ffat {cfg} {shape}"
         if k1 == 0 or rep["Rebuild_kernel_launches"] != k1 \
@@ -2995,7 +3275,7 @@ def mesh_ffat_part(torch, wt, card):
             fail(f"{name}: K1 launches {k1}, replica "
                  f"{rep['Rebuild_kernel_launches']}, steps "
                  f"{rep['Mesh_steps']}: not one launch per step")
-        launches += k1
+        launches += counts
         g = _window_cols(run[0])
         c = _window_cols(_run_mesh_ffat(wt, "cpu", blocks, n_keys, shape,
                                         batch)[0])
@@ -3143,7 +3423,7 @@ def mesh_restore_part(torch, wt, card):
     gold = _rec_results("ffat", _run_mesh_rec(
         wt, _ReplayBlocks(blocks), _ckpt_dir("mesh_g"), (4, 2))[0])
     store = _ckpt_dir("mesh_rec")
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     crash = _run_mesh_rec(wt, _ReplayBlocks(blocks, ckpt_at=REC_CKPT_AT,
                                             crash_at=REC_CRASH_AT),
                           store, (4, 2), crash=True)
@@ -3166,7 +3446,7 @@ def mesh_restore_part(torch, wt, card):
 
     prof = _profiled(torch, restored, REC_BATCHES - REC_CKPT_AT)
     rest, wall = box
-    launches = fr.LAUNCHES
+    launches = _launch_counts(fr)
     if src.first != REC_CKPT_AT:
         fail(f"mesh restore: the source resumed at block {src.first}")
     slot = mf["slot_of_key"]
@@ -3191,7 +3471,7 @@ def mesh_restore_part(torch, wt, card):
           refired_windows=0, restore_to_first_delivery_s=rest[2],
           restored_tuples_per_s=(REC_BATCHES - REC_CKPT_AT) * BATCH / wall,
           restored_windows_per_s=sum(len(c["ts"]) for _, c in rest[0])
-          / wall, rebuild_launches=launches, profiled=prof,
+          / wall, rebuild_launches=launches.total(), profiled=prof,
           **{k: rep[k] for k in ("Mesh_steps", "Mesh_shuffle_bytes",
                                  "Mesh_shard_skew")})
     return launches
@@ -3213,14 +3493,14 @@ def mesh_degrade_part(torch, wt, card):
     store = _ckpt_dir("mesh_dg")
     src = _GatedBlocks(blocks, every=SUP_EVERY, store=store,
                        crash_at=MESH_CRASH_AT, pace_s=MESH_PACE_S)
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     box = {}
     prof = _profiled(torch, lambda: box.update(_mesh_degrade_run(
         wt, src, store, probe)), REC_BATCHES)
     parts, g, seen, domains, wall = (box[k] for k in (
         "parts", "graph", "seen", "domains", "wall"))
-    launches = fr.LAUNCHES
+    launches = _launch_counts(fr)
     sup = g.get_stats()["Supervision"]
     rep = _mesh_stats(g, "fwm")
     hist = sup["Supervision_history"]
@@ -3246,7 +3526,7 @@ def mesh_degrade_part(torch, wt, card):
           distinct_equal_uninterrupted=True, wall_s=wall,
           paced_tuples_per_s=REC_BATCHES * BATCH / wall,
           windows_per_s=sum(len(c["ts"]) for _, c in parts) / wall,
-          rebuild_launches=launches, profiled=prof,
+          rebuild_launches=launches.total(), profiled=prof,
           **{k: rep[k] for k in ("Mesh_steps", "Mesh_shuffle_bytes",
                                  "Mesh_shard_skew")})
     return launches
@@ -3359,13 +3639,15 @@ def _ysb_model(n_events):
 
 
 def _ysb_source(kafka, group, clock, n_events, blocks=False, rate=0.0,
-                hook=None):
+                hook=None, record=None):
     """Kafka_Source over the filled broker under its own consumer group,
     stopping at event ``n_events``; ``rate`` (events/s) paces the ingest
     by each event's index (examples/ysb.py ``YSB_RATE``); ``blocks``
     decodes whole batch polls into columns (``with_columnar_blocks``),
     the watermark the lowest of the replica's partitions' last ts;
-    ``hook()`` runs before each batch poll is decoded (blocks only)."""
+    ``hook()`` runs before each batch poll is decoded (blocks only);
+    ``record`` (a list, rows only) receives ``(ad_id, ts, ingest stamp)``
+    of every view shipped."""
     stop_ts = n_events * YSB_TS_STEP_US
 
     def pace(ts):
@@ -3382,9 +3664,11 @@ def _ysb_source(kafka, group, clock, n_events, blocks=False, rate=0.0,
         if p["ts"] >= stop_ts:
             return False
         pace(p["ts"])
+        ing = clock()
         shipper.push_with_timestamp(
-            _AdEvent(p["ad_id"], p["event_type"], p["ts"], clock()),
-            p["ts"])
+            _AdEvent(p["ad_id"], p["event_type"], p["ts"], ing), p["ts"])
+        if record is not None and p["event_type"] == 0:
+            record.append((p["ad_id"], p["ts"], ing))
         shipper.set_next_watermark(p["ts"])
         return True
 
@@ -3429,8 +3713,8 @@ def _ysb_source(kafka, group, clock, n_events, blocks=False, rate=0.0,
 def _ysb_device_ops(wt):
     """Filter_GPU (views) -> Map_GPU (ad -> campaign) -> Ffat_Windows_GPU
     keyed by campaign (examples/ysb.py's device chain, ``YSB_DEVICE_CHAIN``),
-    with ``fieldwise(count="sum", last_ing="max")``: the port's combine for
-    the example's ``last_ing: b["last_ing"]`` (the window's latest ingest)."""
+    with the example's own combine (``_ysb_last``: counts add, ``last_ing``
+    is the later side's), which K1 runs as a traced variant."""
     views = wt.Filter_GPU_Builder(lambda f: f["event_type"] == 0) \
         .with_name("views").build()
     project = wt.Map_GPU_Builder(
@@ -3439,7 +3723,7 @@ def _ysb_device_ops(wt):
         .with_name("project").build()
     win = (wt.Ffat_Windows_GPU_Builder(
                lambda f: {"count": f["one"], "last_ing": f["ing"]},
-               wt.fieldwise(count="sum", last_ing="max"))
+               _ysb_last)
            .with_key_by("campaign").with_tb_windows(YSB_WIN_US, YSB_WIN_US)
            .with_num_win_per_batch(32).with_key_capacity(YSB_CAMPAIGNS)
            .with_name("ysb_win").build())
@@ -3447,13 +3731,16 @@ def _ysb_device_ops(wt):
 
 
 def _ysb_run(wt, kafka, device, group, n_events, blocks=False, rate=0.0,
-             graph_kw=None, setup=None, lat_at=None):
+             graph_kw=None, setup=None, lat_at=None, record=None,
+             lasts=None):
     """One YSB run on the device chain: the (campaign, wid) -> count map,
     the number of valid rows the sink took, the latencies (ms, source
     ingest -> window emit), events/s (run start -> the last window's
     delivery), the window operator and the graph. ``graph_kw`` goes to
-    the PipeGraph, ``setup(graph)`` runs before the run, and ``lat_at``
-    (a list) receives ``(receipt time, latency ms)`` pairs."""
+    the PipeGraph, ``setup(graph)`` runs before the run, ``lat_at`` (a
+    list) receives ``(receipt time, latency ms)`` pairs, ``record`` goes
+    to the source and ``lasts`` (a dict) receives each window's
+    ``last_ing``."""
     counts, n_rows, lat, t_last = {}, [0], [], [0.0]
     t0 = time.perf_counter()
 
@@ -3470,6 +3757,10 @@ def _ysb_run(wt, kafka, device, group, n_events, blocks=False, rate=0.0,
                            cols["wid"][v].tolist(),
                            cols["count"][v].tolist()):
             counts[(c, w)] = n
+        if lasts is not None:
+            lasts.update(zip(zip(cols["campaign"][v].tolist(),
+                                 cols["wid"][v].tolist()),
+                             cols["last_ing"][v].tolist()))
         ms = ((now - cols["last_ing"][v]) / 1e3).tolist()
         lat.extend(ms)
         t_last[0] = time.perf_counter()
@@ -3481,7 +3772,7 @@ def _ysb_run(wt, kafka, device, group, n_events, blocks=False, rate=0.0,
                          **(graph_kw or {}))
     ops = _ysb_device_ops(wt)
     mp = graph.add_source(_ysb_source(kafka, group, clock, n_events,
-                                      blocks, rate))
+                                      blocks, rate, record=record))
     for op in ops:
         mp = mp.add(op)
     mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
@@ -3517,6 +3808,20 @@ def _ysb_check(name, counts, n_rows, model, *others):
             fail(f"ysb {name}: counts differ from {what}")
 
 
+def _ysb_check_lasts(shipped, lasts):
+    """Each window's ``last_ing`` is an ingest stamp the source shipped
+    for one of that (campaign, window)'s views: the example's combine
+    keeps the later side's, and which row arrives last across the two
+    source replicas is a race."""
+    stamps = {}
+    for ad, ts, ing in shipped:
+        stamps.setdefault((ad // YSB_ADS, ts // YSB_WIN_US), set()).add(ing)
+    bad = [k for k, li in lasts.items() if li not in stamps.get(k, ())]
+    if bad or not lasts:
+        fail(f"ysb device: {len(bad)} of {len(lasts)} windows' last_ing is "
+             f"no stamp their source shipped (e.g. {bad[:3]})")
+
+
 def ysb_phase(torch, wt, card):
     """Phase ``ysb`` (parts ``device``, ``paced``, ``blocks``, ``host``)
     and its part ``win``. Returns K1's launches on the YSB device runs."""
@@ -3529,57 +3834,64 @@ def ysb_phase(torch, wt, card):
     model = _ysb_model(YSB_EVENTS)
     cpu, cpu_rows = _ysb_run(wt, kafka, "cpu", "cpu", YSB_EVENTS)[:2]
     _ysb_check("cpu", cpu, cpu_rows, model)
-    launches = 0
     # part device: Kafka rows -> device chain
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
-    counts, n_rows, lat, eps, win, g = _ysb_run(wt, kafka, "cuda",
-                                                "device", YSB_EVENTS)
+    shipped, lasts = [], {}
+    counts, n_rows, lat, eps, win, g = _ysb_run(
+        wt, kafka, "cuda", "device", YSB_EVENTS, record=shipped,
+        lasts=lasts)
     k1 = _launched("ysb device", fr, win.replicas[0])
-    launches += k1
     _ysb_check("device", counts, n_rows, model, ("the CPU run", cpu))
+    _ysb_check_lasts(shipped, lasts)
     p50, p99 = _pcts(lat)
     prof = _profiled(torch, lambda: _ysb_run(wt, kafka, "cuda", "prof",
                                              YSB_EVENTS),
                      YSB_EVENTS // YSB_BATCH)
-    launches += fr.LAUNCHES - k1
+    launches = _launch_counts(fr)  # the device run's and the profiled's
     phase("ysb", part="device", card=card, events=YSB_EVENTS,
           campaigns=YSB_CAMPAIGNS, ads_per_campaign=YSB_ADS,
           partitions=YSB_PARTITIONS, source_parallelism=YSB_SRC_PAR,
           batch=YSB_BATCH, window_us=YSB_WIN_US,
           campaign_windows=len(counts), sink_rows=n_rows,
-          counts_equal_model=True, counts_equal_cpu=True, events_per_s=eps, latency_p50_ms=p50,
-          latency_p99_ms=p99, rebuild_launches=k1, broker_fill_s=fill_s,
+          counts_equal_model=True, counts_equal_cpu=True,
+          last_ing_shipped=True, events_per_s=eps, latency_p50_ms=p50,
+          latency_p99_ms=p99, rebuild_launches=k1.total(),
+          broker_fill_s=fill_s,
           profiled=prof)
     # part paced: half the device part's rate, YSB's latency protocol
     model_p = _ysb_model(YSB_PACED_EVENTS)
+    _reset_launches(fr)
     counts_p, rows_p, lat_p, eps_p, win_p, _ = _ysb_run(
         wt, kafka, "cuda", "paced", YSB_PACED_EVENTS, rate=eps / 2)
     _ysb_check("paced", counts_p, rows_p, model_p)
     p50p, p99p = _pcts(lat_p)
     # the observe phase's overload part sizes its SLO from these
     YSB_MEASURED.update(device_events_per_s=eps, paced_p99_ms=p99p)
-    launches += win_p.replicas[0].stats.rebuild_kernel_launches
+    k1_p = _launched("ysb paced", fr, win_p.replicas[0])
+    launches += k1_p
     phase("ysb", part="paced", card=card, events=YSB_PACED_EVENTS,
           target_events_per_s=eps / 2, events_per_s=eps_p,
           campaign_windows=len(counts_p), sink_rows=rows_p,
           counts_equal_model=True,
           latency_p50_ms=p50p, latency_p99_ms=p99p,
-          rebuild_launches=win_p.replicas[0].stats.rebuild_kernel_launches)
+          rebuild_launches=k1_p.total())
     # part blocks: the same chain fed by columnar blocks
+    _reset_launches(fr)
     counts_b, rows_b, lat_b, eps_b, win_b, _ = _ysb_run(
         wt, kafka, "cuda", "blocks", YSB_EVENTS, blocks=True)
     _ysb_check("blocks", counts_b, rows_b, model,
                ("the row-fed run", counts))
     p50b, p99b = _pcts(lat_b)
-    launches += win_b.replicas[0].stats.rebuild_kernel_launches
+    k1_b = _launched("ysb blocks", fr, win_b.replicas[0])
+    launches += k1_b
     phase("ysb", part="blocks", card=card, events=YSB_EVENTS,
           block=YSB_BATCH, events_per_s=eps_b,
           campaign_windows=len(counts_b), sink_rows=rows_b,
           counts_equal_model=True,
           counts_equal_rows=True, latency_p50_ms=p50b,
           latency_p99_ms=p99b,
-          rebuild_launches=win_b.replicas[0].stats.rebuild_kernel_launches)
+          rebuild_launches=k1_b.total())
     ysb_host_part(wt, kafka, card, counts_p)
     kafka.MemoryBroker.reset()
     win_part(wt, card)
@@ -3997,12 +4309,12 @@ def eo_columnar_part(torch, wt, card):
     tuples = len(blocks) * BATCH
     ref = _run_graph(wt, "cpu", blocks, HC_KEYS, None)[0]
     rates = {"plain": [], "exactly_once": []}
-    launches, txn_root, eo_graph = 0, None, None
+    launches, txn_root, eo_graph = Counter(), None, None
     for turn in range(2):
         for mode in ("plain", "exactly_once"):
             txn = (_build_dir("txn", f"eo_columnar_{turn}")
                    if mode == "exactly_once" else None)
-            fr.LAUNCHES = 0
+            _reset_launches(fr)
             torch.cuda.synchronize()
             parts, graph, win, wall = _eo_columnar_run(
                 wt, "cuda", _TripleBlocks(wt, blocks, EO_CKPT_EVERY),
@@ -4026,13 +4338,13 @@ def eo_columnar_part(torch, wt, card):
     # killed after the checkpoint at batch 12, before batch 14; restored
     store = _build_dir("ckpt", "eo_columnar_crash")
     txn = _build_dir("txn", "eo_columnar_crash")
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     _, crashed, win_c, _ = _eo_columnar_run(
         wt, "cuda", _TripleBlocks(wt, blocks, EO_CKPT_EVERY, EO_CRASH_AT),
         store, txn, crash=True)
     k1_crash = _launched("exactly_once columnar crash", fr,
                          win_c.replicas[0])
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     t0 = time.perf_counter()
     _, restored, win_r, _ = _eo_columnar_run(
         wt, "cuda", _TripleBlocks(wt, blocks, EO_CKPT_EVERY), store, txn,
@@ -4063,8 +4375,9 @@ def eo_columnar_part(torch, wt, card):
           committed_epochs=epochs, restored_txn=rest,
           restored_run_s=restore_wall,
           checkpoints_crashed_run=crashed._coordinator.completed,
-          rebuild_launches_crashed=k1_crash,
-          rebuild_launches_restored=k1_restored, rebuild_launches=launches)
+          rebuild_launches_crashed=k1_crash.total(),
+          rebuild_launches_restored=k1_restored.total(),
+          rebuild_launches=launches.total())
     return launches
 
 
@@ -4144,28 +4457,30 @@ def eo_kafka_part(torch, wt, card):
     launches."""
     from windflow_tpu_torch import kafka
     from windflow_tpu_torch.checkpoint import CheckpointStore
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
     kafka.MemoryBroker.reset()
     _ysb_fill(kafka, YSB_EVENTS)
     model = _ysb_model(YSB_EVENTS)
     rates = {"plain": [], "exactly_once": []}
-    launches = 0
+    launches = Counter()
     for turn in range(2):
         for mode in ("plain", "exactly_once"):
             out = f"eo_out_{mode}_{turn}"
+            _reset_launches(fr)
             wall, win, _ = _ysb_eo_run(
                 wt, kafka, f"eo_{mode}_{turn}",
                 _build_dir("ckpt", f"eo_kafka_{mode}_{turn}"), out,
                 mode == "exactly_once")
             counts, n_rows = _topic_counts(kafka, out)
             _ysb_check(f"exactly_once kafka {mode}", counts, n_rows, model)
-            k1 = win.replicas[0].stats.rebuild_kernel_launches
-            if k1 == 0:
-                fail(f"exactly_once kafka {mode}: K1 did not run")
-            launches += k1
+            launches += _launched(f"exactly_once kafka {mode}", fr,
+                                  win.replicas[0])
             rates[mode].append(YSB_EVENTS / wall)
     store = _build_dir("ckpt", "eo_kafka_crash")
-    _, win_c, crashed = _ysb_eo_run(wt, kafka, "eo_crash", store,
-                                    "eo_out_crash", True, crash=True)
+    _reset_launches(fr)
+    crashed = _ysb_eo_run(wt, kafka, "eo_crash", store, "eo_out_crash",
+                          True, crash=True)[2]
+    k1_c = _launch_counts(fr)
     at_crash, rows_crash = _topic_counts(kafka, "eo_out_crash")
     if rows_crash != len(at_crash) or any(model[k] != v
                                           for k, v in at_crash.items()):
@@ -4178,6 +4493,7 @@ def eo_kafka_part(torch, wt, card):
         fail("exactly_once kafka: the crashed run left no unfinalized "
              "prepared epoch, or its whole output is already visible")
     cid = CheckpointStore(store).latest()
+    _reset_launches(fr)
     _, win_r, restored = _ysb_eo_run(wt, kafka, "eo_crash", store,
                                      "eo_out_crash", True,
                                      restore_from=store)
@@ -4185,10 +4501,7 @@ def eo_kafka_part(torch, wt, card):
     _ysb_check("exactly_once kafka restored", counts, n_rows, model)
     if b.txn_prepared_epochs(txn_id):
         fail("exactly_once kafka: prepared epochs survive the restore")
-    k1_c = win_c.replicas[0].stats.rebuild_kernel_launches
-    k1_r = win_r.replicas[0].stats.rebuild_kernel_launches
-    if k1_r == 0:
-        fail("exactly_once kafka: K1 did not run in the restored run")
+    k1_r = _launched("exactly_once kafka restored", fr, win_r.replicas[0])
     launches += k1_c + k1_r
     phase("exactly_once", part="kafka", card=card, events=YSB_EVENTS,
           partitions=YSB_PARTITIONS, source_parallelism=YSB_SRC_PAR,
@@ -4201,8 +4514,9 @@ def eo_kafka_part(torch, wt, card):
           restored_from_checkpoint=cid,
           checkpoints_crashed_run=crashed._coordinator.completed,
           restored_txn=_txn_numbers(restored, "ysb_out"),
-          rebuild_launches_crashed=k1_c, rebuild_launches_restored=k1_r,
-          rebuild_launches=launches)
+          rebuild_launches_crashed=k1_c.total(),
+          rebuild_launches_restored=k1_r.total(),
+          rebuild_launches=launches.total())
     kafka.MemoryBroker.reset()
     return launches
 
@@ -4597,10 +4911,10 @@ def observe_native_part(torch, wt, kafka, card):
              f"{native.native_build_error()}")
     model = _ysb_model(YSB_EVENTS)
     eps = {True: [], False: []}
-    launches = 0
+    launches = Counter()
     for i, on in enumerate((True, False, False, True)):
         e0 = native.ENCODE_BATCHES
-        fr.LAUNCHES = 0
+        _reset_launches(fr)
         torch.cuda.synchronize()
         counts, n_rows, _, rate, win, g = _ysb_run(
             wt, kafka, "cuda", f"obs_native{i}", YSB_EVENTS,
@@ -4620,7 +4934,7 @@ def observe_native_part(torch, wt, kafka, card):
     blocks = _blocks(HC_KEYS, seed=7)
     runs, tps = {}, {}
     for kind in ("python", "native", "native", "python"):
-        fr.LAUNCHES = 0
+        _reset_launches(fr)
         torch.cuda.synchronize()
         run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
                          graph_kw={"native_channels": kind == "native"})
@@ -4747,9 +5061,9 @@ def observe_tracing_part(torch, wt, card):
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     blocks = _blocks(HC_KEYS, seed=7)
     ref, tps, win_e2e = None, {"off": [], "on": []}, []
-    launches = 0
+    launches = Counter()
     for traced in (False, True, False, True):
-        fr.LAUNCHES = 0
+        _reset_launches(fr)
         torch.cuda.synchronize()
         run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
                          trace_rate=OBS_TRACE_RATE if traced else None)
@@ -4772,7 +5086,7 @@ def observe_tracing_part(torch, wt, card):
         fail("observe tracing: this torch cannot profile worker threads "
              f"({torch.__version__})")
     from torch.profiler import profile
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     with profile(**kw) as prof:
         run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
@@ -4883,7 +5197,7 @@ def observe_flightrec_part(torch, wt, card):
     launches."""
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     blocks = _blocks(HC_KEYS, seed=7)
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
                      setup=lambda g: g.with_flight_recorder(OBS_RING))
@@ -4903,11 +5217,11 @@ def observe_flightrec_part(torch, wt, card):
     sblocks = _blocks(HC_KEYS, seed=61)
     gold = _rec_results("ffat", _run_stall(
         wt, "cuda", sblocks, _ckpt_dir("obs_stall_g"), False)[0])
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     parts, g, win, fn = _run_stall(wt, "cuda", sblocks,
                                    _ckpt_dir("obs_stall"), True)
-    launches += fr.LAUNCHES
+    launches += _launch_counts(fr)
     sup = g.get_stats()["Supervision"]
     fired = list(g._watchdog.fired) if g._watchdog is not None else []
     if sup["Supervision_restarts"] < 1 or not any(
@@ -4943,7 +5257,7 @@ def observe_monitor_part(torch, wt, card):
     try:
         http_port = srv.serve_http(0)
         blocks = _blocks(HC_KEYS, seed=7)
-        fr.LAUNCHES = 0
+        _reset_launches(fr)
         torch.cuda.synchronize()
         run = _run_graph(wt, "cuda", blocks, HC_KEYS, None, pace_s=0.1,
                          graph_kw={"dashboard": (srv.host, srv.port),
@@ -4996,7 +5310,7 @@ def _overload_run(torch, wt, kafka, name, n_events, rate, slo_ms,
                                breach_hysteresis=breach_hysteresis,
                                shed_dir=shed_dir)
     lat_at = []
-    fr.LAUNCHES = 0
+    _reset_launches(fr)
     torch.cuda.synchronize()
     counts, n_rows, _, eps, win, g = _ysb_run(
         wt, kafka, "cuda", f"obs_{name}", n_events, rate=rate,
@@ -5085,7 +5399,7 @@ def observe_prewarm_part(torch, wt, card):
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     blocks = _blocks(HC_KEYS, seed=7)
     out, ref = {}, None
-    launches = 0
+    launches = Counter()
     for warm in (False, True):
         seen = {}
 
@@ -5093,7 +5407,7 @@ def observe_prewarm_part(torch, wt, card):
             (op,) = [o for o in graph._ops if o.name == "ffat_windows_gpu"]
             seen["k1"] = bool(getattr(op.replicas[0], "_k1_loaded", False))
 
-        fr.LAUNCHES = 0
+        _reset_launches(fr)
         torch.cuda.synchronize()
         run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
                          schema=OBS_SCHEMA, first_hook=hook,
@@ -5133,7 +5447,8 @@ def observe_phase(torch, wt, card):
     launches += observe_prewarm_part(torch, wt, card)
     kafka.MemoryBroker.reset()
     phase("observe", part="total", card=card,
-          wall_s=time.perf_counter() - t0, rebuild_launches=launches)
+          wall_s=time.perf_counter() - t0,
+          rebuild_launches=launches.total())
     return launches
 
 
@@ -5152,52 +5467,70 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+
     card, name = device_phase(torch)
-    build_phase()
-    _, err_checks = kernel_phase(torch, timed=False)
-    hc, hc_launches = main_path_phase(torch, wt, "high_cardinality",
-                                      HC_KEYS, None)
+    build_phase(torch)
+    _, err_checks = kernel_phase(torch, False)
+    # K1's launches by variant, each phase's counted from the runs of its
+    # main path, the counts set to 0 just before each run
+    on_path = Counter()
+    hc, n = main_path_phase(torch, wt, "high_cardinality", HC_KEYS, None)
+    on_path += n
     phase("main_path", **hc)
-    base, base_launches = main_path_phase(torch, wt, "64_keys", 64, 128)
+    base, n = main_path_phase(torch, wt, "64_keys", 64, 128)
+    on_path += n
     phase("main_path", **base)
+    on_path += combine_phase(torch, wt, card)
     # before any torch.profiler use: its tracing slows later FFAT runs
-    fusion_launches = fusion_ffat_phase(torch, wt, card)
+    on_path += fusion_ffat_phase(torch, wt, card)
     _, graph_blocks = graph_gpu_phase(torch, wt, card)
     fusion_ops_phase(torch, wt, card)
     programs_phase(torch, wt, graph_blocks, card)
-    timing, err_timed = kernel_phase(torch, timed=True)
+    timing, err_timed = kernel_phase(torch, True)
     # last: its profiled runs trace hundreds of thousands of launches,
     # after which torch.profiler has been seen to lose K1's records
     smap_blocks = state_phase(torch, wt, card)
     state_programs_phase(torch, wt, smap_blocks, card)
-    dag_launches = dag_phase(torch, wt, card)
-    recovery_launches = recovery_phase(torch, wt, card)
-    delta_launches = delta_phase(torch, wt, card)
-    rescale_launches = rescale_phase(torch, wt, card)
-    supervise_launches = supervise_phase(torch, wt, card)
-    mesh_launches = mesh_phase(torch, wt, card)
-    ysb_launches = ysb_phase(torch, wt, card)
-    eo_launches = exactly_once_phase(torch, wt, card)
-    obs_launches = observe_phase(torch, wt, card)
-    print(json.dumps({"kernels": [{
-        "name": "forest_rebuild",
-        "route": "cuda",
-        "source": "windflow_tpu_torch/kernels/forest_rebuild.cu",
-        "replaces": "windflow_tpu/tpu/pallas_kernels.py:29",
-        "launches": (hc_launches + base_launches + fusion_launches
-                     + dag_launches + recovery_launches
-                     + delta_launches + rescale_launches
-                     + supervise_launches + mesh_launches
-                     + ysb_launches + eo_launches + obs_launches),
-        "max_abs_err": max(err_checks, err_timed),
-        "ms": timing["wrapper_ms"],
-        "device_ms": timing["device_ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": "bytes",
-        "bound_share": timing["bound_share"],
-        "library_ms": None,
-    }]}), flush=True)
+    for run_phase in (dag_phase, recovery_phase, delta_phase, rescale_phase,
+                      supervise_phase, mesh_phase, ysb_phase,
+                      exactly_once_phase, observe_phase):
+        on_path += run_phase(torch, wt, card)
+    variants = {"fieldwise": (fr.Variant(fr.FIELDWISE), tuple(SPECS)),
+                **{n: (v, (n,)) for n, v in _variants(torch).items()
+                   if n in PATH_SHAPE}}
+    kernels = []
+    for vname, (v, specs) in variants.items():
+        launches = on_path[v.tag]
+        if launches <= 0:
+            fail(f"K1's {vname} variant never launched on a main path")
+        K, F, sname = PATH_SHAPE[vname]
+        t = timing[K, F, sname]
+        kernels.append({
+            "name": "forest_rebuild" if vname == "fieldwise"
+            else f"forest_rebuild[{vname}]",
+            "route": "cuda",
+            "source": "windflow_tpu_torch/kernels/forest_rebuild.cu"
+            if vname == "fieldwise"
+            else "windflow_tpu_torch/kernels/forest_rebuild.cuh",
+            "replaces": "windflow_tpu/tpu/pallas_kernels.py:29",
+            "launches": launches,
+            "max_abs_err": max(max(err_checks.get(n, 0.0),
+                                   err_timed.get(n, 0.0)) for n in specs),
+            "ms": t["wrapper_ms"],
+            "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes",
+            "bound_share": t["bound_share"],
+            "library_ms": None,
+            "shape": [K, F],
+        })
+    unknown = set(on_path) - {v.tag for v, _ in variants.values()}
+    if unknown:
+        fail(f"K1 variants {sorted(unknown)} launched on a main path but "
+             "are not in the kernels line")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_combines as tc
 from windflow_tpu.basic import WinType as JWinType
 from windflow_tpu.tpu.batch import BatchTPU
 from windflow_tpu.tpu.ffat_tpu import Ffat_Windows_TPU
@@ -264,6 +265,71 @@ def test_state_carried_from_jax(host_seg):
     trep = _replica("torch", INT_SUM, 1000, 250)
     trep._host_seg = host_seg
     trep.load_state(ffat_state_from_jax(snap, "cpu"))
+    trep.cur_wm = jrep.cur_wm
+    for rep in (jrep, trep):
+        _feed(rep, batches[4:])
+        rep.terminate()
+    _assert_same(jrep, trep)
+
+
+# ---------------------------------------------------------------------------
+# traced combines (torch_combines.py): the port runs the user's torch
+# combine, the JAX package its jnp twin; lifts over (key, value, px)
+# ---------------------------------------------------------------------------
+_TRACED_LIFTS = {
+    "ysb_last": lambda f: {"count": f["value"] * 0 + 1,
+                           "last_ing": f["value"]},
+    "mean_last": lambda f: {"n": f["value"] * 0 + 1, "last": f["value"],
+                            "mean": f["px"]},
+    "argmax_ts": lambda f: {"v": f["px"], "ts": f["value"]},
+    "flags": lambda f: {"f": f["value"] > 90, "n": f["value"]},
+    "wide": lambda f: {f"w{i}": f["value"] * (i + 1) - i
+                       for i in range(tc.WIDE)},
+}
+# float fields held to rtol 1e-5 (the scan's grouping); argmax_ts's v is
+# picked, not computed: exact
+_TRACED_FLOATS = {"mean_last": ("mean",)}
+
+
+def _traced_fns(name):
+    return dict(jax=(_TRACED_LIFTS[name], tc.make(name, jnp)),
+                torch=(_TRACED_LIFTS[name], tc.make(name, torch)))
+
+
+@SEG_MODES
+@pytest.mark.parametrize("name", tc.WINDOWED)
+def test_traced_combine_windows_match_jax(name, host_seg):
+    """Each traced window combine of the card (cross-field, a where, a
+    bool plane, 12 fields, the example's YSB combine) gives the JAX
+    replica's windows on the port's replica."""
+    batches = _stage(5, 6, 64, seed=21, with_px=True)
+    jrep = _replica("jax", _traced_fns(name), 1000, 250)
+    _feed(jrep, batches)
+    jrep.terminate()
+    trep = _replica("torch", _traced_fns(name), 1000, 250)
+    trep._host_seg = host_seg
+    _feed(trep, batches)
+    trep.terminate()
+    assert {k: t.dtype for k, t in trep.trees.items()} == tc.DTYPES[name]
+    _assert_same(jrep, trep, _TRACED_FLOATS.get(name, ()))
+
+
+@SEG_MODES
+@pytest.mark.parametrize("name", ["flags", "wide"])
+def test_traced_state_carried_from_jax(name, host_seg):
+    """``convert.ffat_state_from_jax`` carries a bool plane and a forest of
+    12 fields: the rows after the carry are equal."""
+    batches = _stage(6, 8, 64, seed=23, with_px=True)
+    jrep = _replica("jax", _traced_fns(name), 1000, 250)
+    _feed(jrep, batches[:4])
+    snap = jrep.snapshot_state()["ffat"]
+    jrep.emitter.rows.clear()
+    state = ffat_state_from_jax(snap, "cpu")
+    assert {k: t.dtype for k, t in state["trees"].items()} \
+        == tc.DTYPES[name]
+    trep = _replica("torch", _traced_fns(name), 1000, 250)
+    trep._host_seg = host_seg
+    trep.load_state(state)
     trep.cur_wm = jrep.cur_wm
     for rep in (jrep, trep):
         _feed(rep, batches[4:])

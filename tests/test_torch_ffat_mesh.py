@@ -11,10 +11,12 @@ sum an integer below 2^24), so no grouping of the additions rounds."""
 
 import threading
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import torch_combines as tc
 import windflow_tpu as wj
 import windflow_tpu_torch as wt
 from torch_waits import run_bounded
@@ -198,11 +200,84 @@ def test_mesh_builder_validation():
 
 
 def test_mesh_cuda_refuses_an_arbitrary_combine():
+    """On CUDA the mesh takes any combine K1 can trace (configure no longer
+    refuses a callable); one it cannot trace, here Python control flow on
+    values, is refused for the forest's planes with the operation named
+    (the mesh traces when it first allocates its forest)."""
+    from windflow_tpu_torch.kernels.forest_rebuild import variant
     op = (wt.Ffat_Windows_GPU_Builder(lambda f: f, lambda a, b: a)
           .with_key_by("key").with_tb_windows(800, 200).with_mesh().build())
-    with pytest.raises(wt.WindFlowError, match="fieldwise"):
-        op.configure(wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT_TIME,
-                     torch.device("cuda"))
+    op.configure(wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT_TIME,
+                 torch.device("cuda"))
+    assert variant(op.combine, {"value": torch.float32}).ir is not None
+    bad = (wt.Ffat_Windows_GPU_Builder(
+        lambda f: f, lambda a, b: {"value": a["value"] if a["value"] > 0
+                                   else b["value"]})
+        .with_key_by("key").with_tb_windows(800, 200).with_mesh().build())
+    bad.configure(wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT_TIME,
+                  torch.device("cuda"))
+    with pytest.raises(wt.WindFlowError, match=r"bool\(\).*a\['value'\]"):
+        variant(bad.combine, {"value": torch.float32})
+
+
+def _traced_lift(name, pkg):
+    """The lift of a traced combine over the source's (key, float value)."""
+    if pkg is wj:
+        i32 = lambda x: x.astype(jnp.int32)  # noqa: E731
+    else:
+        i32 = lambda x: x.to(torch.int32)  # noqa: E731
+    v = lambda f: f["value"]  # noqa: E731
+    return {
+        "ysb_last": lambda f: {"count": i32(v(f) * 0 + 1),
+                               "last_ing": i32(v(f))},
+        "mean_last": lambda f: {"n": i32(v(f) * 0 + 1), "last": i32(v(f)),
+                                "mean": v(f)},
+        "argmax_ts": lambda f: {"v": v(f), "ts": i32(v(f)) * 3},
+        "flags": lambda f: {"f": v(f) > 200, "n": i32(v(f))},
+        "wide": lambda f: {f"w{i}": i32(v(f)) * (i + 1) - i
+                           for i in range(tc.WIDE)},
+    }[name]
+
+
+@pytest.mark.parametrize("name", tc.WINDOWED)
+def test_mesh_traced_combine_matches_jax(name):
+    """The traced combines (torch_combines.py; the JAX mesh runs the jnp
+    twin) through the (4, 2) mesh: every window row equal, ints and
+    bools exactly, mean_last's float mean within rtol 1e-6 (the data
+    replicas' deltas merge in the same butterfly order, and every value is
+    an integer, so no grouping rounds)."""
+    rows = {}
+    for pkg in (wj, wt):
+        got = {}
+
+        def sink(r, got=got):
+            if r is not None and r["valid"]:
+                got[(int(r["key"]), int(r["wid"]))] = {
+                    k: r[k] for k in tc.DTYPES[name]}
+
+        xp = jnp if pkg is wj else torch
+        B = Ffat_Windows_TPU_Builder if pkg is wj \
+            else wt.Ffat_Windows_GPU_Builder
+        op = (B(_traced_lift(name, pkg), tc.make(name, xp))
+              .with_key_by("key").with_tb_windows(WIN_US, SLIDE_US)
+              .with_key_capacity(N_KEYS).with_mesh(mesh_shape=(4, 2))
+              .build())
+        kw = {} if pkg is wj else {"device": "cpu"}
+        g = pkg.PipeGraph("ffat_mesh", pkg.ExecutionMode.DEFAULT,
+                          pkg.TimePolicy.EVENT_TIME, **kw)
+        g.add_source(pkg.Source_Builder(_make_src(N_KEYS, 120))
+                     .with_output_batch_size(64).build()
+                     ).add(op).add_sink(pkg.Sink_Builder(sink).build())
+        run_bounded(g)
+        rows[pkg] = got
+    assert rows[wt].keys() == rows[wj].keys() and rows[wt]
+    for k, jr in rows[wj].items():
+        for f, jv in jr.items():
+            if name == "mean_last" and f == "mean":
+                assert float(rows[wt][k][f]) == pytest.approx(float(jv),
+                                                              rel=1e-6)
+            else:
+                assert rows[wt][k][f] == jv, (k, f)
 
 
 def test_mesh_epoch_timestamps_rebase():

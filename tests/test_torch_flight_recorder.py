@@ -205,33 +205,48 @@ def test_checkpoint_spans_in_trace(tmp_path):
 def test_kernel_load_is_the_compile_event(monkeypatch):
     """K1's first use on a replica is its compile event (an ``nvcc`` build
     or a cached load, timed), every later use a cache hit; the span lands
-    in the calling thread's ring."""
+    in the calling thread's ring. The event names the replica's variant:
+    the fieldwise library, or its traced combine's own."""
+    import torch
+
     from windflow_tpu_torch.gpu import ffat_gpu
     from windflow_tpu_torch.kernels import build
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
     from windflow_tpu_torch.monitoring.flightrec import set_thread_recorder
 
-    monkeypatch.setattr(build, "load_library", lambda name: None)
+    traced = lambda a, b: {"value": b["value"]}  # noqa: E731
+    tag = fr.variant(traced, {"value": torch.int32}).tag
+    monkeypatch.setattr(fr.Variant, "load", lambda self: None)
     monkeypatch.setitem(build.BUILD_INFO, "forest_rebuild",
                         {"seconds": 12.5, "log": ""})
+    monkeypatch.setitem(build.BUILD_INFO, f"forest_rebuild-{tag}",
+                        {"seconds": 0.0, "log": ""})
+
+    class Op:
+        def __init__(self, combine):
+            self.combine = combine
 
     class Rep:
-        stats = StatsRecord("ffat_gpu", 0)
+        def __init__(self, combine):
+            self.stats = StatsRecord("ffat_gpu", 0)
+            self.op = Op(combine)
 
-    rep = Rep()
-    rec = FlightRecorder(16, "p", "t")
-    set_thread_recorder(rec)
-    try:
-        ffat_gpu.note_k1_use(rep)
-        ffat_gpu.note_k1_use(rep)
-        ffat_gpu.note_k1_use(rep)
-    finally:
-        set_thread_recorder(None)
-    d = rep.stats.to_dict()
-    assert (d["Compile_count"], d["Compile_cache_hits"]) == (1, 2)
-    assert d["Compile_last_signature"] == "forest_rebuild:nvcc"
-    assert d["Compile_usec_total"] == d["Compile_last_usec"] >= 0
-    ev = [e for e in rec.snapshot() if e[1] == "compile"]
-    assert len(ev) == 1 and ev[0][3]["op"] == "forest_rebuild"
+    for combine, sig in ((wt.fieldwise(value="sum"), "forest_rebuild:nvcc"),
+                         (traced, f"forest_rebuild-{tag}:cached")):
+        rep = Rep(combine)
+        rec = FlightRecorder(16, "p", "t")
+        set_thread_recorder(rec)
+        try:
+            for _ in range(3):
+                ffat_gpu.note_k1_use(rep, {"value": torch.int32})
+        finally:
+            set_thread_recorder(None)
+        d = rep.stats.to_dict()
+        assert (d["Compile_count"], d["Compile_cache_hits"]) == (1, 2)
+        assert d["Compile_last_signature"] == sig
+        assert d["Compile_usec_total"] == d["Compile_last_usec"] >= 0
+        ev = [e for e in rec.snapshot() if e[1] == "compile"]
+        assert len(ev) == 1 and ev[0][3]["op"] == sig.split(":")[0]
 
 
 def test_compile_stats_exported_by_device_pipeline():

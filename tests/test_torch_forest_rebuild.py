@@ -4,7 +4,11 @@ held against the JAX package's Pallas kernel, run in interpret mode as
 seed; stale internal nodes are garbage and must be fully recomputed.
 Tolerance: exact equality on every valid node and on the validity plane
 (the pairing of the fold is the same, so even float sums agree bit for
-bit)."""
+bit). The traced combines of ``torch_combines.py`` (run by the port as the
+user's torch combine, by JAX as its ``jnp`` twin) are exact too on int and
+bool planes and bitwise on float planes, except ``mean_last``'s mean,
+where a product meets a sum: XLA's CPU backend may contract that into an
+FMA, so it is held to ``rtol=1e-6``."""
 
 import numpy as np
 import pytest
@@ -12,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_combines as tc
 from windflow_tpu.tpu.pallas_kernels import make_forest_rebuild
 from windflow_tpu_torch import WindFlowError, fieldwise
 from windflow_tpu_torch.kernels import forest_rebuild as fr
@@ -118,10 +123,12 @@ def test_fieldwise_rejects_unknown_ops():
 # version bit for bit (values as int32 bit patterns, and validity).
 
 def _pick(comb, l, r, vl, vr):
-    """node = combine(l, r) when both are valid, else the valid one."""
+    """node = combine(l, r) when both are valid, else the valid one, in
+    the plane's dtype (the plain version's store casts a promoted
+    ``where`` back)."""
     m = comb(l, r)
     return {k: torch.where(vl & vr, m[k], torch.where(vl, l[k], r[k]))
-            for k in l}
+            .to(l[k].dtype) for k in l}
 
 
 def _fold_chunks(comb, v, vb, W, S, E, c, dst, dstv):
@@ -275,9 +282,14 @@ def _mixed_forest(K, F, n_fields, seed):
 
 
 def _same(a, av, b, bv):
-    return torch.equal(av, bv) and all(
-        torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
-        for k in a)
+    """Equal validity and planes: ints and bools bit for bit, floats bit
+    for bit or both NaN (a NaN's payload follows torch's CPU path)."""
+    def eq(x, y):
+        if x.dtype is torch.float32:
+            return bool(((x.view(torch.int32) == y.view(torch.int32))
+                         | (x.isnan() & y.isnan())).all())
+        return torch.equal(x, y)
+    return torch.equal(av, bv) and all(eq(a[k], b[k]) for k in a)
 
 
 _PLAN_CASES = [(F, K, nf, al, wmf)
@@ -374,20 +386,25 @@ def _meta(K, NN, dtype=torch.int32):
     return torch.empty(K, NN, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("case", ["callable", "nine_fields", "no_fields",
+@pytest.mark.parametrize("case", ["untraceable_callable",
+                                  "unsupported_op", "no_fields",
                                   "noncontig_plane", "noncontig_valid",
                                   "index_overflow", "int64_plane",
                                   "not_pow2", "no_op_for_field",
-                                  "no_rows"])
+                                  "no_rows", "too_many_fields"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     comb = fieldwise(f0="sum")
     trees = {"f0": _meta(4, 64)}
     tvalid = _meta(4, 64, torch.bool)
-    if case == "callable":
-        comb = lambda a, b: {k: a[k] + b[k] for k in a}  # noqa: E731
-    elif case == "nine_fields":
-        trees = {f"f{i}": _meta(4, 64) for i in range(9)}
-        comb = fieldwise(**{f"f{i}": "sum" for i in range(9)})
+    if case == "untraceable_callable":  # Python control flow on values
+        comb = lambda a, b: {  # noqa: E731
+            k: a[k] if a[k] > b[k] else b[k] for k in a}
+    elif case == "unsupported_op":
+        comb = lambda a, b: {k: torch.sin(a[k]) for k in a}  # noqa: E731
+    elif case == "too_many_fields":
+        n = fr.GEN_MAX_FIELDS + 1
+        trees = {f"f{i}": _meta(4, 64) for i in range(n)}
+        comb = fieldwise(**{f"f{i}": "sum" for i in range(n)})
     elif case == "no_fields":
         trees = {}
     elif case == "noncontig_plane":
@@ -419,3 +436,143 @@ def test_wrapper_takes_the_largest_indexable_forest():
         fr.check_forest({"f0": _meta(1 << 20, 1 << 11)},
                         _meta(1 << 20, 1 << 11, torch.bool),
                         fieldwise(f0="sum"))
+
+
+# ---------------------------------------------------------------------------
+# Traced combines (torch_combines.py): the port's plain version and the
+# launch-plan emulation against the Pallas kernel with the jnp twin, and
+# the emulation of every regime against the plain version.
+
+def _typed_forest(name, K, F, seed):
+    """Random planes of the combine's dtypes: counts (``n``) positive,
+    means in [0, 100), other ints over the full int32 range (values above
+    2^24 included), floats normal; stale internal nodes and validity."""
+    rng = np.random.default_rng(seed)
+    planes = {}
+    for f, dt in tc.DTYPES[name].items():
+        if dt is torch.bool:
+            p = rng.random((K, 2 * F)) < 0.5
+        elif dt is torch.int32:
+            lo, hi = (1, 100) if f == "n" else (-2**31, 2**31)
+            p = rng.integers(lo, hi, (K, 2 * F), dtype=np.int64) \
+                .astype(np.int32)
+        elif f == "mean":
+            p = (100 * rng.random((K, 2 * F))).astype(np.float32)
+        else:
+            p = rng.standard_normal((K, 2 * F)).astype(np.float32)
+        planes[f] = p
+    valid = rng.random((K, 2 * F)) < 0.6
+    return planes, valid
+
+
+def _jax_rebuild_with(planes, valid, jcomb, F):
+    K = valid.shape[0]
+    pad = max(0, 8 - K)
+
+    def padded(a):
+        return np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+
+    rebuild = make_forest_rebuild(jcomb, list(planes), F, interpret=True)
+    trees, tvalid = rebuild({n: jnp.asarray(padded(p))
+                             for n, p in planes.items()},
+                            jnp.asarray(padded(valid)))
+    return ({n: np.asarray(t)[:K] for n, t in trees.items()},
+            np.asarray(tvalid)[:K])
+
+
+def _holds(name, f, got, exp):
+    if got.dtype == np.float32 and f in tc.CONTRACTED.get(name, ()):
+        np.testing.assert_allclose(got, exp, rtol=1e-6)
+    elif got.dtype == np.float32:
+        same = (got.view(np.int32) == exp.view(np.int32)) \
+            | (np.isnan(got) & np.isnan(exp))
+        assert same.all(), f
+    else:
+        assert (got == exp).all(), f
+
+
+@pytest.mark.parametrize("name", [n for n in tc.NAMES if n != "scaled"])
+@pytest.mark.parametrize("F,K", [(8, 8), (32, 16), (1024, 8)])
+def test_traced_combine_matches_pallas(name, F, K):
+    """``scaled`` is held to the plain version only (below and on the
+    card): XLA turns a division by a constant into a product with its
+    reciprocal (as torch does on CUDA, not on the CPU) and contracts the
+    sum of products into an FMA."""
+    planes, valid = _typed_forest(name, K, F, seed=F * 7 + K)
+    exp, expv = _jax_rebuild_with(planes, valid, tc.make(name, jnp), F)
+    live = expv[:, 1:]
+    comb = tc.make(name, torch)
+    n_bool = sum(dt is torch.bool for dt in tc.DTYPES[name].values())
+    plan = fr.launch_plan(K, F, len(planes), bool_planes=n_bool)
+    for how in ("plain", "plan"):
+        trees = {n: torch.from_numpy(p.copy()) for n, p in planes.items()}
+        tvalid = torch.from_numpy(valid.copy())
+        if how == "plain":
+            forest_rebuild_ref(trees, tvalid, comb)
+        else:
+            _emulate_plan(plan, trees, tvalid, comb)
+        assert (tvalid.numpy()[:, 1:] == expv[:, 1:]).all(), how
+        for n, e in exp.items():
+            got = trees[n].numpy()
+            assert got.dtype == e.dtype
+            _holds(name, n, got[:, 1:][live], e[:, 1:][live])
+            assert (got[:, F:] == planes[n][:, F:]).all()  # leaves kept
+
+
+_TRACED_PLAN_CASES = [(name, F, K) for name in tc.NAMES
+                      for F in (2, 16, 64, 512, 2048, 65536)
+                      for K in (1, 7) if K * F <= 1 << 17]
+
+
+@pytest.mark.parametrize("name,F,K", _TRACED_PLAN_CASES,
+                         ids=[f"{n}-F{F}-K{K}"
+                              for n, F, K in _TRACED_PLAN_CASES])
+def test_launch_plan_emulation_matches_plain_traced(name, F, K):
+    """Every regime a traced variant takes (warp and cta for 32-bit
+    planes within their register limits, chunk for bool planes and wide
+    forests, several chunk passes for long rows), folding the user's
+    combine, equals the plain version bit for bit."""
+    planes, valid = _typed_forest(name, K, F, seed=F * 13 + K)
+    comb = tc.make(name, torch)
+    n_bool = sum(dt is torch.bool for dt in tc.DTYPES[name].values())
+    plan = fr.launch_plan(K, F, len(planes), bool_planes=n_bool)
+    if n_bool or len(planes) > fr.CTA_MAX_FIELDS:
+        assert all(ps.regime == "chunk" for ps in plan)
+    et = {n: torch.from_numpy(p.copy()) for n, p in planes.items()}
+    ev = torch.from_numpy(valid.copy())
+    rt = {n: torch.from_numpy(p.copy()) for n, p in planes.items()}
+    rv = torch.from_numpy(valid.copy())
+    _emulate_plan(plan, et, ev, comb)
+    forest_rebuild_ref(rt, rv, comb)
+    assert _same(et, ev, rt, rv), plan
+
+
+@pytest.mark.parametrize("nf,n_bool", [(1, 1), (2, 1), (3, 0), (12, 0),
+                                       (12, 3), (32, 0), (64, 64)])
+def test_launch_plan_geometry_of_traced_variants(nf, n_bool):
+    """Bool planes and more than 8 fields: the bytes per node are the sum
+    over the planes, a bool plane or a wide forest goes to the chunk
+    regime, and every level is folded once within shared memory."""
+    nb = 4 * (nf - n_bool) + n_bool + 1
+    for lf in range(1, 18):
+        F = 1 << lf
+        for K in (1, 64, 16384):
+            if K * 2 * F >= 2**31 - 1:
+                continue
+            plan = fr.launch_plan(K, F, nf, True, bool_planes=n_bool)
+            W, levels = F, 0
+            for ps in plan:
+                assert ps.W == W and W % ps.S == 0
+                assert ps.smem <= fr.SMEM_MAX
+                if n_bool or nf > fr.CTA_MAX_FIELDS:
+                    assert ps.regime == "chunk"
+                if ps.regime == "chunk":
+                    assert ps.smem == ps.rows * 2 * ps.S * nb
+                elif ps.regime == "warp":
+                    assert ps.E * nf <= 64
+                    assert ps.smem == fr.WARP_THREADS * ps.E * nb
+                else:
+                    assert ps.smem == 3 * ps.rows * F * nb + 16
+                levels += ps.S.bit_length() - 1
+                W //= ps.S
+            assert W == 1 and levels == lf

@@ -459,12 +459,20 @@ def _ysb_fill(pkg):
                   key=i % 8)
 
 
-def _ysb_graph(pkg, ing_rows, sink_op, store=None, hook=None):
-    """Kafka rows -> views -> ad->campaign -> 1 s windows -> ``sink_op``;
-    with ``store``, checkpointed there; ``hook(shipper)`` runs after each
-    event's push (checkpoint requests, an injected crash). A replica's
-    watermark is the lowest last ts of its partitions (a restored replica
-    resumes its partitions at offsets a message apart)."""
+def _ysb_last(a, b_):
+    """examples/ysb.py's window combine: counts add, the later side's
+    ingest stamp is kept (one function serves both packages)."""
+    return {"count": a["count"] + b_["count"], "last_ing": b_["last_ing"]}
+
+
+def _ysb_graph(pkg, ing_rows, sink_op, store=None, hook=None, src_par=2):
+    """Kafka rows -> views -> ad->campaign -> 1 s windows -> ``sink_op``,
+    the window with the example's own combine; with ``store``,
+    checkpointed there; ``hook(shipper)`` runs after each event's push
+    (checkpoint requests, an injected crash). ``src_par`` source replicas
+    share the 8 partitions; a replica's watermark is the lowest last ts
+    of its partitions (a restored replica resumes its partitions at
+    offsets a message apart)."""
     last = {}  # replica -> {partition: its last ts}
 
     def deser(msg, shipper, ctx):
@@ -476,7 +484,7 @@ def _ysb_graph(pkg, ing_rows, sink_op, store=None, hook=None):
              "ing": ing_rows[p["ts"] // TS_STEP_US]}, p["ts"])
         mine = last.setdefault(ctx.get_replica_index(), {})
         mine[msg.partition] = p["ts"]
-        if len(mine) == 4:  # 8 partitions over 2 replicas
+        if len(mine) == 8 // src_par:  # all of the replica's partitions
             shipper.set_next_watermark(
                 max(shipper.current_watermark, min(mine.values())))
         if hook is not None:
@@ -487,27 +495,22 @@ def _ysb_graph(pkg, ing_rows, sink_op, store=None, hook=None):
     if store is not None:
         g.with_checkpointing(store_dir=store)
     src = (KAFKA[pkg].Kafka_Source_Builder(deser).with_brokers("memory://tysb")
-           .with_topics("ad_events").with_idleness(100).with_parallelism(2)
+           .with_topics("ad_events").with_idleness(100)
+           .with_parallelism(src_par)
            .with_output_batch_size(4096).with_name("ksrc").build())
     if pkg is wt:
         F, M, W = wt.Filter_GPU_Builder, wt.Map_GPU_Builder, \
             wt.Ffat_Windows_GPU_Builder
-        combine = wt.fieldwise(count="sum", last_ing="max")
     else:
-        import jax.numpy as jnp
         from windflow_tpu.tpu import (Ffat_Windows_TPU_Builder,
                                       Filter_TPU_Builder, Map_TPU_Builder)
         F, M, W = Filter_TPU_Builder, Map_TPU_Builder, \
             Ffat_Windows_TPU_Builder
-
-        def combine(a, b_):
-            return {"count": a["count"] + b_["count"],
-                    "last_ing": jnp.maximum(a["last_ing"], b_["last_ing"])}
     views = F(lambda f: f["event_type"] == 0).with_name("views").build()
     project = M(lambda f: {"campaign": f["ad_id"] // ADS_PER_CAMPAIGN,
                            "one": f["event_type"] * 0 + 1,
                            "ing": f["ing"]}).with_name("project").build()
-    win = (W(lambda f: {"count": f["one"], "last_ing": f["ing"]}, combine)
+    win = (W(lambda f: {"count": f["one"], "last_ing": f["ing"]}, _ysb_last)
            .with_key_by("campaign").with_tb_windows(YSB_WIN_US, YSB_WIN_US)
            .with_num_win_per_batch(32).with_key_capacity(N_CAMPAIGNS)
            .with_name("win").build())
@@ -515,7 +518,7 @@ def _ysb_graph(pkg, ing_rows, sink_op, store=None, hook=None):
     return g
 
 
-def _ysb(pkg, ing_rows):
+def _ysb(pkg, ing_rows, src_par=2):
     _ysb_fill(pkg)
     res = {}
 
@@ -530,29 +533,56 @@ def _ysb(pkg, ing_rows):
             res[(c, w)] = (n, li)
 
     run_bounded(_ysb_graph(pkg, ing_rows, pkg.Sink_Builder(sink)
-                           .with_columns().build()))
+                           .with_columns().build(), src_par=src_par))
     return res
 
 
 def _ysb_model(ing):
-    model = {}
+    """(campaign, window) -> (views, the stamp of its last view in event
+    order) and -> the set of its views' stamps."""
+    model, stamps = {}, {}
     for i in range(0, YSB_EVENTS, 3):
         c = (i % (N_CAMPAIGNS * ADS_PER_CAMPAIGN)) // ADS_PER_CAMPAIGN
         w = (i * TS_STEP_US) // YSB_WIN_US
-        n, li = model.get((c, w), (0, 0))
-        model[(c, w)] = (n + 1, max(li, int(ing[i])))
-    return model
+        n, _ = model.get((c, w), (0, 0))
+        model[(c, w)] = (n + 1, int(ing[i]))
+        stamps.setdefault((c, w), set()).add(int(ing[i]))
+    return model, stamps
+
+
+def _holds_counts_and_stamps(rows, ing):
+    """With two source replicas which view of a window arrives last is a
+    race: the counts equal the model's, and each ``last_ing`` is an
+    ingest stamp of that (campaign, window)'s views."""
+    model, stamps = _ysb_model(ing)
+    assert {k: n for k, (n, _) in rows.items()} \
+        == {k: n for k, (n, _) in model.items()}
+    assert all(li in stamps[k] for k, (_, li) in rows.items())
 
 
 def test_ysb_counts_match_jax_and_model():
-    """Per-(campaign, window) counts equal the closed-form model of
-    ``examples/ysb.py`` and the JAX package's device chain; ``last_ing``
-    (the max ingest stamp, the port's fieldwise twin of the example's
-    latest-ingest combine) equals the model's max."""
+    """Two source replicas: per-(campaign, window) counts equal the
+    closed-form model of ``examples/ysb.py`` and the JAX package's device
+    chain, both running the example's own combine; each ``last_ing`` is a
+    stamp of the window's views."""
     ing = np.random.default_rng(5).integers(0, 1 << 30, YSB_EVENTS)
     got = _ysb(wt, ing)
     ref = _ysb(wj, ing)
-    assert got == ref == _ysb_model(ing)
+    assert {k: n for k, (n, _) in got.items()} \
+        == {k: n for k, (n, _) in ref.items()}
+    _holds_counts_and_stamps(got, ing)
+    _holds_counts_and_stamps(ref, ing)
+
+
+def test_ysb_last_ing_matches_jax_and_model_with_one_source_replica():
+    """One source replica reads the 8 partitions round-robin, so views
+    arrive in event order: each window's ``last_ing`` (the example's
+    ``b["last_ing"]``) is its last view's stamp, exactly, in the port and
+    in the JAX package."""
+    ing = np.random.default_rng(8).integers(0, 1 << 30, YSB_EVENTS)
+    got = _ysb(wt, ing, src_par=1)
+    ref = _ysb(wj, ing, src_par=1)
+    assert got == ref == _ysb_model(ing)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -590,9 +620,9 @@ def _requests_every(n_events):
 
 def test_ysb_exactly_once_kafka_sink_matches_jax_and_model(tmp_path):
     """Each (campaign, window) reaches the output topic exactly once, with
-    the model's count and latest ingest stamp, in both packages."""
+    the model's count and an ingest stamp of its views, in both
+    packages."""
     ing = np.random.default_rng(6).integers(0, 1 << 30, YSB_EVENTS)
-    model = _ysb_model(ing)
     got = {}
     for pkg in (wt, wj):
         _ysb_fill(pkg)
@@ -604,7 +634,7 @@ def test_ysb_exactly_once_kafka_sink_matches_jax_and_model(tmp_path):
         assert len(rows) == len(set((c, w) for c, w, _, _ in rows))
         got[pkg] = {(c, w): (n, li) for c, w, n, li in rows}
         assert g._coordinator.completed >= 1
-    assert got[wt] == got[wj] == model
+        _holds_counts_and_stamps(got[pkg], ing)
 
 
 def test_ysb_exactly_once_kill_after_first_epoch_and_restore(tmp_path):
@@ -613,7 +643,7 @@ def test_ysb_exactly_once_kill_after_first_epoch_and_restore(tmp_path):
     only finalized epochs' windows, none twice; after the restore it holds
     every (campaign, window) once, equal to the model."""
     ing = np.random.default_rng(7).integers(0, 1 << 30, YSB_EVENTS)
-    model = _ysb_model(ing)
+    model, stamps = _ysb_model(ing)
     _ysb_fill(wt)
     store = str(tmp_path / "store")
     request = _requests_every(2000)
@@ -636,9 +666,10 @@ def test_ysb_exactly_once_kill_after_first_epoch_and_restore(tmp_path):
                                hook=hook))
     at_crash = _topic_rows(wt)
     assert len(at_crash) == len(set((c, w) for c, w, _, _ in at_crash))
-    assert all(model[(c, w)] == (n, li) for c, w, n, li in at_crash)
+    assert all(model[(c, w)][0] == n and li in stamps[(c, w)]
+               for c, w, n, li in at_crash)
     g2 = _ysb_graph(wt, ing, _eo_kafka_sink(wt), store=store)
     run_bounded(g2, restore_from=store)
     rows = _topic_rows(wt)
     assert len(rows) == len(model)
-    assert {(c, w): (n, li) for c, w, n, li in rows} == model
+    _holds_counts_and_stamps({(c, w): (n, li) for c, w, n, li in rows}, ing)

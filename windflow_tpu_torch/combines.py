@@ -1,12 +1,13 @@
 """Field-wise combines for the FFAT window operator.
 
-The JAX package's Pallas kernel inlines any ``jnp`` combine; a CUDA C++
-kernel cannot take a Python callable. ``fieldwise(pq="sum", q="sum")``
-returns a ``Fieldwise`` combine: called on two dicts of tensors it is the
-torch combine the segmented scan, the leaf scatter and the window query
-use, and its ``ops`` carry the per-field op codes the forest-rebuild
-kernel folds with. An arbitrary torch callable still works on
-``device="cpu"``; on CUDA the builder refuses it (see ROADMAP.md).
+``fieldwise(pq="sum", q="sum")`` returns a ``Fieldwise`` combine: called
+on two dicts of tensors it is the torch combine the segmented scan, the
+leaf scatter and the window query use, and its ``ops`` carry the
+per-field op codes of the forest-rebuild kernel's fieldwise library
+(``kernels/forest_rebuild.cu``, up to 8 int32 / float32 fields). Any
+other torch combine works too, as the JAX package's ``jnp`` combines do:
+on a card the kernel traces and compiles it (``kernels/combine_trace.py``),
+and a ``Fieldwise`` over bool planes or more fields goes the same way.
 """
 
 from __future__ import annotations

@@ -201,7 +201,11 @@ class Reduce_GPU_Builder(_GPUBuilder, _MeshBuilderMixin):
 class Ffat_Windows_GPU_Builder(_GPUBuilder):
     """``Ffat_Windows_GPU_Builder(lift, combine)``: ``lift`` maps a dict of
     batch columns (torch tensors) to a dict of lifted columns; ``combine``
-    is ``combines.fieldwise(...)`` (any torch callable on ``cpu``)."""
+    is any torch combine of two such dicts (``a`` the earlier side), as in
+    the JAX package. On a card the forest rebuild (K1) runs it compiled:
+    ``combines.fieldwise(...)`` in the fieldwise library, any other
+    combine traced (``kernels/combine_trace.py`` lists what it takes;
+    the run fails before its first commit on what it refuses)."""
 
     _default_name = "ffat_windows_gpu"
 

@@ -13,7 +13,9 @@ The port of ``windflow_tpu/tpu/ffat_tpu.py`` (reference: WindFlow's
 - The DEVICE plane is eager torch on the operator's device: lift ->
   segmented scan -> leaf scatter-combine -> forest level rebuild -> window
   range queries -> leaf eviction. The rebuild is the hand-written kernel
-  ``kernels/forest_rebuild.cu`` on a CUDA card (every rebuild, no gate)
+  K1 (``kernels/forest_rebuild.cuh``: the fieldwise library, or the
+  user combine traced and compiled into a variant of its own) on a CUDA
+  card (every rebuild, no gate)
   and its plain version on the CPU; the other stages are torch ops
   (the Hillis-Steele scan of ``gpu/scan.py`` calling the user combine,
   ``index_put_`` scatters, a vectorized ``LOGQ``-step tree walk).
@@ -49,8 +51,9 @@ import torch
 from ..basic import OpType, RoutingMode, WinType, WindFlowError
 from ..checkpoint import delta as ckpt_delta
 from ..kernels.forest_rebuild import forest_rebuild
+from ..kernels.forest_rebuild import variant as forest_variant
 from ..pytree import tree_leaves
-from .batch import BatchGPU, to_device
+from .batch import BatchGPU, to_device, zero_fields
 from .keymap import KeySlotMap, group_positions
 from .ops_gpu import GPUOperatorBase, GPUReplicaBase, op_batch_keys_np
 from .scan import segmented_scan
@@ -139,15 +142,6 @@ class Ffat_Windows_GPU(GPUOperatorBase):
         self.num_win_per_batch = max(1, num_win_per_batch)
         self.pane_len = math.gcd(win_len, slide_len)
 
-    def configure(self, execution_mode, time_policy, device) -> None:
-        if device.type == "cuda" and not hasattr(self.combine, "op_code"):
-            raise WindFlowError(
-                f"{self.name}: on CUDA the forest-rebuild kernel folds "
-                "fieldwise(...) combines only (sum/min/max per field); an "
-                "arbitrary torch combine runs on device='cpu' — arbitrary "
-                "combines in the kernel are not yet ported")
-        super().configure(execution_mode, time_policy, device)
-
     @property
     def fusion_role(self) -> Optional[str]:
         """``"window_terminator"``: the window op may END a fused device
@@ -161,22 +155,35 @@ class Ffat_Windows_GPU(GPUOperatorBase):
                          for i in range(self.parallelism)]
 
 
-def note_k1_use(replica) -> None:
+def note_k1_use(replica, dtypes: Dict[str, torch.dtype]) -> None:
     """Compile attribution of K1 (``monitoring/flightrec.note_kernel_load``):
-    a replica's first use builds or loads the library and records that as
-    its compile event; every later use is a cache hit."""
+    a replica's first use builds or loads the library of its variant (the
+    fieldwise one, or its traced combine's over the planes ``dtypes``) and
+    records that as its compile event, under the variant's library name;
+    every later use is a cache hit."""
     st = replica.stats
     if getattr(replica, "_k1_loaded", False):
         st.compile_cache_hits += 1
         return
-    from ..kernels.build import BUILD_INFO, load_library
+    from ..kernels.build import BUILD_INFO
     from ..monitoring.flightrec import note_kernel_load
+    v = forest_variant(replica.op.combine, dtypes)
     t0 = time.perf_counter()
-    load_library("forest_rebuild")
+    v.load()
     us = (time.perf_counter() - t0) * 1e6
-    built = BUILD_INFO.get("forest_rebuild", {}).get("seconds", 0.0) > 0
-    note_kernel_load(st, "forest_rebuild", us, built)
+    built = BUILD_INFO.get(v.library, {}).get("seconds", 0.0) > 0
+    note_kernel_load(st, v.library, us, built)
     replica._k1_loaded = True
+
+
+def lift_dtypes(lift: Callable, fields: Dict[str, torch.Tensor],
+                device: torch.device, name: str) -> Dict[str, torch.dtype]:
+    """The forest's plane dtypes: the lift run on a one-row slice."""
+    out = lift({k: v[:1] for k, v in fields.items()})
+    if not isinstance(out, dict):
+        raise WindFlowError(f"{name}: lift must return a dict of columns")
+    return {k: v.dtype
+            for k, v in broadcast_scalar_fields(out, 1, device).items()}
 
 
 class FfatGPUReplica(GPUReplicaBase):
@@ -339,20 +346,31 @@ class FfatGPUReplica(GPUReplicaBase):
 
     def _rebuild(self) -> None:
         if self.device.type == "cuda":
-            note_k1_use(self)
+            note_k1_use(self, {k: t.dtype for k, t in self.trees.items()})
         forest_rebuild(self.trees, self.tvalid, self.op.combine)
         if self.device.type == "cuda":
             self.stats.rebuild_kernel_launches += 1
 
     def prewarm(self, caps) -> Optional[int]:
         """``PipeGraph.with_prewarm``: build or load the forest-rebuild
-        kernel's library (K1) before the stream starts, so batch 0 pays
-        neither ``nvcc`` nor the load. The forest's shape follows the
+        kernel's library (K1) of this replica's variant before the stream
+        starts, so batch 0 pays neither ``nvcc`` nor the load. The
+        variant follows the lift's dtypes: without a declared schema the
+        lift cannot run on a zero row, and the replica is skipped
+        (``prewarm_skip`` says why). The forest's shape follows the
         stream's key cardinality, so no capacity bucket is run. 1 (one
         library) on a card, 0 on the CPU (the plain version needs none)."""
         if self.device.type != "cuda":
             return 0
-        note_k1_use(self)
+        sch = self._prewarm_schema()
+        if sch is None:
+            self.prewarm_skip = ("K1's variant follows the lift's dtypes; "
+                                 "declare the schema (with_schema) to "
+                                 "build it before batch 0")
+            return None
+        note_k1_use(self, lift_dtypes(self._lift_fn(),
+                                      zero_fields(sch, 1, self.device),
+                                      self.device, self.op.name))
         return 1
 
     def _ingest(self, fields, seg) -> None:
@@ -487,19 +505,18 @@ class FfatGPUReplica(GPUReplicaBase):
         slice of the first batch."""
         if self.trees is not None:
             return
-        one = {k: v[:1] for k, v in sample_fields.items()}
-        out = self._lift_fn()(one)
-        if not isinstance(out, dict):
-            raise WindFlowError(f"{self.op.name}: lift must return a dict "
-                                "of columns")
-        vals = broadcast_scalar_fields(out, 1, self.device)
+        dtypes = lift_dtypes(self._lift_fn(), sample_fields, self.device,
+                             self.op.name)
         ops = getattr(self.op.combine, "ops", None)
-        if ops is not None and set(ops) != set(vals):
+        if ops is not None and set(ops) != set(dtypes):
             raise WindFlowError(
                 f"{self.op.name}: fieldwise combine names {sorted(ops)} but "
-                f"the lift returns {sorted(vals)}")
-        self._install_forest(self._alloc_forest(
-            self.K_cap, self.F, {k: v.dtype for k, v in vals.items()}))
+                f"the lift returns {sorted(dtypes)}")
+        if self.device.type == "cuda":
+            # trace the combine for K1 now: one the kernel cannot take
+            # fails the run here, before the first commit
+            forest_variant(self.op.combine, dtypes)
+        self._install_forest(self._alloc_forest(self.K_cap, self.F, dtypes))
 
     # ------------------------------------------------------------------
     def prep_device_batch(self, batch: BatchGPU):

@@ -403,6 +403,10 @@ class FusedFfatReplica(FfatGPUReplica):
     def fused_signature(self) -> List[str]:
         return [op.name for op in self.ops]
 
+    def _prewarm_schema(self):
+        # batches arrive with the CHAIN ENTRY's schema
+        return self.ops[0].schema
+
     # -- composition seams ---------------------------------------------------
     def _chain_tag(self):
         return ("chain",) + self._tag

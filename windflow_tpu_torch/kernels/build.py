@@ -7,10 +7,13 @@ stream as integers. No source includes PyTorch's headers, so a build takes
 seconds rather than the minutes a ``torch/extension.h`` build takes.
 
 The library lands in ``build/kernels/`` at the root of the checkout (listed
-in ``.gitignore``), named by a digest of the source and the flags, so an
-edited source is never served by a stale build. Nothing is compiled when
-the module is imported: ``load_library`` builds on the first call that
-needs the card.
+in ``.gitignore``), named by a digest of the source, the headers
+(``kernels/*.cuh``) and the flags, so an edited source is never served by
+a stale build. A traced combine's variant of K1 is a generated
+translation unit (``load_generated``), written and built there too.
+Nothing is compiled when the module is imported: ``load_library`` and
+``load_generated`` build on the first call that needs the card; builds
+of different libraries may run in parallel threads.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 from ..basic import WindFlowError
 
@@ -33,8 +36,9 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
+_build_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
-#: per kernel: {"seconds": build time (0.0 when reused), "log": nvcc output}
+#: per library: {"seconds": build time (0.0 when reused), "log": nvcc output}
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -49,23 +53,40 @@ def nvcc_path() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The compiled ``kernels/<name>.cu``, built if no current build
-    exists. Thread-safe; later calls return the loaded library."""
+def _headers() -> bytes:
+    """Every header of the kernel directory (a source may include any)."""
+    return b"".join(p.read_bytes() for p in sorted(KERNEL_DIR.glob("*.cuh")))
+
+
+def _load(name: str, text: bytes,
+          src: Optional[Path] = None) -> ctypes.CDLL:
+    """Build (unless a current build exists) and load library ``name``
+    from ``text`` (written next to the build when ``src`` is None). One
+    build per name at a time; builds of different names run in
+    parallel."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = KERNEL_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
+        with _lock:
+            lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        digest = hashlib.sha256(text + _headers()
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         out = BUILD_DIR / f"{name}-{digest[:16]}.so"
         info = {"seconds": 0.0, "log": ""}
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            if src is None:
+                src = out.with_suffix(".cu")
+                src.write_bytes(text)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             t0 = time.perf_counter()
-            res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+            res = subprocess.run([nvcc_path(), *NVCC_FLAGS,
+                                  f"-I{KERNEL_DIR}", "-o", str(tmp),
                                   str(src)], capture_output=True, text=True)
             info["seconds"] = time.perf_counter() - t0
             info["log"] = res.stdout + res.stderr
@@ -74,6 +95,31 @@ def load_library(name: str) -> ctypes.CDLL:
                                     + info["log"])
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
-        BUILD_INFO[name] = info
-        _libs[name] = lib
+        with _lock:
+            BUILD_INFO[name] = info
+            _libs[name] = lib
         return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The compiled ``kernels/<name>.cu``, built if no current build
+    exists. Thread-safe; later calls return the loaded library (every
+    launch asks: the source is read only until it is loaded)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    src = KERNEL_DIR / f"{name}.cu"
+    return _load(name, src.read_bytes(), src)
+
+
+def load_generated(tag: str, text: str) -> ctypes.CDLL:
+    """A generated translation unit of K1 (``combine_codegen``), built
+    into ``build/kernels/forest_rebuild-<tag>-<digest>.so`` (the digest
+    covers the text, the headers and the flags) and loaded; its
+    ``BUILD_INFO`` entry is ``forest_rebuild-<tag>``. A failed build
+    raises with the nvcc log."""
+    name = f"forest_rebuild-{tag}"
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    return _load(name, text.encode())

@@ -32,9 +32,11 @@ single-card ``gpu/ffat_gpu.py``:
 One step per ``GB``-row slice of a staged batch (padded with key = -1
 lanes); each step's fired windows come back in ONE read-back (results,
 validity, window ids and the late count) and leave as one columnar batch.
-On a card the combine must be ``fieldwise(...)``: the level rebuild is
-the hand-written kernel K1 (``kernels/forest_rebuild.cu``), one launch
-per step over every shard's rows.
+On a card the level rebuild is the hand-written kernel K1
+(``kernels/forest_rebuild.cuh``), one launch per step over every shard's
+rows: the fieldwise library, or the user's combine traced and compiled
+into a variant of its own when the forest is first allocated (a combine
+the tracer refuses fails the run there).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from ..gpu.batch import BatchGPU, host_copies, to_device
 from ..gpu.keymap import KeySlotMap
 from ..gpu.ops_gpu import GPUOperatorBase, GPUReplicaBase, op_batch_keys_np
 from ..gpu.schema import TupleSchema, torch_dtype
+from ..kernels.forest_rebuild import variant as forest_variant
 from . import core
 
 
@@ -107,14 +110,6 @@ class Ffat_Windows_Mesh(GPUOperatorBase):
         self.ring_panes = ring_panes
         self.late_policy = late_policy
         self.pane_len = math.gcd(win_len, slide_len)
-
-    def configure(self, execution_mode, time_policy, device) -> None:
-        if device.type == "cuda" and not hasattr(self.combine, "op_code"):
-            raise WindFlowError(
-                f"{self.name}: on CUDA the forest-rebuild kernel folds "
-                "fieldwise(...) combines only (sum/min/max per field); an "
-                "arbitrary torch combine runs on device='cpu'")
-        super().configure(execution_mode, time_policy, device)
 
     def build_replicas(self) -> None:
         self.replicas = [FfatMeshReplica(self, 0)]
@@ -210,6 +205,8 @@ class FfatMeshReplica(GPUReplicaBase):
         sample = {f: np.zeros(1, dt) for f, dt in self._val_dtypes.items()}
         self._state = init_fn(sample)
         self._out_fields = list(self._state[0])
+        if self.device.type == "cuda":
+            forest_variant(op.combine, self._k1_dtypes())
         self.stats.mesh_devices = ka * da
         if core.excluded_device_ids():
             want = min(n_dev, len(core.visible_devices(self.device)))
@@ -219,10 +216,13 @@ class FfatMeshReplica(GPUReplicaBase):
         if pend is not None:
             self._apply_pending_restore()
 
+    def _k1_dtypes(self) -> Dict[str, torch.dtype]:
+        return {f: t.dtype for f, t in self._state[0].items()}
+
     def _count_rebuild(self) -> None:
         if self.device.type == "cuda":
             from ..gpu.ffat_gpu import note_k1_use
-            note_k1_use(self)
+            note_k1_use(self, self._k1_dtypes())
             self.stats.rebuild_kernel_launches += 1
 
     def _build_forest(self, ring_panes: int):

@@ -320,8 +320,9 @@ class PipeGraph:
                     continue
                 n = pw(caps)
                 if n is None:
-                    skipped.append(f"{label}: runtime-dependent "
-                                   "signature (stateful/inferred schema)")
+                    skipped.append(f"{label}: " + getattr(
+                        r, "prewarm_skip", "runtime-dependent signature "
+                        "(stateful/inferred schema)"))
                 else:
                     warmed += n
         # the staging edges' pinned pools, one buffer per field and bucket
