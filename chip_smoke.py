@@ -218,11 +218,23 @@ Phases, each printing one line of its own:
    leg; tuples/s of both sinks, ``Sink_txn_*``, mean pre-commit / commit
    ms and staged bytes per epoch. Part ``kafka``: YSB's device chain fed
    by ``with_columnar_blocks(4096)`` into a Kafka sink on an output topic,
-   a checkpoint every 2 s, plain and ``with_exactly_once`` in turns, then
-   an exactly-once run killed after its first committed epoch and
+   a checkpoint every 2 s, one plain and one ``with_exactly_once`` run,
+   then an exactly-once run killed after its first committed epoch and
    restored: the topic holds each of the 1,000 campaign-windows once with
    the model's count, and the crashed run's prepared epochs never become
-   visible. Part ``replay``: ``bench.py``'s replay mode (Zipf 1.1 over
+   visible. Part ``kafka_client``: the real-broker adapters on
+   ``localhost:9092`` over in-process fake client modules
+   (``tests/torch_kafka_clients.py``, put in ``sys.modules`` for the part
+   only; the part fails if a real ``confluent_kafka`` or ``kafka`` is
+   importable): YSB's rows (200,000 events, 8 partitions, two source
+   replicas) through the device chain into a Kafka sink, through the
+   confluent_kafka adapter with 3 transient poll errors (healed by
+   ``with_retries``: ``Kafka_reconnects`` == 3), then into the staged
+   exactly-once sink, then an exactly-once run killed after its first
+   Kafka transaction and restored (the crashed run's producer fenced, no
+   staged epoch left), then through the kafka-python adapter; a
+   read_committed view of each output topic holds every campaign-window
+   once with the model's count. Part ``replay``: ``bench.py``'s replay mode (Zipf 1.1 over
    512 keys, a diurnal rate curve, 5% late tuples, 512-row blocks, TB
    Keyed_Windows, a checkpoint every 2 s) at-least-once and exactly-once;
    the exactly-once run's committed windows equal the CPU run of the
@@ -231,12 +243,13 @@ Phases, each printing one line of its own:
    (CB 13/5) at 10,240 keys over 100,000 tuples with a 1,024-entry LRU
    cache, rows equal to a numpy fold; an exactly-once P_Sink killed and
    restored ends with the uninterrupted run's database;
-17. the native runtime, the monitoring plane, the overload governor and
-   prewarm (``observe`` lines). Part ``native``: YSB's rows into the
-   device chain (1,000,000 events) with the staging encoders on, off,
-   off, on (counts equal the model every run; the encoders filled every
-   staged batch, or none), events/s each; then the HC main path on the
-   C++ channel ring against the Python channels (equal rows, tuples/s).
+17. the native runtime, the monitoring plane, the overload governor,
+   prewarm and the compile cache (``observe`` lines). Part ``native``:
+   YSB's rows into the device chain (1,000,000 events) with the staging
+   encoders on, then off (counts equal the model every run; the encoders
+   filled every staged batch, or none), events/s each; then the HC main
+   path on the C++ channel ring against the Python channels (equal rows,
+   tuples/s).
    Part ``tracing``: the HC main path traced at 1/64 (source, window,
    sink) against untraced, in turns (equal rows; tuples/s; a device
    window's rows carry no trace stamps, as in the JAX package), the HC
@@ -260,7 +273,13 @@ Phases, each printing one line of its own:
    and the last 5 s's p99 against the SLO. Part
    ``prewarm``: the HC run with and without ``with_prewarm()``: equal
    rows, the report, K1 loaded before batch 0, the first batch's
-   latency;
+   latency. Part ``compile_cache``: two fresh Python processes, one after
+   the other, run the HC stream (4 batches) with the traced ``mean_last``
+   combine under ``with_compile_cache`` of one directory, empty before
+   the first: the first builds K1's variant there (``nvcc``; its build
+   seconds), the second loads it without a build (``:cached``); rows
+   equal across the two and to the CPU run; each one's first-batch
+   latency and ``Compile_usec_total``;
 
 then the ``{"kernels": [...]}`` line (one entry per K1 variant a main
 path ran: the fieldwise library and each traced combine but ``scaled``,
@@ -4160,6 +4179,13 @@ EO_CRASH_AT = 14       # columnar: killed before this batch
 EO_WAIT_S = 120.0
 EO_KAFKA_CKPT_S = 2.0  # kafka: a checkpoint every 2 s
 EO_KAFKA_CRASH_FRAC = 0.6  # kafka: slow down past this share, then die
+EO_KAFKA_TURNS = 1     # kafka: turns of plain and exactly-once (2 until the
+                       # kafka_client part came; the second gave a spread)
+# kafka_client: YSB rows through the real-broker adapters over the fake
+# client modules of tests/torch_kafka_clients.py
+KC_EVENTS = 200_000
+KC_BROKERS = "localhost:9092"
+KC_FAULTS = 3          # transient poll errors injected into the first run
 # replay: bench.py's _replay_mode (bench.py:1097-1262) at its own settings
 REPLAY_KEYS, REPLAY_RATE, REPLAY_BLOCK = 512, 12_000, 512
 REPLAY_PHASE_S, REPLAY_LATE, REPLAY_LATENESS_US = 2.0, 0.05, 200_000
@@ -4463,7 +4489,7 @@ def eo_kafka_part(torch, wt, card):
     model = _ysb_model(YSB_EVENTS)
     rates = {"plain": [], "exactly_once": []}
     launches = Counter()
-    for turn in range(2):
+    for turn in range(EO_KAFKA_TURNS):
         for mode in ("plain", "exactly_once"):
             out = f"eo_out_{mode}_{turn}"
             _reset_launches(fr)
@@ -4518,6 +4544,239 @@ def eo_kafka_part(torch, wt, card):
           rebuild_launches_restored=k1_r.total(),
           rebuild_launches=launches.total())
     kafka.MemoryBroker.reset()
+    return launches
+
+
+def _fake_kafka_clients():
+    """The in-process fake client modules (``tests/torch_kafka_clients.py``
+    of this checkout); fails if a real ``confluent_kafka`` or ``kafka``
+    is importable, so that a fake never shadows a real client."""
+    import importlib.util
+    for name in ("confluent_kafka", "kafka"):
+        if sys.modules.get(name) is not None \
+                or importlib.util.find_spec(name) is not None:
+            fail(f"exactly_once kafka_client: a real {name!r} is "
+                 "importable; this part installs a fake one")
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_kafka_clients
+    return torch_kafka_clients
+
+
+def _kc_fill(cluster):
+    """examples/ysb.py's events on the fake cluster, as ``_ysb_fill``
+    writes them to the memory broker: event i on partition i % 8."""
+    n_ads = YSB_CAMPAIGNS * YSB_ADS
+    for i in range(KC_EVENTS):
+        cluster.append("ad_events", {"ad_id": i % n_ads, "event_type": i % 3,
+                                     "ts": i * YSB_TS_STEP_US},
+                       partition=i % YSB_PARTITIONS)
+
+
+def _kc_run(wt, kafka, cluster, out, group, store=None, staging=None,
+            crash_after=None, restore_from=None):
+    """YSB's device chain fed with rows by a Kafka_Source on a real-broker
+    string (two replicas, explicit offsets of the 8 partitions; a
+    replica's watermark is the lowest last ts of its four, since a
+    restored replica resumes them a message apart) into a Kafka_Sink on
+    topic ``out``, exactly-once with ``staging``. With ``crash_after`` (a count of committed transactions):
+    past 60% of the stream the source requests a checkpoint, slows down,
+    and raises once the cluster has committed more transactions than
+    that. Returns events/s, the window operator and the graph."""
+    t0 = time.perf_counter()
+
+    def clock():
+        return int((time.perf_counter() - t0) * 1e6)
+
+    graph = wt.PipeGraph("ysb_kc", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT_TIME, device="cuda")
+    if store is not None:
+        graph.with_checkpointing(interval=EO_KAFKA_CKPT_S, store_dir=store)
+    n = [0, False]
+    lock = threading.Lock()
+    crash = crash_after is not None
+    last = {}  # replica -> {partition: its last ts}
+
+    def deser(msg, shipper, ctx):
+        if msg is None:
+            return False
+        p = msg.payload
+        shipper.push_with_timestamp(
+            _AdEvent(p["ad_id"], p["event_type"], p["ts"], clock()), p["ts"])
+        mine = last.setdefault(ctx.get_replica_index(), {})
+        mine[msg.partition] = p["ts"]
+        if len(mine) == YSB_PARTITIONS // YSB_SRC_PAR:
+            shipper.set_next_watermark(max(shipper.current_watermark,
+                                           min(mine.values())))
+        if crash:
+            with lock:
+                n[0] += 1
+                request = n[0] >= EO_KAFKA_CRASH_FRAC * KC_EVENTS \
+                    and not n[1]
+                n[1] = n[1] or request
+            if cluster.txn_counts["committed"] > crash_after:
+                raise _InjectedCrash("killed after the first committed "
+                                     "Kafka transaction")
+            if request:
+                shipper.request_checkpoint()
+            if n[1]:
+                time.sleep(0.001)  # the barrier injects between messages
+        return True
+
+    src = (kafka.Kafka_Source_Builder(deser).with_brokers(KC_BROKERS)
+           .with_topics("ad_events").with_group_id(group).with_idleness(100)
+           .with_parallelism(YSB_SRC_PAR).with_output_batch_size(YSB_BATCH)
+           .with_retries(attempts=5, base_ms=1).with_name("kafka_src")
+           .with_offsets({("ad_events", p): 0
+                          for p in range(YSB_PARTITIONS)}))
+
+    def ser(r):
+        if not r["valid"]:
+            return None
+        return (out, None, (int(r["campaign"]), int(r["wid"]),
+                            int(r["count"])))
+
+    snk = kafka.Kafka_Sink_Builder(ser).with_brokers(KC_BROKERS) \
+        .with_name("kc_out")
+    if staging is not None:
+        snk = snk.with_exactly_once(staging)
+    ops = _ysb_device_ops(wt)
+    mp = graph.add_source(src.build())
+    for op in ops:
+        mp = mp.add(op)
+    mp.add_sink(snk.build())
+    t0 = time.perf_counter()
+    try:
+        graph.run(restore_from)
+    except (_InjectedCrash, wt.basic.WorkerFailuresError):
+        if not crash:
+            raise
+    else:
+        if crash:
+            fail("exactly_once kafka_client: the injected crash did not "
+                 "end the run")
+    return KC_EVENTS / (time.perf_counter() - t0), ops[-1], graph
+
+
+def _kc_check(name, cluster, out, model, whole=True):
+    """The output topic as a read_committed consumer sees it: each
+    (campaign, window) once, with the model's count (all of them when
+    ``whole``). Returns the number of rows."""
+    rows = cluster.read_committed(out)
+    counts = {(c, w): n for c, w, n in rows}
+    if len(counts) != len(rows):
+        fail(f"exactly_once kafka_client {name}: a window is visible twice")
+    if whole:
+        _ysb_check(f"exactly_once kafka_client {name}", counts, len(rows),
+                   model)
+    elif any(model.get(k) != v for k, v in counts.items()):
+        fail(f"exactly_once kafka_client {name}: a visible count differs "
+             "from the model")
+    return len(rows)
+
+
+def _kc_reconnects(graph):
+    return sum(r["Kafka_reconnects"] for o in graph.get_stats()["Operators"]
+               for r in o["replicas"] if "Kafka_reconnects" in r)
+
+
+def eo_kafka_client_part(torch, wt, card):
+    """Part ``kafka_client``: YSB rows through the confluent_kafka adapter
+    (``KC_FAULTS`` transient poll errors injected, healed by retries) into
+    a plain Kafka sink, then into the staged exactly-once sink, then an
+    exactly-once run killed after its first Kafka transaction and
+    restored (the crashed run's producer fenced), then a plain run
+    through the kafka-python adapter; the clients are in-process fakes.
+    Returns K1's launches."""
+    from windflow_tpu_torch import kafka
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    from windflow_tpu_torch.sinks.transactional import EpochSegmentStore
+    fakes = _fake_kafka_clients()
+    cluster = fakes.Cluster(YSB_PARTITIONS)
+    _kc_fill(cluster)
+    model = _ysb_model(KC_EVENTS)
+    launches = Counter()
+    rates, recon = {}, {}
+    with fakes.installed(cluster, "confluent"):
+        runs = [("plain", {}), ("exactly_once", {
+            "store": _build_dir("ckpt", "kc_eo"),
+            "staging": _build_dir("txn", "kc_eo")})]
+        for mode, kw in runs:
+            if mode == "plain":
+                cluster.fail_next("poll", KC_FAULTS)
+            _reset_launches(fr)
+            rates[mode], win, g = _kc_run(wt, kafka, cluster, f"out_{mode}",
+                                          f"kc_{mode}", **kw)
+            launches += _launched(f"exactly_once kafka_client {mode}", fr,
+                                  win.replicas[0])
+            _kc_check(mode, cluster, f"out_{mode}", model)
+            recon[mode] = _kc_reconnects(g)
+        if recon["plain"] != KC_FAULTS or cluster.pending_faults("poll"):
+            fail(f"exactly_once kafka_client: {KC_FAULTS} injected poll "
+                 f"errors gave {recon['plain']} Kafka_reconnects")
+        txn_eo = dict(cluster.txn_counts)
+        if not txn_eo.get("committed") or txn_eo.get("aborted"):
+            fail(f"exactly_once kafka_client: transactions {txn_eo}")
+        store = _build_dir("ckpt", "kc_crash")
+        staging = _build_dir("txn", "kc_crash")
+        _reset_launches(fr)
+        _, _, crashed = _kc_run(wt, kafka, cluster, "out_crash", "kc_crash",
+                                store, staging,
+                                crash_after=cluster.txn_counts["committed"])
+        k1_c = _launch_counts(fr)
+        visible = _kc_check("at the crash", cluster, "out_crash", model,
+                            whole=False)
+        seg = EpochSegmentStore(os.path.join(staging, "kc_out_r0"))
+        pending_at_crash = seg.pending_epochs()
+        if not 0 < visible < len(model):
+            fail(f"exactly_once kafka_client: {visible} of {len(model)} "
+                 "windows visible at the crash (want some, not all)")
+        zombie = next(o for o in crashed._ops if o.name == "kc_out") \
+            .replicas[0]._transport._txn_producer
+        _reset_launches(fr)
+        _, win_r, restored = _kc_run(wt, kafka, cluster, "out_crash",
+                                     "kc_crash", store, staging,
+                                     restore_from=store)
+        k1_r = _launched("exactly_once kafka_client restored", fr,
+                         win_r.replicas[0])
+        _kc_check("restored", cluster, "out_crash", model)
+        if seg.pending_epochs():
+            fail("exactly_once kafka_client: staged epochs survive the "
+                 "restore")
+        try:
+            zombie.begin_transaction()
+        except sys.modules["confluent_kafka"].KafkaException as e:
+            if "fenced" not in str(e):
+                raise
+        else:
+            fail("exactly_once kafka_client: the crashed run's producer "
+                 "is not fenced by the restored run")
+        launches += k1_c + k1_r
+    with fakes.installed(cluster, "kafka-python"):
+        _reset_launches(fr)
+        rates["kafka_python"], win, g = _kc_run(
+            wt, kafka, cluster, "out_kp", "kc_kp")
+        launches += _launched("exactly_once kafka_client kafka-python", fr,
+                              win.replicas[0])
+        _kc_check("kafka-python", cluster, "out_kp", model)
+        recon["kafka_python"] = _kc_reconnects(g)
+    phase("exactly_once", part="kafka_client", card=card,
+          client="in-process fake", brokers=KC_BROKERS, events=KC_EVENTS,
+          partitions=YSB_PARTITIONS, source_parallelism=YSB_SRC_PAR,
+          campaign_windows=len(model), counts_equal_model=True,
+          each_window_once=True,
+          events_per_s_confluent_plain=rates["plain"],
+          events_per_s_confluent_exactly_once=rates["exactly_once"],
+          events_per_s_kafka_python_plain=rates["kafka_python"],
+          injected_poll_errors=KC_FAULTS, kafka_reconnects=recon,
+          transactions=dict(cluster.txn_counts),
+          visible_at_crash=visible, staged_pending_at_crash=pending_at_crash,
+          restored_txn=_txn_numbers(restored, "kc_out"),
+          crashed_producer_fenced=True,
+          rebuild_launches_crashed=k1_c.total(),
+          rebuild_launches_restored=k1_r.total(),
+          rebuild_launches=launches.total())
     return launches
 
 
@@ -4861,10 +5120,12 @@ def eo_persistent_part(wt, card):
 
 
 def exactly_once_phase(torch, wt, card):
-    """Phase ``exactly_once``: parts ``columnar``, ``kafka``, ``replay`` and
-    ``persistent``. Returns K1's launches (columnar and kafka)."""
+    """Phase ``exactly_once``: parts ``columnar``, ``kafka``,
+    ``kafka_client``, ``replay`` and ``persistent``. Returns K1's launches
+    (columnar, kafka and kafka_client)."""
     launches = eo_columnar_part(torch, wt, card)
     launches += eo_kafka_part(torch, wt, card)
+    launches += eo_kafka_client_part(torch, wt, card)
     eo_replay_part(wt, card)
     eo_persistent_part(wt, card)
     return launches
@@ -4888,6 +5149,9 @@ OBS_SHED_SLO_MS = 0.0005   # below the queue-delay estimate's 1 us floor
 OBS_SHED_TICK_S = 0.05     # its governor's tick (cooldown: two ticks;
                            # one breaching tick escalates)
 OBS_RING = 16384           # flight-recorder ring per worker
+OBS_NATIVE_TURNS = (True, False)  # YSB rows, encoders on / off (on, off,
+                                  # off, on until the compile_cache part)
+OBS_CC_BATCHES = 4         # compile_cache: HC batches per process
 OBS_SCHEMA = {"key": np.int32, "value": np.int32}
 
 
@@ -4899,7 +5163,7 @@ def _op_reps(graph, name):
 
 def observe_native_part(torch, wt, kafka, card):
     """Part ``native``: YSB rows into the device chain with the staging
-    encoders on and off in turns (on, off, off, on), counts equal to the
+    encoders on and off (``OBS_NATIVE_TURNS``), counts equal to the
     model every run and the encoders' batch count equal to the staged
     batches (0 when off); then the HC main path on the C++ channel ring
     against the Python channels. Returns K1's launches and the mean
@@ -4912,7 +5176,7 @@ def observe_native_part(torch, wt, kafka, card):
     model = _ysb_model(YSB_EVENTS)
     eps = {True: [], False: []}
     launches = Counter()
-    for i, on in enumerate((True, False, False, True)):
+    for i, on in enumerate(OBS_NATIVE_TURNS):
         e0 = native.ENCODE_BATCHES
         _reset_launches(fr)
         torch.cuda.synchronize()
@@ -5432,9 +5696,108 @@ def observe_prewarm_part(torch, wt, card):
     return launches
 
 
+_CC_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import chip_smoke as c
+import windflow_tpu_torch as wt
+from windflow_tpu_torch.kernels import build, forest_rebuild as fr
+cache, rows_out = sys.argv[2], sys.argv[3]
+dtypes, comb = c.traced_specs(torch)["mean_last"]
+lift = c._combine_lifts(torch)["mean_last"]
+blocks = c._blocks(c.HC_KEYS, seed=11, n_batches=c.OBS_CC_BATCHES)
+torch.cuda.init()
+c._reset_launches(fr)
+run = c._run_graph(wt, "cuda", blocks, c.HC_KEYS, None, lift=lift,
+                   combine=comb, setup=lambda g: g.with_compile_cache(cache))
+launches = c._launched("observe compile_cache", fr, run[5])
+v = fr.variant(comb, dtypes)
+np.savez(rows_out, **run[0])
+st = run[5].stats
+print(json.dumps({
+    "library": v.library, "build_dir": str(build.build_dir()),
+    "nvcc_s": build.BUILD_INFO[v.library]["seconds"],
+    "signature": st.compile_last_signature,
+    "compile_usec_total": st.compile_usec_total,
+    "first_batch_latency_ms": 1e3 * (min(run[3].values())
+                                     - min(run[1].values())),
+    "rebuild_launches": launches.total(), "wall_s": run[4]}))
+"""
+
+
+def observe_compile_cache_part(torch, wt, card):
+    """Part ``compile_cache``: two fresh Python processes, one after the
+    other, each run the HC stream (``OBS_CC_BATCHES`` batches) into
+    ``Ffat_Windows_GPU`` with the traced ``mean_last`` combine under
+    ``with_compile_cache`` of one directory, empty before the first. The
+    first must build K1's variant there (``nvcc`` ran), the second load it
+    without a build (``:cached``, build seconds 0); both processes' rows
+    equal each other and the port's CPU run. The children's K1 launches
+    are their own processes' and stay out of the kernels line."""
+    import shutil
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    root = _build_dir("compile_cache_part")
+    cache = os.path.join(root, "cache")
+    os.makedirs(root)
+    dtypes, comb = traced_specs(torch)["mean_last"]
+    lift = _combine_lifts(torch)["mean_last"]
+    blocks = _blocks(HC_KEYS, seed=11, n_batches=OBS_CC_BATCHES)
+    ref = _run_graph(wt, "cpu", blocks, HC_KEYS, None, lift=lift,
+                     combine=comb)[0]
+    procs = []
+    for i in range(2):
+        rows_out = os.path.join(root, f"rows{i}.npz")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", _CC_CHILD, HERE, cache,
+                              rows_out], capture_output=True, text=True,
+                             timeout=300)
+        if res.returncode != 0:
+            fail(f"observe compile_cache: process {i} failed "
+                 f"(rc {res.returncode}):\n{res.stderr[-4000:]}")
+        info = json.loads(res.stdout.strip().splitlines()[-1])
+        info["process_s"] = time.perf_counter() - t0
+        with np.load(rows_out) as z:
+            got = {k: z[k] for k in z.files}
+        _check_combine_rows(f"compile_cache process {i}", got, ref,
+                            COMBINE_RTOL["mean_last"])
+        procs.append((info, got))
+    (first, rows0), (second, rows1) = procs
+    for k in rows0:
+        if not np.array_equal(rows0[k], rows1[k]):
+            fail(f"observe compile_cache: column {k!r} differs between the "
+                 "two processes")
+    lib = fr.variant(comb, dtypes).library
+    if first["build_dir"] != cache or second["build_dir"] != cache:
+        fail(f"observe compile_cache: built in {first['build_dir']} / "
+             f"{second['build_dir']}, not {cache}")
+    if not (first["nvcc_s"] > 0 and first["signature"] == f"{lib}:nvcc"):
+        fail(f"observe compile_cache: the first process did not build "
+             f"K1's variant: {first}")
+    if not (second["nvcc_s"] == 0.0
+            and second["signature"] == f"{lib}:cached"):
+        fail(f"observe compile_cache: the second process did not load the "
+             f"cached build: {second}")
+    cached = sorted(f for f in os.listdir(cache) if f.endswith(".so"))
+    phase("observe", part="compile_cache", card=card, keys=HC_KEYS,
+          batches=OBS_CC_BATCHES, combine="mean_last", library=lib,
+          cache_files=cached, rows_equal_cpu=True,
+          rows_equal_across_processes=True,
+          first_process={k: first[k] for k in (
+              "signature", "nvcc_s", "compile_usec_total",
+              "first_batch_latency_ms", "rebuild_launches", "process_s")},
+          second_process={k: second[k] for k in (
+              "signature", "nvcc_s", "compile_usec_total",
+              "first_batch_latency_ms", "rebuild_launches", "process_s")})
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def observe_phase(torch, wt, card):
     """Phase ``observe``: parts ``native``, ``tracing``, ``flightrec``,
-    ``monitor``, ``overload`` and ``prewarm``. Returns K1's launches."""
+    ``monitor``, ``overload``, ``prewarm`` and ``compile_cache``. Returns
+    K1's launches (the compile_cache part's child processes' are their
+    own)."""
     from windflow_tpu_torch import kafka
     t0 = time.perf_counter()
     kafka.MemoryBroker.reset()
@@ -5445,6 +5808,7 @@ def observe_phase(torch, wt, card):
     launches += observe_monitor_part(torch, wt, card)
     launches += observe_overload_part(torch, wt, kafka, card, sustained)
     launches += observe_prewarm_part(torch, wt, card)
+    observe_compile_cache_part(torch, wt, card)
     kafka.MemoryBroker.reset()
     phase("observe", part="total", card=card,
           wall_s=time.perf_counter() - t0,

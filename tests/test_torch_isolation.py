@@ -212,6 +212,49 @@ def test_native_runtime_source_is_the_ports_own():
     assert str(nat.BUILD_DIR).startswith(os.path.join(ROOT, "build"))
 
 
+_CLIENTS_PROBE = r"""
+import importlib, pkgutil, sys
+tried = []
+
+
+class Spy:
+    # records every attempt to import a Kafka client library
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("confluent_kafka", "kafka"):
+            tried.append(name)
+        return None
+
+
+sys.meta_path.insert(0, Spy())
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {tests!r})
+import windflow_tpu_torch
+for m in pkgutil.walk_packages(windflow_tpu_torch.__path__,
+                               "windflow_tpu_torch."):
+    importlib.import_module(m.name)
+import torch_kafka_clients  # noqa: F401
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "windflow_tpu" or m.startswith("windflow_tpu."))
+print("BAD" if bad or tried else "OK", bad, tried)
+"""
+
+
+def test_kafka_fakes_import_no_jax_and_the_port_imports_no_client():
+    """``tests/torch_kafka_clients.py`` (the fake client modules that
+    ``chip_smoke.py`` also uses) imports neither jax nor the JAX package,
+    and importing every module of the port tries to import neither
+    ``confluent_kafka`` nor ``kafka``: a client is imported only when a
+    real broker is used."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _CLIENTS_PROBE.format(
+            root=ROOT, tests=os.path.join(ROOT, "tests"))],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "OK", out.stdout
+
+
 def _imports(path):
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):

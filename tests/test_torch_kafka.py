@@ -4,7 +4,7 @@ graphs restored into port graphs.
 
 Twins of the ``memory://`` cases of ``test_kafka_monitoring.py`` (consume
 all, consumer-group partitions, explicit-offset replay, sink round trip,
-the refusal of real brokers), of ``test_columnar_ingest.py`` (columnar
+a real broker refused without a client library), of ``test_columnar_ingest.py`` (columnar
 blocks, batch polls advancing the offsets) and of
 ``test_checkpoint_recovery.py`` (offsets snapshotted with the barrier,
 committed on finalize, replayed on restore). Every test resets the
@@ -12,6 +12,7 @@ process-wide broker registries of both packages and uses broker names of
 its own (other test files share the xdist worker). Inputs come from numpy
 seeds; every graph run is bounded (``torch_waits``)."""
 
+import sys
 import threading
 
 import numpy as np
@@ -127,25 +128,29 @@ def test_kafka_sink_roundtrip():
     assert out[wt] == out[wj] == (90, 3 * sum(range(1, 31)))
 
 
-def test_kafka_real_brokers_are_refused():
-    """A real broker needs a client library: the JAX package asks for one,
-    the port says its transports are not ported. Both name the client."""
-    with pytest.raises(wj.WindFlowError, match="client"):
-        (kj.Kafka_Source_Builder(lambda m, s: False)
-         .with_brokers("localhost:9092").with_topics("t").build())
-    for build in (lambda: kt.Kafka_Source_Builder(lambda m, s: False)
-                  .with_brokers("localhost:9092").with_topics("t").build(),
-                  lambda: kt.Kafka_Sink_Builder(lambda t: None)
-                  .with_brokers("localhost:9092").build(),
-                  # exactly-once is ported on memory:// only: a real
-                  # broker's staged backend goes with its transports
-                  lambda: kt.Kafka_Sink_Builder(lambda t: None)
-                  .with_brokers("localhost:9092").with_exactly_once()
-                  .build(),
-                  lambda: conn_t.make_transport("localhost:9092")):
-        with pytest.raises(wt.WindFlowError,
-                           match="client.*not yet ported"):
-            build()
+def test_kafka_real_brokers_are_refused(monkeypatch):
+    """A real broker needs a client library: with neither confluent_kafka
+    nor kafka-python importable, both packages refuse at the builder's
+    ``build()`` (and ``make_transport``) with the same message, which
+    names the client. (The adapters themselves are held to the JAX
+    package in ``test_torch_kafka_clients.py``.)"""
+    monkeypatch.setitem(sys.modules, "confluent_kafka", None)
+    monkeypatch.setitem(sys.modules, "kafka", None)
+    for kpkg, conn, err in ((kt, conn_t, wt.WindFlowError),
+                            (kj, conn_j, wj.WindFlowError)):
+        for build in (lambda: kpkg.Kafka_Source_Builder(lambda m, s: False)
+                      .with_brokers("localhost:9092").with_topics("t")
+                      .build(),
+                      lambda: kpkg.Kafka_Sink_Builder(lambda t: None)
+                      .with_brokers("localhost:9092").build(),
+                      lambda: kpkg.Kafka_Sink_Builder(lambda t: None)
+                      .with_brokers("localhost:9092").with_exactly_once()
+                      .build(),
+                      lambda: conn.make_transport("localhost:9092")):
+            with pytest.raises(err, match=r"no Kafka client library "
+                               r"available \(confluent_kafka / "
+                               r"kafka-python\)"):
+                build()
     # the overload knobs of the Kafka source builder are ported (PR 12):
     # a budget and a priority ride the operator, as in the JAX package
     for kpkg in (kt, kj):

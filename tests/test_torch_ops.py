@@ -514,9 +514,6 @@ _UNPORTED = {
     # devices is not
     "mesh": lambda: wt.mesh.KeyMesh((2, 1), [(0, torch.device("cpu")),
                                              (1, torch.device("meta"))]),
-    # the port has no jit programs to cache (K1's build is cached by its
-    # source digest in build/kernels/)
-    "compile_cache": lambda: _graph().with_compile_cache("cache"),
 }
 
 
@@ -594,14 +591,18 @@ _PORTED = {
         lambda tmp: wt.Columnar_Source_Builder(lambda: iter(()))
         .with_priority(lambda t: 7).build().priority_fn(None) == 7,
     "prewarm_report": _check_prewarm_report,
+    # the kernels' compile cache: recorded for start(), nothing
+    # process-wide before it
+    "compile_cache": lambda tmp: _graph().with_compile_cache(
+        str(tmp / "cc"))._compile_cache_dir == str(tmp / "cc"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_PORTED))
 def test_ported_surfaces_work(case, tmp_path):
-    """The surfaces of the monitoring, overload and prewarm planes that
-    the port now has (they refused until these planes came): each does
-    what the JAX package's does."""
+    """The surfaces of the monitoring, overload and prewarm planes and
+    the compile cache that the port now has (they refused until these
+    came): each does what the JAX package's does."""
     assert _PORTED[case](tmp_path)
 
 

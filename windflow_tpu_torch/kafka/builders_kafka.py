@@ -3,8 +3,8 @@ withTopics, withGroupID, withOffsets, withIdleness).
 
 The port's copy of ``windflow_tpu/kafka/builders_kafka.py``, with the
 overload knobs (``with_slo``, ``with_priority``) of the source builders.
-``Kafka_Sink_Builder.with_exactly_once`` runs per-epoch
-transactions on a ``memory://`` broker.
+``with_retries`` on both builders takes the place of the JAX package's
+``WF_KAFKA_RETRIES`` / ``WF_KAFKA_RETRY_BASE_MS``.
 """
 
 from __future__ import annotations
@@ -13,10 +13,36 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from ..basic import WindFlowError
 from ..builders import BasicBuilder, _SourceOverloadMixin
-from .connectors import Kafka_Sink, Kafka_Source
+from .connectors import (DEFAULT_RETRIES, DEFAULT_RETRY_BASE_S, Kafka_Sink,
+                         Kafka_Source)
 
 
-class Kafka_Source_Builder(_SourceOverloadMixin, BasicBuilder):
+class _RetryMixin:
+    """``with_retries``: a real broker's transient client errors are
+    retried ``attempts`` times, the k-th retry after ``base_ms * 2**k`` ms
+    times a jitter in [0.5, 1.0]; each retry counts one
+    ``Kafka_reconnects``, and the error that outlasts them raises."""
+
+    _retry_attempts = DEFAULT_RETRIES
+    _retry_base_s = DEFAULT_RETRY_BASE_S
+
+    def with_retries(self, attempts: int = DEFAULT_RETRIES,
+                     base_ms: float = DEFAULT_RETRY_BASE_S * 1e3):
+        if attempts < 0 or base_ms < 0:
+            raise WindFlowError(
+                "with_retries: attempts and base_ms must be >= 0")
+        self._retry_attempts = int(attempts)
+        self._retry_base_s = float(base_ms) / 1e3
+        return self
+
+    def _finish_retries(self, op):
+        op.retry_attempts = self._retry_attempts
+        op.retry_base_s = self._retry_base_s
+        return op
+
+
+class Kafka_Source_Builder(_RetryMixin, _SourceOverloadMixin,
+                           BasicBuilder):
     _default_name = "kafka_source"
 
     def __init__(self, deser_func: Callable) -> None:
@@ -75,16 +101,17 @@ class Kafka_Source_Builder(_SourceOverloadMixin, BasicBuilder):
         if self._block_size is not None:
             op.block_mode = True
             op.block_size = self._block_size
-        return self._finish_overload(op)
+        return self._finish_retries(self._finish_overload(op))
 
 
-class Kafka_Sink_Builder(BasicBuilder):
+class Kafka_Sink_Builder(_RetryMixin, BasicBuilder):
     _default_name = "kafka_sink"
 
     def __init__(self, ser_func: Callable) -> None:
         super().__init__(ser_func)
         self._brokers: Optional[str] = None
         self._exactly_once = False
+        self._txn_dir: Optional[str] = None
 
     def with_brokers(self, brokers: str):
         self._brokers = brokers
@@ -95,11 +122,14 @@ class Kafka_Sink_Builder(BasicBuilder):
         checkpoint's finalize (a transactional producer with the stable id
         ``wf-txn-<op>-r<idx>``; zombie replicas are fenced). A
         ``memory://`` broker models the whole prepare / commit / abort /
-        fence surface and stages the epochs itself. ``staging_dir`` (the
-        JAX package's local staging root of a real broker's epochs) is
-        accepted for the JAX signature and unused: real brokers are not
-        ported."""
+        fence surface and holds the prepared epochs itself. A real broker
+        needs confluent_kafka (kafka-python has no transactions: the
+        graph's build refuses); its epochs stage in ``staging_dir``
+        (default: the graph's ``with_exactly_once`` staging root, else
+        ``wf_txn_sinks``)."""
         self._exactly_once = True
+        if staging_dir is not None:
+            self._txn_dir = staging_dir
         return self
 
     def build(self) -> Kafka_Sink:
@@ -108,4 +138,5 @@ class Kafka_Sink_Builder(BasicBuilder):
         op = self._finish(Kafka_Sink(self._func, self._brokers, self._name,
                                      self._parallelism))
         op.exactly_once = self._exactly_once
-        return op
+        op.txn_dir = self._txn_dir
+        return self._finish_retries(op)

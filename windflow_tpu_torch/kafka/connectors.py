@@ -1,7 +1,6 @@
 """Kafka connectors: external ingestion and egress with replayable offsets.
 
-The port's copy of the ``memory://`` half of
-``windflow_tpu/kafka/connectors.py``. Parity:
+The port's copy of ``windflow_tpu/kafka/connectors.py``. Parity:
 ``wf/kafka/kafka_source.hpp:127-519`` (consumer-group replicas, a poll
 loop with an idle timeout, a user deserialization functor returning a
 continue flag, explicit start offsets) and
@@ -12,20 +11,22 @@ The transport sits behind one small interface (subscribe / consume /
 consume_batch / produce / flush / close, and the offset cursors). A broker
 string ``"memory://<name>"`` uses the in-process ``MemoryBroker``
 (partitioned topics, offsets, consumer groups, committed group offsets).
-Any other broker string names a real Kafka cluster, whose clients
-(confluent_kafka, kafka-python) are not ported: ``make_transport`` and the
-operators' constructors raise ``WindFlowError`` saying so. The retry
-helper takes its attempts and backoff as arguments (the port reads no
-``WF_*`` variable).
+Any other broker string names a real Kafka cluster, reached through
+``ConfluentTransport`` (confluent_kafka, librdkafka; preferred) or
+``KafkaPythonTransport`` (kafka-python). A client library is imported only
+when such a broker is used; with neither installed, the operators'
+constructors raise ``WindFlowError`` naming the client. A transient client
+error is retried with a jittered exponential backoff whose attempts and
+base delay are the builders' ``with_retries`` (the port reads no
+``WF_KAFKA_RETRIES`` / ``WF_KAFKA_RETRY_BASE_MS``).
 
-Exactly-once (``Kafka_Sink_Builder.with_exactly_once``): the broker's
-transaction half (``txn_init`` / ``txn_prepare`` / ``txn_commit`` /
-``txn_abort`` with a fence generation per transactional id) and
-``TxnKafkaSinkReplica`` over ``_MemoryTxnBackend``, whose prepared epochs
-live in the broker. The JAX package's ``_StagedKafkaBackend`` (a real
-broker's epochs staged in a local segment store, produced in one Kafka
-transaction at commit) is not ported: it is reached only through the
-real-broker transports, which stay refused.
+Exactly-once (``Kafka_Sink_Builder.with_exactly_once``): on ``memory://``
+the broker's transaction half (``txn_init`` / ``txn_prepare`` /
+``txn_commit`` / ``txn_abort`` with a fence generation per transactional
+id) under ``_MemoryTxnBackend``; on a real broker ``_StagedKafkaBackend``:
+each epoch staged in a local segment store, produced in one Kafka
+transaction when the checkpoint finalizes it (confluent_kafka only:
+kafka-python has no transactional producer, and refuses).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..operators.base import BasicOperator, BasicReplica, arity
 from ..operators.source import SourceShipper
 from ..sinks.transactional import FencedWriteError
 
+# the JAX package's WF_KAFKA_RETRIES / WF_KAFKA_RETRY_BASE_MS defaults
 DEFAULT_RETRIES = 5
 DEFAULT_RETRY_BASE_S = 0.1
 
@@ -256,18 +258,30 @@ def _parse_brokers(brokers: str):
     return ("kafka", brokers)
 
 
-def _refuse_real_broker(brokers: str) -> None:
-    raise WindFlowError(
-        f"Kafka connector: broker {brokers!r} needs a Kafka client "
-        "library (confluent_kafka / kafka-python); real-broker transports "
-        "are not yet ported to windflow_tpu_torch — use a memory:// "
-        "broker")
+def _require_kafka_client() -> str:
+    """The client library a real broker goes through: confluent_kafka if
+    it imports, else kafka-python; neither raises ``WindFlowError``."""
+    try:
+        import confluent_kafka  # noqa: F401
+        return "confluent"
+    except ImportError:
+        pass
+    try:
+        import kafka  # noqa: F401
+        return "kafka-python"
+    except ImportError:
+        raise WindFlowError(
+            "Kafka connector: no Kafka client library available "
+            "(confluent_kafka / kafka-python); use a memory:// broker or "
+            "install a client") from None
 
 
 # ---------------------------------------------------------------------------
 # Transport
 # ---------------------------------------------------------------------------
 class MemoryTransport:
+    supports_transactions = True
+
     def __init__(self, name: str) -> None:
         self.broker = MemoryBroker.get(name)
         self._parts: List[Tuple[str, int]] = []
@@ -355,12 +369,313 @@ def _member_share(offsets, member: int, n_members: int):
             if p % n_members == member}
 
 
+class _ClientTransport:
+    """What the two real-client adapters share: the retry settings (the
+    builders' ``with_retries``; the owning replica sets them and points
+    ``on_retry`` at its ``Kafka_reconnects``) and ``auto_commit``, which
+    a checkpointing source turns off before ``subscribe`` (offsets then
+    commit only when a checkpoint finalizes)."""
+
+    retry_attempts = DEFAULT_RETRIES
+    retry_base_s = DEFAULT_RETRY_BASE_S
+
+    def __init__(self) -> None:
+        self._consumer = None
+        self._producer = None
+        self.auto_commit = True
+        self.on_retry = None
+
+    def _retry(self, fn: Callable, what: str):
+        return _retrying(self, fn, what, self.retry_attempts,
+                         self.retry_base_s)
+
+    def close(self) -> None:
+        if self._consumer is not None:
+            self._consumer.close()
+
+
+def _produce_kwargs(on_delivery, partition, key) -> dict:
+    kwargs = {"on_delivery": on_delivery}
+    if partition is not None:
+        kwargs["partition"] = partition
+    if key is not None:
+        kwargs["key"] = key
+    return kwargs
+
+
+class ConfluentTransport(_ClientTransport):
+    """confluent_kafka (librdkafka) adapter. ``module`` replaces the
+    imported client (the tests pass a fake with Consumer / Producer /
+    TopicPartition / KafkaException)."""
+
+    supports_transactions = True  # librdkafka's transactional producer
+
+    def __init__(self, brokers: str, module=None) -> None:
+        super().__init__()
+        if module is None:
+            import confluent_kafka as module  # noqa: PLC0415
+        self._ck = module
+        self.brokers = brokers
+        self._txn_producer = None
+        self._delivery_errors = 0
+
+    def _transient_excs(self) -> tuple:
+        exc = getattr(self._ck, "KafkaException", None)
+        return (exc,) if isinstance(exc, type) else ()
+
+    def subscribe(self, topics, group, member, n_members, offsets) -> bool:
+        ck = self._ck
+        self._consumer = self._retry(lambda: ck.Consumer({
+            "bootstrap.servers": self.brokers,
+            "group.id": group,
+            "enable.auto.commit": self.auto_commit,
+            "auto.offset.reset": "earliest",
+        }), "consumer connect")
+        if offsets:
+            # explicit offsets = an explicit assignment (the reference's
+            # manual-offset mode), split across the replica group so that
+            # no partition is read twice
+            mine = _member_share(offsets, member, n_members)
+            if not mine:
+                return False
+            self._consumer.assign([ck.TopicPartition(t, p, o)
+                                   for (t, p), o in mine.items()])
+        else:
+            self._consumer.subscribe(list(topics))
+        return True
+
+    @staticmethod
+    def _message(msg) -> Optional[KafkaMessage]:
+        """A client message as a ``KafkaMessage``; None for a transient
+        per-message error (a partition EOF), a fatal one raises."""
+        err = msg.error()
+        if err is not None:
+            if getattr(err, "fatal", lambda: False)():
+                raise WindFlowError(f"Kafka consumer error: {err}")
+            return None
+        ts = msg.timestamp()
+        ts_us = ts[1] * 1000 if ts and ts[1] > 0 else current_time_usecs()
+        return KafkaMessage(msg.topic(), msg.partition(), msg.offset(),
+                            msg.value(), ts_us)
+
+    def consume(self) -> Optional[KafkaMessage]:
+        msg = self._retry(lambda: self._consumer.poll(0.01), "consume")
+        return None if msg is None else self._message(msg)
+
+    def consume_batch(self, max_n: int) -> List[KafkaMessage]:
+        """librdkafka's batch poll (``Consumer.consume``), or repeated
+        single polls where the client lacks it; per-message errors as in
+        ``consume``."""
+        batch_fn = getattr(self._consumer, "consume", None)
+        if batch_fn is None:
+            out = []
+            while len(out) < max_n:
+                m = self.consume()
+                if m is None:
+                    break
+                out.append(m)
+            return out
+        msgs = self._retry(lambda: batch_fn(max_n, 0.01), "consume")
+        return [m for m in map(self._message, msgs or ()) if m is not None]
+
+    def _on_delivery(self, err, msg) -> None:
+        if err is not None:
+            self._delivery_errors += 1
+
+    def produce(self, topic, payload, partition=None, key=None) -> None:
+        if self._producer is None:
+            self._producer = self._ck.Producer(
+                {"bootstrap.servers": self.brokers})
+            self._delivery_errors = 0
+        p = self._producer
+        kwargs = _produce_kwargs(self._on_delivery, partition, key)
+        for _ in range(60):
+            try:
+                self._retry(lambda: p.produce(topic, value=payload,
+                                              **kwargs), "produce")
+                break
+            except BufferError:
+                # librdkafka's local queue is full: wait, do not crash
+                p.poll(1.0)
+        else:
+            raise WindFlowError(
+                "Kafka sink: local producer queue stayed full for 60s")
+        p.poll(0)  # serve delivery callbacks
+
+    def flush(self) -> None:
+        if self._producer is None:
+            return
+        remaining = self._producer.flush(10)
+        if remaining or self._delivery_errors:
+            raise WindFlowError(
+                f"Kafka sink lost data: {self._delivery_errors} delivery "
+                f"error(s), {remaining or 0} message(s) still queued at "
+                "flush timeout")
+
+    # -- transactions (exactly-once sinks) ---------------------------------
+    def txn_produce_epoch(self, txn_id: str, records) -> None:
+        """Produce one finalized epoch atomically in a Kafka transaction:
+        a ``read_committed`` consumer sees the whole epoch or none of it.
+        The transactional id is stable per sink replica, so the broker
+        fences a zombie producer of an older run (``init_transactions``
+        bumps the producer epoch). Runs on the sink's commit path."""
+        if self._txn_producer is None:
+            p = self._ck.Producer({"bootstrap.servers": self.brokers,
+                                   "transactional.id": txn_id,
+                                   "enable.idempotence": True})
+            p.init_transactions(30.0)
+            self._txn_producer = p
+        p = self._txn_producer
+        p.begin_transaction()
+        try:
+            for topic, partition, key, payload in records:
+                p.produce(topic, value=payload, **_produce_kwargs(
+                    self._on_delivery, partition, key))
+            remaining = p.flush(10)
+            if remaining or self._delivery_errors:
+                raise WindFlowError(
+                    f"Kafka exactly-once sink: {self._delivery_errors} "
+                    f"delivery error(s), {remaining or 0} message(s) "
+                    "unflushed inside the epoch transaction")
+            p.commit_transaction(30.0)
+        except Exception:
+            try:
+                p.abort_transaction(10.0)
+            except Exception:  # noqa: BLE001 - the first failure matters
+                pass
+            raise
+
+    # -- checkpointing -----------------------------------------------------
+    def snapshot_positions(self) -> Dict[Tuple[str, int], int]:
+        if self._consumer is None:
+            return {}
+        try:
+            tps = self._consumer.assignment()
+            return {(tp.topic, tp.partition): tp.offset
+                    for tp in self._consumer.position(tps)
+                    if tp.offset >= 0}
+        except self._transient_excs():
+            return {}
+
+    def commit_offsets(self, offsets: Dict[Tuple[str, int], int]) -> None:
+        if self._consumer is None or not offsets:
+            return
+        ck = self._ck
+        try:
+            self._consumer.commit(
+                offsets=[ck.TopicPartition(t, p, o)
+                         for (t, p), o in offsets.items()],
+                asynchronous=False)
+        except self._transient_excs():
+            pass  # best effort: a failed commit only widens the replay
+
+
+class KafkaPythonTransport(_ClientTransport):
+    """kafka-python adapter (a pure-Python client). ``module`` replaces
+    the imported client."""
+
+    supports_transactions = False  # kafka-python has no transactions
+
+    def __init__(self, brokers: str, module=None) -> None:
+        super().__init__()
+        if module is None:
+            import kafka as module  # noqa: PLC0415
+        self._kp = module
+        self.brokers = brokers.split(",")
+
+    def _transient_excs(self) -> tuple:
+        exc = getattr(getattr(self._kp, "errors", None), "KafkaError", None)
+        return (exc,) if isinstance(exc, type) else ()
+
+    def subscribe(self, topics, group, member, n_members, offsets) -> bool:
+        kp = self._kp
+        self._consumer = self._retry(lambda: kp.KafkaConsumer(
+            bootstrap_servers=self.brokers, group_id=group,
+            enable_auto_commit=self.auto_commit,
+            auto_offset_reset="earliest"), "consumer connect")
+        if offsets:
+            mine = _member_share(offsets, member, n_members)
+            if not mine:
+                return False
+            self._consumer.assign([kp.TopicPartition(t, p)
+                                   for (t, p) in mine])
+            for (t, p), o in mine.items():
+                self._consumer.seek(kp.TopicPartition(t, p), o)
+        else:
+            self._consumer.subscribe(list(topics))
+        return True
+
+    def _poll(self, max_n: int) -> List[KafkaMessage]:
+        """One ``poll(max_records=max_n)``, flattened across partitions
+        (each partition's records in offset order)."""
+        polled = self._retry(lambda: self._consumer.poll(
+            timeout_ms=10, max_records=max_n), "consume")
+        return [KafkaMessage(r.topic, r.partition, r.offset, r.value,
+                             r.timestamp * 1000
+                             if getattr(r, "timestamp", 0)
+                             else current_time_usecs())
+                for records in polled.values() for r in records]
+
+    def consume(self) -> Optional[KafkaMessage]:
+        out = self._poll(1)
+        return out[0] if out else None
+
+    def consume_batch(self, max_n: int) -> List[KafkaMessage]:
+        return self._poll(max_n)
+
+    def produce(self, topic, payload, partition=None, key=None) -> None:
+        if self._producer is None:
+            self._producer = self._kp.KafkaProducer(
+                bootstrap_servers=self.brokers)
+        p = self._producer
+        self._retry(lambda: p.send(topic, value=payload,
+                                   partition=partition, key=key), "produce")
+
+    def flush(self) -> None:
+        if self._producer is not None:
+            self._producer.flush(timeout=10)
+
+    # -- checkpointing -----------------------------------------------------
+    def snapshot_positions(self) -> Dict[Tuple[str, int], int]:
+        if self._consumer is None:
+            return {}
+        try:
+            return {(tp.topic, tp.partition): self._consumer.position(tp)
+                    for tp in self._consumer.assignment()}
+        except self._transient_excs():
+            return {}
+
+    def commit_offsets(self, offsets: Dict[Tuple[str, int], int]) -> None:
+        if self._consumer is None or not offsets:
+            return
+        kp = self._kp
+        try:
+            self._consumer.commit(
+                {kp.TopicPartition(t, p): kp.OffsetAndMetadata(o, None)
+                 for (t, p), o in offsets.items()})
+        except self._transient_excs():
+            pass  # best effort: a failed commit only widens the replay
+
+
 def make_transport(brokers: str):
-    """memory:// -> ``MemoryTransport``; a real broker raises."""
+    """memory:// -> ``MemoryTransport``; any other broker -> the first
+    client that imports (confluent_kafka, then kafka-python)."""
     kind, target = _parse_brokers(brokers)
     if kind == "memory":
         return MemoryTransport(target)
-    _refuse_real_broker(brokers)
+    if _require_kafka_client() == "confluent":
+        return ConfluentTransport(target)
+    return KafkaPythonTransport(target)
+
+
+def _open_transport(op, on_retry):
+    """A replica's transport with its operator's retry settings, each
+    retry counted by ``on_retry``."""
+    transport = make_transport(op.brokers)
+    transport.on_retry = on_retry
+    transport.retry_attempts = op.retry_attempts
+    transport.retry_base_s = op.retry_base_s
+    return transport
 
 
 # ---------------------------------------------------------------------------
@@ -397,8 +712,11 @@ class Kafka_Source(BasicOperator):
         self._riched = arity(deser_func) >= 3
         self.block_mode = False  # set by with_columnar_blocks
         self.block_size = 512
+        # transient-error retries (with_retries)
+        self.retry_attempts = DEFAULT_RETRIES
+        self.retry_base_s = DEFAULT_RETRY_BASE_S
         if _parse_brokers(brokers)[0] != "memory":
-            _refuse_real_broker(brokers)
+            _require_kafka_client()
 
     def build_replicas(self) -> None:
         self.replicas = [KafkaSourceReplica(self, i)
@@ -436,9 +754,6 @@ class KafkaSourceReplica(BasicReplica):
         """Transport retry hook: one transient-error retry
         (``Kafka_reconnects``)."""
         self.stats.kafka_reconnects += 1
-
-    def _retry(self, fn: Callable, what: str):
-        return _retrying(self._transport, fn, what)
 
     # -- checkpointing -----------------------------------------------------
     def bind_checkpoint(self, coordinator, inject_cb) -> None:
@@ -522,8 +837,9 @@ class KafkaSourceReplica(BasicReplica):
             for p, t, w in pend:
                 self._advance_wm(w)
                 self._emit_admitted(p, t)
-        transport = make_transport(op.brokers)
-        transport.on_retry = self._note_reconnect
+        transport = _open_transport(op, self._note_reconnect)
+        if self._coord is not None:
+            transport.auto_commit = False  # commits ride checkpoints only
         self._transport = transport
         offsets = op.offsets
         if self._restore_offsets is not None:
@@ -572,16 +888,16 @@ class KafkaSourceReplica(BasicReplica):
                 self._maybe_commit()
             if block_n:
                 # one batch poll, decoded whole by the functor; barriers
-                # land only between polls
-                msgs = self._retry(lambda: transport.consume_batch(block_n),
-                                   "consume")
+                # land only between polls (the transport retries transient
+                # client errors)
+                msgs = transport.consume_batch(block_n)
                 if msgs:
                     last_progress = current_time_usecs()
                     if self._call(msgs, shipper) is False:
                         return
                     continue
             else:
-                msg = self._retry(transport.consume, "consume")
+                msg = transport.consume()
                 if msg is not None:
                     last_progress = current_time_usecs()
                     if self._call(msg, shipper) is False:
@@ -670,8 +986,13 @@ class Kafka_Sink(BasicOperator):
         self.brokers = brokers
         self._riched = arity(ser_func) >= 2
         if _parse_brokers(brokers)[0] != "memory":
-            _refuse_real_broker(brokers)
+            _require_kafka_client()
         self.exactly_once = False
+        # a real broker's exactly-once staging root (with_exactly_once's
+        # staging_dir, or the graph's)
+        self.txn_dir: Optional[str] = None
+        self.retry_attempts = DEFAULT_RETRIES
+        self.retry_base_s = DEFAULT_RETRY_BASE_S
 
     def build_replicas(self) -> None:
         cls = TxnKafkaSinkReplica if self.exactly_once else KafkaSinkReplica
@@ -683,8 +1004,7 @@ class KafkaSinkReplica(BasicReplica):
         super().__init__(op, idx)
         # terminal operator: records the e2e latency of traced tuples
         self._e2e = self.stats.hist_e2e
-        self._transport = make_transport(op.brokers)
-        self._transport.on_retry = self._note_reconnect
+        self._transport = _open_transport(op, self._note_reconnect)
 
     def _note_reconnect(self) -> None:
         self.stats.kafka_reconnects += 1
@@ -753,19 +1073,89 @@ class _MemoryTxnBackend:
         return rolled, aborted
 
 
+class _StagedKafkaBackend:
+    """Real-broker backend: each epoch is staged durably in a local
+    ``SegmentBackend`` (the broker holds nothing until the finalize), and
+    its commit produces the whole epoch in one Kafka transaction
+    (``txn_produce_epoch``), so a ``read_committed`` consumer sees epochs
+    whole. The local ``.seg`` rename is the commit marker.
+
+    One crash window stays open, as in the JAX package (its
+    ``docs/API.md``): a crash after the broker's transaction commits and
+    before the local rename leaves the epoch pending, and the restore
+    rolls it forward into a second transaction, so the epoch is visible
+    twice. Closing it needs Kafka's resumable-transaction surface, which
+    the client APIs do not expose."""
+
+    def __init__(self, root: str, transport, txn_id: str) -> None:
+        from ..sinks.transactional import SegmentBackend
+        self._seg = SegmentBackend(root)
+        self.transport = transport
+        self.txn_id = txn_id
+
+    def is_committed(self, epoch: int) -> bool:
+        return self._seg.is_committed(epoch)
+
+    def do_precommit(self, epoch: int, records) -> None:
+        self._seg.do_precommit(epoch, records)
+
+    def _staged(self, epoch: int):
+        from ..sinks.transactional import port_loads
+        return port_loads(self._seg.store.read(epoch, pending=True))
+
+    def do_commit(self, epoch: int):
+        records = self._seg._records.get(epoch)
+        if records is None and not self._seg.is_committed(epoch):
+            records = self._staged(epoch)
+        if records:
+            self.transport.txn_produce_epoch(self.txn_id, records)
+        self._seg.do_commit(epoch)
+        return None  # no functor delivery: the topic IS the output
+
+    def do_abort(self, epoch: int) -> None:
+        self._seg.do_abort(epoch)
+
+    def do_recover(self, last_epoch: int):
+        store = self._seg.store
+        store.reap_tmp()
+        rolled, aborted = [], []
+        for epoch in store.pending_epochs():
+            if epoch <= last_epoch:
+                records = self._staged(epoch)
+                if records:
+                    self.transport.txn_produce_epoch(self.txn_id, records)
+                store.commit(epoch)
+                rolled.append((epoch, None))
+            else:
+                store.abort(epoch)
+                aborted.append(epoch)
+        return rolled, aborted
+
+
 class TxnKafkaSinkReplica(KafkaSinkReplica):
     """Kafka sink in exactly-once mode: serialized records buffer per
-    epoch, are prepared on the broker at the barrier and reach the topic
-    only when the coordinator finalizes the epoch. The transactional id
+    epoch, are prepared at the barrier (in the broker on ``memory://``,
+    in a local staged segment on a real broker) and reach the topic only
+    when the coordinator finalizes the epoch. The transactional id
     ``wf-txn-<op>-r<idx>`` is stable across restarts and rebuilds, so a
     replica left unwinding by a rescale or a supervised restart is
     fenced."""
 
     def __init__(self, op, idx):
         super().__init__(op, idx)
-        from ..sinks.transactional import EpochTxnDriver
-        backend = _MemoryTxnBackend(self._transport.broker,
-                                    f"wf-txn-{op.name}-r{idx}")
+        from ..sinks.transactional import EpochTxnDriver, txn_dir_for
+        txn_id = f"wf-txn-{op.name}-r{idx}"
+        if isinstance(self._transport, MemoryTransport):
+            backend = _MemoryTxnBackend(self._transport.broker, txn_id)
+        elif self._transport.supports_transactions:
+            backend = _StagedKafkaBackend(
+                txn_dir_for(op.name, idx, op.txn_dir), self._transport,
+                txn_id)
+        else:
+            raise WindFlowError(
+                f"{op.name}: exactly-once needs a transactional producer "
+                "— use a memory:// broker or confluent_kafka "
+                "(kafka-python has no transactions)")
         self._txn = EpochTxnDriver(backend, self.stats)
         self.on_idle = self._txn.poll
 
@@ -774,11 +1164,13 @@ class TxnKafkaSinkReplica(KafkaSinkReplica):
                else self.op.ser_func(payload))
         if out is None:
             return
-        try:
-            self._txn.backend.check_fence()
-        except FencedWriteError:
-            self.stats.txn_fenced_writes += 1
-            raise
+        check = getattr(self._txn.backend, "check_fence", None)
+        if check is not None:
+            try:
+                check()
+            except FencedWriteError:
+                self.stats.txn_fenced_writes += 1
+                raise
         topic, partition, data = out
         self._txn.buffer.append((topic, partition, None, data))
 

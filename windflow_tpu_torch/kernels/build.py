@@ -7,10 +7,13 @@ stream as integers. No source includes PyTorch's headers, so a build takes
 seconds rather than the minutes a ``torch/extension.h`` build takes.
 
 The library lands in ``build/kernels/`` at the root of the checkout (listed
-in ``.gitignore``), named by a digest of the source, the headers
-(``kernels/*.cuh``) and the flags, so an edited source is never served by
-a stale build. A traced combine's variant of K1 is a generated
-translation unit (``load_generated``), written and built there too.
+in ``.gitignore``), or in the compile cache directory that
+``PipeGraph.with_compile_cache`` sets (``set_cache_dir``, process-wide),
+named by a digest of the source, the headers (``kernels/*.cuh``) and the
+flags, so an edited source is never served by a stale build, and a
+current build there is loaded without running ``nvcc``. A traced
+combine's variant of K1 is a generated translation unit
+(``load_generated``), written and built there too.
 Nothing is compiled when the module is imported: ``load_library`` and
 ``load_generated`` build on the first call that needs the card; builds
 of different libraries may run in parallel threads.
@@ -38,6 +41,8 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _build_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+# the compile cache directory (set_cache_dir); None: BUILD_DIR
+_cache_dir: Optional[Path] = None
 #: per library: {"seconds": build time (0.0 when reused), "log": nvcc output}
 BUILD_INFO: Dict[str, dict] = {}
 
@@ -51,6 +56,21 @@ def nvcc_path() -> str:
         raise WindFlowError("nvcc not found (set CUDA_HOME): the CUDA "
                             "kernels are built from source on first use")
     return found
+
+
+def set_cache_dir(path: Optional[str]) -> None:
+    """Build and load the kernel libraries in ``path`` from now on (None:
+    ``build/kernels/`` again). Process-wide, as the JAX package's
+    ``jax.config`` compile cache is: it holds for every graph of the
+    process, and a library already loaded stays loaded."""
+    global _cache_dir
+    _cache_dir = None if path is None else Path(path)
+
+
+def build_dir() -> Path:
+    """Where libraries are built and looked up: the compile cache
+    directory if one is set, else ``build/kernels/``."""
+    return BUILD_DIR if _cache_dir is None else _cache_dir
 
 
 def _headers() -> bytes:
@@ -76,13 +96,18 @@ def _load(name: str, text: bytes,
             return lib
         digest = hashlib.sha256(text + _headers()
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"{name}-{digest[:16]}.so"
+        where = build_dir()
+        out = where / f"{name}-{digest[:16]}.so"
         info = {"seconds": 0.0, "log": ""}
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            where.mkdir(parents=True, exist_ok=True)
             if src is None:
+                # another process may build the same text into a shared
+                # cache directory: the source appears whole or not at all
                 src = out.with_suffix(".cu")
-                src.write_bytes(text)
+                tmp_src = out.with_suffix(f".{os.getpid()}.cu.tmp")
+                tmp_src.write_bytes(text)
+                os.replace(tmp_src, src)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             t0 = time.perf_counter()
             res = subprocess.run([nvcc_path(), *NVCC_FLAGS,
@@ -114,7 +139,7 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def load_generated(tag: str, text: str) -> ctypes.CDLL:
     """A generated translation unit of K1 (``combine_codegen``), built
-    into ``build/kernels/forest_rebuild-<tag>-<digest>.so`` (the digest
+    into ``<build_dir()>/forest_rebuild-<tag>-<digest>.so`` (the digest
     covers the text, the headers and the flags) and loaded; its
     ``BUILD_INFO`` entry is ``forest_rebuild-<tag>``. A failed build
     raises with the nvcc log."""

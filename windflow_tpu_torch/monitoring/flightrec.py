@@ -221,8 +221,9 @@ def capture_trace(window_ms: float) -> Dict[str, Any]:
 # kernel build/load attribution (the port's compile events)
 # ---------------------------------------------------------------------------
 def note_kernel_load(stats, label: str, us: float, built: bool) -> None:
-    """One build (``nvcc``) or load (a cached ``build/kernels/`` library)
-    of a hand-written kernel, on the replica that triggered it: the
+    """One build (``nvcc``) or load (a current library found in
+    ``build/kernels/`` or the ``with_compile_cache`` directory) of a
+    hand-written kernel, on the replica that triggered it: the
     ``Compile_*`` stats and a ``compile`` span in the current thread's
     ring. ``built`` says whether ``nvcc`` ran."""
     sig = f"{label}:{'nvcc' if built else 'cached'}"

@@ -47,9 +47,8 @@ sources open, and ``native_channels`` puts the C++ channel ring of
 ``native/`` on the host plane, whose staging encoders row staging uses
 whenever the runtime builds.
 The JAX package's ``WF_*`` knobs of these planes are the constructor's
-arguments. ``with_compile_cache`` refuses: the port has no jit programs to
-cache, and the forest-rebuild kernel's library is already cached by its
-source digest in ``build/kernels/``.
+arguments. ``with_compile_cache`` points the build of the hand-written
+kernels' libraries at a directory of the user's, process-wide.
 
 ``execution_mode`` picks the collector in front of each stage
 (``_make_collector``): DEFAULT merges watermarks, DETERMINISTIC merges the
@@ -189,17 +188,44 @@ class PipeGraph:
         self._slo_p99_ms: Optional[float] = None
         self._overload_policy = None
         self._overload_governor = None
+        # the kernels' compile cache directory (with_compile_cache)
+        self._compile_cache_dir: Optional[str] = None
         # prewarm (with_prewarm): every capacity bucket's device state is
         # made at start(), before the sources open
         self._prewarm_enabled = False
         self._prewarm_report: Optional[Dict[str, Any]] = None
 
-    def with_compile_cache(self, *args, **kwargs):
-        raise WindFlowError(
-            "with_compile_cache is not yet ported to windflow_tpu_torch, "
-            "and has nothing to cache here: the port's device programs are "
-            "torch ops with no jit, and the forest-rebuild kernel's library "
-            "is already cached by its source digest in build/kernels/")
+    def with_compile_cache(self, cache_dir: str) -> "PipeGraph":
+        """Build the hand-written kernels' libraries (K1's fieldwise
+        library and each traced combine's variant) into ``cache_dir``
+        from ``start()`` on, or load them from there without ``nvcc`` when
+        a current build is there, so that restarts, rescales and later
+        processes reuse them. Process-wide from ``start()``, as the JAX
+        package's ``jax.config`` cache is: later graphs of the process
+        build there too, and a library already loaded stays loaded. A
+        directory that cannot be created raises at ``start()``; a build
+        never falls back to ``build/kernels/``. The C++ runtime of
+        ``native/`` is not cached here (the JAX cache holds device
+        programs only). No environment variable takes the place of the
+        JAX package's ``WF_COMPILE_CACHE_DIR``."""
+        if self._started:
+            raise WindFlowError("with_compile_cache after start()")
+        self._compile_cache_dir = os.fspath(cache_dir)
+        return self
+
+    def _setup_compile_cache(self) -> None:
+        """``start()``: create the cache directory and point the kernel
+        builds at it, before any replica loads a kernel."""
+        d = self._compile_cache_dir
+        if d is None:
+            return
+        try:
+            os.makedirs(d, exist_ok=True)
+        except OSError as e:
+            raise WindFlowError(
+                f"with_compile_cache: cannot create {d!r}: {e}") from e
+        from ..kernels import build
+        build.set_cache_dir(d)
 
     # ------------------------------------------------------------------
     # overload protection (windflow_tpu_torch.overload)
@@ -1236,6 +1262,8 @@ class PipeGraph:
         if self._started:
             raise WindFlowError("PipeGraph already started")
         self._validate()
+        # before any replica can load a kernel
+        self._setup_compile_cache()
         if self._supervise_enabled:
             # the supervisor exists BEFORE the build, so every worker gets
             # its failure hook
