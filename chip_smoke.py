@@ -154,27 +154,36 @@ Phases, each printing one line of its own:
    through a DEAD_LETTER-guarded Map_GPU whose function raises on one
    row: exactly one dead letter, every other row mapped exactly, and the
    bisection's commits and host time against a clean batch's;
-14. the mesh plane (``mesh`` lines) on the one card with 8 virtual shards
-   (``ensure_virtual_devices(8)``, every shard stacked on ``cuda:0``):
+14. the mesh plane (``mesh`` lines) with 8 virtual shards
+   (``ensure_virtual_devices(8)``), first on one group (every shard
+   stacked on ``cuda:0``), then on card groups
+   (``ensure_virtual_devices(8, group_devices=...)``: 2 and 4 groups of
+   ``cuda:0``, where every copy between groups stays on the one card;
+   with two cards or more, also a group on each of 2, 4 or 8 cards):
    part ``ffat``, the HC stream (2 warm-up + 6 timed batches) through
-   ``Ffat_Windows_Mesh`` at mesh shapes (1, 1), (8, 1), (4, 2) and
-   (2, 4), and ``scripts/bench_mesh.py``'s config (64 keys,
-   16,384-tuple batches) at (4, 2): rows equal the CPU run at the same
-   shape (int32 sums: exact) and equal across shapes, K1 once per step;
-   part ``ops``, Map_Mesh (the stateful smap at 10,240 keys) and
-   Reduce_Mesh (graph_gpu's map -> filter -> keyed reduce at 256 keys)
-   at (4, 2) and (1, 1), rows equal the CPU run and the single-card
+   ``Ffat_Windows_Mesh`` at mesh shapes (8, 1) and (4, 2), and
+   ``scripts/bench_mesh.py``'s config (64 keys,
+   16,384-tuple batches) at (4, 2), then both at (4, 2) over each group
+   layout: rows equal the CPU run at the same shape (int32 sums: exact)
+   and equal across shapes and layouts, K1 once per step on each group
+   holding forest rows; part ``ops``, Map_Mesh (the stateful smap at
+   10,240 keys) and Reduce_Mesh (graph_gpu's map -> filter -> keyed
+   reduce at 256 keys) at (4, 2) and (1, 1) and at (4, 2) over 4 groups
+   (and over the cards), rows equal the CPU run and the single-card
    Map_GPU / Reduce_GPU; part ``restore``, the HC mesh window
    checkpointed at (4, 2) after block 8, killed before block 16 and
    restored onto (2, 4) (output equal to the uninterrupted run, no fired
    window fires again); part ``degrade``, the same graph supervised with
-   a device probe that reports 4 of the 8 virtual devices dead: it
-   recovers on 4 shards, re-expands to 8 in one planned restart when the
-   probe clears them, and its distinct output equals the uninterrupted
-   run. Each line gives tuples/s (and windows/s), ``Mesh_steps``,
-   ``Mesh_shuffle_bytes``, ``Mesh_shard_skew``, K1's launches, a
-   profiled run's idle share and, for restore / degrade, the restore
-   time or the MTTR of each restart;
+   a device probe that reports 4 of the 8 virtual devices dead, on one
+   group and on two (where the dead devices are the whole second group):
+   it recovers on 4 shards (one group), re-expands to 8 in one planned
+   restart when the probe clears them, and its distinct output equals
+   the uninterrupted run. Each line gives ``cards`` and ``groups`` (and
+   whether the copies between groups crossed cards), tuples/s (and
+   windows/s), ``Mesh_steps``, ``Mesh_shuffle_bytes``,
+   ``Mesh_shard_skew``, K1's launches, the bytes copied between groups a
+   step, a profiled run's idle share and kernels a batch and, for
+   restore / degrade, the restore time or the MTTR of each restart;
 15. BASELINE's Yahoo Streaming Benchmark (``ysb`` lines) as
    ``examples/ysb.py`` builds it: 100 campaigns x 10 ads, events typed
    i % 3, 100 us of event time apart, in an in-process Kafka broker
@@ -1272,16 +1281,22 @@ def programs_phase(torch, wt, blocks, card):
     return rows
 
 
+def _sync_cards(torch):
+    """Wait for every card (a mesh over card groups may use them all)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def _profiled(torch, run, n_batches):
     """One run of ``run`` under ``torch.profiler``: the wall time, the
     card's busy time (kernels and copies) and idle share, and kernels and
     copies per batch."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    _sync_cards(torch)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
-        torch.cuda.synchronize()
+        _sync_cards(torch)
         span = time.perf_counter() - t0
     kernels, copies = _events(torch, prof)
     busy = sum(e.time_range.elapsed_us() for e in kernels + copies) / 1e3
@@ -3183,16 +3198,21 @@ def supervise_phase(torch, wt, card):
 
 
 # ---------------------------------------------------------------------------
-# phase mesh: the mesh plane on one card (virtual shards)
+# phase mesh: the mesh plane over virtual shards, on one group and on card groups
 # ---------------------------------------------------------------------------
 MESH_VDEV = 8
-MESH_SHAPES = ((1, 1), (8, 1), (4, 2), (2, 4))
+# the HC shapes on one group; (1, 1) and (2, 4) run in the CPU tests
+# only, to keep the script inside its time
+MESH_SHAPES = ((8, 1), (4, 2))
 # 2 warm-up + 6 timed batches (12 timed until PR 12 cut the depth to keep
 # the script inside its time with the observe phase)
 MESH_BATCHES, MESH_WARMUP = 8, 2
 # scripts/bench_mesh.py's config: 64 keys, 16,384-tuple batches
 MESH_BENCH_KEYS, MESH_BENCH_BATCH = 64, 16_384
-MESH_DEAD = (4, 5, 6, 7)   # the degrade part's dead virtual devices
+MESH_DEAD = (4, 5, 6, 7)   # the degrade part's dead virtual devices (the
+# second of two groups of four in its grouped run)
+MESH_GROUPS = (2, 4)       # group counts of the grouped runs on cuda:0
+MESH_GROUP_SHAPE = (4, 2)  # the grouped runs' mesh shape
 MESH_PACE_S = 0.12         # the degrade part's pause between blocks
 MESH_CRASH_AT = 8          # the degrade part's crash (before this block)
 MESH_WAIT_S = 60.0
@@ -3246,6 +3266,14 @@ def _mesh_stats_live(graph, name):
     return reps[0] if len(reps) == 1 else None
 
 
+def _mesh_groups_live(graph, name):
+    """The group count of mesh operator ``name``'s built mesh, or None
+    while a supervisor rebuild has none to read."""
+    reps = list(next(o for o in graph._ops if o.name == name).replicas)
+    mesh = getattr(reps[0], "_mesh", None) if len(reps) == 1 else None
+    return None if mesh is None else mesh.n_groups
+
+
 def _mesh_rates(run, batch, n_rows):
     """Tuples/s and windows/s from the yield of batch MESH_WARMUP to the
     end of ``run()`` (windows: the rows that reached the sink after that
@@ -3264,14 +3292,57 @@ def _same_cols(a, b):
                                         for k in a)
 
 
+def _mesh_layouts(torch):
+    """``(label, group devices)`` of the grouped runs: MESH_GROUPS groups
+    of the MESH_VDEV virtual devices on cuda:0, and where the machine has
+    two cards or more, a group on each of 2, 4 or 8 of them."""
+    out = [(f"{g} groups on cuda:0", ["cuda:0"] * g) for g in MESH_GROUPS]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        c = max(d for d in (2, 4, 8) if d <= n)
+        out.append((f"{c} cards", [f"cuda:{i}" for i in range(c)]))
+    return out
+
+
+def _mesh_of(graph, name):
+    """The built mesh of mesh operator ``name``."""
+    return next(o for o in graph._ops if o.name == name).replicas[0]._mesh
+
+
+def _layout_fields(mesh):
+    """The mesh line's ``cards`` and ``groups``, and whether the copies
+    between groups crossed cards."""
+    cards, groups = len(mesh.cards), mesh.n_groups
+    row = dict(cards=cards, groups=groups)
+    if groups > 1:
+        row["peer_transport"] = (
+            "exercised between distinct cards" if cards > 1 else
+            "not exercised: every group on one card (copies within it)")
+    return row
+
+
+def _group_launches(name, k1, rep, mesh):
+    """K1 once per step on each group that holds forest rows."""
+    holders = sum(1 for k in mesh.key_groups() if k.n_home)
+    if k1 == 0 or rep["Rebuild_kernel_launches"] != k1 \
+            or k1 != holders * rep["Mesh_steps"]:
+        fail(f"{name}: K1 launches {k1}, replica "
+             f"{rep['Rebuild_kernel_launches']}, {holders} groups x steps "
+             f"{rep['Mesh_steps']}: not one launch per group per step")
+    return holders
+
+
 def mesh_ffat_part(torch, wt, card):
     """Part ``ffat``: the HC stream through Ffat_Windows_Mesh at every
-    shape of MESH_SHAPES, then bench_mesh's config at (4, 2). At each:
-    the card's rows equal the port's CPU rows (int32 sums: exact) and
-    every shape's rows equal the others'; K1 launched once per step (so
-    on every firing step); the late counters conserve the inputs. Returns
-    K1's launches."""
+    shape of MESH_SHAPES, then bench_mesh's config at (4, 2), all on one
+    group; then both at MESH_GROUP_SHAPE over each layout of
+    ``_mesh_layouts``. At each: the card's rows equal the port's CPU rows
+    (int32 sums: exact) and every shape's and layout's rows equal the
+    others'; K1 launched once per step on each group holding forest rows
+    (so on every firing step); the late counters conserve the inputs.
+    Returns K1's launches."""
     from windflow_tpu_torch.kernels import forest_rebuild as fr
+    from windflow_tpu_torch.mesh import core as mcore
     configs = [("hc", HC_KEYS, BATCH, s) for s in MESH_SHAPES] \
         + [("bench_mesh", MESH_BENCH_KEYS, MESH_BENCH_BATCH, (4, 2))]
     streams = {"hc": _blocks(HC_KEYS, seed=71, n_batches=MESH_BATCHES,
@@ -3279,26 +3350,26 @@ def mesh_ffat_part(torch, wt, card):
                "bench_mesh": _blocks(MESH_BENCH_KEYS, seed=72,
                                      n_batches=MESH_BATCHES,
                                      batch=MESH_BENCH_BATCH)}
-    launches, first = Counter(), {}
-    for cfg, n_keys, batch, shape in configs:
+    launches, first, cpu_rows = Counter(), {}, {}
+
+    def run_config(cfg, n_keys, batch, shape, layout=None):
         blocks = streams[cfg]
         _reset_launches(fr)
-        torch.cuda.synchronize()
+        _sync_cards(torch)
         run = _run_mesh_ffat(wt, "cuda", blocks, n_keys, shape, batch)
+        _sync_cards(torch)
         counts = _launch_counts(fr)
         k1 = counts.total()
         rep = _mesh_stats(run[3], "fwm")
-        name = f"mesh ffat {cfg} {shape}"
-        if k1 == 0 or rep["Rebuild_kernel_launches"] != k1 \
-                or k1 != rep["Mesh_steps"]:
-            fail(f"{name}: K1 launches {k1}, replica "
-                 f"{rep['Rebuild_kernel_launches']}, steps "
-                 f"{rep['Mesh_steps']}: not one launch per step")
-        launches += counts
+        mesh = _mesh_of(run[3], "fwm")
+        name = f"mesh ffat {cfg} {shape}" + (f" {layout}" if layout else "")
+        _group_launches(name, k1, rep, mesh)
+        launches.update(counts)
         g = _window_cols(run[0])
-        c = _window_cols(_run_mesh_ffat(wt, "cpu", blocks, n_keys, shape,
-                                        batch)[0])
-        if not _same_cols(g, c):
+        if layout is None:
+            cpu_rows[cfg, shape] = _window_cols(_run_mesh_ffat(
+                wt, "cpu", blocks, n_keys, shape, batch)[0])
+        if not _same_cols(g, cpu_rows[cfg, shape]):
             fail(f"{name}: window rows differ from the CPU run")
         if cfg in first and not _same_cols(g, first[cfg]):
             fail(f"{name}: window rows differ from shape {MESH_SHAPES[0]}")
@@ -3311,19 +3382,40 @@ def mesh_ffat_part(torch, wt, card):
             fail(f"{name}: the late counters do not conserve the inputs")
         row = dict(part="ffat", config=cfg, shape=list(shape), keys=n_keys,
                    batches=len(blocks), warmup=MESH_WARMUP, batch=batch,
-                   card=card, rows_equal_cpu=True, rows_equal_shapes=True,
-                   valid_windows=int(valid.sum()), rebuild_launches=k1,
+                   card=card, **_layout_fields(mesh), rows_equal_cpu=True,
+                   rows_equal_shapes=True, valid_windows=int(valid.sum()),
+                   rebuild_launches=k1,
                    **_mesh_rates(run, batch, len(g["key"])),
                    **{k: rep[k] for k in (
                        "Mesh_devices", "Mesh_steps", "Mesh_shuffle_bytes",
                        "Mesh_shard_skew", "Mesh_shard_occupancy",
                        "Mesh_step_usec_total", "Late_records",
                        "Late_dropped", "Inputs_ignored")})
-        if shape == (4, 2):
+        if layout is not None:
+            row.update(layout=layout, rows_equal_one_group=True,
+                       copied_bytes_per_step=mesh.copied_bytes
+                       / rep["Mesh_steps"])
+        # profiled: the one-group runs at (4, 2), and the grouped HC run
+        # at MESH_GROUPS[0] groups and over several cards (a profile of
+        # 4 groups' ~12k kernels a batch takes ~15 s to read)
+        if shape == (4, 2) and (layout is None or cfg == "hc" and (
+                mesh.n_groups == MESH_GROUPS[0] or len(mesh.cards) > 1)):
             row["profiled"] = _profiled(
                 torch, lambda: _run_mesh_ffat(wt, "cuda", blocks, n_keys,
                                               shape, batch), len(blocks))
         phase("mesh", **row)
+
+    for cfg, n_keys, batch, shape in configs:
+        run_config(cfg, n_keys, batch, shape)
+    prev = mcore.virtual_device_groups()
+    try:
+        for layout, devs in _mesh_layouts(torch):
+            mcore.ensure_virtual_devices(MESH_VDEV, group_devices=devs)
+            for cfg, n_keys, batch, shape in configs:
+                if shape == MESH_GROUP_SHAPE:
+                    run_config(cfg, n_keys, batch, shape, layout)
+    finally:
+        mcore.ensure_virtual_devices(MESH_VDEV, group_devices=prev)
     return launches
 
 
@@ -3345,13 +3437,21 @@ def _mesh_ops(wt, part, shape, mesh=True):
 def mesh_ops_part(torch, wt, card):
     """Part ``ops``: Map_Mesh (the stateful smap at 10,240 keys) and
     Reduce_Mesh (graph_gpu's map -> filter -> keyed reduce at 256 keys)
-    at (4, 2) and (1, 1): rows equal the CPU run's and the single-card
-    Map_GPU / Reduce_GPU's on the same stream (the map's row for row, the
-    reduce's as a multiset) and the numpy fold."""
+    at (4, 2) and (1, 1), then at (4, 2) over 4 groups of cuda:0 (and a
+    group on each card where there are several): rows equal the CPU
+    run's and the single-card Map_GPU / Reduce_GPU's on the same stream
+    (the map's row for row, the reduce's as a multiset) and the numpy
+    fold."""
+    from windflow_tpu_torch.mesh import core as mcore
     streams = {"map": _blocks(HC_KEYS, seed=73, n_batches=STATE_BATCHES,
                               batch=BATCH),
                "reduce": _blocks(GRAPH_KEYS, seed=74,
                                  n_batches=GRAPH_BATCHES, batch=BATCH)}
+    runs = [((4, 2), None, None), ((1, 1), None, None)] + [
+        (MESH_GROUP_SHAPE, layout, devs)
+        for layout, devs in _mesh_layouts(torch)
+        if len(devs) == 4 or "cards" in layout]
+    prev = mcore.virtual_device_groups()
     for part, blocks in streams.items():
         op_name = "smap" if part == "map" else "red"
         canon = _concat if part == "map" else _sorted_rows
@@ -3368,30 +3468,47 @@ def mesh_ops_part(torch, wt, card):
         if not ok:
             fail(f"mesh ops {part}: the single-card run differs from the "
                  "numpy fold")
-        for shape in ((4, 2), (1, 1)):
+        cpu_rows = {}
+        for shape, layout, devs in runs:
+            name = f"mesh ops {part} {shape}" + (f" {layout}"
+                                                 if layout else "")
             make = lambda w, s=shape: _mesh_ops(w, part, s)
-            torch.cuda.synchronize()
-            grun = _run_state_graph(wt, "cuda", blocks, make)
-            g = canon(grun[0])
-            if not _same_cols(g, canon(_run_state_graph(
-                    wt, "cpu", blocks, make)[0])):
-                fail(f"mesh ops {part} {shape}: rows differ from the CPU "
-                     "run")
-            if not _same_cols(g, single):
-                fail(f"mesh ops {part} {shape}: rows differ from the "
-                     f"single-card {'Map_GPU' if part == 'map' else 'Reduce_GPU'}")
-            rep = _mesh_stats(grun[3], op_name)
-            phase("mesh", part="ops", op=part, shape=list(shape),
-                  keys=HC_KEYS if part == "map" else GRAPH_KEYS,
-                  batches=len(blocks), warmup=STATE_WARMUP, batch=BATCH,
-                  card=card, rows=int(len(g["ts"])), rows_equal_cpu=True,
-                  rows_equal_single_card=True, rows_equal_numpy=True,
-                  tuples_per_s=_state_rates(grun, len(blocks), BATCH),
-                  **{k: rep[k] for k in (
-                      "Mesh_devices", "Mesh_steps", "Mesh_shuffle_bytes",
-                      "Mesh_shard_skew", "Mesh_step_usec_total")},
-                  profiled=_profiled(torch, lambda: _run_state_graph(
-                      wt, "cuda", blocks, make), len(blocks)))
+            mcore.ensure_virtual_devices(MESH_VDEV, group_devices=devs)
+            try:
+                _sync_cards(torch)
+                grun = _run_state_graph(wt, "cuda", blocks, make)
+                g = canon(grun[0])
+                if layout is None:
+                    cpu_rows[shape] = canon(_run_state_graph(
+                        wt, "cpu", blocks, make)[0])
+                if not _same_cols(g, cpu_rows[shape]):
+                    fail(f"{name}: rows differ from the CPU run")
+                if not _same_cols(g, single):
+                    fail(f"{name}: rows differ from the single-card "
+                         f"{'Map_GPU' if part == 'map' else 'Reduce_GPU'}")
+                rep = _mesh_stats(grun[3], op_name)
+                mesh = _mesh_of(grun[3], op_name)
+                row = dict(part="ops", op=part, shape=list(shape),
+                           keys=HC_KEYS if part == "map" else GRAPH_KEYS,
+                           batches=len(blocks), warmup=STATE_WARMUP,
+                           batch=BATCH, card=card, **_layout_fields(mesh),
+                           rows=int(len(g["ts"])), rows_equal_cpu=True,
+                           rows_equal_single_card=True,
+                           rows_equal_numpy=True,
+                           tuples_per_s=_state_rates(grun, len(blocks),
+                                                     BATCH),
+                           **{k: rep[k] for k in (
+                               "Mesh_devices", "Mesh_steps",
+                               "Mesh_shuffle_bytes", "Mesh_shard_skew",
+                               "Mesh_step_usec_total")})
+                if layout is not None:
+                    row.update(layout=layout, copied_bytes_per_step=mesh
+                               .copied_bytes / rep["Mesh_steps"])
+                row["profiled"] = _profiled(torch, lambda: _run_state_graph(
+                    wt, "cuda", blocks, make), len(blocks))
+                phase("mesh", **row)
+            finally:
+                mcore.ensure_virtual_devices(MESH_VDEV, group_devices=prev)
 
 
 def _run_mesh_rec(wt, src, store, shape, restore_from=None, crash=False,
@@ -3438,7 +3555,7 @@ def mesh_restore_part(torch, wt, card):
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     blocks = _blocks(HC_KEYS, seed=75, n_batches=REC_BATCHES,
                      batch=BATCH)
-    torch.cuda.synchronize()
+    _sync_cards(torch)
     gold = _rec_results("ffat", _run_mesh_rec(
         wt, _ReplayBlocks(blocks), _ckpt_dir("mesh_g"), (4, 2))[0])
     store = _ckpt_dir("mesh_rec")
@@ -3496,38 +3613,58 @@ def mesh_restore_part(torch, wt, card):
     return launches
 
 
-def mesh_degrade_part(torch, wt, card):
+def mesh_degrade_part(torch, wt, card, devs=None, gold=None):
     """Part ``degrade``: the HC ffat graph at (4, 2) under supervision
     with a device probe that reports virtual devices MESH_DEAD dead; the
     source raises once before block MESH_CRASH_AT (checkpoints every
     SUP_EVERY blocks). The graph recovers on 4 shards, and re-expands to
     8 in one planned restart once the probe clears them; the distinct
-    output equals the uninterrupted run. Returns K1's launches."""
+    output equals the uninterrupted run (``gold``: made here when None).
+    ``devs``: the group devices (None: one group); over two groups the
+    dead devices are the whole second group, whose card is lost, and the
+    recovered mesh spans the first group alone. Returns K1's launches and
+    the uninterrupted run's rows."""
     from windflow_tpu_torch.kernels import forest_rebuild as fr
+    from windflow_tpu_torch.mesh import core as mcore
     blocks = _blocks(HC_KEYS, seed=76, n_batches=REC_BATCHES,
                      batch=BATCH)
-    gold = _rec_results("ffat", _run_mesh_rec(
-        wt, _ReplayBlocks(blocks), _ckpt_dir("mesh_dg_g"), (4, 2))[0])
+    if gold is None:
+        gold = _rec_results("ffat", _run_mesh_rec(
+            wt, _ReplayBlocks(blocks), _ckpt_dir("mesh_dg_g"), (4, 2))[0])
     probe = wt.StaticDeviceProbe(dead=MESH_DEAD, interval_s=0.02)
-    store = _ckpt_dir("mesh_dg")
+    groups = 1 if devs is None else len(devs)
+    store = _ckpt_dir(f"mesh_dg{groups}")
     src = _GatedBlocks(blocks, every=SUP_EVERY, store=store,
                        crash_at=MESH_CRASH_AT, pace_s=MESH_PACE_S)
-    _reset_launches(fr)
-    torch.cuda.synchronize()
-    box = {}
-    prof = _profiled(torch, lambda: box.update(_mesh_degrade_run(
-        wt, src, store, probe)), REC_BATCHES)
+    prev = mcore.virtual_device_groups()
+    mcore.ensure_virtual_devices(MESH_VDEV, group_devices=devs)
+    try:
+        _reset_launches(fr)
+        _sync_cards(torch)
+        box = {}
+        run = lambda: box.update(_mesh_degrade_run(wt, src, store, probe))
+        # profiled on one group only: reading a grouped run's profile
+        # (~5k kernels a batch over 24 batches) takes ~20 s
+        prof = _profiled(torch, run, REC_BATCHES) if devs is None \
+            else run()
+    finally:
+        mcore.ensure_virtual_devices(MESH_VDEV, group_devices=prev)
     parts, g, seen, domains, wall = (box[k] for k in (
         "parts", "graph", "seen", "domains", "wall"))
     launches = _launch_counts(fr)
     sup = g.get_stats()["Supervision"]
     rep = _mesh_stats(g, "fwm")
+    mesh = _mesh_of(g, "fwm")
     hist = sup["Supervision_history"]
     if sup["Supervision_restarts"] != 1 \
             or [h.get("planned", False) for h in hist] != [False, True]:
         fail(f"mesh degrade: history {hist}")
-    if rep.get("Mesh_devices") != MESH_VDEV:
-        fail("mesh degrade: the mesh did not re-expand to 8 shards")
+    if rep.get("Mesh_devices") != MESH_VDEV or mesh.n_groups != groups:
+        fail("mesh degrade: the mesh did not re-expand to 8 shards on "
+             f"{groups} groups")
+    if seen["groups"] != 1:
+        fail(f"mesh degrade: the degraded mesh spans {seen['groups']} "
+             "groups, not the surviving one")
     if _rec_results("ffat", parts) != gold:
         fail("mesh degrade: the distinct output differs from the "
              "uninterrupted run")
@@ -3536,6 +3673,7 @@ def mesh_degrade_part(torch, wt, card):
         fail(f"mesh degrade: failure domains {domains}")
     phase("mesh", part="degrade", keys=HC_KEYS, batches=REC_BATCHES,
           batch=BATCH, card=card, shape=[4, 2], dead=list(MESH_DEAD),
+          **_layout_fields(mesh), degraded_groups=seen["groups"],
           checkpoint_every=SUP_EVERY, crash_before=MESH_CRASH_AT,
           pace_s=MESH_PACE_S, degraded_mesh_devices=seen["Mesh_devices"],
           final_mesh_devices=rep["Mesh_devices"], restarts=1,
@@ -3548,7 +3686,7 @@ def mesh_degrade_part(torch, wt, card):
           rebuild_launches=launches.total(), profiled=prof,
           **{k: rep[k] for k in ("Mesh_steps", "Mesh_shuffle_bytes",
                                  "Mesh_shard_skew")})
-    return launches
+    return launches, gold
 
 
 def _mesh_degrade_run(wt, src, store, probe):
@@ -3562,11 +3700,12 @@ def _mesh_degrade_run(wt, src, store, probe):
         while time.monotonic() < deadline:
             sup = g.get_stats()["Supervision"]
             rep = _mesh_stats_live(g, "fwm")
-            if rep is not None \
+            groups = _mesh_groups_live(g, "fwm")
+            if rep is not None and groups is not None \
                     and sup["Recovery_degraded_devices"] == len(MESH_DEAD) \
                     and rep.get("Mesh_devices") \
                     == MESH_VDEV - len(MESH_DEAD):
-                seen = dict(rep)
+                seen = dict(rep, groups=groups)
                 break
             time.sleep(0.01)
         if seen is None:
@@ -3589,8 +3728,9 @@ def _mesh_degrade_run(wt, src, store, probe):
 
 
 def mesh_phase(torch, wt, card):
-    """Phase ``mesh``: the mesh plane on the card with MESH_VDEV virtual
-    shards (parts ``ffat``, ``ops``, ``restore``, ``degrade``). Returns
+    """Phase ``mesh``: the mesh plane with MESH_VDEV virtual shards, on
+    one group and on groups of cuda:0 (and of each card where there are
+    several; parts ``ffat``, ``ops``, ``restore``, ``degrade``). Returns
     K1's launches on the mesh paths."""
     from windflow_tpu_torch.mesh import core as mcore
     prev = mcore.virtual_device_count()
@@ -3599,7 +3739,15 @@ def mesh_phase(torch, wt, card):
         launches = mesh_ffat_part(torch, wt, card)
         mesh_ops_part(torch, wt, card)
         launches += mesh_restore_part(torch, wt, card)
-        launches += mesh_degrade_part(torch, wt, card)
+        n, gold = mesh_degrade_part(torch, wt, card)
+        launches += n
+        # the lost shards one whole group: the second group's card (and
+        # a second real card where there is one)
+        layouts = [["cuda:0"] * 2] + ([["cuda:0", "cuda:1"]]
+                                      if torch.cuda.device_count() >= 2
+                                      else [])
+        for devs in layouts:
+            launches += mesh_degrade_part(torch, wt, card, devs, gold)[0]
     finally:
         mcore.ensure_virtual_devices(prev)
     return launches

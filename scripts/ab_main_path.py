@@ -2,7 +2,7 @@
 card.
 
     python3 scripts/ab_main_path.py OLD_DIR NEW_DIR [ROUNDS]
-        [--workload hc|ysb_paced] [--rate EVENTS_PER_S] [--events N]
+        [--workload hc|mesh|ysb_paced] [--rate EVENTS_PER_S] [--events N]
 
 Workload ``hc`` (the default) drives ``chip_smoke.py``'s high-cardinality
 main path (10,240 keys, 24 batches of 65,536 int32 tuples, TB window
@@ -17,7 +17,12 @@ Ffat_Windows_GPU over 10 s tumbling windows -> columnar sink) paced at
 ``--rate`` events/s (default 40,000: about half the rows' saturated
 rate), after loading (or first building) the forest-rebuild kernel:
 events/s, and p50 / p99 of window emit - the window's latest ingest (ms),
-with the counts held to the model.
+with the counts held to the model. Workload ``mesh`` drives
+``chip_smoke.py``'s mesh HC run (Ffat_Windows_Mesh at (4, 2) on 8
+virtual shards of one group, 2 warm-up + 6 timed batches of the HC
+stream) after loading the kernel, then the same run under
+``torch.profiler``: tuples/s of the first, and kernels and copies a
+batch of the profiled one.
 
 Each run is a fresh process that imports one checkout's
 ``windflow_tpu_torch`` and its ``chip_smoke.py`` on ``cuda``. Runs go
@@ -71,8 +76,25 @@ print(json.dumps({{"events_per_s": eps, "p50_ms": p50, "p99_ms": p99,
 """,
 }
 
+_CHILD["mesh"] = r"""
+from windflow_tpu_torch.kernels.build import load_library
+from windflow_tpu_torch.mesh import core as mcore
+load_library("forest_rebuild")  # an nvcc build must not land in the run
+mcore.ensure_virtual_devices(c.MESH_VDEV)
+blocks = c._blocks(c.HC_KEYS, seed=71, n_batches=c.MESH_BATCHES,
+                   batch=c.BATCH)
+mesh_run = lambda: c._run_mesh_ffat(wt, "cuda", blocks, c.HC_KEYS, (4, 2),
+                                    c.BATCH)
+rates = c._mesh_rates(mesh_run(), c.BATCH, 0)
+prof = c._profiled(torch, mesh_run, len(blocks))
+print(json.dumps({{"tuples_per_s": rates["tuples_per_s"],
+                  "kernels_per_batch": prof["kernels_per_batch"],
+                  "copies_per_batch": prof["copies_per_batch"]}}))
+"""
+
 # the per-run number each workload's medians are taken over
-_KEY = {"hc": "tuples_per_s", "ysb_paced": "p50_ms"}
+_KEY = {"hc": "tuples_per_s", "mesh": "kernels_per_batch",
+        "ysb_paced": "p50_ms"}
 
 
 def _card() -> str:

@@ -589,3 +589,38 @@ def test_late_conservation_invariant_mesh():
     assert st["Late_admitted"] == exp_admit > 0, st
     assert st["Late_dropped"] == exp_drop > 0, st
     assert st == _late_counts(wj)
+
+
+# ---------------------------------------------------------------------------
+# the forest over card groups (every group on the CPU here)
+# ---------------------------------------------------------------------------
+GROUP_CASES = [((8, 1), 8), ((4, 2), 2), ((4, 2), 8), ((2, 4), 4)]
+
+
+@pytest.mark.parametrize("shape,groups", GROUP_CASES,
+                         ids=[f"{s[0]}x{s[1]}-g{g}" for s, g in GROUP_CASES])
+def test_mesh_groups_match_one_group(shape, groups):
+    """Ffat_Windows_Mesh over card groups gives the one-group run's rows
+    (every row, invalid windows included), the JAX package's and the
+    oracle's; at (4, 2) over 8 groups and (2, 4) over 4 the 'data' merge
+    crosses groups."""
+    one, _ = _run(wt, _make_src(N_KEYS, STREAM_LEN), 64, mesh_shape=shape)
+    ct.ensure_virtual_devices(8, group_devices=["cpu"] * groups)
+    _, got, g = _both(_make_src(N_KEYS, STREAM_LEN), 64, mesh_shape=shape)
+    assert got.rows == one.rows
+    assert got.valid == _oracle(N_KEYS, STREAM_LEN, WIN_US, SLIDE_US)
+    (rep,) = g.get_stats()["Operators"][1]["replicas"]
+    assert rep["Mesh_devices"] == 8
+    r = next(op.replicas[0] for op in g._ops
+             if getattr(op, "is_mesh", False))
+    assert r._mesh.n_groups == groups
+    assert r._mesh.copied_bytes > 0
+
+
+def test_mesh_groups_late_conservation():
+    """The late counters of a mesh over 4 groups (summed on the host over
+    the groups' read-backs) conserve the inputs as the one-group run's
+    do."""
+    one = _late_counts(wt)
+    ct.ensure_virtual_devices(8, group_devices=["cpu"] * 4)
+    assert _late_counts(wt) == one

@@ -77,10 +77,16 @@ def test_make_key_mesh_shape_refusal_and_devices():
 
 
 def test_mesh_over_several_physical_devices_is_refused():
+    """A mesh over several physical devices builds one group of shards per
+    device (the mesh across cards is ported, ``test_torch_mesh_cards.py``);
+    what stays refused is a device whose shards are not one contiguous
+    block of the flat order."""
     devs = [(0, torch.device("cpu")), (1, torch.device("meta"))]
-    with pytest.raises(WindFlowError, match="2 physical devices.*not yet "
-                                            "ported"):
-        ct.KeyMesh((2, 1), devs)
+    mesh = ct.KeyMesh((2, 1), devs)
+    assert [(str(g.device), g.lo, g.hi) for g in mesh.groups] == \
+        [("cpu", 0, 1), ("meta", 1, 2)]
+    with pytest.raises(ValueError, match="contiguous block"):
+        ct.KeyMesh((2, 2), devs + devs)
 
 
 def test_make_key_mesh_without_device_wants_the_card(monkeypatch):

@@ -519,3 +519,116 @@ def test_tiered_mesh_refuses_hot_tier_above_key_capacity(tmp_path):
             .with_mesh(key_capacity=8).build()
         with pytest.raises(pkg.WindFlowError, match="hot_capacity"):
             op.build_replicas()
+
+
+# ---------------------------------------------------------------------------
+# the operators over card groups (every group on the CPU here)
+# ---------------------------------------------------------------------------
+GROUP_CASES = [((8, 1), 8), ((4, 2), 2), ((4, 2), 8), ((2, 4), 4)]
+GROUP_IDS = [f"{s[0]}x{s[1]}-g{g}" for s, g in GROUP_CASES]
+
+
+def _groups(n):
+    ct.ensure_virtual_devices(8, group_devices=["cpu"] * n)
+
+
+def _filter_builder(pkg, shape):
+    return (_B(pkg, "filter")(lambda row, st: ((st + 1) % 2 == 0, st + 1))
+            .with_state(np.int32(0)).with_key_by("key")
+            .with_mesh(mesh_shape=shape, key_capacity=NK))
+
+
+def _reduce_builder(pkg, shape):
+    return (_B(pkg, "reduce")(lambda a, b: {"v": a["v"] + b["v"]})
+            .with_key_by("key")
+            .with_mesh(mesh_shape=shape, key_capacity=NK, local_batch=4))
+
+
+@pytest.mark.parametrize("kind", ["map", "filter", "reduce"])
+@pytest.mark.parametrize("case", GROUP_CASES, ids=GROUP_IDS)
+def test_mesh_ops_over_groups_match_one_group(case, kind):
+    """Map_Mesh / Filter_Mesh / Reduce_Mesh over card groups: the rows of
+    the one-group run of the same shape, and the JAX package's (the
+    reduce with a local batch that splits each batch into several
+    slices, so its per-slice host merge runs too)."""
+    shape, n = case
+    build, fields = {
+        "map": (lambda p: _map_builder(p, shape).build(),
+                ("key", "v", "run")),
+        "filter": (lambda p: _filter_builder(p, shape).build(),
+                   ("key", "v")),
+        "reduce": (lambda p: _reduce_builder(p, shape).build(),
+                   ("key", "v"))}[kind]
+    one = _Rows(fields)
+    _run(wt, f"{kind}_g1", build(wt), one)
+    _groups(n)
+    got = _both(build, fields, f"{kind}_g{n}")
+    assert got == one.sorted
+    if kind == "map":
+        assert got == _map_oracle()
+
+
+@pytest.mark.parametrize("dst", [1, 2], ids=["g1", "g2"])
+def test_scan_snapshot_from_four_groups_restores_onto(dst):
+    """A mesh scan replica on 4 groups snapshots mid-stream: per-shard
+    blocks, whatever the groups; restored onto 1 or 2 groups (and another
+    shape) it goes on as an uninterrupted run does."""
+    ref = _replica((8, 1))
+    ref.process_device_batch(_batch(0, 96))
+    ref.process_device_batch(_batch(96, 192))
+    _groups(4)
+    r1 = _replica((4, 2))
+    r1.process_device_batch(_batch(0, 96))
+    assert r1._mesh.n_groups == 4
+    blob = r1.snapshot_state()
+    assert len(blob["mesh_scan"]["table_shards"]) == 8
+    r0 = _replica((4, 2))
+    r0.process_device_batch(_batch(0, 96))
+    one = r0.snapshot_state()["mesh_scan"]["table_shards"]
+    for a, b in zip(blob["mesh_scan"]["table_shards"], one):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    if dst == 1:
+        ct.ensure_virtual_devices(8)
+    else:
+        _groups(2)
+    r2 = _replica((2, 4))
+    r2.restore_state(blob)
+    r2.process_device_batch(_batch(96, 192))
+    assert r2._mesh.n_groups == dst
+    assert sorted(r2.emitter.rows) == sorted(ref.emitter.rows[96:])
+
+
+def test_tiered_mesh_scan_over_groups(tmp_path):
+    """The cold tier behind a table split over 4 groups (8 hot of 24 keys;
+    batches of 8 rows): demotions gather rows from their owning groups,
+    promotions scatter them back; the rows equal the one-group run's."""
+    import random
+
+    n, nk = 600, 24
+    keys = [random.Random(11 + i).randrange(nk) for i in range(n)]
+
+    def src(shipper, ctx):
+        for v in range(n):
+            shipper.push({"key": keys[v], "v": float(v + 1)})
+
+    def run(name):
+        b = (wt.Map_GPU_Builder(_running).with_state(np.float32(0))
+             .with_key_by("key")
+             .with_tiering(policy="lru", hot_capacity=8,
+                           db_dir=str(tmp_path / name))
+             .with_mesh(mesh_shape=(4, 2), key_capacity=8))
+        coll = _Rows(("key", "v", "run"))
+        g = wt.PipeGraph(name, wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.INGRESS_TIME, device="cpu")
+        g.add_source(wt.Source_Builder(src).with_output_batch_size(8)
+                     .build()).add(b.build()) \
+            .add_sink(wt.Sink_Builder(coll.sink).build())
+        run_bounded(g)
+        return coll.sorted, g
+
+    one, _ = run("tier_g1")
+    _groups(4)
+    got, g = run("tier_g4")
+    assert got == one and len(got) == n
+    rep = g.get_stats()["Operators"][1]["replicas"][0]
+    assert rep["Tier_promotes"] > 0 and rep["Tier_demotes"] > 0

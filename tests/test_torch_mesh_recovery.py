@@ -416,3 +416,135 @@ def test_mesh_scan_delta_checkpoints_restore(tmp_path):
     run_bounded(build(src, (2, 4)), restore_from=store)
     assert src.first == 450
     assert sorted(set(rows)) == sorted(golden)
+
+
+# ---------------------------------------------------------------------------
+# card groups (every group on the CPU here): blobs do not depend on the
+# group count, and a lost group degrades the mesh to the others
+# ---------------------------------------------------------------------------
+def _groups(n):
+    ct.ensure_virtual_devices(8, group_devices=["cpu"] * n if n > 1
+                              else None)
+
+
+def _mesh_groups(g, name):
+    return max((r._mesh.n_groups for o in g._ops if o.name == name
+                for r in o.replicas if getattr(r, "_mesh", None)),
+               default=0)
+
+
+@pytest.mark.parametrize("dst", [1, 2], ids=["g1", "g2"])
+def test_mesh_ffat_restore_from_four_groups_onto(tmp_path, dst):
+    """The forest checkpointed at (4, 2) over 4 groups restores at (2, 4)
+    over ``dst`` groups: merged rows equal the golden one-group run."""
+    nk, n_steps = 5, 240
+    gold = {}
+    run_bounded(_ffat_graph(wt, str(tmp_path / "gs"), WinSrc(n_steps, nk),
+                            gold, (8, 1), nk))
+    _groups(4)
+    store = str(tmp_path / "store")
+    crash = {}
+    g = _ffat_graph(wt, store, WinSrc(n_steps, nk, ckpt_at=120,
+                                      crash_at=180), crash, (4, 2), nk)
+    with pytest.raises(InjectedCrash):
+        run_bounded(g)
+    assert g._coordinator.completed == 1 and _mesh_groups(g, "fwm") == 4
+    _groups(dst)
+    rest = {}
+    src = WinSrc(n_steps, nk)
+    g2 = _ffat_graph(wt, store, src, rest, (2, 4), nk)
+    run_bounded(g2, restore_from=store)
+    assert src.first == 120 and _mesh_groups(g2, "fwm") == dst
+    assert {**crash, **rest} == gold
+
+
+@pytest.mark.parametrize("kind", ["scan", "ffat"])
+def test_port_restores_a_jax_mesh_checkpoint_onto_groups(kind, tmp_path):
+    """A JAX 8-device mesh checkpoint, converted, restores a port graph
+    whose mesh spans 4 groups: merged rows equal the golden run."""
+    nk = 7 if kind == "scan" else 5
+    if kind == "scan":
+        n, ckpt, crash, build = 800, 400, 650, _scan_graph
+        mk = lambda **kw: MeshSrc(n, nk, **kw)
+        golden, crash_rows, rest = [], [], []
+    else:
+        n, ckpt, crash, build = 240, 120, 180, _ffat_graph
+        mk = lambda **kw: WinSrc(n, nk, **kw)
+        golden, crash_rows, rest = {}, {}, {}
+    run_bounded(build(wt, str(tmp_path / "gs"), mk(), golden, (8, 1), nk))
+    jstore = str(tmp_path / "jax_store")
+    gj = build(wj, jstore, mk(ckpt_at=ckpt, crash_at=crash), crash_rows,
+               (8, 1), nk)
+    with pytest.raises(InjectedCrash):
+        run_bounded(gj)
+    _, ckpt_dir, manifest = StoreJ.resolve(jstore)
+    states = checkpoint_states_from_jax(
+        StoreJ(jstore).load_states(ckpt_dir, manifest), "cpu")
+    _groups(4)
+    src = mk()
+    g = build(wt, str(tmp_path / "port_store"), src, rest, (2, 4), nk)
+    run_bounded(g, restore_from=states)
+    assert src.first == ckpt
+    assert _mesh_groups(g, "mscan" if kind == "scan" else "fwm") == 4
+    if kind == "scan":
+        assert sorted(set(crash_rows + rest)) == sorted(golden)
+    else:
+        assert {**crash_rows, **rest} == golden
+
+
+def test_supervised_degrade_of_a_whole_group(tmp_path):
+    """Two groups of four virtual devices; the probe reports the second
+    group's (4-7) dead: the crashed graph recovers on the first group
+    alone (4 shards, one group), re-expands to both groups in ONE planned
+    restart when the probe clears them, and the distinct rows equal the
+    golden run's."""
+    n, nk = 1600, 7
+    golden = []
+    run_bounded(_scan_graph(wt, str(tmp_path / "gs"), MeshSrc(n, nk),
+                            golden, (4, 2), nk))
+    _groups(2)
+    probe = wt.StaticDeviceProbe(dead=(4, 5, 6, 7), interval_s=0.02)
+    release = threading.Event()
+
+    def hold(pos):
+        if pos == int(n * 0.9):
+            release.wait(30)  # the tail waits for the two-group plane
+
+    rows = []
+    src = MeshSrc(n, nk, ckpt_at=range(100, n, 100), crash_at=300,
+                  crash_times=1, pace=0.002, on_pos=hold)
+    g = _scan_graph(wt, str(tmp_path / "store"), src, rows, (4, 2), nk,
+                    supervise=wt.RestartPolicy(max_restarts=4,
+                                               backoff_s=0.02),
+                    probe=probe)
+    try:
+        g.start()
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            sup = g.get_stats().get("Supervision", {})
+            if sup.get("Recovery_degraded_devices", 0) == 4 \
+                    and _mesh_devices(g) == 4:
+                break
+            time.sleep(0.02)
+        else:
+            pytest.fail("the one-group recovery never showed")
+        assert _mesh_groups(g, "mscan") == 1
+        assert g.failure_domains() == {d: ["mscan"] for d in range(4)}
+        probe.dead.clear()  # the second group's card returns
+        while time.time() < deadline:
+            sup = g.get_stats().get("Supervision", {})
+            if sup.get("Supervision_planned_restarts", 0) >= 1 \
+                    and sup.get("Recovery_degraded_devices", 1) == 0:
+                break
+            time.sleep(0.02)
+        else:
+            pytest.fail("the planned re-expansion never happened")
+        release.set()
+        wait_end_bounded(g)
+    finally:
+        release.set()
+    sup = g.get_stats()["Supervision"]
+    assert sup["Supervision_restarts"] == 1
+    assert sup["Supervision_planned_restarts"] == 1
+    assert _mesh_devices(g) == 8 and _mesh_groups(g, "mscan") == 2
+    assert sorted(set(rows)) == sorted(golden)

@@ -509,22 +509,6 @@ def _graph():
     return wt.PipeGraph(device="cpu")
 
 
-_UNPORTED = {
-    # the mesh plane is ported on one card; a mesh over two physical
-    # devices is not
-    "mesh": lambda: wt.mesh.KeyMesh((2, 1), [(0, torch.device("cpu")),
-                                             (1, torch.device("meta"))]),
-}
-
-
-@pytest.mark.parametrize("case", sorted(_UNPORTED))
-def test_unported_surfaces_raise(case):
-    """Each surface of the JAX package the port does not have raises
-    ``WindFlowError("... not yet ported")``, never ``AttributeError``."""
-    with pytest.raises(wt.WindFlowError, match="not yet ported"):
-        _UNPORTED[case]()
-
-
 def _ran_graph(name="surf"):
     """A small host graph that has run (the exports need stages)."""
     g = wt.PipeGraph(name, device="cpu")
@@ -595,6 +579,10 @@ _PORTED = {
     # process-wide before it
     "compile_cache": lambda tmp: _graph().with_compile_cache(
         str(tmp / "cc"))._compile_cache_dir == str(tmp / "cc"),
+    # a mesh over two physical devices: a group of shards on each
+    "mesh": lambda tmp: wt.mesh.KeyMesh(
+        (2, 1), [(0, torch.device("cpu")),
+                 (1, torch.device("meta"))]).n_groups == 2,
 }
 
 

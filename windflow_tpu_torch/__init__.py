@@ -22,10 +22,10 @@ aligned-barrier checkpoints and restore from them (``checkpoint/``).
 operator (``scaling/``); ``with_supervision`` restarts a failed graph from
 its checkpoints and ``with_error_policy`` contains poison records
 (``supervision/``). ``with_mesh`` on the device builders shards a keyed
-operator over a ``('key', 'data')`` mesh of shards held on the graph's
-card (``mesh/``: ``Ffat_Windows_Mesh``, ``Map_Mesh``, ``Filter_Mesh``,
+operator over a ``('key', 'data')`` mesh of shards placed on card groups
+(``mesh/``: ``Ffat_Windows_Mesh``, ``Map_Mesh``, ``Filter_Mesh``,
 ``Reduce_Mesh``; ``ensure_virtual_devices(n)`` makes n virtual devices
-visible), and the supervisor rebuilds them on the healthy devices a
+visible, ``group_devices=`` places them on groups), and the supervisor rebuilds them on the healthy devices a
 ``with_device_probe`` reports. The host plane has the window operators
 (``Keyed_Windows``, ``Parallel_Windows``, ``Paned_Windows``,
 ``MapReduce_Windows``, ``Ffat_Windows`` over a host ``FlatFAT``) and the

@@ -8,7 +8,7 @@ deduction (or inferred from the first tuple at the staging boundary).
 ``with_state`` makes a Map_GPU or Filter_GPU keyed and stateful and
 ``with_tiering`` puts a host cold tier behind its device table;
 ``with_mesh`` shards a keyed operator's state over a ``('key', 'data')``
-mesh of shards on the graph's card (``windflow_tpu_torch/mesh``), with
+mesh of shards on card groups (``windflow_tpu_torch/mesh``), with
 the JAX package's signatures and refusals.
 
 User functions take a dict of torch columns on the graph's device and
@@ -59,7 +59,8 @@ class _MeshBuilderMixin:
         block-sharded over the shards. ``mesh_shape=(ka, da)`` forces the
         factorization (results are invariant under reshape); the default
         uses every visible device (``mesh.ensure_virtual_devices(n)``
-        places n shards on the graph's card). ARBITRARY int64 keys
+        places n shards on the graph's card, or on card groups with
+        ``group_devices=``). ARBITRARY int64 keys
         densify to ``key_capacity`` slots (more distinct keys raise).
         Mesh operators refuse ``rescale()``: to change capacity,
         checkpoint and restore with another ``mesh_shape``."""

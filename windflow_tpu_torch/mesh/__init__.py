@@ -17,11 +17,15 @@ not the replica count: ``rescale()`` refuses mesh operators; to change
 capacity, checkpoint and restore with another ``with_mesh(mesh_shape=
 ...)`` (the restore relayouts the key axis).
 
-All the shards of a mesh live on ONE card, stacked along a leading shard
-axis (``core``'s docstring). ``ensure_virtual_devices(n)`` makes ``n``
-virtual devices visible on the graph's device, which is how a mesh of
-``n`` shards runs on one card or on the CPU; a mesh across several
-physical cards is not yet ported.
+The shards of a mesh sit on groups, each a contiguous block of shards
+stacked along a leading shard axis on one device; a collective inside a
+group is one tensor op, between groups a copy from card to card issued
+by the one host process (``core``'s docstring). Without virtual devices
+each CUDA card is a group of one shard. ``ensure_virtual_devices(n)``
+makes ``n`` virtual devices visible on the graph's device (one group),
+which is how a mesh of ``n`` shards runs on one card or on the CPU;
+``ensure_virtual_devices(n, group_devices=[...])`` places them on groups,
+one device each, which may be one card repeated or a card each.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from .core import (DEFAULT_VIRTUAL_DEVICES, MESH_AXES, KeyMesh,
                    ring_pane_window_query, set_excluded_devices,
                    sharded_ffat_forest, sharded_grid_scan,
                    sharded_keyby_window_step, sharded_keyed_reduce,
-                   virtual_device_count, visible_devices)
+                   virtual_device_count, virtual_device_groups,
+                   visible_devices)
 from .ffat_mesh import Ffat_Windows_Mesh
 from .ops_mesh import Filter_Mesh, Map_Mesh, Reduce_Mesh
 
@@ -44,6 +49,6 @@ __all__ = [
     "make_sharded_state", "mesh_shard_count", "ring_pane_window_query",
     "set_excluded_devices", "sharded_ffat_forest", "sharded_grid_scan",
     "sharded_keyby_window_step", "sharded_keyed_reduce",
-    "virtual_device_count", "visible_devices",
+    "virtual_device_count", "virtual_device_groups", "visible_devices",
     "Ffat_Windows_Mesh", "Map_Mesh", "Filter_Mesh", "Reduce_Mesh",
 ]

@@ -30,13 +30,15 @@ single-card ``gpu/ffat_gpu.py``:
   ``K_pad``, live leaves re-mapped ``pane % F_old -> pane % F_new``).
 
 One step per ``GB``-row slice of a staged batch (padded with key = -1
-lanes); each step's fired windows come back in ONE read-back (results,
-validity, window ids and the late count) and leave as one columnar batch.
-On a card the level rebuild is the hand-written kernel K1
-(``kernels/forest_rebuild.cuh``), one launch per step over every shard's
-rows: the fieldwise library, or the user's combine traced and compiled
-into a variant of its own when the forest is first allocated (a combine
-the tracer refuses fails the run there).
+lanes), cut into the mesh groups' lane blocks and copied into each
+group's card; each step's fired windows come back in ONE read-back per
+card (results, validity, window ids and the late count, which the host
+sums over the groups) and leave as one columnar batch on the graph's
+device. On a card the level rebuild is the hand-written kernel K1
+(``kernels/forest_rebuild.cuh``), one launch per step on each group's
+key rows: the fieldwise library, or the user's combine traced and
+compiled into a variant of its own when the forest is first allocated (a
+combine the tracer refuses fails the run there).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import torch
 
 from ..basic import KeyCapacityError, OpType, RoutingMode, WinType, \
     WindFlowError
-from ..gpu.batch import BatchGPU, host_copies, to_device
+from ..gpu.batch import BatchGPU, to_device
 from ..gpu.keymap import KeySlotMap
 from ..gpu.ops_gpu import GPUOperatorBase, GPUReplicaBase, op_batch_keys_np
 from ..gpu.schema import TupleSchema, torch_dtype
@@ -113,14 +115,6 @@ class Ffat_Windows_Mesh(GPUOperatorBase):
 
     def build_replicas(self) -> None:
         self.replicas = [FfatMeshReplica(self, 0)]
-
-
-def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """One read-back of a dict of device tensors (one event wait)."""
-    host, event = host_copies(tensors)
-    if event is not None:
-        event.synchronize()
-    return {k: v.numpy() for k, v in host.items()}
 
 
 class FfatMeshReplica(GPUReplicaBase):
@@ -204,7 +198,7 @@ class FfatMeshReplica(GPUReplicaBase):
         self._GB, self._K_pad = GB, K_pad
         sample = {f: np.zeros(1, dt) for f, dt in self._val_dtypes.items()}
         self._state = init_fn(sample)
-        self._out_fields = list(self._state[0])
+        self._out_fields = list(self._trees0())
         if self.device.type == "cuda":
             forest_variant(op.combine, self._k1_dtypes())
         self.stats.mesh_devices = ka * da
@@ -216,8 +210,13 @@ class FfatMeshReplica(GPUReplicaBase):
         if pend is not None:
             self._apply_pending_restore()
 
+    def _trees0(self) -> Dict[str, torch.Tensor]:
+        """The first group's forest planes (every group's share dtypes)."""
+        trees = self._state[0]
+        return trees if self._mesh.n_groups == 1 else trees[0]
+
     def _k1_dtypes(self) -> Dict[str, torch.dtype]:
-        return {f: t.dtype for f, t in self._state[0].items()}
+        return {f: t.dtype for f, t in self._trees0().items()}
 
     def _count_rebuild(self) -> None:
         if self.device.type == "cuda":
@@ -240,12 +239,13 @@ class FfatMeshReplica(GPUReplicaBase):
             raise WindFlowError(f"{op.name}: {e}") from None
 
     def _install(self, trees, tvalid, nf, ml, fired) -> None:
-        """Host numpy state -> the device state tuple."""
-        dev = self._mesh.device
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        self._state = ({f: t(a) for f, a in trees.items()}, t(tvalid),
-                       t(nf.astype(np.int32)), t(ml.astype(np.int32)),
-                       t(fired.astype(np.int32)))
+        """Host numpy state (all ``K_pad`` rows) -> the device state tuple,
+        each group's home key rows on its card."""
+        mesh = self._mesh
+        sizes = mesh.key_row_sizes(self._K_pad // mesh.shape["key"])
+        t = lambda a: mesh.split(a, sizes)
+        self._state = (t(trees), t(tvalid), t(nf.astype(np.int32)),
+                       t(ml.astype(np.int32)), t(fired.astype(np.int32)))
 
     # -- sharded fault tolerance -------------------------------------------
     def snapshot_state(self) -> dict:
@@ -324,11 +324,11 @@ class FfatMeshReplica(GPUReplicaBase):
                 f"distinct keys but this graph declares key_capacity="
                 f"{op.key_capacity}; raise with_key_capacity to at least "
                 "the checkpointed count")
-        if set(d["trees"]) != set(self._state[0]):
+        if set(d["trees"]) != set(self._out_fields):
             raise WindFlowError(
                 f"{op.name}: restored forest fields "
                 f"{sorted(d['trees'])} do not match this graph's lift "
-                f"output {sorted(self._state[0])}: the checkpointed "
+                f"output {sorted(self._out_fields)}: the checkpointed "
                 "operator ran a different aggregation")
         self._keymap.slot_of_key.clear()
         self._keymap.slot_of_key.update(d["slot_of_key"])
@@ -488,13 +488,21 @@ class FfatMeshReplica(GPUReplicaBase):
                 "with_mesh(ring_panes=...)")
 
     def _host_state(self):
-        """``(trees, tvalid, next_fire, max_leaf, fired)`` as host numpy,
-        in one read-back."""
+        """``(trees, tvalid, next_fire, max_leaf, fired)`` as host numpy
+        (all ``K_pad`` rows), in one read-back per card."""
+        mesh = self._mesh
         trees, tvalid, nf, ml, fired = self._state
-        host = _host({**{f"t:{f}": a for f, a in trees.items()},
-                      "tvalid": tvalid, "nf": nf, "ml": ml, "fired": fired})
-        return ({f: host[f"t:{f}"] for f in trees}, host["tvalid"],
-                host["nf"], host["ml"], host["fired"])
+        host = core.read_host(mesh, {
+            **{f"t:{f}": core.pick(mesh, trees, f) for f in self._out_fields},
+            "tvalid": tvalid, "nf": nf, "ml": ml, "fired": fired})
+        return ({f: host[f"t:{f}"] for f in self._out_fields},
+                host["tvalid"], host["nf"], host["ml"], host["fired"])
+
+    def _host_control(self):
+        """``(next_fire, max_leaf)`` as host int64 (all ``K_pad`` rows)."""
+        host = core.read_host(self._mesh, {"nf": self._state[2],
+                                           "ml": self._state[3]})
+        return host["nf"].astype(np.int64), host["ml"].astype(np.int64)
 
     def _grow_ring_to(self, max_pane: int) -> bool:
         """Ring growth with state migration: fetch the forest, re-map
@@ -525,8 +533,7 @@ class FfatMeshReplica(GPUReplicaBase):
         sizes the whole drain: each key can fire ``min((frontier - win -
         nf) // slide, (ml - nf) // slide) + 1`` windows (the device's own
         eligibility rule), up to fire_rounds of them per step."""
-        nf = self._state[2].cpu().numpy().astype(np.int64)
-        ml = self._state[3].cpu().numpy().astype(np.int64)
+        nf, ml = self._host_control()
         per_key = np.minimum(
             (self._frontier - self.win_units - nf) // self.slide_units,
             (ml - nf) // self.slide_units) + 1
@@ -537,16 +544,18 @@ class FfatMeshReplica(GPUReplicaBase):
         self._backlog_bound = 0
 
     def _empty_vals(self) -> Dict[str, torch.Tensor]:
-        dev = self._mesh.device
+        dev = self.device
         return {f: torch.zeros(0, dtype=torch_dtype(dt), device=dev)
                 for f, dt in self._val_dtypes.items()}
 
     def _run_steps(self, keys: np.ndarray, panes: np.ndarray,
                    vals: Dict[str, torch.Tensor]) -> None:
-        """Feed ``GB``-row slices (padded with key = -1 lanes) through the
-        sharded step; emit each step's fired windows."""
+        """Feed ``GB``-row slices (padded with key = -1 lanes, cut into the
+        groups' lane blocks) through the sharded step; emit each step's
+        fired windows."""
         GB = self._GB
-        dev = self._mesh.device
+        mesh = self._mesh
+        sizes = mesh.lane_sizes(self._local_batch)
         total = keys.shape[0]
         off = 0
         # per-step shuffle traffic: every tuple column rides the
@@ -561,33 +570,32 @@ class FfatMeshReplica(GPUReplicaBase):
             p_sl = np.zeros(GB, np.int32)
             k_sl[:m] = keys[lo:hi]
             p_sl[:m] = panes[lo:hi]
-            v_sl = {}
-            for f, col in vals.items():
-                buf = torch.zeros((GB,) + col.shape[1:], dtype=col.dtype,
-                                  device=dev)
-                buf[:m] = col[lo:hi]
-                v_sl[f] = buf
+            v_sl = core.stage_lanes(mesh, self._local_batch, vals, lo, m)
             out = self._step(
-                *self._state, to_device(k_sl, dev), v_sl,
-                to_device(p_sl, dev),
+                *self._state, mesh.split(k_sl, sizes), v_sl,
+                mesh.split(p_sl, sizes),
                 min(self._frontier, np.iinfo(np.int32).max))
             self._state = out[:5]
-            # ONE read-back per step: every fire result and the late count
+            # ONE read-back per step and card: every fire result and the
+            # late counts (summed here over the groups)
             res, res_valid, res_wid, n_late = out[5], out[6], out[7], out[9]
-            host = _host({**{f"r:{f}": v for f, v in res.items()},
-                          "valid": res_valid, "wid": res_wid,
-                          "late": n_late.reshape(1)})
+            host = core.read_host(mesh, {
+                **{f"r:{f}": core.pick(mesh, res, f)
+                   for f in self._out_fields},
+                "valid": res_valid, "wid": res_wid,
+                "late": [n.reshape(1) for n in n_late]
+                if mesh.n_groups > 1 else n_late.reshape(1)})
             self.stats.device_programs_run += 1
             self.stats.note_mesh_step((time.perf_counter() - t0) * 1e6,
                                       step_bytes)
             self._backlog_bound = max(0, self._backlog_bound
                                       - self.op.fire_rounds)
-            n_late = int(host["late"][0])
+            n_late = int(host["late"].sum())
             if n_late:
                 self.stats.inputs_ignored += n_late
                 # drop-only: these rows were counted late at arrival
                 self.stats.note_late(0, n_late)
-            self._emit_fired({f: host[f"r:{f}"] for f in res},
+            self._emit_fired({f: host[f"r:{f}"] for f in self._out_fields},
                              host["valid"], host["wid"])
             off = hi
             if off >= total:
@@ -616,7 +624,7 @@ class FfatMeshReplica(GPUReplicaBase):
         for f in self._out_fields:
             cols[f] = res[f][krows, rounds]
         schema = TupleSchema({name: col.dtype for name, col in cols.items()})
-        dev = self._mesh.device
+        dev = self.device
         fields = {name: to_device(np.ascontiguousarray(col), dev)
                   for name, col in cols.items()}
         self._emit_batch(BatchGPU(fields, end_ts, n_out, schema, self.cur_wm,
@@ -632,8 +640,7 @@ class FfatMeshReplica(GPUReplicaBase):
         self._advance_frontier(self._max_pane_seen + self.win_units + 1)
         # ONE control-state fetch sizes the drain: with the frontier past
         # every pane, key k has (ml - nf) // slide + 1 windows left
-        nf = self._state[2].cpu().numpy().astype(np.int64)
-        ml = self._state[3].cpu().numpy().astype(np.int64)
+        nf, ml = self._host_control()
         per_key = (ml - nf) // self.slide_units + 1
         n_win = int(np.maximum(per_key, 0).max(initial=0))
         for _ in range(-(-n_win // self.op.fire_rounds)):

@@ -19,7 +19,12 @@ the single-card device operators, sharded over a ``core.KeyMesh``.
 Shared mechanics, as in ``Ffat_Windows_Mesh``: ONE host replica drives
 the mesh; arbitrary int64 keys densify to slots through a host
 ``KeySlotMap`` (``key_capacity`` is the declared bound, exceeded = loud
-error); slices pad to the mesh's global batch with slot = -1 lanes.
+error); slices pad to the mesh's global batch with slot = -1 lanes and
+are cut into the mesh groups' lane blocks, each copied into its group's
+card. Each group holds the table rows of its own shards. The Reduce reads
+its per-slot results back once per card; the Map's output columns and the
+Filter's keep mask are gathered onto the graph's card (the first
+group's), where the next operator reads them.
 ``snapshot_state`` ships the state table as PER-SHARD row blocks under
 one manifest entry (or, under ``with_checkpointing(delta=True)``, a delta
 of per-shard row patches); ``restore_state`` relayouts them onto another
@@ -44,7 +49,7 @@ from ..gpu.batch import BatchGPU, bucket_capacity, host_copies, to_device
 from ..gpu.keymap import KeySlotMap
 from ..gpu.ops_gpu import GPUOperatorBase, GPUReplicaBase, op_batch_keys_np
 from ..gpu.schema import TupleSchema, canonical, numpy_dtype, torch_dtype
-from ..pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..pytree import tree_leaves, tree_map
 from . import core
 
 
@@ -206,8 +211,10 @@ class _MeshReplicaBase(GPUReplicaBase):
         self._k_local = self._K_pad // ns
         self._val_dtypes = {f: np.dtype(dt) for f, dt in val_dtypes.items()}
         self._val_fields = list(self._val_dtypes)
-        self._gpos_dev = torch.arange(self._GB, dtype=torch.int32,
-                                      device=self._mesh.device)
+        B = self._local_batch
+        self._gpos_dev = core._gout(self._mesh, [
+            torch.arange(g.lo * B, g.hi * B, dtype=torch.int32,
+                         device=g.device) for g in self._mesh.groups])
         self._step_bytes = self._GB * (8 + sum(
             dt.itemsize for dt in self._val_dtypes.values()))
         self.stats.mesh_devices = ns
@@ -267,19 +274,17 @@ class _MeshReplicaBase(GPUReplicaBase):
         return slots, keys
 
     def _pad_slice(self, slots, cols, lo: int, hi: int):
-        """One GB-row padded slice: slot = -1 lanes mark padding (the
-        routing drops them), value columns zero-fill."""
-        GB = self._GB
-        dev = self._mesh.device
+        """One GB-row padded slice as the groups' lane blocks: slot = -1
+        lanes mark padding (the routing drops them), value columns
+        zero-fill."""
+        mesh = self._mesh
         m = hi - lo
-        s_sl = np.full(GB, -1, np.int32)
+        s_sl = np.full(self._GB, -1, np.int32)
         s_sl[:m] = slots[lo:hi]
-        v_sl = {}
-        for f in self._val_fields:
-            buf = torch.zeros(GB, dtype=cols[f].dtype, device=dev)
-            buf[:m] = cols[f][lo:hi]
-            v_sl[f] = buf
-        return to_device(s_sl, dev), v_sl
+        v_sl = core.stage_lanes(mesh, self._local_batch,
+                                {f: cols[f] for f in self._val_fields}, lo,
+                                m)
+        return mesh.split(s_sl, mesh.lane_sizes(self._local_batch)), v_sl
 
     # -- snapshot / restore scaffolding ---------------------------------------
     def _snapshot_extra(self) -> dict:
@@ -379,27 +384,21 @@ class _MeshScanReplicaBase(_MeshReplicaBase):
         the promotions."""
         tier = self._tier
         t0 = time.perf_counter()
-        leaves = tree_leaves(self._table)
-        dev = self._mesh.device
+        mesh = self._mesh
+        leaves = tree_leaves(core._glist(mesh, self._table)[0])
         if len(plan.demote_keys):
-            dslots = to_device(np.asarray(plan.demote_slots, np.int64), dev)
-            host, event = host_copies({str(i): lf[dslots]
-                                       for i, lf in enumerate(leaves)})
-            if event is not None:
-                event.synchronize()
-            tier.cold.put_rows(plan.demote_keys,
-                               [host[str(i)].numpy()
-                                for i in range(len(leaves))])
+            tier.cold.put_rows(plan.demote_keys, core.gather_rows(
+                mesh, self._table, self._k_local,
+                np.asarray(plan.demote_slots, np.int64)))
             tier.note_demote(len(plan.demote_keys))
         if len(plan.promote_keys):
             init = [np.asarray(v) for v in tree_leaves(self.op.state_init)]
             cols, _hits = tier.cold.take_rows(
                 plan.promote_keys, init,
                 [numpy_dtype(lf.dtype) for lf in leaves])
-            pslots = to_device(np.asarray(plan.promote_slots, np.int64), dev)
-            for lf, col in zip(leaves, cols):
-                lf[pslots] = to_device(np.ascontiguousarray(col), dev) \
-                    .to(lf.dtype)
+            core.scatter_rows(mesh, self._table, self._k_local,
+                              np.asarray(plan.promote_slots, np.int64),
+                              cols)
             for k, s in zip(plan.promote_keys, plan.promote_slots):
                 self._key_by_slot[int(s)] = k
             if self._delta_base is not None:
@@ -413,10 +412,11 @@ class _MeshScanReplicaBase(_MeshReplicaBase):
                                            self._K_pad)
         if not self.filter_mode:
             # the output schema: the functor on one row of zeros
+            table0 = core._glist(self._mesh, self._table)[0]
             dev = self._mesh.device
             row = {f: torch.zeros((), dtype=torch_dtype(dt), device=dev)
                    for f, dt in self._val_dtypes.items()}
-            state = tree_map(lambda t: t[0], self._table)
+            state = tree_map(lambda t: t[0], table0)
             out, _ = self.functor(row, state)
             if not isinstance(out, dict):
                 raise WindFlowError(f"{op.name}: stateful map function "
@@ -499,13 +499,10 @@ class _MeshScanReplicaBase(_MeshReplicaBase):
         rows [s*k_local, (s+1)*k_local))."""
         sl = np.asarray(sorted(self._ckpt_dirty), dtype=np.int64)
         kl = self._k_local
-        leaves = tree_leaves(self._table)
-        idx = to_device(sl.copy(), self._mesh.device)
-        host, event = host_copies({str(i): lf[idx]
-                                   for i, lf in enumerate(leaves)})
-        if event is not None:
-            event.synchronize()
-        rows = [host[str(i)].numpy() for i in range(len(leaves))]
+        rows = core.gather_rows(self._mesh, self._table, kl, sl) \
+            if len(sl) else [np.zeros(0, numpy_dtype(lf.dtype))
+                             for lf in tree_leaves(
+                                 core._glist(self._mesh, self._table)[0])]
         shard_of = sl // kl if len(sl) else sl
         patches: List[Optional[dict]] = []
         for s in range(self._ns):
@@ -554,14 +551,14 @@ class _MeshScanReplicaBase(_MeshReplicaBase):
             return {}
         from ..state.tiered import hot_table_digest
         host = (None if self._table is None
-                else core.host_tree(self._table, self._K_pad))
+                else core.host_tree(self._mesh, self._table))
         return {"tier": self._tier.snapshot(
             hot_digest=hot_table_digest(host))}
 
     def _device_state_shards(self) -> Optional[list]:
         if self._table is None:
             return None
-        host = core.host_tree(self._table, self._K_pad)
+        host = core.host_tree(self._mesh, self._table)
         kl = self._k_local
         return [tree_map(lambda a, _s=s: a[_s * kl:(_s + 1) * kl].copy(),
                          host) for s in range(self._ns)]
@@ -591,17 +588,9 @@ class _MeshScanReplicaBase(_MeshReplicaBase):
                 self._tier.adopt_dense(self._keymap.slot_of_key)
         if full is None:
             return
-        K_new = self._K_pad
-        leaves, spec = tree_flatten(self._table)
-        out = []
-        for t, a in zip(leaves, tree_leaves(full)):
-            a = np.asarray(a)
-            rows = min(a.shape[0], K_new)
-            # rows past the checkpointed ones keep the initial state
-            t[:rows] = canonical(torch.from_numpy(
-                np.ascontiguousarray(a[:rows]))).to(t.device)
-            out.append(t)
-        self._table = tree_unflatten(spec, out)
+        # rows past the checkpointed ones keep the initial state
+        core.write_rows(self._mesh, self._table, self._k_local,
+                        tree_leaves(full))
 
 
 class MapMeshReplica(_MeshScanReplicaBase):
@@ -615,6 +604,7 @@ class MapMeshReplica(_MeshScanReplicaBase):
         m = hi - lo
         ts2 = np.zeros(self._GB, np.int64)
         ts2[:m] = ts[lo:hi]
+        out = self._mesh.join(out, self.device)
         nb = BatchGPU(dict(out), ts2, m, self._out_schema, batch.wm,
                       keys_raw[lo:hi].copy())
         nb.stream_tag = batch.stream_tag
@@ -631,6 +621,7 @@ class FilterMeshReplica(_MeshScanReplicaBase):
 
     def _emit_slice(self, batch, out, ts, keys_raw, lo, hi) -> None:
         m = hi - lo
+        out = self._mesh.join(out, self.device)
         host, event = host_copies({"keep": out[:m]})
         if event is not None:
             event.synchronize()
@@ -641,7 +632,7 @@ class FilterMeshReplica(_MeshScanReplicaBase):
         cap = bucket_capacity(len(kept))
         sel = np.zeros(cap, np.int64)
         sel[:len(kept)] = lo + kept  # rows of the ORIGINAL device batch
-        sel_dev = to_device(sel, self._mesh.device)
+        sel_dev = to_device(sel, self.device)
         out_fields = {f: batch.fields[f][sel_dev] for f in batch.fields}
         ts2 = np.zeros(cap, np.int64)
         ts2[:len(kept)] = ts[lo:hi][kept]
@@ -694,16 +685,15 @@ class ReduceMeshReplica(_MeshReplicaBase):
             s_dev, v_sl = self._pad_slice(slots, cols, lo, hi)
             t0 = time.perf_counter()
             res, touched, _n_ok = self._step(s_dev, v_sl)
-            host, event = host_copies({"touched": touched,
-                                       **{f"r:{f}": v
-                                          for f, v in res.items()}})
-            if event is not None:
-                event.synchronize()
+            res_fields = list(core._glist(self._mesh, res)[0])
+            host = core.read_host(self._mesh, {
+                "touched": touched, **{f"r:{f}": core.pick(self._mesh, res, f)
+                                       for f in res_fields}})
             self.stats.device_programs_run += 1
             self.stats.note_mesh_step((time.perf_counter() - t0) * 1e6,
                                       self._step_bytes)
-            res_np = {f: host[f"r:{f}"].numpy() for f in res}
-            for s in np.nonzero(host["touched"].numpy())[0]:
+            res_np = {f: host[f"r:{f}"] for f in res_fields}
+            for s in np.nonzero(host["touched"])[0]:
                 row = {f: res_np[f][s] for f in res_np}
                 s = int(s)
                 acc[s] = row if s not in acc \
@@ -717,7 +707,7 @@ class ReduceMeshReplica(_MeshReplicaBase):
         out_slots = sorted(acc)
         n_out = len(out_slots)
         cap = bucket_capacity(n_out)
-        dev = self._mesh.device
+        dev = self.device
         out_fields = {}
         for f in self._val_fields:
             buf = np.zeros(cap, self._val_dtypes[f])

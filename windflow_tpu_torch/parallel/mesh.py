@@ -3,7 +3,7 @@
 ``parallel/mesh.py`` shim over ``mesh.core``). Import from there.
 
 The JAX shim also lists ``pvary_fn`` and ``wf_shard_map``, wrappers of
-``jax.shard_map``; the port's mesh runs every shard stacked on one card
+``jax.shard_map``; the port's mesh runs its shards stacked on card groups
 with no ``shard_map``, so they have no counterpart."""
 
 from ..mesh.core import (MESH_AXES, _route_flat, _route_to_owners,
