@@ -3727,16 +3727,120 @@ def _mesh_degrade_run(wt, src, store, probe):
                 wall=time.perf_counter() - t0)
 
 
+# part late: the event-time health stream (tests/test_event_time_health.py
+# ``late_src``): after LATE_WARMUP pushes every 20th tuple lags by an
+# admissible 3 ms and every 20th + 7 by an inadmissible 10 ms; the
+# watermark steps every LATE_WM_EVERY pushes, batches of LATE_OBS
+LATE_N, LATE_TS_STEP, LATE_WM_EVERY, LATE_OBS = 2_000, 25, 100, 50
+LATE_WARMUP, LATE_LATENESS = 600, 4_500
+LATE_ADMIT_US, LATE_DROP_US, LATE_WIN = 3_000, 10_000, 1_000
+LATE_KEYS, LATE_TS0 = 8, 200_000
+# pauses before these pushes, inside watermark runs: the staging age
+# (25 ms) falls due at 130 and 1,430, the punctuation cadence (100 ms,
+# checked every 64 pushes) at 191 and 1,471
+LATE_PAUSES = {130: 0.03, 191: 0.11, 1_430: 0.03, 1_471: 0.11}
+
+
+def _late_source(shipper, ctx):
+    ts = LATE_TS0
+    for i in range(LATE_N):
+        pause = LATE_PAUSES.get(i)
+        if pause:
+            time.sleep(pause)
+        ts += LATE_TS_STEP
+        if i % 20 == 0 and i >= LATE_WARMUP:
+            t = ts - LATE_ADMIT_US
+        elif i % 20 == 7 and i >= LATE_WARMUP:
+            t = ts - LATE_DROP_US
+        else:
+            t = ts
+        shipper.push_with_timestamp({"key": i % LATE_KEYS, "value": 1}, t)
+        if i % LATE_WM_EVERY == LATE_WM_EVERY - 1:
+            shipper.set_next_watermark(ts)
+
+
+def _late_model():
+    """(admitted, dropped): a tuple is late iff its ts is behind the
+    watermark riding its own push (set_next_watermark applies to the
+    pushes after it)."""
+    wm = next_wm = 0
+    ts, admit, drop = LATE_TS0, 0, 0
+    for i in range(LATE_N):
+        ts += LATE_TS_STEP
+        wm = max(wm, next_wm)
+        if i % 20 == 0 and i >= LATE_WARMUP and ts - LATE_ADMIT_US < wm:
+            admit += 1
+        elif i % 20 == 7 and i >= LATE_WARMUP and ts - LATE_DROP_US < wm:
+            drop += 1
+        if i % LATE_WM_EVERY == LATE_WM_EVERY - 1:
+            next_wm = ts
+    return admit, drop
+
+
+def mesh_late_part(torch, wt, card):
+    """Part ``late``: the late stream on the card through Ffat_Windows_GPU
+    and through the mesh at (4, 2) on one group, with timers falling due
+    inside watermark runs; each must count the model's late tuples (timer
+    cuts are held to watermark steps, runtime/emitters.py)."""
+    admit, drop = _late_model()
+    got = {}
+    for engine in ("ffat_gpu", "mesh_4x2"):
+        b = (wt.Ffat_Windows_GPU_Builder(
+                lambda f: {"value": f["value"]}, wt.fieldwise(value="sum"))
+             .with_key_by("key").with_tb_windows(LATE_WIN, LATE_WIN)
+             .with_lateness(LATE_LATENESS).with_name("win"))
+        if engine == "mesh_4x2":
+            b = b.with_key_capacity(LATE_KEYS).with_mesh(mesh_shape=(4, 2))
+        rows = []
+        graph = wt.PipeGraph(f"late_{engine}", wt.ExecutionMode.DEFAULT,
+                             wt.TimePolicy.EVENT_TIME, device="cuda")
+        graph.add_source(wt.Source_Builder(_late_source)
+                         .with_output_batch_size(LATE_OBS)
+                         .with_name("late_src").build()) \
+            .add(b.build()).add_sink(wt.Sink_Builder(
+                lambda r: rows.append(r) if r is not None else None).build())
+        t0 = time.perf_counter()
+        graph.run()
+        st = graph.get_stats()["Operators"]
+        win = next(o for o in st if o["name"] == "win")
+        src = next(o for o in st if o["name"] == "late_src")
+        c = {k: sum(r.get(k, 0) for r in win["replicas"])
+             for k in ("Inputs_received", "Late_records", "Late_admitted",
+                       "Late_dropped")}
+        if not rows:
+            fail(f"late {engine}: no window fired")
+        if c["Inputs_received"] != LATE_N or c["Late_admitted"] != admit \
+                or c["Late_dropped"] != drop \
+                or c["Late_records"] != admit + drop:
+            fail(f"late {engine}: counts {c} != the model's admitted "
+                 f"{admit}, dropped {drop}")
+        held = [sum(r[k] for r in src["replicas"])
+                for k in ("Timer_cuts_held", "Timer_cuts_backstop")]
+        if held[0] < 2:
+            # the pauses before pushes 191 and 1,471 make the cadence due
+            # inside watermark runs: two held cuts at least
+            fail(f"late {engine}: {held[0]} timer cuts held at a watermark "
+                 "step, not the two or more the pauses make due")
+        got[engine] = {**c, "source_puncts": sum(
+            r.get("Punctuations_sent", 0) for r in src["replicas"]),
+            "timer_cuts_held": held[0], "timer_cuts_backstop": held[1],
+            "run_s": round(time.perf_counter() - t0, 3)}
+    phase("mesh", part="late", card=card, model={"Late_admitted": admit,
+                                                 "Late_dropped": drop},
+          **got)
+
+
 def mesh_phase(torch, wt, card):
     """Phase ``mesh``: the mesh plane with MESH_VDEV virtual shards, on
     one group and on groups of cuda:0 (and of each card where there are
-    several; parts ``ffat``, ``ops``, ``restore``, ``degrade``). Returns
-    K1's launches on the mesh paths."""
+    several; parts ``ffat``, ``late``, ``ops``, ``restore``,
+    ``degrade``). Returns K1's launches on the mesh paths."""
     from windflow_tpu_torch.mesh import core as mcore
     prev = mcore.virtual_device_count()
     mcore.ensure_virtual_devices(MESH_VDEV)
     try:
         launches = mesh_ffat_part(torch, wt, card)
+        mesh_late_part(torch, wt, card)
         mesh_ops_part(torch, wt, card)
         launches += mesh_restore_part(torch, wt, card)
         n, gold = mesh_degrade_part(torch, wt, card)

@@ -2,7 +2,8 @@
 card.
 
     python3 scripts/ab_main_path.py OLD_DIR NEW_DIR [ROUNDS]
-        [--workload hc|mesh|ysb_paced] [--rate EVENTS_PER_S] [--events N]
+        [--workload emit|hc|lull|mesh|ysb_paced] [--rate EVENTS_PER_S]
+        [--events N] [--device cuda|cpu]
 
 Workload ``hc`` (the default) drives ``chip_smoke.py``'s high-cardinality
 main path (10,240 keys, 24 batches of 65,536 int32 tuples, TB window
@@ -16,8 +17,24 @@ Kafka_Source at parallelism 2 -> Filter_GPU -> Map_GPU ->
 Ffat_Windows_GPU over 10 s tumbling windows -> columnar sink) paced at
 ``--rate`` events/s (default 40,000: about half the rows' saturated
 rate), after loading (or first building) the forest-rebuild kernel:
-events/s, and p50 / p99 of window emit - the window's latest ingest (ms),
-with the counts held to the model. Workload ``mesh`` drives
+events/s, p50 / p99 of window emit - the window's latest ingest (ms),
+the mean size of the staged row batches as the first device stage
+takes them, with the counts held to the model; also the staging cuts by
+the code path that made them (the three innermost callers of
+``GPUStageEmitter._ship``: count, staging age, punctuation, EOS), each
+with its mean rows, and the median of how far the source is behind its
+pace at a cut (ms; its lag at the first cut taken as 0). Workload
+``lull`` measures the latency that a lull costs: a source pushes 8 bursts
+of 2,048 rows one by one (no output batch; its watermark stepping on
+every push), each followed by 0.6 s without a push, through a host Map
+(its worker ticks when idle) whose staging emitter feeds Map_GPU, into
+a columnar sink; per burst, the time from its last push to the sink's
+receipt of its last row (ms), p50 and max. Workload ``emit`` times the
+host side of the row path alone: 200,000 rows of two int32 fields, the
+watermark stepping on every row, emitted into one staging emitter
+(output batches of 4,096, forward, on ``--device``) whose port drops
+what it is sent; the best of 5 passes after one that fills its staging
+pool, ns a row. Workload ``mesh`` drives
 ``chip_smoke.py``'s mesh HC run (Ffat_Windows_Mesh at (4, 2) on 8
 virtual shards of one group, 2 warm-up + 6 timed batches of the HC
 stream) after loading the kernel, then the same run under
@@ -25,8 +42,11 @@ stream) after loading the kernel, then the same run under
 batch of the profiled one.
 
 Each run is a fresh process that imports one checkout's
-``windflow_tpu_torch`` and its ``chip_smoke.py`` on ``cuda``. Runs go
-old, new, new, old in each of ROUNDS rounds (default 2). Prints one JSON
+``windflow_tpu_torch`` and its ``chip_smoke.py`` on ``--device``
+(default ``cuda``; ``cpu`` only checks the script). One warm-up run of
+each side comes first and is not counted (a call's first two processes
+run slower). Runs then go old, new, new, old in each of ROUNDS rounds
+(default 2). Prints one JSON
 line per run and a last line with each side's runs and medians, beside
 the card's name and power limit. Needs a CUDA card and each checkout's
 kernel source.
@@ -47,7 +67,7 @@ sys.path.insert(0, {root!r})
 import torch
 import chip_smoke as c
 import windflow_tpu_torch as wt
-if not torch.cuda.is_available():
+if {device!r} == "cuda" and not torch.cuda.is_available():
     sys.exit("no CUDA card")
 """
 
@@ -63,16 +83,120 @@ print(json.dumps({{"tuples_per_s": rates["tuples_per_s"],
                   "rebuild_launches": fr.LAUNCHES}}))
 """,
     "ysb_paced": r"""
+import collections, time
 from windflow_tpu_torch import kafka
-from windflow_tpu_torch.kernels.build import load_library
-load_library("forest_rebuild")  # an nvcc build must not land in the run
+from windflow_tpu_torch.gpu import emitters_gpu as eg
+if {device!r} == "cuda":
+    from windflow_tpu_torch.kernels.build import load_library
+    load_library("forest_rebuild")  # an nvcc build must not land in the run
+cuts = collections.defaultdict(lambda: [0, 0])  # path -> [cuts, rows]
+lags, origin = [], []
+ship = eg.GPUStageEmitter._ship
+
+
+def counted_ship(self, buf):
+    n = len(self._rows[buf]) + self._ccount[buf]
+    if n:
+        f, path = sys._getframe(1), []
+        while f is not None and len(path) < 3:
+            path.append(f.f_code.co_name)
+            f = f.f_back
+        cut = cuts["<".join(path)]
+        cut[0] += 1
+        cut[1] += n
+        if self._rows[buf]:  # the source's lag behind its pace
+            due = self._rows[buf][-1][1] / c.YSB_TS_STEP_US / {rate}
+            if not origin:
+                origin.append(time.perf_counter() - due)
+            lags.append(1e3 * (time.perf_counter() - origin[0] - due))
+    return ship(self, buf)
+
+
+eg.GPUStageEmitter._ship = counted_ship
 kafka.MemoryBroker.reset()
 c._ysb_fill(kafka, {events})
-counts, n_rows, lat, eps = c._ysb_run(wt, kafka, "cuda", "ab", {events},
-                                      rate={rate})[:4]
+counts, n_rows, lat, eps, _, graph = c._ysb_run(wt, kafka, {device!r}, "ab",
+                                                {events}, rate={rate})
 p50, p99 = c._pcts(lat)
+# the staged rows' device batches, as the first device stage takes them
+first = next(o for o in graph.get_stats()["Operators"]
+             if sum(r.get("Device_batches_in", 0) for r in o["replicas"]))
+n_in, n_b = (sum(r[k] for r in first["replicas"])
+             for k in ("Inputs_received", "Device_batches_in"))
 print(json.dumps({{"events_per_s": eps, "p50_ms": p50, "p99_ms": p99,
+                  "mean_device_batch": n_in / n_b, "device_batches": n_b,
+                  "cuts": {{k: [v[0], v[1] / v[0]] for k, v in cuts.items()}},
+                  "lag_p50_ms": sorted(lags)[len(lags) // 2],
                   "counts_equal_model": counts == c._ysb_model({events})}}))
+""",
+    "emit": r"""
+import time
+import numpy as np
+from windflow_tpu_torch.gpu.emitters_gpu import GPUStageEmitter
+from windflow_tpu_torch.gpu.schema import TupleSchema
+
+
+class DropPort:
+    def send(self, msg):
+        pass
+
+
+rows = [{{"a": i, "b": i}} for i in range(200_000)]
+em = GPUStageEmitter(1, 4_096, TupleSchema({{"a": np.int32, "b": np.int32}}),
+                     None, "forward", wt.ExecutionMode.DEFAULT, None,
+                     torch.device({device!r}))
+em.set_ports([DropPort()])
+best, t = None, 0
+for rep in range(6):  # the first pass fills the staging pool: not timed
+    t0 = time.perf_counter()
+    for r in rows:
+        em.emit(r, t, t)
+        t += 1
+    em.flush()
+    if {device!r} == "cuda":
+        torch.cuda.synchronize()
+    ns = (time.perf_counter() - t0) / len(rows) * 1e9
+    if rep:
+        best = ns if best is None else min(best, ns)
+print(json.dumps({{"emit_ns_per_row": best}}))
+""",
+    "lull": r"""
+import collections, time
+import numpy as np
+BURST, BURSTS, LULL_S = 2_048, 8, 0.6
+pushed, got, seen = {{}}, {{}}, collections.Counter()
+
+
+def src(shipper, ctx):
+    ts = 0
+    for k in range(BURSTS):
+        for i in range(BURST):
+            ts += 10
+            shipper.push_with_timestamp({{"burst": k, "v": i}}, ts)
+            shipper.set_next_watermark(ts)
+        pushed[k] = time.perf_counter()
+        time.sleep(LULL_S)
+
+
+def sink(cols, ts):
+    if cols is None:
+        return
+    for k, n in zip(*np.unique(cols["burst"], return_counts=True)):
+        seen[int(k)] += int(n)
+        if seen[int(k)] == BURST:
+            got[int(k)] = time.perf_counter()
+
+
+g = wt.PipeGraph("lull", wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT_TIME,
+                 device={device!r})
+g.add_source(wt.Source_Builder(src).build()) \
+    .add(wt.Map_Builder(lambda t: t).with_output_batch_size(4_096).build()) \
+    .add(wt.Map_GPU_Builder(lambda f: {{**f, "v": f["v"] + 1}}).build()) \
+    .add_sink(wt.Sink_Builder(sink).with_columns().build())
+g.run()
+lat = sorted(1e3 * (got[k] - pushed[k]) for k in range(BURSTS))
+print(json.dumps({{"lull_p50_ms": lat[len(lat) // 2], "lull_max_ms": lat[-1],
+                  "bursts": len(lat)}}))
 """,
 }
 
@@ -93,8 +217,9 @@ print(json.dumps({{"tuples_per_s": rates["tuples_per_s"],
 """
 
 # the per-run number each workload's medians are taken over
-_KEY = {"hc": "tuples_per_s", "mesh": "kernels_per_batch",
-        "ysb_paced": "p50_ms"}
+_KEY = {"emit": "emit_ns_per_row", "hc": "tuples_per_s",
+        "lull": "lull_p50_ms",
+        "mesh": "kernels_per_batch", "ysb_paced": "p50_ms"}
 
 
 def _card() -> str:
@@ -108,7 +233,7 @@ def _card() -> str:
 
 def _run(root: str, args: argparse.Namespace) -> dict:
     code = (_PRELUDE + _CHILD[args.workload]).format(
-        root=root, rate=args.rate, events=args.events)
+        root=root, rate=args.rate, events=args.events, device=args.device)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=root, timeout=900)
     if out.returncode != 0:
@@ -124,11 +249,16 @@ def main() -> None:
     ap.add_argument("--workload", choices=sorted(_CHILD), default="hc")
     ap.add_argument("--rate", type=float, default=40_000.0)
     ap.add_argument("--events", type=int, default=300_000)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args()
     old, new = os.path.abspath(args.old), os.path.abspath(args.new)
     key = _KEY[args.workload]
-    card = _card()
+    card = _card() if args.device == "cuda" else "cpu"
     runs = {"old": [], "new": []}
+    for side in ("old", "new"):  # warm-up runs, not counted
+        res = _run(old if side == "old" else new, args)
+        print(json.dumps({"round": "warm-up", "side": side, "card": card,
+                          "workload": args.workload, **res}), flush=True)
     for r in range(args.rounds):
         for side in ("old", "new", "new", "old"):
             res = _run(old if side == "old" else new, args)

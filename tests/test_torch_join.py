@@ -217,12 +217,16 @@ def test_interval_join_counts_admitted_late():
     """The join never drops: late probes are admitted-late only, in both
     packages."""
     n_straggler = 50
+    a_done = threading.Event()
 
     def sa(shipper, ctx):
-        # high timestamps, no watermark: side A is never late
+        # high timestamps and a watermark at the first of them: side A is
+        # never late and never holds the join's watermark below side B's
+        shipper.set_next_watermark(10_000_000)
         for i in range(20):
             shipper.push_with_timestamp({"key": 0, "value": i},
                                         10_000_000 + i)
+        a_done.set()
 
     def sb(shipper, ctx):
         ts = 0
@@ -232,13 +236,16 @@ def test_interval_join_counts_admitted_late():
             if i % 10 == 9:
                 shipper.set_next_watermark(ts)
         # stragglers ride their own stream's watermark (20_000): late by
-        # construction
+        # construction once side A's tuples are ahead of them in the
+        # join's channel (before that the join's watermark is side A's 0)
+        assert a_done.wait(30.0)
         for j in range(n_straggler):
             shipper.push_with_timestamp({"key": 0, "value": -j},
                                         ts - 19_000 + j)
 
     counts = {}
     for pkg in (wt, wj):
+        a_done.clear()
         g = _pg(pkg, "evt_health_join")
         op = (pkg.Interval_Join_Builder(lambda a, b: (a["value"],
                                                       b["value"]))

@@ -17,6 +17,7 @@ import os
 import shutil
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -496,9 +497,14 @@ def test_ysb_exactly_once_kill_and_restore_through_confluent(monkeypatch,
         with lock:
             seen["n"] += 1
             n = seen["n"]
-        if n >= 16000 and StoreT(store).latest() is not None \
+        if n < 16000:
+            return
+        if StoreT(store).latest() is not None \
                 and cluster.txn_counts["committed"] >= 1:
             raise Killed("after the first committed epoch")
+        # under load the sources can reach their ends before an epoch
+        # with windows commits: slow them down until one has
+        time.sleep(0.002)
 
     g1 = _ysb_graph(wt, ing, staging, store, hook=hook)
     with pytest.raises((Killed, wt.basic.WorkerFailuresError)):
@@ -520,6 +526,79 @@ def test_ysb_exactly_once_kill_and_restore_through_confluent(monkeypatch,
     assert seg.pending_epochs() == [] and seg.committed_epochs()
     with pytest.raises(Exception, match="fenced"):
         zombie.begin_transaction()
+
+
+def test_finished_replica_restores_at_its_end(monkeypatch, tmp_path):
+    """Replica 0 of a two-replica Kafka source runs out of messages and
+    retires; an epoch committed after that holds its retired blob, and
+    the run then dies. The blob carries the replica's final offsets, so
+    the restore resumes it at its end: every record is in the output
+    topic once. (Without them the replica replays its partitions from
+    the start, and an exactly-once sink delivers their records twice.)"""
+    cluster = install(monkeypatch, "confluent", 4)
+    t = conn_t.make_transport(BROKERS)
+    for p, n in enumerate((6, 300, 6, 300)):  # replica 0 reads 0 and 2
+        for j in range(n):
+            t.produce("fin_in", p * 1_000 + j, partition=p)
+    t.flush()
+    want = sorted(p * 1_000 + j for p, n in enumerate((6, 300, 6, 300))
+                  for j in range(n))
+    store, staging = str(tmp_path / "store"), str(tmp_path / "txn")
+
+    class Killed(Exception):
+        pass
+
+    def graph(crash):
+        g = _pg(wt, "fin")
+        seen = {"n": 0}
+
+        def deser(msg, shipper, ctx):
+            if msg is None:
+                return False
+            shipper.push({"v": msg.payload})
+            if not crash or ctx.get_replica_index() != 1:
+                return True
+            seen["n"] += 1
+            if seen["n"] == 200:
+                # once replica 0 has retired, one epoch opens; its
+                # barrier injects before the next message
+                _wait(lambda: any(w.endswith("[0]") for w in
+                                  g._coordinator._retired), "retirement")
+                seen["cid"] = shipper.request_checkpoint()
+            elif seen["n"] == 201:
+                _wait(lambda: (StoreT(store).latest() or 0) >= seen["cid"],
+                      "the epoch's commit")
+            elif seen["n"] == 250:
+                raise Killed("after an epoch holding a retired blob")
+            return True
+
+        g.with_checkpointing(store_dir=store)
+        g.add_source(kt.Kafka_Source_Builder(deser).with_brokers(BROKERS)
+                     .with_topics("fin_in").with_idleness(50)
+                     .with_parallelism(2)
+                     .with_offsets({("fin_in", p): 0 for p in range(4)})
+                     .with_name("ksrc").build()) \
+            .add_sink(kt.Kafka_Sink_Builder(
+                lambda r: ("fin_out", None, int(r["v"])))
+                .with_brokers(BROKERS).with_exactly_once(staging)
+                .with_name("ksnk").build())
+        return g
+
+    with pytest.raises((Killed, wt.basic.WorkerFailuresError)):
+        run_bounded(graph(True))
+    _, d, manifest = StoreT.resolve(store)
+    blob = StoreT(store).load_states(d, manifest)[("ksrc", 0)]
+    assert blob["offsets"] == {("fin_in", 0): 6, ("fin_in", 2): 6}
+    run_bounded(graph(False), restore_from=store)
+    assert sorted(cluster.read_committed("fin_out")) == want
+
+
+def _wait(cond, what, limit_s=30.0):
+    end = time.monotonic() + limit_s
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError(f"waited {limit_s:.0f}s for {what}")
+        time.sleep(0.005)
 
 
 def test_ysb_transaction_aborted_mid_epoch_stays_invisible(monkeypatch,

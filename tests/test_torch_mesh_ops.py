@@ -544,13 +544,24 @@ def _reduce_builder(pkg, shape):
             .with_mesh(mesh_shape=shape, key_capacity=NK, local_batch=4))
 
 
+def _key_totals(rows):
+    """Per-key sums of a reduce's (key, v) rows, whatever the batches."""
+    tot = {}
+    for k, v in rows:
+        tot[k] = tot.get(k, 0.0) + v
+    return tot
+
+
 @pytest.mark.parametrize("kind", ["map", "filter", "reduce"])
 @pytest.mark.parametrize("case", GROUP_CASES, ids=GROUP_IDS)
 def test_mesh_ops_over_groups_match_one_group(case, kind):
     """Map_Mesh / Filter_Mesh / Reduce_Mesh over card groups: the rows of
-    the one-group run of the same shape, and the JAX package's (the
-    reduce with a local batch that splits each batch into several
-    slices, so its per-slice host merge runs too)."""
+    the one-group run of the same shape, and the JAX package's. The
+    reduce emits one row per key and device batch, and an INGRESS_TIME
+    source's batch boundaries follow the staging timer (its watermark
+    steps on every push), so its graph runs are held to equal per-key
+    totals; ``test_reduce_mesh_fixed_split_over_groups`` holds its rows
+    exactly at a fixed split."""
     shape, n = case
     build, fields = {
         "map": (lambda p: _map_builder(p, shape).build(),
@@ -562,10 +573,64 @@ def test_mesh_ops_over_groups_match_one_group(case, kind):
     one = _Rows(fields)
     _run(wt, f"{kind}_g1", build(wt), one)
     _groups(n)
+    if kind == "reduce":
+        runs = {}
+        for pkg in (wj, wt):
+            coll = _Rows(fields)
+            _run(pkg, f"{kind}_g{n}", build(pkg), coll)
+            runs[pkg] = _key_totals(coll.sorted)
+        model = _key_totals((i % NK, float(i + 1)) for i in range(N))
+        assert runs[wt] == runs[wj] == _key_totals(one.sorted) == model
+        return
     got = _both(build, fields, f"{kind}_g{n}")
     assert got == one.sorted
     if kind == "map":
         assert got == _map_oracle()
+
+
+class _ReduceSink:
+    def __init__(self):
+        self.batches = []
+
+    def emit_device_batch(self, b):
+        v = b.fields["v"][:b.size].numpy()
+        self.batches.append(sorted(zip(np.asarray(b.host_keys).tolist(),
+                                       v.tolist())))
+
+
+def _reduce_replica(shape):
+    op = _reduce_builder(wt, shape).build()
+    op.configure(wt.ExecutionMode.DEFAULT, wt.TimePolicy.INGRESS_TIME,
+                 torch.device("cpu"))
+    op.build_replicas()
+    r = op.replicas[0]
+    r.emitter = _ReduceSink()
+    return r
+
+
+# uneven batches, each several slices of the reduce's local batch
+FIXED_SPLIT = [(0, 64), (64, 101), (101, 229), (229, 230), (230, 420)]
+
+
+@pytest.mark.parametrize("case", GROUP_CASES, ids=GROUP_IDS)
+def test_reduce_mesh_fixed_split_over_groups(case):
+    """Reduce_Mesh at a fixed batch split, on one group and on n: the
+    same rows, batch by batch, and each batch's per-key sums (the
+    cross-group read-back and the per-slice host merge at every
+    split)."""
+    shape, n = case
+    one = _reduce_replica(shape)
+    for lo, hi in FIXED_SPLIT:
+        one.process_device_batch(_batch(lo, hi))
+    _groups(n)
+    got = _reduce_replica(shape)
+    for lo, hi in FIXED_SPLIT:
+        got.process_device_batch(_batch(lo, hi))
+    assert got._mesh.n_groups == n
+    model = [sorted(_key_totals((i % NK, float(i + 1))
+                                for i in range(lo, hi)).items())
+             for lo, hi in FIXED_SPLIT]
+    assert got.emitter.batches == one.emitter.batches == model
 
 
 @pytest.mark.parametrize("dst", [1, 2], ids=["g1", "g2"])

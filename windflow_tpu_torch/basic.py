@@ -77,6 +77,10 @@ class WinRole(enum.Enum):
 # --- watermark / punctuation cadence (wf/basic.hpp:199-216) -----------------
 DEFAULT_WM_INTERVAL_USEC = 100_000  # punctuation cadence: 100 ms
 DEFAULT_WM_AMOUNT = 64  # check elapsed time once every N emitted tuples
+# a timer-driven batch cut (the punctuation cadence, the staging age) waits
+# for the emitted watermark to step; one that has waited this long ships
+# anyway (the port's liveness backstop, runtime/emitters.py)
+TIMER_CUT_BACKSTOP_USEC = 4 * DEFAULT_WM_INTERVAL_USEC
 
 # --- queue capacity (FastFlow DEFAULT_BUFFER_CAPACITY) ----------------------
 DEFAULT_BUFFER_CAPACITY = 2048

@@ -10,10 +10,17 @@ The port of ``windflow_tpu/tpu/emitters_tpu.py``:
   tuples with a ``non_blocking`` H2D copy. KEYBY routing keeps one staging
   buffer per destination (``routing.key_dests``); BROADCAST ships the
   batch to every destination, sharing its device columns. A partial batch
-  older than ``MAX_STAGING_MS`` (25 ms) ships on the next append or idle
-  tick. On a card the staging tensors come from the emitter's pool and
-  return to it once the event after their copies has fired
-  (``recycling.py``; ``Staging_pool_hits`` / ``_misses``).
+  older than ``MAX_STAGING_MS`` (25 ms) is due to ship; like the
+  punctuation cadence it waits for a watermark step (it ships just before
+  the first push whose watermark differs from the newest in it). At a
+  lull no push comes, and the idle tick ships it once the backstop,
+  ``TIMER_CUT_BACKSTOP_USEC``, has passed since it fell due: the rows left
+  at a lull wait that long (``runtime/emitters.py``: that backstop is the
+  one scheduling dependence of the cuts). On a card the staging tensors
+  come from the emitter's pool and return to it once the event after
+  their copies has fired (``recycling.py``; ``Staging_pool_hits`` /
+  ``_misses``). Each staged batch leaves a ``host_prep`` span in the
+  flight recorder, as in the JAX package.
 - ``GPUForwardEmitter`` / ``GPUBroadcastEmitter`` (device -> device):
   whole batches round-robin, or one to every destination (sharing the
   columns). A keyed consumer's key column starts its copy to the host
@@ -61,7 +68,7 @@ from .batch import (BatchGPU, bucket_capacity, host_buffer, key_column_np,
 from .routing import _dest_of_key, _stack_key_fields, key_dests
 from .schema import TupleSchema
 
-# a partial staging batch older than this ships on the next append or tick
+# a partial staging batch older than this ships at the next watermark step
 MAX_STAGING_MS = 25.0
 # D2H pipelines: batches in flight at an exit and at a keyed re-shard, and
 # the age that forces delivery
@@ -92,7 +99,8 @@ class GPUStageEmitter(BasicEmitter):
         n_bufs = num_dests if routing == "keyby" else 1
         self._rows: List[list] = [[] for _ in range(n_bufs)]
         self._keys: List[list] = [[] for _ in range(n_bufs)]
-        self._wms: List[int] = [0] * n_bufs
+        self._wms: List[int] = [0] * n_bufs  # lowest watermark of a buffer
+        self._wm_new: List[int] = [0] * n_bufs  # and its newest
         # block staging: per-destination host tensors filled in place
         self._cbuf: List[Optional[Dict[str, torch.Tensor]]] = [None] * n_bufs
         self._cnp: List[Optional[Dict[str, np.ndarray]]] = [None] * n_bufs
@@ -128,6 +136,8 @@ class GPUStageEmitter(BasicEmitter):
     # -- row path ----------------------------------------------------------
     def emit(self, payload: Any, ts: int, wm: int,
              msg_id: Optional[int] = None) -> None:
+        if self._held:
+            self._release_held(wm)
         if self.schema is None:
             self.schema = TupleSchema.infer(payload)
         key = (self.key_extractor(payload)
@@ -142,6 +152,7 @@ class GPUStageEmitter(BasicEmitter):
             self._first_append[buf] = time.monotonic()
         elif wm < self._wms[buf]:
             self._wms[buf] = wm
+        self._wm_new[buf] = wm
         rows.append((payload, ts))
         if self.trace_ts:  # traced row: fold its stamp into the buffer
             self._fold_trace(buf, self.trace_ts)
@@ -160,17 +171,29 @@ class GPUStageEmitter(BasicEmitter):
             self._trace_hi[buf] = t0
 
     def _ship_aged(self) -> bool:
-        """Ship partial batches older than the staging bound."""
+        """A partial batch older than the staging bound falls due and is
+        held for a watermark step (``BasicEmitter._release_held``); held
+        cuts past the backstop ship now. Whether one shipped."""
         now = time.monotonic()
         did = False
+        if self._held:
+            did = self._release_held(None, round(now * 1e6)) > 0
         for b, t0 in enumerate(self._first_append):
-            if t0 is not None and now - t0 >= self._stage_age_s:
-                self._ship(b)
-                did = True
+            if t0 is not None and now - t0 >= self._stage_age_s \
+                    and b not in self._held:
+                self._held[b] = (self._wm_new[b], round(now * 1e6))
         return did
 
+    def _ship_held(self, buf: int) -> None:
+        self._ship(buf)
+
+    def _holds_rows(self) -> bool:
+        return any(self._rows) or any(self._ccount)
+
     def on_idle(self) -> bool:
-        return self._ship_aged()
+        # a held cut is pending work: the worker's idle backoff must not
+        # carry its tick past the backstop
+        return self._ship_aged() or bool(self._held)
 
     def prewarm(self, caps) -> None:
         """``PipeGraph.with_prewarm``: fill the staging pool with the
@@ -194,6 +217,8 @@ class GPUStageEmitter(BasicEmitter):
         rows = self._rows[buf]
         if not rows:
             return
+        rec = self.stats.recorder if self.stats is not None else None
+        t0 = time.perf_counter_ns() if rec is not None else 0
         keys = self._keys[buf] if self.key_extractor is not None else None
         cap = bucket_capacity(max(self.output_batch_size, len(rows)))
         batch = BatchGPU.stage_rows(rows, self.schema, self._wms[buf],
@@ -201,6 +226,10 @@ class GPUStageEmitter(BasicEmitter):
                                     self.native, self.stats)
         self._rows[buf] = []
         self._keys[buf] = []
+        if rec is not None:
+            # staging is the source thread's host prep: encode, pad, H2D
+            rec.event("host_prep", (time.perf_counter_ns() - t0) / 1e3,
+                      len(rows))
         self._dispatch_batch(buf, batch, len(rows))
 
     def _ship_cbuf(self, buf: int) -> None:
@@ -208,6 +237,8 @@ class GPUStageEmitter(BasicEmitter):
         place): concatenate the key parts and issue the H2D copies.
         Ownership of the staging tensors moves to the batch."""
         n = self._ccount[buf]
+        rec = self.stats.recorder if self.stats is not None else None
+        t0 = time.perf_counter_ns() if rec is not None else 0
         kparts = self._ckparts[buf]
         keys = None
         if kparts:
@@ -215,6 +246,9 @@ class GPUStageEmitter(BasicEmitter):
         batch = BatchGPU.stage_prefilled(
             self._cbuf[buf], self._cts[buf], n, self.schema,
             self._wms[buf], self.device, keys, self.recycler)
+        if rec is not None:
+            # the buffers were filled in place: key concat and H2D only
+            rec.event("host_prep", (time.perf_counter_ns() - t0) / 1e3, n)
         self._cbuf[buf] = self._cnp[buf] = self._cts[buf] = None
         self._ckparts[buf] = []
         self._ccount[buf] = 0
@@ -226,6 +260,7 @@ class GPUStageEmitter(BasicEmitter):
             self.stats.device_bytes_h2d += batch.nbytes()
             self._update_pool_stats()
         self._first_append[buf] = None
+        self._held.pop(buf, None)
         batch.trace_min = self._trace_lo[buf]
         batch.trace_max = self._trace_hi[buf]
         self._trace_lo[buf] = self._trace_hi[buf] = 0
@@ -270,6 +305,8 @@ class GPUStageEmitter(BasicEmitter):
         n = len(ts_arr)
         if n == 0:
             return
+        if self._held:
+            self._release_held(wm)
         # the traced rows of the block: a destination's buffer folds the
         # block's stamp iff one of ITS rows is traced
         t_trace = self.trace_ts
@@ -341,6 +378,7 @@ class GPUStageEmitter(BasicEmitter):
                 self._first_append[buf] = time.monotonic()
             elif wm < self._wms[buf]:
                 self._wms[buf] = wm
+            self._wm_new[buf] = wm
             take = min(n - off, size - cnt)
             end = off + take
             cnp = self._cnp[buf]

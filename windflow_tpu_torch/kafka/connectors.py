@@ -739,6 +739,12 @@ class KafkaSourceReplica(BasicReplica):
         self._last_ckpt = 0
         self._restore_offsets: Optional[Dict[Tuple[str, int], int]] = None
         self._transport = None
+        # the last positions read: a finished replica retires with those
+        # of the end of its consume loop (its transport is closed by
+        # then), so a restore from a later epoch resumes it at its end,
+        # not at its start. A client's transient failure reads none
+        # ({}): the last good ones stay
+        self._final_offsets: Optional[Dict[Tuple[str, int], int]] = None
         # the offsets of each injected barrier, committed to the broker
         # only when the coordinator finalizes that checkpoint, from THIS
         # thread (a consumer is not thread-safe): the finalize listener
@@ -809,6 +815,9 @@ class KafkaSourceReplica(BasicReplica):
         if self._transport is not None:
             # keys are (topic, partition) tuples; a fresh dict per call
             st["offsets"] = self._transport.snapshot_positions()
+            self._final_offsets = st["offsets"] or self._final_offsets
+        elif self._final_offsets is not None:
+            st["offsets"] = dict(self._final_offsets)
         # shed accounting and gate-buffered records ride the snapshot, as
         # a plain source's do
         st["shed_records"] = self.stats.shed_records
@@ -866,9 +875,13 @@ class KafkaSourceReplica(BasicReplica):
             # the worker's final_checkpoint hook runs after run_source, too
             # late for the transport: inject any pending epoch here, with
             # the consumer still open
-            self.final_checkpoint()
-            transport.close()
-            self._transport = None
+            try:
+                self.final_checkpoint()
+                self._final_offsets = (transport.snapshot_positions()
+                                       or self._final_offsets)
+            finally:
+                transport.close()
+                self._transport = None
 
     def _call(self, arg, shipper) -> Any:
         op = self.op

@@ -45,6 +45,9 @@ class StatsRecord:
         "op_name", "replica_idx", "start_time",
         "inputs_received", "bytes_received", "outputs_sent", "bytes_sent",
         "inputs_ignored", "punct_received", "punct_sent",
+        # timer-driven batch cuts held for a watermark step and released
+        # at one, or by the backstop (runtime/emitters.py)
+        "timer_cuts_held", "timer_cuts_backstop",
         "service_time_us", "eff_service_time_us",
         "device_batches_in", "device_batches_out",
         "device_bytes_h2d", "device_bytes_d2h", "device_programs_run",
@@ -174,6 +177,8 @@ class StatsRecord:
         self.inputs_ignored = 0
         self.punct_received = 0
         self.punct_sent = 0
+        self.timer_cuts_held = 0
+        self.timer_cuts_backstop = 0
         self.service_time_us = 0.0  # EWMA over svc() durations
         self.eff_service_time_us = 0.0
         self.device_batches_in = 0
@@ -518,6 +523,8 @@ class StatsRecord:
             "Inputs_ignored": self.inputs_ignored,
             "Punctuations_received": self.punct_received,
             "Punctuations_sent": self.punct_sent,
+            "Timer_cuts_held": self.timer_cuts_held,
+            "Timer_cuts_backstop": self.timer_cuts_backstop,
             "Service_time_usec": round(self.service_time_us, 3),
             "Eff_Service_time_usec": round(self.eff_service_time_us, 3),
             "Throughput_tuples_sec": round(self.inputs_received / elapsed, 1),

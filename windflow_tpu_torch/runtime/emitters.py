@@ -11,16 +11,41 @@ owning replica sets ``trace_ts`` just before an emit, and the first
 message made while it is set carries it (a batch folds it into its
 ``trace_min`` / ``trace_max``). The device-plane edges live in
 ``windflow_tpu_torch.gpu.emitters_gpu``.
+
+Batch cuts (a deliberate difference from the JAX package). A batch carries
+the lowest watermark of its rows, so a late row in a batch that straddles
+a watermark step is judged against the older watermark. Cuts made because
+a buffer is full, or at EOS, a checkpoint barrier or an explicit flush,
+are a function of the input. A cut that a timer makes due (here the
+punctuation cadence; the device staging emitter adds its buffers' age)
+is not: it falls wherever the scheduler puts it. So a due timer cut that
+finds rows buffered is HELD (``_held``: each held cut with the newest
+watermark buffered when it fell due). Every emit first releases the held
+cuts whose watermark its row's differs from: the buffer ships just
+before that row, and a held punctuation goes out right after (the
+cadence counts from when it fell due). A source whose watermark steps
+on every push thus cuts one row later than a cut made at once would, at
+its next push. The one scheduling dependence left is the backstop: a
+held cut that has waited ``TIMER_CUT_BACKSTOP_USEC`` (400 ms) ships
+whatever the watermark; it is also what ships the rows left at a lull.
+The stats count the releases (``Timer_cuts_held``,
+``Timer_cuts_backstop``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence
+from typing import (Any, Callable, Dict, List, Optional, Sequence,
+                    Tuple)
 
 from ..basic import (DEFAULT_WM_AMOUNT, DEFAULT_WM_INTERVAL_USEC,
-                     ExecutionMode, WindFlowError, current_time_usecs)
+                     TIMER_CUT_BACKSTOP_USEC, ExecutionMode, WindFlowError,
+                     current_time_usecs)
 from ..message import Batch, Single, make_punctuation
 from .channel import Port
+
+# the key of a held punctuation among the held cuts (staging buffers are
+# keyed by their index)
+HELD_PUNCT = -1
 
 
 class BasicEmitter:
@@ -38,6 +63,10 @@ class BasicEmitter:
         self._next_ids = [0] * num_dests
         self._emit_count = 0
         self._last_punct_usec = current_time_usecs()
+        # timer cuts that fell due with rows buffered (module docstring):
+        # the cut (HELD_PUNCT, or a staging buffer's index) -> the newest
+        # watermark buffered then, and when it fell due (usec)
+        self._held: Dict[int, Tuple[int, int]] = {}
         self.stats = None  # optional StatsRecord of the owning replica
         # transient latency-tracing origin stamp (0 = untraced tuple)
         self.trace_ts = 0
@@ -89,10 +118,52 @@ class BasicEmitter:
         if self._emit_count % DEFAULT_WM_AMOUNT != 0:
             return
         now = current_time_usecs()
+        if HELD_PUNCT in self._held:
+            self._release_held(None, now)  # the backstop
+            return
         if now - self._last_punct_usec < DEFAULT_WM_INTERVAL_USEC:
             return
+        # the cadence counts from when a punctuation falls due, held or not
         self._last_punct_usec = now
+        if self._holds_rows():
+            self._held[HELD_PUNCT] = (wm, now)
+            return
         self.propagate_punctuation(wm)
+
+    def _holds_rows(self) -> bool:
+        """Whether a partial output batch is buffered."""
+        return False
+
+    def _release_held(self, wm: Optional[int], now: int = 0) -> int:
+        """Release the held cuts that a push of watermark ``wm`` steps
+        past (every emit calls this first while one is held) or, with
+        ``wm`` None, those held ``TIMER_CUT_BACKSTOP_USEC`` by ``now``.
+        Buffers ship first, then the held punctuation; the number
+        released."""
+        punct = None
+        released = 0
+        for cut, (w, since) in list(self._held.items()):
+            if wm is not None:
+                if wm == w:
+                    continue
+                if self.stats is not None:
+                    self.stats.timer_cuts_held += 1
+            elif now - since < TIMER_CUT_BACKSTOP_USEC:
+                continue
+            elif self.stats is not None:
+                self.stats.timer_cuts_backstop += 1
+            del self._held[cut]
+            released += 1
+            if cut == HELD_PUNCT:
+                punct = w
+            else:
+                self._ship_held(cut)
+        if punct is not None:
+            self.propagate_punctuation(punct)
+        return released
+
+    def _ship_held(self, buf: int) -> None:
+        """Ship staging buffer ``buf`` (the device staging emitter)."""
 
     # -- public API --------------------------------------------------------
     def emit(self, payload: Any, ts: int, wm: int,
@@ -177,6 +248,8 @@ class ForwardEmitter(BasicEmitter):
 
     def emit(self, payload: Any, ts: int, wm: int,
              msg_id: Optional[int] = None) -> None:
+        if self._held:
+            self._release_held(wm)
         if self.output_batch_size <= 0:
             self._send_single(self._rr, payload, ts, wm, msg_id)
             self._rr = (self._rr + 1) % self.num_dests
@@ -192,6 +265,9 @@ class ForwardEmitter(BasicEmitter):
                 self._rr = (self._rr + 1) % self.num_dests
                 self._batch = None
         self._maybe_generate_punctuation(wm)
+
+    def _holds_rows(self) -> bool:
+        return self._batch is not None and self._batch.size > 0
 
     def flush(self) -> None:
         if self._batch is not None and self._batch.size > 0:
@@ -213,6 +289,8 @@ class KeyByEmitter(BasicEmitter):
 
     def emit(self, payload: Any, ts: int, wm: int,
              msg_id: Optional[int] = None) -> None:
+        if self._held:
+            self._release_held(wm)
         dest = hash(self.key_extractor(payload)) % self.num_dests
         if self.output_batch_size <= 0:
             self._send_single(dest, payload, ts, wm, msg_id)
@@ -228,6 +306,9 @@ class KeyByEmitter(BasicEmitter):
                 self._send_batch(dest, b)
                 self._batches[dest] = None
         self._maybe_generate_punctuation(wm)
+
+    def _holds_rows(self) -> bool:
+        return any(b is not None and b.size > 0 for b in self._batches)
 
     def flush(self) -> None:
         for d, b in enumerate(self._batches):
@@ -251,6 +332,8 @@ class BroadcastEmitter(BasicEmitter):
 
     def emit(self, payload: Any, ts: int, wm: int,
              msg_id: Optional[int] = None) -> None:
+        if self._held:
+            self._release_held(wm)
         if self.output_batch_size <= 0:
             for d in range(self.num_dests):
                 self._send_single(d, payload, ts, wm, msg_id)
@@ -269,6 +352,9 @@ class BroadcastEmitter(BasicEmitter):
     def _broadcast_batch(self, batch: Batch) -> None:
         for d in range(self.num_dests):
             self._send_batch(d, batch.copy_for_dest() if d > 0 else batch)
+
+    def _holds_rows(self) -> bool:
+        return self._batch is not None and self._batch.size > 0
 
     def flush(self) -> None:
         if self._batch is not None and self._batch.size > 0:
