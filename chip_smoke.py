@@ -12,8 +12,11 @@ Phases, each printing one line of its own:
    together): K1's fieldwise library (``windflow_tpu_torch/kernels/
    forest_rebuild.cu``) and one library per traced combine below (its
    policy generated from the trace, built against ``forest_rebuild.cuh``),
-   and lists each kernel's registers, stack frame and spills
-   (``-Xptxas -v``); a stack frame or a spill fails the phase;
+   each library with the FFAT step's kernels over the same policy
+   (``ffat_step.cuh``: K2+K3, the segmented fold with the leaf merge, and
+   K4, the window query with eviction), and lists each kernel's
+   registers, stack frame and spills (``-Xptxas -v``); a stack frame or a
+   spill fails the phase;
 3. kernel checks: each kernel against its plain PyTorch version on CUDA
    tensors at the main path's shapes (and YSB's 128 x 32), two shapes
    that move tens of MB and a few edge shapes (1% of float values NaN):
@@ -73,7 +76,19 @@ Phases, each printing one line of its own:
    node, and the validity byte) and ``bound_share`` = bound_ms /
    device_ms (``device_ms`` and ``bound_share`` are null when
    ``torch.profiler`` lost the kernel's records in every trace: the
-   card's profiler has been seen to drop whole traces);
+   card's profiler has been seen to drop whole traces); then the
+   ``programs`` lines of K2+K3 and K4 for each variant a main path runs
+   (the fieldwise sum, ``ysb_last``, ``mean_last``, ``argmax_ts``,
+   ``flags``, ``wide``) on one HC batch (65,536 rows into K_cap 16,384 x
+   F 32, 1% on the sentinel; the fire step at W_step 64 and W_cap 8,192
+   lanes): the kernel against its plain version (K2+K3 exact on int and
+   bool planes, floats within 1e-5 relative; K4 bit-identical, the
+   evicted forest included), device time, launches and event bracket of
+   each, the bytes bound, and for the fieldwise sum
+   ``scatter_reduce_``'s time (after K1's times: the plain versions'
+   traces made the profiler lose K1's records); then part ``profiled``
+   of phase ``main_path``: 10 batches of each main path under
+   ``torch.profiler``, kernels and copies a batch and the idle share;
 8. keyed device state (``state`` lines): stateful Map_GPU / Filter_GPU
    through ``PipeGraph`` on the card and on the CPU, rows equal between
    them and to a numpy fold. Parts ``smap`` (``bench.py``'s stateful map:
@@ -292,7 +307,10 @@ Phases, each printing one line of its own:
 
 then the ``{"kernels": [...]}`` line (one entry per K1 variant a main
 path ran: the fieldwise library and each traced combine but ``scaled``,
-which no window runs: it is not associative), and as the last line
+which no window runs: it is not associative; then ``ffat_ingest`` (K2+K3)
+and ``ffat_query`` (K4) per variant, their launches summed over every
+main-path run and their times from the ``programs`` rows, K4's at
+W_step), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs ``torch.cuda.is_available()``
 and the ``windflow_tpu_torch`` package beside it.
@@ -612,6 +630,11 @@ SPECS = {
     "float32_sum": [("float32", "sum")],
     "minmax_pairs": [("float32", "min"), ("float32", "max"),
                      ("int32", "min"), ("int32", "max")],
+    "pair": [("int32", "max"), ("float32", "min")],
+    "eight_fields": [("int32", "sum"), ("int32", "min"), ("int32", "max"),
+                     ("float32", "sum"), ("float32", "min"),
+                     ("float32", "max"), ("int32", "sum"),
+                     ("float32", "sum")],
 }
 # (K_cap, F): the main path's two forests first (10,240 keys -> K_cap
 # 16,384, and 64 keys, F 32), YSB's (100 campaigns -> K_cap 128), then
@@ -859,31 +882,66 @@ def _ffat_rates(blocks, run):
         firing_batches_timed=len(lat))
 
 
+# K2+K3's and K4's launches on the main paths: a reset of the counts opens
+# a run window, each read of K1's counts records the window's counts of
+# the FFAT step's kernels (the last read of a window holds them all), by
+# (kernel, variant tag); the kernels line sums the windows
+STEP_RUNS = {}
+_STEP_WINDOW = [0]
+
+
 def _reset_launches(fr):
-    """Set K1's launch counts, the total and each variant's, to 0: just
-    before each main-path run whose launches the script reads."""
+    """Set K1's launch counts, the total and each variant's, and those of
+    K2+K3 and K4 to 0: just before each main-path run whose launches the
+    script reads."""
+    from windflow_tpu_torch.kernels import ffat_step as fs
     fr.LAUNCHES = 0
     fr.VARIANT_LAUNCHES.clear()
+    fs.INGEST_LAUNCHES = fs.QUERY_LAUNCHES = 0
+    fs.INGEST_VARIANT_LAUNCHES.clear()
+    fs.QUERY_VARIANT_LAUNCHES.clear()
+    _STEP_WINDOW[0] += 1
+
+
+def _step_counts():
+    """K2+K3's and K4's launches since the last reset, by (kernel,
+    variant tag)."""
+    from windflow_tpu_torch.kernels import ffat_step as fs
+    counts = Counter({("ingest", t): n
+                      for t, n in fs.INGEST_VARIANT_LAUNCHES.items()})
+    counts.update({("query", t): n
+                   for t, n in fs.QUERY_VARIANT_LAUNCHES.items()})
+    return counts
 
 
 def _launch_counts(fr):
-    """K1's launches since the last reset, by variant tag."""
+    """K1's launches since the last reset, by variant tag (and K2+K3's
+    and K4's recorded for the kernels line)."""
     counts = Counter(fr.VARIANT_LAUNCHES)
     if counts.total() != fr.LAUNCHES:
         fail(f"K1's variant counts {dict(counts)} do not add up to its "
              f"{fr.LAUNCHES} launches")
+    if _STEP_WINDOW[0]:
+        STEP_RUNS[_STEP_WINDOW[0]] = _step_counts()
     return counts
 
 
 def _launched(name, fr, rep):
     """K1's launches since the last reset, by variant tag; the window
-    replica must have counted their total too."""
+    replica must have counted their total too, and the FFAT step's
+    kernels must have run: K2+K3 on every ingest, K4 on every fire step
+    (at least once per rebuild)."""
+    from windflow_tpu_torch.kernels import ffat_step as fs
     launches = _launch_counts(fr)
     if not launches or rep.stats.rebuild_kernel_launches \
             != launches.total():
         fail(f"{name}: the rebuild kernel did not run on the path "
              f"(wrapper {launches.total()}, replica "
              f"{rep.stats.rebuild_kernel_launches})")
+    if fs.INGEST_LAUNCHES < 1 or fs.QUERY_LAUNCHES < launches.total():
+        fail(f"{name}: the FFAT step's kernels did not run on the path "
+             f"(K2+K3 {fs.INGEST_LAUNCHES}, K4 {fs.QUERY_LAUNCHES}, K1 "
+             f"{launches.total()})")
     return launches
 
 
@@ -1279,6 +1337,299 @@ def programs_phase(torch, wt, blocks, card):
                          bound_share=_share(bound, device_ms), card=card))
         phase("programs", **rows[-1])
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase programs, K2+K3 and K4: the FFAT step's kernels on one batch of
+# the high-cardinality path (K_cap 16,384, F 32, 65,536 rows; the fire
+# step at W_step and at the path's W_cap), each variant a main path runs
+STEP_VARIANTS = ("fieldwise", "ysb_last", "mean_last", "argmax_ts", "flags",
+                 "wide")
+# checked, not timed: the fieldwise library's other combines (every op of
+# its policy, floats with NaN, 1 to 8 fields), each K1's SPECS entry
+STEP_CHECKED = tuple(f"fieldwise:{n}" for n in SPECS if n != "int32_sum")
+STEP_K_CAP, STEP_F = 16384, 32
+STEP_W = (64, 8192)  # W_step; W_cap, the HC window's default budget
+STEP_LATE = 0.01     # rows on the sentinel (late / padding lanes)
+# K2+K3 groups the fold as a tree, its plain version as a Hillis-Steele
+# scan: float planes within this relative tolerance (ints, bools exact)
+STEP_FOLD_RTOL = 1e-5
+
+
+def _fieldwise_lift(torch, spec):
+    """Lift of a fieldwise SPECS entry over (key, value): signed ints,
+    floats in multiples of 1/8 (a run's sum is exact in any grouping, so
+    a difference next to a leaf it nearly cancels is a fault, not a
+    rounding), 1% of each float column NaN."""
+    def lift(f):
+        v, k = f["value"], f["key"]
+        out = {}
+        for i, (dt, _) in enumerate(spec):
+            x = (v * (2 * i + 3) + k) % 1999
+            if dt == "int32":
+                out[f"f{i}"] = (x - 999).to(torch.int32)
+            else:
+                out[f"f{i}"] = torch.where(
+                    (v * 13 + k + 7 * i) % 101 == 0, float("nan"),
+                    (x - 999).to(torch.float32) / 8)
+        return out
+    return lift
+
+
+def _step_spec(torch, wt, name):
+    """(plane dtypes, combine, lift over (key, value)) of a variant."""
+    if name == "fieldwise":
+        return ({"value": torch.int32}, wt.fieldwise(value="sum"),
+                lambda f: {"value": f["value"]})
+    if name.startswith("fieldwise:"):
+        spec = SPECS[name.split(":", 1)[1]]
+        return ({f"f{i}": getattr(torch, dt)
+                 for i, (dt, _) in enumerate(spec)},
+                wt.fieldwise(**{f"f{i}": op
+                                for i, (_, op) in enumerate(spec)}),
+                _fieldwise_lift(torch, spec))
+    dtypes, comb = traced_specs(torch)[name]
+    if name == "ysb_last":
+        return dtypes, comb, lambda f: {"count": f["value"] * 0 + 1,
+                                        "last_ing": f["value"]}
+    return dtypes, comb, _combine_lifts(torch)[name]
+
+
+def _plane_bytes(flat):
+    return sum(t.element_size() for t in flat.values())
+
+
+def _walk_nodes(start, length, F):
+    """Nodes the window walk takes for each fire lane (both ranges): what
+    K4 must read for these windows."""
+    def taken(lo, ln):
+        l, r = lo + F, lo + ln + F
+        n = np.zeros_like(lo)
+        for _ in range((2 * F).bit_length()):
+            tl = ((l & 1) == 1) & (l < r)
+            n += tl
+            l = np.where(tl, l + 1, l)
+            tr = ((r & 1) == 1) & (l < r)
+            n += tr
+            r = np.where(tr, r - 1, r)
+            l, r = l >> 1, r >> 1
+        return n
+    len1 = np.minimum(length, F - start)
+    return taken(start, len1) + taken(np.zeros_like(start), length - len1)
+
+
+def _same_bits(torch, a, b):
+    if a.dtype is torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _fold_err(torch, name, kflat, kvflat, rflat, rvflat):
+    """Largest |kernel - plain| over the planes after K2+K3; fails unless
+    validity and int / bool planes are equal and float planes agree
+    within STEP_FOLD_RTOL (NaN where the plain version has NaN)."""
+    if not torch.equal(kvflat, rvflat):
+        fail(f"K2+K3 {name}: validity differs from its plain version")
+    err = 0.0
+    for k, t in kflat.items():
+        r = rflat[k]
+        if t.dtype is torch.float32:
+            if not torch.allclose(t, r, rtol=STEP_FOLD_RTOL, atol=0.0,
+                                  equal_nan=True):
+                fail(f"K2+K3 {name}: float plane {k!r} beyond rtol "
+                     f"{STEP_FOLD_RTOL} of its plain version")
+            err = max(err, (t.double() - r.double()).abs().nan_to_num(0.0)
+                      .max().item())
+        elif not torch.equal(t, r):
+            fail(f"K2+K3 {name}: plane {k!r} differs from its plain version")
+    return err
+
+
+def ffat_step_phase(torch, wt, card):
+    """Phase ``programs``, K2+K3 and K4: for each variant a main path runs,
+    one HC batch's fold into a random forest (1% of float values NaN)
+    through the kernel and its plain version, then, on the forest K1
+    rebuilt, one fire step of W_step and one of W_cap lanes (each window
+    of 4 panes, two a slot, the step evicting the panes it slides past):
+    K2+K3 exact on int and bool planes and within STEP_FOLD_RTOL on float
+    ones, K4 bit-identical (values, valid, keys and the evicted forest).
+    Each row: device time (``torch.profiler``), launches and the event
+    bracket of the wrapper (L2 warm, as after the path's previous kernel),
+    the plain version's, the bytes bound and, for the fieldwise sum,
+    ``scatter_reduce_``'s time. Returns the rows by (kernel, variant, W)
+    and the largest absolute difference by (kernel, variant)."""
+    from windflow_tpu_torch import WinType
+    from windflow_tpu_torch.gpu.ffat_gpu import Ffat_Windows_GPU
+    from windflow_tpu_torch.kernels import ffat_step as fs
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    K, F = STEP_K_CAP, STEP_F
+    M, m = K * F, K * 2 * F
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    gen = torch.Generator().manual_seed(17)
+    keys = rng.integers(0, HC_KEYS, BATCH).astype(np.int32)
+    value = rng.integers(0, 100, BATCH).astype(np.int32)
+    ts = 5 * BATCH * TS_STEP // AGG_RATE_KEYS \
+        + np.arange(BATCH, dtype=np.int64) * TS_STEP // AGG_RATE_KEYS
+    comp_np = keys.astype(np.int64) * F + (ts // SLIDE_US) % F
+    comp_np[rng.random(BATCH) < STEP_LATE] = M
+    live = comp_np[comp_np < M]
+    tails = len(np.unique(live))
+    comp = torch.from_numpy(comp_np.astype(np.int32)).to(dev)
+    order = torch.sort(comp, stable=True).indices.to(torch.int32)
+    cols = {"key": torch.from_numpy(keys).to(dev),
+            "value": torch.from_numpy(value).to(dev)}
+    op = Ffat_Windows_GPU(lambda f: f, wt.fieldwise(value="sum"), "key",
+                          WIN_US, SLIDE_US, WinType.TB, 0, None,
+                          key_capacity=HC_KEYS)
+    op.build_replicas()  # its host packer lays the fire steps out
+    rep = op.replicas[0]
+    if (rep.K_cap, rep.F) != (K, F):
+        fail(f"K2+K3/K4: the HC window's forest is {rep.K_cap} x {rep.F}")
+    ktable = torch.arange(K, dtype=torch.int32, device=dev)
+    rows, errs = {}, {}
+    for name in STEP_VARIANTS + STEP_CHECKED:
+        timed = name in STEP_VARIANTS
+        dtypes, comb, lift = _step_spec(torch, wt, name)
+        vals = {k: v.contiguous() for k, v in lift(cols).items()}
+        trees, tvalid = _typed_forest(torch, K, F, dtypes, gen)
+        flat = {k: t.reshape(-1) for k, t in trees.items()}
+        vflat = tvalid.reshape(-1)
+        kflat, kvflat = ({k: t.clone() for k, t in flat.items()},
+                         vflat.clone())
+        rflat, rvflat = ({k: t.clone() for k, t in flat.items()},
+                         vflat.clone())
+        fs.ingest_fold(comb, vals, comp, order, kflat, kvflat, F)
+        fs.ingest_fold_ref(comb, vals, comp, order, rflat, rvflat, F)
+        torch.cuda.synchronize()
+        errs["ingest", name] = _fold_err(torch, name, kflat, kvflat, rflat,
+                                         rvflat)
+        nb = _plane_bytes(flat)
+        tag = fr.variant(comb, dtypes).tag
+        row = dict(program="K2K3_ingest", variant=name, tag=tag,
+                   replaces="windflow_tpu/tpu/ffat_tpu.py:409",
+                   rows=BATCH, K_cap=K, F=F, tails=tails,
+                   max_abs_err=errs["ingest", name],
+                   float_rtol=STEP_FOLD_RTOL, timed=timed)
+        if timed:
+            tb, tv = ({k: t.clone() for k, t in flat.items()},
+                      vflat.clone())
+            row["device_ms"], row["launches"], row["ms"] = _program_ms(
+                torch, lambda: fs.ingest_fold(comb, vals, comp, order, tb,
+                                              tv, F))
+            pb, pv = ({k: t.clone() for k, t in flat.items()},
+                      vflat.clone())
+            row["plain_device_ms"], row["plain_launches"], \
+                row["plain_ms"] = _program_ms(
+                    torch, lambda: fs.ingest_fold_ref(
+                        comb, vals, comp, order, pb, pv, F), reps=10)
+            # each row's planes, key and order read once; each tail's leaf
+            # and validity byte read and written once
+            row["bytes"] = BATCH * (nb + comp.element_size() + 4) \
+                + tails * 2 * (nb + 1)
+            row["library_ms"] = None
+            if name == "fieldwise":
+                # the same leaf update by one library call (no validity)
+                idx = torch.where(comp < M, comp // F * 2 * F + F + comp % F,
+                                  m).long()
+                lb = torch.cat([flat["value"], flat["value"].new_zeros(1)])
+                row["library_device_ms"], _, row["library_ms"] = \
+                    _program_ms(torch, lambda: lb.scatter_reduce_(
+                        0, idx, vals["value"], "sum", include_self=True))
+                row["library_call"] = "Tensor.scatter_reduce_(sum)"
+            row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
+            row["bound_by"] = "bytes"
+            row["bound_share"] = _share(row["bound_ms"], row["device_ms"])
+            del tb, tv, pb, pv
+        row["card"] = card
+        rows["ingest", name, BATCH] = row
+        phase("programs", **row)
+        del rflat, rvflat
+
+        # K4 on the forest the fold left, rebuilt by K1
+        fr.forest_rebuild({k: t.view(K, 2 * F) for k, t in kflat.items()},
+                          kvflat.view(K, 2 * F), comb)
+        for W in STEP_W:
+            slots = np.sort(rng.choice(HC_KEYS, W // 2, replace=False))
+            start0 = rng.integers(0, 1000, len(slots))
+            chunks = (slots, start0, np.full(len(slots), 2),
+                      np.arange(len(slots)), start0 + 5)
+            buf, E = rep._pack_fire_arrays(chunks, W, W)
+            f_pack, e_pack, blocks = fs.split_fire_pack(
+                torch.from_numpy(buf).to(dev), W, E)
+            qf, qvf = ({k: t.clone() for k, t in kflat.items()},
+                       kvflat.clone())
+            pf, pvf = ({k: t.clone() for k, t in kflat.items()},
+                       kvflat.clone())
+            kq = fs.fire_query(comb, qf, qvf, F, f_pack, e_pack, blocks,
+                               ktable)
+            pq = fs.fire_query_ref(comb, pf, pvf, F, f_pack, e_pack, ktable)
+            torch.cuda.synchronize()
+            same = (all(_same_bits(torch, kq[0][k], pq[0][k]) for k in kq[0])
+                    and torch.equal(kq[1], pq[1])
+                    and torch.equal(kq[2], pq[2]) and torch.equal(qvf, pvf))
+            if not same or not kq[1].any():
+                fail(f"K4 {name} W={W}: not bit-identical to its plain "
+                     f"version (or no valid window)")
+            errs["query", name] = 0.0
+            fp = f_pack.cpu().numpy()
+            nodes = int(_walk_nodes(fp[1].astype(np.int64),
+                                    fp[2].astype(np.int64), F).sum())
+            tot_e = int((e_pack[2] != 0).sum())
+            row = dict(program="K4_query", variant=name, tag=tag,
+                       replaces="windflow_tpu/tpu/ffat_tpu.py:302",
+                       windows=W, K_cap=K, F=F, evictions=tot_e,
+                       nodes_taken=nodes, bit_identical=True,
+                       max_abs_err=0.0, timed=timed)
+            if timed:
+                row["device_ms"], row["launches"], row["ms"] = _program_ms(
+                    torch, lambda: fs.fire_query(comb, qf, qvf, F, f_pack,
+                                                 e_pack, blocks, ktable))
+                row["plain_device_ms"], row["plain_launches"], \
+                    row["plain_ms"] = _program_ms(
+                        torch, lambda: fs.fire_query_ref(
+                            comb, pf, pvf, F, f_pack, e_pack, ktable),
+                        reps=10)
+                # the taken nodes with their validity; per window its pack
+                # and its output row (values, valid, key); per eviction its
+                # pack lane and one byte; the block bounds
+                row["bytes"] = nodes * (nb + 1) + W * (20 + nb + 1 + 4) \
+                    + tot_e * (12 + 1) + blocks.numel() * 4
+                row["library_ms"] = None
+                row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
+                row["bound_by"] = "bytes"
+                row["bound_share"] = _share(row["bound_ms"],
+                                            row["device_ms"])
+            row["card"] = card
+            rows["query", name, W] = row
+            phase("programs", **row)
+            del qf, qvf, pf, pvf
+        del trees, tvalid, flat, vflat, kflat, kvflat
+    # the fieldwise library's kernels line: its largest error over every
+    # fieldwise combine checked here
+    for kind in ("ingest", "query"):
+        errs[kind, "fieldwise"] = max(errs[kind, n] for n in
+                                      ("fieldwise",) + STEP_CHECKED)
+    return rows, errs
+
+
+PROFILED_BATCHES = 10
+
+
+def main_path_profiled_part(torch, wt, card):
+    """Phase ``main_path``, part ``profiled``: PROFILED_BATCHES batches of
+    each main path (10,240 keys and 64 keys) through ``PipeGraph`` under
+    ``torch.profiler``: kernels and copies a batch, the card's busy time
+    and idle share over the run (graph start and end included). It runs
+    after the kernels' timing: the profiler's tracing slows later FFAT
+    runs."""
+    for name, n_keys, wpb in (("high_cardinality", HC_KEYS, None),
+                              ("64_keys", 64, 128)):
+        blocks = _blocks(n_keys, seed=7, n_batches=PROFILED_BATCHES)
+        prof = _profiled(torch, lambda: _run_graph(
+            wt, "cuda", blocks, n_keys, wpb), len(blocks))
+        phase("main_path", part="profiled", config=name, keys=n_keys,
+              batches=len(blocks), batch=BATCH, card=card, **prof)
 
 
 def _sync_cards(torch):
@@ -6104,6 +6455,10 @@ def main() -> None:
     fusion_ops_phase(torch, wt, card)
     programs_phase(torch, wt, graph_blocks, card)
     timing, err_timed = kernel_phase(torch, True)
+    # after K1's timing: the plain versions' traces (hundreds of launches
+    # a call) made torch.profiler lose K1's records when they ran first
+    step_rows, step_errs = ffat_step_phase(torch, wt, card)
+    main_path_profiled_part(torch, wt, card)
     # last: its profiled runs trace hundreds of thousands of launches,
     # after which torch.profiler has been seen to lose K1's records
     smap_blocks = state_phase(torch, wt, card)
@@ -6146,6 +6501,40 @@ def main() -> None:
     if unknown:
         fail(f"K1 variants {sorted(unknown)} launched on a main path but "
              "are not in the kernels line")
+    # K2+K3 and K4: launches summed over the main-path runs, by variant;
+    # times and bounds at the HC batch (K4: the fire step at W_step)
+    step_path = sum(STEP_RUNS.values(), Counter())
+    tags = {}
+    for vname in STEP_VARIANTS:
+        tags[vname] = step_rows["ingest", vname, BATCH]["tag"]
+        for kind, label, W in (("ingest", "ffat_ingest", BATCH),
+                               ("query", "ffat_query", STEP_W[0])):
+            launches = step_path[kind, tags[vname]]
+            if launches <= 0:
+                fail(f"{label}'s {vname} variant never launched on a main "
+                     "path")
+            t = step_rows[kind, vname, W]
+            kernels.append({
+                "name": label if vname == "fieldwise"
+                else f"{label}[{vname}]",
+                "route": "cuda",
+                "source": "windflow_tpu_torch/kernels/ffat_step.cuh",
+                "replaces": t["replaces"],
+                "launches": launches,
+                "max_abs_err": step_errs[kind, vname],
+                "ms": t["ms"],
+                "device_ms": t["device_ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": "bytes",
+                "bound_share": t["bound_share"],
+                "library_ms": t["library_ms"],
+                "shape": [W, STEP_K_CAP, STEP_F],
+            })
+    unknown = {t for _, t in step_path} - set(tags.values())
+    if unknown:
+        fail(f"K2+K3 / K4 variants {sorted(unknown)} launched on a main "
+             "path but are not in the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

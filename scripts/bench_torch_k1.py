@@ -16,6 +16,15 @@ prints one JSON line per forest, after the card's name and power limit:
 
 Every run is checked bit for bit against the plain version. Needs a CUDA
 card.
+
+    python3 scripts/bench_torch_k1.py --policy CHECKOUT [CHECKOUT ...]
+
+times the fieldwise library's K1 at the main path's forests (``POLICY``)
+in each checkout (a directory holding ``chip_smoke.py`` and
+``windflow_tpu_torch/``, such as another commit's ``git archive``
+unpacked under ``build/``), each in a process of its own, in turns (A, B,
+B, A): two versions of the fieldwise combine policy compared in one call
+on one card. One JSON line per forest and turn.
 """
 
 from __future__ import annotations
@@ -32,6 +41,53 @@ SPLIT = [(262144, 32), (65536, 128), (32768, 256), (16384, 512)]
 TILES = [(16384, 1024, "int32_sum"), (16384, 1024, "minmax_pairs"),
          (8192, 2048, "int32_sum"), (256, 1024, "int32_sum")]
 TILE_BYTES = [8192, 12288, 16384, 24576, 32768, 49152]
+# the fieldwise forests of the main paths (10,240 and 64 keys, F 32)
+POLICY = [(16384, 32, "int32_sum"), (16384, 32, "float32_sum"),
+          (16384, 32, "minmax_pairs"), (64, 32, "int32_sum")]
+
+
+def policy_turn(checkout: str, turn: int) -> None:
+    """K1 of ``checkout``'s fieldwise library at each ``POLICY`` forest,
+    checked bit for bit against the plain version and timed."""
+    sys.path.insert(0, checkout)
+    import torch
+
+    import chip_smoke as cs
+    from windflow_tpu_torch.combines import fieldwise
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    from windflow_tpu_torch.kernels.reference import forest_rebuild_ref
+
+    gen = torch.Generator().manual_seed(4321)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    for K, F, sname in POLICY:
+        spec = cs.SPECS[sname]
+        comb = fieldwise(**{f"f{i}": op for i, (_, op) in enumerate(spec)})
+        trees, tvalid = cs._forest(torch, K, F, spec, gen)
+        kt, kv = cs._clone(trees, tvalid)
+        rt, rv = cs._clone(trees, tvalid)
+        fr.forest_rebuild(kt, kv, comb)
+        forest_rebuild_ref(rt, rv, comb)
+        torch.cuda.synchronize()
+        if not cs._bit_identical(torch, kt, kv, rt, rv):
+            sys.exit(f"bench_torch_k1: {checkout} differs from the plain "
+                     f"version at K_cap={K} F={F} {sname}")
+        row = cs.time_rebuild(torch, fr.forest_rebuild, kt, kv, comb, spec,
+                              flush, len(fr.forest_plan(kt, kv)))
+        print(json.dumps({"policy": {"checkout": checkout, "turn": turn,
+                                     "K_cap": K, "F": F, "fields": sname,
+                                     "bit_identical": True, **row}}),
+              flush=True)
+
+
+def policy(checkouts) -> None:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    for turn, d in enumerate(checkouts + checkouts[::-1]):
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--policy-turn", os.path.abspath(d), str(turn)],
+                       check=True)
 
 
 def main() -> None:
@@ -108,4 +164,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--policy-turn"]:
+        policy_turn(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--policy"]:
+        policy(sys.argv[2:])
+    else:
+        main()

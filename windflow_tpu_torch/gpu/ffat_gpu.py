@@ -10,23 +10,22 @@ The port of ``windflow_tpu/tpu/ffat_tpu.py`` (reference: WindFlow's
   plan (``prep_device_batch``, ``_fireable``, ``_pack_fire_arrays``),
   build-then-commit growth of key capacity and ring length, and the
   deferred-rebuild flag.
-- The DEVICE plane is eager torch on the operator's device: lift ->
-  segmented scan -> leaf scatter-combine -> forest level rebuild -> window
-  range queries -> leaf eviction. The rebuild is the hand-written kernel
-  K1 (``kernels/forest_rebuild.cuh``: the fieldwise library, or the
-  user combine traced and compiled into a variant of its own) on a CUDA
-  card (every rebuild, no gate)
-  and its plain version on the CPU; the other stages are torch ops
-  (the Hillis-Steele scan of ``gpu/scan.py`` calling the user combine,
-  ``index_put_`` scatters, a vectorized ``LOGQ``-step tree walk).
+- The DEVICE plane runs on the operator's device: lift -> stable sort of
+  the packed composite key (``torch.sort``) -> segmented fold with the
+  leaf merge -> forest level rebuild -> window range queries with the
+  leaf eviction. On a CUDA card the fold is the hand-written kernel K2+K3
+  and the queries with the eviction K4 (``kernels/ffat_step.cuh``), the
+  rebuild K1 (``kernels/forest_rebuild.cuh``), each over the fieldwise
+  library or the user combine traced and compiled into a variant of its
+  own, on every call; on the CPU their plain versions
+  (``kernels/ffat_step.py``, ``kernels/reference.py``).
 - The forest is updated IN PLACE (the JAX package donates it instead).
-  Every plane is a view of a flat buffer with one trailing scratch
-  element: masked scatter lanes write there, which is how the port does
-  ``mode="drop"`` without a host round trip. The order the fire-only
-  program's soundness relies on is kept: every fire path rebuilds before
-  it queries, and evicts after.
+  Every plane is a ``(K_cap, 2F)`` view of a flat buffer, which the
+  fold and the queries take. The order the fire-only program's soundness
+  relies on is kept: every fire path rebuilds before it queries, and
+  evicts after (K4 evicts a slot's leaves after that slot's queries).
 
-Segmentation (sort order + run detection) runs on the host with numpy
+The sort order of the packed composite is taken on the host with numpy
 when the forest lives on the CPU and on the device with
 ``torch.sort(stable=True)`` on a card; assigning ``_host_seg`` selects
 either mode.
@@ -50,65 +49,15 @@ import torch
 
 from ..basic import OpType, RoutingMode, WinType, WindFlowError
 from ..checkpoint import delta as ckpt_delta
+from ..kernels.ffat_step import (fire_pack, fire_query, ingest_fold,
+                                 split_fire_pack)
 from ..kernels.forest_rebuild import forest_rebuild
 from ..kernels.forest_rebuild import variant as forest_variant
 from ..pytree import tree_leaves
 from .batch import BatchGPU, to_device, zero_fields
 from .keymap import KeySlotMap, group_positions
 from .ops_gpu import GPUOperatorBase, GPUReplicaBase, op_batch_keys_np
-from .scan import segmented_scan
 from .schema import TupleSchema, broadcast_scalar_fields, numpy_dtype
-
-
-def comb_valid(combine: Callable, va, a, vb, b):
-    """Ordered combine with validity: an invalid side passes the other
-    through (None-as-identity, like the CPU FlatFAT); ``a`` is the earlier
-    side."""
-    both = va & vb
-    merged = combine(a, b)
-    return va | vb, {k: torch.where(both, merged[k],
-                                    torch.where(va, a[k], b[k]))
-                     for k in a}
-
-
-def _range_query(combine: Callable, flat, vflat, base, lo, length, F: int):
-    """Ordered combine of physical leaf range [lo, lo+length) of the tree
-    rows at flat offsets ``base``: iterative segment-tree walk, left/right
-    accumulators keep combine order."""
-    nn = 2 * F
-    W = base.shape[0]
-    zero = {k: torch.zeros(W, dtype=b.dtype, device=base.device)
-            for k, b in flat.items()}
-    off = torch.zeros(W, dtype=torch.bool, device=base.device)
-    lv, la, rv, ra = off, zero, off, zero
-    l, r = lo + F, lo + length + F
-    for _ in range(nn.bit_length()):
-        take_l = ((l & 1) == 1) & (l < r)
-        il = base + l.clamp(0, nn - 1)
-        lv, la = comb_valid(combine, lv, la, vflat[il] & take_l,
-                            {k: b[il] for k, b in flat.items()})
-        l = torch.where(take_l, l + 1, l)
-        take_r = ((r & 1) == 1) & (l < r)
-        ir = base + (r - 1).clamp(0, nn - 1)
-        rv, ra = comb_valid(combine, vflat[ir] & take_r,
-                            {k: b[ir] for k, b in flat.items()}, rv, ra)
-        r = torch.where(take_r, r - 1, r)
-        l, r = l >> 1, r >> 1
-    return comb_valid(combine, lv, la, rv, ra)
-
-
-def window_query(combine: Callable, flat: Dict[str, torch.Tensor],
-                 vflat: torch.Tensor, base, start, length, F: int):
-    """``(valid, values)``: the ordered combine of ring range ``[start,
-    start + length)`` (physical leaves, wrapping past F: at most two
-    ranges) of each tree row at flat offset ``base`` of the flat forest
-    planes ``flat`` / ``vflat``. Shared by ``Ffat_Windows_GPU`` and the
-    mesh forest (``mesh/core.py``)."""
-    len1 = torch.minimum(length, F - start)
-    v1, r1 = _range_query(combine, flat, vflat, base, start, len1, F)
-    v2, r2 = _range_query(combine, flat, vflat, base,
-                          torch.zeros_like(start), length - len1, F)
-    return comb_valid(combine, v1, r1, v2, r2)
 
 
 class Ffat_Windows_GPU(GPUOperatorBase):
@@ -155,15 +104,17 @@ class Ffat_Windows_GPU(GPUOperatorBase):
                          for i in range(self.parallelism)]
 
 
-def note_k1_use(replica, dtypes: Dict[str, torch.dtype]) -> None:
+def note_k1_use(replica, dtypes: Dict[str, torch.dtype],
+                hit: bool = True) -> None:
     """Compile attribution of K1 (``monitoring/flightrec.note_kernel_load``):
     a replica's first use builds or loads the library of its variant (the
     fieldwise one, or its traced combine's over the planes ``dtypes``) and
     records that as its compile event, under the variant's library name;
-    every later use is a cache hit."""
+    every later use is a cache hit (counted when ``hit``)."""
     st = replica.stats
     if getattr(replica, "_k1_loaded", False):
-        st.compile_cache_hits += 1
+        if hit:
+            st.compile_cache_hits += 1
         return
     from ..kernels.build import BUILD_INFO
     from ..monitoring.flightrec import note_kernel_load
@@ -237,8 +188,7 @@ class FfatGPUReplica(GPUReplicaBase):
         self._base_nkeys: Optional[int] = None
         self._base_geom = None  # (K_cap, F, forest allocated) at the base
         # device forest (shaped once the lift output is known): per field
-        # a flat buffer of K_cap*2F + 1 elements (the last one is the
-        # scratch target of masked scatter lanes) and its (K_cap, 2F) view
+        # a flat buffer of K_cap*2F elements and its (K_cap, 2F) view
         self._flat: Optional[Dict[str, torch.Tensor]] = None
         self._vflat: Optional[torch.Tensor] = None
         self.trees: Optional[Dict[str, torch.Tensor]] = None
@@ -311,53 +261,47 @@ class FfatGPUReplica(GPUReplicaBase):
     def _alloc_forest(self, k_cap: int, f: int, dtypes: Dict[str, Any]):
         """Zeroed ``(flat, trees, vflat, tvalid)`` planes of one geometry."""
         m = k_cap * 2 * f
-        flat = {nm: torch.zeros(m + 1, dtype=dt, device=self.device)
+        flat = {nm: torch.zeros(m, dtype=dt, device=self.device)
                 for nm, dt in dtypes.items()}
-        vflat = torch.zeros(m + 1, dtype=torch.bool, device=self.device)
-        trees = {nm: b[:m].view(k_cap, 2 * f) for nm, b in flat.items()}
-        return flat, trees, vflat, vflat[:m].view(k_cap, 2 * f)
+        vflat = torch.zeros(m, dtype=torch.bool, device=self.device)
+        trees = {nm: b.view(k_cap, 2 * f) for nm, b in flat.items()}
+        return flat, trees, vflat, vflat.view(k_cap, 2 * f)
 
     def _install_forest(self, planes) -> None:
         self._flat, self.trees, self._vflat, self.tvalid = planes
 
-    def _fire_and_evict(self, f_pack: torch.Tensor, e_pack: torch.Tensor):
-        """Vectorized window queries for every fire lane, then leaf
-        eviction (in place) and the wid/key output columns."""
-        F = self.F
-        nn = 2 * F
-        m = self.K_cap * nn
-        fire_slots, starts, lens, wids, mask_i = f_pack
-        fire_mask = mask_i != 0
-        qv, qr = window_query(self.op.combine, self._flat, self._vflat,
-                              fire_slots * nn, starts, lens, F)
-        qv = qv & fire_mask
-        e_slots, e_leaves, e_mask_i = e_pack
-        eflat = torch.where(e_mask_i != 0, e_slots * nn + (F + e_leaves), m)
-        self._vflat.index_put_((eflat,), torch.zeros(
-            (), dtype=torch.bool, device=self.device))
-        if self._use_ktable():
-            ktable = self._ktable_arg()
-            key_out = torch.where(fire_mask, ktable[fire_slots],
-                                  torch.zeros((), dtype=ktable.dtype,
-                                              device=self.device))
-        else:
-            key_out = None
-        return qr, qv, wids, key_out
+    def _fire_and_evict(self, pack):
+        """One fire step (K4 on a card): every fire lane's window query,
+        then the leaf eviction (in place), and the wid / key output
+        columns. ``pack``: the staged ``(f_pack, e_pack, blocks)``."""
+        f_pack, e_pack, blocks = pack
+        self._note_kernels()
+        qr, qv, key_out = fire_query(
+            self.op.combine, self._flat, self._vflat, self.F, f_pack, e_pack,
+            blocks, self._ktable_arg() if self._use_ktable() else None)
+        return qr, qv, f_pack[3], key_out
+
+    def _note_kernels(self, hit: bool = False) -> None:
+        """The first kernel use of a replica on a card loads its variant's
+        library (K1, K2+K3 and K4 share it) with compile attribution; a
+        later rebuild counts a cache hit (``hit``)."""
+        if self.device.type == "cuda":
+            note_k1_use(self, {k: t.dtype for k, t in self.trees.items()},
+                        hit)
 
     def _rebuild(self) -> None:
-        if self.device.type == "cuda":
-            note_k1_use(self, {k: t.dtype for k, t in self.trees.items()})
+        self._note_kernels(hit=True)
         forest_rebuild(self.trees, self.tvalid, self.op.combine)
         if self.device.type == "cuda":
             self.stats.rebuild_kernel_launches += 1
 
     def prewarm(self, caps) -> Optional[int]:
-        """``PipeGraph.with_prewarm``: build or load the forest-rebuild
-        kernel's library (K1) of this replica's variant before the stream
-        starts, so batch 0 pays neither ``nvcc`` nor the load. The
-        variant follows the lift's dtypes: without a declared schema the
-        lift cannot run on a zero row, and the replica is skipped
-        (``prewarm_skip`` says why). The forest's shape follows the
+        """``PipeGraph.with_prewarm``: build or load the library of this
+        replica's variant (K1, K2+K3 and K4) before the stream starts, so
+        batch 0 pays neither ``nvcc`` nor the load. The variant follows
+        the lift's dtypes: without a declared schema the lift cannot run
+        on a zero row, and the replica is skipped (``prewarm_skip`` says
+        why). The forest's shape follows the
         stream's key cardinality, so no capacity bucket is run. 1 (one
         library) on a card, 0 on the CPU (the plain version needs none)."""
         if self.device.type != "cuda":
@@ -374,40 +318,20 @@ class FfatGPUReplica(GPUReplicaBase):
         return 1
 
     def _ingest(self, fields, seg) -> None:
-        """Lift + sort + segmented scan + leaf scatter-combine (in place)."""
-        F = self.F
-        nn = 2 * F
-        m = self.K_cap * nn
+        """Lift + stable sort + segmented fold with the leaf merge (K2+K3
+        on a card), in place. ``seg``: the packed composite (slot*F +
+        leaf, sentinel K_cap*F for late and padding lanes) and its sort
+        order, None when the sort runs here on the device."""
         n_rows = next(iter(fields.values())).shape[0]
         vals = broadcast_scalar_fields(self._lift_fn()(fields), n_rows,
                                        self.device)
-        comp, order, same_prev, is_end, flat_idx = seg
-        if comp is not None:
-            # device segmentation: stable sort of the packed composite
-            # (slot*F + leaf, sentinel K_cap*F for late and padding lanes)
-            big = self.K_cap * F
+        comp, order = seg
+        if order is None:
             order = torch.sort(comp, stable=True).indices.to(torch.int32)
-            sc = comp[order].to(torch.int32)
-            same_prev = torch.cat([torch.zeros(1, dtype=torch.bool,
-                                               device=self.device),
-                                   sc[1:] == sc[:-1]])
-            is_end = torch.cat([sc[1:] != sc[:-1],
-                                torch.ones(1, dtype=torch.bool,
-                                           device=self.device)]) & (sc < big)
-            flat_idx = (sc // F) * nn + (F + sc % F)
-        svals = {k: v[order] for k, v in vals.items()}
-        scanned = segmented_scan(self.op.combine, svals, same_prev)
-        # scatter-combine segment tails into forest leaves; other lanes
-        # land on the scratch element m
-        safe = torch.where(is_end, flat_idx, m)
-        leaf_valid = self._vflat[safe] & is_end
-        cur = {k: b[safe] for k, b in self._flat.items()}
-        merged = self.op.combine(cur, scanned)
-        for k, b in self._flat.items():
-            b.index_put_((safe,), torch.where(leaf_valid, merged[k],
-                                              scanned[k]))
-        self._vflat.index_put_((safe,), torch.ones(
-            (), dtype=torch.bool, device=self.device))
+        self._note_kernels()
+        ingest_fold(self.op.combine,
+                    {k: v.contiguous() for k, v in vals.items()}, comp,
+                    order, self._flat, self._vflat, self.F)
 
     def _ensure_rebuilt(self) -> None:
         """Run the standalone rebuild iff ingest-only batches deferred it
@@ -636,18 +560,11 @@ class FfatGPUReplica(GPUReplicaBase):
             # prefix-dropped rows keep the sentinel: the device step treats
             # them like late and padding lanes
             comp_p[rowsel] = packed
+        order = None
         if self._host_seg:
-            big = cdt(M)
-            order_p = np.argsort(comp_p, kind="stable").astype(np.int32)
-            sc = comp_p[order_p].astype(np.int32)
-            same_p = np.r_[False, sc[1:] == sc[:-1]]
-            end_p = np.r_[sc[1:] != sc[:-1], True] & (sc < big)
-            flat_p = (sc // self.F) * (2 * self.F) + self.F + sc % self.F
-            seg = (None,) + tuple(to_device(np.ascontiguousarray(a),
-                                             self.device)
-                                  for a in (order_p, same_p, end_p, flat_p))
-        else:
-            seg = (to_device(comp_p, self.device), None, None, None, None)
+            order = to_device(np.argsort(comp_p, kind="stable")
+                              .astype(np.int32), self.device)
+        seg = (to_device(comp_p, self.device), order)
 
         frontier = (max(0, batch.wm - op.lateness) // op.pane_len
                     if op.win_type is WinType.TB else None)
@@ -706,9 +623,12 @@ class FfatGPUReplica(GPUReplicaBase):
     def _pack_fire_arrays(self, chunks, n_out, W: int):
         """Chunk arrays -> padded fire/evict arrays: one (5, W) int32 pack
         (rows: slot, start, len, wid, mask) and one (3, E) pack (rows:
-        slot, leaf, mask). Every query is clipped to the slot's data
-        extent (max_leaf) — what makes the rebuild-free fire-only program
-        sound (see the JAX operator's ``_make_fire_step``)."""
+        slot, leaf, mask), both laid out chunk by chunk, and the query
+        kernel's block bounds over the chunks, as one int32 buffer
+        (``kernels/ffat_step.py:fire_pack``), and E. Every query is
+        clipped to the slot's data extent (max_leaf) — what makes the
+        rebuild-free fire-only program sound (see the JAX operator's
+        ``_make_fire_step``)."""
         c_slots, c_start0, c_k, c_wid0, c_ml = chunks
         E = max(1, W * self.slide_units)
         f_pack = np.zeros((5, W), dtype=np.int32)
@@ -730,7 +650,13 @@ class FfatGPUReplica(GPUReplicaBase):
             e_pack[0, :tot_e] = np.repeat(c_slots, ne)
             e_pack[1, :tot_e] = ep % self.F
             e_pack[2, :tot_e] = 1
-        return f_pack, e_pack
+        return fire_pack(f_pack, e_pack, c_k, ne, n_out), E
+
+    def _stage_fire(self, chunks, n_out, W: int):
+        """The fire step's arguments on the device, one copy: the
+        ``(f_pack, e_pack, blocks)`` views ``_fire_and_evict`` takes."""
+        buf, E = self._pack_fire_arrays(chunks, n_out, W)
+        return split_fire_pack(to_device(buf, self.device), W, E)
 
     def _use_ktable(self) -> bool:
         """Whether the key column is gathered from a device-resident
@@ -777,10 +703,8 @@ class FfatGPUReplica(GPUReplicaBase):
                 # nothing fireable: ingest-only step, rebuild DEFERRED
                 plan.append(None)
                 break
-            f_pack, e_pack = self._pack_fire_arrays(chunks, n_out, budget)
             plan.append((first, chunks, n_out,
-                         to_device(f_pack, self.device),
-                         to_device(e_pack, self.device), budget))
+                         self._stage_fire(chunks, n_out, budget), budget))
             total_fired += n_out
             first = False
             if n_out < budget:
@@ -803,7 +727,7 @@ class FfatGPUReplica(GPUReplicaBase):
                 self._rebuild_dirty = True
                 self.stats.device_programs_run += 1
                 continue
-            is_first, chunks, n_out, f_pack, e_pack, budget = entry
+            is_first, chunks, n_out, pack, budget = entry
             if is_first:
                 # full step: ingest + rebuild + fire; the full-forest
                 # rebuild covers every deferred ingest-only batch
@@ -811,7 +735,7 @@ class FfatGPUReplica(GPUReplicaBase):
                 self._rebuild()
                 self._rebuild_dirty = False
                 self._dirty_all = True  # ... and rewrote internal rows
-            out = self._fire_and_evict(f_pack, e_pack)
+            out = self._fire_and_evict(pack)
             self.stats.device_programs_run += 1
             self._emit_windows(wm, chunks, n_out, *out, budget)
 
@@ -854,10 +778,8 @@ class FfatGPUReplica(GPUReplicaBase):
             if not n_out:
                 return
             self._ensure_rebuilt()
-            f_pack, e_pack = self._pack_fire_arrays(chunks, n_out,
-                                                    self.W_cap)
-            out = self._fire_and_evict(to_device(f_pack, self.device),
-                                       to_device(e_pack, self.device))
+            out = self._fire_and_evict(
+                self._stage_fire(chunks, n_out, self.W_cap))
             self.stats.device_programs_run += 1
             self._emit_windows(self.cur_wm, chunks, n_out, *out, self.W_cap)
             if n_out < self.W_cap:

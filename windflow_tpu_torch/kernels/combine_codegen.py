@@ -24,7 +24,9 @@ torch's CPU ops compute (plain operators; ``x / c`` divides): the CPU
 tests compile and run it.
 
 ``kernel_source(ir)`` is the translation unit ``build.load_generated``
-compiles: the header, the policy and its C entry points.
+compiles: the headers, the policy and its C entry points, K1's and the
+FFAT step's (``ffat_step.cuh``: K2+K3 and K4), so one variant is one
+library.
 """
 
 from __future__ import annotations
@@ -265,6 +267,8 @@ def kernel_source(ir: CombineIR) -> str:
     per-kernel settings, which the dynamic linker unifies across loaded
     libraries) is then the variant's own."""
     ns = "wfg_" + hashlib.sha256(ir.text().encode()).hexdigest()[:12]
-    return "\n".join(['#include "forest_rebuild.cuh"', PRELUDE,
+    return "\n".join(['#include "forest_rebuild.cuh"',
+                      '#include "ffat_step.cuh"', PRELUDE,
                       f"namespace {ns} {{", _policy(ir), f"}}  // {ns}", "",
-                      f"WF_REBUILD_ENTRY_POINTS({ns}::{STRUCT})", ""])
+                      f"WF_REBUILD_ENTRY_POINTS({ns}::{STRUCT})",
+                      f"WF_FFAT_ENTRY_POINTS({ns}::{STRUCT})", ""])

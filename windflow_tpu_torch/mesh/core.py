@@ -94,7 +94,8 @@ import numpy as np
 import torch
 
 from ..basic import WindFlowError
-from ..gpu.ffat_gpu import comb_valid, window_query
+from ..kernels.ffat_step import (comb_valid, fire_query, ingest_fold,
+                                 lane_blocks)
 from ..gpu.scan import segmented_scan
 from ..gpu.schema import broadcast_scalar_fields, canonical
 from ..kernels.forest_rebuild import forest_rebuild
@@ -965,8 +966,9 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
 
     One step: fast-forward drained keys past the frontier -> route tuples
     to their key-owner shard (``_route_to_owners``) -> the per-key
-    lateness rule -> per-shard segmented scan by (key, pane) and a scatter
-    of the segment tails into one DELTA forest per shard -> the butterfly
+    lateness rule -> per-shard segmented fold by (key, pane) merged into
+    one zeroed DELTA forest per shard (``kernels.ffat_step.ingest_fold``: K2+K3
+    on a card, its plain version on the CPU) -> the butterfly
     merge of the ``'data'`` replicas' deltas (replica 0's combine order:
     pairs of adjacent data indices, then pairs of pairs; a key shard's
     replicas on other groups merge there first and their partials travel
@@ -975,8 +977,9 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
     ``kernels.forest_rebuild`` per group that holds forest rows (K1 on a
     card, its plain version on the CPU; ``on_rebuild`` is called after
     each) -> ``fire_rounds`` fire rounds on the same card (window queries
-    of every key row, results into column ``r``, eviction of the panes
-    sliding out).
+    of every key row, ``kernels.ffat_step.fire_query``: K4 on a card with
+    no eviction list, results into column ``r``, then the eviction of the
+    panes sliding out as a mask over the forest).
 
     The JAX step skips the rebuild (``lax.cond``) when no key can fire;
     knowing that on the host would cost a read-back per step, so the port
@@ -1084,7 +1087,7 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
             valid = valid & ~late
             n_lates.append(late.sum())
 
-            # ---- per-shard segmented scan by (key, pane) ---------------
+            # ---- per-shard segmented fold by (key, pane) ---------------
             L = rk.shape[0]
             vals = broadcast_scalar_fields(lift(rv), L, dev)
             leaf = torch.where(valid, torch.remainder(rp, F), 0)
@@ -1092,32 +1095,22 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
                 .repeat_interleave(L // grp.n)
             row = shard * k_local + lkey  # the shard's own forest row
             big = grp.n * k_local * F
-            composite = torch.where(valid, row * F + leaf, big)
-            order2 = torch.sort(composite, stable=True).indices
-            sc = composite[order2]
-            same_prev = torch.cat([torch.zeros(1, dtype=torch.bool,
-                                               device=dev),
-                                   sc[1:] == sc[:-1]])
-            is_end = torch.cat([sc[1:] != sc[:-1],
-                                torch.ones(1, dtype=torch.bool, device=dev)]) \
-                & (sc < big)
-            scanned = segmented_scan(combine, {k: v[order2]
-                                               for k, v in vals.items()},
-                                     same_prev)
+            composite = torch.where(valid, row * F + leaf, big) \
+                .to(torch.int32)
+            order2 = torch.sort(composite, stable=True).indices \
+                .to(torch.int32)
+            # each run's fold goes into a DELTA forest per shard (each data
+            # replica received a disjoint tuple subset): K2+K3 merging
+            # into zeroed leaves, where a fold lands as it is
             OOB = grp.n * k_local * NNODES
-            flat_idx = torch.div(sc, F, rounding_mode="floor") * NNODES + F \
-                + torch.remainder(sc, F)
-            safe_idx = torch.where(is_end, flat_idx, OOB)
-            # segment tails scatter into a DELTA forest per shard (each
-            # data replica received a disjoint tuple subset)
-            delta = {}
-            for k, sv in scanned.items():
-                buf = torch.zeros(OOB + 1, dtype=sv.dtype, device=dev)
-                buf[safe_idx] = sv
-                delta[k] = buf[:OOB].reshape(grp.n, k_local * NNODES)
-            vbuf = torch.zeros(OOB + 1, dtype=torch.bool, device=dev)
-            vbuf[safe_idx] = is_end
-            delta[_VALID] = vbuf[:OOB].reshape(grp.n, k_local * NNODES)
+            dflat = {k: torch.zeros(OOB, dtype=v.dtype, device=dev)
+                     for k, v in vals.items()}
+            dvalid = torch.zeros(OOB, dtype=torch.bool, device=dev)
+            ingest_fold(combine, {k: v.contiguous() for k, v in vals.items()},
+                        composite, order2, dflat, dvalid, F)
+            delta = {k: b.reshape(grp.n, k_local * NNODES)
+                     for k, b in dflat.items()}
+            delta[_VALID] = dvalid.reshape(grp.n, k_local * NNODES)
             # the butterfly over 'data' (ppermute with partner j ^ shift),
             # in the combine order of replica 0, whose rows every replica
             # holds: first over the replicas on this group's card
@@ -1178,6 +1171,8 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
             evict = torch.arange(slide_panes, device=dev).unsqueeze(0)
             m = K_g * NNODES
             tv = tvalid[G]
+            rows = torch.arange(K_g, dtype=torch.int32, device=dev)
+            lanes = lane_blocks(K_g, dev)
             for r in range(fire_rounds):
                 vflat = tv.reshape(-1)
                 eligible = (nf + win_panes <= frontier) & (mlg >= nf)
@@ -1185,9 +1180,14 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
                 length = torch.where(
                     eligible, torch.clamp(mlg + 1 - start, max=win_panes),
                     0)
-                qv, qr = window_query(combine, tflat, vflat, base,
-                                      torch.remainder(start, F), length, F)
-                qv = qv & eligible
+                # K4 over one lane a key row, with no eviction: the
+                # round's eviction follows as a mask over the whole forest
+                f_pack = torch.stack([rows, torch.remainder(start, F),
+                                      length, torch.zeros_like(rows),
+                                      eligible.to(torch.int32)]) \
+                    .to(torch.int32)
+                qr, qv, _ = fire_query(combine, tflat, vflat, F, f_pack,
+                                       blocks=lanes)
                 for k in res:
                     res[k][:, r] = torch.where(qv, qr[k], 0).to(res[k].dtype)
                 res_valid[:, r] = qv
