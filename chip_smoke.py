@@ -15,8 +15,8 @@ Phases, each printing one line of its own:
    each library with the FFAT step's kernels over the same policy
    (``ffat_step.cuh``: K2+K3, the segmented fold with the leaf merge, and
    K4, the window query with eviction), and lists each kernel's
-   registers, stack frame and spills (``-Xptxas -v``); a stack frame or a
-   spill fails the phase;
+   registers, stack frame and spill bytes (``-Xptxas -v``); a stack
+   frame or a spilled byte in any library fails the phase;
 3. kernel checks: each kernel against its plain PyTorch version on CUDA
    tensors at the main path's shapes (and YSB's 128 x 32), two shapes
    that move tens of MB and a few edge shapes (1% of float values NaN):
@@ -79,14 +79,24 @@ Phases, each printing one line of its own:
    card's profiler has been seen to drop whole traces); then the
    ``programs`` lines of K2+K3 and K4 for each variant a main path runs
    (the fieldwise sum, ``ysb_last``, ``mean_last``, ``argmax_ts``,
-   ``flags``, ``wide``) on one HC batch (65,536 rows into K_cap 16,384 x
-   F 32, 1% on the sentinel; the fire step at W_step 64 and W_cap 8,192
-   lanes): the kernel against its plain version (K2+K3 exact on int and
-   bool planes, floats within 1e-5 relative; K4 bit-identical, the
-   evicted forest included), device time, launches and event bracket of
-   each, the bytes bound, and for the fieldwise sum
-   ``scatter_reduce_``'s time (after K1's times: the plain versions'
-   traces made the profiler lose K1's records); then part ``profiled``
+   ``flags``, ``wide``) on the batches of ``STEP_LAYOUTS``: the HC batch
+   (65,536 rows into K_cap 16,384 x F 32, 1% on the sentinel), the
+   64-key path's (64 x 32), YSB's (4,096 rows into 128 x 32, two thirds
+   on the sentinel), and layouts that stress K2+K3's tiles (one run over
+   the batch, runs ending on tile edges, a 10,000-row run, every row
+   late, 65,537 rows: a last tile part empty), after K2+K3 launches of
+   several lengths and widths back to back on one stream
+   (``STEP_BACK_TO_BACK``, each exact); K4 after the main paths' batches (W_step 64 and W_cap 8,192
+   lanes at HC, 128 on the small forests) and on a 256 x 1,024 ring
+   with windows of up to F panes: the kernel against its plain version
+   (K2+K3 exact on int and bool planes, floats within 1e-5 relative; K4
+   bit-identical, the evicted forest included); for the fieldwise sum
+   on every layout, and for each other variant on its own path's batch,
+   the kernel's device time, launches and event bracket, the
+   plain version's event bracket, the bytes bound, and for the fieldwise
+   sum ``scatter_reduce_``'s time
+   (after K1's times: the plain versions' traces made the profiler lose
+   K1's records); then part ``profiled``
    of phase ``main_path``: 10 batches of each main path under
    ``torch.profiler``, kernels and copies a batch and the idle share;
 8. keyed device state (``state`` lines): stateful Map_GPU / Filter_GPU
@@ -1222,18 +1232,18 @@ def _events(torch, prof):
     return kernels, copies
 
 
-def _program_ms(torch, fn, reps=30):
+def _program_ms(torch, fn, reps=30, tries=TRACE_TRIES):
     """Device time per call of a multi-kernel program (the CUDA time of
     every kernel it launched, from ``torch.profiler``, over ``reps``
     calls), kernels per call, and the CUDA-event bracket around one call
     (median: host launch time and device time together). A trace whose
     kernel count is no multiple of ``reps`` lost records and is taken
-    again (up to TRACE_TRIES times); then device time and kernels per
+    again (up to ``tries`` times); then device time and kernels per
     call are None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(TRACE_TRIES):
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1249,6 +1259,12 @@ def _program_ms(torch, fn, reps=30):
         _lost_trace(f"torch.profiler lost kernel records ({len(kernels)} "
                     f"for {reps} calls)")
         device_ms = launches = None
+    return device_ms, launches, _event_ms(torch, fn, reps)
+
+
+def _event_ms(torch, fn, reps):
+    """Median of ``reps`` CUDA-event brackets around one call of ``fn``
+    (host launch time and device time together)."""
     out = []
     for _ in range(reps):
         a, b = torch.cuda.Event(True), torch.cuda.Event(True)
@@ -1258,7 +1274,7 @@ def _program_ms(torch, fn, reps=30):
         b.synchronize()
         out.append(a.elapsed_time(b))
     out.sort()
-    return device_ms, launches, out[len(out) // 2]
+    return out[len(out) // 2]
 
 
 def programs_phase(torch, wt, blocks, card):
@@ -1340,9 +1356,9 @@ def programs_phase(torch, wt, blocks, card):
 
 
 # ---------------------------------------------------------------------------
-# phase programs, K2+K3 and K4: the FFAT step's kernels on one batch of
-# the high-cardinality path (K_cap 16,384, F 32, 65,536 rows; the fire
-# step at W_step and at the path's W_cap), each variant a main path runs
+# phase programs, K2+K3 and K4: the FFAT step's kernels on the batches of
+# each main path and on layouts that stress the tiled fold, each variant a
+# main path runs, then the fire steps on the forests K1 rebuilt
 STEP_VARIANTS = ("fieldwise", "ysb_last", "mean_last", "argmax_ts", "flags",
                  "wide")
 # checked, not timed: the fieldwise library's other combines (every op of
@@ -1351,9 +1367,137 @@ STEP_CHECKED = tuple(f"fieldwise:{n}" for n in SPECS if n != "int32_sum")
 STEP_K_CAP, STEP_F = 16384, 32
 STEP_W = (64, 8192)  # W_step; W_cap, the HC window's default budget
 STEP_LATE = 0.01     # rows on the sentinel (late / padding lanes)
-# K2+K3 groups the fold as a tree, its plain version as a Hillis-Steele
-# scan: float planes within this relative tolerance (ints, bools exact)
+# K2+K3's batches, (K_cap, rows): the HC path's (10,240 keys), the 64-key
+# path's (a run per key and pane, hundreds of rows), YSB's (100 campaigns,
+# 4,096-row batches, the two thirds its filter drops on the sentinel),
+# then layouts of the HC forest: one run over the whole batch, runs
+# ending on tile edges (256 and 1,024 rows), a 10,000-row run among HC
+# rows, every row late, and HC rows whose count is no multiple of any
+# tile (the last tile part empty)
+STEP_LAYOUTS = {"hc": (STEP_K_CAP, BATCH), "keys64": (64, BATCH),
+                "ysb": (128, 4096), "one_run": (STEP_K_CAP, BATCH),
+                "tile_edges": (STEP_K_CAP, BATCH),
+                "long_run": (STEP_K_CAP, BATCH),
+                "all_late": (STEP_K_CAP, BATCH),
+                "ragged": (STEP_K_CAP, BATCH + 1)}
+# the layout each variant meets on its main path (K1's PATH_SHAPE): the
+# kernels line's times
+STEP_PATH = {"fieldwise": "hc", "ysb_last": "ysb", "mean_last": "hc",
+             "argmax_ts": "keys64", "flags": "keys64", "wide": "keys64"}
+# K4 after the fold, on the forest K1 rebuilt: fire steps of these widths
+# (two windows a slot; at most two a key row on the small forests)
+STEP_QUERY_W = {"hc": STEP_W, "keys64": (128,), "ysb": (128,)}
+# K4 on a long ring: windows of up to F panes (a walk of 48 nodes), every
+# variant checked, the fieldwise sum timed
+STEP_LONG = (256, 1024, (64, 512))  # K_cap, F, widths
+# K2+K3 groups the fold by tile, warp and thread, its plain version as a
+# Hillis-Steele scan: float planes within this relative tolerance (ints,
+# bools exact)
 STEP_FOLD_RTOL = 1e-5
+# K2+K3 launches of these (rows, int32 sum fields) back to back on one
+# stream, nothing synchronised between them, into zeroed forests (as the
+# mesh's delta forests): values 0-3 in runs of 1-700 rows across tiles,
+# so the tiles' published rows hold small sums; a launch that read an
+# earlier one's value as a status word would fold a wrong carry
+STEP_BACK_TO_BACK = ((BATCH, 1), (4096, 8), (BATCH + 1, 3), (10_001, 8),
+                     (300, 1), (BATCH, 8), (511, 3), (BATCH, 1))
+# traces of a step row: a card whose profiler loses records loses them in
+# every try (47 rows x 5 tries added ~150 s to one whole run)
+STEP_TRACE_TRIES = 2
+
+
+def _step_timed(name, layout):
+    """Whether K2+K3 (and K4 after it) is timed for a variant on a
+    layout: the fieldwise sum everywhere, every other variant on its own
+    path's batch (scripts/bench_torch_step.py times the same cases)."""
+    return name == "fieldwise" or (name in STEP_VARIANTS
+                                   and layout == STEP_PATH[name])
+
+
+def step_batch(layout, rng):
+    """(comp, key, value) int64 / int32 numpy columns of one K2+K3 batch of
+    ``layout`` (STEP_LAYOUTS): comp the packed composite slot * F + leaf,
+    K_cap * F for rows on the sentinel."""
+    K, n = STEP_LAYOUTS[layout]
+    F, M = STEP_F, STEP_LAYOUTS[layout][0] * STEP_F
+    value = rng.integers(0, 100, n).astype(np.int32)
+    late = rng.random(n) < STEP_LATE
+    if layout in ("hc", "keys64", "long_run", "ragged"):
+        keys = rng.integers(0, HC_KEYS if K == STEP_K_CAP else K, n)
+        ts = 5 * n * TS_STEP // AGG_RATE_KEYS \
+            + np.arange(n, dtype=np.int64) * TS_STEP // AGG_RATE_KEYS
+        comp = keys * F + (ts // SLIDE_US) % F
+        if layout == "long_run":
+            run = rng.permutation(n)[:10_000]
+            comp[run] = (K // 2) * F + 1
+            late[run] = False
+    elif layout == "ysb":
+        i = np.arange(n, dtype=np.int64) + 7 * n
+        keys = (i % 1000) // 10  # ad -> campaign, one 10 s pane
+        comp = keys * F + 3
+        late = i % 3 != 0  # the filter keeps views
+    elif layout == "one_run":
+        keys = np.full(n, 5)
+        comp = np.full(n, 5 * F + 3)
+        late[:] = False
+    elif layout == "tile_edges":
+        lens = np.resize([256, 1024], n // 640 + 2)
+        ends = np.cumsum(lens)
+        lens = lens[ends <= n]
+        lens[-1] += n - lens.sum()
+        run = np.repeat(np.arange(len(lens)), lens)
+        keys = run * 7 % K
+        comp = (keys * F + run % F)[rng.permutation(n)]
+        late[:] = False
+    else:  # all_late
+        keys = rng.integers(0, HC_KEYS, n)
+        comp = keys * F
+        late[:] = True
+    comp = np.where(late, M, comp).astype(np.int64)
+    return comp, keys.astype(np.int32), value
+
+
+def step_back_to_back_case(torch, wt, rng):
+    """K2+K3 over STEP_BACK_TO_BACK, every input made on the card first,
+    the launches issued with no synchronisation between them, then each
+    held against its plain version (exact). Returns the phase row."""
+    from windflow_tpu_torch.kernels import ffat_step as fs
+    dev = torch.device("cuda")
+    K, F = STEP_K_CAP, STEP_F
+    cases = []
+    for n, nf in STEP_BACK_TO_BACK:
+        lens = rng.integers(1, 701, n)
+        lens = lens[np.cumsum(lens) <= n]
+        comp = np.full(n, K * F, dtype=np.int64)  # the rest late
+        comp[:lens.sum()] = np.repeat(
+            rng.choice(K * F, len(lens), replace=False), lens)
+        comp = torch.from_numpy(comp[rng.permutation(n)].astype(np.int32))
+        names = [f"f{i}" for i in range(nf)]
+        cases.append(dict(
+            n=n, nf=nf, runs=len(lens),
+            comb=wt.fieldwise(**{nm: "sum" for nm in names}),
+            comp=comp.to(dev),
+            vals={nm: torch.from_numpy(rng.integers(0, 4, n)
+                                       .astype(np.int32)).to(dev)
+                  for nm in names},
+            flat={nm: torch.zeros(K * 2 * F, dtype=torch.int32, device=dev)
+                  for nm in names},
+            vflat=torch.zeros(K * 2 * F, dtype=torch.bool, device=dev)))
+    torch.cuda.synchronize()
+    for c in cases:
+        fs.ingest_fold(c["comb"], c["vals"], fs.sort_rows(c["comp"]),
+                       c["flat"], c["vflat"], F)
+    for c in cases:
+        rflat = {k: torch.zeros_like(t) for k, t in c["flat"].items()}
+        rvflat = torch.zeros_like(c["vflat"])
+        fs.ingest_fold_ref(c["comb"], c["vals"], c["comp"],
+                           fs.sort_rows(c["comp"])[0], rflat, rvflat, F)
+        torch.cuda.synchronize()
+        _fold_err(torch, f"back to back n {c['n']} NF {c['nf']}",
+                  c["flat"], c["vflat"], rflat, rvflat)
+    return dict(program="K2K3_ingest", case="back_to_back",
+                launches=[[c["n"], c["nf"], c["runs"]] for c in cases],
+                exact=True)
 
 
 def _fieldwise_lift(torch, spec):
@@ -1445,166 +1589,249 @@ def _fold_err(torch, name, kflat, kvflat, rflat, rvflat):
     return err
 
 
-def ffat_step_phase(torch, wt, card):
-    """Phase ``programs``, K2+K3 and K4: for each variant a main path runs,
-    one HC batch's fold into a random forest (1% of float values NaN)
-    through the kernel and its plain version, then, on the forest K1
-    rebuilt, one fire step of W_step and one of W_cap lanes (each window
-    of 4 panes, two a slot, the step evicting the panes it slides past):
-    K2+K3 exact on int and bool planes and within STEP_FOLD_RTOL on float
-    ones, K4 bit-identical (values, valid, keys and the evicted forest).
-    Each row: device time (``torch.profiler``), launches and the event
-    bracket of the wrapper (L2 warm, as after the path's previous kernel),
-    the plain version's, the bytes bound and, for the fieldwise sum,
-    ``scatter_reduce_``'s time. Returns the rows by (kernel, variant, W)
-    and the largest absolute difference by (kernel, variant)."""
-    from windflow_tpu_torch import WinType
-    from windflow_tpu_torch.gpu.ffat_gpu import Ffat_Windows_GPU
+def _long_fire(rng, K, F, W):
+    """A fire buffer of W windows over a K x F forest (``fs.fire_pack``):
+    W / 2 slots, two windows each of 0 to F panes from any start (ring
+    wraps included), and 0-8 evicted leaves a slot; and E."""
     from windflow_tpu_torch.kernels import ffat_step as fs
-    from windflow_tpu_torch.kernels import forest_rebuild as fr
-    K, F = STEP_K_CAP, STEP_F
-    M, m = K * F, K * 2 * F
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(17)
-    gen = torch.Generator().manual_seed(17)
-    keys = rng.integers(0, HC_KEYS, BATCH).astype(np.int32)
-    value = rng.integers(0, 100, BATCH).astype(np.int32)
-    ts = 5 * BATCH * TS_STEP // AGG_RATE_KEYS \
-        + np.arange(BATCH, dtype=np.int64) * TS_STEP // AGG_RATE_KEYS
-    comp_np = keys.astype(np.int64) * F + (ts // SLIDE_US) % F
-    comp_np[rng.random(BATCH) < STEP_LATE] = M
+    slots = np.sort(rng.choice(K, W // 2, replace=False))
+    ne = rng.integers(0, 9, len(slots))
+    tot = int(ne.sum())
+    f_pack = np.stack([np.repeat(slots, 2), rng.integers(0, F, W),
+                       rng.integers(0, F + 1, W), np.arange(W),
+                       np.ones(W, np.int64)]).astype(np.int32)
+    e_pack = np.zeros((3, max(1, tot)), np.int32)
+    e_pack[:, :tot] = [np.repeat(slots, ne), rng.integers(0, F, tot),
+                       np.ones(tot, np.int64)]
+    return fs.fire_pack(f_pack, e_pack, np.full(len(slots), 2), ne, W), \
+        e_pack.shape[1]
+
+
+def step_ingest_case(torch, name, comb, lift, dtypes, layout, batch, gen,
+                     timed):
+    """K2+K3 on one batch of ``layout`` (``step_batch``) into a random
+    forest through the kernel and its plain version: validity and int /
+    bool planes equal, floats within STEP_FOLD_RTOL. Returns the row
+    (``timed``: device time, launches and event bracket of the wrapper,
+    the plain version's event bracket, the bytes bound and, for the
+    fieldwise sum, ``scatter_reduce_``'s time) and the kernel's forest."""
+    from windflow_tpu_torch.kernels import ffat_step as fs
+    K, n = STEP_LAYOUTS[layout]
+    F, M, m = STEP_F, STEP_LAYOUTS[layout][0] * STEP_F, K * 2 * STEP_F
+    comp_np, keys, value = batch
     live = comp_np[comp_np < M]
     tails = len(np.unique(live))
+    dev = torch.device("cuda")
     comp = torch.from_numpy(comp_np.astype(np.int32)).to(dev)
-    order = torch.sort(comp, stable=True).indices.to(torch.int32)
+    srt = fs.sort_rows(comp)
+    order = srt[0]
     cols = {"key": torch.from_numpy(keys).to(dev),
             "value": torch.from_numpy(value).to(dev)}
+    vals = {k: v.contiguous() for k, v in lift(cols).items()}
+    trees, tvalid = _typed_forest(torch, K, F, dtypes, gen)
+    flat = {k: t.reshape(-1) for k, t in trees.items()}
+    vflat = tvalid.reshape(-1)
+    kflat, kvflat = ({k: t.clone() for k, t in flat.items()}, vflat.clone())
+    rflat, rvflat = ({k: t.clone() for k, t in flat.items()}, vflat.clone())
+    fs.ingest_fold(comb, vals, srt, kflat, kvflat, F)
+    fs.ingest_fold_ref(comb, vals, comp, order, rflat, rvflat, F)
+    torch.cuda.synchronize()
+    err = _fold_err(torch, f"{name} {layout}", kflat, kvflat, rflat, rvflat)
+    del rflat, rvflat
+    nb = _plane_bytes(flat)
+    row = dict(program="K2K3_ingest", variant=name, layout=layout,
+               replaces="windflow_tpu/tpu/ffat_tpu.py:409", rows=n,
+               K_cap=K, F=F, tails=tails, max_abs_err=err,
+               float_rtol=STEP_FOLD_RTOL, timed=timed)
+    if timed:
+        tb, tv = ({k: t.clone() for k, t in flat.items()}, vflat.clone())
+        row["device_ms"], row["launches"], row["ms"] = _program_ms(
+            torch, lambda: fs.ingest_fold(comb, vals, srt, tb, tv, F),
+            tries=STEP_TRACE_TRIES)
+        # the plain version by events alone: its traces (up to ~22,500
+        # launches) made torch.profiler lose the next kernel's records
+        pb, pv = ({k: t.clone() for k, t in flat.items()}, vflat.clone())
+        row["plain_ms"] = _event_ms(torch, lambda: fs.ingest_fold_ref(
+            comb, vals, comp, order, pb, pv, F), 10)
+        # the live rows' planes, every row's sorted key and order read
+        # once; each tail's leaf and validity byte read and written once
+        row["bytes"] = len(live) * nb + n * (comp.element_size() + 4) \
+            + tails * 2 * (nb + 1)
+        row["library_ms"] = None
+        if name == "fieldwise":
+            # the same leaf update by one library call (no validity)
+            idx = torch.where(comp < M, comp // F * 2 * F + F + comp % F,
+                              m).long()
+            lb = torch.cat([flat["value"], flat["value"].new_zeros(1)])
+            row["library_device_ms"], _, row["library_ms"] = _program_ms(
+                torch, lambda: lb.scatter_reduce_(
+                    0, idx, vals["value"], "sum", include_self=True),
+                tries=STEP_TRACE_TRIES)
+            row["library_call"] = "Tensor.scatter_reduce_(sum)"
+        row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
+        row["bound_by"] = "bytes"
+        row["bound_share"] = _share(row["bound_ms"], row["device_ms"])
+    return row, kflat, kvflat
+
+
+def step_query_case(torch, name, comb, kflat, kvflat, F, buf, W, E, ktable,
+                    timed):
+    """K4 on one fire buffer over a rebuilt forest, through the kernel and
+    its plain version: values, validity, keys and the evicted forest bit
+    for bit. Returns the row (``timed``: device time, launches and event
+    bracket of the wrapper, the plain version's event bracket, the bytes
+    bound)."""
+    from windflow_tpu_torch.kernels import ffat_step as fs
+    dev = torch.device("cuda")
+    f_pack, e_pack, blocks = fs.split_fire_pack(
+        torch.from_numpy(buf).to(dev), W, E)
+    qf, qvf = ({k: t.clone() for k, t in kflat.items()}, kvflat.clone())
+    pf, pvf = ({k: t.clone() for k, t in kflat.items()}, kvflat.clone())
+    kq = fs.fire_query(comb, qf, qvf, F, f_pack, e_pack, blocks, ktable)
+    pq = fs.fire_query_ref(comb, pf, pvf, F, f_pack, e_pack, ktable)
+    torch.cuda.synchronize()
+    same = (all(_same_bits(torch, kq[0][k], pq[0][k]) for k in kq[0])
+            and torch.equal(kq[1], pq[1]) and torch.equal(kq[2], pq[2])
+            and torch.equal(qvf, pvf))
+    if not same or not kq[1].any():
+        fail(f"K4 {name} F={F} W={W}: not bit-identical to its plain "
+             f"version (or no valid window)")
+    fp = f_pack.cpu().numpy()
+    nodes = int(_walk_nodes(fp[1].astype(np.int64), fp[2].astype(np.int64),
+                            F).sum())
+    tot_e = int((e_pack[2] != 0).sum())
+    nb = _plane_bytes(kflat)
+    row = dict(program="K4_query", variant=name,
+               replaces="windflow_tpu/tpu/ffat_tpu.py:302", windows=W,
+               K_cap=kvflat.numel() // (2 * F), F=F, evictions=tot_e,
+               nodes_taken=nodes, bit_identical=True, max_abs_err=0.0,
+               timed=timed)
+    if timed:
+        row["device_ms"], row["launches"], row["ms"] = _program_ms(
+            torch, lambda: fs.fire_query(comb, qf, qvf, F, f_pack, e_pack,
+                                         blocks, ktable),
+            tries=STEP_TRACE_TRIES)
+        row["plain_ms"] = _event_ms(torch, lambda: fs.fire_query_ref(
+            comb, pf, pvf, F, f_pack, e_pack, ktable), 10)
+        # the taken nodes with their validity; per window its pack and its
+        # output row (values, valid, key); per eviction its pack lane and
+        # one byte; the block bounds
+        row["bytes"] = nodes * (nb + 1) + W * (20 + nb + 1 + 4) \
+            + tot_e * (12 + 1) + blocks.numel() * 4
+        row["library_ms"] = None
+        row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
+        row["bound_by"] = "bytes"
+        row["bound_share"] = _share(row["bound_ms"], row["device_ms"])
+    return row
+
+
+def step_fires(wt, rng):
+    """The fire buffers of K4's cases: ``(fires, long_fires)``, by
+    (layout, W) from the HC window's own packer (each window of 4 panes,
+    two a slot, the step evicting the panes it slides past), and by W on
+    the long ring (``_long_fire``)."""
+    from windflow_tpu_torch import WinType
+    from windflow_tpu_torch.gpu.ffat_gpu import Ffat_Windows_GPU
     op = Ffat_Windows_GPU(lambda f: f, wt.fieldwise(value="sum"), "key",
                           WIN_US, SLIDE_US, WinType.TB, 0, None,
                           key_capacity=HC_KEYS)
-    op.build_replicas()  # its host packer lays the fire steps out
+    op.build_replicas()
     rep = op.replicas[0]
-    if (rep.K_cap, rep.F) != (K, F):
+    if (rep.K_cap, rep.F) != (STEP_K_CAP, STEP_F):
         fail(f"K2+K3/K4: the HC window's forest is {rep.K_cap} x {rep.F}")
-    ktable = torch.arange(K, dtype=torch.int32, device=dev)
-    rows, errs = {}, {}
-    for name in STEP_VARIANTS + STEP_CHECKED:
-        timed = name in STEP_VARIANTS
-        dtypes, comb, lift = _step_spec(torch, wt, name)
-        vals = {k: v.contiguous() for k, v in lift(cols).items()}
-        trees, tvalid = _typed_forest(torch, K, F, dtypes, gen)
-        flat = {k: t.reshape(-1) for k, t in trees.items()}
-        vflat = tvalid.reshape(-1)
-        kflat, kvflat = ({k: t.clone() for k, t in flat.items()},
-                         vflat.clone())
-        rflat, rvflat = ({k: t.clone() for k, t in flat.items()},
-                         vflat.clone())
-        fs.ingest_fold(comb, vals, comp, order, kflat, kvflat, F)
-        fs.ingest_fold_ref(comb, vals, comp, order, rflat, rvflat, F)
-        torch.cuda.synchronize()
-        errs["ingest", name] = _fold_err(torch, name, kflat, kvflat, rflat,
-                                         rvflat)
-        nb = _plane_bytes(flat)
-        tag = fr.variant(comb, dtypes).tag
-        row = dict(program="K2K3_ingest", variant=name, tag=tag,
-                   replaces="windflow_tpu/tpu/ffat_tpu.py:409",
-                   rows=BATCH, K_cap=K, F=F, tails=tails,
-                   max_abs_err=errs["ingest", name],
-                   float_rtol=STEP_FOLD_RTOL, timed=timed)
-        if timed:
-            tb, tv = ({k: t.clone() for k, t in flat.items()},
-                      vflat.clone())
-            row["device_ms"], row["launches"], row["ms"] = _program_ms(
-                torch, lambda: fs.ingest_fold(comb, vals, comp, order, tb,
-                                              tv, F))
-            pb, pv = ({k: t.clone() for k, t in flat.items()},
-                      vflat.clone())
-            row["plain_device_ms"], row["plain_launches"], \
-                row["plain_ms"] = _program_ms(
-                    torch, lambda: fs.ingest_fold_ref(
-                        comb, vals, comp, order, pb, pv, F), reps=10)
-            # each row's planes, key and order read once; each tail's leaf
-            # and validity byte read and written once
-            row["bytes"] = BATCH * (nb + comp.element_size() + 4) \
-                + tails * 2 * (nb + 1)
-            row["library_ms"] = None
-            if name == "fieldwise":
-                # the same leaf update by one library call (no validity)
-                idx = torch.where(comp < M, comp // F * 2 * F + F + comp % F,
-                                  m).long()
-                lb = torch.cat([flat["value"], flat["value"].new_zeros(1)])
-                row["library_device_ms"], _, row["library_ms"] = \
-                    _program_ms(torch, lambda: lb.scatter_reduce_(
-                        0, idx, vals["value"], "sum", include_self=True))
-                row["library_call"] = "Tensor.scatter_reduce_(sum)"
-            row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
-            row["bound_by"] = "bytes"
-            row["bound_share"] = _share(row["bound_ms"], row["device_ms"])
-            del tb, tv, pb, pv
-        row["card"] = card
-        rows["ingest", name, BATCH] = row
-        phase("programs", **row)
-        del rflat, rvflat
-
-        # K4 on the forest the fold left, rebuilt by K1
-        fr.forest_rebuild({k: t.view(K, 2 * F) for k, t in kflat.items()},
-                          kvflat.view(K, 2 * F), comb)
-        for W in STEP_W:
-            slots = np.sort(rng.choice(HC_KEYS, W // 2, replace=False))
+    fires = {}
+    for lay, widths in STEP_QUERY_W.items():
+        K = STEP_LAYOUTS[lay][0]
+        for W in widths:
+            slots = np.sort(rng.choice(min(K, HC_KEYS), W // 2,
+                                       replace=False))
             start0 = rng.integers(0, 1000, len(slots))
             chunks = (slots, start0, np.full(len(slots), 2),
                       np.arange(len(slots)), start0 + 5)
-            buf, E = rep._pack_fire_arrays(chunks, W, W)
-            f_pack, e_pack, blocks = fs.split_fire_pack(
-                torch.from_numpy(buf).to(dev), W, E)
-            qf, qvf = ({k: t.clone() for k, t in kflat.items()},
-                       kvflat.clone())
-            pf, pvf = ({k: t.clone() for k, t in kflat.items()},
-                       kvflat.clone())
-            kq = fs.fire_query(comb, qf, qvf, F, f_pack, e_pack, blocks,
-                               ktable)
-            pq = fs.fire_query_ref(comb, pf, pvf, F, f_pack, e_pack, ktable)
-            torch.cuda.synchronize()
-            same = (all(_same_bits(torch, kq[0][k], pq[0][k]) for k in kq[0])
-                    and torch.equal(kq[1], pq[1])
-                    and torch.equal(kq[2], pq[2]) and torch.equal(qvf, pvf))
-            if not same or not kq[1].any():
-                fail(f"K4 {name} W={W}: not bit-identical to its plain "
-                     f"version (or no valid window)")
-            errs["query", name] = 0.0
-            fp = f_pack.cpu().numpy()
-            nodes = int(_walk_nodes(fp[1].astype(np.int64),
-                                    fp[2].astype(np.int64), F).sum())
-            tot_e = int((e_pack[2] != 0).sum())
-            row = dict(program="K4_query", variant=name, tag=tag,
-                       replaces="windflow_tpu/tpu/ffat_tpu.py:302",
-                       windows=W, K_cap=K, F=F, evictions=tot_e,
-                       nodes_taken=nodes, bit_identical=True,
-                       max_abs_err=0.0, timed=timed)
-            if timed:
-                row["device_ms"], row["launches"], row["ms"] = _program_ms(
-                    torch, lambda: fs.fire_query(comb, qf, qvf, F, f_pack,
-                                                 e_pack, blocks, ktable))
-                row["plain_device_ms"], row["plain_launches"], \
-                    row["plain_ms"] = _program_ms(
-                        torch, lambda: fs.fire_query_ref(
-                            comb, pf, pvf, F, f_pack, e_pack, ktable),
-                        reps=10)
-                # the taken nodes with their validity; per window its pack
-                # and its output row (values, valid, key); per eviction its
-                # pack lane and one byte; the block bounds
-                row["bytes"] = nodes * (nb + 1) + W * (20 + nb + 1 + 4) \
-                    + tot_e * (12 + 1) + blocks.numel() * 4
-                row["library_ms"] = None
-                row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
-                row["bound_by"] = "bytes"
-                row["bound_share"] = _share(row["bound_ms"],
-                                            row["device_ms"])
-            row["card"] = card
-            rows["query", name, W] = row
+            fires[lay, W] = rep._pack_fire_arrays(chunks, W, W)
+    KL, FL, WL = STEP_LONG
+    return fires, {W: _long_fire(rng, KL, FL, W) for W in WL}
+
+
+def step_cases(torch, wt, name, batches, fires, long_fires, gen, card,
+               timed_only=False, query=True):
+    """Every case of one variant (see ``ffat_step_phase``), yielded as
+    ((kernel, variant, layout[, W]), row); ``timed_only``: the timed
+    cases alone; ``query``: K4's cases too."""
+    from windflow_tpu_torch.kernels import forest_rebuild as fr
+    F = STEP_F
+    dev = torch.device("cuda")
+    dtypes, comb, lift = _step_spec(torch, wt, name)
+    tag = fr.variant(comb, dtypes).tag
+    for lay, batch in batches.items():
+        timed = _step_timed(name, lay)
+        if timed_only and not timed:
+            continue
+        row, kflat, kvflat = step_ingest_case(
+            torch, name, comb, lift, dtypes, lay, batch, gen, timed)
+        row.update(tag=tag, card=card)
+        yield ("ingest", name, lay), row
+        if not query or lay not in STEP_QUERY_W:
+            del kflat, kvflat
+            continue
+        # K4 on the forest the fold left, rebuilt by K1
+        K = STEP_LAYOUTS[lay][0]
+        fr.forest_rebuild({k: t.view(K, 2 * F) for k, t in kflat.items()},
+                          kvflat.view(K, 2 * F), comb)
+        ktable = torch.arange(K, dtype=torch.int32, device=dev)
+        for W in STEP_QUERY_W[lay]:
+            buf, E = fires[lay, W]
+            row = step_query_case(torch, name, comb, kflat, kvflat, F, buf,
+                                  W, E, ktable, timed)
+            row.update(tag=tag, layout=lay, card=card)
+            yield ("query", name, lay, W), row
+        del kflat, kvflat
+    # K4 on a long ring
+    if not query or (timed_only and name != "fieldwise"):
+        return
+    KL, FL, _ = STEP_LONG
+    trees, tvalid = _typed_forest(torch, KL, FL, dtypes, gen)
+    fr.forest_rebuild(trees, tvalid, comb)
+    flat = {k: t.reshape(-1) for k, t in trees.items()}
+    ktable = torch.arange(KL, dtype=torch.int32, device=dev)
+    for W, (buf, E) in long_fires.items():
+        row = step_query_case(torch, name, comb, flat, tvalid.reshape(-1),
+                              FL, buf, W, E, ktable, name == "fieldwise")
+        row.update(tag=tag, layout="long_ring", card=card)
+        yield ("query", name, "long_ring", W), row
+
+
+def ffat_step_phase(torch, wt, card):
+    """Phase ``programs``, K2+K3 and K4: for each variant a main path runs
+    (and, untimed, the fieldwise library's other combines), one batch of
+    every STEP_LAYOUTS layout folded into a random forest (1% of float
+    values NaN) through the kernel and its plain version; on the forests
+    of the main paths' layouts, rebuilt by K1, fire steps of STEP_QUERY_W
+    windows; then K4 on a K_cap 256 x F 1,024 forest with windows of up
+    to F panes (``step_fires``). K2+K3 exact on int and bool planes and
+    within STEP_FOLD_RTOL on float ones, K4 bit-identical (values, valid,
+    keys and the evicted forest). Timed rows (``_step_timed``): device
+    time (``torch.profiler``), launches and the event bracket of the
+    wrapper (L2 warm, as after the path's previous kernel), the plain
+    version's event bracket, the bytes bound and, for the fieldwise sum,
+    ``scatter_reduce_``'s time. Returns the rows by (kernel, variant,
+    layout[, W]) and the largest absolute difference by (kernel,
+    variant)."""
+    rng = np.random.default_rng(17)
+    gen = torch.Generator().manual_seed(17)
+    batches = {lay: step_batch(lay, rng) for lay in STEP_LAYOUTS}
+    fires, long_fires = step_fires(wt, rng)
+    phase("programs", card=card, **step_back_to_back_case(torch, wt, rng))
+    rows, errs = {}, {}
+    for name in STEP_VARIANTS + STEP_CHECKED:
+        errs["query", name] = 0.0  # K4: bit-identical or failed
+        for key, row in step_cases(torch, wt, name, batches, fires,
+                                   long_fires, gen, card):
+            if key[0] == "ingest":
+                errs["ingest", name] = max(errs.get(("ingest", name), 0.0),
+                                           row["max_abs_err"])
+            rows[key] = row
             phase("programs", **row)
-            del qf, qvf, pf, pvf
-        del trees, tvalid, flat, vflat, kflat, kvflat
     # the fieldwise library's kernels line: its largest error over every
     # fieldwise combine checked here
     for kind in ("ingest", "query"):
@@ -6502,18 +6729,21 @@ def main() -> None:
         fail(f"K1 variants {sorted(unknown)} launched on a main path but "
              "are not in the kernels line")
     # K2+K3 and K4: launches summed over the main-path runs, by variant;
-    # times and bounds at the HC batch (K4: the fire step at W_step)
+    # times and bounds at each variant's path layout (K4: the fire step at
+    # the layout's first width)
     step_path = sum(STEP_RUNS.values(), Counter())
     tags = {}
     for vname in STEP_VARIANTS:
-        tags[vname] = step_rows["ingest", vname, BATCH]["tag"]
-        for kind, label, W in (("ingest", "ffat_ingest", BATCH),
-                               ("query", "ffat_query", STEP_W[0])):
+        lay = STEP_PATH[vname]
+        W = STEP_QUERY_W[lay][0]
+        tags[vname] = step_rows["ingest", vname, lay]["tag"]
+        for kind, label, key in (("ingest", "ffat_ingest", (lay,)),
+                                 ("query", "ffat_query", (lay, W))):
             launches = step_path[kind, tags[vname]]
             if launches <= 0:
                 fail(f"{label}'s {vname} variant never launched on a main "
                      "path")
-            t = step_rows[kind, vname, W]
+            t = step_rows[(kind, vname) + key]
             kernels.append({
                 "name": label if vname == "fieldwise"
                 else f"{label}[{vname}]",
@@ -6529,7 +6759,8 @@ def main() -> None:
                 "bound_by": "bytes",
                 "bound_share": t["bound_share"],
                 "library_ms": t["library_ms"],
-                "shape": [W, STEP_K_CAP, STEP_F],
+                "shape": ([STEP_LAYOUTS[lay][1]] if kind == "ingest"
+                          else [W]) + [STEP_LAYOUTS[lay][0], STEP_F],
             })
     unknown = {t for _, t in step_path} - set(tags.values())
     if unknown:

@@ -166,8 +166,7 @@ def _order(comp, host):
     if host:
         return torch.from_numpy(np.argsort(comp, kind="stable")
                                 .astype(np.int32))
-    return torch.sort(torch.from_numpy(comp), stable=True).indices \
-        .to(torch.int32)
+    return fs.sort_rows(torch.from_numpy(comp))[0]
 
 
 def _jax_step(jcomb, F, cols, comp, trees, tvalid, packs=None):
@@ -188,8 +187,16 @@ def _jax_step(jcomb, F, cols, comp, trees, tvalid, packs=None):
 
 
 def _port_ingest(tcomb, cols, comp, flat, vflat, F, host):
+    """The plain K2+K3 with the order taken on the host (numpy) or as the
+    replica takes it on a card (``sort_rows``, the sorted keys passed)."""
+    tc_ = torch.from_numpy(comp)
+    if host:
+        order = _order(comp, True)
+        skeys = tc_[order.long()]
+    else:
+        order, skeys = fs.sort_rows(tc_)
     fs.ingest_fold(tcomb, {f: torch.from_numpy(c) for f, c in cols.items()},
-                   torch.from_numpy(comp), _order(comp, host), flat, vflat, F)
+                   (order, skeys), flat, vflat, F)
 
 
 NAMES = ["int_sum", "ysb_last", "mean_last"]
@@ -254,6 +261,49 @@ def test_ingest_all_rows_late(F):
         assert (flat[f].numpy() == t.reshape(-1)).all()
 
 
+def _layout_runs(layout, F):
+    """(key, count) runs of a layout that stresses K2+K3's tiles (128 to
+    512 sorted rows a tile): one run over the whole batch; runs whose
+    sorted ends fall on multiples of 256 (tile edges); rows whose count
+    is no multiple of 128 (the last tile part empty); a 1,000-row run
+    among short ones."""
+    if layout == "one_run":
+        return [(3 * F + 2, 1500)]
+    if layout == "ragged":
+        return ([(i * F + i % 7, n) for i, n in
+                 enumerate([300, 1, 257, 129, 200])] + [(K_CAP * F, 46)])
+    if layout == "tile_edges":
+        return [(i * F + i % 6, n) for i, n in
+                enumerate([256, 1024, 256, 256, 512, 256])]
+    return ([(i * F + i % 5, 3) for i in range(4)] + [(4 * F + 1, 1000)]
+            + [(5 * F + i, 7) for i in range(6)] + [(K_CAP * F, 40)])
+
+
+@pytest.mark.parametrize("layout", ["one_run", "tile_edges", "long_run",
+                                    "ragged"])
+@pytest.mark.parametrize("name", NAMES)
+def test_ingest_stress_layouts_match_jax(name, layout):
+    """The layouts the tiled fold carries across tiles: the plain K2+K3
+    (with the sort's order and sorted keys, as on a card) against JAX's
+    ingest-only step."""
+    jcomb, tcomb, dtypes = _combines(name)
+    F = 32
+    rng = np.random.default_rng(len(layout) * 13 + len(name))
+    trees, tvalid = _forest(dtypes, F, rng, jcomb)
+    comp = _comp(rng, 0, F, runs=_layout_runs(layout, F))
+    sc = np.sort(comp.astype(np.int64), kind="stable")
+    ends = np.flatnonzero(np.r_[sc[1:] != sc[:-1], True]) + 1
+    if layout == "tile_edges":
+        assert (ends % 256 == 0).all()
+    if layout == "ragged":
+        assert len(comp) % fs.INGEST_THREADS != 0
+    cols = _columns(dtypes, len(comp), rng)
+    jt, jv = _jax_step(jcomb, F, cols, comp, trees, tvalid)[:2]
+    flat, vflat = _port_planes(trees, tvalid)
+    _port_ingest(tcomb, cols, comp, flat, vflat, F, host=False)
+    _same_forest(name, flat, vflat, jt, jv, folded=True)
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_tails_unique_per_slot_and_leaf(seed):
     """The fold merges one tail per run: each (slot, leaf) a batch touches
@@ -270,8 +320,7 @@ def test_tails_unique_per_slot_and_leaf(seed):
     flat = {"v": torch.zeros(K_CAP * 2 * F, dtype=torch.int32)}
     vflat = torch.zeros(K_CAP * 2 * F, dtype=torch.bool)
     fs.ingest_fold(fieldwise(v="sum"), {"v": torch.from_numpy(vals)},
-                   torch.from_numpy(comp), _order(comp, False), flat, vflat,
-                   F)
+                   fs.sort_rows(torch.from_numpy(comp)), flat, vflat, F)
     live = comp.astype(np.int64) < K_CAP * F
     at = (tails // F) * 2 * F + F + tails % F
     assert sorted(np.flatnonzero(vflat.numpy())) == sorted(at)
@@ -322,6 +371,52 @@ def test_fire_only_matches_jax(name, F):
     assert not vflat[[F + p % F for p in (5, 6, 7)]].any()
 
 
+def _long_packs(F, rng, W=16):
+    """Fire, evict and block packs of W windows of 0 to F panes from any
+    start (two a slot, ring wraps included) and 0-5 evicted leaves a
+    slot: the long walks K4 meets at F 1,024."""
+    slots = np.sort(rng.choice(K_CAP, W // 2, replace=False))
+    ne = rng.integers(0, 6, len(slots))
+    tot = int(ne.sum())
+    f_pack = np.stack([np.repeat(slots, 2), rng.integers(0, F, W),
+                       rng.integers(0, F + 1, W), np.arange(W),
+                       np.ones(W, np.int64)]).astype(np.int32)
+    f_pack[2, :2] = F  # a whole ring
+    E = max(1, tot)
+    e_pack = np.zeros((3, E), np.int32)
+    e_pack[:, :tot] = [np.repeat(slots, ne), rng.integers(0, F, tot),
+                       np.ones(tot, np.int64)]
+    buf = fs.fire_pack(f_pack, e_pack, np.full(len(slots), 2), ne, W)
+    return fs.split_fire_pack(torch.from_numpy(buf), W, E)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fire_only_long_ring_matches_jax(name):
+    """K4's plain version at F 1,024 (a walk of up to 48 nodes, two rounds
+    of the kernel's loads) against JAX's fire-only program: values,
+    validity & mask, keys and the evicted forest."""
+    F = 1024
+    jcomb, tcomb, dtypes = _combines(name)
+    rng = np.random.default_rng(1024 + len(name))
+    trees, tvalid = _forest(dtypes, F, rng, jcomb)
+    f_pack, e_pack, blocks = _long_packs(F, rng)
+    rep = _jax_replica(jcomb, F)
+    jv, jr, jq, jwid, jkey = rep._make_fire_step()(
+        {f: jnp.asarray(t) for f, t in trees.items()}, jnp.asarray(tvalid),
+        tuple(jnp.asarray(r.numpy()) for r in f_pack),
+        jnp.asarray(_ktable()),
+        tuple(jnp.asarray(r.numpy()) for r in e_pack))
+    flat, vflat = _port_planes(trees, tvalid)
+    qr, qv, key = fs.fire_query(tcomb, flat, vflat, F, f_pack, e_pack, blocks,
+                                torch.from_numpy(_ktable()))
+    q = np.asarray(jq)
+    assert (qv.numpy() == q).all() and q.any()
+    assert (key.numpy() == np.asarray(jkey)).all()
+    for f in dtypes:
+        _holds(name, f, qr[f].numpy()[q], np.asarray(jr[f])[q], folded=False)
+    assert (vflat.numpy() == np.asarray(jv).reshape(-1)).all()
+
+
 @pytest.mark.parametrize("F", [8, 32])
 @pytest.mark.parametrize("name", NAMES)
 def test_full_step_matches_jax(name, F):
@@ -353,7 +448,9 @@ def test_full_step_matches_jax(name, F):
 
 @pytest.mark.parametrize("c_k,W", [
     ([1] * 300, 512), ([3, 1, 200, 2, 130, 1], 400), ([128, 128], 256),
-    ([5], 5), ([129, 1], 130), ([], 64)])
+    ([5], 5), ([129, 1], 130), ([], 64), ([7, 1, 8, 9], 32),
+    ([8] * 5, 44), ([2, 7, 3], 12), ([31, 2, 32, 33], 100),
+    ([32] * 3, 96)])
 def test_fire_blocks_own_whole_chunks(c_k, W):
     """Every chunk's fire and evict lanes fall in one block; the blocks
     tile [0, W) and [0, E) in order; padding lanes have blocks of their
@@ -375,6 +472,149 @@ def test_fire_blocks_own_whole_chunks(c_k, W):
     pad = r0[:-1] >= n_out
     assert (np.diff(r1)[pad] == 0).all()
     assert (np.diff(r0)[pad] <= fs.QUERY_LANES).all()
+
+
+@pytest.mark.parametrize("W", [1, 7, 31, 32, 33, 64, 1000])
+def test_lane_blocks_one_window_a_chunk(W):
+    """The mesh's fire rounds: one chunk a key row, no eviction, so every
+    block but the last holds exactly QUERY_LANES windows."""
+    bt = fs.lane_blocks(W, torch.device("cpu"))
+    assert bt.dtype is torch.int32
+    b = bt.numpy().astype(np.int64)
+    assert b.shape == (2, -(-W // fs.QUERY_LANES) + 1)
+    assert b[0, 0] == 0 and b[0, -1] == W
+    assert (np.diff(b[0])[:-1] == fs.QUERY_LANES).all()
+    assert 1 <= np.diff(b[0])[-1] <= fs.QUERY_LANES
+    assert (b[1] == 0).all()
+
+
+def test_block_constants_match_the_header():
+    """The host's windows a block and least rows a tile are the kernels'."""
+    cuh = (KERNELS / "ffat_step.cuh").read_text()
+    windows = int(re.search(r"#define WF_QUERY_WINDOWS (\d+)", cuh)[1])
+    group = int(re.search(r"#define WF_QUERY_GROUP (\d+)", cuh)[1])
+    threads = int(re.search(r"#define WF_INGEST_THREADS (\d+)", cuh)[1])
+    assert fs.QUERY_LANES == windows and 32 % group == 0
+    assert "#define WF_QUERY_THREADS (WF_QUERY_GROUP * WF_QUERY_WINDOWS)" \
+        in cuh
+    assert fs.INGEST_THREADS == threads
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1024, 65536, 65537])
+@pytest.mark.parametrize("n_fields", [1, 2, 3, 8, 12])
+def test_ingest_scratch_covers_every_tile(n, n_fields):
+    """The status buffer holds the ticket and a status word a tile, the
+    rows' buffer a tile's aggregate and inclusive prefix, for tiles of 1,
+    2 or 4 rows a thread (``ingest_items``); the status words depend on
+    the rows alone, never on the fields."""
+    status, rows = fs.ingest_scratch_words(n, n_fields)
+    items = 4 if n_fields <= 2 else 2 if n_fields <= 4 else 1
+    tiles = -(-n // (fs.INGEST_THREADS * items))
+    assert status >= 1 + tiles and rows >= 2 * tiles * n_fields
+    assert status == 1 + -(-n // fs.INGEST_THREADS)
+    assert rows == 2 * -(-n // fs.INGEST_THREADS) * n_fields
+    assert fs.ingest_scratch_words(n, 1)[0] == status
+
+
+def test_ingest_scratch_per_device_and_stream(monkeypatch):
+    """One zeroed status buffer per (device, stream), reused with a new
+    sequence number each launch; made again (numbers from 1) when it is
+    too small or the numbers run out. The rows' buffer grows apart from
+    it."""
+    monkeypatch.setattr(fs, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    t = fs.INGEST_THREADS
+    a, ra, s1 = fs.ingest_scratch(cpu, 7, 100 * t, 1)
+    assert a.dtype is torch.int32 and a.numel() == 128 and s1 == 1
+    assert not a.any() and ra.dtype is torch.int32 and ra.numel() == 256
+    b, rb, s2 = fs.ingest_scratch(cpu, 7, 127 * t, 1)
+    assert b is a and rb is ra and s2 == 2
+    c, _, s3 = fs.ingest_scratch(cpu, 8, 10, 1)  # another stream
+    assert c is not a and s3 == 1
+    d, rd, s4 = fs.ingest_scratch(cpu, 7, 128 * t, 1)
+    assert d is not a and d.numel() == 256 and s4 == 1 and rd is ra
+    monkeypatch.setattr(fs, "SEQ_LIMIT", 3)
+    e, _, s5 = fs.ingest_scratch(cpu, 7, 1, 1)
+    assert e is d and s5 == 2
+    f, _, s6 = fs.ingest_scratch(cpu, 7, 1, 1)
+    assert f is not d and s6 == 1
+
+
+def test_ingest_status_words_stay_put_across_widths(monkeypatch):
+    """Launches of other widths and lengths on one stream share the status
+    buffer, whose words sit where the tile puts them: a wider launch grows
+    the rows' buffer (unfilled: nothing reads it before a launch writes
+    it), never the status buffer, and data never lands there."""
+    monkeypatch.setattr(fs, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    t = fs.INGEST_THREADS
+    a, ra, _ = fs.ingest_scratch(cpu, 3, 512 * t, 1)
+    b, rb, _ = fs.ingest_scratch(cpu, 3, 512 * t, 8)
+    c, rc, _ = fs.ingest_scratch(cpu, 3, 7, 12)
+    assert a is b is c and a.numel() == 1024
+    assert rb is not ra and rb.numel() == 2 * 512 * 8 and rc is rb
+    g, rg, _ = fs.ingest_scratch(cpu, 3, 40 * t + 1, 3)
+    assert g is a and rg is rb
+
+
+def test_reserve_ingest_scratch_before_the_first_batch(monkeypatch):
+    """``reserve_ingest_scratch`` makes the status buffer of a card's
+    current stream ahead of its batches, and a later launch of no more
+    rows makes none; the CPU needs none (its plain version has no
+    scratch)."""
+    monkeypatch.setattr(fs, "_SCRATCH", {})
+    fs.reserve_ingest_scratch(torch.device("cpu"), 65536)
+    assert fs._SCRATCH == {}
+    seen = []
+    monkeypatch.setattr(fs, "_current_stream", lambda dev: 11)
+    monkeypatch.setattr(fs, "_scratch_entry",
+                        lambda dev, stream, n: seen.append((dev, stream, n)))
+    dev = torch.device("cuda", 0)
+    fs.reserve_ingest_scratch(dev, 65536)
+    fs.reserve_ingest_scratch(dev, 0)  # no rows: nothing
+    assert seen == [(dev, 11, 65536)]
+    monkeypatch.undo()
+    # what it makes on a card, here on the CPU: the status buffer covers
+    # every later launch of up to 65,536 rows, whatever its width
+    monkeypatch.setattr(fs, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    made = fs._scratch_entry(cpu, 11, 65536)[0]
+    assert made.numel() == 1024 and not made.any()
+    for n, nf in ((65536, 8), (1000, 1), (65535, 12)):
+        assert fs.ingest_scratch(cpu, 11, n, nf)[0] is made
+
+
+def test_sort_rows_gives_order_and_sorted_keys():
+    """``sort_rows``: the stable sort's int32 order and comp[order]."""
+    rng = np.random.default_rng(3)
+    for dt in (np.int16, np.int32):
+        comp = torch.from_numpy(rng.integers(0, 50, 500).astype(dt))
+        order, skeys = fs.sort_rows(comp)
+        assert order.dtype is torch.int32 and skeys.dtype is comp.dtype
+        assert torch.equal(skeys, comp[order.long()])
+        assert torch.equal(order.long(), torch.from_numpy(
+            np.argsort(comp.numpy(), kind="stable")))
+
+
+@pytest.mark.parametrize("bad", ["length", "dtype", "device", "shape"])
+def test_ingest_refuses_wrong_sorted_keys(bad):
+    """The sorted keys must be a contiguous 1-D tensor of comp's dtype and
+    length on the forest's device: anything else is refused before a
+    launch (and before the plain version)."""
+    F = 8
+    rng = np.random.default_rng(2)
+    comp = torch.from_numpy(_comp(rng, 64, F))
+    order, skeys = fs.sort_rows(comp)
+    skeys = {"length": skeys[:-1], "dtype": skeys.to(torch.int64),
+             "device": skeys.to("meta"),
+             "shape": skeys.view(8, 8)}[bad]
+    flat = {"v": torch.zeros(K_CAP * 2 * F, dtype=torch.int32)}
+    vflat = torch.zeros(K_CAP * 2 * F, dtype=torch.bool)
+    with pytest.raises(WindFlowError, match="sorted_keys"):
+        fs.ingest_fold(fieldwise(v="sum"),
+                       {"v": torch.ones(64, dtype=torch.int32)},
+                       (order, skeys), flat, vflat, F)
+    assert not vflat.any()
 
 
 def test_fire_pack_round_trip():
@@ -430,8 +670,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     vflat = torch.zeros(K_CAP * 2 * F, dtype=torch.bool)
     fs.ingest_fold(fieldwise(v="sum"),
                    {"v": torch.ones(64, dtype=torch.int32)},
-                   torch.from_numpy(comp), _order(comp, False), flat, vflat,
-                   F)
+                   fs.sort_rows(torch.from_numpy(comp)), flat, vflat, F)
     f_pack, e_pack, blocks, _ = _packs(F, _chunks(F), W=8)
     fs.fire_query(fieldwise(v="sum"), flat, vflat, F, f_pack, e_pack,
                   blocks)
@@ -448,8 +687,8 @@ def test_no_kernel_for_other_devices():
     vflat = torch.zeros(K_CAP * 2 * F, dtype=torch.bool, device="meta")
     comp = torch.zeros(4, dtype=torch.int16, device="meta")
     with pytest.raises(WindFlowError, match="no kernel for device"):
-        fs.ingest_fold(fieldwise(v="sum"), {"v": comp.int()}, comp,
-                       comp.int(), flat, vflat, F)
+        fs.ingest_fold(fieldwise(v="sum"), {"v": comp.int()},
+                       (comp.int(), comp), flat, vflat, F)
     with pytest.raises(WindFlowError, match="no kernel for device"):
         fs.fire_query(fieldwise(v="sum"), flat, vflat, F,
                       torch.zeros((5, 4), dtype=torch.int32, device="meta"))

@@ -50,6 +50,7 @@ import torch
 from ..basic import OpType, RoutingMode, WinType, WindFlowError
 from ..checkpoint import delta as ckpt_delta
 from ..kernels.ffat_step import (fire_pack, fire_query, ingest_fold,
+                                 reserve_ingest_scratch, sort_rows,
                                  split_fire_pack)
 from ..kernels.forest_rebuild import forest_rebuild
 from ..kernels.forest_rebuild import variant as forest_variant
@@ -315,23 +316,25 @@ class FfatGPUReplica(GPUReplicaBase):
         note_k1_use(self, lift_dtypes(self._lift_fn(),
                                       zero_fields(sch, 1, self.device),
                                       self.device, self.op.name))
+        reserve_ingest_scratch(self.device, max(caps, default=0))
         return 1
 
     def _ingest(self, fields, seg) -> None:
         """Lift + stable sort + segmented fold with the leaf merge (K2+K3
         on a card), in place. ``seg``: the packed composite (slot*F +
-        leaf, sentinel K_cap*F for late and padding lanes) and its sort
-        order, None when the sort runs here on the device."""
+        leaf, sentinel K_cap*F for late and padding lanes), its sort order
+        and sorted keys, both None when the sort runs here on the
+        device."""
         n_rows = next(iter(fields.values())).shape[0]
         vals = broadcast_scalar_fields(self._lift_fn()(fields), n_rows,
                                        self.device)
-        comp, order = seg
+        comp, order, skeys = seg
         if order is None:
-            order = torch.sort(comp, stable=True).indices.to(torch.int32)
+            order, skeys = sort_rows(comp)
         self._note_kernels()
         ingest_fold(self.op.combine,
-                    {k: v.contiguous() for k, v in vals.items()}, comp,
-                    order, self._flat, self._vflat, self.F)
+                    {k: v.contiguous() for k, v in vals.items()},
+                    (order, skeys), self._flat, self._vflat, self.F)
 
     def _ensure_rebuilt(self) -> None:
         """Run the standalone rebuild iff ingest-only batches deferred it
@@ -560,11 +563,12 @@ class FfatGPUReplica(GPUReplicaBase):
             # prefix-dropped rows keep the sentinel: the device step treats
             # them like late and padding lanes
             comp_p[rowsel] = packed
-        order = None
+        order = skeys = None
         if self._host_seg:
-            order = to_device(np.argsort(comp_p, kind="stable")
-                              .astype(np.int32), self.device)
-        seg = (to_device(comp_p, self.device), order)
+            o = np.argsort(comp_p, kind="stable").astype(np.int32)
+            order = to_device(o, self.device)
+            skeys = to_device(comp_p[o], self.device)
+        seg = (to_device(comp_p, self.device), order, skeys)
 
         frontier = (max(0, batch.wm - op.lateness) // op.pane_len
                     if op.win_type is WinType.TB else None)

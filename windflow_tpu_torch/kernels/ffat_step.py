@@ -3,11 +3,16 @@ versions.
 
 - ``ingest_fold`` (K2+K3): the segmented fold of a batch's rows by their
   packed composite key (slot * F + leaf; the sentinel, the forest's rows
-  times F, for late and padding rows), read through the stable sort's
-  ``order``, merged into the forest's leaves. The plain version
-  ``ingest_fold_ref`` is the Hillis-Steele scan of ``gpu/scan.py``, the
-  tail gather, the combine and the ``index_put_`` the FFAT replica ran
-  before the kernel.
+  times F, for late and padding rows), given as the stable sort's
+  ``order`` and sorted keys (``sort_rows``), merged into the forest's
+  leaves. The plain version ``ingest_fold_ref`` is the Hillis-Steele scan
+  of ``gpu/scan.py``, the tail gather, the combine and the ``index_put_``
+  the FFAT replica ran before the kernel. The kernel's tiles find their
+  carry through a scratch per device and stream: status words tagged
+  with a sequence number per launch, so no launch clears them, in a
+  buffer of their own beside the tiles' published rows
+  (``ingest_scratch``; ``reserve_ingest_scratch`` makes it before a
+  stream's first batch).
 - ``fire_query`` (K4): the window query of every fire lane, then the
   eviction of the fire step's leaves and the key column; the plain
   version ``fire_query_ref`` is ``window_query`` (the ``LOGQ``-step tree
@@ -25,8 +30,9 @@ by variant tag.
 The fire arguments travel as one int32 buffer (``fire_pack``): the
 ``(5, W)`` fire pack (slot, start, len, wid, mask), the ``(3, E)`` evict
 pack (slot, leaf, mask) and the ``(2, B + 1)`` lane bounds of the query
-kernel's blocks (``fire_blocks``): each block owns whole chunks, one
-chunk per slot, so it evicts its slots' leaves after its own queries.
+kernel's blocks (``fire_blocks``, ``QUERY_LANES`` windows a block, eight
+lanes a window): each block owns whole chunks, one chunk per slot, so it
+evicts its slots' leaves after its own queries.
 """
 
 from __future__ import annotations
@@ -48,9 +54,15 @@ INGEST_VARIANT_LAUNCHES: Dict[str, int] = {}
 QUERY_VARIANT_LAUNCHES: Dict[str, int] = {}
 _count_lock = threading.Lock()
 
-QUERY_LANES = 128  # ffat_step.cuh: WF_QUERY_THREADS, fire lanes a block
+QUERY_LANES = 32  # ffat_step.cuh: WF_QUERY_WINDOWS, fire lanes a block
+INGEST_THREADS = 128  # ffat_step.cuh: WF_INGEST_THREADS, the least rows a tile
 COMP_DTYPES = (torch.int16, torch.int32)
 KEY_BYTES = (1, 2, 4, 8)
+# K2+K3's scratch per (device index, stream): [status buffer, rows buffer,
+# last sequence number] (ingest_scratch); the kernel tags its status words
+# with the number, 1 to 2^30 - 1
+_SCRATCH: Dict[Tuple[Optional[int], int], list] = {}
+SEQ_LIMIT = 1 << 30
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +128,16 @@ def ingest_fold_ref(combine: Callable, vals: Dict[str, torch.Tensor],
     merged into its leaf ``(key // F) * 2F + F + key % F``
     (``combine(leaf, tail)`` where the leaf is valid, else the tail) and
     marked valid."""
+    _fold_sorted(combine, vals, order, comp[order.long()], flat, vflat, F)
+
+
+def _fold_sorted(combine: Callable, vals: Dict[str, torch.Tensor],
+                 order: torch.Tensor, skeys: torch.Tensor,
+                 flat: Dict[str, torch.Tensor], vflat: torch.Tensor,
+                 F: int) -> None:
+    """``ingest_fold_ref`` on the sorted keys ``skeys`` (``comp[order]``)."""
     o = order.long()
-    sc = comp[o].to(torch.int32)
+    sc = skeys.to(torch.int32)
     if sc.numel() == 0:
         return
     dev = sc.device
@@ -211,13 +231,87 @@ def split_fire_pack(t: torch.Tensor, W: int, E: int
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
+def sort_rows(comp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order, sorted keys)`` of the packed composites ``comp``: the
+    stable sort's int32 order and its values, what ``ingest_fold`` takes
+    (one sort, one cast)."""
+    s = torch.sort(comp, stable=True)
+    return s.indices.to(torch.int32), s.values
+
+
+def ingest_scratch_words(n: int, n_fields: int) -> Tuple[int, int]:
+    """int32 words of K2+K3's scratch for ``n`` rows of ``n_fields``
+    planes: ``(status, rows)``, the tile ticket and a status word a tile,
+    then a tile's aggregate and inclusive prefix (a word a field each). A
+    tile holds at least INGEST_THREADS rows (``ffat_step.cuh``:
+    ingest_items rows a thread), so neither is less than the kernel checks
+    for. The status words depend on ``n`` alone."""
+    tiles = -(-n // INGEST_THREADS)
+    return 1 + tiles, 2 * tiles * n_fields
+
+
+def _pow2(words: int) -> int:
+    return 1 << max(words - 1, 1).bit_length()
+
+
+def _scratch_entry(dev: torch.device, stream: int, n: int) -> list:
+    """The (device, stream)'s entry, its status buffer covering ``n``
+    rows: made zeroed (a power of two of words) when there is none, when
+    it is too small or when the numbers run out. Under ``_count_lock``."""
+    key, words = (dev.index, stream), ingest_scratch_words(n, 0)[0]
+    ent = _SCRATCH.get(key)
+    if ent is None or ent[0].numel() < words or ent[2] + 1 >= SEQ_LIMIT:
+        rows = ent[1] if ent is not None else \
+            torch.empty(0, dtype=torch.int32, device=dev)
+        ent = _SCRATCH[key] = [torch.zeros(_pow2(words), dtype=torch.int32,
+                                           device=dev), rows, 0]
+    return ent
+
+
+def ingest_scratch(dev: torch.device, stream: int, n: int, n_fields: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """K2+K3's scratch on ``dev`` for a launch over ``n`` rows of
+    ``n_fields`` planes on ``stream``: ``(status, rows, sequence
+    number)``. One pair of buffers per device and stream: launches on one
+    stream run in order, and a new number each launch leaves the status
+    words of earlier launches stale without a clear. The status buffer
+    holds status words only, at places that depend on the tile alone,
+    so a value can never read as a status; it is zeroed once, when made.
+    The rows' buffer is never read before the launch writes it, so it is
+    grown with no fill."""
+    words = ingest_scratch_words(n, n_fields)[1]
+    with _count_lock:
+        ent = _scratch_entry(dev, stream, n)
+        if ent[1].numel() < words:
+            ent[1] = torch.empty(_pow2(words), dtype=torch.int32, device=dev)
+        ent[2] += 1
+        return ent[0], ent[1], ent[2]
+
+
+def reserve_ingest_scratch(dev: torch.device, n: int) -> None:
+    """Make K2+K3's status buffer for batches of up to ``n`` rows on
+    ``dev``'s current stream now, so its one zero fill lands before the
+    stream's first batch (a replica's prewarm, a mesh's init). Nothing on
+    the CPU, whose plain version needs none."""
+    if dev.type != "cuda" or n < 1:
+        return
+    stream = _current_stream(dev)
+    with _count_lock:
+        _scratch_entry(dev, stream, n)
+
+
+def _current_stream(dev: torch.device) -> int:
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     if getattr(lib, "_wf_ffat_bound", False):
         return
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pvp, pci = ctypes.POINTER(vp), ctypes.POINTER(ci)
     lib.wf_ffat_ingest.argtypes = [pvp, pvp, pci, ci, vp, vp, ci, vp, ci,
-                                   ci, ci, vp]
+                                   ci, ci, vp, ci, vp, ci, ctypes.c_uint, vp]
     lib.wf_ffat_ingest.restype = ci
     lib.wf_ffat_query.argtypes = [pvp, pci, ci, vp, ci, ci, vp, ci, vp, ci,
                                   vp, ci, pvp, vp, vp, vp, ci, vp]
@@ -285,43 +379,47 @@ def _cuda_or_raise(what: str, dev: torch.device) -> None:
 
 
 def ingest_fold(combine: Callable, vals: Dict[str, torch.Tensor],
-                comp: torch.Tensor, order: torch.Tensor,
+                sorted_rows: Tuple[torch.Tensor, torch.Tensor],
                 flat: Dict[str, torch.Tensor], vflat: torch.Tensor,
                 F: int) -> None:
     """K2+K3 in place (see the module docstring): the rows' lifted
-    ``vals`` (unsorted, the planes' dtypes), their packed key ``comp``
-    (int16 or int32) and its stable sort's int32 ``order``, folded into
-    the flat forest ``flat`` / ``vflat`` of rows of 2F nodes."""
-    if vflat.device.type == "cpu":
-        ingest_fold_ref(combine, vals, comp, order, flat, vflat, F)
+    ``vals`` (unsorted, the planes' dtypes) and ``sorted_rows``, the
+    stable sort of their packed keys (``sort_rows``: the int32 order and
+    the sorted int16 or int32 keys), folded into the flat forest ``flat``
+    / ``vflat`` of rows of 2F nodes."""
+    dev = vflat.device
+    order, sorted_keys = sorted_rows
+    n = order.numel()
+    _flat_1d("order", order, (torch.int32,), n, dev)
+    _flat_1d("sorted_keys", sorted_keys, COMP_DTYPES, n, dev)
+    if dev.type == "cpu":
+        _fold_sorted(combine, vals, order, sorted_keys, flat, vflat, F)
         return
     global INGEST_LAUNCHES
-    _cuda_or_raise("ingest_fold", vflat.device)
+    _cuda_or_raise("ingest_fold", dev)
     v = check_planes(flat, vflat, combine, F)
-    n = comp.numel()
-    dev = vflat.device
-    _flat_1d("comp", comp, COMP_DTYPES, n, dev)
-    _flat_1d("order", order, (torch.int32,), n, dev)
     if set(vals) != set(flat):
         raise WindFlowError(f"ingest_fold: value columns {sorted(vals)} "
                             f"are not the planes {sorted(flat)}")
     for nm, t in flat.items():
         _flat_1d(f"value column {nm!r}", vals[nm], (t.dtype,), n, dev)
     sentinel = vflat.numel() // 2  # rows * F
-    if sentinel > torch.iinfo(comp.dtype).max:
+    if sentinel > torch.iinfo(sorted_keys.dtype).max:
         raise WindFlowError(f"ingest_fold: the sentinel {sentinel} does "
-                            f"not fit {comp.dtype}")
+                            f"not fit {sorted_keys.dtype}")
     if n == 0:
         return
     lib = v.load()
     _bind(lib)
+    stream = _current_stream(dev)
+    status, rows, seq = ingest_scratch(dev, stream, n, len(flat))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.wf_ffat_ingest(
             _ptrs(flat.values()), _ptrs(vals[nm] for nm in flat),
             _kinds(v, combine, flat), len(flat), vflat.data_ptr(),
-            comp.data_ptr(), comp.element_size(), order.data_ptr(), n, F,
-            sentinel, stream)
+            sorted_keys.data_ptr(), sorted_keys.element_size(),
+            order.data_ptr(), n, F, sentinel, status.data_ptr(),
+            status.numel(), rows.data_ptr(), rows.numel(), seq, stream)
     _raise_on(lib, err, "ffat ingest")
     with _count_lock:
         INGEST_LAUNCHES += 1

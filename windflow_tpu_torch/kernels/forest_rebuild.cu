@@ -120,12 +120,14 @@ MaskCombine<N> mask_combine(const int* kinds) {
 
 template <int N>
 int ingest_fieldwise(void** planes, void** vals, const int* kinds,
-                     uint8_t* valid, const void* comp, int comp_bytes,
+                     uint8_t* valid, const void* skeys, int key_bytes,
                      const int32_t* order, int n, int F, int sentinel,
-                     cudaStream_t st) {
+                     uint32_t* status, int status_words, uint32_t* rows,
+                     int row_words, unsigned seq, cudaStream_t st) {
     return wf::run_ingest(wf::planes_of<N>(planes), wf::planes_of<N>(vals),
-                          mask_combine<N>(kinds), valid, comp, comp_bytes,
-                          order, n, F, sentinel, st);
+                          mask_combine<N>(kinds), valid, skeys, key_bytes,
+                          order, n, F, sentinel, status, status_words, rows,
+                          row_words, seq, st);
 }
 
 template <int N>
@@ -176,15 +178,19 @@ int wf_rebuild_pass(void** planes, const int* kinds, int n_fields,
 
 // K2+K3 over n sorted rows (ffat_step.cuh: wf::run_ingest).
 int wf_ffat_ingest(void** planes, void** vals, const int* kinds,
-                   int n_fields, void* valid, const void* comp, int comp_bytes,
+                   int n_fields, void* valid, const void* skeys, int key_bytes,
                    const void* order, int n, int F, int sentinel,
-                   void* stream) {
+                   void* status, int status_words, void* rows,
+                   int row_words, unsigned seq, void* stream) {
     if (bad_kinds(kinds, n_fields)) return -1;
     uint8_t* v = static_cast<uint8_t*>(valid);
     const int32_t* o = static_cast<const int32_t*>(order);
+    uint32_t* ss = static_cast<uint32_t*>(status);
+    uint32_t* rs = static_cast<uint32_t*>(rows);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    WF_FIELDWISE_SWITCH(ingest_fieldwise, planes, vals, kinds, v, comp,
-                        comp_bytes, o, n, F, sentinel, st)
+    WF_FIELDWISE_SWITCH(ingest_fieldwise, planes, vals, kinds, v, skeys,
+                        key_bytes, o, n, F, sentinel, ss, status_words, rs,
+                        row_words, seq, st)
 }
 
 // K4 over W fire lanes (ffat_step.cuh: wf::run_query).

@@ -95,7 +95,8 @@ import torch
 
 from ..basic import WindFlowError
 from ..kernels.ffat_step import (comb_valid, fire_query, ingest_fold,
-                                 lane_blocks)
+                                 lane_blocks, reserve_ingest_scratch,
+                                 sort_rows)
 from ..gpu.scan import segmented_scan
 from ..gpu.schema import broadcast_scalar_fields, canonical
 from ..kernels.forest_rebuild import forest_rebuild
@@ -1097,8 +1098,7 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
             big = grp.n * k_local * F
             composite = torch.where(valid, row * F + leaf, big) \
                 .to(torch.int32)
-            order2 = torch.sort(composite, stable=True).indices \
-                .to(torch.int32)
+            sorted_rows = sort_rows(composite)
             # each run's fold goes into a DELTA forest per shard (each data
             # replica received a disjoint tuple subset): K2+K3 merging
             # into zeroed leaves, where a fold lands as it is
@@ -1107,7 +1107,7 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
                      for k, v in vals.items()}
             dvalid = torch.zeros(OOB, dtype=torch.bool, device=dev)
             ingest_fold(combine, {k: v.contiguous() for k, v in vals.items()},
-                        composite, order2, dflat, dvalid, F)
+                        sorted_rows, dflat, dvalid, F)
             delta = {k: b.reshape(grp.n, k_local * NNODES)
                      for k, b in dflat.items()}
             delta[_VALID] = dvalid.reshape(grp.n, k_local * NNODES)
@@ -1230,6 +1230,9 @@ def sharded_ffat_forest(mesh: KeyMesh, lift, combine, n_keys: int,
             out[3].append(torch.full((K_g,), -1, dtype=torch.int32,
                                      device=dev))
             out[4].append(torch.zeros(K_g, dtype=torch.int32, device=dev))
+            # K2+K3's status words for the group's routed rows, made here
+            # rather than in a step
+            reserve_ingest_scratch(dev, grp.n * ka * C)
         return tuple(_gout(mesh, x) for x in out)
 
     return init_fn, step, (K_pad, k_local, ns * local_batch)
