@@ -14,9 +14,13 @@ Phases, each printing one line of its own:
    policy generated from the trace, built against ``forest_rebuild.cuh``),
    each library with the FFAT step's kernels over the same policy
    (``ffat_step.cuh``: K2+K3, the segmented fold with the leaf merge, and
-   K4, the window query with eviction), and lists each kernel's
+   K4, the window query with eviction), and K8's library (the keyed grid
+   scan, ``grid_scan.cuh``) of each stateful step the graphs below run
+   (the stateful map, the running-max filter, the tiered float32 scan:
+   the step traced and compiled in), and lists each kernel's
    registers, stack frame and spill bytes (``-Xptxas -v``); a stack
-   frame or a spilled byte in any library fails the phase;
+   frame or a spilled byte in any library fails the phase (and, at the
+   end, in any K8 library a run built later);
 3. kernel checks: each kernel against its plain PyTorch version on CUDA
    tensors at the main path's shapes (and YSB's 128 x 32), two shapes
    that move tens of MB and a few edge shapes (1% of float values NaN):
@@ -110,10 +114,20 @@ Phases, each printing one line of its own:
    and ``tiered`` (``bench.py``'s run_tiered: Zipf 1.1 over 10^7 keys,
    a 1,024-slot hot tier, 512-tuple batches, against the dense CPU run;
    ``Tier_promotes`` / ``Tier_demotes`` / ``Tier_miss_rate``). Each part
-   gives tuples/s, host prep / commit ms per batch and a profiled run's
-   idle share and launches per batch; then the ``programs`` line of the
-   grid scan (K8) on one smap batch: device time, launches and the bytes
-   bound;
+   gives tuples/s, host prep / commit ms per batch, K8's launches (every
+   run on the card must launch it) and a profiled run's idle share and
+   launches per batch; then the ``programs`` lines of K8 (the keyed grid
+   scan, a hand kernel with the step compiled in, one thread a key)
+   against its plain version (``grid_scan_core``, M steps of
+   ``torch.func.vmap``), bit for bit on the rows ``valid`` admits, the
+   table and the dirty bitmap, at the layouts ``smap`` (64 keys, ~1,024
+   rows each), ``hc`` (10,240 keys), ``huge`` (keys over 2^20, a 2^20-row
+   table), ``zipf`` (the tiered float32 scan over a Zipf 1.1 batch of
+   8,192 rows on a fresh table: the straggler), ``tier`` (the part
+   ``tiered`` layout: a 512-row block on the 1,024-slot hot tier after 40
+   blocks ran through it), ``holes`` (a fused ``valid`` with holes),
+   ``sfilter`` and ``mesh_4x2`` (one Map_Mesh step): device time,
+   launches and event bracket of each, and the bytes bound;
 9. branching graphs (``dag`` lines), BASELINE's ``split_tests_gpu +
    merge_tests_gpu`` config at ``bench.py``'s sizes (10,240 keys,
    65,536-tuple int32 batches, 2 warm-up and 12 timed batches): part
@@ -320,7 +334,9 @@ path ran: the fieldwise library and each traced combine but ``scaled``,
 which no window runs: it is not associative; then ``ffat_ingest`` (K2+K3)
 and ``ffat_query`` (K4) per variant, their launches summed over every
 main-path run and their times from the ``programs`` rows, K4's at
-W_step), and as the last line
+W_step; then ``grid_scan`` (K8) per stateful step, its launches summed
+over the ``state`` and ``mesh`` phases' runs on the card and its times at
+its own path's layout), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs ``torch.cuda.is_available()``
 and the ``windflow_tpu_torch`` package beside it.
@@ -492,14 +508,49 @@ def _variants(torch):
             for n, (dtypes, comb) in traced_specs(torch).items()}
 
 
+def _k8_step_specs(torch):
+    """name -> (step, filter mode, columns like its runs', state like its
+    table) of each stateful step the script's graphs run through K8: the
+    stateful map (``state`` smap / smap_hc / fused, the mesh's Map_Mesh,
+    ``dag``, ``recovery``, ``delta``, ``rescale``, ``supervise``), the
+    running-max filter (``state`` sfilter) and the tiered float32 scan
+    (``state`` tiered, ``delta`` tiered)."""
+    I, F = torch.int32, torch.float32
+    kv = {"key": torch.zeros(1, dtype=I), "value": torch.zeros(1, dtype=I)}
+    return {"smap": (_smap_fn, False, kv, {"n": torch.zeros(1, dtype=I)}),
+            "sfilter": (_run_max_fn, True, kv,
+                        {"mx": torch.zeros(1, dtype=I)}),
+            "tier": (_tier_fn, False, {"k": torch.zeros(1, dtype=I),
+                                       "v": torch.zeros(1, dtype=F)},
+                     torch.zeros(1, dtype=F))}
+
+
+def _k8_variants(torch):
+    """name -> K8's traced step of each ``_k8_step_specs`` entry."""
+    from windflow_tpu_torch.kernels import grid_scan as gs
+    return {n: gs.step_variant(f, filt, cols, st)
+            for n, (f, filt, cols, st) in _k8_step_specs(torch).items()}
+
+
+def _spills(build, prefix):
+    """[library, kernel, registers, stack, spill stores, spill loads] of
+    every kernel with a stack frame or spills among the libraries built
+    so far whose name starts with ``prefix``."""
+    return [[lib] + r for lib, info in sorted(build.BUILD_INFO.items())
+            if lib.startswith(prefix)
+            for r in ptxas_report(info["log"]) if any(r[2:5])]
+
+
 def build_phase(torch):
     """Every K1 library from the sources in this checkout, the fieldwise
-    one and each traced variant's, one nvcc each, all started together;
-    a stack frame or a spill in any kernel fails the phase."""
+    one and each traced variant's, and K8's library of each stateful step
+    the script runs, one nvcc each, all started together; a stack frame
+    or a spill in any kernel fails the phase."""
     from concurrent.futures import ThreadPoolExecutor
     from windflow_tpu_torch.kernels import build
     from windflow_tpu_torch.kernels import forest_rebuild as fr
-    libs = {"fieldwise": fr.Variant(fr.FIELDWISE), **_variants(torch)}
+    libs = {"fieldwise": fr.Variant(fr.FIELDWISE), **_variants(torch),
+            **{f"k8:{n}": v for n, v in _k8_variants(torch).items()}}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(v.load) for v in libs.values()]:
@@ -1234,30 +1285,48 @@ def _events(torch, prof):
 
 def _program_ms(torch, fn, reps=30, tries=TRACE_TRIES):
     """Device time per call of a multi-kernel program (the CUDA time of
-    every kernel it launched, from ``torch.profiler``, over ``reps``
-    calls), kernels per call, and the CUDA-event bracket around one call
-    (median: host launch time and device time together). A trace whose
-    kernel count is no multiple of ``reps`` lost records and is taken
-    again (up to ``tries`` times); then device time and kernels per
-    call are None (not measured)."""
+    every kernel it launched, from ``torch.profiler``), kernels per call,
+    and the CUDA-event bracket around one call (median: host launch time
+    and device time together). Each call sits between marker kernels
+    (``torch.cuda._sleep``'s ``spin_kernel``, on the same stream): a call
+    whose kernel count differs from the most common count lost a record
+    (the card's profiler has been seen to drop one record of a trace) and
+    is left out, and the device time is the mean over the whole calls. A
+    trace with fewer than half its calls whole is taken again (up to
+    ``tries`` times); then device time and kernels per call are None (not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                torch.cuda._sleep(1000)
                 fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        kernels, _ = _events(torch, prof)
-        if kernels and len(kernels) % reps == 0:
-            device_ms = (sum(e.time_range.elapsed_us() for e in kernels)
-                         / 1e3 / reps)
-            launches = len(kernels) // reps
-            break
+        kernels = sorted(_events(torch, prof)[0],
+                         key=lambda e: e.time_range.start)
+        calls, cur = [], None
+        for e in kernels:
+            if "spin_kernel" in e.name:
+                if cur is not None:
+                    calls.append(cur)
+                cur = []
+            elif cur is not None:
+                cur.append(e)
+        counts = Counter(len(c) for c in calls)
+        if counts:
+            launches, _n = counts.most_common(1)[0]
+            whole = [c for c in calls if len(c) == launches]
+            if launches and 2 * len(whole) >= reps:
+                device_ms = sum(sum(e.time_range.elapsed_us() for e in c)
+                                for c in whole) / 1e3 / len(whole)
+                break
         time.sleep(0.5)
     else:
         _lost_trace(f"torch.profiler lost kernel records ({len(kernels)} "
-                    f"for {reps} calls)")
+                    f"kernels and markers for {reps} calls)")
         device_ms = launches = None
     return device_ms, launches, _event_ms(torch, fn, reps)
 
@@ -2148,13 +2217,39 @@ def _state_rates(run, n_batches, batch):
             / (t_end - t_yield[STATE_WARMUP]))
 
 
+# K8's launches by traced step (tag), from the state and mesh phases' runs
+# on the card, the counts set to 0 just before each run
+K8_PATH = Counter()
+
+
+def _k8_reset():
+    from windflow_tpu_torch.kernels import grid_scan as gs
+    with gs._count_lock:
+        gs.LAUNCHES = 0
+        gs.VARIANT_LAUNCHES.clear()
+
+
+def _k8_launched(name):
+    """K8's launches since ``_k8_reset`` (added to ``K8_PATH``); fails if
+    the run launched none."""
+    from windflow_tpu_torch.kernels import grid_scan as gs
+    with gs._count_lock:
+        n, by_tag = gs.LAUNCHES, Counter(gs.VARIANT_LAUNCHES)
+    if n <= 0:
+        fail(f"{name}: K8's kernel (grid_scan) never launched")
+    K8_PATH.update(by_tag)
+    return n
+
+
 def _state_part(torch, wt, card, name, blocks, make_ops, check, extra=None,
                 **kw):
     """One part: the graph on the card and on the CPU (rows equal, and
     ``check`` holds them against the numpy fold), tuples/s after the
-    warm-up, then one profiled run on the card."""
+    warm-up, K8's launches, then one profiled run on the card."""
     torch.cuda.synchronize()
+    _k8_reset()
     grun = _run_state_graph(wt, "cuda", blocks, make_ops, **kw)
+    k8 = _k8_launched(f"state {name}")
     crun = _run_state_graph(wt, "cpu", blocks, make_ops, **kw)
     g, c = _concat(grun[0]), _concat(crun[0])
     if g.keys() != c.keys() or not all(np.array_equal(g[k], c[k])
@@ -2167,7 +2262,7 @@ def _state_part(torch, wt, card, name, blocks, make_ops, check, extra=None,
                batch=batch, card=card, rows=int(len(g["ts"])),
                rows_equal_cpu=True, rows_equal_numpy=True,
                tuples_per_s=_state_rates(grun, len(blocks), batch),
-               wall_s=grun[2] - grun[1][0])
+               wall_s=grun[2] - grun[1][0], k8_launches=k8)
     ops = grun[3].get_stats()["Operators"][1:-1]
     row["stages"] = {o["name"]: [round(
         r[f"Dispatch_{c}_total_usec"] / 1e3 / max(1, r["Dispatch_batches"]),
@@ -2271,10 +2366,12 @@ def state_fused_part(torch, wt, card):
                warmup=STATE_WARMUP, batch=BATCH, card=card,
                rows=int(len(ref["ts"])), rows_equal_cpu=True,
                rows_equal_numpy=True)
-    rates, stages, fused = {}, {}, {}
+    rates, stages, fused, k8 = {}, {}, {}, {}
     for k in (1, 4, 0, 0, 4, 1):  # 0: unfused
+        _k8_reset()
         run = _run_state_graph(wt, "cuda", blocks, _fused_state_ops,
                                fusion=k > 0, megabatch=max(1, k), **common)
+        k8.setdefault(k, []).append(_k8_launched(f"state fused {k}"))
         g = _sort_cols(_concat(run[0]))
         got = np.zeros(GRAPH_KEYS, dtype=np.int64)
         np.add.at(got, g["key"], g["value"])
@@ -2303,6 +2400,8 @@ def state_fused_part(torch, wt, card):
                prep_commit_ms_per_batch={
                    ("unfused" if k == 0 else f"megabatch_{k}"): v
                    for k, v in stages.items()},
+               k8_launches={("unfused" if k == 0 else f"megabatch_{k}"): v
+                            for k, v in k8.items()},
                fused_stats=fused,
                profiled=_profiled(torch, lambda: _run_state_graph(
                    wt, "cuda", blocks, _fused_state_ops, **common),
@@ -2363,7 +2462,9 @@ def state_tiered_part(torch, wt, card):
             row["profiled"] = _profiled(torch, run, len(blocks))
             continue
         torch.cuda.synchronize()
+        _k8_reset()
         got = run()
+        row["k8_launches"] = _k8_launched("state tiered")
         g = _concat(got[0])
         if g.keys() != dense.keys() or not all(
                 np.array_equal(g[k], dense[k]) for k in g):
@@ -2386,54 +2487,248 @@ def state_tiered_part(torch, wt, card):
     phase("state", **row)
 
 
-K8_REPS = 10
+K8_REPS = 10         # kernel calls timed a layout
+K8_PLAIN_REPS = (10, 2)  # plain-version calls timed: M < 512, else (the
+                         # smap batch's 2,048 steps take ~0.6 s a call)
+K8_ZIPF_ROWS = 8192  # the Zipf batch: its hot key holds ~10% of the rows
+K8_TIER_AFTER = 40   # the tiered layout: the batch after this many blocks
+K8_PATH_LAYOUT = {"smap": "smap", "sfilter": "sfilter", "tier": "tier"}
 
 
-def state_programs_phase(torch, wt, blocks, card):
-    """K8 (the JAX package's ``_grid_scan_core``, XLA there, plain torch
-    ops here) on one batch of the smap part: device time per call, launches
-    per call and the bytes bound (each field read once, the output columns
-    written once, the grid arrays read once, the touched table rows read
-    and written and their dirty bits written)."""
-    from types import SimpleNamespace
-    from windflow_tpu_torch.gpu import ops_gpu as og
-    cols, ts, _ = blocks[STATE_WARMUP]
-    n = len(ts)
+def _k8_engine(torch, wt, func, filter_mode, state_init, key, tiering=None):
+    """A fresh stateful replica's engine on the card (its table, key map
+    and prep: the layout a graph's batch gets)."""
     dev = torch.device("cuda")
-    op = wt.Map_GPU(_smap_fn, name="k8", key_extractor="key",
-                    state_init={"n": np.int32(0)})
+    cls = wt.Filter_GPU if filter_mode else wt.Map_GPU
+    op = cls(func, name="k8", key_extractor=key, state_init=state_init,
+             tiering=tiering)
     op.configure(wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT_TIME, dev)
     op.build_replicas()
-    eng = op.replicas[0].engine
-    batch = SimpleNamespace(size=n, capacity=n,
-                            host_keys=cols["key"].astype(np.int64))
-    prog, (M, KB), hargs = eng.prep(batch)
-    fields = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
-    valid = og.row_mask(n, n, dev)
-    out = eng.run(prog, fields, valid, hargs)
-    want = cols["value"].astype(np.int64) + _arrival_ranks(cols["key"])
-    if not np.array_equal(out["value"].cpu().numpy(), want):
-        fail("K8 grid scan: outputs differ from the numpy fold")
-    touched = int(np.count_nonzero(np.bincount(cols["key"])))
-    leaves = 1
-    nbytes = (8 * n + 8 * n + 4 * n + 5 * KB
-              + 2 * 4 * leaves * touched + touched)
-    # 10 calls, not 30: K8's time stayed within 0.3% across PRs 9-10, and
-    # the whole script needs the ~37 s for the exactly_once phase
-    device_ms, launches, bracket_ms = _program_ms(
-        torch, lambda: eng.run(prog, fields, valid, hargs), reps=K8_REPS)
+    return op.replicas[0].engine
+
+
+def _k8_bytes(torch, v, fields, rows, n, leaves):
+    """Bytes the function must move on this run's rows (each input read
+    once, each output written once): the columns the step reads
+    (``v.reads``; a pass-through column moves no byte) and ``valid`` on
+    the rows the keys walk, ``order`` on every row when the step writes a
+    column (the rows no key walks get zeros through it) else on the
+    walked rows, ``starts`` and ``touched`` of the touched keys, the
+    computed columns or the keep byte written on every row, and the
+    touched table rows read and written with their dirty bytes."""
+    nt = rows.n_touched
+    walked = int(rows.starts[nt])
+    row_in = sum(fields[f].element_size() for f in v.reads)
+    row_out = sum(torch.empty(0, dtype=dt).element_size()
+                  for dt in v.out_dtypes)
+    state = sum(lf.element_size() for lf in leaves)
+    return (walked * (row_in + 1) + 4 * (n if row_out else walked)
+            + 4 * (nt + 1) + 4 * nt + n * row_out + nt * (2 * state + 1))
+
+
+def _k8_case(torch, layout, eng, fields, valid, rows, card):
+    """K8's kernel against its plain version on the card, on the same
+    inputs and copies of the same table: the output columns on the rows
+    ``valid`` admits (on the others they carry no meaning), the table
+    rows ``[0, T_cap)`` and ``dirty[:T_cap]``, bit for bit; then the
+    kernel's and the plain version's device time, launches and event
+    bracket, and the bytes bound."""
+    from windflow_tpu_torch.kernels import grid_scan as gs
+    from windflow_tpu_torch.pytree import tree_flatten, tree_unflatten
+    leaves, spec = tree_flatten(eng.table)
+    T = eng.table_capacity
+    n = valid.shape[0]
+    KB = rows.touched.shape[0]
+
+    def copy():
+        return (tree_unflatten(spec, [lf.clone() for lf in leaves]),
+                eng.dirty.clone())
+
+    tk, dk = copy()
+    kout = gs.grid_walk(eng.step, fields, valid, rows, tk, dk)
+    tp, dp = copy()
+    grid_idx, tmask, M = gs.grid_of(rows, n)
+    core = gs.grid_scan_core(eng.step.func, eng.step.filter_mode, M, KB)
+    pout = core(fields, valid, grid_idx, rows.touched, tmask, tp, dp)
+    torch.cuda.synchronize()
+    pairs = ([(kout, pout)] if not isinstance(kout, dict)
+             else [(kout[f], pout[f]) for f in pout])
+    err = 0.0
+    for a, b in pairs:
+        a, b = a[valid], b[valid]
+        if a.dtype != b.dtype:
+            fail(f"K8 {layout}: the kernel's output is {a.dtype}, the "
+                 f"plain version's {b.dtype}")
+        if a.dtype is torch.float32:
+            same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            fail(f"K8 {layout}: outputs differ from the plain version")
+    for a, b in zip(tree_flatten(tk)[0], tree_flatten(tp)[0]):
+        if not torch.equal(a[:T].view(torch.uint8), b[:T].view(torch.uint8)):
+            fail(f"K8 {layout}: the table differs from the plain version's")
+    if not torch.equal(dk[:T], dp[:T]):
+        fail(f"K8 {layout}: dirty differs from the plain version's")
+    device_ms, launches, bracket = _program_ms(
+        torch, lambda: gs.grid_walk(eng.step, fields, valid, rows, tk, dk),
+        reps=K8_REPS)
+    preps = K8_PLAIN_REPS[M >= 512]
+    plain_ms, plain_launches, plain_bracket = _program_ms(
+        torch, lambda: core(fields, valid, grid_idx, rows.touched, tmask,
+                            tp, dp), reps=preps)
+    v = eng.step.variant(fields, tk)
+    nbytes = _k8_bytes(torch, v, fields, rows, n, leaves)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
-    row = dict(program="K8_grid_scan",
-               replaces="windflow_tpu/tpu/ops_tpu.py:212", calls=K8_REPS,
-               rows=n,
-               keys=touched, M=M, KB=KB, device_ms=device_ms,
-               launches=launches,
-               launches_per_step=None if launches is None else launches / M,
-               wrapper_ms=bracket_ms, bytes=nbytes, bound_ms=bound,
-               bound_by="bytes", bound_share=_share(bound, device_ms),
+    row = dict(program="K8_grid_scan", layout=layout,
+               replaces="windflow_tpu/tpu/ops_tpu.py:212",
+               source="windflow_tpu_torch/kernels/grid_scan.cuh",
+               route="cuda", tag=v.tag,
+               rows=n, keys=rows.n_touched, M=M, KB=KB, table_rows=T,
+               bit_identical=True, max_abs_err=err, calls=K8_REPS,
+               device_ms=device_ms, launches=launches, wrapper_ms=bracket,
+               plain_calls=preps, plain_device_ms=plain_ms,
+               plain_launches=plain_launches, plain_ms=plain_bracket,
+               bytes=nbytes, bound_ms=bound, bound_by="bytes",
+               bound_share=_share(bound, device_ms), library_ms=None,
                card=card)
     phase("programs", **row)
     return row
+
+
+def _k8_graph_case(torch, wt, layout, func, filter_mode, state_init, cols,
+                   card, key="key", valid=None, table_rows=None):
+    """One layout through a fresh engine's prep (``cols`` a numpy batch,
+    its own capacity; ``valid`` a mask with holes, or every row)."""
+    eng = _k8_engine(torch, wt, func, filter_mode, state_init, key)
+    from types import SimpleNamespace
+    n = len(cols[key])
+    if table_rows is not None:
+        eng._ensure_table(table_rows)
+    rows = eng.prep(SimpleNamespace(
+        size=n, capacity=n, host_keys=cols[key].astype(np.int64)))
+    dev = torch.device("cuda")
+    fields = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    v = torch.ones(n, dtype=torch.bool, device=dev) if valid is None \
+        else torch.from_numpy(valid).to(dev)
+    return _k8_case(torch, layout, eng, fields, v, rows, card)
+
+
+def _k8_tier_case(torch, wt, card):
+    """The tiered part's layout: the 512-row block of ``_tier_blocks``
+    after ``K8_TIER_AFTER`` others, on an engine whose table is the
+    1,024-slot hot tier (LRU, the cold tail in sqlite under ``build/``),
+    after those blocks ran through it on the card; each batch's tier moves
+    land from the dispatch queue ahead of its scan, as in a graph."""
+    from types import SimpleNamespace
+    eng = _k8_engine(torch, wt, _tier_fn, False, np.float32(0), "k",
+                     tiering=wt.TierConfig(
+                         "lru", TIER_HOT,
+                         os.path.join(HERE, "build", "tier_db")))
+    dev = torch.device("cuda")
+    for i, (cols, _, _) in enumerate(_tier_blocks()[:K8_TIER_AFTER + 1]):
+        n = len(cols["k"])
+        rows = eng.prep(SimpleNamespace(
+            size=n, capacity=n, host_keys=cols["k"].astype(np.int64)))
+        eng.replica.dispatch.drain()
+        fields = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        if i < K8_TIER_AFTER:
+            eng.run(fields, valid, rows)
+    if eng.tier.demoted_keys == 0:
+        fail("K8 tier: no key was demoted before the layout's batch")
+    return _k8_case(torch, "tier", eng, fields, valid, rows, card)
+
+
+def _k8_mesh_case(torch, wt, blocks, card):
+    """One Map_Mesh step at (4, 2) on one group of the card (the mesh
+    part ``ops``'s stateful map at 10,240 keys): the step groups each
+    group's received lanes on the device and launches K8 there; that
+    launch's inputs are held against the plain version (``_k8_case``)."""
+    from types import SimpleNamespace
+    from windflow_tpu_torch.mesh import core as mcore
+    cols, _, _ = blocks[STATE_WARMUP]
+    dev = torch.device("cuda")
+    seen = []
+    real = mcore.grid_walk
+
+    def spy(step, fields, valid, rows, table, dirty):
+        seen.append((step, {k: v.clone() for k, v in fields.items()},
+                     valid.clone(), rows, table, dirty))
+        return real(step, fields, valid, rows, table, dirty)
+
+    prev = mcore.virtual_device_groups()
+    mcore.ensure_virtual_devices(MESH_VDEV)
+    mcore.grid_walk = spy
+    try:
+        mesh = mcore.make_key_mesh(MESH_VDEV, shape=(4, 2), device="cuda")
+        lb = BATCH // mcore.mesh_shard_count(mesh)
+        slots = torch.from_numpy(cols["key"]).to(dev)
+        step, (K_pad, _, GB) = mcore.sharded_grid_scan(
+            mesh, _smap_fn, False, HC_KEYS, None, lb)
+        table = mcore.make_mesh_table(mesh, {"n": np.int32(0)}, K_pad)
+        gpos = torch.arange(GB, dtype=torch.int32, device=dev)
+        vals = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+        step(table, slots, gpos, vals)
+        torch.cuda.synchronize()
+    finally:
+        mcore.grid_walk = real
+        mcore.ensure_virtual_devices(MESH_VDEV, group_devices=prev)
+    if len(seen) != 1:
+        fail(f"K8 mesh: {len(seen)} launches for one group")
+    gstep, fields, valid, rows, table, dirty = seen[0]
+    eng = SimpleNamespace(step=gstep, table=table, dirty=dirty,
+                          table_capacity=dirty.shape[0] - 1)
+    return _k8_case(torch, "mesh_4x2", eng, fields, valid, rows, card)
+
+
+def state_programs_phase(torch, wt, blocks, card):
+    """K8 (the JAX package's ``_grid_scan_core``, XLA there; a hand kernel
+    with the step compiled in here, ``kernels/grid_scan.cuh``) against its
+    plain version (``grid_scan_core``: M steps of ``torch.func.vmap``) on
+    the card, bit for bit, at the main paths' layouts: ``smap`` (one
+    64-key batch of the smap part: 64 serial chains of ~1,024 rows),
+    ``hc`` (10,240 keys), ``huge`` (keys over 2^20, the table grown to
+    2^20 rows), ``zipf`` (Zipf 1.1 over 10^7 keys, the tiered part's
+    float32 scan on 8,192 rows and a fresh table: one hot key's chain
+    holds the launch), ``tier`` (the part ``tiered`` layout,
+    ``_k8_tier_case``), ``holes`` (a
+    fused chain's ``valid`` with holes: the graph_gpu filter's mask over
+    256 keys), ``sfilter`` (the running-max filter at 10,240 keys) and
+    ``mesh_4x2`` (one Map_Mesh step). Each line: device time, launches
+    and event bracket of the kernel and of the plain version, and the
+    bytes bound. Returns the rows by layout."""
+    st = {"n": np.int32(0)}
+    out = {}
+    cols, _, _ = blocks[STATE_WARMUP]
+    out["smap"] = _k8_graph_case(torch, wt, "smap", _smap_fn, False, st,
+                                 cols, card)
+    hb = _blocks(HC_KEYS, seed=22, n_batches=1, batch=BATCH)[0][0]
+    out["hc"] = _k8_graph_case(torch, wt, "hc", _smap_fn, False, st, hb,
+                               card)
+    ub = _blocks(HUGE_KEYS, seed=22, n_batches=1, batch=BATCH)[0][0]
+    out["huge"] = _k8_graph_case(torch, wt, "huge", _smap_fn, False, st, ub,
+                                 card, table_rows=HUGE_KEYS)
+    rng = np.random.default_rng(11)
+    zk = ((rng.zipf(1.1, size=K8_ZIPF_ROWS) - 1) % TIER_KEY_SPACE).astype(
+        np.int32)
+    out["zipf"] = _k8_graph_case(
+        torch, wt, "zipf", _tier_fn, False, np.float32(0),
+        {"k": zk, "v": np.arange(K8_ZIPF_ROWS, dtype=np.float32)}, card,
+        key="k")
+    out["tier"] = _k8_tier_case(torch, wt, card)
+    gb = _blocks(GRAPH_KEYS, seed=24, n_batches=1, batch=BATCH)[0][0]
+    keep = (gb["value"].astype(np.int64) * 3 + gb["key"]) % 2 == 0
+    out["holes"] = _k8_graph_case(torch, wt, "holes", _smap_fn, False, st,
+                                  gb, card, valid=keep)
+    fb = _blocks(HC_KEYS, seed=23, n_batches=1, batch=BATCH)[0][0]
+    out["sfilter"] = _k8_graph_case(torch, wt, "sfilter", _run_max_fn, True,
+                                    {"mx": np.int32(0)}, fb, card)
+    out["mesh_4x2"] = _k8_mesh_case(
+        torch, wt, _blocks(HC_KEYS, seed=73, n_batches=STATE_WARMUP + 1,
+                           batch=BATCH), card)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4054,7 +4349,9 @@ def mesh_ops_part(torch, wt, card):
             mcore.ensure_virtual_devices(MESH_VDEV, group_devices=devs)
             try:
                 _sync_cards(torch)
+                _k8_reset()
                 grun = _run_state_graph(wt, "cuda", blocks, make)
+                k8 = (_k8_launched(name) if part == "map" else None)
                 g = canon(grun[0])
                 if layout is None:
                     cpu_rows[shape] = canon(_run_state_graph(
@@ -4075,6 +4372,7 @@ def mesh_ops_part(torch, wt, card):
                            rows_equal_numpy=True,
                            tuples_per_s=_state_rates(grun, len(blocks),
                                                      BATCH),
+                           k8_launches=k8,
                            **{k: rep[k] for k in (
                                "Mesh_devices", "Mesh_steps",
                                "Mesh_shuffle_bytes", "Mesh_shard_skew",
@@ -6101,6 +6399,31 @@ def _k1_in_commit(torch, prof):
     return spans, len(k1), len(inside)
 
 
+def _count_fire_only(wt):
+    """Count the K1 launches of the FFAT replicas' fire-only steps
+    (``FfatGPUReplica._fire_dataless``: a punctuation or the EOS firing
+    windows after ingest-only batches settles the deferred rebuild on the
+    worker thread, outside the dispatch queue and so outside any
+    ``wf:commit:`` span). The commits still queued drain first, inside
+    their spans, and are not counted. Returns ``(count, restore)``."""
+    from windflow_tpu_torch.gpu.ffat_gpu import FfatGPUReplica
+    orig = FfatGPUReplica._fire_dataless
+    count, lock = [0], threading.Lock()
+
+    def counted(self, frontier, partial):
+        if self.trees is not None:
+            self.dispatch.drain(forced=True)
+        before = self.stats.rebuild_kernel_launches
+        try:
+            return orig(self, frontier, partial)
+        finally:
+            with lock:
+                count[0] += self.stats.rebuild_kernel_launches - before
+
+    FfatGPUReplica._fire_dataless = counted
+    return count, lambda: setattr(FfatGPUReplica, "_fire_dataless", orig)
+
+
 def _stateless_e2e(wt, blocks):
     """The HC stream through columnar source -> Map_GPU -> columnar sink,
     traced at OBS_TRACE_RATE on all three: the mapped values are the
@@ -6182,25 +6505,32 @@ def observe_tracing_part(torch, wt, card):
     from torch.profiler import profile
     _reset_launches(fr)
     torch.cuda.synchronize()
-    with profile(**kw) as prof:
-        run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
-                         trace_rate=OBS_TRACE_RATE)
-        torch.cuda.synchronize()
+    fire_only, restore = _count_fire_only(wt)
+    try:
+        with profile(**kw) as prof:
+            run = _run_graph(wt, "cuda", blocks, HC_KEYS, None,
+                             trace_rate=OBS_TRACE_RATE)
+            torch.cuda.synchronize()
+    finally:
+        restore()
     launches += _launched("observe tracing profiled", fr, run[5])
     _check_windows("observe tracing profiled", "the untraced run", run[0],
                    ref)
     spans, k1, inside = _k1_in_commit(torch, prof)
     if not spans["prep"] or not spans["commit"]:
         fail(f"observe tracing: profiler spans missing: {spans}")
-    if k1 == 0 or inside != k1:
+    # every K1 launch lies in a commit span, but a fire-only step's,
+    # which runs on the worker thread outside the dispatch queue
+    if k1 == 0 or inside + fire_only[0] != k1:
         fail(f"observe tracing: {inside} of {k1} K1 launches lie inside "
-             "a wf:commit: span")
+             f"a wf:commit: span, {fire_only[0]} in fire-only steps")
     phase("observe", part="tracing", card=card, rate=OBS_TRACE_RATE,
           rows_equal_untraced=True, traced_tuples_per_s=tps["on"],
           untraced_tuples_per_s=tps["off"],
           window_sink_e2e_samples=win_e2e, stateless_sink_e2e=e2e,
           profiled_spans=spans, k1_launches_profiled=k1,
-          k1_inside_commit_span=inside, torch=torch.__version__)
+          k1_inside_commit_span=inside, k1_fire_only=fire_only[0],
+          torch=torch.__version__)
     return launches
 
 
@@ -6689,7 +7019,7 @@ def main() -> None:
     # last: its profiled runs trace hundreds of thousands of launches,
     # after which torch.profiler has been seen to lose K1's records
     smap_blocks = state_phase(torch, wt, card)
-    state_programs_phase(torch, wt, smap_blocks, card)
+    k8_rows = state_programs_phase(torch, wt, smap_blocks, card)
     for run_phase in (dag_phase, recovery_phase, delta_phase, rescale_phase,
                       supervise_phase, mesh_phase, ysb_phase,
                       exactly_once_phase, observe_phase):
@@ -6766,6 +7096,35 @@ def main() -> None:
     if unknown:
         fail(f"K2+K3 / K4 variants {sorted(unknown)} launched on a main "
              "path but are not in the kernels line")
+    # K8: launches by traced step over the state and mesh phases' runs on
+    # the card; times and bound at each step's own path layout
+    from windflow_tpu_torch.kernels import build
+    k8_tags = {n: v.tag for n, v in _k8_variants(torch).items()}
+    for vname, tag in k8_tags.items():
+        if K8_PATH[tag] <= 0:
+            fail(f"K8's {vname} step never launched on a main path")
+        t = k8_rows[K8_PATH_LAYOUT[vname]]
+        if t["tag"] != tag:
+            fail(f"K8's {vname} layout ran step {t['tag']}, not {tag}")
+        kernels.append({
+            "name": f"grid_scan[{vname}]", "route": "cuda",
+            "source": "windflow_tpu_torch/kernels/grid_scan.cuh",
+            "replaces": "windflow_tpu/tpu/ops_tpu.py:212",
+            "launches": K8_PATH[tag],
+            "max_abs_err": max(r["max_abs_err"] for r in k8_rows.values()
+                               if r["tag"] == tag),
+            "ms": t["wrapper_ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "bound_share": t["bound_share"],
+            "library_ms": None, "shape": [t["rows"], t["keys"], t["M"]],
+        })
+    unknown = set(K8_PATH) - set(k8_tags.values())
+    if unknown:
+        fail(f"K8 steps {sorted(unknown)} launched on a main path but are "
+             "not in the kernels line")
+    spilled = _spills(build, "grid_scan-")
+    if spilled:
+        fail(f"K8 kernels with a stack frame or spills: {spilled}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

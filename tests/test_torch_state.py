@@ -34,6 +34,7 @@ from windflow_tpu_torch.gpu import keymap as keymap_t
 from windflow_tpu_torch.gpu.batch import BatchGPU
 from windflow_tpu_torch.gpu.ops_gpu import Filter_GPU, Map_GPU
 from windflow_tpu_torch.gpu.schema import TupleSchema
+from windflow_tpu_torch.kernels.grid_scan import grid_of
 
 from common import TupleT, make_ingress_source
 
@@ -363,7 +364,9 @@ def _assert_same_engine(jrep, trep):
 def test_grid_meta_matches_jax(n_keys):
     """The host grid assembly: the same grid positions, touched rows and
     (M, KB) on both sides, through the bincount path (table near batch
-    size) and the ``np.unique`` path (table far larger than the batch)."""
+    size) and the ``np.unique`` path (table far larger than the batch).
+    The port's host prep gives the rows grouped by key (``KeyRows``); its
+    plain version's grid comes from them (``grid_of``)."""
     jrep = _replica("jax", "map", _running_sum, {"total": jnp.int32(0)})
     trep = _replica("torch", "map", _running_sum, {"total": np.int32(0)})
     blocks = _blocks(6, seed=21, n_keys=n_keys, batch=24)
@@ -373,7 +376,15 @@ def test_grid_meta_matches_jax(n_keys):
         keys = cols["key"].astype(np.int64)
         bj = SimpleNamespace(size=len(ts), capacity=32, host_keys=keys)
         mj = jrep.engine.grid_meta(bj)
-        mt = trep.engine.grid_meta(bj)
+        rows = trep.engine.grid_meta(bj)
+        KB = len(rows.touched)
+        grid_idx, tmask, M = grid_of(rows._replace(
+            order=torch.from_numpy(rows.order),
+            starts=torch.from_numpy(rows.starts),
+            touched=torch.from_numpy(rows.touched)), bj.capacity)
+        mt = (grid_idx.numpy(), np.arange(bj.capacity) < rows.walked,
+              rows.touched, tmask.numpy(), M, KB)
+        assert len(mj) == len(mt)
         for a, b in zip(mj, mt):
             assert np.array_equal(np.asarray(a), np.asarray(b))
     if n_keys == 300:
@@ -458,21 +469,24 @@ def test_port_snapshot_restores_into_port():
 def test_grid_cell_index_guarded_within_int32():
     """One key holding 32,769 rows of a 65,536-row batch and 32,767 keys
     with one row each: KB = 32,768 x M = 65,536 = 2^31 cells, no scratch
-    cell left inside int32. The port refuses before any allocation, naming
-    M and KB (the JAX package's int32 grid indices wrap there: ROADMAP
-    Queue 3)."""
+    cell left inside int32. The port's plain version refuses before any
+    allocation, naming M and KB (the JAX package's int32 grid indices
+    wrap there: ROADMAP Queue 3); the host prep gives the rows, which
+    K8's kernel indexes without a grid."""
     trep = _replica("torch", "map", _count_step, {"n": np.int32(0)})
     keys = np.concatenate([np.zeros(32_769, np.int64),
                            np.arange(1, 32_768, dtype=np.int64)])
     batch = SimpleNamespace(size=len(keys), capacity=len(keys),
                             host_keys=keys)
+    rows = trep.engine.prep(batch)
+    assert (rows.M, len(rows.touched)) == (65_536, 32_768)
     with pytest.raises(wt.WindFlowError, match=r"KB=32768 .*M=65536"):
-        trep.engine.grid_meta(batch)
+        grid_of(rows, len(keys))
     # one row fewer of the deep key: M = 32,768 fits
     batch2 = SimpleNamespace(size=65_535, capacity=65_536,
                              host_keys=keys[1:])
-    *_, M, KB = trep.engine.grid_meta(batch2)
-    assert (M, KB) == (32_768, 32_768)
+    rows2 = trep.engine.grid_meta(batch2)
+    assert (rows2.M, len(rows2.touched)) == (32_768, 32_768)
 
 
 def test_refusals_match_jax():

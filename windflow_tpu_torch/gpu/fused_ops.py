@@ -29,11 +29,11 @@ commit waits on that event only.
 
 Stateful sub-ops (kinds ``smap`` / ``sfilter``) each own one
 ``_KeyedStateScan`` (``gpu/ops_gpu.py``): host prep runs each engine's
-``grid_meta`` in chain order, and the chain body runs its grid-scan step
-where the sub-op sits, on the table as it is at launch time (an
-``sfilter`` narrows ``valid``; rows an earlier filter dropped skip the
-grid). A key-compatible keyed entry makes their KEYBY shuffle the
-identity (``topology/stage.py``).
+``grid_meta`` in chain order, and the chain body runs its keyed scan (K8:
+the hand kernel on a card) where the sub-op sits, on the table as it is at
+launch time (an ``sfilter`` narrows ``valid``; rows an earlier filter
+dropped leave their key's state as it is). A key-compatible keyed entry
+makes their KEYBY shuffle the identity (``topology/stage.py``).
 
 MEGABATCH: with ``PipeGraph(megabatch=K)``, the dispatch queue hands up
 to K queued same-signature commits to ``_run_megabatch``, the counterpart
@@ -62,7 +62,8 @@ import numpy as np
 import torch
 
 from ..basic import WindFlowError
-from .batch import BatchGPU, host_copies, to_device
+from ..kernels.grid_scan import output_like
+from .batch import BatchGPU, host_copies, to_device, zero_fields
 from .ffat_gpu import Ffat_Windows_GPU, FfatGPUReplica
 from .ops_gpu import (Filter_GPU, GPUReplicaBase, Map_GPU, Reduce_GPU,
                       _KeyedStateScan, compact_order, masked_tree_reduce,
@@ -158,6 +159,8 @@ class FusedGPUReplica(GPUReplicaBase):
                                            for s in self.specs)
                       else "map")
         self._combine = getattr(ops[-1], "combine", None)
+        self._stateful = any(s.engine is not None for s in self.specs)
+        self._steps_loaded: set = set()  # batch dtypes _load_steps took
 
     @property
     def fused_signature(self) -> List[str]:
@@ -169,11 +172,47 @@ class FusedGPUReplica(GPUReplicaBase):
         return self.ops[0].schema
 
     def prewarm(self, caps) -> Optional[int]:
-        """The whole chain body once per bucket; a chain with a stateful
-        sub-op sizes its grid by the stream's keys: skipped."""
-        if any(s.engine is not None for s in self.specs):
+        """The whole chain body once per bucket. A chain with a stateful
+        sub-op runs no bucket (its rows follow the stream's keys): on a
+        card its steps are traced and their K8 libraries built or loaded
+        before batch 0 instead (the number of steps); on the CPU, or
+        without a declared schema, None."""
+        if not self._stateful:
+            return super().prewarm(caps)
+        if self.device.type != "cuda":
             return None
-        return super().prewarm(caps)
+        sch = self._prewarm_schema()
+        if sch is None:
+            self.prewarm_skip = ("K8's steps are traced over the batch's "
+                                 "dtypes: declare the schema (with_schema) "
+                                 "to build them before batch 0")
+            return None
+        return self._load_steps(zero_fields(sch, 1, self.device))
+
+    def _load_steps(self, fields: Dict[str, torch.Tensor]) -> int:
+        """On a card: trace every stateful sub-op's step over the columns
+        it will see and build or load its library (raising
+        ``WindFlowError`` for a step the kernel cannot take). Those
+        columns come from one row of zeros like ``fields`` through the
+        sub-ops before it: a stateless kernel's output, a stateful map's
+        output columns (``output_like``). Once per batch dtypes; returns
+        the steps it loaded."""
+        sig = tuple((f, t.dtype, tuple(t.shape[1:]))
+                    for f, t in fields.items())
+        if sig in self._steps_loaded:
+            return 0
+        cols = {f: torch.zeros((1,) + t.shape[1:], dtype=t.dtype,
+                               device=t.device) for f, t in fields.items()}
+        valid = torch.ones(1, dtype=torch.bool, device=self.device)
+        n = 0
+        for spec in self.specs:
+            if spec.kernel is not None:
+                cols, valid, _ = spec.kernel(cols, valid, None)
+            elif spec.engine is not None:
+                cols = output_like(spec.engine.load_step(cols), cols)
+                n += 1
+        self._steps_loaded.add(sig)
+        return n
 
     def _warm_program(self, fields, cap: int) -> None:
         hargs: List[Any] = [None] * len(self.specs)
@@ -189,7 +228,7 @@ class FusedGPUReplica(GPUReplicaBase):
         """One batch through the chain: ``(out, readback)``, the device
         columns to emit and the device tensors the host reads back (none
         for a map-only chain). ``hargs[i]`` is sub-op i's prep output: a
-        stateful one's ``(program, grid arrays)``, the keyed terminator's
+        stateful one's ``KeyRows``, the keyed terminator's
         ``(order, sorted slots)``. Shared by the single and the megabatch
         commit, so both launch the same kernels. Where the JAX package
         reads back a reduce exit's ``compact_order(valid)`` and count only
@@ -201,9 +240,9 @@ class FusedGPUReplica(GPUReplicaBase):
             if spec.kernel is not None:
                 fields, valid, _ = spec.kernel(fields, valid, None)
             elif spec.engine is not None:
-                # the grid scan on the sub-op's table as it is now (commit
-                # order); rows ``valid`` excludes skip the grid
-                out = spec.engine.run(h[0], fields, valid, h[1])
+                # the keyed scan on the sub-op's table as it is now (commit
+                # order); rows ``valid`` excludes leave the state as it is
+                out = spec.engine.run(fields, valid, h)
                 if spec.kind == "sfilter":
                     valid = out
                 else:
@@ -253,16 +292,20 @@ class FusedGPUReplica(GPUReplicaBase):
             kred = (to_device(order_np, self.device),
                     to_device(ssorted_np, self.device))
             kextra = list(slot_of_key)  # slot order == insertion order
-        # per stateful sub-op, in chain order: slot mapping and grid
-        # assembly (grid_meta drains the pipeline itself iff a table must
-        # grow, and queues the tier moves ahead of this batch)
+        if self._stateful and self.device.type == "cuda":
+            # every stateful sub-op's step traced and loaded before the
+            # first commit
+            self._load_steps(batch.fields)
+        # per stateful sub-op, in chain order: slot mapping and the rows
+        # grouped by key (grid_meta drains the pipeline itself iff a
+        # table must grow, and queues the tier moves ahead of this batch)
         statics: List[Any] = []
         hargs: List[Any] = []
         for spec in self.specs:
             if spec.engine is not None:
-                prog, grid, gargs = spec.engine.prep(batch)
-                statics.append(grid)
-                hargs.append((prog, gargs))
+                rows = spec.engine.prep(batch)
+                statics.append((rows.M, rows.touched.shape[0]))
+                hargs.append(rows)
             else:
                 statics.append(None)
                 hargs.append(kred if spec.kind == "kreduce" else None)

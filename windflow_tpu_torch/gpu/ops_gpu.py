@@ -27,9 +27,11 @@ between replicas.
   state)`` over 0-d tensors, applied under ``torch.func.vmap`` (the
   counterpart of the JAX package's ``jax.vmap``: the same contract, no
   data-dependent Python control flow). Per-key state lives in a device
-  table updated in arrival order by the grid scan (``grid_scan_core``,
-  K8 of the JAX package, plain torch ops) driven by ``_KeyedStateScan``,
-  optionally in front of the host cold tier of ``state/tiered.py``.
+  table updated in arrival order by the keyed grid scan (K8 of the JAX
+  package; ``kernels/grid_scan.py``: on a card a hand kernel with the step
+  compiled in, one thread a key; on the CPU the plain version
+  ``grid_scan_core``) driven by ``_KeyedStateScan``, optionally in front
+  of the host cold tier of ``state/tiered.py``.
 - ``Reduce_GPU`` keyed: one output per distinct key per batch (reference
   ``reduce_by_key``, ``reduce_gpu.hpp:245-251``). The HOST sorts the keys
   once (``reduce_order_and_slots``) and ships the gather order, the
@@ -61,6 +63,9 @@ import torch
 from ..basic import (ExecutionMode, KeyCapacityError, OpType, RoutingMode,
                      WindFlowError)
 from ..checkpoint import delta as ckpt_delta
+from ..kernels.build import BUILD_INFO
+from ..kernels.grid_scan import GridStep, KeyRows, grid_walk
+from ..monitoring.flightrec import note_kernel_load
 from ..operators.base import BasicOperator, BasicReplica
 from ..pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..monitoring.tracing import device_span
@@ -68,7 +73,7 @@ from ..runtime.dispatch import DeviceDispatchQueue
 from ..state.tiered import TieredKeyStore, hot_table_digest
 from .batch import (BatchGPU, bucket_capacity, host_copies, zero_fields,
                     key_column_np, key_column_to_list, to_device)
-from .keymap import (KeySlotMap, distinct_batch_keys, group_positions,
+from .keymap import (KeySlotMap, distinct_batch_keys,
                      stable_group_argsort, structured_unique)
 from .scan import segmented_scan
 from .schema import TupleSchema, canonical, numpy_dtype
@@ -264,82 +269,6 @@ def keyed_reduce_program(combine: Callable, fields: Dict[str, torch.Tensor],
                                        for k, v in fields.items()},
                              same_prev)
     return {k: v[tails] for k, v in scanned.items()}
-
-
-def _bwhere(ok: torch.Tensor, new: torch.Tensor, old: torch.Tensor
-            ) -> torch.Tensor:
-    """``new`` where ``ok`` else ``old``, in ``old``'s dtype (a state leaf
-    keeps its table dtype whatever the user function computed)."""
-    shaped = ok.reshape(ok.shape + (1,) * (new.dim() - ok.dim()))
-    return torch.where(shaped, new, old).to(old.dtype)
-
-
-def grid_scan_core(func: Callable, filter_mode: bool, M: int, KB: int
-                   ) -> Callable:
-    """The keyed grid scan (K8; the JAX package's ``_grid_scan_core``,
-    ``ops_tpu.py:212-277``) as plain torch ops. Rows scatter to a (KB x M)
-    grid of (batch-local key slot, per-key position); M steps each apply
-    ``torch.func.vmap(func)`` to all KB keys at once, and a key's state
-    changes only where its step holds a row; the outputs gather back to
-    arrival order. Returns ``core(fields, valid, grid_idx, touched,
-    touched_mask, table, dirty) -> out``: the per-row output columns (map
-    mode) or the keep mask ANDed with ``valid`` (filter mode).
-
-    ``table`` (a pytree of ``(T_cap + 1,)`` tensors) and ``dirty`` (a
-    ``(T_cap + 1,)`` bool bitmap) are updated IN PLACE: the touched rows
-    get their new state and their dirty bit. The last row of each is a
-    scratch row, the target of what JAX drops with ``mode="drop"``: the
-    padding lanes of the KB axis (they read slot 0 and write the scratch
-    row, never slot 0), as the grid's scratch cell ``KB*M`` takes the
-    invalid rows. Rows ``valid`` excludes (padding, or dropped by a fused
-    filter earlier in the chain) skip the grid and leave their key's state
-    untouched; their slots are still scattered back and marked dirty, as
-    the JAX bitmap is (conservative). The caller runs this in commit
-    order: the table is read when the core runs."""
-    KM = KB * M
-    vfunc = torch.func.vmap(func)
-
-    def core(fields, valid, grid_idx, touched, touched_mask, table, dirty):
-        leaves, spec = tree_flatten(table)
-        t_cap = leaves[0].shape[0] - 1
-        tsafe = torch.where(touched_mask, touched, 0)
-        state = tree_unflatten(spec, [lf[tsafe] for lf in leaves])  # copies
-        safe = torch.where(valid, grid_idx, KM)
-        cols = {}
-        for f, v in fields.items():
-            g = v.new_zeros((KM + 1,) + v.shape[1:])
-            g[safe] = v
-            # (M, KB): step j reads row j, one cell per key
-            cols[f] = g[:KM].view((KB, M) + v.shape[1:]).transpose(0, 1)
-        gm = torch.zeros(KM + 1, dtype=torch.bool, device=grid_idx.device)
-        gm[safe] = True
-        gmask = gm[:KM].view(KB, M).t()
-        outs = []
-        for j in range(M):
-            out, new = vfunc({f: c[j] for f, c in cols.items()}, state)
-            if not filter_mode and not isinstance(out, dict):
-                raise WindFlowError("stateful Map_GPU function must return "
-                                    "(dict of columns, state)")
-            ok = gmask[j]
-            state = tree_map(lambda o, nw: _bwhere(ok, nw, o), state, new)
-            outs.append(out)
-        tscatter = torch.where(touched_mask, touched, t_cap)
-        for lf, nw in zip(leaves, tree_leaves(state)):
-            lf[tscatter] = nw
-        dirty[tscatter] = True
-        # gather outputs back to arrival positions: stacked (M, KB), row
-        # (slot, within) sits at within * KB + slot
-        slot = torch.div(grid_idx, M, rounding_mode="floor")
-        within = torch.where(valid, grid_idx % M, 0)
-        row_flat = within * KB + torch.clamp(slot, max=KB - 1)
-        if filter_mode:
-            keep = torch.stack(outs).reshape(-1)[row_flat]
-            return keep.to(torch.bool) & valid
-        stacked = {f: torch.stack([o[f] for o in outs]) for f in outs[0]}
-        return {f: canonical(o.reshape((M * KB,) + o.shape[2:])[row_flat])
-                for f, o in stacked.items()}
-
-    return core
 
 
 # ---------------------------------------------------------------------------
@@ -709,18 +638,21 @@ class FilterGPUReplica(GPUReplicaBase):
 # ---------------------------------------------------------------------------
 # keyed device state: the grid-scan engine and the stateful replicas
 # ---------------------------------------------------------------------------
-INT32_MAX = 2**31 - 1
-
-
 class _KeyedStateScan:
     """Keyed device state for stateful Map/Filter (the JAX package's
     ``_KeyedStateScan``, ``ops_tpu.py:623-990``).
 
     The reference runs one CUDA worker per distinct key walking its chain
-    of tuples serially (``map_gpu.hpp:80-102``); here a (KB x M) GRID scan
+    of tuples serially (``map_gpu.hpp:80-102``), and so does K8's kernel
+    on a card (``kernels/grid_scan.py``: the step traced and compiled in,
+    one thread a touched key walking the batch's rows grouped by key,
+    ``KeyRows``); on the CPU the plain version, a (KB x M) GRID scan,
     walks the per-key POSITION axis (M = most tuples of one key in the
     batch) while ``vmap`` covers the batch's KB keys each step
-    (``grid_scan_core``). State lives in a device table pytree between
+    (``grid_scan_core``). A step the tracer refuses raises
+    ``WindFlowError`` on a card at the first prep (a stateful op behind
+    another in a fused chain: at its first commit), naming the operation.
+    State lives in a device table pytree between
     batches: one ``(table_capacity + 1,)`` tensor per state leaf, the last
     row scratch, with a touched-slot ``dirty`` bitmap beside it. Commits
     update the touched rows in place, in commit order; growth copies the
@@ -738,9 +670,7 @@ class _KeyedStateScan:
     def __init__(self, replica, func: Callable, state_init: Any,
                  filter_mode: bool, op=None) -> None:
         self.replica = replica
-        self.func = func
         self.state_init = state_init
-        self.filter_mode = filter_mode
         # ``op`` overrides the owner: a fused chain replica hosts one
         # engine per stateful SUB-operator, each resolving keys with its
         # own op
@@ -758,7 +688,8 @@ class _KeyedStateScan:
         self.table_capacity = 64
         self.table = None  # pytree of (table_capacity + 1,) tensors
         self.dirty = None  # (table_capacity + 1,) bool
-        self._progs: Dict[tuple, Callable] = {}
+        self.step = GridStep(func, filter_mode)
+        self._loaded: set = set()  # step libraries this engine loaded
         # delta lineage: the epoch of the last FULL snapshot taken for a
         # checkpoint with deltas on, captures since, and the capacity and
         # key count at that base
@@ -775,20 +706,30 @@ class _KeyedStateScan:
             self.table_capacity = self.tier.hot_capacity
 
     # -- device program ----------------------------------------------------
-    def program(self, M: int, KB: int) -> Callable:
-        """The grid-scan core for one grid shape (the JAX package compiles
-        one program per ``(M, KB)``; here it is the closure)."""
-        prog = self._progs.get((M, KB))
-        if prog is None:
-            prog = self._progs[(M, KB)] = grid_scan_core(
-                self.func, self.filter_mode, M, KB)
-        return prog
+    def load_step(self, fields: Dict[str, torch.Tensor]):
+        """On a card: trace the step over columns like ``fields`` (cached
+        per dtypes) and build or load its library, recording the first
+        load per library as this replica's compile event. Raises
+        ``WindFlowError`` for a step the kernel cannot take."""
+        state = (self.table if self.table is not None
+                 else tree_unflatten(self._spec, self._init))
+        v = self.step.variant(fields, state)
+        if v.tag not in self._loaded:
+            t0 = time.perf_counter()
+            v.load()
+            built = BUILD_INFO.get(v.library, {}).get("seconds", 0.0) > 0
+            note_kernel_load(self.replica.stats, v.library,
+                             (time.perf_counter() - t0) * 1e6, built)
+            self._loaded.add(v.tag)
+        return v
 
-    def run(self, prog: Callable, fields, valid, hargs):
-        """One batch's grid scan on the table as it is NOW (commit time)."""
-        grid_idx, touched, tmask = hargs
-        return prog(fields, valid, grid_idx, touched, tmask, self.table,
-                    self.dirty)
+    def run(self, fields, valid, rows: KeyRows):
+        """One batch's keyed scan on the table as it is NOW (commit time):
+        K8's kernel on a card, the plain version on the CPU."""
+        if self.device.type == "cuda":
+            self.load_step(fields)
+        return grid_walk(self.step, fields, valid, rows, self.table,
+                         self.dirty)
 
     # -- host side ---------------------------------------------------------
     @property
@@ -843,15 +784,18 @@ class _KeyedStateScan:
                                      device=self.device)
             self.dirty[:old.shape[0]] = old
 
-    def grid_meta(self, batch: BatchGPU):
-        """(grid_idx, valid, touched, touched_mask, M, KB), host numpy:
-        batch-local grid positions, the touched table rows and the grid's
-        bucket sizes. Global slots come from the KeySlotMap; touched rows
-        and dense local ids from a bincount when the table is batch-sized,
-        else from ``np.unique`` (a bincount would pay O(table) per batch);
-        the grouping from a radix argsort. The grid's cells are indexed in
-        int32: a batch whose ``KB * M`` leaves no scratch cell inside int32
-        raises (the JAX package's int32 ``grid_idx`` wraps there)."""
+    def grid_meta(self, batch: BatchGPU) -> KeyRows:
+        """The batch's rows grouped by key, as host numpy arrays in a
+        ``KeyRows``: ``order`` over the batch's capacity (each key's rows
+        in arrival order, key after key, then the padding rows),
+        ``starts``, the touched table rows padded to KB (a power of two),
+        their count, and the plain version's depth M (a power of two at
+        or above the most rows of one key; megabatch groups key on it as
+        the JAX package's compiled scans do). Global slots come from the
+        KeySlotMap; touched rows and dense local ids from a bincount when
+        the table is batch-sized, else from ``np.unique`` (a bincount
+        would pay O(table) per batch); the grouping from a radix
+        argsort."""
         n = batch.size
         cap = batch.capacity
         keys, keys_arr = op_batch_keys_np(self.op, batch)
@@ -872,37 +816,37 @@ class _KeyedStateScan:
             lslots = lmap[gslots]
         else:  # high cardinality: O(n log n) beats O(table_capacity)
             touched_list, lslots = np.unique(gslots, return_inverse=True)
-        _, within = group_positions(lslots, len(touched_list))
-        max_depth = int(within.max()) + 1 if n else 1
-        M = 1
-        while M < max_depth:
-            M <<= 1
+        n_touched = len(touched_list)
         KB = 1
-        while KB < max(1, len(touched_list)):
+        while KB < max(1, n_touched):
             KB <<= 1
-        if KB * M + 1 > INT32_MAX:
-            raise WindFlowError(
-                f"{self.op.name}: this batch's grid is KB={KB} keys x M={M} "
-                f"positions = {KB * M} cells, beyond int32 cell indices; "
-                "use smaller batches (M is the most rows of one key)")
-        grid_idx = np.zeros(cap, dtype=np.int32)
-        grid_idx[:n] = lslots * M + within
-        valid = np.zeros(cap, dtype=bool)
-        valid[:n] = True
+        counts = np.bincount(lslots, minlength=KB)
+        most = int(counts.max()) if n else 1
+        M = 1
+        while M < most:
+            M <<= 1
         touched = np.zeros(KB, dtype=np.int32)
-        touched[:len(touched_list)] = touched_list
-        touched_mask = np.zeros(KB, dtype=bool)
-        touched_mask[:len(touched_list)] = True
-        return grid_idx, valid, touched, touched_mask, M, KB
+        touched[:n_touched] = touched_list
+        order = np.empty(cap, dtype=np.int32)
+        order[:n] = stable_group_argsort(lslots, n_touched)
+        order[n:] = np.arange(n, cap)
+        starts = np.zeros(KB + 1, dtype=np.int32)
+        np.cumsum(counts, out=starts[1:])
+        return KeyRows(order, starts, touched, n_touched, M, n)
 
-    def prep(self, batch: BatchGPU):
-        """Host prep of one batch: ``(program, (M, KB), hargs)``, hargs the
-        grid arrays on the device (``non_blocking`` H2D)."""
-        grid_idx, _valid, touched, tmask, M, KB = self.grid_meta(batch)
+    def prep(self, batch: BatchGPU, fields=None) -> KeyRows:
+        """Host prep of one batch: its ``KeyRows`` on the device
+        (``non_blocking`` H2D). ``fields``: the columns the step will see
+        (a standalone replica's batch; a fused chain loads its steps
+        itself, ``_load_steps``): on a card the step is traced and its
+        library loaded here, before the first commit."""
+        rows = self.grid_meta(batch)
         dev = self.device
-        hargs = (to_device(grid_idx, dev), to_device(touched, dev),
-                 to_device(tmask, dev))
-        return self.program(M, KB), (M, KB), hargs
+        if fields is not None and dev.type == "cuda":
+            self.load_step(fields)
+        return rows._replace(order=to_device(rows.order, dev),
+                             starts=to_device(rows.starts, dev),
+                             touched=to_device(rows.touched, dev))
 
     # -- tiered data movement ----------------------------------------------
     def _submit_tier_plan(self, plan) -> None:
@@ -1093,6 +1037,22 @@ class _StatefulGPUReplica(GPUReplicaBase):
         super().__init__(op, idx)
         self.engine = _KeyedStateScan(self, func, op.state_init, filter_mode)
 
+    def prewarm(self, caps) -> Optional[int]:
+        """``PipeGraph.with_prewarm`` on a card: trace the step and build
+        or load its K8 library before batch 0 (1, one library). The grid
+        follows the stream's keys, so no bucket runs; on the CPU, or
+        without a declared schema (the step's dtypes), None."""
+        if self.device.type != "cuda":
+            return None
+        sch = self._prewarm_schema()
+        if sch is None:
+            self.prewarm_skip = ("K8's step is traced over the batch's "
+                                 "dtypes: declare the schema (with_schema) "
+                                 "to build it before batch 0")
+            return None
+        self.engine.load_step(zero_fields(sch, 1, self.device))
+        return 1
+
     def snapshot_state(self) -> dict:
         st = super().snapshot_state()
         st["scan"] = self.engine.snapshot_state()
@@ -1114,11 +1074,11 @@ class StatefulMapGPUReplica(_StatefulGPUReplica):
         # host prep: slot mapping and grid assembly (grid_meta drains the
         # pipeline itself iff the table must grow); the commit reads the
         # table AT COMMIT TIME: earlier queued commits update it
-        prog, _, hargs = self.engine.prep(batch)
+        rows = self.engine.prep(batch, batch.fields)
 
         def commit() -> None:
             valid = row_mask(batch.capacity, batch.size, self.device)
-            out = self.engine.run(prog, batch.fields, valid, hargs)
+            out = self.engine.run(batch.fields, valid, rows)
             self.stats.device_programs_run += 1
             self._emit_batch(batch.with_fields(out))
 
@@ -1133,11 +1093,11 @@ class StatefulFilterGPUReplica(_StatefulGPUReplica):
         super().__init__(op, idx, op.pred, True)
 
     def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
-        prog, _, hargs = self.engine.prep(batch)
+        rows = self.engine.prep(batch, batch.fields)
 
         def commit() -> None:
             valid = row_mask(batch.capacity, batch.size, self.device)
-            keep = self.engine.run(prog, batch.fields, valid, hargs)
+            keep = self.engine.run(batch.fields, valid, rows)
             order, count = compact_order(keep)
             out = {k: v[order] for k, v in batch.fields.items()}
             self.stats.device_programs_run += 1

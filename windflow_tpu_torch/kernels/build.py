@@ -12,8 +12,8 @@ in ``.gitignore``), or in the compile cache directory that
 named by a digest of the source, the headers (``kernels/*.cuh``) and the
 flags, so an edited source is never served by a stale build, and a
 current build there is loaded without running ``nvcc``. A traced
-combine's variant of K1 is a generated translation unit
-(``load_generated``), written and built there too.
+combine's variant of K1, and a traced stateful step's K8, is a generated
+translation unit (``load_generated``), written and built there too.
 Nothing is compiled when the module is imported: ``load_library`` and
 ``load_generated`` build on the first call that needs the card; builds
 of different libraries may run in parallel threads.
@@ -137,13 +137,15 @@ def load_library(name: str) -> ctypes.CDLL:
     return _load(name, src.read_bytes(), src)
 
 
-def load_generated(tag: str, text: str) -> ctypes.CDLL:
-    """A generated translation unit of K1 (``combine_codegen``), built
-    into ``<build_dir()>/forest_rebuild-<tag>-<digest>.so`` (the digest
+def load_generated(tag: str, text: str,
+                   kind: str = "forest_rebuild") -> ctypes.CDLL:
+    """A generated translation unit (``combine_codegen``: a traced
+    variant of K1, or with ``kind`` "grid_scan" a traced step of K8),
+    built into ``<build_dir()>/<kind>-<tag>-<digest>.so`` (the digest
     covers the text, the headers and the flags) and loaded; its
-    ``BUILD_INFO`` entry is ``forest_rebuild-<tag>``. A failed build
-    raises with the nvcc log."""
-    name = f"forest_rebuild-{tag}"
+    ``BUILD_INFO`` entry is ``<kind>-<tag>``. A failed build raises with
+    the nvcc log."""
+    name = f"{kind}-{tag}"
     lib = _libs.get(name)
     if lib is not None:
         return lib

@@ -27,19 +27,30 @@ tests compile and run it.
 compiles: the headers, the policy and its C entry points, K1's and the
 FFAT step's (``ffat_step.cuh``: K2+K3 and K4), so one variant is one
 library.
+
+``step_source(ir)`` emits a traced stateful step (``combine_trace.StepIR``)
+as ``struct WfgStep``, the step policy of K8's kernel (``grid_scan.cuh``):
+``step(r, s, o)`` from the words of one row's read columns and of the
+state to the computed output columns (or the keep byte) and the new state
+(each new leaf cast to its table dtype, as the plain version's ``where``
+does), with the same arithmetic as a combine; ``step_kernel_source(ir)``
+is its translation unit, K8's kernel and C entry points over it.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import List
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
 
-from .combine_trace import BOOL, COMPARE, F32, I32, CombineIR, f32_bits
+from .combine_trace import (BOOL, COMPARE, F32, I32, CombineIR, Node,
+                            StepIR, f32_bits)
 
 STRUCT = "WfgCombine"
+STEP_STRUCT = "WfgStep"
+MASK32 = 0xFFFFFFFF
 _CTYPE = {I32: "int32_t", F32: "float", BOOL: "bool"}
 _CAT = {BOOL: 0, I32: 1, F32: 2}
 
@@ -106,6 +117,18 @@ WFG_HD int32_t wfg_imul(int32_t x, int32_t y) {
 }
 WFG_HD int32_t wfg_ineg(int32_t x) { return (int32_t)(0u - (uint32_t)x); }
 WFG_HD int32_t wfg_iabs(int32_t x) { return x < 0 ? wfg_ineg(x) : x; }
+/* torch's int32 // and % by a nonzero constant: floor semantics (the
+   remainder takes the divisor's sign); INT_MIN // -1 wraps */
+WFG_HD int32_t wfg_ifloordivc(int32_t x, int32_t c) {
+    if (c == -1) return wfg_ineg(x);
+    const int32_t q = x / c;
+    return (x % c != 0 && ((x < 0) != (c < 0))) ? q - 1 : q;
+}
+WFG_HD int32_t wfg_imodc(int32_t x, int32_t c) {
+    if (c == -1) return 0;
+    const int32_t r = x % c;
+    return (r != 0 && ((r < 0) != (c < 0))) ? r + c : r;
+}
 #endif
 """
 
@@ -158,31 +181,31 @@ def _reciprocal_bits(bits: int) -> int:
         return f32_bits(float(np.float32(1.0) / c[0]))
 
 
-def _live(ir: CombineIR) -> List[bool]:
-    live = [False] * len(ir.nodes)
-    stack = list(ir.outputs)
+def _live(nodes, roots) -> List[bool]:
+    live = [False] * len(nodes)
+    stack = list(roots)
     while stack:
         i = stack.pop()
         if not live[i]:
             live[i] = True
-            stack.extend(ir.nodes[i].args)
+            stack.extend(nodes[i].args)
     return live
 
 
-def _apply_body(ir: CombineIR) -> List[str]:
-    idx = {f: k for k, f in enumerate(ir.fields)}
+def _node_lines(nodes, live, load: Callable[[Node], str]) -> List[str]:
+    """One ``const`` local ``t<i>`` per live node; ``load`` gives an
+    "in" node's value."""
     lines: List[str] = []
-    for i, (n, live) in enumerate(zip(ir.nodes, _live(ir))):
-        if not live:
+    for i, n in enumerate(nodes):
+        if not live[i]:
             continue
         a = [f"t{j}" for j in n.args]
         if n.op == "in":
-            side, f = n.value
-            e = word_to(n.dtype, f"{'l' if side == 'a' else 'r'}[{idx[f]}]")
+            e = load(n)
         elif n.op == "const":
             e = _literal(n.dtype, n.value)
         elif n.op == "cast":
-            e = convert(ir.nodes[n.args[0]].dtype, n.dtype, a[0])
+            e = convert(nodes[n.args[0]].dtype, n.dtype, a[0])
         elif n.op == "divc":
             e = (f"WFG_FDIVC({a[0]}, {_literal(F32, n.value)}, "
                  f"{_literal(F32, _reciprocal_bits(n.value))})")
@@ -198,9 +221,24 @@ def _apply_body(ir: CombineIR) -> List[str]:
             e = f"({a[0]} {_CMP[n.op]} {a[1]})"
         elif n.op == "where":
             e = f"({a[0]} ? {a[1]} : {a[2]})"
+        elif n.op == "floordivc":
+            e = f"wfg_ifloordivc({a[0]}, {_literal(I32, n.value & MASK32)})"
+        elif n.op == "modc":
+            e = f"wfg_imodc({a[0]}, {_literal(I32, n.value & MASK32)})"
         else:
             e = _BINARY[n.dtype][n.op].format(*a)
         lines.append(f"const {_CTYPE[n.dtype]} t{i} = {e};")
+    return lines
+
+
+def _apply_body(ir: CombineIR) -> List[str]:
+    idx = {f: k for k, f in enumerate(ir.fields)}
+
+    def load(n: Node) -> str:
+        side, f = n.value
+        return word_to(n.dtype, f"{'l' if side == 'a' else 'r'}[{idx[f]}]")
+
+    lines = _node_lines(ir.nodes, _live(ir.nodes, ir.outputs), load)
     for k, i in enumerate(ir.outputs):
         lines.append(f"o[{k}] = {to_word(ir.nodes[i].dtype, f't{i}')};")
     return lines
@@ -272,3 +310,91 @@ def kernel_source(ir: CombineIR) -> str:
                       f"namespace {ns} {{", _policy(ir), f"}}  // {ns}", "",
                       f"WF_REBUILD_ENTRY_POINTS({ns}::{STRUCT})",
                       f"WF_FFAT_ENTRY_POINTS({ns}::{STRUCT})", ""])
+
+
+# ---------------------------------------------------------------------------
+# stateful steps (K8)
+# ---------------------------------------------------------------------------
+def step_reads(ir: StepIR) -> List[str]:
+    """The row columns the step reads (the kernel's input columns), in
+    the row's order."""
+    live = _live(ir.nodes, [i for _, i in ir.outputs] + list(ir.new_state))
+    read = {n.value[1] for n, lv in zip(ir.nodes, live)
+            if lv and n.op == "in" and n.value[0] == "row"}
+    return [f for f, _ in ir.row if f in read]
+
+
+def step_out_dtypes(ir: StepIR) -> List[torch.dtype]:
+    """The kernel's output columns' dtypes (filter mode: the keep byte)."""
+    if ir.filter_mode:
+        return [BOOL]
+    return [ir.nodes[i].dtype for _, i in ir.outputs]
+
+
+def _bytes_fn(name: str, dtypes: Sequence[torch.dtype], var: str) -> List[str]:
+    ones = [k for k, dt in enumerate(dtypes) if dt is BOOL]
+    body = (" || ".join(f"{var} == {k}" for k in ones) + " ? 1 : 4"
+            if ones else "4")
+    return [f"    WFG_HDC static constexpr int {name}(int {var}) {{",
+            f"        return {body};", "    }"]
+
+
+def _step_policy(ir: StepIR) -> str:
+    """The ``WfgStep`` struct of ``ir``."""
+    reads = step_reads(ir)
+    row_dt = dict(ir.row)
+    idx = {f: k for k, f in enumerate(reads)}
+    outs = step_out_dtypes(ir)
+    nin, nout, nst = len(reads), len(outs), len(ir.state)
+
+    def load(n: Node) -> str:
+        src, key = n.value
+        return word_to(n.dtype, f"r[{idx[key]}]" if src == "row"
+                       else f"s[{key}]")
+
+    roots = [i for _, i in ir.outputs] + list(ir.new_state)
+    body = ["(void)r;", "(void)o;"]
+    body += _node_lines(ir.nodes, _live(ir.nodes, roots), load)
+    for j, ((f, i), dt) in enumerate(zip(ir.outputs, outs)):
+        body.append(f"o[{j}] = {to_word(dt, convert(ir.nodes[i].dtype, dt, f't{i}'))};"
+                    f"  // {f}")
+    # the new state last: every node above has read the old one
+    for l, (i, dt) in enumerate(zip(ir.new_state, ir.state)):
+        body.append(f"s[{l}] = {to_word(dt, convert(ir.nodes[i].dtype, dt, f't{i}'))};")
+    sig = ("const uint32_t (&r)[RIN], uint32_t (&s)[RST], "
+           "uint32_t (&o)[ROUT]")
+    ind = "        "
+    desc = ", ".join(f"{f}:{str(row_dt[f]).replace('torch.', '')}"
+                     for f in reads) or "none"
+    out = [f"// {'filter' if ir.filter_mode else 'map'} step; reads {desc}",
+           f"struct {STEP_STRUCT} {{",
+           f"    static constexpr int NIN = {nin};",
+           f"    static constexpr int NOUT = {nout};",
+           f"    static constexpr int NST = {nst};",
+           "    static constexpr int RIN = NIN > 0 ? NIN : 1;",
+           "    static constexpr int ROUT = NOUT > 0 ? NOUT : 1;",
+           "    static constexpr int RST = NST;",
+           *_bytes_fn("in_bytes", [row_dt[f] for f in reads], "c"),
+           *_bytes_fn("out_bytes", outs, "j"),
+           *_bytes_fn("st_bytes", ir.state, "l"),
+           f"    WFG_HD static void step({sig}) {{",
+           *(ind + ln for ln in body),
+           "    }",
+           "};", ""]
+    return "\n".join(out)
+
+
+def step_source(ir: StepIR) -> str:
+    """The prelude and the ``WfgStep`` policy of ``ir``."""
+    return PRELUDE + "\n" + _step_policy(ir)
+
+
+def step_kernel_source(ir: StepIR) -> str:
+    """The translation unit of a traced step: K8's kernel
+    (``grid_scan.cuh``) over the step's policy, in a namespace named by a
+    digest of the trace (as ``kernel_source``'s variants are)."""
+    ns = "wfs_" + hashlib.sha256(ir.text().encode()).hexdigest()[:12]
+    return "\n".join([PRELUDE, '#include "grid_scan.cuh"', "",
+                      f"namespace {ns} {{", _step_policy(ir),
+                      f"}}  // {ns}", "",
+                      f"WF_GRID_SCAN_ENTRY_POINTS({ns}::{STEP_STRUCT})", ""])

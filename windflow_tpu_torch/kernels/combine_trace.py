@@ -1,5 +1,5 @@
-"""Tracing a torch combine into an expression graph for the forest-rebuild
-kernel.
+"""Tracing a torch combine, or a stateful step, into an expression graph
+for the hand kernels.
 
 The JAX package's Pallas kernel (``windflow_tpu/tpu/pallas_kernels.py``)
 inlines the user's ``jnp`` combine into its body. The port does the same
@@ -29,17 +29,30 @@ not a dict with exactly the lift's fields.
 
 ``CombineIR.evaluate`` runs the graph with torch ops on tensors: the tests
 hold it against the combine called directly. No CUDA path calls it.
+
+``trace_step`` does the same for the step of a stateful ``Map_GPU`` /
+``Filter_GPU`` (``func(row, state) -> (row | keep, state)``), which K8's
+kernel (``kernels/grid_scan.cuh``) runs with the step compiled in: its
+``StepIR`` reads ``row[f]`` and the state's leaves and gives the computed
+output columns (or the keep value) and the new state leaves. A step's
+language is a combine's with two more operations: int32 ``//`` and
+``%`` by a nonzero Python int constant, with torch's floor semantics
+(``jnp``'s too). A row column with trailing dimensions (a composite key)
+may only pass through unchanged; an output column that is a row column
+unchanged (``{**row, ...}``) is recorded as a pass-through, which the
+kernel never copies.
 """
 
 from __future__ import annotations
 
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, FrozenSet, List, Mapping, Tuple
 
 import torch
 
 from ..basic import WindFlowError
+from ..pytree import tree_flatten, tree_unflatten
 
 I32, F32, BOOL = torch.int32, torch.float32, torch.bool
 #: the dtypes a lift plane may have, in torch's promotion order
@@ -51,7 +64,8 @@ _NAMES = {BOOL: "bool", I32: "int32", F32: "float32"}
 # 32-bit pattern; 0/1 for bool), "cast", the binary "add" "sub" "mul"
 # "div" "min" "max" "and" "or" "lt" "le" "gt" "ge" "eq" "ne" (operands of
 # one dtype), "divc" (division by a Python scalar; value: its float32
-# bits), the unary "neg" "abs" "not" "recip", and "where" (cond, x, y).
+# bits), the unary "neg" "abs" "not" "recip", "where" (cond, x, y), and in
+# a step "floordivc" / "modc" (int32 // and % by the Python int ``value``).
 COMPARE = ("lt", "le", "gt", "ge", "eq", "ne")
 
 
@@ -108,15 +122,24 @@ class CombineIR:
                 v = (a if side == "a" else b)[f]
             elif n.op == "const":
                 v = torch.tensor(_const_value(n), dtype=n.dtype, device=dev)
-            elif n.op == "cast":
-                v = x[0].to(n.dtype)
-            elif n.op == "divc":
-                v = x[0] / bits_f32(n.value)
             else:
-                v = _EVAL[n.op](*x)
+                v = _eval_node(n, x)
             val.append(v)
         return {f: val[i].expand(shape) if val[i].dim() == 0 else val[i]
                 for f, i in zip(self.fields, self.outputs)}
+
+
+def _eval_node(n: Node, x: List[torch.Tensor]) -> torch.Tensor:
+    """One operation node on its operands' tensors (not "in" or "const")."""
+    if n.op == "cast":
+        return x[0].to(n.dtype)
+    if n.op == "divc":
+        return x[0] / bits_f32(n.value)
+    if n.op == "floordivc":
+        return torch.div(x[0], n.value, rounding_mode="floor")
+    if n.op == "modc":
+        return torch.remainder(x[0], n.value)
+    return _EVAL[n.op](*x)
 
 
 def _const_value(n: Node):
@@ -140,7 +163,12 @@ _EVAL: Dict[str, Callable] = {
 
 # ---------------------------------------------------------------------------
 class _Tracer:
-    def __init__(self) -> None:
+    """``what``: the traced function's kind in messages; ``int_div``: a
+    step's tracer takes int32 ``//`` and ``%`` by constants."""
+
+    def __init__(self, what: str = "combine", int_div: bool = False) -> None:
+        self.what = what
+        self.int_div = int_div
         self.nodes: List[Node] = []
         self.reads: List[FrozenSet[str]] = []  # fields each node depends on
         self._index: Dict[Node, int] = {}
@@ -180,10 +208,11 @@ class _Tracer:
 
 
 def _refuse(what: str, *operands) -> WindFlowError:
-    reads = sorted(set().union(*(o._tr.reads[o._id] for o in operands
-                                 if isinstance(o, _Proxy))))
+    proxies = [o for o in operands if isinstance(o, _Proxy)]
+    reads = sorted(set().union(*(o._tr.reads[o._id] for o in proxies)))
     on = f" on {', '.join(reads)}" if reads else ""
-    return WindFlowError(f"combine: {what} is not supported in a combine "
+    kind = proxies[0]._tr.what if proxies else "combine"
+    return WindFlowError(f"{kind}: {what} is not supported in a {kind} "
                          f"the CUDA kernel traces{on}")
 
 
@@ -203,6 +232,8 @@ def _promote(op: str, *xs) -> torch.dtype:
     for x in xs:
         if isinstance(x, _Proxy):
             tcat = max(tcat, _CAT[x.dtype])
+        elif isinstance(x, _Opaque):
+            raise x.refusal(op)
         else:
             c = _scalar_cat(x)
             if c < 0:
@@ -255,6 +286,8 @@ def _binary(op: str, x, y) -> "_Proxy":
 def _div(x, y) -> "_Proxy":
     tr = _first_proxy((x, y))._tr
     for v in (x, y):
+        if isinstance(v, _Opaque):
+            raise v.refusal("/")
         if not isinstance(v, _Proxy) and _scalar_cat(v) < 0:
             raise _refuse(f"/ with an operand of type {type(v).__name__}",
                           x, y)
@@ -265,6 +298,29 @@ def _div(x, y) -> "_Proxy":
                                  f32_bits(float(y))))
     return _Proxy(tr, tr.add("div", F32, (_operand(tr, x, F32),
                                           _operand(tr, y, F32))))
+
+
+def _int_div(op: str, x, y) -> "_Proxy":
+    """A step's ``x // c`` or ``x % c``: int32 ``x``, a nonzero Python int
+    ``c`` (torch's floor semantics: the remainder takes ``c``'s sign)."""
+    sym = "//" if op == "floordivc" else "%"
+    if not isinstance(x, _Proxy):
+        if isinstance(x, _Opaque):
+            raise x.refusal(sym)
+        raise _refuse(f"{sym} by a traced value (only by a nonzero Python "
+                      "int constant)", y)
+    if not x._tr.int_div:
+        raise _refuse(sym, x, y)
+    if isinstance(y, _Proxy):
+        raise _refuse(f"{sym} by a traced value (only by a nonzero Python "
+                      "int constant)", x, y)
+    if isinstance(y, bool) or not isinstance(y, int) or y == 0 \
+            or not -2**31 <= y < 2**31:
+        raise _refuse(f"{sym} by {y!r} (only by a nonzero Python int "
+                      "constant within int32)", x)
+    if x.dtype is not I32:
+        raise _refuse(f"{sym} on {_NAMES[x.dtype]} (int32 only)", x)
+    return _Proxy(x._tr, x._tr.add(op, I32, (x._id,), y))
 
 
 def _unary(op: str, x: "_Proxy") -> "_Proxy":
@@ -319,6 +375,7 @@ _UNARY_FNS = {torch.neg: "neg", torch.negative: "neg", torch.abs: "abs",
               torch.absolute: "abs", torch.logical_not: "not",
               torch.bitwise_not: "not", torch.reciprocal: "recip"}
 _DIV_FNS = (torch.div, torch.divide, torch.true_divide)
+_INT_DIV_FNS = {torch.floor_divide: "floordivc", torch.remainder: "modc"}
 
 
 def _fn_name(func) -> str:
@@ -356,6 +413,8 @@ class _Proxy:
             return _div(*args)
         if func is torch.where and len(args) == 3 and not kwargs:
             return _where(*args)
+        if func in _INT_DIV_FNS and len(args) == 2 and not kwargs:
+            return _int_div(_INT_DIV_FNS[func], *args)
         raise _refuse(_fn_name(func), *args, *kwargs.values())
 
     # arithmetic
@@ -406,10 +465,10 @@ class _Proxy:
     def __len__(self): self._no("len() of a traced value")
     def __iter__(self): self._no("iterating a traced value")
     def __getitem__(self, k): self._no("indexing a traced value")
-    def __floordiv__(self, o): self._no("//")
-    def __rfloordiv__(self, o): self._no("//")
-    def __mod__(self, o): self._no("%")
-    def __rmod__(self, o): self._no("%")
+    def __floordiv__(self, o): return _int_div("floordivc", self, o)
+    def __rfloordiv__(self, o): return _int_div("floordivc", o, self)
+    def __mod__(self, o): return _int_div("modc", self, o)
+    def __rmod__(self, o): return _int_div("modc", o, self)
     def __pow__(self, o): self._no("**")
     def __rpow__(self, o): self._no("**")
     def __xor__(self, o): self._no("^")
@@ -483,3 +542,225 @@ def trace_combine(combine: Callable,
                                 f"{type(v).__name__}, not a traced value")
     return CombineIR(tuple(dtypes), tuple(dtypes.values()), tuple(tr.nodes),
                      tuple(outputs))
+
+
+# ---------------------------------------------------------------------------
+# stateful steps (K8)
+# ---------------------------------------------------------------------------
+class _Opaque:
+    """A row column the kernel cannot compute on (trailing dimensions, or
+    a dtype other than int32 / float32 / bool): it may only pass through
+    unchanged. Every operation on it is refused."""
+
+    __slots__ = ("field", "why")
+    __array_ufunc__ = None
+
+    def __init__(self, field: str, why: str) -> None:
+        self.field = field
+        self.why = why
+
+    def refusal(self, what: str) -> WindFlowError:
+        return WindFlowError(
+            f"step: {what} on row[{self.field!r}] ({self.why}) is not "
+            "supported in a step the CUDA kernel traces: a computed column "
+            "with trailing dimensions or of another dtype; such a column "
+            "may only pass through unchanged")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        for a in (*args, *(kwargs or {}).values()):
+            if isinstance(a, _Opaque):
+                raise a.refusal(_fn_name(func))
+        raise WindFlowError(f"step: {_fn_name(func)} cannot be traced")
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        raise self.refusal(f"the method .{name}()")
+
+    def __bool__(self):
+        raise self.refusal("bool()")
+
+
+def _opaque_op(sym: str):
+    def op(self, *_):
+        raise self.refusal(sym)
+    return op
+
+
+for _name, _sym in (("add", "+"), ("radd", "+"), ("sub", "-"), ("rsub", "-"),
+                    ("mul", "*"), ("rmul", "*"), ("truediv", "/"),
+                    ("rtruediv", "/"), ("floordiv", "//"),
+                    ("rfloordiv", "//"), ("mod", "%"), ("rmod", "%"),
+                    ("pow", "**"), ("rpow", "**"), ("neg", "unary -"),
+                    ("abs", "abs"), ("invert", "~"), ("lt", "<"),
+                    ("le", "<="), ("gt", ">"), ("ge", ">="), ("eq", "=="),
+                    ("ne", "!="), ("and", "&"), ("rand", "&"), ("or", "|"),
+                    ("ror", "|"), ("xor", "^"), ("getitem", "indexing"),
+                    ("matmul", "@")):
+    setattr(_Opaque, f"__{_name}__", _opaque_op(_sym))
+_Opaque.__hash__ = object.__hash__
+
+
+class _Row(dict):
+    """The step's ``row``: one proxy per traceable column, an ``_Opaque``
+    for the others."""
+
+    def __missing__(self, key):
+        raise WindFlowError(f"step: reads row[{key!r}], which the batch "
+                            f"does not carry (columns {sorted(self)})")
+
+
+@dataclass(frozen=True)
+class StepIR:
+    """A traced step. ``row``: the batch's traceable columns (name,
+    dtype), the "in" nodes ``("row", name)``; ``state``: the state
+    leaves' dtypes in ``tree_flatten`` order, the "in" nodes ``("state",
+    i)``. ``outputs``: the computed output columns ``(name, node)`` (in
+    filter mode one, ``("keep", node)``); ``passed``: the pass-through
+    columns ``(name, row column)``; ``names``: map mode's output columns
+    in the function's order. ``new_state``: the node of each new leaf (the
+    kernel casts it to the leaf's dtype, as the plain version's ``where``
+    does). ``spec``: the state's tree structure."""
+    row: Tuple[Tuple[str, torch.dtype], ...]
+    state: Tuple[torch.dtype, ...]
+    filter_mode: bool
+    nodes: Tuple[Node, ...]
+    outputs: Tuple[Tuple[str, int], ...]
+    passed: Tuple[Tuple[str, str], ...]
+    names: Tuple[str, ...]
+    new_state: Tuple[int, ...]
+    spec: Any = field(compare=False, repr=False)
+
+    def text(self) -> str:
+        """A canonical description (digests, messages)."""
+        lines = [f"{'filter' if self.filter_mode else 'map'}"]
+        lines += [f"row {f}:{_NAMES[d]}" for f, d in self.row]
+        lines += [f"state {i}:{_NAMES[d]}" for i, d in enumerate(self.state)]
+        for i, n in enumerate(self.nodes):
+            lines.append(f"t{i}={n.op}:{_NAMES[n.dtype]}{list(n.args)}"
+                         f"{'' if n.value is None else repr(n.value)}")
+        lines.append("out=" + ",".join(f"{f}:t{i}" for f, i in self.outputs))
+        lines.append("pass=" + ",".join(f"{f}:{g}" for f, g in self.passed))
+        lines.append("names=" + ",".join(self.names))
+        lines.append("state=" + ",".join(f"t{i}" for i in self.new_state))
+        return "\n".join(lines)
+
+    def evaluate(self, row: Mapping[str, torch.Tensor], state) -> tuple:
+        """The graph run with torch ops on the tensors of ``row`` and the
+        pytree ``state`` (one shape): ``(out, new_state)`` as the step
+        returns them, before the cast of the new leaves to the table's
+        dtypes (``out`` a dict of columns, pass-throughs the row's own
+        tensors, or in filter mode the keep value)."""
+        leaves = tree_flatten(state)[0]
+        ref = leaves[0]
+        val: List[torch.Tensor] = []
+        for n in self.nodes:
+            x = [val[i] for i in n.args]
+            if n.op == "in":
+                src, key = n.value
+                v = row[key] if src == "row" else leaves[key]
+            elif n.op == "const":
+                v = torch.tensor(_const_value(n), dtype=n.dtype,
+                                 device=ref.device)
+            else:
+                v = _eval_node(n, x)
+            val.append(v)
+
+        def full(i):
+            return val[i].expand(ref.shape) if val[i].dim() == 0 else val[i]
+
+        new = tree_unflatten(self.spec, [full(i) for i in self.new_state])
+        if self.filter_mode:
+            return full(self.outputs[0][1]), new
+        computed = {f: full(i) for f, i in self.outputs}
+        passed = dict(self.passed)
+        return {f: (row[passed[f]] if f in passed else computed[f])
+                for f in self.names}, new
+
+
+def _leaf_dtype(v) -> torch.dtype:
+    """A state leaf's dtype in the JAX package's x64-off dtypes."""
+    dt = v.dtype if isinstance(v, torch.Tensor) else torch.as_tensor(v).dtype
+    return {torch.int64: I32, torch.float64: F32}.get(dt, dt)
+
+
+def _step_node(tr: _Tracer, v, what: str) -> int:
+    if isinstance(v, _Proxy):
+        if v._tr is not tr:
+            raise WindFlowError(f"step: {what} comes from another trace")
+        return v._id
+    if isinstance(v, _Opaque):
+        raise v.refusal(what)
+    raise WindFlowError(f"step: {what} is a {type(v).__name__}, not a "
+                        "traced value (the step must return tensors)")
+
+
+def trace_step(func: Callable, row_dtypes: Mapping[str, Any], state_init,
+               filter_mode: bool) -> StepIR:
+    """Trace ``func(row, state) -> (out | keep, state)`` into a
+    ``StepIR``, or raise ``WindFlowError`` naming what the kernel cannot
+    take. ``row_dtypes``: column -> dtype, or (dtype, trailing shape) for
+    a column with trailing dimensions; ``state_init``: a pytree whose
+    leaves (scalars or tensors) give the state's dtypes."""
+    tr = _Tracer("step", int_div=True)
+    row = _Row()
+    traced = []
+    for f, d in row_dtypes.items():
+        dt, trail = d if isinstance(d, tuple) else (d, ())
+        if trail or dt not in _CAT:
+            why = (f"trailing dimensions {tuple(trail)}" if trail
+                   else f"dtype {dt}")
+            row[f] = _Opaque(f, why)
+        else:
+            row[f] = _Proxy(tr, tr.add("in", dt, value=("row", f)))
+            traced.append((f, dt))
+    leaves, spec = tree_flatten(state_init)
+    if not leaves:
+        raise WindFlowError("step: the state has no leaves")
+    sdt = tuple(_leaf_dtype(v) for v in leaves)
+    bad = [str(d) for d in sdt if d not in _CAT]
+    if bad:
+        raise WindFlowError(f"step: state leaves must be int32, float32 or "
+                            f"bool, got {bad}")
+    state = tree_unflatten(spec, [
+        _Proxy(tr, tr.add("in", d, value=("state", i)))
+        for i, d in enumerate(sdt)])
+    kind = "Filter_GPU predicate" if filter_mode else "Map_GPU function"
+    try:
+        res = func(row, state)
+    except WindFlowError:
+        raise
+    except Exception as e:  # the user's code failed on proxies
+        raise WindFlowError(f"step: cannot be traced for the CUDA kernel "
+                            f"({type(e).__name__}: {e})") from e
+    if not isinstance(res, tuple) or len(res) != 2:
+        raise WindFlowError(f"step: a stateful {kind} must return "
+                            "(output, state)")
+    out, new = res
+    new_leaves = tree_flatten(new)[0]
+    if len(new_leaves) != len(leaves):
+        raise WindFlowError(f"step: the new state has {len(new_leaves)} "
+                            f"leaves, the state {len(leaves)}")
+    new_ids = tuple(_step_node(tr, v, f"new state leaf {i}")
+                    for i, v in enumerate(new_leaves))
+    outputs, passed, names = [], [], ()
+    if filter_mode:
+        outputs.append(("keep", _step_node(tr, out, "the keep value")))
+    else:
+        if not isinstance(out, dict):
+            raise WindFlowError("step: stateful Map_GPU function must "
+                                "return (dict of columns, state)")
+        names = tuple(out)
+        for f, v in out.items():
+            if isinstance(v, _Opaque):
+                passed.append((f, v.field))
+                continue
+            i = _step_node(tr, v, f"output column {f!r}")
+            n = tr.nodes[i]
+            if n.op == "in" and n.value[0] == "row":
+                passed.append((f, n.value[1]))
+            else:
+                outputs.append((f, i))
+    return StepIR(tuple(traced), sdt, filter_mode, tuple(tr.nodes),
+                  tuple(outputs), tuple(passed), names, new_ids, spec)

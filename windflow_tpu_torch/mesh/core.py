@@ -100,6 +100,7 @@ from ..kernels.ffat_step import (comb_valid, fire_query, ingest_fold,
 from ..gpu.scan import segmented_scan
 from ..gpu.schema import broadcast_scalar_fields, canonical
 from ..kernels.forest_rebuild import forest_rebuild
+from ..kernels.grid_scan import GridStep, KeyRows, grid_walk
 from ..pytree import tree_flatten, tree_map, tree_unflatten
 
 DEFAULT_VIRTUAL_DEVICES = 8
@@ -1329,8 +1330,8 @@ def make_mesh_table(mesh: KeyMesh, state_init, K_pad: int):
     of ``(K_g + 1,)`` tensors on its card (``K_g = ns_g * K_pad / ns``)
     filled with the ``state_init`` leaves (int64 / float64 become int32 /
     float32), its shards' row blocks stacked and one trailing scratch row
-    (the grid scan's target of the padding lanes,
-    ``gpu/ops_gpu.py:grid_scan_core``)."""
+    (the keyed scan's target of the padding lanes,
+    ``kernels/grid_scan.py:grid_scan_core``)."""
     leaves, spec = tree_flatten(state_init)
     k_local = K_pad // mesh.ns
     init = []
@@ -1350,43 +1351,60 @@ def make_mesh_table(mesh: KeyMesh, state_init, K_pad: int):
 INT32_MAX = 2**31 - 1
 
 
+def received_rows(gslot: torch.Tensor, n_keys: int):
+    """``(order, starts)`` of ``KeyRows`` built on the device from one
+    group's received lanes: ``gslot`` (int64) each lane's group-local key
+    slot, ``n_keys`` for an invalid lane. A stable ``torch.sort`` of the
+    slots (the received layout is global arrival order, so each key's
+    lanes stay in arrival order; the invalid lanes sort last) and the
+    starts from the counts, both int32."""
+    order = torch.sort(gslot, stable=True).indices.to(torch.int32)
+    cnt = torch.bincount(gslot, minlength=n_keys + 1)[:n_keys]
+    starts = torch.zeros(n_keys + 1, dtype=torch.int32, device=gslot.device)
+    starts[1:] = torch.cumsum(cnt, 0)
+    return order, starts
+
+
 def sharded_grid_scan(mesh: KeyMesh, func, filter_mode: bool,
-                      key_capacity: int, M: int, local_batch: int):
+                      key_capacity: int, M: Optional[int],
+                      local_batch: int):
     """Mesh-sharded keyed grid scan: the device core of the sharded
     stateful Map/Filter. One step per batch slice: bucket-by-owner +
     ``all_to_all`` over the flat shard order (the table never moves) ->
-    per-key arrival ranking (a stable sort of the received lanes by slot:
-    the received layout is global arrival order) -> on each group, the
-    grid scan of ``gpu/ops_gpu.py:grid_scan_core`` over its stacked
-    shards' row blocks (``K_g`` keys x ``M`` positions) -> the inverse
-    ``all_to_all`` returns outputs to arrival order.
+    on each group, its received lanes grouped by key on the device
+    (``received_rows``) -> the keyed scan of ``kernels/grid_scan.py`` over
+    its stacked shards' row blocks (``K_g`` keys: K8's kernel on the
+    group's card, on that card's current stream; the plain version
+    ``grid_scan_core`` on a CPU group, ``M`` positions, or with ``M``
+    None the power of two at or above the most rows a key of the group
+    received) -> the inverse ``all_to_all`` returns outputs to arrival
+    order. The plain version's grid cells are int32: with ``M`` given, a
+    mesh with a CPU group whose ``K_g * M`` grid leaves no scratch cell
+    inside int32 refuses here (the kernel indexes rows and takes it).
 
     Returns ``(step, meta)``: ``step(table, slots, gpos, vals) -> (table,
     out, n_tuples)`` over each group's operands (one group: the global
     ones; the table, ``make_mesh_table``'s, updated in place), ``out``
     the per-row output columns (map) or keep mask (filter) in arrival
     order, ``n_tuples`` per group; ``meta = (K_pad, k_local, GB)``."""
-    from ..gpu.ops_gpu import grid_scan_core
-
     ns = mesh_shard_count(mesh)
     K_pad = math.ceil(key_capacity / ns) * ns
     k_local = K_pad // ns
     C = local_batch
     GB = ns * local_batch
-    K_max = max(g.n for g in mesh.groups) * k_local
-    if K_max * M + 1 > INT32_MAX:
+    plain = [g for g in mesh.groups if g.device.type != "cuda"]
+    K_max = max((g.n for g in plain), default=0) * k_local
+    if M is not None and K_max * M + 1 > INT32_MAX:
         raise WindFlowError(
             f"sharded_grid_scan: the grid is K_pad={K_max} keys x M={M} "
             f"positions = {K_max * M} cells, beyond int32 cell indices; "
             "use smaller batches (M is the most rows of one key)")
-    cores, aux = {}, []
+    gstep = GridStep(func, filter_mode)
+    aux = []
     for g in mesh.groups:
         K_g = g.n * k_local
-        if K_g not in cores:
-            cores[K_g] = grid_scan_core(func, filter_mode, M, K_g)
         aux.append((K_g, g.lo * k_local,
                     torch.arange(K_g, dtype=torch.int32, device=g.device),
-                    torch.ones(K_g, dtype=torch.bool, device=g.device),
                     torch.zeros(K_g + 1, dtype=torch.bool, device=g.device)))
 
     def step(table, slots, gpos, vals):
@@ -1395,25 +1413,15 @@ def sharded_grid_scan(mesh: KeyMesh, func, filter_mode: bool,
                 mesh, k_local, C, slots, gpos, vals))
         tables = _glist(mesh, table)
         outs = []
-        for G, (K_g, off, touched, tmask, dirty) in enumerate(aux):
+        for G, (K_g, off, touched, dirty) in enumerate(aux):
             ok = valid[G]
-            dev = ok.device
-            # per-key arrival rank on the received lanes (the group's slot
-            # is the owner shard's row block offset + the local key)
+            # the group's slot is the owner shard's row block offset + the
+            # local key; every key of the group is touched
             gslot = torch.where(ok, rs[G] - off if off else rs[G], K_g) \
                 .to(torch.int64)
-            sort2 = torch.sort(gslot, stable=True).indices
-            sl = gslot[sort2]
-            cnt = torch.bincount(gslot, minlength=K_g + 1)
-            start = torch.cumsum(cnt, 0) - cnt
-            within = torch.empty_like(gslot)
-            within[sort2] = torch.arange(gslot.shape[0], device=dev) \
-                - start[sl]
-            grid_idx = torch.where(ok, gslot * M
-                                   + torch.clamp(within, max=M - 1),
-                                   K_g * M).to(torch.int32)
-            outs.append(cores[K_g](rv[G], ok, grid_idx, touched, tmask,
-                                   tables[G], dirty))
+            order, starts = received_rows(gslot, K_g)
+            rows = KeyRows(order, starts, touched, K_g, M)
+            outs.append(grid_walk(gstep, rv[G], ok, rows, tables[G], dirty))
         if filter_mode:
             ret = _route_back_groups(
                 mesh, C, _gout(mesh, [o.to(torch.int8) for o in outs]),

@@ -353,7 +353,7 @@ class _MeshScanReplicaBase(_MeshReplicaBase):
         super().__init__(op, idx)
         self._table = None
         self._out_schema: Optional[TupleSchema] = None
-        self._progs: Dict[int, Callable] = {}
+        self._prog: Optional[Callable] = None
         # incremental checkpoints: the slot rows each batch and each tier
         # promotion rewrites since the delta base (a FULL snapshot taken
         # with deltas on), so a delta ships per-shard row patches
@@ -427,13 +427,15 @@ class _MeshScanReplicaBase(_MeshReplicaBase):
         if self._pending_restore is not None:
             self._apply_pending_restore()
 
-    def _program(self, M: int) -> Callable:
-        prog = self._progs.get(M)
-        if prog is None:
-            prog = self._progs[M] = core.sharded_grid_scan(
+    def _program(self) -> Callable:
+        """The operator's one sharded step (its traced K8 step with it):
+        the plain version on a CPU group takes its grid depth from each
+        slice's rows."""
+        if self._prog is None:
+            self._prog = core.sharded_grid_scan(
                 self._mesh, self.functor, self.filter_mode,
-                self.op.key_capacity, M, self._local_batch)[0]
-        return prog
+                self.op.key_capacity, None, self._local_batch)[0]
+        return self._prog
 
     # -- streaming ---------------------------------------------------------
     def process_device_batch(self, batch: BatchGPU) -> None:
@@ -448,13 +450,9 @@ class _MeshScanReplicaBase(_MeshReplicaBase):
         cols = {f: batch.fields[f][:n] for f in self._val_fields}
         ts = np.asarray(batch.ts_host[:n])
         GB = self._GB
+        prog = self._program()
         for lo in range(0, n, GB):
             hi = min(lo + GB, n)
-            mx = max(1, int(np.bincount(slots[lo:hi]).max()))
-            M = 1
-            while M < mx:
-                M <<= 1
-            prog = self._program(M)
             s_dev, v_sl = self._pad_slice(slots, cols, lo, hi)
             t0 = time.perf_counter()
             self._table, out, _n_ok = prog(self._table, s_dev,
