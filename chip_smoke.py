@@ -17,7 +17,8 @@ Phases, each printing one line of its own:
    K4, the window query with eviction), and K8's library (the keyed grid
    scan, ``grid_scan.cuh``) of each stateful step the graphs below run
    (the stateful map, the running-max filter, the tiered float32 scan:
-   the step traced and compiled in), and lists each kernel's
+   the step traced and compiled in; and a step reading 64 columns, the
+   most a step may read), and lists each kernel's
    registers, stack frame and spill bytes (``-Xptxas -v``); a stack
    frame or a spilled byte in any library fails the phase (and, at the
    end, in any K8 library a run built later);
@@ -117,7 +118,9 @@ Phases, each printing one line of its own:
    gives tuples/s, host prep / commit ms per batch, K8's launches (every
    run on the card must launch it) and a profiled run's idle share and
    launches per batch; then the ``programs`` lines of K8 (the keyed grid
-   scan, a hand kernel with the step compiled in, one thread a key)
+   scan, a hand kernel with the step compiled in: a thread a key of
+   fewer than ``grid_scan.HEAVY_ROWS`` rows, a block staging a longer
+   key's rows through shared memory while one thread walks them)
    against its plain version (``grid_scan_core``, M steps of
    ``torch.func.vmap``), bit for bit on the rows ``valid`` admits, the
    table and the dirty bitmap, at the layouts ``smap`` (64 keys, ~1,024
@@ -126,8 +129,14 @@ Phases, each printing one line of its own:
    8,192 rows on a fresh table: the straggler), ``tier`` (the part
    ``tiered`` layout: a 512-row block on the 1,024-slot hot tier after 40
    blocks ran through it), ``holes`` (a fused ``valid`` with holes),
-   ``sfilter`` and ``mesh_4x2`` (one Map_Mesh step): device time,
-   launches and event bracket of each, and the bytes bound;
+   ``sfilter``, ``mesh_4x2`` (one Map_Mesh step), ``edges`` (runs at
+   the regimes' threshold and tile edges) and ``wide`` (the 64-column
+   step): device time, launches and event bracket of each, the longest
+   run, the keys in each regime, ns a row on the longest run, the bytes
+   bound and, beside it, the chain bound (the longest run at
+   ``K8_CHAIN_CYCLES`` cycles a row at the card's maximum SM clock: a
+   floor of this design, which walks each key's rows in order, not of
+   the function, whose exact int32 steps a parallel scan could take);
 9. branching graphs (``dag`` lines), BASELINE's ``split_tests_gpu +
    merge_tests_gpu`` config at ``bench.py``'s sizes (10,240 keys,
    65,536-tuple int32 batches, 2 warm-up and 12 timed batches): part
@@ -544,13 +553,15 @@ def _spills(build, prefix):
 def build_phase(torch):
     """Every K1 library from the sources in this checkout, the fieldwise
     one and each traced variant's, and K8's library of each stateful step
-    the script runs, one nvcc each, all started together; a stack frame
-    or a spill in any kernel fails the phase."""
+    the script runs and of the 64-column step, one nvcc each, all started
+    together; a stack frame or a spill in any kernel fails the phase."""
     from concurrent.futures import ThreadPoolExecutor
     from windflow_tpu_torch.kernels import build
     from windflow_tpu_torch.kernels import forest_rebuild as fr
+    from windflow_tpu_torch.kernels import grid_scan as gs
     libs = {"fieldwise": fr.Variant(fr.FIELDWISE), **_variants(torch),
-            **{f"k8:{n}": v for n, v in _k8_variants(torch).items()}}
+            **{f"k8:{n}": v for n, v in _k8_variants(torch).items()},
+            "k8:wide": gs.step_variant(*_k8_wide_spec(torch))}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(v.load) for v in libs.values()]:
@@ -2493,6 +2504,40 @@ K8_PLAIN_REPS = (10, 2)  # plain-version calls timed: M < 512, else (the
 K8_ZIPF_ROWS = 8192  # the Zipf batch: its hot key holds ~10% of the rows
 K8_TIER_AFTER = 40   # the tiered layout: the batch after this many blocks
 K8_PATH_LAYOUT = {"smap": "smap", "sfilter": "sfilter", "tier": "tier"}
+K8_EDGE_ROWS = 8192  # the edges batch: runs at the regimes' edges
+K8_EDGE_MAX_RUN = 1024  # its longest run (the plain version's M)
+K8_CHAIN_CYCLES = 4  # the chain bound: one dependent instruction a row
+K8_WIDE_INTS = 63    # the wide step reads 63 int32 columns and one bool
+_SM_MHZ = []
+
+
+def _max_sm_mhz():
+    """The card's maximum SM clock, MHz (``nvidia-smi``)."""
+    if not _SM_MHZ:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60)
+        if smi.returncode != 0:
+            fail("nvidia-smi: " + smi.stderr.strip())
+        _SM_MHZ.append(float(smi.stdout.split()[0]))
+    return _SM_MHZ[0]
+
+
+def _k8_wide_fn(row, st):
+    """A step that reads ``grid_scan.MAX_COLUMNS`` row columns (63 int32
+    and one bool): its library must build with no spill."""
+    t = st + row["b"].int()
+    for i in range(K8_WIDE_INTS):
+        t = t + row[f"c{i}"] * (i + 1)
+    return {"o": t}, t
+
+
+def _k8_wide_spec(torch):
+    cols = {f"c{i}": torch.zeros(1, dtype=torch.int32)
+            for i in range(K8_WIDE_INTS)}
+    cols["b"] = torch.zeros(1, dtype=torch.bool)
+    return _k8_wide_fn, False, cols, torch.zeros(1, dtype=torch.int32)
 
 
 def _k8_engine(torch, wt, func, filter_mode, state_init, key, tiering=None):
@@ -2526,13 +2571,31 @@ def _k8_bytes(torch, v, fields, rows, n, leaves):
             + 4 * (nt + 1) + 4 * nt + n * row_out + nt * (2 * state + 1))
 
 
-def _k8_case(torch, layout, eng, fields, valid, rows, card):
+def _k8_regimes(rows):
+    """(longest run, keys in the thread regime, keys in the block
+    regime, the threshold or None) of a launch's ``KeyRows``."""
+    nt = rows.n_touched
+    runs = np.diff(rows.starts.cpu().numpy().astype(np.int64)[:nt + 1])
+    longest = int(runs.max()) if nt else 0
+    if rows.heavy is None or not rows.heavy_blocks:
+        return longest, nt, 0, None
+    hl = rows.heavy.cpu().numpy()
+    hl = hl[hl >= 0]
+    block = int(np.count_nonzero(runs[hl] >= rows.heavy_rows))
+    return longest, nt - block, block, rows.heavy_rows
+
+
+def _k8_case(torch, layout, eng, fields, valid, rows, card, timed_only=False,
+             plain_reps=None):
     """K8's kernel against its plain version on the card, on the same
     inputs and copies of the same table: the output columns on the rows
     ``valid`` admits (on the others they carry no meaning), the table
     rows ``[0, T_cap)`` and ``dirty[:T_cap]``, bit for bit; then the
-    kernel's and the plain version's device time, launches and event
-    bracket, and the bytes bound."""
+    kernel's and (unless ``timed_only``) the plain version's device time,
+    launches and event bracket; the regimes (longest run, keys in each,
+    ns a row on the longest run), the bound (bytes) and the chain bound
+    beside it (the longest run at ``K8_CHAIN_CYCLES`` cycles a row at the
+    card's maximum SM clock: a floor of the design, not the bound)."""
     from windflow_tpu_torch.kernels import grid_scan as gs
     from windflow_tpu_torch.pytree import tree_flatten, tree_unflatten
     leaves, spec = tree_flatten(eng.table)
@@ -2574,31 +2637,42 @@ def _k8_case(torch, layout, eng, fields, valid, rows, card):
     device_ms, launches, bracket = _program_ms(
         torch, lambda: gs.grid_walk(eng.step, fields, valid, rows, tk, dk),
         reps=K8_REPS)
-    preps = K8_PLAIN_REPS[M >= 512]
-    plain_ms, plain_launches, plain_bracket = _program_ms(
-        torch, lambda: core(fields, valid, grid_idx, rows.touched, tmask,
-                            tp, dp), reps=preps)
+    preps = plain_reps or K8_PLAIN_REPS[M >= 512]
+    plain_ms = plain_launches = plain_bracket = None
+    if not timed_only:
+        plain_ms, plain_launches, plain_bracket = _program_ms(
+            torch, lambda: core(fields, valid, grid_idx, rows.touched, tmask,
+                                tp, dp), reps=preps)
     v = eng.step.variant(fields, tk)
     nbytes = _k8_bytes(torch, v, fields, rows, n, leaves)
+    longest, n_thread, n_block, hr = _k8_regimes(rows)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    chain_bound = longest * K8_CHAIN_CYCLES / (_max_sm_mhz() * 1e3)
+    tile = gs.tile_rows(v.load())
     row = dict(program="K8_grid_scan", layout=layout,
                replaces="windflow_tpu/tpu/ops_tpu.py:212",
                source="windflow_tpu_torch/kernels/grid_scan.cuh",
                route="cuda", tag=v.tag,
                rows=n, keys=rows.n_touched, M=M, KB=KB, table_rows=T,
+               longest_run=longest, thread_keys=n_thread,
+               block_keys=n_block, heavy_rows=hr, tile_rows=tile,
                bit_identical=True, max_abs_err=err, calls=K8_REPS,
                device_ms=device_ms, launches=launches, wrapper_ms=bracket,
-               plain_calls=preps, plain_device_ms=plain_ms,
-               plain_launches=plain_launches, plain_ms=plain_bracket,
-               bytes=nbytes, bound_ms=bound, bound_by="bytes",
-               bound_share=_share(bound, device_ms), library_ms=None,
+               ns_per_row=(None if device_ms is None or not longest
+                           else device_ms * 1e6 / longest),
+               plain_calls=None if timed_only else preps,
+               plain_device_ms=plain_ms, plain_launches=plain_launches,
+               plain_ms=plain_bracket, bytes=nbytes,
+               bound_ms=bound, bound_by="bytes",
+               bound_share=_share(bound, device_ms),
+               chain_bound_ms=chain_bound, max_sm_mhz=_max_sm_mhz(),
+               chain_share=_share(chain_bound, device_ms), library_ms=None,
                card=card)
-    phase("programs", **row)
     return row
 
 
 def _k8_graph_case(torch, wt, layout, func, filter_mode, state_init, cols,
-                   card, key="key", valid=None, table_rows=None):
+                   card, key="key", valid=None, table_rows=None, **kw):
     """One layout through a fresh engine's prep (``cols`` a numpy batch,
     its own capacity; ``valid`` a mask with holes, or every row)."""
     eng = _k8_engine(torch, wt, func, filter_mode, state_init, key)
@@ -2612,10 +2686,10 @@ def _k8_graph_case(torch, wt, layout, func, filter_mode, state_init, cols,
     fields = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
     v = torch.ones(n, dtype=torch.bool, device=dev) if valid is None \
         else torch.from_numpy(valid).to(dev)
-    return _k8_case(torch, layout, eng, fields, v, rows, card)
+    return _k8_case(torch, layout, eng, fields, v, rows, card, **kw)
 
 
-def _k8_tier_case(torch, wt, card):
+def _k8_tier_case(torch, wt, card, **kw):
     """The tiered part's layout: the 512-row block of ``_tier_blocks``
     after ``K8_TIER_AFTER`` others, on an engine whose table is the
     1,024-slot hot tier (LRU, the cold tail in sqlite under ``build/``),
@@ -2638,10 +2712,10 @@ def _k8_tier_case(torch, wt, card):
             eng.run(fields, valid, rows)
     if eng.tier.demoted_keys == 0:
         fail("K8 tier: no key was demoted before the layout's batch")
-    return _k8_case(torch, "tier", eng, fields, valid, rows, card)
+    return _k8_case(torch, "tier", eng, fields, valid, rows, card, **kw)
 
 
-def _k8_mesh_case(torch, wt, blocks, card):
+def _k8_mesh_case(torch, wt, blocks, card, **kw):
     """One Map_Mesh step at (4, 2) on one group of the card (the mesh
     part ``ops``'s stateful map at 10,240 keys): the step groups each
     group's received lanes on the device and launches K8 there; that
@@ -2680,54 +2754,116 @@ def _k8_mesh_case(torch, wt, blocks, card):
     gstep, fields, valid, rows, table, dirty = seen[0]
     eng = SimpleNamespace(step=gstep, table=table, dirty=dirty,
                           table_capacity=dirty.shape[0] - 1)
-    return _k8_case(torch, "mesh_4x2", eng, fields, valid, rows, card)
+    return _k8_case(torch, "mesh_4x2", eng, fields, valid, rows, card, **kw)
 
 
-def state_programs_phase(torch, wt, blocks, card):
-    """K8 (the JAX package's ``_grid_scan_core``, XLA there; a hand kernel
-    with the step compiled in here, ``kernels/grid_scan.cuh``) against its
-    plain version (``grid_scan_core``: M steps of ``torch.func.vmap``) on
-    the card, bit for bit, at the main paths' layouts: ``smap`` (one
-    64-key batch of the smap part: 64 serial chains of ~1,024 rows),
-    ``hc`` (10,240 keys), ``huge`` (keys over 2^20, the table grown to
-    2^20 rows), ``zipf`` (Zipf 1.1 over 10^7 keys, the tiered part's
-    float32 scan on 8,192 rows and a fresh table: one hot key's chain
-    holds the launch), ``tier`` (the part ``tiered`` layout,
-    ``_k8_tier_case``), ``holes`` (a
-    fused chain's ``valid`` with holes: the graph_gpu filter's mask over
-    256 keys), ``sfilter`` (the running-max filter at 10,240 keys) and
-    ``mesh_4x2`` (one Map_Mesh step). Each line: device time, launches
-    and event bracket of the kernel and of the plain version, and the
-    bytes bound. Returns the rows by layout."""
+def _k8_edge_runs(torch):
+    """The ``edges`` batch's run lengths: at the kernel's threshold
+    (``HEAVY_ROWS`` - 1, itself, + 1) and the smap step's ring tile (one
+    tile - 1, one, + 1, two + 1, the ring of four - 1 and whole, up to
+    ``K8_EDGE_MAX_RUN``)."""
+    from windflow_tpu_torch.kernels import grid_scan as gs
+    spec = _k8_step_specs(torch)["smap"]
+    hr, tile = gs.HEAVY_ROWS, gs.tile_rows(gs.step_variant(*spec).load())
+    runs = [hr - 1, hr, hr + 1, tile - 1, tile, tile + 1, 2 * tile + 1,
+            4 * tile - 1, 4 * tile]
+    return sorted({r for r in runs if 0 < r <= K8_EDGE_MAX_RUN}
+                  | {K8_EDGE_MAX_RUN})
+
+
+def _k8_edge_cols(torch, rng):
+    """The ``edges`` batch: one key a run of ``_k8_edge_runs``, the rest
+    of ``K8_EDGE_ROWS`` rows in keys of 1-16 rows, arrival shuffled."""
+    runs = _k8_edge_runs(torch)
+    fill, left = [], K8_EDGE_ROWS - sum(runs)
+    while left > 0:
+        fill.append(min(left, int(rng.integers(1, 17))))
+        left -= fill[-1]
+    keys = np.repeat(np.arange(len(runs) + len(fill), dtype=np.int32),
+                     runs + fill)
+    rng.shuffle(keys)
+    return {"key": keys,
+            "value": rng.integers(0, 100, len(keys)).astype(np.int32)}
+
+
+def _k8_wide_cols(rng):
+    """The wide step's batch: 2,048 rows, four keys of 100-256 rows (the
+    block regime, tiles of a few rows) and the rest in keys of 1-8."""
+    runs = [100, 150, 200, 256]
+    left = 2048 - sum(runs)
+    while left > 0:
+        runs.append(min(left, int(rng.integers(1, 9))))
+        left -= runs[-1]
+    keys = np.repeat(np.arange(len(runs), dtype=np.int32), runs)
+    rng.shuffle(keys)
+    cols = {f"c{i}": rng.integers(-1000, 1000, len(keys)).astype(np.int32)
+            for i in range(K8_WIDE_INTS)}
+    cols["b"] = rng.random(len(keys)) < 0.5
+    cols["key"] = keys
+    return cols
+
+
+def k8_layouts(torch, wt, blocks, card, timed_only=False):
+    """K8 at every ``programs`` layout: ``smap`` (one 64-key batch of the
+    smap part: 64 serial chains of ~1,024 rows), ``hc`` (10,240 keys),
+    ``huge`` (keys over 2^20, the table grown to 2^20 rows), ``zipf``
+    (Zipf 1.1 over 10^7 keys, the tiered part's float32 scan on 8,192
+    rows and a fresh table: one hot key's chain holds the launch),
+    ``tier`` (the part ``tiered`` layout, ``_k8_tier_case``), ``holes``
+    (a fused chain's ``valid`` with holes: the graph_gpu filter's mask
+    over 256 keys), ``sfilter`` (the running-max filter at 10,240 keys),
+    ``mesh_4x2`` (one Map_Mesh step), ``edges`` (runs at the regimes'
+    threshold and tile edges, ``_k8_edge_runs``) and ``wide`` (a step
+    reading 64 columns, one bool). Returns the rows by layout."""
     st = {"n": np.int32(0)}
     out = {}
+    kw = dict(timed_only=timed_only)
     cols, _, _ = blocks[STATE_WARMUP]
     out["smap"] = _k8_graph_case(torch, wt, "smap", _smap_fn, False, st,
-                                 cols, card)
+                                 cols, card, **kw)
     hb = _blocks(HC_KEYS, seed=22, n_batches=1, batch=BATCH)[0][0]
     out["hc"] = _k8_graph_case(torch, wt, "hc", _smap_fn, False, st, hb,
-                               card)
+                               card, **kw)
     ub = _blocks(HUGE_KEYS, seed=22, n_batches=1, batch=BATCH)[0][0]
     out["huge"] = _k8_graph_case(torch, wt, "huge", _smap_fn, False, st, ub,
-                                 card, table_rows=HUGE_KEYS)
+                                 card, table_rows=HUGE_KEYS, **kw)
     rng = np.random.default_rng(11)
     zk = ((rng.zipf(1.1, size=K8_ZIPF_ROWS) - 1) % TIER_KEY_SPACE).astype(
         np.int32)
     out["zipf"] = _k8_graph_case(
         torch, wt, "zipf", _tier_fn, False, np.float32(0),
         {"k": zk, "v": np.arange(K8_ZIPF_ROWS, dtype=np.float32)}, card,
-        key="k")
-    out["tier"] = _k8_tier_case(torch, wt, card)
+        key="k", **kw)
+    out["tier"] = _k8_tier_case(torch, wt, card, **kw)
     gb = _blocks(GRAPH_KEYS, seed=24, n_batches=1, batch=BATCH)[0][0]
     keep = (gb["value"].astype(np.int64) * 3 + gb["key"]) % 2 == 0
     out["holes"] = _k8_graph_case(torch, wt, "holes", _smap_fn, False, st,
-                                  gb, card, valid=keep)
+                                  gb, card, valid=keep, **kw)
     fb = _blocks(HC_KEYS, seed=23, n_batches=1, batch=BATCH)[0][0]
     out["sfilter"] = _k8_graph_case(torch, wt, "sfilter", _run_max_fn, True,
-                                    {"mx": np.int32(0)}, fb, card)
+                                    {"mx": np.int32(0)}, fb, card, **kw)
     out["mesh_4x2"] = _k8_mesh_case(
         torch, wt, _blocks(HC_KEYS, seed=73, n_batches=STATE_WARMUP + 1,
-                           batch=BATCH), card)
+                           batch=BATCH), card, **kw)
+    rng = np.random.default_rng(29)
+    out["edges"] = _k8_graph_case(torch, wt, "edges", _smap_fn, False, st,
+                                  _k8_edge_cols(torch, rng), card, **kw)
+    out["wide"] = _k8_graph_case(torch, wt, "wide", _k8_wide_fn, False,
+                                 np.int32(0), _k8_wide_cols(rng), card,
+                                 plain_reps=1, **kw)
+    return out
+
+
+def state_programs_phase(torch, wt, blocks, card):
+    """K8 (the JAX package's ``_grid_scan_core``, XLA there; a hand kernel
+    with the step compiled in here, ``kernels/grid_scan.cuh``) against its
+    plain version (``grid_scan_core``: M steps of ``torch.func.vmap``) on
+    the card, bit for bit, at ``k8_layouts``' layouts. Each line: device
+    time, launches and event bracket of the kernel and of the plain
+    version, the regimes, and the bound. Returns the rows by layout."""
+    out = k8_layouts(torch, wt, blocks, card)
+    for row in out.values():
+        phase("programs", **row)
     return out
 
 
@@ -7116,7 +7252,9 @@ def main() -> None:
             "ms": t["wrapper_ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "bound_share": t["bound_share"],
-            "library_ms": None, "shape": [t["rows"], t["keys"], t["M"]],
+            # a floor of the design (one thread walks a key), not a bound
+            "chain_bound_ms": t["chain_bound_ms"], "library_ms": None,
+            "shape": [t["rows"], t["keys"], t["M"]],
         })
     unknown = set(K8_PATH) - set(k8_tags.values())
     if unknown:

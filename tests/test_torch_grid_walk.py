@@ -21,10 +21,20 @@ steps (``kernels/combine_trace.py:trace_step``), the kernel's algorithm
     versions the key's first cell), the table rows ``[0, T_cap)`` (never
     the scratch row) and ``dirty[:T_cap]``. One case starts from a JAX
     engine's state carried over by ``convert.scan_state_from_jax``.
+    The kernel's two regimes: at a small threshold and ring tile (4 and 8
+    rows) the host walk runs the block regime's staging through its ring
+    and its walk on runs at every threshold and tile edge, a key holding
+    the whole batch, a heavy key mostly outside ``valid``, filter mode and
+    bool columns and leaves; one block a heavy key, or two blocks
+    striding over a list of every key, -1 for a light one (the mesh's);
+    each held exactly against the model, the plain version and the JAX
+    core.
 (d) The layouts: ``grid_meta``'s rows grouped by key equal a numpy stable
     argsort grouping, and so does the mesh's grouping on the device
     (``mesh/core.py:received_rows``) of each group's received lanes, on
-    one and on several CPU groups."""
+    one and on several CPU groups; the heavy-key lists (``grid_meta``'s
+    from the host's counts, the mesh's built on the device) equal a numpy
+    model of the same threshold."""
 
 import ctypes
 import shutil
@@ -102,6 +112,32 @@ def _flag_count_jnp(row, st):
     return {**row, "value": row["value"] * 2 + n}, n
 
 
+def _bool_both(row, st):
+    """A bool row column read and a bool state leaf."""
+    seen = st["seen"] | row["f"]
+    n = st["n"] + row["f"].int()
+    return ({**row, "value": row["value"] + n, "seen": seen},
+            {"seen": seen, "n": n})
+
+
+def _bool_both_jnp(row, st):
+    seen = st["seen"] | row["f"]
+    n = st["n"] + row["f"].astype(jnp.int32)
+    return ({**row, "value": row["value"] + n, "seen": seen},
+            {"seen": seen, "n": n})
+
+
+def _two_flags(row, st):
+    """Two bool row columns read (two 1-byte arrays in a ring tile)."""
+    n = st + row["f"].int() * 2 + row["g"].int()
+    return {**row, "value": row["value"] - n}, n
+
+
+def _two_flags_jnp(row, st):
+    n = st + row["f"].astype(jnp.int32) * 2 + row["g"].astype(jnp.int32)
+    return {**row, "value": row["value"] - n}, n
+
+
 KV = {"key": I32, "value": I32}
 # name -> (torch step, jnp twin or None, row dtypes, state init, filter)
 STEPS = {
@@ -135,6 +171,10 @@ STEPS = {
     "floor_ops": (_floor_ops, _floor_ops, KV, np.int32(0), False),
     "flag_count": (_flag_count, _flag_count_jnp, {**KV, "f": BOOL},
                    np.int32(0), False),
+    "bool_both": (_bool_both, _bool_both_jnp, {**KV, "f": BOOL},
+                  {"seen": np.bool_(0), "n": np.int32(0)}, False),
+    "two_flags": (_two_flags, _two_flags_jnp, {**KV, "f": BOOL, "g": BOOL},
+                  np.int32(0), False),
 }
 
 
@@ -335,6 +375,23 @@ def _layout(case, rng):
         return keys, 1024, rng.random(700) < 0.3
     if case == "empty":
         return np.zeros(0, np.int64), 8, None
+    if case.startswith("edges4"):  # runs at HEAVY-4 and TILE-8 edges
+        runs = list(EDGE_RUNS)
+        while sum(runs) < 260:
+            runs.append(int(rng.integers(1, 3)))
+        keys = np.repeat(np.arange(len(runs)), runs)
+        rng.shuffle(keys)
+        return keys, 512, (rng.random(len(keys)) < 0.3
+                           if case == "edges4_holes" else None)
+    if case == "whole":  # one key holds every row of the batch
+        return np.full(150, 7, np.int64), 256, None
+    if case == "mostly_invalid":  # a heavy key, 90% of it out of valid
+        keys = np.concatenate([np.zeros(60, np.int64),
+                               rng.integers(1, 30, 40)])
+        rng.shuffle(keys)
+        holes = np.where(keys == 0, rng.random(100) < 0.9,
+                         rng.random(100) < 0.1)
+        return keys, 128, holes
     keys = rng.integers(0, 50, 300)
     return keys, 512, (rng.random(300) < 0.2 if case == "small_holes"
                        else None)
@@ -403,7 +460,44 @@ CASES = [("deep64", "smap_fn"), ("hc4096", "smap_fn"), ("zipf", "tier_fn"),
          ("empty", "run_max_fn")]
 
 
-def _walk_all(name, case, tmp_path_factory, from_jax=None, seed=7):
+HEAVY, TILE = 4, 8  # the block regime's threshold and tile in tests
+# runs at the threshold (-1, =, +1), the tile (-1, =, +1, two + 1) and the
+# ring of four tiles (-1, =, +1: the ring's first tile used again)
+EDGE_RUNS = (3, 4, 5, 7, 8, 9, 17, 31, 32, 33)
+
+
+def _regime(rows, how):
+    """``rows`` with its heavy list at ``HEAVY``: one block a heavy key,
+    longest first (``blocks``, the host's list), two blocks striding over
+    an entry a key, -1 for a light one (``keyed``, the list the mesh
+    builds on its cards), or one block over a list of -1 entries with the
+    heavy keys 1, 2, ..., 8, 1, ... entries apart and a light key just
+    after each where there is room (``spread``: the kernel loads the
+    entries after a hit 8 at a time, ``WF_SCAN_LIST_UNROLL``, so the next
+    heavy key falls in every slot of that group)."""
+    counts = np.diff(rows.starts.numpy().astype(np.int64))[:rows.n_touched]
+    hl = gs.heavy_keys(counts, HEAVY)
+    nb = len(hl)
+    if how == "keyed":
+        hl = gs.heavy_keys_device(
+            torch.from_numpy(counts), HEAVY,
+            torch.arange(len(counts), dtype=torch.int32)).numpy()
+        nb = min(nb, 2)
+    elif how == "spread":
+        light = list(np.flatnonzero(counts < HEAVY))
+        at = np.cumsum([0] + [i % 8 + 1 for i in range(nb - 1)])
+        spread = np.full(at[-1] + 2, -1, np.int32)
+        spread[at] = hl
+        for p, q in zip(at[:-1], at[1:]):
+            if q - p > 1 and light:
+                spread[p + 1] = light.pop()
+        hl, nb = spread, 1
+    return rows._replace(heavy=torch.from_numpy(hl), heavy_blocks=nb,
+                         heavy_rows=HEAVY)
+
+
+def _walk_all(name, case, tmp_path_factory, from_jax=None, seed=7,
+              regime=None):
     func, jfunc, dtypes, s0, filt = STEPS[name]
     rows, grid_idx, cols, valid, n_keys = _batch(case, dtypes, seed)
     T = max(64, 1 << max(0, n_keys - 1).bit_length())
@@ -437,8 +531,14 @@ def _walk_all(name, case, tmp_path_factory, from_jax=None, seed=7):
     t_k = tree_unflatten(tree_flatten(table)[1],
                          [lf.clone() for lf in tree_flatten(table)[0]])
     d_k = torch.zeros(T + 1, dtype=torch.bool)
-    kout = gs.run_walk(_host_lib(v, tmp_path_factory), v, fields, tv, rows,
-                       t_k, d_k, 0)
+    if regime is None:
+        kout = gs.run_walk(_host_lib(v, tmp_path_factory), v, fields, tv,
+                           rows, t_k, d_k, 0)
+    else:
+        krows = _regime(rows, regime)
+        assert krows.heavy_blocks > 0
+        kout = gs.run_walk(_host_lib(v, tmp_path_factory), v, fields, tv,
+                           krows, t_k, d_k, 0, tile=TILE)
     _check(name, ir, filt, valid, (kout, tree_flatten(t_k)[0], d_k),
            plain_ref, "kernel walk vs plain")
     # the kernel writes every row it does not compute: zeros
@@ -459,6 +559,81 @@ def _walk_all(name, case, tmp_path_factory, from_jax=None, seed=7):
                          ids=[f"{c}-{n}" for c, n in CASES])
 def test_kernel_walk_equals_plain_and_jax(case, name, tmp_path_factory):
     _walk_all(name, case, tmp_path_factory)
+
+
+BLOCK_CASES = [("edges4", "smap_fn"), ("edges4", "run_max_fn"),
+               ("edges4", "tier_fn"), ("edges4", "bool_both"),
+               ("edges4_holes", "mixed"), ("edges4_holes", "flag_count"),
+               ("edges4", "two_flags"),
+               ("whole", "smap_fn"), ("whole", "tier_fn"),
+               ("mostly_invalid", "smap_fn"),
+               ("mostly_invalid", "running_max_pred"),
+               ("deep64", "smap_fn"), ("holes", "run_max_fn")]
+
+
+@pytest.mark.parametrize("regime", ["blocks", "keyed", "spread"])
+@pytest.mark.parametrize("case,name", BLOCK_CASES,
+                         ids=[f"{c}-{n}" for c, n in BLOCK_CASES])
+def test_block_regime_walk_equals_plain_and_jax(case, name, regime,
+                                                tmp_path_factory):
+    """The kernel's host walk with its block regime at ``HEAVY`` rows and
+    ``TILE``-row ring tiles: runs at every threshold and tile edge, the
+    whole batch one key, a heavy key mostly outside ``valid``, filter
+    mode, bool columns and leaves, float adds; exactly the model, the
+    plain version and the JAX core (``_walk_all``)."""
+    _walk_all(name, case, tmp_path_factory, regime=regime)
+
+
+def test_block_regime_layouts_reach_every_edge():
+    """The block regime's layouts hold the runs their tests name: every
+    ``EDGE_RUNS`` length as one key's run, heavy and light keys in one
+    batch, one key of the whole batch, a heavy key mostly out of
+    ``valid``."""
+    rows = _batch("edges4", KV, 7)[0]
+    runs = np.diff(rows.starts.numpy())[:rows.n_touched]
+    for r in EDGE_RUNS:
+        assert r in runs, r
+    assert (runs < HEAVY).any() and (runs >= HEAVY).any()
+    # the spread list puts the next heavy key in each slot of the group of
+    # 8 entries loaded after a hit, with light keys among them
+    spread = _regime(rows, "spread").heavy.numpy()
+    hits = [e for e in np.flatnonzero(spread >= 0)
+            if runs[spread[e]] >= HEAVY]
+    assert {(q - p - 1) % 8 for p, q in zip(hits, hits[1:])} == set(range(8))
+    assert any(0 <= spread[e] and runs[spread[e]] < HEAVY
+               for e in range(len(spread)))
+    rows = _batch("whole", KV, 7)[0]
+    assert rows.n_touched == 1 and int(rows.starts[1]) == 150
+    _, _, cols, valid, _ = _batch("mostly_invalid", KV, 7)
+    heavy = cols["key"][:100] == 0
+    assert heavy.sum() == 60 and valid[:100][heavy].mean() < 0.25
+
+
+def test_block_regime_refuses_a_ring_over_a_launch_unasked_share(
+        tmp_path_factory):
+    """The kernel takes a ring up to the 48 KB of dynamic shared memory a
+    launch gets without opting in, and refuses a larger one before it
+    walks a row; ``tile_rows`` picks a ring within ``RING_BYTES``."""
+    func, _, dtypes, s0, filt = STEPS["smap_fn"]
+    rows, _, cols, valid, n_keys = _batch("whole", dtypes, 7)
+    fields = {f: torch.from_numpy(c.copy()) for f, c in cols.items()}
+    table, _ = _table(s0, 64, 8)
+    v = gs.GridStep(func, filt).variant(fields, table)
+    lib = _host_lib(v, tmp_path_factory)
+    tile = gs.tile_rows(lib)
+    assert lib.wf_ring_bytes(tile) <= gs.RING_BYTES <= 48 * 1024
+    big = 1
+    while lib.wf_ring_bytes(big) <= 48 * 1024:
+        big *= 2
+    krows = _regime(rows, "blocks")
+    dirty = torch.zeros(65, dtype=torch.bool)
+    with pytest.raises(RuntimeError, match="invalid arguments"):
+        gs.run_walk(lib, v, fields, torch.from_numpy(valid), krows, table,
+                    dirty, 0, tile=big)
+    assert not dirty.any()
+    gs.run_walk(lib, v, fields, torch.from_numpy(valid), krows, table,
+                dirty, 0, tile=big // 2)
+    assert dirty.any()
 
 
 def test_kernel_walk_from_a_jax_state(tmp_path_factory):
@@ -509,7 +684,7 @@ def test_grid_meta_rows_are_a_stable_grouping(n_keys):
         keys = (rng.permutation(max(n_keys, n))[:n] % n_keys if n == 200
                 else rng.integers(0, n_keys, n))
         order, starts, touched, nt, M, walked = eng.grid_meta(
-            SimpleNamespace(size=n, capacity=cap, host_keys=keys))
+            SimpleNamespace(size=n, capacity=cap, host_keys=keys))[:6]
         KB = len(touched)
         assert walked == n
         gslot = np.array([eng.slot_of_key[int(k)] for k in keys],
@@ -525,6 +700,128 @@ def test_grid_meta_rows_are_a_stable_grouping(n_keys):
         assert M >= (cnt.max() if n else 1)
     if n_keys == 300:
         assert eng.table_capacity > 4 * 40  # the np.unique path at the end
+
+
+def _heavy_model(counts, hr, keyed=False):
+    """The heavy list of ``counts`` at threshold ``hr`` in numpy: keys by
+    run length, longest first, ties by key, the light ones dropped; or,
+    ``keyed`` (the mesh's list), an entry a key, -1 for a light one."""
+    if keyed:
+        return np.where(counts >= hr, np.arange(len(counts)),
+                        -1).astype(np.int32)
+    by = np.argsort(-counts, kind="stable")
+    return by[counts[by] >= hr].astype(np.int32)
+
+
+@pytest.mark.parametrize("hr", [4, gs.HEAVY_ROWS])
+def test_grid_meta_heavy_list_equals_numpy_model(hr, monkeypatch):
+    """``grid_meta``'s heavy list from the host's counts equals the numpy
+    model at the same threshold, its blocks one a key; ``prep`` ships it
+    with the starts. Where M < the threshold no key is heavy and no
+    block-regime block launches."""
+    from windflow_tpu_torch.gpu import ops_gpu
+    monkeypatch.setattr(ops_gpu, "HEAVY_ROWS", hr)
+    op = Map_GPU(cs._smap_fn, name="k8h", key_extractor="key",
+                 state_init={"n": np.int32(0)})
+    op.build_replicas()
+    eng = op.replicas[0].engine
+    rng = np.random.default_rng(hr)
+    seen_heavy = seen_none = 0
+    for n, cap, n_keys in ((300, 512, 20), (200, 256, 9), (24, 32, 12),
+                           (64, 64, 64), (0, 8, 1), (900, 1024, 3)):
+        keys = rng.integers(0, n_keys, n)
+        batch = SimpleNamespace(size=n, capacity=cap, host_keys=keys)
+        rows = eng.grid_meta(batch)
+        counts = np.diff(rows.starts.astype(np.int64))[:rows.n_touched]
+        want = _heavy_model(counts, hr)
+        assert rows.heavy_rows == hr
+        if not len(want):
+            assert rows.heavy is None and rows.heavy_blocks == 0
+            assert rows.M < hr or n == 0 or counts.max() < hr
+            seen_none += rows.M < hr
+            continue
+        seen_heavy += 1
+        assert rows.heavy.dtype == np.int32
+        assert np.array_equal(rows.heavy, want)
+        assert rows.heavy_blocks == len(want)
+        dev = eng.prep(batch)
+        assert np.array_equal(dev.starts.numpy(), rows.starts)
+        assert np.array_equal(dev.heavy.numpy(), want)
+    assert seen_heavy and seen_none
+
+
+@pytest.mark.parametrize("M", [None, 2], ids=["rows", "M_below"])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_mesh_heavy_list_equals_numpy_model(groups, M, virtual_devices,
+                                            monkeypatch):
+    """Each group's heavy list, built on the device inside a sharded step
+    (``received_rows``: no host sync), equals the numpy model of its
+    received lanes' counts at the same threshold (an entry a key, -1 for
+    a light one), and its launch takes the host's bound of blocks: at
+    most the slice's rows // threshold, the group's keys and
+    ``MAX_HEAVY_BLOCKS``. With the host's M below the threshold no list
+    is built and no block-regime block launches. The kept rows equal a
+    numpy model's."""
+    hr = 3
+    monkeypatch.setattr(ct, "HEAVY_ROWS", hr)
+    monkeypatch.setattr(ct, "MAX_HEAVY_BLOCKS", 5)
+    seen, walked = [], []
+    real_rows, real_walk = ct.received_rows, ct.grid_walk
+
+    def spy_rows(gslot, n_keys, heavy_rows, keys):
+        out = real_rows(gslot, n_keys, heavy_rows, keys)
+        seen.append((gslot.numpy().copy(), n_keys, heavy_rows, keys,
+                     out[2]))
+        return out
+
+    def spy_walk(step, fields, valid, rows, table, dirty):
+        walked.append(rows)
+        return real_walk(step, fields, valid, rows, table, dirty)
+
+    monkeypatch.setattr(ct, "received_rows", spy_rows)
+    monkeypatch.setattr(ct, "grid_walk", spy_walk)
+    cpu = torch.device("cpu")
+    ct.ensure_virtual_devices(8, group_devices=[cpu] * groups
+                              if groups > 1 else None)
+    mesh = ct.make_key_mesh(8, shape=(4, 2), device="cpu")
+    rng = np.random.default_rng(groups)
+    lb, cap = 8, 40
+    slots = rng.integers(0, 12, 8 * lb).astype(np.int32)  # keys of many rows
+    slots[rng.random(8 * lb) < 0.2] = -1
+    vals = rng.integers(0, 50, 8 * lb).astype(np.int32)
+    step, (K_pad, _, GB) = ct.sharded_grid_scan(mesh, _every_2nd, True,
+                                                cap, M, lb)
+    table = ct.make_mesh_table(mesh, np.int32(0), K_pad)
+
+    def lanes(a):
+        return mesh.split(a, mesh.lane_sizes(lb))
+
+    step(table, lanes(slots), lanes(np.arange(GB, dtype=np.int32)),
+         lanes({"v": vals}))
+    assert len(seen) == len(walked) == groups
+    any_heavy = False
+    for (gslot, n_keys, heavy_rows, keys, heavy), rows in zip(seen, walked):
+        assert heavy_rows == hr and rows.heavy_rows == hr
+        if M is not None:
+            assert keys is None and heavy is None and rows.heavy is None
+            assert rows.heavy_blocks == 0
+            continue
+        cnt = np.bincount(gslot, minlength=n_keys + 1)[:n_keys]
+        want = _heavy_model(cnt, hr, keyed=True)
+        assert heavy.dtype == torch.int32
+        assert np.array_equal(heavy.numpy(), want)
+        assert rows.heavy is heavy
+        assert rows.heavy_blocks == min(n_keys, GB // hr, 5)
+        any_heavy |= bool((want >= 0).any())
+    assert any_heavy or M is not None
+    keep = mesh.join(step(ct.make_mesh_table(mesh, np.int32(0), K_pad),
+                          lanes(slots), lanes(np.arange(GB, dtype=np.int32)),
+                          lanes({"v": vals}))[1]).numpy()
+    want = np.zeros(len(slots), bool)
+    for sl in np.unique(slots[slots >= 0]):
+        idx = np.flatnonzero(slots == sl)
+        want[idx[1::2]] = True
+    assert np.array_equal(keep, want)
 
 
 @pytest.fixture
@@ -550,10 +847,10 @@ def test_mesh_rows_are_a_stable_grouping(groups, depth, virtual_devices,
     seen = []
     real = ct.received_rows
 
-    def spy(gslot, n_keys):
-        order, starts = real(gslot, n_keys)
+    def spy(gslot, n_keys, heavy_rows, keys):
+        order, starts, heavy = real(gslot, n_keys, heavy_rows, keys)
         seen.append((gslot.numpy().copy(), n_keys, order, starts))
-        return order, starts
+        return order, starts, heavy
 
     monkeypatch.setattr(ct, "received_rows", spy)
     cpu = torch.device("cpu")

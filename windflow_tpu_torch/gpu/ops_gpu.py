@@ -64,7 +64,8 @@ from ..basic import (ExecutionMode, KeyCapacityError, OpType, RoutingMode,
                      WindFlowError)
 from ..checkpoint import delta as ckpt_delta
 from ..kernels.build import BUILD_INFO
-from ..kernels.grid_scan import GridStep, KeyRows, grid_walk
+from ..kernels.grid_scan import (HEAVY_ROWS, GridStep, KeyRows, grid_walk,
+                                  heavy_keys)
 from ..monitoring.flightrec import note_kernel_load
 from ..operators.base import BasicOperator, BasicReplica
 from ..pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -789,9 +790,11 @@ class _KeyedStateScan:
         ``KeyRows``: ``order`` over the batch's capacity (each key's rows
         in arrival order, key after key, then the padding rows),
         ``starts``, the touched table rows padded to KB (a power of two),
-        their count, and the plain version's depth M (a power of two at
+        their count, the plain version's depth M (a power of two at
         or above the most rows of one key; megabatch groups key on it as
-        the JAX package's compiled scans do). Global slots come from the
+        the JAX package's compiled scans do), and the keys of
+        ``HEAVY_ROWS`` rows or more, longest first, for the kernel's
+        block regime (``heavy_keys``). Global slots come from the
         KeySlotMap; touched rows and dense local ids from a bincount when
         the table is batch-sized, else from ``np.unique`` (a bincount
         would pay O(table) per batch); the grouping from a radix
@@ -832,7 +835,10 @@ class _KeyedStateScan:
         order[n:] = np.arange(n, cap)
         starts = np.zeros(KB + 1, dtype=np.int32)
         np.cumsum(counts, out=starts[1:])
-        return KeyRows(order, starts, touched, n_touched, M, n)
+        heavy = (heavy_keys(counts[:n_touched], HEAVY_ROWS)
+                 if most >= HEAVY_ROWS else None)
+        return KeyRows(order, starts, touched, n_touched, M, n, heavy,
+                       0 if heavy is None else len(heavy), HEAVY_ROWS)
 
     def prep(self, batch: BatchGPU, fields=None) -> KeyRows:
         """Host prep of one batch: its ``KeyRows`` on the device
@@ -844,9 +850,16 @@ class _KeyedStateScan:
         dev = self.device
         if fields is not None and dev.type == "cuda":
             self.load_step(fields)
-        return rows._replace(order=to_device(rows.order, dev),
-                             starts=to_device(rows.starts, dev),
-                             touched=to_device(rows.touched, dev))
+        heavy = rows.heavy
+        if heavy is None:
+            starts = to_device(rows.starts, dev)
+        else:  # the heavy list rides in the starts' copy
+            ns = rows.starts.shape[0]
+            both = to_device(np.concatenate([rows.starts, heavy]), dev)
+            starts, heavy = both[:ns], both[ns:]
+        return rows._replace(order=to_device(rows.order, dev), starts=starts,
+                             touched=to_device(rows.touched, dev),
+                             heavy=heavy)
 
     # -- tiered data movement ----------------------------------------------
     def _submit_tier_plan(self, plan) -> None:

@@ -16,6 +16,13 @@ key walks), the ``starts`` of each key's run, and each key's table row
   C++ (``combine_codegen.step_kernel_source``) and built into a library
   of its own (``build.load_generated``), on PyTorch's current stream, or
   raises: nothing falls back. On the CPU it runs the plain version.
+- The kernel walks a key in one of two regimes of the same launch: a
+  thread a key, or, for a key of ``HEAVY_ROWS`` rows or more, a block
+  that stages the key's rows through shared memory while one thread
+  walks them. ``KeyRows.heavy`` lists those keys: ``heavy_keys``
+  builds it from the host's counts, longest first; ``heavy_keys_device``
+  from a card's counts with two elementwise ops and no host sync (every
+  key at its own index, -1 for a lighter one).
 - ``grid_scan_core`` is the plain version (the JAX package's
   ``_grid_scan_core``, ``ops_tpu.py:212-277``, as torch ops): rows
   scatter to a (KB x M) grid and M steps apply ``torch.func.vmap(func)``
@@ -39,6 +46,7 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..basic import WindFlowError
@@ -56,6 +64,21 @@ INT32_MAX = 2**31 - 1
 #: most row columns read, output columns and state leaves of a step (the
 #: kernel's parameter block holds a pointer for each)
 MAX_COLUMNS = 64
+#: a key with this many rows or more takes the kernel's block regime: from
+#: a sweep on an H100 (run lengths 8-1,024 at 65,536 rows,
+#: ``scripts/bench_torch_k8.py``), the thread regime is faster at 16 rows
+#: a key, the two within 10% at 24, the block regime 1.7x faster at 32
+HEAVY_ROWS = 32
+#: the block regime's ring of tiles in shared memory, at most. A launch's
+#: dynamic shared memory goes to every block of it, the thread regime's
+#: too: 12 KB keeps 16 blocks of 128 threads an SM (228 KB less 1 KB a
+#: block), the most the SM's 2,048 threads hold
+RING_BYTES = 12 * 1024
+#: most rows of a ring tile
+MAX_TILE_ROWS = 2048
+#: most block-regime blocks where the host only bounds the heavy keys (the
+#: mesh's list in key order): two an SM of an H100; each strides over it
+MAX_HEAVY_BLOCKS = 264
 
 
 class KeyRows(NamedTuple):
@@ -69,7 +92,14 @@ class KeyRows(NamedTuple):
     depth (a power of two, at least the most rows of one key), or None
     where the caller does not count it (the plain version then takes it
     from ``starts``; the kernel never reads it); ``walked``:
-    ``starts[n_touched]`` when the host knows it, else None. The host's
+    ``starts[n_touched]`` when the host knows it, else None; ``heavy``
+    (int32): the keys whose run is ``heavy_rows`` or longer, which the
+    kernel's block regime walks (longest first from the host; from a
+    card, every key's entry, -1 for a lighter key), or None where no key
+    is heavy;
+    ``heavy_blocks``: the block-regime blocks to launch (one an entry, or
+    fewer, striding over the list); ``heavy_rows``: the threshold the list
+    was built at, which the wrapper passes to the kernel. The host's
     ``grid_meta`` fills the same tuple with numpy arrays."""
     order: torch.Tensor
     starts: torch.Tensor
@@ -77,6 +107,26 @@ class KeyRows(NamedTuple):
     n_touched: int
     M: Optional[int]
     walked: Optional[int] = None
+    heavy: Optional[torch.Tensor] = None
+    heavy_blocks: int = 0
+    heavy_rows: Optional[int] = None
+
+
+def heavy_keys(counts: np.ndarray, heavy_rows: int) -> np.ndarray:
+    """The keys (indices of ``counts``, each key's rows) whose run is
+    ``heavy_rows`` or longer: int32, longest first, ties by key."""
+    keys = np.flatnonzero(counts >= heavy_rows)
+    return keys[np.argsort(-counts[keys], kind="stable")].astype(np.int32)
+
+
+def heavy_keys_device(counts: torch.Tensor, heavy_rows: int,
+                      keys: torch.Tensor) -> torch.Tensor:
+    """The heavy list on the counts' device with no host sync, in two
+    elementwise ops: entry k is key k (``keys``, int32 ``0..K-1``) where
+    its run is ``heavy_rows`` or longer, else -1. Blocks striding over it
+    skip the -1 entries; none is compacted or sorted, which would take a
+    sort's dozen launches a step."""
+    return torch.where(counts >= heavy_rows, keys, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +311,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pp = ctypes.POINTER(vp)
     lib.wf_grid_scan.argtypes = [pp, ci, pp, ci, pp, ci, vp, vp, vp, vp, vp,
-                                 ci, ci, ci, vp]
+                                 vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.wf_grid_scan.restype = ci
+    lib.wf_ring_bytes.argtypes = [ci]
+    lib.wf_ring_bytes.restype = ctypes.c_longlong
     lib.wf_error_string.argtypes = [ci]
     lib.wf_error_string.restype = ctypes.c_char_p
     lib._wf_bound = True
@@ -294,6 +346,14 @@ def _check(v: StepVariant, fields, valid, rows: KeyRows, table, dirty):
     if not 0 <= rows.n_touched <= rows.touched.shape[0]:
         raise WindFlowError(f"grid_scan: {rows.n_touched} touched keys of "
                             f"{rows.touched.shape[0]}")
+    if rows.heavy is not None:
+        need("heavy", rows.heavy, torch.int32, None)
+        if rows.heavy_rows is None or rows.heavy_rows < 1 \
+                or rows.heavy_blocks < 0:
+            raise WindFlowError(
+                f"grid_scan: a heavy list needs its threshold (got "
+                f"{rows.heavy_rows}) and its blocks (got "
+                f"{rows.heavy_blocks})")
     t_rows = leaves[0].shape[0]
     for lf, dt in zip(leaves, v.ir.state):
         need("a table leaf", lf, dt, t_rows)
@@ -305,10 +365,25 @@ def _check(v: StepVariant, fields, valid, rows: KeyRows, table, dirty):
 
 
 def launch_threads(rows: KeyRows, n_rows: int) -> int:
-    """The kernel's threads: one a touched key, and enough for the rows no
-    key walks (all the rows when the host does not know how many)."""
+    """The thread regime's threads: one a touched key, and enough for the
+    rows no key walks (all the rows when the host does not know how
+    many)."""
     walked = rows.walked if rows.walked is not None else 0
     return max(rows.n_touched, n_rows - walked)
+
+
+def tile_rows(lib: ctypes.CDLL) -> int:
+    """The block regime's tile of a step's library: the most rows, a power
+    of two up to ``MAX_TILE_ROWS``, whose ring fits ``RING_BYTES`` (the
+    library sizes a row: its order index, valid byte and read columns)."""
+    t = getattr(lib, "_wf_tile_rows", None)
+    if t is None:
+        _bind(lib)
+        t = MAX_TILE_ROWS
+        while t > 1 and lib.wf_ring_bytes(t) > RING_BYTES:
+            t //= 2
+        lib._wf_tile_rows = t
+    return t
 
 
 def _out_columns(v: StepVariant, fields, computed: list):
@@ -337,12 +412,16 @@ def output_like(v: StepVariant, fields: Dict[str, torch.Tensor]
 
 
 def run_walk(lib: ctypes.CDLL, v: StepVariant, fields, valid,
-             rows: KeyRows, table, dirty, stream: int):
+             rows: KeyRows, table, dirty, stream: int,
+             tile: Optional[int] = None):
     """One launch of ``v``'s kernel from ``lib`` on ``stream``: the output
     columns (map mode; a pass-through is its input column, ALIASED where
     its dtype is already canonical, as a stateless map's ``{**row}``
     aliases) or the keep mask (filter mode). The table and ``dirty``
-    update in place."""
+    update in place. The thread regime walks every key when
+    ``rows.heavy`` is None; else the block regime walks the listed keys
+    at ``rows.heavy_rows``, a ring tile of ``tile`` rows (default
+    ``tile_rows(lib)``)."""
     _bind(lib)
     _check(v, fields, valid, rows, table, dirty)
     n_rows = valid.shape[0]
@@ -355,11 +434,20 @@ def run_walk(lib: ctypes.CDLL, v: StepVariant, fields, valid,
         return (ctypes.c_void_p * max(1, len(ts)))(
             *[t.data_ptr() for t in ts])
 
+    heavy = rows.heavy
+    if heavy is None or not heavy.shape[0] or not rows.heavy_blocks:
+        heavy, n_heavy, blocks, hr = None, 0, 0, INT32_MAX
+    else:
+        n_heavy, blocks, hr = heavy.shape[0], rows.heavy_blocks, \
+            rows.heavy_rows
+        heavy = heavy.data_ptr()
     err = lib.wf_grid_scan(ptrs(cols), len(cols), ptrs(outs), len(outs),
                            ptrs(leaves), len(leaves), dirty.data_ptr(),
                            valid.data_ptr(), rows.order.data_ptr(),
                            rows.starts.data_ptr(), rows.touched.data_ptr(),
-                           rows.n_touched, n_rows, launch_threads(rows, n_rows),
+                           heavy, rows.n_touched, n_rows,
+                           launch_threads(rows, n_rows), n_heavy, blocks, hr,
+                           tile if tile is not None else tile_rows(lib),
                            stream)
     if err != 0:
         raise RuntimeError("grid_scan kernel launch failed: "
@@ -390,7 +478,7 @@ def grid_walk(step: GridStep, fields: Dict[str, torch.Tensor],
     with torch.cuda.device(dev):
         out = run_walk(lib, v, fields, valid, rows, table, dirty,
                        torch.cuda.current_stream(dev).cuda_stream)
-    if launch_threads(rows, valid.shape[0]):
+    if launch_threads(rows, valid.shape[0]) or rows.heavy_blocks:
         with _count_lock:
             LAUNCHES += 1
             VARIANT_LAUNCHES[v.tag] = VARIANT_LAUNCHES.get(v.tag, 0) + 1

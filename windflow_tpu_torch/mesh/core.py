@@ -100,7 +100,8 @@ from ..kernels.ffat_step import (comb_valid, fire_query, ingest_fold,
 from ..gpu.scan import segmented_scan
 from ..gpu.schema import broadcast_scalar_fields, canonical
 from ..kernels.forest_rebuild import forest_rebuild
-from ..kernels.grid_scan import GridStep, KeyRows, grid_walk
+from ..kernels.grid_scan import (HEAVY_ROWS, MAX_HEAVY_BLOCKS, GridStep,
+                                  KeyRows, grid_walk, heavy_keys_device)
 from ..pytree import tree_flatten, tree_map, tree_unflatten
 
 DEFAULT_VIRTUAL_DEVICES = 8
@@ -1351,18 +1352,25 @@ def make_mesh_table(mesh: KeyMesh, state_init, K_pad: int):
 INT32_MAX = 2**31 - 1
 
 
-def received_rows(gslot: torch.Tensor, n_keys: int):
-    """``(order, starts)`` of ``KeyRows`` built on the device from one
-    group's received lanes: ``gslot`` (int64) each lane's group-local key
-    slot, ``n_keys`` for an invalid lane. A stable ``torch.sort`` of the
-    slots (the received layout is global arrival order, so each key's
-    lanes stay in arrival order; the invalid lanes sort last) and the
-    starts from the counts, both int32."""
+def received_rows(gslot: torch.Tensor, n_keys: int, heavy_rows: int,
+                  keys: Optional[torch.Tensor]):
+    """``(order, starts, heavy)`` of ``KeyRows`` built on the device from
+    one group's received lanes, with no host sync: ``gslot`` (int64) each
+    lane's group-local key slot, ``n_keys`` for an invalid lane. A stable
+    ``torch.sort`` of the slots (the received layout is global arrival
+    order, so each key's lanes stay in arrival order; the invalid lanes
+    sort last) and the starts from the counts, both int32; ``heavy`` the
+    list of the kernel's block regime: entry k is key k (``keys``, the
+    group's int32 key indices) where it received ``heavy_rows`` lanes or
+    more, else -1 (``heavy_keys_device``), or None where ``keys`` is
+    None."""
     order = torch.sort(gslot, stable=True).indices.to(torch.int32)
     cnt = torch.bincount(gslot, minlength=n_keys + 1)[:n_keys]
     starts = torch.zeros(n_keys + 1, dtype=torch.int32, device=gslot.device)
     starts[1:] = torch.cumsum(cnt, 0)
-    return order, starts
+    heavy = (None if keys is None
+             else heavy_keys_device(cnt, heavy_rows, keys))
+    return order, starts, heavy
 
 
 def sharded_grid_scan(mesh: KeyMesh, func, filter_mode: bool,
@@ -1371,13 +1379,13 @@ def sharded_grid_scan(mesh: KeyMesh, func, filter_mode: bool,
     """Mesh-sharded keyed grid scan: the device core of the sharded
     stateful Map/Filter. One step per batch slice: bucket-by-owner +
     ``all_to_all`` over the flat shard order (the table never moves) ->
-    on each group, its received lanes grouped by key on the device
-    (``received_rows``) -> the keyed scan of ``kernels/grid_scan.py`` over
-    its stacked shards' row blocks (``K_g`` keys: K8's kernel on the
-    group's card, on that card's current stream; the plain version
-    ``grid_scan_core`` on a CPU group, ``M`` positions, or with ``M``
-    None the power of two at or above the most rows a key of the group
-    received) -> the inverse ``all_to_all`` returns outputs to arrival
+    on each group, its received lanes grouped by key on the device, its
+    heavy keys listed there (``received_rows``) -> the keyed scan of
+    ``kernels/grid_scan.py`` over its stacked shards' row blocks (``K_g``
+    keys: K8's kernel on the group's card, on that card's current stream;
+    the plain version ``grid_scan_core`` on a CPU group, ``M`` positions,
+    or with ``M`` None the power of two at or above the most rows a key
+    of the group received) -> the inverse ``all_to_all`` returns outputs to arrival
     order. The plain version's grid cells are int32: with ``M`` given, a
     mesh with a CPU group whose ``K_g * M`` grid leaves no scratch cell
     inside int32 refuses here (the kernel indexes rows and takes it).
@@ -1400,6 +1408,10 @@ def sharded_grid_scan(mesh: KeyMesh, func, filter_mode: bool,
             f"positions = {K_max * M} cells, beyond int32 cell indices; "
             "use smaller batches (M is the most rows of one key)")
     gstep = GridStep(func, filter_mode)
+    # the block regime: a slice holds at most GB real rows, so at most
+    # GB // HEAVY_ROWS heavy keys, and no more blocks than that; none
+    # where the host's M says no key is heavy
+    bound = 0 if M is not None and M < HEAVY_ROWS else GB // HEAVY_ROWS
     aux = []
     for g in mesh.groups:
         K_g = g.n * k_local
@@ -1419,8 +1431,11 @@ def sharded_grid_scan(mesh: KeyMesh, func, filter_mode: bool,
             # local key; every key of the group is touched
             gslot = torch.where(ok, rs[G] - off if off else rs[G], K_g) \
                 .to(torch.int64)
-            order, starts = received_rows(gslot, K_g)
-            rows = KeyRows(order, starts, touched, K_g, M)
+            # touched is 0..K_g-1: the heavy list's key indices too
+            order, starts, heavy = received_rows(
+                gslot, K_g, HEAVY_ROWS, touched if bound else None)
+            rows = KeyRows(order, starts, touched, K_g, M, None, heavy,
+                           min(K_g, bound, MAX_HEAVY_BLOCKS), HEAVY_ROWS)
             outs.append(grid_walk(gstep, rv[G], ok, rows, tables[G], dirty))
         if filter_mode:
             ret = _route_back_groups(
