@@ -14,8 +14,12 @@ Phases, each printing one line of its own:
    policy generated from the trace, built against ``forest_rebuild.cuh``),
    each library with the FFAT step's kernels over the same policy
    (``ffat_step.cuh``: K2+K3, the segmented fold with the leaf merge, and
-   K4, the window query with eviction), and K8's library (the keyed grid
-   scan, ``grid_scan.cuh``) of each stateful step the graphs below run
+   K4, the window query with eviction) and the reduce folds' kernels
+   (``reduce_fold.cuh``: K7, the keyed fold, and K6, the masked tree),
+   one library per reduce combine the graphs below run (the graph's and
+   the diamond's sums share one) and a float32 one, and K8's library
+   (the keyed grid scan, ``grid_scan.cuh``) of each stateful step the
+   graphs below run
    (the stateful map, the running-max filter, the tiered float32 scan:
    the step traced and compiled in; and a step reading 64 columns, the
    most a step may read), and lists each kernel's
@@ -57,10 +61,29 @@ Phases, each printing one line of its own:
    CPU run of the same stream (as a multiset for the keyed graph, as a
    sequence for the global one) and a numpy fold of the stream; a small
    broadcast graph must too. The line gives tuples/s, and from a run under
-   ``torch.profiler`` the device's idle share and launches per batch; the
-   ``programs`` lines give the device time per batch and launches of the
-   compaction, tree-reduce and keyed-scan programs at 65,536 rows with
-   their bytes bound. Before them, phase ``fusion``, part ``ops``: the
+   ``torch.profiler`` the device's idle share and launches per batch;
+   every reduce run on the card must launch its kernel (K7 keyed, K6
+   global: ``reduce_fold``'s counts, set to 0 just before each run and
+   read just after, as in the ``fusion`` part ``ops``, ``state`` part
+   ``fused``, ``dag`` part ``diamond`` and the ``mesh`` Reduce_Mesh
+   runs). The ``programs`` lines give K5's (the compaction, plain torch
+   ops) device time, launches and bytes bound at 65,536 rows beside
+   ``torch.argsort(~keep, stable=True)``; then K7 and K6 (hand kernels)
+   against their plain versions on the graph_gpu batch as the reduce
+   replicas get it (the kept rows first), as the fused exits get it (the
+   filter's mask as ``valid``), on a mesh group's lanes (a quarter on the
+   sentinel) and on stress layouts (one run, every row invalid, 65,536
+   keys, float32, half of ``valid`` out, runs ending on tile edges, an
+   int64 and a 2-D column passing through, the diamond's combine), K6
+   also at 65,537, 40,000 and 100 rows: K6 bit-identical, K7 exact on
+   ints and bools and within STEP_FOLD_RTOL on floats; a K7 launch
+   between two K2+K3 launches on one stream, each exact; for the timed
+   layouts the kernel's device time, launches and event bracket, the
+   plain version's bracket, the bytes bound (only the rows a kernel must
+   move: K7 the live rows' slots and order, the valid live rows' planes;
+   K6 every row's validity, the valid rows' planes) and for the int sums
+   the library call (``index_add_`` into the slot buffer, ``torch.sum`` of
+   the kept rows). Before them, phase ``fusion``, part ``ops``: the
    same stream (24 timed batches) through ``map -> filter -> global /
    keyed Reduce_GPU`` built with ``chain`` at parallelism 1, fused (one
    replica) at megabatch 1, 4 and 8 and unfused, in turns; rows must
@@ -345,7 +368,9 @@ and ``ffat_query`` (K4) per variant, their launches summed over every
 main-path run and their times from the ``programs`` rows, K4's at
 W_step; then ``grid_scan`` (K8) per stateful step, its launches summed
 over the ``state`` and ``mesh`` phases' runs on the card and its times at
-its own path's layout), and as the last line
+its own path's layout; then ``keyed_fold`` (K7) and ``tree_reduce`` (K6)
+per reduce variant, their launches summed over the reduce paths' runs on
+the card and their times at the graph_gpu batch), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs ``torch.cuda.is_available()``
 and the ``windflow_tpu_torch`` package beside it.
@@ -560,11 +585,14 @@ def build_phase(torch):
     from windflow_tpu_torch.kernels import forest_rebuild as fr
     from windflow_tpu_torch.kernels import grid_scan as gs
     libs = {"fieldwise": fr.Variant(fr.FIELDWISE), **_variants(torch),
+            **{f"reduce:{n}": fv.variant
+               for n, fv in _reduce_variants(torch).items()},
             **{f"k8:{n}": v for n, v in _k8_variants(torch).items()},
             "k8:wide": gs.step_variant(*_k8_wide_spec(torch))}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
-        for fut in [pool.submit(v.load) for v in libs.values()]:
+        for fut in [pool.submit(v.load) for v in
+                    {v.library: v for v in libs.values()}.values()]:
             fut.result()
     total = time.perf_counter() - t0
     bad = []
@@ -954,6 +982,45 @@ def _ffat_rates(blocks, run):
         firing_batches_timed=len(lat))
 
 
+# K6's and K7's launches on the reduce paths (graph_gpu, fusion, state
+# fused, dag, mesh): every run on the card sets the counts to 0 just
+# before ``graph.run()`` and records them just after (``_reduce_reset`` /
+# ``_reduce_read``, in the runners); the kernels line sums the runs by
+# (kernel, variant tag)
+REDUCE_PATH = Counter()
+_REDUCE_LAST = [Counter()]
+
+
+def _reduce_reset():
+    from windflow_tpu_torch.kernels import reduce_fold as rf
+    with rf._count_lock:
+        rf.REDUCE_LAUNCHES = 0
+        rf.VARIANT_LAUNCHES.clear()
+
+
+def _reduce_read():
+    """K6's and K7's launches since ``_reduce_reset``, by (kernel, tag),
+    added to ``REDUCE_PATH``."""
+    from windflow_tpu_torch.kernels import reduce_fold as rf
+    with rf._count_lock:
+        n, counts = rf.REDUCE_LAUNCHES, Counter(rf.VARIANT_LAUNCHES)
+    if counts.total() != n:
+        fail(f"K6 / K7 variant counts {dict(counts)} do not add up to "
+             f"their {n} launches")
+    REDUCE_PATH.update(counts)
+    _REDUCE_LAST[0] = counts
+    return counts
+
+
+def _reduce_launched(name, kernel):
+    """The last card run's launches of ``kernel`` ("keyed_fold" or
+    "tree_reduce"); fails if it launched none."""
+    n = sum(c for (k, _), c in _REDUCE_LAST[0].items() if k == kernel)
+    if n <= 0:
+        fail(f"{name}: the reduce's kernel {kernel} never launched")
+    return n
+
+
 # K2+K3's and K4's launches on the main paths: a reset of the counts opens
 # a run window, each read of K1's counts records the window's counts of
 # the FFAT step's kernels (the last read of a window holds them all), by
@@ -1249,7 +1316,11 @@ def _run_ops_graph(wt, device, blocks, keyed, batch=BATCH, par=GRAPH_PAR,
     join(wt.Filter_GPU_Builder(_even_value).build())
     join(red.build())
     mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
+    if device == "cuda":
+        _reduce_reset()
     graph.run()
+    if device == "cuda":
+        _reduce_read()
     return parts, t_yield, graph
 
 
@@ -1358,15 +1429,14 @@ def _event_ms(torch, fn, reps):
 
 
 def programs_phase(torch, wt, blocks, card):
-    """K5-K7 (the XLA programs of the JAX package's Filter_TPU, global and
-    keyed Reduce_TPU, which have no Pallas kernel) as the port runs them,
-    on one batch of the graph_gpu stream, with their bytes bound: each
-    input read once, each output written once."""
+    """K5 (the XLA program of the JAX package's Filter_TPU, which has no
+    Pallas kernel) as the port runs it, on one batch of the graph_gpu
+    stream, with its bytes bound (each input read once, each output
+    written once) and ``torch.argsort(~keep, stable=True)``'s time beside
+    it; then K6 and K7, the hand kernels (``reduce_fold_phase``).
+    Returns K5's row and K6's and K7's rows and errors."""
     import numpy as np
-    from types import SimpleNamespace
     from windflow_tpu_torch.gpu import ops_gpu as og
-    from windflow_tpu_torch.gpu.batch import BatchGPU, bucket_capacity
-    from windflow_tpu_torch.gpu.schema import TupleSchema
     cols, ts, _ = blocks[GRAPH_WARMUP]
     n = len(ts)
     dev = torch.device("cuda")
@@ -1379,60 +1449,356 @@ def programs_phase(torch, wt, blocks, card):
     if int(count) != len(kept) or not np.array_equal(
             out["key"][:len(kept)].cpu().numpy(), cols["key"][kept]):
         fail("filter program: compaction differs from numpy")
-    # K6 and K7 on the compacted batch, as the reduce replicas get it
-    m = len(kept)
-    kb = dict(out)
-    mask = og.row_mask(n, m, dev)
-    red = og.masked_tree_reduce(_sum_value, kb, mask)
-    if int(red["value"][0]) != int(v[kept].sum()):
-        fail("tree reduce differs from numpy")
-    batch = BatchGPU(kb, ts, m, TupleSchema({"key": np.int32,
-                                            "value": np.int32}),
-                     0, cols["key"][kept])
-    o_np, ssorted, sok = og.reduce_order_and_slots(
-        SimpleNamespace(name="programs", key_field="key"), batch)
-    n_out = len(sok)
-    out_cap = bucket_capacity(n_out)
-    order_d = torch.from_numpy(o_np).to(dev)
-    same_d = torch.from_numpy(np.r_[False, ssorted[1:] == ssorted[:-1]]
-                              ).to(dev)
-    tails_d = torch.from_numpy(og.segment_tails(ssorted, n_out, out_cap)
-                               ).to(dev)
-    kr = og.keyed_reduce_program(_sum_value, kb, order_d, same_d, tails_d)
-    ref = np.zeros(GRAPH_KEYS, dtype=np.int64)
-    np.add.at(ref, cols["key"][kept], v[kept])
-    got_keys = kr["key"][:n_out].cpu().numpy()
-    if not np.array_equal(kr["value"][:n_out].cpu().numpy(),
-                          ref[got_keys]) or len(set(got_keys)) != n_out:
-        fail("keyed reduce program differs from numpy")
-    progs = {
-        # inputs 2 int32 columns; outputs 2 compacted columns + order +
-        # count
-        "K5_compaction": (lambda: og.filter_program(_even_value, mapped, n),
-                          8 * n + 12 * n + 8,
-                          "windflow_tpu/tpu/ops_tpu.py:58"),
-        # inputs: the m kept rows of 2 int32 columns; output one row
-        "K6_tree_reduce": (lambda: og.masked_tree_reduce(_sum_value, kb,
-                                                         mask),
-                           8 * m + 8, "windflow_tpu/tpu/ops_tpu.py:280"),
-        # inputs: the m kept rows of 2 columns with their order and
-        # segment flags, the tails; outputs one row per key
-        "K7_keyed_scan": (lambda: og.keyed_reduce_program(
-            _sum_value, kb, order_d, same_d, tails_d),
-            8 * m + 4 * m + m + 4 * out_cap + 8 * out_cap,
-            "windflow_tpu/tpu/ops_tpu.py:1240"),
-    }
-    rows = []
-    for name, (fn, nbytes, replaces) in progs.items():
-        device_ms, launches, bracket_ms = _program_ms(torch, fn)
-        bound = nbytes / PEAK_BYTES_PER_S * 1e3
-        rows.append(dict(program=name, replaces=replaces, rows=n,
-                         kept=m, keys=n_out, device_ms=device_ms,
-                         launches=launches, wrapper_ms=bracket_ms,
-                         bytes=nbytes, bound_ms=bound, bound_by="bytes",
-                         bound_share=_share(bound, device_ms), card=card))
-        phase("programs", **rows[-1])
-    return rows
+    # inputs 2 int32 columns; outputs 2 compacted columns + order + count
+    nbytes = 8 * n + 12 * n + 8
+    device_ms, launches, bracket_ms = _program_ms(
+        torch, lambda: og.filter_program(_even_value, mapped, n))
+    keep = _even_value(mapped)
+    lib_ms = _event_ms(torch, lambda: torch.argsort(~keep, stable=True), 30)
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    row = dict(program="K5_compaction", replaces="windflow_tpu/tpu/ops_tpu.py:58",
+               rows=n, kept=len(kept), device_ms=device_ms,
+               launches=launches, wrapper_ms=bracket_ms, bytes=nbytes,
+               bound_ms=bound, bound_by="bytes",
+               bound_share=_share(bound, device_ms),
+               library_ms=lib_ms,
+               library_call="torch.argsort(~keep, stable=True)", card=card)
+    phase("programs", **row)
+    return row, reduce_fold_phase(torch, wt, blocks, card)
+
+
+# ---------------------------------------------------------------------------
+# phase programs, K6 and K7: the reduce folds on the graph_gpu batch as
+# the reduce replicas and the fused exits get it, on the mesh's lanes and
+# on layouts that stress them
+# K7's layouts: (combine, slots, valid, kept rows); K6's the same rows
+FOLD_LAYOUTS = ("graph_gpu", "fused", "mesh", "one_run", "all_invalid",
+                "keys_65536", "float32", "half_valid", "tile_edges",
+                "passthrough", "dag")
+# K6 also at capacities that are no power of two
+TREE_RAGGED = (BATCH + 1, 40_000, 100)
+# the layouts timed (the paths' own, then the stress layouts' on the
+# second pass if the script is on time)
+FOLD_TIMED = ("graph_gpu", "fused", "mesh", "one_run", "keys_65536",
+              "float32", "tile_edges", "passthrough")
+# the layout each kernel's kernels-line entry takes its times from
+FOLD_PATH = {"keyed_fold": "graph_gpu", "tree_reduce": "graph_gpu"}
+
+
+def _fsum_max(a, b):
+    import torch
+    return {"x": a["x"] + b["x"], "m": torch.maximum(a["m"], b["m"])}
+
+
+def _fold_specs():
+    """combine name -> combine: the graph's sum (its key passes through),
+    the diamond's, and a float32 sum with a max beside it."""
+    return {"sum_value": _sum_value, "sum_key_branch": _sum_key_branch,
+            "fsum_max": _fsum_max}
+
+
+def _reduce_variants(torch):
+    """name -> the reduce fold's variant (``reduce_fold.fold_variant``)
+    of each combine the script's reduce paths and stress layouts run, over
+    their columns' dtypes."""
+    from windflow_tpu_torch.kernels import reduce_fold as rf
+    I, F = torch.int32, torch.float32
+    cols = {"sum_value": {"key": I, "value": I},
+            "sum_key_branch": {"key": I, "value": I, "branch": I},
+            "fsum_max": {"key": I, "x": F, "m": F}}
+    specs = _fold_specs()
+    return {n: rf.fold_variant(specs[n], {f: torch.zeros(1, dtype=dt)
+                                          for f, dt in c.items()})
+            for n, c in cols.items()}
+
+
+def fold_layout(torch, name, blocks, rng):
+    """(combine name, columns, order, sorted slots, n_slots, valid or
+    None, out_rows) of one K7 layout, numpy; K6 takes the columns and
+    ``valid`` (or the first ``kept`` rows where None)."""
+    cols, ts, _ = blocks[GRAPH_WARMUP]
+    n = len(ts)
+    key = cols["key"].astype(np.int64)
+    value = cols["value"].astype(np.int64) * 3 + key
+    keep = value % 2 == 0
+    value = value.astype(np.int32)
+    comb = "sum_value"
+    valid = None
+    if name == "graph_gpu":  # the replica's batch: the kept rows first
+        k = np.flatnonzero(keep)
+        m = len(k)
+        key = np.r_[key[k], np.zeros(n - m, np.int64)]
+        value = np.r_[value[k], np.zeros(n - m, np.int32)]
+        slot = np.r_[key[:m], np.full(n - m, GRAPH_KEYS)]
+        n_slots, out_rows = GRAPH_KEYS, 256
+    elif name in ("fused", "dag"):  # the mapped rows, the filter's mask
+        valid = keep  # into the slots' bucket, as the fused exit folds
+        slot = key.copy()
+        n_slots, out_rows = GRAPH_KEYS, 256
+    elif name == "mesh":  # a group's lanes: a quarter padding
+        slot = np.where(rng.random(n) < 0.25, GRAPH_KEYS, key)
+        n_slots = out_rows = GRAPH_KEYS
+    elif name == "one_run":
+        slot = np.zeros(n, np.int64)
+        n_slots, out_rows = 1, 8
+    elif name == "all_invalid":
+        valid = np.zeros(n, bool)
+        slot = key.copy()
+        n_slots, out_rows = GRAPH_KEYS, n
+    elif name == "keys_65536":
+        slot = rng.permutation(n)
+        n_slots = out_rows = n
+    elif name == "tile_edges":  # runs of 256 and 1,024 rows
+        lens = np.resize([256, 1024], n // 640 + 2)
+        lens = lens[np.cumsum(lens) <= n]
+        lens[-1] += n - lens.sum()
+        slot = np.repeat(np.arange(len(lens)), lens)[rng.permutation(n)]
+        n_slots = out_rows = len(lens)
+    else:  # float32, half_valid, passthrough: 256 keys, half valid
+        valid = rng.random(n) < 0.5
+        slot = key.copy()
+        n_slots, out_rows = GRAPH_KEYS, 256
+    columns = {"key": key.astype(np.int32), "value": value}
+    if name == "float32":
+        comb = "fsum_max"
+        columns = {"key": columns["key"],
+                   "x": rng.random(n).astype(np.float32),
+                   "m": rng.standard_normal(n).astype(np.float32)}
+    elif name == "passthrough":  # an int64 key and a 2-D pair pass
+        columns["key64"] = key * 3_000_000_019
+        columns["pair"] = np.stack([key, -key], 1).astype(np.int32)
+    elif name == "dag":
+        comb = "sum_key_branch"
+        columns["branch"] = (value % 2).astype(np.int32)
+    order = np.argsort(slot, kind="stable").astype(np.int32)
+    return (comb, columns, order, slot[order].astype(np.int32), n_slots,
+            valid, out_rows)
+
+
+def _reduce_err(torch, name, got, gv, ref, rv, exact_floats):
+    """Largest |kernel - plain| over the valid output rows; fails unless
+    validity is equal, ints and bools exact and floats within
+    STEP_FOLD_RTOL (bit for bit with ``exact_floats``)."""
+    if not torch.equal(gv, rv):
+        fail(f"{name}: validity differs from its plain version")
+    err = 0.0
+    for k, r in ref.items():
+        a, b = got[k][rv], r[rv]
+        if a.dtype is torch.float32 and not exact_floats:
+            if not torch.allclose(a, b, rtol=STEP_FOLD_RTOL, atol=0.0,
+                                  equal_nan=True):
+                fail(f"{name}: float column {k!r} beyond rtol "
+                     f"{STEP_FOLD_RTOL} of its plain version")
+            if a.numel():
+                err = max(err, (a.double() - b.double()).abs().max().item())
+        elif not _same_bits(torch, a, b):
+            fail(f"{name}: column {k!r} differs from its plain version")
+    return err
+
+
+def _row_bytes(cols, planes):
+    """(a row's plane bytes, a row's bytes over every column)."""
+    pb = sum(cols[f].element_size() for f in planes)
+    return pb, sum(t[:1].numel() * t.element_size() for t in cols.values())
+
+
+def _fold_bytes(cols, live, live_valid, valid, out_rows, planes, n_out):
+    """K7's bytes, only the rows it must move: each live row's slot and
+    order (and validity byte, with ``valid``), the planes of the live
+    rows that are valid; each output row's columns and validity written
+    once; the pass-through columns' source rows read. The rows past the
+    sentinel are found by a search over the sorted slots: none read."""
+    pb, row = _row_bytes(cols, planes)
+    return (live * (8 + (valid is not None)) + live_valid * pb
+            + out_rows * (row + 1) + n_out * (row - pb))
+
+
+def _tree_bytes(cols, n, n_valid, planes):
+    """K6's bytes: every row's validity byte, the planes of the valid
+    rows; the output row's columns and validity written once and its
+    pass-through columns read at the source row."""
+    pb, row = _row_bytes(cols, planes)
+    return n + n_valid * pb + row + 1 + (row - pb)
+
+
+def reduce_fold_phase(torch, wt, blocks, card):
+    """Phase ``programs``, K6 and K7: every FOLD_LAYOUTS layout through
+    K7 (``keyed_fold``) and K6 (``tree_reduce``, also at TREE_RAGGED
+    capacities) and their plain versions on the card: validity equal,
+    ints and bools exact, K7's floats within STEP_FOLD_RTOL, K6 bit for
+    bit; K2+K3, K7 and K2+K3 again on one stream with no sync between
+    them, each exact; then, for the FOLD_TIMED layouts, the kernel's
+    device time, launches and event bracket, the plain version's
+    bracket, the bytes bound and, for the int sums, the library call
+    (``index_add_`` into the slot buffer, ``torch.sum`` over the kept
+    rows). Returns rows by (kernel, layout) and errors by kernel."""
+    from windflow_tpu_torch.kernels import reduce_fold as rf
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    specs = _fold_specs()
+    rows, errs = {}, Counter()
+    cases = {}
+    for name in FOLD_LAYOUTS:
+        comb, cols, order, slots, n_slots, valid, out_rows = fold_layout(
+            torch, name, blocks, rng)
+        c = dict(comb=specs[comb], cname=comb,
+                 cols={k: torch.from_numpy(v).to(dev)
+                       for k, v in cols.items()},
+                 order=torch.from_numpy(order).to(dev),
+                 slots=torch.from_numpy(slots).to(dev), n_slots=n_slots,
+                 valid=None if valid is None
+                 else torch.from_numpy(valid).to(dev), out_rows=out_rows)
+        n = len(order)
+        c["mask"] = c["valid"] if valid is not None else torch.from_numpy(
+            slots[np.argsort(order)] < n_slots).to(dev)
+        cases[name] = c
+        fv = rf.fold_variant(c["comb"], c["cols"])
+        args = (c["comb"], c["cols"], c["order"], c["slots"], n_slots,
+                c["valid"], out_rows)
+        got, gv = rf.keyed_fold(*args)
+        ref, rv = rf.keyed_fold_ref(*args)
+        torch.cuda.synchronize()
+        e7 = _reduce_err(torch, f"K7 {name}", got, gv, ref, rv, False)
+        tg, tgv = rf.tree_reduce(c["comb"], c["cols"], c["mask"])
+        tr, trv = rf.tree_reduce_ref(c["comb"], c["cols"], c["mask"])
+        torch.cuda.synchronize()
+        _reduce_err(torch, f"K6 {name}", tg, tgv, tr, trv, True)
+        live = c["slots"] < n_slots
+        live_valid = int((live if valid is None else live & c["valid"][
+            c["order"].long()]).sum())
+        live = int(live.sum())
+        n_out = int(rv.sum())
+        errs["keyed_fold"] = max(errs["keyed_fold"], e7)
+        base = dict(layout=name, combine=c["cname"], tag=fv.tag, rows=n,
+                    slots=n_slots, out_rows=out_rows, valid_slots=n_out,
+                    with_valid=valid is not None, card=card)
+        rows["keyed_fold", name] = dict(
+            program="K7_keyed_fold", replaces="windflow_tpu/tpu/ops_tpu.py:1238",
+            max_abs_err=e7, float_rtol=STEP_FOLD_RTOL,
+            bytes=_fold_bytes(c["cols"], live, live_valid, c["valid"],
+                              out_rows, fv.planes, n_out),
+            live_rows=live, live_valid_rows=live_valid, **base)
+        n_valid = int(c["mask"].sum())
+        rows["tree_reduce", name] = dict(
+            program="K6_tree_reduce", replaces="windflow_tpu/tpu/ops_tpu.py:280",
+            bit_identical=True, max_abs_err=0.0,
+            bytes=_tree_bytes(c["cols"], n, n_valid, fv.planes),
+            valid_rows=n_valid, **base)
+    for n in TREE_RAGGED:  # K6 at capacities that are no power of two
+        cols = {"key": torch.from_numpy(rng.integers(0, 256, n).astype(
+                    np.int32)).to(dev),
+                "value": torch.from_numpy(rng.integers(-99, 99, n).astype(
+                    np.int32)).to(dev)}
+        mask = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+        tg, tgv = rf.tree_reduce(_sum_value, cols, mask)
+        tr, trv = rf.tree_reduce_ref(_sum_value, cols, mask)
+        torch.cuda.synchronize()
+        _reduce_err(torch, f"K6 ragged {n}", tg, tgv, tr, trv, True)
+        phase("programs", program="K6_tree_reduce", layout=f"ragged_{n}",
+              rows=n, bit_identical=True, card=card)
+    phase("programs", **fold_back_to_back(torch, wt, cases["graph_gpu"]))
+    for name in FOLD_TIMED:
+        c = cases[name]
+        args = (c["comb"], c["cols"], c["order"], c["slots"], c["n_slots"],
+                c["valid"], c["out_rows"])
+        for kernel, fn, plain in (
+                ("keyed_fold", lambda: rf.keyed_fold(*args),
+                 lambda: rf.keyed_fold_ref(*args)),
+                ("tree_reduce", lambda: rf.tree_reduce(c["comb"], c["cols"],
+                                                       c["mask"]),
+                 lambda: rf.tree_reduce_ref(c["comb"], c["cols"],
+                                            c["mask"]))):
+            row = rows[kernel, name]
+            row["device_ms"], row["launches"], row["ms"] = _program_ms(
+                torch, fn, tries=STEP_TRACE_TRIES)
+            row["plain_ms"] = _event_ms(torch, plain, 10)
+            row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
+            row["bound_by"] = "bytes"
+            row["bound_share"] = _share(row["bound_ms"], row["device_ms"])
+            row["library_ms"] = row["library_call"] = None
+            if c["cname"] == "sum_value":
+                row.update(_fold_library(torch, kernel, c))
+    for (kernel, name), row in rows.items():
+        row["timed"] = name in FOLD_TIMED
+        phase("programs", **row)
+    return rows, errs
+
+
+def _fold_library(torch, kernel, c):
+    """The one PyTorch call that computes the int sum of a layout:
+    ``index_add_`` of each live row's value into its slot of a zeroed
+    buffer (K7), ``torch.sum`` of the valid rows' values (K6); its event
+    bracket and device time."""
+    value = c["cols"]["value"]
+    if kernel == "keyed_fold":
+        live = c["slots"] < c["n_slots"]
+        if c["valid"] is not None:
+            live &= c["valid"][c["order"].long()]
+        rows = c["order"][live].long()
+        idx = c["slots"][live].long()
+        vals = value[rows]
+        buf = torch.zeros(c["out_rows"], dtype=value.dtype,
+                          device=value.device)
+        call = "Tensor.index_add_ (the live rows' values into the slots)"
+        fn = lambda: buf.index_add_(0, idx, vals)  # noqa: E731
+    else:
+        kept = value[c["mask"]]
+        call = "torch.sum (the valid rows' values)"
+        fn = lambda: torch.sum(kept)  # noqa: E731
+    device_ms, _, ms = _program_ms(torch, fn, tries=STEP_TRACE_TRIES)
+    return dict(library_ms=ms, library_device_ms=device_ms,
+                library_call=call)
+
+
+def fold_back_to_back(torch, wt, c):
+    """K2+K3, K7 and K2+K3 again on one stream with no sync between them
+    (the two kernels share the look-back's scratch per device and
+    stream), then each held against its plain version: exact."""
+    from windflow_tpu_torch.kernels import ffat_step as fs
+    from windflow_tpu_torch.kernels import reduce_fold as rf
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22)
+    K, F = STEP_K_CAP, STEP_F
+    ingests = []
+    for n in (BATCH, 10_001):
+        comp = np.full(n, K * F, dtype=np.int64)
+        lens = rng.integers(1, 701, n)
+        lens = lens[np.cumsum(lens) <= n]
+        comp[:lens.sum()] = np.repeat(
+            rng.choice(K * F, len(lens), replace=False), lens)
+        comp = torch.from_numpy(comp[rng.permutation(n)].astype(
+            np.int32)).to(dev)
+        ingests.append(dict(
+            comp=comp, srt=fs.sort_rows(comp),
+            vals={"f0": torch.from_numpy(rng.integers(0, 4, n).astype(
+                np.int32)).to(dev)},
+            flat={"f0": torch.zeros(K * 2 * F, dtype=torch.int32,
+                                    device=dev)},
+            vflat=torch.zeros(K * 2 * F, dtype=torch.bool, device=dev)))
+    comb = wt.fieldwise(f0="sum")
+    args = (c["comb"], c["cols"], c["order"], c["slots"], c["n_slots"],
+            c["valid"], c["out_rows"])
+    torch.cuda.synchronize()
+    a = ingests[0]
+    fs.ingest_fold(comb, a["vals"], a["srt"], a["flat"], a["vflat"], F)
+    got, gv = rf.keyed_fold(*args)
+    b = ingests[1]
+    fs.ingest_fold(comb, b["vals"], b["srt"], b["flat"], b["vflat"], F)
+    for i in ingests:
+        rflat = {"f0": torch.zeros_like(i["flat"]["f0"])}
+        rvflat = torch.zeros_like(i["vflat"])
+        fs.ingest_fold_ref(comb, i["vals"], i["comp"], i["srt"][0], rflat,
+                           rvflat, F)
+        torch.cuda.synchronize()
+        if not torch.equal(rvflat, i["vflat"]) or not torch.equal(
+                rflat["f0"], i["flat"]["f0"]):
+            fail("K2+K3 beside K7 on one stream: the fold differs from its "
+                 "plain version")
+    ref, rv = rf.keyed_fold_ref(*args)
+    _reduce_err(torch, "K7 between two K2+K3 launches", got, gv, ref, rv,
+              True)
+    return dict(program="K7_keyed_fold", case="between_K2K3_launches",
+                exact=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1980,6 +2346,8 @@ def graph_gpu_phase(torch, wt, card):
         t0 = time.perf_counter()
         gparts, t_yield, graph = _run_ops_graph(wt, "cuda", blocks, keyed)
         wall = time.perf_counter() - t0
+        fold_launches = _reduce_launched(
+            f"graph_gpu {name}", "keyed_fold" if keyed else "tree_reduce")
         cparts, *_ = _run_ops_graph(wt, "cpu", blocks, keyed)
         if keyed:
             g, c = _sorted_rows(gparts), _sorted_rows(cparts)
@@ -2006,7 +2374,8 @@ def graph_gpu_phase(torch, wt, card):
                                               for r in op["replicas"])
                                           for op in ops[1:4]],
                          filter_ignored=sum(r["Inputs_ignored"] for r in
-                                            ops[2]["replicas"]))
+                                            ops[2]["replicas"]),
+                         fold_launches=fold_launches)
     # one more keyed run under the profiler: idle share and launches
     row["profiled_keyed"] = _profiled(
         torch, lambda: _run_ops_graph(wt, "cuda", blocks, True),
@@ -2071,6 +2440,8 @@ def fusion_ops_phase(torch, wt, card):
         for k in (0, 1, 4, 8, 8, 4, 1, 0):  # 0: unfused
             parts, t_yield, graph = _run_ops_graph(
                 wt, "cuda", fusion=k > 0, megabatch=max(1, k), **common)
+            _reduce_launched(f"fusion {kind} megabatch {k}",
+                             "keyed_fold" if keyed else "tree_reduce")
             g = _concat(parts)
             if keyed:
                 gs, cs = _sort_cols(g), _sort_cols(ref)
@@ -2173,8 +2544,13 @@ def _run_state_graph(wt, device, blocks, make_ops, batch=None, chain=False,
     for i, op in enumerate(make_ops(wt)):
         mp = mp.chain(op) if (chain and i) else mp.add(op)
     mp.add_sink(wt.Sink_Builder(sink).with_columns().build())
+    if device == "cuda":
+        _reduce_reset()
     graph.run()
-    return parts, t_yield, time.perf_counter(), graph
+    t_end = time.perf_counter()
+    if device == "cuda":
+        _reduce_read()
+    return parts, t_yield, t_end, graph
 
 
 def _arrival_ranks(keys):
@@ -2383,6 +2759,7 @@ def state_fused_part(torch, wt, card):
         run = _run_state_graph(wt, "cuda", blocks, _fused_state_ops,
                                fusion=k > 0, megabatch=max(1, k), **common)
         k8.setdefault(k, []).append(_k8_launched(f"state fused {k}"))
+        _reduce_launched(f"state fused {k}", "keyed_fold")
         g = _sort_cols(_concat(run[0]))
         got = np.zeros(GRAPH_KEYS, dtype=np.int64)
         np.add.at(got, g["key"], g["value"])
@@ -2935,7 +3312,11 @@ def _run_diamond(wt, device, blocks):
                      .with_parallelism(GRAPH_PAR).with_name("kb_reduce")
                      .build()) \
         .add_sink(wt.Sink_Builder(sink).with_columns().build())
+    if device == "cuda":
+        _reduce_reset()
     graph.run()
+    if device == "cuda":
+        _reduce_read()
     return parts, t_yield, graph
 
 
@@ -3041,6 +3422,7 @@ def dag_phase(torch, wt, card):
     t0 = time.perf_counter()
     gparts, t_yield, graph = _run_diamond(wt, "cuda", blocks)
     wall = time.perf_counter() - t0
+    _reduce_launched("dag diamond", "keyed_fold")
     cparts, *_ = _run_diamond(wt, "cpu", blocks)
     g, c = _sorted_kb(_concat(gparts)), _sorted_kb(_concat(cparts))
     if g.keys() != c.keys() or not all(np.array_equal(g[k], c[k])
@@ -4488,6 +4870,8 @@ def mesh_ops_part(torch, wt, card):
                 _k8_reset()
                 grun = _run_state_graph(wt, "cuda", blocks, make)
                 k8 = (_k8_launched(name) if part == "map" else None)
+                if part == "reduce":
+                    _reduce_launched(name, "keyed_fold")
                 g = canon(grun[0])
                 if layout is None:
                     cpu_rows[shape] = canon(_run_state_graph(
@@ -7146,7 +7530,8 @@ def main() -> None:
     on_path += fusion_ffat_phase(torch, wt, card)
     _, graph_blocks = graph_gpu_phase(torch, wt, card)
     fusion_ops_phase(torch, wt, card)
-    programs_phase(torch, wt, graph_blocks, card)
+    _, (fold_rows, fold_errs) = programs_phase(torch, wt, graph_blocks,
+                                               card)
     timing, err_timed = kernel_phase(torch, True)
     # after K1's timing: the plain versions' traces (hundreds of launches
     # a call) made torch.profiler lose K1's records when they ran first
@@ -7263,6 +7648,32 @@ def main() -> None:
     spilled = _spills(build, "grid_scan-")
     if spilled:
         fail(f"K8 kernels with a stack frame or spills: {spilled}")
+    # K7 and K6: launches by (kernel, variant) over the reduce paths' runs
+    # on the card; times and bound at the graph_gpu batch
+    names = {}
+    for n, fv in _reduce_variants(torch).items():
+        names.setdefault(fv.tag, n)
+    for kernel in ("keyed_fold", "tree_reduce"):
+        tags = {t for k, t in REDUCE_PATH if k == kernel}
+        if not tags:
+            fail(f"{kernel} never launched on a reduce path")
+        for tag in sorted(tags):
+            t = fold_rows[kernel, FOLD_PATH[kernel]]
+            if tag != t["tag"]:
+                fail(f"{kernel}: variant {tag} ({names.get(tag)}) launched "
+                     "on a reduce path but is not in the kernels line")
+            kernels.append({
+                "name": f"{kernel}[{names[tag]}]", "route": "cuda",
+                "source": "windflow_tpu_torch/kernels/reduce_fold.cuh",
+                "replaces": t["replaces"],
+                "launches": REDUCE_PATH[kernel, tag],
+                "max_abs_err": fold_errs[kernel],
+                "ms": t["ms"], "device_ms": t["device_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes", "bound_share": t["bound_share"],
+                "library_ms": t["library_ms"],
+                "shape": [t["rows"], t["slots"], t["out_rows"]],
+            })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,7 +2,8 @@
 card.
 
     python3 scripts/ab_main_path.py OLD_DIR NEW_DIR [ROUNDS]
-        [--workload emit|hc|lull|mesh|ysb_paced] [--rate EVENTS_PER_S]
+        [--workload emit|graph_gpu|hc|lull|mesh|ysb_paced]
+        [--rate EVENTS_PER_S]
         [--events N] [--device cuda|cpu]
 
 Workload ``hc`` (the default) drives ``chip_smoke.py``'s high-cardinality
@@ -39,7 +40,14 @@ pool, ns a row. Workload ``mesh`` drives
 virtual shards of one group, 2 warm-up + 6 timed batches of the HC
 stream) after loading the kernel, then the same run under
 ``torch.profiler``: tuples/s of the first, and kernels and copies a
-batch of the profiled one.
+batch of the profiled one. Workload ``graph_gpu`` drives
+``chip_smoke.py``'s graph_tests_gpu stream (256 keys, 14 batches of
+65,536 int32 tuples, map -> filter -> reduce) through the keyed reduce
+at parallelism 2, the global reduce, and both fused (``chain`` at
+parallelism 1): each graph run once to build and warm, once timed, once
+under ``torch.profiler``; tuples/s after chip_smoke's warm-up batches,
+kernels a batch and the card's idle share of each (the medians are of
+the keyed graph's kernels a batch).
 
 Each run is a fresh process that imports one checkout's
 ``windflow_tpu_torch`` and its ``chip_smoke.py`` on ``--device``
@@ -216,8 +224,28 @@ print(json.dumps({{"tuples_per_s": rates["tuples_per_s"],
                   "copies_per_batch": prof["copies_per_batch"]}}))
 """
 
+_CHILD["graph_gpu"] = r"""
+blocks = c._blocks(c.GRAPH_KEYS, seed=9, n_batches=c.GRAPH_BATCHES)
+out = {{}}
+for name, kw in (("keyed", dict(keyed=True)), ("global", dict(keyed=False)),
+                 ("fused_keyed", dict(keyed=True, par=1, chain=True)),
+                 ("fused_global", dict(keyed=False, par=1, chain=True))):
+    run = lambda kw=kw: c._run_ops_graph(wt, {device!r}, blocks, **kw)
+    run()  # builds the kernels and makes the first allocations
+    parts, t_yield, _ = run()
+    span = max(t for t, _ in parts) - t_yield[c.GRAPH_WARMUP]
+    prof = (c._profiled(torch, run, len(blocks)) if {device!r} == "cuda"
+            else dict(kernels_per_batch=0.0, device_idle_share=None))
+    out[name + "_tuples_per_s"] = \
+        (c.GRAPH_BATCHES - c.GRAPH_WARMUP) * c.BATCH / span
+    out[name + "_kernels_per_batch"] = prof["kernels_per_batch"]
+    out[name + "_idle_share"] = prof["device_idle_share"]
+print(json.dumps(out))
+"""
+
 # the per-run number each workload's medians are taken over
 _KEY = {"emit": "emit_ns_per_row", "hc": "tuples_per_s",
+        "graph_gpu": "keyed_kernels_per_batch",
         "lull": "lull_p50_ms",
         "mesh": "kernels_per_batch", "ysb_paced": "p50_ms"}
 

@@ -32,9 +32,9 @@ from windflow_tpu_torch.gpu.batch import BatchGPU
 from windflow_tpu_torch.gpu.emitters_gpu import (GPUKeyByEmitter,
                                                  GPUStageEmitter)
 from windflow_tpu_torch.gpu.ops_gpu import (compact_order,
-                                            reduce_order_and_slots,
-                                            segment_tails)
+                                            reduce_order_and_slots)
 from windflow_tpu_torch.gpu.schema import TupleSchema
+from windflow_tpu_torch.kernels.reduce_fold import keyed_fold
 
 N_DESTS = 3
 CPU = torch.device("cpu")
@@ -217,5 +217,12 @@ def test_reduce_host_order_and_tails_match_jax(kind, n, cap):
                                jnp.ones((1,), dtype=bool)])
     ref = np.asarray(jnp.nonzero(is_last, size=cap, fill_value=cap - 1)[0])
     n_out = len(k_t)
-    assert np.array_equal(segment_tails(s_t, n_out, cap), ref)
-    assert np.array_equal(segment_tails(s_t, n_out, n_out), ref[:n_out])
+    # the keyed fold (K7's plain version) takes each slot from the tail
+    # JAX's nonzero finds: a take-the-later combine over the row indices
+    # leaves each slot its tail's row
+    rows = {"r": torch.arange(cap, dtype=torch.int32)}
+    out, ov = keyed_fold(lambda a, b: {"r": b["r"]}, rows,
+                         torch.from_numpy(o_t), torch.from_numpy(s_t),
+                         n_out, None, cap)
+    assert ov[:n_out].all() and not ov[n_out:].any()
+    assert np.array_equal(out["r"][:n_out].numpy(), o_j[ref[:n_out]])

@@ -13,11 +13,12 @@ operator's device:
   one compaction and readback happen at the chain exit (never, for
   map-only chains);
 - a global ``Reduce_GPU`` terminator folds the masked survivors to one
-  tuple (``masked_tree_reduce``); a KEYED terminator gathers the rows by
-  the host's key order and scans each key's VALID rows with validity as
-  an Option (``gpu/scan.py`` ``masked_segmented_scan``), then compacts the
-  surviving segment tails on the device. Its KEYBY shuffle is the
-  identity where fusion is legal (``topology/stage.py``);
+  tuple (K6, ``kernels/reduce_fold.py`` ``tree_reduce``); a KEYED
+  terminator folds each key's VALID rows, in the host's key order, into
+  the key's slot with validity as an Option (K7, ``keyed_fold``: one
+  launch on a card), then compacts the surviving slots on the device. Its
+  KEYBY shuffle is the identity where fusion is legal
+  (``topology/stage.py``);
 - the whole chain submits ONE host-prep/device-commit pair to the
   replica's ``DeviceDispatchQueue``: three chained operators cost one
   replica, one commit and one readback per batch instead of three of each
@@ -62,13 +63,14 @@ import numpy as np
 import torch
 
 from ..basic import WindFlowError
+from ..kernels import reduce_fold
 from ..kernels.grid_scan import output_like
-from .batch import BatchGPU, host_copies, to_device, zero_fields
+from .batch import (BatchGPU, bucket_capacity, host_copies, to_device,
+                    zero_fields)
 from .ffat_gpu import Ffat_Windows_GPU, FfatGPUReplica
 from .ops_gpu import (Filter_GPU, GPUReplicaBase, Map_GPU, Reduce_GPU,
-                      _KeyedStateScan, compact_order, masked_tree_reduce,
-                      reduce_order_and_slots, row_mask)
-from .scan import masked_segmented_scan
+                      _KeyedStateScan, compact_order, reduce_order_and_slots,
+                      row_mask)
 
 
 def _adopt_chain(replica, ops) -> None:
@@ -175,8 +177,9 @@ class FusedGPUReplica(GPUReplicaBase):
         """The whole chain body once per bucket. A chain with a stateful
         sub-op runs no bucket (its rows follow the stream's keys): on a
         card its steps are traced and their K8 libraries built or loaded
-        before batch 0 instead (the number of steps); on the CPU, or
-        without a declared schema, None."""
+        before batch 0 instead (the number of steps), with its reduce
+        exit's library and scratch; on the CPU, or without a declared
+        schema, None."""
         if not self._stateful:
             return super().prewarm(caps)
         if self.device.type != "cuda":
@@ -187,19 +190,23 @@ class FusedGPUReplica(GPUReplicaBase):
                                  "dtypes: declare the schema (with_schema) "
                                  "to build them before batch 0")
             return None
-        return self._load_steps(zero_fields(sch, 1, self.device))
+        return self._load_steps(zero_fields(sch, 1, self.device),
+                                max(caps, default=0))
 
-    def _load_steps(self, fields: Dict[str, torch.Tensor]) -> int:
-        """On a card: trace every stateful sub-op's step over the columns
-        it will see and build or load its library (raising
-        ``WindFlowError`` for a step the kernel cannot take). Those
-        columns come from one row of zeros like ``fields`` through the
-        sub-ops before it: a stateless kernel's output, a stateful map's
-        output columns (``output_like``). Once per batch dtypes; returns
+    def _load_steps(self, fields: Dict[str, torch.Tensor],
+                    rows: int = 0) -> int:
+        """For a card: trace every stateful sub-op's step, and a reduce
+        exit's combine, over the columns it will see and build or load
+        its library (raising ``WindFlowError`` for a step or combine the
+        kernels cannot take); with ``rows``, also reserve the exit's
+        scratch for batches of that many rows. Those columns come from
+        one row of zeros like ``fields`` through the sub-ops before it: a
+        stateless kernel's output, a stateful map's output columns
+        (``output_like``). Once per batch dtypes (and ``rows``); returns
         the steps it loaded."""
         sig = tuple((f, t.dtype, tuple(t.shape[1:]))
                     for f, t in fields.items())
-        if sig in self._steps_loaded:
+        if rows <= 0 and sig in self._steps_loaded:
             return 0
         cols = {f: torch.zeros((1,) + t.shape[1:], dtype=t.dtype,
                                device=t.device) for f, t in fields.items()}
@@ -211,15 +218,20 @@ class FusedGPUReplica(GPUReplicaBase):
             elif spec.engine is not None:
                 cols = output_like(spec.engine.load_step(cols), cols)
                 n += 1
+        if self._exit in ("reduce", "kreduce"):
+            reduce_fold.prepare(self._combine, cols, rows)
         self._steps_loaded.add(sig)
         return n
 
     def _warm_program(self, fields, cap: int) -> None:
         hargs: List[Any] = [None] * len(self.specs)
         if self._exit == "kreduce":
-            hargs[-1] = (torch.arange(cap, device=self.device),
-                         torch.zeros(cap, dtype=torch.int64,
-                                     device=self.device))
+            hargs[-1] = (torch.arange(cap, dtype=torch.int32,
+                                      device=self.device),
+                         torch.zeros(cap, dtype=torch.int32,
+                                     device=self.device), 1)
+        if self.device.type == "cuda":
+            self._load_steps(fields, cap)
         self._chain_body(fields, cap, hargs)
 
     # -- the chain body ------------------------------------------------------
@@ -248,24 +260,22 @@ class FusedGPUReplica(GPUReplicaBase):
                 else:
                     fields = out
         if self._exit == "reduce":
-            return (masked_tree_reduce(self._combine, fields, valid),
+            return (reduce_fold.tree_reduce(self._combine, fields, valid)[0],
                     {"keep": valid})
         if self._exit == "kreduce":
             # the host sorted ALL rows by key (the sort does not depend on
-            # the mask); the scan folds each key's VALID rows, and a key
-            # whose tail stays invalid had no surviving row: it is dropped,
-            # as the unfused filter stage would have dropped its rows
-            order, ssorted = hargs[-1]
-            new_seg = ssorted[1:] != ssorted[:-1]
-            one = torch.ones(1, dtype=torch.bool, device=ssorted.device)
-            scanned, vscan = masked_segmented_scan(
-                self._combine, {c: v[order] for c, v in fields.items()},
-                torch.cat([~one, ~new_seg]), valid[order])
-            torder, tcount = compact_order(torch.cat([new_seg, one])
-                                           & vscan)
-            return ({c: a[torder] for c, a in scanned.items()},
-                    {"slots": ssorted[torder], "tcount": tcount,
-                     "keep": valid})
+            # the mask); the fold takes each key's VALID rows into its
+            # slot, and a slot left invalid had no surviving row: it is
+            # dropped, as the unfused filter stage would have dropped its
+            # rows. The surviving slots compact in slot order, in a buffer
+            # of the slots' capacity bucket (the unfused replica's)
+            order, ssorted, n_slots = hargs[-1]
+            folded, fvalid = reduce_fold.keyed_fold(
+                self._combine, fields, order, ssorted, n_slots, valid,
+                bucket_capacity(n_slots))
+            torder, tcount = compact_order(fvalid)
+            return ({c: a[torder] for c, a in folded.items()},
+                    {"slots": torder, "tcount": tcount, "keep": valid})
         if self._exit == "filter":
             order, count = compact_order(valid)
             return ({k: v[order] for k, v in fields.items()},
@@ -290,11 +300,12 @@ class FusedGPUReplica(GPUReplicaBase):
             if not slot_of_key:
                 return None
             kred = (to_device(order_np, self.device),
-                    to_device(ssorted_np, self.device))
+                    to_device(ssorted_np, self.device), len(slot_of_key))
             kextra = list(slot_of_key)  # slot order == insertion order
-        if self._stateful and self.device.type == "cuda":
-            # every stateful sub-op's step traced and loaded before the
-            # first commit
+        if self.device.type == "cuda" and (
+                self._stateful or self._exit in ("reduce", "kreduce")):
+            # every stateful sub-op's step and a reduce exit's combine
+            # traced and loaded before the first commit
             self._load_steps(batch.fields)
         # per stateful sub-op, in chain order: slot mapping and the rows
         # grouped by key (grid_meta drains the pipeline itself iff a

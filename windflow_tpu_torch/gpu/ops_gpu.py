@@ -34,16 +34,23 @@ between replicas.
   of the host cold tier of ``state/tiered.py``.
 - ``Reduce_GPU`` keyed: one output per distinct key per batch (reference
   ``reduce_by_key``, ``reduce_gpu.hpp:245-251``). The HOST sorts the keys
-  once (``reduce_order_and_slots``) and ships the gather order, the
-  segment flags and the segment tails; the device gathers, runs the
-  segmented scan of ``gpu/scan.py`` with the user combine and gathers the
-  tails into a batch of ``bucket_capacity(keys)`` rows (the JAX package
+  once (``reduce_order_and_slots``) and ships the gather order and the
+  sorted slots, as the JAX package does; the device folds each key's rows
+  into its slot of a batch of ``bucket_capacity(keys)`` rows in one
+  launch (K7, ``kernels/reduce_fold.py`` ``keyed_fold``; on the CPU its
+  plain version, the segmented scan of ``gpu/scan.py``). The JAX package
   keeps the input's capacity: the rows past the size are padding either
-  way). Int keys emit in ascending key order, others in first-appearance
-  order. The combine must be associative and commutative (``API:78-80``).
+  way (zeros here, the last key's fold there). Int keys emit in ascending
+  key order, others in first-appearance order. The combine must be
+  associative and commutative (``API:78-80``).
 - ``Reduce_GPU`` global (no key): the whole batch folds to ONE tuple by a
-  validity-masked pairwise tree (``masked_tree_reduce``; reference
-  ``thrust::reduce``, ``reduce_gpu.hpp:269-272``).
+  validity-masked pairwise tree (K6, ``kernels/reduce_fold.py``
+  ``tree_reduce``, one launch; reference ``thrust::reduce``,
+  ``reduce_gpu.hpp:269-272``).
+
+On a card both reduces trace the combine at the first prep
+(``reduce_fold.prepare``): a computed field outside the traced language
+raises ``WindFlowError`` there; any other column passes through.
 
 Each operator names its ``fusion_role`` (``topology/stage.py`` legality):
 Map and Filter are transforms whose ``device_kernel`` composes mid-chain
@@ -64,6 +71,7 @@ from ..basic import (ExecutionMode, KeyCapacityError, OpType, RoutingMode,
                      WindFlowError)
 from ..checkpoint import delta as ckpt_delta
 from ..kernels.build import BUILD_INFO
+from ..kernels import reduce_fold
 from ..kernels.grid_scan import (HEAVY_ROWS, GridStep, KeyRows, grid_walk,
                                   heavy_keys)
 from ..monitoring.flightrec import note_kernel_load
@@ -76,7 +84,6 @@ from .batch import (BatchGPU, bucket_capacity, host_copies, zero_fields,
                     key_column_np, key_column_to_list, to_device)
 from .keymap import (KeySlotMap, distinct_batch_keys,
                      stable_group_argsort, structured_unique)
-from .scan import segmented_scan
 from .schema import TupleSchema, canonical, numpy_dtype
 
 
@@ -182,19 +189,6 @@ def reduce_order_and_slots(op, batch: BatchGPU):
     return order, slots_np[order], slot_of_key
 
 
-def segment_tails(ssorted: np.ndarray, n_out: int, out_cap: int
-                  ) -> np.ndarray:
-    """Positions of the last row of each of the first ``n_out`` segments
-    of the sorted slot ids, padded to ``out_cap`` with the last row (what
-    ``jnp.nonzero(is_last, size=n, fill_value=n - 1)`` gives, taken on
-    the host from the order it already has: ``torch.nonzero`` would wait
-    for the card)."""
-    is_last = np.r_[ssorted[1:] != ssorted[:-1], True]
-    tails = np.full(out_cap, len(ssorted) - 1, dtype=np.int32)
-    tails[:n_out] = np.flatnonzero(is_last)[:n_out]
-    return tails
-
-
 # ---------------------------------------------------------------------------
 # device programs
 # ---------------------------------------------------------------------------
@@ -213,37 +207,6 @@ def compact_order(keep: torch.Tensor):
     return order, count
 
 
-def masked_tree_reduce(combine: Callable, fields: Dict[str, torch.Tensor],
-                       valid: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Whole-batch fold to one tuple: a validity-masked pairwise halving
-    (log2 passes; associativity is the contract). A field the combine
-    does not return passes through from the later half. The result is
-    garbage when no row is valid: callers skip empty batches."""
-    n = next(iter(fields.values())).shape[0]
-    # pad to a power of two so the halving never drops an odd tail (an
-    # upstream Ffat_Windows_GPU emits batches of num_win_per_batch rows)
-    m = 1 << max(0, n - 1).bit_length()
-    if m != n:
-        fields = {k: torch.cat([v, v.new_zeros((m - n,) + v.shape[1:])])
-                  for k, v in fields.items()}
-        valid = torch.cat([valid, valid.new_zeros(m - n)])
-    cur, vcur = fields, valid
-    length = m
-    while length > 1:
-        half = length // 2
-        a = {k: v[:half] for k, v in cur.items()}
-        b = {k: v[half:] for k, v in cur.items()}
-        va, vb = vcur[:half], vcur[half:]
-        merged = combine(a, b)
-        both = va & vb
-        cur = {k: torch.where(both, merged.get(k, b[k]),
-                              torch.where(va, a[k], b[k]))
-               for k in cur}
-        vcur = va | vb
-        length = half
-    return {k: v[:1] for k, v in cur.items()}
-
-
 def row_mask(capacity: int, size: int, device: torch.device
              ) -> torch.Tensor:
     """The rows of a batch that hold tuples (the rest is padding)."""
@@ -259,17 +222,6 @@ def filter_program(pred: Callable, fields: Dict[str, torch.Tensor],
         & row_mask(first.shape[0], size, first.device)
     order, count = compact_order(keep)
     return {k: v[order] for k, v in fields.items()}, order, count
-
-
-def keyed_reduce_program(combine: Callable, fields: Dict[str, torch.Tensor],
-                         order: torch.Tensor, same_prev: torch.Tensor,
-                         tails: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One partial per key: gather the rows in key order, scan each key's
-    segment with the combine, gather the segment tails."""
-    scanned = segmented_scan(combine, {k: v[order]
-                                       for k, v in fields.items()},
-                             same_prev)
-    return {k: v[tails] for k, v in scanned.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1160,19 +1112,26 @@ class Reduce_GPU(GPUOperatorBase):
 
 
 class GlobalReduceGPUReplica(GPUReplicaBase):
-    """Whole-batch fold to one tuple via ``masked_tree_reduce``; its ts is
+    """Whole-batch fold to one tuple via ``tree_reduce`` (K6); its ts is
     the batch's largest."""
 
     def _warm_program(self, fields, cap: int) -> None:
-        masked_tree_reduce(self.op.combine, fields,
-                           row_mask(cap, cap, self.device))
+        reduce_fold.prepare(self.op.combine, fields, cap)
+        reduce_fold.tree_reduce(self.op.combine, fields,
+                                row_mask(cap, cap, self.device))
+
+    def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
+        # on a card: the combine traced and its library loaded here, so a
+        # combine the kernel cannot take raises at the first prep
+        reduce_fold.prepare(self.op.combine, batch.fields)
+        return super().prep_device_batch(batch)
 
     def process_device_batch(self, batch: BatchGPU) -> None:
         if batch.size == 0:
             return
-        out = masked_tree_reduce(self.op.combine, batch.fields,
-                                 row_mask(batch.capacity, batch.size,
-                                          self.device))
+        out, _ = reduce_fold.tree_reduce(
+            self.op.combine, batch.fields,
+            row_mask(batch.capacity, batch.size, self.device))
         self.stats.device_programs_run += 1
         ts = np.array([int(batch.ts_host[:batch.size].max())],
                       dtype=np.int64)
@@ -1184,16 +1143,18 @@ class GlobalReduceGPUReplica(GPUReplicaBase):
 
 class ReduceGPUReplica(GPUReplicaBase):
     def _warm_program(self, fields, cap: int) -> None:
-        # the order / segment / tail VALUES are stream data; their shapes
-        # are the bucket's
+        # the order and slot VALUES are stream data; their shapes are the
+        # bucket's (every row on slot 0)
+        reduce_fold.prepare(self.op.combine, fields, cap)
         idx = torch.arange(cap, dtype=torch.int32, device=self.device)
-        keyed_reduce_program(self.op.combine, fields, idx,
-                             torch.zeros(cap, dtype=torch.bool,
-                                         device=self.device), idx)
+        reduce_fold.keyed_fold(self.op.combine, fields, idx,
+                               torch.zeros_like(idx), 1)
 
     def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
-        # host prep: ONE key sort, the segment flags and tails; the
-        # program and the output batch are the deferred commit stage
+        # host prep: ONE key sort and the sorted slots (on a card the
+        # combine traced and loaded first); the fold and the output batch
+        # are the deferred commit stage
+        reduce_fold.prepare(self.op.combine, batch.fields)
         order_np, ssorted, slot_of_key = reduce_order_and_slots(self.op,
                                                                 batch)
         n_out = len(slot_of_key)
@@ -1202,16 +1163,15 @@ class ReduceGPUReplica(GPUReplicaBase):
         out_cap = bucket_capacity(n_out)
         dev = self.device
         order = to_device(order_np, dev)
-        same_prev = to_device(np.r_[False, ssorted[1:] == ssorted[:-1]],
-                              dev)
-        tails = to_device(segment_tails(ssorted, n_out, out_cap), dev)
+        slots = to_device(ssorted, dev)
         out_keys = list(slot_of_key)  # insertion order == slot order
         ts = np.full(out_cap, int(batch.ts_host[:batch.size].max()),
                      dtype=np.int64)
 
         def commit() -> None:
-            out = keyed_reduce_program(self.op.combine, batch.fields, order,
-                                       same_prev, tails)
+            out, _ = reduce_fold.keyed_fold(self.op.combine, batch.fields,
+                                            order, slots, n_out, None,
+                                            out_cap)
             self.stats.device_programs_run += 1
             nb = BatchGPU(out, ts, n_out, batch.schema, batch.wm, out_keys)
             nb.stream_tag = batch.stream_tag

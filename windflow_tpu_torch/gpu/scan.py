@@ -1,9 +1,10 @@
-"""The inclusive segmented scan with a user combine, shared by the device
-operators that group rows by key: ``Ffat_Windows_GPU`` (pane partials
-before the leaf scatter, the JAX package's ``ffat_tpu.py`` step), the
-keyed ``Reduce_GPU`` (per-key partials, ``ops_tpu.py``
-``ReduceTPUReplica``) and the keyed terminator of a fused chain, which
-scans with a validity plane (``fused_ops.py`` ``_chain_body``).
+"""The inclusive segmented scan with a user combine: the plain versions of
+the hand kernels that fold rows by key, K2+K3 (``kernels/ffat_step.py``,
+the JAX package's ``ffat_tpu.py`` step) and K7 (``kernels/reduce_fold.py``:
+the keyed ``Reduce_GPU``, ``ops_tpu.py`` ``ReduceTPUReplica``, and the
+keyed terminator of a fused chain, which scans with a validity plane,
+``fused_ops.py`` ``seg_op``). They run on the CPU; a card runs the
+kernels.
 """
 
 from __future__ import annotations
@@ -11,6 +12,13 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+
+def rowwise(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-row mask shaped to select whole rows of ``x`` (a column with
+    trailing dimensions, a composite key, takes the row's flag in each
+    element)."""
+    return mask.reshape(mask.shape + (1,) * (x.dim() - 1))
 
 
 def segmented_scan(combine: Callable, vals: Dict[str, torch.Tensor],
@@ -48,13 +56,15 @@ def masked_segmented_scan(combine: Callable, vals: Dict[str, torch.Tensor],
         merged = combine(a, b)
         if valid is None:
             vals = {k: torch.cat([v[:d], torch.where(
-                sb, merged.get(k, b[k]), b[k])]) for k, v in vals.items()}
+                rowwise(sb, v), merged.get(k, b[k]), b[k])])
+                for k, v in vals.items()}
         else:
             vb = valid[d:]
             vsb = valid[:-d] & sb  # a is valid and in b's segment
             vals = {k: torch.cat([v[:d], torch.where(
-                vsb, torch.where(vb, merged.get(k, b[k]), a[k]), b[k])])
-                for k, v in vals.items()}
+                rowwise(vsb, v), torch.where(rowwise(vb, v),
+                                             merged.get(k, b[k]), a[k]),
+                b[k])]) for k, v in vals.items()}
             valid = torch.cat([valid[:d], vb | vsb])
         s = torch.cat([s[:d], s[:-d] & sb])
         d *= 2

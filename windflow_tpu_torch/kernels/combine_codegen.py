@@ -24,9 +24,9 @@ torch's CPU ops compute (plain operators; ``x / c`` divides): the CPU
 tests compile and run it.
 
 ``kernel_source(ir)`` is the translation unit ``build.load_generated``
-compiles: the headers, the policy and its C entry points, K1's and the
-FFAT step's (``ffat_step.cuh``: K2+K3 and K4), so one variant is one
-library.
+compiles: the headers, the policy and its C entry points, K1's, the
+FFAT step's (``ffat_step.cuh``: K2+K3 and K4) and the reduce folds'
+(``reduce_fold.cuh``: K7 and K6), so one variant is one library.
 
 ``step_source(ir)`` emits a traced stateful step (``combine_trace.StepIR``)
 as ``struct WfgStep``, the step policy of K8's kernel (``grid_scan.cuh``):
@@ -306,10 +306,12 @@ def kernel_source(ir: CombineIR) -> str:
     libraries) is then the variant's own."""
     ns = "wfg_" + hashlib.sha256(ir.text().encode()).hexdigest()[:12]
     return "\n".join(['#include "forest_rebuild.cuh"',
-                      '#include "ffat_step.cuh"', PRELUDE,
+                      '#include "ffat_step.cuh"',
+                      '#include "reduce_fold.cuh"', PRELUDE,
                       f"namespace {ns} {{", _policy(ir), f"}}  // {ns}", "",
                       f"WF_REBUILD_ENTRY_POINTS({ns}::{STRUCT})",
-                      f"WF_FFAT_ENTRY_POINTS({ns}::{STRUCT})", ""])
+                      f"WF_FFAT_ENTRY_POINTS({ns}::{STRUCT})",
+                      f"WF_REDUCE_ENTRY_POINTS({ns}::{STRUCT})", ""])
 
 
 # ---------------------------------------------------------------------------

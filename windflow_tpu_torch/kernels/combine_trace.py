@@ -30,6 +30,16 @@ not a dict with exactly the lift's fields.
 ``CombineIR.evaluate`` runs the graph with torch ops on tensors: the tests
 hold it against the combine called directly. No CUDA path calls it.
 
+``trace_combine(..., opaque=True)`` also takes columns the kernel cannot
+compute on (another dtype, trailing dimensions): each enters the trace as
+an opaque value that may only pass through as ``b[f]``, recorded in
+``CombineIR.passed``. ``trace_reduce`` traces a ``Reduce_GPU`` combine
+that way (K6 and K7, ``reduce_fold.cuh``), after filling in every field
+the combine does not return as ``b[f]``, as the plain version's
+``merged.get(f, b[f])`` does; a field that only passes through leaves the
+planes, and the kernel returns the source row the wrapper gathers it
+from.
+
 ``trace_step`` does the same for the step of a stateful ``Map_GPU`` /
 ``Filter_GPU`` (``func(row, state) -> (row | keep, state)``), which K8's
 kernel (``kernels/grid_scan.cuh``) runs with the step compiled in: its
@@ -98,6 +108,9 @@ class CombineIR:
     dtypes: Tuple[torch.dtype, ...]
     nodes: Tuple[Node, ...]
     outputs: Tuple[int, ...]
+    #: columns that are no plane and pass through as ``b[f]`` (``opaque``
+    #: traces and ``trace_reduce``); the generated code never sees them
+    passed: Tuple[str, ...] = ()
 
     def text(self) -> str:
         """A canonical description (digests, messages)."""
@@ -484,11 +497,14 @@ class _Proxy:
 
 
 class _Side(dict):
-    """``a`` or ``b``: one proxy per lift field."""
+    """``a`` or ``b``: one proxy per lift field (``opaque``: one
+    ``_Opaque`` per column the kernel cannot compute on, field -> why)."""
 
-    def __init__(self, tr: _Tracer, side: str, dtypes) -> None:
+    def __init__(self, tr: _Tracer, side: str, dtypes, opaque=None) -> None:
         super().__init__({f: _Proxy(tr, tr.add("in", dt, value=(side, f)))
                           for f, dt in dtypes.items()})
+        for f, why in (opaque or {}).items():
+            self[f] = _Opaque(f, why, side)
         self.side = side
 
     def __missing__(self, key):
@@ -497,17 +513,32 @@ class _Side(dict):
                             f"{sorted(self)})")
 
 
-def trace_combine(combine: Callable,
-                  dtypes: Mapping[str, torch.dtype]) -> CombineIR:
+def _column_kind(d) -> Tuple[Any, Any]:
+    """``(dtype, why)`` of a column given as a dtype or ``(dtype, trailing
+    shape)``: ``why`` is None for a plane the kernel computes on."""
+    dt, trail = d if isinstance(d, tuple) else (d, ())
+    if trail:
+        return dt, f"trailing dimensions {tuple(trail)}"
+    return dt, None if dt in _CAT else f"dtype {dt}"
+
+
+def trace_combine(combine: Callable, dtypes: Mapping[str, Any],
+                  opaque: bool = False) -> CombineIR:
     """Trace ``combine(a, b)`` over lift planes of ``dtypes`` (field ->
     torch.int32 / torch.float32 / torch.bool) into a ``CombineIR``, or
-    raise ``WindFlowError`` naming what the kernel cannot take."""
-    bad = {f: dt for f, dt in dtypes.items() if dt not in _CAT}
-    if bad or not dtypes:
+    raise ``WindFlowError`` naming what the kernel cannot take. With
+    ``opaque``, a field may also be another dtype or ``(dtype, trailing
+    shape)``: it enters as an opaque value, and its output must be
+    ``b[f]`` unchanged (``CombineIR.passed``)."""
+    kinds = {f: _column_kind(d) for f, d in dtypes.items()}
+    bad = {f: dt for f, (dt, why) in kinds.items() if why is not None}
+    if (bad and not opaque) or not dtypes:
         raise WindFlowError(f"combine: lift planes must be int32, float32 "
                             f"or bool, got {bad or 'no fields'}")
+    planes = {f: dt for f, (dt, why) in kinds.items() if why is None}
+    dark = {f: why for f, (_, why) in kinds.items() if why is not None}
     tr = _Tracer()
-    a, b = _Side(tr, "a", dtypes), _Side(tr, "b", dtypes)
+    a, b = _Side(tr, "a", planes, dark), _Side(tr, "b", planes, dark)
     try:
         out = combine(a, b)
     except WindFlowError:
@@ -525,14 +556,23 @@ def trace_combine(combine: Callable,
                                         extra and f"adds {extra}") if w)
         raise WindFlowError(f"combine: its output {what} against the "
                             f"lift's fields {list(dtypes)}")
-    outputs = []
-    for f, dt in dtypes.items():
+    outputs, passed = [], []
+    for f in dtypes:
         v = out[f]
-        if isinstance(v, _Proxy):
+        if f in dark:
+            if v is not b[f]:
+                raise (v.refusal(f"field {f!r} as the output of a "
+                                 "combine")
+                       if isinstance(v, _Opaque) else b[f].refusal(
+                           f"a computed value for field {f!r}"))
+            passed.append(f)
+        elif isinstance(v, _Proxy):
             if v._tr is not tr:
                 raise WindFlowError(f"combine: field {f!r} comes from "
                                     "another trace")
             outputs.append(v._id)
+        elif isinstance(v, _Opaque):
+            raise v.refusal(f"field {f!r} as the output of a combine")
         elif _scalar_cat(v) >= 0:
             # a constant: typed as torch.where types it against the plane
             outputs.append(tr.const(v, _promote(f"the constant {f!r}",
@@ -540,38 +580,98 @@ def trace_combine(combine: Callable,
         else:
             raise WindFlowError(f"combine: field {f!r} is a "
                                 f"{type(v).__name__}, not a traced value")
-    return CombineIR(tuple(dtypes), tuple(dtypes.values()), tuple(tr.nodes),
-                     tuple(outputs))
+    return CombineIR(tuple(planes), tuple(planes.values()), tuple(tr.nodes),
+                     tuple(outputs), tuple(passed))
+
+
+def _reachable(nodes, roots) -> List[int]:
+    """The nodes ``roots`` depend on, in graph order."""
+    seen = set()
+    stack = list(roots)
+    while stack:
+        i = stack.pop()
+        if i not in seen:
+            seen.add(i)
+            stack.extend(nodes[i].args)
+    return sorted(seen)
+
+
+def trace_reduce(combine: Callable, columns: Mapping[str, Any]) -> CombineIR:
+    """Trace a ``Reduce_GPU`` combine over the batch's ``columns`` (field
+    -> dtype, or ``(dtype, trailing shape)``) for K6 and K7. Every field
+    the combine does not return is filled in as ``b[f]`` (extra fields
+    are dropped, as the plain version drops them); a column of another
+    dtype or shape is opaque and must pass through. The planes are the
+    fields the combine computes and the fields those read; every other
+    column is ``passed`` (taken from the source row the kernel returns).
+    A combine that computes nothing keeps its first plane column as a
+    plane (its output ``b[f]``); with none, it is refused."""
+    names = list(columns)
+
+    def filled(a, b):
+        out = combine(a, b)
+        if not isinstance(out, dict):
+            return out
+        return {f: out[f] if f in out else b[f] for f in names}
+
+    ir = trace_combine(filled, columns, opaque=True)
+    own = {f: i for f, i in zip(ir.fields, ir.outputs)}
+    computed = [f for f in ir.fields
+                if ir.nodes[own[f]] != Node("in", ir.dtypes[ir.fields.index(
+                    f)], (), ("b", f))]
+    read = {ir.nodes[i].value[1]
+            for i in _reachable(ir.nodes, [own[f] for f in computed])
+            if ir.nodes[i].op == "in"}
+    keep = [f for f in ir.fields if f in computed or f in read]
+    if not keep:
+        if not ir.fields:
+            raise WindFlowError(
+                "combine: no column is int32, float32 or bool, so the CUDA "
+                f"kernel has no plane to fold (columns {names})")
+        keep = [ir.fields[0]]
+    live = _reachable(ir.nodes, [own[f] for f in keep])
+    at = {i: k for k, i in enumerate(live)}
+    nodes = tuple(Node(n.op, n.dtype, tuple(at[j] for j in n.args), n.value)
+                  for n in (ir.nodes[i] for i in live))
+    dt = dict(zip(ir.fields, ir.dtypes))
+    return CombineIR(tuple(keep), tuple(dt[f] for f in keep), nodes,
+                     tuple(at[own[f]] for f in keep),
+                     tuple(f for f in names if f not in keep))
 
 
 # ---------------------------------------------------------------------------
 # stateful steps (K8)
 # ---------------------------------------------------------------------------
 class _Opaque:
-    """A row column the kernel cannot compute on (trailing dimensions, or
-    a dtype other than int32 / float32 / bool): it may only pass through
+    """A column the kernel cannot compute on (trailing dimensions, or a
+    dtype other than int32 / float32 / bool): a step's ``row[f]``, or a
+    combine's ``a[f]`` / ``b[f]`` (``side``). It may only pass through
     unchanged. Every operation on it is refused."""
 
-    __slots__ = ("field", "why")
+    __slots__ = ("field", "why", "side")
     __array_ufunc__ = None
 
-    def __init__(self, field: str, why: str) -> None:
+    def __init__(self, field: str, why: str, side: str = "row") -> None:
         self.field = field
         self.why = why
+        self.side = side
 
     def refusal(self, what: str) -> WindFlowError:
+        kind = "step" if self.side == "row" else "combine"
+        keep = ("unchanged" if kind == "step"
+                else f"unchanged, as b[{self.field!r}]")
         return WindFlowError(
-            f"step: {what} on row[{self.field!r}] ({self.why}) is not "
-            "supported in a step the CUDA kernel traces: a computed column "
-            "with trailing dimensions or of another dtype; such a column "
-            "may only pass through unchanged")
+            f"{kind}: {what} on {self.side}[{self.field!r}] ({self.why}) is "
+            f"not supported in a {kind} the CUDA kernel traces: a computed "
+            "column with trailing dimensions or of another dtype; such a "
+            f"column may only pass through {keep}")
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         for a in (*args, *(kwargs or {}).values()):
             if isinstance(a, _Opaque):
                 raise a.refusal(_fn_name(func))
-        raise WindFlowError(f"step: {_fn_name(func)} cannot be traced")
+        raise WindFlowError(f"{_fn_name(func)} cannot be traced")
 
     def __getattr__(self, name):
         if name.startswith("__"):

@@ -48,7 +48,10 @@
 //   rows, the chain of dependent round trips (ticket; keys and order;
 //   values and leaves; look-back; stores), whatever the run lengths.
 //   Float sums group by tile, warp and thread, not as the plain version's
-//   Hillis-Steele scan.
+//   Hillis-Steele scan. The tiled fold itself (tile_fold, over an IO
+//   policy that loads a row and stores a run's fold) is shared with the
+//   keyed reduce's fold K7 (reduce_fold.cuh), whose launches take the
+//   same scratch.
 // - K4, wf_ffat_query: the window query with eviction of _make_step.step
 //   steps 4-6 and _make_fire_step.fire (:547): for each fire lane the
 //   ordered combine with validity of the ring range [start, start + len)
@@ -192,18 +195,49 @@ __device__ __forceinline__ void merge_leaf(const C& cb,
     valid[at] = 1;
 }
 
-// A K2+K3 thread's rows from sorted row r0: the sorted keys (and the two
-// beside them) and the order, then, together, the live rows' values
-// through the order and the tails' leaves (`at`, read now: only the
-// tail's own thread writes its leaf); the rows' run heads and tails as
-// bits.
-template <class C, typename KT, int ITEMS>
+// K2+K3's rows: each value row read through the order, each run tail's
+// leaf read with the rows (only the tail's own thread writes it) and the
+// run's fold merged into it. The IO policy of the tiled fold (tile_fold):
+// load(k, src, key, live, tail, v) fills row k of the thread (`v`, zeros
+// unless `live`), store(cb, k, key, v) takes the fold of a run whose last
+// row is row k.
+template <class C, int ITEMS>
+struct LeafIO {
+    Planes<C::NF> forest, vals;
+    uint8_t* valid;
+    int log2F;
+    int at[ITEMS];
+    uint32_t cur[ITEMS][C::NF];
+    bool lv[ITEMS];
+
+    __device__ __forceinline__ void load(int k, int src, int key, bool live,
+                                         bool tail, uint32_t (&v)[C::NF]) {
+#pragma unroll
+        for (int f = 0; f < C::NF; ++f) v[f] = cur[k][f] = 0;
+        if (live) load_row<C>(vals, src, v);
+        at[k] = ((key >> log2F) << (log2F + 1)) + (1 << log2F)
+            + (key & ((1 << log2F) - 1));
+        lv[k] = false;
+        if (tail) {
+            load_row<C>(forest, at[k], cur[k]);
+            lv[k] = valid[at[k]] != 0;
+        }
+    }
+
+    __device__ __forceinline__ void store(const C& cb, int k, int,
+                                          const uint32_t (&v)[C::NF]) {
+        merge_leaf<C>(cb, forest, valid, at[k], cur[k], lv[k], v);
+    }
+};
+
+// A thread's rows from sorted row r0: the sorted keys (and the two beside
+// them) and the order, then, together, the live rows through the IO
+// policy; the rows' run heads and tails as bits.
+template <class C, typename KT, int ITEMS, class IO>
 __device__ __forceinline__ void load_tile(
-    const Planes<C::NF>& forest, const Planes<C::NF>& vals,
-    const uint8_t* valid, const KT* skeys, const int32_t* order, int n,
-    int log2F, int sentinel, int r0, int (&key)[ITEMS], int (&at)[ITEMS],
-    uint32_t (&v)[ITEMS][C::NF], uint32_t (&cur)[ITEMS][C::NF],
-    bool (&lv)[ITEMS], uint32_t& heads, uint32_t& tails) {
+    IO& io, const KT* skeys, const int32_t* order, int n, int sentinel,
+    int r0, int (&key)[ITEMS], uint32_t (&v)[ITEMS][C::NF], uint32_t& heads,
+    uint32_t& tails) {
     int src[ITEMS];
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
@@ -227,36 +261,30 @@ __device__ __forceinline__ void load_tile(
             tails |= 1u << k;
     }
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-#pragma unroll
-        for (int f = 0; f < C::NF; ++f) v[k][f] = cur[k][f] = 0;
-        if (key[k] >= 0 && key[k] < sentinel) load_row<C>(vals, src[k], v[k]);
-        at[k] = ((key[k] >> log2F) << (log2F + 1)) + (1 << log2F)
-            + (key[k] & ((1 << log2F) - 1));
-        lv[k] = false;
-        if (tails >> k & 1u) {
-            load_row<C>(forest, at[k], cur[k]);
-            lv[k] = valid[at[k]] != 0;
-        }
-    }
+    for (int k = 0; k < ITEMS; ++k)
+        io.load(k, src[k], key[k], key[k] >= 0 && key[k] < sentinel,
+                (tails >> k & 1u) != 0, v[k]);
 }
 
-}  // namespace wf
-
+// The tiled segmented fold with its look-back (see the header comment),
+// shared by K2+K3 and the keyed reduce's fold (reduce_fold.cuh): one
+// tile of WF_INGEST_THREADS threads x ITEMS sorted rows, its index a
+// ticket in arrival order (returned). Each run of equal keys below the
+// sentinel folds in row order with cb.node(earlier, later, true, true),
+// and the thread holding its last row hands the fold to io.store.
 // status: [0] the tile ticket, [1, 1 + T) the tiles' status words; rows:
 // the tiles' aggregates, then their inclusive prefixes, NF words a tile.
 // A status word sits at the same place whatever n and NF are, and no
 // value is ever written to the status buffer, so an earlier launch leaves
 // only status words of other sequence numbers there.
-template <class C, typename KT>
-__global__ void __launch_bounds__(WF_INGEST_THREADS, 1)
-wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
-               uint8_t* __restrict__ valid, const KT* __restrict__ skeys,
-               const int32_t* __restrict__ order, int n, int log2F,
-               int sentinel, uint32_t* __restrict__ ticket,
-               uint32_t* __restrict__ rows, int n_tiles, uint32_t seq) {
+template <class C, typename KT, int ITEMS, class IO>
+__device__ __forceinline__ int tile_fold(const C& cb, IO& io,
+                                         const KT* skeys,
+                                         const int32_t* order, int n,
+                                         int sentinel, uint32_t* ticket,
+                                         uint32_t* rows, int n_tiles,
+                                         uint32_t seq) {
     constexpr int NF = C::NF;
-    constexpr int ITEMS = wf::ingest_items<NF>();
     constexpr int TILE = WF_INGEST_THREADS * ITEMS;
     constexpr int WARPS = WF_INGEST_THREADS / 32;
     __shared__ int s_tile;
@@ -279,17 +307,15 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
     }
     __syncthreads();
     const int tile = s_tile;
-    int key[ITEMS], at[ITEMS];
-    uint32_t v[ITEMS][NF], cur[ITEMS][NF], heads, tails;
-    bool lv[ITEMS];
-    wf::load_tile<C, KT, ITEMS>(forest, vals, valid, skeys, order, n, log2F,
-                                sentinel, tile * TILE + tid * ITEMS, key, at,
-                                v, cur, lv, heads, tails);
+    int key[ITEMS];
+    uint32_t v[ITEMS][NF], heads, tails;
+    load_tile<C, KT, ITEMS>(io, skeys, order, n, sentinel,
+                            tile * TILE + tid * ITEMS, key, v, heads, tails);
 
     // ---- the thread's rows, folded in order ------------------------------
 #pragma unroll
     for (int k = 1; k < ITEMS; ++k)
-        if (!(heads >> k & 1u)) wf::fold_into<C>(cb, v[k - 1], v[k]);
+        if (!(heads >> k & 1u)) fold_into<C>(cb, v[k - 1], v[k]);
     // the rows of the thread's first run (up to its first head past row 0)
     const uint32_t later = heads & ~1u;
     const uint32_t first_run = later ? (later & (0u - later)) - 1u
@@ -300,7 +326,7 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
 
     // ---- segmented inclusive scan of the threads' trailing folds --------
     uint32_t x[NF];
-    wf::copy_row<NF>(x, v[ITEMS - 1]);
+    copy_row<NF>(x, v[ITEMS - 1]);
     bool h = heads != 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -310,8 +336,8 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
         const bool yh = __shfl_up_sync(WF_FULL, h ? 1 : 0, o) != 0;
         if (lane >= o) {
             bool ah = yh;
-            wf::seg_fold<C>(cb, y, ah, x, h);
-            wf::copy_row<NF>(x, y);
+            seg_fold<C>(cb, y, ah, x, h);
+            copy_row<NF>(x, y);
             h = ah;
         }
     }
@@ -339,17 +365,17 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
             uint32_t a[NF];
 #pragma unroll
             for (int f = 0; f < NF; ++f) a[f] = s_wv[w][f];
-            wf::seg_fold<C>(cb, wv, wh, a, s_wh[w]);
+            seg_fold<C>(cb, wv, wh, a, s_wh[w]);
         }
         if (lane == 0) {
-            wf::copy_row<NF>(ev, wv);
+            copy_row<NF>(ev, wv);
             eh = wh;
         } else {
             uint32_t a[NF];
-            wf::copy_row<NF>(a, wv);
+            copy_row<NF>(a, wv);
             bool ah = wh;
-            wf::seg_fold<C>(cb, a, ah, ev, eh);
-            wf::copy_row<NF>(ev, a);
+            seg_fold<C>(cb, a, ah, ev, eh);
+            copy_row<NF>(ev, a);
             eh = ah;
         }
     }
@@ -361,11 +387,11 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
         const uint32_t tag = seq << 2;
         uint32_t ta[NF];  // lane 31: the tile's aggregate
         bool th = wh;
-        wf::copy_row<NF>(ta, wv);
-        wf::seg_fold<C>(cb, ta, th, x, h);
+        copy_row<NF>(ta, wv);
+        seg_fold<C>(cb, ta, th, x, h);
         if (lane == 31)
-            wf::publish<NF>((th ? pres : aggs) + tile * NF, status + tile,
-                            ta, tag | (th ? wf::ST_PREFIX : wf::ST_AGGREGATE));
+            publish<NF>((th ? pres : aggs) + tile * NF, status + tile, ta,
+                        tag | (th ? ST_PREFIX : ST_AGGREGATE));
         if (s_open) {
             uint32_t c[NF];
 #pragma unroll
@@ -375,13 +401,13 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
                 // lane l reads tile j0 - l (tile 0 is a prefix: no lane
                 // that counts reads before it)
                 const int j = j0 - lane;
-                uint32_t st = tag | wf::ST_PREFIX;
+                uint32_t st = tag | ST_PREFIX;
                 bool ready;
                 do {
-                    if (j >= 0) st = wf::ld_acquire(status + j);
+                    if (j >= 0) st = ld_acquire(status + j);
                     ready = (st & ~3u) == tag && (st & 3u) != 0u;
                 } while (!__all_sync(WF_FULL, ready));
-                const bool pre = (st & 3u) == wf::ST_PREFIX;
+                const bool pre = (st & 3u) == ST_PREFIX;
                 const uint32_t pres_in = __ballot_sync(WF_FULL, pre);
                 const int last = pres_in ? __ffs(pres_in) - 1 : 31;
                 uint32_t a[NF];
@@ -399,28 +425,28 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
 #pragma unroll
                     for (int f = 0; f < NF; ++f)
                         y[f] = __shfl_down_sync(WF_FULL, a[f], o);
-                    if (lane + o <= last) wf::fold_into<C>(cb, y, a);
+                    if (lane + o <= last) fold_into<C>(cb, y, a);
                 }
 #pragma unroll
                 for (int f = 0; f < NF; ++f)
                     a[f] = __shfl_sync(WF_FULL, a[f], 0);
-                if (j0 < tile - 1) wf::fold_into<C>(cb, a, c);
-                else wf::copy_row<NF>(c, a);
+                if (j0 < tile - 1) fold_into<C>(cb, a, c);
+                else copy_row<NF>(c, a);
                 if (pres_in) break;
             }
             if (lane == 31) {
 #pragma unroll
                 for (int f = 0; f < NF; ++f) s_carry[f] = c[f];
                 if (!th) {
-                    wf::fold_into<C>(cb, c, ta);
-                    wf::publish<NF>(pres + tile * NF, status + tile, ta,
-                                    tag | wf::ST_PREFIX);
+                    fold_into<C>(cb, c, ta);
+                    publish<NF>(pres + tile * NF, status + tile, ta,
+                                tag | ST_PREFIX);
                 }
             }
         }
     }
 
-    // ---- the leaf merge: the thread holding a run's last row -------------
+    // ---- the run tails: the thread holding a run's last row --------------
     // a tail of a first run that began in an earlier thread of the tile
     // folds the exclusive prefix in first; one that began in an earlier
     // tile (`late`) also the carry, after the look-back
@@ -430,8 +456,8 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
         if (!(tails >> k & 1u) || (late >> k & 1u)) continue;
-        if (prefixed >> k & 1u) wf::fold_into<C>(cb, ev, v[k]);
-        wf::merge_leaf<C>(cb, forest, valid, at[k], cur[k], lv[k], v[k]);
+        if (prefixed >> k & 1u) fold_into<C>(cb, ev, v[k]);
+        io.store(cb, k, key[k], v[k]);
     }
     __syncthreads();  // the carry is in shared memory
 #pragma unroll
@@ -440,10 +466,31 @@ wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
         uint32_t c[NF];
 #pragma unroll
         for (int f = 0; f < NF; ++f) c[f] = s_carry[f];
-        if (prefixed >> k & 1u) wf::fold_into<C>(cb, ev, v[k]);
-        wf::fold_into<C>(cb, c, v[k]);
-        wf::merge_leaf<C>(cb, forest, valid, at[k], cur[k], lv[k], v[k]);
+        if (prefixed >> k & 1u) fold_into<C>(cb, ev, v[k]);
+        fold_into<C>(cb, c, v[k]);
+        io.store(cb, k, key[k], v[k]);
     }
+    return tile;
+}
+
+}  // namespace wf
+
+// K2+K3 (see the header comment): the tiled fold with LeafIO.
+template <class C, typename KT>
+__global__ void __launch_bounds__(WF_INGEST_THREADS, 1)
+wf_ffat_ingest(Planes<C::NF> forest, Planes<C::NF> vals, const C cb,
+               uint8_t* __restrict__ valid, const KT* __restrict__ skeys,
+               const int32_t* __restrict__ order, int n, int log2F,
+               int sentinel, uint32_t* __restrict__ ticket,
+               uint32_t* __restrict__ rows, int n_tiles, uint32_t seq) {
+    constexpr int ITEMS = wf::ingest_items<C::NF>();
+    wf::LeafIO<C, ITEMS> io;
+    io.forest = forest;
+    io.vals = vals;
+    io.valid = valid;
+    io.log2F = log2F;
+    wf::tile_fold<C, KT, ITEMS>(cb, io, skeys, order, n, sentinel, ticket,
+                                rows, n_tiles, seq);
 }
 
 // ------------------------------------------------------------------ K4 ---

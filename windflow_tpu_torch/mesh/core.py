@@ -97,9 +97,9 @@ from ..basic import WindFlowError
 from ..kernels.ffat_step import (comb_valid, fire_query, ingest_fold,
                                  lane_blocks, reserve_ingest_scratch,
                                  sort_rows)
-from ..gpu.scan import segmented_scan
 from ..gpu.schema import broadcast_scalar_fields, canonical
 from ..kernels.forest_rebuild import forest_rebuild
+from ..kernels.reduce_fold import keyed_fold
 from ..kernels.grid_scan import (HEAVY_ROWS, MAX_HEAVY_BLOCKS, GridStep,
                                   KeyRows, grid_walk, heavy_keys_device)
 from ..pytree import tree_flatten, tree_map, tree_unflatten
@@ -1457,52 +1457,44 @@ def sharded_grid_scan(mesh: KeyMesh, func, filter_mode: bool,
 def sharded_keyed_reduce(mesh: KeyMesh, combine, key_capacity: int,
                          local_batch: int):
     """Mesh-sharded keyed Reduce: per-batch ``reduce_by_key`` with the
-    KEYBY shuffle as the flat-owner ``all_to_all`` and the combine as a
-    segmented scan on each key's owner shard (``gpu/scan.py``; stacked,
-    one scan over each group's received lanes sorted by slot). Fields
-    the combine does not return pass through unchanged.
+    KEYBY shuffle as the flat-owner ``all_to_all`` and the combine folding
+    each slot's rows on its owner shard (stacked, one fold over each
+    group's received lanes sorted by slot: K7, ``kernels/reduce_fold.py``
+    ``keyed_fold``, with the group's slot count as the sentinel of the
+    invalid lanes, on the group device's current stream). Fields the
+    combine does not return pass through unchanged.
 
     Returns ``(step, meta)``: ``step(slots, vals) -> (res, touched,
     n_tuples)`` over each group's operands (one group: the global ones),
     ``res`` mapping each field to a ``(K_g,)`` tensor of per-slot results
-    of the group's rows, ``touched`` the ``(K_g,)`` mask of slots the
-    batch touched; ``meta = (K_pad, k_local, GB)``."""
+    of the group's rows (computed fields zero where untouched),
+    ``touched`` the ``(K_g,)`` mask of slots the batch touched; ``meta =
+    (K_pad, k_local, GB)``."""
     ns = mesh_shard_count(mesh)
     K_pad = math.ceil(key_capacity / ns) * ns
     k_local = K_pad // ns
     C = local_batch
     GB = ns * local_batch
+    if K_pad + 1 > INT32_MAX:
+        raise WindFlowError(f"sharded_keyed_reduce: {K_pad} slots overflow "
+                            "the int32 slot index")
+    for grp in mesh.groups:
+        # K7's status words for the group's received lanes, made here
+        # rather than in a step
+        reserve_ingest_scratch(grp.device, grp.n * ns * C)
 
     def step(slots, vals):
         routed = _route_flat_groups(mesh, k_local, C, slots, slots, vals)
         rs, rv, valid = (_glist(mesh, routed[i]) for i in (0, 2, 3))
         res_g, touched_g = [], []
         for G, grp in enumerate(mesh.groups):
-            dev = grp.device
             K_g, off = grp.n * k_local, grp.lo * k_local
             gslot = torch.where(valid[G], rs[G] - off if off else rs[G],
-                                K_g).to(torch.int64)
-            order = torch.sort(gslot, stable=True).indices  # arrival in key
-            sl = gslot[order]
-            same_prev = torch.cat([torch.zeros(1, dtype=torch.bool,
-                                               device=dev),
-                                   sl[1:] == sl[:-1]])
-            scanned = segmented_scan(combine, {k: v[order]
-                                               for k, v in rv[G].items()},
-                                     same_prev)
-            is_end = torch.cat([sl[1:] != sl[:-1],
-                                torch.ones(1, dtype=torch.bool, device=dev)]) \
-                & (sl < K_g)
-            safe = torch.where(is_end, sl, K_g)
-            res = {}
-            for f, v in scanned.items():
-                buf = torch.zeros(K_g + 1, dtype=v.dtype, device=dev)
-                buf[safe] = torch.where(is_end, v, 0).to(v.dtype)
-                res[f] = buf[:K_g]
-            tbuf = torch.zeros(K_g + 1, dtype=torch.bool, device=dev)
-            tbuf[safe] = is_end
+                                K_g).to(torch.int32)
+            order, sl = sort_rows(gslot)  # arrival order within a slot
+            res, touched = keyed_fold(combine, rv[G], order, sl, K_g)
             res_g.append(res)
-            touched_g.append(tbuf[:K_g])
+            touched_g.append(touched)
         return (_gout(mesh, res_g), _gout(mesh, touched_g),
                 _gout(mesh, [v.sum() for v in valid]))
 
