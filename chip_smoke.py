@@ -74,14 +74,18 @@ Phases, each printing one line of its own:
    filter's mask as ``valid``), on a mesh group's lanes (a quarter on the
    sentinel) and on stress layouts (one run, every row invalid, 65,536
    keys, float32, half of ``valid`` out, runs ending on tile edges, an
-   int64 and a 2-D column passing through, the diamond's combine), K6
-   also at 65,537, 40,000 and 100 rows: K6 bit-identical, K7 exact on
-   ints and bools and within STEP_FOLD_RTOL on floats; a K7 launch
-   between two K2+K3 launches on one stream, each exact; for the timed
-   layouts the kernel's device time, launches and event bracket, the
-   plain version's bracket, the bytes bound (only the rows a kernel must
-   move: K7 the live rows' slots and order, the valid live rows' planes;
-   K6 every row's validity, the valid rows' planes) and for the int sums
+   int64 and a 2-D column passing through, the diamond's combine, runs at
+   K7's regimes' edges, long runs split over many chunk blocks beside
+   slots of no run), K6 in the unfused global reduce's ``size`` form on
+   the graph_gpu batch, also at 65,537, 40,000 and 100 rows and at
+   ragged sizes and size 1: K6 bit-identical, K7 exact on ints and bools
+   and within STEP_FOLD_RTOL on floats, each row with K7's slots by
+   regime or K6's stages; a K7 launch between two K2+K3 launches on one
+   stream, each exact; for the timed layouts the kernel's device time,
+   launches and event bracket, the plain version's bracket, the bytes
+   bound (only the rows a kernel must move: K7 the live rows' slots and
+   order, the valid live rows' planes, the slots' starts; K6 every row's
+   validity under a mask, the valid rows' planes) and for the int sums
    the library call (``index_add_`` into the slot buffer, ``torch.sum`` of
    the kept rows). Before them, phase ``fusion``, part ``ops``: the
    same stream (24 timed batches) through ``map -> filter -> global /
@@ -1471,12 +1475,18 @@ def programs_phase(torch, wt, blocks, card):
 # phase programs, K6 and K7: the reduce folds on the graph_gpu batch as
 # the reduce replicas and the fused exits get it, on the mesh's lanes and
 # on layouts that stress them
-# K7's layouts: (combine, slots, valid, kept rows); K6's the same rows
+# K7's layouts: (combine, slots, valid, kept rows); K6's the same rows.
+# The last three put K7's runs at its regimes' edges (31 / 32 / 33 rows;
+# BLOCK_ROWS - 1 / BLOCK_ROWS / BLOCK_ROWS + 1) and split long runs over
+# many chunk blocks, with slots of no run beside them
 FOLD_LAYOUTS = ("graph_gpu", "fused", "mesh", "one_run", "all_invalid",
                 "keys_65536", "float32", "half_valid", "tile_edges",
-                "passthrough", "dag")
-# K6 also at capacities that are no power of two
+                "passthrough", "dag", "thread_warp_edges",
+                "warp_block_edges", "long_split")
+# K6 also at capacities that are no power of two, with a mask; and with
+# the size form (the unfused global reduce's) at ragged sizes and size 1
 TREE_RAGGED = (BATCH + 1, 40_000, 100)
+TREE_SIZES = ((BATCH, 1), (BATCH, 40_001), (BATCH + 1, BATCH + 1))
 # the layouts timed (the paths' own, then the stress layouts' on the
 # second pass if the script is on time)
 FOLD_TIMED = ("graph_gpu", "fused", "mesh", "one_run", "keys_65536",
@@ -1516,6 +1526,7 @@ def fold_layout(torch, name, blocks, rng):
     """(combine name, columns, order, sorted slots, n_slots, valid or
     None, out_rows) of one K7 layout, numpy; K6 takes the columns and
     ``valid`` (or the first ``kept`` rows where None)."""
+    from windflow_tpu_torch.kernels import reduce_fold as rf
     cols, ts, _ = blocks[GRAPH_WARMUP]
     n = len(ts)
     key = cols["key"].astype(np.int64)
@@ -1554,6 +1565,22 @@ def fold_layout(torch, name, blocks, rng):
         lens[-1] += n - lens.sum()
         slot = np.repeat(np.arange(len(lens)), lens)[rng.permutation(n)]
         n_slots = out_rows = len(lens)
+    elif name in ("thread_warp_edges", "warp_block_edges", "long_split"):
+        edge = {"thread_warp_edges": rf.WARP_ROWS,
+                "warp_block_edges": rf.BLOCK_ROWS}.get(name)
+        # runs at the edge - 1, edge, edge + 1 and 1 row, over and over; or
+        # runs of 5, 9 and 20 chunks, each beside a slot of no run
+        lens = (np.resize([edge - 1, edge, edge + 1, 1],
+                          4 * n // (3 * edge + 1) + 8)
+                if edge else np.resize([5 * rf.CHUNK_ROWS + 3, 0,
+                                        9 * rf.CHUNK_ROWS - 7, 0, 1,
+                                        20 * rf.CHUNK_ROWS], 12))
+        lens = lens[np.cumsum(lens) <= n]
+        lens = np.r_[lens, n - lens.sum()]
+        slot = np.repeat(np.arange(len(lens)), lens)[rng.permutation(n)]
+        valid = rng.random(n) < 0.7 if name == "warp_block_edges" else None
+        n_slots = len(lens)
+        out_rows = n_slots + 5
     else:  # float32, half_valid, passthrough: 256 keys, half valid
         valid = rng.random(n) < 0.5
         slot = key.copy()
@@ -1602,36 +1629,65 @@ def _row_bytes(cols, planes):
     return pb, sum(t[:1].numel() * t.element_size() for t in cols.values())
 
 
-def _fold_bytes(cols, live, live_valid, valid, out_rows, planes, n_out):
+def _fold_bytes(cols, live, live_valid, valid, out_rows, planes, n_out,
+                n_slots):
     """K7's bytes, only the rows it must move: each live row's slot and
     order (and validity byte, with ``valid``), the planes of the live
-    rows that are valid; each output row's columns and validity written
-    once; the pass-through columns' source rows read. The rows past the
-    sentinel are found by a search over the sorted slots: none read."""
+    rows that are valid, each slot's start; each output row's columns and
+    validity written once; the pass-through columns' source rows read.
+    The rows past the sentinel hold no run: none counted."""
     pb, row = _row_bytes(cols, planes)
     return (live * (8 + (valid is not None)) + live_valid * pb
-            + out_rows * (row + 1) + n_out * (row - pb))
+            + 4 * (n_slots + 1) + out_rows * (row + 1) + n_out * (row - pb))
 
 
-def _tree_bytes(cols, n, n_valid, planes):
-    """K6's bytes: every row's validity byte, the planes of the valid
-    rows; the output row's columns and validity written once and its
-    pass-through columns read at the source row."""
+def _tree_bytes(cols, n, n_valid, planes, masked):
+    """K6's bytes: every row's validity byte (with a mask; the size form
+    reads none), the planes of the valid rows; the output row's columns
+    and validity written once and its pass-through columns read at the
+    source row."""
     pb, row = _row_bytes(cols, planes)
-    return n + n_valid * pb + row + 1 + (row - pb)
+    return n * masked + n_valid * pb + row + 1 + (row - pb)
+
+
+def _fold_regimes(starts, n, max_run):
+    """K7's regimes on a launch's runs (``starts``, numpy): the slots a
+    thread folds, a warp, the chunk blocks, the slots with no run, and
+    the chunk blocks launched."""
+    from windflow_tpu_torch.kernels import reduce_fold as rf
+    lens = np.diff(starts)
+    return dict(thread=int(((lens > 0) & (lens < rf.WARP_ROWS)).sum()),
+                warp=int(((lens >= rf.WARP_ROWS)
+                          & (lens < rf.BLOCK_ROWS)).sum()),
+                block=int((lens >= rf.BLOCK_ROWS).sum()),
+                empty=int((lens == 0).sum()),
+                chunk_blocks=rf.chunk_blocks(n, max_run),
+                longest=int(lens.max(initial=0)))
+
+
+def _fold_args(c):
+    """A layout's K7 arguments, ``keyed_fold``'s order."""
+    return (c["comb"], c["cols"], c["order"], c["slots"], c["n_slots"],
+            c["valid"], c["out_rows"], c["starts"], c["max_run"])
 
 
 def reduce_fold_phase(torch, wt, blocks, card):
     """Phase ``programs``, K6 and K7: every FOLD_LAYOUTS layout through
-    K7 (``keyed_fold``) and K6 (``tree_reduce``, also at TREE_RAGGED
-    capacities) and their plain versions on the card: validity equal,
-    ints and bools exact, K7's floats within STEP_FOLD_RTOL, K6 bit for
-    bit; K2+K3, K7 and K2+K3 again on one stream with no sync between
-    them, each exact; then, for the FOLD_TIMED layouts, the kernel's
-    device time, launches and event bracket, the plain version's
-    bracket, the bytes bound and, for the int sums, the library call
-    (``index_add_`` into the slot buffer, ``torch.sum`` over the kept
-    rows). Returns rows by (kernel, layout) and errors by kernel."""
+    K7 (``keyed_fold``, with its starts and longest run as the host's
+    prep makes them; the mesh layout with the device's ``run_starts`` and
+    no longest run, as the mesh runs it) and K6 (``tree_reduce``, the
+    graph_gpu layout in the size form the unfused global reduce uses,
+    also at TREE_RAGGED capacities and TREE_SIZES) and their plain
+    versions on the card: validity equal, ints and bools exact, K7's
+    floats within STEP_FOLD_RTOL, K6 bit for bit; K2+K3, K7 and K2+K3
+    again on one stream with no sync between them, each exact; then, for
+    the FOLD_TIMED layouts, the kernel's device time, launches and event
+    bracket, the plain version's bracket, the bytes bound and, for the
+    int sums, the library call (``index_add_`` into the slot buffer,
+    ``torch.sum`` over the kept rows). Each row names K7's regimes (slots
+    by regime, chunk blocks) or K6's stages. Returns rows by (kernel,
+    layout) and errors by kernel."""
+    from windflow_tpu_torch.gpu.ops_gpu import slot_starts
     from windflow_tpu_torch.kernels import reduce_fold as rf
     dev = torch.device("cuda")
     rng = np.random.default_rng(21)
@@ -1641,25 +1697,33 @@ def reduce_fold_phase(torch, wt, blocks, card):
     for name in FOLD_LAYOUTS:
         comb, cols, order, slots, n_slots, valid, out_rows = fold_layout(
             torch, name, blocks, rng)
+        starts, max_run = slot_starts(slots, n_slots)
         c = dict(comb=specs[comb], cname=comb,
                  cols={k: torch.from_numpy(v).to(dev)
                        for k, v in cols.items()},
                  order=torch.from_numpy(order).to(dev),
                  slots=torch.from_numpy(slots).to(dev), n_slots=n_slots,
                  valid=None if valid is None
-                 else torch.from_numpy(valid).to(dev), out_rows=out_rows)
+                 else torch.from_numpy(valid).to(dev), out_rows=out_rows,
+                 starts=torch.from_numpy(starts).to(dev), max_run=max_run)
+        if name == "mesh":  # as the mesh runs it: starts made on the card
+            c["starts"], c["max_run"] = rf.run_starts(c["slots"],
+                                                      n_slots), None
         n = len(order)
-        c["mask"] = c["valid"] if valid is not None else torch.from_numpy(
-            slots[np.argsort(order)] < n_slots).to(dev)
+        if name == "graph_gpu":  # the unfused global reduce's size form
+            c["tree"] = dict(size=int((slots < n_slots).sum()))
+            c["mask"] = torch.arange(n, device=dev) < c["tree"]["size"]
+        else:
+            c["mask"] = c["valid"] if valid is not None else torch.from_numpy(
+                slots[np.argsort(order)] < n_slots).to(dev)
+            c["tree"] = dict(valid=c["mask"])
         cases[name] = c
         fv = rf.fold_variant(c["comb"], c["cols"])
-        args = (c["comb"], c["cols"], c["order"], c["slots"], n_slots,
-                c["valid"], out_rows)
-        got, gv = rf.keyed_fold(*args)
-        ref, rv = rf.keyed_fold_ref(*args)
+        got, gv = rf.keyed_fold(*_fold_args(c))
+        ref, rv = rf.keyed_fold_ref(*_fold_args(c)[:7])
         torch.cuda.synchronize()
         e7 = _reduce_err(torch, f"K7 {name}", got, gv, ref, rv, False)
-        tg, tgv = rf.tree_reduce(c["comb"], c["cols"], c["mask"])
+        tg, tgv = rf.tree_reduce(c["comb"], c["cols"], **c["tree"])
         tr, trv = rf.tree_reduce_ref(c["comb"], c["cols"], c["mask"])
         torch.cuda.synchronize()
         _reduce_err(torch, f"K6 {name}", tg, tgv, tr, trv, True)
@@ -1676,36 +1740,44 @@ def reduce_fold_phase(torch, wt, blocks, card):
             program="K7_keyed_fold", replaces="windflow_tpu/tpu/ops_tpu.py:1238",
             max_abs_err=e7, float_rtol=STEP_FOLD_RTOL,
             bytes=_fold_bytes(c["cols"], live, live_valid, c["valid"],
-                              out_rows, fv.planes, n_out),
-            live_rows=live, live_valid_rows=live_valid, **base)
+                              out_rows, fv.planes, n_out, n_slots),
+            live_rows=live, live_valid_rows=live_valid,
+            starts_on_card=name == "mesh",
+            regimes=_fold_regimes(starts, n, c["max_run"]), **base)
         n_valid = int(c["mask"].sum())
         rows["tree_reduce", name] = dict(
             program="K6_tree_reduce", replaces="windflow_tpu/tpu/ops_tpu.py:280",
             bit_identical=True, max_abs_err=0.0,
-            bytes=_tree_bytes(c["cols"], n, n_valid, fv.planes),
-            valid_rows=n_valid, **base)
-    for n in TREE_RAGGED:  # K6 at capacities that are no power of two
+            bytes=_tree_bytes(c["cols"], n, n_valid, fv.planes,
+                              "valid" in c["tree"]),
+            valid_rows=n_valid, size_form="size" in c["tree"],
+            stages=rf.tree_stages(n, len(fv.planes) + 2), **base)
+    for n, size in [(n, None) for n in TREE_RAGGED] + list(TREE_SIZES):
+        # K6 at capacities that are no power of two, and the size form
         cols = {"key": torch.from_numpy(rng.integers(0, 256, n).astype(
                     np.int32)).to(dev),
                 "value": torch.from_numpy(rng.integers(-99, 99, n).astype(
                     np.int32)).to(dev)}
-        mask = torch.from_numpy(rng.random(n) < 0.5).to(dev)
-        tg, tgv = rf.tree_reduce(_sum_value, cols, mask)
+        mask = (torch.from_numpy(rng.random(n) < 0.5).to(dev) if size is None
+                else torch.arange(n, device=dev) < size)
+        tg, tgv = rf.tree_reduce(_sum_value, cols, **(
+            dict(valid=mask) if size is None else dict(size=size)))
         tr, trv = rf.tree_reduce_ref(_sum_value, cols, mask)
         torch.cuda.synchronize()
-        _reduce_err(torch, f"K6 ragged {n}", tg, tgv, tr, trv, True)
-        phase("programs", program="K6_tree_reduce", layout=f"ragged_{n}",
-              rows=n, bit_identical=True, card=card)
+        label = f"ragged_{n}" if size is None else f"size_{size}_of_{n}"
+        _reduce_err(torch, f"K6 {label}", tg, tgv, tr, trv, True)
+        phase("programs", program="K6_tree_reduce", layout=label, rows=n,
+              size=size, bit_identical=True,
+              stages=rf.tree_stages(n, 3), card=card)
     phase("programs", **fold_back_to_back(torch, wt, cases["graph_gpu"]))
     for name in FOLD_TIMED:
         c = cases[name]
-        args = (c["comb"], c["cols"], c["order"], c["slots"], c["n_slots"],
-                c["valid"], c["out_rows"])
+        args = _fold_args(c)
         for kernel, fn, plain in (
                 ("keyed_fold", lambda: rf.keyed_fold(*args),
-                 lambda: rf.keyed_fold_ref(*args)),
+                 lambda: rf.keyed_fold_ref(*args[:7])),
                 ("tree_reduce", lambda: rf.tree_reduce(c["comb"], c["cols"],
-                                                       c["mask"]),
+                                                       **c["tree"]),
                  lambda: rf.tree_reduce_ref(c["comb"], c["cols"],
                                             c["mask"]))):
             row = rows[kernel, name]
@@ -1752,8 +1824,8 @@ def _fold_library(torch, kernel, c):
 
 def fold_back_to_back(torch, wt, c):
     """K2+K3, K7 and K2+K3 again on one stream with no sync between them
-    (the two kernels share the look-back's scratch per device and
-    stream), then each held against its plain version: exact."""
+    (K7 keeps no state of K2+K3's look-back scratch, and its own counters
+    are left zero), then each held against its plain version: exact."""
     from windflow_tpu_torch.kernels import ffat_step as fs
     from windflow_tpu_torch.kernels import reduce_fold as rf
     dev = torch.device("cuda")
@@ -1776,8 +1848,7 @@ def fold_back_to_back(torch, wt, c):
                                     device=dev)},
             vflat=torch.zeros(K * 2 * F, dtype=torch.bool, device=dev)))
     comb = wt.fieldwise(f0="sum")
-    args = (c["comb"], c["cols"], c["order"], c["slots"], c["n_slots"],
-            c["valid"], c["out_rows"])
+    args = _fold_args(c)
     torch.cuda.synchronize()
     a = ingests[0]
     fs.ingest_fold(comb, a["vals"], a["srt"], a["flat"], a["vflat"], F)
@@ -1794,9 +1865,9 @@ def fold_back_to_back(torch, wt, c):
                 rflat["f0"], i["flat"]["f0"]):
             fail("K2+K3 beside K7 on one stream: the fold differs from its "
                  "plain version")
-    ref, rv = rf.keyed_fold_ref(*args)
+    ref, rv = rf.keyed_fold_ref(*args[:7])
     _reduce_err(torch, "K7 between two K2+K3 launches", got, gv, ref, rv,
-              True)
+                True)
     return dict(program="K7_keyed_fold", case="between_K2K3_launches",
                 exact=True)
 
@@ -7673,6 +7744,8 @@ def main() -> None:
                 "bound_by": "bytes", "bound_share": t["bound_share"],
                 "library_ms": t["library_ms"],
                 "shape": [t["rows"], t["slots"], t["out_rows"]],
+                # K7: slots by regime at the path layout; K6: its stages
+                "regimes": t.get("regimes", t.get("stages")),
             })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,9 +32,13 @@ sequence) and the fieldwise library's K7, K6 and K2+K3 run against the
 plain versions, in a child process with a time limit. Also: the trace
 (``trace_reduce``: the planes and the pass-through columns, the refusal
 of a computed int64 field) and the generated sources' entry points, K6's
-launch plan, the scratch K7 shares with K2+K3, that ``Reduce_GPU`` on
-``device="cpu"`` takes any combine, and that nothing reads the padding
-rows of a keyed ``Reduce_GPU``'s output.
+stages (each row and partial read once by the kernel's class layout),
+K7's ``starts`` from the host's sort and from the mesh's device sort on
+every ``chip_smoke`` layout, a launch's one output buffer and in-kernel
+gathers, the ``size`` form of K6 against ``masked_tree_reduce``, that the
+reduce replicas hand the kernels ``size`` and ``starts``, that
+``Reduce_GPU`` on ``device="cpu"`` takes any combine, and that nothing
+reads the padding rows of a keyed ``Reduce_GPU``'s output.
 """
 
 import json
@@ -400,7 +404,7 @@ def test_fold_variant_is_traced_once_and_fieldwise_takes_its_library():
 def test_library_sources_expand_the_reduce_entry_points():
     """No nvcc here: the fieldwise library and a traced variant's
     translation unit define K7's and K6's C entry points; the host's
-    tree geometry is the header's."""
+    geometry is the header's."""
     cu = (KERNELS / "forest_rebuild.cu").read_text()
     cuh = (KERNELS / "reduce_fold.cuh").read_text()
     assert '#include "reduce_fold.cuh"' in cu
@@ -408,10 +412,15 @@ def test_library_sources_expand_the_reduce_entry_points():
         assert re.search(rf"\bint {fn}\(", cu), fn
         assert re.search(rf"\bint {fn}\(", cuh), fn
     assert "#define WF_REDUCE_ENTRY_POINTS(Comb)" in cuh
-    assert int(re.search(r"#define WF_TREE_THREADS (\d+)", cuh)[1]) \
-        == rf.TREE_THREADS
-    assert int(re.search(r"#define WF_TREE_SMEM (\d+)", cuh)[1]) \
-        == rf.TREE_SMEM
+    for name, value in (("WF_FOLD_THREADS", rf.FOLD_THREADS),
+                        ("WF_FOLD_WARP_ROWS", rf.WARP_ROWS),
+                        ("WF_MAX_GATHER", rf.MAX_GATHER)):
+        assert int(re.search(rf"#define {name} (\d+)", cuh)[1]) == value
+    for fn, py in (("tree_rows", rf.tree_rows), ("tree_parts", rf.tree_parts)):
+        body = re.search(rf"constexpr int {fn}\(\) \{{\s*return ([^;]*);",
+                         cuh)[1]
+        for nf in range(3, 70):
+            assert _ternary(body, nf) == py(nf), (fn, nf)
     fv = rf.fold_variant(_combine("mean", torch),
                          {"n": torch.zeros(1, dtype=I32),
                           "x": torch.zeros(1, dtype=F32)})
@@ -421,58 +430,142 @@ def test_library_sources_expand_the_reduce_entry_points():
                      r"WfgCombine\)", src)
 
 
+def _ternary(expr, nf):
+    """The value of a C chain ``NF <= a ? x : NF <= b ? y : z`` at nf."""
+    for bound, val in re.findall(r"NF <= (\d+) \? (\d+) :", expr):
+        if nf <= int(bound):
+            return int(val)
+    return int(expr.rsplit(":", 1)[1])
+
+
+def _stage_positions(Q, B, per):
+    """numpy: the positions each thread of a K6 stage of B blocks over Q
+    positions loads (the header's class layout), and the positions the
+    stage's blocks hand on, by the kernel's index formulas."""
+    T = rf.FOLD_THREADS * B
+    b, w, lane = np.meshgrid(np.arange(B), np.arange(4), np.arange(32),
+                             indexing="ij")
+    c = (32 * b + lane + 32 * B * w).ravel()
+    cnt = Q // T if Q >= T else 1
+    assert cnt <= per
+    read = (c[:, None] + T * np.arange(cnt)[None, :]).ravel()
+    return read[read < Q], (32 * np.arange(B)[:, None]
+                            + np.arange(32)[None, :]).ravel()
+
+
 @pytest.mark.parametrize("n", [1, 2, 255, 1024, 1025, 65536, 65537,
                                1 << 20])
-@pytest.mark.parametrize("nf", [3, 8, 66])
-def test_tree_plan_covers_every_row(n, nf):
-    """P level-1 blocks of L rows cover the rows padded to a power of
-    two; blocks stage at most TREE_SMEM bytes; the scratch holds each
-    level's partials and the next level's counters."""
-    log2P, log2L, log2Lu = rf.tree_plan(n, nf)
-    P, L, Lu = 1 << log2P, 1 << log2L, 1 << log2Lu
+@pytest.mark.parametrize("nf", [3, 10, 66])
+def test_tree_stages_cover_every_row(n, nf):
+    """K6's stages: the first stage's threads, by the kernel's class
+    layout, read each of the m padded rows once, at most tree_rows a
+    thread; each later stage reads each partial the stage before it
+    published once, at most tree_parts a thread; the last stage is one
+    block; the scratch holds every stage's partials and counters."""
     m = 1 << max(0, n - 1).bit_length()
-    assert P * L == m and max(L, Lu) * nf * 4 <= rf.TREE_SMEM
+    stages = rf.tree_stages(n, nf)
+    assert stages[-1] == 1 and all(b >= 1 for b in stages)
+    Q, per = m, rf.tree_rows(nf)
+    for i, B in enumerate(stages):
+        read, handed = _stage_positions(Q, B, per)
+        assert np.array_equal(np.sort(read), np.arange(Q)), (i, B)
+        Q, per = len(handed), rf.tree_parts(nf)
+        if i + 1 < len(stages):  # the next stage's blocks gather 4 * per
+            nxt = stages[i + 1]
+            assert nxt == 1 or B == nxt * 4 * per
     counters, parts = rf.tree_words(n, nf)
-    c, need_c, need_p = P, 0, 0
-    while c > 1:
-        need_p += c * nf
-        c //= min(c, Lu)
-        need_c += c
-    assert (counters, parts) == (need_c, need_p)
+    assert counters == sum(stages[1:])
+    assert parts == sum(nf * 32 * b for b in stages[:-1])
 
 
-def test_keyed_fold_shares_the_ingest_scratch(monkeypatch):
-    """K7 takes K2+K3's scratch of its device and stream: one status
-    buffer, a new sequence number each launch, so the two kernels
-    interleave on one stream with no clear."""
-    monkeypatch.setattr(fs, "_SCRATCH", {})
-    cpu = torch.device("cpu")
-    seen = []
-    lib = SimpleNamespace(wf_keyed_fold=_Recorder(seen),
-                          wf_tree_reduce=_Recorder([]),
-                          wf_error_string=_Recorder([]))
-    n = 500
-    fields = {"v": torch.arange(n, dtype=I32)}
-    fv = rf.fold_variant(_combine("sum", torch), fields)
-    s1 = fs.ingest_scratch(cpu, 3, n, 1)
-    rf.launch_keyed_fold(lib, fv, None, fields,
-                         torch.arange(n, dtype=I32), torch.zeros(n, dtype=I32),
-                         1, None, 1, 3)
-    s3 = fs.ingest_scratch(cpu, 3, n, 1)
-    assert [s1[2], seen[0][1], s3[2]] == [1, 2, 3]
-    assert seen[0][0] == s1[0].data_ptr() == s3[0].data_ptr()
+def _layouts():
+    """chip_smoke's K7 layouts at 4,096 rows: name -> (order, sorted
+    slots, n_slots), numpy."""
+    import chip_smoke as cs
+    blocks = cs._blocks(cs.GRAPH_KEYS, seed=9,
+                        n_batches=cs.GRAPH_WARMUP + 1, batch=4096)
+    rng = np.random.default_rng(21)
+    out = {}
+    for name in cs.FOLD_LAYOUTS:
+        _, _, order, slots, n_slots, _, _ = cs.fold_layout(torch, name,
+                                                           blocks, rng)
+        out[name] = (order, slots, n_slots)
+    return out
 
 
-class _Recorder:
-    """A stand-in for a ctypes function: records the status buffer and
-    the sequence number of a K7 launch."""
+def _starts_model(ssorted, n_slots):
+    """numpy: slot s's first sorted row, s = 0..n_slots."""
+    return np.array([int(np.sum(ssorted < s)) for s in range(n_slots + 1)],
+                    dtype=np.int32)
 
-    def __init__(self, seen):
-        self.seen = seen
 
-    def __call__(self, *a):
-        self.seen.append((a[13], a[17]) if len(a) > 17 else a)
-        return 0
+@pytest.fixture(scope="module")
+def fold_layouts():
+    return _layouts()
+
+
+FOLD_LAYOUT_NAMES = ("graph_gpu", "fused", "mesh", "one_run", "all_invalid",
+                     "keys_65536", "float32", "half_valid", "tile_edges",
+                     "passthrough", "dag")
+
+
+@pytest.mark.parametrize("name", FOLD_LAYOUT_NAMES)
+def test_starts_from_the_host_sort(fold_layouts, name):
+    """A keyed Reduce_GPU's host prep on a layout's live rows (their
+    slots as int keys): ``reduce_order_and_slots`` then ``slot_starts``
+    gives each slot's first sorted row and the longest run, and the rows
+    of slot s's range are exactly the rows of its key, in arrival
+    order; ``fold_rows_to_device`` ships the three arrays as views of one
+    tensor."""
+    from windflow_tpu_torch.gpu.batch import BatchGPU
+    from windflow_tpu_torch.gpu.ops_gpu import (
+        fold_rows_to_device, reduce_order_and_slots, slot_starts)
+    order0, sk0, n_slots0 = fold_layouts[name]
+    arrival = np.empty_like(sk0)
+    arrival[order0] = sk0
+    keys = arrival[arrival < n_slots0].astype(np.int32)
+    cap = len(arrival)
+    op = wt.Reduce_GPU_Builder(_combine("sum", torch)).with_key_by("key") \
+        .build()
+    col = np.zeros(cap, np.int32)
+    col[:len(keys)] = keys
+    batch = BatchGPU({"key": torch.from_numpy(col)},
+                     np.zeros(cap, np.int64), len(keys), None, 0)
+    order, ssorted, slot_of_key = reduce_order_and_slots(op, batch)
+    n_slots = len(slot_of_key)
+    starts, longest = slot_starts(ssorted, n_slots)
+    assert starts.dtype == np.int32
+    assert np.array_equal(starts, _starts_model(ssorted, n_slots))
+    lens = np.diff(starts)
+    assert longest == (lens.max() if n_slots else 0)
+    for key, s in slot_of_key.items():
+        rows = order[starts[s]:starts[s + 1]]
+        assert np.array_equal(rows, np.flatnonzero(keys == key)), key
+    o, k, st = fold_rows_to_device(order, ssorted, starts,
+                                   torch.device("cpu"))
+    assert np.array_equal(o.numpy(), order)
+    assert np.array_equal(k.numpy(), ssorted)
+    assert np.array_equal(st.numpy(), starts)
+    assert o.untyped_storage().data_ptr() == st.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("name", FOLD_LAYOUT_NAMES)
+def test_starts_from_the_mesh_device_sort(fold_layouts, name):
+    """The mesh's keyed reduce: a layout's slots in arrival order (the
+    sentinel on the invalid lanes) sorted on the device (``sort_rows``)
+    and searched (``run_starts``): the starts equal the host's
+    ``slot_starts`` of the same sorted slots and the numpy model."""
+    from windflow_tpu_torch.gpu.ops_gpu import slot_starts
+    order0, sk0, n_slots = fold_layouts[name]
+    arrival = np.empty_like(sk0)
+    arrival[order0] = sk0
+    order, sl = fs.sort_rows(torch.from_numpy(arrival.astype(np.int32)))
+    starts = rf.run_starts(sl, n_slots)
+    assert starts.dtype is torch.int32 and starts.numel() == n_slots + 1
+    model = _starts_model(sl.numpy(), n_slots)
+    assert np.array_equal(starts.numpy(), model)
+    assert np.array_equal(slot_starts(sl.numpy(), n_slots)[0], model)
+    assert np.array_equal(sl.numpy(), np.sort(arrival, kind="stable"))
 
 
 def test_cpu_tensors_take_the_plain_path(monkeypatch):
@@ -535,6 +628,99 @@ def test_wrappers_check_their_arguments():
                       good, n)
     with pytest.raises(WindFlowError, match="valid"):
         rf.tree_reduce(_combine("sum", torch), fields, good)
+
+
+def test_tree_reduce_takes_the_mask_or_the_size():
+    """One of ``valid`` and ``size``, the size within the rows."""
+    fields = {"v": torch.arange(8, dtype=I32)}
+    mask = torch.ones(8, dtype=torch.bool)
+    for kw in ({}, {"valid": mask, "size": 8}):
+        with pytest.raises(WindFlowError, match="one of them"):
+            rf.tree_reduce(_combine("sum", torch), fields, **kw)
+    with pytest.raises(WindFlowError, match="size 9 of 8 rows"):
+        rf.tree_reduce(_combine("sum", torch), fields, size=9)
+
+
+SIZE_CASES = [(1, 1, "sum"), (100, 37, "max_n"), (1000, 1000, "mean"),
+              (4097, 2049, "sum"), (3000, 1, "mean")]
+
+
+@pytest.mark.parametrize("n,size,comb", SIZE_CASES,
+                         ids=[f"{c}-{n}-{k}" for n, k, c in SIZE_CASES])
+def test_tree_reduce_size_matches_jax_masked_tree_reduce(n, size, comb):
+    """``size`` stands for the prefix mask (the unfused global reduce's
+    batch rows): the same row as JAX's ``masked_tree_reduce`` under
+    ``arange(n) < size``."""
+    rng = np.random.default_rng(n + size)
+    cols = _columns(rng, n, rng.integers(0, 40, n))
+    mask = np.arange(n) < size
+    want = jax_tree_reduce(_combine(comb, jnp), _j(cols), jnp.asarray(mask))
+    got, gv = rf.tree_reduce(_combine(comb, torch), _t(cols), size=size)
+    assert gv.numpy().tolist() == [True]
+    for f in cols:
+        _close(f, got[f].numpy(), want[f],
+               CONTRACTED_RTOL if comb == "mean" else 0.0)
+    assert int(got["key"][0]) == cols["key"][_tree_source(mask)]
+
+
+def _fake_lib(seen):
+    """A stand-in for a loaded library: records each kernel call's packed
+    pointers and ints and writes source row 0 for each output row (the
+    pointer after the planes, the gathered columns and their outputs, and
+    K7's valid, skeys, order, starts, out_valid or K6's valid, out_valid;
+    K7's out_rows rows, K6's one)."""
+    import ctypes
+
+    def kernel(name, n_ints, src_after, rows_at):
+        def call(p, a, kinds):
+            ints = list(a[:n_ints])
+            seen.append((name, ints))
+            at = 2 * ints[0] + 2 * ints[1] + src_after
+            ctypes.memset(p[at], 0, 4 * (1 if rows_at is None
+                                         else ints[rows_at]))
+            return 0
+        return call
+    return SimpleNamespace(wf_keyed_fold=kernel("keyed_fold", 11, 5, 5),
+                           wf_tree_reduce=kernel("tree_reduce", 6, 2, None),
+                           wf_error_string=lambda code: b"")
+
+
+def _recorded(monkeypatch, name):
+    plain, seen = getattr(rf, name), []
+
+    def rec(*a, **k):
+        seen.append((a, k))
+        return plain(*a, **k)
+
+    monkeypatch.setattr(rf, name, rec)
+    return seen
+
+
+def test_global_reduce_gpu_folds_the_first_size_rows(monkeypatch):
+    """The unfused global Reduce_GPU hands K6 the batch's size, not a
+    mask tensor."""
+    seen = _recorded(monkeypatch, "tree_reduce")
+    rng = np.random.default_rng(8)
+    blocks = _blocks(rng, 3)
+    got = _reduce_graph(_combine("sum", torch), blocks, keyed=False)
+    assert int(got["v"].sum()) == sum(int(c["v"].sum()) for c, _, _ in
+                                      blocks)
+    assert seen and all(len(a) == 2 and set(k) == {"size"} and k["size"] > 0
+                        for a, k in seen), seen
+
+
+def test_keyed_reduce_gpu_ships_each_slots_starts(monkeypatch):
+    """The keyed Reduce_GPU hands K7 each slot's first sorted row and the
+    longest run, made on the host from its sorted slots."""
+    seen = _recorded(monkeypatch, "keyed_fold")
+    rng = np.random.default_rng(9)
+    _reduce_graph(_combine("sum_key", torch), _blocks(rng, 3))
+    assert seen
+    for a, _ in seen:
+        skeys, n_slots, starts, longest = a[3], a[4], a[7], a[8]
+        model = _starts_model(skeys.numpy(), n_slots)
+        assert np.array_equal(starts.numpy(), model)
+        assert longest == np.diff(model).max()
 
 
 # ---------------------------------------------------------------------------

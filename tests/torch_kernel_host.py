@@ -70,23 +70,53 @@ def build_host_library(source: str, out_dir: Path,
 
 
 # (kernel, case): K7 (rows, slots, output rows, valid share or None, key
-# layout), K6 (rows, valid share, float plane), K2+K3 (rows, K_cap, F,
-# fields)
+# layout or run lengths (a slot each, 0 for a slot with no run), and
+# options: "br" block_rows, "ch" chunk_rows, "max_run" known (default)
+# or None (the chunk blocks launched whatever the runs), "comb" the
+# combine), K6 (rows, valid share or None, float plane, size or None,
+# planes), K2+K3 (rows, K_cap, F, fields)
 CASES = {
-    "k7_small_tiles": ("k7", 300, 7, 8, None, "random"),
-    "k7_valid": ("k7", 1000, 50, 64, 0.7, "random"),
-    "k7_one_run": ("k7", 1000, 1, 1, None, "one"),
-    "k7_every_row_a_slot": ("k7", 700, 700, 1024, None, "each"),
-    "k7_sentinel_half": ("k7", 2000, 3, 5, 0.6, "sentinel"),
-    "k7_all_sentinel": ("k7", 129, 4, 4, None, "all_sentinel"),
-    "k7_all_invalid": ("k7", 800, 20, 20, 0.0, "random"),
-    "k7_many_tiles": ("k7", 6000, 40, 300, 0.9, "random"),
-    "k7_one_row": ("k7", 1, 1, 1, None, "one"),
-    "k6_one_row": ("k6", 1, 1.0, False),
-    "k6_seven": ("k6", 7, 0.5, False),
-    "k6_two_levels": ("k6", 5000, 0.9, True),
-    "k6_ragged": ("k6", 70_001, 0.5, False),
-    "k6_all_invalid": ("k6", 3000, 0.0, True),
+    "k7_small": ("k7", 300, 7, 8, None, "random", {}),
+    "k7_valid": ("k7", 1000, 50, 64, 0.7, "random", {}),
+    "k7_one_run": ("k7", 1000, 1, 1, None, "one", {}),
+    "k7_every_row_a_slot": ("k7", 700, 700, 1024, None, "each", {}),
+    "k7_sentinel_half": ("k7", 2000, 3, 5, 0.6, "sentinel",
+                         {"max_run": None, "br": 128, "ch": 128}),
+    "k7_all_sentinel": ("k7", 129, 4, 4, None, "all_sentinel",
+                        {"max_run": None}),
+    "k7_all_invalid": ("k7", 800, 20, 20, 0.0, "random", {}),
+    "k7_many_slots": ("k7", 6000, 40, 300, 0.9, "random", {}),
+    "k7_one_row": ("k7", 1, 1, 1, None, "one", {}),
+    "k7_thread_warp_edges": ("k7", 0, 0, 16, None,
+                             [31, 32, 33, 1, 31, 32, 33, 64, 2, 30], {}),
+    "k7_thread_warp_edges_valid": ("k7", 0, 0, 12, 0.5,
+                                   [33, 31, 2, 32, 1, 95, 31, 32], {}),
+    "k7_warp_block_edges": ("k7", 0, 0, 8, 0.8,
+                            [511, 512, 513, 5, 1023, 1024, 1025], {}),
+    "k7_warp_block_edges_small": ("k7", 0, 0, 8, None,
+                                  [127, 128, 129, 3, 255, 256, 257],
+                                  {"br": 128, "ch": 128}),
+    "k7_run_over_many_blocks": ("k7", 0, 0, 4, 0.7, [3, 6000, 2],
+                                {"br": 128, "ch": 128}),
+    "k7_keys_65536": ("k7", 65536, 65536, 65536, None, "each", {}),
+    "k7_gaps_beside_long_runs": ("k7", 0, 0, 16, None,
+                                 [0, 700, 0, 0, 600, 0, 3, 0, 0, 513, 0],
+                                 {"br": 256, "ch": 128, "max_run": None}),
+    "k7_gathered_and_selected": ("k7", 3000, 37, 64, 0.5, "random",
+                                 {"comb": "v_sum"}),
+    "k6_one_row": ("k6", 1, 1.0, False, None, 1),
+    "k6_seven": ("k6", 7, 0.5, False, None, 1),
+    "k6_two_levels": ("k6", 5000, 0.9, True, None, 2),
+    "k6_ragged": ("k6", 70_001, 0.5, False, None, 1),
+    "k6_all_invalid": ("k6", 3000, 0.0, True, None, 2),
+    "k6_one_stage_edge": ("k6", 512, 0.5, False, None, 1),
+    "k6_past_one_stage": ("k6", 513, 0.5, False, None, 1),
+    "k6_two_stage_edge": ("k6", 65536, 0.5, False, None, 1),
+    "k6_past_two_stages": ("k6", 65537, 0.5, True, None, 2),
+    "k6_ten_words_edge": ("k6", 256, 0.5, True, None, 8),
+    "k6_ten_words_three_stages": ("k6", 40_000, 0.5, True, None, 8),
+    "k6_ragged_size": ("k6", 3000, None, True, 1234, 2),
+    "k6_size_one": ("k6", 3000, None, False, 1, 1),
     "k23_one_field": ("k23", 3000, 16, 8, 1),
     "k23_three_fields": ("k23", 5000, 64, 4, 3),
     "k23_eight_fields": ("k23", 2000, 4, 2, 8),
@@ -103,33 +133,53 @@ def _columns(np, torch, rng, n):
                 np.int32))}
 
 
-def _k7(lib, case, seed):
-    import numpy as np
-    import torch
-    from windflow_tpu_torch import fieldwise
-    from windflow_tpu_torch.kernels import reduce_fold as rf
-    _, n, n_slots, out_rows, frac, layout = case
-    rng = np.random.default_rng(seed)
+def _k7_slots(np, rng, case):
+    """(rows, slots, n_slots, sorted slots' order) of a K7 case."""
+    _, n, n_slots, _, _, layout, _ = case
+    if not isinstance(layout, str):  # run lengths, a slot each
+        lens = np.asarray(layout)
+        n, n_slots = int(lens.sum()), len(lens)
+        slots = np.repeat(np.arange(n_slots), lens)[rng.permutation(n)]
+        return n, slots, n_slots
     slots = {"one": np.zeros(n, np.int64), "each": np.arange(n) % n_slots,
              "all_sentinel": np.full(n, n_slots)}.get(
         layout, rng.integers(0, n_slots, n))
     if layout == "sentinel":
         slots = np.where(rng.random(n) < 0.5, n_slots, slots)
+    if layout == "each":
+        slots = slots[rng.permutation(n)]
+    return n, slots, n_slots
+
+
+def _k7(lib, case, seed):
+    import numpy as np
+    import torch
+    from windflow_tpu_torch import fieldwise
+    from windflow_tpu_torch.kernels import reduce_fold as rf
+    out_rows, frac, opts = case[3], case[4], case[6]
+    rng = np.random.default_rng(seed)
+    n, slots, n_slots = _k7_slots(np, rng, case)
     order = np.argsort(slots, kind="stable")
     fields = _columns(np, torch, rng, n)
     valid = None if frac is None else torch.from_numpy(rng.random(n) < frac)
-    comb = fieldwise(v="sum", x="max")
+    comb = (fieldwise(v="sum") if opts.get("comb") == "v_sum"
+            else fieldwise(v="sum", x="max"))
     o = torch.from_numpy(order.astype(np.int32))
     sk = torch.from_numpy(slots[order].astype(np.int32))
-    fv = rf.fold_variant(comb, fields)
+    starts = rf.run_starts(sk, n_slots)
+    lens = np.diff(starts.numpy())
+    max_run = opts.get("max_run", int(lens.max(initial=0)))
+    br, ch = opts.get("br", rf.BLOCK_ROWS), opts.get("ch", rf.CHUNK_ROWS)
+    call = rf.make_call(comb, fields, lib)
     ref, rv = rf.keyed_fold_ref(comb, fields, o, sk, n_slots, valid, out_rows)
-    got, gv = rf.launch_keyed_fold(lib, fv, comb, fields, o, sk, n_slots,
-                                   valid, out_rows, 0)
+    got, gv = rf.launch_keyed_fold(
+        call, fields, o, sk, starts, n_slots, valid, out_rows,
+        rf.chunk_blocks(n, max_run, br, ch), 0, br, ch)
     ok = torch.equal(gv, rv)
     for f in fields:
         ok &= torch.equal(got[f][rv], ref[f][rv])
-        if f in fv.planes:  # no valid row: zeros in the kernel's planes
-            ok &= not got[f][~rv].any() or frac is not None
+        if f in call.planes + call.gathered and frac is None:
+            ok &= not got[f][~rv].any()  # no run: zeros
     return bool(ok)
 
 
@@ -138,17 +188,24 @@ def _k6(lib, case, seed):
     import torch
     from windflow_tpu_torch import fieldwise
     from windflow_tpu_torch.kernels import reduce_fold as rf
-    _, n, frac, floats = case
+    _, n, frac, floats, size, planes = case
     rng = np.random.default_rng(seed)
     fields = _columns(np, torch, rng, n)
-    valid = torch.from_numpy(rng.random(n) < frac)
-    comb = fieldwise(v="min", **({"x": "sum"} if floats else {}))
-    fv = rf.fold_variant(comb, fields)
-    ref, rv = rf.tree_reduce_ref(comb, fields, valid)
-    got, gv = rf.launch_tree_reduce(lib, fv, comb, fields, valid, 0)
+    for i in range(2, planes):
+        fields[f"w{i}"] = torch.from_numpy(rng.integers(-9, 9, n).astype(
+            np.int32))
+    valid = None if frac is None else torch.from_numpy(rng.random(n) < frac)
+    ops = {"v": "min", **({"x": "sum"} if floats else {}),
+           **{f"w{i}": ("sum", "max")[i % 2] for i in range(2, planes)}}
+    comb = fieldwise(**ops)
+    call = rf.make_call(comb, fields, lib)
+    mask = valid if size is None else torch.arange(n) < size
+    ref, rv = rf.tree_reduce_ref(comb, fields, mask)
+    got, gv = rf.launch_tree_reduce(call, fields, valid,
+                                    n if size is None else size, 0)
     ok = torch.equal(gv, rv)
     for f in fields:
-        if f in fv.planes or rv.all():
+        if f in call.planes or rv.all():
             a, b = got[f], ref[f]
             if a.dtype is torch.float32:  # bit for bit
                 a, b = a.view(torch.int32), b.view(torch.int32)
@@ -216,7 +273,7 @@ def _between(lib, seed):
         refs.append((rf_, rv))
     comb, _, srt, vals, flat, vflat = ingests[0]
     ok = _k23_launch(lib, comb, srt, vals, flat, vflat, 4) == 0
-    ok &= _k7(lib, CASES["k7_many_tiles"], seed)
+    ok &= _k7(lib, CASES["k7_many_slots"], seed)
     comb, _, srt, vals, flat, vflat = ingests[1]
     ok &= _k23_launch(lib, comb, srt, vals, flat, vflat, 4) == 0
     for (_, _, _, _, flat, vflat), (rf_, rv) in zip(ingests, refs):

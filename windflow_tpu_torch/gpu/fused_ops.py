@@ -65,12 +65,11 @@ import torch
 from ..basic import WindFlowError
 from ..kernels import reduce_fold
 from ..kernels.grid_scan import output_like
-from .batch import (BatchGPU, bucket_capacity, host_copies, to_device,
-                    zero_fields)
+from .batch import BatchGPU, bucket_capacity, host_copies, zero_fields
 from .ffat_gpu import Ffat_Windows_GPU, FfatGPUReplica
 from .ops_gpu import (Filter_GPU, GPUReplicaBase, Map_GPU, Reduce_GPU,
-                      _KeyedStateScan, compact_order, reduce_order_and_slots,
-                      row_mask)
+                      _KeyedStateScan, compact_order, fold_rows_to_device,
+                      reduce_order_and_slots, row_mask, slot_starts)
 
 
 def _adopt_chain(replica, ops) -> None:
@@ -229,7 +228,7 @@ class FusedGPUReplica(GPUReplicaBase):
             hargs[-1] = (torch.arange(cap, dtype=torch.int32,
                                       device=self.device),
                          torch.zeros(cap, dtype=torch.int32,
-                                     device=self.device), 1)
+                                     device=self.device), 1, None, None)
         if self.device.type == "cuda":
             self._load_steps(fields, cap)
         self._chain_body(fields, cap, hargs)
@@ -240,12 +239,13 @@ class FusedGPUReplica(GPUReplicaBase):
         """One batch through the chain: ``(out, readback)``, the device
         columns to emit and the device tensors the host reads back (none
         for a map-only chain). ``hargs[i]`` is sub-op i's prep output: a
-        stateful one's ``KeyRows``, the keyed terminator's
-        ``(order, sorted slots)``. Shared by the single and the megabatch
-        commit, so both launch the same kernels. Where the JAX package
-        reads back a reduce exit's ``compact_order(valid)`` and count only
-        to take the kept rows' largest ts, the port reads back the mask
-        itself: one byte a row and no compaction launches."""
+        stateful one's ``KeyRows``, the keyed terminator's ``(order,
+        sorted slots, slot count, starts, longest run)``. Shared by the
+        single and the megabatch commit, so both launch the same kernels.
+        Where the JAX package reads back a reduce exit's
+        ``compact_order(valid)`` and count only to take the kept rows'
+        largest ts, the port reads back the mask itself: one byte a row
+        and no compaction launches."""
         first = next(iter(fields.values()))
         valid = row_mask(first.shape[0], size, first.device)
         for spec, h in zip(self.specs, hargs):
@@ -269,10 +269,10 @@ class FusedGPUReplica(GPUReplicaBase):
             # dropped, as the unfused filter stage would have dropped its
             # rows. The surviving slots compact in slot order, in a buffer
             # of the slots' capacity bucket (the unfused replica's)
-            order, ssorted, n_slots = hargs[-1]
+            order, ssorted, n_slots, starts, max_run = hargs[-1]
             folded, fvalid = reduce_fold.keyed_fold(
                 self._combine, fields, order, ssorted, n_slots, valid,
-                bucket_capacity(n_slots))
+                bucket_capacity(n_slots), starts, max_run)
             torder, tcount = compact_order(fvalid)
             return ({c: a[torder] for c, a in folded.items()},
                     {"slots": torder, "tcount": tcount, "keep": valid})
@@ -293,14 +293,16 @@ class FusedGPUReplica(GPUReplicaBase):
         kextra = None
         kred = None
         if self._exit == "kreduce":
-            # key order over ALL rows, independent of the mask; order and
-            # slots ship from fresh pinned buffers
+            # key order over ALL rows, independent of the mask; order,
+            # slots and their starts ship in one copy
             order_np, ssorted_np, slot_of_key = reduce_order_and_slots(
                 self.ops[-1], batch)
             if not slot_of_key:
                 return None
-            kred = (to_device(order_np, self.device),
-                    to_device(ssorted_np, self.device), len(slot_of_key))
+            starts_np, max_run = slot_starts(ssorted_np, len(slot_of_key))
+            order, ssorted, starts = fold_rows_to_device(
+                order_np, ssorted_np, starts_np, self.device)
+            kred = (order, ssorted, len(slot_of_key), starts, max_run)
             kextra = list(slot_of_key)  # slot order == insertion order
         if self.device.type == "cuda" and (
                 self._stateful or self._exit in ("reduce", "kreduce")):

@@ -34,8 +34,9 @@ between replicas.
   of the host cold tier of ``state/tiered.py``.
 - ``Reduce_GPU`` keyed: one output per distinct key per batch (reference
   ``reduce_by_key``, ``reduce_gpu.hpp:245-251``). The HOST sorts the keys
-  once (``reduce_order_and_slots``) and ships the gather order and the
-  sorted slots, as the JAX package does; the device folds each key's rows
+  once (``reduce_order_and_slots``) and ships the gather order, the
+  sorted slots and each slot's first sorted row (``slot_starts``) in one
+  copy (``fold_rows_to_device``); the device folds each key's rows
   into its slot of a batch of ``bucket_capacity(keys)`` rows in one
   launch (K7, ``kernels/reduce_fold.py`` ``keyed_fold``; on the CPU its
   plain version, the segmented scan of ``gpu/scan.py``). The JAX package
@@ -45,8 +46,8 @@ between replicas.
   associative and commutative (``API:78-80``).
 - ``Reduce_GPU`` global (no key): the whole batch folds to ONE tuple by a
   validity-masked pairwise tree (K6, ``kernels/reduce_fold.py``
-  ``tree_reduce``, one launch; reference ``thrust::reduce``,
-  ``reduce_gpu.hpp:269-272``).
+  ``tree_reduce`` over the batch's first ``size`` rows, one launch;
+  reference ``thrust::reduce``, ``reduce_gpu.hpp:269-272``).
 
 On a card both reduces trace the combine at the first prep
 (``reduce_fold.prepare``): a computed field outside the traced language
@@ -187,6 +188,26 @@ def reduce_order_and_slots(op, batch: BatchGPU):
     order = stable_group_argsort(
         slots_np, len(slot_of_key) + 1).astype(np.int32)
     return order, slots_np[order], slot_of_key
+
+
+def slot_starts(ssorted: np.ndarray, n_slots: int):
+    """``(starts, longest run)`` of the ascending slots ``ssorted`` (the
+    padding rows on ``n_slots``, last): int32 ``starts[s]`` is slot s's
+    first sorted row, ``starts[n_slots]`` the live rows' end (K7's
+    ``starts``)."""
+    starts = np.searchsorted(ssorted, np.arange(n_slots + 1,
+                                                dtype=ssorted.dtype))
+    return (starts.astype(np.int32),
+            int(np.diff(starts).max()) if n_slots else 0)
+
+
+def fold_rows_to_device(order: np.ndarray, ssorted: np.ndarray,
+                        starts: np.ndarray, device: torch.device):
+    """``(order, ssorted, starts)`` on ``device`` from ONE host-to-device
+    copy of the three int32 arrays (views of one tensor)."""
+    dev = to_device(np.concatenate([order, ssorted, starts]), device)
+    n = len(order)
+    return dev[:n], dev[n:2 * n], dev[2 * n:]
 
 
 # ---------------------------------------------------------------------------
@@ -1117,8 +1138,7 @@ class GlobalReduceGPUReplica(GPUReplicaBase):
 
     def _warm_program(self, fields, cap: int) -> None:
         reduce_fold.prepare(self.op.combine, fields, cap)
-        reduce_fold.tree_reduce(self.op.combine, fields,
-                                row_mask(cap, cap, self.device))
+        reduce_fold.tree_reduce(self.op.combine, fields, size=cap)
 
     def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
         # on a card: the combine traced and its library loaded here, so a
@@ -1129,9 +1149,9 @@ class GlobalReduceGPUReplica(GPUReplicaBase):
     def process_device_batch(self, batch: BatchGPU) -> None:
         if batch.size == 0:
             return
-        out, _ = reduce_fold.tree_reduce(
-            self.op.combine, batch.fields,
-            row_mask(batch.capacity, batch.size, self.device))
+        # the first size rows: no mask tensor, no launch to make one
+        out, _ = reduce_fold.tree_reduce(self.op.combine, batch.fields,
+                                         size=batch.size)
         self.stats.device_programs_run += 1
         ts = np.array([int(batch.ts_host[:batch.size].max())],
                       dtype=np.int64)
@@ -1151,9 +1171,9 @@ class ReduceGPUReplica(GPUReplicaBase):
                                torch.zeros_like(idx), 1)
 
     def prep_device_batch(self, batch: BatchGPU) -> Optional[Callable]:
-        # host prep: ONE key sort and the sorted slots (on a card the
-        # combine traced and loaded first); the fold and the output batch
-        # are the deferred commit stage
+        # host prep: ONE key sort, the sorted slots and their starts (on a
+        # card the combine traced and loaded first), shipped in one copy;
+        # the fold and the output batch are the deferred commit stage
         reduce_fold.prepare(self.op.combine, batch.fields)
         order_np, ssorted, slot_of_key = reduce_order_and_slots(self.op,
                                                                 batch)
@@ -1161,9 +1181,9 @@ class ReduceGPUReplica(GPUReplicaBase):
         if n_out == 0:
             return None
         out_cap = bucket_capacity(n_out)
-        dev = self.device
-        order = to_device(order_np, dev)
-        slots = to_device(ssorted, dev)
+        starts_np, max_run = slot_starts(ssorted, n_out)
+        order, slots, starts = fold_rows_to_device(order_np, ssorted,
+                                                   starts_np, self.device)
         out_keys = list(slot_of_key)  # insertion order == slot order
         ts = np.full(out_cap, int(batch.ts_host[:batch.size].max()),
                      dtype=np.int64)
@@ -1171,7 +1191,7 @@ class ReduceGPUReplica(GPUReplicaBase):
         def commit() -> None:
             out, _ = reduce_fold.keyed_fold(self.op.combine, batch.fields,
                                             order, slots, n_out, None,
-                                            out_cap)
+                                            out_cap, starts, max_run)
             self.stats.device_programs_run += 1
             nb = BatchGPU(out, ts, n_out, batch.schema, batch.wm, out_keys)
             nb.stream_tag = batch.stream_tag

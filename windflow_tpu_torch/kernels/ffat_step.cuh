@@ -48,10 +48,8 @@
 //   rows, the chain of dependent round trips (ticket; keys and order;
 //   values and leaves; look-back; stores), whatever the run lengths.
 //   Float sums group by tile, warp and thread, not as the plain version's
-//   Hillis-Steele scan. The tiled fold itself (tile_fold, over an IO
-//   policy that loads a row and stores a run's fold) is shared with the
-//   keyed reduce's fold K7 (reduce_fold.cuh), whose launches take the
-//   same scratch.
+//   Hillis-Steele scan. The tiled fold itself is tile_fold, over an IO
+//   policy that loads a row and stores a run's fold.
 // - K4, wf_ffat_query: the window query with eviction of _make_step.step
 //   steps 4-6 and _make_fire_step.fire (:547): for each fire lane the
 //   ordered combine with validity of the ring range [start, start + len)
@@ -266,9 +264,8 @@ __device__ __forceinline__ void load_tile(
                 (tails >> k & 1u) != 0, v[k]);
 }
 
-// The tiled segmented fold with its look-back (see the header comment),
-// shared by K2+K3 and the keyed reduce's fold (reduce_fold.cuh): one
-// tile of WF_INGEST_THREADS threads x ITEMS sorted rows, its index a
+// The tiled segmented fold with its look-back (see the header comment):
+// one tile of WF_INGEST_THREADS threads x ITEMS sorted rows, its index a
 // ticket in arrival order (returned). Each run of equal keys below the
 // sentinel folds in row order with cb.node(earlier, later, true, true),
 // and the thread holding its last row hands the fold to io.store.
@@ -699,7 +696,7 @@ int run_query(const Planes<C::NF>& tr, const C& cb, uint8_t* valid,
 }
 
 template <int NF>
-Planes<NF> planes_of(void** p) {
+Planes<NF> planes_of(void* const* p) {
     Planes<NF> pl;
     for (int f = 0; f < NF; ++f) pl.ptr[f] = p[f];
     return pl;

@@ -12,8 +12,7 @@ versions.
   with a sequence number per launch, so no launch clears them, in a
   buffer of their own beside the tiles' published rows
   (``ingest_scratch``; ``reserve_ingest_scratch`` makes it before a
-  stream's first batch). The keyed reduce's fold K7
-  (``kernels/reduce_fold.py``) shares the tiled fold and this scratch.
+  stream's first batch).
 - ``fire_query`` (K4): the window query of every fire lane, then the
   eviction of the fire step's leaves and the key column; the plain
   version ``fire_query_ref`` is ``window_query`` (the ``LOGQ``-step tree

@@ -146,31 +146,13 @@ int query_fieldwise(void** planes, const int* kinds, uint8_t* valid,
 }
 
 template <int N>
-int keyed_fold_fieldwise(void** vals, const int* kinds, const uint8_t* valid,
-                         const void* skeys, int key_bytes,
-                         const int32_t* order, int n, int sentinel,
-                         void** out, uint8_t* out_valid, int32_t* out_src,
-                         int out_rows, uint32_t* status, int status_words,
-                         uint32_t* rows, int row_words, unsigned seq,
-                         cudaStream_t st) {
-    return wf::run_keyed_fold(wf::planes_of<N>(vals), mask_combine<N>(kinds),
-                              valid, skeys, key_bytes, order, n, sentinel,
-                              wf::planes_of<N>(out), out_valid, out_src,
-                              out_rows, status, status_words, rows, row_words,
-                              seq, st);
+int keyed_fold_fieldwise(void* const* p, const int* a, const int* kinds) {
+    return wf::keyed_fold_call(p, a, mask_combine<N>(kinds));
 }
 
 template <int N>
-int tree_reduce_fieldwise(void** vals, const int* kinds, const uint8_t* valid,
-                          int n, int log2P, int log2L, int log2Lu, void** out,
-                          uint8_t* out_valid, int32_t* out_src,
-                          uint32_t* counters, int counter_words,
-                          uint32_t* parts, int part_words, cudaStream_t st) {
-    return wf::run_tree_reduce(wf::planes_of<N>(vals), mask_combine<N>(kinds),
-                               valid, n, log2P, log2L, log2Lu,
-                               wf::planes_of<N>(out), out_valid, out_src,
-                               counters, counter_words, parts, part_words,
-                               st);
+int tree_reduce_fieldwise(void* const* p, const int* a, const int* kinds) {
+    return wf::tree_reduce_call(p, a, mask_combine<N>(kinds));
 }
 
 static bool bad_kinds(const int* kinds, int n_fields) {
@@ -241,42 +223,20 @@ int wf_ffat_query(void** planes, const int* kinds, int n_fields, void* valid,
                         ep, E, bd, B, out, q, ktable, kout, key_bytes, st)
 }
 
-// K7 over n sorted rows (reduce_fold.cuh: wf::run_keyed_fold).
-int wf_keyed_fold(void** vals, const int* kinds, int n_fields,
-                  const void* valid, const void* skeys, int key_bytes,
-                  const void* order, int n, int sentinel, void** out,
-                  void* out_valid, void* out_src, int out_rows, void* status,
-                  int status_words, void* rows, int row_words, unsigned seq,
-                  void* stream) {
+// K7 over n sorted rows, its arguments packed (reduce_fold.cuh:
+// wf::keyed_fold_call).
+int wf_keyed_fold(void* const* p, const int* a, const int* kinds) {
+    const int n_fields = a[wf::KF_NF];
     if (bad_kinds(kinds, n_fields)) return -1;
-    const uint8_t* v = static_cast<const uint8_t*>(valid);
-    const int32_t* o = static_cast<const int32_t*>(order);
-    uint8_t* ov = static_cast<uint8_t*>(out_valid);
-    int32_t* os = static_cast<int32_t*>(out_src);
-    uint32_t* ss = static_cast<uint32_t*>(status);
-    uint32_t* rs = static_cast<uint32_t*>(rows);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    WF_FIELDWISE_SWITCH(keyed_fold_fieldwise, vals, kinds, v, skeys,
-                        key_bytes, o, n, sentinel, out, ov, os, out_rows, ss,
-                        status_words, rs, row_words, seq, st)
+    WF_FIELDWISE_SWITCH(keyed_fold_fieldwise, p, a, kinds)
 }
 
-// K6 over n rows (reduce_fold.cuh: wf::run_tree_reduce).
-int wf_tree_reduce(void** vals, const int* kinds, int n_fields,
-                   const void* valid, int n, int log2P, int log2L, int log2Lu,
-                   void** out, void* out_valid, void* out_src,
-                   void* counters, int counter_words, void* parts,
-                   int part_words, void* stream) {
+// K6 over n rows, its arguments packed (reduce_fold.cuh:
+// wf::tree_reduce_call).
+int wf_tree_reduce(void* const* p, const int* a, const int* kinds) {
+    const int n_fields = a[wf::TR_NF];
     if (bad_kinds(kinds, n_fields)) return -1;
-    const uint8_t* v = static_cast<const uint8_t*>(valid);
-    uint8_t* ov = static_cast<uint8_t*>(out_valid);
-    int32_t* os = static_cast<int32_t*>(out_src);
-    uint32_t* cs = static_cast<uint32_t*>(counters);
-    uint32_t* ps = static_cast<uint32_t*>(parts);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    WF_FIELDWISE_SWITCH(tree_reduce_fieldwise, vals, kinds, v, n, log2P, log2L,
-                        log2Lu, out, ov, os, cs, counter_words, ps,
-                        part_words, st)
+    WF_FIELDWISE_SWITCH(tree_reduce_fieldwise, p, a, kinds)
 }
 
 const char* wf_error_string(int code) { return wf::error_string(code); }

@@ -9,46 +9,56 @@ plain versions.
   other through, and a slot whose rows are all invalid comes out invalid.
   Returns ``(out, out_valid)``, ``out_rows`` rows: slot s's fold and
   whether it holds a valid row; a row with no run is invalid, its
-  computed fields zero. The plain version ``keyed_fold_ref`` is the
-  Hillis-Steele scan of ``gpu/scan.py`` and the tail gather the keyed
-  ``Reduce_GPU`` ran before the kernel, scattered into the slots.
-- ``tree_reduce`` (K6): the whole batch to one row under ``valid``, the
-  JAX package's ``masked_tree_reduce`` (``tree_reduce_ref``, the plain
-  version: halving passes over the rows padded to a power of two). Returns
-  ``(out, out_valid)`` of one row; the row is garbage when no row is
-  valid (callers skip empty batches).
+  computed fields zero. On a card the kernel also takes each slot's first
+  sorted row, ``starts`` (int32, ``n_slots + 1``: ``run_starts``, or the
+  host's ``gpu/ops_gpu.py`` ``slot_starts``, shipped with the order), and,
+  where the caller knows it, the longest run (``max_run``: below
+  ``BLOCK_ROWS`` no chunk block is launched). The plain version
+  ``keyed_fold_ref`` is the Hillis-Steele scan of ``gpu/scan.py`` and the
+  tail gather the keyed ``Reduce_GPU`` ran before the kernel, scattered
+  into the slots.
+- ``tree_reduce`` (K6): the whole batch to one row under ``valid``, or
+  with ``size`` the first ``size`` rows (no mask tensor), the JAX
+  package's ``masked_tree_reduce`` (``tree_reduce_ref``, the plain
+  version: halving passes over the rows padded to a power of two).
+  Returns ``(out, out_valid)`` of one row; the row is garbage when no row
+  is valid (callers skip empty batches).
 
 A field the combine does not return takes the value of the last valid row
 of the run (K6: of the row the halving tree's selects keep, the later
 side of a pair where both are valid). On a card such a field never
-enters the kernel: the combine is traced once per column signature
+enters the kernel's fold: the combine is traced once per column signature
 (``combine_trace.trace_reduce``: the computed fields' planes, any other
 column passing through, of any dtype or shape), the kernel returns the
-source row of each output, and the wrapper gathers each pass-through
-column once (at a slot with no run, a pass-through column holds the
-batch's row 0 there, the plain version zeros). A computed field outside
-the traced language raises ``WindFlowError`` naming the operation: call
-``prepare`` at the first prep on a card. A ``fieldwise(...)`` combine of
-at most 8 int32 / float32 fields runs in the fieldwise library; every
-other combine in the traced variant's library, which also holds K1-K4.
+source row of each output and gathers there the 1-D int32 / float32
+pass-through columns (up to ``MAX_GATHER``; zero at a slot with no run,
+as in the plain version), and the wrapper gathers any other pass-through
+column once with ``index_select`` (row 0 at a slot with no run). A
+computed field outside the traced language raises ``WindFlowError``
+naming the operation: call ``prepare`` at the first prep on a card. A
+``fieldwise(...)`` combine of at most 8 int32 / float32 fields runs in the
+fieldwise library; every other combine in the traced variant's library,
+which also holds K1-K4.
 
 A tensor on the CPU goes through the plain version; on a CUDA card the
 wrapper checks its arguments and launches the kernel on PyTorch's current
-stream, or raises: nothing falls back. K7's tiles find their carry
-through K2+K3's scratch per device and stream (``ffat_step.
-ingest_scratch``), K6's last blocks their partials through a scratch of
-its own (``tree_scratch``). ``REDUCE_LAUNCHES`` counts the calls that
-launched either kernel, ``VARIANT_LAUNCHES`` the same by (kernel, variant
-tag), kernel ``"keyed_fold"`` or ``"tree_reduce"``.
+stream, or raises: nothing falls back. A call allocates one buffer for
+its outputs. The last block of a long run (K7) or of a tree stage (K6)
+finds the others' partials through a scratch per device and stream
+(``fold_scratch``), whose counters each launch leaves zero.
+``REDUCE_LAUNCHES`` counts the calls that launched either kernel,
+``VARIANT_LAUNCHES`` the same by (kernel, variant tag), kernel
+``"keyed_fold"`` or ``"tree_reduce"``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,11 +74,29 @@ VARIANT_LAUNCHES: Dict[Tuple[str, str], int] = {}
 _count_lock = threading.Lock()
 
 INT32_MAX = 2**31 - 1
-TREE_THREADS = 256  # reduce_fold.cuh: WF_TREE_THREADS
-TREE_SMEM = 32768   # reduce_fold.cuh: WF_TREE_SMEM, a block's staged rows
-# K6's scratch per (device index, stream): [counters (zeroed when made;
-# the kernel leaves them zero), partials]
-_TREE: Dict[Tuple[Optional[int], int], list] = {}
+#: rows, slots and output rows stay below this: the kernels' thread index
+#: (a row past the last, a block of threads on) stays within int32
+ROW_LIMIT = 2**31 - 256
+#: rows K6 takes, at most (the power of two it pads to is an int32)
+TREE_ROW_LIMIT = 2**30
+FOLD_THREADS = 128  # reduce_fold.cuh: WF_FOLD_THREADS, both kernels' blocks
+WARP_ROWS = 32      # reduce_fold.cuh: WF_FOLD_WARP_ROWS, K7's warp regime
+MAX_GATHER = 8      # reduce_fold.cuh: WF_MAX_GATHER
+#: K7: a run of this many rows or more is folded by the chunk blocks (the
+#: warp regime below it); the chunk blocks take CHUNK_ROWS sorted rows
+#: each (a power of two, at most BLOCK_ROWS). From the regimes' sweep on
+#: an H100 (scripts/bench_torch_reduce.py; PERF.md): the warp
+#: regime took 0.0045 ms at runs of 768 rows and 0.0055 at 1,024, the
+#: chunk blocks 0.0052-0.0053 at any length, 256-row chunks the best or
+#: tied from 256 rows up
+BLOCK_ROWS = 1024
+CHUNK_ROWS = 256
+_GATHERED = (torch.int32, torch.float32)
+# the names of the source rows and the validity in a Call's buffer layout
+_SRC, _VALID = "\0src", "\0valid"
+# the scratch per (device index, stream): [counters (zeroed when made;
+# each launch leaves them zero), partials]
+_SCRATCH: Dict[Tuple[Optional[int], int], list] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -216,76 +244,101 @@ def prepare(combine: Callable, fields: Dict[str, torch.Tensor],
             rows: int = 0) -> Optional[FoldVariant]:
     """On a card: trace the combine over columns like ``fields`` and load
     its library (raising ``WindFlowError`` for a combine the kernels
-    cannot take), and with ``rows`` reserve K7's and K6's scratch for
-    batches of that many rows on the current stream, so a replica's first
-    batch finds both. Nothing on the CPU (None)."""
+    cannot take), and with ``rows`` reserve the scratch for batches of
+    that many rows (and at most that many slots) on the current stream,
+    so a replica's first batch finds it. Nothing on the CPU (None)."""
     dev = next(iter(fields.values())).device
     if dev.type != "cuda":
         return None
-    fv = fold_variant(combine, fields)
-    fv.variant.load()
+    call = _call_plan(combine, fields)
     if rows > 0:
-        fs.reserve_ingest_scratch(dev, rows)
-        nf = len(fv.planes) + 2
-        counters, parts = tree_words(rows, nf)
-        tree_scratch(dev, fs._current_stream(dev), counters, parts)
-    return fv
+        fold_scratch(dev, _stream(dev), *scratch_words(rows, call.nf))
+    return call.fv
 
 
 # ---------------------------------------------------------------------------
-# K6's launch plan and scratch
+# the launch geometry and the scratch
 # ---------------------------------------------------------------------------
-def tree_rows_max(nf: int) -> int:
-    """Rows a K6 block stages, at most, at ``nf`` words a row (the
-    planes, the source row and the validity): a power of two within
-    TREE_SMEM (``reduce_fold.cuh``: tree_rows_max)."""
-    r = 1
-    while 2 * r * nf * 4 <= TREE_SMEM:
-        r *= 2
-    return r
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
 
 
-def tree_plan(n: int, nf: int) -> Tuple[int, int, int]:
-    """``(log2 P, log2 L, log2 Lu)`` of K6 over ``n`` rows: P level-1
-    blocks of L rows (P * L the power of two the rows pad to), later
-    levels' blocks of at most Lu partials. A block takes at least 1,024
-    rows (four a thread) and a 256th of the rows."""
-    m = 1 << max(0, n - 1).bit_length()
-    lmax = tree_rows_max(nf)
-    L = min(m, lmax, max(4 * TREE_THREADS, m >> 8))
-    return (m // L).bit_length() - 1, L.bit_length() - 1, \
-        lmax.bit_length() - 1
+def tree_rows(nf: int) -> int:
+    """Rows a K6 thread folds in registers at the first stage, at ``nf``
+    words a row (the planes, the source row and the validity;
+    ``reduce_fold.cuh``: tree_rows)."""
+    return 4 if nf <= 6 else 2 if nf <= 12 else 1
 
 
+def tree_parts(nf: int) -> int:
+    """Partials a K6 thread folds in registers at a later stage
+    (``reduce_fold.cuh``: tree_parts)."""
+    return (32 if nf <= 3 else 16 if nf <= 6 else 8 if nf <= 12
+            else 4 if nf <= 24 else 2)
+
+
+def tree_stages(n: int, nf: int) -> Tuple[int, ...]:
+    """K6's stages over ``n`` rows of ``nf`` words: the blocks of each,
+    the first stage's the launch's grid, the last 1. The rows pad to a
+    power of two m; the first stage's blocks take FOLD_THREADS *
+    tree_rows rows each (one block where m is no more), a later stage's
+    the 32 partials a block of the stage before publishes, FOLD_THREADS *
+    tree_parts a block."""
+    m = _pow2_at_least(n)
+    per = FOLD_THREADS * tree_rows(nf)
+    stages = [m // per if m > per else 1]
+    while stages[-1] > 1:
+        q = 32 * stages[-1]
+        per = FOLD_THREADS * tree_parts(nf)
+        stages.append(q // per if q > per else 1)
+    return tuple(stages)
+
+
+@functools.lru_cache(maxsize=256)
 def tree_words(n: int, nf: int) -> Tuple[int, int]:
     """Words of K6's scratch over ``n`` rows of ``nf`` words: the
-    counters (a class of each level after the first) and the partials
-    (``nf`` words a class of each level but the last)."""
-    log2P, _, log2Lu = tree_plan(n, nf)
-    c, counters, parts = 1 << log2P, 0, 0
-    while c > 1:
-        parts += c * nf
-        c //= min(c, 1 << log2Lu)
-        counters += c
-    return counters, parts
+    counters (a block of each stage after the first) and the partials
+    (``nf`` planes of 32 a block of each stage but the last)."""
+    stages = tree_stages(n, nf)
+    return sum(stages[1:]), sum(nf * 32 * b for b in stages[:-1])
 
 
-def tree_scratch(dev: torch.device, stream: int, counters: int, parts: int
+def chunk_blocks(n: int, max_run: Optional[int],
+                 block_rows: int = BLOCK_ROWS,
+                 chunk_rows: int = CHUNK_ROWS) -> int:
+    """K7's chunk blocks over ``n`` sorted rows: one a chunk of
+    ``chunk_rows``, none where the longest run (``max_run``, None where
+    the caller does not know it) is shorter than ``block_rows``."""
+    if max_run is not None and max_run < block_rows:
+        return 0
+    return -(-n // chunk_rows)
+
+
+def scratch_words(n: int, nf: int) -> Tuple[int, int]:
+    """Words of the scratch that covers K6 over ``n`` rows and K7 over
+    ``n`` rows in at most ``n`` slots with chunk blocks, at ``nf`` words a
+    row: ``(counters, partials)``; K7's counters are a word a slot, its
+    partials two of ``nf`` words a chunk."""
+    tc, tp = tree_words(n, nf)
+    return max(tc, n), max(tp, 2 * nf * -(-n // CHUNK_ROWS))
+
+
+def fold_scratch(dev: torch.device, stream: int, counters: int, parts: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6's scratch on ``dev`` for ``stream``: ``(counters, partials)``
-    int32 buffers of at least the given words. One pair per device and
-    stream: launches on one stream run in order, and each leaves its
-    counters zero, so the counters are zeroed only when made (a power of
-    two of words); the partials are never read before a launch writes
-    them, so they grow with no fill."""
+    """The scratch of K6 and K7 on ``dev`` for ``stream``: ``(counters,
+    partials)`` int32 buffers of at least the given words. One pair per
+    device and stream: launches on one stream run in order, and each
+    leaves its counters zero, so the counters are zeroed only when made
+    (a power of two of words); the partials are never read before a
+    launch writes them, so they grow with no fill."""
     key = (dev.index, stream)
     with _count_lock:
-        ent = _TREE.get(key)
+        ent = _SCRATCH.get(key)
         if ent is None:
-            ent = _TREE[key] = [torch.zeros(0, dtype=torch.int32,
-                                            device=dev),
-                                torch.empty(0, dtype=torch.int32,
-                                            device=dev)]
+            ent = _SCRATCH[key] = [torch.zeros(0, dtype=torch.int32,
+                                               device=dev),
+                                   torch.empty(0, dtype=torch.int32,
+                                               device=dev)]
         if ent[0].numel() < max(counters, 1):
             ent[0] = torch.zeros(fs._pow2(counters), dtype=torch.int32,
                                  device=dev)
@@ -295,22 +348,32 @@ def tree_scratch(dev: torch.device, stream: int, counters: int, parts: int
         return ent[0], ent[1]
 
 
+def run_starts(skeys: torch.Tensor, n_slots: int,
+               slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each slot's first sorted row, and the live rows' end, on the
+    device of the ascending ``skeys``: int32, ``n_slots + 1``, one
+    ``searchsorted`` (``slots``: ``0..n_slots`` of ``skeys``' dtype, which
+    a caller may keep)."""
+    if slots is None:
+        slots = torch.arange(n_slots + 1, dtype=skeys.dtype,
+                             device=skeys.device)
+    return torch.searchsorted(skeys, slots, out_int32=True)
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 def _bind(lib: ctypes.CDLL) -> None:
+    """Each kernel's C entry takes its pointers and its ints packed in
+    two arrays, then the fieldwise op codes (``reduce_fold.cuh``:
+    keyed_fold_call, tree_reduce_call)."""
     if getattr(lib, "_wf_reduce_bound", False):
         return
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    pvp, pci = ctypes.POINTER(vp), ctypes.POINTER(ci)
-    lib.wf_keyed_fold.argtypes = [pvp, pci, ci, vp, vp, ci, vp, ci, ci, pvp,
-                                  vp, vp, ci, vp, ci, vp, ci, ctypes.c_uint,
-                                  vp]
-    lib.wf_keyed_fold.restype = ci
-    lib.wf_tree_reduce.argtypes = [pvp, pci, ci, vp, ci, ci, ci, ci, pvp, vp,
-                                   vp, vp, ci, vp, ci, vp]
-    lib.wf_tree_reduce.restype = ci
-    lib.wf_error_string.argtypes = [ci]
+    pvp, pci = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+    for fn in (lib.wf_keyed_fold, lib.wf_tree_reduce):
+        fn.argtypes = [pvp, pci, pci]
+        fn.restype = ctypes.c_int
+    lib.wf_error_string.argtypes = [ctypes.c_int]
     lib.wf_error_string.restype = ctypes.c_char_p
     lib._wf_reduce_bound = True
 
@@ -330,7 +393,7 @@ def _check_columns(fields: Dict[str, torch.Tensor], n: int,
                    dev: torch.device) -> None:
     if not fields:
         raise WindFlowError("reduce_fold: the batch has no columns")
-    if n > INT32_MAX - 1:
+    if n >= ROW_LIMIT:
         raise WindFlowError(f"reduce_fold: {n} rows overflow the int32 "
                             "row index")
     for f, t in fields.items():
@@ -340,18 +403,90 @@ def _check_columns(fields: Dict[str, torch.Tensor], n: int,
                 f"got {tuple(t.shape)} on {t.device}")
 
 
-def _planes(fv: FoldVariant, fields: Dict[str, torch.Tensor], n: int,
-            dev: torch.device) -> Dict[str, torch.Tensor]:
+@dataclass(frozen=True)
+class Call:
+    """What a launch needs of a combine over one column signature, made
+    once (``_call_plan``): its ``FoldVariant`` and loaded library, the
+    fieldwise op codes, the columns that are planes, those the kernel
+    gathers and those ``index_select`` gathers, and the output buffer's
+    layout (the 4-byte planes, the source row and the gathered columns,
+    then the bool planes and the validity)."""
+    fv: FoldVariant
+    lib: ctypes.CDLL
+    kinds: Optional[ctypes.Array]
+    planes: Tuple[str, ...]
+    gathered: Tuple[str, ...]
+    selected: Tuple[str, ...]
+    words: Tuple[Tuple[str, torch.dtype], ...]
+    flags: Tuple[str, ...]
+
+    @property
+    def nf(self) -> int:
+        """Words a row of the kernels' fold: the planes, the source row
+        and the validity."""
+        return len(self.planes) + 2
+
+
+def make_call(combine: Callable, fields: Dict[str, torch.Tensor],
+              lib: ctypes.CDLL) -> Call:
+    """The combine's ``Call`` over columns like ``fields`` with its
+    library ``lib`` (``fold_variant(...).variant.load()``, or a host build
+    of its source)."""
+    fv = fold_variant(combine, fields)
+    _bind(lib)
     planes = {f: fields[f] for f in fv.planes}
-    for f, t in planes.items():
-        _need(f"column {f!r}", t, fr.PLANE_DTYPES, n, dev)
-    return planes
+    gathered = tuple(f for f in fv.passed if fields[f].dim() == 1
+                     and fields[f].dtype in _GATHERED)[:MAX_GATHER]
+    words = tuple((f, t.dtype) for f, t in planes.items()
+                  if t.dtype is not torch.bool)
+    return Call(fv, lib, fs._kinds(fv.variant, combine, planes), fv.planes,
+                gathered, tuple(f for f in fv.passed if f not in gathered),
+                words + ((_SRC, torch.int32),)
+                + tuple((f, fields[f].dtype) for f in gathered),
+                tuple(f for f, t in planes.items() if t.dtype is torch.bool)
+                + (_VALID,))
+
+
+def _call_plan(combine: Callable, fields: Dict[str, torch.Tensor]) -> Call:
+    """``make_call`` with the variant's own library: traced and loaded
+    once per column signature, cached on the combine."""
+    key = _signature(fields)
+    cache = getattr(combine, "_wf_reduce_calls", None)
+    if cache is not None and key in cache:
+        return cache[key]
+    call = make_call(combine, fields,
+                     fold_variant(combine, fields).variant.load())
+    try:
+        if cache is None:
+            cache = combine._wf_reduce_calls = {}
+        cache[key] = call
+    except (AttributeError, TypeError):
+        pass  # an object without attributes is planned on every call
+    return call
+
+
+def _outputs(call: Call, rows: int, dev: torch.device):
+    """One allocation carved into the kernel's outputs: ``(columns by
+    name, validity, source rows)``: an int32 row each 4-byte output, then
+    rows enough for the bool outputs (``rows`` bytes each)."""
+    n4, n1 = len(call.words), len(call.flags)
+    buf = torch.empty((n4 + (n1 + 3) // 4, rows), dtype=torch.int32,
+                      device=dev)
+    w = buf.unbind(0)
+    flags = ((w[n4].view(torch.bool)[:rows],) if n1 == 1 else
+             buf[n4:].view(torch.bool).view(-1)[:n1 * rows]
+             .view(n1, rows).unbind(0))
+    out = {f: t if dt is torch.int32 else t.view(dt)
+           for (f, dt), t in zip(call.words, w)}
+    out.update(zip(call.flags, flags))
+    return out, out.pop(_VALID), out.pop(_SRC)
 
 
 def _finish(fields: Dict[str, torch.Tensor], out: Dict[str, torch.Tensor],
             src: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The output columns in the batch's order: the kernel's planes, and
-    each pass-through column gathered once by the source rows."""
+    """The output columns in the batch's order: the kernel's (its planes
+    and the columns it gathered), and each other column gathered once by
+    the source rows."""
     return {f: out[f] if f in out else t.index_select(0, src)
             for f, t in fields.items()}
 
@@ -364,42 +499,82 @@ def _count(kernel: str, tag: str) -> None:
             VARIANT_LAUNCHES.get((kernel, tag), 0) + 1
 
 
-def launch_keyed_fold(lib: ctypes.CDLL, fv: FoldVariant, combine: Callable,
-                      fields: Dict[str, torch.Tensor], order: torch.Tensor,
-                      skeys: torch.Tensor, n_slots: int,
+def _packed(call: Call, fields: Dict[str, torch.Tensor],
+            out: Dict[str, torch.Tensor], tail: Sequence[Optional[int]]
+            ) -> ctypes.Array:
+    """A launch's pointers as its C entry takes them: the planes, their
+    outputs, the gathered columns and their outputs, then ``tail``."""
+    ptrs = ([fields[f].data_ptr() for f in call.planes]
+            + [out[f].data_ptr() for f in call.planes]
+            + [fields[f].data_ptr() for f in call.gathered]
+            + [out[f].data_ptr() for f in call.gathered] + list(tail))
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw current stream of ``dev``, the current card: PyTorch's CUDA
+    builds bind ``_cuda_getCurrentRawStream``, which skips the Stream
+    object ``torch.cuda.current_stream`` builds (13 of a call's 61 us of
+    host time on an H100's host, PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def _on_device(dev: torch.device, fn):
+    """``fn()`` with ``dev`` the current card (a launch goes to the
+    current card's stream)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn()
+    with torch.cuda.device(dev):
+        return fn()
+
+
+def launch_keyed_fold(call: Call, fields: Dict[str, torch.Tensor],
+                      order: torch.Tensor, skeys: torch.Tensor,
+                      starts: torch.Tensor, n_slots: int,
                       valid: Optional[torch.Tensor], out_rows: int,
-                      stream: int
+                      blocks: int, stream: int,
+                      block_rows: int = BLOCK_ROWS,
+                      chunk_rows: int = CHUNK_ROWS
                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """K7's launch on checked arguments (``keyed_fold``), on ``stream``
-    of the tensors' device, with K2+K3's scratch for that stream."""
+    of the tensors' device, with ``blocks`` chunk blocks
+    (``chunk_blocks``) of ``chunk_rows`` rows for the runs of
+    ``block_rows`` or more, and the scratch for that stream."""
     dev, n = order.device, order.numel()
-    planes = {f: fields[f] for f in fv.planes}
-    status, rows, seq = fs.ingest_scratch(dev, stream, n, len(planes) + 2)
-    out = {f: torch.empty(out_rows, dtype=t.dtype, device=dev)
-           for f, t in planes.items()}
-    out_valid = torch.empty(out_rows, dtype=torch.bool, device=dev)
-    src = torch.empty(out_rows, dtype=torch.int32, device=dev)
-    _bind(lib)
-    err = lib.wf_keyed_fold(
-        fs._ptrs(planes.values()), fs._kinds(fv.variant, combine, planes),
-        len(planes), None if valid is None else valid.data_ptr(),
-        skeys.data_ptr(), skeys.element_size(), order.data_ptr(), n,
-        n_slots, fs._ptrs(out.values()), out_valid.data_ptr(),
-        src.data_ptr(), out_rows, status.data_ptr(), status.numel(),
-        rows.data_ptr(), rows.numel(), seq, stream)
-    fs._raise_on(lib, err, "keyed fold")
+    out, out_valid, src = _outputs(call, out_rows, dev)
+    counters = parts = None
+    if blocks:
+        counters, parts = fold_scratch(
+            dev, stream, n_slots, 2 * call.nf * blocks)
+    err = call.lib.wf_keyed_fold(
+        _packed(call, fields, out, (
+            None if valid is None else valid.data_ptr(), skeys.data_ptr(),
+            order.data_ptr(), starts.data_ptr(), out_valid.data_ptr(),
+            src.data_ptr(), None if counters is None else counters.data_ptr(),
+            None if parts is None else parts.data_ptr(), stream)),
+        (ctypes.c_int * 11)(
+            len(call.planes), len(call.gathered), skeys.element_size(), n,
+            n_slots, out_rows, block_rows, chunk_rows.bit_length() - 1,
+            blocks, 0 if counters is None else counters.numel(),
+            0 if parts is None else parts.numel()), call.kinds)
+    fs._raise_on(call.lib, err, "keyed fold")
     return _finish(fields, out, src), out_valid
 
 
 def keyed_fold(combine: Callable, fields: Dict[str, torch.Tensor],
                order: torch.Tensor, skeys: torch.Tensor, n_slots: int,
                valid: Optional[torch.Tensor] = None,
-               out_rows: Optional[int] = None
+               out_rows: Optional[int] = None,
+               starts: Optional[torch.Tensor] = None,
+               max_run: Optional[int] = None
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """K7 (see the module docstring): ``(out, out_valid)`` of ``out_rows``
     rows (default ``n_slots``) from the columns ``fields`` (one row each
     per entry of ``order``), the int32 ``order``, the ascending int16 /
-    int32 slots ``skeys`` and the optional bool ``valid``."""
+    int32 slots ``skeys``, the optional bool ``valid``, and on a card the
+    int32 ``starts`` (``n_slots + 1``; made with ``run_starts`` where
+    None) and the longest run ``max_run`` where known."""
     dev = order.device
     n = order.numel()
     rows = n_slots if out_rows is None else out_rows
@@ -407,76 +582,90 @@ def keyed_fold(combine: Callable, fields: Dict[str, torch.Tensor],
     _need("skeys", skeys, fs.COMP_DTYPES, n, dev)
     if valid is not None:
         _need("valid", valid, (torch.bool,), n, dev)
-    if not 0 <= n_slots <= rows or n_slots > INT32_MAX - 1 \
-            or rows > INT32_MAX - 1:
+    if not 0 <= n_slots <= rows or rows >= ROW_LIMIT:
         raise WindFlowError(f"keyed_fold: {n_slots} slots into {rows} "
-                            "output rows (slots + 1 and rows within int32)")
+                            "output rows (slots and rows within int32)")
     _check_columns(fields, n, dev)
     if dev.type == "cpu":
         return keyed_fold_ref(combine, fields, order, skeys, n_slots, valid,
                               rows)
     fs._cuda_or_raise("keyed_fold", dev)
-    fv = fold_variant(combine, fields)
-    _planes(fv, fields, n, dev)
+    call = _call_plan(combine, fields)
+    for f in call.planes + call.gathered:
+        _need(f"column {f!r}", fields[f], fr.PLANE_DTYPES, n, dev)
     if n_slots > torch.iinfo(skeys.dtype).max:
         raise WindFlowError(f"keyed_fold: the sentinel {n_slots} does not "
                             f"fit {skeys.dtype}")
     if n == 0 or rows == 0:  # no row to fold: nothing to launch
         return empty_fold(fields, rows, dev)
-    lib = fv.variant.load()
-    with torch.cuda.device(dev):
-        res = launch_keyed_fold(lib, fv, combine, fields, order, skeys,
-                                n_slots, valid, rows,
-                                fs._current_stream(dev))
-    _count("keyed_fold", fv.tag)
+    if starts is None:
+        starts = run_starts(skeys, n_slots)
+    _need("starts", starts, (torch.int32,), n_slots + 1, dev)
+    blocks = chunk_blocks(n, max_run)
+
+    def go():
+        return launch_keyed_fold(call, fields, order, skeys, starts,
+                                 n_slots, valid, rows, blocks, _stream(dev))
+
+    res = _on_device(dev, go)
+    _count("keyed_fold", call.fv.tag)
     return res
 
 
-def launch_tree_reduce(lib: ctypes.CDLL, fv: FoldVariant, combine: Callable,
-                       fields: Dict[str, torch.Tensor], valid: torch.Tensor,
-                       stream: int
+def launch_tree_reduce(call: Call, fields: Dict[str, torch.Tensor],
+                       valid: Optional[torch.Tensor], size: int, stream: int
                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """K6's launch on checked arguments (``tree_reduce``), on ``stream``
-    of the tensors' device, with its scratch for that stream."""
-    dev, n = valid.device, valid.numel()
-    planes = {f: fields[f] for f in fv.planes}
-    nf = len(planes) + 2
-    log2P, log2L, log2Lu = tree_plan(n, nf)
-    counters, parts = tree_scratch(dev, stream, *tree_words(n, nf))
-    out = {f: torch.empty(1, dtype=t.dtype, device=dev)
-           for f, t in planes.items()}
-    out_valid = torch.empty(1, dtype=torch.bool, device=dev)
-    src = torch.empty(1, dtype=torch.int32, device=dev)
-    _bind(lib)
-    err = lib.wf_tree_reduce(
-        fs._ptrs(planes.values()), fs._kinds(fv.variant, combine, planes),
-        len(planes), valid.data_ptr(), n, log2P, log2L, log2Lu,
-        fs._ptrs(out.values()), out_valid.data_ptr(), src.data_ptr(),
-        counters.data_ptr(), counters.numel(), parts.data_ptr(),
-        parts.numel(), stream)
-    fs._raise_on(lib, err, "tree reduce")
+    of the tensors' device, with the scratch for that stream."""
+    first = fields[next(iter(fields))]
+    dev, n = first.device, first.shape[0]
+    out, out_valid, src = _outputs(call, 1, dev)
+    counters, parts = fold_scratch(dev, stream, *tree_words(n, call.nf))
+    err = call.lib.wf_tree_reduce(
+        _packed(call, fields, out, (
+            None if valid is None else valid.data_ptr(), out_valid.data_ptr(),
+            src.data_ptr(), counters.data_ptr(), parts.data_ptr(), stream)),
+        (ctypes.c_int * 6)(len(call.planes), len(call.gathered), n, size,
+                           counters.numel(), parts.numel()), call.kinds)
+    fs._raise_on(call.lib, err, "tree reduce")
     return _finish(fields, out, src), out_valid
 
 
 def tree_reduce(combine: Callable, fields: Dict[str, torch.Tensor],
-                valid: torch.Tensor
+                valid: Optional[torch.Tensor] = None,
+                size: Optional[int] = None
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """K6 (see the module docstring): ``(out, out_valid)``, one row, of
-    the columns ``fields`` under the bool ``valid`` (one per row)."""
-    dev = valid.device
-    n = valid.numel()
-    _need("valid", valid, (torch.bool,), n, dev)
+    the columns ``fields`` under the bool ``valid`` (one per row), or,
+    with ``size`` instead, of their first ``size`` rows."""
+    if (valid is None) == (size is None):
+        raise WindFlowError("tree_reduce: give the valid mask or the size, "
+                            "one of them")
+    if valid is not None:
+        dev, n = valid.device, valid.numel()
+        _need("valid", valid, (torch.bool,), n, dev)
+    else:
+        if not fields:
+            raise WindFlowError("reduce_fold: the batch has no columns")
+        first = next(iter(fields.values()))
+        dev, n = first.device, first.shape[0]
+    if size is not None and not 0 <= size <= n:
+        raise WindFlowError(f"tree_reduce: size {size} of {n} rows")
     _check_columns(fields, n, dev)
     if dev.type == "cpu":
+        if valid is None:
+            valid = torch.arange(n, device=dev) < size
         return tree_reduce_ref(combine, fields, valid)
     fs._cuda_or_raise("tree_reduce", dev)
-    fv = fold_variant(combine, fields)
-    _planes(fv, fields, n, dev)
-    if n == 0:  # no row to fold: nothing to launch
+    if n > TREE_ROW_LIMIT:
+        raise WindFlowError(f"tree_reduce: {n} rows, more than "
+                            f"{TREE_ROW_LIMIT}")
+    call = _call_plan(combine, fields)
+    for f in call.planes + call.gathered:
+        _need(f"column {f!r}", fields[f], fr.PLANE_DTYPES, n, dev)
+    if n == 0 or size == 0:  # no row to fold: nothing to launch
         return empty_fold(fields, 1, dev)
-    lib = fv.variant.load()
-    with torch.cuda.device(dev):
-        res = launch_tree_reduce(lib, fv, combine, fields, valid,
-                                 fs._current_stream(dev))
-    _count("tree_reduce", fv.tag)
+    res = _on_device(dev, lambda: launch_tree_reduce(
+        call, fields, valid, n if size is None else size, _stream(dev)))
+    _count("tree_reduce", call.fv.tag)
     return res

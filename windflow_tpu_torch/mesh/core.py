@@ -99,7 +99,7 @@ from ..kernels.ffat_step import (comb_valid, fire_query, ingest_fold,
                                  sort_rows)
 from ..gpu.schema import broadcast_scalar_fields, canonical
 from ..kernels.forest_rebuild import forest_rebuild
-from ..kernels.reduce_fold import keyed_fold
+from ..kernels.reduce_fold import keyed_fold, run_starts
 from ..kernels.grid_scan import (HEAVY_ROWS, MAX_HEAVY_BLOCKS, GridStep,
                                   KeyRows, grid_walk, heavy_keys_device)
 from ..pytree import tree_flatten, tree_map, tree_unflatten
@@ -1461,8 +1461,10 @@ def sharded_keyed_reduce(mesh: KeyMesh, combine, key_capacity: int,
     each slot's rows on its owner shard (stacked, one fold over each
     group's received lanes sorted by slot: K7, ``kernels/reduce_fold.py``
     ``keyed_fold``, with the group's slot count as the sentinel of the
-    invalid lanes, on the group device's current stream). Fields the
-    combine does not return pass through unchanged.
+    invalid lanes and each slot's first sorted lane from one
+    ``searchsorted`` of the sorted slots, with no host sync, on the group
+    device's current stream). Fields the combine does not return pass
+    through unchanged.
 
     Returns ``(step, meta)``: ``step(slots, vals) -> (res, touched,
     n_tuples)`` over each group's operands (one group: the global ones),
@@ -1478,10 +1480,9 @@ def sharded_keyed_reduce(mesh: KeyMesh, combine, key_capacity: int,
     if K_pad + 1 > INT32_MAX:
         raise WindFlowError(f"sharded_keyed_reduce: {K_pad} slots overflow "
                             "the int32 slot index")
-    for grp in mesh.groups:
-        # K7's status words for the group's received lanes, made here
-        # rather than in a step
-        reserve_ingest_scratch(grp.device, grp.n * ns * C)
+    # each group's slots 0..K_g, which its starts are searched for
+    slot_ids = [torch.arange(grp.n * k_local + 1, dtype=torch.int32,
+                             device=grp.device) for grp in mesh.groups]
 
     def step(slots, vals):
         routed = _route_flat_groups(mesh, k_local, C, slots, slots, vals)
@@ -1492,7 +1493,9 @@ def sharded_keyed_reduce(mesh: KeyMesh, combine, key_capacity: int,
             gslot = torch.where(valid[G], rs[G] - off if off else rs[G],
                                 K_g).to(torch.int32)
             order, sl = sort_rows(gslot)  # arrival order within a slot
-            res, touched = keyed_fold(combine, rv[G], order, sl, K_g)
+            res, touched = keyed_fold(
+                combine, rv[G], order, sl, K_g,
+                starts=run_starts(sl, K_g, slot_ids[G]))
             res_g.append(res)
             touched_g.append(touched)
         return (_gout(mesh, res_g), _gout(mesh, touched_g),
